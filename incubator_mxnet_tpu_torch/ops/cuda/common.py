@@ -1,0 +1,87 @@
+"""Shared helpers for the port's CUDA kernels: the masking constant, block
+picking, and the kernel builder.
+
+The builder compiles every source under ``csrc/`` in ONE
+``torch.utils.cpp_extension.load`` call, at first use, into
+``build/torch_kernels/`` at the repository root (listed in ``.gitignore``),
+for ``sm_90a``. No source includes a PyTorch header: the binding file
+exports plain C functions that :func:`kernel_library` loads with ctypes, so
+the build takes seconds rather than minutes. Importing this module builds
+nothing and needs no CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["NEG_INF", "pick_block", "kernel_library", "check_launch",
+           "current_stream_handle", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "decode_attention.cu", CSRC / "bindings.cpp")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# every exported function returns a cudaError_t as int
+_SIGNATURES = {
+    "mxt_flash_decode_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _P],
+    "mxt_flash_decode_step_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _P],
+}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def pick_block(dim: int, preferred: int) -> int:
+    """Largest power-of-two block <= preferred that divides dim (>=1)."""
+    b = preferred
+    while b > 1 and dim % b != 0:
+        b //= 2
+    return max(b, 1)
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The compiled kernel library, built on the first call (and found in
+    ``build/torch_kernels/`` unchanged on later processes: ``load`` rebuilds
+    only when a source or flag changed)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            from torch.utils.cpp_extension import load
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            path = load(name="mxtpu_torch_kernels",
+                        sources=[str(s) for s in SOURCES],
+                        build_directory=str(BUILD_DIR),
+                        extra_cuda_cflags=CUDA_FLAGS,
+                        is_python_module=False, verbose=False)
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mxt_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check_launch(code: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if code != 0:
+        msg = _lib.mxt_cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed ({code}: {msg})")
+
+
+def current_stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as an int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,48 @@
+"""The PyTorch port stands alone: importing every module of
+``incubator_mxnet_tpu_torch`` pulls in neither JAX nor the JAX package,
+and no source file of the port names either. The import check runs in a
+fresh interpreter, since this test process has JAX loaded already."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import incubator_mxnet_tpu_torch
+
+PKG_DIR = Path(incubator_mxnet_tpu_torch.__file__).resolve().parent
+REPO = PKG_DIR.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import incubator_mxnet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "incubator_mxnet_tpu"
+             or m.startswith("incubator_mxnet_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "incubator_mxnet_tpu_torch.serving" in res["modules"]
+    assert "incubator_mxnet_tpu_torch.ops.cuda.flash_attention" in \
+        res["modules"]
+    assert res["bad"] == []
+
+
+def test_port_sources_name_neither_jax_nor_the_jax_package():
+    files = sorted(PKG_DIR.rglob("*.py")) + sorted(PKG_DIR.rglob("*.cu")) \
+        + sorted(PKG_DIR.rglob("*.cpp"))
+    assert len(files) > 10
+    for f in files:
+        text = f.read_text()
+        assert "import jax" not in text, f
+        assert "from jax" not in text, f
+        assert "incubator_mxnet_tpu." not in text, f

@@ -23,7 +23,8 @@ __all__ = ["NEG_INF", "pick_block", "kernel_library", "check_launch",
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "decode_attention.cu", CSRC / "bindings.cpp")
+SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
+           CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -36,6 +37,9 @@ _SIGNATURES = {
                               _F, _P],
     "mxt_flash_decode_step_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _P],
+    "mxt_flash_fwd": [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
+    "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 
 _lib = None

@@ -1,8 +1,31 @@
-"""Decode-step attention: plain PyTorch versions and the CUDA kernels.
+"""Flash attention: plain PyTorch versions and the CUDA kernels.
 
-Counterparts of the decode half of
-``incubator_mxnet_tpu/ops/pallas/flash_attention.py``, with the same
-signatures and layouts:
+Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``, with
+the same signatures and layouts.
+
+Training (forward with its log-sum-exp, and the two-pass backward):
+
+* ``mha_reference`` — plain attention, (B, H, T, d);
+* ``flash_forward_reference`` / ``flash_backward_reference`` — plain twins
+  of the kernels ``flash_fwd`` / ``flash_bwd_dq`` + ``flash_bwd_dkv``;
+* ``flash_attention_packed`` (q/k/v (B, T, H*d), the layout the QKV
+  projection emits), ``flash_attention`` (head-major (B, H, T, d)) and
+  ``flash_attention_with_lse``: the public ops, differentiable through a
+  ``torch.autograd.Function`` whose backward forms delta = sum(g * out) per
+  head in PyTorch, as the reference does outside its kernels, and then
+  runs dq and dk/dv.
+
+Every training function takes both layouts: given ``n_heads`` its tensors
+are packed (B, T, H*d) with lse/delta (B, T, H); without, head-major
+(B, H, T, d) with lse/delta (B, H, T). The layout also picks the
+reference's rounding, since its packed and head-major kernels round
+differently: packed scales q once in its own type before Q.K^T and dq
+once at the end; head-major scales the float32 scores and ds. In both, the
+softmax weights are cast to v's type before P.V and ds to q's type before
+its products, masking uses NEG_INF with the top-left causal rule
+row >= col, and lse = m + log(max(l, 1e-30)).
+
+Decode (one query row per slot and head over a KV cache):
 
 * contiguous cache — ``decode_attention_reference`` (plain),
   ``flash_decode_step`` (kernel), ``decode_attention`` (dispatch);
@@ -12,16 +35,16 @@ signatures and layouts:
   q (S, H, d), k/v (n_pages + 1, H, page_len, d), block_tables
   (S, max_pages) int32, lengths (S,).
 
-The dispatchers take the plain version only for tensors on the CPU. For
-CUDA tensors they launch the kernel, which raises on geometry it does not
-take; nothing falls back. Each kernel wrapper counts its launches in a
-plain int attribute (``flash_decode_step.launches``), bumped only where it
-launches, so a run can show that its main path went through the kernel.
-
-Both plain versions walk the cache in pages with the same online-softmax
+Both decode twins walk the cache in pages with the same online-softmax
 update the kernels (and the TPU kernels) use: the query is scaled in its
 own type, scores and the running max/sum/accumulator are float32, and the
 softmax weights are cast to the value type before the P.V product.
+
+The dispatchers take the plain version only for tensors on the CPU. For
+CUDA tensors they launch the kernel, which raises on geometry it does not
+take; nothing falls back. Each kernel wrapper counts its launches in a
+plain int attribute (``flash_fwd.launches``), bumped only where it
+launches, so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -33,13 +56,19 @@ import torch
 from .common import (NEG_INF, check_launch, current_stream_handle,
                      kernel_library, pick_block)
 
-__all__ = ["decode_attention_reference", "flash_decode_step",
-           "decode_attention", "paged_decode_attention_reference",
-           "flash_decode_step_paged", "paged_decode_attention",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["mha_reference", "flash_forward_reference",
+           "flash_backward_reference", "flash_fwd", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_attention_packed", "flash_attention",
+           "flash_attention_with_lse", "flash_attention_packed_viable",
+           "flash_kernel_viable", "decode_attention_reference",
+           "flash_decode_step", "decode_attention",
+           "paged_decode_attention_reference", "flash_decode_step_paged",
+           "paged_decode_attention", "launch_counts", "reset_launch_counts"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCK = 8192       # one page of scores lives in shared memory
+_FLASH_HEAD_DIMS = (32, 64, 128)
+_FLASH_TILE = 64        # q and k rows per tile in the kernels and twins
 
 
 # ------------------------------------------------------------ plain versions
@@ -229,15 +258,270 @@ def flash_decode_step_paged(q, k, v, block_tables, lengths,
 flash_decode_step_paged.launches = 0
 
 
+# ------------------------------------------------- training: plain versions
+def mha_reference(q, k, v, causal: bool = False,
+                  scale: Optional[float] = None):
+    """Plain attention over (B, H, T, d): scores in q's type, then
+    float32, masked top-left (row >= col) with NEG_INF; the softmax is cast
+    to q's type before P.V."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    if causal:
+        qlen, klen = s.shape[-2], s.shape[-1]
+        keep = (torch.arange(qlen, device=q.device)[:, None]
+                >= torch.arange(klen, device=q.device)[None, :])
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
+
+
+def _head_major(t, n_heads: Optional[int]):
+    """A packed (B, T, H*d) tensor as a (B, H, T, d) view; head-major
+    tensors pass through."""
+    if n_heads is None:
+        return t
+    B, T, HD = t.shape
+    return t.view(B, T, n_heads, HD // n_heads).permute(0, 2, 1, 3)
+
+
+def _packed(t, n_heads: Optional[int]):
+    """Inverse of :func:`_head_major` (a new contiguous tensor)."""
+    if n_heads is None:
+        return t
+    B, H, T, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(B, T, H * d)
+
+
+def _rows_head_major(t, n_heads: Optional[int]):
+    """lse/delta: packed (B, T, H) -> (B, H, T)."""
+    return t if n_heads is None else t.permute(0, 2, 1)
+
+
+def _scores(qs, k, causal: bool, s_mul: float, k0: int = 0):
+    """float32 scores of the (pre-scaled or not) query against k rows
+    [k0, k0 + k.shape[2]), scaled by ``s_mul`` and masked top-left."""
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    if s_mul != 1.0:
+        s = s * s_mul
+    if causal:
+        rows = torch.arange(qs.shape[2], device=qs.device)[:, None]
+        cols = k0 + torch.arange(k.shape[2], device=qs.device)[None, :]
+        s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def _query_and_scale(q, scale: float, prescaled: bool):
+    """(query as float32, the factor left for the scores)."""
+    if prescaled:
+        return _scaled_query(q, scale).float(), 1.0
+    return q.float(), scale
+
+
+def flash_forward_reference(q, k, v, causal: bool = False,
+                            scale: Optional[float] = None,
+                            n_heads: Optional[int] = None):
+    """Plain twin of :func:`flash_fwd`: blockwise online-softmax attention
+    over 64-row k tiles in the kernels' roundings. Packed (with
+    ``n_heads``) or head-major tensors; returns (out in q's type, lse
+    float32)."""
+    qh, kh, vh = (_head_major(t, n_heads) for t in (q, k, v))
+    if scale is None:
+        scale = 1.0 / math.sqrt(qh.shape[-1])
+    qs, s_mul = _query_and_scale(qh, scale, n_heads is not None)
+    B, H, sq, d = qh.shape
+    m = torch.full((B, H, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, sq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, kh.shape[2], _FLASH_TILE):
+        kb = kh[:, :, k0:k0 + _FLASH_TILE]
+        vb = vh[:, :, k0:k0 + _FLASH_TILE]
+        s = _scores(qs, kb, causal, s_mul, k0)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    out = _packed((acc / l_safe).to(q.dtype), n_heads)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return out, (lse.permute(0, 2, 1).contiguous() if n_heads is not None
+                 else lse)
+
+
+def flash_backward_reference(q, k, v, dout, lse, delta, causal: bool = False,
+                             scale: Optional[float] = None,
+                             n_heads: Optional[int] = None):
+    """Plain twin of :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`: (dq,
+    dk, dv) from the forward's lse and delta = sum(dout * out) per head, in
+    the kernels' roundings. Layouts as :func:`flash_forward_reference`."""
+    qh, kh, vh, gh = (_head_major(t, n_heads) for t in (q, k, v, dout))
+    lse_h = _rows_head_major(lse, n_heads)[..., None]
+    delta_h = _rows_head_major(delta, n_heads)[..., None]
+    if scale is None:
+        scale = 1.0 / math.sqrt(qh.shape[-1])
+    prescaled = n_heads is not None
+    qs, s_mul = _query_and_scale(qh, scale, prescaled)
+    p = torch.exp(_scores(qs, kh, causal, s_mul) - lse_h)
+    dp = torch.matmul(gh.float(), vh.float().transpose(-1, -2))
+    ds = p * (dp - delta_h)
+    if not prescaled:
+        ds = ds * scale
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, kh.float())
+    if prescaled:
+        dq = dq * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                      gh.float())
+    return (_packed(dq.to(q.dtype), n_heads), _packed(dk.to(k.dtype), n_heads),
+            _packed(dv.to(v.dtype), n_heads))
+
+
+# ------------------------------------------------------ training: kernels
+def _flash_geometry(name: str, q, k, v, n_heads: Optional[int], *rest):
+    """Checks the operands of a training kernel; returns (layout code, B,
+    H, sq, sk, d)."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if not q.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{q.device}")
+    if n_heads is not None:
+        if q.dim() != 3 or q.shape[2] % n_heads:
+            raise ValueError(f"{name}: packed q {tuple(q.shape)} is not "
+                             f"(B, T, {n_heads} * d)")
+        layout, (B, sq, HD), H = 0, q.shape, n_heads
+        d, sk = HD // H, k.shape[1]
+        kv_shape = (B, sk, HD)
+    else:
+        if q.dim() != 4:
+            raise ValueError(f"{name}: head-major q {tuple(q.shape)} is not "
+                             "(B, H, T, d)")
+        layout, (B, H, sq, d), sk = 1, q.shape, k.shape[2]
+        kv_shape = (B, H, sk, d)
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not supported "
+                         f"{_FLASH_HEAD_DIMS}")
+    if tuple(k.shape) != kv_shape or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} disagree")
+    for t in (k, v) + rest:
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v dtypes differ ({q.dtype}, "
+                        f"{k.dtype}, {v.dtype})")
+    for t in (q, k, v) + rest:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return layout, B, H, sq, sk, d
+
+
+def _check_rows(name: str, dout, lse, delta, q, layout, B, H, sq):
+    rows = (B, sq, H) if layout == 0 else (B, H, sq)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
+                         f"does not match q")
+    for t in (lse, delta):
+        if tuple(t.shape) != rows or t.dtype != torch.float32:
+            raise ValueError(f"{name}: lse/delta must be float32 {rows}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+
+
+def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
+              n_heads: Optional[int] = None):
+    """CUDA flash-attention forward (replaces the Pallas ``_fwd_packed``,
+    ``_fwd_resident`` and ``_fwd_streamed``). Packed (B, T, H*d) with
+    ``n_heads`` or head-major (B, H, T, d); head dim 32, 64 or 128.
+    Returns (out like q, lse float32 (B, T, H) packed / (B, H, T))."""
+    layout, B, H, sq, sk, d = _flash_geometry("flash_fwd", q, k, v, n_heads)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, sq, H) if layout == 0 else (B, H, sq),
+                      dtype=torch.float32, device=q.device)
+    code = kernel_library().mxt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, H, sq, sk, d, layout, int(causal),
+        _DTYPE_CODE[q.dtype], float(scale), current_stream_handle(q))
+    check_launch(code, "flash_fwd")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
+                 scale: Optional[float] = None,
+                 n_heads: Optional[int] = None):
+    """CUDA dq of flash attention from the forward's lse and delta
+    (replaces the Pallas ``_dq_pass_*`` and the dq half of
+    ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`."""
+    layout, B, H, sq, sk, d = _flash_geometry("flash_bwd_dq", q, k, v,
+                                              n_heads, dout, lse, delta)
+    _check_rows("flash_bwd_dq", dout, lse, delta, q, layout, B, H, sq)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dq = torch.empty_like(q)
+    code = kernel_library().mxt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, sq, sk, d,
+        layout, int(causal), _DTYPE_CODE[q.dtype], float(scale),
+        current_stream_handle(q))
+    check_launch(code, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
+                  scale: Optional[float] = None,
+                  n_heads: Optional[int] = None):
+    """CUDA dk and dv of flash attention from the forward's lse and delta
+    (replaces the Pallas ``_dkv_pass_*`` and the dk/dv half of
+    ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`. Returns
+    (dk, dv)."""
+    layout, B, H, sq, sk, d = _flash_geometry("flash_bwd_dkv", q, k, v,
+                                              n_heads, dout, lse, delta)
+    _check_rows("flash_bwd_dkv", dout, lse, delta, q, layout, B, H, sq)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    code = kernel_library().mxt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+        sq, sk, d, layout, int(causal), _DTYPE_CODE[q.dtype], float(scale),
+        current_stream_handle(q))
+    check_launch(code, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+_KERNELS = (flash_decode_step, flash_decode_step_paged, flash_fwd,
+            flash_bwd_dq, flash_bwd_dkv)
+
+
 def launch_counts():
     """{kernel wrapper name: launches so far}."""
-    return {"flash_decode_step": flash_decode_step.launches,
-            "flash_decode_step_paged": flash_decode_step_paged.launches}
+    return {f.__name__: f.launches for f in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    flash_decode_step.launches = 0
-    flash_decode_step_paged.launches = 0
+    for f in _KERNELS:
+        f.launches = 0
 
 
 # -------------------------------------------------------------- dispatchers
@@ -264,3 +548,98 @@ def paged_decode_attention(q, k, v, block_tables, lengths,
                                        scale=scale)
     return paged_decode_attention_reference(q, k, v, block_tables, lengths,
                                             scale=scale)
+
+
+# -------------------------------------------------- training: public ops
+def _flash_forward(q, k, v, causal, scale, n_heads):
+    impl = flash_fwd if q.is_cuda else flash_forward_reference
+    return impl(q, k, v, causal=causal, scale=scale, n_heads=n_heads)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the forward saves
+    (q, k, v, out, lse); the backward forms delta in PyTorch and runs dq
+    and dk/dv. CUDA tensors go through the kernels, CPU tensors through
+    their plain twins."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, n_heads):
+        out, lse = _flash_forward(q, k, v, causal, scale, n_heads)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, n_heads)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, n_heads = ctx.args
+        g = g.contiguous()
+        prod = g.float() * out.float()
+        if n_heads is None:
+            delta = prod.sum(dim=-1)
+        else:
+            B, T, HD = prod.shape
+            delta = prod.view(B, T, n_heads, HD // n_heads).sum(dim=-1)
+        kw = dict(causal=causal, scale=scale, n_heads=n_heads)
+        if q.is_cuda:
+            dq = flash_bwd_dq(q, k, v, g, lse, delta, **kw)
+            dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        else:
+            dq, dk, dv = flash_backward_reference(q, k, v, g, lse, delta,
+                                                  **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_packed_viable(T: int, HD: int, H: int,
+                                  B: int = 32) -> bool:
+    """Can the packed path serve this shape? The reference's layout rules:
+    a packed row width that is a multiple of 128, a head dim that is a
+    multiple of 8, and a sequence that tiles (T % 8 == 0). ``B`` is kept
+    for the reference's signature; the TPU's VMEM budget, which it fed,
+    has no counterpart here."""
+    if HD % 128 or H <= 0 or HD % H or (HD // H) % 8:
+        return False
+    return T % 8 == 0 and pick_block(T, 512) >= 8
+
+
+def flash_kernel_viable(sq: int, sk: int, d: int, itemsize: int = 2) -> bool:
+    """Do both sequence extents tile (a power-of-two block >= 8 divides
+    them)? The reference's shape rule; ``d`` and ``itemsize`` are kept for
+    its signature."""
+    return pick_block(sq, 512) >= 8 and pick_block(sk, 512) >= 8
+
+
+def flash_attention_packed(q, k, v, n_heads: int, causal: bool = False,
+                           scale: Optional[float] = None):
+    """Attention over PACKED (B, T, H*d) tensors, the layout the QKV
+    projection emits. Returns (B, T, H*d); differentiable."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1] // n_heads)
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale, n_heads)
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None):
+    """Blockwise attention over head-major (B, H, T, d) tensors;
+    differentiable. Shapes whose sequence does not tile go to
+    :func:`mha_reference`, as in the reference."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not flash_kernel_viable(q.shape[2], k.shape[2], q.shape[-1]):
+        return mha_reference(q, k, v, causal=causal, scale=scale)
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale, None)
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False,
+                             scale: Optional[float] = None):
+    """(out, lse) over head-major (B, H, T, d) tensors, for merging
+    blocks by their lse (ring attention). Raises ValueError when the
+    sequence does not tile (check :func:`flash_kernel_viable` first)."""
+    if not flash_kernel_viable(q.shape[2], k.shape[2], q.shape[-1]):
+        raise ValueError(
+            f"flash kernel cannot run sq={q.shape[2]} sk={k.shape[2]} "
+            f"d={q.shape[-1]}; use the plain attention")
+    return _flash_forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal, scale, None)

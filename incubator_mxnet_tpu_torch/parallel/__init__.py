@@ -1,1 +1,6 @@
-"""Parallel attention helpers of the PyTorch port."""
+"""Parallel-layer helpers of the PyTorch port: plain attention and the
+single-device MoE FFN."""
+from .moe import moe_layer_dense, top1_gating
+from .ring_attention import attention_reference
+
+__all__ = ["attention_reference", "moe_layer_dense", "top1_gating"]

@@ -1,7 +1,8 @@
-"""Plain attention, the reference the prefill path uses.
+"""Plain attention, the reference the prefill path and the training
+step's ``use_flash_attention=False`` route use.
 
 Only ``attention_reference`` is ported so far; the sequence-parallel ring
-variants wait for the training slice.
+variants wait for the distributed slice (``ROADMAP.md`` A10).
 """
 from __future__ import annotations
 

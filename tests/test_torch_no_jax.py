@@ -34,6 +34,7 @@ def test_importing_the_port_loads_no_jax():
     assert "incubator_mxnet_tpu_torch.serving" in res["modules"]
     assert "incubator_mxnet_tpu_torch.ops.cuda.flash_attention" in \
         res["modules"]
+    assert "incubator_mxnet_tpu_torch.parallel.moe" in res["modules"]
     assert res["bad"] == []
 
 

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card and holds every CUDA kernel
+Drives the port's three main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -10,7 +10,10 @@ of them against its plain PyTorch version:
   cache 512, page 64, 8 slots, bf16, random weights from a seed);
 * single-device LM training through ``make_transformer_train_step`` at the
   same width (batch 32, T 512, bf16 init, causal; the reference's Adam
-  promotes the parameters to float32 after the first step).
+  promotes the parameters to float32 after the first step);
+* the imperative ``nd`` + ``autograd`` API: a user loop over the same LM
+  written with ``nd`` ops (``models/nd_lm.py``), float32, stepped with
+  ``nd.adam_update``.
 
 Phases:
 
@@ -27,8 +30,8 @@ Phases:
    engine; every request must finish with its token budget, every page must
    come back, and each kernel must have been launched by the run (launch
    counters are reset right before each run and read right after); then a
-   torch.profiler breakdown of one decode step (wall time, device busy and
-   idle shares, the attention kernel's share);
+   torch.profiler breakdown of decode steps (busy and wall time from one
+   profiled window; device idle share, the attention kernel's time);
 5. one full-width float32 decode step (paged and contiguous) with the
    kernels against the same step with the plain attention (atol 1e-3);
 6. the training kernels (flash forward, dq, dk/dv) against their plain
@@ -46,10 +49,25 @@ Phases:
    rows not a multiple of 128) must launch the same kernels;
 9. one full-width float32 loss-and-gradient pass with the kernels against
    the same pass with plain attention (loss rtol 1e-4, every gradient
-   leaf within 1e-3 of its largest entry).
+   leaf within 1e-3 of its largest entry);
+10. the row kernels (layer-norm forward and backward, softmax) against
+   their twins in float32 (atol 1e-5 forward, 1e-4 gradients) and bf16
+   (2e-2, 5e-2, scaled by the magnitude above 1) over d 64..32768, the
+   inline route (rows not a multiple of 8: nothing launched), then at the
+   slice's shapes (LN (16384, 768); softmax (196608, 512), the scores of
+   B 32, H 12, T 512) with times beside the twin, the library call and
+   the byte bound;
+11. the nd loop at bench.py's width (d 768, 12 heads, d_ff 3072, 12
+   layers, vocab 32768, T 512, batch 32, float32): 2 warm-up and 5 timed
+   steps; the loss must be finite and fall, and each step must launch the
+   LN kernels 25 times each and the softmax kernel 12 times; then a
+   profiled window of two steps (busy, idle, the row kernels' share);
+12. at the same width, the nd loop's loss and gradients against the
+   functional ``transformer_loss_and_grads`` with plain attention (loss
+   rtol 1e-4, every gradient leaf within 1e-3 of its largest entry).
 
-Any failure raises, so the exit code is not 0. The last two lines of
-standard output are the kernels' JSON record and
+Any failure raises, so the exit code is not 0. The last three lines of
+standard output are the kernels' JSON record, the card line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -327,9 +345,11 @@ def serving_phase(serving, tt, fa, records):
 
 
 def decode_breakdown(model, steps: int = 10):
-    """Wall time of one full-width decode step (8 live slots, lengths
-    50..200, greedy) against the device time torch.profiler records for
-    it: the device's busy and idle shares, and the attention kernel's."""
+    """Device time torch.profiler records for ``steps`` full-width decode
+    steps (8 live slots, lengths 50..200, greedy) against the wall time of
+    the same steps, both taken in one profiled window: the device's busy
+    and idle shares, and the attention kernel's time. The wall time of as
+    many unprofiled steps is kept beside it (``step_wall_ms``)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     S = model.slots
@@ -352,9 +372,12 @@ def decode_breakdown(model, steps: int = 10):
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) / steps * 1e3
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
@@ -362,10 +385,16 @@ def decode_breakdown(model, steps: int = 10):
                   if "decode_attn_kernel" in e.key) / steps / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
-    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / wall_ms,
+    if busy_ms > prof_wall_ms:
+        raise AssertionError(f"device busy {busy_ms} ms exceeds the "
+                             f"profiled step's wall time {prof_wall_ms} ms")
+    out = {"step_wall_ms": wall_ms, "profiled_step_wall_ms": prof_wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / prof_wall_ms,
            "attention_kernel_ms": attn_ms}
-    log(f"decode step breakdown: {json.dumps(out)}")
+    log(f"decode step breakdown: {json.dumps(out)} (busy over the "
+        f"unprofiled steps' wall, the former reading: idle "
+        f"{1 - busy_ms / wall_ms:.4f})")
     return out
 
 
@@ -798,15 +827,343 @@ def f32_train_step_phase(tt, fa):
     return {"loss_rel_err": loss_err, "grad_rel_err": worst}
 
 
+# ------------------------------------------------------ row kernels (nd)
+ROW_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "softmax_fwd")
+# (forward atol, gradient atol) per input type. bf16 errors are scaled by
+# the magnitude where it exceeds 1 (one bf16 ulp at |y| in [16, 32) is
+# 0.125); the dgamma / dbeta column sums are held relative to their
+# largest entry (sums of up to 16,384 rows)
+ROW_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
+ROW_REPLACES = {
+    "layer_norm_fwd": "incubator_mxnet_tpu/ops/pallas/layer_norm.py:59",
+    "layer_norm_bwd": "incubator_mxnet_tpu/ops/pallas/layer_norm.py:92",
+    "softmax_fwd": "incubator_mxnet_tpu/ops/pallas/softmax.py:26"}
+ROW_SOURCES = {
+    "layer_norm_fwd": "incubator_mxnet_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+    "layer_norm_bwd": "incubator_mxnet_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+    "softmax_fwd": "incubator_mxnet_tpu_torch/ops/cuda/csrc/softmax.cu"}
+
+
+def _rel_err(a, b):
+    return _max_err(a, b) / max(1.0, b.abs().max().item())
+
+
+def _row_err(a, b):
+    """max |a - b|, scaled by max(1, |b|) elementwise for bf16."""
+    d = (a.float() - b.float()).abs()
+    if a.dtype == torch.bfloat16:
+        d = d / b.float().abs().clamp(min=1.0)
+    return d.max().item()
+
+
+def row_kernel_errors(ln, sm, n, d, dt, g):
+    """Every row kernel against its twin on one (n, d) input: {kernel:
+    error}, the LN backward's column sums relative to their largest
+    entry."""
+    x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+    gam = torch.randn((d,), generator=g, device="cuda")
+    bet = torch.randn((d,), generator=g, device="cuda")
+    dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
+    y, mu, rstd = ln.layer_norm_fwd(x, gam, bet)
+    ry, rmu, rrstd = ln.layer_norm_reference(x, gam, bet)
+    dx, dg, db = ln.layer_norm_bwd(x, gam, rmu, rrstd, dy)
+    rdx, rdg, rdb = ln.layer_norm_backward_reference(x, gam, rmu, rrstd, dy)
+    p = sm.softmax_fwd(x)
+    rp = sm.softmax_reference(x)
+    torch.cuda.synchronize()
+    outs = (y, mu, rstd, dx, dg, db, p)
+    if not all(torch.isfinite(t).all() for t in outs):
+        raise AssertionError(f"row kernels {dt} n {n} d {d}: non-finite "
+                             "output")
+    return {"layer_norm_fwd": max(_row_err(y, ry), _max_err(mu, rmu),
+                                  _rel_err(rstd, rrstd)),
+            "layer_norm_bwd": max(_row_err(dx, rdx),
+                                  _rel_err(dg.sum(0), rdg.sum(0)),
+                                  _rel_err(db.sum(0), rdb.sum(0))),
+            "softmax_fwd": _row_err(p, rp)}
+
+
+def row_kernel_checks(ln, sm, common):
+    """Phase 10: the layer-norm and softmax kernels against their twins,
+    first over a sweep of widths (d 64 .. 32768) and on the inline route
+    (rows not a multiple of 8: no launch, the plain formula), then at the
+    slice's shapes (LN (16384, 768), softmax (196608, 512): B 32, H 12,
+    T 512 attention scores) with times beside the twin, the library call
+    and the byte bound. Returns the JSON records (float32) and a log."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, timings = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        atol_f, atol_b = ROW_TOL[dt]
+        for d in (64, 512, 768, 1024, 4096, 32768):
+            n = 64 if d <= 4096 else 16
+            errs = row_kernel_errors(ln, sm, n, d, dt, g)
+            for name, err in errs.items():
+                atol = atol_b if name == "layer_norm_bwd" else atol_f
+                if err > atol:
+                    raise AssertionError(f"{name} {dt} n {n} d {d}: max "
+                                         f"|kernel - plain| {err} > {atol}")
+                key = f"{name} {str(dt)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), err)
+        # the inline route: 12 rows, not a multiple of 8
+        common.reset_launch_counts()
+        x = torch.randn((3, 4, 96), generator=g, device="cuda").to(dt)
+        gam = torch.randn((96,), generator=g, device="cuda").to(dt)
+        bet = torch.randn((96,), generator=g, device="cuda").to(dt)
+        y = ln.layer_norm(x, gam, bet)
+        p = sm.softmax(x)
+        mu = x.mean(-1, keepdim=True)
+        xc = x - mu
+        ry = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-5) \
+            * gam + bet
+        counts = common.launch_counts()
+        if any(counts[k] for k in ROW_KERNELS):
+            raise AssertionError(f"the inline route launched {counts}")
+        err = max(_max_err(y, ry), _max_err(p, torch.softmax(x, -1)))
+        if err > atol_f:
+            raise AssertionError(f"inline route {dt}: {err} > {atol_f}")
+    log(f"row kernel sweep: d 64/512/768/1024/4096/32768, f32 and bf16, "
+        f"within tolerance; inline route (12 rows) launched nothing; "
+        f"worst {json.dumps(worst)}")
+    timings["sweep"] = worst
+
+    records = {}
+    F = torch.nn.functional
+    for dt in (torch.float32, torch.bfloat16):
+        atol_f, atol_b = ROW_TOL[dt]
+        esz = torch.empty((), dtype=dt).element_size()
+        n, d = 16384, 768
+        e_ln = row_kernel_errors(ln, sm, n, d, dt, g)
+        ns, ds = 196608, 512
+        e_sm = row_kernel_errors(ln, sm, ns, ds, dt, g)
+        errs = {"layer_norm_fwd": e_ln["layer_norm_fwd"],
+                "layer_norm_bwd": e_ln["layer_norm_bwd"],
+                "softmax_fwd": e_sm["softmax_fwd"]}
+        for name, err in errs.items():
+            atol = atol_b if name == "layer_norm_bwd" else atol_f
+            if err > atol:
+                raise AssertionError(f"{name} {dt} at the slice's shape: "
+                                     f"{err} > {atol}")
+            log(f"parity {name} {str(dt)[6:]}: max_abs_err {err:.3g} "
+                f"(atol {atol})")
+        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        gam = torch.randn((d,), generator=g, device="cuda")
+        bet = torch.randn((d,), generator=g, device="cuda")
+        dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        _, mu, rstd = ln.layer_norm_fwd(x, gam, bet)
+        s = torch.randn((ns, ds), generator=g, device="cuda").to(dt)
+        xr = x.detach().requires_grad_(True)
+        gr = gam.to(dt).requires_grad_(True)
+        br = bet.to(dt).requires_grad_(True)
+        y_lib = F.layer_norm(xr, (d,), gr, br, 1e-5)
+        runs = {
+            "layer_norm_fwd": (
+                lambda: ln.layer_norm_fwd(x, gam, bet),
+                lambda: ln.layer_norm_reference(x, gam, bet),
+                lambda: F.layer_norm(x, (d,), gam.to(dt), bet.to(dt), 1e-5),
+                2 * n * d * esz + 2 * d * 4 + 2 * n * 4, 8 * n * d),
+            "layer_norm_bwd": (
+                lambda: ln.layer_norm_bwd(x, gam, mu, rstd, dy),
+                lambda: ln.layer_norm_backward_reference(x, gam, mu, rstd,
+                                                         dy),
+                lambda: torch.autograd.grad(y_lib, (xr, gr, br), dy,
+                                            retain_graph=True),
+                3 * n * d * esz + d * 4 + 2 * n * 4 + 2 * d * 4, 12 * n * d),
+            "softmax_fwd": (
+                lambda: sm.softmax_fwd(s),
+                lambda: sm.softmax_reference(s),
+                lambda: torch.softmax(s, -1),
+                2 * ns * ds * esz, 5 * ns * ds),
+        }
+        for name, (kern, plain, lib, moved, flops) in runs.items():
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, iters=10, warmup=2)
+            library_ms = time_ms(lib)
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+            rec = {"name": name, "route": "cuda",
+                   "source": ROW_SOURCES[name],
+                   "replaces": ROW_REPLACES[name], "launches": 0,
+                   "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": library_ms}
+            timings[f"{name} {str(dt)[6:]}"] = rec
+            if dt == torch.float32:
+                records[name] = rec
+            log(f"time {name} {str(dt)[6:]}: {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB at 3.35 "
+                f"TB/s)")
+        del x, dy, s, xr, gr, br, y_lib
+    return records, timings
+
+
+# ------------------------------------------------------ the nd slice
+ND_CFG = dict(vocab_size=32768, d_model=768, n_heads=12, d_ff=3072,
+              n_layers=12, max_len=512)
+
+
+def _nd_lm_setup(tt, seed, B=32, T=512):
+    """Full-width f32 parameters (the functional layout, random from a
+    seed), their nd copy on the card, and one batch."""
+    cfg = tt.TransformerConfig(dtype=torch.float32, causal=True,
+                               use_flash_attention=False, **ND_CFG)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = tt.init_transformer_params(g, cfg, device="cuda")
+    tree = tt._tree_map(lambda t: t.cpu().numpy(), params)
+    rs = np.random.RandomState(seed)
+    tokens = rs.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    labels = rs.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    return cfg, params, tree, tokens, labels
+
+
+def nd_train_phase(tt, nd_lm, mx, common, records, steps=5):
+    """Phase 11: an nd + autograd user loop over the LM at bench.py's
+    width (d 768, 12 heads, d_ff 3072, 12 layers, vocab 32768, T 512,
+    batch 32, float32): 2 warm-up and 5 timed Adam steps through
+    nd.adam_update; the loss must be finite and fall and every step must
+    launch the layer-norm kernels 25 times each and the softmax kernel 12
+    times; then a profiled window of two steps."""
+    cfg, _, tree, tokens, labels = _nd_lm_setup(tt, SEED + 3)
+    ctx = mx.gpu(0)
+    params = nd_lm.params_to_nd(tree, ctx=ctx)
+    del tree
+    tok = mx.nd.array(tokens, ctx=ctx)
+    lab = mx.nd.array(labels, ctx=ctx)
+    mask = nd_lm.causal_mask(tokens.shape[1], ctx=ctx)
+    states, losses = {}, []
+
+    def step(i):
+        loss, _ = nd_lm.nd_lm_train_step(params, states, i, tok, lab,
+                                         cfg.n_heads, mask)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    for i in (1, 2):
+        losses.append(step(i))
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(3, 3 + steps):
+        losses.append(step(i))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    losses = [float(x.asscalar()) for x in losses]
+    B, T = tokens.shape
+    log(f"nd train: losses {[round(x, 4) for x in losses]}; {steps} timed "
+        f"steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
+        f"{B * T * steps / wall:.0f} tok/s; launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"nd loss not finite and falling: {losses}")
+    per_step = {"layer_norm_fwd": 2 * cfg.n_layers + 1,
+                "layer_norm_bwd": 2 * cfg.n_layers + 1,
+                "softmax_fwd": cfg.n_layers}
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {steps} nd steps, not {n * steps}")
+        records[name]["launches"] = launches[name]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = nd_breakdown(lambda: step(99))
+    return {"step_ms": wall / steps * 1e3, "tok_s": B * T * steps / wall,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_memory_gb": peak_gb, **breakdown}
+
+
+def nd_breakdown(step, steps: int = 2):
+    """Busy and wall time of ``steps`` nd steps from one profiled window:
+    idle share, the row kernels' share of busy time, and the top device
+    ops (all per step)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
+    names = ("ln_fwd_warp_kernel", "ln_fwd_block_kernel", "ln_bwd_kernel",
+             "softmax_warp_kernel", "softmax_block_kernel")
+    row = {n: sum(e.self_device_time_total for e in dev if n in e.key)
+           / steps / 1e3 for n in names}
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    if busy_ms > wall_ms:
+        raise AssertionError(f"device busy {busy_ms} ms exceeds the "
+                             f"profiled step's wall time {wall_ms} ms")
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    row_ms = sum(row.values())
+    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "row_kernels_ms": row_ms,
+           "row_kernels_share_of_busy": row_ms / busy_ms,
+           "row_kernel_ms": {k: v for k, v in row.items() if v},
+           "top_device_ops": [[e.key[:60],
+                               e.self_device_time_total / steps / 1e3]
+                              for e in top]}
+    log(f"nd step breakdown: {json.dumps(out)}")
+    return out
+
+
+def nd_truth_phase(tt, nd_lm, mx):
+    """Phase 12: at full width, the nd loop's float32 loss and gradients
+    against the functional transformer_loss_and_grads with plain
+    attention, on the same parameters and batch (loss rtol 1e-4, every
+    gradient leaf within 1e-3 of its largest entry)."""
+    cfg, params, tree, tokens, labels = _nd_lm_setup(tt, SEED + 4)
+    ctx = mx.gpu(0)
+    nd_params = nd_lm.params_to_nd(tree, ctx=ctx)
+    del tree
+    T = tokens.shape[1]
+    with mx.autograd.record():
+        loss = nd_lm.nd_lm_loss(nd_params, mx.nd.array(tokens, ctx=ctx),
+                                mx.nd.array(labels, ctx=ctx), cfg.n_heads,
+                                nd_lm.causal_mask(T, ctx=ctx))
+    loss.backward()
+    loss_nd = float(loss.asscalar())
+    grads_nd = nd_lm.grads_to_tree(nd_params)
+    del nd_params, loss
+    torch.cuda.empty_cache()
+    loss_f, grads_f = tt.transformer_loss_and_grads(
+        params, torch.from_numpy(tokens).cuda(),
+        torch.from_numpy(labels).cuda(), cfg)
+    torch.cuda.synchronize()
+    loss_err = abs(loss_nd - loss_f.item()) / abs(loss_f.item())
+    worst = 0.0
+    for name, g in grads_nd.items():
+        ref = nd_lm._get(grads_f, name).float().cpu().numpy()
+        worst = max(worst, float(np.abs(g - ref).max()
+                                 / max(np.abs(ref).max(), 1e-30)))
+    log(f"f32 full-width nd pass vs functional: loss nd {loss_nd:.6f} "
+        f"functional {loss_f.item():.6f} (rel {loss_err:.3g}, rtol 1e-4); "
+        f"worst gradient leaf max|nd - functional| / max|functional| "
+        f"{worst:.3g} (1e-3) over {len(grads_nd)} leaves")
+    if not np.isfinite(loss_nd) or loss_err > 1e-4 or worst > 1e-3:
+        raise AssertionError("nd loop and functional model disagree "
+                             f"(loss {loss_err}, grads {worst})")
+    return {"loss_rel_err": loss_err, "grad_rel_err": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.models import nd_lm
     from incubator_mxnet_tpu_torch.models import transformer as tt
     from incubator_mxnet_tpu_torch.ops.cuda import common
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops.cuda import softmax as sm
 
     t_start = time.perf_counter()
     card = card_line()
@@ -832,14 +1189,25 @@ def main() -> int:
     headmajor_phase(tt, fa)
     torch.cuda.empty_cache()
     f32_train = f32_train_step_phase(tt, fa)
+    torch.cuda.empty_cache()
+    row_records, row_timings = row_kernel_checks(ln, sm, common)
+    records.update(row_records)
+    torch.cuda.empty_cache()
+    nd_train = nd_train_phase(tt, nd_lm, mx, common, records)
+    torch.cuda.empty_cache()
+    nd_truth = nd_truth_phase(tt, nd_lm, mx)
 
     log(f"serving {json.dumps(serve)}")
     log(f"training {json.dumps(train)}")
     log(f"training kernel timings {json.dumps(timings)}")
     log(f"f32 training pass {json.dumps(f32_train)}")
+    log(f"row kernel timings {json.dumps(row_timings)}")
+    log(f"nd training {json.dumps(nd_train)}")
+    log(f"nd full-width truth {json.dumps(nd_truth)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
-        "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS]}))
+        "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
+        + ROW_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Shared helpers for the port's CUDA kernels: the masking constant, block
-picking, and the kernel builder.
+picking, the kernel builder, and the launch counts of every kernel wrapper.
 
 The builder compiles every source under ``csrc/`` in ONE
 ``torch.utils.cpp_extension.load`` call, at first use, into
@@ -17,14 +17,15 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NEG_INF", "pick_block", "kernel_library", "check_launch",
-           "current_stream_handle", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
+__all__ = ["NEG_INF", "pick_block", "pick_row_block", "kernel_library", "check_launch",
+           "current_stream_handle", "counted_kernel", "launch_counts",
+           "reset_launch_counts", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
-           CSRC / "bindings.cpp")
+           CSRC / "layer_norm.cu", CSRC / "softmax.cu", CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -40,10 +41,33 @@ _SIGNATURES = {
     "mxt_flash_fwd": [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
     "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
     "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "mxt_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "mxt_softmax_fwd": [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
 _lib_lock = threading.Lock()
+_KERNELS = []      # every kernel wrapper, in registration order
+
+
+def counted_kernel(fn):
+    """Register a kernel wrapper for :func:`launch_counts`. The wrapper
+    bumps ``fn.launches`` itself, right after a launch succeeds, and
+    nowhere else."""
+    fn.launches = 0
+    _KERNELS.append(fn)
+    return fn
+
+
+def launch_counts():
+    """{kernel wrapper name: launches so far}, for every kernel."""
+    return {f.__name__: f.launches for f in _KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for f in _KERNELS:
+        f.launches = 0
 
 
 def pick_block(dim: int, preferred: int) -> int:
@@ -52,6 +76,24 @@ def pick_block(dim: int, preferred: int) -> int:
     while b > 1 and dim % b != 0:
         b //= 2
     return max(b, 1)
+
+
+# the reference's row-kernel budget (VMEM_BLOCK_BUDGET): its row kernels
+# (layer norm, softmax) take a shape only when a block of at least 8 rows
+# of d float32 values fits 2 MB
+_ROW_BLOCK_BUDGET = 2 * 1024 * 1024
+
+
+def pick_row_block(n_rows: int, d: int, preferred: int = 512) -> int:
+    """The reference's row-block rule (``ops/pallas/common.py``
+    ``pick_row_block``), kept because it decides which shapes the row
+    kernels take: 0 means the reference computes the row op inline. The
+    CUDA kernels tile rows their own way and use no block size."""
+    max_rows = (_ROW_BLOCK_BUDGET // (4 * max(d, 1))) // 8 * 8
+    if max_rows < 8:
+        return 0
+    block = pick_block(n_rows, min(preferred, int(max_rows)))
+    return block if block % 8 == 0 else 0
 
 
 def kernel_library() -> ctypes.CDLL:

@@ -20,6 +20,16 @@ int flash_attention_launch(int kind, int layout, int dtype, const void* q,
                            int sk, int d, int causal, float scale,
                            void* stream);
 
+int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
+                          const float* beta, void* y, float* mu, float* rstd,
+                          int n, int d, float eps, void* stream);
+int layer_norm_bwd_launch(int dtype, const void* x, const float* gamma,
+                          const float* mu, const float* rstd, const void* dy,
+                          void* dx, float* dg, float* db, int n, int d,
+                          int rows_per_block, void* stream);
+int softmax_fwd_launch(int dtype, const void* x, void* y, int n, int d,
+                       void* stream);
+
 extern "C" {
 
 // q (S, H, d); k/v (S, H, n_blocks * block_k, d); lengths (S,) int32.
@@ -81,6 +91,36 @@ int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 static_cast<const float*>(delta), dk, dv,
                                 nullptr, B, H, sq, sk, d, causal, scale,
                                 stream);
+}
+
+// Layer norm over the last axis of x (n, d); gamma/beta (d,) float32;
+// y like x; mu/rstd (n,) float32.
+int mxt_layer_norm_fwd(const void* x, const void* gamma, const void* beta,
+                       void* y, void* mu, void* rstd, int n, int d, int dtype,
+                       float eps, void* stream) {
+  return layer_norm_fwd_launch(dtype, x, static_cast<const float*>(gamma),
+                               static_cast<const float*>(beta), y,
+                               static_cast<float*>(mu),
+                               static_cast<float*>(rstd), n, d, eps, stream);
+}
+
+// dx like x; dg/db (ceil(n / rows_per_block), d) float32 column partials
+// of dy * xn and dy.
+int mxt_layer_norm_bwd(const void* x, const void* gamma, const void* mu,
+                       const void* rstd, const void* dy, void* dx, void* dg,
+                       void* db, int n, int d, int rows_per_block, int dtype,
+                       void* stream) {
+  return layer_norm_bwd_launch(
+      dtype, x, static_cast<const float*>(gamma),
+      static_cast<const float*>(mu), static_cast<const float*>(rstd), dy, dx,
+      static_cast<float*>(dg), static_cast<float*>(db), n, d, rows_per_block,
+      stream);
+}
+
+// Softmax over the last axis of x (n, d); y like x.
+int mxt_softmax_fwd(const void* x, void* y, int n, int d, int dtype,
+                    void* stream) {
+  return softmax_fwd_launch(dtype, x, y, n, d, stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

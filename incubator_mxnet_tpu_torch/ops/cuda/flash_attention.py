@@ -44,7 +44,8 @@ The dispatchers take the plain version only for tensors on the CPU. For
 CUDA tensors they launch the kernel, which raises on geometry it does not
 take; nothing falls back. Each kernel wrapper counts its launches in a
 plain int attribute (``flash_fwd.launches``), bumped only where it
-launches, so a run can show that its main path went through the kernel.
+launches, so a run can show that its main path went through the kernel;
+``launch_counts`` (from ``common``) reads every kernel's count.
 """
 from __future__ import annotations
 
@@ -53,8 +54,9 @@ from typing import Optional
 
 import torch
 
-from .common import (NEG_INF, check_launch, current_stream_handle,
-                     kernel_library, pick_block)
+from .common import (NEG_INF, check_launch, counted_kernel,
+                     current_stream_handle, kernel_library, launch_counts,
+                     pick_block, reset_launch_counts)
 
 __all__ = ["mha_reference", "flash_forward_reference",
            "flash_backward_reference", "flash_fwd", "flash_bwd_dq",
@@ -188,6 +190,7 @@ def _i32(t):
     return t.to(torch.int32).contiguous()
 
 
+@counted_kernel
 def flash_decode_step(q, k, v, lengths, scale: Optional[float] = None,
                       block_k: int = 128):
     """CUDA decode-step attention over a contiguous cache (replaces the
@@ -216,9 +219,8 @@ def flash_decode_step(q, k, v, lengths, scale: Optional[float] = None,
     return out
 
 
-flash_decode_step.launches = 0
 
-
+@counted_kernel
 def flash_decode_step_paged(q, k, v, block_tables, lengths,
                             scale: Optional[float] = None):
     """CUDA paged decode-step attention (replaces the Pallas
@@ -254,8 +256,6 @@ def flash_decode_step_paged(q, k, v, block_tables, lengths,
     flash_decode_step_paged.launches += 1
     return out
 
-
-flash_decode_step_paged.launches = 0
 
 
 # ------------------------------------------------- training: plain versions
@@ -435,6 +435,7 @@ def _check_rows(name: str, dout, lse, delta, q, layout, B, H, sq):
                              f"got {tuple(t.shape)} {t.dtype}")
 
 
+@counted_kernel
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
               n_heads: Optional[int] = None):
     """CUDA flash-attention forward (replaces the Pallas ``_fwd_packed``,
@@ -456,9 +457,8 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
     return out, lse
 
 
-flash_fwd.launches = 0
 
-
+@counted_kernel
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
                  scale: Optional[float] = None,
                  n_heads: Optional[int] = None):
@@ -481,9 +481,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     return dq
 
 
-flash_bwd_dq.launches = 0
 
-
+@counted_kernel
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                   scale: Optional[float] = None,
                   n_heads: Optional[int] = None):
@@ -507,21 +506,6 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     flash_bwd_dkv.launches += 1
     return dk, dv
 
-
-flash_bwd_dkv.launches = 0
-
-_KERNELS = (flash_decode_step, flash_decode_step_paged, flash_fwd,
-            flash_bwd_dq, flash_bwd_dkv)
-
-
-def launch_counts():
-    """{kernel wrapper name: launches so far}."""
-    return {f.__name__: f.launches for f in _KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for f in _KERNELS:
-        f.launches = 0
 
 
 # -------------------------------------------------------------- dispatchers

@@ -35,6 +35,11 @@ def test_importing_the_port_loads_no_jax():
     assert "incubator_mxnet_tpu_torch.ops.cuda.flash_attention" in \
         res["modules"]
     assert "incubator_mxnet_tpu_torch.parallel.moe" in res["modules"]
+    for name in ("base", "context", "engine", "autograd", "random",
+                 "initializer", "ndarray", "ndarray.ndarray", "ndarray.ops",
+                 "ndarray.optimizer_ops", "ops.nn", "ops.cuda.layer_norm",
+                 "ops.cuda.softmax", "models.nd_lm"):
+        assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
 

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on the card and holds every CUDA kernel
+Drives the port's four main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -13,7 +13,11 @@ of them against its plain PyTorch version:
   promotes the parameters to float32 after the first step);
 * the imperative ``nd`` + ``autograd`` API: a user loop over the same LM
   written with ``nd`` ops (``models/nd_lm.py``), float32, stepped with
-  ``nd.adam_update``.
+  ``nd.adam_update``;
+* Gluon ResNet-50 v1 training at bench.py's lane (NHWC, batch 128,
+  224 x 224, bf16 compute on float32 masters, SGD momentum 0.9) through
+  ``parallel.dp.make_train_step``, with the fused conv + BN + ReLU stages
+  (``MXTPU_FUSED_RESNET=1``) and without them.
 
 Phases:
 
@@ -64,7 +68,32 @@ Phases:
    profiled window of two steps (busy, idle, the row kernels' share);
 12. at the same width, the nd loop's loss and gradients against the
    functional ``transformer_loss_and_grads`` with plain attention (loss
-   rtol 1e-4, every gradient leaf within 1e-3 of its largest entry).
+   rtol 1e-4, every gradient leaf within 1e-3 of its largest entry);
+13. the fused-conv kernels (``mm_fused``, ``mm_fused_bwd``,
+   ``conv3_fused``, ``conv3_fused_bwd``, ``dgrad_epilogue``) against their
+   twins in float32 (1e-4) and bf16 (2e-2), errors over max(1, the twin's
+   largest entry): a sweep of every load form, stats on and off, the x^
+   output, bias, G direct and from batch norm, each mask, 0-2 partners,
+   dsc, 3x3 at 7/14/28 with 1-3 images, the dual dgrad; then at the
+   ResNet-50 lane's shapes, every conv form of each stage (2-4): block 0's
+   conv1 and projection and their dual dgrad, a middle block's entry-form
+   conv1, 3x3 and expand conv3, forward and backward, with times beside
+   the twin's, the library product's (``torch.matmul``, channels-last
+   ``F.conv2d``) and the bound from the reference's cost counts;
+14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
+   and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
+   falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
+   ``mm_fused_bwd``, 13 ``conv3_fused_bwd`` and 3 ``dgrad_epilogue``
+   launches; img/s, peak memory, and a profiled window of two steps;
+15. the same step on the per-block path (``MXTPU_FUSED_RESNET=0``: PyTorch
+   convolutions and batch norm), run as phase 14 runs it: its img/s, no
+   fused-conv launch, and a profiled window of two steps;
+16. float32 at 224 x 224, batch 16: each fused stage against the per-block
+   path (forward, dx and every non-bias parameter gradient; see
+   ``resnet_truth_phase``), beside two control readings: the same fused
+   stage on the plain twins, and the kernels' stage against the twins';
+   then the whole net's first-step loss, fused against per-block (rtol
+   1e-3).
 
 Any failure raises, so the exit code is not 0. The last three lines of
 standard output are the kernels' JSON record, the card line and
@@ -1151,6 +1180,634 @@ def nd_truth_phase(tt, nd_lm, mx):
     return {"loss_rel_err": loss_err, "grad_rel_err": worst}
 
 
+# ------------------------------------------------ fused ResNet kernels
+CONV_KERNELS = ("mm_fused", "mm_fused_bwd", "conv3_fused",
+                "conv3_fused_bwd", "dgrad_epilogue")
+CONV_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/conv_fused.cu"
+CONV_REPLACES = {
+    "mm_fused": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:148",
+    "mm_fused_bwd": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:344",
+    "conv3_fused": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:634",
+    "conv3_fused_bwd": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:742",
+    "dgrad_epilogue": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:505"}
+# error = max |kernel - twin| / max(1, max |twin|) per output
+CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# ResNet-50 at batch 128, 224 x 224, NHWC: (M rows, mid, 4 * mid, H, the
+# stage's input channels)
+RESNET_STAGES = {2: (128 * 28 * 28, 128, 512, 28, 256),
+                 3: (128 * 14 * 14, 256, 1024, 14, 512),
+                 4: (128 * 7 * 7, 512, 2048, 7, 1024)}
+# the case of each kernel whose stage-3 bf16 reading goes into the JSON line
+CONV_RECORD_CASE = {"mm_fused": "entry", "mm_fused_bwd": "entry",
+                    "conv3_fused": "3x3", "conv3_fused_bwd": "3x3",
+                    "dgrad_epilogue": "block 0"}
+
+
+def _scaled_err(outs, refs):
+    return max(_max_err(o, r) / max(1.0, r.float().abs().max().item())
+               for o, r in zip(outs, refs))
+
+
+def _conv_cases(cf, g, dt):
+    """The phase-13 sweep for one type: (kernel, case name, kernel call,
+    twin call) over every option of the four kernels."""
+    def rnd(*shape, f32=False):
+        t = torch.randn(shape, generator=g, device="cuda")
+        return t if f32 else t.to(dt)
+    cases = []
+    for M, K, N in ((64, 16, 24), (300, 40, 72), (1000, 128, 256)):
+        x, sc = rnd(M, K), rnd(M, K)
+        w = rnd(N, 1, 1, K).reshape(N, K).t()          # gluon layout view
+        a, b = rnd(K, f32=True).abs() + 0.5, rnd(K, f32=True)
+        asc, bsc, bias = (rnd(K, f32=True), rnd(K, f32=True),
+                          rnd(N, f32=True))
+        forms = {"plain": {}, "bnrelu": dict(a=a, b=b),
+                 "entry": dict(a=a, b=b, sc=sc, asc=asc, bsc=bsc)}
+        for form, kw in forms.items():
+            for opt in (dict(bias=bias), dict(emit_xhat=True),
+                        dict(stats=False)):
+                args = {**kw, **opt}
+                cases.append(("mm_fused", f"{M}x{K}x{N} {form} "
+                              f"{sorted(opt)}",
+                              lambda args=args, x=x, w=w: cf.mm_fused(
+                                  x, w, **args),
+                              lambda args=args, x=x, w=w:
+                              cf.mm_fused_reference(x, w, **args)))
+        gg, dzn, yout = rnd(M, N), rnd(M, N), rnd(M, N)
+        gc, dsc, p1 = rnd(3, N, f32=True), rnd(M, K), rnd(M, K)
+        bwd = {"direct mask z 1 partner": dict(g=gg, a=a, b=b,
+                                               out_mask="z", partners=(x,)),
+               "bn mask x dsc 2 partners": dict(
+                   dzn=dzn, yout=yout, gcoef=gc, dsc=dsc, out_mask="x",
+                   partners=(x, p1)),
+               "bn no mask": dict(dzn=dzn, yout=yout, gcoef=gc),
+               "direct bnrelu x no mask": dict(g=gg, a=a, b=b)}
+        for name, kw in bwd.items():
+            cases.append(("mm_fused_bwd", f"{M}x{K}x{N} {name}",
+                          lambda kw=kw, x=x, w=w: cf.mm_fused_bwd(w, x, **kw),
+                          lambda kw=kw, x=x, w=w: cf.mm_fused_bwd_reference(
+                              w, x, **kw)))
+    for M, K, NA, NB in ((64, 16, 8, 24), (300, 40, 72, 40),
+                         (1000, 128, 64, 256)):
+        x = rnd(M, K)
+        wa = rnd(NA, 1, 1, K).reshape(NA, K).t()
+        wb = rnd(NB, 1, 1, K).reshape(NB, K).t()
+        ops = (wa, wb, x, rnd(M, NA), rnd(M, NA), rnd(3, NA, f32=True),
+               rnd(M, NB), rnd(M, NB), rnd(3, NB, f32=True))
+        cases.append(("dgrad_epilogue", f"{M}x{K}x{NA}+{NB}",
+                      lambda ops=ops: cf.dgrad_epilogue(*ops),
+                      lambda ops=ops: cf.dgrad_epilogue_reference(*ops)))
+    for B, HW, C, N in ((1, 7, 16, 32), (3, 7, 32, 48), (1, 14, 32, 64),
+                        (2, 14, 64, 32), (1, 28, 16, 16), (2, 28, 64, 64)):
+        bhw = (B, HW, HW)
+        M = B * HW * HW
+        x2 = rnd(M, C)
+        w9 = rnd(N, 3, 3, C).permute(1, 2, 3, 0).reshape(9, C, N)
+        a, b = rnd(C, f32=True).abs() + 0.5, rnd(C, f32=True)
+        dzn, yout, gc = rnd(M, N), rnd(M, N), rnd(3, N, f32=True)
+        tag = f"B{B} {HW}x{HW} C{C} N{N}"
+        for stats in (True, False):
+            cases.append(("conv3_fused", f"{tag} stats {stats}",
+                          lambda x2=x2, w9=w9, a=a, b=b, bhw=bhw, st=stats:
+                          cf.conv3_fused(x2, w9, a, b, bhw, st),
+                          lambda x2=x2, w9=w9, a=a, b=b, bhw=bhw, st=stats:
+                          cf.conv3_fused_reference(x2, w9, a, b, bhw, st)))
+        cases.append(("conv3_fused_bwd", tag,
+                      lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
+                      bhw=bhw: cf.conv3_fused_bwd(w9, x2, a, b, d, y, c, bhw),
+                      lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
+                      bhw=bhw: cf.conv3_fused_bwd_reference(
+                          w9, x2, a, b, d, y, c, bhw)))
+    return cases
+
+
+def _stage_runs(cf, g, stage, dt):
+    """Phase 13 at one stage of the ResNet-50 lane: every form of conv the
+    fused stage runs there, on operands from the generator, as a list of
+    (kernel, case, kernel call, twin call, library call, bytes, flops).
+    The cases: block 0's conv1 and projection (plain load, K = the stage's
+    input channels, at the strided resolution) and their backward, the dual
+    dgrad, beside the two single dgrads it replaces; a middle block's conv1 (entry form, K = 4 mid -> N = mid; its
+    backward masked on x with dsc and a partner), its 3x3, and its conv3
+    (expand, K = mid -> N = 4 mid; its backward masked on z with one
+    partner). Bytes and flops are the reference's CostEstimate counts
+    (conv_fused.py:210-212, :415-417, :676-678, :787-789); for the dual
+    dgrad, its inputs and outputs once and 4 M K (N_a + N_b) flops."""
+    F = torch.nn.functional
+    M, mid, c4, hw, cin = RESNET_STAGES[stage]
+    bhw = (128, hw, hw)
+
+    def rnd(*shape, f32=False):
+        t = torch.randn(shape, generator=g, device="cuda")
+        return t if f32 else t.to(dt)
+
+    def w1(k, n):                    # a gluon (O, 1, 1, I) weight, viewed
+        return rnd(n, 1, 1, k).reshape(n, k).t()
+
+    def vecs(n):
+        return rnd(n, f32=True).abs() + 0.5, rnd(n, f32=True)
+
+    esz = torch.empty((), dtype=dt).element_size()
+    runs = []
+
+    def mm(case, x, w, **kw):
+        K, N = w.shape
+        runs.append(("mm_fused", case,
+                     lambda: cf.mm_fused(x, w, **kw),
+                     lambda: cf.mm_fused_reference(x, w, **kw),
+                     lambda: torch.matmul(x, w),
+                     (M * K + K * N + M * N) * esz, 2 * M * K * N))
+
+    def mmb(case, w, x, **kw):
+        K, N = w.shape
+        gm = rnd(M, N)
+        runs.append(("mm_fused_bwd", case,
+                     lambda: cf.mm_fused_bwd(w, x, **kw),
+                     lambda: cf.mm_fused_bwd_reference(w, x, **kw),
+                     lambda: (torch.matmul(gm, w.t()), torch.matmul(x.t(), gm)),
+                     (2 * M * K + 2 * M * N) * esz + 4 * K * N,
+                     4 * M * K * N))
+
+    # block 0: conv1 and projection off the strided input, the dual dgrad
+    xs = rnd(M, cin)
+    wc1, wd = w1(cin, mid), w1(cin, c4)
+    mm("block 0 conv1", xs, wc1, bias=rnd(mid, f32=True))
+    mm("projection", xs, wd)
+    dual = (wc1, wd, xs, rnd(M, mid), rnd(M, mid),
+            rnd(3, mid, f32=True) * 0.1, rnd(M, c4), rnd(M, c4),
+            rnd(3, c4, f32=True) * 0.1)
+    gab = torch.cat([dual[3], dual[6]], 1)
+    wab = torch.cat([wc1, wd], 1)
+    runs.append(("dgrad_epilogue", "block 0",
+                 lambda: cf.dgrad_epilogue(*dual),
+                 lambda: cf.dgrad_epilogue_reference(*dual),
+                 lambda: (torch.matmul(gab, wab.t()),
+                          torch.matmul(xs.t(), gab)),
+                 (2 * M * (mid + c4) + 2 * M * cin + cin * (mid + c4)) * esz
+                 + 4 * cin * (mid + c4), 4 * M * cin * (mid + c4)))
+    # the two single dgrads the dual one replaces (mask none), for its time
+    mmb("block 0 conv1", wc1, xs, dzn=dual[3], yout=dual[4], gcoef=dual[5])
+    mmb("projection", wd, xs, dzn=dual[6], yout=dual[7], gcoef=dual[8])
+    # a middle block: the entry-form conv1, the 3x3, the expand conv3
+    x, sc = rnd(M, c4), rnd(M, c4)
+    a, b = vecs(c4)
+    w = w1(c4, mid)
+    mm("entry", x, w, a=a, b=b, sc=sc, asc=rnd(c4, f32=True),
+       bsc=rnd(c4, f32=True), bias=rnd(mid, f32=True), emit_xhat=True)
+    mmb("entry", w, x, dzn=rnd(M, mid), yout=rnd(M, mid),
+        gcoef=rnd(3, mid, f32=True) * 0.1, dsc=sc, out_mask="x",
+        partners=(rnd(M, c4),))
+    x2 = rnd(M, mid)
+    w9 = rnd(mid, 3, 3, mid).permute(1, 2, 3, 0).reshape(9, mid, mid)
+    a2, b2 = vecs(mid)
+    dzn2, yout2, gc2 = rnd(M, mid), rnd(M, mid), rnd(3, mid, f32=True) * 0.1
+    xc = x2.reshape(bhw + (mid,)).permute(0, 3, 1, 2)        # channels-last
+    wc = w9.reshape(3, 3, mid, mid).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    xr = xc.detach().requires_grad_(True)
+    wr = wc.detach().requires_grad_(True)
+    yc = F.conv2d(xr, wr, padding=1)
+    gcl = dzn2.reshape(bhw + (mid,)).permute(0, 3, 1, 2)
+    N = mid
+    runs.append(("conv3_fused", "3x3",
+                 lambda: cf.conv3_fused(x2, w9, a2, b2, bhw),
+                 lambda: cf.conv3_fused_reference(x2, w9, a2, b2, bhw),
+                 lambda: F.conv2d(xc, wc, padding=1),
+                 (M * (N + N) + 9 * N * N) * esz, 18 * M * N * N))
+    runs.append(("conv3_fused_bwd", "3x3",
+                 lambda: cf.conv3_fused_bwd(w9, x2, a2, b2, dzn2, yout2, gc2,
+                                            bhw),
+                 lambda: cf.conv3_fused_bwd_reference(w9, x2, a2, b2, dzn2,
+                                                      yout2, gc2, bhw),
+                 lambda: torch.autograd.grad(yc, (xr, wr), gcl,
+                                             retain_graph=True),
+                 M * (2 * N + 2 * N) * esz + 4 * 9 * N * N, 36 * M * N * N))
+    y2 = rnd(M, mid)
+    w3 = w1(mid, c4)
+    mm("expand", y2, w3, a=a2, b=b2, bias=rnd(c4, f32=True))
+    mmb("expand", w3, y2, dzn=rnd(M, c4), yout=rnd(M, c4),
+        gcoef=rnd(3, c4, f32=True) * 0.1, a=a2, b=b2, out_mask="z",
+        partners=(y2,))
+    return runs
+
+
+def conv_kernel_checks(cf, common):
+    """Phase 13: the five fused-conv kernels against their twins over the
+    option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
+    every conv form of each stage (2, 3, 4) in both types, with times (CUDA
+    events) in bf16 at every stage and in float32 at stage 3, beside the
+    twin's, the library product's and the bound. Returns the JSON records
+    (bf16, stage 3) and a log of every timing."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = {}
+    n_cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for name, case, kern, plain in _conv_cases(cf, g, dt):
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = _scaled_err(out, ref)
+            if not all(torch.isfinite(t).all() for t in out) \
+                    or err > CONV_TOL[dt]:
+                raise AssertionError(f"{name} {dt} {case}: max |kernel - "
+                                     f"plain| {err} > {CONV_TOL[dt]}")
+            key = f"{name} {str(dt)[6:]}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            n_cases += 1
+    log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
+        f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
+        f"partners, dsc, 3x3 at 7/14/28 with 1-3 images, dual dgrad) "
+        f"within tolerance;"
+        f" worst {json.dumps(worst)}")
+    timings = {"sweep": worst}
+    records = {}
+    for stage in (2, 3, 4):
+        for dt in (torch.float32, torch.bfloat16):
+            runs = _stage_runs(cf, g, stage, dt)
+            for name, case, kern, plain, lib, moved, flops in runs:
+                out, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err = _scaled_err(out, ref)
+                if not all(torch.isfinite(t).all() for t in out) \
+                        or err > CONV_TOL[dt]:
+                    raise AssertionError(f"{name} {case} {dt} stage {stage}:"
+                                         f" max |kernel - plain| {err}")
+                del out, ref
+                tag = f"{name} {case} {str(dt)[6:]} stage {stage}"
+                if dt == torch.float32 and stage != 3:
+                    log(f"parity {tag}: err {err:.3g}")
+                    continue
+                ms = time_ms(kern, iters=10, warmup=2)
+                plain_ms = time_ms(plain, iters=3, warmup=1)
+                library_ms = time_ms(lib, iters=10, warmup=2)
+                t_bytes = moved / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dt] * 1e3
+                rec = {"name": name, "route": "cuda", "source": CONV_SOURCE,
+                       "replaces": CONV_REPLACES[name], "launches": 0,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations",
+                       "library_ms": library_ms}
+                timings[tag] = rec
+                if dt == torch.bfloat16 and stage == 3 \
+                        and case == CONV_RECORD_CASE[name]:
+                    records[name] = rec
+                log(f"time {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"library {library_ms:.4f} ms, bound "
+                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+                    f"err {err:.3g}")
+            del runs
+            torch.cuda.empty_cache()
+    return records, timings
+
+
+# ------------------------------------------------------ ResNet-50 lane
+RESNET_BATCH = 128
+
+
+def _resnet_setup(mx, gluon, vision, seed, batch, dtype=None):
+    """ResNet-50 v1, NHWC, on the card, default init, deferred shapes
+    resolved by one forward; a batch from the seed; the functional SGD
+    step of bench.py's lane (lr 0.01, momentum 0.9)."""
+    from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
+    rs = np.random.RandomState(seed)
+    x_np = rs.rand(batch, 3, 224, 224).astype(np.float32)
+    y_np = rs.randint(0, 1000, (batch,)).astype(np.int32)
+    mx.random.seed(seed)
+    with mx.gpu(0):
+        net = vision.resnet50_v1(layout="NHWC")
+        net.initialize()
+        net(mx.nd.array(x_np[:1]))
+    step, params, aux, opt = make_train_step(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        learning_rate=0.01, momentum=0.9, compute_dtype=dtype)
+    return (net, step, params, aux, opt, torch.from_numpy(x_np).cuda(),
+            torch.from_numpy(y_np).cuda())
+
+
+def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
+    """Phase 14: ResNet-50 v1 training at bench.py's lane (NHWC, batch 128,
+    224 x 224, bf16 compute on float32 masters, SGD momentum 0.9, lr 0.01,
+    MXTPU_FUSED_RESNET=1, MXTPU_BN_IMPL=plain): 2 warm-up and 5 timed
+    steps; finite falling loss, the fused kernels' launches per step, then
+    a profiled window of two steps."""
+    import os
+    os.environ["MXTPU_FUSED_RESNET"] = "1"
+    os.environ["MXTPU_BN_IMPL"] = "plain"
+    torch.cuda.reset_peak_memory_stats()
+    _, step, params, aux, opt, x, y = _resnet_setup(
+        mx, gluon, vision, SEED + 5, RESNET_BATCH, torch.bfloat16)
+    losses = []
+    for _ in range(2):
+        params, aux, opt, loss = step(params, aux, opt, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, aux, opt, loss = step(params, aux, opt, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    losses = [float(v) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    img_s = RESNET_BATCH * steps / wall
+    log(f"resnet50 fused train: losses {[round(v, 4) for v in losses]}; "
+        f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
+        f"ms/step, {img_s:.1f} img/s; peak {peak_gb:.2f} GB; launches "
+        f"{launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet loss not finite and falling: {losses}")
+    # stages 2-4 hold 4 + 6 + 3 blocks: a 1x1 conv1, a 3x3 and a 1x1 conv3
+    # each, plus block 0's projection; block 0's conv1 and projection
+    # dgrads are one dual dgrad
+    per_step = {"mm_fused": 29, "conv3_fused": 13, "mm_fused_bwd": 23,
+                "conv3_fused_bwd": 13, "dgrad_epilogue": 3}
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{steps} resnet steps, not {n * steps}")
+        records[name]["launches"] = launches[name]
+    breakdown = resnet_breakdown(lambda: step(params, aux, opt, x, y))
+    return {"step_ms": wall / steps * 1e3, "img_s": img_s,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+            **breakdown}
+
+
+def resnet_breakdown(step, steps: int = 2):
+    """Busy and wall time of ``steps`` ResNet steps from one profiled
+    window: idle share, the fused-conv kernels' share, top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
+    names = ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel")
+    conv = {n: sum(e.self_device_time_total for e in dev if n in e.key)
+            / steps / 1e3 for n in names}
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    if busy_ms > wall_ms:
+        raise AssertionError(f"device busy {busy_ms} ms exceeds the "
+                             f"profiled step's wall time {wall_ms} ms")
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    conv_ms = sum(conv.values())
+    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "fused_conv_kernels_ms": conv_ms,
+           "fused_conv_share_of_busy": conv_ms / busy_ms,
+           "fused_conv_kernel_ms": conv,
+           "top_device_ops": [[e.key[:60],
+                               e.self_device_time_total / steps / 1e3]
+                              for e in top]}
+    log(f"resnet step breakdown: {json.dumps(out)}")
+    return out
+
+
+def resnet_perblock_phase(mx, gluon, vision, common, steps=5):
+    """Phase 15: the same step with MXTPU_FUSED_RESNET=0 (the per-block
+    path: PyTorch convolutions and batch norm), as phase 14 runs it: 2
+    warm-up and 5 timed steps, no fused-conv launch, then a profiled
+    window of two steps."""
+    import os
+    os.environ["MXTPU_FUSED_RESNET"] = "0"
+    torch.cuda.reset_peak_memory_stats()
+    _, step, params, aux, opt, x, y = _resnet_setup(
+        mx, gluon, vision, SEED + 5, RESNET_BATCH, torch.bfloat16)
+    losses = []
+    for _ in range(2):
+        params, aux, opt, loss = step(params, aux, opt, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, aux, opt, loss = step(params, aux, opt, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    losses = [float(v) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches[n] for n in CONV_KERNELS):
+        raise AssertionError(f"the per-block path launched {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"per-block resnet loss not finite and "
+                             f"falling: {losses}")
+    img_s = RESNET_BATCH * steps / wall
+    log(f"resnet50 per-block train: losses {[round(v, 4) for v in losses]}; "
+        f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
+        f"ms/step, {img_s:.1f} img/s; peak {peak_gb:.2f} GB")
+    breakdown = resnet_breakdown(lambda: step(params, aux, opt, x, y))
+    return {"step_ms": wall / steps * 1e3, "img_s": img_s,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_memory_gb": peak_gb,
+            **{k: v for k, v in breakdown.items()
+               if not k.startswith("fused_conv")}}
+
+
+def _stage_grads(blocks, stride, xin, ct, path, mx):
+    """One stage, forward and gradients (dx and every parameter), on the
+    same leaves, through ``path``: "kernels" (the fused stage as the lane
+    runs it), "twins" (the same fused stage on the kernels' plain twins) or
+    "per-block"."""
+    from incubator_mxnet_tpu_torch.autograd import _IN_TRACE
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+        _fused_resnet as fr
+    from incubator_mxnet_tpu_torch.gluon.parameter import \
+        parameter_substitution
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    pobjs, aux_objs = [], []
+    for blk in blocks:
+        bns = [blk.body[1], blk.body[4], blk.body[7]]
+        convs = [blk.body[0], blk.body[3], blk.body[6]]
+        if blk.downsample is not None:
+            bns.append(blk.downsample[1])
+            convs.append(blk.downsample[0])
+        for layer in convs:
+            pobjs += [p for p in (layer.weight, layer.bias) if p is not None]
+        for bn in bns:
+            pobjs += [bn.gamma, bn.beta]
+            aux_objs += [bn.running_mean, bn.running_var]
+    leaves = [p.data()._data.detach().clone().requires_grad_(True)
+              for p in pobjs]
+    x = xin.detach().clone().requires_grad_(True)
+    mapping = {id(p): mx.nd.from_torch(t) for p, t in zip(pobjs, leaves)}
+    mapping.update({id(p): mx.nd.from_torch(p.data()._data.clone())
+                    for p in aux_objs})
+    real_ops = fr._ops
+    if path == "twins":
+        fr._ops = lambda _t: (
+            cf.mm_fused_reference, cf.mm_fused_bwd_reference,
+            cf.conv3_fused_reference, cf.conv3_fused_bwd_reference,
+            cf.dgrad_epilogue_reference)
+    try:
+        with parameter_substitution(mapping):
+            y = _stage_forward(blocks, stride, x, path, mx, fr, _IN_TRACE)
+        grads = torch.autograd.grad(y, [x] + leaves, ct)
+    finally:
+        fr._ops = real_ops
+    names = [p.name for p in pobjs]
+    return y.detach(), grads[0], dict(zip(names, grads[1:]))
+
+
+def _stage_forward(blocks, stride, x, path, mx, fr, in_trace):
+    if path != "per-block":
+        return fr.fused_stage(stride, x, fr.stage_params_from_blocks(
+            blocks))[0]
+    in_trace.active = True
+    try:
+        with mx.autograd.pause(train_mode=True):
+            t = mx.nd.from_torch(x)
+            for blk in blocks:
+                t = blk(t)
+        return t._data
+    finally:
+        in_trace.active = False
+
+
+def _grad_errs(a, b):
+    """Two ``_stage_grads`` results compared: (dx, worst non-bias parameter
+    gradient) as max |a - b| over b's largest entry, then the same pair as
+    the relative L2 error |a - b| / |b|."""
+    def rel(u, v):
+        return (u - v).abs().max().item() / (v.abs().max().item() + 1e-12)
+
+    def rel2(u, v):
+        return ((u - v).norm() / (v.norm() + 1e-30)).item()
+    # a bias before BN has no gradient: both sides are noise there
+    keys = [k for k in b[2] if not k.endswith("_bias")]
+    return (rel(a[1], b[1]), max(rel(a[2][k], b[2][k]) for k in keys),
+            rel2(a[1], b[1]), max(rel2(a[2][k], b[2][k]) for k in keys))
+
+
+def resnet_truth_phase(mx, gluon, vision, common):
+    """Phase 16: in float32 at 224 x 224, batch 16: each fused stage (2, 3,
+    4) against the same stage on the per-block path, then the whole net's
+    first-step loss fused against per-block (rtol 1e-3).
+
+    The forward is held to tests/test_fused_resnet.py:402's tolerance
+    (rtol = atol = 1e-3). Its gradient tolerances (:406-414: dx within
+    1e-3 and every non-bias parameter gradient within 5e-3 of its largest
+    entry) assume a well-conditioned stage; at this size in float32 the
+    per-block path's own gradients move by 2-11% of their largest entry
+    when the input moves by 1e-6 of itself, and stage 2's by 0.5-0.6% in
+    relative L2 (ReLU masks flip; measured on the card). So the gradients are held,
+    both as max-abs error over the largest entry and as relative L2 error,
+    to the larger of the reference's numbers and three times the spread
+    that the same run measures (per-block at x against per-block at
+    x (1 + 1e-6 e)).
+
+    Two control readings stand beside them: the same fused stage run on
+    the kernels' plain twins against the per-block path (what the fused
+    algorithm itself gives, with no kernel in it), and the kernels' stage
+    against the twins' (what the kernels alone add); the latter's forward
+    is held to rtol = atol = 1e-3 too."""
+    import os
+    os.environ["MXTPU_FUSED_RESNET"] = "1"
+    net, step, params, aux, opt, x, y = _resnet_setup(
+        mx, gluon, vision, SEED + 6, 16)
+    feats = list(net.features._children.values())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    out = {}
+    shapes = {5: (16, 56, 56, 256), 6: (16, 28, 28, 512),
+              7: (16, 14, 14, 1024)}
+    for idx, shape in shapes.items():
+        blocks = list(feats[idx]._children.values())
+        xin = torch.rand(shape, generator=g, device="cuda")
+        xp = xin * (1 + 1e-6 * torch.randn(shape, generator=g,
+                                           device="cuda"))
+        oshape = (shape[0], shape[1] // 2, shape[2] // 2,
+                  blocks[0].body[6].weight.shape[0])
+        ct = torch.randn(oshape, generator=g, device="cuda")
+        common.reset_launch_counts()
+        fused = _stage_grads(blocks, 2, xin, ct, "kernels", mx)
+        counts = common.launch_counts()
+        if counts["conv3_fused_bwd"] != len(blocks) \
+                or counts["dgrad_epilogue"] != 1:
+            raise AssertionError(f"the fused stage did not run its kernels: "
+                                 f"{counts}")
+        common.reset_launch_counts()
+        twin = _stage_grads(blocks, 2, xin, ct, "twins", mx)
+        if any(common.launch_counts()[n] for n in CONV_KERNELS):
+            raise AssertionError("the twins' stage launched a kernel")
+        ref = _stage_grads(blocks, 2, xin, ct, "per-block", mx)
+        moved = _stage_grads(blocks, 2, xp, ct, "per-block", mx)
+        torch.cuda.synchronize()
+        y_ok = bool(((fused[0] - ref[0]).abs()
+                     <= 1e-3 + 1e-3 * ref[0].abs()).all())
+        y_err = (fused[0] - ref[0]).abs().max().item()
+        dx_err, p_err, dx_l2, p_l2 = _grad_errs(fused, ref)
+        dx_spread, p_spread, dx_l2_spread, p_l2_spread = _grad_errs(moved,
+                                                                    ref)
+        dx_tol = max(1e-3, 3 * dx_spread)
+        p_tol = max(5e-3, 3 * p_spread)
+        dx_l2_tol = max(1e-3, 3 * dx_l2_spread)
+        p_l2_tol = max(5e-3, 3 * p_l2_spread)
+        stage = idx - 3
+        tw_dx_err, tw_p_err, tw_dx_l2, tw_p_l2 = _grad_errs(twin, ref)
+        kt_dx_err, kt_p_err, kt_dx_l2, kt_p_l2 = _grad_errs(fused, twin)
+        kt_y_ok = bool(((fused[0] - twin[0]).abs()
+                        <= 1e-3 + 1e-3 * twin[0].abs()).all())
+        log(f"f32 stage {stage} control, twins' stage vs per-block: dx L2 "
+            f"{tw_dx_l2:.3g}, max {tw_dx_err:.3g} of max; worst parameter "
+            f"gradient L2 {tw_p_l2:.3g}, max {tw_p_err:.3g} of max. "
+            f"Kernels' stage vs twins': y max err "
+            f"{(fused[0] - twin[0]).abs().max().item():.3g}; dx L2 "
+            f"{kt_dx_l2:.3g}, max {kt_dx_err:.3g} of max; worst parameter "
+            f"gradient L2 {kt_p_l2:.3g}, max {kt_p_err:.3g} of max")
+        if not kt_y_ok:
+            raise AssertionError(f"stage {stage}: the kernels' and the "
+                                 "twins' fused forward disagree")
+        log(f"f32 stage {stage} fused vs per-block: y max err {y_err:.3g} "
+            f"(rtol = atol = 1e-3); dx L2 {dx_l2:.3g} (spread "
+            f"{dx_l2_spread:.3g}, tol {dx_l2_tol:.3g}), max {dx_err:.3g} of "
+            f"max (spread {dx_spread:.3g}, tol {dx_tol:.3g}); worst "
+            f"parameter gradient L2 {p_l2:.3g} (spread {p_l2_spread:.3g}, "
+            f"tol {p_l2_tol:.3g}), max {p_err:.3g} of max (spread "
+            f"{p_spread:.3g}, tol {p_tol:.3g})")
+        if not y_ok or dx_err > dx_tol or p_err > p_tol \
+                or dx_l2 > dx_l2_tol or p_l2 > p_l2_tol:
+            raise AssertionError(f"stage {stage}: fused and per-block "
+                                 "disagree")
+        out[f"stage{stage}"] = {"y_err": y_err, "dx_l2": dx_l2,
+                                "dx_l2_spread": dx_l2_spread,
+                                "param_l2": p_l2,
+                                "param_l2_spread": p_l2_spread,
+                                "dx_err": dx_err, "dx_spread": dx_spread,
+                                "param_err": p_err,
+                                "param_spread": p_spread,
+                                "twins_vs_perblock": {
+                                    "dx_l2": tw_dx_l2, "param_l2": tw_p_l2,
+                                    "dx_err": tw_dx_err,
+                                    "param_err": tw_p_err},
+                                "kernels_vs_twins": {
+                                    "dx_l2": kt_dx_l2, "param_l2": kt_p_l2,
+                                    "dx_err": kt_dx_err,
+                                    "param_err": kt_p_err}}
+    _, _, _, loss_f = step(params, aux, opt, x, y)
+    os.environ["MXTPU_FUSED_RESNET"] = "0"
+    _, _, _, loss_p = step(params, aux, opt, x, y)
+    rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    log(f"f32 resnet50 first-step loss: fused {float(loss_f):.6f} per-block "
+        f"{float(loss_p):.6f} (rel {rel:.3g}, rtol 1e-3)")
+    if not np.isfinite(float(loss_f)) or rel > 1e-3:
+        raise AssertionError("whole-net loss: fused and per-block disagree")
+    out["loss_rel"] = rel
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1164,6 +1821,9 @@ def main() -> int:
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     from incubator_mxnet_tpu_torch.ops.cuda import softmax as sm
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1196,6 +1856,15 @@ def main() -> int:
     nd_train = nd_train_phase(tt, nd_lm, mx, common, records)
     torch.cuda.empty_cache()
     nd_truth = nd_truth_phase(tt, nd_lm, mx)
+    torch.cuda.empty_cache()
+    conv_records, conv_timings = conv_kernel_checks(cf, common)
+    records.update(conv_records)
+    torch.cuda.empty_cache()
+    resnet = resnet_train_phase(mx, gluon, vision, common, records)
+    torch.cuda.empty_cache()
+    perblock = resnet_perblock_phase(mx, gluon, vision, common)
+    torch.cuda.empty_cache()
+    resnet_truth = resnet_truth_phase(mx, gluon, vision, common)
 
     log(f"serving {json.dumps(serve)}")
     log(f"training {json.dumps(train)}")
@@ -1204,10 +1873,14 @@ def main() -> int:
     log(f"row kernel timings {json.dumps(row_timings)}")
     log(f"nd training {json.dumps(nd_train)}")
     log(f"nd full-width truth {json.dumps(nd_truth)}")
+    log(f"fused-conv kernel timings {json.dumps(conv_timings)}")
+    log(f"resnet50 fused {json.dumps(resnet)}")
+    log(f"resnet50 per-block {json.dumps(perblock)}")
+    log(f"resnet50 f32 truth {json.dumps(resnet_truth)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
-        + ROW_KERNELS]}))
+        + ROW_KERNELS + CONV_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

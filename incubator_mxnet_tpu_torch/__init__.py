@@ -11,11 +11,14 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: the imperative ``nd`` + ``autograd`` API with
-``random``, ``initializer`` and the ``nd`` update ops (slice 3); generative
-LM serving (``serving.InferenceEngine``) and single-device LM training
-(``models.transformer``) (slices 1 and 2). Its hand-written CUDA kernels
-live in ``ops/cuda/csrc``. Arrays and entry points run on the CUDA card
+The port covers so far: Gluon (blocks, layers, losses, ``Trainer``,
+``optimizer``, ``lr_scheduler``) with the ResNet model zoo and its fused
+conv kernels, and the one-card functional train step
+``parallel.dp.make_train_step`` (slice 4); the imperative ``nd`` +
+``autograd`` API with ``random``, ``initializer`` and the ``nd`` update ops
+(slice 3); generative LM serving (``serving.InferenceEngine``) and
+single-device LM training (``models.transformer``) (slices 1 and 2). Its
+hand-written CUDA kernels live in ``ops/cuda/csrc``. Arrays and entry points run on the CUDA card
 unless the caller asks for the CPU (``ctx=mx.cpu()``, ``with mx.cpu():`` or
 ``device="cpu"``); without a card, the default raises.
 """
@@ -35,9 +38,14 @@ from . import random
 from . import engine
 from . import initializer
 from .initializer import init
+from . import name
+from . import lr_scheduler
+from . import optimizer
+from . import gluon
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
            "current_context", "num_gpus", "num_tpus", "NDArray", "base",
            "context", "ndarray", "nd", "autograd", "random", "engine",
-           "initializer", "init"]
+           "initializer", "init", "name", "lr_scheduler", "optimizer",
+           "gluon"]

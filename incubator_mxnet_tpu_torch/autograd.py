@@ -8,7 +8,9 @@ be the tape:
 * Only ops inside ``record()`` are differentiated: ``nd`` ops run under
   ``torch.enable_grad`` while recording and under ``torch.no_grad``
   otherwise, so an op is on the graph only when recording and when an input
-  is a marked variable or came off the graph (the reference's rule).
+  is a marked variable or came off the graph (the reference's rule). A
+  functional trace (``_IN_TRACE``, set by ``parallel.dp.functional_call``)
+  leaves the caller's grad mode in place instead.
 * A marked variable (``attach_grad`` / ``mark_variables``) is a leaf tensor
   that requires its gradient; marking an array that came off the graph
   makes it a fresh leaf.
@@ -54,9 +56,21 @@ _MARKED: "weakref.WeakValueDictionary[int, Any]" = \
 _MARKED_LOCK = threading.Lock()
 
 
+# Set while a block runs as a function of its parameters
+# (``parallel.dp.functional_call``, the reference's jit trace): recording is
+# off, as in the reference's trace, and ops keep the caller's grad mode, so
+# ``torch.autograd.grad`` over the call differentiates it.
+_IN_TRACE = threading.local()
+
+
 def _op_grad_mode():
-    """The grad mode an ``nd`` op runs in: enabled only while recording."""
-    return torch.enable_grad() if _STATE.recording else torch.no_grad()
+    """The grad mode an ``nd`` op runs in: enabled while recording; the
+    caller's inside a functional trace; disabled otherwise."""
+    if _STATE.recording:
+        return torch.enable_grad()
+    if getattr(_IN_TRACE, "active", False):
+        return contextlib.nullcontext()
+    return torch.no_grad()
 
 
 # ---------------------------------------------------------------------------

@@ -25,13 +25,15 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
-           CSRC / "layer_norm.cu", CSRC / "softmax.cu", CSRC / "bindings.cpp")
+           CSRC / "layer_norm.cu", CSRC / "softmax.cu", CSRC / "conv_fused.cu",
+           CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # every exported function returns a cudaError_t as int
 _SIGNATURES = {
     "mxt_flash_decode_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -44,6 +46,14 @@ _SIGNATURES = {
     "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mxt_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "mxt_softmax_fwd": [_P, _P, _I, _I, _I, _P],
+    "mxt_conv_fused_fwd": [_I, _I] + [_P] * 7 + [_L] * 3 + [_P] * 4
+                          + [_I] * 5 + [_P],
+    "mxt_conv_fused_dgrad": [_I, _I] + [_P] * 5 + [_L] * 3 + [_P] * 6
+                            + [_I, _I, _P, _P] + [_I] * 5 + [_P],
+    "mxt_conv_fused_wgrad": [_I, _I] + [_P] * 8 + [_I] * 7 + [_P],
+    "mxt_conv_fused_dual_dgrad": [_I] + ([_P] * 4 + [_L] * 2) * 2
+                                 + [_P] + [_I] * 4 + [_P],
+    "mxt_conv_fused_dual_wgrad": [_I] + [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lib = None

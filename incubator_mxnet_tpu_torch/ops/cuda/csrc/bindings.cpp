@@ -29,6 +29,40 @@ int layer_norm_bwd_launch(int dtype, const void* x, const float* gamma,
                           int rows_per_block, void* stream);
 int softmax_fwd_launch(int dtype, const void* x, void* y, int n, int d,
                        void* stream);
+int conv_fused_fwd_launch(int dtype, int ks, const void* x, const float* a,
+                          const float* b, const void* sc, const float* asc,
+                          const float* bsc, const void* w, long long s_tap,
+                          long long s_c, long long s_n, const float* bias,
+                          void* y, float* stats, void* xhat, int M, int C,
+                          int N, int H, int W, void* stream);
+int conv_fused_dgrad_launch(int dtype, int ks, const void* g,
+                            const void* dzn, const void* yout,
+                            const float* gc, const void* w, long long s_tap,
+                            long long s_c, long long s_n, const void* x,
+                            const float* a, const float* b, const void* dsc,
+                            const void* p0, const void* p1, int n_partners,
+                            int mask, void* dz, float* part, int M, int C,
+                            int N, int H, int W, void* stream);
+int conv_fused_wgrad_launch(int dtype, int ks, const void* x,
+                            const float* a, const float* b, const void* g,
+                            const void* dzn, const void* yout,
+                            const float* gc, float* ws, int splits,
+                            int chunk, int M, int C, int N, int H, int W,
+                            void* stream);
+int conv_fused_dual_dgrad_launch(int dtype, const void* dzn_a,
+                                 const void* yout_a, const float* gc_a,
+                                 const void* w_a, long long s_c_a,
+                                 long long s_n_a, const void* dzn_b,
+                                 const void* yout_b, const float* gc_b,
+                                 const void* w_b, long long s_c_b,
+                                 long long s_n_b, void* dx, int M, int C,
+                                 int Na, int Nb, void* stream);
+int conv_fused_dual_wgrad_launch(int dtype, const void* x,
+                                 const void* dzn_a, const void* yout_a,
+                                 const float* gc_a, const void* dzn_b,
+                                 const void* yout_b, const float* gc_b,
+                                 float* ws, int splits, int chunk, int M,
+                                 int C, int Na, int Nb, void* stream);
 
 extern "C" {
 
@@ -121,6 +155,78 @@ int mxt_layer_norm_bwd(const void* x, const void* gamma, const void* mu,
 int mxt_softmax_fwd(const void* x, void* y, int n, int d, int dtype,
                     void* stream) {
   return softmax_fwd_launch(dtype, x, y, n, d, stream);
+}
+
+// Fused conv + BN + ReLU (conv_fused.cu). Activations are NHWC rows
+// (M, C); w is read at w[tap * s_tap + c * s_c + n * s_n]; per-channel
+// vectors and gc (3, N) are float32; null pointers switch options off.
+int mxt_conv_fused_fwd(int dtype, int ks, const void* x, const void* a,
+                       const void* b, const void* sc, const void* asc,
+                       const void* bsc, const void* w, long long s_tap,
+                       long long s_c, long long s_n, const void* bias,
+                       void* y, void* stats, void* xhat, int M, int C, int N,
+                       int H, int W, void* stream) {
+  return conv_fused_fwd_launch(
+      dtype, ks, x, static_cast<const float*>(a),
+      static_cast<const float*>(b), sc, static_cast<const float*>(asc),
+      static_cast<const float*>(bsc), w, s_tap, s_c, s_n,
+      static_cast<const float*>(bias), y, static_cast<float*>(stats), xhat,
+      M, C, N, H, W, stream);
+}
+
+int mxt_conv_fused_dgrad(int dtype, int ks, const void* g, const void* dzn,
+                         const void* yout, const void* gc, const void* w,
+                         long long s_tap, long long s_c, long long s_n,
+                         const void* x, const void* a, const void* b,
+                         const void* dsc, const void* p0, const void* p1,
+                         int n_partners, int mask, void* dz, void* part,
+                         int M, int C, int N, int H, int W, void* stream) {
+  return conv_fused_dgrad_launch(
+      dtype, ks, g, dzn, yout, static_cast<const float*>(gc), w, s_tap, s_c,
+      s_n, x, static_cast<const float*>(a), static_cast<const float*>(b),
+      dsc, p0, p1, n_partners, mask, dz, static_cast<float*>(part), M, C, N,
+      H, W, stream);
+}
+
+int mxt_conv_fused_wgrad(int dtype, int ks, const void* x, const void* a,
+                         const void* b, const void* g, const void* dzn,
+                         const void* yout, const void* gc, void* ws,
+                         int splits, int chunk, int M, int C, int N, int H,
+                         int W, void* stream) {
+  return conv_fused_wgrad_launch(
+      dtype, ks, x, static_cast<const float*>(a),
+      static_cast<const float*>(b), g, dzn, yout,
+      static_cast<const float*>(gc), static_cast<float*>(ws), splits, chunk,
+      M, C, N, H, W, stream);
+}
+
+// The dual 1x1 dgrad of a junction feeding two convs: dx = G_a w_a^T +
+// G_b w_b^T, each G = (dzn g0 - g1) - yout g2 with gc (3, N) float32.
+int mxt_conv_fused_dual_dgrad(int dtype, const void* dzn_a,
+                              const void* yout_a, const void* gc_a,
+                              const void* w_a, long long s_c_a,
+                              long long s_n_a, const void* dzn_b,
+                              const void* yout_b, const void* gc_b,
+                              const void* w_b, long long s_c_b,
+                              long long s_n_b, void* dx, int M, int C,
+                              int Na, int Nb, void* stream) {
+  return conv_fused_dual_dgrad_launch(
+      dtype, dzn_a, yout_a, static_cast<const float*>(gc_a), w_a, s_c_a,
+      s_n_a, dzn_b, yout_b, static_cast<const float*>(gc_b), w_b, s_c_b,
+      s_n_b, dx, M, C, Na, Nb, stream);
+}
+
+// ws (splits, Na + Nb, C) float32 partials of both dW, gluon order.
+int mxt_conv_fused_dual_wgrad(int dtype, const void* x, const void* dzn_a,
+                              const void* yout_a, const void* gc_a,
+                              const void* dzn_b, const void* yout_b,
+                              const void* gc_b, void* ws, int splits,
+                              int chunk, int M, int C, int Na, int Nb,
+                              void* stream) {
+  return conv_fused_dual_wgrad_launch(
+      dtype, x, dzn_a, yout_a, static_cast<const float*>(gc_a), dzn_b,
+      yout_b, static_cast<const float*>(gc_b), static_cast<float*>(ws),
+      splits, chunk, M, C, Na, Nb, stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

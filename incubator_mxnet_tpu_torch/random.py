@@ -8,19 +8,21 @@ seed gives other numbers here, so samples are held to their distributions
 (shape, type, moments) and to repeating after a re-seed, never to values.
 
 ``generator(ctx)`` hands out the generator of a device: the port's stand-in
-for the reference's ``next_key`` (the key providers of ``hybridize``
-tracing wait for gluon, ``ROADMAP.md`` A5).
+for the reference's ``next_key``. ``use_generator(g)`` makes ``g`` the
+generator of its device inside a scope, the stand-in for the key the
+reference threads through a functional call (``parallel.dp``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from typing import Dict, Optional
 
 import torch
 
-__all__ = ["seed", "generator", "get_state", "set_state", "uniform",
-           "normal", "randn", "randint", "gamma", "exponential", "poisson",
+__all__ = ["seed", "generator", "use_generator", "get_state", "set_state",
+           "uniform", "normal", "randn", "randint", "gamma", "exponential", "poisson",
            "negative_binomial", "generalized_negative_binomial",
            "multinomial", "shuffle", "bernoulli", "sample_uniform",
            "sample_normal", "sample_gamma", "sample_exponential",
@@ -30,6 +32,7 @@ __all__ = ["seed", "generator", "get_state", "set_state", "uniform",
 _lock = threading.Lock()
 _generators: Dict[str, torch.Generator] = {}
 _seed_for_new = 0                      # seeds generators made from now on
+_override = threading.local()          # device -> generator, per thread
 
 
 def _device_of(ctx) -> torch.device:
@@ -48,6 +51,9 @@ def generator(ctx=None) -> torch.Generator:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = str(dev)
+    scoped = getattr(_override, "map", None)
+    if scoped and key in scoped:
+        return scoped[key]
     with _lock:
         g = _generators.get(key)
         if g is None:
@@ -55,6 +61,21 @@ def generator(ctx=None) -> torch.Generator:
             g.manual_seed(_seed_for_new)
             _generators[key] = g
     return g
+
+
+@contextlib.contextmanager
+def use_generator(g: torch.Generator):
+    """Inside the scope, draws on ``g``'s device (in this thread) come from
+    ``g``."""
+    dev = g.device
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    prev = getattr(_override, "map", None)
+    _override.map = {**(prev or {}), str(dev): g}
+    try:
+        yield g
+    finally:
+        _override.map = prev
 
 
 def seed(seed_state: int, ctx=None) -> None:

@@ -38,15 +38,24 @@ def test_importing_the_port_loads_no_jax():
     for name in ("base", "context", "engine", "autograd", "random",
                  "initializer", "ndarray", "ndarray.ndarray", "ndarray.ops",
                  "ndarray.optimizer_ops", "ops.nn", "ops.cuda.layer_norm",
-                 "ops.cuda.softmax", "models.nd_lm"):
+                 "ops.cuda.softmax", "models.nd_lm", "name", "gluon",
+                 "gluon.block", "gluon.parameter", "gluon.nn",
+                 "gluon.nn.basic_layers", "gluon.nn.conv_layers",
+                 "gluon.loss", "gluon.utils", "gluon.trainer",
+                 "gluon.model_zoo", "gluon.model_zoo.vision",
+                 "gluon.model_zoo.vision.resnet",
+                 "gluon.model_zoo.vision._fused_resnet", "optimizer",
+                 "optimizer.optimizer", "lr_scheduler", "parallel.dp",
+                 "ops.cuda.conv_fused"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
-    files = sorted(PKG_DIR.rglob("*.py")) + sorted(PKG_DIR.rglob("*.cu")) \
-        + sorted(PKG_DIR.rglob("*.cpp"))
+    files = [f for ext in ("py", "cu", "cuh", "cpp")
+             for f in sorted(PKG_DIR.rglob(f"*.{ext}"))]
     assert len(files) > 10
+    assert PKG_DIR / "ops" / "cuda" / "csrc" / "rows.cuh" in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

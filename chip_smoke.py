@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths on the card and holds every CUDA kernel
+Drives the port's five main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -17,7 +17,11 @@ of them against its plain PyTorch version:
 * Gluon ResNet-50 v1 training at bench.py's lane (NHWC, batch 128,
   224 x 224, bf16 compute on float32 masters, SGD momentum 0.9) through
   ``parallel.dp.make_train_step``, with the fused conv + BN + ReLU stages
-  (``MXTPU_FUSED_RESNET=1``) and without them.
+  (``MXTPU_FUSED_RESNET=1``) and without them;
+* the word-level LSTM LM (``models.RNNModel``) at bench.py's lane (2 x 650
+  LSTM, vocab 33278, bptt 35, batch 128, dropout 0.5, bf16 compute on
+  float32 masters, SGD lr 1.0) through ``parallel.dp.make_train_step``,
+  its eval forward, and one ``Trainer`` + ``autograd.record()`` step.
 
 Phases:
 
@@ -93,7 +97,26 @@ Phases:
    ``resnet_truth_phase``), beside two control readings: the same fused
    stage on the plain twins, and the kernels' stage against the twins';
    then the whole net's first-step loss, fused against per-block (rtol
-   1e-3).
+   1e-3);
+17. the LSTM kernels (``lstm_fwd_gates``, ``lstm_fwd``, ``lstm_bwd``)
+   against their twins, forward within 1e-4 in float32 and 2e-2 with bf16
+   (over max(1, the largest entry)), backward within 1e-3 / 2e-2 of the
+   largest entry: H 16, 20, 64, 211, 650, 1030 by N 5, 8, 64, 128, 256,
+   in three type forms (bf16 operands with float32 carries, as the word
+   LM runs; bf16 throughout, c carried in bf16; float32), the whole
+   ``lstm_scan`` forward + backward in both directions against the CPU
+   twins; then at the lane (N 128, H 650) with times beside the twin's,
+   cuDNN's whole-sequence LSTM per step and the bound, and one scan
+   forward + backward over T 35;
+18. the word LM at bench.py's lane: 2 warm-up and 5 timed steps; finite,
+   falling loss; per step exactly 70 ``lstm_fwd_gates`` and 70
+   ``lstm_bwd`` launches; tok/s, peak memory and a profiled window of two
+   steps; then an eval forward: 70 ``lstm_fwd`` launches and no other;
+19. the same model in float32 (dropout 0): one loss-and-gradient pass with
+   the kernels against the same pass on the twins (loss rtol 1e-4, every
+   gradient leaf within 1e-3 of its largest entry), then one ``Trainer``
+   + ``autograd.record()`` step, which must launch the same kernels and
+   give the same loss.
 
 Any failure raises, so the exit code is not 0. The last three lines of
 standard output are the kernels' JSON record, the card line and
@@ -740,17 +763,20 @@ def train_phase(tt, fa, records, steps=5):
                                  f"{cfg.n_layers * steps}")
         records[name]["launches"] = launches[name]
     step_ms = wall / steps * 1e3
-    breakdown = train_breakdown(step, params, opt, tokens, labels)
+    breakdown = kernel_breakdown(
+        "train", lambda: step(params, opt, tokens, labels),
+        [f"{n}_kernel" for n in TRAIN_KERNELS])
     return {"step_ms": step_ms, "tok_s": B * T * steps / wall,
             "timed_dtype": timed_dtype, "loss_first": losses[0],
             "loss_last": losses[-1], **breakdown}
 
 
-def train_breakdown(step, params, opt, tokens, labels, steps: int = 2):
-    """Device time torch.profiler records for ``steps`` training steps
-    against the wall time of the same steps, both taken in one profiled
-    window: busy and idle shares, the attention kernels' share, and the
-    top device ops (all per step)."""
+def kernel_breakdown(label, step, kernel_names, steps: int = 2):
+    """Device time torch.profiler records for ``steps`` calls of ``step``
+    against the wall time of the same calls, both taken in one profiled
+    window: busy and idle shares, the time and share of busy of the kernels
+    whose names contain one of ``kernel_names``, and the top device ops
+    (all per step)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     torch.cuda.synchronize()
@@ -759,29 +785,29 @@ def train_breakdown(step, params, opt, tokens, labels, steps: int = 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(params, opt, tokens, labels)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
-    attn_ms = sum(e.self_device_time_total for e in dev
-                  if any(f"{n}_kernel" in e.key for n in TRAIN_KERNELS)
-                  ) / steps / 1e3
+    per = {n: sum(e.self_device_time_total for e in dev if n in e.key)
+           / steps / 1e3 for n in kernel_names}
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
     if busy_ms > wall_ms:
         raise AssertionError(f"device busy {busy_ms} ms exceeds the "
                              f"profiled step's wall time {wall_ms} ms")
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    kern_ms = sum(per.values())
     out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / wall_ms,
-           "attention_kernels_ms": attn_ms,
-           "attention_share_of_busy": attn_ms / busy_ms,
+           "kernels_ms": kern_ms, "kernels_share_of_busy": kern_ms / busy_ms,
+           "kernel_ms": {k: v for k, v in per.items() if v},
            "top_device_ops": [[e.key[:60],
                                e.self_device_time_total / steps / 1e3]
                               for e in top]}
-    log(f"train step breakdown: {json.dumps(out)}")
+    log(f"{label} step breakdown: {json.dumps(out)}")
     return out
 
 
@@ -1014,7 +1040,8 @@ def row_kernel_checks(ln, sm, common):
                    "replaces": ROW_REPLACES[name], "launches": 0,
                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bound_by": ("bytes" if t_bytes >= t_ops
+                                else "operations"),
                    "library_ms": library_ms}
             timings[f"{name} {str(dt)[6:]}"] = rec
             if dt == torch.float32:
@@ -1094,51 +1121,13 @@ def nd_train_phase(tt, nd_lm, mx, common, records, steps=5):
                                  f"in {steps} nd steps, not {n * steps}")
         records[name]["launches"] = launches[name]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    breakdown = nd_breakdown(lambda: step(99))
+    breakdown = kernel_breakdown(
+        "nd", lambda: step(99),
+        ("ln_fwd_warp_kernel", "ln_fwd_block_kernel", "ln_bwd_kernel",
+         "softmax_warp_kernel", "softmax_block_kernel"))
     return {"step_ms": wall / steps * 1e3, "tok_s": B * T * steps / wall,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, **breakdown}
-
-
-def nd_breakdown(step, steps: int = 2):
-    """Busy and wall time of ``steps`` nd steps from one profiled window:
-    idle share, the row kernels' share of busy time, and the top device
-    ops (all per step)."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
-    names = ("ln_fwd_warp_kernel", "ln_fwd_block_kernel", "ln_bwd_kernel",
-             "softmax_warp_kernel", "softmax_block_kernel")
-    row = {n: sum(e.self_device_time_total for e in dev if n in e.key)
-           / steps / 1e3 for n in names}
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    if busy_ms > wall_ms:
-        raise AssertionError(f"device busy {busy_ms} ms exceeds the "
-                             f"profiled step's wall time {wall_ms} ms")
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
-    row_ms = sum(row.values())
-    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / wall_ms,
-           "row_kernels_ms": row_ms,
-           "row_kernels_share_of_busy": row_ms / busy_ms,
-           "row_kernel_ms": {k: v for k, v in row.items() if v},
-           "top_device_ops": [[e.key[:60],
-                               e.self_device_time_total / steps / 1e3]
-                              for e in top]}
-    log(f"nd step breakdown: {json.dumps(out)}")
-    return out
 
 
 def nd_truth_phase(tt, nd_lm, mx):
@@ -1529,50 +1518,13 @@ def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} resnet steps, not {n * steps}")
         records[name]["launches"] = launches[name]
-    breakdown = resnet_breakdown(lambda: step(params, aux, opt, x, y))
+    breakdown = kernel_breakdown(
+        "resnet fused", lambda: step(params, aux, opt, x, y),
+        ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel"))
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
             **breakdown}
-
-
-def resnet_breakdown(step, steps: int = 2):
-    """Busy and wall time of ``steps`` ResNet steps from one profiled
-    window: idle share, the fused-conv kernels' share, top device ops."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
-    names = ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel")
-    conv = {n: sum(e.self_device_time_total for e in dev if n in e.key)
-            / steps / 1e3 for n in names}
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    if busy_ms > wall_ms:
-        raise AssertionError(f"device busy {busy_ms} ms exceeds the "
-                             f"profiled step's wall time {wall_ms} ms")
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
-    conv_ms = sum(conv.values())
-    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / wall_ms,
-           "fused_conv_kernels_ms": conv_ms,
-           "fused_conv_share_of_busy": conv_ms / busy_ms,
-           "fused_conv_kernel_ms": conv,
-           "top_device_ops": [[e.key[:60],
-                               e.self_device_time_total / steps / 1e3]
-                              for e in top]}
-    log(f"resnet step breakdown: {json.dumps(out)}")
-    return out
 
 
 def resnet_perblock_phase(mx, gluon, vision, common, steps=5):
@@ -1609,12 +1561,11 @@ def resnet_perblock_phase(mx, gluon, vision, common, steps=5):
     log(f"resnet50 per-block train: losses {[round(v, 4) for v in losses]}; "
         f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
         f"ms/step, {img_s:.1f} img/s; peak {peak_gb:.2f} GB")
-    breakdown = resnet_breakdown(lambda: step(params, aux, opt, x, y))
+    breakdown = kernel_breakdown(
+        "resnet per-block", lambda: step(params, aux, opt, x, y), ())
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
-            "peak_memory_gb": peak_gb,
-            **{k: v for k, v in breakdown.items()
-               if not k.startswith("fused_conv")}}
+            "peak_memory_gb": peak_gb, **breakdown}
 
 
 def _stage_grads(blocks, stride, xin, ct, path, mx):
@@ -1808,6 +1759,373 @@ def resnet_truth_phase(mx, gluon, vision, common):
     return out
 
 
+# --------------------------------------------------- the LSTM kernels (B8)
+LSTM_KERNELS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd")
+LSTM_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/lstm.cu"
+_LSTM_PY = "incubator_mxnet_tpu/ops/pallas/lstm.py"
+LSTM_REPLACES = {"lstm_fwd_gates": f"{_LSTM_PY}:151",
+                 "lstm_fwd": f"{_LSTM_PY}:151", "lstm_bwd": f"{_LSTM_PY}:180"}
+# (operand type, carry type): the word LM under bf16 compute projects in
+# bf16 and carries float32 states; bf16 carries (c rounded to bf16 each
+# step) and all-float32 are the other two forms
+LSTM_TYPES = ((torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32))
+# forward outputs: max error over max(1, the twin's largest entry), so a
+# bf16 ulp of a large c counts as at 1; backward outputs: max error over
+# the largest entry
+LSTM_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+LM_T, LM_N, LM_H, LM_VOCAB = 35, 128, 650, 33278      # bench.py:500-520
+
+
+def _rnd(g, dt, *shape, sc=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * sc).to(dt)
+
+
+def _lstm_operands(g, od, sd, N, H):
+    """One step's operands: xp, h, c, w, b, dh', dc'."""
+    return (_rnd(g, od, N, 4 * H), _rnd(g, sd, N, H, sc=0.5),
+            _rnd(g, sd, N, H), _rnd(g, od, 4 * H, H, sc=H ** -0.5),
+            _rnd(g, od, 4 * H, sc=0.1), _rnd(g, sd, N, H), _rnd(g, sd, N, H))
+
+
+def _lstm_errs(lt, ops):
+    """(forward error, backward error) of the three kernels against their
+    twins on the same operands."""
+    xp, h, c, w, b, dh1, dc1 = ops
+    ref = lt.lstm_fwd_reference(xp, h, c, w, b, True)
+    kg = lt.lstm_fwd_gates(xp, h, c, w, b)
+    k0 = lt.lstm_fwd(xp, h, c, w, b)
+    rb = lt.lstm_bwd_reference(ref[2], c, ref[1], w, dh1, dc1)
+    kb = lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1)
+    torch.cuda.synchronize()
+    outs = [t for t in kg + k0 + kb if t is not None]
+    if not all(torch.isfinite(t).all() for t in outs):
+        raise AssertionError("an LSTM kernel gave a non-finite value")
+    fwd = _scaled_err(kg + k0[:2], ref + ref[:2])
+    bwd = max(_max_err(a, r) / max(r.float().abs().max().item(), 1e-30)
+              for a, r in zip(kb, rb))
+    return fwd, bwd
+
+
+def _lstm_scan_errs(lt, g, od, sd, T, N, H, reverse):
+    """lstm_scan forward + backward on the card (kernels) against the same
+    on the CPU (twins)."""
+    ins = [_rnd(g, od, T, N, 4 * H), _rnd(g, sd, N, H, sc=0.5),
+           _rnd(g, sd, N, H), _rnd(g, od, 4 * H, H, sc=H ** -0.5),
+           _rnd(g, od, 4 * H, sc=0.1)]
+    cts = [_rnd(g, sd, T, N, H), _rnd(g, sd, N, H), _rnd(g, sd, N, H)]
+    res = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_(True) for t in ins]
+        out = lt.lstm_scan(*leaves, reverse=reverse)
+        grads = torch.autograd.grad(out, leaves, [t.to(dev) for t in cts])
+        res.append([t.detach().cpu() for t in out + grads])
+    fwd = _scaled_err(res[0][:3], res[1][:3])
+    bwd = max(_max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+              for a, b in zip(res[0][3:], res[1][3:]))
+    return fwd, bwd
+
+
+def _lstm_bytes_flops(od, sd, N, H, kernel):
+    """What the kernel must move (inputs read once, outputs written once)
+    and its product's flops, with the type the product runs in."""
+    eo = torch.empty((), dtype=od).element_size()
+    es = torch.empty((), dtype=sd).element_size()
+    flops = 2 * N * H * 4 * H
+    if kernel == "lstm_bwd":
+        moved = (N * 4 * H * 4 + 4 * N * H * es + 4 * H * H * eo
+                 + N * 4 * H * 4 + 2 * N * H * es)
+        return moved, flops, torch.float32
+    gates = N * 4 * H * 4 if kernel == "lstm_fwd_gates" else 0
+    moved = (N * 4 * H * eo + 2 * N * H * es + 4 * H * H * eo + 4 * H * eo
+             + 2 * N * H * es + gates)
+    prod = torch.bfloat16 if od == sd == torch.bfloat16 else torch.float32
+    return moved, flops, prod
+
+
+def lstm_kernel_checks(lt):
+    """Phase 17: the B8 kernels against their twins: a sweep of H 16, 20,
+    64, 211 (prime), 650, 1030 and N 5, 8, 64, 128, 256 in each type form
+    (with and without the residual; bf16 carries round c to bf16), the
+    whole scan forward + backward in both directions against the CPU twins,
+    then the lane's shape (N 128, H 650) with times beside the twin's, the
+    bound, and cuDNN's whole-sequence LSTM per step as the library
+    yardstick. Returns the JSON records (the lane's type form) and a log of
+    every timing."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, n_cases = {}, 0
+    for od, sd in LSTM_TYPES:
+        tol_f, tol_b = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (od, sd)
+                                else torch.float32]
+        key = f"{str(od)[6:]} ops {str(sd)[6:]} carries"
+        for H in (16, 20, 64, 211, 650, 1030):
+            for N in (5, 8, 64, 128, 256):
+                fwd, bwd = _lstm_errs(lt, _lstm_operands(g, od, sd, N, H))
+                if fwd > tol_f or bwd > tol_b:
+                    raise AssertionError(f"LSTM kernels {key} N {N} H {H}: "
+                                         f"forward {fwd}, backward {bwd}")
+                w = worst.setdefault(key, [0.0, 0.0])
+                w[0], w[1] = max(w[0], fwd), max(w[1], bwd)
+                n_cases += 1
+        for reverse in (False, True):
+            fwd, bwd = _lstm_scan_errs(lt, g, od, sd, 6, 16, 211, reverse)
+            if fwd > tol_f or bwd > tol_b:
+                raise AssertionError(f"lstm_scan {key} reverse {reverse}: "
+                                     f"forward {fwd}, backward {bwd}")
+            worst[key + " scan"] = max(worst.get(key + " scan", 0.0), fwd,
+                                       bwd)
+    log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels and the scan in "
+        f"both directions within tolerance; worst (forward, backward) "
+        f"{json.dumps(worst)}")
+    timings = {"sweep": worst}
+    records = {}
+    N, H, T = LM_N, LM_H, LM_T
+    for od, sd in LSTM_TYPES:
+        tag = f"{str(od)[6:]} ops {str(sd)[6:]} carries"
+        xp, h, c, w, b, dh1, dc1 = _lstm_operands(g, od, sd, N, H)
+        fwd, bwd = _lstm_errs(lt, (xp, h, c, w, b, dh1, dc1))
+        gates = lt.lstm_fwd_gates(xp, h, c, w, b)[2]
+        runs = {
+            "lstm_fwd_gates": (lambda: lt.lstm_fwd_gates(xp, h, c, w, b),
+                               lambda: lt.lstm_fwd_reference(
+                                   xp, h, c, w, b, True)),
+            "lstm_fwd": (lambda: lt.lstm_fwd(xp, h, c, w, b),
+                         lambda: lt.lstm_fwd_reference(
+                             xp, h, c, w, b, False)),
+            "lstm_bwd": (lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1),
+                         lambda: lt.lstm_bwd_reference(gates, c, c, w, dh1,
+                                                       dc1))}
+        lib = _cudnn_lstm_per_step(od, T, N, H)
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(kern, iters=50)
+            plain_ms = time_ms(plain, iters=20)
+            moved, flops, prod = _lstm_bytes_flops(od, sd, N, H, name)
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[prod] * 1e3
+            rec = {"name": name, "route": "cuda", "source": LSTM_SOURCE,
+                   "replaces": LSTM_REPLACES[name], "launches": 0,
+                   "max_abs_err": bwd if name == "lstm_bwd" else fwd,
+                   "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": ("bytes" if t_bytes >= t_ops
+                                else "operations"),
+                   "library_ms": lib[name]}
+            timings[f"{name} {tag}"] = rec
+            if (od, sd) == LSTM_TYPES[0]:
+                records[name] = rec
+            log(f"time {name} {tag} N {N} H {H}: {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, cuDNN per step {lib[name]:.4f} ms, "
+                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        timings[f"lstm_scan T {T} {tag}"] = _scan_time(lt, g, od, sd, T, N,
+                                                       H)
+        torch.cuda.empty_cache()
+    return records, timings
+
+
+def _cudnn_lstm_per_step(dt, T, N, H):
+    """cuDNN's whole-sequence LSTM (``torch.nn.LSTM``, all in ``dt``) at the
+    same T, N, H, per step: inference forward (beside ``lstm_fwd``),
+    training forward (beside ``lstm_fwd_gates``) and the backward (forward
+    + backward less the training forward, beside ``lstm_bwd``). It also
+    computes the input projection, which the B8 kernels do not. A
+    yardstick of this phase only; the port never calls it."""
+    net = torch.nn.LSTM(H, H).to(device="cuda", dtype=dt)
+    x = torch.randn(T, N, H, device="cuda", dtype=dt, requires_grad=True)
+    gy = torch.randn(T, N, H, device="cuda", dtype=dt)
+
+    def infer():
+        with torch.no_grad():
+            net(x)
+
+    def train_fwd():
+        net(x)
+
+    def train_step():
+        y, _ = net(x)
+        y.backward(gy)
+
+    f_inf = time_ms(infer, iters=10, warmup=2) / T
+    f_tr = time_ms(train_fwd, iters=10, warmup=2) / T
+    both = time_ms(train_step, iters=10, warmup=2) / T
+    return {"lstm_fwd": f_inf, "lstm_fwd_gates": f_tr,
+            "lstm_bwd": both - f_tr}
+
+
+def _scan_time(lt, g, od, sd, T, N, H):
+    """One lstm_scan forward + backward over T steps (CUDA events)."""
+    leaves = [t.requires_grad_(True) for t in (
+        _rnd(g, od, T, N, 4 * H), _rnd(g, sd, N, H), _rnd(g, sd, N, H),
+        _rnd(g, od, 4 * H, H, sc=H ** -0.5), _rnd(g, od, 4 * H))]
+    gy = _rnd(g, sd, T, N, H)
+
+    def fwd():
+        with torch.no_grad():
+            lt.lstm_scan(*leaves)
+
+    def fwd_bwd():
+        ys, _, _ = lt.lstm_scan(*leaves)
+        torch.autograd.grad(ys, leaves, gy)
+
+    out = {"forward_ms": time_ms(fwd, iters=5, warmup=1),
+           "forward_backward_ms": time_ms(fwd_bwd, iters=5, warmup=1)}
+    log(f"lstm_scan T {T} N {N} H {H} {str(od)[6:]}/{str(sd)[6:]}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------ the word-LM lane
+def _word_lm(mx, seed, dropout, dtype=None):
+    """bench.py's lane (bench.py:500-520): RNNModel lstm, vocab 33278,
+    embed = hidden 650, 2 layers, Xavier, on the card; a (T 35, batch 128)
+    token batch from the seed; the functional SGD step at lr 1.0."""
+    from incubator_mxnet_tpu_torch.models.word_lm import RNNModel
+    from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
+    rs = np.random.RandomState(seed)
+    x_np = rs.randint(0, LM_VOCAB, (LM_T, LM_N)).astype(np.int32)
+    y_np = rs.randint(0, LM_VOCAB, (LM_T, LM_N)).astype(np.int32)
+    mx.random.seed(seed)
+    with mx.gpu(0):
+        net = RNNModel(mode="lstm", vocab_size=LM_VOCAB, num_embed=LM_H,
+                       num_hidden=LM_H, num_layers=2, dropout=dropout)
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.array(x_np))
+    step, params, aux, opt = make_train_step(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        learning_rate=1.0, compute_dtype=dtype)
+    return (net, step, params, aux, opt, torch.from_numpy(x_np).cuda(),
+            torch.from_numpy(y_np).cuda())
+
+
+def word_lm_train_phase(mx, common, records, steps=5):
+    """Phase 18: the word LM at bench.py's lane (2 x 650 LSTM, vocab 33278,
+    bptt 35, batch 128, dropout 0.5, bf16 compute on float32 masters, SGD
+    lr 1.0), one update per call: bench.py's unroll 8 is the reference's
+    lax.scan over updates, which the port runs as a Python loop that
+    changes nothing per step. 2 warm-up and 5 timed steps; finite, falling
+    loss; exactly 70 ``lstm_fwd_gates`` and 70 ``lstm_bwd`` launches per
+    step (2 layers x 35 steps) and no ``lstm_fwd``; then a profiled window
+    of two steps; then an eval forward (no autograd, no grad): 70
+    ``lstm_fwd`` launches and nothing else of B8."""
+    torch.cuda.reset_peak_memory_stats()
+    net, step, params, aux, opt, x, y = _word_lm(mx, SEED + 7, 0.5,
+                                                 torch.bfloat16)
+    losses = []
+    for _ in range(2):
+        params, aux, opt, loss = step(params, aux, opt, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, aux, opt, loss = step(params, aux, opt, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    losses = [float(v) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tok_s = LM_T * LM_N * steps / wall
+    log(f"word LM train: losses {[round(v, 4) for v in losses]}; {steps} "
+        f"timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
+        f"{tok_s:.0f} tok/s; peak {peak_gb:.2f} GB; launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"word LM loss not finite and falling: "
+                             f"{losses}")
+    per_step = {"lstm_fwd_gates": 70, "lstm_bwd": 70, "lstm_fwd": 0}
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {steps} word-LM steps, not "
+                                 f"{n * steps}")
+    records["lstm_fwd_gates"]["launches"] = launches["lstm_fwd_gates"]
+    records["lstm_bwd"]["launches"] = launches["lstm_bwd"]
+    breakdown = kernel_breakdown(
+        "word LM", lambda: step(params, aux, opt, x, y),
+        ("lstm_fwd_kernel", "lstm_bwd_kernel"))
+    # the eval forward: recording off, no gradient, dropout off
+    common.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = net(mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0)))
+    torch.cuda.synchronize()
+    ev = common.launch_counts()
+    log(f"word LM eval forward: logits {logits.shape}; launches {ev}")
+    if ev["lstm_fwd"] != 70 or ev["lstm_fwd_gates"] or ev["lstm_bwd"] \
+            or not bool(torch.isfinite(logits._data).all()):
+        raise AssertionError(f"eval forward: launches {ev}")
+    records["lstm_fwd"]["launches"] = ev["lstm_fwd"]
+    return {"step_ms": wall / steps * 1e3, "tok_s": tok_s,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+            "eval_forward_launches": ev, **breakdown}
+
+
+def _lm_loss_and_grads(net, params, x, y, mx):
+    from incubator_mxnet_tpu_torch.parallel.dp import _forward_loss
+    leaves = {n: v.detach().clone().requires_grad_(True)
+              for n, v in params.items()}
+    with torch.enable_grad():
+        loss = _forward_loss(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             leaves, x, y, None)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def word_lm_truth_phase(mx, lt, common):
+    """Phase 19: at the lane's width in float32 (dropout 0), one
+    loss-and-gradient pass with the kernels against the same pass on the
+    twins (loss rtol 1e-4, every gradient leaf within 1e-3 of its largest
+    entry); then one Trainer + autograd.record() step, the reference's
+    imperative route, which must launch the same kernels and give the same
+    loss."""
+    net, _, params, _, _, x, y = _word_lm(mx, SEED + 8, 0.0)
+    common.reset_launch_counts()
+    loss_k, grads_k = _lm_loss_and_grads(net, params, x, y, mx)
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    if launches["lstm_fwd_gates"] != 70 or launches["lstm_bwd"] != 70:
+        raise AssertionError(f"f32 pass launches {launches}")
+    steps = (lt._step_fwd, lt._step_bwd)
+    lt._step_fwd, lt._step_bwd = lt._twin_fwd, lt._twin_bwd
+    try:
+        loss_t, grads_t = _lm_loss_and_grads(net, params, x, y, mx)
+    finally:
+        lt._step_fwd, lt._step_bwd = steps
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+    worst = max((grads_k[n] - grads_t[n]).abs().max().item()
+                / max(grads_t[n].abs().max().item(), 1e-30)
+                for n in grads_t)
+    log(f"f32 word LM pass, kernels vs twins: loss {loss_k.item():.6f} vs "
+        f"{loss_t.item():.6f} (rel {loss_err:.3g}, rtol 1e-4); worst "
+        f"gradient leaf {worst:.3g} (1e-3) over {len(grads_t)} leaves")
+    if not np.isfinite(loss_k.item()) or loss_err > 1e-4 or worst > 1e-3:
+        raise AssertionError(f"word LM kernels vs twins: loss {loss_err}, "
+                             f"gradients {worst}")
+    # the imperative route on the same parameters
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 1.0})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    xt = mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0))
+    yt = mx.nd.array(y.cpu().numpy(), ctx=mx.gpu(0))
+    common.reset_launch_counts()
+    with mx.autograd.record():
+        out, _ = net(xt)
+        loss = loss_fn(out, yt)
+    loss.backward()
+    trainer.step(LM_T * LM_N)
+    torch.cuda.synchronize()
+    rec = common.launch_counts()
+    loss_rec = float(loss.mean().asscalar())
+    rec_err = abs(loss_rec - loss_k.item()) / abs(loss_k.item())
+    log(f"word LM Trainer + record() step: loss {loss_rec:.6f} (rel "
+        f"{rec_err:.3g} to the functional pass); launches {rec}")
+    if rec["lstm_fwd_gates"] != 70 or rec["lstm_bwd"] != 70 \
+            or rec["lstm_fwd"] or rec_err > 1e-4:
+        raise AssertionError(f"record() step: launches {rec}, loss {rec_err}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": worst,
+            "record_loss_rel_err": rec_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1822,6 +2140,7 @@ def main() -> int:
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     from incubator_mxnet_tpu_torch.ops.cuda import softmax as sm
     from incubator_mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    from incubator_mxnet_tpu_torch.ops.cuda import lstm as lt
     from incubator_mxnet_tpu_torch import gluon
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 
@@ -1865,6 +2184,13 @@ def main() -> int:
     perblock = resnet_perblock_phase(mx, gluon, vision, common)
     torch.cuda.empty_cache()
     resnet_truth = resnet_truth_phase(mx, gluon, vision, common)
+    torch.cuda.empty_cache()
+    lstm_records, lstm_timings = lstm_kernel_checks(lt)
+    records.update(lstm_records)
+    torch.cuda.empty_cache()
+    word_lm = word_lm_train_phase(mx, common, records)
+    torch.cuda.empty_cache()
+    word_lm_truth = word_lm_truth_phase(mx, lt, common)
 
     log(f"serving {json.dumps(serve)}")
     log(f"training {json.dumps(train)}")
@@ -1877,10 +2203,13 @@ def main() -> int:
     log(f"resnet50 fused {json.dumps(resnet)}")
     log(f"resnet50 per-block {json.dumps(perblock)}")
     log(f"resnet50 f32 truth {json.dumps(resnet_truth)}")
+    log(f"LSTM kernel timings {json.dumps(lstm_timings)}")
+    log(f"word LM training {json.dumps(word_lm)}")
+    log(f"word LM f32 truth {json.dumps(word_lm_truth)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
-        + ROW_KERNELS + CONV_KERNELS]}))
+        + ROW_KERNELS + CONV_KERNELS + LSTM_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: Gluon (blocks, layers, losses, ``Trainer``,
+The port covers so far: the fused RNN (``nd.RNN``, ``gluon.rnn``) with the
+word LM ``models.RNNModel`` and its LSTM kernels, and ``metric`` (slice 5);
+Gluon (blocks, layers, losses, ``Trainer``,
 ``optimizer``, ``lr_scheduler``) with the ResNet model zoo and its fused
 conv kernels, and the one-card functional train step
 ``parallel.dp.make_train_step`` (slice 4); the imperative ``nd`` +
@@ -40,6 +42,7 @@ from . import initializer
 from .initializer import init
 from . import name
 from . import lr_scheduler
+from . import metric
 from . import optimizer
 from . import gluon
 
@@ -47,5 +50,5 @@ __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
            "current_context", "num_gpus", "num_tpus", "NDArray", "base",
            "context", "ndarray", "nd", "autograd", "random", "engine",
-           "initializer", "init", "name", "lr_scheduler", "optimizer",
-           "gluon"]
+           "initializer", "init", "name", "lr_scheduler", "metric",
+           "optimizer", "gluon"]

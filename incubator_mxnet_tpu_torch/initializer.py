@@ -234,8 +234,11 @@ class LSTMBias(Initializer):
 
 @register
 class FusedRNN(Initializer):
-    """Initializes a FusedRNNCell's packed parameters; the cell is the RNN
-    slice (``ROADMAP.md`` A7), so calling it raises."""
+    """Initializes a FusedRNNCell's packed parameters. The reference
+    unpacks them through the symbolic ``rnn.rnn_cell.FusedRNNCell``, and
+    the symbolic API is ``ROADMAP.md`` A11, so calling it raises; the gluon
+    ``rnn`` layers (A7) keep their weights unpacked and need no such
+    initializer."""
 
     def __init__(self, init, num_hidden, num_layers, mode,
                  bidirectional=False, forget_bias=1.0):
@@ -250,8 +253,8 @@ class FusedRNN(Initializer):
 
     def _init_weight(self, name, arr):
         raise NotImplementedError(
-            "FusedRNN initializer: FusedRNNCell is the RNN slice "
-            "(ROADMAP.md A7)")
+            "FusedRNN initializer: it unpacks through the symbolic "
+            "FusedRNNCell, which is the symbolic API (ROADMAP.md A11)")
 
 
 class Mixed:

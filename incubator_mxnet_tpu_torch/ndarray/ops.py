@@ -6,10 +6,11 @@ function, differentiable under ``autograd.record()``. Both snake_case and
 the reference's CamelCase names are exposed, and unknown keyword arguments
 raise (``_strictify_module``). Binary ops take both operands in the
 promotion of their types, as ``jnp`` does. ``LayerNorm`` and ``softmax``
-reach the B5 and B6 CUDA kernels through ``ops/nn.py``.
+reach the B5 and B6 CUDA kernels through ``ops/nn.py``, ``RNN`` the B8
+LSTM kernels through ``ops/rnn.py``.
 
-Two ops depend on slices not ported yet and raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item: ``RNN`` (A7) and ``Custom`` (A11).
+``Custom`` depends on a slice not ported yet and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item (A11).
 """
 from __future__ import annotations
 
@@ -650,10 +651,35 @@ stop_gradient = BlockGrad
 def RNN(data, parameters, state, state_cell=None, mode="lstm",
         state_size=None, num_layers=1, bidirectional=False, p=0.0,
         state_outputs=False, **kw):
-    """The fused RNN op runs the LSTM kernel of ``ops/pallas/lstm.py``,
-    which is the RNN slice (``ROADMAP.md`` A7, kernel B8)."""
-    raise NotImplementedError(
-        "nd.RNN: the fused RNN and its LSTM kernel are ROADMAP.md A7 (B8)")
+    """Fused multi-layer RNN over a packed parameter vector (ref:
+    src/operator/rnn-inl.h:158 RNNParam; packing rnn_packed_param_size);
+    LSTM runs the fused LSTM kernels where the reference's rule takes the
+    shape (``ops/rnn.py``)."""
+    if kw:
+        raise TypeError(f"RNN got unsupported keyword arguments {sorted(kw)}; "
+                        "supported: mode, state_size, num_layers, "
+                        "bidirectional, p, state_outputs")
+    if state_size is None:
+        raise ValueError("RNN requires state_size (the hidden size H used "
+                         "to unpack the flat parameter vector)")
+    from ..ops import rnn as _rnn
+    from .. import autograd as _ag
+    from .. import random as _random
+    training = _ag.is_training()
+    data = _as_nd(data)
+    gen = (_random.generator(data._data.device) if (p > 0.0 and training)
+           else None)
+    ins = [data, _as_nd(parameters), _as_nd(state)]
+    if mode == "lstm" and state_cell is not None:
+        ins.append(_as_nd(state_cell))
+
+    def fn(d, pr, st, sc=None):
+        return _rnn.rnn(d, pr, st, sc, mode=mode, state_size=state_size,
+                        num_layers=num_layers, bidirectional=bidirectional,
+                        p=p, state_outputs=state_outputs, training=training,
+                        generator=gen)
+    n_out = 1 if not state_outputs else (3 if mode == "lstm" else 2)
+    return invoke(fn, ins, "RNN", n_out=n_out)
 
 
 def UpSampling(*data, scale=2, sample_type="nearest", num_args=1, **kw):

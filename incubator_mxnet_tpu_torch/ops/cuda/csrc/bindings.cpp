@@ -63,6 +63,14 @@ int conv_fused_dual_wgrad_launch(int dtype, const void* x,
                                  const void* yout_b, const float* gc_b,
                                  float* ws, int splits, int chunk, int M,
                                  int C, int Na, int Nb, void* stream);
+int lstm_fwd_launch(int in_dtype, int state_dtype, const void* xp,
+                    const void* h, const void* c, const void* w,
+                    const void* b, void* h1, void* c1, float* gates, int N,
+                    int H, void* stream);
+int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
+                    const void* c, const void* c1, const void* w,
+                    const void* dh1, const void* dc1, float* dxp, void* dh,
+                    void* dc, int N, int H, void* stream);
 
 extern "C" {
 
@@ -227,6 +235,29 @@ int mxt_conv_fused_dual_wgrad(int dtype, const void* x, const void* dzn_a,
       dtype, x, dzn_a, yout_a, static_cast<const float*>(gc_a), dzn_b,
       yout_b, static_cast<const float*>(gc_b), static_cast<float*>(ws),
       splits, chunk, M, C, Na, Nb, stream);
+}
+
+// One LSTM step (lstm.cu): xp (N, 4H), w (4H, H) and b (4H,) of type
+// in_dtype; h, c, h1, c1 (N, H) of type state_dtype; gates (N, 4H) float32,
+// or null for the variant without the residual.
+int mxt_lstm_fwd(int in_dtype, int state_dtype, const void* xp,
+                 const void* h, const void* c, const void* w, const void* b,
+                 void* h1, void* c1, void* gates, int N, int H,
+                 void* stream) {
+  return lstm_fwd_launch(in_dtype, state_dtype, xp, h, c, w, b, h1, c1,
+                         static_cast<float*>(gates), N, H, stream);
+}
+
+// Its backward: gates and dxp (N, 4H) float32; w of type w_dtype; c, c1,
+// dh1, dc1, dh, dc (N, H) of type state_dtype.
+int mxt_lstm_bwd(int w_dtype, int state_dtype, const void* gates,
+                 const void* c, const void* c1, const void* w,
+                 const void* dh1, const void* dc1, void* dxp, void* dh,
+                 void* dc, int N, int H, void* stream) {
+  return lstm_bwd_launch(w_dtype, state_dtype,
+                         static_cast<const float*>(gates), c, c1, w, dh1,
+                         dc1, static_cast<float*>(dxp), dh, dc, N, H,
+                         stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

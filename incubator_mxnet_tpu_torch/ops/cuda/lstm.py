@@ -1,0 +1,371 @@
+"""The fused LSTM cell: its CUDA kernels, their plain PyTorch twins, and the
+differentiable scan and cell built on them.
+
+Counterpart of ``incubator_mxnet_tpu/ops/pallas/lstm.py``:
+
+* ``lstm_fwd`` / ``lstm_fwd_gates`` and their twin ``lstm_fwd_reference``
+  — one step, z_k = xp_k + h @ W_k^T + b_k for the gates i, f, g, o, then
+  c' = f c + i g and h' = o tanh(c'); ``lstm_fwd_gates`` also writes the
+  float32 post-activation gates residual, ``lstm_fwd`` writes none (the
+  reference's ``_run_fwd`` with and without ``with_gates``). The two are
+  counted apart, so a run shows its training and its inference launches;
+* ``lstm_bwd`` / ``lstm_bwd_reference`` — the step's backward: from
+  (gates, c, c', W, dh', dc') the four dz, dxp = dz in float32,
+  dh = dz @ W and dc = dct f (the reference's ``_run_bwd``);
+* ``lstm_scan`` — the whole sequence as one ``torch.autograd.Function``
+  (the reference's scan-level custom VJP ``_lstm_scan_fused``): the forward
+  loops over T launching the forward kernel, with the residual only when a
+  gradient is needed; the residuals are (ys, c's, gates), the h and c
+  histories being the outputs shifted one step; the backward loops in
+  reverse over the backward kernel and forms dW_hh and db_hh as ONE float32
+  product over the stacked (T N) rows, cast to the weight's type;
+* ``lstm_cell`` — one step with its own VJP (the reference's per-cell
+  custom VJP), in the reference's (4, N, H) / (4, H, H) layouts;
+* ``lstm_cell_viable`` — the reference's rule for which shapes go to its
+  kernel (the others run its plain jnp cell, ``ops/rnn.py``), kept so that
+  the port rounds as the reference does at every shape.
+
+The kernels take the packed layouts: xp (N, 4H) (one step of
+x @ W_ih^T + b_ih), w (4H, H) (W_hh), b (4H,), gates and dxp (N, 4H)
+float32. xp, w and b share one type and the carries h, c (and their
+cotangents) another, each float32 or bfloat16: the word LM under bf16
+compute projects in bf16 but carries float32 states, as the reference
+does. The gate math runs in float32; h' and c' are rounded to the
+carries' type, dh and dc to the cotangents'. CUDA tensors go through the
+kernels, CPU tensors through the twins; a kernel wrapper given anything
+else raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from .common import (check_launch, counted_kernel, current_stream_handle,
+                     kernel_library, pick_block)
+
+__all__ = ["lstm_fwd", "lstm_fwd_gates", "lstm_bwd", "lstm_fwd_reference",
+           "lstm_bwd_reference", "lstm_scan", "lstm_cell",
+           "lstm_cell_viable"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# ---------------------------------------------------- the reference's rule
+_LSTM_VMEM_BUDGET = 14 * 1024 * 1024
+
+
+def _pad8(d: int) -> int:
+    return -(-d // 8) * 8
+
+
+def _pad128(d: int) -> int:
+    return -(-d // 128) * 128
+
+
+def _cell_block_rows(n: int, h: int) -> int:
+    """The reference's row block of its cell kernel (weights plus per-row
+    activations within its 14 MB budget, with the TPU's padded tilings);
+    0 means it runs the plain cell."""
+    w_bytes = 4 * _pad8(h) * _pad128(h) * 4
+    budget = _LSTM_VMEM_BUDGET - w_bytes
+    if budget <= 0:
+        return 0
+    per_row = 16 * _pad128(h) * 4
+    max_rows = budget // per_row // 8 * 8
+    if max_rows < 8:
+        return 0
+    pow2 = 1 << (int(max_rows).bit_length() - 1)
+    block = pick_block(n, min(256, pow2))
+    return block if block % 8 == 0 else 0
+
+
+def lstm_cell_viable(n: int, h: int, dtype) -> bool:
+    """Does the reference send a batch of ``n`` rows, hidden size ``h`` and
+    type ``dtype`` (a torch dtype) to its kernel? The CUDA kernels take any
+    shape; this rule only keeps the port's rounding equal to the
+    reference's."""
+    if n % 8 != 0 or dtype not in _DTYPE_CODE:
+        return False
+    return _cell_block_rows(n, h) > 0
+
+
+# ------------------------------------------------------------------ twins
+def lstm_fwd_reference(xp, h, c, w, b, with_gates: bool = True):
+    """Plain twin of the forward kernels (``_fwd_kernel``). Returns (h',
+    c', gates (N, 4H) float32 or None)."""
+    H = h.shape[1]
+    z = (xp.float() + torch.matmul(h.float(), w.float().t())) + b.float()
+    i = torch.sigmoid(z[:, :H])
+    f = torch.sigmoid(z[:, H:2 * H])
+    g = torch.tanh(z[:, 2 * H:3 * H])
+    o = torch.sigmoid(z[:, 3 * H:])
+    c1 = f * c.float() + i * g
+    h1 = (o * torch.tanh(c1)).to(h.dtype)
+    gates = torch.cat([i, f, g, o], dim=1) if with_gates else None
+    return h1, c1.to(c.dtype), gates
+
+
+def lstm_bwd_reference(gates, c, c1, w, dh1, dc1):
+    """Plain twin of the backward kernel (``_bwd_kernel``). Returns (dxp
+    (N, 4H) float32, dh like dh1, dc like dc1)."""
+    H = c.shape[1]
+    i, f = gates[:, :H], gates[:, H:2 * H]
+    g, o = gates[:, 2 * H:3 * H], gates[:, 3 * H:]
+    cf, dh1f, dc1f = c.float(), dh1.float(), dc1.float()
+    tc = torch.tanh(c1.float())
+    do = dh1f * tc
+    dct = dc1f + dh1f * o * (1.0 - tc * tc)
+    dz = torch.cat([dct * g * i * (1.0 - i), dct * cf * f * (1.0 - f),
+                    dct * i * (1.0 - g * g), do * o * (1.0 - o)], dim=1)
+    dh = torch.matmul(dz, w.float())
+    return dz, dh.to(dh1.dtype), (dct * f).to(dc1.dtype)
+
+
+# ------------------------------------------------------------- wrappers
+def _check(name, ref, *ops):
+    """Every operand a contiguous CUDA tensor on ref's device; ``ops`` are
+    (tensor, shape, dtype)."""
+    if not ref.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{ref.device}")
+    for t, shape, dtype in ops:
+        if dtype not in _DTYPE_CODE:
+            raise TypeError(f"{name}: dtype {dtype} not supported (float32 "
+                            "or bfloat16)")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
+                or t.device != ref.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: expected a contiguous {tuple(shape)} {dtype} "
+                f"tensor on {ref.device}, got {tuple(t.shape)} {t.dtype} "
+                f"on {t.device}")
+
+
+def _launch_fwd(name, with_gates, xp, h, c, w, b, out):
+    n, hid = h.shape
+    dt, st = xp.dtype, h.dtype
+    _check(name, h, (xp, (n, 4 * hid), dt), (h, (n, hid), st),
+           (c, (n, hid), st), (w, (4 * hid, hid), dt), (b, (4 * hid,), dt))
+    if out is None:
+        out = (torch.empty_like(h), torch.empty_like(c),
+               torch.empty((n, 4 * hid), dtype=torch.float32,
+                           device=h.device) if with_gates else None)
+    h1, c1, gates = out
+    _check(name, h, (h1, (n, hid), st), (c1, (n, hid), st),
+           *([(gates, (n, 4 * hid), torch.float32)] if with_gates else []))
+    code = kernel_library().mxt_lstm_fwd(
+        _DTYPE_CODE[dt], _DTYPE_CODE[st], xp.data_ptr(), h.data_ptr(),
+        c.data_ptr(), w.data_ptr(), b.data_ptr(), h1.data_ptr(),
+        c1.data_ptr(),
+        gates.data_ptr() if with_gates else None, n, hid,
+        current_stream_handle(h))
+    check_launch(code, name)
+    return h1, c1, gates
+
+
+@counted_kernel
+def lstm_fwd(xp, h, c, w, b, out=None):
+    """CUDA kernel of one LSTM step without the gates residual (replaces
+    the Pallas ``_run_fwd(with_gates=False)``). ``out`` optionally gives
+    (h', c', None) to write into. Returns (h', c', None)."""
+    res = _launch_fwd("lstm_fwd", False, xp, h, c, w, b, out)
+    lstm_fwd.launches += 1
+    return res
+
+
+@counted_kernel
+def lstm_fwd_gates(xp, h, c, w, b, out=None):
+    """CUDA kernel of one LSTM step with the float32 gates residual
+    (replaces the Pallas ``_run_fwd(with_gates=True)``). ``out`` optionally
+    gives (h', c', gates) to write into. Returns (h', c', gates)."""
+    res = _launch_fwd("lstm_fwd_gates", True, xp, h, c, w, b, out)
+    lstm_fwd_gates.launches += 1
+    return res
+
+
+@counted_kernel
+def lstm_bwd(gates, c, c1, w, dh1, dc1, out=None):
+    """CUDA kernel of one LSTM step's backward (replaces the Pallas
+    ``_run_bwd``). ``out`` optionally gives the (N, 4H) float32 dxp to
+    write into. Returns (dxp, dh, dc)."""
+    n, hid = c.shape
+    st = c.dtype
+    _check("lstm_bwd", c, (gates, (n, 4 * hid), torch.float32),
+           (c, (n, hid), st), (c1, (n, hid), st),
+           (w, (4 * hid, hid), w.dtype), (dh1, (n, hid), st),
+           (dc1, (n, hid), st))
+    dxp = out if out is not None else torch.empty(
+        (n, 4 * hid), dtype=torch.float32, device=c.device)
+    _check("lstm_bwd", c, (dxp, (n, 4 * hid), torch.float32))
+    dh, dc = torch.empty_like(dh1), torch.empty_like(dc1)
+    code = kernel_library().mxt_lstm_bwd(
+        _DTYPE_CODE[w.dtype], _DTYPE_CODE[st], gates.data_ptr(),
+        c.data_ptr(), c1.data_ptr(),
+        w.data_ptr(), dh1.data_ptr(), dc1.data_ptr(), dxp.data_ptr(),
+        dh.data_ptr(), dc.data_ptr(), n, hid, current_stream_handle(c))
+    check_launch(code, "lstm_bwd")
+    lstm_bwd.launches += 1
+    return dxp, dh, dc
+
+
+def _twin_fwd(xp, h, c, w, b, with_gates, out=None):
+    """One step on the twin, written into ``out`` when given."""
+    res = lstm_fwd_reference(xp, h, c, w, b, with_gates)
+    if out is None:
+        return res
+    for dst, src in zip(out, res):
+        if dst is not None:
+            dst.copy_(src)
+    return out
+
+
+def _twin_bwd(gates, c, c1, w, dh1, dc1, out=None):
+    dxp, dh, dc = lstm_bwd_reference(gates, c, c1, w, dh1, dc1)
+    if out is not None:
+        out.copy_(dxp)
+        dxp = out
+    return dxp, dh, dc
+
+
+def _step_fwd(xp, h, c, w, b, with_gates, out=None):
+    """One step: the kernel on the card, the twin on the CPU."""
+    if h.is_cuda:
+        kern = lstm_fwd_gates if with_gates else lstm_fwd
+        return kern(xp, h, c, w, b, out=out)
+    return _twin_fwd(xp, h, c, w, b, with_gates, out)
+
+
+def _step_bwd(gates, c, c1, w, dh1, dc1, out=None):
+    if c.is_cuda:
+        return lstm_bwd(gates, c, c1, w, dh1, dc1, out=out)
+    return _twin_bwd(gates, c, c1, w, dh1, dc1, out)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _operands(xp, w, b):
+    """xp, w and b in one type, as the kernels take them: when their types
+    differ, all three widened to float32, which is exact (the reference
+    widens each operand to float32 inside its kernel)."""
+    if xp.dtype == w.dtype == b.dtype:
+        return xp, w, b
+    return xp.float(), w.float(), b.float()
+
+
+# ------------------------------------------------------------ the scan
+def _scan_forward(x_proj, h0, c0, w, b, reverse, with_gates):
+    """The forward loop: ys (T, N, H), c's (T, N, H) and, with the
+    residual, the gates (T, N, 4H) float32, each step written in place."""
+    T, N, _ = x_proj.shape
+    H = h0.shape[1]
+    ys = torch.empty((T, N, H), dtype=h0.dtype, device=h0.device)
+    c1s = torch.empty((T, N, H), dtype=c0.dtype, device=c0.device)
+    gs = (torch.empty((T, N, 4 * H), dtype=torch.float32, device=h0.device)
+          if with_gates else None)
+    h, c = h0, c0
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        _step_fwd(x_proj[t], h, c, w, b, with_gates,
+                  out=(ys[t], c1s[t], gs[t] if with_gates else None))
+        h, c = ys[t], c1s[t]
+    return ys, c1s, gs
+
+
+class _LSTMScan(torch.autograd.Function):
+    """The reference's ``_lstm_scan_fwd`` / ``_lstm_scan_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, c0, w, b, reverse):
+        ys, c1s, gs = _scan_forward(x_proj, h0, c0, w, b, reverse, True)
+        ctx.reverse = reverse
+        ctx.save_for_backward(ys, c1s, gs, h0, c0, w)
+        last = 0 if reverse else ys.shape[0] - 1
+        return ys, ys[last].clone(), c1s[last].clone()
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        ys, c1s, gs, h0, c0, w = ctx.saved_tensors
+        T, N, H = ys.shape
+        rev = ctx.reverse
+        dzs = torch.empty((T, N, 4 * H), dtype=torch.float32,
+                          device=ys.device)
+        dh, dc = dhT.contiguous(), dcT.contiguous()
+        for t in (range(T) if rev else range(T - 1, -1, -1)):
+            prev = t + 1 if rev else t - 1
+            c_t = c0 if prev in (-1, T) else c1s[prev]
+            # the step's output cotangent joins the carry's, in its type
+            _, dh, dc = _step_bwd(gs[t], c_t, c1s[t], w,
+                                  (dh + dys[t]).to(dh.dtype), dc,
+                                  out=dzs[t])
+        hs = (torch.cat([ys[1:], h0[None]]) if rev
+              else torch.cat([h0[None], ys[:-1]]))
+        dz2 = dzs.reshape(T * N, 4 * H)
+        # dW_hh and db_hh as ONE float32 contraction over the T N rows
+        dw = torch.matmul(dz2.t(), hs.reshape(T * N, H).float())
+        db = dz2.sum(dim=0)
+        # b shares w's type here (``_operands``)
+        return (dzs.to(ys.dtype), dh, dc, dw.to(w.dtype), db.to(w.dtype),
+                None)
+
+
+def lstm_scan(x_proj, h0, c0, w_hh, b_hh, reverse: bool = False):
+    """Scan the fused cell over a pre-projected sequence.
+
+    x_proj (T, N, 4H) = x @ W_ih^T + b_ih (gate order i, f, g, o), h0/c0
+    (N, H), w_hh (4H, H), b_hh (4H,), in the reference's packed layout.
+    ``reverse`` runs t = T-1 .. 0 (the second direction). Returns (ys
+    (T, N, H), hT, cT). Differentiable when a gradient is needed; else the
+    forward kernel runs without the residual."""
+    x_proj, w_hh, b_hh = _operands(x_proj, w_hh, b_hh)
+    args = [t.contiguous() for t in (x_proj, h0, c0, w_hh, b_hh)]
+    if _needs_grad(*args):
+        return _LSTMScan.apply(*args, bool(reverse))
+    ys, c1s, _ = _scan_forward(*args, reverse, False)
+    last = 0 if reverse else ys.shape[0] - 1
+    return ys, ys[last], c1s[last]
+
+
+# ------------------------------------------------------------- the cell
+def _cell_layout(xp4, w4, b4):
+    """The reference's (4, N, H) / (4, H, H) / (4, 1, H) operands in the
+    kernels' packed layouts (copies: the cell is off the main path)."""
+    _, N, H = xp4.shape
+    xp, w, b = _operands(xp4, w4, b4)
+    return (xp.permute(1, 0, 2).reshape(N, 4 * H).contiguous(),
+            w.transpose(1, 2).reshape(4 * H, H).contiguous(),
+            b.reshape(4 * H).contiguous())
+
+
+class _LSTMCell(torch.autograd.Function):
+    """The reference's per-cell VJP (``_cell_fwd`` / ``_cell_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xp4, h, c, w4, b4):
+        xp, w, b = _cell_layout(xp4, w4, b4)
+        h, c = h.contiguous(), c.contiguous()
+        h1, c1, gates = _step_fwd(xp, h, c, w, b, True)
+        ctx.save_for_backward(gates, c, c1, h, w)
+        ctx.w_dtype, ctx.b_dtype = w4.dtype, b4.dtype
+        return h1, c1
+
+    @staticmethod
+    def backward(ctx, dh1, dc1):
+        gates, c, c1, h, w = ctx.saved_tensors
+        N, H = h.shape
+        dxp, dh, dc = _step_bwd(gates, c, c1, w, dh1.contiguous(),
+                                dc1.contiguous())
+        # per-step weight gradients in float32, cast to w's type
+        dw4 = torch.matmul(dxp.t(), h.float()).reshape(4, H, H)
+        db4 = dxp.sum(dim=0).reshape(4, 1, H)
+        return (dxp.reshape(N, 4, H).permute(1, 0, 2).to(h.dtype), dh, dc,
+                dw4.transpose(1, 2).to(ctx.w_dtype),
+                db4.to(ctx.w_dtype).to(ctx.b_dtype))
+
+
+def lstm_cell(xp4, h, c, w4, b4):
+    """One fused LSTM step in the reference's layouts: xp4 (4, N, H)
+    pre-projected inputs (b_ih folded in), h/c (N, H), w4 (4, H, H) with
+    z_k = h @ w4[k], b4 (4, 1, H). Returns (h', c')."""
+    if _needs_grad(xp4, h, c, w4, b4):
+        return _LSTMCell.apply(xp4, h, c, w4, b4)
+    xp, w, b = _cell_layout(xp4, w4, b4)
+    h1, c1, _ = _step_fwd(xp, h.contiguous(), c.contiguous(), w, b, False)
+    return h1, c1

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import matmul_promoted
 from .cuda import layer_norm as _ln
 from .cuda import softmax as _sm
 
@@ -48,10 +49,12 @@ def _pair(x, n=2):
 
 def fully_connected(x, weight, bias=None, num_hidden: Optional[int] = None,
                     flatten: bool = True):
-    """y = x @ W^T + b; ``weight`` is (num_hidden, in_units)."""
+    """y = x @ W^T + b; ``weight`` is (num_hidden, in_units). Mixed types
+    multiply in their promotion, as ``jnp`` does (the word LM under bf16
+    compute feeds its float32 LSTM output to a bf16 decoder)."""
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    y = torch.matmul(x, weight.T)
+    y = matmul_promoted(x, weight.T)
     if bias is not None:
         y = y + bias
     return y

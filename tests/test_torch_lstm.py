@@ -1,0 +1,208 @@
+"""The port's fused LSTM (``ops/cuda/lstm.py``) against the JAX package's
+Pallas LSTM (``ops/pallas/lstm.py``), on the CPU.
+
+The port runs the plain twins of its CUDA kernels (CPU tensors); the JAX
+side runs its Pallas kernels in interpret mode, with
+``MXTPU_PALLAS=lstm_cell,lstm_scan`` for the scan-level VJP, under
+``jax.default_matmul_precision("highest")``. Inputs come from numpy with a
+seed. Types: float32; bfloat16 throughout (c carried in bf16); and the
+word LM's mix under bf16 compute, bf16 operands with float32 carries.
+Tolerances, each output as max |port - jax| over max(1, max |jax|): 1e-5
+in float32, 2e-2 when bf16 is involved (a one-ulp flip of a rounded value
+is 2^-8 of its magnitude, and a flipped carry feeds the next steps).
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from incubator_mxnet_tpu_torch.ops.cuda import lstm as tl
+
+jl = importlib.import_module("incubator_mxnet_tpu.ops.pallas.lstm")
+
+# (operand type, carry type)
+TYPES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "bfloat16"),
+         "bf16_f32carry": ("bfloat16", "float32")}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _tol(types):
+    return 1e-5 if types == "f32" else 2e-2
+
+
+@pytest.fixture(autouse=True)
+def _pallas_lstm(monkeypatch):
+    monkeypatch.setenv("MXTPU_PALLAS", "lstm_cell,lstm_scan")
+
+
+class _In:
+    """numpy arrays from a seed, handed to both packages in one type."""
+
+    def __init__(self, seed):
+        self.rs = np.random.RandomState(seed)
+
+    def __call__(self, dt, *shape, scale=1.0):
+        a = (self.rs.randn(*shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(TDT[dt]), jnp.asarray(a, JDT[dt])
+
+
+def _err(t, j):
+    t = t.detach().float().numpy()
+    j = np.asarray(jnp.asarray(j, jnp.float32))
+    assert t.shape == j.shape, (t.shape, j.shape)
+    return np.max(np.abs(t - j)) / max(1.0, np.max(np.abs(j)))
+
+
+def _step_inputs(seed, types, N, H):
+    od, sd = TYPES[types]
+    rnd = _In(seed)
+    xp = rnd(od, N, 4 * H)
+    h, c = rnd(sd, N, H, scale=0.5), rnd(sd, N, H)
+    w = rnd(od, 4 * H, H, scale=H ** -0.5)
+    b = rnd(od, 4 * H, scale=0.1)
+    return xp, h, c, w, b
+
+
+def _jax_layout(N, H, xp, w, b):
+    """The packed operands in the reference kernel's (4, N, H), (4, H, H)
+    and (4, 1, H) layouts."""
+    return (jnp.transpose(xp.reshape(N, 4, H), (1, 0, 2)),
+            jnp.transpose(w.reshape(4, H, H), (0, 2, 1)), b.reshape(4, 1, H))
+
+
+def _gates4(g, N, H):
+    """The port's (N, 4H) residual in the reference's (4, N, H)."""
+    return g.reshape(N, 4, H).permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("types", list(TYPES))
+@pytest.mark.parametrize("N,H", [(8, 16), (16, 24)])
+@pytest.mark.parametrize("with_gates", [True, False])
+def test_forward_twin_matches_run_fwd(types, N, H, with_gates):
+    xp, h, c, w, b = _step_inputs(1, types, N, H)
+    th1, tc1, tg = tl.lstm_fwd_reference(xp[0], h[0], c[0], w[0], b[0],
+                                         with_gates)
+    xp4, w4, b4 = _jax_layout(N, H, xp[1], w[1], b[1])
+    with jax.default_matmul_precision("highest"):
+        jh1, jc1, jg = jl._run_fwd(xp4, h[1], c[1], w4, b4, with_gates)
+    tol = _tol(types)
+    assert th1.dtype == h[0].dtype and tc1.dtype == c[0].dtype
+    assert _err(th1, jh1) <= tol and _err(tc1, jc1) <= tol
+    if with_gates:
+        assert tg.dtype == torch.float32
+        assert _err(_gates4(tg, N, H), jg) <= tol
+    else:
+        assert tg is None and jg is None
+
+
+@pytest.mark.parametrize("types", list(TYPES))
+@pytest.mark.parametrize("N,H", [(8, 20), (16, 24)])
+def test_backward_twin_matches_run_bwd(types, N, H):
+    xp, h, c, w, b = _step_inputs(2, types, N, H)
+    _, c1, g = tl.lstm_fwd_reference(xp[0], h[0], c[0], w[0], b[0])
+    sd = TYPES[types][1]
+    rnd = _In(3)
+    dh1, dc1 = rnd(sd, N, H), rnd(sd, N, H)
+    tdx, tdh, tdc = tl.lstm_bwd_reference(g, c[0], c1, w[0], dh1[0],
+                                          dc1[0])
+    _, w4, _ = _jax_layout(N, H, xp[1], w[1], b[1])
+    g4 = jnp.asarray(_gates4(g, N, H).numpy())
+    jc1 = jnp.asarray(c1.float().numpy(), JDT[sd])
+    with jax.default_matmul_precision("highest"):
+        jdx, jdh, jdc = jl._run_bwd(g4, c[1], jc1, w4, dh1[1], dc1[1])
+    tol = _tol(types)
+    assert tdx.dtype == torch.float32 and tdh.dtype == dh1[0].dtype
+    assert _err(_gates4(tdx, N, H), jdx) <= tol
+    assert _err(tdh, jdh) <= tol and _err(tdc, jdc) <= tol
+
+
+def _scan_case(seed, types, T, N, H):
+    od, sd = TYPES[types]
+    rnd = _In(seed)
+    ins = [rnd(od, T, N, 4 * H), rnd(sd, N, H, scale=0.5), rnd(sd, N, H),
+           rnd(od, 4 * H, H, scale=H ** -0.5), rnd(od, 4 * H, scale=0.1)]
+    cts = [rnd(sd, T, N, H), rnd(sd, N, H), rnd(sd, N, H)]
+    return ins, cts
+
+
+@pytest.mark.parametrize("types,reverse,N,H", [
+    (types, reverse, N, H) for types in TYPES
+    for reverse, N, H in ((False, 8, 16), (True, 16, 20))]
+    + [("bf16_f32carry", False, 8, 24)])
+def test_scan_forward_and_vjp_match_jax(types, reverse, N, H):
+    ins, cts = _scan_case(4, types, 6, N, H)
+    with jax.default_matmul_precision("highest"):
+        jout, vjp = jax.vjp(lambda *a: jl.lstm_scan(*a, reverse=reverse),
+                            *[j for _, j in ins])
+        jgrads = vjp(tuple(j for _, j in cts))
+    leaves = [t.clone().requires_grad_(True) for t, _ in ins]
+    tout = tl.lstm_scan(*leaves, reverse=reverse)
+    tgrads = torch.autograd.grad(tout, leaves, [t for t, _ in cts])
+    tol = _tol(types)
+    for t, j in zip(tout, jout):
+        assert t.dtype == ins[1][0].dtype
+        assert _err(t, j) <= tol
+    for leaf, t, j in zip(leaves, tgrads, jgrads):
+        assert t.dtype == leaf.dtype
+        assert _err(t, j) <= tol
+    # without a gradient the residual-free forward gives the same values
+    with torch.no_grad():
+        plain = tl.lstm_scan(*[t for t, _ in ins], reverse=reverse)
+    for a, b in zip(plain, tout):
+        assert torch.equal(a, b.detach())
+
+
+@pytest.mark.parametrize("types,N,H", [("f32", 8, 16), ("bf16", 16, 20),
+                                       ("bf16_f32carry", 8, 24)])
+def test_cell_forward_and_vjp_match_jax(types, N, H):
+    od, sd = TYPES[types]
+    rnd = _In(5)
+    ins = [rnd(od, 4, N, H), rnd(sd, N, H, scale=0.5), rnd(sd, N, H),
+           rnd(od, 4, H, H, scale=H ** -0.5), rnd(od, 4, 1, H, scale=0.1)]
+    cts = [rnd(sd, N, H), rnd(sd, N, H)]
+    with jax.default_matmul_precision("highest"):
+        jout, vjp = jax.vjp(jl.lstm_cell, *[j for _, j in ins])
+        jgrads = vjp(tuple(j for _, j in cts))
+    leaves = [t.clone().requires_grad_(True) for t, _ in ins]
+    tout = tl.lstm_cell(*leaves)
+    tgrads = torch.autograd.grad(tout, leaves, [t for t, _ in cts])
+    tol = _tol(types)
+    for t, j in zip(tout, jout):
+        assert _err(t, j) <= tol
+    for leaf, t, j in zip(leaves, tgrads, jgrads):
+        assert t.dtype == leaf.dtype
+        assert _err(t, j) <= tol
+    with torch.no_grad():
+        plain = tl.lstm_cell(*[t for t, _ in ins])
+    for a, b in zip(plain, tout):
+        assert torch.equal(a, b.detach())
+
+
+def test_viability_rule_is_the_reference_rule():
+    pairs = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+             (torch.float16, jnp.float16)]
+    n_true = 0
+    for n in (1, 5, 8, 12, 16, 64, 128, 200, 256, 1000):
+        for h in (16, 20, 211, 650, 800, 900, 1030, 2048):
+            for tdt, jdt in pairs:
+                want = jl.lstm_cell_viable(n, h, jdt)
+                assert tl.lstm_cell_viable(n, h, tdt) == want, (n, h, tdt)
+                n_true += want
+    assert 0 < n_true < 240
+    # the word LM's lane takes the kernel
+    assert tl.lstm_cell_viable(128, 650, torch.bfloat16)
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    xp, h, c, w, b = (t for t, _ in _step_inputs(6, "f32", 8, 16))
+    for fn in (tl.lstm_fwd, tl.lstm_fwd_gates):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(xp, h, c, w, b)
+    g = torch.zeros(8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.lstm_bwd(g, c, c, w, h, c)

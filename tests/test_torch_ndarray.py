@@ -462,8 +462,6 @@ def test_topk_mask_marks_the_top_entries():
 
 def test_unported_ops_name_their_roadmap_item():
     x = tmx.nd.array(X)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmx.nd.RNN(x, x, x, state_size=4)
     with pytest.raises(NotImplementedError, match="A11"):
         tmx.nd.Custom(x, op_type="sqr")
     with pytest.raises(NotImplementedError, match="A4"):
@@ -909,7 +907,7 @@ def test_orthogonal_bilinear_mixed_load(tmp_path):
     d2 = tmx.nd.zeros((5, 5))
     tmx.init.Xavier()("w", d2)
     np.testing.assert_array_equal(d1.asnumpy(), d2.asnumpy())
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A11"):
         tmx.init.FusedRNN(None, 4, 1, "lstm")("p", tmx.nd.zeros((8,)))
 
 

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
                  "gluon.model_zoo.vision.resnet",
                  "gluon.model_zoo.vision._fused_resnet", "optimizer",
                  "optimizer.optimizer", "lr_scheduler", "parallel.dp",
-                 "ops.cuda.conv_fused"):
+                 "ops.cuda.conv_fused", "ops.cuda.lstm", "ops.rnn",
+                 "gluon.rnn", "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
+                 "models.word_lm", "metric"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -56,6 +58,7 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
              for f in sorted(PKG_DIR.rglob(f"*.{ext}"))]
     assert len(files) > 10
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "rows.cuh" in files
+    assert PKG_DIR / "ops" / "cuda" / "csrc" / "lstm.cu" in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five main paths on the card and holds every CUDA kernel
+Drives the port's six main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -21,7 +21,14 @@ of them against its plain PyTorch version:
 * the word-level LSTM LM (``models.RNNModel``) at bench.py's lane (2 x 650
   LSTM, vocab 33278, bptt 35, batch 128, dropout 0.5, bf16 compute on
   float32 masters, SGD lr 1.0) through ``parallel.dp.make_train_step``,
-  its eval forward, and one ``Trainer`` + ``autograd.record()`` step.
+  its eval forward, and one ``Trainer`` + ``autograd.record()`` step;
+* SSD-512 detection training (``models.ssd.ssd_512_resnet50_v1``, 20
+  classes, NCHW, batch 32, 512 x 512, 5630 anchors, bf16 compute on
+  float32 masters, SGD momentum 0.9, lr 0.004) with bench.py's step built
+  from ``parallel.dp.functional_call`` and ``ops.detection
+  .multibox_target``, its detection eval point
+  (``multibox_detection(..., nms_topk=400)``), and one ``Trainer`` +
+  ``autograd.record()`` step through ``SSD.targets``.
 
 Phases:
 
@@ -116,7 +123,27 @@ Phases:
    the kernels against the same pass on the twins (loss rtol 1e-4, every
    gradient leaf within 1e-3 of its largest entry), then one ``Trainer``
    + ``autograd.record()`` step, which must launch the same kernels and
-   give the same loss.
+   give the same loss;
+20. the detection kernels (``multibox_match``, ``nms_keep``) against their
+   twins on the card: the matcher over N 20, 61, 5630 x M 1, 8, 32, 100 x
+   B 1, 32 at thresholds 0.5 and 0.7 (all-padding and one-object rows,
+   zero-area and duplicate anchors, repeated label boxes), plus anchors
+   and label state beyond shared memory; NMS over k 8, 100, 400, 1024,
+   5630 x B 1, 32 with force_suppress on and off (duplicate boxes, padding
+   rows). anchor_gt, anchor_iou and keep exact, loc_t within rtol 1e-6;
+   then times at the lane's shapes (match (32, 5630, 1) and (32, 5630,
+   32), NMS (32, 400) and (32, 5630)) beside the twin's and the bound (no
+   single PyTorch call computes either);
+21. SSD-512 at bench.py's lane: 2 warm-up and 5 timed steps; finite,
+   falling loss; exactly one ``multibox_match`` launch per step and no
+   other kernel of the port (the SSD walks the backbone's children, so
+   the fused ResNet stages are not on this lane); img/s, peak memory and
+   a profiled window of two steps; then the eval point, one ``nms_keep``
+   launch, with the target assignment and the detection each timed beside
+   its twin; then a ``Trainer`` + ``record()`` step at batch 4;
+22. at the same width in float32, batch 8, cuDNN deterministic: the
+   targets and the detections from the kernels equal the twins' exactly,
+   and so do one step's loss and gradients (tolerance 0).
 
 Any failure raises, so the exit code is not 0. The last three lines of
 standard output are the kernels' JSON record, the card line and
@@ -2126,6 +2153,406 @@ def word_lm_truth_phase(mx, lt, common):
             "record_loss_rel_err": rec_err}
 
 
+# ----------------------------------------------- the detection kernels (B9)
+DET_KERNELS = ("multibox_match", "nms_keep")
+DET_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/detection.cu"
+_DET_PY = "incubator_mxnet_tpu/ops/pallas/detection.py"
+DET_REPLACES = {"multibox_match": f"{_DET_PY}:143",
+                "nms_keep": f"{_DET_PY}:228"}
+DET_VAR = (0.1, 0.1, 0.2, 0.2)
+# one corner IoU: 4 min/max, 2 subtractions and 2 clamps for the overlap,
+# 1 product, 2 x (2 subtractions + 1 product) for the areas, 1 add, 1
+# subtraction, 1 compare, 1 divide; one loc encoding: ~24 (4 differences,
+# 4 sums, 4 halvings, 2 eps adds, 6 divides, 2 clamps, 2 logs)
+IOU_FLOPS, ENCODE_FLOPS = 19, 24
+# SSD-512's anchors: 32²·4 + 16²·4 + (8² + 4² + 2² + 1)·6
+SSD_ANCHORS = 5630
+
+
+def _match_case(rs, B, N, M):
+    """Anchors (N, 4) with some zero-area ones and duplicates; labels
+    (B, M, 5): row 0 all padding (B > 1), row 1 one object, the rest a
+    random count, with repeated boxes; some anchors equal a label's box
+    (IoU exactly 1), so both rounds and stage 2 meet ties."""
+    anc = np.sort(rs.rand(N, 4).astype(np.float32), axis=-1)
+    anc[::17, 2:] = anc[::17, :2]                     # zero area
+    anc[1::5] = anc[0]                                # duplicates
+    lab = np.full((B, M, 5), -1.0, np.float32)
+    for b in range(B):
+        n = 0 if (b == 0 and B > 1) else 1 if b == 1 else rs.randint(1, M + 1)
+        for m in range(n):
+            x0, y0 = rs.rand(2) * 0.5
+            w, h = 0.15 + rs.rand(2) * 0.3
+            lab[b, m] = [rs.randint(20), x0, y0, x0 + w, y0 + h]
+        if n > 2:
+            lab[b, 2, 1:] = lab[b, 0, 1:]              # two labels, one box
+        if n:
+            anc[(7 * b + 3) % N] = lab[b, 0, 1:]
+    return (torch.from_numpy(anc).cuda(), torch.from_numpy(lab).cuda())
+
+
+def _nms_case(rs, B, k):
+    """Score-ordered candidates with duplicate boxes (IoU 1), three class
+    ids and the ragged tail of padding rows (id -1, not valid)."""
+    xy = rs.rand(B, k, 2).astype(np.float32) * 0.7
+    wh = 0.05 + rs.rand(B, k, 2).astype(np.float32) * 0.3
+    boxes = np.concatenate([xy, xy + wh], -1)
+    boxes[:, 1::4] = boxes[:, 0:1]
+    ids = rs.randint(0, 3, (B, k)).astype(np.float32)
+    valid = rs.rand(B, k) > 0.1
+    pad = k // 8
+    if pad:
+        boxes[:, -pad:] = 0.0
+        ids[:, -pad:] = -1.0
+        valid[:, -pad:] = False
+    return tuple(torch.from_numpy(a).cuda() for a in (boxes, ids, valid))
+
+
+def _match_errs(kd, anc, lab, thr):
+    """Kernel against twin on the card: anchor_gt and anchor_iou must be
+    equal, loc_t within rtol 1e-6 (logf is not correctly rounded). Returns
+    loc_t's largest relative and absolute errors."""
+    out = kd.multibox_match(anc, lab, thr, DET_VAR)
+    ref = kd.multibox_match_reference(anc, lab, thr, DET_VAR)
+    torch.cuda.synchronize()
+    if not torch.equal(out[0], ref[0]) or not torch.equal(out[1], ref[1]):
+        bad = (out[0] != ref[0]).sum().item()
+        raise AssertionError(f"multibox_match {tuple(lab.shape)} N "
+                             f"{anc.shape[0]} thr {thr}: {bad} anchor_gt "
+                             f"and {(out[1] != ref[1]).sum().item()} "
+                             "anchor_iou entries differ from the twin")
+    err = ((out[2] - ref[2]).abs() / ref[2].abs().clamp_min(1e-30))
+    err = torch.where(out[2] == ref[2], torch.zeros_like(err), err)
+    return err.max().item(), _max_err(out[2], ref[2])
+
+
+def detection_kernel_checks(kd):
+    """Phase 20: the B9 kernels against their twins on the card. The
+    matcher over N 20, 61 (unaligned), 5630 x M 1, 8, 32, 100 x B 1, 32 at
+    thresholds 0.5 and 0.7, plus anchors beyond shared memory (N 20000) and
+    label state beyond it (M 17500); NMS over k 8, 100, 400, 1024, 5630 x
+    B 1, 32, force_suppress on and off. anchor_gt, anchor_iou and keep
+    exact, loc_t within rtol 1e-6. Then the lane's shapes with times beside
+    the twin's and the bound (no single PyTorch call computes either)."""
+    rs = np.random.RandomState(SEED + 20)
+    worst, n_match = 0.0, 0
+    cases = [(B, N, M) for N in (20, 61, SSD_ANCHORS) for M in (1, 8, 32, 100)
+             for B in (1, 32)] + [(2, 20000, 4), (2, 20, 17500)]
+    for B, N, M in cases:
+        anc, lab = _match_case(rs, B, N, M)
+        for thr in (0.5, 0.7):
+            err, _ = _match_errs(kd, anc, lab, thr)
+            if err > 1e-6:
+                raise AssertionError(f"multibox_match B {B} N {N} M {M} thr "
+                                     f"{thr}: loc_t rel err {err}")
+            worst = max(worst, err)
+            n_match += 1
+    log(f"multibox_match sweep: {n_match} cases, anchor_gt and anchor_iou "
+        f"equal to the twin's, loc_t worst rel err {worst:.3g} (1e-6)")
+    n_nms = 0
+    for k in (8, 100, 400, 1024, SSD_ANCHORS):
+        for B in (1, 32):
+            boxes, ids, valid = _nms_case(rs, B, k)
+            for force in (False, True):
+                out = kd.nms_keep(boxes, ids, valid, 0.45, force)
+                ref = kd.nms_keep_reference(boxes, ids, valid, 0.45, force)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"nms_keep B {B} k {k} force {force}: "
+                        f"{(out != ref).sum().item()} keep entries differ")
+                n_nms += 1
+    log(f"nms_keep sweep: {n_nms} cases, keep equal to the twin's")
+    timings, records = {}, {}
+    for B, N, M in ((32, SSD_ANCHORS, 1), (32, SSD_ANCHORS, 32)):
+        anc, lab = _match_case(rs, B, N, M)
+        _, err = _match_errs(kd, anc, lab, 0.5)
+        ms = time_ms(lambda: kd.multibox_match(anc, lab, 0.5, DET_VAR),
+                     iters=20)
+        plain_ms = time_ms(lambda: kd.multibox_match_reference(
+            anc, lab, 0.5, DET_VAR), iters=3, warmup=1)
+        moved = N * 16 + B * M * 20 + B * N * (4 + 4 + 16)
+        flops = B * (M * N * IOU_FLOPS + N * ENCODE_FLOPS)
+        rec = _det_record("multibox_match", err, ms, plain_ms, moved, flops)
+        timings[f"multibox_match B {B} N {N} M {M}"] = rec
+        records.setdefault("multibox_match", rec)
+    for B, k in ((32, 400), (32, SSD_ANCHORS)):
+        boxes, ids, valid = _nms_case(rs, B, k)
+        ms = time_ms(lambda: kd.nms_keep(boxes, ids, valid, 0.45, False),
+                     iters=20)
+        plain_ms = time_ms(lambda: kd.nms_keep_reference(
+            boxes, ids, valid, 0.45, False), iters=2, warmup=1)
+        moved = B * k * (16 + 4 + 1 + 1)
+        flops = B * k * (k - 1) // 2 * IOU_FLOPS
+        rec = _det_record("nms_keep", 0.0, ms, plain_ms, moved, flops)
+        timings[f"nms_keep B {B} k {k}"] = rec
+        records.setdefault("nms_keep", rec)
+        torch.cuda.empty_cache()
+    for name, rec in timings.items():
+        log(f"time {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+            f"ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+            "library: none")
+    return records, timings
+
+
+def _det_record(name, err, ms, plain_ms, moved, flops):
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return {"name": name, "route": "cuda", "source": DET_SOURCE,
+            "replaces": DET_REPLACES[name], "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+# ------------------------------------------------------- the SSD-512 lane
+SSD_BATCH, SSD_SIZE, SSD_CLASSES, SSD_LR = 32, 512, 20, 0.004  # bench.py
+
+
+def _ssd_batch(bs):
+    """bench.py:283-292: RandomState(0) images, one object per image."""
+    rs = np.random.RandomState(0)
+    x_np = rs.rand(bs, 3, SSD_SIZE, SSD_SIZE).astype(np.float32)
+    y_np = np.full((bs, 1, 5), -1.0, np.float32)
+    for i in range(bs):
+        x0, y0 = rs.rand(2) * 0.5
+        w = 0.2 + rs.rand() * 0.3
+        y_np[i, 0] = [rs.randint(SSD_CLASSES), x0, y0, x0 + w, y0 + w]
+    return torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+
+
+def _ssd_net(mx, x):
+    """ssd_512_resnet50_v1(classes=20, layout="NCHW") on the card, default
+    init from the seed, deferred shapes resolved by one forward; its
+    trained and auxiliary values as {name: tensor}."""
+    from incubator_mxnet_tpu_torch.models.ssd import ssd_512_resnet50_v1
+    mx.random.seed(SEED)
+    with mx.gpu(0):
+        net = ssd_512_resnet50_v1(classes=SSD_CLASSES, layout="NCHW")
+        net.initialize()
+        net(mx.nd.array(x[:1].cpu().numpy()))
+    ps = net.collect_params()
+    params = {n: p.data()._data.detach().clone() for n, p in ps.items()
+              if p.grad_req != "null"}
+    aux = {n: p.data()._data.detach().clone() for n, p in ps.items()
+           if p.grad_req == "null"}
+    return net, params, aux
+
+
+def _ssd_loss_and_grads(net, params, aux, x, y, dtype=None):
+    """bench.py's loss (bench.py:323-340): functional_call in ``dtype``,
+    the heads in float32, multibox_target (the B9 matcher, then mining),
+    the multibox loss; gradients by torch.autograd.grad. Returns (loss,
+    grads, (cls_f, box_f, anchors), targets)."""
+    from incubator_mxnet_tpu_torch.models.ssd import multibox_loss
+    from incubator_mxnet_tpu_torch.ops.detection import multibox_target
+    from incubator_mxnet_tpu_torch.parallel.dp import functional_call
+
+    def cast(v):
+        return v.to(dtype) if dtype is not None and v.is_floating_point() \
+            else v
+    leaves = {n: v.detach().requires_grad_(True) for n, v in params.items()}
+    with torch.enable_grad():
+        merged = {n: cast(v) for n, v in leaves.items()}
+        merged.update({n: cast(v) for n, v in aux.items()})
+        cls_p, box_p, anchors = functional_call(net, merged, cast(x),
+                                                training=True)
+        cls_f, box_f = cls_p.float(), box_p.float()
+        targets = multibox_target(anchors.float(), y, cls_f.transpose(1, 2),
+                                  negative_mining_ratio=3.0,
+                                  negative_mining_thresh=0.5)
+        bt, bm, ct = targets
+        loss = multibox_loss(cls_f, box_f, ct, bt, bm).mean()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    heads = (cls_f.detach(), box_f.detach(), anchors.detach())
+    return loss.detach(), dict(zip(leaves, grads)), heads, targets
+
+
+def ssd_train_phase(mx, kd, common, records, steps=5):
+    """Phase 21: SSD-512 at bench.py's lane (ResNet-50 v1 NCHW, batch 32,
+    512 x 512, bf16 compute on float32 masters, SGD momentum 0.9, lr 0.004,
+    bench.py's synthetic batch), one update per call: bench.py's unroll 4
+    is a lax.scan over updates. 2 warm-up and 5 timed steps: finite,
+    falling loss, exactly one multibox_match launch per step and no other
+    kernel of the port; a profiled window of two steps; then the eval
+    point (multibox_detection at nms_topk 400 on the step's heads: one
+    nms_keep launch) and the target assignment, each beside its twin; then
+    one Gluon Trainer + record() step at batch 4 (one multibox_match)."""
+    from incubator_mxnet_tpu_torch.ops.detection import (multibox_detection,
+                                                         multibox_target)
+    from incubator_mxnet_tpu_torch.parallel.dp import _sgd_init, _sgd_update
+    torch.cuda.reset_peak_memory_stats()
+    x, y = _ssd_batch(SSD_BATCH)
+    net, params, aux = _ssd_net(mx, x)
+    opt = _sgd_init(params, 0.9)
+
+    def step(params, opt):
+        loss, grads, heads, _ = _ssd_loss_and_grads(net, params, aux, x, y,
+                                                    torch.bfloat16)
+        with torch.no_grad():
+            params, opt = _sgd_update(params, grads, opt, SSD_LR, 0.0, 0.9)
+        return params, opt, loss, heads
+
+    losses = []
+    for _ in range(2):
+        params, opt, loss, _ = step(params, opt)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, loss, heads = step(params, opt)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    losses = [float(v) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    img_s = SSD_BATCH * steps / wall
+    log(f"SSD-512 train: losses {[round(v, 4) for v in losses]}; {steps} "
+        f"timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
+        f"{img_s:.1f} img/s; peak {peak_gb:.2f} GB; launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"SSD loss not finite and falling: {losses}")
+    others = {k: v for k, v in launches.items() if k != "multibox_match"}
+    if launches["multibox_match"] != steps or any(others.values()):
+        raise AssertionError(f"{steps} SSD steps launched {launches}: want "
+                             "one multibox_match a step and nothing else")
+    records["multibox_match"]["launches"] = launches["multibox_match"]
+    breakdown = kernel_breakdown("SSD-512", lambda: step(params, opt),
+                                 ("multibox_match_kernel",))
+    # the eval point and the target assignment on the last step's heads
+    cls_f, box_f, anchors = heads
+    cls_t = cls_f.transpose(1, 2).contiguous()
+    cls_prob = torch.softmax(cls_t, dim=1)
+    common.reset_launch_counts()
+    det = multibox_detection(cls_prob, box_f, anchors, nms_topk=400)
+    torch.cuda.synchronize()
+    ev = common.launch_counts()
+    log(f"SSD-512 detection: {tuple(det.shape)}, "
+        f"{int((det[..., 0] >= 0).sum())} kept; launches {ev}")
+    if ev["nms_keep"] != 1 or sum(ev.values()) != 1 \
+            or not bool(torch.isfinite(det).all()):
+        raise AssertionError(f"detection: launches {ev}")
+    records["nms_keep"]["launches"] = ev["nms_keep"]
+
+    def target():
+        return multibox_target(anchors, y, cls_t, negative_mining_ratio=3.0,
+                               negative_mining_thresh=0.5)
+
+    def detect():
+        return multibox_detection(cls_prob, box_f, anchors, nms_topk=400)
+
+    phases = {"detect_target_ms": time_ms(target, iters=10, warmup=2),
+              "detect_nms_ms": time_ms(detect, iters=10, warmup=2)}
+    kernels = (kd.multibox_match, kd.nms_keep)
+    kd.multibox_match = kd.multibox_match_reference
+    kd.nms_keep = kd.nms_keep_reference
+    try:
+        phases["detect_target_ms_twin"] = time_ms(target, iters=3, warmup=1)
+        phases["detect_nms_ms_twin"] = time_ms(detect, iters=3, warmup=1)
+    finally:
+        kd.multibox_match, kd.nms_keep = kernels
+    log(f"SSD-512 head phases: {json.dumps(phases)}")
+    rec = ssd_gluon_step(mx, common)
+    return {"step_ms": wall / steps * 1e3, "img_s": img_s,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_memory_gb": peak_gb, "launches_per_step": {
+                "multibox_match": 1}, "detection_launches": ev, **phases,
+            "gluon_step": rec, **breakdown}
+
+
+def ssd_gluon_step(mx, common, batch=4):
+    """One Trainer + autograd.record() step of the full-width SSD-512
+    (float32) at batch 4 through net.targets and SSDMultiBoxLoss: one
+    multibox_match launch, a finite loss."""
+    from incubator_mxnet_tpu_torch.models.ssd import SSDMultiBoxLoss
+    x, y = _ssd_batch(batch)
+    net, _, _ = _ssd_net(mx, x)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": SSD_LR, "momentum": 0.9})
+    xn = mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0))
+    yn = mx.nd.array(y.cpu().numpy(), ctx=mx.gpu(0))
+    common.reset_launch_counts()
+    with mx.autograd.record():
+        cls_preds, box_preds, anchors = net(xn)
+        bt, bm, ct = net.targets(anchors, yn, cls_preds)
+        loss = SSDMultiBoxLoss()(cls_preds, box_preds, ct, bt, bm).mean()
+    loss.backward()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    rec = common.launch_counts()
+    value = float(loss.asscalar())
+    log(f"SSD-512 Trainer + record() step at batch {batch}: loss "
+        f"{value:.6f}; launches {rec}")
+    if rec["multibox_match"] != 1 or sum(rec.values()) != 1 \
+            or not np.isfinite(value):
+        raise AssertionError(f"SSD record() step: launches {rec}, loss "
+                             f"{value}")
+    return {"loss": value, "launches": rec}
+
+
+def ssd_truth_phase(mx, kd, common, batch=8):
+    """Phase 22: at full width in float32, batch 8, with cuDNN
+    deterministic: the targets (box_target, box_mask, cls_target) from the
+    matcher kernel equal those from its twin on the card, exactly; the
+    detections from the NMS kernel equal the twin's, exactly; and one
+    step's loss and gradients with the kernels equal those with the twins
+    (the targets being identical, the tolerance is 0)."""
+    from incubator_mxnet_tpu_torch.ops.detection import multibox_detection
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, y = _ssd_batch(batch)
+        net, params, aux = _ssd_net(mx, x)
+        runs = {}
+        kernels = (kd.multibox_match, kd.nms_keep)
+        for route in ("kernels", "twins"):
+            if route == "twins":
+                kd.multibox_match = kd.multibox_match_reference
+                kd.nms_keep = kd.nms_keep_reference
+            try:
+                common.reset_launch_counts()
+                loss, grads, heads, targets = _ssd_loss_and_grads(
+                    net, params, aux, x, y)
+                cls_f, box_f, anchors = heads
+                det = multibox_detection(
+                    torch.softmax(cls_f, dim=-1).transpose(1, 2), box_f,
+                    anchors, nms_topk=400)
+                torch.cuda.synchronize()
+                runs[route] = (loss, grads, targets, det,
+                               common.launch_counts())
+            finally:
+                kd.multibox_match, kd.nms_keep = kernels
+        (lk, gk, tk, dk, nk), (lt, gt, tt, dt, nt) = runs["kernels"], \
+            runs["twins"]
+        if nk["multibox_match"] != 1 or nk["nms_keep"] != 1 \
+                or any(nt.values()):
+            raise AssertionError(f"truth launches: kernels {nk}, twins {nt}")
+        same_targets = [torch.equal(a, b) for a, b in zip(tk, tt)]
+        same_det = torch.equal(dk, dt)
+        loss_err = abs(lk.item() - lt.item())
+        grad_err = max(_max_err(gk[n], gt[n]) for n in gt)
+        kept = int((dk[..., 0] >= 0).sum())
+        log(f"SSD-512 f32 batch {batch}, kernels vs twins: targets "
+            f"(box_target, box_mask, cls_target) equal {same_targets}; "
+            f"{int((tk[2] > 0).sum())} positives, "
+            f"{int((tk[2] == 0).sum())} negatives; detections equal "
+            f"{same_det} ({kept} kept); loss {lk.item():.6f} vs "
+            f"{lt.item():.6f} (diff {loss_err}); worst gradient diff "
+            f"{grad_err} over {len(gt)} leaves (tolerance 0)")
+        if not all(same_targets) or not same_det or loss_err > 0 \
+                or grad_err > 0:
+            raise AssertionError("SSD kernels vs twins differ")
+        return {"targets_equal": same_targets, "detections_equal": same_det,
+                "loss": lk.item(), "loss_abs_diff": loss_err,
+                "grad_max_abs_diff": grad_err, "positives":
+                int((tk[2] > 0).sum()), "detections_kept": kept}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2141,6 +2568,7 @@ def main() -> int:
     from incubator_mxnet_tpu_torch.ops.cuda import softmax as sm
     from incubator_mxnet_tpu_torch.ops.cuda import conv_fused as cf
     from incubator_mxnet_tpu_torch.ops.cuda import lstm as lt
+    from incubator_mxnet_tpu_torch.ops.cuda import detection as kd
     from incubator_mxnet_tpu_torch import gluon
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 
@@ -2191,6 +2619,13 @@ def main() -> int:
     word_lm = word_lm_train_phase(mx, common, records)
     torch.cuda.empty_cache()
     word_lm_truth = word_lm_truth_phase(mx, lt, common)
+    torch.cuda.empty_cache()
+    det_records, det_timings = detection_kernel_checks(kd)
+    records.update(det_records)
+    torch.cuda.empty_cache()
+    ssd = ssd_train_phase(mx, kd, common, records)
+    torch.cuda.empty_cache()
+    ssd_truth = ssd_truth_phase(mx, kd, common)
 
     log(f"serving {json.dumps(serve)}")
     log(f"training {json.dumps(train)}")
@@ -2206,10 +2641,13 @@ def main() -> int:
     log(f"LSTM kernel timings {json.dumps(lstm_timings)}")
     log(f"word LM training {json.dumps(word_lm)}")
     log(f"word LM f32 truth {json.dumps(word_lm_truth)}")
+    log(f"detection kernel timings {json.dumps(det_timings)}")
+    log(f"SSD-512 training {json.dumps(ssd)}")
+    log(f"SSD-512 f32 truth {json.dumps(ssd_truth)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
-        + ROW_KERNELS + CONV_KERNELS + LSTM_KERNELS]}))
+        + ROW_KERNELS + CONV_KERNELS + LSTM_KERNELS + DET_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,16 @@
 """NDArray API (``mx.nd``): eager tensors, the operator namespace and the
 optimizer update ops.
 
-Counterpart of ``incubator_mxnet_tpu/ndarray/``. Not ported yet
-(``ROADMAP.md`` A4): ``sparse`` (row-sparse and CSR storage), ``contrib``
-(control flow), ``linalg`` and ``image``."""
+Counterpart of ``incubator_mxnet_tpu/ndarray/``, with ``contrib`` (control
+flow, the detection and vision ops). Not ported yet (``ROADMAP.md`` A4):
+``sparse`` (row-sparse and CSR storage), ``linalg`` and ``image``."""
 from .ndarray import *  # noqa: F401,F403
 from .ndarray import NDArray, _wrap, _as_nd  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from . import ops  # noqa: F401
 from .. import random  # mx.nd.random.* mirrors mx.random.*
 from .optimizer_ops import *  # noqa: F401,F403
+from . import contrib  # noqa: F401
 
 
 def __getattr__(name):

@@ -263,6 +263,14 @@ class NDArray:
         if key is None or (isinstance(key, _builtins.slice)
                            and key == _builtins.slice(None)):
             new = torch.broadcast_to(value.to(cur.dtype), cur.shape).clone()
+        elif _steps_back(key):
+            # write through the flat positions the key selects
+            pos = _index(torch.arange(cur.numel(), device=cur.device)
+                         .reshape(cur.shape), _canonical_index(key))
+            new = cur.clone().reshape(-1)
+            new[pos.reshape(-1)] = torch.broadcast_to(
+                value.to(cur.dtype), pos.shape).reshape(-1)
+            new = new.reshape(cur.shape)
         else:
             new = cur.clone()
             new[_canonical_index(key)] = value.to(cur.dtype)
@@ -270,7 +278,7 @@ class NDArray:
 
     def __getitem__(self, key) -> "NDArray":
         key = _canonical_index(key)
-        return invoke(lambda x: x[key], [self], "getitem")
+        return invoke(lambda x: _index(x, key), [self], "getitem")
 
     def slice(self, begin, end, step=None) -> "NDArray":
         idx = tuple(_builtins.slice(b, e, s) for b, e, s in zip(
@@ -399,9 +407,14 @@ class NDArray:
         return self._arg_reduce("min", axis, keepdims)
 
     def argsort(self, axis=-1, is_ascend=True):
-        return invoke(lambda x: torch.argsort(
-            x if is_ascend else -x, dim=axis, stable=True).to(torch.float32),
-            [self], "argsort")
+        """Stable; ``axis=None`` sorts the flattened array."""
+        def f(x):
+            dim = 0 if axis is None else axis
+            if axis is None:
+                x = x.reshape(-1)
+            return torch.argsort(x if is_ascend else -x, dim=dim,
+                                 stable=True).to(torch.float32)
+        return invoke(f, [self], "argsort")
 
     # ------------------------------------------------------------ arithmetic
     def _binop(self, other, fn, name, reverse=False):
@@ -584,6 +597,51 @@ def _canonical_index(key):
     if isinstance(key, tuple):
         return tuple(_canonical_index(k) for k in key)
     return key
+
+
+def _steps_back(key) -> bool:
+    """Does the key hold a slice with a negative step?"""
+    keys = key if isinstance(key, tuple) else (key,)
+    return any(isinstance(k, _builtins.slice) and k.step is not None
+               and k.step < 0 for k in keys)
+
+
+def _dims_taken(k) -> int:
+    if k is None:
+        return 0
+    if isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+        return k.dim()
+    return 1
+
+
+def _index(x: torch.Tensor, key):
+    """``x[key]`` with numpy's meaning of a negative slice step, which torch
+    refuses: each such slice first becomes the ascending slice over the same
+    elements, those dims are flipped, and the rest of the key applies."""
+    if not _steps_back(key):
+        return x[key]
+    keys = key if isinstance(key, tuple) else (key,)
+    rest_dims = x.dim() - sum(_dims_taken(k) for k in keys
+                              if k is not Ellipsis)
+    pre = [_builtins.slice(None)] * x.dim()
+    flips, rest, d = [], [], 0
+    for k in keys:
+        if k is Ellipsis:
+            rest.append(k)
+            d += rest_dims
+            continue
+        if isinstance(k, _builtins.slice) and k.step is not None \
+                and k.step < 0:
+            start, _, step = k.indices(x.shape[d])
+            n = len(range(*k.indices(x.shape[d])))
+            last = start + (n - 1) * step
+            pre[d] = (_builtins.slice(last, start + 1, -step) if n
+                      else _builtins.slice(0, 0))
+            flips.append(d)
+            k = _builtins.slice(None)
+        rest.append(k)
+        d += _dims_taken(k)
+    return torch.flip(x[tuple(pre)], flips)[tuple(rest)]
 
 
 def _infer_reshape(cur_shape, shape):

@@ -198,9 +198,11 @@ def topk(data, axis: int = -1, k: int = 1, ret_typ: str = "indices",
 
 
 def sort(data, axis: int = -1, is_ascend: bool = True):
-    return invoke(lambda x: torch.sort(x, dim=axis, stable=True,
-                                       descending=not is_ascend).values,
-                  [_as_nd(data)], "sort")
+    """``axis=None`` sorts the flattened array."""
+    return invoke(lambda x: torch.sort(
+        x.reshape(-1) if axis is None else x, dim=0 if axis is None
+        else axis, stable=True, descending=not is_ascend).values,
+        [_as_nd(data)], "sort")
 
 
 def argsort(data, axis: int = -1, is_ascend: bool = True, dtype="float32"):

@@ -26,7 +26,8 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
            CSRC / "layer_norm.cu", CSRC / "softmax.cu", CSRC / "conv_fused.cu",
-           CSRC / "lstm.cu", CSRC / "bindings.cpp")
+           CSRC / "lstm.cu", CSRC / "detection.cu",
+           CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -56,6 +57,8 @@ _SIGNATURES = {
     "mxt_conv_fused_dual_wgrad": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "mxt_lstm_fwd": [_I, _I] + [_P] * 8 + [_I, _I, _P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
+    "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,
+    "mxt_nms_keep": [_P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -71,6 +71,15 @@ int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
                     const void* c, const void* c1, const void* w,
                     const void* dh1, const void* dc1, float* dxp, void* dh,
                     void* dc, int N, int H, void* stream);
+int multibox_match_launch(const float* anchors, const float* labels, int B,
+                          int N, int M, float thr, float v0, float v1,
+                          float v2, float v3, int anchors_in_smem,
+                          int* scratch, int* agt, float* aiou, float* loc,
+                          void* stream);
+int nms_keep_launch(const float* boxes, const float* ids,
+                    const unsigned char* valid, int B, int k, float thr,
+                    int force, int mask_in_smem, unsigned long long* mask,
+                    unsigned char* keep, void* stream);
 
 extern "C" {
 
@@ -258,6 +267,35 @@ int mxt_lstm_bwd(int w_dtype, int state_dtype, const void* gates,
                          static_cast<const float*>(gates), c, c1, w, dh1,
                          dc1, static_cast<float*>(dxp), dh, dc, N, H,
                          stream);
+}
+
+// The SSD matcher (detection.cu): anchors (N, 4) and labels (B, M, 5)
+// float32; agt (B, N) int32, aiou (B, N) and loc (B, N, 4) float32;
+// scratch (B, 3M) int32 for the label state, or null to keep it in shared
+// memory.
+int mxt_multibox_match(const void* anchors, const void* labels, int B, int N,
+                       int M, float thr, float v0, float v1, float v2,
+                       float v3, int anchors_in_smem, void* scratch,
+                       void* agt, void* aiou, void* loc, void* stream) {
+  return multibox_match_launch(
+      static_cast<const float*>(anchors), static_cast<const float*>(labels),
+      B, N, M, thr, v0, v1, v2, v3, anchors_in_smem,
+      static_cast<int*>(scratch), static_cast<int*>(agt),
+      static_cast<float*>(aiou), static_cast<float*>(loc), stream);
+}
+
+// Greedy NMS (detection.cu): boxes (B, k, 4) and ids (B, k) float32, valid
+// and keep (B, k) bytes; mask (B, k, ceil(k / 64)) 64-bit words of scratch,
+// which the sweep copies into shared memory when mask_in_smem.
+int mxt_nms_keep(const void* boxes, const void* ids, const void* valid,
+                 int B, int k, float thr, int force, int mask_in_smem,
+                 void* mask, void* keep, void* stream) {
+  return nms_keep_launch(static_cast<const float*>(boxes),
+                         static_cast<const float*>(ids),
+                         static_cast<const unsigned char*>(valid), B, k, thr,
+                         force, mask_in_smem,
+                         static_cast<unsigned long long*>(mask),
+                         static_cast<unsigned char*>(keep), stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

@@ -124,6 +124,16 @@ _case("sort_descend", [XR], lambda nd, a: nd.sort(a, is_ascend=False))
 _case("argsort", [XR], lambda nd, a: nd.argsort(a, axis=0), False)
 _case("argsort_descend", [XR], lambda nd, a: nd.argsort(a, is_ascend=False),
       False)
+# axis=None sorts the flattened array, stably (ties from the rounding)
+_case("sort_axis_none", [np.round(XR)], lambda nd, a: nd.sort(a, axis=None))
+_case("sort_axis_none_descend", [XR], lambda nd, a: nd.sort(
+    a, axis=None, is_ascend=False))
+_case("argsort_axis_none", [np.round(XR)], lambda nd, a: nd.argsort(
+    a, axis=None), False)
+_case("argsort_axis_none_descend", [np.round(XR)], lambda nd, a: nd.argsort(
+    a, axis=None, is_ascend=False), False)
+_case("method_argsort_axis_none", [np.round(XR)], lambda nd, a: a.argsort(
+    axis=None), False)
 _case("pick", [X, IDX], lambda nd, a, i: nd.pick(a, i))
 _case("pick_keepdims_axis0", [X, _i(4, hi=3)], lambda nd, a, i: nd.pick(
     a, i, axis=0, keepdims=True))
@@ -168,7 +178,17 @@ _case("scatter_nd", [_f(3), np.array([[0, 1, 1], [2, 0, 3]], np.int32)],
 _case("slice", [XR], lambda nd, a: nd.slice(a, (0, 1), (2, 3)))
 _case("slice_step", [XR], lambda nd, a: nd.slice(a, (0, 0, 0), (2, 3, 4),
                                                   (1, 2, 2)))
+_case("slice_negative_step", [XR], lambda nd, a: nd.slice(
+    a, (None, None, 3), (None, 0, None), (None, -1, -2)))
 _case("slice_axis", [XR], lambda nd, a: nd.slice_axis(a, 2, 1, 3))
+# negative-step reads: whole reversal, a stop short of 0, with an int, an
+# ellipsis, a new axis and an empty selection
+_case("getitem_reversed", [XR], lambda nd, a: a[::-1])
+_case("getitem_negative_step_mixed", [XR], lambda nd, a: a[:, -1:0:-1])
+_case("getitem_negative_step_int", [XR], lambda nd, a: a[1, ::-2, 2])
+_case("getitem_negative_step_ellipsis", [XR], lambda nd, a: a[
+    None, ..., 3:0:-2])
+_case("getitem_negative_step_empty", [XR], lambda nd, a: a[:, 0:2:-1])
 _case("slice_like", [XR, X], lambda nd, a, b: nd.slice_like(a, b, axes=(1,)),
       False)
 _case("diag", [X], lambda nd, a: nd.diag(a, k=1))
@@ -576,6 +596,18 @@ def test_setitem_matches_jax():
         a[1, :, 2] = 0.5
         a[1] = a[0] * 2
         a[:, 0, :] = np.ones((2, 4), np.float32)
+        outs.append(a.asnumpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_setitem_negative_step_matches_jax():
+    outs = []
+    for mx in (jmx, tmx):
+        a = mx.nd.array(np.arange(24, dtype=np.float32).reshape(2, 3, 4))
+        a[::-1] = mx.nd.array(np.arange(12, dtype=np.float32).reshape(3, 4))
+        a[:, -1:0:-1, ::-2] = -5.0
+        a[1, ::-1] = np.array([7, 8, 9, 10], np.float32)
+        a[..., 3:0:-2] = mx.nd.array(np.full((2, 3, 2), 0.25, np.float32))
         outs.append(a.asnumpy())
     np.testing.assert_array_equal(outs[0], outs[1])
 

@@ -48,7 +48,9 @@ def test_importing_the_port_loads_no_jax():
                  "optimizer.optimizer", "lr_scheduler", "parallel.dp",
                  "ops.cuda.conv_fused", "ops.cuda.lstm", "ops.rnn",
                  "gluon.rnn", "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
-                 "models.word_lm", "metric"):
+                 "models.word_lm", "metric", "ops.detection",
+                 "ops.cuda.detection", "ndarray.contrib", "models.ssd",
+                 "gluon.model_zoo.vision.vgg"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -59,6 +61,7 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "rows.cuh" in files
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "lstm.cu" in files
+    assert PKG_DIR / "ops" / "cuda" / "csrc" / "detection.cu" in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

@@ -323,6 +323,6 @@ def test_not_ported_pieces_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         tdp.export_train_step(None, None, "x", None, None)
     with pytest.raises(NotImplementedError, match="A6"):
-        tmx.gluon.model_zoo.get_model("vgg16")
+        tmx.gluon.model_zoo.get_model("alexnet")
     assert isinstance(tmx.gluon.model_zoo.get_model("resnet18_v2"),
                       tres.ResNetV2)

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six main paths on the card and holds every CUDA kernel
+Drives the port's seven main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -28,7 +28,13 @@ of them against its plain PyTorch version:
   from ``parallel.dp.functional_call`` and ``ops.detection
   .multibox_target``, its detection eval point
   (``multibox_detection(..., nms_topk=400)``), and one ``Trainer`` +
-  ``autograd.record()`` step through ``SSD.targets``.
+  ``autograd.record()`` step through ``SSD.targets``;
+* the user-extension path: CUDA C++ kernels compiled at runtime with
+  NVRTC (``rtc.CudaModule``) and launched on NDArrays, wrapped in a custom
+  operator (``operator.CustomOp``, ``nd.Custom``) that trains
+  ``examples/train_mnist.py``'s MLP (784-128-64-10, batch 64, SGD lr 0.1,
+  momentum 0.9) under ``autograd`` through ``gluon.Trainer``, and
+  ``test_utils.check_consistency`` of that op.
 
 Phases:
 
@@ -143,7 +149,25 @@ Phases:
    its twin; then a ``Trainer`` + ``record()`` step at batch 4;
 22. at the same width in float32, batch 8, cuDNN deterministic: the
    targets and the detections from the kernels equal the twins' exactly,
-   and so do one step's loss and gradients (tolerance 0).
+   and so do one step's loss and gradients (tolerance 0);
+23. the rtc user kernels (this file's ``AXPY_SRC`` and ``SOFTMAX_SRC``,
+   MXNet's custom_softmax_rtc.py pair) compiled with NVRTC to ``sm_90a``
+   CUBINs, each module's compile time; the axpy at n 2^26 through
+   ``launch`` and the call form against 2x + y (exact); the softmax
+   forward (within 1e-6) and backward (exact) against their twins at the
+   MLP's (64, 10) and the word LM's decoder (4480, 33278), with times
+   beside the twin's, ``torch.add``'s / ``torch.softmax``'s /
+   ``torch.scatter_add``'s and the byte bound; the host cost of one
+   launch beside ``torch.add``'s dispatch; a launch with 100 KB of
+   dynamic shared memory, and the errors of a refused launch (the
+   driver's words), a compile error (NVRTC's log) and a strided output
+   array; then the MLP for 20 steps with
+   the rtc custom softmax as its head: finite, falling loss, exactly one
+   forward and one backward rtc launch a step and no other kernel, a
+   second run of the same 20 steps from the same weights with the
+   twin-bodied op (first step's loss and gradients within rtol 1e-5,
+   weights after 20 steps within rtol 1e-4), a profiled window of two
+   steps, and ``check_consistency`` of the op across cpu and gpu(0).
 
 Any failure raises, so the exit code is not 0. The last three lines of
 standard output are the kernels' JSON record, the card line and
@@ -2553,6 +2577,524 @@ def ssd_truth_phase(mx, kd, common, batch=8):
         torch.backends.cudnn.deterministic = deterministic
 
 
+# ------------------------------------------- the rtc user kernels (B10)
+# B10 is a launcher, not a fixed kernel: the user's CUDA C++ is compiled
+# with NVRTC (rtc.CudaModule) and launched on NDArrays. These three user
+# kernels, each beside its plain PyTorch twin, are what phase 23 compiles,
+# checks and times; the softmax pair is MXNet's custom_softmax_rtc.py op
+# (forward and backward of a softmax output layer with its label), written
+# one block a row so that it takes any row length.
+RTC_KERNELS = ("rtc_launch/softmax_fwd", "rtc_launch/softmax_bwd")
+RTC_REPLACES = "incubator_mxnet_tpu/rtc.py:63"
+AXPY_SRC = r"""
+__global__ void axpy(const float *x, const float *y, float *out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = 2.0f * x[i] + y[i];
+}
+"""
+AXPY_SIGNATURE = "const float *x, const float *y, float *out, int n"
+SOFTMAX_SRC = r"""
+// max (kMax) or sum of one value over the block; blockDim.x is a multiple
+// of 32, at most 1024; every thread gets the result
+template <bool kMax>
+__device__ float block_reduce(float v, float *red) {
+    for (int o = 16; o > 0; o >>= 1) {
+        const float u = __shfl_xor_sync(0xffffffffu, v, o);
+        v = kMax ? fmaxf(v, u) : v + u;
+    }
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    v = lane < (blockDim.x >> 5) ? red[lane]
+                                 : (kMax ? __int_as_float(0xff800000) : 0.f);
+    for (int o = 16; o > 0; o >>= 1) {
+        const float u = __shfl_xor_sync(0xffffffffu, v, o);
+        v = kMax ? fmaxf(v, u) : v + u;
+    }
+    __syncthreads();            // red is reused by the next reduction
+    return v;
+}
+
+// y = softmax(x) row by row, one block a row: a max pass, a sum pass and
+// a write pass; req 1 writes, 2 adds (MXNet's kWriteTo / kAddTo)
+template <typename T>
+__global__ void softmax_fwd(const T *x, T *y, const int row_size,
+                            const int req) {
+    __shared__ float red[32];
+    const T *xr = x + (long long)blockIdx.x * row_size;
+    T *yr = y + (long long)blockIdx.x * row_size;
+    float m = __int_as_float(0xff800000);
+    for (int i = threadIdx.x; i < row_size; i += blockDim.x)
+        m = fmaxf(m, (float)xr[i]);
+    m = block_reduce<true>(m, red);
+    float s = 0.f;
+    for (int i = threadIdx.x; i < row_size; i += blockDim.x)
+        s += expf((float)xr[i] - m);
+    s = block_reduce<false>(s, red);
+    for (int i = threadIdx.x; i < row_size; i += blockDim.x) {
+        const T p = (T)(expf((float)xr[i] - m) / s);
+        if (req == 1) yr[i] = p;
+        else if (req == 2) yr[i] += p;
+    }
+}
+
+// the softmax output layer's gradient: dx = y - onehot(label), one block a
+// row (label holds class indices as floats, as MXNet's labels do)
+template <typename T>
+__global__ void softmax_bwd(const T *label, const T *y, T *dx,
+                            const int row_size, const int req) {
+    const int z = (int)label[blockIdx.x];
+    const T *yr = y + (long long)blockIdx.x * row_size;
+    T *dr = dx + (long long)blockIdx.x * row_size;
+    for (int i = threadIdx.x; i < row_size; i += blockDim.x) {
+        const T v = i == z ? yr[i] - (T)1 : yr[i];
+        if (req == 1) dr[i] = v;
+        else if (req == 2) dr[i] += v;
+    }
+}
+"""
+SOFTMAX_EXPORTS = ("softmax_fwd<float>", "softmax_bwd<float>")
+SOFTMAX_FWD_SIGNATURE = "const float *x, float *y, const int, const int"
+SOFTMAX_BWD_SIGNATURE = ("const float *label, const float *y, float *dx, "
+                         "const int, const int")
+REQ_CODE = {"null": 0, "write": 1, "inplace": 1, "add": 2}
+# reverses n floats through dynamic shared memory: a launch above 48 KB
+# needs the opt-in that CudaKernel.launch makes
+REVERSE_SRC = r"""
+__global__ void reverse(const float *x, float *y, int n) {
+    extern __shared__ float buf[];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) y[i] = buf[n - 1 - i];
+}
+"""
+
+
+def axpy_twin(x, y):
+    """Plain twin of the axpy kernel: 2x + y."""
+    return 2.0 * x + y
+
+
+def softmax_fwd_twin(x):
+    """Plain twin of softmax_fwd: max, exp, sum and divide per row."""
+    e = torch.exp(x - x.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def softmax_bwd_twin(label, y):
+    """Plain twin of softmax_bwd: y - onehot(label)."""
+    hot = torch.zeros_like(y)
+    hot[torch.arange(y.shape[0], device=y.device), label.long()] = 1.0
+    return y - hot
+
+
+def row_block(row_size: int) -> int:
+    """Threads per row for the softmax kernels: a multiple of 32, <= 512."""
+    return min(512, 32 * -(-row_size // 32))
+
+
+_SOFTMAX_RTC = {}   # the compiled softmax module and its two kernels
+
+
+def rtc_softmax_kernels(mx):
+    """The softmax user kernels, compiled on first use: (forward,
+    backward, the CudaModule)."""
+    if not _SOFTMAX_RTC:
+        mod = mx.rtc.CudaModule(SOFTMAX_SRC, exports=SOFTMAX_EXPORTS)
+        _SOFTMAX_RTC["kernels"] = (
+            mod.get_kernel("softmax_fwd<float>", SOFTMAX_FWD_SIGNATURE),
+            mod.get_kernel("softmax_bwd<float>", SOFTMAX_BWD_SIGNATURE), mod)
+    return _SOFTMAX_RTC["kernels"]
+
+
+def register_softmax_ops(mx):
+    """MXNet's custom_softmax_rtc.py op, registered twice with
+    ``mx.operator``: ``rtc_softmax`` launches the rtc kernels on arrays on
+    the card and runs the twins on CPU arrays (as an MXNet op has a CPU and
+    a GPU body); ``twin_softmax`` always runs the twins. Inputs: data
+    (n, c) and label (n,) (class indices as floats); output: the row
+    softmax; backward: prob - onehot(label), need_top_grad False (the op
+    is the loss's head, as SoftmaxOutput is)."""
+
+    class SoftmaxOp(mx.operator.CustomOp):
+        def __init__(self, use_rtc):
+            self.use_rtc = use_rtc
+
+        def _rtc(self, x):
+            return self.use_rtc and x.context.device_type == "gpu"
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            if req[0] == "null":
+                return
+            x, y = in_data[0], out_data[0]
+            if self._rtc(x):
+                fwd = rtc_softmax_kernels(mx)[0]
+                fwd.launch([x, y, x.shape[1], REQ_CODE[req[0]]], x.context,
+                           (x.shape[0],), (row_block(x.shape[1]),))
+            else:
+                self.assign(y, req[0], softmax_fwd_twin(x.tensor))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            if req[0] == "null":
+                return
+            label, y, dx = in_data[1], out_data[0], in_grad[0]
+            if self._rtc(y):
+                bwd = rtc_softmax_kernels(mx)[1]
+                bwd.launch([label, y, dx, y.shape[1], REQ_CODE[req[0]]],
+                           y.context, (y.shape[0],), (row_block(y.shape[1]),))
+            else:
+                self.assign(dx, req[0],
+                            softmax_bwd_twin(label.tensor, y.tensor))
+
+    def prop(use_rtc):
+        class SoftmaxProp(mx.operator.CustomOpProp):
+            def __init__(self):
+                super().__init__(need_top_grad=False)
+
+            def list_arguments(self):
+                return ["data", "label"]
+
+            def infer_shape(self, in_shape):
+                return ([in_shape[0], [in_shape[0][0]]], [in_shape[0]], [])
+
+            def create_operator(self, ctx, in_shapes, in_dtypes):
+                return SoftmaxOp(use_rtc)
+        return SoftmaxProp
+
+    mx.operator.register("rtc_softmax")(prop(True))
+    mx.operator.register("twin_softmax")(prop(False))
+
+
+# examples/train_mnist.py's MLP and configuration (784-128-64-10, batch 64,
+# SGD lr 0.1 momentum 0.9), on data from a seeded generator
+MLP_BATCH, MLP_LR, MLP_MOMENTUM, MLP_STEPS = 64, 0.1, 0.9, 20
+
+
+def mnist_batches(seed, steps, batch=MLP_BATCH):
+    """MNIST-shaped batches: ten random 784-pixel class templates plus
+    noise, in [0, 1], and their labels as float32 class indices."""
+    rng = np.random.default_rng(seed)
+    templates = rng.random((10, 784))
+    out = []
+    for _ in range(steps):
+        label = rng.integers(0, 10, batch)
+        x = 0.7 * templates[label] + 0.3 * rng.random((batch, 784))
+        out.append((x.astype(np.float32), label.astype(np.float32)))
+    return out
+
+
+def mnist_mlp(mx):
+    """examples/train_mnist.py's MLP in Gluon (the softmax is the custom
+    op, applied by :func:`mlp_train`)."""
+    nn = mx.gluon.nn
+    net = nn.Sequential()
+    net.add(nn.Dense(128, in_units=784, activation="relu"),
+            nn.Dense(64, in_units=128, activation="relu"),
+            nn.Dense(10, in_units=64))
+    return net
+
+
+def mlp_train(mx, net, op_type, batches, ctx, after_step=None):
+    """SGD steps of ``net`` through ``gluon.Trainer`` with the custom
+    softmax op ``op_type`` as its head: (losses, the first step's
+    gradients). The loss (mean cross-entropy) is read from the op's
+    output."""
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": MLP_LR,
+                                "momentum": MLP_MOMENTUM})
+    losses, first_grads = [], None
+    for i, (xb, lb) in enumerate(batches):
+        x, label = mx.nd.array(xb, ctx=ctx), mx.nd.array(lb, ctx=ctx)
+        with mx.autograd.record():
+            prob = mx.nd.Custom(net(x), label, op_type=op_type)
+        prob.backward()
+        if first_grads is None:
+            first_grads = [p.grad().asnumpy()
+                           for p in net.collect_params().values()]
+        trainer.step(xb.shape[0])
+        p = prob.asnumpy().astype(np.float64)
+        losses.append(float(-np.log(p[np.arange(len(lb)),
+                                      lb.astype(int)]).mean()))
+        if after_step is not None:
+            after_step(i)
+    return losses, first_grads
+
+
+def rtc_kernel_checks(mx):
+    """Phase 23, first part: the user kernels compiled with NVRTC (the
+    compile time of each module), the axpy at n 2^26 through launch and
+    the call form (exact against 2x + y), the softmax forward and backward
+    at the MLP's (64, 10) and at the word LM's decoder (4480, 33278)
+    against their twins (forward within 1e-6, backward exact), with times
+    beside the twins', one library call's and the byte bound; then the
+    host cost of one launch beside a PyTorch elementwise op's dispatch,
+    and the error paths (:func:`rtc_error_checks`)."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def nd(t):
+        return mx.nd.NDArray(t, _direct=True)
+
+    from incubator_mxnet_tpu_torch.ops.cuda import nvrtc
+    axpy_mod = mx.rtc.CudaModule(AXPY_SRC, exports=["axpy"])
+    major, minor, path = nvrtc.nvrtc_version()
+    log(f"NVRTC {major}.{minor} ({path}), driver CUDA "
+        f"{nvrtc.driver_version()}")
+    axpy = axpy_mod.get_kernel("axpy", AXPY_SIGNATURE)
+    fwd, bwd, sm_mod = rtc_softmax_kernels(mx)
+    compile_ms = {"axpy": axpy_mod.compile_ms,
+                  "softmax": sm_mod.compile_ms}
+    log(f"NVRTC compile ms per module: {json.dumps(compile_ms)}")
+    n = 1 << 26
+    x = nd(torch.randn(n, device=dev, generator=g))
+    y = nd(torch.randn(n, device=dev, generator=g))
+    out = nd(torch.empty(n, device=dev))
+    grid = ((n + 255) // 256,)
+    axpy.launch([x, y, out, n], mx.gpu(0), grid, (256,))
+    call = axpy_mod.get_kernel("axpy", AXPY_SIGNATURE, out_like=0,
+                               grid_dims=lambda a, b, m: ((m + 255) // 256,),
+                               block_dims=(256,))
+    z = call(x, y, n)
+    torch.cuda.synchronize()
+    want = axpy_twin(x.tensor, y.tensor)
+    axpy_err = max(float((out.tensor - want).abs().max()),
+                   float((z.tensor - want).abs().max()))
+    if axpy_err != 0.0:
+        raise AssertionError(f"axpy differs from 2x + y by {axpy_err}")
+    timings = {"axpy": {
+        "n": n, "max_abs_err": axpy_err,
+        "ms": time_ms(lambda: axpy.launch([x, y, out, n], mx.gpu(0), grid,
+                                          (256,))),
+        "plain_ms": time_ms(lambda: axpy_twin(x.tensor, y.tensor)),
+        "library_ms": time_ms(lambda: torch.add(y.tensor, x.tensor,
+                                                alpha=2)),
+        "bound_ms": 3 * 4 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}}
+    del x, y, out, z, want
+    errs = {}
+    for rows, cols in ((MLP_BATCH, 10), (4480, 33278)):
+        xs = nd(3.0 * torch.randn(rows, cols, device=dev, generator=g))
+        lab = nd(torch.randint(0, cols, (rows,), device=dev,
+                               generator=g).float())
+        ys, dx = nd(torch.empty_like(xs.tensor)), nd(torch.empty_like(
+            xs.tensor))
+        blk = (row_block(cols),)
+
+        def run_fwd():
+            fwd.launch([xs, ys, cols, 1], mx.gpu(0), (rows,), blk)
+
+        def run_bwd():
+            bwd.launch([lab, ys, dx, cols, 1], mx.gpu(0), (rows,), blk)
+
+        run_fwd()
+        run_bwd()
+        torch.cuda.synchronize()
+        ef = float((ys.tensor - softmax_fwd_twin(xs.tensor)).abs().max())
+        eb = float((dx.tensor - softmax_bwd_twin(lab.tensor, ys.tensor))
+                   .abs().max())
+        errs[f"{rows}x{cols}"] = {"fwd": ef, "bwd": eb}
+        if not ef <= 1e-6 or eb != 0.0:
+            raise AssertionError(f"rtc softmax at ({rows}, {cols}): forward "
+                                 f"err {ef} (tol 1e-6), backward {eb} (0)")
+    moved = 2 * 4 * rows * cols
+    idx = lab.tensor.long()[:, None]
+    minus = torch.full((rows, 1), -1.0, device=dev)
+    timings["softmax_fwd"] = {
+        "shape": [rows, cols], "max_abs_err": ef, "ms": time_ms(run_fwd),
+        "plain_ms": time_ms(lambda: softmax_fwd_twin(xs.tensor), iters=10),
+        "library_ms": time_ms(lambda: torch.softmax(xs.tensor, 1)),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    timings["softmax_bwd"] = {
+        "shape": [rows, cols], "max_abs_err": eb, "ms": time_ms(run_bwd),
+        "plain_ms": time_ms(lambda: softmax_bwd_twin(lab.tensor, ys.tensor),
+                            iters=10),
+        "library_ms": time_ms(lambda: torch.scatter_add(ys.tensor, 1, idx,
+                                                        minus)),
+        "bound_ms": (moved + 4 * rows) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    log(f"rtc softmax errors {json.dumps(errs)}")
+    records = {}
+    for name in RTC_KERNELS:
+        t = timings[name.split("/")[1]]
+        records[name] = {"name": name, "route": "cuda",
+                         "source": "chip_smoke.py", "replaces": RTC_REPLACES,
+                         "launches": 0, **{k: t[k] for k in (
+                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}}
+    del xs, ys, dx, lab
+    torch.cuda.empty_cache()
+    # host cost of one launch (enqueue only) beside torch.add's dispatch
+    a = nd(torch.randn(1024, device=dev))
+    o = nd(torch.empty(1024, device=dev))
+
+    def host_us(fn, iters=2000):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        us = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    timings["launch_host_us"] = host_us(
+        lambda: axpy.launch([a, a, o, 1024], mx.gpu(0), (4,), (256,)))
+    timings["torch_add_host_us"] = host_us(
+        lambda: torch.add(a.tensor, a.tensor))
+    timings["compile_ms"] = compile_ms
+    timings["errors"] = rtc_error_checks(mx, a, o)
+    for name, t in timings.items():
+        if isinstance(t, dict) and "ms" in t:
+            log(f"time {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                f"ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms (bytes)")
+    log(f"launch host cost {timings['launch_host_us']:.2f} us, torch.add "
+        f"{timings['torch_add_host_us']:.2f} us")
+    return records, timings
+
+
+def rtc_error_checks(mx, a, o):
+    """A launch with 100 KB of dynamic shared memory works (against
+    torch.flip); a refused launch (2048 threads a block), a compile error
+    and a written array that is not contiguous each raise, the first two
+    with the driver's and NVRTC's own words."""
+    from incubator_mxnet_tpu_torch.ops.cuda import nvrtc
+    mod = mx.rtc.CudaModule(REVERSE_SRC, exports=["reverse"])
+    rev = mod.get_kernel("reverse", "const float *x, float *y, int n")
+    n = 100 * 1024 // 4
+    x = mx.nd.NDArray(torch.randn(n, device="cuda"), _direct=True)
+    y = mx.nd.NDArray(torch.empty(n, device="cuda"), _direct=True)
+    rev.launch([x, y, n], mx.gpu(0), (1,), (256,), shared_mem=4 * n)
+    torch.cuda.synchronize()
+    if not torch.equal(y.tensor, torch.flip(x.tensor, (0,))):
+        raise AssertionError("reverse through 100 KB of shared memory")
+    out = {"shared_100kb": "ok"}
+    try:
+        rev.launch([x, y, n], mx.gpu(0), (1,), (2048,), shared_mem=4 * n)
+        raise AssertionError("a 2048-thread block launched")
+    except nvrtc.CudaDriverError as e:
+        out["refused_launch"] = str(e)
+    try:
+        mx.rtc.CudaModule("__global__ void bad(float *x) { x[0] = nope; }",
+                          exports=["bad"])
+        raise AssertionError("a source with an error compiled")
+    except nvrtc.NvrtcCompileError as e:
+        if "nope" not in str(e):
+            raise AssertionError(f"compile error without NVRTC's log: {e}")
+        out["compile_error"] = next(line.strip() for line in str(
+            e).splitlines() if "error:" in line)
+    strided = mx.nd.NDArray(torch.empty(2 * n, device="cuda")[::2],
+                            _direct=True)
+    try:
+        rev.launch([x, strided, n], mx.gpu(0), (1,), (256,), 4 * n)
+        raise AssertionError("a strided output was launched on")
+    except ValueError as e:
+        out["strided_output"] = str(e)
+    torch.cuda.synchronize()
+    log(f"rtc error paths: {json.dumps(out)}")
+    return out
+
+
+def mlp_phase(mx, common, records):
+    """Phase 23, second part: examples/train_mnist.py's MLP for 20 steps
+    with the rtc custom softmax: finite, falling loss; exactly one forward
+    and one backward rtc launch a step and no other kernel of the port;
+    then the same 20 steps from the same weights with the twin-bodied op:
+    the first step's loss and gradients within rtol 1e-5, the weights
+    after 20 steps within rtol 1e-4; a profiled window of two steps; and
+    test_utils.check_consistency of the op across cpu and gpu(0)."""
+    register_softmax_ops(mx)
+    fwd, bwd, _ = rtc_softmax_kernels(mx)
+    ctx = mx.gpu(0)
+    batches = mnist_batches(SEED, MLP_STEPS)
+    mx.random.seed(SEED)
+    net = mnist_mlp(mx)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    twin = mnist_mlp(mx)
+    twin.initialize(ctx=ctx)
+    mx.test_utils.copy_params(net, twin)
+    per_step, stamps = [], []
+
+    def count(i):       # mlp_train has synchronised: it read the loss
+        stamps.append(time.perf_counter())
+        per_step.append((fwd.launches, bwd.launches))
+        fwd.launches = bwd.launches = 0
+
+    fwd.launches = bwd.launches = 0
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, grads = mlp_train(mx, net, "rtc_softmax", batches, ctx, count)
+    launches = common.launch_counts()
+    # the first step pays cuBLAS's and the allocator's warm-up
+    first_ms = (stamps[0] - t0) * 1e3
+    step_ms = (stamps[-1] - stamps[0]) / (MLP_STEPS - 1) * 1e3
+    log(f"MLP (rtc softmax): losses {[round(v, 4) for v in losses]}; first "
+        f"step {first_ms:.2f} ms, then {step_ms:.3f} ms/step over "
+        f"{MLP_STEPS - 1} steps; launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MLP loss not finite and falling: {losses}")
+    others = {k: v for k, v in launches.items() if k != "rtc_launch"}
+    if any(c != (1, 1) for c in per_step) or len(per_step) != MLP_STEPS \
+            or launches["rtc_launch"] != 2 * MLP_STEPS or any(
+                others.values()):
+        raise AssertionError(f"MLP launches per step {per_step}, counts "
+                             f"{launches}: want one forward and one backward "
+                             "rtc launch a step and nothing else")
+    for name in RTC_KERNELS:
+        records[name]["launches"] = MLP_STEPS
+    t_losses, t_grads = mlp_train(mx, twin, "twin_softmax", batches, ctx)
+    loss_err = abs(losses[0] - t_losses[0]) / abs(t_losses[0])
+    grad_err = max(float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)),
+                                                     1e-30))
+                   for a, b in zip(grads, t_grads))
+    w_err = max(float(np.max(np.abs(a.data().asnumpy() - b.data().asnumpy()))
+                      / max(np.max(np.abs(b.data().asnumpy())), 1e-30))
+                for a, b in zip(net.collect_params().values(),
+                                twin.collect_params().values()))
+    loss20_err = abs(losses[-1] - t_losses[-1]) / abs(t_losses[-1])
+    log(f"MLP rtc vs twin: first loss rel {loss_err:.3e}, first gradients "
+        f"rel {grad_err:.3e}, weights after {MLP_STEPS} steps rel "
+        f"{w_err:.3e}, last loss rel {loss20_err:.3e}")
+    for i, (a, b) in enumerate(zip(grads, t_grads)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7,
+                                   err_msg=f"first-step gradient {i}")
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"first-step loss rel err {loss_err} > 1e-5")
+    for a, b in zip(net.collect_params().values(),
+                    twin.collect_params().values()):
+        np.testing.assert_allclose(a.data().asnumpy(), b.data().asnumpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=a.name)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": MLP_LR,
+                                "momentum": MLP_MOMENTUM})
+    xb, lb = (mx.nd.array(v, ctx=ctx) for v in batches[0])
+
+    def step():
+        with mx.autograd.record():
+            prob = mx.nd.Custom(net(xb), lb, op_type="rtc_softmax")
+        prob.backward()
+        trainer.step(MLP_BATCH)
+
+    breakdown = kernel_breakdown("MLP", step, ("softmax_fwd",
+                                               "softmax_bwd"))
+    consistency = mx.test_utils.check_consistency(
+        lambda d, l: mx.nd.Custom(d, l, op_type="rtc_softmax"),
+        ctx_list=[mx.cpu(), mx.gpu(0)],
+        inputs=[batches[0][0][:, :10] * 5, batches[0][1]],
+        dtypes=[np.float32])
+    cons = {str(k): float(np.max(np.abs(v - consistency[
+        ("cpu(0)", "float32")]))) for k, v in consistency.items()}
+    log(f"check_consistency rtc_softmax across cpu and gpu(0): {cons}")
+    return {"step_ms": step_ms, "first_step_ms": first_ms,
+            "loss_first": losses[0],
+            "loss_last": losses[-1], "launches_per_step": {
+                "rtc_softmax_fwd": 1, "rtc_softmax_bwd": 1},
+            "first_loss_rel_err": loss_err, "first_grad_rel_err": grad_err,
+            "weights_rel_err": w_err, "consistency_max_abs": cons,
+            **breakdown}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2626,6 +3168,10 @@ def main() -> int:
     ssd = ssd_train_phase(mx, kd, common, records)
     torch.cuda.empty_cache()
     ssd_truth = ssd_truth_phase(mx, kd, common)
+    torch.cuda.empty_cache()
+    rtc_records, rtc_timings = rtc_kernel_checks(mx)
+    records.update(rtc_records)
+    mlp = mlp_phase(mx, common, records)
 
     log(f"serving {json.dumps(serve)}")
     log(f"training {json.dumps(train)}")
@@ -2644,10 +3190,13 @@ def main() -> int:
     log(f"detection kernel timings {json.dumps(det_timings)}")
     log(f"SSD-512 training {json.dumps(ssd)}")
     log(f"SSD-512 f32 truth {json.dumps(ssd_truth)}")
+    log(f"rtc kernel timings {json.dumps(rtc_timings)}")
+    log(f"MNIST MLP with the rtc custom softmax {json.dumps(mlp)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
-        + ROW_KERNELS + CONV_KERNELS + LSTM_KERNELS + DET_KERNELS]}))
+        + ROW_KERNELS + CONV_KERNELS + LSTM_KERNELS + DET_KERNELS
+        + RTC_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,12 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: the fused RNN (``nd.RNN``, ``gluon.rnn``) with the
-word LM ``models.RNNModel`` and its LSTM kernels, and ``metric`` (slice 5);
+The port covers so far: runtime-compiled CUDA kernels (``rtc``: NVRTC
+and the driver API), custom operators (``operator``, ``nd.Custom``),
+``test_utils`` and ``registry`` (slice 7); SSD detection (``models.ssd``,
+``nd.contrib``) with its matcher and NMS kernels (slice 6); the fused
+RNN (``nd.RNN``, ``gluon.rnn``) with the word LM ``models.RNNModel`` and
+its LSTM kernels, and ``metric`` (slice 5);
 Gluon (blocks, layers, losses, ``Trainer``,
 ``optimizer``, ``lr_scheduler``) with the ResNet model zoo and its fused
 conv kernels, and the one-card functional train step
@@ -45,10 +49,16 @@ from . import lr_scheduler
 from . import metric
 from . import optimizer
 from . import gluon
+from . import rtc
+from . import operator
+from .operator import CustomOp, CustomOpProp, register as register_op
+from . import test_utils
+from . import registry
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
            "current_context", "num_gpus", "num_tpus", "NDArray", "base",
            "context", "ndarray", "nd", "autograd", "random", "engine",
            "initializer", "init", "name", "lr_scheduler", "metric",
-           "optimizer", "gluon"]
+           "optimizer", "gluon", "rtc", "operator", "CustomOp",
+           "CustomOpProp", "register_op", "test_utils", "registry"]

@@ -7,10 +7,8 @@ the reference's CamelCase names are exposed, and unknown keyword arguments
 raise (``_strictify_module``). Binary ops take both operands in the
 promotion of their types, as ``jnp`` does. ``LayerNorm`` and ``softmax``
 reach the B5 and B6 CUDA kernels through ``ops/nn.py``, ``RNN`` the B8
-LSTM kernels through ``ops/rnn.py``.
-
-``Custom`` depends on a slice not ported yet and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item (A11).
+LSTM kernels through ``ops/rnn.py``. ``Custom`` runs a registered custom
+operator through ``operator.py``.
 """
 from __future__ import annotations
 
@@ -942,10 +940,12 @@ def make_loss(data, **kw):
 
 
 def Custom(*inputs, op_type=None, **kwargs):
-    """A frontend-registered CustomOp runs through ``operator.py``, which
-    is the symbolic slice (``ROADMAP.md`` A11)."""
-    raise NotImplementedError(
-        "nd.Custom: custom operators (operator.py) are ROADMAP.md A11")
+    """Run the custom operator registered as ``op_type`` (``operator.py``;
+    ref: src/operator/custom/custom.cc); ``kwargs`` go to its prop."""
+    if op_type is None:
+        raise ValueError("nd.Custom needs op_type, the registered name")
+    from .. import operator as _op_mod
+    return _op_mod.invoke_custom(op_type, *inputs, **kwargs)
 
 
 SequenceLast = sequence_last

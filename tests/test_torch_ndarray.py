@@ -482,8 +482,11 @@ def test_topk_mask_marks_the_top_entries():
 
 def test_unported_ops_name_their_roadmap_item():
     x = tmx.nd.array(X)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmx.nd.Custom(x, op_type="sqr")
+    # nd.Custom is ported (tests/test_torch_operator.py): an op type that
+    # was never registered is unknown in both packages
+    for mx in (jmx, tmx):
+        with pytest.raises(KeyError, match="sqr"):
+            mx.nd.Custom(mx.nd.array(X), op_type="sqr")
     with pytest.raises(NotImplementedError, match="A4"):
         x.tostype("csr")
 
@@ -610,6 +613,23 @@ def test_setitem_negative_step_matches_jax():
         a[..., 3:0:-2] = mx.nd.array(np.full((2, 3, 2), 0.25, np.float32))
         outs.append(a.asnumpy())
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_list_key_selects_rows_as_mxnet_does():
+    """``x[[1, 0]]`` takes rows 1 and 0 in the port, as MXNet does; the JAX
+    package raises, since jax refuses a non-tuple sequence as an index
+    (ROADMAP.md section C: a reference fault the port does not copy)."""
+    x = np.arange(24, dtype=np.float32).reshape(3, 2, 4)
+    got = tmx.nd.array(x)[[1, 0]]
+    np.testing.assert_array_equal(got.asnumpy(), x[[1, 0]])
+    assert got.shape == (2, 2, 4)
+    np.testing.assert_array_equal(tmx.nd.array(x)[[2, 2, 0]].asnumpy(),
+                                  x[[2, 2, 0]])
+    np.testing.assert_array_equal(
+        tmx.nd.array(x)[[1, 0]].asnumpy(),
+        jmx.nd.array(x)[jmx.nd.array(np.array([1, 0], np.int32))].asnumpy())
+    with pytest.raises(TypeError, match="non-tuple sequence"):
+        jmx.nd.array(x)[[1, 0]]
 
 
 # ------------------------------------------------------------ save / load

@@ -15,6 +15,7 @@ REPO = PKG_DIR.parent
 _PROBE = """
 import importlib, json, pkgutil, sys
 import incubator_mxnet_tpu_torch as pkg
+from incubator_mxnet_tpu_torch import operator, registry, rtc, test_utils
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
@@ -50,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
                  "gluon.rnn", "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
                  "models.word_lm", "metric", "ops.detection",
                  "ops.cuda.detection", "ndarray.contrib", "models.ssd",
-                 "gluon.model_zoo.vision.vgg"):
+                 "gluon.model_zoo.vision.vgg", "rtc", "operator",
+                 "test_utils", "registry", "ops.cuda.nvrtc"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

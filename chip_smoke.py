@@ -1224,6 +1224,14 @@ def nd_truth_phase(tt, nd_lm, mx):
 CONV_KERNELS = ("mm_fused", "mm_fused_bwd", "conv3_fused",
                 "conv3_fused_bwd", "dgrad_epilogue")
 CONV_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/conv_fused.cu"
+# the wrappers whose bf16 route is the Hopper kernels of conv_fused_sm90.cu
+# (the lane's launches of the other three stay on conv_fused.cu)
+CONV_SM90 = ("mm_fused", "dgrad_epilogue")
+CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+                    "conv_fused_sm90.cu")
+# the JSON line's names of the phase-13/14 kernels, in its order
+CONV_RECORDS = tuple(f"{n}/sm90" if n in CONV_SM90 else n
+                     for n in CONV_KERNELS)
 CONV_REPLACES = {
     "mm_fused": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:148",
     "mm_fused_bwd": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:344",
@@ -1237,6 +1245,10 @@ CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RESNET_STAGES = {2: (128 * 28 * 28, 128, 512, 28, 256),
                  3: (128 * 14 * 14, 256, 1024, 14, 512),
                  4: (128 * 7 * 7, 512, 2048, 7, 1024)}
+# the phase-13 sweep's 1x1 shapes: (M, K, N) for mm_fused and mm_fused_bwd,
+# (M, K, N_a, N_b) for dgrad_epilogue
+CONV_MM_SWEEP = ((64, 16, 24), (300, 40, 72), (1000, 128, 256))
+CONV_DUAL_SWEEP = ((64, 16, 8, 24), (300, 40, 72, 40), (1000, 128, 64, 256))
 # the case of each kernel whose stage-3 bf16 reading goes into the JSON line
 CONV_RECORD_CASE = {"mm_fused": "entry", "mm_fused_bwd": "entry",
                     "conv3_fused": "3x3", "conv3_fused_bwd": "3x3",
@@ -1250,12 +1262,13 @@ def _scaled_err(outs, refs):
 
 def _conv_cases(cf, g, dt):
     """The phase-13 sweep for one type: (kernel, case name, kernel call,
-    twin call) over every option of the four kernels."""
+    twin call, route the plan gives, call forced onto the SIMT kernel or
+    None) over every option of the four kernels."""
     def rnd(*shape, f32=False):
         t = torch.randn(shape, generator=g, device="cuda")
         return t if f32 else t.to(dt)
     cases = []
-    for M, K, N in ((64, 16, 24), (300, 40, 72), (1000, 128, 256)):
+    for M, K, N in CONV_MM_SWEEP:
         x, sc = rnd(M, K), rnd(M, K)
         w = rnd(N, 1, 1, K).reshape(N, K).t()          # gluon layout view
         a, b = rnd(K, f32=True).abs() + 0.5, rnd(K, f32=True)
@@ -1264,6 +1277,8 @@ def _conv_cases(cf, g, dt):
         forms = {"plain": {}, "bnrelu": dict(a=a, b=b),
                  "entry": dict(a=a, b=b, sc=sc, asc=asc, bsc=bsc)}
         for form, kw in forms.items():
+            route = cf.mm_fused_route(x, w, kw.get("sc"), (
+                kw.get("a"), kw.get("b"), kw.get("asc"), kw.get("bsc")))
             for opt in (dict(bias=bias), dict(emit_xhat=True),
                         dict(stats=False)):
                 args = {**kw, **opt}
@@ -1272,7 +1287,26 @@ def _conv_cases(cf, g, dt):
                               lambda args=args, x=x, w=w: cf.mm_fused(
                                   x, w, **args),
                               lambda args=args, x=x, w=w:
-                              cf.mm_fused_reference(x, w, **args)))
+                              cf.mm_fused_reference(x, w, **args), route,
+                              lambda args=args, x=x, w=w: cf.mm_fused(
+                                  x, w, _route="simt", **args)))
+        # the weight as a contiguous (K, N) tensor: the other stride-1
+        # layout, an MN-major B on the Hopper route
+        wkn = w.contiguous()
+        for form, opt in (("plain", dict(bias=bias)),
+                          ("entry", dict(emit_xhat=True))):
+            args = {**forms[form], **opt}
+            route = cf.mm_fused_route(x, wkn, args.get("sc"), (
+                args.get("a"), args.get("b"), args.get("asc"),
+                args.get("bsc")))
+            cases.append(("mm_fused", f"{M}x{K}x{N} {form} {sorted(opt)} "
+                          f"w (K, N)",
+                          lambda args=args, x=x, w=wkn: cf.mm_fused(
+                              x, w, **args),
+                          lambda args=args, x=x, w=wkn:
+                          cf.mm_fused_reference(x, w, **args), route,
+                          lambda args=args, x=x, w=wkn: cf.mm_fused(
+                              x, w, _route="simt", **args)))
         gg, dzn, yout = rnd(M, N), rnd(M, N), rnd(M, N)
         gc, dsc, p1 = rnd(3, N, f32=True), rnd(M, K), rnd(M, K)
         bwd = {"direct mask z 1 partner": dict(g=gg, a=a, b=b,
@@ -1286,17 +1320,24 @@ def _conv_cases(cf, g, dt):
             cases.append(("mm_fused_bwd", f"{M}x{K}x{N} {name}",
                           lambda kw=kw, x=x, w=w: cf.mm_fused_bwd(w, x, **kw),
                           lambda kw=kw, x=x, w=w: cf.mm_fused_bwd_reference(
-                              w, x, **kw)))
-    for M, K, NA, NB in ((64, 16, 8, 24), (300, 40, 72, 40),
-                         (1000, 128, 64, 256)):
+                              w, x, **kw), "simt", None))
+    for M, K, NA, NB in CONV_DUAL_SWEEP:
         x = rnd(M, K)
         wa = rnd(NA, 1, 1, K).reshape(NA, K).t()
         wb = rnd(NB, 1, 1, K).reshape(NB, K).t()
         ops = (wa, wb, x, rnd(M, NA), rnd(M, NA), rnd(3, NA, f32=True),
                rnd(M, NB), rnd(M, NB), rnd(3, NB, f32=True))
-        cases.append(("dgrad_epilogue", f"{M}x{K}x{NA}+{NB}",
-                      lambda ops=ops: cf.dgrad_epilogue(*ops),
-                      lambda ops=ops: cf.dgrad_epilogue_reference(*ops)))
+        # gluon views, then contiguous (K, N) weights (K-major B)
+        for ops in (ops, (wa.contiguous(), wb.contiguous()) + ops[2:]):
+            tag = "" if ops[0].stride(0) == 1 else " w (K, N)"
+            cases.append(("dgrad_epilogue", f"{M}x{K}x{NA}+{NB}{tag}",
+                          lambda ops=ops: cf.dgrad_epilogue(*ops),
+                          lambda ops=ops: cf.dgrad_epilogue_reference(*ops),
+                          cf.dgrad_epilogue_route(
+                              x, ops[0], ops[1], ops[3:5] + ops[6:8],
+                              (ops[5], ops[8])),
+                          lambda ops=ops: cf.dgrad_epilogue(
+                              *ops, _route="simt")))
     for B, HW, C, N in ((1, 7, 16, 32), (3, 7, 32, 48), (1, 14, 32, 64),
                         (2, 14, 64, 32), (1, 28, 16, 16), (2, 28, 64, 64)):
         bhw = (B, HW, HW)
@@ -1311,20 +1352,23 @@ def _conv_cases(cf, g, dt):
                           lambda x2=x2, w9=w9, a=a, b=b, bhw=bhw, st=stats:
                           cf.conv3_fused(x2, w9, a, b, bhw, st),
                           lambda x2=x2, w9=w9, a=a, b=b, bhw=bhw, st=stats:
-                          cf.conv3_fused_reference(x2, w9, a, b, bhw, st)))
+                          cf.conv3_fused_reference(x2, w9, a, b, bhw, st),
+                          "simt", None))
         cases.append(("conv3_fused_bwd", tag,
                       lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
                       bhw=bhw: cf.conv3_fused_bwd(w9, x2, a, b, d, y, c, bhw),
                       lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
                       bhw=bhw: cf.conv3_fused_bwd_reference(
-                          w9, x2, a, b, d, y, c, bhw)))
+                          w9, x2, a, b, d, y, c, bhw), "simt", None))
     return cases
 
 
 def _stage_runs(cf, g, stage, dt):
     """Phase 13 at one stage of the ResNet-50 lane: every form of conv the
     fused stage runs there, on operands from the generator, as a list of
-    (kernel, case, kernel call, twin call, library call, bytes, flops).
+    (kernel, case, kernel call, the call forced onto the SIMT kernel (None
+    where there is no other route), twin call, library call, bytes, full
+    bytes, flops).
     The cases: block 0's conv1 and projection (plain load, K = the stage's
     input channels, at the strided resolution) and their backward, the dual
     dgrad, beside the two single dgrads it replaces; a middle block's conv1 (entry form, K = 4 mid -> N = mid; its
@@ -1332,7 +1376,10 @@ def _stage_runs(cf, g, stage, dt):
     (expand, K = mid -> N = 4 mid; its backward masked on z with one
     partner). Bytes and flops are the reference's CostEstimate counts
     (conv_fused.py:210-212, :415-417, :676-678, :787-789); for the dual
-    dgrad, its inputs and outputs once and 4 M K (N_a + N_b) flops."""
+    dgrad, its inputs and outputs once and 4 M K (N_a + N_b) flops. Full
+    bytes count every input read once and every output written once (for
+    mm_fused also sc, x^, the vectors and the stats, which the reference's
+    count leaves out); elsewhere they equal the bytes."""
     F = torch.nn.functional
     M, mid, c4, hw, cin = RESNET_STAGES[stage]
     bhw = (128, hw, hw)
@@ -1352,21 +1399,27 @@ def _stage_runs(cf, g, stage, dt):
 
     def mm(case, x, w, **kw):
         K, N = w.shape
+        moved = (M * K + K * N + M * N) * esz
+        acts = 1 + ("sc" in kw) + bool(kw.get("emit_xhat"))
+        vecs = sum(kw.get(v) is not None for v in ("a", "b", "asc", "bsc"))
+        full = ((acts * M * K + K * N + M * N) * esz
+                + 4 * (vecs * K + ("bias" in kw) * N + 2 * N))
         runs.append(("mm_fused", case,
                      lambda: cf.mm_fused(x, w, **kw),
+                     lambda: cf.mm_fused(x, w, _route="simt", **kw),
                      lambda: cf.mm_fused_reference(x, w, **kw),
-                     lambda: torch.matmul(x, w),
-                     (M * K + K * N + M * N) * esz, 2 * M * K * N))
+                     lambda: torch.matmul(x, w), moved, full,
+                     2 * M * K * N))
 
     def mmb(case, w, x, **kw):
         K, N = w.shape
         gm = rnd(M, N)
+        moved = (2 * M * K + 2 * M * N) * esz + 4 * K * N
         runs.append(("mm_fused_bwd", case,
-                     lambda: cf.mm_fused_bwd(w, x, **kw),
+                     lambda: cf.mm_fused_bwd(w, x, **kw), None,
                      lambda: cf.mm_fused_bwd_reference(w, x, **kw),
                      lambda: (torch.matmul(gm, w.t()), torch.matmul(x.t(), gm)),
-                     (2 * M * K + 2 * M * N) * esz + 4 * K * N,
-                     4 * M * K * N))
+                     moved, moved, 4 * M * K * N))
 
     # block 0: conv1 and projection off the strided input, the dual dgrad
     xs = rnd(M, cin)
@@ -1378,13 +1431,16 @@ def _stage_runs(cf, g, stage, dt):
             rnd(3, c4, f32=True) * 0.1)
     gab = torch.cat([dual[3], dual[6]], 1)
     wab = torch.cat([wc1, wd], 1)
+    moved = ((2 * M * (mid + c4) + 2 * M * cin + cin * (mid + c4)) * esz
+             + 4 * cin * (mid + c4))
     runs.append(("dgrad_epilogue", "block 0",
                  lambda: cf.dgrad_epilogue(*dual),
+                 lambda: cf.dgrad_epilogue(*dual, _route="simt"),
                  lambda: cf.dgrad_epilogue_reference(*dual),
                  lambda: (torch.matmul(gab, wab.t()),
                           torch.matmul(xs.t(), gab)),
-                 (2 * M * (mid + c4) + 2 * M * cin + cin * (mid + c4)) * esz
-                 + 4 * cin * (mid + c4), 4 * M * cin * (mid + c4)))
+                 moved, moved + 4 * 3 * (mid + c4),
+                 4 * M * cin * (mid + c4)))
     # the two single dgrads the dual one replaces (mask none), for its time
     mmb("block 0 conv1", wc1, xs, dzn=dual[3], yout=dual[4], gcoef=dual[5])
     mmb("projection", wd, xs, dzn=dual[6], yout=dual[7], gcoef=dual[8])
@@ -1409,19 +1465,21 @@ def _stage_runs(cf, g, stage, dt):
     yc = F.conv2d(xr, wr, padding=1)
     gcl = dzn2.reshape(bhw + (mid,)).permute(0, 3, 1, 2)
     N = mid
+    moved = (M * (N + N) + 9 * N * N) * esz
     runs.append(("conv3_fused", "3x3",
-                 lambda: cf.conv3_fused(x2, w9, a2, b2, bhw),
+                 lambda: cf.conv3_fused(x2, w9, a2, b2, bhw), None,
                  lambda: cf.conv3_fused_reference(x2, w9, a2, b2, bhw),
-                 lambda: F.conv2d(xc, wc, padding=1),
-                 (M * (N + N) + 9 * N * N) * esz, 18 * M * N * N))
+                 lambda: F.conv2d(xc, wc, padding=1), moved, moved,
+                 18 * M * N * N))
+    moved = M * (2 * N + 2 * N) * esz + 4 * 9 * N * N
     runs.append(("conv3_fused_bwd", "3x3",
                  lambda: cf.conv3_fused_bwd(w9, x2, a2, b2, dzn2, yout2, gc2,
-                                            bhw),
+                                            bhw), None,
                  lambda: cf.conv3_fused_bwd_reference(w9, x2, a2, b2, dzn2,
                                                       yout2, gc2, bhw),
                  lambda: torch.autograd.grad(yc, (xr, wr), gcl,
                                              retain_graph=True),
-                 M * (2 * N + 2 * N) * esz + 4 * 9 * N * N, 36 * M * N * N))
+                 moved, moved, 36 * M * N * N))
     y2 = rnd(M, mid)
     w3 = w1(mid, c4)
     mm("expand", y2, w3, a=a2, b=b2, bias=rnd(c4, f32=True))
@@ -1431,71 +1489,157 @@ def _stage_runs(cf, g, stage, dt):
     return runs
 
 
+def device_ms(fn, calls: int = 5):
+    """Device time of one ``fn()`` from torch.profiler: every kernel the
+    call launches (the partial sums' reduction included), over ``calls``
+    calls after a warm-up; and {kernel name: ms} for each of them."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in dev)
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total / calls / 1e3, {
+        e.key.replace("void (anonymous namespace)::", "")[:40]:
+        e.self_device_time_total / calls / 1e3 for e in dev}
+
+
+def host_us(fn, calls: int = 20) -> float:
+    """Host time of one ``fn()`` (the wrapper's checks, allocations, tensor
+    maps and launches), with no synchronisation inside the window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def _route_taken(cf, name, call, expect):
+    """Run ``call`` and check that it took ``expect``'s route."""
+    k = getattr(cf, name)
+    before = k.sm90_launches
+    out = call()
+    took = "sm90" if k.sm90_launches > before else "simt"
+    if took != expect:
+        raise AssertionError(f"{name} took the {took} route, the plan says "
+                             f"{expect}")
+    return out
+
+
 def conv_kernel_checks(cf, common):
     """Phase 13: the five fused-conv kernels against their twins over the
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
-    every conv form of each stage (2, 3, 4) in both types, with times (CUDA
-    events) in bf16 at every stage and in float32 at stage 3, beside the
-    twin's, the library product's and the bound. Returns the JSON records
-    (bf16, stage 3) and a log of every timing."""
+    every conv form of each stage (2, 3, 4) in both types. bf16
+    ``mm_fused`` and ``dgrad_epilogue`` take the Hopper route
+    (conv_fused_sm90.cu) where the plan says so, and their SIMT kernels
+    (reached through the private ``_route="simt"``) are held to the twins
+    too; float32 always takes the SIMT route. Times in bf16 at every stage
+    and in float32 at stage 3: CUDA events over a loop of wrapper calls,
+    beside the twin's, the library call's and the bound; for the two
+    Hopper-route wrappers, in turns with the SIMT kernel (new, old, new,
+    old), plus torch.profiler's device time of one call and the wrapper's
+    host µs. Returns the JSON records (bf16, stage 3) and a log of every
+    timing."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {}
     n_cases = 0
+
+    def held(tag, out, ref, dt):
+        torch.cuda.synchronize()
+        err = _scaled_err(out, ref)
+        if not all(torch.isfinite(t).all() for t in out) \
+                or err > CONV_TOL[dt]:
+            raise AssertionError(f"{tag}: max |kernel - plain| {err} > "
+                                 f"{CONV_TOL[dt]}")
+        return err
+
     for dt in (torch.float32, torch.bfloat16):
-        for name, case, kern, plain in _conv_cases(cf, g, dt):
-            out, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err = _scaled_err(out, ref)
-            if not all(torch.isfinite(t).all() for t in out) \
-                    or err > CONV_TOL[dt]:
-                raise AssertionError(f"{name} {dt} {case}: max |kernel - "
-                                     f"plain| {err} > {CONV_TOL[dt]}")
-            key = f"{name} {str(dt)[6:]}"
+        for name, case, kern, plain, route, old in _conv_cases(cf, g, dt):
+            ref = plain()
+            err = held(f"{name} {dt} {case}", _route_taken(
+                cf, name, kern, route), ref, dt)
+            key = f"{name} {str(dt)[6:]} {route}"
             worst[key] = max(worst.get(key, 0.0), err)
+            if old is not None and route == "sm90":
+                err = held(f"{name} {dt} {case} simt", _route_taken(
+                    cf, name, old, "simt"), ref, dt)
+                key = f"{name} {str(dt)[6:]} simt"
+                worst[key] = max(worst.get(key, 0.0), err)
             n_cases += 1
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
-        f"partners, dsc, 3x3 at 7/14/28 with 1-3 images, dual dgrad) "
-        f"within tolerance;"
-        f" worst {json.dumps(worst)}")
+        f"partners, dsc, 3x3 at 7/14/28 with 1-3 images, dual dgrad; bf16 "
+        f"mm_fused and dgrad_epilogue on the sm90 route and again on the "
+        f"simt one) within tolerance; worst {json.dumps(worst)}")
     timings = {"sweep": worst}
     records = {}
     for stage in (2, 3, 4):
         for dt in (torch.float32, torch.bfloat16):
             runs = _stage_runs(cf, g, stage, dt)
-            for name, case, kern, plain, lib, moved, flops in runs:
-                out, ref = kern(), plain()
-                torch.cuda.synchronize()
-                err = _scaled_err(out, ref)
-                if not all(torch.isfinite(t).all() for t in out) \
-                        or err > CONV_TOL[dt]:
-                    raise AssertionError(f"{name} {case} {dt} stage {stage}:"
-                                         f" max |kernel - plain| {err}")
-                del out, ref
+            for name, case, kern, old, plain, lib, moved, full, flops \
+                    in runs:
                 tag = f"{name} {case} {str(dt)[6:]} stage {stage}"
+                route = ("sm90" if dt == torch.bfloat16 and name in CONV_SM90
+                         else "simt")
+                ref = plain()
+                err = held(tag, _route_taken(cf, name, kern, route), ref, dt)
+                if old is not None and route == "sm90":
+                    held(f"{tag} simt", _route_taken(cf, name, old, "simt"),
+                         ref, dt)
+                del ref
                 if dt == torch.float32 and stage != 3:
                     log(f"parity {tag}: err {err:.3g}")
                     continue
-                ms = time_ms(kern, iters=10, warmup=2)
-                plain_ms = time_ms(plain, iters=3, warmup=1)
-                library_ms = time_ms(lib, iters=10, warmup=2)
-                t_bytes = moved / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dt] * 1e3
                 rec = {"name": name, "route": "cuda", "source": CONV_SOURCE,
                        "replaces": CONV_REPLACES[name], "launches": 0,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations",
-                       "library_ms": library_ms}
+                       "max_abs_err": err}
+                if route == "sm90":
+                    ms1 = time_ms(kern, iters=10, warmup=2)
+                    old1 = time_ms(old, iters=3, warmup=1)
+                    ms2 = time_ms(kern, iters=10, warmup=2)
+                    old2 = time_ms(old, iters=3, warmup=1)
+                    ms, earlier = (ms1 + ms2) / 2, (old1 + old2) / 2
+                    dev_ms, by_kernel = device_ms(kern)
+                    rec.update(name=f"{name}/sm90", source=CONV_SM90_SOURCE,
+                               earlier_ms=earlier, device_ms=dev_ms,
+                               device_kernels_ms=by_kernel,
+                               host_us=host_us(kern))
+                else:
+                    ms = time_ms(kern, iters=10, warmup=2)
+                plain_ms = time_ms(plain, iters=3, warmup=1)
+                library_ms = time_ms(lib, iters=10, warmup=2)
+                t_bytes = full / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dt] * 1e3
+                rec.update(ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations",
+                           counted_bound_ms=max(
+                               moved / HBM_BYTES_PER_S * 1e3, t_ops),
+                           library_ms=library_ms)
                 timings[tag] = rec
                 if dt == torch.bfloat16 and stage == 3 \
                         and case == CONV_RECORD_CASE[name]:
-                    records[name] = rec
+                    records[rec["name"]] = rec
+                extra = (f"; earlier (simt) {rec['earlier_ms']:.4f} ms, "
+                         f"device {rec['device_ms']:.4f} ms "
+                         f"{json.dumps(rec['device_kernels_ms'])}, host "
+                         f"{rec['host_us']:.1f} us" if route == "sm90"
+                         else "")
                 log(f"time {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"library {library_ms:.4f} ms, bound "
-                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-                    f"err {err:.3g}")
+                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; counted "
+                    f"{rec['counted_bound_ms']:.4f}){extra}; err {err:.3g}")
             del runs
             torch.cuda.empty_cache()
     return records, timings
@@ -1550,31 +1694,43 @@ def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = common.launch_counts()
+    sm90 = common.sm90_launch_counts()
     losses = [float(v) for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     img_s = RESNET_BATCH * steps / wall
     log(f"resnet50 fused train: losses {[round(v, 4) for v in losses]}; "
         f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
         f"ms/step, {img_s:.1f} img/s; peak {peak_gb:.2f} GB; launches "
-        f"{launches}")
+        f"{launches}; on the sm90 route {sm90}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"resnet loss not finite and falling: {losses}")
     # stages 2-4 hold 4 + 6 + 3 blocks: a 1x1 conv1, a 3x3 and a 1x1 conv3
     # each, plus block 0's projection; block 0's conv1 and projection
-    # dgrads are one dual dgrad
+    # dgrads are one dual dgrad. Every bf16 mm_fused and dgrad_epilogue
+    # launch takes the Hopper route.
     per_step = {"mm_fused": 29, "conv3_fused": 13, "mm_fused_bwd": 23,
                 "conv3_fused_bwd": 13, "dgrad_epilogue": 3}
     for name, n in per_step.items():
         if launches[name] != n * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} resnet steps, not {n * steps}")
-        records[name]["launches"] = launches[name]
+        if name in CONV_SM90:
+            if sm90[name] != n * steps:
+                raise AssertionError(
+                    f"{name} took the sm90 route {sm90[name]} times in "
+                    f"{steps} resnet steps, not {n * steps}")
+            records[f"{name}/sm90"]["launches"] = sm90[name]
+        else:
+            records[name]["launches"] = launches[name]
     breakdown = kernel_breakdown(
         "resnet fused", lambda: step(params, aux, opt, x, y),
-        ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel"))
+        ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel",
+         "cf90_fwd_kernel", "cf90_dual_dgrad_kernel",
+         "cf90_dual_wgrad_kernel"))
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+            "sm90_launches_per_step": {n: per_step[n] for n in CONV_SM90},
             **breakdown}
 
 
@@ -3195,7 +3351,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
-        + ROW_KERNELS + CONV_KERNELS + LSTM_KERNELS + DET_KERNELS
+        + ROW_KERNELS + CONV_RECORDS + LSTM_KERNELS + DET_KERNELS
         + RTC_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

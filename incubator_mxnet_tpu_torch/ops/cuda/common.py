@@ -19,15 +19,15 @@ import torch
 
 __all__ = ["NEG_INF", "pick_block", "pick_row_block", "kernel_library", "check_launch",
            "current_stream_handle", "counted_kernel", "launch_counts",
-           "reset_launch_counts", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
+           "sm90_launch_counts", "reset_launch_counts", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
            CSRC / "layer_norm.cu", CSRC / "softmax.cu", CSRC / "conv_fused.cu",
-           CSRC / "lstm.cu", CSRC / "detection.cu",
-           CSRC / "bindings.cpp")
+           CSRC / "conv_fused_sm90.cu", CSRC / "lstm.cu",
+           CSRC / "detection.cu", CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -55,6 +55,11 @@ _SIGNATURES = {
     "mxt_conv_fused_dual_dgrad": [_I] + ([_P] * 4 + [_L] * 2) * 2
                                  + [_P] + [_I] * 4 + [_P],
     "mxt_conv_fused_dual_wgrad": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+    "mxt_conv_fused_sm90_fwd": [_P] * 7 + [_L] * 2 + [_P] * 4 + [_I] * 4
+                               + [_P],
+    "mxt_conv_fused_sm90_dual_dgrad": ([_P] * 4 + [_L] * 2 + [_P]) * 2
+                                      + [_P] + [_I] * 5 + [_P],
+    "mxt_conv_fused_sm90_dual_wgrad": [_P] * 4 + [_I] * 7 + [_P],
     "mxt_lstm_fwd": [_I, _I] + [_P] * 8 + [_I, _I, _P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
     "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,
@@ -69,8 +74,10 @@ _KERNELS = []      # every kernel wrapper, in registration order
 def counted_kernel(fn):
     """Register a kernel wrapper for :func:`launch_counts`. The wrapper
     bumps ``fn.launches`` itself, right after a launch succeeds, and
-    nowhere else."""
+    nowhere else; a wrapper with a Hopper route (``csrc/*_sm90.cu``) also
+    bumps ``fn.sm90_launches`` when the call took that route."""
     fn.launches = 0
+    fn.sm90_launches = 0
     _KERNELS.append(fn)
     return fn
 
@@ -80,9 +87,15 @@ def launch_counts():
     return {f.__name__: f.launches for f in _KERNELS}
 
 
+def sm90_launch_counts():
+    """{kernel wrapper name: launches on its Hopper route so far}."""
+    return {f.__name__: f.sm90_launches for f in _KERNELS}
+
+
 def reset_launch_counts() -> None:
     for f in _KERNELS:
         f.launches = 0
+        f.sm90_launches = 0
 
 
 def pick_block(dim: int, preferred: int) -> int:

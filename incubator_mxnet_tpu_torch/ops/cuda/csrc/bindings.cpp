@@ -63,6 +63,23 @@ int conv_fused_dual_wgrad_launch(int dtype, const void* x,
                                  const void* yout_b, const float* gc_b,
                                  float* ws, int splits, int chunk, int M,
                                  int C, int Na, int Nb, void* stream);
+int conv_fused_sm90_fwd_launch(const void* x, const float* a, const float* b,
+                               const void* sc, const float* asc,
+                               const float* bsc, const void* w,
+                               long long s_k, long long s_n,
+                               const float* bias, void* y, float* stats,
+                               void* xhat, int M, int K, int N, int bn,
+                               void* stream);
+int conv_fused_sm90_dual_dgrad_launch(
+    const void* dzn_a, const void* yout_a, const float* gc_a,
+    const void* w_a, long long s_c_a, long long s_n_a, void* g_a,
+    const void* dzn_b, const void* yout_b, const float* gc_b,
+    const void* w_b, long long s_c_b, long long s_n_b, void* g_b, void* dx,
+    int M, int C, int Na, int Nb, int bn, void* stream);
+int conv_fused_sm90_dual_wgrad_launch(const void* x, const void* g_a,
+                                      const void* g_b, float* ws, int splits,
+                                      int chunk, int M, int C, int Na,
+                                      int Nb, int bn, void* stream);
 int lstm_fwd_launch(int in_dtype, int state_dtype, const void* xp,
                     const void* h, const void* c, const void* w,
                     const void* b, void* h1, void* c1, float* gates, int N,
@@ -244,6 +261,46 @@ int mxt_conv_fused_dual_wgrad(int dtype, const void* x, const void* dzn_a,
       dtype, x, dzn_a, yout_a, static_cast<const float*>(gc_a), dzn_b,
       yout_b, static_cast<const float*>(gc_b), static_cast<float*>(ws),
       splits, chunk, M, C, Na, Nb, stream);
+}
+
+// The bf16 route of mm_fused and dgrad_epilogue (conv_fused_sm90.cu):
+// TMA-fed wgmma; bn (64, 128 or 256) is the tile width the wrapper plans.
+int mxt_conv_fused_sm90_fwd(const void* x, const void* a, const void* b,
+                            const void* sc, const void* asc, const void* bsc,
+                            const void* w, long long s_k, long long s_n,
+                            const void* bias, void* y, void* stats,
+                            void* xhat, int M, int K, int N, int bn,
+                            void* stream) {
+  return conv_fused_sm90_fwd_launch(
+      x, static_cast<const float*>(a), static_cast<const float*>(b), sc,
+      static_cast<const float*>(asc), static_cast<const float*>(bsc), w, s_k,
+      s_n, static_cast<const float*>(bias), y, static_cast<float*>(stats),
+      xhat, M, K, N, bn, stream);
+}
+
+int mxt_conv_fused_sm90_dual_dgrad(const void* dzn_a, const void* yout_a,
+                                   const void* gc_a, const void* w_a,
+                                   long long s_c_a, long long s_n_a,
+                                   void* g_a, const void* dzn_b,
+                                   const void* yout_b, const void* gc_b,
+                                   const void* w_b, long long s_c_b,
+                                   long long s_n_b, void* g_b, void* dx,
+                                   int M, int C, int Na, int Nb, int bn,
+                                   void* stream) {
+  return conv_fused_sm90_dual_dgrad_launch(
+      dzn_a, yout_a, static_cast<const float*>(gc_a), w_a, s_c_a, s_n_a, g_a,
+      dzn_b, yout_b, static_cast<const float*>(gc_b), w_b, s_c_b, s_n_b, g_b,
+      dx, M, C, Na, Nb, bn, stream);
+}
+
+// dW partials from the G the dgrad wrote: ws (splits, Na + Nb, C) float32.
+int mxt_conv_fused_sm90_dual_wgrad(const void* x, const void* g_a,
+                                   const void* g_b, void* ws, int splits,
+                                   int chunk, int M, int C, int Na, int Nb,
+                                   int bn, void* stream) {
+  return conv_fused_sm90_dual_wgrad_launch(x, g_a, g_b,
+                                           static_cast<float*>(ws), splits,
+                                           chunk, M, C, Na, Nb, bn, stream);
 }
 
 // One LSTM step (lstm.cu): xp (N, 4H), w (4H, H) and b (4H,) of type

@@ -52,8 +52,10 @@
 // (WMMA 16x16x16 with float32 accumulators, 2 x 2 fragments a warp) and
 // float32 as FMAs on the CUDA cores (each thread an 8 x 4 block; no TF32,
 // so float32 matches the plain twin). The next step's global loads are
-// issued before the current step's products. wgmma, TMA and a deeper
-// pipeline are later work.
+// issued before the current step's products. In bf16, mm_fused and
+// dgrad_epilogue take the wgmma kernels of conv_fused_sm90.cu wherever the
+// wrapper's route allows; these kernels serve float32, every other shape,
+// and the other three kernels.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>

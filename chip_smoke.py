@@ -86,22 +86,28 @@ Phases:
 12. at the same width, the nd loop's loss and gradients against the
    functional ``transformer_loss_and_grads`` with plain attention (loss
    rtol 1e-4, every gradient leaf within 1e-3 of its largest entry);
-13. the fused-conv kernels (``mm_fused``, ``mm_fused_bwd``,
+13. the Hopper kernels of conv_fused_sm90.cu as built: registers, stack,
+   shared and local bytes and HGMMA count of each (``cuobjdump``), none
+   without HGMMA; the fused-conv kernels (``mm_fused``, ``mm_fused_bwd``,
    ``conv3_fused``, ``conv3_fused_bwd``, ``dgrad_epilogue``) against their
    twins in float32 (1e-4) and bf16 (2e-2), errors over max(1, the twin's
    largest entry): a sweep of every load form, stats on and off, the x^
    output, bias, G direct and from batch norm, each mask, 0-2 partners,
-   dsc, 3x3 at 7/14/28 with 1-3 images, the dual dgrad; then at the
-   ResNet-50 lane's shapes, every conv form of each stage (2-4): block 0's
-   conv1 and projection and their dual dgrad, a middle block's entry-form
-   conv1, 3x3 and expand conv3, forward and backward, with times beside
-   the twin's, the library product's (``torch.matmul``, channels-last
-   ``F.conv2d``) and the bound from the reference's cost counts;
+   dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images and C up to 72,
+   the dual dgrad; then at the ResNet-50 lane's shapes, every conv form of
+   each stage (2-4): block 0's conv1 and projection and their dual dgrad,
+   a middle block's entry-form conv1, 3x3 and expand conv3, forward and
+   backward, with times beside the twin's, the library product's
+   (``torch.matmul``, channels-last ``F.conv2d``) and the bound; bf16
+   ``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue``
+   on their Hopper route, each also forced onto its SIMT kernel and timed
+   beside it in the same call;
 14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
    and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
    falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
-   ``mm_fused_bwd``, 13 ``conv3_fused_bwd`` and 3 ``dgrad_epilogue``
-   launches; img/s, peak memory, and a profiled window of two steps;
+   ``mm_fused_bwd`` and 3 ``dgrad_epilogue`` launches, all on the Hopper
+   route, and 13 ``conv3_fused_bwd`` launches on the SIMT one; img/s, peak
+   memory, and a profiled window of two steps;
 15. the same step on the per-block path (``MXTPU_FUSED_RESNET=0``: PyTorch
    convolutions and batch norm), run as phase 14 runs it: its img/s, no
    fused-conv launch, and a profiled window of two steps;
@@ -177,6 +183,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -1225,8 +1232,8 @@ CONV_KERNELS = ("mm_fused", "mm_fused_bwd", "conv3_fused",
                 "conv3_fused_bwd", "dgrad_epilogue")
 CONV_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/conv_fused.cu"
 # the wrappers whose bf16 route is the Hopper kernels of conv_fused_sm90.cu
-# (the lane's launches of the other three stay on conv_fused.cu)
-CONV_SM90 = ("mm_fused", "dgrad_epilogue")
+# (the lane's conv3_fused_bwd launches stay on conv_fused.cu)
+CONV_SM90 = ("mm_fused", "mm_fused_bwd", "conv3_fused", "dgrad_epilogue")
 CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                     "conv_fused_sm90.cu")
 # the JSON line's names of the phase-13/14 kernels, in its order
@@ -1315,12 +1322,23 @@ def _conv_cases(cf, g, dt):
                    dzn=dzn, yout=yout, gcoef=gc, dsc=dsc, out_mask="x",
                    partners=(x, p1)),
                "bn no mask": dict(dzn=dzn, yout=yout, gcoef=gc),
-               "direct bnrelu x no mask": dict(g=gg, a=a, b=b)}
+               "direct bnrelu x no mask": dict(g=gg, a=a, b=b),
+               # the lane's expand form: G on load, x^ = relu(a x + b),
+               # masked on z, x its own partner
+               "expand bn bnrelu mask z partner x": dict(
+                   dzn=dzn, yout=yout, gcoef=gc, a=a, b=b, out_mask="z",
+                   partners=(x,))}
         for name, kw in bwd.items():
+            route = cf.mm_fused_bwd_route(
+                x, w, (kw.get("g"), kw.get("dzn"), kw.get("yout"),
+                       kw.get("dsc")) + kw.get("partners", ()),
+                (kw.get("a"), kw.get("b"), kw.get("gcoef")))
             cases.append(("mm_fused_bwd", f"{M}x{K}x{N} {name}",
                           lambda kw=kw, x=x, w=w: cf.mm_fused_bwd(w, x, **kw),
                           lambda kw=kw, x=x, w=w: cf.mm_fused_bwd_reference(
-                              w, x, **kw), "simt", None))
+                              w, x, **kw), route,
+                          lambda kw=kw, x=x, w=w: cf.mm_fused_bwd(
+                              w, x, _route="simt", **kw)))
     for M, K, NA, NB in CONV_DUAL_SWEEP:
         x = rnd(M, K)
         wa = rnd(NA, 1, 1, K).reshape(NA, K).t()
@@ -1338,8 +1356,12 @@ def _conv_cases(cf, g, dt):
                               (ops[5], ops[8])),
                           lambda ops=ops: cf.dgrad_epilogue(
                               *ops, _route="simt")))
+    # 3x3 maps of 7, 9, 14 and 28 with 1-3 images: 128-row tiles straddle
+    # image rows and images; C 72 leaves an 8-channel tail slice, N 136 a
+    # partial column tile
     for B, HW, C, N in ((1, 7, 16, 32), (3, 7, 32, 48), (1, 14, 32, 64),
-                        (2, 14, 64, 32), (1, 28, 16, 16), (2, 28, 64, 64)):
+                        (2, 14, 64, 32), (1, 28, 16, 16), (2, 28, 64, 64),
+                        (2, 9, 72, 64), (3, 14, 72, 136)):
         bhw = (B, HW, HW)
         M = B * HW * HW
         x2 = rnd(M, C)
@@ -1353,7 +1375,10 @@ def _conv_cases(cf, g, dt):
                           cf.conv3_fused(x2, w9, a, b, bhw, st),
                           lambda x2=x2, w9=w9, a=a, b=b, bhw=bhw, st=stats:
                           cf.conv3_fused_reference(x2, w9, a, b, bhw, st),
-                          "simt", None))
+                          cf.conv3_fused_route(x2, w9, (a, b)),
+                          lambda x2=x2, w9=w9, a=a, b=b, bhw=bhw, st=stats:
+                          cf.conv3_fused(x2, w9, a, b, bhw, st,
+                                         _route="simt")))
         cases.append(("conv3_fused_bwd", tag,
                       lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
                       bhw=bhw: cf.conv3_fused_bwd(w9, x2, a, b, d, y, c, bhw),
@@ -1378,7 +1403,9 @@ def _stage_runs(cf, g, stage, dt):
     (conv_fused.py:210-212, :415-417, :676-678, :787-789); for the dual
     dgrad, its inputs and outputs once and 4 M K (N_a + N_b) flops. Full
     bytes count every input read once and every output written once (for
-    mm_fused also sc, x^, the vectors and the stats, which the reference's
+    mm_fused also sc, x^, the vectors and the stats; for mm_fused_bwd also
+    dsc, the partners other than x, the vectors and the partials; for
+    conv3_fused the vectors and the stats, all of which the reference's
     count leaves out); elsewhere they equal the bytes."""
     F = torch.nn.functional
     M, mid, c4, hw, cin = RESNET_STAGES[stage]
@@ -1415,11 +1442,21 @@ def _stage_runs(cf, g, stage, dt):
         K, N = w.shape
         gm = rnd(M, N)
         moved = (2 * M * K + 2 * M * N) * esz + 4 * K * N
+        # every distinct input once (G's operands, x, dsc, the partners
+        # that are not x, w, the vectors) and every output once (dz, dW,
+        # the partials)
+        parts = kw.get("partners", ())
+        acts_k = 1 + ("dsc" in kw) + sum(p is not x for p in parts)
+        acts_n = 1 if "g" in kw else 2
+        full = ((acts_k * M * K + acts_n * M * N + M * K + K * N) * esz
+                + 4 * (K * N + (1 + len(parts)) * K + 2 * K * ("a" in kw)
+                       + 3 * N * ("gcoef" in kw)))
         runs.append(("mm_fused_bwd", case,
-                     lambda: cf.mm_fused_bwd(w, x, **kw), None,
+                     lambda: cf.mm_fused_bwd(w, x, **kw),
+                     lambda: cf.mm_fused_bwd(w, x, _route="simt", **kw),
                      lambda: cf.mm_fused_bwd_reference(w, x, **kw),
                      lambda: (torch.matmul(gm, w.t()), torch.matmul(x.t(), gm)),
-                     moved, moved, 4 * M * K * N))
+                     moved, full, 4 * M * K * N))
 
     # block 0: conv1 and projection off the strided input, the dual dgrad
     xs = rnd(M, cin)
@@ -1467,10 +1504,11 @@ def _stage_runs(cf, g, stage, dt):
     N = mid
     moved = (M * (N + N) + 9 * N * N) * esz
     runs.append(("conv3_fused", "3x3",
-                 lambda: cf.conv3_fused(x2, w9, a2, b2, bhw), None,
+                 lambda: cf.conv3_fused(x2, w9, a2, b2, bhw),
+                 lambda: cf.conv3_fused(x2, w9, a2, b2, bhw, _route="simt"),
                  lambda: cf.conv3_fused_reference(x2, w9, a2, b2, bhw),
-                 lambda: F.conv2d(xc, wc, padding=1), moved, moved,
-                 18 * M * N * N))
+                 lambda: F.conv2d(xc, wc, padding=1), moved,
+                 moved + 4 * (2 * N + 2 * N), 18 * M * N * N))
     moved = M * (2 * N + 2 * N) * esz + 4 * 9 * N * N
     runs.append(("conv3_fused_bwd", "3x3",
                  lambda: cf.conv3_fused_bwd(w9, x2, a2, b2, dzn2, yout2, gc2,
@@ -1489,22 +1527,31 @@ def _stage_runs(cf, g, stage, dt):
     return runs
 
 
-def device_ms(fn, calls: int = 5):
+def device_ms(fn, calls: int = 5, tries: int = 3):
     """Device time of one ``fn()`` from torch.profiler: every kernel the
     call launches (the partial sums' reduction included), over ``calls``
-    calls after a warm-up; and {kernel name: ms} for each of them."""
+    calls after a warm-up; and {kernel name: ms} for each of them. A
+    profiled window in which the tracer delivered no device event (seen
+    once in a run on an H100) is profiled again, up to ``tries`` windows
+    in all."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    total = sum(e.self_device_time_total for e in dev)
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+        total = sum(e.self_device_time_total for e in dev)
+        if total > 0:
+            break
+        log(f"device_ms: the profiler recorded no device time (window "
+            f"{attempt + 1} of {tries})")
     if total <= 0:
         raise AssertionError("the profiler recorded no device time")
     return total / calls / 1e3, {
@@ -1536,20 +1583,76 @@ def _route_taken(cf, name, call, expect):
     return out
 
 
+def _sm90_kernel_name(mangled):
+    """``cf90_fwd_kernel<64,1,1>`` from a mangled name, or None for a
+    kernel that is not one of conv_fused_sm90.cu's."""
+    m = re.search(r"(cf90_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if m is None:
+        return None
+    args = ",".join(re.findall(r"\d+", m.group(2)))
+    return f"{m.group(1)}<{args}>"
+
+
+def sm90_sass_check(common):
+    """The Hopper kernels as built: for each kernel instantiation of
+    conv_fused_sm90.cu, its registers at launch, stack, static shared and
+    local (spill) bytes (``cuobjdump -res-usage``) and its HGMMA
+    instructions (``cuobjdump -sass``) in the library build's object.
+    Fails if a kernel has no HGMMA. Returns {kernel: counts}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = f"{CUDA_HOME or '/usr/local/cuda'}/bin/cuobjdump"
+    objs = sorted(common.BUILD_DIR.glob("conv_fused_sm90*.o"))
+    if not objs:
+        raise AssertionError(f"no conv_fused_sm90 object in "
+                             f"{common.BUILD_DIR}")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, str(objs[0])], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+
+    kernels, name = {}, None
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = _sm90_kernel_name(m.group(1))
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                      line)
+        if m and name:
+            kernels[name] = dict(zip(("reg", "stack", "shared", "local"),
+                                     map(int, m.groups())), hgmma=0)
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _sm90_kernel_name(m.group(1))
+        elif name in kernels and "HGMMA" in line:
+            kernels[name]["hgmma"] += 1
+    if not kernels or any(k["hgmma"] == 0 for k in kernels.values()):
+        raise AssertionError(f"Hopper kernels without HGMMA: {kernels}")
+    log(f"conv_fused_sm90.cu as built: {len(kernels)} kernels, registers "
+        f"{sorted({k['reg'] for k in kernels.values()})}, local bytes "
+        f"{sorted({k['local'] for k in kernels.values()})}, stack "
+        f"{sorted({k['stack'] for k in kernels.values()})}; "
+        f"{json.dumps(kernels)}")
+    return kernels
+
+
 def conv_kernel_checks(cf, common):
     """Phase 13: the five fused-conv kernels against their twins over the
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
     every conv form of each stage (2, 3, 4) in both types. bf16
-    ``mm_fused`` and ``dgrad_epilogue`` take the Hopper route
-    (conv_fused_sm90.cu) where the plan says so, and their SIMT kernels
-    (reached through the private ``_route="simt"``) are held to the twins
-    too; float32 always takes the SIMT route. Times in bf16 at every stage
-    and in float32 at stage 3: CUDA events over a loop of wrapper calls,
-    beside the twin's, the library call's and the bound; for the two
-    Hopper-route wrappers, in turns with the SIMT kernel (new, old, new,
+    ``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue``
+    take the Hopper route (conv_fused_sm90.cu) where the plan says so, and
+    their SIMT kernels (reached through the private ``_route="simt"``) are
+    held to the twins too; float32 always takes the SIMT route. Times in
+    bf16 at every stage and in float32 at stage 3: CUDA events over a loop
+    of wrapper calls, beside the twin's, the library call's and the bound;
+    for the four Hopper-route wrappers, in turns with the SIMT kernel (new, old, new,
     old), plus torch.profiler's device time of one call and the wrapper's
     host µs. Returns the JSON records (bf16, stage 3) and a log of every
     timing."""
+    sass = sm90_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {}
     n_cases = 0
@@ -1578,10 +1681,11 @@ def conv_kernel_checks(cf, common):
             n_cases += 1
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
-        f"partners, dsc, 3x3 at 7/14/28 with 1-3 images, dual dgrad; bf16 "
-        f"mm_fused and dgrad_epilogue on the sm90 route and again on the "
-        f"simt one) within tolerance; worst {json.dumps(worst)}")
-    timings = {"sweep": worst}
+        f"partners, dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images "
+        f"and C 16-72, dual dgrad; bf16 mm_fused, mm_fused_bwd, conv3_fused "
+        f"and dgrad_epilogue on the sm90 route and again on the simt one) "
+        f"within tolerance; worst {json.dumps(worst)}")
+    timings = {"sass": sass, "sweep": worst}
     records = {}
     for stage in (2, 3, 4):
         for dt in (torch.float32, torch.bfloat16):
@@ -1706,19 +1810,21 @@ def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
         raise AssertionError(f"resnet loss not finite and falling: {losses}")
     # stages 2-4 hold 4 + 6 + 3 blocks: a 1x1 conv1, a 3x3 and a 1x1 conv3
     # each, plus block 0's projection; block 0's conv1 and projection
-    # dgrads are one dual dgrad. Every bf16 mm_fused and dgrad_epilogue
-    # launch takes the Hopper route.
+    # dgrads are one dual dgrad. Every bf16 mm_fused, mm_fused_bwd,
+    # conv3_fused and dgrad_epilogue launch takes the Hopper route;
+    # conv3_fused_bwd stays on the SIMT kernels.
     per_step = {"mm_fused": 29, "conv3_fused": 13, "mm_fused_bwd": 23,
                 "conv3_fused_bwd": 13, "dgrad_epilogue": 3}
     for name, n in per_step.items():
         if launches[name] != n * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} resnet steps, not {n * steps}")
+        want = n * steps if name in CONV_SM90 else 0
+        if sm90[name] != want:
+            raise AssertionError(
+                f"{name} took the sm90 route {sm90[name]} times in "
+                f"{steps} resnet steps, not {want}")
         if name in CONV_SM90:
-            if sm90[name] != n * steps:
-                raise AssertionError(
-                    f"{name} took the sm90 route {sm90[name]} times in "
-                    f"{steps} resnet steps, not {n * steps}")
             records[f"{name}/sm90"]["launches"] = sm90[name]
         else:
             records[name]["launches"] = launches[name]
@@ -1726,7 +1832,8 @@ def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
         "resnet fused", lambda: step(params, aux, opt, x, y),
         ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel",
          "cf90_fwd_kernel", "cf90_dual_dgrad_kernel",
-         "cf90_dual_wgrad_kernel"))
+         "cf90_dual_wgrad_kernel", "cf90_bwd_dgrad_kernel",
+         "cf90_conv3_kernel"))
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,

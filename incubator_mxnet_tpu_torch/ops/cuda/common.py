@@ -60,6 +60,10 @@ _SIGNATURES = {
     "mxt_conv_fused_sm90_dual_dgrad": ([_P] * 4 + [_L] * 2 + [_P]) * 2
                                       + [_P] + [_I] * 5 + [_P],
     "mxt_conv_fused_sm90_dual_wgrad": [_P] * 4 + [_I] * 7 + [_P],
+    "mxt_conv_fused_sm90_bwd_dgrad": [_P] * 5 + [_L] * 2 + [_P] * 7
+                                     + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    "mxt_conv_fused_sm90_conv3": [_P] * 4 + [_L] * 3 + [_P] * 2 + [_I] * 6
+                                 + [_P],
     "mxt_lstm_fwd": [_I, _I] + [_P] * 8 + [_I, _I, _P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
     "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,

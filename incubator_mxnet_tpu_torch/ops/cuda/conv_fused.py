@@ -25,12 +25,17 @@ to the input type, float32 accumulation, outputs rounded to the input type,
 sums over the rounded values.
 
 Two routes, chosen by type and shape before the launch (never on failure):
-``mm_fused`` and ``dgrad_epilogue`` in bf16, with K and N multiples of 8,
-16-byte-aligned operands and a weight with either stride 1, take the
-Hopper kernels of ``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted
-in ``sm90_launches`` beside ``launches``); everything else, float32 always,
-takes the SIMT kernels of ``csrc/conv_fused.cu`` (no TF32, so float32
-matches the plain twin). :func:`mm_fused_route`, :func:`dgrad_epilogue_route`,
+``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue`` in
+bf16, with channel counts that are multiples of 8, 16-byte-aligned
+operands and a weight with a stride 1 (for ``mm_fused_bwd`` and
+``conv3_fused``, the one of the gluon weight's view), take the Hopper
+kernels of
+``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted in
+``sm90_launches`` beside ``launches``); everything else, float32 always
+and ``conv3_fused_bwd`` in either type, takes the SIMT kernels of
+``csrc/conv_fused.cu`` (no TF32, so float32 matches the plain twin).
+:func:`mm_fused_route`, :func:`mm_fused_bwd_route`,
+:func:`conv3_fused_route`, :func:`dgrad_epilogue_route`, :func:`sm90_bn`,
 :func:`sm90_plan` and :func:`sm90_wgrad_split` hold the choice and the
 tile plan in Python. The kernel wrappers take CUDA tensors only
 and raise on anything else; the ``*_reference`` twins are plain PyTorch,
@@ -53,8 +58,8 @@ __all__ = ["mm_fused", "mm_fused_bwd", "conv3_fused", "conv3_fused_bwd",
            "dgrad_epilogue", "mm_fused_reference", "mm_fused_bwd_reference",
            "conv3_fused_reference", "conv3_fused_bwd_reference",
            "dgrad_epilogue_reference", "mm_fused_route",
-           "dgrad_epilogue_route", "sm90_bn", "sm90_plan",
-           "sm90_wgrad_split"]
+           "mm_fused_bwd_route", "conv3_fused_route", "dgrad_epilogue_route",
+           "sm90_bn", "sm90_plan", "sm90_wgrad_split"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_CODE = {"none": 0, "x": 1, "z": 2}
@@ -63,6 +68,8 @@ _BM, _BN, _BK = 128, 64, 32          # the kernels' tile (conv_fused.cu)
 # stages in a 200 KB budget, at most 227 KB of shared memory a block
 SM90_BM, SM90_BK = 128, 64
 SM90_SMEM_LIMIT = 232448
+# mm_fused_bwd's dgrad stage (kBwdStage): four 128 x 64 tiles and 1 KB
+SM90_BWD_STAGE = 4 * SM90_BM * SM90_BK * 2 + 1024
 _SM90_STAGE_BUDGET = 200 * 1024
 # the dW split's cost model: a 128-row block's time per reduction row at a
 # tile width of 256 (2 * 128 * 256 flops at one SM's share of 989 TFLOP/s)
@@ -270,13 +277,17 @@ def sm90_bn(width: int) -> int:
     return 64 if width <= 64 else 128 if width <= 128 else 256
 
 
-def sm90_plan(bn: int, n_raw: int) -> dict:
+def sm90_plan(bn: int, n_raw: int, min_stage: int = 0) -> dict:
     """The shared-memory plan of a Hopper-route block (``Plan`` in
     conv_fused_sm90.cu): a stage holds ``n_raw`` 128 x 64 A tiles (1 for
-    the plain forward and the wgrad's G, 2 raw ones for the transformed
-    forward and the dgrad), the bn x 64 B tile and 1 KB of per-channel
-    coefficients; 3-4 stages; the epilogue reuses them."""
-    stage = n_raw * SM90_BM * SM90_BK * 2 + bn * SM90_BK * 2 + 1024
+    the plain forward, the wgrad's G and the 3x3 forward's tap box, 2 raw
+    ones for the transformed forward and the dgrads), the bn x 64 B tile
+    and 1 KB of per-channel coefficients, and at least ``min_stage`` bytes
+    (:data:`SM90_BWD_STAGE` for ``mm_fused_bwd``'s dgrad, whose epilogue
+    takes four 128 x 64 operand tiles a stage); 3-4 stages; the epilogue
+    reuses them."""
+    stage = max(min_stage,
+                n_raw * SM90_BM * SM90_BK * 2 + bn * SM90_BK * 2 + 1024)
     stages = min(4, _SM90_STAGE_BUDGET // stage)
     return {"bn": bn, "stages": stages, "stage_bytes": stage,
             "smem_bytes": stages * stage + 1024}
@@ -307,6 +318,40 @@ def mm_fused_route(x, w, sc=None, vecs=()) -> str:
           and k % 8 == 0 and n % 8 == 0 and k >= 8 and n >= 8
           and all(_tma_ok(t) for t in (x, w, sc))
           and all(_bulk_ok(v) for v in vecs))
+    return "sm90" if ok else "simt"
+
+
+def mm_fused_bwd_route(x, w, acts=(), vecs=()) -> str:
+    """"sm90" when :func:`mm_fused_bwd` takes the Hopper kernels (bf16, K
+    and N multiples of 8, at least one row, w (K, N) with K contiguous as
+    the gluon weight's view gives it, x, w and the activations ``acts`` (g
+    or dzn and yout, dsc, the partners) readable by the TMA and by 16-byte
+    row loads, the float32 vectors ``vecs`` (a, b, gcoef) 16-byte aligned),
+    else "simt". Every form takes it: G direct or formed on load, each
+    mask, 0-2 partners, dsc."""
+    k, n = w.shape
+    ok = (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+          and x.shape[0] >= 1 and all(d % 8 == 0 and d >= 8 for d in (k, n))
+          and w.stride(0) == 1
+          and all(_tma_ok(t) for t in (x, w) + tuple(acts))
+          and all(_bulk_ok(v) for v in vecs))
+    return "sm90" if ok else "simt"
+
+
+def conv3_fused_route(x2, w9, vecs=()) -> str:
+    """"sm90" when :func:`conv3_fused` takes the Hopper kernel (bf16, C and
+    N multiples of 8, at least one row, x2 readable by the TMA, w9 one
+    (9 C, N) matrix with the reduction index tap C + c contiguous, as the
+    gluon weight's view gives it (strides (C, 1, a multiple of 8)), a
+    16-byte aligned base, the float32 vectors ``vecs`` (a, b) 16-byte
+    aligned), else "simt"."""
+    c, n = w9.shape[1], w9.shape[2]
+    s_tap, s_c, s_n = w9.stride()
+    ok = (x2.dtype == torch.bfloat16 and w9.dtype == torch.bfloat16
+          and x2.shape[0] >= 1 and all(d % 8 == 0 and d >= 8 for d in (c, n))
+          and s_c == 1 and s_tap == c and s_n % 8 == 0
+          and w9.data_ptr() % 16 == 0
+          and _tma_ok(x2) and all(_bulk_ok(v) for v in vecs))
     return "sm90" if ok else "simt"
 
 
@@ -432,11 +477,15 @@ def mm_fused(x, w, a=None, b=None, sc=None, asc=None, bsc=None, bias=None,
 @counted_kernel
 def mm_fused_bwd(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
                  b=None, dsc=None, partners=(), out_mask: str = "none",
-                 out_dtype=None):
+                 out_dtype=None, _route=None):
     """CUDA kernels of the fused 1x1 conv backward (replace the Pallas
     ``mm_fused_bwd``): one launch for dz and the partials, one for dW.
     Returns (dz (M, K), dW (K, N) float32, partials (1 + P, K) float32);
-    dW is a view of a (N, K) tensor, the gluon weight order."""
+    dW is a view of a (N, K) tensor, the gluon weight order. The route is
+    :func:`mm_fused_bwd_route`'s; on the Hopper route the dgrad launch
+    also writes the bf16 G (when formed on load) and x^ = relu(a x + b)
+    (when a is passed), the wgrad's operands. ``_route="simt"`` forces the
+    SIMT kernels."""
     _check("mm_fused_bwd", x, w, g, dzn, yout, a, b, dsc, *partners)
     m, k = x.shape
     n = w.shape[1]
@@ -452,6 +501,8 @@ def mm_fused_bwd(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
         raise TypeError(f"mm_fused_bwd: out_dtype must be x's ({x.dtype})")
     if len(partners) > 2:
         raise ValueError("mm_fused_bwd: at most 2 partners")
+    if _route not in (None, "simt"):
+        raise ValueError(f"mm_fused_bwd: _route {_route!r}")
     name = "mm_fused_bwd"
     x = _rows_of(name, x, (m, k), x.dtype)
     g, dzn, yout, gc = _g_operands(name, g, dzn, yout, gcoef, m, n, x.dtype)
@@ -463,14 +514,40 @@ def mm_fused_bwd(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
     part = torch.empty((_blocks(m), 1 + n_p, k), dtype=torch.float32,
                        device=x.device)
     lib = kernel_library()
-    code = lib.mxt_conv_fused_dgrad(
-        _DTYPE_CODE[x.dtype], 1, _ptr(g), _ptr(dzn), _ptr(yout), _ptr(gc),
-        _ptr(w), 0, w.stride(0), w.stride(1), _ptr(x), _ptr(a), _ptr(b),
-        _ptr(dsc), _ptr(ps[0]) if n_p > 0 else None,
-        _ptr(ps[1]) if n_p > 1 else None, n_p, _MASK_CODE[out_mask],
-        _ptr(dz), _ptr(part), m, k, n, 1, 1, current_stream_handle(x))
-    check_launch(code, name)
-    dw = _wgrad(name, 1, x, a, b, g, dzn, yout, gc, m, k, n, 1, 1)
+    stream = current_stream_handle(x)
+    p0 = _ptr(ps[0]) if n_p > 0 else None
+    p1 = _ptr(ps[1]) if n_p > 1 else None
+    if (_route or mm_fused_bwd_route(x, w, (g, dzn, yout, dsc, *ps),
+                                     (a, b, gc))) == "sm90":
+        # the dgrad launch writes the wgrad's operands: G (unless g is
+        # passed) and x^ (when a is passed; else x^ is x)
+        gm = g if g is not None else torch.empty((m, n), dtype=x.dtype,
+                                                 device=x.device)
+        xh = torch.empty_like(x) if a is not None else x
+        code = lib.mxt_conv_fused_sm90_bwd_dgrad(
+            _ptr(g), _ptr(dzn), _ptr(yout), _ptr(gc), _ptr(w), w.stride(0),
+            w.stride(1), None if g is not None else _ptr(gm), _ptr(x),
+            _ptr(a), _ptr(b), _ptr(dsc), p0, p1, n_p, _MASK_CODE[out_mask],
+            _ptr(dz), _ptr(part), _ptr(xh) if a is not None else None, m, k,
+            n, sm90_bn(k), stream)
+        check_launch(code, name)
+        splits, chunk = sm90_wgrad_split(m, n, 0, k, _sms(x.device))
+        ws = torch.empty((splits, n, k), dtype=torch.float32,
+                         device=x.device)
+        code = lib.mxt_conv_fused_sm90_dual_wgrad(
+            _ptr(xh), _ptr(gm), None, _ptr(ws), splits, chunk, m, k, n, 0,
+            sm90_bn(k), stream)
+        check_launch(code, name)
+        mm_fused_bwd.sm90_launches += 1
+        dw = ws.sum(0)
+    else:
+        code = lib.mxt_conv_fused_dgrad(
+            _DTYPE_CODE[x.dtype], 1, _ptr(g), _ptr(dzn), _ptr(yout),
+            _ptr(gc), _ptr(w), 0, w.stride(0), w.stride(1), _ptr(x), _ptr(a),
+            _ptr(b), _ptr(dsc), p0, p1, n_p, _MASK_CODE[out_mask], _ptr(dz),
+            _ptr(part), m, k, n, 1, 1, stream)
+        check_launch(code, name)
+        dw = _wgrad(name, 1, x, a, b, g, dzn, yout, gc, m, k, n, 1, 1)
     mm_fused_bwd.launches += 1
     return dz, dw.t(), part.sum(0)
 
@@ -558,27 +635,40 @@ def _bhw_rows(name, x2, bhw):
 
 
 @counted_kernel
-def conv3_fused(x2, w9, a, b, bhw, stats: bool = True):
+def conv3_fused(x2, w9, a, b, bhw, stats: bool = True, _route=None):
     """CUDA kernel of the fused 3x3 conv forward (replaces the Pallas
     ``conv3_fused``): x2 (B*H*W, C) contiguous NHWC rows, w9 (9, C, N) of
-    the same type with any strides. Returns (y (B*H*W, N)[, stats])."""
+    the same type with any strides. Returns (y (B*H*W, N)[, stats]). The
+    route is :func:`conv3_fused_route`'s; ``_route="simt"`` forces the SIMT
+    kernel."""
     _check("conv3_fused", x2, w9, a, b)
     m, c = x2.shape
     n = w9.shape[2]
     _, H, W = _bhw_rows("conv3_fused", x2, bhw)
     if tuple(w9.shape[:2]) != (9, c):
         raise ValueError(f"conv3_fused: w9 {tuple(w9.shape)} for C {c}")
+    if _route not in (None, "simt"):
+        raise ValueError(f"conv3_fused: _route {_route!r}")
     x2 = _rows_of("conv3_fused", x2, (m, c), x2.dtype)
     a, b = _vec("conv3_fused", a, c), _vec("conv3_fused", b, c)
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     parts = (torch.empty((_blocks(m), 2, n), dtype=torch.float32,
                          device=x2.device) if stats else None)
-    code = kernel_library().mxt_conv_fused_fwd(
-        _DTYPE_CODE[x2.dtype], 3, _ptr(x2), _ptr(a), _ptr(b), None, None,
-        None, _ptr(w9), w9.stride(0), w9.stride(1), w9.stride(2), None,
-        _ptr(y), _ptr(parts), None, m, c, n, H, W,
-        current_stream_handle(x2))
-    check_launch(code, "conv3_fused")
+    lib = kernel_library()
+    stream = current_stream_handle(x2)
+    if (_route or conv3_fused_route(x2, w9, (a, b))) == "sm90":
+        code = lib.mxt_conv_fused_sm90_conv3(
+            _ptr(x2), _ptr(a), _ptr(b), _ptr(w9), w9.stride(0), w9.stride(1),
+            w9.stride(2), _ptr(y), _ptr(parts), m, c, n, H, W,
+            sm90_bn(n), stream)
+        check_launch(code, "conv3_fused")
+        conv3_fused.sm90_launches += 1
+    else:
+        code = lib.mxt_conv_fused_fwd(
+            _DTYPE_CODE[x2.dtype], 3, _ptr(x2), _ptr(a), _ptr(b), None, None,
+            None, _ptr(w9), w9.stride(0), w9.stride(1), w9.stride(2), None,
+            _ptr(y), _ptr(parts), None, m, c, n, H, W, stream)
+        check_launch(code, "conv3_fused")
     conv3_fused.launches += 1
     return (y, parts.sum(0)) if stats else (y,)
 

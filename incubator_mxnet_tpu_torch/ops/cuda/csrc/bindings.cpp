@@ -80,6 +80,18 @@ int conv_fused_sm90_dual_wgrad_launch(const void* x, const void* g_a,
                                       const void* g_b, float* ws, int splits,
                                       int chunk, int M, int C, int Na,
                                       int Nb, int bn, void* stream);
+int conv_fused_sm90_bwd_dgrad_launch(
+    const void* g, const void* dzn, const void* yout, const float* gc,
+    const void* w, long long s_k, long long s_n, void* gout, const void* x,
+    const float* a, const float* b, const void* dsc, const void* p0,
+    const void* p1, int n_partners, int mask, void* dz, float* part,
+    void* xhat, int M, int K, int N, int bn, void* stream);
+int conv_fused_sm90_conv3_launch(const void* x, const float* a,
+                                 const float* b, const void* w,
+                                 long long s_tap, long long s_c,
+                                 long long s_n, void* y, float* stats, int M,
+                                 int C, int N, int H, int W, int bn,
+                                 void* stream);
 int lstm_fwd_launch(int in_dtype, int state_dtype, const void* xp,
                     const void* h, const void* c, const void* w,
                     const void* b, void* h1, void* c1, float* gates, int N,
@@ -301,6 +313,37 @@ int mxt_conv_fused_sm90_dual_wgrad(const void* x, const void* g_a,
   return conv_fused_sm90_dual_wgrad_launch(x, g_a, g_b,
                                            static_cast<float*>(ws), splits,
                                            chunk, M, C, Na, Nb, bn, stream);
+}
+
+// The bf16 route of mm_fused_bwd's dgrad (its wgrad is the single-set
+// call above, Nb = 0): dz, the (blocks, 1 + n_partners, K) partials, the
+// bf16 G (gout) when it is formed on load, x^ when a is passed.
+int mxt_conv_fused_sm90_bwd_dgrad(const void* g, const void* dzn,
+                                  const void* yout, const void* gc,
+                                  const void* w, long long s_k,
+                                  long long s_n, void* gout, const void* x,
+                                  const void* a, const void* b,
+                                  const void* dsc, const void* p0,
+                                  const void* p1, int n_partners, int mask,
+                                  void* dz, void* part, void* xhat, int M,
+                                  int K, int N, int bn, void* stream) {
+  return conv_fused_sm90_bwd_dgrad_launch(
+      g, dzn, yout, static_cast<const float*>(gc), w, s_k, s_n, gout, x,
+      static_cast<const float*>(a), static_cast<const float*>(b), dsc, p0,
+      p1, n_partners, mask, dz, static_cast<float*>(part), xhat, M, K, N,
+      bn, stream);
+}
+
+// The bf16 route of conv3_fused: y and the (blocks, 2, N) stats partials.
+int mxt_conv_fused_sm90_conv3(const void* x, const void* a, const void* b,
+                              const void* w, long long s_tap, long long s_c,
+                              long long s_n, void* y, void* stats, int M,
+                              int C, int N, int H, int W, int bn,
+                              void* stream) {
+  return conv_fused_sm90_conv3_launch(
+      x, static_cast<const float*>(a), static_cast<const float*>(b), w,
+      s_tap, s_c, s_n, y, static_cast<float*>(stats), M, C, N, H, W, bn,
+      stream);
 }
 
 // One LSTM step (lstm.cu): xp (N, 4H), w (4H, H) and b (4H,) of type

@@ -1,5 +1,5 @@
-// The bf16 route of two fused 1x1 conv kernels on Hopper (sm_90a):
-// TMA-fed wgmma with the load transform applied on chip.
+// The bf16 route of the fused 1x1 and 3x3 conv kernels on Hopper
+// (sm_90a): TMA-fed wgmma with the load transform applied on chip.
 //
 // Replaces the Pallas TPU kernels of
 // incubator_mxnet_tpu/ops/pallas/conv_fused.py:
@@ -7,6 +7,11 @@
 //                                                       stats, x^
 //   cf90_dual_dgrad_kernel \ <-  dgrad_epilogue (:505)  dx = G_a W_a^T +
 //   cf90_dual_wgrad_kernel /                            G_b W_b^T; dW_a, dW_b
+//   cf90_bwd_dgrad_kernel  \ <-  mm_fused_bwd (:344)    dz = mask(G W^T +
+//   cf90_dual_wgrad_kernel /     (single set)           dsc), partials, x^;
+//                                                       dW = x^T G
+//   cf90_conv3_kernel        <-  conv3_fused (:634)     y = conv3x3(x^),
+//                                                       stats
 // with the reference's rounding points, as conv_fused.cu keeps them: the
 // load transform (x^ = x, relu(a x + b) or relu(a x + b + asc sc + bsc);
 // G = (dzn g0 - g1) - yout g2) in float32 with both roundings of each step,
@@ -45,6 +50,13 @@
 //     sums the stats per column in a fixed order, and writes y with
 //     16-byte stores; dW goes out as float32 partials per row split, which
 //     the wrapper sums in order. No atomics: results repeat run to run.
+//   * mm_fused_bwd's epilogue (mask on x or on a x + b, dsc, the partials
+//     sum dz and sum dz p_j, x^ for the wgrad) takes its operands by TMA
+//     through the same ring, 64 columns a stage, the first chunks under the
+//     last stages' products, and finishes dz from the accumulators in
+//     registers;
+//   * conv3_fused runs the nine taps as nine shifted boxes of one (C, M)
+//     map and masks the halo after the transform, per row and tap.
 // Persistence (one block per SM walking the tiles, so that one tile's
 // epilogue overlaps the next one's loads) is later work; a cluster of two
 // blocks sharing the B tile by TMA multicast measured slower at these
@@ -71,12 +83,14 @@ constexpr int kStageBudget = 200 * 1024;
 
 // Shared-memory plan (mirrored by conv_fused.py:sm90_plan): a stage holds
 // NRAW 128 x 64 A operands, the BN x 64 B tile and 1 KB of per-channel
-// coefficients (up to four 64-float slices); 3-4 stages fit the budget.
-template <int BN, int NRAW>
+// coefficients (up to four 64-float slices), and at least MIN_STAGE bytes;
+// 3-4 stages fit the budget.
+template <int BN, int NRAW, int MIN_STAGE = 0>
 struct Plan {
   static constexpr int kB = BN * kBK * 2;
   static constexpr int kCoef = NRAW * kA + kB;      // offset in a stage
-  static constexpr int kStage = kCoef + 1024;
+  static constexpr int kStage = kCoef + 1024 > MIN_STAGE ? kCoef + 1024
+                                                         : MIN_STAGE;
   static constexpr int kStages =
       kStageBudget / kStage < 4 ? kStageBudget / kStage : 4;
   static constexpr int kSmem = kStages * kStage + 1024;  // + alignment
@@ -593,6 +607,253 @@ cf90_dual_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn_a,
   }
 }
 
+// ---------------------------------------------------------- 1x1 backward
+struct BwdArgs {
+  const float* gc;                       // (3, N) float32; null: G is g
+  const float* a; const float* b;        // a null: x^ = x
+  int n_partners, mask;                  // mask: 0 none, 1 on x, 2 on z
+  bool need_x, p0x, dsc, xhat;           // p0x: x is partner 0
+  float* part;
+  int M, K, N;
+};
+
+// The epilogue's chunk of 64 columns fills one ring stage: 128-row slabs
+// of x (0), dsc (1), partner 0 (2; x^ when x is partner 0) and partner 1
+// (3), then a and b. dz is written over slab 1, x^ over slab 0 (or 2).
+constexpr int kBwdStage = 4 * kA + 1024;
+
+// dz (M x K) = mask(G W^T (+ dsc)) over 128 x BN tiles of dz, with the
+// partials sum dz, sum dz p_j and x^ = relu(a x + b): the single-set form
+// of the dual dgrad above, G either formed on load from (dzn, yout, gc)
+// and written once as bf16 for the wgrad (tg), or read as it is (g); the
+// reduction runs over G's N columns. The epilogue's operands (x, dsc, the
+// partners, a, b) come in by TMA in 64-column chunks through the same
+// ring, the first ones under the last stages' products (the entry form
+// reads four times the bytes of its products' operands there); each
+// chunk is finished from the accumulators in registers, stored by TMA
+// (dz, x^) and summed down its columns from shared memory in a fixed
+// order, one row of partials per 128-row block. B is the gluon weight's
+// view (K, N) with K contiguous, so MN-major: the one layout built.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
+                      const __grid_constant__ CUtensorMap tyout,
+                      const __grid_constant__ CUtensorMap tw,
+                      const __grid_constant__ CUtensorMap tg,
+                      const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tdsc,
+                      const __grid_constant__ CUtensorMap tp0,
+                      const __grid_constant__ CUtensorMap tp1,
+                      const __grid_constant__ CUtensorMap tdz,
+                      const __grid_constant__ CUtensorMap txh,
+                      const BwdArgs p) {
+  using P = Plan<BN, 2, kBwdStage>;
+  constexpr int S = P::kStages;
+  constexpr int kCf = 4 * kA;                        // a, b of a chunk
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ float red[2][8][3][64];                 // chunk parity
+  const int nk = (p.N + kBK - 1) / kBK;
+  const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * BN;
+  const int nch = min(BN, p.K - c0 + 63) / 64;       // chunks inside K
+  const bool direct = p.gc == nullptr;
+  const int xh_slab = (p.p0x ? 2 : 0) * kA, p0_slab = (p.p0x ? 0 : 2) * kA;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&tdzn);
+      tma_prefetch(&tw);
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, r0 = kb * kBK;
+        const uint32_t cb = direct ? 0 : 4 * min(kBK, p.N - r0);
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], (direct ? 1 : 2) * kA + P::kB + 3 * cb);
+        tma_load_2d(st, &tdzn, &full[s], r0, m0);
+        if (!direct) tma_load_2d(st + kA, &tyout, &full[s], r0, m0);
+        load_b<BN, true>(st + 2 * kA, &tw, &full[s], r0, c0);
+        if (!direct) {
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            bulk_load(st + P::kCoef + 256 * i, p.gc + i * p.N + r0, cb,
+                      &full[s]);
+        }
+      }
+      const bool l0 = p.n_partners > 0 && !p.p0x, l1 = p.n_partners > 1;
+      const uint32_t slabs = p.need_x + p.dsc + l0 + l1;
+      for (int e = 0; e < nch; ++e) {
+        const int kb = nk + e, s = kb % S, col = c0 + 64 * e;
+        const uint32_t cb = p.a ? 4 * min(64, p.K - col) : 0;
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], slabs * kA + 2 * cb);
+        if (p.need_x) tma_load_2d(st, &tx, &full[s], col, m0);
+        if (p.dsc) tma_load_2d(st + kA, &tdsc, &full[s], col, m0);
+        if (l0) tma_load_2d(st + 2 * kA, &tp0, &full[s], col, m0);
+        if (l1) tma_load_2d(st + 3 * kA, &tp1, &full[s], col, m0);
+        if (cb) {
+          bulk_load(st + kCf, p.a + col, cb, &full[s]);
+          bulk_load(st + kCf + 256, p.b + col, cb, &full[s]);
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int ct = threadIdx.x, w = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // stage kb's A fragments: g as it is, or G = (dzn g0 - g1) - yout g2
+    // -> bf16 with the columns n >= N zeroed and written out by column
+    // tile kb mod (column tiles), as the dual dgrad does
+    auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[4][4]) {
+      ring.wait_full(kb);
+      const int r0 = kb * kBK, nl = p.N - r0;
+      unsigned char* slab = st + wg * kSlab;
+      const uint32_t da = smem_u32(slab);
+      if (direct) {                           // TMA read n >= N as 0
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) frag_a_kmajor(fa[ks], da, w, ks, lane);
+        return;
+      }
+      const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t fy[4];
+        frag_a_kmajor(fa[ks], da, w, ks, lane);
+        frag_a_kmajor(fy, da + kA, w, ks, lane);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
+          const float2 g0 = *reinterpret_cast<const float2*>(cf + kl);
+          const float2 g1 = *reinterpret_cast<const float2*>(cf + 64 + kl);
+          const float2 g2 = *reinterpret_cast<const float2*>(cf + 128 + kl);
+          fa[ks][q] = kl < nl
+              ? pack_bf16(bn_g(lo_f(fa[ks][q]), lo_f(fy[q]), g0.x, g1.x,
+                               g2.x),
+                          bn_g(hi_f(fa[ks][q]), hi_f(fy[q]), g0.y, g1.y,
+                               g2.y))
+              : 0u;
+        }
+      }
+      if (kb % gridDim.x == blockIdx.x) {
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<uint32_t*>(
+                slab + swz(16 * w + g + 8 * (q & 1), 2 * ks + (q >> 1)) +
+                4 * t) = fa[ks][q];
+        fence_async_smem();
+        named_sync(2 + wg, 128);
+        if ((threadIdx.x & 127) == 0)
+          tma_store_2d(&tg, slab, r0, m0 + 64 * wg);
+      }
+    };
+    mainloop_rs<BN, true, P::kStage, S, 2 * kA>(acc, nk, smem, ring, lane,
+                                               build);
+    // the epilogue, chunk by chunk: dz (and x^) from the fragments over
+    // the chunk's slabs, TMA stores, then the column sums, a column pair
+    // and 16 rows a thread, and the 8 row ranges in order. The loop is not
+    // unrolled (four unrolled chunks of a 256-wide tile overflow the
+    // instruction cache): chunk e's accumulators are moved down to
+    // acc[0, 32) for it
+    const int rows = min(kBM, p.M - m0);
+    const int nq = 1 + p.n_partners;
+    const int pc = 2 * (ct & 31), pr = ct >> 5;
+#pragma unroll 1
+    for (int e = 0; e < nch; ++e) {
+      const int kb = nk + e, col = c0 + 64 * e;
+      ring.wait_full(kb);
+      unsigned char* st = smem + (kb % S) * P::kStage;
+      const float* cf = reinterpret_cast<const float*>(st + kCf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 ca = p.a ? *reinterpret_cast<const float2*>(cf + c)
+                              : make_float2(0.f, 0.f);
+        const float2 cb = p.a ? *reinterpret_cast<const float2*>(cf + 64 + c)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t off = swz(64 * wg + 16 * w + g + 8 * h, j) + 4 * t;
+          float v0 = acc[4 * j + 2 * h];
+          float v1 = acc[4 * j + 2 * h + 1];
+          if (p.dsc) {
+            const uint32_t d = *reinterpret_cast<const uint32_t*>(st + kA +
+                                                                  off);
+            v0 = __fadd_rn(v0, lo_f(d));
+            v1 = __fadd_rn(v1, hi_f(d));
+          }
+          if (p.need_x) {
+            const uint32_t xr = *reinterpret_cast<const uint32_t*>(st + off);
+            const float x0 = lo_f(xr), x1 = hi_f(xr);
+            const float z0 = affine(x0, ca.x, cb.x);
+            const float z1 = affine(x1, ca.y, cb.y);
+            if ((p.mask == 1 && !(x0 > 0.f)) || (p.mask == 2 && !(z0 > 0.f)))
+              v0 = 0.f;
+            if ((p.mask == 1 && !(x1 > 0.f)) || (p.mask == 2 && !(z1 > 0.f)))
+              v1 = 0.f;
+            if (p.xhat)
+              *reinterpret_cast<uint32_t*>(st + xh_slab + off) =
+                  pack_bf16(fmaxf(z0, 0.f), fmaxf(z1, 0.f));
+          }
+          *reinterpret_cast<uint32_t*>(st + kA + off) = pack_bf16(v0, v1);
+        }
+      }
+      fence_async_smem();
+      named_sync(1, kConsumers);
+      if (ct == 0) {
+        tma_store_2d(&tdz, st + kA, col, m0);
+        if (p.xhat) tma_store_2d(&txh, st + xh_slab, col, m0);
+      }
+      float s[3][2] = {};
+      for (int r = 16 * pr; r < min(rows, 16 * pr + 16); ++r) {
+        const uint32_t off = swz(r, pc >> 3) + (pc & 7) * 2;
+        const uint32_t dv = *reinterpret_cast<const uint32_t*>(st + kA + off);
+        const float d0 = lo_f(dv), d1 = hi_f(dv);
+        s[0][0] += d0;
+        s[0][1] += d1;
+        if (p.n_partners > 0) {
+          const uint32_t q0 =
+              *reinterpret_cast<const uint32_t*>(st + p0_slab + off);
+          s[1][0] = fmaf(d0, lo_f(q0), s[1][0]);
+          s[1][1] = fmaf(d1, hi_f(q0), s[1][1]);
+        }
+        if (p.n_partners > 1) {
+          const uint32_t q1 =
+              *reinterpret_cast<const uint32_t*>(st + 3 * kA + off);
+          s[2][0] = fmaf(d0, lo_f(q1), s[2][0]);
+          s[2][1] = fmaf(d1, hi_f(q1), s[2][1]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        red[e & 1][pr][q][pc] = s[q][0];
+        red[e & 1][pr][q][pc + 1] = s[q][1];
+      }
+      named_sync(1, kConsumers);
+      if (ct < 64 && col + ct < p.K) {
+        for (int q = 0; q < nq; ++q) {
+          float v = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v += red[e & 1][i][q][ct];
+          p.part[(static_cast<size_t>(blockIdx.y) * nq + q) * p.K + col +
+                 ct] = v;
+        }
+      }
+      ring.release(kb, lane);
+#pragma unroll
+      for (int i = 0; i < BN / 2 - 32; ++i) acc[i] = acc[i + 32];
+    }
+  }
+}
+
 // ------------------------------------------------------------ dual wgrad
 struct WgradArgs {
   float* ws;                             // (splits, Na + Nb, C) float32
@@ -604,7 +865,8 @@ struct WgradArgs {
 // (set a's row tiles, then set b's, so no tile straddles the two), the
 // columns are x's, the reduction runs over the split's rows (whole stages;
 // rows >= M and columns >= N_set read 0). A = G^T and B = x, both
-// MN-major, straight from the stage.
+// MN-major, straight from the stage. With N_b = 0 it is the single-set
+// wgrad of mm_fused_bwd, dW = x^T G, x being x^ there.
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 cf90_dual_wgrad_kernel(const __grid_constant__ CUtensorMap tx,
@@ -666,6 +928,106 @@ cf90_dual_wgrad_kernel(const __grid_constant__ CUtensorMap tx,
               make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
+  }
+}
+
+// ------------------------------------------------------------ 3x3 forward
+struct Conv3Args {
+  const float* a; const float* b;
+  bf16* y; float* stats;
+  int M, C, N, H, W;
+};
+
+// y (M x N) = conv3x3_s1_p1(relu(a x + b)) over flat NHWC rows, 128 x BN
+// tiles of y, the reduction over (tap, 64-channel slice) stages: index
+// tap C + c, as the gluon weight (O, 3, 3, I) lays it out. Tap (r, s)'s A
+// box is the tile's 128 rows shifted by (r - 1) W + (s - 1) flat rows, a
+// plain box of the (C, M) map (rows outside [0, M) read 0); the consumer
+// transforms it, then zeroes each row whose tapped pixel lies outside its
+// own image (the padding belongs to x^: relu(a 0 + b) need not be 0) and
+// the channels c >= C. B is one 2-D K-major map over the (9 C, N) weight
+// (the gluon view: the reduction index contiguous, the one layout built);
+// a slice that runs past C reads the next tap's rows there, against A's
+// zeroed columns. The epilogue is the forward's: rounded y and its stats.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw,
+                  const Conv3Args p) {
+  using P = Plan<BN, 1>;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int nc = (p.C + kBK - 1) / kBK, nk = 9 * nc;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&tx);
+      tma_prefetch(&tw);
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, tap = kb / nc, c0 = (kb - tap * nc) * kBK;
+        const uint32_t cb = 4 * min(kBK, p.C - c0);
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], kA + P::kB + 2 * cb);
+        tma_load_2d(st, &tx, &full[s], c0,
+                    m0 + (tap / 3 - 1) * p.W + (tap % 3 - 1));
+        load_b<BN, false>(st + kA, &tw, &full[s], tap * p.C + c0, n0);
+        bulk_load(st + P::kCoef, p.a + c0, cb, &full[s]);
+        bulk_load(st + P::kCoef + 256, p.b + c0, cb, &full[s]);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    // bit tap of inside[h]: this thread's row h (fragment rows g and
+    // g + 8) taps a pixel of its own image there
+    uint32_t inside[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 64 * wg + 16 * w + (lane >> 2) + 8 * h;
+      const int hh = (m / p.W) % p.H, ww = m % p.W;
+      inside[h] = 0;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ih = hh + tap / 3 - 1, iw = ww + tap % 3 - 1;
+        if (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W)
+          inside[h] |= 1u << tap;
+      }
+    }
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[4][4]) {
+      ring.wait_full(kb);
+      const int tap = kb / nc;
+      const int cl = p.C - (kb - tap * nc) * kBK;   // channels left
+      const bool in0 = (inside[0] >> tap) & 1, in1 = (inside[1] >> tap) & 1;
+      const uint32_t xa = smem_u32(st + wg * kSlab);
+      const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        frag_a_kmajor(fa[ks], xa, w, ks, lane);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {                 // q & 1: row + 8
+          const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
+          const float2 ca = *reinterpret_cast<const float2*>(cf + kl);
+          const float2 cb = *reinterpret_cast<const float2*>(cf + 64 + kl);
+          const float v0 = fmaxf(affine(lo_f(fa[ks][q]), ca.x, cb.x), 0.f);
+          const float v1 = fmaxf(affine(hi_f(fa[ks][q]), ca.y, cb.y), 0.f);
+          fa[ks][q] = ((q & 1) ? in1 : in0) && kl < cl ? pack_bf16(v0, v1)
+                                                      : 0u;
+        }
+      }
+    };
+    mainloop_rs<BN, false, P::kStage, S, kA>(acc, nk, smem, ring, lane, build);
+    store_tile<BN>(acc, smem, nullptr, p.y, p.stats, m0, n0, p.M, p.N);
   }
 }
 
@@ -776,6 +1138,22 @@ int wgrad_bn(int splits, const CUtensorMap (&m)[3], const WgradArgs& p,
                                             m[0], m[1], m[2], p);
 }
 
+template <int BN>
+int bwd_bn(const CUtensorMap (&m)[10], const BwdArgs& p, cudaStream_t st) {
+  const dim3 grid((p.K + BN - 1) / BN, (p.M + kBM - 1) / kBM);
+  return launch<cf90_bwd_dgrad_kernel<BN>>(
+      Plan<BN, 2, kBwdStage>::kSmem, grid, st, m[0], m[1], m[2], m[3], m[4],
+      m[5], m[6], m[7], m[8], m[9], p);
+}
+
+template <int BN>
+int conv3_bn(const CUtensorMap& tx, const CUtensorMap& tw,
+             const Conv3Args& p, cudaStream_t st) {
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + kBM - 1) / kBM);
+  return launch<cf90_conv3_kernel<BN>>(Plan<BN, 1>::kSmem, grid, st, tx, tw,
+                                       p);
+}
+
 bool bad_bn(int bn) { return bn != 64 && bn != 128 && bn != 256; }
 
 }  // namespace
@@ -845,24 +1223,97 @@ int conv_fused_sm90_dual_dgrad_launch(
 
 // The bf16 dual wgrad: ws (splits, Na + Nb, C) float32 partials of [dW_a;
 // dW_b] in the gluon order from the dgrad's g_a, g_b and x; split s covers
-// rows [s * chunk, (s + 1) * chunk), chunk a multiple of 64.
+// rows [s * chunk, (s + 1) * chunk), chunk a multiple of 64. Nb = 0 with
+// g_b null: the single-set wgrad, ws (splits, Na, C).
 int conv_fused_sm90_dual_wgrad_launch(const void* x, const void* g_a,
                                       const void* g_b, float* ws, int splits,
                                       int chunk, int M, int C, int Na,
                                       int Nb, int bn, void* stream) {
-  if (M < 1 || C < 8 || Na < 8 || Nb < 8 || C % 8 || Na % 8 || Nb % 8 ||
-      bad_bn(bn) || splits < 1 || splits > 65535 || chunk < kBK ||
-      chunk % kBK || static_cast<long long>(splits - 1) * chunk >= M ||
+  if (M < 1 || C < 8 || Na < 8 || (Nb != 0 && Nb < 8) || C % 8 || Na % 8 ||
+      Nb % 8 || (Nb == 0) != (g_b == nullptr) || bad_bn(bn) || splits < 1 ||
+      splits > 65535 || chunk < kBK || chunk % kBK ||
+      static_cast<long long>(splits - 1) * chunk >= M ||
       static_cast<long long>(splits) * chunk < M)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap m[3];
+  CUtensorMap m[3] = {};                       // m[2]: read if Nb > 0
   if (!make_map(&m[0], x, C, M, C, 64) ||
       !make_map(&m[1], g_a, Na, M, Na, 64) ||
-      !make_map(&m[2], g_b, Nb, M, Nb, 64))
+      (Nb > 0 && !make_map(&m[2], g_b, Nb, M, Nb, 64)))
     return static_cast<int>(cudaErrorInvalidValue);
   const WgradArgs p{ws, chunk, M, C, Na, Nb};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bn == 64) return wgrad_bn<64>(splits, m, p, st);
   if (bn == 128) return wgrad_bn<128>(splits, m, p, st);
   return wgrad_bn<256>(splits, m, p, st);
+}
+
+// The bf16 1x1 backward's dgrad: dz (M, K) = mask(G w^T (+ dsc)) with w
+// read at w[k * s_k + n * s_n], G = g (M, N) when g is passed, else formed
+// from dzn, yout and gc (3, N) and written to gout (M, N) for the wgrad;
+// mask 0 none, 1 on x > 0, 2 on a x + b > 0; part (ceil(M / 128), 1 +
+// n_partners, K) float32 partials of sum dz and sum dz p_j; xhat (M, K)
+// receives relu(a x + b) when a is passed (null otherwise). Every pointer
+// 16-byte aligned, K and N multiples of 8, s_k 1 and s_n a multiple of 8,
+// bn 64, 128 or 256.
+int conv_fused_sm90_bwd_dgrad_launch(
+    const void* g, const void* dzn, const void* yout, const float* gc,
+    const void* w, long long s_k, long long s_n, void* gout, const void* x,
+    const float* a, const float* b, const void* dsc, const void* p0,
+    const void* p1, int n_partners, int mask, void* dz, float* part,
+    void* xhat, int M, int K, int N, int bn, void* stream) {
+  const bool direct = g != nullptr;
+  if (M < 0 || K < 8 || N < 8 || K % 8 || N % 8 || s_k != 1 || bad_bn(bn) ||
+      n_partners < 0 || n_partners > 2 || mask < 0 || mask > 2 ||
+      (mask == 2 && !a) || (a && !b) || (xhat != nullptr) != (a != nullptr) ||
+      (!direct && (!dzn || !yout || !gc || !gout)) ||
+      (n_partners > 0 && !p0) || (n_partners > 1 && !p1) || !x || !part)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const bool p0x = n_partners > 0 && p0 == x;
+  const bool need_x = mask != 0 || a != nullptr || p0x;
+  // G's maps (m[1], m[3]: G on load), the weight, then the epilogue's
+  // 128-row boxes: x, dsc, the partners, dz and x^ (each made if used)
+  CUtensorMap m[10] = {};
+  if (!make_map(&m[0], direct ? g : dzn, N, M, N, kBM) ||
+      (!direct && (!make_map(&m[1], yout, N, M, N, kBM) ||
+                   !make_map(&m[3], gout, N, M, N, 64))) ||
+      !make_map(&m[2], w, K, N, s_n, 64) ||           // MN-major B
+      (need_x && !make_map(&m[4], x, K, M, K, kBM)) ||
+      (dsc && !make_map(&m[5], dsc, K, M, K, kBM)) ||
+      (n_partners > 0 && !p0x && !make_map(&m[6], p0, K, M, K, kBM)) ||
+      (n_partners > 1 && !make_map(&m[7], p1, K, M, K, kBM)) ||
+      !make_map(&m[8], dz, K, M, K, kBM) ||
+      (xhat && !make_map(&m[9], xhat, K, M, K, kBM)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs p{direct ? nullptr : gc, a, b, n_partners, mask, need_x,
+                  p0x, dsc != nullptr, xhat != nullptr, part, M, K, N};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == 64) return bwd_bn<64>(m, p, st);
+  if (bn == 128) return bwd_bn<128>(m, p, st);
+  return bwd_bn<256>(m, p, st);
+}
+
+// The bf16 3x3 forward: x (M, C) NHWC rows of B = M / (H W) images, w read
+// at w[tap * s_tap + c * s_c + n * s_n] with s_c 1 and s_tap C (one K-major
+// (9 C, N) matrix, the gluon view) and s_n a multiple of 8; C and N
+// multiples of 8; stats (ceil(M / 128), 2, N) float32 partials or null.
+int conv_fused_sm90_conv3_launch(const void* x, const float* a,
+                                 const float* b, const void* w,
+                                 long long s_tap, long long s_c,
+                                 long long s_n, void* y, float* stats, int M,
+                                 int C, int N, int H, int W, int bn,
+                                 void* stream) {
+  if (M < 0 || C < 8 || N < 8 || C % 8 || N % 8 || H < 1 || W < 1 ||
+      M % (H * W) || bad_bn(bn) || s_c != 1 || s_tap != C || !a || !b)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  CUtensorMap tx, tw;
+  if (!make_map(&tx, x, C, M, C, kBM) ||
+      !make_map(&tw, w, 9LL * C, N, s_n, bn))          // K-major B
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Conv3Args p{a, b, static_cast<bf16*>(y), stats, M, C, N, H, W};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == 64) return conv3_bn<64>(tx, tw, p, st);
+  if (bn == 128) return conv3_bn<128>(tx, tw, p, st);
+  return conv3_bn<256>(tx, tw, p, st);
 }

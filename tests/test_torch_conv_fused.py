@@ -12,7 +12,9 @@ max |port - jax| / max(1, max |jax|): 1e-4 in float32 (sums over up to
 rounded output is 2^-8 of its magnitude). The option matrix is the one the
 card's smoke check sweeps: every load form, stats, the x^ output, bias, G
 direct or from the BN affine, each mask, 0-2 partners, dsc, 3x3 maps of 7,
-14 and 28 with one and several images, and the dual dgrad."""
+14 and 28 with one and several images, and the dual dgrad. Last, the
+Hopper 3x3 kernel's tap decomposition, emulated in plain PyTorch, is held
+to the twin and to the JAX function."""
 import importlib
 
 import numpy as np
@@ -108,6 +110,10 @@ MMB_CASES = {
                                      partners=2),
     "bn_plain_no_mask": dict(g=False, mask="none", partners=0),
     "direct_bnrelu_no_mask": dict(g=True, ab=True, mask="none", partners=0),
+    # the lane's expand form (every block's conv3 backward): G on load,
+    # x^ = relu(a x + b), masked on z, x its own partner
+    "bn_bnrelu_mask_z_partner_x": dict(g=False, ab=True, mask="z",
+                                       partners=1, partner_x=True),
 }
 
 
@@ -137,7 +143,8 @@ def test_mm_fused_bwd_twin_matches_pallas(dt, case):
     if spec.get("dsc"):
         dsc, jdsc = r.act(M, K)
         kw["dsc"], jkw["dsc"] = dsc, jdsc
-    parts = [r.act(M, K) for _ in range(spec["partners"])]
+    parts = ([(x, jx)] if spec.get("partner_x")
+             else [r.act(M, K) for _ in range(spec["partners"])])
     kw["partners"] = tuple(p for p, _ in parts)
     jkw["partners"] = tuple(j for _, j in parts)
     out = tcf.mm_fused_bwd_reference(w, x, **kw)
@@ -320,3 +327,88 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[kernel]()
     assert getattr(tcf, kernel).launches == before
+
+
+# ------------------------------- the 3x3 kernel's decomposition, emulated
+def conv3_by_taps(x2, w9, a, b, bhw):
+    """conv3_fused as ``cf90_conv3_kernel`` computes it: per 128-row tile,
+    for each tap (r, s) and 64-channel slice, the tile's rows shifted by
+    (r - 1) W + (s - 1) flat rows (rows outside [0, M) read 0), x^ =
+    relu(a x + b) in float32 rounded to the input type, then zero where the
+    tapped pixel lies outside its row's image and for channels >= C; B is
+    the (9 C, N) weight's rows tap C + c0 .. + 63 (a slice past C reads the
+    next tap's rows; past 9 C, 0). float32 sums, y rounded once, the stats
+    over the rounded y."""
+    B, H, W = bhw
+    M, C = x2.shape
+    N = w9.shape[2]
+    w2 = torch.cat([w9.reshape(9 * C, N).float(), torch.zeros(64, N)])
+    af, bf = a.float(), b.float()
+    y = torch.empty((M, N), dtype=x2.dtype)
+    for m0 in range(0, M, 128):
+        m = torch.arange(m0, m0 + 128)
+        hh, ww = (m // W) % H, m % W
+        acc = torch.zeros((128, N))
+        for tap in range(9):
+            dr, ds = tap // 3 - 1, tap % 3 - 1
+            src = m + dr * W + ds
+            inside = ((hh + dr >= 0) & (hh + dr < H) & (ww + ds >= 0)
+                      & (ww + ds < W))
+            for c0 in range(0, C, 64):
+                cols = torch.arange(c0, c0 + 64)
+                raw = torch.zeros((128, 64))
+                ok = (src >= 0) & (src < M)
+                cv = cols < C
+                raw[ok.nonzero()[:, 0][:, None], cv.nonzero()[:, 0]] = \
+                    x2[src[ok]][:, cols[cv]].float()
+                ca = torch.zeros(64)
+                cb = torch.zeros(64)
+                ca[cv], cb[cv] = af[cols[cv]], bf[cols[cv]]
+                xh = torch.clamp(raw * ca + cb, min=0.0).to(x2.dtype).float()
+                xh = xh * inside[:, None] * cv[None, :]
+                acc += xh @ w2[tap * C + c0:tap * C + c0 + 64]
+        rows = min(128, M - m0)
+        y[m0:m0 + rows] = acc[:rows].to(x2.dtype)
+    yf = y.float()
+    return y, torch.stack([yf.sum(0), (yf * yf).sum(0)])
+
+
+# (B, H = W, C, N): H W never a multiple of 128, so tiles straddle image
+# rows and images; C 72 and 40 leave a channel tail inside a 64-slice
+_TAP_SHAPES = [(2, 9, 72, 16), (3, 7, 40, 24), (1, 14, 24, 8),
+               (2, 5, 8, 16)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _TAP_SHAPES)
+def test_conv3_tap_decomposition_matches_the_twin_and_jax(dt, shape):
+    """The Hopper 3x3 kernel's nine shifted flat-row products with the
+    border and channel masks after the transform equal the port's twin and
+    the JAX ``_conv3_fused_xla``: 1e-4 in float32 (another summation
+    order), 2e-2 in bf16 (a one-ulp flip of a rounded y), each over
+    max(1, the reference's largest entry)."""
+    B, H, C, N = shape
+    rs = np.random.RandomState(30 + C)
+    M = B * H * H
+    tdt, jdt = TDT[dt], JDT[dt]
+    x_np = rs.randn(M, C).astype(np.float32)
+    w_np = rs.randn(N, 3, 3, C).astype(np.float32)   # gluon (O, 3, 3, I)
+    a_np = np.abs(rs.randn(C)).astype(np.float32) + 0.5
+    b_np = rs.randn(C).astype(np.float32)
+    x2 = torch.from_numpy(x_np).to(tdt)
+    w9 = torch.from_numpy(w_np).to(tdt).permute(1, 2, 3, 0).reshape(9, C, N)
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    got = conv3_by_taps(x2, w9, a, b, (B, H, H))
+    twin = tcf.conv3_fused_reference(x2, w9, a, b, (B, H, H))
+    w9_np = np.ascontiguousarray(w9.float().numpy())
+    with jax.default_matmul_precision("highest"):
+        ref = jcf._conv3_fused_xla(
+            jnp.asarray(x_np, jdt), jnp.asarray(w9_np, jdt),
+            jnp.asarray(a_np), jnp.asarray(b_np), (B, H, H), True)
+    tol = TOL[dt]
+    for want in (twin, tuple(torch.from_numpy(np.array(
+            jnp.asarray(r, jnp.float32))) for r in ref)):
+        for g, r in zip(got, want):
+            r = r.float()
+            err = (g.float() - r).abs().max() / max(1.0, r.abs().max())
+            assert err <= tol, err

@@ -1,6 +1,6 @@
 """The route choice and the tile plan of the Hopper kernels of
-``mm_fused`` and ``dgrad_epilogue`` (``ops/cuda/csrc/conv_fused_sm90.cu``),
-on the CPU.
+``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue``
+(``ops/cuda/csrc/conv_fused_sm90.cu``), on the CPU.
 
 The kernels themselves build and run only on the card (``chip_smoke.py``
 phase 13 holds them against their twins there). What the CPU can check is
@@ -170,7 +170,9 @@ def test_python_plan_mirrors_the_kernel_source():
 _SPLIT_SHAPES = [(1, 8, 8, 8), (63, 8, 24, 16), (64, 8, 8, 8),
                  (65, 72, 40, 40), (300, 72, 40, 40), (1000, 64, 256, 128)] \
     + [(M, mid, c4, cin) for M, mid, c4, _, cin
-       in chip_smoke.RESNET_STAGES.values()]
+       in chip_smoke.RESNET_STAGES.values()] \
+    + [(M, n, 0, k) for M, mid, c4, _, _ in chip_smoke.RESNET_STAGES.values()
+       for n, k in ((c4, mid), (mid, c4))]   # mm_fused_bwd's one-set wgrad
 
 
 @pytest.mark.parametrize("m,na,nb,k", _SPLIT_SHAPES)
@@ -223,6 +225,182 @@ def test_the_library_builds_the_sm90_source():
     assert SRC in common.SOURCES
     assert SRC.with_name("sm90_gemm.cuh").exists()
     for fn in ("mxt_conv_fused_sm90_fwd", "mxt_conv_fused_sm90_dual_dgrad",
-               "mxt_conv_fused_sm90_dual_wgrad"):
+               "mxt_conv_fused_sm90_dual_wgrad", "mxt_conv_fused_sm90_bwd_dgrad",
+               "mxt_conv_fused_sm90_conv3"):
         assert fn in common._SIGNATURES
         assert fn in SRC.with_name("bindings.cpp").read_text()
+
+
+# ------------------------------------------ mm_fused_bwd and conv3_fused
+def _w3x3(c, n, dt, device="meta"):
+    """The gluon (O, 3, 3, I) weight viewed as (9, C, N), as the lane
+    passes it (``_fused_resnet._w3x3``)."""
+    return torch.empty((n, 3, 3, c), dtype=dt, device=device).permute(
+        1, 2, 3, 0).reshape(9, c, n)
+
+
+def _bwd_conv3_lane_forms(stage, dt):
+    """(case, route) of every mm_fused_bwd and conv3_fused form the fused
+    stage runs at one ResNet-50 stage, batch 128: the expand form (every
+    block's conv3 backward: G on load, a and b, mask z, x its partner), the
+    entry form (a middle block's conv1 backward: G on load, dsc, mask x,
+    one or two partners) and the 3x3 forward."""
+    M, mid, c4, _, _ = chip_smoke.RESNET_STAGES[stage]
+    y2, x_in = _act(M, mid, dt), _act(M, c4, dt)
+    gc_mid = torch.empty((3, mid), device="meta")
+    gc_c4 = torch.empty((3, c4), device="meta")
+    expand = tcf.mm_fused_bwd_route(
+        y2, _w1x1(mid, c4, dt), (_act(M, c4, dt), _act(M, c4, dt), y2),
+        (_vec(mid), _vec(mid), gc_c4))
+    entry = {p: tcf.mm_fused_bwd_route(
+        x_in, _w1x1(c4, mid, dt),
+        (_act(M, mid, dt), _act(M, mid, dt), _act(M, c4, dt))
+        + tuple(_act(M, c4, dt) for _ in range(p)), (gc_mid,))
+        for p in (1, 2)}
+    conv3 = tcf.conv3_fused_route(_act(M, mid, dt), _w3x3(mid, mid, dt),
+                                  (_vec(mid), _vec(mid)))
+    return {"expand": expand, "entry 1 partner": entry[1],
+            "entry 2 partners": entry[2], "3x3": conv3}
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_lane_backward_and_3x3_forms_take_the_sm90_route_in_bf16(stage):
+    routes = _bwd_conv3_lane_forms(stage, BF16)
+    assert routes == {case: "sm90" for case in routes}
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_float32_backward_and_3x3_forms_never_take_the_sm90_route(stage):
+    routes = _bwd_conv3_lane_forms(stage, F32)
+    assert routes == {case: "simt" for case in routes}
+
+
+@pytest.mark.parametrize("mkn", chip_smoke.CONV_MM_SWEEP)
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_sweep_shapes_take_the_planned_bwd_route(mkn, dt):
+    """Every form of the card's mm_fused_bwd sweep: G direct or on load,
+    masks, dsc, partners, the expand form."""
+    m, k, n = mkn
+    x, w = _act(m, k, dt), _w1x1(k, n, dt)
+    want = "sm90" if dt == BF16 else "simt"
+    g, dsc = _act(m, n, dt), _act(m, k, dt)
+    gc = torch.empty((3, n), device="meta")
+    assert tcf.mm_fused_bwd_route(x, w, (g, None, None, None, x),
+                                  (_vec(k), _vec(k), None)) == want
+    assert tcf.mm_fused_bwd_route(x, w, (None, g, g, dsc, x, dsc),
+                                  (None, None, gc)) == want
+    assert tcf.mm_fused_bwd_route(x, w, (None, g, g, None, x),
+                                  (_vec(k), _vec(k), gc)) == want
+
+
+@pytest.mark.parametrize("bhwcn", [(1, 7, 16, 32), (3, 7, 32, 48),
+                                   (2, 9, 72, 64), (3, 14, 72, 136),
+                                   (2, 28, 64, 64)])
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_sweep_shapes_take_the_planned_conv3_route(bhwcn, dt):
+    """The card's 3x3 sweep with the gluon weight view (a K-major B), the
+    one layout the Hopper kernel is built for; a contiguous (9, C, N)
+    weight takes the SIMT kernel."""
+    B, hw, c, n = bhwcn
+    x2 = _act(B * hw * hw, c, dt)
+    want = "sm90" if dt == BF16 else "simt"
+    vecs = (_vec(c), _vec(c))
+    assert tcf.conv3_fused_route(x2, _w3x3(c, n, dt), vecs) == want
+    assert tcf.conv3_fused_route(
+        x2, torch.empty((9, c, n), dtype=dt, device="meta"), vecs) == "simt"
+
+
+def test_bwd_and_conv3_shapes_the_tma_cannot_read_take_the_simt_route():
+    """K, N or C not a multiple of 8, no rows, a misaligned activation or
+    vector, a weight with no unit stride or in the layout the kernels are
+    not built for (not the gluon view's), a 3x3 weight whose taps are not
+    one (9 C, N) matrix."""
+    x, w = _act(256, 64, BF16), _w1x1(64, 32, BF16)
+    assert tcf.mm_fused_bwd_route(x, w) == "sm90"
+    assert tcf.mm_fused_bwd_route(_act(256, 60, BF16),
+                                  _w1x1(60, 32, BF16)) == "simt"
+    assert tcf.mm_fused_bwd_route(x, _w1x1(64, 36, BF16)) == "simt"
+    assert tcf.mm_fused_bwd_route(_act(0, 64, BF16), w) == "simt"
+    base = torch.empty((257 * 64,), dtype=BF16)
+    odd = base[1:1 + 256 * 64].reshape(256, 64)
+    assert tcf.mm_fused_bwd_route(x, w, (None, None, None, odd)) == "simt"
+    a = torch.empty((65,), dtype=F32)[1:]
+    assert tcf.mm_fused_bwd_route(x, w, (), (a, a, None)) == "simt"
+    strided = torch.empty((64, 64), dtype=BF16)[:, ::2]
+    assert tcf.mm_fused_bwd_route(x, strided) == "simt"
+    assert tcf.mm_fused_bwd_route(x, torch.empty((64, 32), dtype=BF16)) \
+        == "simt"
+    x2 = _act(2 * 49, 16, BF16)
+    assert tcf.conv3_fused_route(x2, _w3x3(16, 32, BF16)) == "sm90"
+    assert tcf.conv3_fused_route(_act(2 * 49, 12, BF16),
+                                 _w3x3(12, 32, BF16)) == "simt"
+    assert tcf.conv3_fused_route(x2, _w3x3(16, 36, BF16)) == "simt"
+    assert tcf.conv3_fused_route(_act(0, 16, BF16),
+                                 _w3x3(16, 32, BF16)) == "simt"
+    # (3, 3, N, C) permuted to (9, C, N): the tap stride is not C times
+    # the channel stride
+    taps = torch.empty((3, 3, 32, 16), dtype=BF16).permute(
+        0, 1, 3, 2).reshape(9, 16, 32)
+    assert tcf.conv3_fused_route(x2, taps) == "simt"
+    wide = torch.empty((9, 16, 64), dtype=BF16)[:, :, ::2]
+    assert tcf.conv3_fused_route(x2, wide) == "simt"
+    assert tcf.conv3_fused_route(x2, _w3x3(16, 32, BF16), (a[:16], a[:16])) \
+        == "simt"
+    assert tcf.conv3_fused_route(x2.float(), _w3x3(16, 32, F32)) == "simt"
+
+
+# the raw A operands a stage of each Hopper kernel holds: its Plan<BN, n>
+_KERNEL_PLANS = {"cf90_fwd_kernel": "REGA ? 2 : 1",
+                 "cf90_dual_dgrad_kernel": "2",
+                 "cf90_dual_wgrad_kernel": "1",
+                 "cf90_bwd_dgrad_kernel": "2, kBwdStage",
+                 "cf90_conv3_kernel": "1"}
+# the backward dgrad's static shared memory: its barriers and the column
+# sums of two epilogue chunks, red[2][8][3][64] float32
+_BWD_STATIC = 2 * 8 * 8 + 2 * 8 * 3 * 64 * 4
+
+
+def test_new_kernels_plans_mirror_the_source_and_fit():
+    """Each kernel's ``Plan<BN, ...>`` in conv_fused_sm90.cu is the one
+    listed here; the backward dgrad's minimum stage is
+    ``SM90_BWD_STAGE`` (four 128 x 64 epilogue tiles and a and b); every
+    plan of the new kernels fits a block's shared memory with the static
+    arrays, and the 3x3 kernel's epilogue staging fits its ring."""
+    src = SRC.read_text()
+    for kernel, args in _KERNEL_PLANS.items():
+        body = src[src.index(f"\n{kernel}("):]
+        assert re.search(r"using P = Plan<BN, ([^>]+)>;", body).group(1) \
+            == args
+    assert "constexpr int kBwdStage = 4 * kA + 1024;" in src
+    assert "__shared__ float red[2][8][3][64];" in src
+    assert tcf.SM90_BWD_STAGE == 4 * 2 * 64 * 128 + 1024
+    for bn in (64, 128, 256):
+        dgrad = tcf.sm90_plan(bn, 2, tcf.SM90_BWD_STAGE)
+        conv3 = tcf.sm90_plan(bn, 1)
+        assert dgrad["stage_bytes"] == max(
+            tcf.SM90_BWD_STAGE, tcf.sm90_plan(bn, 2)["stage_bytes"])
+        assert dgrad["smem_bytes"] + _BWD_STATIC <= tcf.SM90_SMEM_LIMIT
+        assert conv3["smem_bytes"] <= tcf.SM90_SMEM_LIMIT
+        for plan in (dgrad, conv3):
+            assert 3 <= plan["stages"] <= 4
+        assert 128 * bn * 2 + 2 * 2 * 256 * 4 <= conv3["stages"] \
+            * conv3["stage_bytes"]
+
+
+@pytest.mark.parametrize("kernel", ["mm_fused_bwd", "conv3_fused"])
+@pytest.mark.parametrize("route", [None, "simt"])
+def test_bwd_and_conv3_wrappers_refuse_cpu_tensors(kernel, route):
+    x = torch.randn(98, 16).to(BF16)
+    w = _w1x1(16, 32, BF16, "cpu").normal_()
+    w9 = _w3x3(16, 32, BF16, "cpu").normal_()
+    g = torch.randn(98, 32).to(BF16)
+    a, b = torch.ones(16), torch.zeros(16)
+    call = {"mm_fused_bwd": lambda: tcf.mm_fused_bwd(w, x, g=g,
+                                                     _route=route),
+            "conv3_fused": lambda: tcf.conv3_fused(x, w9, a, b, (2, 7, 7),
+                                                   _route=route)}[kernel]
+    fn = getattr(tcf, kernel)
+    before = (fn.launches, fn.sm90_launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
+    assert (fn.launches, fn.sm90_launches) == before

@@ -88,7 +88,7 @@ Phases:
    rtol 1e-4, every gradient leaf within 1e-3 of its largest entry);
 13. the Hopper kernels of conv_fused_sm90.cu as built: registers, stack,
    shared and local bytes and HGMMA count of each (``cuobjdump``), none
-   without HGMMA; the fused-conv kernels (``mm_fused``, ``mm_fused_bwd``,
+   without HGMMA or with local bytes; the fused-conv kernels (``mm_fused``, ``mm_fused_bwd``,
    ``conv3_fused``, ``conv3_fused_bwd``, ``dgrad_epilogue``) against their
    twins in float32 (1e-4) and bf16 (2e-2), errors over max(1, the twin's
    largest entry): a sweep of every load form, stats on and off, the x^
@@ -98,16 +98,15 @@ Phases:
    each stage (2-4): block 0's conv1 and projection and their dual dgrad,
    a middle block's entry-form conv1, 3x3 and expand conv3, forward and
    backward, with times beside the twin's, the library product's
-   (``torch.matmul``, channels-last ``F.conv2d``) and the bound; bf16
-   ``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue``
-   on their Hopper route, each also forced onto its SIMT kernel and timed
-   beside it in the same call;
+   (``torch.matmul``, channels-last ``F.conv2d`` and its autograd) and the
+   bound; all five in bf16 on their Hopper route, each also forced onto
+   its SIMT kernel and timed beside it in the same call;
 14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
    and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
    falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
-   ``mm_fused_bwd`` and 3 ``dgrad_epilogue`` launches, all on the Hopper
-   route, and 13 ``conv3_fused_bwd`` launches on the SIMT one; img/s, peak
-   memory, and a profiled window of two steps;
+   ``mm_fused_bwd``, 13 ``conv3_fused_bwd`` and 3 ``dgrad_epilogue``
+   launches, all on the Hopper route; img/s, peak memory, and a profiled
+   window of two steps;
 15. the same step on the per-block path (``MXTPU_FUSED_RESNET=0``: PyTorch
    convolutions and batch norm), run as phase 14 runs it: its img/s, no
    fused-conv launch, and a profiled window of two steps;
@@ -122,15 +121,24 @@ Phases:
    (over max(1, the largest entry)), backward within 1e-3 / 2e-2 of the
    largest entry: H 16, 20, 64, 211, 650, 1030 by N 5, 8, 64, 128, 256,
    in three type forms (bf16 operands with float32 carries, as the word
-   LM runs; bf16 throughout, c carried in bf16; float32), the whole
-   ``lstm_scan`` forward + backward in both directions against the CPU
-   twins; then at the lane (N 128, H 650) with times beside the twin's,
-   cuDNN's whole-sequence LSTM per step and the bound, and one scan
-   forward + backward over T 35;
+   LM runs; bf16 throughout, c carried in bf16; float32), ``lstm_bwd``
+   with a bf16 W on its tensor-core route and again on the SIMT kernel,
+   the whole ``lstm_scan`` forward + backward in both directions against
+   the CPU twins; with float32 carries, the tensor-core route's dh against
+   the float64 product of its own dxp (dz) and W within 1e-6 of the
+   largest entry, beside the SIMT kernel's reading and a two-piece split's
+   (the control, which must read above the limit at the lane); the
+   tensor-core kernel as built (registers, local bytes, HMMA count); then
+   at the lane (N 128, H 650) with times beside the twin's, the SIMT
+   kernel's in the same call, cuDNN's whole-sequence LSTM per step (the
+   median of three tries) and the bound, the lane's backward error (at
+   most 1e-3 with float32 carries), and one scan forward + backward over
+   T 35;
 18. the word LM at bench.py's lane: 2 warm-up and 5 timed steps; finite,
    falling loss; per step exactly 70 ``lstm_fwd_gates`` and 70
-   ``lstm_bwd`` launches; tok/s, peak memory and a profiled window of two
-   steps; then an eval forward: 70 ``lstm_fwd`` launches and no other;
+   ``lstm_bwd`` launches, every ``lstm_bwd`` on the tensor-core route;
+   tok/s, peak memory and a profiled window of two steps; then an eval
+   forward: 70 ``lstm_fwd`` launches and no other;
 19. the same model in float32 (dropout 0): one loss-and-gradient pass with
    the kernels against the same pass on the twins (loss rtol 1e-4, every
    gradient leaf within 1e-3 of its largest entry), then one ``Trainer``
@@ -1231,14 +1239,11 @@ def nd_truth_phase(tt, nd_lm, mx):
 CONV_KERNELS = ("mm_fused", "mm_fused_bwd", "conv3_fused",
                 "conv3_fused_bwd", "dgrad_epilogue")
 CONV_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/conv_fused.cu"
-# the wrappers whose bf16 route is the Hopper kernels of conv_fused_sm90.cu
-# (the lane's conv3_fused_bwd launches stay on conv_fused.cu)
-CONV_SM90 = ("mm_fused", "mm_fused_bwd", "conv3_fused", "dgrad_epilogue")
 CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                     "conv_fused_sm90.cu")
-# the JSON line's names of the phase-13/14 kernels, in its order
-CONV_RECORDS = tuple(f"{n}/sm90" if n in CONV_SM90 else n
-                     for n in CONV_KERNELS)
+# the JSON line's names of the phase-13/14 kernels, in its order: every
+# bf16 route is the Hopper kernels of conv_fused_sm90.cu
+CONV_RECORDS = tuple(f"{n}/sm90" for n in CONV_KERNELS)
 CONV_REPLACES = {
     "mm_fused": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:148",
     "mm_fused_bwd": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:344",
@@ -1269,8 +1274,8 @@ def _scaled_err(outs, refs):
 
 def _conv_cases(cf, g, dt):
     """The phase-13 sweep for one type: (kernel, case name, kernel call,
-    twin call, route the plan gives, call forced onto the SIMT kernel or
-    None) over every option of the four kernels."""
+    twin call, route the plan gives, call forced onto the SIMT kernel)
+    over every option of the five kernels."""
     def rnd(*shape, f32=False):
         t = torch.randn(shape, generator=g, device="cuda")
         return t if f32 else t.to(dt)
@@ -1384,16 +1389,20 @@ def _conv_cases(cf, g, dt):
                       bhw=bhw: cf.conv3_fused_bwd(w9, x2, a, b, d, y, c, bhw),
                       lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
                       bhw=bhw: cf.conv3_fused_bwd_reference(
-                          w9, x2, a, b, d, y, c, bhw), "simt", None))
+                          w9, x2, a, b, d, y, c, bhw),
+                      cf.conv3_fused_bwd_route(x2, w9, (dzn, yout),
+                                               (a, b, gc)),
+                      lambda x2=x2, w9=w9, a=a, b=b, d=dzn, y=yout, c=gc,
+                      bhw=bhw: cf.conv3_fused_bwd(w9, x2, a, b, d, y, c, bhw,
+                                                  _route="simt")))
     return cases
 
 
 def _stage_runs(cf, g, stage, dt):
     """Phase 13 at one stage of the ResNet-50 lane: every form of conv the
     fused stage runs there, on operands from the generator, as a list of
-    (kernel, case, kernel call, the call forced onto the SIMT kernel (None
-    where there is no other route), twin call, library call, bytes, full
-    bytes, flops).
+    (kernel, case, kernel call, the call forced onto the SIMT kernel, twin
+    call, library call, bytes, full bytes, flops).
     The cases: block 0's conv1 and projection (plain load, K = the stage's
     input channels, at the strided resolution) and their backward, the dual
     dgrad, beside the two single dgrads it replaces; a middle block's conv1 (entry form, K = 4 mid -> N = mid; its
@@ -1512,7 +1521,9 @@ def _stage_runs(cf, g, stage, dt):
     moved = M * (2 * N + 2 * N) * esz + 4 * 9 * N * N
     runs.append(("conv3_fused_bwd", "3x3",
                  lambda: cf.conv3_fused_bwd(w9, x2, a2, b2, dzn2, yout2, gc2,
-                                            bhw), None,
+                                            bhw),
+                 lambda: cf.conv3_fused_bwd(w9, x2, a2, b2, dzn2, yout2, gc2,
+                                            bhw, _route="simt"),
                  lambda: cf.conv3_fused_bwd_reference(w9, x2, a2, b2, dzn2,
                                                       yout2, gc2, bhw),
                  lambda: torch.autograd.grad(yc, (xr, wr), gcl,
@@ -1593,44 +1604,55 @@ def _sm90_kernel_name(mangled):
     return f"{m.group(1)}<{args}>"
 
 
-def sm90_sass_check(common):
-    """The Hopper kernels as built: for each kernel instantiation of
-    conv_fused_sm90.cu, its registers at launch, stack, static shared and
-    local (spill) bytes (``cuobjdump -res-usage``) and its HGMMA
-    instructions (``cuobjdump -sass``) in the library build's object.
-    Fails if a kernel has no HGMMA. Returns {kernel: counts}."""
+def _lstm_tc_kernel_name(mangled):
+    """``lstm_bwd_tc_kernel<float>`` (or ``<bf16>``, the carries' type) from
+    a mangled name, or None for another kernel of lstm.cu."""
+    m = re.search(r"(lstm_bwd_tc_kernel)I(f|13__nv_bfloat16)E", mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
+
+
+def _sass_kernels(common, pattern, name_of, instr):
+    """The kernels of the library build's object ``pattern`` that
+    ``name_of`` names: registers at launch, stack, static shared and local
+    (spill) bytes (``cuobjdump -res-usage``) and the count of ``instr``
+    instructions (``cuobjdump -sass``). Fails if a kernel has no ``instr``
+    or any local bytes. Returns {kernel: counts}."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = f"{CUDA_HOME or '/usr/local/cuda'}/bin/cuobjdump"
-    objs = sorted(common.BUILD_DIR.glob("conv_fused_sm90*.o"))
+    objs = sorted(common.BUILD_DIR.glob(pattern))
     if not objs:
-        raise AssertionError(f"no conv_fused_sm90 object in "
-                             f"{common.BUILD_DIR}")
+        raise AssertionError(f"no {pattern} object in {common.BUILD_DIR}")
 
     def dump(flag):
         return subprocess.run([tool, flag, str(objs[0])], check=True,
                               capture_output=True, text=True,
                               timeout=300).stdout
 
+    key = instr.lower()
     kernels, name = {}, None
     for line in dump("-res-usage").splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            name = _sm90_kernel_name(m.group(1))
+            name = name_of(m.group(1))
             continue
         m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
                       line)
         if m and name:
             kernels[name] = dict(zip(("reg", "stack", "shared", "local"),
-                                     map(int, m.groups())), hgmma=0)
+                                     map(int, m.groups())), **{key: 0})
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = _sm90_kernel_name(m.group(1))
-        elif name in kernels and "HGMMA" in line:
-            kernels[name]["hgmma"] += 1
-    if not kernels or any(k["hgmma"] == 0 for k in kernels.values()):
-        raise AssertionError(f"Hopper kernels without HGMMA: {kernels}")
-    log(f"conv_fused_sm90.cu as built: {len(kernels)} kernels, registers "
+            name = name_of(m.group(1))
+        elif name in kernels and re.search(rf"\b{instr}\b", line):
+            kernels[name][key] += 1
+    if not kernels or any(k[key] == 0 or k["local"] for k in
+                          kernels.values()):
+        raise AssertionError(f"kernels without {instr} or with local "
+                             f"(spill) bytes: {kernels}")
+    log(f"{objs[0].name} as built: {len(kernels)} kernels, registers "
         f"{sorted({k['reg'] for k in kernels.values()})}, local bytes "
         f"{sorted({k['local'] for k in kernels.values()})}, stack "
         f"{sorted({k['stack'] for k in kernels.values()})}; "
@@ -1638,19 +1660,31 @@ def sm90_sass_check(common):
     return kernels
 
 
+def sm90_sass_check(common):
+    """The Hopper kernels of conv_fused_sm90.cu as built, each with HGMMA
+    and no local bytes."""
+    return _sass_kernels(common, "conv_fused_sm90*.o", _sm90_kernel_name,
+                         "HGMMA")
+
+
+def lstm_sass_check(common):
+    """lstm.cu's tensor-core backward as built, each with HMMA
+    (``mma.sync``) and no local bytes."""
+    return _sass_kernels(common, "lstm*.o", _lstm_tc_kernel_name, "HMMA")
+
+
 def conv_kernel_checks(cf, common):
     """Phase 13: the five fused-conv kernels against their twins over the
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
     every conv form of each stage (2, 3, 4) in both types. bf16
-    ``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue``
-    take the Hopper route (conv_fused_sm90.cu) where the plan says so, and
-    their SIMT kernels (reached through the private ``_route="simt"``) are
-    held to the twins too; float32 always takes the SIMT route. Times in
-    bf16 at every stage and in float32 at stage 3: CUDA events over a loop
-    of wrapper calls, beside the twin's, the library call's and the bound;
-    for the four Hopper-route wrappers, in turns with the SIMT kernel (new, old, new,
-    old), plus torch.profiler's device time of one call and the wrapper's
-    host µs. Returns the JSON records (bf16, stage 3) and a log of every
+    kernels take the Hopper route (conv_fused_sm90.cu) where the plan says
+    so, and their SIMT kernels (reached through the private
+    ``_route="simt"``) are held to the twins too; float32 always takes the
+    SIMT route. Times in bf16 at every stage and in float32 at stage 3:
+    CUDA events over a loop of wrapper calls, beside the twin's, the
+    library call's and the bound; on the Hopper route, in turns with the
+    SIMT kernel (new, old, new, old), plus torch.profiler's device time of
+    one call and the wrapper's host µs. Returns the JSON records (bf16, stage 3) and a log of every
     timing."""
     sass = sm90_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1673,7 +1707,7 @@ def conv_kernel_checks(cf, common):
                 cf, name, kern, route), ref, dt)
             key = f"{name} {str(dt)[6:]} {route}"
             worst[key] = max(worst.get(key, 0.0), err)
-            if old is not None and route == "sm90":
+            if route == "sm90":
                 err = held(f"{name} {dt} {case} simt", _route_taken(
                     cf, name, old, "simt"), ref, dt)
                 key = f"{name} {str(dt)[6:]} simt"
@@ -1682,9 +1716,9 @@ def conv_kernel_checks(cf, common):
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
         f"partners, dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images "
-        f"and C 16-72, dual dgrad; bf16 mm_fused, mm_fused_bwd, conv3_fused "
-        f"and dgrad_epilogue on the sm90 route and again on the simt one) "
-        f"within tolerance; worst {json.dumps(worst)}")
+        f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route and "
+        f"again on the simt one) within tolerance; worst "
+        f"{json.dumps(worst)}")
     timings = {"sass": sass, "sweep": worst}
     records = {}
     for stage in (2, 3, 4):
@@ -1693,11 +1727,10 @@ def conv_kernel_checks(cf, common):
             for name, case, kern, old, plain, lib, moved, full, flops \
                     in runs:
                 tag = f"{name} {case} {str(dt)[6:]} stage {stage}"
-                route = ("sm90" if dt == torch.bfloat16 and name in CONV_SM90
-                         else "simt")
+                route = "sm90" if dt == torch.bfloat16 else "simt"
                 ref = plain()
                 err = held(tag, _route_taken(cf, name, kern, route), ref, dt)
-                if old is not None and route == "sm90":
+                if route == "sm90":
                     held(f"{tag} simt", _route_taken(cf, name, old, "simt"),
                          ref, dt)
                 del ref
@@ -1810,34 +1843,30 @@ def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
         raise AssertionError(f"resnet loss not finite and falling: {losses}")
     # stages 2-4 hold 4 + 6 + 3 blocks: a 1x1 conv1, a 3x3 and a 1x1 conv3
     # each, plus block 0's projection; block 0's conv1 and projection
-    # dgrads are one dual dgrad. Every bf16 mm_fused, mm_fused_bwd,
-    # conv3_fused and dgrad_epilogue launch takes the Hopper route;
-    # conv3_fused_bwd stays on the SIMT kernels.
+    # dgrads are one dual dgrad. Every bf16 launch of the five takes the
+    # Hopper route.
     per_step = {"mm_fused": 29, "conv3_fused": 13, "mm_fused_bwd": 23,
                 "conv3_fused_bwd": 13, "dgrad_epilogue": 3}
     for name, n in per_step.items():
         if launches[name] != n * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} resnet steps, not {n * steps}")
-        want = n * steps if name in CONV_SM90 else 0
-        if sm90[name] != want:
+        if sm90[name] != n * steps:
             raise AssertionError(
                 f"{name} took the sm90 route {sm90[name]} times in "
-                f"{steps} resnet steps, not {want}")
-        if name in CONV_SM90:
-            records[f"{name}/sm90"]["launches"] = sm90[name]
-        else:
-            records[name]["launches"] = launches[name]
+                f"{steps} resnet steps, not {n * steps}")
+        records[f"{name}/sm90"]["launches"] = sm90[name]
     breakdown = kernel_breakdown(
         "resnet fused", lambda: step(params, aux, opt, x, y),
         ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel",
          "cf90_fwd_kernel", "cf90_dual_dgrad_kernel",
          "cf90_dual_wgrad_kernel", "cf90_bwd_dgrad_kernel",
-         "cf90_conv3_kernel"))
+         "cf90_conv3_kernel", "cf90_conv3_dgrad_kernel",
+         "cf90_conv3_wgrad_kernel"))
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
-            "sm90_launches_per_step": {n: per_step[n] for n in CONV_SM90},
+            "sm90_launches_per_step": per_step,
             **breakdown}
 
 
@@ -2075,6 +2104,8 @@ def resnet_truth_phase(mx, gluon, vision, common):
 
 # --------------------------------------------------- the LSTM kernels (B8)
 LSTM_KERNELS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd")
+# the JSON line's names: lstm_bwd's bf16-W route is the tensor-core kernel
+LSTM_RECORDS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd/sm90")
 LSTM_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/lstm.cu"
 _LSTM_PY = "incubator_mxnet_tpu/ops/pallas/lstm.py"
 LSTM_REPLACES = {"lstm_fwd_gates": f"{_LSTM_PY}:151",
@@ -2089,6 +2120,15 @@ LSTM_TYPES = ((torch.bfloat16, torch.float32),
 # the largest entry
 LSTM_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 LM_T, LM_N, LM_H, LM_VOCAB = 35, 128, 650, 33278      # bench.py:500-520
+# the lane's backward error with float32 carries: float32's bound, which the
+# split-bf16 product must keep
+LSTM_LANE_BWD_TOL = 1e-3
+# dh against the float64 product of the kernel's own dz (its dxp output)
+# and W, over dh's largest entry, with float32 carries: the tensor-core
+# route read 0.5e-7-2.9e-7 over this phase's sweep on an H100, a two-piece
+# split 2.2e-6-4.3e-6, and the SIMT kernel's sequential float32 sums
+# 1.2e-7-2.5e-6 (growing with H)
+LSTM_PRODUCT_TOL = 1e-6
 
 
 def _rnd(g, dt, *shape, sc=1.0):
@@ -2102,23 +2142,60 @@ def _lstm_operands(g, od, sd, N, H):
             _rnd(g, od, 4 * H, sc=0.1), _rnd(g, sd, N, H), _rnd(g, sd, N, H))
 
 
+def _product_err(dxp, w, dh, pieces=None):
+    """dh against the float64 product of dz (``dxp``) and W, over its
+    largest entry; with ``pieces`` 2, the reading of a dh that a two-piece
+    split (hi + mid, lo dropped) would give, in exact arithmetic."""
+    exact = dxp.double() @ w.double()
+    if pieces == 2:
+        hi = dxp.to(torch.bfloat16)
+        mid = (dxp - hi.float()).to(torch.bfloat16)
+        dh = ((hi.double() + mid.double()) @ w.double()).float()
+    return ((dh.double() - exact).abs().max() / exact.abs().max()).item()
+
+
 def _lstm_errs(lt, ops):
-    """(forward error, backward error) of the three kernels against their
-    twins on the same operands."""
+    """(forward error, backward error, the SIMT backward's error or None,
+    the product readings or None) of the kernels against their twins on
+    the same operands: ``lstm_bwd`` on the route :func:`lstm_bwd_route`
+    plans (checked taken), and with a bf16 W also forced onto the SIMT
+    kernel. With a bf16 W and float32 carries, the product readings
+    (:func:`_product_err`): the tensor-core route's, the SIMT kernel's, a
+    two-piece split's, and the two routes' dh against each other, each
+    over dh's largest entry."""
     xp, h, c, w, b, dh1, dc1 = ops
     ref = lt.lstm_fwd_reference(xp, h, c, w, b, True)
     kg = lt.lstm_fwd_gates(xp, h, c, w, b)
     k0 = lt.lstm_fwd(xp, h, c, w, b)
     rb = lt.lstm_bwd_reference(ref[2], c, ref[1], w, dh1, dc1)
-    kb = lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1)
+    route = lt.lstm_bwd_route(w)
+    before = lt.lstm_bwd.sm90_launches
+    kb = lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1,
+                     w_packed=lt.lstm_bwd_weight(w) if route == "sm90"
+                     else None)
+    took = "sm90" if lt.lstm_bwd.sm90_launches > before else "simt"
+    if took != route:
+        raise AssertionError(f"lstm_bwd took the {took} route, the plan "
+                             f"says {route}")
+    ks = (lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1, _route="simt")
+          if route == "sm90" else None)
     torch.cuda.synchronize()
-    outs = [t for t in kg + k0 + kb if t is not None]
+    outs = [t for t in kg + k0 + kb + (ks or ()) if t is not None]
     if not all(torch.isfinite(t).all() for t in outs):
         raise AssertionError("an LSTM kernel gave a non-finite value")
     fwd = _scaled_err(kg + k0[:2], ref + ref[:2])
-    bwd = max(_max_err(a, r) / max(r.float().abs().max().item(), 1e-30)
-              for a, r in zip(kb, rb))
-    return fwd, bwd
+
+    def bwd_err(k):
+        return max(_max_err(a, r) / max(r.float().abs().max().item(), 1e-30)
+                   for a, r in zip(k, rb))
+    readings = None
+    if ks is not None and dh1.dtype == torch.float32:
+        readings = {"tensor_core": _product_err(kb[0], w, kb[1]),
+                    "simt": _product_err(ks[0], w, ks[1]),
+                    "two_piece": _product_err(kb[0], w, kb[1], pieces=2),
+                    "tensor_core_vs_simt": (_max_err(kb[1], ks[1]) / max(
+                        ks[1].abs().max().item(), 1e-30))}
+    return fwd, bwd_err(kb), None if ks is None else bwd_err(ks), readings
 
 
 def _lstm_scan_errs(lt, g, od, sd, T, N, H, reverse):
@@ -2142,13 +2219,17 @@ def _lstm_scan_errs(lt, g, od, sd, T, N, H, reverse):
 
 def _lstm_bytes_flops(od, sd, N, H, kernel):
     """What the kernel must move (inputs read once, outputs written once)
-    and its product's flops, with the type the product runs in."""
+    and its product's flops, with the type the product runs in. The
+    backward's float32 product with a bf16 W runs on the tensor cores as
+    three bf16 products (dz split in three pieces)."""
     eo = torch.empty((), dtype=od).element_size()
     es = torch.empty((), dtype=sd).element_size()
     flops = 2 * N * H * 4 * H
     if kernel == "lstm_bwd":
         moved = (N * 4 * H * 4 + 4 * N * H * es + 4 * H * H * eo
                  + N * 4 * H * 4 + 2 * N * H * es)
+        if od == torch.bfloat16:
+            return moved, 3 * flops, torch.bfloat16
         return moved, flops, torch.float32
     gates = N * 4 * H * 4 if kernel == "lstm_fwd_gates" else 0
     moved = (N * 4 * H * eo + 2 * N * H * es + 4 * H * H * eo + 4 * H * eo
@@ -2157,29 +2238,48 @@ def _lstm_bytes_flops(od, sd, N, H, kernel):
     return moved, flops, prod
 
 
-def lstm_kernel_checks(lt):
+def lstm_kernel_checks(lt, common):
     """Phase 17: the B8 kernels against their twins: a sweep of H 16, 20,
     64, 211 (prime), 650, 1030 and N 5, 8, 64, 128, 256 in each type form
-    (with and without the residual; bf16 carries round c to bf16), the
-    whole scan forward + backward in both directions against the CPU twins,
-    then the lane's shape (N 128, H 650) with times beside the twin's, the
-    bound, and cuDNN's whole-sequence LSTM per step as the library
-    yardstick. Returns the JSON records (the lane's type form) and a log of
-    every timing."""
+    (with and without the residual; bf16 carries round c to bf16;
+    ``lstm_bwd`` with a bf16 W on its tensor-core route and on the SIMT
+    kernel), the whole scan forward + backward in both directions against
+    the CPU twins, the tensor-core kernel as built, then the lane's shape
+    (N 128, H 650) with times beside the twin's, the bound, cuDNN's
+    whole-sequence LSTM per step as the library yardstick, and for the
+    tensor-core route the SIMT kernel's time in the same call (in turns),
+    its device time and its host µs. Returns the JSON records (the lane's
+    type form) and a log of every timing."""
+    sass = lstm_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst, n_cases = {}, 0
+    products = {}                       # the product readings' worst
     for od, sd in LSTM_TYPES:
         tol_f, tol_b = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (od, sd)
                                 else torch.float32]
         key = f"{str(od)[6:]} ops {str(sd)[6:]} carries"
         for H in (16, 20, 64, 211, 650, 1030):
             for N in (5, 8, 64, 128, 256):
-                fwd, bwd = _lstm_errs(lt, _lstm_operands(g, od, sd, N, H))
-                if fwd > tol_f or bwd > tol_b:
+                fwd, bwd, simt, readings = _lstm_errs(
+                    lt, _lstm_operands(g, od, sd, N, H))
+                if fwd > tol_f or bwd > tol_b or (simt or 0.0) > tol_b:
                     raise AssertionError(f"LSTM kernels {key} N {N} H {H}: "
-                                         f"forward {fwd}, backward {bwd}")
+                                         f"forward {fwd}, backward {bwd}, "
+                                         f"SIMT backward {simt}")
+                if readings is not None:
+                    if readings["tensor_core"] > LSTM_PRODUCT_TOL:
+                        raise AssertionError(
+                            f"lstm_bwd's tensor-core product {key} N {N} H "
+                            f"{H}: {readings['tensor_core']} over "
+                            f"{LSTM_PRODUCT_TOL} ({json.dumps(readings)})")
+                    for k, v in readings.items():
+                        lo, hi = products.get(k, (v, v))
+                        products[k] = (min(lo, v), max(hi, v))
                 w = worst.setdefault(key, [0.0, 0.0])
                 w[0], w[1] = max(w[0], fwd), max(w[1], bwd)
+                if simt is not None:
+                    worst[key + " simt bwd"] = max(
+                        worst.get(key + " simt bwd", 0.0), simt)
                 n_cases += 1
         for reverse in (False, True):
             fwd, bwd = _lstm_scan_errs(lt, g, od, sd, 6, 16, 211, reverse)
@@ -2188,17 +2288,41 @@ def lstm_kernel_checks(lt):
                                      f"forward {fwd}, backward {bwd}")
             worst[key + " scan"] = max(worst.get(key + " scan", 0.0), fwd,
                                        bwd)
-    log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels and the scan in "
-        f"both directions within tolerance; worst (forward, backward) "
-        f"{json.dumps(worst)}")
-    timings = {"sweep": worst}
+    log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels (and the SIMT "
+        f"backward with a bf16 W) and the scan in both directions within "
+        f"tolerance; worst (forward, backward) {json.dumps(worst)}")
+    log(f"lstm_bwd's product with a bf16 W and float32 carries, dh against "
+        f"the float64 product of its dz, (least, most) over the sweep: "
+        f"{json.dumps(products)} (tensor-core route at most "
+        f"{LSTM_PRODUCT_TOL})")
+    timings = {"sass": sass, "sweep": worst, "sweep_products": products}
     records = {}
     N, H, T = LM_N, LM_H, LM_T
     for od, sd in LSTM_TYPES:
         tag = f"{str(od)[6:]} ops {str(sd)[6:]} carries"
         xp, h, c, w, b, dh1, dc1 = _lstm_operands(g, od, sd, N, H)
-        fwd, bwd = _lstm_errs(lt, (xp, h, c, w, b, dh1, dc1))
+        fwd, bwd, simt_bwd, readings = _lstm_errs(lt, (xp, h, c, w, b, dh1,
+                                                        dc1))
+        if (od, sd) == LSTM_TYPES[0]:
+            log(f"lane backward error ({tag}): {bwd:.3g} (at most "
+                f"{LSTM_LANE_BWD_TOL}, float32's bound); SIMT {simt_bwd:.3g}")
+            log(f"lane product (dh against the float64 product of its dz, "
+                f"over the largest entry): tensor-core "
+                f"{readings['tensor_core']:.3g} (at most {LSTM_PRODUCT_TOL}), "
+                f"SIMT {readings['simt']:.3g}, two-piece control "
+                f"{readings['two_piece']:.3g} (above it), tensor-core vs SIMT "
+                f"{readings['tensor_core_vs_simt']:.3g}")
+            if bwd > LSTM_LANE_BWD_TOL:
+                raise AssertionError(f"lstm_bwd at the lane: error {bwd}")
+            if readings["tensor_core"] > LSTM_PRODUCT_TOL \
+                    or readings["two_piece"] <= LSTM_PRODUCT_TOL:
+                raise AssertionError(f"lstm_bwd's product at the lane: "
+                                     f"{json.dumps(readings)}")
         gates = lt.lstm_fwd_gates(xp, h, c, w, b)[2]
+        tc = lt.lstm_bwd_route(w) == "sm90"
+        # the tensor-core route reads W's padded copy, which the scan makes
+        # once a sequence (its time is logged apart)
+        wp = lt.lstm_bwd_weight(w) if tc else None
         runs = {
             "lstm_fwd_gates": (lambda: lt.lstm_fwd_gates(xp, h, c, w, b),
                                lambda: lt.lstm_fwd_reference(
@@ -2206,43 +2330,68 @@ def lstm_kernel_checks(lt):
             "lstm_fwd": (lambda: lt.lstm_fwd(xp, h, c, w, b),
                          lambda: lt.lstm_fwd_reference(
                              xp, h, c, w, b, False)),
-            "lstm_bwd": (lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1),
+            "lstm_bwd": (lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1,
+                                             w_packed=wp),
                          lambda: lt.lstm_bwd_reference(gates, c, c, w, dh1,
                                                        dc1))}
         lib = _cudnn_lstm_per_step(od, T, N, H)
         for name, (kern, plain) in runs.items():
-            ms = time_ms(kern, iters=50)
-            plain_ms = time_ms(plain, iters=20)
             moved, flops, prod = _lstm_bytes_flops(od, sd, N, H, name)
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[prod] * 1e3
             rec = {"name": name, "route": "cuda", "source": LSTM_SOURCE,
                    "replaces": LSTM_REPLACES[name], "launches": 0,
                    "max_abs_err": bwd if name == "lstm_bwd" else fwd,
-                   "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": ("bytes" if t_bytes >= t_ops
                                 else "operations"),
                    "library_ms": lib[name]}
+            if name == "lstm_bwd" and tc:
+                def old():
+                    return lt.lstm_bwd(gates, c, c, w, dh1, dc1,
+                                       _route="simt")
+                ms1, old1 = time_ms(kern, iters=50), time_ms(old, iters=50)
+                ms2, old2 = time_ms(kern, iters=50), time_ms(old, iters=50)
+                ms = (ms1 + ms2) / 2
+                dev_ms, by_kernel = device_ms(kern)
+                rec.update(name="lstm_bwd/sm90", earlier_ms=(old1 + old2) / 2,
+                           earlier_max_abs_err=simt_bwd, product_err=readings,
+                           device_ms=dev_ms,
+                           device_kernels_ms=by_kernel, host_us=host_us(kern),
+                           weight_copy_ms=time_ms(
+                               lambda: lt.lstm_bwd_weight(w), iters=20))
+            else:
+                ms = time_ms(kern, iters=50)
+            rec.update(ms=ms, plain_ms=time_ms(plain, iters=20))
             timings[f"{name} {tag}"] = rec
             if (od, sd) == LSTM_TYPES[0]:
-                records[name] = rec
-            log(f"time {name} {tag} N {N} H {H}: {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, cuDNN per step {lib[name]:.4f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                records[rec["name"]] = rec
+            extra = (f"; SIMT {rec['earlier_ms']:.4f} ms, device "
+                     f"{rec['device_ms']:.4f} ms "
+                     f"{json.dumps(rec['device_kernels_ms'])}, host "
+                     f"{rec['host_us']:.1f} us, W copy (once a sequence) "
+                     f"{rec['weight_copy_ms']:.4f} ms"
+                     if "device_ms" in rec else "")
+            log(f"time {rec['name']} {tag} N {N} H {H}: {ms:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, cuDNN per step (median) "
+                f"{lib[name]:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}){extra}")
         timings[f"lstm_scan T {T} {tag}"] = _scan_time(lt, g, od, sd, T, N,
                                                        H)
         torch.cuda.empty_cache()
     return records, timings
 
 
-def _cudnn_lstm_per_step(dt, T, N, H):
+def _cudnn_lstm_per_step(dt, T, N, H, tries: int = 3):
     """cuDNN's whole-sequence LSTM (``torch.nn.LSTM``, all in ``dt``) at the
     same T, N, H, per step: inference forward (beside ``lstm_fwd``),
     training forward (beside ``lstm_fwd_gates``) and the backward (forward
-    + backward less the training forward, beside ``lstm_bwd``). It also
-    computes the input projection, which the B8 kernels do not. A
-    yardstick of this phase only; the port never calls it."""
+    + backward less the training forward, beside ``lstm_bwd``), each the
+    median of ``tries`` tries, whose spread is logged (one reading moved
+    2.5x between calls). It also computes the input projection (forward)
+    and its gradients (backward: dx and dW_ih, which ``lstm_bwd`` leaves to
+    the scan's one product), which the B8 kernels do not. A yardstick of
+    this phase only; the port never calls it."""
     net = torch.nn.LSTM(H, H).to(device="cuda", dtype=dt)
     x = torch.randn(T, N, H, device="cuda", dtype=dt, requires_grad=True)
     gy = torch.randn(T, N, H, device="cuda", dtype=dt)
@@ -2258,11 +2407,19 @@ def _cudnn_lstm_per_step(dt, T, N, H):
         y, _ = net(x)
         y.backward(gy)
 
-    f_inf = time_ms(infer, iters=10, warmup=2) / T
-    f_tr = time_ms(train_fwd, iters=10, warmup=2) / T
-    both = time_ms(train_step, iters=10, warmup=2) / T
-    return {"lstm_fwd": f_inf, "lstm_fwd_gates": f_tr,
-            "lstm_bwd": both - f_tr}
+    reads = {"lstm_fwd": [], "lstm_fwd_gates": [], "lstm_bwd": []}
+    for _ in range(tries):
+        f_inf = time_ms(infer, iters=10, warmup=2) / T
+        f_tr = time_ms(train_fwd, iters=10, warmup=2) / T
+        both = time_ms(train_step, iters=10, warmup=2) / T
+        reads["lstm_fwd"].append(f_inf)
+        reads["lstm_fwd_gates"].append(f_tr)
+        reads["lstm_bwd"].append(both - f_tr)
+    log(f"cuDNN LSTM {str(dt)[6:]} T {T} N {N} H {H} per step, {tries} "
+        f"tries (min, median, max ms): " + json.dumps(
+            {k: [min(v), float(np.median(v)), max(v)]
+             for k, v in reads.items()}))
+    return {k: float(np.median(v)) for k, v in reads.items()}
 
 
 def _scan_time(lt, g, od, sd, T, N, H):
@@ -2336,12 +2493,14 @@ def word_lm_train_phase(mx, common, records, steps=5):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = common.launch_counts()
+    sm90 = common.sm90_launch_counts()
     losses = [float(v) for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tok_s = LM_T * LM_N * steps / wall
     log(f"word LM train: losses {[round(v, 4) for v in losses]}; {steps} "
         f"timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
-        f"{tok_s:.0f} tok/s; peak {peak_gb:.2f} GB; launches {launches}")
+        f"{tok_s:.0f} tok/s; peak {peak_gb:.2f} GB; launches {launches}; "
+        f"lstm_bwd on the tensor-core route {sm90['lstm_bwd']}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"word LM loss not finite and falling: "
                              f"{losses}")
@@ -2351,11 +2510,17 @@ def word_lm_train_phase(mx, common, records, steps=5):
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {steps} word-LM steps, not "
                                  f"{n * steps}")
+    # bf16 W_hh: every backward step on the tensor-core route
+    if sm90["lstm_bwd"] != 70 * steps:
+        raise AssertionError(f"lstm_bwd took the tensor-core route "
+                             f"{sm90['lstm_bwd']} times in {steps} word-LM "
+                             f"steps, not {70 * steps}")
     records["lstm_fwd_gates"]["launches"] = launches["lstm_fwd_gates"]
-    records["lstm_bwd"]["launches"] = launches["lstm_bwd"]
+    records["lstm_bwd/sm90"]["launches"] = sm90["lstm_bwd"]
     breakdown = kernel_breakdown(
         "word LM", lambda: step(params, aux, opt, x, y),
-        ("lstm_fwd_kernel", "lstm_bwd_kernel"))
+        ("lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_bwd_dz_kernel",
+         "lstm_bwd_tc_kernel"))
     # the eval forward: recording off, no gradient, dropout off
     common.reset_launch_counts()
     with torch.no_grad():
@@ -2370,6 +2535,7 @@ def word_lm_train_phase(mx, common, records, steps=5):
     return {"step_ms": wall / steps * 1e3, "tok_s": tok_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+            "sm90_launches_per_step": {"lstm_bwd": 70},
             "eval_forward_launches": ev, **breakdown}
 
 
@@ -2399,7 +2565,10 @@ def word_lm_truth_phase(mx, lt, common):
     if launches["lstm_fwd_gates"] != 70 or launches["lstm_bwd"] != 70:
         raise AssertionError(f"f32 pass launches {launches}")
     steps = (lt._step_fwd, lt._step_bwd)
-    lt._step_fwd, lt._step_bwd = lt._twin_fwd, lt._twin_bwd
+
+    def twin_bwd(*args, out=None, w_packed=None):
+        return lt._twin_bwd(*args, out=out)      # the twin reads W itself
+    lt._step_fwd, lt._step_bwd = lt._twin_fwd, twin_bwd
     try:
         loss_t, grads_t = _lm_loss_and_grads(net, params, x, y, mx)
     finally:
@@ -3418,7 +3587,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet_truth = resnet_truth_phase(mx, gluon, vision, common)
     torch.cuda.empty_cache()
-    lstm_records, lstm_timings = lstm_kernel_checks(lt)
+    lstm_records, lstm_timings = lstm_kernel_checks(lt, common)
     records.update(lstm_records)
     torch.cuda.empty_cache()
     word_lm = word_lm_train_phase(mx, common, records)
@@ -3458,7 +3627,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
-        + ROW_KERNELS + CONV_RECORDS + LSTM_KERNELS + DET_KERNELS
+        + ROW_KERNELS + CONV_RECORDS + LSTM_RECORDS + DET_KERNELS
         + RTC_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

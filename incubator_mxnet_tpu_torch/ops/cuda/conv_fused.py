@@ -25,19 +25,18 @@ to the input type, float32 accumulation, outputs rounded to the input type,
 sums over the rounded values.
 
 Two routes, chosen by type and shape before the launch (never on failure):
-``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue`` in
-bf16, with channel counts that are multiples of 8, 16-byte-aligned
-operands and a weight with a stride 1 (for ``mm_fused_bwd`` and
-``conv3_fused``, the one of the gluon weight's view), take the Hopper
-kernels of
+all five in bf16, with channel counts that are multiples of 8,
+16-byte-aligned operands and a weight with a stride 1 (for
+``mm_fused_bwd``, ``conv3_fused`` and ``conv3_fused_bwd``, the one of the
+gluon weight's view), take the Hopper kernels of
 ``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted in
-``sm90_launches`` beside ``launches``); everything else, float32 always
-and ``conv3_fused_bwd`` in either type, takes the SIMT kernels of
-``csrc/conv_fused.cu`` (no TF32, so float32 matches the plain twin).
-:func:`mm_fused_route`, :func:`mm_fused_bwd_route`,
-:func:`conv3_fused_route`, :func:`dgrad_epilogue_route`, :func:`sm90_bn`,
-:func:`sm90_plan` and :func:`sm90_wgrad_split` hold the choice and the
-tile plan in Python. The kernel wrappers take CUDA tensors only
+``sm90_launches`` beside ``launches``); everything else, float32 always,
+takes the SIMT kernels of ``csrc/conv_fused.cu`` (no TF32, so float32
+matches the plain twin). :func:`mm_fused_route`,
+:func:`mm_fused_bwd_route`, :func:`conv3_fused_route`,
+:func:`conv3_fused_bwd_route`, :func:`dgrad_epilogue_route`,
+:func:`sm90_bn`, :func:`sm90_plan` and :func:`sm90_wgrad_split` hold the
+choice and the tile plan in Python. The kernel wrappers take CUDA tensors only
 and raise on anything else; the ``*_reference`` twins are plain PyTorch,
 for the CPU and for holding the kernels to on the card. The reference's
 dispatch between its Pallas kernels and its XLA twins (the 128-lane rule,
@@ -58,7 +57,8 @@ __all__ = ["mm_fused", "mm_fused_bwd", "conv3_fused", "conv3_fused_bwd",
            "dgrad_epilogue", "mm_fused_reference", "mm_fused_bwd_reference",
            "conv3_fused_reference", "conv3_fused_bwd_reference",
            "dgrad_epilogue_reference", "mm_fused_route",
-           "mm_fused_bwd_route", "conv3_fused_route", "dgrad_epilogue_route",
+           "mm_fused_bwd_route", "conv3_fused_route",
+           "conv3_fused_bwd_route", "dgrad_epilogue_route",
            "sm90_bn", "sm90_plan", "sm90_wgrad_split"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -355,6 +355,24 @@ def conv3_fused_route(x2, w9, vecs=()) -> str:
     return "sm90" if ok else "simt"
 
 
+def conv3_fused_bwd_route(x2, w9, acts=(), vecs=()) -> str:
+    """"sm90" when :func:`conv3_fused_bwd` takes the Hopper kernels (bf16,
+    C and N multiples of 8, at least one row, x2 and the activations
+    ``acts`` (dzn, yout) readable by the TMA, w9 the gluon weight's view
+    (strides (C, 1, a multiple of 8): an MN-major B of W[tap]^T) with a
+    16-byte aligned base, the float32 vectors ``vecs`` (a, b, gcoef)
+    16-byte aligned), else "simt"."""
+    c, n = w9.shape[1], w9.shape[2]
+    s_tap, s_c, s_n = w9.stride()
+    ok = (x2.dtype == torch.bfloat16 and w9.dtype == torch.bfloat16
+          and x2.shape[0] >= 1 and all(d % 8 == 0 and d >= 8 for d in (c, n))
+          and s_c == 1 and s_tap == c and s_n % 8 == 0
+          and w9.data_ptr() % 16 == 0
+          and all(_tma_ok(t) for t in (x2,) + tuple(acts))
+          and all(_bulk_ok(v) for v in vecs))
+    return "sm90" if ok else "simt"
+
+
 def dgrad_epilogue_route(x, w_a, w_b, acts=(), vecs=()) -> str:
     """"sm90" when :func:`dgrad_epilogue` takes the Hopper kernels (bf16, K,
     N_a and N_b multiples of 8, both weights with the same stride-1 index,
@@ -372,16 +390,18 @@ def dgrad_epilogue_route(x, w_a, w_b, acts=(), vecs=()) -> str:
 
 
 @functools.lru_cache(maxsize=256)
-def sm90_wgrad_split(m: int, na: int, nb: int, k: int, sms: int):
+def sm90_wgrad_split(m: int, na: int, nb: int, k: int, sms: int,
+                     taps: int = 1):
     """(splits, chunk) of the Hopper route's dW launch: the row range cut
     into ``splits`` chunks of a multiple of 64 rows, each chunk one block per
-    output tile ((ceil(na / 128) + ceil(nb / 128)) x ceil(k / bn) tiles).
-    The count minimises the waves of blocks over ``sms`` SMs times a chunk's
+    output tile ((ceil(na / 128) + ceil(nb / 128)) x taps x ceil(k / bn)
+    tiles; ``taps`` 9 for the 3x3 wgrad, one tap per column tile). The
+    count minimises the waves of blocks over ``sms`` SMs times a chunk's
     rows, plus the float32 partials each split adds; ties go to fewer."""
     bn = sm90_bn(k)
-    tiles = (-(-na // SM90_BM) - (-nb // SM90_BM)) * -(-k // bn)
+    tiles = (-(-na // SM90_BM) - (-nb // SM90_BM)) * taps * -(-k // bn)
     row_s = _SM90_ROW_S * bn / 256
-    part_s = (na + nb) * k * 4 * 2 / _HBM_BYTES_S
+    part_s = (na + nb) * taps * k * 4 * 2 / _HBM_BYTES_S
     best = None
     for s in range(1, min(-(-m // SM90_BK), 64) + 1):
         chunk = -(-(-(-m // s)) // SM90_BK) * SM90_BK
@@ -674,17 +694,22 @@ def conv3_fused(x2, w9, a, b, bhw, stats: bool = True, _route=None):
 
 
 @counted_kernel
-def conv3_fused_bwd(w9, x2, a, b, dzn, yout, gcoef, bhw):
+def conv3_fused_bwd(w9, x2, a, b, dzn, yout, gcoef, bhw, _route=None):
     """CUDA kernels of the fused 3x3 conv backward (replace the Pallas
     ``conv3_fused_bwd``): one launch for dz and the partials, one for dW9.
     Returns (dz (B*H*W, C), dW9 (9, C, N) float32 — a view of a (N, 3, 3,
-    C) tensor, the gluon order — and partials (2, C) float32)."""
+    C) tensor, the gluon order — and partials (2, C) float32). The route is
+    :func:`conv3_fused_bwd_route`'s; on the Hopper route the dgrad launch
+    also writes the bf16 G and x^ = relu(a x + b), the wgrad's operands.
+    ``_route="simt"`` forces the SIMT kernels."""
     _check("conv3_fused_bwd", x2, w9, a, b, dzn, yout)
     m, c = x2.shape
     n = w9.shape[2]
     _, H, W = _bhw_rows("conv3_fused_bwd", x2, bhw)
     if tuple(w9.shape[:2]) != (9, c):
         raise ValueError(f"conv3_fused_bwd: w9 {tuple(w9.shape)} for C {c}")
+    if _route not in (None, "simt"):
+        raise ValueError(f"conv3_fused_bwd: _route {_route!r}")
     name = "conv3_fused_bwd"
     x2 = _rows_of(name, x2, (m, c), x2.dtype)
     _, dzn, yout, gc = _g_operands(name, None, dzn, yout, gcoef, m, n,
@@ -694,12 +719,29 @@ def conv3_fused_bwd(w9, x2, a, b, dzn, yout, gcoef, bhw):
     part = torch.empty((_blocks(m), 2, c), dtype=torch.float32,
                        device=x2.device)
     lib = kernel_library()
-    code = lib.mxt_conv_fused_dgrad(
-        _DTYPE_CODE[x2.dtype], 3, None, _ptr(dzn), _ptr(yout), _ptr(gc),
-        _ptr(w9), w9.stride(0), w9.stride(1), w9.stride(2), _ptr(x2),
-        _ptr(a), _ptr(b), None, _ptr(x2), None, 1, _MASK_CODE["z"], _ptr(dz),
-        _ptr(part), m, c, n, H, W, current_stream_handle(x2))
-    check_launch(code, name)
-    dw = _wgrad(name, 3, x2, a, b, None, dzn, yout, gc, m, c, n, H, W)
+    stream = current_stream_handle(x2)
+    if (_route or conv3_fused_bwd_route(x2, w9, (dzn, yout),
+                                        (a, b, gc))) == "sm90":
+        gm = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        xh = torch.empty_like(x2)
+        splits, chunk = sm90_wgrad_split(m, n, 0, c, _sms(x2.device), 9)
+        ws = torch.empty((splits, n, 9 * c), dtype=torch.float32,
+                         device=x2.device)
+        code = lib.mxt_conv_fused_sm90_conv3_bwd(
+            _ptr(dzn), _ptr(yout), _ptr(gc), _ptr(w9), w9.stride(0),
+            w9.stride(1), w9.stride(2), _ptr(gm), _ptr(x2), _ptr(a), _ptr(b),
+            _ptr(dz), _ptr(part), _ptr(xh), _ptr(ws), splits, chunk, m, c, n,
+            H, W, sm90_bn(c), stream)
+        check_launch(code, name)
+        conv3_fused_bwd.sm90_launches += 1
+        dw = ws.sum(0)
+    else:
+        code = lib.mxt_conv_fused_dgrad(
+            _DTYPE_CODE[x2.dtype], 3, None, _ptr(dzn), _ptr(yout), _ptr(gc),
+            _ptr(w9), w9.stride(0), w9.stride(1), w9.stride(2), _ptr(x2),
+            _ptr(a), _ptr(b), None, _ptr(x2), None, 1, _MASK_CODE["z"],
+            _ptr(dz), _ptr(part), m, c, n, H, W, stream)
+        check_launch(code, name)
+        dw = _wgrad(name, 3, x2, a, b, None, dzn, yout, gc, m, c, n, H, W)
     conv3_fused_bwd.launches += 1
     return dz, dw.reshape(n, 9, c).permute(1, 2, 0), part.sum(0)

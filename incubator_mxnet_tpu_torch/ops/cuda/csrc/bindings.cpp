@@ -92,6 +92,12 @@ int conv_fused_sm90_conv3_launch(const void* x, const float* a,
                                  long long s_n, void* y, float* stats, int M,
                                  int C, int N, int H, int W, int bn,
                                  void* stream);
+int conv_fused_sm90_conv3_bwd_launch(
+    const void* dzn, const void* yout, const float* gc, const void* w,
+    long long s_tap, long long s_c, long long s_n, void* gout, const void* x,
+    const float* a, const float* b, void* dz, float* part, void* xhat,
+    float* ws, int splits, int chunk, int M, int C, int N, int H, int W,
+    int bn, void* stream);
 int lstm_fwd_launch(int in_dtype, int state_dtype, const void* xp,
                     const void* h, const void* c, const void* w,
                     const void* b, void* h1, void* c1, float* gates, int N,
@@ -100,6 +106,11 @@ int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
                     const void* c, const void* c1, const void* w,
                     const void* dh1, const void* dc1, float* dxp, void* dh,
                     void* dc, int N, int H, void* stream);
+int lstm_bwd_sm90_launch(int state_dtype, const float* gates, const void* c,
+                         const void* c1, const void* wp, const void* dh1,
+                         const void* dc1, float* dxp, void* dh, void* dc,
+                         void* dzs, int N, int H, int Hk, int Hm,
+                         void* stream);
 int multibox_match_launch(const float* anchors, const float* labels, int B,
                           int N, int M, float thr, float v0, float v1,
                           float v2, float v3, int anchors_in_smem,
@@ -346,6 +357,24 @@ int mxt_conv_fused_sm90_conv3(const void* x, const void* a, const void* b,
       stream);
 }
 
+// The bf16 route of conv3_fused_bwd: the dgrad (dz, the (blocks, 2, C)
+// partials, G to gout and x^ to xhat), then the wgrad's (splits, N, 9 C)
+// dW partials in ws.
+int mxt_conv_fused_sm90_conv3_bwd(const void* dzn, const void* yout,
+                                  const void* gc, const void* w,
+                                  long long s_tap, long long s_c,
+                                  long long s_n, void* gout, const void* x,
+                                  const void* a, const void* b, void* dz,
+                                  void* part, void* xhat, void* ws,
+                                  int splits, int chunk, int M, int C, int N,
+                                  int H, int W, int bn, void* stream) {
+  return conv_fused_sm90_conv3_bwd_launch(
+      dzn, yout, static_cast<const float*>(gc), w, s_tap, s_c, s_n, gout, x,
+      static_cast<const float*>(a), static_cast<const float*>(b), dz,
+      static_cast<float*>(part), xhat, static_cast<float*>(ws), splits,
+      chunk, M, C, N, H, W, bn, stream);
+}
+
 // One LSTM step (lstm.cu): xp (N, 4H), w (4H, H) and b (4H,) of type
 // in_dtype; h, c, h1, c1 (N, H) of type state_dtype; gates (N, 4H) float32,
 // or null for the variant without the residual.
@@ -367,6 +396,18 @@ int mxt_lstm_bwd(int w_dtype, int state_dtype, const void* gates,
                          static_cast<const float*>(gates), c, c1, w, dh1,
                          dc1, static_cast<float*>(dxp), dh, dc, N, H,
                          stream);
+}
+
+// Its tensor-core form for a bf16 W (lstm.cu): wp the (4, Hk, Hm) bf16
+// zero-padded copy of W, dzs a (3, N, 4, Hk) bf16 scratch for dz's pieces.
+int mxt_lstm_bwd_sm90(int state_dtype, const void* gates, const void* c,
+                      const void* c1, const void* wp, const void* dh1,
+                      const void* dc1, void* dxp, void* dh, void* dc,
+                      void* dzs, int N, int H, int Hk, int Hm,
+                      void* stream) {
+  return lstm_bwd_sm90_launch(state_dtype, static_cast<const float*>(gates),
+                              c, c1, wp, dh1, dc1, static_cast<float*>(dxp),
+                              dh, dc, dzs, N, H, Hk, Hm, stream);
 }
 
 // The SSD matcher (detection.cu): anchors (N, 4) and labels (B, M, 5)

@@ -12,6 +12,9 @@
 //                                                       dW = x^T G
 //   cf90_conv3_kernel        <-  conv3_fused (:634)     y = conv3x3(x^),
 //                                                       stats
+//   cf90_conv3_dgrad_kernel \ <- conv3_fused_bwd (:742) dz = mask(conv3^T
+//   cf90_conv3_wgrad_kernel /                           G), partials, x^;
+//                                                       dW9 = shift(x^)^T G
 // with the reference's rounding points, as conv_fused.cu keeps them: the
 // load transform (x^ = x, relu(a x + b) or relu(a x + b + asc sc + bsc);
 // G = (dzn g0 - g1) - yout g2) in float32 with both roundings of each step,
@@ -56,7 +59,11 @@
 //     last stages' products, and finishes dz from the accumulators in
 //     registers;
 //   * conv3_fused runs the nine taps as nine shifted boxes of one (C, M)
-//     map and masks the halo after the transform, per row and tap.
+//     map and masks the halo after the transform, per row and tap; its
+//     backward's dgrad is mm_fused_bwd's dgrad over nine mirrored boxes of
+//     G's maps (the halo masked after G's transform), and its wgrad the
+//     plain product of G and a shifted x^ box, the halo zeroed in G's
+//     stage rows.
 // Persistence (one block per SM walking the tiles, so that one tile's
 // epilogue overlaps the next one's loads) is later work; a cluster of two
 // blocks sharing the B tile by TMA multicast measured slower at these
@@ -615,6 +622,7 @@ struct BwdArgs {
   bool need_x, p0x, dsc, xhat;           // p0x: x is partner 0
   float* part;
   int M, K, N;
+  int H, W;                              // the 3x3's images (TAPS 9)
 };
 
 // The epilogue's chunk of 64 columns fills one ring stage: 128-row slabs
@@ -622,39 +630,50 @@ struct BwdArgs {
 // (3), then a and b. dz is written over slab 1, x^ over slab 0 (or 2).
 constexpr int kBwdStage = 4 * kA + 1024;
 
-// dz (M x K) = mask(G W^T (+ dsc)) over 128 x BN tiles of dz, with the
-// partials sum dz, sum dz p_j and x^ = relu(a x + b): the single-set form
-// of the dual dgrad above, G either formed on load from (dzn, yout, gc)
-// and written once as bf16 for the wgrad (tg), or read as it is (g); the
-// reduction runs over G's N columns. The epilogue's operands (x, dsc, the
-// partners, a, b) come in by TMA in 64-column chunks through the same
-// ring, the first ones under the last stages' products (the entry form
-// reads four times the bytes of its products' operands there); each
-// chunk is finished from the accumulators in registers, stored by TMA
-// (dz, x^) and summed down its columns from shared memory in a fixed
-// order, one row of partials per 128-row block. B is the gluon weight's
-// view (K, N) with K contiguous, so MN-major: the one layout built.
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
-                      const __grid_constant__ CUtensorMap tyout,
-                      const __grid_constant__ CUtensorMap tw,
-                      const __grid_constant__ CUtensorMap tg,
-                      const __grid_constant__ CUtensorMap tx,
-                      const __grid_constant__ CUtensorMap tdsc,
-                      const __grid_constant__ CUtensorMap tp0,
-                      const __grid_constant__ CUtensorMap tp1,
-                      const __grid_constant__ CUtensorMap tdz,
-                      const __grid_constant__ CUtensorMap txh,
-                      const BwdArgs p) {
-  using P = Plan<BN, 2, kBwdStage>;
+// The tile of the backward dgrads, cf90_bwd_dgrad_kernel (TAPS 1) and
+// cf90_conv3_dgrad_kernel (TAPS 9), with the kernel's plan P.
+//
+// TAPS 1: dz (M x K) = mask(G W^T (+ dsc)) over 128 x BN tiles of dz, with
+// the partials sum dz, sum dz p_j and x^ = relu(a x + b): the single-set
+// form of the dual dgrad above, G either formed on load from (dzn, yout,
+// gc) and written once as bf16 for the wgrad (tg), or read as it is (g);
+// the reduction runs over G's N columns. B is the gluon weight's view
+// (K, N) with K contiguous, so MN-major: the one layout built.
+//
+// TAPS 9: the 3x3 stride-1 pad-1 transpose, dx^ = sum over the taps (r, s)
+// of shift(G) W[r, s]^T, the reduction over (tap, 64-column slice of G)
+// stages. Tap (r, s) reads G's rows m + (1 - r) W + (1 - s) (the forward's
+// shift mirrored): one box of the dzn and yout maps each, transformed on
+// load, then every row whose tapped pixel lies outside its own image
+// zeroed (the transform of a zero row is -g1, not 0, and a flat shift also
+// crosses image rows, so the [0, M) bounds of the box are not enough). B
+// is W[r, s]^T from the gluon (O, 3, 3, I) weight, one MN-major (N, 9 C)
+// map, at column tap C + c0 (a tile that runs past C reads the next tap's
+// columns there, which are never stored). The centre tap reads G unshifted
+// and writes it out for the wgrad. The epilogue is the 1x1's with dsc
+// none, the mask on z = a x + b, x its own partner and x^ written.
+//
+// The epilogue's operands (x, dsc, the partners, a, b) come in by TMA in
+// 64-column chunks through the same ring, the first ones under the last
+// stages' products (the entry form reads four times the bytes of its
+// products' operands there); each chunk is finished from the accumulators
+// in registers, stored by TMA (dz, x^) and summed down its columns from
+// shared memory in a fixed order, one row of partials per 128-row block.
+template <int BN, int TAPS, typename P>
+__device__ __forceinline__ void
+bwd_dgrad_tile(const CUtensorMap& tdzn, const CUtensorMap& tyout,
+               const CUtensorMap& tw, const CUtensorMap& tg,
+               const CUtensorMap& tx, const CUtensorMap& tdsc,
+               const CUtensorMap& tp0, const CUtensorMap& tp1,
+               const CUtensorMap& tdz, const CUtensorMap& txh,
+               const BwdArgs& p) {
   constexpr int S = P::kStages;
   constexpr int kCf = 4 * kA;                        // a, b of a chunk
   extern __shared__ unsigned char dyn[];
   unsigned char* smem = align1024(dyn);
   __shared__ __align__(8) uint64_t full[S], empty[S];
   __shared__ float red[2][8][3][64];                 // chunk parity
-  const int nk = (p.N + kBK - 1) / kBK;
+  const int ns = (p.N + kBK - 1) / kBK, nk = TAPS * ns;
   const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * BN;
   const int nch = min(BN, p.K - c0 + 63) / 64;       // chunks inside K
   const bool direct = p.gc == nullptr;
@@ -668,14 +687,15 @@ cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
       tma_prefetch(&tdzn);
       tma_prefetch(&tw);
       for (int kb = 0; kb < nk; ++kb) {
-        const int s = kb % S, r0 = kb * kBK;
+        const int s = kb % S, tap = kb / ns, r0 = (kb - tap * ns) * kBK;
+        const int shift = TAPS == 1 ? 0 : (1 - tap / 3) * p.W + 1 - tap % 3;
         const uint32_t cb = direct ? 0 : 4 * min(kBK, p.N - r0);
         ring.wait_slot(kb);
         unsigned char* st = smem + s * P::kStage;
         mbar_expect_tx(&full[s], (direct ? 1 : 2) * kA + P::kB + 3 * cb);
-        tma_load_2d(st, &tdzn, &full[s], r0, m0);
-        if (!direct) tma_load_2d(st + kA, &tyout, &full[s], r0, m0);
-        load_b<BN, true>(st + 2 * kA, &tw, &full[s], r0, c0);
+        tma_load_2d(st, &tdzn, &full[s], r0, m0 + shift);
+        if (!direct) tma_load_2d(st + kA, &tyout, &full[s], r0, m0 + shift);
+        load_b<BN, true>(st + 2 * kA, &tw, &full[s], r0, tap * p.K + c0);
         if (!direct) {
 #pragma unroll
           for (int i = 0; i < 3; ++i)
@@ -705,15 +725,34 @@ cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
     reg_alloc<232>();
     const int ct = threadIdx.x, w = (ct >> 5) & 3, lane = ct & 31;
     const int g = lane >> 2, t = lane & 3;
+    // TAPS 9: bit tap of inside[h] is set when this thread's fragment row
+    // h (rows g and g + 8) taps a pixel of its own image there
+    uint32_t inside[2] = {1u, 1u};
+    if constexpr (TAPS == 9) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * wg + 16 * w + g + 8 * h;
+        const int hh = (m / p.W) % p.H, ww = m % p.W;
+        inside[h] = 0;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int ih = hh + 1 - tap / 3, iw = ww + 1 - tap % 3;
+          if (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W)
+            inside[h] |= 1u << tap;
+        }
+      }
+    }
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     // stage kb's A fragments: g as it is, or G = (dzn g0 - g1) - yout g2
-    // -> bf16 with the columns n >= N zeroed and written out by column
-    // tile kb mod (column tiles), as the dual dgrad does
+    // -> bf16 with the columns n >= N (and, TAPS 9, the rows outside their
+    // image) zeroed; the unshifted G written out by column tile (slice mod
+    // column tiles), as the dual dgrad does
     auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[4][4]) {
       ring.wait_full(kb);
-      const int r0 = kb * kBK, nl = p.N - r0;
+      const int tap = kb / ns, sl = kb - tap * ns;
+      const int r0 = sl * kBK, nl = p.N - r0;
       unsigned char* slab = st + wg * kSlab;
       const uint32_t da = smem_u32(slab);
       if (direct) {                           // TMA read n >= N as 0
@@ -721,6 +760,7 @@ cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
         for (int ks = 0; ks < 4; ++ks) frag_a_kmajor(fa[ks], da, w, ks, lane);
         return;
       }
+      const bool in0 = (inside[0] >> tap) & 1, in1 = (inside[1] >> tap) & 1;
       const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
@@ -728,12 +768,12 @@ cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
         frag_a_kmajor(fa[ks], da, w, ks, lane);
         frag_a_kmajor(fy, da + kA, w, ks, lane);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < 4; ++q) {                 // q & 1: row + 8
           const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
           const float2 g0 = *reinterpret_cast<const float2*>(cf + kl);
           const float2 g1 = *reinterpret_cast<const float2*>(cf + 64 + kl);
           const float2 g2 = *reinterpret_cast<const float2*>(cf + 128 + kl);
-          fa[ks][q] = kl < nl
+          fa[ks][q] = ((q & 1) ? in1 : in0) && kl < nl
               ? pack_bf16(bn_g(lo_f(fa[ks][q]), lo_f(fy[q]), g0.x, g1.x,
                                g2.x),
                           bn_g(hi_f(fa[ks][q]), hi_f(fy[q]), g0.y, g1.y,
@@ -741,7 +781,7 @@ cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
               : 0u;
         }
       }
-      if (kb % gridDim.x == blockIdx.x) {
+      if (tap == TAPS / 2 && sl % gridDim.x == blockIdx.x) {
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -854,6 +894,43 @@ cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
   }
 }
 
+// mm_fused_bwd's dgrad: bwd_dgrad_tile's TAPS 1 form over the 1x1's maps
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_bwd_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
+                      const __grid_constant__ CUtensorMap tyout,
+                      const __grid_constant__ CUtensorMap tw,
+                      const __grid_constant__ CUtensorMap tg,
+                      const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tdsc,
+                      const __grid_constant__ CUtensorMap tp0,
+                      const __grid_constant__ CUtensorMap tp1,
+                      const __grid_constant__ CUtensorMap tdz,
+                      const __grid_constant__ CUtensorMap txh,
+                      const BwdArgs p) {
+  using P = Plan<BN, 2, kBwdStage>;
+  bwd_dgrad_tile<BN, 1, P>(tdzn, tyout, tw, tg, tx, tdsc, tp0, tp1, tdz, txh,
+                           p);
+}
+
+// conv3_fused_bwd's dgrad: the TAPS 9 form. dz (M x C) = mask_z(sum over
+// the taps of shift(G) W[tap]^T), the partials sum dz and sum dz x, x^ and
+// the unshifted G for cf90_conv3_wgrad_kernel. x is the epilogue's only
+// operand (its own partner), so the dsc and partner maps are never read.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_conv3_dgrad_kernel(const __grid_constant__ CUtensorMap tdzn,
+                        const __grid_constant__ CUtensorMap tyout,
+                        const __grid_constant__ CUtensorMap tw,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tdz,
+                        const __grid_constant__ CUtensorMap txh,
+                        const BwdArgs p) {
+  using P = Plan<BN, 2, kBwdStage>;
+  bwd_dgrad_tile<BN, 9, P>(tdzn, tyout, tw, tg, tx, tx, tx, tx, tdz, txh, p);
+}
+
 // ------------------------------------------------------------ dual wgrad
 struct WgradArgs {
   float* ws;                             // (splits, Na + Nb, C) float32
@@ -925,6 +1002,102 @@ cf90_dual_wgrad_kernel(const __grid_constant__ CUtensorMap tx,
         const int c = c0 + 8 * j + 2 * t;
         if (c < p.C)
           *reinterpret_cast<float2*>(row + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ 3x3 wgrad
+struct Conv3WgradArgs {
+  float* ws;                             // (splits, N, 9 C) float32
+  int chunk, M, C, N, H, W;
+};
+
+// ws[split, n, tap C + c] = sum over this split's rows m of G[m, n]
+// x^[m + (r - 1) W + (s - 1), c], over the rows m whose tapped pixel (the
+// forward's tap (r, s)) lies in m's own image: the dual wgrad's plain
+// product of the dgrad's G and x^, one tap per output column tile (tile
+// (n0, tap, c0); columns c >= C are not stored). x^'s box is shifted by
+// the tap (rows outside [0, M) read 0); the halo mask falls on A = G^T
+// along the reduction: each consumer warpgroup zeroes, in its own slab of
+// the stage, the 128-byte rows m whose tapped pixel leaves the image,
+// while the previous stage's products run, then hands the slab to wgmma.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_conv3_wgrad_kernel(const __grid_constant__ CUtensorMap txh,
+                        const __grid_constant__ CUtensorMap tg,
+                        const Conv3WgradArgs p) {
+  using P = Plan<BN, 1>;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int ctiles = (p.C + BN - 1) / BN;
+  const int tap = blockIdx.y / ctiles;
+  const int n0 = blockIdx.x * kBM, c0 = (blockIdx.y - tap * ctiles) * BN;
+  const int dr = tap / 3 - 1, ds = tap % 3 - 1;
+  const int mb = blockIdx.z * p.chunk;
+  const int nk = (min(p.M, mb + p.chunk) - mb + kBK - 1) / kBK;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, r0 = mb + kb * kBK;
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], kA + P::kB);
+        tma_load_2d(st, &tg, &full[s], n0, r0);
+        tma_load_2d(st + kSlab, &tg, &full[s], n0 + 64, r0);
+        load_b<BN, true>(st + kA, &txh, &full[s], r0 + dr * p.W + ds, c0);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int half = threadIdx.x & 1, row = (threadIdx.x & 127) >> 1;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kb = 0; kb < nk; ++kb) {
+      ring.wait_full(kb);
+      unsigned char* slab = smem + (kb % S) * P::kStage + wg * kSlab;
+      // two threads a row: zero this warpgroup's half-row if the row's
+      // tapped pixel is outside its image (rows >= M read 0 already)
+      const int m = mb + kb * kBK + row;
+      const int ih = (m / p.W) % p.H + dr, iw = m % p.W + ds;
+      if (m < p.M && (ih < 0 || ih >= p.H || iw < 0 || iw >= p.W)) {
+        uint4* z = reinterpret_cast<uint4*>(slab + row * 128 + half * 64);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) z[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+      issue_ss<BN, true, true>(acc, slab, smem + (kb % S) * P::kStage + kA);
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kb > 0) ring.release(kb - 1, lane);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (nk > 0) ring.release(nk - 1, lane);
+    // float32 partials straight from the fragments: rows n < N of the
+    // split's block of ws, this tap's columns c < C
+    float* ws = p.ws + static_cast<size_t>(blockIdx.z) * p.N * 9 * p.C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * wg + 16 * w + g + 8 * h;
+      if (n >= p.N) continue;
+      float* out = ws + static_cast<size_t>(n) * 9 * p.C + tap * p.C;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = c0 + 8 * j + 2 * t;
+        if (c < p.C)
+          *reinterpret_cast<float2*>(out + c) =
               make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
@@ -1154,6 +1327,19 @@ int conv3_bn(const CUtensorMap& tx, const CUtensorMap& tw,
                                        p);
 }
 
+template <int BN>
+int conv3_bwd_bn(const CUtensorMap (&m)[8], const BwdArgs& p,
+                 const Conv3WgradArgs& q, int splits, cudaStream_t st) {
+  const dim3 grid((p.K + BN - 1) / BN, (p.M + kBM - 1) / kBM);
+  const int e = launch<cf90_conv3_dgrad_kernel<BN>>(
+      Plan<BN, 2, kBwdStage>::kSmem, grid, st, m[0], m[1], m[2], m[3], m[4],
+      m[5], m[6], p);
+  if (e != 0) return e;
+  const dim3 wgrid((q.N + kBM - 1) / kBM, 9 * ((q.C + BN - 1) / BN), splits);
+  return launch<cf90_conv3_wgrad_kernel<BN>>(Plan<BN, 1>::kSmem, wgrid, st,
+                                             m[7], m[3], q);
+}
+
 bool bad_bn(int bn) { return bn != 64 && bn != 128 && bn != 256; }
 
 }  // namespace
@@ -1316,4 +1502,49 @@ int conv_fused_sm90_conv3_launch(const void* x, const float* a,
   if (bn == 64) return conv3_bn<64>(tx, tw, p, st);
   if (bn == 128) return conv3_bn<128>(tx, tw, p, st);
   return conv3_bn<256>(tx, tw, p, st);
+}
+
+// The bf16 3x3 backward, two launches: the dgrad, dz (M, C) = the 3x3
+// transpose of G masked on a x + b > 0, part (ceil(M / 128), 2, C) float32
+// partials of sum dz and sum dz x, with G = (dzn g0 - g1) - yout g2 from
+// dzn, yout (M, N) and gc (3, N) written to gout (M, N) and x^ =
+// relu(a x + b) to xhat (M, C); then the wgrad from gout and xhat, ws
+// (splits, N, 9 C) float32 dW partials in the gluon order, split s
+// covering rows [s chunk, (s + 1) chunk), chunk a multiple of 64. x (M, C)
+// NHWC rows of M / (H W) images; w read at w[tap * s_tap + c * s_c + n *
+// s_n] with s_c 1 and s_tap C (the gluon view) and s_n a multiple of 8; C
+// and N multiples of 8; every pointer 16-byte aligned.
+int conv_fused_sm90_conv3_bwd_launch(
+    const void* dzn, const void* yout, const float* gc, const void* w,
+    long long s_tap, long long s_c, long long s_n, void* gout, const void* x,
+    const float* a, const float* b, void* dz, float* part, void* xhat,
+    float* ws, int splits, int chunk, int M, int C, int N, int H, int W,
+    int bn, void* stream) {
+  if (M < 1 || C < 8 || N < 8 || C % 8 || N % 8 || H < 1 || W < 1 ||
+      M % (H * W) || bad_bn(bn) || s_c != 1 || s_tap != C || !dzn ||
+      !yout || !gc || !gout || !x || !a || !b || !dz || !part || !xhat ||
+      !ws || splits < 1 || splits > 65535 || chunk < kBK || chunk % kBK ||
+      static_cast<long long>(splits - 1) * chunk >= M ||
+      static_cast<long long>(splits) * chunk < M)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the dgrad's G operands, weight, G out, x, dz and x^ (128-row boxes for
+  // the epilogue's chunks); the wgrad's x^ in 64-row boxes
+  CUtensorMap m[8];
+  if (!make_map(&m[0], dzn, N, M, N, kBM) ||
+      !make_map(&m[1], yout, N, M, N, kBM) ||
+      !make_map(&m[2], w, 9LL * C, N, s_n, 64) ||       // MN-major B
+      !make_map(&m[3], gout, N, M, N, 64) ||
+      !make_map(&m[4], x, C, M, C, kBM) ||
+      !make_map(&m[5], dz, C, M, C, kBM) ||
+      !make_map(&m[6], xhat, C, M, C, kBM) ||
+      !make_map(&m[7], xhat, C, M, C, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs p{gc, a, b, 1, 2, true, true, false, true, part, M, C, N};
+  p.H = H;
+  p.W = W;
+  const Conv3WgradArgs q{ws, chunk, M, C, N, H, W};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == 64) return conv3_bwd_bn<64>(m, p, q, splits, st);
+  if (bn == 128) return conv3_bwd_bn<128>(m, p, q, splits, st);
+  return conv3_bwd_bn<256>(m, p, q, splits, st);
 }

@@ -11,7 +11,14 @@ Counterpart of ``incubator_mxnet_tpu/ops/pallas/lstm.py``:
   counted apart, so a run shows its training and its inference launches;
 * ``lstm_bwd`` / ``lstm_bwd_reference`` — the step's backward: from
   (gates, c, c', W, dh', dc') the four dz, dxp = dz in float32,
-  dh = dz @ W and dc = dct f (the reference's ``_run_bwd``);
+  dh = dz @ W and dc = dct f (the reference's ``_run_bwd``). Its route
+  (:func:`lstm_bwd_route`) is chosen by W's type before the launch: a bf16
+  W takes the tensor-core kernels (dz split exactly into three bf16
+  pieces, so the product stays float32's; counted in ``sm90_launches``
+  beside ``launches``), which read W only as the zero-padded copy
+  :func:`lstm_bwd_weight` makes, passed as ``w_packed`` (the scan makes
+  it once per sequence, the cell once per step); a float32 W takes the
+  SIMT kernel;
 * ``lstm_scan`` — the whole sequence as one ``torch.autograd.Function``
   (the reference's scan-level custom VJP ``_lstm_scan_fused``): the forward
   loops over T launching the forward kernel, with the residual only when a
@@ -33,7 +40,8 @@ compute projects in bf16 but carries float32 states, as the reference
 does. The gate math runs in float32; h' and c' are rounded to the
 carries' type, dh and dc to the cotangents'. CUDA tensors go through the
 kernels, CPU tensors through the twins; a kernel wrapper given anything
-else raises.
+else raises. ``lstm_bwd``'s tensor-core route (``lstm_bwd_tc_kernel``)
+uses thread-block clusters and runs only on a Hopper card.
 """
 from __future__ import annotations
 
@@ -44,9 +52,13 @@ from .common import (check_launch, counted_kernel, current_stream_handle,
 
 __all__ = ["lstm_fwd", "lstm_fwd_gates", "lstm_bwd", "lstm_fwd_reference",
            "lstm_bwd_reference", "lstm_scan", "lstm_cell",
-           "lstm_cell_viable"]
+           "lstm_cell_viable", "lstm_bwd_route", "lstm_bwd_weight",
+           "lstm_bwd_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core backward's reduction stage (lstm.cu kTK): W's copy and
+# the dz pieces are padded to a multiple of it along j
+TC_TK = 32
 
 # ---------------------------------------------------- the reference's rule
 _LSTM_VMEM_BUDGET = 14 * 1024 * 1024
@@ -180,27 +192,84 @@ def lstm_fwd_gates(xp, h, c, w, b, out=None):
     return res
 
 
+def lstm_bwd_route(w) -> str:
+    """"sm90" when :func:`lstm_bwd` takes the tensor-core kernels (W_hh in
+    bf16, with either carry type), else "simt" (a float32 W_hh)."""
+    return "sm90" if w.dtype == torch.bfloat16 else "simt"
+
+
+def lstm_bwd_plan(h: int) -> tuple[int, int]:
+    """The tensor-core backward's padded sizes at hidden size ``h``: (hk,
+    hm), W's copy being (4, hk, hm) and the dz pieces' scratch (3, N, 4,
+    hk)."""
+    return -(-h // TC_TK) * TC_TK, -(-h // 8) * 8
+
+
+def lstm_bwd_weight(w):
+    """W_hh (4H, H) as the tensor-core backward reads it: (4, Hk, Hm) with
+    [k, j, m] = W[k H + j, m] and zeros past H, every row 16-byte aligned
+    (16-byte ``cp.async``). A copy of W, made once per sequence."""
+    hid = w.shape[1]
+    wp = w.new_zeros((4, *lstm_bwd_plan(hid)))
+    wp[:, :hid, :hid] = w.reshape(4, hid, hid)
+    return wp
+
+
+def _bwd_weight(w):
+    """W's copy for :func:`lstm_bwd` when it takes the tensor-core route,
+    else None."""
+    return (lstm_bwd_weight(w) if w.is_cuda and lstm_bwd_route(w) == "sm90"
+            else None)
+
+
 @counted_kernel
-def lstm_bwd(gates, c, c1, w, dh1, dc1, out=None):
-    """CUDA kernel of one LSTM step's backward (replaces the Pallas
+def lstm_bwd(gates, c, c1, w, dh1, dc1, out=None, w_packed=None,
+             _route=None):
+    """CUDA kernels of one LSTM step's backward (replace the Pallas
     ``_run_bwd``). ``out`` optionally gives the (N, 4H) float32 dxp to
-    write into. Returns (dxp, dh, dc)."""
+    write into. The route is :func:`lstm_bwd_route`'s; the tensor-core
+    route needs ``w_packed``, W's copy from :func:`lstm_bwd_weight`, which
+    a caller makes once for all the steps it runs with one W.
+    ``_route="simt"`` forces the SIMT kernel. Returns (dxp, dh, dc)."""
     n, hid = c.shape
     st = c.dtype
     _check("lstm_bwd", c, (gates, (n, 4 * hid), torch.float32),
            (c, (n, hid), st), (c1, (n, hid), st),
            (w, (4 * hid, hid), w.dtype), (dh1, (n, hid), st),
            (dc1, (n, hid), st))
+    if _route not in (None, "simt"):
+        raise ValueError(f"lstm_bwd: _route {_route!r}")
+    sm90 = (_route or lstm_bwd_route(w)) == "sm90"
+    if sm90:
+        if w_packed is None:
+            raise ValueError("lstm_bwd: a bf16 W takes the tensor-core "
+                             "route, which reads W's copy: pass "
+                             "w_packed=lstm_bwd_weight(w)")
+        _check("lstm_bwd", c,
+               (w_packed, (4, *lstm_bwd_plan(hid)), torch.bfloat16))
     dxp = out if out is not None else torch.empty(
         (n, 4 * hid), dtype=torch.float32, device=c.device)
     _check("lstm_bwd", c, (dxp, (n, 4 * hid), torch.float32))
     dh, dc = torch.empty_like(dh1), torch.empty_like(dc1)
-    code = kernel_library().mxt_lstm_bwd(
-        _DTYPE_CODE[w.dtype], _DTYPE_CODE[st], gates.data_ptr(),
-        c.data_ptr(), c1.data_ptr(),
-        w.data_ptr(), dh1.data_ptr(), dc1.data_ptr(), dxp.data_ptr(),
-        dh.data_ptr(), dc.data_ptr(), n, hid, current_stream_handle(c))
-    check_launch(code, "lstm_bwd")
+    lib = kernel_library()
+    if sm90:
+        hk, hm = w_packed.shape[1:]
+        dzs = torch.empty((3, n, 4, hk), dtype=torch.bfloat16,
+                          device=c.device)
+        code = lib.mxt_lstm_bwd_sm90(
+            _DTYPE_CODE[st], gates.data_ptr(), c.data_ptr(), c1.data_ptr(),
+            w_packed.data_ptr(), dh1.data_ptr(), dc1.data_ptr(),
+            dxp.data_ptr(), dh.data_ptr(), dc.data_ptr(), dzs.data_ptr(), n,
+            hid, hk, hm, current_stream_handle(c))
+        check_launch(code, "lstm_bwd")
+        lstm_bwd.sm90_launches += 1
+    else:
+        code = lib.mxt_lstm_bwd(
+            _DTYPE_CODE[w.dtype], _DTYPE_CODE[st], gates.data_ptr(),
+            c.data_ptr(), c1.data_ptr(),
+            w.data_ptr(), dh1.data_ptr(), dc1.data_ptr(), dxp.data_ptr(),
+            dh.data_ptr(), dc.data_ptr(), n, hid, current_stream_handle(c))
+        check_launch(code, "lstm_bwd")
     lstm_bwd.launches += 1
     return dxp, dh, dc
 
@@ -217,6 +286,7 @@ def _twin_fwd(xp, h, c, w, b, with_gates, out=None):
 
 
 def _twin_bwd(gates, c, c1, w, dh1, dc1, out=None):
+    """One backward step on the twin, written into ``out`` when given."""
     dxp, dh, dc = lstm_bwd_reference(gates, c, c1, w, dh1, dc1)
     if out is not None:
         out.copy_(dxp)
@@ -232,9 +302,12 @@ def _step_fwd(xp, h, c, w, b, with_gates, out=None):
     return _twin_fwd(xp, h, c, w, b, with_gates, out)
 
 
-def _step_bwd(gates, c, c1, w, dh1, dc1, out=None):
+def _step_bwd(gates, c, c1, w, dh1, dc1, out=None, w_packed=None):
+    """One backward step: the kernels on the card (``w_packed`` from
+    :func:`_bwd_weight`), the twin on the CPU."""
     if c.is_cuda:
-        return lstm_bwd(gates, c, c1, w, dh1, dc1, out=out)
+        return lstm_bwd(gates, c, c1, w, dh1, dc1, out=out,
+                        w_packed=w_packed)
     return _twin_bwd(gates, c, c1, w, dh1, dc1, out)
 
 
@@ -253,8 +326,10 @@ def _operands(xp, w, b):
 
 # ------------------------------------------------------------ the scan
 def _scan_forward(x_proj, h0, c0, w, b, reverse, with_gates):
-    """The forward loop: ys (T, N, H), c's (T, N, H) and, with the
-    residual, the gates (T, N, 4H) float32, each step written in place."""
+    """The forward loop over the caller's operands (widened by
+    ``_operands``): ys (T, N, H), c's (T, N, H) and, with the residual, the
+    gates (T, N, 4H) float32, each step written in place."""
+    x_proj, w, b = _operands(x_proj, w, b)
     T, N, _ = x_proj.shape
     H = h0.shape[1]
     ys = torch.empty((T, N, H), dtype=h0.dtype, device=h0.device)
@@ -270,12 +345,16 @@ def _scan_forward(x_proj, h0, c0, w, b, reverse, with_gates):
 
 
 class _LSTMScan(torch.autograd.Function):
-    """The reference's ``_lstm_scan_fwd`` / ``_lstm_scan_bwd``."""
+    """The reference's ``_lstm_scan_fwd`` / ``_lstm_scan_bwd``, given the
+    caller's operands: the forward widens them (``_scan_forward``), the
+    backward multiplies by W_hh as the caller passed it, so a bf16 W_hh
+    under float32 operands still takes ``lstm_bwd``'s tensor-core route."""
 
     @staticmethod
     def forward(ctx, x_proj, h0, c0, w, b, reverse):
         ys, c1s, gs = _scan_forward(x_proj, h0, c0, w, b, reverse, True)
         ctx.reverse = reverse
+        ctx.b_dtype = b.dtype
         ctx.save_for_backward(ys, c1s, gs, h0, c0, w)
         last = 0 if reverse else ys.shape[0] - 1
         return ys, ys[last].clone(), c1s[last].clone()
@@ -288,22 +367,22 @@ class _LSTMScan(torch.autograd.Function):
         dzs = torch.empty((T, N, 4 * H), dtype=torch.float32,
                           device=ys.device)
         dh, dc = dhT.contiguous(), dcT.contiguous()
+        wp = _bwd_weight(w)                 # once for the T steps
         for t in (range(T) if rev else range(T - 1, -1, -1)):
             prev = t + 1 if rev else t - 1
             c_t = c0 if prev in (-1, T) else c1s[prev]
             # the step's output cotangent joins the carry's, in its type
             _, dh, dc = _step_bwd(gs[t], c_t, c1s[t], w,
                                   (dh + dys[t]).to(dh.dtype), dc,
-                                  out=dzs[t])
+                                  out=dzs[t], w_packed=wp)
         hs = (torch.cat([ys[1:], h0[None]]) if rev
               else torch.cat([h0[None], ys[:-1]]))
         dz2 = dzs.reshape(T * N, 4 * H)
         # dW_hh and db_hh as ONE float32 contraction over the T N rows
         dw = torch.matmul(dz2.t(), hs.reshape(T * N, H).float())
         db = dz2.sum(dim=0)
-        # b shares w's type here (``_operands``)
-        return (dzs.to(ys.dtype), dh, dc, dw.to(w.dtype), db.to(w.dtype),
-                None)
+        return (dzs.to(ys.dtype), dh, dc, dw.to(w.dtype),
+                db.to(ctx.b_dtype), None)
 
 
 def lstm_scan(x_proj, h0, c0, w_hh, b_hh, reverse: bool = False):
@@ -314,7 +393,6 @@ def lstm_scan(x_proj, h0, c0, w_hh, b_hh, reverse: bool = False):
     ``reverse`` runs t = T-1 .. 0 (the second direction). Returns (ys
     (T, N, H), hT, cT). Differentiable when a gradient is needed; else the
     forward kernel runs without the residual."""
-    x_proj, w_hh, b_hh = _operands(x_proj, w_hh, b_hh)
     args = [t.contiguous() for t in (x_proj, h0, c0, w_hh, b_hh)]
     if _needs_grad(*args):
         return _LSTMScan.apply(*args, bool(reverse))
@@ -351,7 +429,7 @@ class _LSTMCell(torch.autograd.Function):
         gates, c, c1, h, w = ctx.saved_tensors
         N, H = h.shape
         dxp, dh, dc = _step_bwd(gates, c, c1, w, dh1.contiguous(),
-                                dc1.contiguous())
+                                dc1.contiguous(), w_packed=_bwd_weight(w))
         # per-step weight gradients in float32, cast to w's type
         dw4 = torch.matmul(dxp.t(), h.float()).reshape(4, H, H)
         db4 = dxp.sum(dim=0).reshape(4, 1, H)

@@ -412,3 +412,97 @@ def test_conv3_tap_decomposition_matches_the_twin_and_jax(dt, shape):
             r = r.float()
             err = (g.float() - r).abs().max() / max(1.0, r.abs().max())
             assert err <= tol, err
+
+
+# --------------------- the 3x3 backward kernels' decomposition, emulated
+def conv3_bwd_by_taps(w9, x2, a, b, dzn, yout, gcoef, bhw):
+    """conv3_fused_bwd as ``cf90_conv3_dgrad_kernel`` and
+    ``cf90_conv3_wgrad_kernel`` compute it. Dgrad: for each tap (r, s), G's
+    rows m + (1 - r) W + (1 - s) (rows outside [0, M) read 0) transformed
+    on load, G = (dzn g0 - g1) - yout g2 rounded to the input type, then
+    zeroed where the tapped pixel (h + 1 - r, w + 1 - s) lies outside its
+    row's image, times W[r, s]^T, summed in float32; dz masked on
+    a x + b > 0 and rounded once; the partials over the rounded dz. Wgrad:
+    the unshifted G (the dgrad's centre tap writes it) with its rows zeroed
+    where the forward's tapped pixel (h + r - 1, w + s - 1) leaves the
+    image, against x^ = relu(a x + b) at rows m + (r - 1) W + (s - 1)."""
+    B, H, W = bhw
+    M, C = x2.shape
+    N = w9.shape[2]
+    gc = gcoef.float()
+    m = torch.arange(M)
+    hh, ww = (m // W) % H, m % W
+
+    def rows(t, src):
+        ok = (src >= 0) & (src < M)
+        out = torch.zeros((M, t.shape[1]))
+        out[ok] = t[src[ok]].float()
+        return out
+
+    def inside(dr, ds):
+        return ((hh + dr >= 0) & (hh + dr < H) & (ww + ds >= 0)
+                & (ww + ds < W))[:, None]
+
+    z = x2.float() * a.float() + b.float()
+    xh = torch.clamp(z, min=0.0).to(x2.dtype)
+    g = None
+    dxh = torch.zeros((M, C))
+    dw = torch.zeros((9, C, N))
+    for tap in range(9):
+        r, s = tap // 3, tap % 3
+        src = m + (1 - r) * W + (1 - s)
+        gs = ((rows(dzn, src) * gc[0] - gc[1]) - rows(yout, src) * gc[2]
+              ).to(dzn.dtype).float() * inside(1 - r, 1 - s)
+        if tap == 4:
+            g = gs
+        dxh += gs @ w9[tap].float().t()
+    for tap in range(9):
+        r, s = tap // 3, tap % 3
+        xs = rows(xh, m + (r - 1) * W + (s - 1))
+        dw[tap] = xs.t() @ (g * inside(r - 1, s - 1))
+    dz = torch.where(z > 0.0, dxh, torch.zeros(())).to(x2.dtype)
+    dzf = dz.float()
+    return dz, dw, torch.stack([dzf.sum(0), (dzf * x2.float()).sum(0)])
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _TAP_SHAPES)
+def test_conv3_bwd_tap_decomposition_matches_the_twin_and_jax(dt, shape):
+    """The Hopper 3x3 backward's mirrored shifted products (halo masked
+    after G's transform) and its shifted wgrad (halo masked on G's rows)
+    equal the port's twin and the JAX ``_conv3_fused_bwd_xla``: 1e-4 in
+    float32, 2e-2 in bf16, each over max(1, the reference's largest
+    entry)."""
+    B, H, C, N = shape
+    rs = np.random.RandomState(40 + C)
+    M = B * H * H
+    tdt, jdt = TDT[dt], JDT[dt]
+    x_np = rs.randn(M, C).astype(np.float32)
+    w_np = rs.randn(N, 3, 3, C).astype(np.float32)   # gluon (O, 3, 3, I)
+    a_np = np.abs(rs.randn(C)).astype(np.float32) + 0.5
+    b_np = rs.randn(C).astype(np.float32)
+    dzn_np = rs.randn(M, N).astype(np.float32)
+    yout_np = rs.randn(M, N).astype(np.float32)
+    gc_np = rs.randn(3, N).astype(np.float32)
+    x2 = torch.from_numpy(x_np).to(tdt)
+    w9 = torch.from_numpy(w_np).to(tdt).permute(1, 2, 3, 0).reshape(9, C, N)
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    dzn = torch.from_numpy(dzn_np).to(tdt)
+    yout = torch.from_numpy(yout_np).to(tdt)
+    gc = torch.from_numpy(gc_np)
+    got = conv3_bwd_by_taps(w9, x2, a, b, dzn, yout, gc, (B, H, H))
+    twin = tcf.conv3_fused_bwd_reference(w9, x2, a, b, dzn, yout, gc,
+                                         (B, H, H))
+    w9_np = np.ascontiguousarray(w9.float().numpy())
+    with jax.default_matmul_precision("highest"):
+        ref = jcf._conv3_fused_bwd_xla(
+            jnp.asarray(w9_np, jdt), jnp.asarray(x_np, jdt),
+            jnp.asarray(a_np), jnp.asarray(b_np), jnp.asarray(dzn_np, jdt),
+            jnp.asarray(yout_np, jdt), jnp.asarray(gc_np), (B, H, H))
+    tol = TOL[dt]
+    for want in (twin, tuple(torch.from_numpy(np.array(
+            jnp.asarray(r, jnp.float32))) for r in ref)):
+        for g, r in zip(got, want):
+            r = r.float()
+            err = (g.float() - r).abs().max() / max(1.0, r.abs().max())
+            assert err <= tol, err

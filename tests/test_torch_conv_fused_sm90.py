@@ -1,6 +1,6 @@
 """The route choice and the tile plan of the Hopper kernels of
-``mm_fused``, ``mm_fused_bwd``, ``conv3_fused`` and ``dgrad_epilogue``
-(``ops/cuda/csrc/conv_fused_sm90.cu``), on the CPU.
+``mm_fused``, ``mm_fused_bwd``, ``conv3_fused``, ``conv3_fused_bwd`` and
+``dgrad_epilogue`` (``ops/cuda/csrc/conv_fused_sm90.cu``), on the CPU.
 
 The kernels themselves build and run only on the card (``chip_smoke.py``
 phase 13 holds them against their twins there). What the CPU can check is
@@ -226,7 +226,7 @@ def test_the_library_builds_the_sm90_source():
     assert SRC.with_name("sm90_gemm.cuh").exists()
     for fn in ("mxt_conv_fused_sm90_fwd", "mxt_conv_fused_sm90_dual_dgrad",
                "mxt_conv_fused_sm90_dual_wgrad", "mxt_conv_fused_sm90_bwd_dgrad",
-               "mxt_conv_fused_sm90_conv3"):
+               "mxt_conv_fused_sm90_conv3", "mxt_conv_fused_sm90_conv3_bwd"):
         assert fn in common._SIGNATURES
         assert fn in SRC.with_name("bindings.cpp").read_text()
 
@@ -354,7 +354,9 @@ _KERNEL_PLANS = {"cf90_fwd_kernel": "REGA ? 2 : 1",
                  "cf90_dual_dgrad_kernel": "2",
                  "cf90_dual_wgrad_kernel": "1",
                  "cf90_bwd_dgrad_kernel": "2, kBwdStage",
-                 "cf90_conv3_kernel": "1"}
+                 "cf90_conv3_kernel": "1",
+                 "cf90_conv3_dgrad_kernel": "2, kBwdStage",
+                 "cf90_conv3_wgrad_kernel": "1"}
 # the backward dgrad's static shared memory: its barriers and the column
 # sums of two epilogue chunks, red[2][8][3][64] float32
 _BWD_STATIC = 2 * 8 * 8 + 2 * 8 * 3 * 64 * 4
@@ -403,4 +405,113 @@ def test_bwd_and_conv3_wrappers_refuse_cpu_tensors(kernel, route):
     before = (fn.launches, fn.sm90_launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
         call()
+    assert (fn.launches, fn.sm90_launches) == before
+
+
+# ------------------------------------------------------ conv3_fused_bwd
+def _conv3_bwd_route(M, c, n, dt, w9=None, x2=None, acts=None, vecs=None):
+    x2 = _act(M, c, dt) if x2 is None else x2
+    w9 = _w3x3(c, n, dt) if w9 is None else w9
+    acts = (_act(M, n, dt), _act(M, n, dt)) if acts is None else acts
+    vecs = ((_vec(c), _vec(c), torch.empty((3, n), device="meta"))
+            if vecs is None else vecs)
+    return tcf.conv3_fused_bwd_route(x2, w9, acts, vecs)
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_lane_conv3_bwd_takes_the_sm90_route_in_bf16_only(stage, dt):
+    """Every one of the lane's 13 conv3_fused_bwd launches (a middle or
+    first block's 3x3 at stages 2-4, batch 128, the gluon weight's view,
+    G on load) takes the Hopper kernels in bf16 and never in float32."""
+    M, mid, _, _, _ = chip_smoke.RESNET_STAGES[stage]
+    assert _conv3_bwd_route(M, mid, mid, dt) == (
+        "sm90" if dt == BF16 else "simt")
+
+
+@pytest.mark.parametrize("bhwcn", [(1, 7, 16, 32), (3, 7, 32, 48),
+                                   (1, 14, 32, 64), (2, 14, 64, 32),
+                                   (1, 28, 16, 16), (2, 28, 64, 64),
+                                   (2, 9, 72, 64), (3, 14, 72, 136)])
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_sweep_shapes_take_the_planned_conv3_bwd_route(bhwcn, dt):
+    """The card's 3x3 sweep (phase 13) with the gluon weight view; a
+    contiguous (9, C, N) weight takes the SIMT kernels."""
+    B, hw, c, n = bhwcn
+    M = B * hw * hw
+    assert _conv3_bwd_route(M, c, n, dt) == (
+        "sm90" if dt == BF16 else "simt")
+    assert _conv3_bwd_route(
+        M, c, n, dt, w9=torch.empty((9, c, n), dtype=dt, device="meta")) \
+        == "simt"
+
+
+def test_conv3_bwd_shapes_the_tma_cannot_read_take_the_simt_route():
+    """C or N not a multiple of 8, no rows, a misaligned activation or
+    vector, a weight whose taps are not the gluon view's MN-major B."""
+    assert _conv3_bwd_route(98, 16, 32, BF16) == "sm90"
+    assert _conv3_bwd_route(98, 12, 32, BF16) == "simt"
+    assert _conv3_bwd_route(98, 16, 36, BF16) == "simt"
+    assert _conv3_bwd_route(0, 16, 32, BF16) == "simt"
+    base = torch.empty((99 * 32,), dtype=BF16)
+    odd = base[1:1 + 98 * 32].reshape(98, 32)
+    assert _conv3_bwd_route(98, 16, 32, BF16, acts=(odd, odd)) == "simt"
+    a = torch.empty((17,), dtype=F32)[1:]
+    gc = torch.empty((3, 32), device="meta")
+    assert _conv3_bwd_route(98, 16, 32, BF16, vecs=(a, a, gc)) == "simt"
+    taps = torch.empty((3, 3, 32, 16), dtype=BF16).permute(
+        0, 1, 3, 2).reshape(9, 16, 32)
+    assert _conv3_bwd_route(98, 16, 32, BF16, w9=taps) == "simt"
+    wide = torch.empty((9, 16, 64), dtype=BF16)[:, :, ::2]
+    assert _conv3_bwd_route(98, 16, 32, BF16, w9=wide) == "simt"
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_conv3_wgrad_split_fills_the_card(stage):
+    """The 3x3 wgrad's output tiles are (N / 128) x 9 taps x (C / bn); the
+    split puts at least 120 blocks on 132 SMs at every stage (stage 3's 18
+    tiles in 7 splits of 3584 rows) and covers the rows once."""
+    M, mid, _, _, _ = chip_smoke.RESNET_STAGES[stage]
+    splits, chunk = tcf.sm90_wgrad_split(M, mid, 0, mid, 132, 9)
+    tiles = -(-mid // 128) * 9 * -(-mid // tcf.sm90_bn(mid))
+    assert tiles * splits >= 120
+    assert (splits - 1) * chunk < M <= splits * chunk
+    assert chunk % tcf.SM90_BK == 0
+    if stage == 3:
+        assert (tiles, splits, chunk) == (18, 7, 3584)
+    # one tap a column tile: the 1x1 form's split is unchanged by taps=1
+    assert tcf.sm90_wgrad_split(M, mid, 0, mid, 132) \
+        == tcf.sm90_wgrad_split(M, mid, 0, mid, 132, 1)
+
+
+def test_conv3_bwd_kernels_plans_fit_a_block():
+    """The 3x3 dgrad runs mm_fused_bwd's dgrad tile (its plan and static
+    column sums) over nine taps; its wgrad the one-operand plan; both fit
+    a block's shared memory at every tile width."""
+    src = SRC.read_text()
+    body = src[src.index("\nbwd_dgrad_tile("):]
+    assert "__shared__ float red[2][8][3][64];" in body
+    assert "cf90_conv3_dgrad_kernel<BN>>(\n      Plan<BN, 2, kBwdStage>::kSmem" \
+        in src
+    assert "launch<cf90_conv3_wgrad_kernel<BN>>(Plan<BN, 1>::kSmem" in src
+    for bn in (64, 128, 256):
+        dgrad = tcf.sm90_plan(bn, 2, tcf.SM90_BWD_STAGE)
+        wgrad = tcf.sm90_plan(bn, 1)
+        assert dgrad["smem_bytes"] + _BWD_STATIC <= tcf.SM90_SMEM_LIMIT
+        assert wgrad["smem_bytes"] <= tcf.SM90_SMEM_LIMIT
+        assert 3 <= dgrad["stages"] <= 4 and 3 <= wgrad["stages"] <= 4
+
+
+@pytest.mark.parametrize("route", [None, "simt"])
+def test_conv3_bwd_wrapper_refuses_cpu_tensors_on_either_route(route):
+    x = torch.randn(98, 16).to(BF16)
+    w9 = _w3x3(16, 32, BF16, "cpu").normal_()
+    g = torch.randn(98, 32).to(BF16)
+    a, b, gc = torch.ones(16), torch.zeros(16), torch.randn(3, 32)
+    assert _conv3_bwd_route(98, 16, 32, BF16, w9=w9, x2=x,
+                            acts=(g, g), vecs=(a, b, gc)) == "sm90"
+    fn = tcf.conv3_fused_bwd
+    before = (fn.launches, fn.sm90_launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(w9, x, a, b, g, g, gc, (2, 7, 7), _route=route)
     assert (fn.launches, fn.sm90_launches) == before

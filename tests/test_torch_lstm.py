@@ -206,3 +206,138 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     g = torch.zeros(8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         tl.lstm_bwd(g, c, c, w, h, c)
+
+
+# ------------------------------------- the tensor-core backward (bf16 W)
+def test_backward_route_is_chosen_by_the_weight_type():
+    """A bf16 W_hh takes the tensor-core kernels with either carry type (the
+    route reads W's type only); a float32 W_hh the SIMT kernel."""
+    for types in ("bf16", "bf16_f32carry", "f32"):
+        _, _, _, w, _ = _step_inputs(7, types, 8, 16)
+        want = "sm90" if TYPES[types][0] == "bfloat16" else "simt"
+        assert tl.lstm_bwd_route(w[0]) == want
+    # the word LM's lane: bf16 operands, float32 carries
+    assert tl.lstm_bwd_route(torch.empty((2600, 650), dtype=torch.bfloat16,
+                                         device="meta")) == "sm90"
+
+
+def test_tensor_core_plan_mirrors_the_kernel_source():
+    """lstm.cu's reduction stage is the one ``lstm_bwd_plan`` pads to; the
+    product's launch, read from the source (32 x 64 of dh and one gate a
+    block, the four gates a cluster, a three-stage ring of the three dz
+    pieces' and W's tiles in static shared memory), fits a block's 48 KB
+    and fills the card at the lane (at least 128 blocks)."""
+    from pathlib import Path
+    import re
+    src = (Path(tl.__file__).resolve().parent / "csrc" / "lstm.cu"
+           ).read_text()
+    consts = dict(re.findall(r"constexpr int (kT\w+) = ([^;]+);", src))
+    tm, tn, tk, stages = (int(consts[k]) for k in ("kTM", "kTN", "kTK",
+                                                    "kTStages"))
+    assert tk == tl.TC_TK
+    assert consts["kTLdA"] == "kTK + 8" and consts["kTLdB"] == "kTN + 8"
+    assert "__cluster_dims__(1, 1, 4)" in src
+    assert ("As[kTStages][3][kTM * kTLdA]" in src
+            and "Bs[kTStages][kTK * kTLdB]" in src)
+    assert ("grid((a.H + kTN - 1) / kTN, (a.N + kTM - 1) / kTM, 4)"
+            in src)
+    smem = stages * (3 * tm * (tk + 8) + tk * (tn + 8)) * 2
+    assert smem <= 48 * 1024
+    for h in (16, 20, 211, 650, 1030):
+        hk, hm = tl.lstm_bwd_plan(h)
+        assert hk % tk == 0 and h <= hk < h + tk
+        assert hm % 8 == 0 and h <= hm < h + 8
+    n, h = 128, 650
+    grid = (-(-h // tn), -(-n // tm), 4)
+    assert grid == (11, 4, 4) and grid[0] * grid[1] * grid[2] >= 128
+    assert tl.lstm_bwd_plan(h) == (672, 656)
+
+
+@pytest.mark.parametrize("H", [16, 20, 211])
+def test_weight_copy_is_w_padded_with_zeros(H):
+    w = torch.randn(4 * H, H).to(torch.bfloat16)
+    wp = tl.lstm_bwd_weight(w)
+    assert wp.shape == (4, *tl.lstm_bwd_plan(H)) and wp.dtype == w.dtype
+    assert torch.equal(wp[:, :H, :H], w.reshape(4, H, H))
+    assert not wp[:, H:].any() and not wp[:, :, H:].any()
+
+
+def _split3(dz):
+    """dz (float32) as three bf16 pieces, as lstm_bwd_dz_kernel splits it."""
+    hi = dz.to(torch.bfloat16)
+    r1 = dz - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def test_three_bf16_pieces_hold_a_float32_exactly():
+    rs = np.random.RandomState(11)
+    dz = torch.from_numpy(np.concatenate([
+        rs.randn(4096).astype(np.float32),
+        (rs.randn(4096) * 1e-30).astype(np.float32),
+        (rs.randn(4096) * 1e30).astype(np.float32),
+        rs.rand(4096).astype(np.float32)]))
+    hi, mid, lo = _split3(dz)
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), dz)
+
+
+def _split2(dz):
+    """dz as two bf16 pieces, hi + mid: the split that drops lo."""
+    return _split3(dz)[:2]
+
+
+# dh of the split product against the reference's float32 product, over
+# dh's largest entry: at this test's shapes three pieces read 0.85e-7 and
+# 3.2e-7 (float32's own rounding), two pieces 2.0e-6 and 2.7e-6
+SPLIT_PRODUCT_TOL = 1e-6
+
+
+@pytest.mark.parametrize("N,H", [(8, 20), (16, 211)])
+def test_split_product_matches_run_bwd_in_float32(N, H):
+    """The tensor-core route's arithmetic in plain PyTorch (dz from the
+    twin, split in three bf16 pieces, each gate's pieces times W's padded
+    copy, the four gates' float32 partials summed in order) against the
+    Pallas ``_run_bwd`` with a bf16 W and float32 carries: dh within
+    ``SPLIT_PRODUCT_TOL`` of its largest entry, as the float32 product it
+    keeps; a two-piece split, the control, reads above that limit."""
+    xp, h, c, w, b = _step_inputs(9, "bf16_f32carry", N, H)
+    _, c1, g = tl.lstm_fwd_reference(xp[0], h[0], c[0], w[0], b[0])
+    rnd = _In(10)
+    dh1, dc1 = rnd("float32", N, H), rnd("float32", N, H)
+    dz, _, _ = tl.lstm_bwd_reference(g, c[0], c1, w[0], dh1[0], dc1[0])
+    wp = tl.lstm_bwd_weight(w[0]).float()
+    hk = wp.shape[1]
+    dzp = torch.zeros((N, 4, hk))
+    dzp[:, :, :H] = dz.reshape(N, 4, H)
+
+    def split_product(split):
+        dh = 0.0
+        for k in range(4):
+            part = sum(p.float() @ wp[k] for p in split(dzp[:, k]))
+            dh = dh + part[:, :H]
+        return dh
+    _, w4, _ = _jax_layout(N, H, xp[1], w[1], b[1])
+    g4 = jnp.asarray(_gates4(g, N, H).numpy())
+    with jax.default_matmul_precision("highest"):
+        _, jdh, _ = jl._run_bwd(g4, c[1], jnp.asarray(c1.numpy()), w4,
+                                dh1[1], dc1[1])
+    jdh = np.asarray(jdh, np.float64)
+
+    def err(dh):
+        return np.max(np.abs(dh.double().numpy() - jdh)) / np.max(
+            np.abs(jdh))
+    assert err(split_product(_split3)) <= SPLIT_PRODUCT_TOL
+    assert err(split_product(_split2)) > SPLIT_PRODUCT_TOL
+
+
+@pytest.mark.parametrize("route", [None, "simt"])
+def test_backward_wrapper_refuses_cpu_tensors_on_either_route(route):
+    xp, h, c, w, b = (t for t, _ in _step_inputs(6, "bf16_f32carry", 8, 16))
+    assert tl.lstm_bwd_route(w) == "sm90"
+    g = torch.zeros(8, 64)
+    before = (tl.lstm_bwd.launches, tl.lstm_bwd.sm90_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.lstm_bwd(g, c, c, w, h, c, w_packed=tl.lstm_bwd_weight(w),
+                    _route=route)
+    assert (tl.lstm_bwd.launches, tl.lstm_bwd.sm90_launches) == before

@@ -120,30 +120,37 @@ Phases:
    against their twins, forward within 1e-4 in float32 and 2e-2 with bf16
    (over max(1, the largest entry)), backward within 1e-3 / 2e-2 of the
    largest entry: H 16, 20, 64, 211, 650, 1030 by N 5, 8, 64, 128, 256,
-   in three type forms (bf16 operands with float32 carries, as the word
-   LM runs; bf16 throughout, c carried in bf16; float32), ``lstm_bwd``
-   with a bf16 W on its tensor-core route and again on the SIMT kernel,
-   the whole ``lstm_scan`` forward + backward in both directions against
-   the CPU twins; with float32 carries, the tensor-core route's dh against
-   the float64 product of its own dxp (dz) and W within 1e-6 of the
-   largest entry, beside the SIMT kernel's reading and a two-piece split's
-   (the control, which must read above the limit at the lane); the
-   tensor-core kernel as built (registers, local bytes, HMMA count); then
-   at the lane (N 128, H 650) with times beside the twin's, the SIMT
-   kernel's in the same call, cuDNN's whole-sequence LSTM per step (the
-   median of three tries) and the bound, the lane's backward error (at
-   most 1e-3 with float32 carries), and one scan forward + backward over
-   T 35;
+   in four type forms (float32 carries with a bf16 W_hh and bf16 xp and
+   b, as the word LM's layer 1 runs, or float32 xp and b, as its layer 2
+   runs; bf16 throughout, c carried in bf16; float32), each kernel with a
+   bf16 W on its tensor-core route and again on the FMA forward / SIMT
+   backward, the whole ``lstm_scan`` forward + backward in both
+   directions against the CPU twins; with a bf16 W, the tensor-core
+   forward's gates residual against a float64 twin within 1e-6 (absolute)
+   beside the FMA kernel's reading and, with float32 carries, a two-piece
+   split's (the control, which must read above the limit at the lane);
+   with float32 carries, the tensor-core backward's dh against the float64
+   product of its own dxp (dz) and W within 1e-6 of the largest entry,
+   beside the SIMT kernel's reading and a two-piece split's (the control
+   again); the tensor-core kernels as built (registers, local bytes, HMMA
+   count); then at the lane (N 128, H 650) with times beside the twin's,
+   the FMA / SIMT kernel's in the same call (in turns), device ms and host
+   µs, cuDNN's whole-sequence LSTM per step (the median of three tries) and
+   the bound, the lane's backward error (at most 1e-3 with float32
+   carries), and one scan forward (event and host time) and forward +
+   backward over T 35;
 18. the word LM at bench.py's lane: 2 warm-up and 5 timed steps; finite,
    falling loss; per step exactly 70 ``lstm_fwd_gates`` and 70
-   ``lstm_bwd`` launches, every ``lstm_bwd`` on the tensor-core route;
-   tok/s, peak memory and a profiled window of two steps; then an eval
-   forward: 70 ``lstm_fwd`` launches and no other;
+   ``lstm_bwd`` launches, every one on the tensor-core route; tok/s, peak
+   memory and a profiled window of two steps; then two eval forwards,
+   each 70 ``lstm_fwd`` launches and no other: the user's ``net(x)`` on
+   the net's own float32 parameters (the FMA route) and the trained
+   parameters cast to bf16 (the tensor-core route), each timed;
 19. the same model in float32 (dropout 0): one loss-and-gradient pass with
    the kernels against the same pass on the twins (loss rtol 1e-4, every
-   gradient leaf within 1e-3 of its largest entry), then one ``Trainer``
-   + ``autograd.record()`` step, which must launch the same kernels and
-   give the same loss;
+   gradient leaf within 1e-3 of its largest entry; the twins' pass
+   launches no kernel), then one ``Trainer`` + ``autograd.record()`` step,
+   which must launch the same kernels and give the same loss;
 20. the detection kernels (``multibox_match``, ``nms_keep``) against their
    twins on the card: the matcher over N 20, 61, 5630 x M 1, 8, 32, 100 x
    B 1, 32 at thresholds 0.5 and 0.7 (all-padding and one-object rows,
@@ -1538,36 +1545,83 @@ def _stage_runs(cf, g, stage, dt):
     return runs
 
 
-def device_ms(fn, calls: int = 5, tries: int = 3):
-    """Device time of one ``fn()`` from torch.profiler: every kernel the
-    call launches (the partial sums' reduction included), over ``calls``
-    calls after a warm-up; and {kernel name: ms} for each of them. A
-    profiled window in which the tracer delivered no device event (seen
-    once in a run on an H100) is profiled again, up to ``tries`` windows
-    in all."""
+def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
+    """Device time of one ``fn()``, a call of the kernel wrapper
+    ``wrapper``, from torch.profiler: every kernel the call launches (the
+    partial sums' reduction included), over ``calls`` calls after a
+    warm-up; and {kernel name: ms} for each of them. Each kernel's time a
+    call is its mean duration over the records the window kept, times its
+    launches a call, which the wrapper's own launch counter gives over the
+    window (each kernel of a wrapper launch runs once; a kernel recorded
+    more often than that is taken at its recorded count). A window can
+    lose records (on an H100 it kept 4 of 5 of the fused-conv kernels', 2
+    of 5 of the LSTM forward's, window after window), so neither its total
+    over ``calls`` nor its count says how often a kernel ran. A window in
+    which the tracer delivered no device event (seen once) is profiled
+    again, up to ``tries`` windows in all."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
+        before = wrapper.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        per_call = (wrapper.launches - before) / calls
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-        total = sum(e.self_device_time_total for e in dev)
-        if total > 0:
+               and not e.is_user_annotation and e.count
+               and e.self_device_time_total > 0]
+        if dev:
             break
         log(f"device_ms: the profiler recorded no device time (window "
             f"{attempt + 1} of {tries})")
-    if total <= 0:
+    if not dev:
         raise AssertionError("the profiler recorded no device time")
-    return total / calls / 1e3, {
-        e.key.replace("void (anonymous namespace)::", "")[:40]:
-        e.self_device_time_total / calls / 1e3 for e in dev}
+    if per_call < 1 or per_call != int(per_call):
+        raise AssertionError(f"device_ms: {wrapper.__name__} launched "
+                             f"{per_call} times a call")
+    per, lost = {}, {}
+    for e in dev:
+        key = e.key.replace("void (anonymous namespace)::", "")[:40]
+        runs = max(per_call, e.count / calls)
+        per[key] = per.get(key, 0.0) + (
+            e.self_device_time_total / e.count * runs / 1e3)
+        if e.count < runs * calls:
+            lost[key] = f"{e.count} of {round(runs * calls)}"
+    if lost:
+        log(f"device_ms: the window kept {lost} records of "
+            f"{wrapper.__name__}'s {calls} calls; each kernel's mean "
+            f"duration stands for its lost ones")
+    return sum(per.values()), per
+
+
+def graph_ms(fn, replays: int = 20):
+    """Time of one ``fn()`` with no host work between the kernels: ``fn``
+    captured ``replays`` times into one CUDA graph, the graph replayed
+    between CUDA events. A cross-check of :func:`device_ms` that does not
+    go through the profiler. None if the call cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(replays):
+                fn()
+    except RuntimeError as err:
+        log(f"graph_ms: the call could not be captured: {err}")
+        torch.cuda.synchronize()
+        return None
+    ms = time_ms(graph.replay, iters=5, warmup=1) / replays
+    del graph
+    return ms
 
 
 def host_us(fn, calls: int = 20) -> float:
@@ -1604,13 +1658,21 @@ def _sm90_kernel_name(mangled):
     return f"{m.group(1)}<{args}>"
 
 
+_LSTM_TARGS = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "0",
+               "Lb1E": "1"}
+
+
 def _lstm_tc_kernel_name(mangled):
-    """``lstm_bwd_tc_kernel<float>`` (or ``<bf16>``, the carries' type) from
-    a mangled name, or None for another kernel of lstm.cu."""
-    m = re.search(r"(lstm_bwd_tc_kernel)I(f|13__nv_bfloat16)E", mangled)
+    """``lstm_bwd_tc_kernel<float>`` (the carries' type) or
+    ``lstm_fwd_tc_kernel<bf16,float,1>`` (xp's and the carries' types, the
+    residual) from a mangled name, or None for another kernel of
+    lstm.cu."""
+    m = re.search(r"(lstm_(?:fwd|bwd)_tc_kernel)I((?:f|13__nv_bfloat16|"
+                  r"Lb[01]E)+)E", mangled)
     if m is None:
         return None
-    return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
+    args = re.findall(r"f|13__nv_bfloat16|Lb[01]E", m.group(2))
+    return f"{m.group(1)}<{','.join(_LSTM_TARGS[a] for a in args)}>"
 
 
 def _sass_kernels(common, pattern, name_of, instr):
@@ -1668,7 +1730,7 @@ def sm90_sass_check(common):
 
 
 def lstm_sass_check(common):
-    """lstm.cu's tensor-core backward as built, each with HMMA
+    """lstm.cu's tensor-core forward and backward as built, each with HMMA
     (``mma.sync``) and no local bytes."""
     return _sass_kernels(common, "lstm*.o", _lstm_tc_kernel_name, "HMMA")
 
@@ -1684,8 +1746,9 @@ def conv_kernel_checks(cf, common):
     CUDA events over a loop of wrapper calls, beside the twin's, the
     library call's and the bound; on the Hopper route, in turns with the
     SIMT kernel (new, old, new, old), plus torch.profiler's device time of
-    one call and the wrapper's host µs. Returns the JSON records (bf16, stage 3) and a log of every
-    timing."""
+    one call, the wrapper's host µs and, for the records, the time of one
+    call replayed from a CUDA graph. Returns the JSON records (bf16, stage
+    3) and a log of every timing."""
     sass = sm90_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {}
@@ -1746,11 +1809,13 @@ def conv_kernel_checks(cf, common):
                     ms2 = time_ms(kern, iters=10, warmup=2)
                     old2 = time_ms(old, iters=3, warmup=1)
                     ms, earlier = (ms1 + ms2) / 2, (old1 + old2) / 2
-                    dev_ms, by_kernel = device_ms(kern)
+                    dev_ms, by_kernel = device_ms(kern, getattr(cf, name))
                     rec.update(name=f"{name}/sm90", source=CONV_SM90_SOURCE,
                                earlier_ms=earlier, device_ms=dev_ms,
                                device_kernels_ms=by_kernel,
                                host_us=host_us(kern))
+                    if stage == 3 and case == CONV_RECORD_CASE[name]:
+                        rec["graph_ms"] = graph_ms(kern)
                 else:
                     ms = time_ms(kern, iters=10, warmup=2)
                 plain_ms = time_ms(plain, iters=3, warmup=1)
@@ -1771,8 +1836,9 @@ def conv_kernel_checks(cf, common):
                 extra = (f"; earlier (simt) {rec['earlier_ms']:.4f} ms, "
                          f"device {rec['device_ms']:.4f} ms "
                          f"{json.dumps(rec['device_kernels_ms'])}, host "
-                         f"{rec['host_us']:.1f} us" if route == "sm90"
-                         else "")
+                         f"{rec['host_us']:.1f} us, graph "
+                         f"{rec.get('graph_ms', 'not measured')} ms"
+                         if route == "sm90" else "")
                 log(f"time {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"library {library_ms:.4f} ms, bound "
                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; counted "
@@ -2104,17 +2170,23 @@ def resnet_truth_phase(mx, gluon, vision, common):
 
 # --------------------------------------------------- the LSTM kernels (B8)
 LSTM_KERNELS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd")
-# the JSON line's names: lstm_bwd's bf16-W route is the tensor-core kernel
-LSTM_RECORDS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd/sm90")
+# the JSON line's names: with a bf16 W (the lane's) each takes its
+# tensor-core kernel; a user's eval forward on the net's own float32
+# parameters takes the FMA kernel
+LSTM_RECORDS = ("lstm_fwd_gates/sm90", "lstm_fwd/sm90", "lstm_bwd/sm90",
+                "lstm_fwd/simt")
 LSTM_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/lstm.cu"
 _LSTM_PY = "incubator_mxnet_tpu/ops/pallas/lstm.py"
 LSTM_REPLACES = {"lstm_fwd_gates": f"{_LSTM_PY}:151",
                  "lstm_fwd": f"{_LSTM_PY}:151", "lstm_bwd": f"{_LSTM_PY}:180"}
-# (operand type, carry type): the word LM under bf16 compute projects in
-# bf16 and carries float32 states; bf16 carries (c rounded to bf16 each
-# step) and all-float32 are the other two forms
-LSTM_TYPES = ((torch.bfloat16, torch.float32),
-              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32))
+# (xp and b type, W type, carry type): the word LM under bf16 compute
+# carries float32 states with a bf16 W_hh, its layer 1 projected in bf16
+# and its layer 2 in float32; bf16 carries (c rounded to bf16 each step)
+# and all-float32 are the other two forms
+LSTM_TYPES = ((torch.bfloat16, torch.bfloat16, torch.float32),
+              (torch.float32, torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.float32, torch.float32))
 # forward outputs: max error over max(1, the twin's largest entry), so a
 # bf16 ulp of a large c counts as at 1; backward outputs: max error over
 # the largest entry
@@ -2129,16 +2201,21 @@ LSTM_LANE_BWD_TOL = 1e-3
 # split 2.2e-6-4.3e-6, and the SIMT kernel's sequential float32 sums
 # 1.2e-7-2.5e-6 (growing with H)
 LSTM_PRODUCT_TOL = 1e-6
+# the forward's gates residual against a float64 twin on the same inputs,
+# absolute, with a bf16 W: the tensor-core route read 0.8e-7-4.7e-7 over
+# this phase's sweep on an H100 and 3.4e-7 at the lane, the FMA kernel up
+# to 2.7e-6, a two-piece split of a float32 h 2.1e-6-7.3e-6
+LSTM_FWD_PRODUCT_TOL = 1e-6
 
 
 def _rnd(g, dt, *shape, sc=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * sc).to(dt)
 
 
-def _lstm_operands(g, od, sd, N, H):
+def _lstm_operands(g, od, wd, sd, N, H):
     """One step's operands: xp, h, c, w, b, dh', dc'."""
     return (_rnd(g, od, N, 4 * H), _rnd(g, sd, N, H, sc=0.5),
-            _rnd(g, sd, N, H), _rnd(g, od, 4 * H, H, sc=H ** -0.5),
+            _rnd(g, sd, N, H), _rnd(g, wd, 4 * H, H, sc=H ** -0.5),
             _rnd(g, od, 4 * H, sc=0.1), _rnd(g, sd, N, H), _rnd(g, sd, N, H))
 
 
@@ -2154,55 +2231,89 @@ def _product_err(dxp, w, dh, pieces=None):
     return ((dh.double() - exact).abs().max() / exact.abs().max()).item()
 
 
+def _gates64(xp, h, w, b, pieces=None):
+    """The forward's gates in float64 from the same inputs; with ``pieces``
+    2, h as its hi + mid bf16 pieces (lo dropped)."""
+    hd = h.double()
+    if pieces == 2:
+        hi = h.float().to(torch.bfloat16)
+        hd = hi.double() + (h.float() - hi.float()).to(torch.bfloat16).double()
+    H = h.shape[1]
+    z = xp.double() + hd @ w.double().t() + b.double()
+    return torch.cat([torch.sigmoid(z[:, :H]), torch.sigmoid(z[:, H:2 * H]),
+                      torch.tanh(z[:, 2 * H:3 * H]),
+                      torch.sigmoid(z[:, 3 * H:])], dim=1)
+
+
+def _fwd_product_err(xp, h, w, b, gates=None, pieces=None):
+    """A gates residual against the float64 twin's, absolute; with
+    ``pieces`` 2, the reading a two-piece split of h would give in exact
+    arithmetic."""
+    if pieces == 2:
+        gates = _gates64(xp, h, w, b, pieces=2)
+    return (gates.double() - _gates64(xp, h, w, b)).abs().max().item()
+
+
 def _lstm_errs(lt, ops):
-    """(forward error, backward error, the SIMT backward's error or None,
-    the product readings or None) of the kernels against their twins on
-    the same operands: ``lstm_bwd`` on the route :func:`lstm_bwd_route`
-    plans (checked taken), and with a bf16 W also forced onto the SIMT
-    kernel. With a bf16 W and float32 carries, the product readings
-    (:func:`_product_err`): the tensor-core route's, the SIMT kernel's, a
-    two-piece split's, and the two routes' dh against each other, each
-    over dh's largest entry."""
+    """The kernels against their twins on the same operands: each wrapper
+    on the route its plan gives (checked taken), and with a bf16 W also
+    forced onto the FMA forward and the SIMT backward. Returns {"fwd",
+    "fwd_simt", "bwd", "bwd_simt": errors (None where not run),
+    "fwd_product", "bwd_product": readings or None}: with a bf16 W the
+    forward's gates residual against the float64 twin (tensor-core route,
+    FMA kernel and, with float32 carries, a two-piece split of h), and with
+    float32 carries the backward's dh against the float64 product of its
+    own dz (:func:`_product_err`)."""
     xp, h, c, w, b, dh1, dc1 = ops
+    route = lt.lstm_fwd_route(w)
+    tc = route == "sm90"
+    wp = lt.lstm_tc_weight(w) if tc else None
     ref = lt.lstm_fwd_reference(xp, h, c, w, b, True)
-    kg = lt.lstm_fwd_gates(xp, h, c, w, b)
-    k0 = lt.lstm_fwd(xp, h, c, w, b)
+    kg = _route_taken(lt, "lstm_fwd_gates", lambda: lt.lstm_fwd_gates(
+        xp, h, c, w, b, w_packed=wp), route)
+    k0 = _route_taken(lt, "lstm_fwd", lambda: lt.lstm_fwd(
+        xp, h, c, w, b, w_packed=wp), route)
+    fs = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt") if tc else None
     rb = lt.lstm_bwd_reference(ref[2], c, ref[1], w, dh1, dc1)
-    route = lt.lstm_bwd_route(w)
-    before = lt.lstm_bwd.sm90_launches
-    kb = lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1,
-                     w_packed=lt.lstm_bwd_weight(w) if route == "sm90"
-                     else None)
-    took = "sm90" if lt.lstm_bwd.sm90_launches > before else "simt"
-    if took != route:
-        raise AssertionError(f"lstm_bwd took the {took} route, the plan "
-                             f"says {route}")
+    kb = _route_taken(lt, "lstm_bwd", lambda: lt.lstm_bwd(
+        ref[2], c, ref[1], w, dh1, dc1, w_packed=wp), lt.lstm_bwd_route(w))
     ks = (lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1, _route="simt")
-          if route == "sm90" else None)
+          if tc else None)
     torch.cuda.synchronize()
-    outs = [t for t in kg + k0 + kb + (ks or ()) if t is not None]
+    outs = [t for t in kg + k0 + kb + (fs or ()) + (ks or ())
+            if t is not None]
     if not all(torch.isfinite(t).all() for t in outs):
         raise AssertionError("an LSTM kernel gave a non-finite value")
-    fwd = _scaled_err(kg + k0[:2], ref + ref[:2])
 
     def bwd_err(k):
         return max(_max_err(a, r) / max(r.float().abs().max().item(), 1e-30)
                    for a, r in zip(k, rb))
-    readings = None
-    if ks is not None and dh1.dtype == torch.float32:
-        readings = {"tensor_core": _product_err(kb[0], w, kb[1]),
-                    "simt": _product_err(ks[0], w, ks[1]),
-                    "two_piece": _product_err(kb[0], w, kb[1], pieces=2),
-                    "tensor_core_vs_simt": (_max_err(kb[1], ks[1]) / max(
-                        ks[1].abs().max().item(), 1e-30))}
-    return fwd, bwd_err(kb), None if ks is None else bwd_err(ks), readings
+    f32 = dh1.dtype == torch.float32
+    fwd_product = bwd_product = None
+    if tc:
+        fwd_product = {"tensor_core": _fwd_product_err(xp, h, w, b, kg[2]),
+                       "fma": _fwd_product_err(xp, h, w, b, fs[2])}
+        if f32:
+            fwd_product["two_piece"] = _fwd_product_err(xp, h, w, b,
+                                                        pieces=2)
+            bwd_product = {
+                "tensor_core": _product_err(kb[0], w, kb[1]),
+                "simt": _product_err(ks[0], w, ks[1]),
+                "two_piece": _product_err(kb[0], w, kb[1], pieces=2),
+                "tensor_core_vs_simt": (_max_err(kb[1], ks[1]) / max(
+                    ks[1].abs().max().item(), 1e-30))}
+    return {"fwd": _scaled_err(kg + k0[:2], ref + ref[:2]),
+            "fwd_simt": None if fs is None else _scaled_err(fs, ref),
+            "bwd": bwd_err(kb), "bwd_simt": None if ks is None else
+            bwd_err(ks), "fwd_product": fwd_product,
+            "bwd_product": bwd_product}
 
 
-def _lstm_scan_errs(lt, g, od, sd, T, N, H, reverse):
+def _lstm_scan_errs(lt, g, od, wd, sd, T, N, H, reverse):
     """lstm_scan forward + backward on the card (kernels) against the same
     on the CPU (twins)."""
     ins = [_rnd(g, od, T, N, 4 * H), _rnd(g, sd, N, H, sc=0.5),
-           _rnd(g, sd, N, H), _rnd(g, od, 4 * H, H, sc=H ** -0.5),
+           _rnd(g, sd, N, H), _rnd(g, wd, 4 * H, H, sc=H ** -0.5),
            _rnd(g, od, 4 * H, sc=0.1)]
     cts = [_rnd(g, sd, T, N, H), _rnd(g, sd, N, H), _rnd(g, sd, N, H)]
     res = []
@@ -2217,158 +2328,188 @@ def _lstm_scan_errs(lt, g, od, sd, T, N, H, reverse):
     return fwd, bwd
 
 
-def _lstm_bytes_flops(od, sd, N, H, kernel):
+def _lstm_bytes_flops(od, wd, sd, N, H, kernel):
     """What the kernel must move (inputs read once, outputs written once)
-    and its product's flops, with the type the product runs in. The
-    backward's float32 product with a bf16 W runs on the tensor cores as
-    three bf16 products (dz split in three pieces)."""
-    eo = torch.empty((), dtype=od).element_size()
-    es = torch.empty((), dtype=sd).element_size()
+    and its product's flops, with the type the product runs in. With a bf16
+    W the products run on the tensor cores, a float32 operand as three bf16
+    products (split in three pieces): the backward's dz always, the
+    forward's h with float32 carries."""
+    eo, ew, es = (torch.empty((), dtype=t).element_size()
+                  for t in (od, wd, sd))
     flops = 2 * N * H * 4 * H
     if kernel == "lstm_bwd":
-        moved = (N * 4 * H * 4 + 4 * N * H * es + 4 * H * H * eo
+        moved = (N * 4 * H * 4 + 4 * N * H * es + 4 * H * H * ew
                  + N * 4 * H * 4 + 2 * N * H * es)
-        if od == torch.bfloat16:
-            return moved, 3 * flops, torch.bfloat16
-        return moved, flops, torch.float32
-    gates = N * 4 * H * 4 if kernel == "lstm_fwd_gates" else 0
-    moved = (N * 4 * H * eo + 2 * N * H * es + 4 * H * H * eo + 4 * H * eo
-             + 2 * N * H * es + gates)
-    prod = torch.bfloat16 if od == sd == torch.bfloat16 else torch.float32
-    return moved, flops, prod
+        pieces = 3
+    else:
+        gates = N * 4 * H * 4 if kernel == "lstm_fwd_gates" else 0
+        moved = (N * 4 * H * eo + 2 * N * H * es + 4 * H * H * ew
+                 + 4 * H * eo + 2 * N * H * es + gates)
+        pieces = 3 if sd == torch.float32 else 1
+    if wd == torch.bfloat16:
+        return moved, pieces * flops, torch.bfloat16
+    return moved, flops, torch.float32
+
+
+def _lstm_tag(od, wd, sd):
+    return (f"{str(od)[6:]} ops {str(wd)[6:]} W {str(sd)[6:]} carries")
 
 
 def lstm_kernel_checks(lt, common):
     """Phase 17: the B8 kernels against their twins: a sweep of H 16, 20,
     64, 211 (prime), 650, 1030 and N 5, 8, 64, 128, 256 in each type form
-    (with and without the residual; bf16 carries round c to bf16;
-    ``lstm_bwd`` with a bf16 W on its tensor-core route and on the SIMT
-    kernel), the whole scan forward + backward in both directions against
-    the CPU twins, the tensor-core kernel as built, then the lane's shape
-    (N 128, H 650) with times beside the twin's, the bound, cuDNN's
-    whole-sequence LSTM per step as the library yardstick, and for the
-    tensor-core route the SIMT kernel's time in the same call (in turns),
-    its device time and its host µs. Returns the JSON records (the lane's
-    type form) and a log of every timing."""
+    (with and without the residual; bf16 carries round c to bf16; with a
+    bf16 W each kernel on its tensor-core route and again on the FMA / SIMT
+    kernel), the product checks (the forward's gates and the backward's dh
+    against float64), the whole scan forward + backward in both directions
+    against the CPU twins, the tensor-core kernels as built, then the
+    lane's shape (N 128, H 650) with times beside the twin's, the bound,
+    cuDNN's whole-sequence LSTM per step as the library yardstick, and for
+    the tensor-core routes the FMA / SIMT kernel's time in the same call
+    (in turns), the device time, the time of one call replayed from a CUDA
+    graph and the host µs. Returns the JSON records
+    (the lane's layer-1 form, and the all-float32 form's ``lstm_fwd``, a
+    user's eval) and a log of every timing."""
     sass = lstm_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst, n_cases = {}, 0
-    products = {}                       # the product readings' worst
-    for od, sd in LSTM_TYPES:
-        tol_f, tol_b = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (od, sd)
-                                else torch.float32]
-        key = f"{str(od)[6:]} ops {str(sd)[6:]} carries"
+    products = {}                       # the product readings' range
+
+    def note(kind, readings):
+        for k, v in (readings or {}).items():
+            lo, hi = products.get(f"{kind} {k}", (v, v))
+            products[f"{kind} {k}"] = (min(lo, v), max(hi, v))
+
+    def check_products(where, e, lane=False):
+        fp, bp = e["fwd_product"], e["bwd_product"]
+        if fp is not None and (fp["tensor_core"] > LSTM_FWD_PRODUCT_TOL or (
+                lane and "two_piece" in fp
+                and fp["two_piece"] <= LSTM_FWD_PRODUCT_TOL)):
+            raise AssertionError(f"the forward's tensor-core product {where}: "
+                                 f"{json.dumps(fp)} (limit "
+                                 f"{LSTM_FWD_PRODUCT_TOL})")
+        if bp is not None and (bp["tensor_core"] > LSTM_PRODUCT_TOL or (
+                lane and bp["two_piece"] <= LSTM_PRODUCT_TOL)):
+            raise AssertionError(f"lstm_bwd's tensor-core product {where}: "
+                                 f"{json.dumps(bp)} (limit "
+                                 f"{LSTM_PRODUCT_TOL})")
+        note("fwd", fp)
+        note("bwd", bp)
+
+    for od, wd, sd in LSTM_TYPES:
+        tol_f, tol_b = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (
+            od, wd, sd) else torch.float32]
+        key = _lstm_tag(od, wd, sd)
         for H in (16, 20, 64, 211, 650, 1030):
             for N in (5, 8, 64, 128, 256):
-                fwd, bwd, simt, readings = _lstm_errs(
-                    lt, _lstm_operands(g, od, sd, N, H))
-                if fwd > tol_f or bwd > tol_b or (simt or 0.0) > tol_b:
+                e = _lstm_errs(lt, _lstm_operands(g, od, wd, sd, N, H))
+                if e["fwd"] > tol_f or (e["fwd_simt"] or 0.0) > tol_f \
+                        or e["bwd"] > tol_b or (e["bwd_simt"] or 0.0) > tol_b:
                     raise AssertionError(f"LSTM kernels {key} N {N} H {H}: "
-                                         f"forward {fwd}, backward {bwd}, "
-                                         f"SIMT backward {simt}")
-                if readings is not None:
-                    if readings["tensor_core"] > LSTM_PRODUCT_TOL:
-                        raise AssertionError(
-                            f"lstm_bwd's tensor-core product {key} N {N} H "
-                            f"{H}: {readings['tensor_core']} over "
-                            f"{LSTM_PRODUCT_TOL} ({json.dumps(readings)})")
-                    for k, v in readings.items():
-                        lo, hi = products.get(k, (v, v))
-                        products[k] = (min(lo, v), max(hi, v))
-                w = worst.setdefault(key, [0.0, 0.0])
-                w[0], w[1] = max(w[0], fwd), max(w[1], bwd)
-                if simt is not None:
-                    worst[key + " simt bwd"] = max(
-                        worst.get(key + " simt bwd", 0.0), simt)
+                                         f"{json.dumps(e)}")
+                check_products(f"{key} N {N} H {H}", e)
+                for k in ("fwd", "fwd_simt", "bwd", "bwd_simt"):
+                    if e[k] is not None:
+                        worst[f"{key} {k}"] = max(
+                            worst.get(f"{key} {k}", 0.0), e[k])
                 n_cases += 1
         for reverse in (False, True):
-            fwd, bwd = _lstm_scan_errs(lt, g, od, sd, 6, 16, 211, reverse)
+            fwd, bwd = _lstm_scan_errs(lt, g, od, wd, sd, 6, 16, 211, reverse)
             if fwd > tol_f or bwd > tol_b:
                 raise AssertionError(f"lstm_scan {key} reverse {reverse}: "
                                      f"forward {fwd}, backward {bwd}")
             worst[key + " scan"] = max(worst.get(key + " scan", 0.0), fwd,
                                        bwd)
-    log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels (and the SIMT "
-        f"backward with a bf16 W) and the scan in both directions within "
-        f"tolerance; worst (forward, backward) {json.dumps(worst)}")
-    log(f"lstm_bwd's product with a bf16 W and float32 carries, dh against "
-        f"the float64 product of its dz, (least, most) over the sweep: "
-        f"{json.dumps(products)} (tensor-core route at most "
-        f"{LSTM_PRODUCT_TOL})")
+    log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels (and the FMA "
+        f"forward and SIMT backward with a bf16 W) and the scan in both "
+        f"directions within tolerance; worst {json.dumps(worst)}")
+    log(f"LSTM products with a bf16 W, (least, most) over the sweep: the "
+        f"forward's gates residual against float64, absolute (tensor-core "
+        f"route at most {LSTM_FWD_PRODUCT_TOL}); with float32 carries the "
+        f"backward's dh against the float64 product of its dz, over the "
+        f"largest entry (tensor-core route at most {LSTM_PRODUCT_TOL}): "
+        f"{json.dumps(products)}")
     timings = {"sass": sass, "sweep": worst, "sweep_products": products}
     records = {}
     N, H, T = LM_N, LM_H, LM_T
-    for od, sd in LSTM_TYPES:
-        tag = f"{str(od)[6:]} ops {str(sd)[6:]} carries"
-        xp, h, c, w, b, dh1, dc1 = _lstm_operands(g, od, sd, N, H)
-        fwd, bwd, simt_bwd, readings = _lstm_errs(lt, (xp, h, c, w, b, dh1,
-                                                        dc1))
-        if (od, sd) == LSTM_TYPES[0]:
-            log(f"lane backward error ({tag}): {bwd:.3g} (at most "
-                f"{LSTM_LANE_BWD_TOL}, float32's bound); SIMT {simt_bwd:.3g}")
-            log(f"lane product (dh against the float64 product of its dz, "
-                f"over the largest entry): tensor-core "
-                f"{readings['tensor_core']:.3g} (at most {LSTM_PRODUCT_TOL}), "
-                f"SIMT {readings['simt']:.3g}, two-piece control "
-                f"{readings['two_piece']:.3g} (above it), tensor-core vs SIMT "
-                f"{readings['tensor_core_vs_simt']:.3g}")
-            if bwd > LSTM_LANE_BWD_TOL:
-                raise AssertionError(f"lstm_bwd at the lane: error {bwd}")
-            if readings["tensor_core"] > LSTM_PRODUCT_TOL \
-                    or readings["two_piece"] <= LSTM_PRODUCT_TOL:
-                raise AssertionError(f"lstm_bwd's product at the lane: "
-                                     f"{json.dumps(readings)}")
-        gates = lt.lstm_fwd_gates(xp, h, c, w, b)[2]
-        tc = lt.lstm_bwd_route(w) == "sm90"
-        # the tensor-core route reads W's padded copy, which the scan makes
+    for od, wd, sd in LSTM_TYPES:
+        tag = _lstm_tag(od, wd, sd)
+        xp, h, c, w, b, dh1, dc1 = _lstm_operands(g, od, wd, sd, N, H)
+        e = _lstm_errs(lt, (xp, h, c, w, b, dh1, dc1))
+        tc = lt.lstm_fwd_route(w) == "sm90"
+        if tc and sd == torch.float32:
+            log(f"lane errors ({tag}): forward {e['fwd']:.3g}, FMA "
+                f"{e['fwd_simt']:.3g}; backward {e['bwd']:.3g} (at most "
+                f"{LSTM_LANE_BWD_TOL}, float32's bound), SIMT "
+                f"{e['bwd_simt']:.3g}")
+            log(f"lane products ({tag}): forward gates against float64 "
+                f"{json.dumps(e['fwd_product'])} (tensor-core at most "
+                f"{LSTM_FWD_PRODUCT_TOL}, two-piece above it); backward dh "
+                f"{json.dumps(e['bwd_product'])} (tensor-core at most "
+                f"{LSTM_PRODUCT_TOL}, two-piece above it)")
+            if e["bwd"] > LSTM_LANE_BWD_TOL:
+                raise AssertionError(f"lstm_bwd at the lane: {json.dumps(e)}")
+            check_products(f"at the lane {tag}", e, lane=True)
+        gates = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt")[2]
+        # the tensor-core routes read W's padded copy, which the scan makes
         # once a sequence (its time is logged apart)
-        wp = lt.lstm_bwd_weight(w) if tc else None
+        wp = lt.lstm_tc_weight(w) if tc else None
         runs = {
-            "lstm_fwd_gates": (lambda: lt.lstm_fwd_gates(xp, h, c, w, b),
-                               lambda: lt.lstm_fwd_reference(
-                                   xp, h, c, w, b, True)),
-            "lstm_fwd": (lambda: lt.lstm_fwd(xp, h, c, w, b),
-                         lambda: lt.lstm_fwd_reference(
-                             xp, h, c, w, b, False)),
-            "lstm_bwd": (lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1,
-                                             w_packed=wp),
-                         lambda: lt.lstm_bwd_reference(gates, c, c, w, dh1,
-                                                       dc1))}
+            "lstm_fwd_gates": (
+                lambda: lt.lstm_fwd_gates(xp, h, c, w, b, w_packed=wp),
+                lambda: lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt"),
+                lambda: lt.lstm_fwd_reference(xp, h, c, w, b, True)),
+            "lstm_fwd": (
+                lambda: lt.lstm_fwd(xp, h, c, w, b, w_packed=wp),
+                lambda: lt.lstm_fwd(xp, h, c, w, b, _route="simt"),
+                lambda: lt.lstm_fwd_reference(xp, h, c, w, b, False)),
+            "lstm_bwd": (
+                lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, w_packed=wp),
+                lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, _route="simt"),
+                lambda: lt.lstm_bwd_reference(gates, c, c, w, dh1, dc1))}
         lib = _cudnn_lstm_per_step(od, T, N, H)
-        for name, (kern, plain) in runs.items():
-            moved, flops, prod = _lstm_bytes_flops(od, sd, N, H, name)
+        for name, (kern, old, plain) in runs.items():
+            moved, flops, prod = _lstm_bytes_flops(od, wd, sd, N, H, name)
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[prod] * 1e3
+            err = e["bwd"] if name == "lstm_bwd" else e["fwd"]
             rec = {"name": name, "route": "cuda", "source": LSTM_SOURCE,
                    "replaces": LSTM_REPLACES[name], "launches": 0,
-                   "max_abs_err": bwd if name == "lstm_bwd" else fwd,
+                   "max_abs_err": err,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": ("bytes" if t_bytes >= t_ops
                                 else "operations"),
                    "library_ms": lib[name]}
-            if name == "lstm_bwd" and tc:
-                def old():
-                    return lt.lstm_bwd(gates, c, c, w, dh1, dc1,
-                                       _route="simt")
+            if tc:
+                # the tensor-core kernel and the FMA / SIMT one in turns
                 ms1, old1 = time_ms(kern, iters=50), time_ms(old, iters=50)
                 ms2, old2 = time_ms(kern, iters=50), time_ms(old, iters=50)
                 ms = (ms1 + ms2) / 2
-                dev_ms, by_kernel = device_ms(kern)
-                rec.update(name="lstm_bwd/sm90", earlier_ms=(old1 + old2) / 2,
-                           earlier_max_abs_err=simt_bwd, product_err=readings,
-                           device_ms=dev_ms,
-                           device_kernels_ms=by_kernel, host_us=host_us(kern),
+                dev_ms, by_kernel = device_ms(kern, getattr(lt, name))
+                rec.update(name=f"{name}/sm90", earlier_ms=(old1 + old2) / 2,
+                           earlier_max_abs_err=e[
+                               "bwd_simt" if name == "lstm_bwd"
+                               else "fwd_simt"],
+                           product_err=e[
+                               "bwd_product" if name == "lstm_bwd"
+                               else "fwd_product"],
+                           device_ms=dev_ms, device_kernels_ms=by_kernel,
+                           host_us=host_us(kern), graph_ms=graph_ms(kern),
                            weight_copy_ms=time_ms(
-                               lambda: lt.lstm_bwd_weight(w), iters=20))
+                               lambda: lt.lstm_tc_weight(w), iters=20))
             else:
                 ms = time_ms(kern, iters=50)
             rec.update(ms=ms, plain_ms=time_ms(plain, iters=20))
             timings[f"{name} {tag}"] = rec
-            if (od, sd) == LSTM_TYPES[0]:
+            if (od, wd, sd) == LSTM_TYPES[0]:
                 records[rec["name"]] = rec
-            extra = (f"; SIMT {rec['earlier_ms']:.4f} ms, device "
+            elif (od, wd, sd) == LSTM_TYPES[3] and name == "lstm_fwd":
+                rec["name"] = "lstm_fwd/simt"
+                records[rec["name"]] = rec
+            extra = (f"; FMA/SIMT {rec['earlier_ms']:.4f} ms, device "
                      f"{rec['device_ms']:.4f} ms "
-                     f"{json.dumps(rec['device_kernels_ms'])}, host "
+                     f"{json.dumps(rec['device_kernels_ms'])}, graph "
+                     f"{rec['graph_ms']} ms, host "
                      f"{rec['host_us']:.1f} us, W copy (once a sequence) "
                      f"{rec['weight_copy_ms']:.4f} ms"
                      if "device_ms" in rec else "")
@@ -2376,8 +2517,8 @@ def lstm_kernel_checks(lt, common):
                 f"{rec['plain_ms']:.4f} ms, cuDNN per step (median) "
                 f"{lib[name]:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']}){extra}")
-        timings[f"lstm_scan T {T} {tag}"] = _scan_time(lt, g, od, sd, T, N,
-                                                       H)
+        timings[f"lstm_scan T {T} {tag}"] = _scan_time(lt, g, od, wd, sd, T,
+                                                       N, H)
         torch.cuda.empty_cache()
     return records, timings
 
@@ -2422,11 +2563,14 @@ def _cudnn_lstm_per_step(dt, T, N, H, tries: int = 3):
     return {k: float(np.median(v)) for k, v in reads.items()}
 
 
-def _scan_time(lt, g, od, sd, T, N, H):
-    """One lstm_scan forward + backward over T steps (CUDA events)."""
+def _scan_time(lt, g, od, wd, sd, T, N, H):
+    """One lstm_scan forward (no gradient) and one forward + backward over
+    T steps (CUDA events), and the forward's host time (no
+    synchronisation: when it exceeds the event time the host sets the
+    pace)."""
     leaves = [t.requires_grad_(True) for t in (
         _rnd(g, od, T, N, 4 * H), _rnd(g, sd, N, H), _rnd(g, sd, N, H),
-        _rnd(g, od, 4 * H, H, sc=H ** -0.5), _rnd(g, od, 4 * H))]
+        _rnd(g, wd, 4 * H, H, sc=H ** -0.5), _rnd(g, od, 4 * H))]
     gy = _rnd(g, sd, T, N, H)
 
     def fwd():
@@ -2438,8 +2582,9 @@ def _scan_time(lt, g, od, sd, T, N, H):
         torch.autograd.grad(ys, leaves, gy)
 
     out = {"forward_ms": time_ms(fwd, iters=5, warmup=1),
+           "forward_host_ms": host_us(fwd, calls=5) / 1e3,
            "forward_backward_ms": time_ms(fwd_bwd, iters=5, warmup=1)}
-    log(f"lstm_scan T {T} N {N} H {H} {str(od)[6:]}/{str(sd)[6:]}: "
+    log(f"lstm_scan T {T} N {N} H {H} {_lstm_tag(od, wd, sd)}: "
         f"{json.dumps(out)}")
     return out
 
@@ -2474,9 +2619,13 @@ def word_lm_train_phase(mx, common, records, steps=5):
     lax.scan over updates, which the port runs as a Python loop that
     changes nothing per step. 2 warm-up and 5 timed steps; finite, falling
     loss; exactly 70 ``lstm_fwd_gates`` and 70 ``lstm_bwd`` launches per
-    step (2 layers x 35 steps) and no ``lstm_fwd``; then a profiled window
-    of two steps; then an eval forward (no autograd, no grad): 70
-    ``lstm_fwd`` launches and nothing else of B8."""
+    step (2 layers x 35 steps), all on the tensor-core routes (bf16 W_hh in
+    both layers), and no ``lstm_fwd``; then a profiled window of two steps;
+    then two eval forwards (no autograd, no grad, dropout off), each 70
+    ``lstm_fwd`` launches and nothing else of B8: a user's ``net(x)`` on
+    the net's own float32 parameters, all on the FMA route (a float32
+    W_hh), and the trained parameters cast to bf16, all on the tensor-core
+    route; each timed, with its B8 forward's device time."""
     torch.cuda.reset_peak_memory_stats()
     net, step, params, aux, opt, x, y = _word_lm(mx, SEED + 7, 0.5,
                                                  torch.bfloat16)
@@ -2500,7 +2649,8 @@ def word_lm_train_phase(mx, common, records, steps=5):
     log(f"word LM train: losses {[round(v, 4) for v in losses]}; {steps} "
         f"timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
         f"{tok_s:.0f} tok/s; peak {peak_gb:.2f} GB; launches {launches}; "
-        f"lstm_bwd on the tensor-core route {sm90['lstm_bwd']}")
+        f"on the tensor-core routes: lstm_fwd_gates "
+        f"{sm90['lstm_fwd_gates']}, lstm_bwd {sm90['lstm_bwd']}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"word LM loss not finite and falling: "
                              f"{losses}")
@@ -2510,33 +2660,65 @@ def word_lm_train_phase(mx, common, records, steps=5):
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {steps} word-LM steps, not "
                                  f"{n * steps}")
-    # bf16 W_hh: every backward step on the tensor-core route
-    if sm90["lstm_bwd"] != 70 * steps:
-        raise AssertionError(f"lstm_bwd took the tensor-core route "
-                             f"{sm90['lstm_bwd']} times in {steps} word-LM "
-                             f"steps, not {70 * steps}")
-    records["lstm_fwd_gates"]["launches"] = launches["lstm_fwd_gates"]
+    # bf16 W_hh: every forward and backward step on the tensor-core route
+    for name in ("lstm_fwd_gates", "lstm_bwd"):
+        if sm90[name] != 70 * steps:
+            raise AssertionError(f"{name} took the tensor-core route "
+                                 f"{sm90[name]} times in {steps} word-LM "
+                                 f"steps, not {70 * steps}")
+    records["lstm_fwd_gates/sm90"]["launches"] = sm90["lstm_fwd_gates"]
     records["lstm_bwd/sm90"]["launches"] = sm90["lstm_bwd"]
     breakdown = kernel_breakdown(
         "word LM", lambda: step(params, aux, opt, x, y),
-        ("lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_bwd_dz_kernel",
-         "lstm_bwd_tc_kernel"))
-    # the eval forward: recording off, no gradient, dropout off
-    common.reset_launch_counts()
-    with torch.no_grad():
-        logits, _ = net(mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0)))
-    torch.cuda.synchronize()
-    ev = common.launch_counts()
-    log(f"word LM eval forward: logits {logits.shape}; launches {ev}")
-    if ev["lstm_fwd"] != 70 or ev["lstm_fwd_gates"] or ev["lstm_bwd"] \
-            or not bool(torch.isfinite(logits._data).all()):
-        raise AssertionError(f"eval forward: launches {ev}")
-    records["lstm_fwd"]["launches"] = ev["lstm_fwd"]
+        ("lstm_fwd_kernel", "lstm_fwd_tc_kernel", "lstm_bwd_kernel",
+         "lstm_bwd_dz_kernel", "lstm_bwd_tc_kernel"))
+    # the eval forwards: recording off, no gradient, dropout off. A user's
+    # net(x) runs the net's own float32 parameters, so its float32 W_hh
+    # takes the FMA kernel; the trained parameters cast to bf16 (the lane's
+    # compute type, float32 states) take the tensor-core kernel
+    from incubator_mxnet_tpu_torch.parallel.dp import functional_call
+    xs = mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0))
+    bf16 = {n: v.to(torch.bfloat16) if v.is_floating_point() else v
+            for n, v in {**params, **aux}.items()}
+
+    def eval_user():
+        with torch.no_grad():
+            return net(xs)[0]._data
+
+    def eval_bf16():
+        with torch.no_grad():
+            return functional_call(net, bf16, x, training=False)[0]
+    evals = {}
+    for label, fn, on_sm90 in (("user_float32", eval_user, 0),
+                               ("bf16", eval_bf16, 70)):
+        common.reset_launch_counts()
+        logits = fn()
+        torch.cuda.synchronize()
+        ev = common.launch_counts()
+        ev_sm90 = common.sm90_launch_counts()["lstm_fwd"]
+        log(f"word LM eval forward ({label}): logits {tuple(logits.shape)}; "
+            f"launches {ev}; lstm_fwd on the tensor-core route {ev_sm90}")
+        if ev["lstm_fwd"] != 70 or ev_sm90 != on_sm90 \
+                or ev["lstm_fwd_gates"] or ev["lstm_bwd"] \
+                or not bool(torch.isfinite(logits).all()) \
+                or tuple(logits.shape) != (LM_T, LM_N, LM_VOCAB):
+            raise AssertionError(f"eval forward ({label}): launches {ev}, "
+                                 f"on the tensor-core route {ev_sm90}")
+        del logits
+        evals[label] = {
+            "lstm_fwd_launches": ev["lstm_fwd"], "sm90_launches": ev_sm90,
+            "ms": time_ms(fn, iters=5, warmup=1),
+            **kernel_breakdown(f"word LM eval forward ({label})", fn,
+                               ("lstm_fwd_kernel", "lstm_fwd_tc_kernel"))}
+    records["lstm_fwd/simt"]["launches"] = (
+        evals["user_float32"]["lstm_fwd_launches"])
+    records["lstm_fwd/sm90"]["launches"] = evals["bf16"]["sm90_launches"]
     return {"step_ms": wall / steps * 1e3, "tok_s": tok_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
-            "sm90_launches_per_step": {"lstm_bwd": 70},
-            "eval_forward_launches": ev, **breakdown}
+            "sm90_launches_per_step": {"lstm_fwd_gates": 70,
+                                       "lstm_bwd": 70},
+            "eval_forward": evals, **breakdown}
 
 
 def _lm_loss_and_grads(net, params, x, y, mx):
@@ -2564,16 +2746,26 @@ def word_lm_truth_phase(mx, lt, common):
     launches = common.launch_counts()
     if launches["lstm_fwd_gates"] != 70 or launches["lstm_bwd"] != 70:
         raise AssertionError(f"f32 pass launches {launches}")
-    steps = (lt._step_fwd, lt._step_bwd)
+    # the twins in the kernels' place: the scan's forward steps (and the
+    # cell's, off this path) and its backward steps
+    steps = (lt._kernel_steps, lt._step_fwd, lt._step_bwd)
+
+    def twin_fwd(*args, out=None, w_packed=None):
+        return lt._twin_fwd(*args, out=out)      # the twin reads W itself
 
     def twin_bwd(*args, out=None, w_packed=None):
-        return lt._twin_bwd(*args, out=out)      # the twin reads W itself
-    lt._step_fwd, lt._step_bwd = lt._twin_fwd, twin_bwd
+        return lt._twin_bwd(*args, out=out)
+    lt._kernel_steps, lt._step_fwd, lt._step_bwd = (lt._twin_steps,
+                                                    twin_fwd, twin_bwd)
+    common.reset_launch_counts()
     try:
         loss_t, grads_t = _lm_loss_and_grads(net, params, x, y, mx)
     finally:
-        lt._step_fwd, lt._step_bwd = steps
+        lt._kernel_steps, lt._step_fwd, lt._step_bwd = steps
     torch.cuda.synchronize()
+    if any(common.launch_counts().values()):
+        raise AssertionError(f"the twins' pass launched kernels: "
+                             f"{common.launch_counts()}")
     loss_err = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
     worst = max((grads_k[n] - grads_t[n]).abs().max().item()
                 / max(grads_t[n].abs().max().item(), 1e-30)

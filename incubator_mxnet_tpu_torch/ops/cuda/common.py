@@ -66,7 +66,8 @@ _SIGNATURES = {
                                  + [_P],
     "mxt_conv_fused_sm90_conv3_bwd": [_P] * 4 + [_L] * 3 + [_P] * 8
                                      + [_I] * 8 + [_P],
-    "mxt_lstm_fwd": [_I, _I] + [_P] * 8 + [_I, _I, _P],
+    "mxt_lstm_fwd": [_I, _I, _I] + [_P] * 8 + [_I, _I, _P],
+    "mxt_lstm_fwd_sm90": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
     "mxt_lstm_bwd_sm90": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,

@@ -98,10 +98,14 @@ int conv_fused_sm90_conv3_bwd_launch(
     const float* a, const float* b, void* dz, float* part, void* xhat,
     float* ws, int splits, int chunk, int M, int C, int N, int H, int W,
     int bn, void* stream);
-int lstm_fwd_launch(int in_dtype, int state_dtype, const void* xp,
-                    const void* h, const void* c, const void* w,
-                    const void* b, void* h1, void* c1, float* gates, int N,
-                    int H, void* stream);
+int lstm_fwd_launch(int in_dtype, int w_dtype, int state_dtype,
+                    const void* xp, const void* h, const void* c,
+                    const void* w, const void* b, void* h1, void* c1,
+                    float* gates, int N, int H, void* stream);
+int lstm_fwd_sm90_launch(int in_dtype, int state_dtype, const void* xp,
+                         const void* h, const void* c, const void* wp,
+                         const void* b, void* h1, void* c1, float* gates,
+                         int N, int H, int Hk, int Hm, void* stream);
 int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
                     const void* c, const void* c1, const void* w,
                     const void* dh1, const void* dc1, float* dxp, void* dh,
@@ -375,15 +379,27 @@ int mxt_conv_fused_sm90_conv3_bwd(const void* dzn, const void* yout,
       chunk, M, C, N, H, W, bn, stream);
 }
 
-// One LSTM step (lstm.cu): xp (N, 4H), w (4H, H) and b (4H,) of type
-// in_dtype; h, c, h1, c1 (N, H) of type state_dtype; gates (N, 4H) float32,
-// or null for the variant without the residual.
-int mxt_lstm_fwd(int in_dtype, int state_dtype, const void* xp,
+// One LSTM step (lstm.cu), the FMA kernel: xp (N, 4H) and b (4H,) of type
+// in_dtype, w (4H, H) of type w_dtype; h, c, h1, c1 (N, H) of type
+// state_dtype; gates (N, 4H) float32, or null for the variant without the
+// residual.
+int mxt_lstm_fwd(int in_dtype, int w_dtype, int state_dtype, const void* xp,
                  const void* h, const void* c, const void* w, const void* b,
                  void* h1, void* c1, void* gates, int N, int H,
                  void* stream) {
-  return lstm_fwd_launch(in_dtype, state_dtype, xp, h, c, w, b, h1, c1,
-                         static_cast<float*>(gates), N, H, stream);
+  return lstm_fwd_launch(in_dtype, w_dtype, state_dtype, xp, h, c, w, b, h1,
+                         c1, static_cast<float*>(gates), N, H, stream);
+}
+
+// Its tensor-core form for a bf16 W (lstm.cu): wp the (4, Hk, Hm) bf16
+// zero-padded copy of W.
+int mxt_lstm_fwd_sm90(int in_dtype, int state_dtype, const void* xp,
+                      const void* h, const void* c, const void* wp,
+                      const void* b, void* h1, void* c1, void* gates, int N,
+                      int H, int Hk, int Hm, void* stream) {
+  return lstm_fwd_sm90_launch(in_dtype, state_dtype, xp, h, c, wp, b, h1, c1,
+                              static_cast<float*>(gates), N, H, Hk, Hm,
+                              stream);
 }
 
 // Its backward: gates and dxp (N, 4H) float32; w of type w_dtype; c, c1,

@@ -1,46 +1,78 @@
 // Fused LSTM cell kernels on Hopper (sm_90a), float32 or bfloat16.
 //
 // Replaces the Pallas TPU kernels of incubator_mxnet_tpu/ops/pallas/lstm.py:
-//   lstm_fwd_kernel<.., false>  <-  _run_fwd(with_gates=False)  h', c'
-//   lstm_fwd_kernel<.., true>   <-  _run_fwd(with_gates=True)   h', c', gates
+//   lstm_fwd_tc_kernel<.., false> (W_hh bf16) \  <-  _run_fwd(with_gates=False)
+//   lstm_fwd_kernel<.., false> (W_hh float32) /      h', c'
+//   lstm_fwd_tc_kernel<.., true>              \  <-  _run_fwd(with_gates=True)
+//   lstm_fwd_kernel<.., true>                 /      h', c', gates
 //   lstm_bwd_kernel<..>         <-  _run_bwd                    dxp, dh, dc
 //   lstm_bwd_dz_kernel<..>   \  <-  _run_bwd, W_hh in bf16      dxp, dc, dz
 //   lstm_bwd_tc_kernel<..>   /                                  dh
 //
-// One time step. Two types: the operands' (xp, w, b) and the carries' (h,
-// c and their cotangents). Layouts are the packed reference layouts:
-// xp (N, 4H) is one step of the input projection x @ W_ih^T + b_ih (gate
-// k's column j at k * H + j, gate order i, f, g, o); w (4H, H) is W_hh, so
-// z_k[n, j] = xp[n, kH + j] + sum_m h[n, m] w[kH + j, m] + b[kH + j]; the
-// gates residual and dxp are (N, 4H) float32 in the same column order.
-// The TPU kernel's (4, N, H) and (4, H, H) transposes exist only for its
-// lane alignment and have no counterpart here.
+// One time step. Three types: the operands' (xp, b), W_hh's, and the
+// carries' (h, c and their cotangents). Layouts are the packed reference
+// layouts: xp (N, 4H) is one step of the input projection x @ W_ih^T + b_ih
+// (gate k's column j at k * H + j, gate order i, f, g, o); w (4H, H) is
+// W_hh, so z_k[n, j] = xp[n, kH + j] + sum_m h[n, m] w[kH + j, m] +
+// b[kH + j]; the gates residual and dxp are (N, 4H) float32 in the same
+// column order. The TPU kernel's (4, N, H) and (4, H, H) transposes exist
+// only for its lane alignment and have no counterpart here.
 //
 // Rounding points are the reference's: the gate pre-activations, the
 // activations and the cell update in float32; h' and c' rounded to the
 // carries' own type (bf16 carries stay bf16); the residual and dxp in
-// float32; dh and dc rounded to the cotangents' type. The recurrent product
-// multiplies the carry h as it is: on the tensor cores when h and W are
-// both bf16 (exact products, float32 sums), else in float32 FMAs with W
-// widened exactly (the word LM under bf16 compute carries float32 states,
-// so its product is float32 h times bf16 W, as in the reference).
-// Elementwise float32 steps use the _rn intrinsics so that no multiply-add
-// is contracted and the order matches the plain PyTorch twin.
+// float32; dh and dc rounded to the cotangents' type. The recurrent
+// products multiply float32 operands as float32 does. With a bf16 W_hh
+// they run on the tensor cores (mma.sync m16n8k16, float32 accumulators;
+// W is bf16 and so exact): a float32 operand (h, or dz) is split exactly
+// into three bf16 pieces, hi + mid + lo (three 8-bit significands cover
+// float32's 24, and bf16 has float32's exponent range), and multiplied
+// piece by piece; a bf16 h is one piece. Each 32-deep stage's products go
+// into a fresh accumulator that one rounded float32 add joins to the
+// block's: the tensor cores' adds lose precision over long chains (at
+// H 650 a single accumulator read as far from the exact product as a split
+// that drops lo). With a float32 W_hh the products are float32 FMAs (no
+// TF32). Elementwise float32 steps use the _rn intrinsics so that no
+// multiply-add is contracted and the order matches the plain PyTorch twin.
 //
-// What bounds it on an H100: at the word LM's shape (N 128, H 650) a step
-// moves 4.7-7 MB (W_hh alone is 3.4 MB in bf16) for 0.43 GFLOP of
-// products. With bf16 h and W the forward is bound by those bytes
-// (~1.4-1.8 us); with a float32 operand (the word LM's float32 carries)
-// its products, like the backward's, are float32 FMAs (~6.5 us at
-// 67 TFLOP/s). W does not fit an SM's shared memory as the TPU keeps it in
-// VMEM, so the output is tiled:
-//   * forward: a block owns 32 batch rows x 16 hidden columns and all four
-//     gates of them, with four accumulators over the K = H loop; the whole
-//     gate epilogue runs on the block's own tile, and only h', c' (and the
-//     residual) reach device memory. bf16 x bf16 products run on the
-//     tensor cores (WMMA 16x16x16, float32 accumulators, one warp per
-//     gate); any float32 operand puts the product on the CUDA cores as FMAs
-//     (no TF32). 4 x 41 = 164 blocks at the lane.
+// What bounds it on an H100: at the word LM's shape (N 128, H 650; bf16
+// xp, W and b, float32 carries) a forward step moves 5.4 MB (6.7 MB with
+// the residual; W_hh alone is 3.4 MB) for 0.43 GFLOP of products, 1.3
+// GFLOP as three bf16 products: 1.6-2.0 us of bytes against 1.3 us of
+// tensor-core operations, so bytes bound it. W and h stay in the 50 MB L2
+// from one step to the next; what holds a step back in practice is each
+// block's chain of dependent stages and how evenly the blocks fill the 132
+// SMs. W does not fit an SM's shared memory as the TPU keeps it in VMEM,
+// so the output is tiled:
+//   * forward with a bf16 W (lstm_fwd_tc_kernel): a block owns 32 batch
+//     rows x 16 hidden columns with all four gates of them (a 32 x 64
+//     product tile) and half of the reduction over m. The two halves'
+//     blocks form a cluster: each puts its float32 partial in shared
+//     memory, and each sums 16 of the 32 rows of the two partials through
+//     distributed shared memory in rank order (no atomics: results repeat)
+//     and runs the whole gate epilogue on them, so only h', c' (and the
+//     residual) reach device memory. The lane runs 41 x 4 x 2 = 328
+//     blocks, each a chain of 10-11 stages, in one wave (at most five
+//     blocks of 88-90 registers and 38.5 KB to an SM).
+//     The other splits ran slower at the lane on an H100: one block per
+//     tile over all of m (164 blocks of 21 stages), and quarters of m in
+//     clusters of four (656 blocks of 5-6 stages, of whose 164 clusters
+//     only 154 fit at once). A float32 h is split ON LOAD: a thread loads
+//     its 8 values of a stage with plain loads a stage ahead, into
+//     registers, and stores them to shared memory as bf16 pieces (a
+//     float32 h row is only 4-byte aligned, so no 16-byte cp.async).
+//     Having each step also write h''s pieces for the next step's
+//     16-byte cp.async gave the same bits and about 1% of the scan's
+//     forward on an H100, too little for a second path. W comes in
+//     by 16-byte cp.async, into a three-stage ring, from its zero-padded
+//     (4, Hk, Hm) copy ([k, j, m] = W[k H + j, m], Hk = H rounded up to
+//     32, Hm to 8), which the caller makes once per sequence; past Hm it
+//     is zero-filled. The kernel runs far from both bounds: its time grows
+//     with the work from a floor of a few us, and what limits it within a
+//     block is not measured (no hardware-counter profile was taken).
+//   * forward with a float32 W (lstm_fwd_kernel): a block owns 32 rows x
+//     16 columns x 4 gates over all of m in float32 FMAs; 4 x 41 = 164
+//     blocks at the lane.
 //   * backward: dh = dz @ W (K = 4H), a block owning 32 rows x 64 columns
 //     of dh. dz is formed ON LOAD: each reduction step takes 8 hidden
 //     columns j and all four gates of them, computes the four dz of each
@@ -50,42 +82,40 @@
 //     computes it with float32 operands). No atomics: results repeat.
 //   * backward with a bf16 W_hh (the word LM's form), two launches: the
 //     dz launch forms the four dz of each (n, j) ONCE, writes dxp and dc
-//     and splits each float32 dz exactly into three bf16 pieces, hi + mid
-//     + lo (three 8-bit significands cover float32's 24, and bf16 has
-//     float32's exponent range), into a (3, N, 4, Hk) scratch, zero past
-//     H; the product launch runs dh = hi W + mid W + lo W on the tensor
-//     cores (mma.sync m16n8k16; W is bf16 and so exact): float32
-//     operands' products, as the reference's, at bf16 tensor-core rates.
-//     Each 32-deep stage's six products go into a fresh accumulator that
-//     one rounded float32 add joins to the block's: the tensor cores' adds
-//     lose precision over long chains (at H 650 a single accumulator read
-//     as far from the exact product as a split that drops lo). A block owns 32 rows x 64 columns of dh and ONE
-//     gate's quarter of K = 4H, so the lane (N 128, H 650) runs 11 x 4 x 4
-//     = 176 blocks; the four gates' blocks form a cluster and sum their
-//     float32 partials through distributed shared memory in a fixed order
-//     (no atomics: results repeat). Operands come in by 16-byte cp.async
-//     into a three-stage ring; rows of W (H bf16 values) are 16-byte
-//     aligned only in a copy, so W is read as (4, Hk, Hm) padded with
-//     zeros (Hk = H rounded up to 32, Hm to 8), which the caller makes
-//     once per sequence.
+//     and splits each float32 dz into its three pieces in a (3, N, 4, Hk)
+//     scratch, zero past H; the product launch runs dh = hi W + mid W +
+//     lo W on the tensor cores. A block owns 32 rows x 64 columns of dh
+//     and ONE gate's quarter of K = 4H, so the lane (N 128, H 650) runs
+//     11 x 4 x 4 = 176 blocks; the four gates' blocks form a cluster and
+//     sum their float32 partials through distributed shared memory in a
+//     fixed order (no atomics: results repeat). Operands come in by
+//     16-byte cp.async into a three-stage ring from W's padded copy.
 // H need not be a multiple of anything: K is zero-filled and the tile
 // edges are masked. wgmma, TMA and a persistent whole-sequence kernel that
 // keeps W resident across steps are later work.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
 namespace cg = cooperative_groups;
-namespace wmma = nvcuda::wmma;
 
-constexpr int kFM = 32;              // forward: batch rows of a tile
-constexpr int kFJ = 16;              // forward: hidden columns (x 4 gates)
-constexpr int kFK = 32;              // forward: reduction depth of a step
-constexpr int kFThreads = 128;       // one warp per gate on the WMMA path
+constexpr int kFM = 32;              // FMA forward: batch rows of a tile
+constexpr int kFJ = 16;              // FMA forward: hidden columns (x 4 gates)
+constexpr int kFK = 32;              // FMA forward: reduction depth of a step
+constexpr int kFThreads = 128;
+constexpr int kFLd = kFK + 1;        // its float32 tiles' rows (bank conflicts)
+
+constexpr int kFTM = 32;             // tensor-core forward: batch rows (n)
+constexpr int kFTJ = 16;             // ... hidden columns (j) x 4 gates
+constexpr int kFTK = 32;             // ... reduction depth (m) of a stage
+constexpr int kFTSplit = 2;          // ... blocks of a cluster (m halves)
+constexpr int kFTStages = 3;         // ... stages of the ring
+constexpr int kFTThreads = 128;      // ... four warps, 16 rows x 2 gates each
+constexpr int kFTLd = kFTK + 8;      // bf16 an h piece or W row: 80 bytes
 
 constexpr int kBM = 32;              // backward: batch rows of a tile
 constexpr int kBN = 64;              // backward: dh columns of a tile
@@ -104,6 +134,8 @@ constexpr int kTLdB = kTN + 8;       // bf16 a W row: 144 bytes (no bank
                                      // conflicts for ldmatrix's 8 rows)
 constexpr int kDzThreads = 256;      // the dz launch's block
 
+static_assert(kFTM % kFTSplit == 0, "the forward's epilogue: whole rows");
+
 __device__ __forceinline__ float f32(float v) { return v; }
 __device__ __forceinline__ float f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -121,168 +153,113 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
 }
 
-// leading dimensions of the forward's shared tiles: WMMA wants a multiple
-// of 8 bf16 values; the float32 FMA path pads to 33 against bank conflicts
-template <typename T> struct FwdLd { static constexpr int v = kFK + 8; };
-template <> struct FwdLd<float> { static constexpr int v = kFK + 1; };
-
-// The forward tile's products: Cs[g][r][jj] = sum_k As[r][k] Bs[g][jj][k]
-// over one reduction step, accumulated across steps.
-template <typename T> struct FwdCore;
-
-template <> struct FwdCore<__nv_bfloat16> {
-  static constexpr int kLd = FwdLd<__nv_bfloat16>::v;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  Acc acc[2];                        // warp g: gate g, rows 0-15 and 16-31
-
-  __device__ void zero() {
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-  }
-  __device__ void step(const __nv_bfloat16* As, const __nv_bfloat16* Bs) {
-    const int g = threadIdx.x >> 5;
-#pragma unroll
-    for (int k = 0; k < kFK; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b;
-      wmma::load_matrix_sync(b, Bs + g * kFJ * kLd + k, kLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, As + 16 * i * kLd + k, kLd);
-        wmma::mma_sync(acc[i], a, b, acc[i]);
-      }
-    }
-  }
-  __device__ void store(float* Cs) {
-    const int g = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::store_matrix_sync(Cs + (g * kFM + 16 * i) * kFJ, acc[i], kFJ,
-                              wmma::mem_row_major);
-  }
-};
-
-template <> struct FwdCore<float> {
-  static constexpr int kLd = FwdLd<float>::v;
-  float acc[4][4];                   // (row ty + 8 r, gate g), column tx
-
-  __device__ void zero() {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
-  }
-  __device__ void step(const float* As, const float* Bs) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 8
-    for (int k = 0; k < kFK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[(ty + 8 * r) * kLd + k];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) b[g] = Bs[(g * kFJ + tx) * kLd + k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(a[r], b[g], acc[r][g]);
-    }
-  }
-  __device__ void store(float* Cs) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        Cs[(g * kFM + ty + 8 * r) * kFJ + tx] = acc[r][g];
-  }
-};
-
 struct FwdArgs {
   const void* xp; const void* h; const void* c; const void* w;
   const void* b;
   void* h1; void* c1; float* gates;
   int N, H;
+  int Hk, Hm;        // the tensor-core route: w is W's (4, Hk, Hm) copy
 };
 
-// the type of the product's shared tiles: bf16 (tensor cores) only when
-// both the carry h and W are bf16
-template <typename Tin, typename Ts> struct CoreType { using T = float; };
-template <> struct CoreType<__nv_bfloat16, __nv_bfloat16> {
-  using T = __nv_bfloat16;
-};
-
+// The gate epilogue of (n, j) from its four products h W_k^T: z_k = (xp +
+// product) + b in float32, the activations, c' and h' written in Ts, the
+// residual when kGates.
 template <typename Tin, typename Ts, bool kGates>
+__device__ __forceinline__ void fwd_epilogue(const FwdArgs& p, int n, int j,
+                                              const float (&prod)[4]) {
+  const int H = p.H;
+  const long long H4 = 4LL * H, o = static_cast<long long>(n) * H + j;
+  const Tin* xp = static_cast<const Tin*>(p.xp) + n * H4 + j;
+  const Tin* bias = static_cast<const Tin*>(p.b) + j;
+  float z[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    z[g] = __fadd_rn(__fadd_rn(f32(xp[g * H]), prod[g]), f32(bias[g * H]));
+  const float ig = sigmoid(z[0]), fg = sigmoid(z[1]);
+  const float gg = tanhf(z[2]), og = sigmoid(z[3]);
+  const float cv = f32(static_cast<const Ts*>(p.c)[o]);
+  const float c1 = __fadd_rn(__fmul_rn(fg, cv), __fmul_rn(ig, gg));
+  const float h1 = __fmul_rn(og, tanhf(c1));
+  static_cast<Ts*>(p.h1)[o] = cast<Ts>(h1);
+  static_cast<Ts*>(p.c1)[o] = cast<Ts>(c1);
+  if (kGates) {
+    float* gt = p.gates + n * H4 + j;
+    gt[0] = ig;
+    gt[H] = fg;
+    gt[2LL * H] = gg;
+    gt[3LL * H] = og;
+  }
+}
+
+// The forward with a float32 W (any W type works; the route sends only a
+// float32 one here): the block's 32 x 16 x 4 products in float32 FMAs over
+// all of m, then the gate epilogue on its own tile.
+template <typename Tin, typename Tw, typename Ts, bool kGates>
 __global__ void __launch_bounds__(kFThreads) lstm_fwd_kernel(FwdArgs p) {
-  using T = typename CoreType<Tin, Ts>::T;
-  constexpr int kLd = FwdLd<T>::v;
-  __shared__ __align__(128) T As[kFM * kLd];
-  __shared__ __align__(128) T Bs[4 * kFJ * kLd];
-  __shared__ __align__(128) float Cs[4 * kFM * kFJ];
-  const Tin* xp = static_cast<const Tin*>(p.xp);
+  __shared__ float As[kFM * kFLd];
+  __shared__ float Bs[4 * kFJ * kFLd];
+  __shared__ float Cs[4 * kFM * kFJ];
   const Ts* h = static_cast<const Ts*>(p.h);
-  const Ts* c = static_cast<const Ts*>(p.c);
-  const Tin* w = static_cast<const Tin*>(p.w);
-  const Tin* bias = static_cast<const Tin*>(p.b);
+  const Tw* w = static_cast<const Tw*>(p.w);
   const int N = p.N, H = p.H;
   const int j0 = blockIdx.x * kFJ, n0 = blockIdx.y * kFM;
   const int tid = threadIdx.x;
-  const int kk = tid & 31;
+  const int kk = tid & 31, tx = tid & 15, ty = tid >> 4;
 
-  FwdCore<T> core;
-  core.zero();
+  float acc[4][4];                   // (row ty + 8 r, gate g), column tx
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
   for (int m0 = 0; m0 < H; m0 += kFK) {
     const int m = m0 + kk;
     // A: h rows n0.., reduction columns m0.. (zero past N and H)
 #pragma unroll
     for (int q = 0; q < kFM / 4; ++q) {
       const int r = (tid >> 5) + 4 * q, n = n0 + r;
-      As[r * kLd + kk] = cast<T>((n < N && m < H)
-          ? f32(h[(long long)n * H + m]) : 0.f);
+      As[r * kFLd + kk] = (n < N && m < H)
+          ? f32(h[static_cast<long long>(n) * H + m]) : 0.f;
     }
     // B: for each gate g, W_hh rows g H + j0.., columns m0.. (read along m)
 #pragma unroll
     for (int q = 0; q < 4 * kFJ / 4; ++q) {
       const int idx = (tid >> 5) + 4 * q, g = idx / kFJ, jj = idx % kFJ;
       const int j = j0 + jj;
-      Bs[idx * kLd + kk] = cast<T>((j < H && m < H)
-          ? f32(w[((long long)g * H + j) * H + m]) : 0.f);
+      Bs[idx * kFLd + kk] = (j < H && m < H)
+          ? f32(w[(static_cast<long long>(g) * H + j) * H + m]) : 0.f;
     }
     __syncthreads();
-    core.step(As, Bs);
+#pragma unroll 8
+    for (int k = 0; k < kFK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = As[(ty + 8 * r) * kFLd + k];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) b[g] = Bs[(g * kFJ + tx) * kFLd + k];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(a[r], b[g], acc[r][g]);
+    }
     __syncthreads();
   }
-  core.store(Cs);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      Cs[(g * kFM + ty + 8 * r) * kFJ + tx] = acc[r][g];
   __syncthreads();
 
   // the gate epilogue over the block's (n, j) tile, four gates each
-  const long long H4 = 4LL * H;
 #pragma unroll
   for (int q = 0; q < kFM * kFJ / kFThreads; ++q) {
     const int e = tid + kFThreads * q, r = e / kFJ, jj = e % kFJ;
     const int n = n0 + r, j = j0 + jj;
     if (n >= N || j >= H) continue;
-    float z[4];
+    float prod[4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      z[g] = __fadd_rn(__fadd_rn(f32(xp[n * H4 + g * H + j]),
-                                 Cs[(g * kFM + r) * kFJ + jj]),
-                       f32(bias[g * H + j]));
-    const float ig = sigmoid(z[0]), fg = sigmoid(z[1]);
-    const float gg = tanhf(z[2]), og = sigmoid(z[3]);
-    const float cv = f32(c[(long long)n * H + j]);
-    const float c1 = __fadd_rn(__fmul_rn(fg, cv), __fmul_rn(ig, gg));
-    const float h1 = __fmul_rn(og, tanhf(c1));
-    static_cast<Ts*>(p.h1)[(long long)n * H + j] = cast<Ts>(h1);
-    static_cast<Ts*>(p.c1)[(long long)n * H + j] = cast<Ts>(c1);
-    if (kGates) {
-      float* gt = p.gates + n * H4 + j;
-      gt[0] = ig;
-      gt[H] = fg;
-      gt[2LL * H] = gg;
-      gt[3LL * H] = og;
-    }
+    for (int g = 0; g < 4; ++g) prod[g] = Cs[(g * kFM + r) * kFJ + jj];
+    fwd_epilogue<Tin, Ts, kGates>(p, n, j, prod);
   }
 }
 
@@ -578,21 +555,238 @@ lstm_bwd_tc_kernel(BwdArgs p) {
   cluster.sync();                  // no block leaves while read remotely
 }
 
-template <typename Tin, typename Ts>
+// --------------------------------------------- the tensor-core forward
+// x as P bf16 pieces: P 3, hi + mid + lo == x exactly (each residual is
+// exact in float32, and lo holds what is left); P 1, x rounded (exact for
+// a value read from bf16)
+template <int P>
+__device__ __forceinline__ void split(float x, __nv_bfloat16 (&piece)[P]) {
+  piece[0] = __float2bfloat16_rn(x);
+  if constexpr (P == 3) {
+    const float r1 = __fsub_rn(x, __bfloat162float(piece[0]));
+    piece[1] = __float2bfloat16_rn(r1);
+    piece[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(piece[1])));
+  }
+}
+
+// two bf16 values as one 32-bit word, the first at the lower address
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// z[n0 .., the four gates of j0 ..] (32 x 4 x 16) = h W_k^T over this
+// block's share of the stages of m; block z = its rank in the cluster of
+// kFTSplit. h is P bf16 pieces (three for a float32 h, one for a bf16 h),
+// each stage's products go into a fresh accumulator, the partials meet in
+// shared memory, and rank r sums its 32 / kFTSplit rows of them in rank
+// order and runs their gate epilogue.
+template <typename Tin, typename Ts, bool kGates>
+__global__ void __cluster_dims__(1, 1, kFTSplit) __launch_bounds__(kFTThreads)
+lstm_fwd_tc_kernel(FwdArgs p) {
+  constexpr int P = std::is_same<Ts, float>::value ? 3 : 1;
+  constexpr int kA = kFTM * kFTLd;                  // a piece's stage tile
+  constexpr int kB = 4 * kFTJ * kFTLd;              // W's stage tile
+  __shared__ __align__(16) __nv_bfloat16 smem[kFTStages * (P * kA + kB)];
+  __nv_bfloat16* As = smem;                         // [stage][piece][kA]
+  __nv_bfloat16* Bs = smem + kFTStages * P * kA;    // [stage][kB]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.z;
+  const int j0 = blockIdx.x * kFTJ, n0 = blockIdx.y * kFTM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp >> 1, wc = warp & 1;          // rows 16 wr, gates 2 wc
+  const int N = p.N, H = p.H, Hk = p.Hk, Hm = p.Hm;
+  const int nk = (Hm + kFTK - 1) / kFTK;
+  const int kb0 = rank * nk / kFTSplit;
+  const int nloc = (rank + 1) * nk / kFTSplit - kb0;
+  const Ts* h = static_cast<const Ts*>(p.h);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
+  // this thread's share of a stage's h tile: row ar, columns ac .. ac + 7
+  const int ar = tid >> 2, ac = (tid & 3) * 8, an = n0 + ar;
+
+  // split on load: a stage's h values into registers (zero past N and H),
+  // then into shared memory as pieces
+  float ra[8];
+  auto load_a = [&](int kb) {
+    const int m = kb * kFTK + ac;
+    const Ts* src = h + static_cast<size_t>(an < N ? an : 0) * H;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      ra[e] = (an < N && m + e < H) ? f32(src[m + e]) : 0.f;
+  };
+  auto store_a = [&](int s) {
+    __nv_bfloat16 pc[8][P];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split<P>(ra[e], pc[e]);
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      *reinterpret_cast<uint4*>(As + (s * P + q) * kA + ar * kFTLd + ac) =
+          make_uint4(pack2(pc[0][q], pc[1][q]), pack2(pc[2][q], pc[3][q]),
+                     pack2(pc[4][q], pc[5][q]), pack2(pc[6][q], pc[7][q]));
+  };
+  // stage kb's asynchronous copies of W's 64 x 32 tile, 16 bytes each
+  // (row 16 k + jj is gate k's column j0 + jj; columns m >= Hm read 0)
+  auto issue = [&](int kb, int s) {
+    const int m0 = kb * kFTK;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = tid + q * kFTThreads;
+      const int row = i >> 2, ch = (i & 3) * 8, m = m0 + ch;
+      cp_async16(Bs + s * kB + row * kFTLd + ch,
+                 w + (static_cast<size_t>(row / kFTJ) * Hk + j0 + row % kFTJ)
+                         * Hm + (m < Hm ? m : 0),
+                 m < Hm ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  if (nloc > 0) {
+    load_a(kb0);
+    store_a(0);
+  }
+  if (nloc > 1) load_a(kb0 + 1);
+#pragma unroll
+  for (int s = 0; s < kFTStages - 1; ++s) {
+    if (s < nloc) issue(kb0 + s, s);
+    else cp_async_commit();
+  }
+  for (int i = 0; i < nloc; ++i) {
+    cp_async_wait<kFTStages - 2>();
+    __syncthreads();                         // stage i in, i - 1 consumed
+    if (i + 1 < nloc) {                      // h of stage i + 1, then i + 2
+      store_a((i + 1) % kFTStages);
+      if (i + 2 < nloc) load_a(kb0 + i + 2);
+    }
+    const int nx = i + kFTStages - 1;
+    if (nx < nloc) issue(kb0 + nx, nx % kFTStages);
+    else cp_async_commit();
+    const int s = i % kFTStages;
+    float part[4][4];                        // the stage's own accumulator
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[t][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kFTK / 16; ++ks) {
+      uint32_t a[P][4], b[4][2];
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+        ldsm_x4<false>(a[q], As + (s * P + q) * kA +
+                                 (16 * wr + (lane & 15)) * kFTLd + 16 * ks +
+                                 (lane >> 4) * 8);
+      // W rows are columns of the product, m along each: no .trans
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        uint32_t r[4];
+        ldsm_x4<false>(r, Bs + s * kB +
+                              ((2 * wc + g) * kFTJ + (lane & 7) +
+                               ((lane >> 4) << 3)) * kFTLd +
+                              16 * ks + ((lane >> 3) & 1) * 8);
+        b[2 * g][0] = r[0];
+        b[2 * g][1] = r[1];
+        b[2 * g + 1][0] = r[2];
+        b[2 * g + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int q = P - 1; q >= 0; --q)       // lo, mid, then hi
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(part[nt], a[q], b[nt]);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[t][q] = __fadd_rn(acc[t][q], part[t][q]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the block's partial, 32 rows x (4 gates x 16 columns), float32
+  float* red = reinterpret_cast<float*>(smem);
+  constexpr int kC = 4 * kFTJ;
+  const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = 32 * wc + 8 * nt + 2 * t4, row = 16 * wr + g8;
+    red[row * kC + col] = acc[nt][0];
+    red[row * kC + col + 1] = acc[nt][1];
+    red[(row + 8) * kC + col] = acc[nt][2];
+    red[(row + 8) * kC + col + 1] = acc[nt][3];
+  }
+  cluster.sync();
+  // this block's rows of the tile, (n, j) pairs dealt to the threads
+  constexpr int kRows = kFTM / kFTSplit;
+  for (int e = tid; e < kRows * kFTJ; e += kFTThreads) {
+    const int r = kRows * rank + e / kFTJ, jj = e % kFTJ;
+    float prod[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < kFTSplit; ++q)
+        v = __fadd_rn(v, cluster.map_shared_rank(red, q)[r * kC + g * kFTJ +
+                                                          jj]);
+      prod[g] = v;
+    }
+    const int n = n0 + r, j = j0 + jj;
+    if (n < N && j < H) fwd_epilogue<Tin, Ts, kGates>(p, n, j, prod);
+  }
+  cluster.sync();                  // no block leaves while read remotely
+}
+
+template <typename Tin, typename Tw, typename Ts>
 int fwd_launch(const FwdArgs& a, bool gates, cudaStream_t st) {
   const dim3 grid((a.H + kFJ - 1) / kFJ, (a.N + kFM - 1) / kFM);
   if (gates)
-    lstm_fwd_kernel<Tin, Ts, true><<<grid, kFThreads, 0, st>>>(a);
+    lstm_fwd_kernel<Tin, Tw, Ts, true><<<grid, kFThreads, 0, st>>>(a);
   else
-    lstm_fwd_kernel<Tin, Ts, false><<<grid, kFThreads, 0, st>>>(a);
+    lstm_fwd_kernel<Tin, Tw, Ts, false><<<grid, kFThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin>
+template <typename Tin, typename Tw>
 int fwd_dispatch(int state_dtype, const FwdArgs& a, bool gates,
                  cudaStream_t st) {
-  return state_dtype == 1 ? fwd_launch<Tin, __nv_bfloat16>(a, gates, st)
-                          : fwd_launch<Tin, float>(a, gates, st);
+  return state_dtype == 1 ? fwd_launch<Tin, Tw, __nv_bfloat16>(a, gates, st)
+                          : fwd_launch<Tin, Tw, float>(a, gates, st);
+}
+
+template <typename Tin>
+int fwd_dispatch_w(int w_dtype, int state_dtype, const FwdArgs& a,
+                   bool gates, cudaStream_t st) {
+  return w_dtype == 1
+             ? fwd_dispatch<Tin, __nv_bfloat16>(state_dtype, a, gates, st)
+             : fwd_dispatch<Tin, float>(state_dtype, a, gates, st);
+}
+
+template <typename Tin, typename Ts, bool kGates>
+int fwd_tc_launch(const FwdArgs& a, cudaStream_t st) {
+  // five blocks of 38.5 KB to an SM: ask for all of its shared memory (a
+  // hint, set once)
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      lstm_fwd_tc_kernel<Tin, Ts, kGates>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return static_cast<int>(carveout);
+  const dim3 grid((a.H + kFTJ - 1) / kFTJ, (a.N + kFTM - 1) / kFTM, kFTSplit);
+  lstm_fwd_tc_kernel<Tin, Ts, kGates><<<grid, kFTThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Tin, typename Ts>
+int fwd_tc_dispatch(const FwdArgs& a, bool gates, cudaStream_t st) {
+  return gates ? fwd_tc_launch<Tin, Ts, true>(a, st)
+               : fwd_tc_launch<Tin, Ts, false>(a, st);
+}
+
+template <typename Tin>
+int fwd_tc_dispatch_s(int state_dtype, const FwdArgs& a, bool gates,
+                      cudaStream_t st) {
+  return state_dtype == 1 ? fwd_tc_dispatch<Tin, __nv_bfloat16>(a, gates, st)
+                          : fwd_tc_dispatch<Tin, float>(a, gates, st);
 }
 
 template <typename Tw, typename Ts>
@@ -622,19 +816,37 @@ int bwd_tc_launch(const BwdArgs& a, cudaStream_t st) {
 
 }  // namespace
 
-// Types: 0 float32, 1 bfloat16. in_dtype is xp's, w's and b's; state_dtype
-// is h's, c's, h1's and c1's. gates (N, 4H) float32, or null for the
-// variant without the residual.
-int lstm_fwd_launch(int in_dtype, int state_dtype, const void* xp,
-                    const void* h, const void* c, const void* w,
-                    const void* b, void* h1, void* c1, float* gates, int N,
-                    int H, void* stream) {
+// Types: 0 float32, 1 bfloat16. in_dtype is xp's and b's, w_dtype W's
+// (4H, H); state_dtype is h's, c's, h1's and c1's. gates (N, 4H) float32,
+// or null for the variant without the residual. The FMA kernel.
+int lstm_fwd_launch(int in_dtype, int w_dtype, int state_dtype,
+                    const void* xp, const void* h, const void* c,
+                    const void* w, const void* b, void* h1, void* c1,
+                    float* gates, int N, int H, void* stream) {
   const FwdArgs a{xp, h, c, w, b, h1, c1, gates, N, H};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = gates != nullptr;
   return in_dtype == 1
-             ? fwd_dispatch<__nv_bfloat16>(state_dtype, a, g, st)
-             : fwd_dispatch<float>(state_dtype, a, g, st);
+             ? fwd_dispatch_w<__nv_bfloat16>(w_dtype, state_dtype, a, g, st)
+             : fwd_dispatch_w<float>(w_dtype, state_dtype, a, g, st);
+}
+
+// The tensor-core forward with a bf16 W: wp the (4, Hk, Hm) bf16 copy of W
+// (wp[k, j, m] = W[k H + j, m], zero past H; Hk a multiple of 32 and Hm of
+// 8, both at least H); in_dtype and state_dtype as above.
+int lstm_fwd_sm90_launch(int in_dtype, int state_dtype, const void* xp,
+                         const void* h, const void* c, const void* wp,
+                         const void* b, void* h1, void* c1, float* gates,
+                         int N, int H, int Hk, int Hm, void* stream) {
+  if (N < 1 || H < 1 || Hk < H || Hk % kTK || Hm < H || Hm % 8 ||
+      (N + kFTM - 1) / kFTM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{xp, h, c, wp, b, h1, c1, gates, N, H, Hk, Hm};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool g = gates != nullptr;
+  return in_dtype == 1
+             ? fwd_tc_dispatch_s<__nv_bfloat16>(state_dtype, a, g, st)
+             : fwd_tc_dispatch_s<float>(state_dtype, a, g, st);
 }
 
 // w_dtype is W's; state_dtype is c's, c1's, dh1's, dc1's, dh's and dc's;

@@ -55,17 +55,26 @@ Phases:
    profiled window; device idle share, the attention kernel's time);
 5. one full-width float32 decode step (paged and contiguous) with the
    kernels against the same step with the plain attention (atol 1e-3);
-6. the training kernels (flash forward, dq, dk/dv) against their plain
-   twins, in float32 (atol 1e-4 forward, 1e-3 gradients) and bf16 (2e-2,
-   5e-2), in the packed and head-major layouts: first a sweep of small
-   shapes (head dims 32/64/128, a tail tile, sq != sk, causal and not),
-   then at B 32, H 12, T 512, d 64, causal, with their times, SDPA's and
-   the bounds as in phase 3 (and the backward pair's minimal bound);
+6. the training kernels (flash forward, dq, dk/dv): the float32 route's
+   kernels as built (registers, stack, local bytes and HMMA count of each,
+   none without HMMA or with local bytes); against their plain twins, in
+   float32 (atol 1e-4 forward, 1e-3 gradients; on the split-bf16
+   ``mma.sync`` route and on the FMA route) and bf16 (2e-2, 5e-2), in the
+   packed and head-major layouts: first a sweep of small shapes (head dims
+   32/64/128, a tail tile, sq != sk, causal and not); then the product
+   check, each float32 kernel against the float64 function on both routes
+   (B 2, H 12, T 512, d 64, packed, causal), the split route no worse than
+   the FMA route; then at B 32, H 12, T 512, d 64, causal, with their
+   times (float32: the split route, the FMA route and SDPA in turns, two
+   rounds, and each kernel's time replayed from a CUDA graph), SDPA's
+   float32 kernels, and the bounds as in phase 3 (float32: six bf16
+   products on the tensor cores, the FMA bound beside it; and the backward
+   pair's minimal bound);
 7. training: 2 warm-up steps, then 5 timed steps with the launch counters
    reset before them; the loss must be finite and fall, and each training
-   kernel must be launched 12 times per step; then a torch.profiler
-   breakdown of two more steps, with busy and wall time from the same
-   profiled window;
+   kernel must be launched 12 times per step, every launch of the float32
+   timed steps on the split route; then a torch.profiler breakdown of two
+   more steps, with busy and wall time from the same profiled window;
 8. the head-major route: a 2-layer step at d_model 576, 9 heads (packed
    rows not a multiple of 128) must launch the same kernels;
 9. one full-width float32 loss-and-gradient pass with the kernels against
@@ -469,14 +478,36 @@ def serving_phase(serving, tt, fa, records):
             "itl_p50_ms": np.median(itl) * 1e3, **breakdown}
 
 
+def _device_events(window, tries: int = 3):
+    """Run ``window()`` under torch.profiler until the tracer delivers
+    device events, up to ``tries`` windows (on the card a window has come
+    back without any, and once three in a row). Returns (the window's
+    CUDA kernel events, or None if no window had any; ``window()``'s value
+    from the last window)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            value = window()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.count
+               and e.self_device_time_total > 0]
+        if dev:
+            return dev, value
+        log(f"the profiler delivered no device event (window {attempt + 1}"
+            f" of {tries})")
+    return None, value
+
+
 def decode_breakdown(model, steps: int = 10):
     """Device time torch.profiler records for ``steps`` full-width decode
     steps (8 live slots, lengths 50..200, greedy) against the wall time of
     the same steps, both taken in one profiled window: the device's busy
-    and idle shares, and the attention kernel's time. The wall time of as
-    many unprofiled steps is kept beside it (``step_wall_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
+    and idle shares, and the attention kernel's time (None, not measured,
+    if the profiler delivers no device event). The wall time of as many
+    unprofiled steps is kept beside it (``step_wall_ms``)."""
     S = model.slots
     bts = np.full((S, model.max_pages), model.trash_page, np.int32)
     for s in range(S):
@@ -495,21 +526,25 @@ def decode_breakdown(model, steps: int = 10):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        return (time.perf_counter() - t0) / steps * 1e3
+    dev, prof_wall_ms = _device_events(window)
+    if dev is None:
+        out = {"step_wall_ms": wall_ms, "profiled_step_wall_ms":
+               prof_wall_ms, "device_busy_ms": None,
+               "device_idle_share": None, "attention_kernel_ms": None}
+        log(f"decode step breakdown: device time not measured "
+            f"{json.dumps(out)}")
+        return out
     busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
     attn_ms = sum(e.self_device_time_total for e in dev
                   if "decode_attn_kernel" in e.key) / steps / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
     if busy_ms > prof_wall_ms:
         raise AssertionError(f"device busy {busy_ms} ms exceeds the "
                              f"profiled step's wall time {prof_wall_ms} ms")
@@ -597,14 +632,16 @@ def train_kernel_sweep(fa, g):
     on the shapes the main path does not reach at full width: head dims
     32, 64 and 128; T 200 (a tail tile of 8 rows), sq 96 / sk 160 and
     sq 160 / sk 96 (key tiles no query row reaches under the top-left
-    causal mask); causal and not; both layouts and both types; B 2, H 4.
-    Tolerances as at the training shapes. Returns the worst error per
-    kernel and type."""
+    causal mask); causal and not; both layouts and both types; B 2, H 4;
+    float32 on its split-bf16 route and on the FMA route. Tolerances as at
+    the training shapes. Returns the worst error per kernel, type and
+    route."""
     B, H = 2, 4
     worst = {}
     n_cases = 0
     for dt in (torch.float32, torch.bfloat16):
         atol_f, atol_b = TRAIN_TOL[dt]
+        routes = (None, "fma") if dt == torch.float32 else (None,)
         for d in (32, 64, 128):
             for sq, sk in ((200, 200), (96, 160), (160, 96)):
                 def rnd(t):
@@ -620,51 +657,163 @@ def train_kernel_sweep(fa, g):
                         else:
                             q, k, v, do = hm
                         kw = dict(causal=causal, n_heads=n_heads)
-                        out, lse = fa.flash_fwd(q, k, v, **kw)
+                        lay = "packed" if n_heads else "head-major"
                         ref_out, ref_lse = fa.flash_forward_reference(
                             q, k, v, **kw)
                         prod = do.float() * ref_out.float()
                         delta = (prod.view(B, sq, H, d).sum(-1) if n_heads
                                  else prod.sum(-1))
-                        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta,
-                                             **kw)
-                        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse,
-                                                  delta, **kw)
                         rq, rk, rv = fa.flash_backward_reference(
                             q, k, v, do, ref_lse, delta, **kw)
-                        errs = {"flash_fwd": max(_max_err(out, ref_out),
-                                                 _max_err(lse, ref_lse)),
-                                "flash_bwd_dq": _max_err(dq, rq),
-                                "flash_bwd_dkv": max(_max_err(dk, rk),
-                                                     _max_err(dv, rv))}
-                        finite = all(torch.isfinite(t).all() for t in
-                                     (out, lse, dq, dk, dv))
-                        for name, err in errs.items():
-                            atol = atol_f if name == "flash_fwd" else atol_b
-                            if not finite or err > atol:
-                                raise AssertionError(
-                                    f"{name} {dt} d {d} sq {sq} sk {sk} "
-                                    f"causal {causal} "
-                                    f"{'packed' if n_heads else 'head-major'}"
-                                    f": max |kernel - plain| {err} > {atol}")
-                            key = f"{name} {str(dt)[6:]}"
-                            worst[key] = max(worst.get(key, 0.0), err)
-                        n_cases += 1
+                        for route in routes:
+                            rkw = dict(kw, _route=route)
+                            out, lse = fa.flash_fwd(q, k, v, **rkw)
+                            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse,
+                                                 delta, **rkw)
+                            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse,
+                                                      delta, **rkw)
+                            errs = {"flash_fwd": max(_max_err(out, ref_out),
+                                                     _max_err(lse, ref_lse)),
+                                    "flash_bwd_dq": _max_err(dq, rq),
+                                    "flash_bwd_dkv": max(_max_err(dk, rk),
+                                                         _max_err(dv, rv))}
+                            finite = all(torch.isfinite(t).all() for t in
+                                         (out, lse, dq, dk, dv))
+                            for name, err in errs.items():
+                                atol = (atol_f if name == "flash_fwd"
+                                        else atol_b)
+                                if not finite or err > atol:
+                                    raise AssertionError(
+                                        f"{name} {dt} route {route} d {d} "
+                                        f"sq {sq} sk {sk} causal {causal} "
+                                        f"{lay}: max |kernel - plain| "
+                                        f"{err} > {atol}")
+                                key = (f"{name} {str(dt)[6:]}"
+                                       f"{' fma' if route else ''}")
+                                worst[key] = max(worst.get(key, 0.0), err)
+                            n_cases += 1
     log(f"shape sweep: {n_cases} cases (d 32/64/128; T 200, sq 96 sk 160, "
-        f"sq 160 sk 96; causal and not; both layouts and types) within "
-        f"tolerance; worst max_abs_err {json.dumps(worst)}")
+        f"sq 160 sk 96; causal and not; both layouts and types; float32 "
+        f"on both routes) within tolerance; worst max_abs_err "
+        f"{json.dumps(worst)}")
     return worst
 
 
-def train_kernel_checks(fa):
+def _flash_mma_kernel_name(mangled):
+    """``flash_fwd_mma_kernel<64>`` (the head dim) from a mangled name, or
+    None for a kernel of flash_attention.cu off the float32 route."""
+    m = re.search(r"(flash_\w+?_mma_kernel)ILi(\d+)EE", mangled)
+    return None if m is None else f"{m.group(1)}<{m.group(2)}>"
+
+
+def flash_sass_check(common):
+    """flash_attention.cu's float32-route kernels as built (forward, dq and
+    dk/dv at d 32, 64 and 128), each with HMMA (``mma.sync``) and no local
+    bytes."""
+    kernels = _sass_kernels(common, "flash_attention*.o",
+                            _flash_mma_kernel_name, "HMMA")
+    if len(kernels) != 9:
+        raise AssertionError(f"expected 9 float32-route flash kernels, "
+                             f"found {sorted(kernels)}")
+    return kernels
+
+
+def _flash_f64(q, k, v, n_heads, scale):
+    """Packed (B, T, H d) float32 q, k, v as float64 head-major tensors,
+    the query scaled in float32 first as the packed kernels do, and the
+    causal float64 scores."""
+    B, T, HD = q.shape
+
+    def hm(t):
+        return t.view(B, T, n_heads, HD // n_heads).transpose(1, 2).double()
+
+    qs = hm(q * torch.tensor(scale, dtype=q.dtype, device=q.device))
+    kh, vh = hm(k), hm(v)
+    keep = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    s = (qs @ kh.transpose(-1, -2)).masked_fill(~keep, -1e30)
+    return qs, kh, vh, hm, s
+
+
+def _packed64(t):
+    B, H, T, d = t.shape
+    return t.transpose(1, 2).reshape(B, T, H * d)
+
+
+def flash_product_check(fa, g, device="cuda"):
+    """Phase 6: each float32 kernel's max absolute error against the same
+    function in float64 at its rounding points (the packed query scaled in
+    float32; P and dS rounded to float32 before their products) on a slice
+    of the lane (B 2, H 12, T 512, d 64, packed, causal), on the split-bf16
+    route and the FMA route in turns, from the same inputs (the backward
+    from the float64 lse and delta, rounded to float32). The split route
+    must read no worse than the FMA route."""
+    B, H, T, d = 2, 12, 512, 64
+    scale = 1.0 / d ** 0.5
+    q, k, v, do = (torch.randn((B, T, H * d), generator=g, device=device)
+                   for _ in range(4))
+    qs, kh, vh, hm, s = _flash_f64(q, k, v, H, scale)
+    out64 = _packed64(torch.softmax(s, -1) @ vh)
+    lse64 = torch.logsumexp(s, -1).transpose(1, 2)
+    lse = lse64.float().contiguous()
+    delta = (do.double() * out64).view(B, T, H, d).sum(-1).float()
+    gh = hm(do)
+    p = torch.exp(s - lse.transpose(1, 2).double()[..., None])
+    ds = (p * (gh @ vh.transpose(-1, -2)
+               - delta.transpose(1, 2).double()[..., None])).float().double()
+    dq64 = _packed64(ds @ kh) * scale
+    dk64 = _packed64(ds.transpose(-1, -2) @ qs)
+    dv64 = _packed64(p.float().double().transpose(-1, -2) @ gh)
+    del qs, kh, vh, s, p, ds, gh
+    kw = dict(causal=True, n_heads=H)
+    errs = {}
+    for route in (None, "fma"):
+        tag = "split" if route is None else "fma"
+        out, lse_k = fa.flash_fwd(q, k, v, _route=route, **kw)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, _route=route, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, _route=route,
+                                  **kw)
+        errs[tag] = {
+            "flash_fwd": max(_max_err(out, out64), _max_err(lse_k, lse64)),
+            "flash_bwd_dq": _max_err(dq, dq64),
+            "flash_bwd_dkv": max(_max_err(dk, dk64), _max_err(dv, dv64))}
+    log(f"product check (B 2, H 12, T 512, d 64, packed, causal; max "
+        f"|kernel - float64|): {json.dumps(errs)}")
+    for name in TRAIN_KERNELS:
+        if not errs["split"][name] <= errs["fma"][name]:
+            raise AssertionError(
+                f"{name}: the split route's error against float64 "
+                f"{errs['split'][name]} exceeds the FMA route's "
+                f"{errs['fma'][name]}")
+    return errs
+
+
+def _sdpa_backend(q, k, v):
+    """The SDPA backend PyTorch picks for these causal inputs, and the
+    backends enabled."""
+    from torch.nn.attention import SDPBackend
+    be = torch.backends.cuda
+    return {"chosen": SDPBackend(torch._fused_sdp_choice(
+                q, k, v, is_causal=True)).name,
+            "enabled": {"flash": be.flash_sdp_enabled(),
+                        "mem_efficient": be.mem_efficient_sdp_enabled(),
+                        "math": be.math_sdp_enabled(),
+                        "cudnn": be.cudnn_sdp_enabled()}}
+
+
+def train_kernel_checks(fa, common):
     """Phase 6: parity and timing of the training kernels. Returns the
     JSON records (float32, packed: the timed training steps' type and
-    layout) and a log of every timing."""
+    layout) and a log of every timing. In float32 the split-bf16 route,
+    the FMA route and SDPA are timed in turns in this call; the records
+    carry the six-product bound (a float32 operand in three bf16 pieces,
+    six bf16 products) with the FMA bound beside it."""
     B, H, T, d = 32, 12, 512, 64
     g = torch.Generator(device="cuda").manual_seed(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     records, timings = {}, {}
+    timings["sass"] = flash_sass_check(common)
     timings["sweep"] = train_kernel_sweep(fa, g)
+    timings["products"] = flash_product_check(fa, g)
     for dt in (torch.float32, torch.bfloat16):
         atol_f, atol_b = TRAIN_TOL[dt]
         hm = [torch.randn((B, H, T, d), generator=g, device="cuda").to(dt)
@@ -704,25 +853,44 @@ def train_kernel_checks(fa):
                     f"{err:.3g} (atol {atol})")
             if not n_heads:
                 continue
-            # timing in the main path's layout; every operand exceeds L2
-            runs = {
-                "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
-                              lambda: fa.flash_forward_reference(q, k, v,
-                                                                 **kw)),
-                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(
-                    q, k, v, do, lse, delta, **kw), None),
-                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(
-                    q, k, v, do, lse, delta, **kw), None),
-            }
-            # one plain twin computes dq, dk and dv together
-            bwd_plain_ms = time_ms(lambda: fa.flash_backward_reference(
-                q, k, v, do, lse, delta, **kw), iters=3, warmup=1)
+            # timing in the main path's layout; every operand exceeds L2.
+            # float32: the split route, the FMA route and SDPA in turns
+            routes = (None, "fma") if dt == torch.float32 else (None,)
+            calls = {}
+            for route in routes:
+                rkw = dict(kw, _route=route)
+                calls[("flash_fwd", route)] = (
+                    lambda rkw=rkw: fa.flash_fwd(q, k, v, **rkw))
+                calls[("flash_bwd_dq", route)] = (
+                    lambda rkw=rkw: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                    **rkw))
+                calls[("flash_bwd_dkv", route)] = (
+                    lambda rkw=rkw: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                     delta, **rkw))
             qr, kr, vr = (x.detach().requires_grad_(True) for x in hm[:3])
-            sdpa_fwd_ms = time_ms(lambda: sdpa(qr, kr, vr, is_causal=True))
             o = sdpa(qr, kr, vr, is_causal=True)
-            sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
-                o, (qr, kr, vr), hm[3], retain_graph=True))
+            calls[("sdpa_fwd", None)] = lambda: sdpa(qr, kr, vr,
+                                                     is_causal=True)
+            calls[("sdpa_bwd", None)] = lambda: torch.autograd.grad(
+                o, (qr, kr, vr), hm[3], retain_graph=True)
+            readings = {key: [] for key in calls}
+            for _ in range(2):
+                for key, fn in calls.items():
+                    readings[key].append(time_ms(fn, iters=20))
+            ev = {key: sum(r) / len(r) for key, r in readings.items()}
+            sdpa_fwd_ms = ev[("sdpa_fwd", None)]
+            sdpa_bwd_ms = ev[("sdpa_bwd", None)]
             del o, qr, kr, vr
+            if dt == torch.float32:
+                timings["sdpa_backend float32"] = _sdpa_backend(*hm[:3])
+                log("SDPA float32: "
+                    + json.dumps(timings["sdpa_backend float32"]))
+            # one plain twin computes dq, dk and dv together
+            plain = {"flash_fwd": time_ms(lambda: fa.flash_forward_reference(
+                q, k, v, **kw), iters=3, warmup=1)}
+            plain["flash_bwd_dq"] = plain["flash_bwd_dkv"] = time_ms(
+                lambda: fa.flash_backward_reference(q, k, v, do, lse, delta,
+                                                    **kw), iters=3, warmup=1)
             esz = q.element_size()
             x_bytes = B * H * T * d * esz
             row_bytes = B * H * T * 4
@@ -732,13 +900,13 @@ def train_kernel_checks(fa):
                                      6 * d * pairs),
                     "flash_bwd_dkv": (6 * x_bytes + 2 * row_bytes,
                                       8 * d * pairs)}
-            for name, (kern, plain) in runs.items():
-                ms = time_ms(kern, iters=20)
-                plain_ms = (time_ms(plain, iters=3, warmup=1) if plain
-                            else bwd_plain_ms)
+            # a float32 operand split in three bf16 pieces: six bf16
+            # products on the tensor cores
+            pieces = 6 if dt == torch.float32 else 1
+            for name in TRAIN_KERNELS:
                 moved, flops = work[name]
                 t_bytes = moved / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dt] * 1e3
+                t_ops = pieces * flops / PEAK_FLOPS[torch.bfloat16] * 1e3
                 rec = {
                     "name": name, "route": "cuda",
                     "source": "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
@@ -750,37 +918,58 @@ def train_kernel_checks(fa):
                                         "flash_attention.py:911",
                         "flash_bwd_dkv": "incubator_mxnet_tpu/ops/pallas/"
                                          "flash_attention.py:911"}[name],
-                    "launches": 0, "max_abs_err": errs[name], "ms": ms,
-                    "plain_ms": plain_ms,
+                    "launches": 0, "max_abs_err": errs[name],
+                    "ms": ev[(name, None)],
+                    "graph_ms": graph_ms(calls[(name, None)]),
+                    "plain_ms": plain[name],
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations",
                     "library_ms": sdpa_fwd_ms if name == "flash_fwd"
                     else None,
+                    "kernel_route": fa.flash_train_route(dt),
                 }
-                timings[f"{name} {str(dt)[6:]}"] = rec
                 if dt == torch.float32:
+                    t_fma = flops / PEAK_FLOPS[torch.float32] * 1e3
+                    rec.update(
+                        fma_ms=ev[(name, "fma")],
+                        fma_graph_ms=graph_ms(calls[(name, "fma")]),
+                        fma_bound_ms=max(t_bytes, t_fma),
+                        product_err=timings["products"]["split"][name],
+                        fma_product_err=timings["products"]["fma"][name])
                     records[name] = rec
-                log(f"time {name} {str(dt)[6:]}: {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                    f"({rec['bound_by']})")
+                timings[f"{name} {str(dt)[6:]}"] = rec
+                log(f"time {name} {str(dt)[6:]}: {rec['ms']:.4f} ms event "
+                    f"(two rounds {readings[(name, None)]}), graph "
+                    f"{rec['graph_ms']} ms, plain {rec['plain_ms']:.4f} ms, "
+                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                    + (f"; FMA route {rec['fma_ms']:.4f} ms event (two "
+                       f"rounds {readings[(name, 'fma')]}), graph "
+                       f"{rec['fma_graph_ms']} ms, FMA bound "
+                       f"{rec['fma_bound_ms']:.4f} ms"
+                       if dt == torch.float32 else ""))
             # the per-kernel bounds above count the two-pass recompute of
             # s and dP; the function the pair replaces needs 10 d flops per
             # causal pair and moves q, k, v, dO, lse, delta in and dq, dk,
             # dv out once
             t_bytes = (7 * x_bytes + 2 * row_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = 10 * d * pairs / PEAK_FLOPS[dt] * 1e3
-            pair_ms = sum(timings[f"{n} {str(dt)[6:]}"]["ms"]
-                          for n in ("flash_bwd_dq", "flash_bwd_dkv"))
-            timings[f"flash_bwd_pair {str(dt)[6:]}"] = {
-                "ms": pair_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": sdpa_bwd_ms}
-            log(f"time flash_bwd_pair {str(dt)[6:]}: {pair_ms:.4f} ms, "
-                f"minimal bound {max(t_bytes, t_ops):.4f} ms, SDPA backward "
-                f"{sdpa_bwd_ms:.4f} ms")
+            t_ops = pieces * 10 * d * pairs / PEAK_FLOPS[torch.bfloat16] * 1e3
+            pair = {"ms": sum(ev[(n, None)] for n in TRAIN_KERNELS[1:]),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "library_ms": sdpa_bwd_ms}
+            if dt == torch.float32:
+                pair["fma_ms"] = sum(ev[(n, "fma")]
+                                     for n in TRAIN_KERNELS[1:])
+                pair["fma_bound_ms"] = max(
+                    t_bytes, 10 * d * pairs / PEAK_FLOPS[dt] * 1e3)
+            timings[f"flash_bwd_pair {str(dt)[6:]}"] = pair
+            log(f"time flash_bwd_pair {str(dt)[6:]}: {json.dumps(pair)}")
             log(f"time sdpa causal {str(dt)[6:]}: forward {sdpa_fwd_ms:.4f}"
-                f" ms, backward {sdpa_bwd_ms:.4f} ms")
+                f" ms, backward {sdpa_bwd_ms:.4f} ms (two rounds each "
+                f"{readings[('sdpa_fwd', None)]}, "
+                f"{readings[('sdpa_bwd', None)]})")
             timings[f"sdpa {str(dt)[6:]}"] = {"fwd_ms": sdpa_fwd_ms,
                                               "bwd_ms": sdpa_bwd_ms}
     return records, timings
@@ -829,16 +1018,24 @@ def train_phase(tt, fa, records, steps=5):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss not finite and falling: "
                              f"{losses}")
+    split = {n: getattr(fa, n).sm90_launches for n in TRAIN_KERNELS}
     for name in TRAIN_KERNELS:
         if launches[name] != cfg.n_layers * steps:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {steps} steps, not "
                                  f"{cfg.n_layers * steps}")
+        # the timed steps run float32 attention: all on the split route
+        want = launches[name] if timed_dtype == "float32" else 0
+        if split[name] != want:
+            raise AssertionError(f"{name}: {split[name]} of "
+                                 f"{launches[name]} launches on the split "
+                                 f"route, not {want}")
         records[name]["launches"] = launches[name]
     step_ms = wall / steps * 1e3
+    # both routes' kernels: flash_fwd_kernel, flash_fwd_mma_kernel, ...
     breakdown = kernel_breakdown(
         "train", lambda: step(params, opt, tokens, labels),
-        [f"{n}_kernel" for n in TRAIN_KERNELS])
+        [f"{n}_" for n in TRAIN_KERNELS])
     return {"step_ms": step_ms, "tok_s": B * T * steps / wall,
             "timed_dtype": timed_dtype, "loss_first": losses[0],
             "loss_last": losses[-1], **breakdown}
@@ -849,25 +1046,29 @@ def kernel_breakdown(label, step, kernel_names, steps: int = 2):
     against the wall time of the same calls, both taken in one profiled
     window: busy and idle shares, the time and share of busy of the kernels
     whose names contain one of ``kernel_names``, and the top device ops
-    (all per step)."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
+    (all per step; None, not measured, if the profiler delivers no device
+    event)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        return (time.perf_counter() - t0) / steps * 1e3
+    dev, wall_ms = _device_events(window)
+    if dev is None:
+        out = dict.fromkeys(("device_busy_ms", "device_idle_share",
+                             "kernels_ms", "kernels_share_of_busy",
+                             "kernel_ms", "top_device_ops"))
+        out["profiled_step_wall_ms"] = wall_ms
+        log(f"{label} step breakdown: device time not measured "
+            f"{json.dumps(out)}")
+        return out
     busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
     per = {n: sum(e.self_device_time_total for e in dev if n in e.key)
            / steps / 1e3 for n in kernel_names}
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
     if busy_ms > wall_ms:
         raise AssertionError(f"device busy {busy_ms} ms exceeds the "
                              f"profiled step's wall time {wall_ms} ms")
@@ -1557,30 +1758,22 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
     lose records (on an H100 it kept 4 of 5 of the fused-conv kernels', 2
     of 5 of the LSTM forward's, window after window), so neither its total
     over ``calls`` nor its count says how often a kernel ran. A window in
-    which the tracer delivered no device event (seen once) is profiled
-    again, up to ``tries`` windows in all."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
+    which the tracer delivered no device event is profiled again, up to
+    ``tries`` windows in all; after that the time is not measured: (None,
+    {})."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(tries):
+
+    def window():
         before = wrapper.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        per_call = (wrapper.launches - before) / calls
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.count
-               and e.self_device_time_total > 0]
-        if dev:
-            break
-        log(f"device_ms: the profiler recorded no device time (window "
-            f"{attempt + 1} of {tries})")
-    if not dev:
-        raise AssertionError("the profiler recorded no device time")
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (wrapper.launches - before) / calls
+    dev, per_call = _device_events(window, tries)
+    if dev is None:
+        log(f"device_ms: {wrapper.__name__}'s device time not measured")
+        return None, {}
     if per_call < 1 or per_call != int(per_call):
         raise AssertionError(f"device_ms: {wrapper.__name__} launched "
                              f"{per_call} times a call")
@@ -1597,6 +1790,10 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
             f"{wrapper.__name__}'s {calls} calls; each kernel's mean "
             f"duration stands for its lost ones")
     return sum(per.values()), per
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def graph_ms(fn, replays: int = 20):
@@ -1834,7 +2031,7 @@ def conv_kernel_checks(cf, common):
                         and case == CONV_RECORD_CASE[name]:
                     records[rec["name"]] = rec
                 extra = (f"; earlier (simt) {rec['earlier_ms']:.4f} ms, "
-                         f"device {rec['device_ms']:.4f} ms "
+                         f"device {_ms(rec['device_ms'])} ms "
                          f"{json.dumps(rec['device_kernels_ms'])}, host "
                          f"{rec['host_us']:.1f} us, graph "
                          f"{rec.get('graph_ms', 'not measured')} ms"
@@ -2507,7 +2704,7 @@ def lstm_kernel_checks(lt, common):
                 rec["name"] = "lstm_fwd/simt"
                 records[rec["name"]] = rec
             extra = (f"; FMA/SIMT {rec['earlier_ms']:.4f} ms, device "
-                     f"{rec['device_ms']:.4f} ms "
+                     f"{_ms(rec['device_ms'])} ms "
                      f"{json.dumps(rec['device_kernels_ms'])}, graph "
                      f"{rec['graph_ms']} ms, host "
                      f"{rec['host_us']:.1f} us, W copy (once a sequence) "
@@ -3754,7 +3951,7 @@ def main() -> int:
     records = kernel_checks(fa)
     serve = serving_phase(serving, tt, fa, records)
     f32_step_phase(tt, fa)
-    train_records, timings = train_kernel_checks(fa)
+    train_records, timings = train_kernel_checks(fa, common)
     records.update(train_records)
     torch.cuda.empty_cache()
     train = train_phase(tt, fa, records)

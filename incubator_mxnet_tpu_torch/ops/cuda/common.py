@@ -41,9 +41,9 @@ _SIGNATURES = {
                               _F, _P],
     "mxt_flash_decode_step_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _P],
-    "mxt_flash_fwd": [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
-    "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "mxt_flash_fwd": [_P, _P, _P, _P, _P] + [_I] * 9 + [_F, _P],
+    "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _P],
+    "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
     "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mxt_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "mxt_softmax_fwd": [_P, _P, _I, _I, _I, _P],

@@ -13,12 +13,12 @@ int decode_attention_launch(int paged, int dtype, const void* q,
                             int n_pool, float scale, void* stream);
 const char* decode_attention_error_string(int code);
 
-int flash_attention_launch(int kind, int layout, int dtype, const void* q,
-                           const void* k, const void* v, const void* dout,
-                           const float* lse, const float* delta, void* o0,
-                           void* o1, float* lse_out, int B, int H, int sq,
-                           int sk, int d, int causal, float scale,
-                           void* stream);
+int flash_attention_launch(int kind, int layout, int dtype, int fma,
+                           const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* o0, void* o1,
+                           float* lse_out, int B, int H, int sq, int sk,
+                           int d, int causal, float scale, void* stream);
 
 int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
                           const float* beta, void* y, float* mu, float* rstd,
@@ -155,11 +155,13 @@ int mxt_flash_decode_step_paged(const void* q, const void* k, const void* v,
 // Training attention. layout 0: q/k/v (B, T, H*d), lse/delta (B, T, H)
 // float32; layout 1: q/k/v (B, H, T, d), lse/delta (B, H, T). k/v have
 // sk rows, q/dout sq rows. Outputs have their input's layout and type.
+// fma 1 takes the float32 FMA kernels instead of the split-bf16 mma.sync
+// ones (float32 only).
 int mxt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int H, int sq, int sk, int d, int layout,
-                  int causal, int dtype, float scale, void* stream) {
-  return flash_attention_launch(0, layout, dtype, q, k, v, nullptr, nullptr,
-                                nullptr, out, nullptr,
+                  int causal, int dtype, int fma, float scale, void* stream) {
+  return flash_attention_launch(0, layout, dtype, fma, q, k, v, nullptr,
+                                nullptr, nullptr, out, nullptr,
                                 static_cast<float*>(lse), B, H, sq, sk, d,
                                 causal, scale, stream);
 }
@@ -167,9 +169,9 @@ int mxt_flash_fwd(const void* q, const void* k, const void* v, void* out,
 int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int H, int sq, int sk, int d,
-                     int layout, int causal, int dtype, float scale,
+                     int layout, int causal, int dtype, int fma, float scale,
                      void* stream) {
-  return flash_attention_launch(1, layout, dtype, q, k, v, dout,
+  return flash_attention_launch(1, layout, dtype, fma, q, k, v, dout,
                                 static_cast<const float*>(lse),
                                 static_cast<const float*>(delta), dq,
                                 nullptr, nullptr, B, H, sq, sk, d, causal,
@@ -179,9 +181,9 @@ int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
 int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int H, int sq, int sk,
-                      int d, int layout, int causal, int dtype, float scale,
-                      void* stream) {
-  return flash_attention_launch(2, layout, dtype, q, k, v, dout,
+                      int d, int layout, int causal, int dtype, int fma,
+                      float scale, void* stream) {
+  return flash_attention_launch(2, layout, dtype, fma, q, k, v, dout,
                                 static_cast<const float*>(lse),
                                 static_cast<const float*>(delta), dk, dv,
                                 nullptr, B, H, sq, sk, d, causal, scale,

@@ -15,6 +15,15 @@ Training (forward with its log-sum-exp, and the two-pass backward):
   head in PyTorch, as the reference does outside its kernels, and then
   runs dq and dk/dv.
 
+The kernels' route is chosen by type (:func:`flash_train_route`): float32
+takes the split-bf16 ``mma.sync`` kernels (every float32 operand of a
+product as three exact bf16 pieces, the six piece products float32 needs
+per 16-deep stage, a fresh float32 partial each stage), bf16 the WMMA
+kernels. ``_route="fma"`` (private; the model never passes it) forces
+float32 onto the old FMA kernels, which ``chip_smoke.py`` keeps as the
+yardstick; the new route's launches are also counted in
+``fn.sm90_launches``.
+
 Every training function takes both layouts: given ``n_heads`` its tensors
 are packed (B, T, H*d) with lse/delta (B, T, H); without, head-major
 (B, H, T, d) with lse/delta (B, H, T). The layout also picks the
@@ -62,8 +71,9 @@ __all__ = ["mha_reference", "flash_forward_reference",
            "flash_backward_reference", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_attention_packed", "flash_attention",
            "flash_attention_with_lse", "flash_attention_packed_viable",
-           "flash_kernel_viable", "decode_attention_reference",
-           "flash_decode_step", "decode_attention",
+           "flash_kernel_viable", "flash_train_route",
+           "decode_attention_reference", "flash_decode_step",
+           "decode_attention",
            "paged_decode_attention_reference", "flash_decode_step_paged",
            "paged_decode_attention", "launch_counts", "reset_launch_counts"]
 
@@ -435,14 +445,40 @@ def _check_rows(name: str, dout, lse, delta, q, layout, B, H, sq):
                              f"got {tuple(t.shape)} {t.dtype}")
 
 
+def flash_train_route(dtype) -> str:
+    """The training kernels' route for q/k/v of ``dtype``: "mma" for
+    float32 (the split-bf16 ``mma.sync`` kernels), "wmma" for bf16."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention: dtype {dtype} not supported "
+                        "(float32 or bfloat16)")
+    return "mma" if dtype == torch.float32 else "wmma"
+
+
+def _fma_code(name: str, q, route) -> int:
+    """1 when ``route`` forces the float32 FMA kernels, else 0."""
+    if route is None:
+        return 0
+    if route != "fma" or q.dtype != torch.float32:
+        raise ValueError(f"{name}: _route {route!r} (only \"fma\", for "
+                         "float32)")
+    return 1
+
+
+def _count(kern, q, fma: int) -> None:
+    kern.launches += 1
+    if not fma and flash_train_route(q.dtype) == "mma":
+        kern.sm90_launches += 1
+
+
 @counted_kernel
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
-              n_heads: Optional[int] = None):
+              n_heads: Optional[int] = None, _route: Optional[str] = None):
     """CUDA flash-attention forward (replaces the Pallas ``_fwd_packed``,
     ``_fwd_resident`` and ``_fwd_streamed``). Packed (B, T, H*d) with
     ``n_heads`` or head-major (B, H, T, d); head dim 32, 64 or 128.
     Returns (out like q, lse float32 (B, T, H) packed / (B, H, T))."""
     layout, B, H, sq, sk, d = _flash_geometry("flash_fwd", q, k, v, n_heads)
+    fma = _fma_code("flash_fwd", q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
@@ -451,41 +487,42 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
     code = kernel_library().mxt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, sq, sk, d, layout, int(causal),
-        _DTYPE_CODE[q.dtype], float(scale), current_stream_handle(q))
+        _DTYPE_CODE[q.dtype], fma, float(scale), current_stream_handle(q))
     check_launch(code, "flash_fwd")
-    flash_fwd.launches += 1
+    _count(flash_fwd, q, fma)
     return out, lse
-
 
 
 @counted_kernel
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
                  scale: Optional[float] = None,
-                 n_heads: Optional[int] = None):
+                 n_heads: Optional[int] = None,
+                 _route: Optional[str] = None):
     """CUDA dq of flash attention from the forward's lse and delta
     (replaces the Pallas ``_dq_pass_*`` and the dq half of
     ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`."""
     layout, B, H, sq, sk, d = _flash_geometry("flash_bwd_dq", q, k, v,
                                               n_heads, dout, lse, delta)
     _check_rows("flash_bwd_dq", dout, lse, delta, q, layout, B, H, sq)
+    fma = _fma_code("flash_bwd_dq", q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dq = torch.empty_like(q)
     code = kernel_library().mxt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, sq, sk, d,
-        layout, int(causal), _DTYPE_CODE[q.dtype], float(scale),
+        layout, int(causal), _DTYPE_CODE[q.dtype], fma, float(scale),
         current_stream_handle(q))
     check_launch(code, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q, fma)
     return dq
-
 
 
 @counted_kernel
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                   scale: Optional[float] = None,
-                  n_heads: Optional[int] = None):
+                  n_heads: Optional[int] = None,
+                  _route: Optional[str] = None):
     """CUDA dk and dv of flash attention from the forward's lse and delta
     (replaces the Pallas ``_dkv_pass_*`` and the dk/dv half of
     ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`. Returns
@@ -493,6 +530,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     layout, B, H, sq, sk, d = _flash_geometry("flash_bwd_dkv", q, k, v,
                                               n_heads, dout, lse, delta)
     _check_rows("flash_bwd_dkv", dout, lse, delta, q, layout, B, H, sq)
+    fma = _fma_code("flash_bwd_dkv", q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dk = torch.empty_like(k)
@@ -500,12 +538,11 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     code = kernel_library().mxt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
-        sq, sk, d, layout, int(causal), _DTYPE_CODE[q.dtype], float(scale),
-        current_stream_handle(q))
+        sq, sk, d, layout, int(causal), _DTYPE_CODE[q.dtype], fma,
+        float(scale), current_stream_handle(q))
     check_launch(code, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q, fma)
     return dk, dv
-
 
 
 # -------------------------------------------------------------- dispatchers

@@ -40,19 +40,32 @@ Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build of the kernels from ``incubator_mxnet_tpu_torch/ops/cuda/csrc``;
-3. the decode kernels against their plain versions at the serving shapes
-   with ragged lengths, in float32 (atol 2e-5) and bf16 (atol 2e-2), and
-   their time beside the plain version's, one PyTorch library call's
-   (where one computes the same function) and the least time the card
-   could take (bytes the call must move at 3.35 TB/s, or its flops at the
-   peak rate of the input type, whichever is larger);
+3. the decode kernels: the split kernels as built (registers, stack,
+   local bytes and bulk-copy count of each, none without UBLKCP or with
+   local bytes); against their plain versions in float32 (atol 2e-5) and
+   bf16 (atol 2e-2) on both routes (the split kernels, and the old
+   one-block-a-cell kernel, ``_route="simple"``):
+   a sweep (3 heads, d 32/64/128, page 16/64, lengths 0, 1, every tile
+   and page boundary -1/0/+1 and full, a scrambled block table whose dead
+   entries point at a trash page of garbage, garbage past each length in
+   the contiguous cache), a 4096-long cache (runs of several tiles a
+   split) and the serving shapes with ragged lengths; two calls bitwise
+   equal; then in bf16 at the serving lane with
+   ragged lengths (8..512) and with every slot full, each route's device
+   ms (torch.profiler), graph ms (a CUDA graph of 20 calls), event ms and
+   host µs taken in turns over two rounds, K/V rotated through copies
+   beyond the 50 MB L2, beside the plain version's, masked SDPA's (for the
+   contiguous kernel) and the least time the card could take (bytes the
+   call must move at 3.35 TB/s, or its flops at the peak rate of the input
+   type, whichever is larger);
 4. serving: ~16 prompts of 8..200 tokens on the paged engine (some share a
    64-token prefix, one is sampled), then a short pass on the contiguous
    engine; every request must finish with its token budget, every page must
    come back, and each kernel must have been launched by the run (launch
-   counters are reset right before each run and read right after); then a
+   counters are reset right before each run and read right after), every
+   decode launch on the split route; then a
    torch.profiler breakdown of decode steps (busy and wall time from one
-   profiled window; device idle share, the attention kernel's time);
+   profiled window; device idle share, the attention kernels' time);
 5. one full-width float32 decode step (paged and contiguous) with the
    kernels against the same step with the plain attention (atol 1e-3);
 6. the training kernels (flash forward, dq, dk/dv): the float32 route's
@@ -249,98 +262,275 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 # --------------------------------------------------------------- kernels
-def kernel_checks(fa):
-    """Phase 3: parity and timing of both kernels at the serving shapes."""
-    S, H, d, C, P = 8, 12, 64, 512, 64
-    n_pages, max_pages = S * C // P, C // P
-    lengths_list = [8, 64, 65, 129, 200, 264, 333, 512]   # ragged
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
+DECODE_KERNELS = ("flash_decode_step", "flash_decode_step_paged")
+DECODE_REPLACES = {
+    "flash_decode_step":
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:1417",
+    "flash_decode_step_paged":
+        "incubator_mxnet_tpu/ops/pallas/flash_attention.py:1559"}
+# the serving lane's geometry and two length sets: the ragged one of a
+# serving run and every slot full
+DECODE_LANE = dict(H=12, d=64, C=512, P=64)
+DECODE_SHAPES = {"ragged": [8, 64, 65, 129, 200, 264, 333, 512],
+                 "full": [512] * 8}
+# the routes timed in turns: the split kernels (the route the model takes)
+# and the old one-block-a-cell kernel (private ``_route="simple"``)
+DECODE_ROUTES = (None, "simple")
+
+
+def decode_inputs(g, dt, lengths_list, H=12, d=64, C=512, P=64):
+    """Operands of both decode kernels for ``len(lengths_list)`` slots: q, a
+    contiguous cache (S, H, C, d) whose positions at or past each slot's
+    length hold large finite garbage, and a page pool (S * C / P + 1, H, P,
+    d) addressed through a scrambled block table whose dead entries point
+    at the last page, a trash page of garbage. Nothing past a slot's
+    length may reach its output."""
+    S, max_pages = len(lengths_list), C // P
+    n_pages = S * max_pages
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
     bt = torch.randperm(n_pages, generator=g, device="cuda").reshape(
         S, max_pages).to(torch.int32)
-    for s, n in enumerate(lengths_list):       # dead pages -> trash page
+    q = rnd(S, H, d)
+    kc, vc = rnd(S, H, C, d), rnd(S, H, C, d)
+    kp, vp = rnd(n_pages + 1, H, P, d), rnd(n_pages + 1, H, P, d)
+    for s, n in enumerate(lengths_list):
         bt[s, -(-n // P):] = n_pages
-    records = {}
-    for dt, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        def rnd(*shape):
-            return torch.randn(shape, generator=g, device="cuda").to(dt)
-        q = rnd(S, H, d)
-        kc, vc = rnd(S, H, C, d), rnd(S, H, C, d)
-        kp, vp = rnd(n_pages + 1, H, P, d), rnd(n_pages + 1, H, P, d)
-        kp[n_pages] = 1e4
-        vp[n_pages] = -1e4                     # finite garbage, never read
-        cases = {
-            "flash_decode_step": (
-                lambda k, v: fa.flash_decode_step(q, k, v, lengths,
-                                                  block_k=P),
-                lambda k, v: fa.decode_attention_reference(q, k, v, lengths,
-                                                           block_k=P),
-                (kc, vc)),
-            "flash_decode_step_paged": (
-                lambda k, v: fa.flash_decode_step_paged(q, k, v, bt,
-                                                        lengths),
-                lambda k, v: fa.paged_decode_attention_reference(
-                    q, k, v, bt, lengths),
-                (kp, vp)),
-        }
-        for name, (kern, plain, (k, v)) in cases.items():
+        kc[s, :, n:] = 1e4
+        vc[s, :, n:] = -1e4
+    kp[n_pages] = 1e4
+    vp[n_pages] = -1e4
+    return {"q": q, "kc": kc, "vc": vc, "kp": kp, "vp": vp, "P": P,
+            "bt": bt, "lengths": torch.tensor(lengths_list,
+                                              dtype=torch.int32,
+                                              device="cuda")}
+
+
+def decode_calls(fa, x, route=None):
+    """{kernel: (kernel call (k, v), plain twin (k, v), (k, v))} on the
+    operands ``x`` of :func:`decode_inputs`, the kernels on ``route``."""
+    kw = {} if route is None else {"_route": route}
+    q, lengths, bt, P = x["q"], x["lengths"], x["bt"], x["P"]
+    return {
+        "flash_decode_step": (
+            lambda k, v: fa.flash_decode_step(q, k, v, lengths, block_k=P,
+                                              **kw),
+            lambda k, v: fa.decode_attention_reference(q, k, v, lengths,
+                                                       block_k=P),
+            (x["kc"], x["vc"])),
+        "flash_decode_step_paged": (
+            lambda k, v: fa.flash_decode_step_paged(q, k, v, bt, lengths,
+                                                    **kw),
+            lambda k, v: fa.paged_decode_attention_reference(
+                q, k, v, bt, lengths),
+            (x["kp"], x["vp"])),
+    }
+
+
+def decode_parity(fa, x, atol, tag, routes=DECODE_ROUTES):
+    """Each kernel on each route against its plain twin; the largest
+    error of each kernel over the routes."""
+    errs = {}
+    for route in routes:
+        for name, (kern, plain, (k, v)) in decode_calls(fa, x,
+                                                          route).items():
             out = kern(k, v)
             torch.cuda.synchronize()
-            ref = plain(k, v)
-            err = (out.float() - ref.float()).abs().max().item()
+            err = (out.float() - plain(k, v).float()).abs().max().item()
             if not torch.isfinite(out).all() or err > atol:
-                raise AssertionError(f"{name} {dt}: max |kernel - plain| "
-                                     f"{err} > {atol}")
-            log(f"parity {name} {str(dt)[6:]}: max_abs_err {err:.3g} "
-                f"(atol {atol})")
-            if dt != torch.bfloat16:
-                continue
-            # timing at the served type; K/V rotate through enough copies
-            # to exceed the 50 MB L2, as 12 layers' caches do when serving
-            n_rot = max(2, -(-120_000_000 // (2 * k.nbytes)))
-            rot = [(k.clone(), v.clone()) for _ in range(n_rot)]
-            it = iter(range(1 << 30))
+                raise AssertionError(
+                    f"{name} ({route or 'split'}) {tag}: max |kernel - "
+                    f"plain| {err} > {atol}")
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
 
-            def run(f):
-                kk, vv = rot[next(it) % n_rot]
-                return f(kk, vv)
-            ms = time_ms(lambda: run(kern))
-            plain_ms = time_ms(lambda: run(plain), iters=10, warmup=2)
-            library_ms = None
-            if name == "flash_decode_step":
-                mask = (torch.arange(C, device="cuda")[None, :]
-                        < lengths[:, None].long())[:, None, None, :]
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                library_ms = time_ms(lambda: run(
-                    lambda kk, vv: sdpa(q[:, :, None], kk, vv,
-                                        attn_mask=mask)))
-            esz = q.element_size()
-            kv_bytes = 2 * sum(lengths_list) * H * d * esz
-            idx_bytes = lengths.nbytes + (bt.nbytes if "paged" in name
-                                          else 0)
-            moved = kv_bytes + 2 * q.nbytes + idx_bytes
-            flops = 4 * sum(lengths_list) * H * d
-            t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dt] * 1e3
-            records[name] = {
-                "name": name, "route": "cuda",
-                "source": "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
-                          "decode_attention.cu",
-                "replaces": ("incubator_mxnet_tpu/ops/pallas/"
-                             "flash_attention.py:1417" if "paged" not in name
-                             else "incubator_mxnet_tpu/ops/pallas/"
-                                  "flash_attention.py:1559"),
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms,
-            }
-            log(f"time {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"library {library_ms} ms, bound {max(t_bytes, t_ops):.4f} "
-                f"ms ({moved / 1e6:.2f} MB at 3.35 TB/s)")
-            del rot
-    return records
+
+class _Rotation:
+    """Copies of K/V that together exceed the 50 MB L2 (as 12 layers'
+    caches do when serving); each call reads the next copy, so no reading
+    finds its operands in L2, a graph replay included."""
+
+    def __init__(self, k, v, min_bytes=120_000_000):
+        n = max(2, -(-min_bytes // (2 * k.nbytes)))
+        self.kv = [(k.clone(), v.clone()) for _ in range(n)]
+        self.i = 0
+
+    def __call__(self, f):
+        kk, vv = self.kv[self.i % len(self.kv)]
+        self.i += 1
+        return f(kk, vv)
+
+
+def decode_timings(fa, shape, routes=DECODE_ROUTES, rounds=2):
+    """bf16 times of both kernels at the serving lane with the length set
+    ``shape``: each route's device ms (torch.profiler, every kernel of a
+    call, launches from the wrapper's counter), graph ms (a CUDA graph of
+    20 calls, each on the next K/V copy), event ms (a loop of wrapper
+    calls between CUDA events) and host µs, taken in turns over
+    ``rounds`` rounds (the route order reversed every other round) and
+    averaged; beside them the plain twin's and masked SDPA's event ms and
+    the byte bound. Returns {kernel: record}."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    lens = DECODE_SHAPES[shape]
+    x = decode_inputs(g, torch.bfloat16, lens, **DECODE_LANE)
+    H, d, C = DECODE_LANE["H"], DECODE_LANE["d"], DECODE_LANE["C"]
+    out = {}
+    for name in DECODE_KERNELS:
+        calls = {r: decode_calls(fa, x, r)[name] for r in routes}
+        _, plain, (k, v) = calls[routes[0]]
+        rot = _Rotation(k, v)
+        wrapper = getattr(fa, name)
+        per_route = {r: {"device_ms": [], "graph_ms": [], "event_ms": [],
+                         "host_us": []} for r in routes}
+        kernels = {}
+        for i in range(rounds):
+            for r in (routes if i % 2 == 0 else routes[::-1]):
+                kern = calls[r][0]
+
+                def fn(kern=kern):
+                    return rot(kern)
+                dev, per = device_ms(fn, wrapper)
+                kernels[r or "split"] = per
+                rec = per_route[r]
+                rec["device_ms"].append(dev)
+                rec["graph_ms"].append(graph_ms(fn))
+                rec["event_ms"].append(time_ms(fn))
+                rec["host_us"].append(host_us(fn))
+        plain_ms = time_ms(lambda: rot(plain), iters=10, warmup=2)
+        library_ms = None
+        if name == "flash_decode_step":
+            mask = (torch.arange(C, device="cuda")[None, :]
+                    < x["lengths"][:, None].long())[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            q4 = x["q"][:, :, None]
+            library_ms = time_ms(lambda: rot(
+                lambda kk, vv: sdpa(q4, kk, vv, attn_mask=mask)))
+        esz = x["q"].element_size()
+        idx_bytes = x["lengths"].nbytes + (x["bt"].nbytes if "paged" in name
+                                           else 0)
+        moved = 2 * sum(lens) * H * d * esz + 2 * x["q"].nbytes + idx_bytes
+        flops = 4 * sum(lens) * H * d
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+
+        def mean(vals):
+            vals = [t for t in vals if t is not None]
+            return sum(vals) / len(vals) if vals else None
+        rec = {"shape": shape, "mb": moved / 1e6,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "kernels": kernels}
+        for r in routes:
+            for key, vals in per_route[r].items():
+                rec[f"{r or 'split'}_{key}"] = mean(vals)
+                rec[f"{r or 'split'}_{key}_rounds"] = vals
+        out[name] = rec
+        parts = []
+        for r in routes:
+            t = r or "split"
+            parts.append(f"{t} device {_ms(rec[t + '_device_ms'])} graph "
+                         f"{_ms(rec[t + '_graph_ms'])} event "
+                         f"{rec[t + '_event_ms']:.4f} ms host "
+                         f"{rec[t + '_host_us']:.1f} us")
+        log(f"time {name} bf16 {shape} ({moved / 1e6:.2f} MB, bound "
+            f"{rec['bound_ms']:.5f} ms): {'; '.join(parts)}; plain "
+            f"{plain_ms:.4f} ms, library {library_ms} ms")
+        del rot
+    return out
+
+
+def _decode_split_kernel_name(mangled):
+    """``decode_split_kernel<bf16,1>`` (the type, paged or not) from a
+    mangled name, or None for another kernel of decode_attention.cu."""
+    m = re.search(r"(decode_split_kernel)I(f|13__nv_bfloat16)Lb([01])E",
+                  mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}," \
+           f"{m.group(3)}>"
+
+
+def decode_sass_check(common):
+    """decode_attention.cu's split kernels as built (float32 and bf16,
+    contiguous and paged), each with bulk copies (UBLKCP) and no local
+    bytes."""
+    kernels = _sass_kernels(common, "decode_attention*.o",
+                            _decode_split_kernel_name, "UBLKCP")
+    if len(kernels) != 4:
+        raise AssertionError(f"expected 4 split decode kernels, found "
+                             f"{sorted(kernels)}")
+    return kernels
+
+
+def _sweep_lengths(span, *bounds):
+    """0, 1, each boundary -1/0/+1 and the full span, within [0, span]."""
+    lens = {0, 1, span - 1, span}
+    for b in bounds:
+        lens.update((b - 1, b, b + 1))
+    return sorted(n for n in lens if 0 <= n <= span)
+
+
+def kernel_checks(fa, common):
+    """Phase 3: both decode kernels as built, against their plain twins on
+    every route over a sweep and at the serving lane, two calls bitwise
+    equal, and their times at the lane (ragged and full lengths)."""
+    decode_sass_check(common)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    for dt, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        tname = str(dt)[6:]
+        esz = torch.tensor([], dtype=dt).element_size()
+        # the sweep: 3 heads, d 32/64/128, page 16/64 (the contiguous
+        # cache as long as 8 pages), lengths at the tile and page
+        # boundaries of the split plan
+        n_cases = 0
+        for d in (32, 64, 128):
+            for P in (16, 64):
+                C = 8 * P
+                rows = {fa.decode_split_plan(1, pl, n, d, esz)[0]
+                        for pl, n in ((P, 8), (C, 1))}     # paged, contig
+                lens = _sweep_lengths(C, P, 2 * P, *rows, *(2 * r for r in
+                                                             rows))
+                x = decode_inputs(g, dt, lens, H=3, d=d, C=C, P=P)
+                decode_parity(fa, x, atol, f"{tname} d {d} page {P}")
+                n_cases += 1
+        # long caches: runs of several tiles a split, and their combine
+        lens = _sweep_lengths(4096, 64, 256, 1000)
+        x = decode_inputs(g, dt, lens, H=12, d=64, C=4096, P=64)
+        long_errs = decode_parity(fa, x, atol, f"{tname} C 4096")
+        plan = fa.decode_split_plan(len(lens) * 12, 64, 64, 64, esz)
+        log(f"parity sweep {tname}: {n_cases} geometries (d 32/64/128, "
+            f"page 16/64) and C 4096 (plan {plan[:3]}: rows, tiles a "
+            f"split, splits) on routes {DECODE_ROUTES}: within {atol}, "
+            f"C 4096 {long_errs}")
+        # the serving lane with its ragged lengths
+        x = decode_inputs(g, dt, DECODE_SHAPES["ragged"], **DECODE_LANE)
+        lane = {r: decode_parity(fa, x, atol, f"{tname} lane", (r,))
+                for r in DECODE_ROUTES}
+        for name, (kern, _, (k, v)) in decode_calls(fa, x).items():
+            if not torch.equal(kern(k, v), kern(k, v)):
+                raise AssertionError(f"{name} {tname}: two calls differ")
+        errs[dt] = lane
+        log(f"parity lane {tname}: {json.dumps(lane)} (atol {atol}); two "
+            f"calls bitwise equal")
+    timings = {shape: decode_timings(fa, shape) for shape in DECODE_SHAPES}
+    records = {}
+    for name in DECODE_KERNELS:
+        t = timings["ragged"][name]
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+                      "decode_attention.cu",
+            "replaces": DECODE_REPLACES[name], "launches": 0,
+            "max_abs_err": errs[torch.bfloat16][None][name],
+            "ms": t["split_event_ms"], "device_ms": t["split_device_ms"],
+            "graph_ms": t["split_graph_ms"], "host_us": t["split_host_us"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        }
+    return records, timings
 
 
 # ---------------------------------------------------------------- serving
@@ -407,7 +597,7 @@ def wait_pages_free(ep, timeout=30.0):
             f"{ep.pool.reserved} reserved after all requests finished")
 
 
-def serving_phase(serving, tt, fa, records):
+def serving_phase(serving, tt, fa, common, records):
     cfg = tt.TransformerConfig(vocab_size=32768, d_model=768, n_heads=12,
                                d_ff=3072, n_layers=12, max_len=512,
                                dtype=torch.bfloat16)
@@ -435,6 +625,7 @@ def serving_phase(serving, tt, fa, records):
         fa.reset_launch_counts()
         futs, stamps, outs, wall = drive(ep, prompts, max_new, sampled={5})
         paged_launches = fa.launch_counts()
+        paged_split = common.sm90_launch_counts()
         wait_pages_free(ep)
         st = eng.stats()["lm"]
         breakdown = decode_breakdown(ep.model)
@@ -463,6 +654,7 @@ def serving_phase(serving, tt, fa, records):
         fa.reset_launch_counts()
         _, _, outs_c, wall_c = drive(ep, short, 16)
         contig_launches = fa.launch_counts()
+        contig_split = common.sm90_launch_counts()
     finally:
         eng.close()
     log(f"serve contiguous: {len(short)} requests, "
@@ -470,6 +662,13 @@ def serving_phase(serving, tt, fa, records):
         f"{contig_launches}")
     if contig_launches["flash_decode_step"] < 1:
         raise AssertionError("contiguous serving never launched its kernel")
+    for name, launches, split in (
+            ("flash_decode_step_paged", paged_launches, paged_split),
+            ("flash_decode_step", contig_launches, contig_split)):
+        if split[name] != launches[name]:
+            raise AssertionError(f"{name}: {launches[name] - split[name]} "
+                                 "of the serving run's launches took the "
+                                 "old route")
     records["flash_decode_step_paged"]["launches"] = \
         paged_launches["flash_decode_step_paged"]
     records["flash_decode_step"]["launches"] = \
@@ -544,7 +743,8 @@ def decode_breakdown(model, steps: int = 10):
         return out
     busy_ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
     attn_ms = sum(e.self_device_time_total for e in dev
-                  if "decode_attn_kernel" in e.key) / steps / 1e3
+                  if re.search(r"decode_(split|combine|attn)_kernel", e.key)
+                  ) / steps / 1e3
     if busy_ms > prof_wall_ms:
         raise AssertionError(f"device busy {busy_ms} ms exceeds the "
                              f"profiled step's wall time {prof_wall_ms} ms")
@@ -3948,8 +4148,8 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"({common.BUILD_DIR})")
 
-    records = kernel_checks(fa)
-    serve = serving_phase(serving, tt, fa, records)
+    records, decode_timing = kernel_checks(fa, common)
+    serve = serving_phase(serving, tt, fa, common, records)
     f32_step_phase(tt, fa)
     train_records, timings = train_kernel_checks(fa, common)
     records.update(train_records)
@@ -3994,6 +4194,7 @@ def main() -> int:
     records.update(rtc_records)
     mlp = mlp_phase(mx, common, records)
 
+    log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
     log(f"training {json.dumps(train)}")
     log(f"training kernel timings {json.dumps(timings)}")

@@ -547,7 +547,9 @@ def transformer_decode_step(params, tokens, positions, cache,
     S = tokens.shape[0]
     H, D = cfg.n_heads, cfg.head_dim
     x = params["embed"][tokens] + params["pos_embed"][positions]
-    lengths = positions + 1
+    # int32 once a step: the kernel wrappers take it as it is, with no cast
+    # kernel in each layer's call
+    lengths = (positions + 1).to(torch.int32)
     idx_s = torch.arange(S, device=tokens.device)[:, None]
     idx_h = torch.arange(H, device=tokens.device)[None, :]
     pos2 = positions[:, None]
@@ -670,7 +672,9 @@ def transformer_decode_step_paged(params, tokens, positions, cache,
             f"pages x page_len {page_len}) exceeds cfg.max_len "
             f"{cfg.max_len} (positional embedding extent)")
     x = params["embed"][tokens] + params["pos_embed"][positions]
-    lengths = positions + 1
+    # int32 once a step: the kernel wrappers take it as it is, with no cast
+    # kernel in each layer's call
+    lengths = (positions + 1).to(torch.int32)
     idx_s = torch.arange(S, device=dev)
     idx_h = torch.arange(H, device=dev)[None, :]
     page_ids = block_tables[

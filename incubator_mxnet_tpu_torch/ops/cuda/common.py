@@ -41,6 +41,7 @@ _SIGNATURES = {
                               _F, _P],
     "mxt_flash_decode_step_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _P],
+    "mxt_decode_split": [_I, _I] + [_P] * 8 + [_I] * 9 + [_F, _P],
     "mxt_flash_fwd": [_P, _P, _P, _P, _P] + [_I] * 9 + [_F, _P],
     "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _P],
     "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],

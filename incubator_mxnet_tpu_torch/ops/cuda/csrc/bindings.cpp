@@ -11,6 +11,12 @@ int decode_attention_launch(int paged, int dtype, const void* q,
                             const int* lengths, const int* block_tables,
                             int S, int H, int d, int block_k, int n_blocks,
                             int n_pool, float scale, void* stream);
+int decode_split_launch(int paged, int dtype, const void* q, const void* k,
+                        const void* v, void* out, const int* lengths,
+                        const int* block_tables, float* ws, int* tickets,
+                        int S, int H, int d, int page_len, int n_pages,
+                        int n_pool, int tile_rows, int tiles_per_split,
+                        int n_split, float scale, void* stream);
 const char* decode_attention_error_string(int code);
 
 int flash_attention_launch(int kind, int layout, int dtype, int fma,
@@ -150,6 +156,24 @@ int mxt_flash_decode_step_paged(const void* q, const void* k, const void* v,
                                  static_cast<const int*>(block_tables), S, H,
                                  d, page_len, max_pages, n_pool, scale,
                                  stream);
+}
+
+// The decode kernels' split route (both layouts): q (S, H, d); k/v
+// (S, H, page_len, d) with n_pages 1 (contiguous; page_len is the cache
+// length) or (n_pool, H, page_len, d) with block_tables (S, n_pages)
+// int32 (paged); lengths (S,) int32; ws (S * H, n_split, d + 2) float32
+// or null when n_split is 1; tickets (S * H,) int32 zeros or null.
+int mxt_decode_split(int paged, int dtype, const void* q, const void* k,
+                     const void* v, void* out, const void* lengths,
+                     const void* block_tables, void* ws, void* tickets, int S,
+                     int H, int d, int page_len, int n_pages, int n_pool,
+                     int tile_rows, int tiles_per_split, int n_split,
+                     float scale, void* stream) {
+  return decode_split_launch(
+      paged, dtype, q, k, v, out, static_cast<const int*>(lengths),
+      static_cast<const int*>(block_tables), static_cast<float*>(ws),
+      static_cast<int*>(tickets), S, H, d, page_len, n_pages, n_pool,
+      tile_rows, tiles_per_split, n_split, scale, stream);
 }
 
 // Training attention. layout 0: q/k/v (B, T, H*d), lse/delta (B, T, H)

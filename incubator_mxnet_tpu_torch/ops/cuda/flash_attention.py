@@ -47,7 +47,14 @@ Decode (one query row per slot and head over a KV cache):
 Both decode twins walk the cache in pages with the same online-softmax
 update the kernels (and the TPU kernels) use: the query is scaled in its
 own type, scores and the running max/sum/accumulator are float32, and the
-softmax weights are cast to the value type before the P.V product.
+softmax weights are cast to the value type before the P.V product. The
+kernels split each (slot, head) over the cache length
+(:func:`decode_split_plan`): each split runs that update over its own
+tiles, and the live splits are combined in index order in float32, so the
+result is the same from run to run. ``_route="simple"`` (private; the
+model never passes it) takes the first design instead, one block per
+(slot, head), kept as the yardstick. Launches of the split route are also
+counted in ``fn.sm90_launches``.
 
 The dispatchers take the plain version only for tensors on the CPU. For
 CUDA tensors they launch the kernel, which raises on geometry it does not
@@ -58,6 +65,7 @@ launches, so a run can show that its main path went through the kernel;
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -73,7 +81,7 @@ __all__ = ["mha_reference", "flash_forward_reference",
            "flash_attention_with_lse", "flash_attention_packed_viable",
            "flash_kernel_viable", "flash_train_route",
            "decode_attention_reference", "flash_decode_step",
-           "decode_attention",
+           "decode_attention", "decode_split_plan",
            "paged_decode_attention_reference", "flash_decode_step_paged",
            "paged_decode_attention", "launch_counts", "reset_launch_counts"]
 
@@ -200,24 +208,115 @@ def _i32(t):
     return t.to(torch.int32).contiguous()
 
 
+# The split route's plan constants: decode_attention.cu's kSplit* values.
+_SPLIT_THREADS = 128
+_SPLIT_TILE_BYTES = 8192      # most bytes of one K (or V) tile
+_SPLIT_CHUNK_TILES = 4        # most tiles a split
+_SPLIT_TARGET_BLOCKS = 1056   # 132 SMs x 8 blocks
+_SPLIT_BAR_BYTES = 128
+_SMEM_LIMIT = 232448          # 227 KB a block
+
+
+
+@functools.lru_cache(maxsize=256)
+def decode_split_plan(cells: int, page_len: int, n_pages: int, d: int,
+                      itemsize: int):
+    """The split kernels' plan from static shapes alone (the lengths stay
+    on the device): a cell's span is ``n_pages`` pages of ``page_len`` rows
+    (contiguous: one page of the cache length), cut into tiles of
+    ``tile_rows`` rows inside a page, at most ``_SPLIT_TILE_BYTES`` a tile;
+    a split takes ``tiles_per_split`` consecutive tiles, as few as give
+    about ``_SPLIT_TARGET_BLOCKS`` blocks over the ``cells`` (slot, head)
+    cells, at most ``_SPLIT_CHUNK_TILES``. Returns (tile_rows,
+    tiles_per_split, n_split, shared-memory bytes of a block)."""
+    rows = max(1, min(page_len, _SPLIT_TILE_BYTES // (d * itemsize)))
+    n_tiles = n_pages * -(-page_len // rows)
+    want = -(-_SPLIT_TARGET_BLOCKS // max(cells, 1))    # splits a cell
+    tps = min(_SPLIT_CHUNK_TILES, max(1, -(-n_tiles // want)))
+    n_split = -(-n_tiles // tps)
+    smem = (_SPLIT_BAR_BYTES + tps * (2 * rows * d * itemsize + rows * 4)
+            + (_SPLIT_THREADS // 32) * (d + 1) * 4)
+    return rows, tps, n_split, smem
+
+
+_TICKETS = {}
+
+
+def _tickets(q, cells: int, stream: int):
+    """The combine's tickets, (cells,) int32 zeros, one buffer per device
+    and stream (each launch leaves it zero again). A CUDA graph keeps the
+    buffer of the stream it was captured on, so two replays of such graphs
+    must not overlap."""
+    key = (q.device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < cells:
+        t = torch.zeros(max(cells, 1024), dtype=torch.int32,
+                        device=q.device)
+        _TICKETS[key] = t
+    return t
+
+
+def _decode_split(kern, name: str, q, k, v, lens, bt, page_len: int,
+                  n_pages: int, n_pool: int, scale: float):
+    """Launch the split route on checked operands; returns the output."""
+    S, H, d = q.shape
+    cells = S * H
+    rows, tps, n_split, _ = decode_split_plan(cells, page_len, n_pages, d,
+                                              q.element_size())
+    if cells * n_split >= 2 ** 31:
+        raise ValueError(f"{name}: {cells} cells x {n_split} splits is "
+                         "too many blocks")
+    out = torch.empty_like(q)
+    ws = (torch.empty(cells * n_split * (d + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
+    stream = current_stream_handle(q)
+    tickets = _tickets(q, cells, stream) if n_split > 1 else None
+    code = kernel_library().mxt_decode_split(
+        int(bt is not None), _DTYPE_CODE[q.dtype], q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), lens.data_ptr(),
+        None if bt is None else bt.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), S, H, d, page_len,
+        n_pages, n_pool, rows, tps, n_split, float(scale), stream)
+    check_launch(code, name)
+    kern.launches += 1
+    kern.sm90_launches += 1
+    return out
+
+
+def _check_route(name: str, route):
+    if route not in (None, "simple"):
+        raise ValueError(f"{name}: _route {route!r} (only \"simple\", for "
+                         "comparisons)")
+
+
 @counted_kernel
 def flash_decode_step(q, k, v, lengths, scale: Optional[float] = None,
-                      block_k: int = 128):
+                      block_k: int = 128, _route: Optional[str] = None):
     """CUDA decode-step attention over a contiguous cache (replaces the
     Pallas ``flash_decode_step``): q (S, H, d), k/v (S, H, C, d) head-major
-    per-slot caches, lengths (S,) valid extents. Returns (S, H, d)."""
+    per-slot caches, lengths (S,) valid extents. Returns (S, H, d).
+
+    The split kernels take the cache in tiles of their own plan
+    (:func:`decode_split_plan`), so ``block_k`` only sets the pages of the
+    private ``_route="simple"`` (the first design, kept as the yardstick
+    and counted in ``launches`` but not in ``sm90_launches``)."""
+    _check_route("flash_decode_step", _route)
     _check_operands("flash_decode_step", q, k, v, lengths)
     S, H, d = q.shape
     if k.shape[:2] != (S, H) or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"flash_decode_step: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)}/{tuple(v.shape)} disagree")
     C = k.shape[2]
-    bk = pick_block(C, block_k)
-    if bk > _MAX_BLOCK:
-        raise ValueError(f"flash_decode_step: block {bk} > {_MAX_BLOCK}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     lens = _i32(lengths)
+    if _route != "simple":
+        return _decode_split(flash_decode_step, "flash_decode_step", q, k,
+                             v, lens, None, C, 1, 1, scale)
+    bk = pick_block(C, block_k)
+    if bk > _MAX_BLOCK:
+        raise ValueError(f"flash_decode_step: block {bk} > {_MAX_BLOCK}")
     out = torch.empty_like(q)
     lib = kernel_library()
     code = lib.mxt_flash_decode_step(
@@ -229,15 +328,16 @@ def flash_decode_step(q, k, v, lengths, scale: Optional[float] = None,
     return out
 
 
-
 @counted_kernel
 def flash_decode_step_paged(q, k, v, block_tables, lengths,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            _route: Optional[str] = None):
     """CUDA paged decode-step attention (replaces the Pallas
     ``flash_decode_step_paged``): q (S, H, d), k/v (n_pool, H, page_len, d)
     page pools, block_tables (S, max_pages) int32 pool page ids, lengths
     (S,). Pages at or past a slot's length are never read. Returns
-    (S, H, d)."""
+    (S, H, d). ``_route`` as in :func:`flash_decode_step`."""
+    _check_route("flash_decode_step_paged", _route)
     _check_operands("flash_decode_step_paged", q, k, v, block_tables,
                     lengths)
     S, H, d = q.shape
@@ -255,6 +355,10 @@ def flash_decode_step_paged(q, k, v, block_tables, lengths,
         scale = 1.0 / math.sqrt(d)
     bt = _i32(block_tables)
     lens = _i32(lengths)
+    if _route != "simple":
+        return _decode_split(flash_decode_step_paged,
+                             "flash_decode_step_paged", q, k, v, lens, bt,
+                             page_len, bt.shape[1], n_pool, scale)
     out = torch.empty_like(q)
     lib = kernel_library()
     code = lib.mxt_flash_decode_step_paged(
@@ -265,7 +369,6 @@ def flash_decode_step_paged(q, k, v, block_tables, lengths,
     check_launch(code, "flash_decode_step_paged")
     flash_decode_step_paged.launches += 1
     return out
-
 
 
 # ------------------------------------------------- training: plain versions

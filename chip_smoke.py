@@ -95,16 +95,27 @@ Phases:
    leaf within 1e-3 of its largest entry);
 10. the row kernels (layer-norm forward and backward, softmax) against
    their twins in float32 (atol 1e-5 forward, 1e-4 gradients) and bf16
-   (2e-2, 5e-2, scaled by the magnitude above 1) over d 64..32768, the
-   inline route (rows not a multiple of 8: nothing launched), then at the
-   slice's shapes (LN (16384, 768); softmax (196608, 512), the scores of
-   B 32, H 12, T 512) with times beside the twin, the library call and
-   the byte bound;
+   (2e-2, 5e-2, scaled by the magnitude above 1) over d 64..32768 (the LN
+   backward's one-pass route up to d 1024, forced onto the two-pass
+   kernel too, and the two-pass route above; scalar loads at d 66 and
+   100; 4096 rows at d 768 and 1000, several groups of blocks), the
+   inline route (rows not a multiple of 8: nothing launched), the
+   one-pass backward as built (registers, stack, local bytes, 16-byte
+   loads), its dx, dgamma and dbeta bitwise equal over two calls and a
+   CUDA-graph replay; then the LN backward at (16384, 768), both types:
+   the one-pass and two-pass kernels' device, graph and event ms and host
+   µs in turns, x and dy rotated through copies beyond the 50 MB L2; then
+   at the slice's shapes (LN (16384, 768); softmax (196608, 512), the
+   scores of B 32, H 12, T 512) with times beside the twin, the library
+   call and the byte bound;
 11. the nd loop at bench.py's width (d 768, 12 heads, d_ff 3072, 12
    layers, vocab 32768, T 512, batch 32, float32): 2 warm-up and 5 timed
    steps; the loss must be finite and fall, and each step must launch the
-   LN kernels 25 times each and the softmax kernel 12 times; then a
-   profiled window of two steps (busy, idle, the row kernels' share);
+   LN kernels 25 times each (every backward on the one-pass route) and
+   the softmax kernel 12 times; then a profiled window of two steps
+   (busy, idle, the row kernels' share), and one profiled layer-norm
+   backward at the lane's (16384, 768): the one-pass kernel alone, no
+   column-sum launch after it;
 12. at the same width, the nd loop's loss and gradients against the
    functional ``transformer_loss_and_grads`` with plain attention (loss
    rtol 1e-4, every gradient leaf within 1e-3 of its largest entry);
@@ -144,35 +155,43 @@ Phases:
    largest entry: H 16, 20, 64, 211, 650, 1030 by N 5, 8, 64, 128, 256,
    in four type forms (float32 carries with a bf16 W_hh and bf16 xp and
    b, as the word LM's layer 1 runs, or float32 xp and b, as its layer 2
-   runs; bf16 throughout, c carried in bf16; float32), each kernel with a
-   bf16 W on its tensor-core route and again on the FMA forward / SIMT
-   backward, the whole ``lstm_scan`` forward + backward in both
-   directions against the CPU twins; with a bf16 W, the tensor-core
-   forward's gates residual against a float64 twin within 1e-6 (absolute)
-   beside the FMA kernel's reading and, with float32 carries, a two-piece
-   split's (the control, which must read above the limit at the lane);
-   with float32 carries, the tensor-core backward's dh against the float64
+   runs; bf16 throughout, c carried in bf16; float32), every forward on
+   its tensor-core route (a float32 W in three bf16 pieces, six products
+   a stage) and again on the FMA kernel, the backward on its tensor-core
+   route with a bf16 W and again on the SIMT kernel, on the SIMT kernel
+   with a float32 W, the whole ``lstm_scan`` forward + backward in both
+   directions against the CPU twins; the forward's gates residual against
+   a float64 twin within 1e-6 (absolute) beside the FMA kernel's reading
+   and, with float32 carries, a control's (a two-piece split of h with a
+   bf16 W, three products with a float32 W), which must read above the
+   limit at the lane, where the float32-W route must also read no worse
+   than the FMA kernel; with a bf16 W and float32 carries, the
+   tensor-core backward's dh against the float64
    product of its own dxp (dz) and W within 1e-6 of the largest entry,
    beside the SIMT kernel's reading and a two-piece split's (the control
-   again); the tensor-core kernels as built (registers, local bytes, HMMA
-   count); then at the lane (N 128, H 650) with times beside the twin's,
+   again); the tensor-core kernels as built (registers, stack and local
+   bytes, HMMA count; every float32-W forward among them); then at the lane (N 128, H 650) with times beside the twin's,
    the FMA / SIMT kernel's in the same call (in turns), device ms and host
    µs, cuDNN's whole-sequence LSTM per step (the median of three tries) and
-   the bound, the lane's backward error (at most 1e-3 with float32
+   the bound (with a float32 W six bf16 products, the FMA bound beside
+   it), the lane's backward error (at most 1e-3 with float32
    carries), and one scan forward (event and host time) and forward +
-   backward over T 35;
+   backward over T 35; then the all-float32 forward's device, graph and
+   event ms and host µs beside the FMA kernel's, in turns;
 18. the word LM at bench.py's lane: 2 warm-up and 5 timed steps; finite,
    falling loss; per step exactly 70 ``lstm_fwd_gates`` and 70
    ``lstm_bwd`` launches, every one on the tensor-core route; tok/s, peak
    memory and a profiled window of two steps; then two eval forwards,
    each 70 ``lstm_fwd`` launches and no other: the user's ``net(x)`` on
-   the net's own float32 parameters (the FMA route) and the trained
+   the net's own float32 parameters (the tensor-core route, W in three
+   bf16 pieces) and the trained
    parameters cast to bf16 (the tensor-core route), each timed;
 19. the same model in float32 (dropout 0): one loss-and-gradient pass with
    the kernels against the same pass on the twins (loss rtol 1e-4, every
    gradient leaf within 1e-3 of its largest entry; the twins' pass
    launches no kernel), then one ``Trainer`` + ``autograd.record()`` step,
-   which must launch the same kernels and give the same loss;
+   which must launch the same kernels and give the same loss (a float32
+   W_hh: every forward on the tensor-core route, every backward SIMT);
 20. the detection kernels (``multibox_match``, ``nms_keep``) against their
    twins on the card: the matcher over N 20, 61, 5630 x M 1, 8, 32, 100 x
    B 1, 32 at thresholds 0.5 and 0.7 (all-padding and one-object rows,
@@ -380,23 +399,8 @@ def decode_timings(fa, shape, routes=DECODE_ROUTES, rounds=2):
         calls = {r: decode_calls(fa, x, r)[name] for r in routes}
         _, plain, (k, v) = calls[routes[0]]
         rot = _Rotation(k, v)
-        wrapper = getattr(fa, name)
-        per_route = {r: {"device_ms": [], "graph_ms": [], "event_ms": [],
-                         "host_us": []} for r in routes}
-        kernels = {}
-        for i in range(rounds):
-            for r in (routes if i % 2 == 0 else routes[::-1]):
-                kern = calls[r][0]
-
-                def fn(kern=kern):
-                    return rot(kern)
-                dev, per = device_ms(fn, wrapper)
-                kernels[r or "split"] = per
-                rec = per_route[r]
-                rec["device_ms"].append(dev)
-                rec["graph_ms"].append(graph_ms(fn))
-                rec["event_ms"].append(time_ms(fn))
-                rec["host_us"].append(host_us(fn))
+        turns = _in_turns({r or "split": (lambda kern=calls[r][0]: rot(kern))
+                           for r in routes}, getattr(fa, name), rounds)
         plain_ms = time_ms(lambda: rot(plain), iters=10, warmup=2)
         library_ms = None
         if name == "flash_decode_step":
@@ -413,29 +417,16 @@ def decode_timings(fa, shape, routes=DECODE_ROUTES, rounds=2):
         flops = 4 * sum(lens) * H * d
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-
-        def mean(vals):
-            vals = [t for t in vals if t is not None]
-            return sum(vals) / len(vals) if vals else None
         rec = {"shape": shape, "mb": moved / 1e6,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "kernels": kernels}
-        for r in routes:
-            for key, vals in per_route[r].items():
-                rec[f"{r or 'split'}_{key}"] = mean(vals)
-                rec[f"{r or 'split'}_{key}_rounds"] = vals
+               "kernels": {t: r.pop("kernels") for t, r in turns.items()}}
+        for t, r in turns.items():
+            rec.update({f"{t}_{key}": val for key, val in r.items()})
         out[name] = rec
-        parts = []
-        for r in routes:
-            t = r or "split"
-            parts.append(f"{t} device {_ms(rec[t + '_device_ms'])} graph "
-                         f"{_ms(rec[t + '_graph_ms'])} event "
-                         f"{rec[t + '_event_ms']:.4f} ms host "
-                         f"{rec[t + '_host_us']:.1f} us")
         log(f"time {name} bf16 {shape} ({moved / 1e6:.2f} MB, bound "
-            f"{rec['bound_ms']:.5f} ms): {'; '.join(parts)}; plain "
+            f"{rec['bound_ms']:.5f} ms): {_turns_line(turns)}; plain "
             f"{plain_ms:.4f} ms, library {library_ms} ms")
         del rot
     return out
@@ -1385,54 +1376,181 @@ def _row_err(a, b):
     return d.max().item()
 
 
+def _ln_bwd_routes(ln, d):
+    """The LN backward's routes to hold at width d: its own (the one-pass
+    kernel up to 1024 columns) and, where that is the one-pass kernel, the
+    two-pass kernel forced (``_route="twopass"``)."""
+    return ((None, "twopass") if ln.layer_norm_bwd_route(d) == "onepass"
+            else (None,))
+
+
 def row_kernel_errors(ln, sm, n, d, dt, g):
     """Every row kernel against its twin on one (n, d) input: {kernel:
-    error}, the LN backward's column sums relative to their largest
-    entry."""
+    error}, the LN backward's dgamma and dbeta relative to their largest
+    entry, on each of its routes (the route taken checked: the one-pass
+    kernel counts in ``sm90_launches``); with ``"column_sums_equal"``,
+    whether the one-pass kernel's dgamma and dbeta equal the twin's bit
+    for bit (the twin sums in the kernel's order), None on the two-pass
+    route."""
     x = torch.randn((n, d), generator=g, device="cuda").to(dt)
     gam = torch.randn((d,), generator=g, device="cuda")
     bet = torch.randn((d,), generator=g, device="cuda")
     dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
     y, mu, rstd = ln.layer_norm_fwd(x, gam, bet)
     ry, rmu, rrstd = ln.layer_norm_reference(x, gam, bet)
-    dx, dg, db = ln.layer_norm_bwd(x, gam, rmu, rrstd, dy)
     rdx, rdg, rdb = ln.layer_norm_backward_reference(x, gam, rmu, rrstd, dy)
+    bwd_err, equal = 0.0, None
+    for route in _ln_bwd_routes(ln, d):
+        before = ln.layer_norm_bwd.sm90_launches
+        dx, dg, db = ln.layer_norm_bwd(x, gam, rmu, rrstd, dy, _route=route)
+        onepass = ln.layer_norm_bwd.sm90_launches > before
+        if onepass != (route is None and d <= ln.ONEPASS_MAX_D):
+            raise AssertionError(f"layer_norm_bwd d {d} _route {route}: "
+                                 f"one-pass kernel launched: {onepass}")
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (dx, dg, db)) \
+                or dg.shape != (d,) or db.shape != (d,):
+            raise AssertionError(f"layer_norm_bwd {dt} n {n} d {d} "
+                                 f"_route {route}: non-finite or misshapen")
+        bwd_err = max(bwd_err, _row_err(dx, rdx), _rel_err(dg, rdg),
+                      _rel_err(db, rdb))
+        if onepass:
+            equal = bool(torch.equal(dg, rdg) and torch.equal(db, rdb))
     p = sm.softmax_fwd(x)
     rp = sm.softmax_reference(x)
     torch.cuda.synchronize()
-    outs = (y, mu, rstd, dx, dg, db, p)
+    outs = (y, mu, rstd, p)
     if not all(torch.isfinite(t).all() for t in outs):
         raise AssertionError(f"row kernels {dt} n {n} d {d}: non-finite "
                              "output")
     return {"layer_norm_fwd": max(_row_err(y, ry), _max_err(mu, rmu),
                                   _rel_err(rstd, rrstd)),
-            "layer_norm_bwd": max(_row_err(dx, rdx),
-                                  _rel_err(dg.sum(0), rdg.sum(0)),
-                                  _rel_err(db.sum(0), rdb.sum(0))),
-            "softmax_fwd": _row_err(p, rp)}
+            "layer_norm_bwd": bwd_err,
+            "softmax_fwd": _row_err(p, rp),
+            "column_sums_equal": equal}
+
+
+def ln_bwd_repeats(ln, n=16384, d=768):
+    """The one-pass LN backward's dgamma and dbeta from two calls and from
+    a CUDA-graph replay of a third, in float32 and bf16: bit for bit the
+    same (fixed summation orders, no float atomics; the tickets are zero
+    again after every launch)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        gam = torch.randn((d,), generator=g, device="cuda")
+        _, mu, rstd = ln.layer_norm_fwd(x, gam, gam)
+        first = ln.layer_norm_bwd(x, gam, mu, rstd, dy)
+        second = ln.layer_norm_bwd(x, gam, mu, rstd, dy)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ln.layer_norm_bwd(x, gam, mu, rstd, dy)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = ln.layer_norm_bwd(x, gam, mu, rstd, dy)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        for name, outs in (("second call", second), ("graph replay",
+                                                      replayed)):
+            if not all(torch.equal(a, b) for a, b in zip(first, outs)):
+                raise AssertionError(f"layer_norm_bwd {dt}: the {name}'s "
+                                     "dx, dgamma or dbeta differ")
+        del graph
+    log(f"layer_norm_bwd ({n}, {d}) float32 and bf16: two calls and a "
+        f"CUDA-graph replay bitwise equal (dx, dgamma, dbeta)")
+
+
+def ln_sass_check(common):
+    """layer_norm.cu's one-pass backward as built: each instantiation with
+    16-byte vector loads (LDG.E.128) and no local (spill) bytes."""
+    def name_of(mangled):
+        m = re.search(r"ln_bwd_onepass_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      mangled)
+        return (None if m is None else
+                f"ln_bwd_onepass_kernel<{_LSTM_TARGS[m.group(1)]},"
+                f"{m.group(2)}>")
+    return _sass_kernels(common, "layer_norm*.o", name_of, "LDG.E.128")
+
+
+LN_LANE = (16384, 768)         # the nd lane's rows: B 32 x T 512, d_model
+
+
+def ln_bwd_timings(ln, routes, rounds: int = 2, shape=LN_LANE,
+                   dtypes=(torch.float32, torch.bfloat16)):
+    """The LN backward at ``shape`` (the nd lane's (16384, 768)) in each of
+    ``dtypes``: each route's device, graph and event ms and host µs in turns
+    (:func:`_in_turns`), x and dy rotated through copies beyond the 50 MB
+    L2, beside the byte bound (x, dy and dx once, gamma, mu, rstd, dgamma
+    and dbeta). ``routes`` maps a label to the wrapper's ``_route`` (None:
+    its own rule). A call is what ``_LayerNorm.backward`` launches: dx and
+    the whole dgamma and dbeta (on the two-pass route its column partials'
+    sums too). Returns {dtype: {"bound_ms", "mb", label: record}}."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n, d = shape
+    out = {}
+    for dt in dtypes:
+        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        gam = torch.randn((d,), generator=g, device="cuda")
+        _, mu, rstd = ln.layer_norm_reference(x, gam, gam)
+        rot = _Rotation(x, dy)
+
+        def call(route):
+            kw = {} if route is None else {"_route": route}
+
+            def one(xx, dd):
+                return ln.layer_norm_bwd(xx, gam, mu, rstd, dd, **kw)
+            return lambda: rot(one)
+        res = _in_turns({label: call(r) for label, r in routes.items()},
+                        ln.layer_norm_bwd, rounds)
+        moved = 3 * n * d * x.element_size() + d * 4 + 2 * n * 4 + 2 * d * 4
+        rec = {"mb": moved / 1e6, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               **res}
+        out[str(dt)[6:]] = rec
+        log(f"time layer_norm_bwd {str(dt)[6:]} ({n}, {d}) ({moved / 1e6:.1f}"
+            f" MB, bound {rec['bound_ms']:.4f} ms): {_turns_line(res)}")
+        del rot, x, dy
+    return out
 
 
 def row_kernel_checks(ln, sm, common):
     """Phase 10: the layer-norm and softmax kernels against their twins,
-    first over a sweep of widths (d 64 .. 32768) and on the inline route
-    (rows not a multiple of 8: no launch, the plain formula), then at the
-    slice's shapes (LN (16384, 768), softmax (196608, 512): B 32, H 12,
-    T 512 attention scores) with times beside the twin, the library call
-    and the byte bound. Returns the JSON records (float32) and a log."""
+    first over a sweep of widths (d 64 .. 32768, the LN backward on both
+    of its routes up to 1024 columns, scalar loads at d 66 and 100, 4096
+    rows at d 768, 1000 and 1024 for a many-block grid) and on
+    the inline route (rows not a multiple of 8: no launch, the plain
+    formula), the one-pass LN backward as built, its bitwise repeats; then
+    at the slice's shapes (LN (16384, 768), softmax (196608, 512): B 32,
+    H 12, T 512 attention scores) with times beside the twin, the library
+    call and the byte bound, the LN backward's one-pass and two-pass
+    kernels timed in turns (:func:`ln_bwd_timings`), there and in bf16 at
+    d 1024 (one block an SM). Returns the JSON
+    records (float32) and a log."""
+    timings = {"ln_sass": ln_sass_check(common)}
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, timings = {}, {}
+    worst, equal = {}, {}
+    widths = (64, 66, 100, 512, 768, 1000, 1024, 4096, 32768)
     for dt in (torch.float32, torch.bfloat16):
         atol_f, atol_b = ROW_TOL[dt]
-        for d in (64, 512, 768, 1024, 4096, 32768):
-            n = 64 if d <= 4096 else 16
-            errs = row_kernel_errors(ln, sm, n, d, dt, g)
-            for name, err in errs.items():
-                atol = atol_b if name == "layer_norm_bwd" else atol_f
-                if err > atol:
-                    raise AssertionError(f"{name} {dt} n {n} d {d}: max "
-                                         f"|kernel - plain| {err} > {atol}")
-                key = f"{name} {str(dt)[6:]}"
-                worst[key] = max(worst.get(key, 0.0), err)
+        for d in widths:
+            for n in ((64, 4096) if d in (768, 1000, 1024) else
+                      (64,) if d <= 4096 else (16,)):
+                errs = row_kernel_errors(ln, sm, n, d, dt, g)
+                equal[f"{str(dt)[6:]} n {n} d {d}"] = errs.pop(
+                    "column_sums_equal")
+                for name, err in errs.items():
+                    atol = atol_b if name == "layer_norm_bwd" else atol_f
+                    if err > atol:
+                        raise AssertionError(
+                            f"{name} {dt} n {n} d {d}: max |kernel - plain| "
+                            f"{err} > {atol}")
+                    key = f"{name} {str(dt)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
         # the inline route: 12 rows, not a multiple of 8
         common.reset_launch_counts()
         x = torch.randn((3, 4, 96), generator=g, device="cuda").to(dt)
@@ -1450,17 +1568,28 @@ def row_kernel_checks(ln, sm, common):
         err = max(_max_err(y, ry), _max_err(p, torch.softmax(x, -1)))
         if err > atol_f:
             raise AssertionError(f"inline route {dt}: {err} > {atol_f}")
-    log(f"row kernel sweep: d 64/512/768/1024/4096/32768, f32 and bf16, "
-        f"within tolerance; inline route (12 rows) launched nothing; "
-        f"worst {json.dumps(worst)}")
+    log(f"row kernel sweep: d {'/'.join(map(str, widths))}, f32 and bf16, "
+        f"the LN backward on both routes up to d 1024, within tolerance; "
+        f"inline route (12 rows) launched nothing; worst "
+        f"{json.dumps(worst)}; one-pass dgamma/dbeta bitwise equal to the "
+        f"twin's: {json.dumps(equal)}")
     timings["sweep"] = worst
+    timings["sweep_column_sums_equal"] = equal
+    ln_bwd_repeats(ln)
+    ln_times = ln_bwd_timings(ln, {"onepass": None, "twopass": "twopass"})
+    timings["layer_norm_bwd turns"] = ln_times
+    # bf16 rows above 768: the one-pass grid at one block an SM, as the
+    # kernel's launch bound there asks
+    timings["layer_norm_bwd turns d 1024"] = ln_bwd_timings(
+        ln, {"onepass": None, "twopass": "twopass"},
+        shape=(LN_LANE[0], 1024), dtypes=(torch.bfloat16,))
 
     records = {}
     F = torch.nn.functional
     for dt in (torch.float32, torch.bfloat16):
         atol_f, atol_b = ROW_TOL[dt]
         esz = torch.empty((), dtype=dt).element_size()
-        n, d = 16384, 768
+        n, d = LN_LANE
         e_ln = row_kernel_errors(ln, sm, n, d, dt, g)
         ns, ds = 196608, 512
         e_sm = row_kernel_errors(ln, sm, ns, ds, dt, g)
@@ -1517,6 +1646,17 @@ def row_kernel_checks(ln, sm, common):
                    "bound_by": ("bytes" if t_bytes >= t_ops
                                 else "operations"),
                    "library_ms": library_ms}
+            if name == "layer_norm_bwd":
+                one = ln_times[str(dt)[6:]]["onepass"]
+                two = ln_times[str(dt)[6:]]["twopass"]
+                rec.update(device_ms=one["device_ms"],
+                           graph_ms=one["graph_ms"],
+                           event_ms_rotated=one["event_ms"],
+                           host_us=one["host_us"],
+                           earlier_device_ms=two["device_ms"],
+                           earlier_graph_ms=two["graph_ms"],
+                           earlier_event_ms_rotated=two["event_ms"],
+                           earlier_host_us=two["host_us"])
             timings[f"{name} {str(dt)[6:]}"] = rec
             if dt == torch.float32:
                 records[name] = rec
@@ -1594,14 +1734,62 @@ def nd_train_phase(tt, nd_lm, mx, common, records, steps=5):
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {steps} nd steps, not {n * steps}")
         records[name]["launches"] = launches[name]
+    onepass = common.sm90_launch_counts()["layer_norm_bwd"]
+    if onepass != launches["layer_norm_bwd"]:
+        raise AssertionError(f"layer_norm_bwd took the one-pass route "
+                             f"{onepass} of {launches['layer_norm_bwd']} "
+                             "times in the nd steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     breakdown = kernel_breakdown(
         "nd", lambda: step(99),
         ("ln_fwd_warp_kernel", "ln_fwd_block_kernel", "ln_bwd_kernel",
-         "softmax_warp_kernel", "softmax_block_kernel"))
+         "ln_bwd_onepass_kernel", "softmax_warp_kernel",
+         "softmax_block_kernel"))
     return {"step_ms": wall / steps * 1e3, "tok_s": B * T * steps / wall,
             "loss_first": losses[0], "loss_last": losses[-1],
-            "peak_memory_gb": peak_gb, **breakdown}
+            "peak_memory_gb": peak_gb,
+            "layer_norm_bwd_onepass_per_step": onepass // steps,
+            "layer_norm_backward_kernels": ln_backward_kernels(
+                B * T, cfg.d_model),
+            **breakdown}
+
+
+def ln_backward_kernels(n, d):
+    """The device kernels one autograd backward of ``layer_norm`` launches
+    at the nd lane's (n, d) in float32, from torch.profiler over ten
+    backward calls: the one-pass kernel alone, with no column-sum
+    (``reduce_kernel``) launch after it. Returns {kernel: launches a call,
+    as the window recorded them}, or None when the profiler delivered no
+    device event."""
+    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    x = torch.randn((n, d), generator=g, device="cuda", requires_grad=True)
+    gam = torch.randn((d,), generator=g, device="cuda", requires_grad=True)
+    bet = torch.randn((d,), generator=g, device="cuda", requires_grad=True)
+    dy = torch.randn((n, d), generator=g, device="cuda")
+    y = ln.layer_norm(x, gam, bet)
+    torch.autograd.grad(y, (x, gam, bet), dy, retain_graph=True)
+    torch.cuda.synchronize()
+
+    calls = 10
+
+    def window():
+        for _ in range(calls):
+            torch.autograd.grad(y, (x, gam, bet), dy, retain_graph=True)
+        torch.cuda.synchronize()
+    dev, _ = _device_events(window)
+    if dev is None:
+        log("layer_norm backward's kernels: not measured (no device event)")
+        return None
+    kernels = {e.key[:60]: e.count / calls for e in dev
+               if not e.key.startswith(("Memset", "Memcpy"))}
+    log(f"one layer_norm autograd backward ({n}, {d}) float32 launches "
+        f"{json.dumps(kernels)}")
+    if len(kernels) != 1 or "ln_bwd_onepass_kernel" not in next(
+            iter(kernels)):
+        raise AssertionError(f"the layer_norm backward launched {kernels}, "
+                             "not the one-pass kernel alone")
+    return kernels
 
 
 def nd_truth_phase(tt, nd_lm, mx):
@@ -2033,6 +2221,44 @@ def host_us(fn, calls: int = 20) -> float:
     return t
 
 
+def _in_turns(calls, wrapper, rounds: int = 2):
+    """Device ms (:func:`device_ms`), graph ms, event ms and host µs of
+    each ``calls[label]()``, a call of the kernel wrapper ``wrapper``,
+    taken in turns over ``rounds`` rounds (the order reversed every other
+    round) and averaged. Returns {label: {key: mean, key + "_rounds":
+    readings, "kernels": the last device split}}."""
+    keys = ("device_ms", "graph_ms", "event_ms", "host_us")
+    reads = {label: {k: [] for k in keys} for label in calls}
+    kernels = {}
+    labels = list(calls)
+    for i in range(rounds):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            fn = calls[label]
+            dev, kernels[label] = device_ms(fn, wrapper)
+            got = reads[label]
+            got["device_ms"].append(dev)
+            got["graph_ms"].append(graph_ms(fn))
+            got["event_ms"].append(time_ms(fn))
+            got["host_us"].append(host_us(fn))
+    out = {}
+    for label, got in reads.items():
+        rec = {"kernels": kernels[label]}
+        for k, vals in got.items():
+            seen = [v for v in vals if v is not None]
+            rec[k] = sum(seen) / len(seen) if seen else None
+            rec[k + "_rounds"] = vals
+        out[label] = rec
+    return out
+
+
+def _turns_line(res):
+    """One log line's worth of :func:`_in_turns`' means."""
+    return "; ".join(
+        f"{label} device {_ms(r['device_ms'])} graph {_ms(r['graph_ms'])} "
+        f"event {r['event_ms']:.4f} ms host {r['host_us']:.1f} us"
+        for label, r in res.items())
+
+
 def _route_taken(cf, name, call, expect):
     """Run ``call`` and check that it took ``expect``'s route."""
     k = getattr(cf, name)
@@ -2055,29 +2281,31 @@ def _sm90_kernel_name(mangled):
     return f"{m.group(1)}<{args}>"
 
 
+# a substitution (S_, S0_, ...) repeats the one class type, bf16
 _LSTM_TARGS = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "0",
-               "Lb1E": "1"}
+               "Lb1E": "1", "Li1E": "1", "Li3E": "3"}
 
 
 def _lstm_tc_kernel_name(mangled):
     """``lstm_bwd_tc_kernel<float>`` (the carries' type) or
-    ``lstm_fwd_tc_kernel<bf16,float,1>`` (xp's and the carries' types, the
-    residual) from a mangled name, or None for another kernel of
-    lstm.cu."""
+    ``lstm_fwd_tc_kernel<bf16,float,1,3>`` (xp's and the carries' types, the
+    residual, W's pieces) from a mangled name (a substitution repeating the
+    bf16 type), or None for another kernel of lstm.cu."""
     m = re.search(r"(lstm_(?:fwd|bwd)_tc_kernel)I((?:f|13__nv_bfloat16|"
-                  r"Lb[01]E)+)E", mangled)
+                  r"S\d*_|Lb[01]E|Li[13]E)+)E", mangled)
     if m is None:
         return None
-    args = re.findall(r"f|13__nv_bfloat16|Lb[01]E", m.group(2))
-    return f"{m.group(1)}<{','.join(_LSTM_TARGS[a] for a in args)}>"
+    args = re.findall(r"f|13__nv_bfloat16|S\d*_|Lb[01]E|Li[13]E", m.group(2))
+    return f"{m.group(1)}<{','.join(_LSTM_TARGS.get(a, 'bf16') for a in args)}>"
 
 
-def _sass_kernels(common, pattern, name_of, instr):
+def _sass_kernels(common, pattern, name_of, instr, no_stack=False):
     """The kernels of the library build's object ``pattern`` that
     ``name_of`` names: registers at launch, stack, static shared and local
     (spill) bytes (``cuobjdump -res-usage``) and the count of ``instr``
     instructions (``cuobjdump -sass``). Fails if a kernel has no ``instr``
-    or any local bytes. Returns {kernel: counts}."""
+    or any local bytes (or, with ``no_stack``, any stack). Returns
+    {kernel: counts}."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = f"{CUDA_HOME or '/usr/local/cuda'}/bin/cuobjdump"
     objs = sorted(common.BUILD_DIR.glob(pattern))
@@ -2107,10 +2335,12 @@ def _sass_kernels(common, pattern, name_of, instr):
             name = name_of(m.group(1))
         elif name in kernels and re.search(rf"\b{instr}\b", line):
             kernels[name][key] += 1
-    if not kernels or any(k[key] == 0 or k["local"] for k in
-                          kernels.values()):
+    if not kernels or any(k[key] == 0 or k["local"]
+                          or (no_stack and k["stack"])
+                          for k in kernels.values()):
         raise AssertionError(f"kernels without {instr} or with local "
-                             f"(spill) bytes: {kernels}")
+                             f"(spill) bytes{' or stack' * no_stack}: "
+                             f"{kernels}")
     log(f"{objs[0].name} as built: {len(kernels)} kernels, registers "
         f"{sorted({k['reg'] for k in kernels.values()})}, local bytes "
         f"{sorted({k['local'] for k in kernels.values()})}, stack "
@@ -2127,9 +2357,16 @@ def sm90_sass_check(common):
 
 
 def lstm_sass_check(common):
-    """lstm.cu's tensor-core forward and backward as built, each with HMMA
-    (``mma.sync``) and no local bytes."""
-    return _sass_kernels(common, "lstm*.o", _lstm_tc_kernel_name, "HMMA")
+    """lstm.cu's tensor-core forward (every instantiation, a float32 W's
+    three pieces included) and backward as built, each with HMMA
+    (``mma.sync``), no local bytes and no stack."""
+    kernels = _sass_kernels(common, "lstm*.o", _lstm_tc_kernel_name, "HMMA",
+                            no_stack=True)
+    if sum(k.startswith("lstm_fwd_tc_kernel") and k.endswith(",3>")
+           for k in kernels) != 8:
+        raise AssertionError(f"not every float32-W forward in the build: "
+                             f"{sorted(kernels)}")
+    return kernels
 
 
 def conv_kernel_checks(cf, common):
@@ -2569,9 +2806,9 @@ def resnet_truth_phase(mx, gluon, vision, common):
 LSTM_KERNELS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd")
 # the JSON line's names: with a bf16 W (the lane's) each takes its
 # tensor-core kernel; a user's eval forward on the net's own float32
-# parameters takes the FMA kernel
+# parameters takes the tensor-core forward with W in three pieces
 LSTM_RECORDS = ("lstm_fwd_gates/sm90", "lstm_fwd/sm90", "lstm_bwd/sm90",
-                "lstm_fwd/simt")
+                "lstm_fwd/sm90_f32w")
 LSTM_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/lstm.cu"
 _LSTM_PY = "incubator_mxnet_tpu/ops/pallas/lstm.py"
 LSTM_REPLACES = {"lstm_fwd_gates": f"{_LSTM_PY}:151",
@@ -2584,6 +2821,12 @@ LSTM_TYPES = ((torch.bfloat16, torch.bfloat16, torch.float32),
               (torch.float32, torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.float32, torch.float32))
+# the other float32-W forms the tensor-core forward takes (xp and b in
+# bf16, or bf16 carries, or both: a float32 W read in three pieces times
+# one bf16 piece of a bf16 h), held in the sweep beside the four above
+LSTM_F32W_MIXED_TYPES = ((torch.bfloat16, torch.float32, torch.float32),
+                         (torch.float32, torch.float32, torch.bfloat16),
+                         (torch.bfloat16, torch.float32, torch.bfloat16))
 # forward outputs: max error over max(1, the twin's largest entry), so a
 # bf16 ulp of a large c counts as at 1; backward outputs: max error over
 # the largest entry
@@ -2599,9 +2842,12 @@ LSTM_LANE_BWD_TOL = 1e-3
 # 1.2e-7-2.5e-6 (growing with H)
 LSTM_PRODUCT_TOL = 1e-6
 # the forward's gates residual against a float64 twin on the same inputs,
-# absolute, with a bf16 W: the tensor-core route read 0.8e-7-4.7e-7 over
+# absolute: with a bf16 W the tensor-core route read 0.8e-7-4.7e-7 over
 # this phase's sweep on an H100 and 3.4e-7 at the lane, the FMA kernel up
-# to 2.7e-6, a two-piece split of a float32 h 2.1e-6-7.3e-6
+# to 2.7e-6, a two-piece split of a float32 h 2.1e-6-7.3e-6; with a
+# float32 W the six-product route must stay within it too, and at the lane
+# no further than the FMA kernel, while three products (hi.hi, hi.mid,
+# mid.hi) must read above it
 LSTM_FWD_PRODUCT_TOL = 1e-6
 
 
@@ -2628,15 +2874,31 @@ def _product_err(dxp, w, dh, pieces=None):
     return ((dh.double() - exact).abs().max() / exact.abs().max()).item()
 
 
+def _pieces64(v):
+    """A float32 tensor's three bf16 pieces hi, mid, lo, in float64."""
+    hi = v.float().to(torch.bfloat16)
+    r1 = v.float() - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return [t.double() for t in (hi, mid, lo)]
+
+
 def _gates64(xp, h, w, b, pieces=None):
     """The forward's gates in float64 from the same inputs; with ``pieces``
-    2, h as its hi + mid bf16 pieces (lo dropped)."""
-    hd = h.double()
-    if pieces == 2:
-        hi = h.float().to(torch.bfloat16)
-        hd = hi.double() + (h.float() - hi.float()).to(torch.bfloat16).double()
+    2, h as its hi + mid bf16 pieces (lo dropped); with ``pieces``
+    "three_product", h and W each in three pieces and only hi.hi, hi.mid
+    and mid.hi multiplied."""
     H = h.shape[1]
-    z = xp.double() + hd @ w.double().t() + b.double()
+    if pieces == "three_product":
+        hp, wp = _pieces64(h), _pieces64(w)
+        prod = sum(hp[q] @ wp[r].t() for q, r in ((0, 0), (0, 1), (1, 0)))
+    else:
+        hd = h.double()
+        if pieces == 2:
+            hi, mid, _ = _pieces64(h)
+            hd = hi + mid
+        prod = hd @ w.double().t()
+    z = xp.double() + prod + b.double()
     return torch.cat([torch.sigmoid(z[:, :H]), torch.sigmoid(z[:, H:2 * H]),
                       torch.tanh(z[:, 2 * H:3 * H]),
                       torch.sigmoid(z[:, 3 * H:])], dim=1)
@@ -2644,41 +2906,42 @@ def _gates64(xp, h, w, b, pieces=None):
 
 def _fwd_product_err(xp, h, w, b, gates=None, pieces=None):
     """A gates residual against the float64 twin's, absolute; with
-    ``pieces`` 2, the reading a two-piece split of h would give in exact
-    arithmetic."""
-    if pieces == 2:
-        gates = _gates64(xp, h, w, b, pieces=2)
+    ``pieces`` 2 or "three_product", the reading that split (see
+    :func:`_gates64`) would give in exact arithmetic."""
+    if pieces is not None:
+        gates = _gates64(xp, h, w, b, pieces=pieces)
     return (gates.double() - _gates64(xp, h, w, b)).abs().max().item()
 
 
 def _lstm_errs(lt, ops):
     """The kernels against their twins on the same operands: each wrapper
-    on the route its plan gives (checked taken), and with a bf16 W also
-    forced onto the FMA forward and the SIMT backward. Returns {"fwd",
-    "fwd_simt", "bwd", "bwd_simt": errors (None where not run),
-    "fwd_product", "bwd_product": readings or None}: with a bf16 W the
-    forward's gates residual against the float64 twin (tensor-core route,
-    FMA kernel and, with float32 carries, a two-piece split of h), and with
-    float32 carries the backward's dh against the float64 product of its
-    own dz (:func:`_product_err`)."""
+    on the route its rule gives (checked taken), the forward also forced
+    onto the FMA kernel and, on the tensor-core backward (a bf16 W), the
+    backward onto the SIMT kernel. Returns {"fwd", "fwd_simt", "bwd",
+    "bwd_simt": errors (None where not run), "fwd_product", "bwd_product":
+    readings or None}: the forward's gates residual against the float64
+    twin (tensor-core route, FMA kernel and, with float32 carries, the
+    control: a two-piece split of h with a bf16 W, three products with a
+    float32 W), and with a bf16 W and float32 carries the backward's dh
+    against the float64 product of its own dz (:func:`_product_err`)."""
     xp, h, c, w, b, dh1, dc1 = ops
     route = lt.lstm_fwd_route(w)
-    tc = route == "sm90"
-    wp = lt.lstm_tc_weight(w) if tc else None
+    bwd_route = lt.lstm_bwd_route(w)
+    wp = lt.lstm_tc_weight(w)
     ref = lt.lstm_fwd_reference(xp, h, c, w, b, True)
     kg = _route_taken(lt, "lstm_fwd_gates", lambda: lt.lstm_fwd_gates(
         xp, h, c, w, b, w_packed=wp), route)
     k0 = _route_taken(lt, "lstm_fwd", lambda: lt.lstm_fwd(
         xp, h, c, w, b, w_packed=wp), route)
-    fs = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt") if tc else None
+    fs = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt")
     rb = lt.lstm_bwd_reference(ref[2], c, ref[1], w, dh1, dc1)
     kb = _route_taken(lt, "lstm_bwd", lambda: lt.lstm_bwd(
-        ref[2], c, ref[1], w, dh1, dc1, w_packed=wp), lt.lstm_bwd_route(w))
+        ref[2], c, ref[1], w, dh1, dc1, w_packed=lt._bwd_weight(w, wp)),
+        bwd_route)
     ks = (lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1, _route="simt")
-          if tc else None)
+          if bwd_route == "sm90" else None)
     torch.cuda.synchronize()
-    outs = [t for t in kg + k0 + kb + (fs or ()) + (ks or ())
-            if t is not None]
+    outs = [t for t in kg + k0 + kb + fs + (ks or ()) if t is not None]
     if not all(torch.isfinite(t).all() for t in outs):
         raise AssertionError("an LSTM kernel gave a non-finite value")
 
@@ -2686,21 +2949,23 @@ def _lstm_errs(lt, ops):
         return max(_max_err(a, r) / max(r.float().abs().max().item(), 1e-30)
                    for a, r in zip(k, rb))
     f32 = dh1.dtype == torch.float32
-    fwd_product = bwd_product = None
-    if tc:
-        fwd_product = {"tensor_core": _fwd_product_err(xp, h, w, b, kg[2]),
-                       "fma": _fwd_product_err(xp, h, w, b, fs[2])}
-        if f32:
-            fwd_product["two_piece"] = _fwd_product_err(xp, h, w, b,
-                                                        pieces=2)
-            bwd_product = {
-                "tensor_core": _product_err(kb[0], w, kb[1]),
-                "simt": _product_err(ks[0], w, ks[1]),
-                "two_piece": _product_err(kb[0], w, kb[1], pieces=2),
-                "tensor_core_vs_simt": (_max_err(kb[1], ks[1]) / max(
-                    ks[1].abs().max().item(), 1e-30))}
+    fwd_product = {"tensor_core": _fwd_product_err(xp, h, w, b, kg[2]),
+                   "fma": _fwd_product_err(xp, h, w, b, fs[2])}
+    if f32 and w.dtype == torch.float32:
+        fwd_product["three_product"] = _fwd_product_err(
+            xp, h, w, b, pieces="three_product")
+    elif f32:
+        fwd_product["two_piece"] = _fwd_product_err(xp, h, w, b, pieces=2)
+    bwd_product = None
+    if f32 and ks is not None:
+        bwd_product = {
+            "tensor_core": _product_err(kb[0], w, kb[1]),
+            "simt": _product_err(ks[0], w, ks[1]),
+            "two_piece": _product_err(kb[0], w, kb[1], pieces=2),
+            "tensor_core_vs_simt": (_max_err(kb[1], ks[1]) / max(
+                ks[1].abs().max().item(), 1e-30))}
     return {"fwd": _scaled_err(kg + k0[:2], ref + ref[:2]),
-            "fwd_simt": None if fs is None else _scaled_err(fs, ref),
+            "fwd_simt": _scaled_err(fs, ref),
             "bwd": bwd_err(kb), "bwd_simt": None if ks is None else
             bwd_err(ks), "fwd_product": fwd_product,
             "bwd_product": bwd_product}
@@ -2725,12 +2990,14 @@ def _lstm_scan_errs(lt, g, od, wd, sd, T, N, H, reverse):
     return fwd, bwd
 
 
-def _lstm_bytes_flops(od, wd, sd, N, H, kernel):
+def _lstm_bytes_flops(od, wd, sd, N, H, kernel, route="sm90"):
     """What the kernel must move (inputs read once, outputs written once)
-    and its product's flops, with the type the product runs in. With a bf16
-    W the products run on the tensor cores, a float32 operand as three bf16
-    products (split in three pieces): the backward's dz always, the
-    forward's h with float32 carries."""
+    and its product's flops, with the type the product runs in. On the
+    tensor-core routes a float32 operand is three bf16 pieces: the
+    backward's dz always (a bf16 W), the forward's h with float32 carries
+    and its W when float32, where a stage runs the six products of two
+    three-piece operands (three of one; one of two bf16 operands). On the
+    FMA / SIMT route (``route`` "simt") the product is float32's."""
     eo, ew, es = (torch.empty((), dtype=t).element_size()
                   for t in (od, wd, sd))
     flops = 2 * N * H * 4 * H
@@ -2742,8 +3009,9 @@ def _lstm_bytes_flops(od, wd, sd, N, H, kernel):
         gates = N * 4 * H * 4 if kernel == "lstm_fwd_gates" else 0
         moved = (N * 4 * H * eo + 2 * N * H * es + 4 * H * H * ew
                  + 4 * H * eo + 2 * N * H * es + gates)
-        pieces = 3 if sd == torch.float32 else 1
-    if wd == torch.bfloat16:
+        pieces = {(3, 3): 6, (3, 1): 3, (1, 3): 3, (1, 1): 1}[
+            (3 if sd == torch.float32 else 1, 3 if wd == torch.float32 else 1)]
+    if route == "sm90":
         return moved, pieces * flops, torch.bfloat16
     return moved, flops, torch.float32
 
@@ -2752,21 +3020,51 @@ def _lstm_tag(od, wd, sd):
     return (f"{str(od)[6:]} ops {str(wd)[6:]} W {str(sd)[6:]} carries")
 
 
+def lstm_f32_fwd_timings(lt, rounds: int = 2):
+    """The all-float32 forward at the lane (N 128, H 650): ``lstm_fwd``
+    and ``lstm_fwd_gates`` on the route W's type gives them (with W's copy
+    where that route reads one) and forced onto the FMA kernel
+    (``_route="simt"``), in turns (:func:`_in_turns`). W stays in L2, as it
+    does from one step of the scan to the next."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    f32 = torch.float32
+    xp, h, c, w, b, _, _ = _lstm_operands(g, f32, f32, f32, LM_N, LM_H)
+    route = lt.lstm_fwd_route(w)
+    wp = lt.lstm_tc_weight(w) if route == "sm90" else None
+    out = {}
+    for name in ("lstm_fwd", "lstm_fwd_gates"):
+        kern = getattr(lt, name)
+        res = _in_turns({
+            route: lambda: kern(xp, h, c, w, b, w_packed=wp),
+            "fma": lambda: kern(xp, h, c, w, b, _route="simt")}, kern,
+            rounds)
+        out[name] = res
+        log(f"time {name} all-float32 N {LM_N} H {LM_H} (route {route}): "
+            f"{_turns_line(res)}")
+    return out
+
+
 def lstm_kernel_checks(lt, common):
     """Phase 17: the B8 kernels against their twins: a sweep of H 16, 20,
     64, 211 (prime), 650, 1030 and N 5, 8, 64, 128, 256 in each type form
-    (with and without the residual; bf16 carries round c to bf16; with a
-    bf16 W each kernel on its tensor-core route and again on the FMA / SIMT
-    kernel), the product checks (the forward's gates and the backward's dh
+    (``LSTM_TYPES`` and the mixed float32-W forms
+    ``LSTM_F32W_MIXED_TYPES``; with and without the residual; bf16
+    carries round c to bf16; every forward on its tensor-core route, W in
+    three pieces when float32, and again on the FMA kernel; the backward on
+    its tensor-core route with a bf16 W and again on the SIMT kernel, on
+    the SIMT kernel with a float32 W), the product checks (the forward's
+    gates and the backward's dh
     against float64), the whole scan forward + backward in both directions
     against the CPU twins, the tensor-core kernels as built, then the
     lane's shape (N 128, H 650) with times beside the twin's, the bound,
     cuDNN's whole-sequence LSTM per step as the library yardstick, and for
     the tensor-core routes the FMA / SIMT kernel's time in the same call
     (in turns), the device time, the time of one call replayed from a CUDA
-    graph and the host µs. Returns the JSON records
-    (the lane's layer-1 form, and the all-float32 form's ``lstm_fwd``, a
-    user's eval) and a log of every timing."""
+    graph and the host µs, and the all-float32 forward's device, graph,
+    event and host times beside the FMA kernel's in turns
+    (:func:`lstm_f32_fwd_timings`). Returns the JSON records (the lane's
+    layer-1 form, and the all-float32 form's ``lstm_fwd``, a user's eval)
+    and a log of every timing."""
     sass = lstm_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst, n_cases = {}, 0
@@ -2777,11 +3075,13 @@ def lstm_kernel_checks(lt, common):
             lo, hi = products.get(f"{kind} {k}", (v, v))
             products[f"{kind} {k}"] = (min(lo, v), max(hi, v))
 
-    def check_products(where, e, lane=False):
+    def check_products(where, e, lane=False, f32w=False):
         fp, bp = e["fwd_product"], e["bwd_product"]
-        if fp is not None and (fp["tensor_core"] > LSTM_FWD_PRODUCT_TOL or (
-                lane and "two_piece" in fp
-                and fp["two_piece"] <= LSTM_FWD_PRODUCT_TOL)):
+        control = fp.get("two_piece", fp.get("three_product"))
+        if fp["tensor_core"] > LSTM_FWD_PRODUCT_TOL or (
+                lane and control is not None
+                and control <= LSTM_FWD_PRODUCT_TOL) or (
+                lane and f32w and fp["tensor_core"] > fp["fma"]):
             raise AssertionError(f"the forward's tensor-core product {where}: "
                                  f"{json.dumps(fp)} (limit "
                                  f"{LSTM_FWD_PRODUCT_TOL})")
@@ -2793,7 +3093,7 @@ def lstm_kernel_checks(lt, common):
         note("fwd", fp)
         note("bwd", bp)
 
-    for od, wd, sd in LSTM_TYPES:
+    for od, wd, sd in LSTM_TYPES + LSTM_F32W_MIXED_TYPES:
         tol_f, tol_b = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (
             od, wd, sd) else torch.float32]
         key = _lstm_tag(od, wd, sd)
@@ -2804,7 +3104,8 @@ def lstm_kernel_checks(lt, common):
                         or e["bwd"] > tol_b or (e["bwd_simt"] or 0.0) > tol_b:
                     raise AssertionError(f"LSTM kernels {key} N {N} H {H}: "
                                          f"{json.dumps(e)}")
-                check_products(f"{key} N {N} H {H}", e)
+                check_products(f"{key} N {N} H {H}", e,
+                               f32w=wd == torch.float32)
                 for k in ("fwd", "fwd_simt", "bwd", "bwd_simt"):
                     if e[k] is not None:
                         worst[f"{key} {k}"] = max(
@@ -2818,11 +3119,11 @@ def lstm_kernel_checks(lt, common):
             worst[key + " scan"] = max(worst.get(key + " scan", 0.0), fwd,
                                        bwd)
     log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels (and the FMA "
-        f"forward and SIMT backward with a bf16 W) and the scan in both "
-        f"directions within tolerance; worst {json.dumps(worst)}")
-    log(f"LSTM products with a bf16 W, (least, most) over the sweep: the "
-        f"forward's gates residual against float64, absolute (tensor-core "
-        f"route at most {LSTM_FWD_PRODUCT_TOL}); with float32 carries the "
+        f"forward, and the SIMT backward with a bf16 W) and the scan in "
+        f"both directions within tolerance; worst {json.dumps(worst)}")
+    log(f"LSTM products, (least, most) over the sweep: the forward's gates "
+        f"residual against float64, absolute (tensor-core route at most "
+        f"{LSTM_FWD_PRODUCT_TOL}); with a bf16 W and float32 carries the "
         f"backward's dh against the float64 product of its dz, over the "
         f"largest entry (tensor-core route at most {LSTM_PRODUCT_TOL}): "
         f"{json.dumps(products)}")
@@ -2833,24 +3134,28 @@ def lstm_kernel_checks(lt, common):
         tag = _lstm_tag(od, wd, sd)
         xp, h, c, w, b, dh1, dc1 = _lstm_operands(g, od, wd, sd, N, H)
         e = _lstm_errs(lt, (xp, h, c, w, b, dh1, dc1))
-        tc = lt.lstm_fwd_route(w) == "sm90"
-        if tc and sd == torch.float32:
+        routes = {"lstm_fwd_gates": lt.lstm_fwd_route(w),
+                  "lstm_fwd": lt.lstm_fwd_route(w),
+                  "lstm_bwd": lt.lstm_bwd_route(w)}
+        if sd == torch.float32:
             log(f"lane errors ({tag}): forward {e['fwd']:.3g}, FMA "
                 f"{e['fwd_simt']:.3g}; backward {e['bwd']:.3g} (at most "
                 f"{LSTM_LANE_BWD_TOL}, float32's bound), SIMT "
-                f"{e['bwd_simt']:.3g}")
+                f"{e['bwd_simt']}")
             log(f"lane products ({tag}): forward gates against float64 "
                 f"{json.dumps(e['fwd_product'])} (tensor-core at most "
-                f"{LSTM_FWD_PRODUCT_TOL}, two-piece above it); backward dh "
-                f"{json.dumps(e['bwd_product'])} (tensor-core at most "
+                f"{LSTM_FWD_PRODUCT_TOL}, the control above it); backward "
+                f"dh {json.dumps(e['bwd_product'])} (tensor-core at most "
                 f"{LSTM_PRODUCT_TOL}, two-piece above it)")
             if e["bwd"] > LSTM_LANE_BWD_TOL:
                 raise AssertionError(f"lstm_bwd at the lane: {json.dumps(e)}")
-            check_products(f"at the lane {tag}", e, lane=True)
+            check_products(f"at the lane {tag}", e, lane=True,
+                           f32w=wd == torch.float32)
         gates = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt")[2]
         # the tensor-core routes read W's padded copy, which the scan makes
         # once a sequence (its time is logged apart)
-        wp = lt.lstm_tc_weight(w) if tc else None
+        wp = lt.lstm_tc_weight(w)
+        wpb = lt._bwd_weight(w, wp)
         runs = {
             "lstm_fwd_gates": (
                 lambda: lt.lstm_fwd_gates(xp, h, c, w, b, w_packed=wp),
@@ -2861,12 +3166,14 @@ def lstm_kernel_checks(lt, common):
                 lambda: lt.lstm_fwd(xp, h, c, w, b, _route="simt"),
                 lambda: lt.lstm_fwd_reference(xp, h, c, w, b, False)),
             "lstm_bwd": (
-                lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, w_packed=wp),
+                lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, w_packed=wpb),
                 lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, _route="simt"),
                 lambda: lt.lstm_bwd_reference(gates, c, c, w, dh1, dc1))}
         lib = _cudnn_lstm_per_step(od, T, N, H)
         for name, (kern, old, plain) in runs.items():
-            moved, flops, prod = _lstm_bytes_flops(od, wd, sd, N, H, name)
+            tc = routes[name] == "sm90"
+            moved, flops, prod = _lstm_bytes_flops(od, wd, sd, N, H, name,
+                                                   routes[name])
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[prod] * 1e3
             err = e["bwd"] if name == "lstm_bwd" else e["fwd"]
@@ -2877,13 +3184,20 @@ def lstm_kernel_checks(lt, common):
                    "bound_by": ("bytes" if t_bytes >= t_ops
                                 else "operations"),
                    "library_ms": lib[name]}
+            if tc and wd == torch.float32:
+                _, fma_flops, _ = _lstm_bytes_flops(od, wd, sd, N, H, name,
+                                                    "simt")
+                rec["fma_bound_ms"] = max(
+                    t_bytes, fma_flops / PEAK_FLOPS[torch.float32] * 1e3)
             if tc:
                 # the tensor-core kernel and the FMA / SIMT one in turns
                 ms1, old1 = time_ms(kern, iters=50), time_ms(old, iters=50)
                 ms2, old2 = time_ms(kern, iters=50), time_ms(old, iters=50)
                 ms = (ms1 + ms2) / 2
                 dev_ms, by_kernel = device_ms(kern, getattr(lt, name))
-                rec.update(name=f"{name}/sm90", earlier_ms=(old1 + old2) / 2,
+                rec.update(name=f"{name}/sm90" + (
+                               "_f32w" if wd == torch.float32 else ""),
+                           earlier_ms=(old1 + old2) / 2,
                            earlier_max_abs_err=e[
                                "bwd_simt" if name == "lstm_bwd"
                                else "fwd_simt"],
@@ -2901,7 +3215,6 @@ def lstm_kernel_checks(lt, common):
             if (od, wd, sd) == LSTM_TYPES[0]:
                 records[rec["name"]] = rec
             elif (od, wd, sd) == LSTM_TYPES[3] and name == "lstm_fwd":
-                rec["name"] = "lstm_fwd/simt"
                 records[rec["name"]] = rec
             extra = (f"; FMA/SIMT {rec['earlier_ms']:.4f} ms, device "
                      f"{_ms(rec['device_ms'])} ms "
@@ -2917,6 +3230,7 @@ def lstm_kernel_checks(lt, common):
         timings[f"lstm_scan T {T} {tag}"] = _scan_time(lt, g, od, wd, sd, T,
                                                        N, H)
         torch.cuda.empty_cache()
+    timings["all-float32 forward turns"] = lstm_f32_fwd_timings(lt)
     return records, timings
 
 
@@ -3019,10 +3333,10 @@ def word_lm_train_phase(mx, common, records, steps=5):
     step (2 layers x 35 steps), all on the tensor-core routes (bf16 W_hh in
     both layers), and no ``lstm_fwd``; then a profiled window of two steps;
     then two eval forwards (no autograd, no grad, dropout off), each 70
-    ``lstm_fwd`` launches and nothing else of B8: a user's ``net(x)`` on
-    the net's own float32 parameters, all on the FMA route (a float32
-    W_hh), and the trained parameters cast to bf16, all on the tensor-core
-    route; each timed, with its B8 forward's device time."""
+    ``lstm_fwd`` launches and nothing else of B8, all on the tensor-core
+    route: a user's ``net(x)`` on the net's own float32 parameters (a
+    float32 W_hh in three bf16 pieces), and the trained parameters cast to
+    bf16; each timed, with its B8 forward's device time."""
     torch.cuda.reset_peak_memory_stats()
     net, step, params, aux, opt, x, y = _word_lm(mx, SEED + 7, 0.5,
                                                  torch.bfloat16)
@@ -3071,8 +3385,9 @@ def word_lm_train_phase(mx, common, records, steps=5):
          "lstm_bwd_dz_kernel", "lstm_bwd_tc_kernel"))
     # the eval forwards: recording off, no gradient, dropout off. A user's
     # net(x) runs the net's own float32 parameters, so its float32 W_hh
-    # takes the FMA kernel; the trained parameters cast to bf16 (the lane's
-    # compute type, float32 states) take the tensor-core kernel
+    # goes to the tensor-core kernel in three pieces; the trained
+    # parameters cast to bf16 (the lane's compute type, float32 states)
+    # take it as one
     from incubator_mxnet_tpu_torch.parallel.dp import functional_call
     xs = mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0))
     bf16 = {n: v.to(torch.bfloat16) if v.is_floating_point() else v
@@ -3086,7 +3401,7 @@ def word_lm_train_phase(mx, common, records, steps=5):
         with torch.no_grad():
             return functional_call(net, bf16, x, training=False)[0]
     evals = {}
-    for label, fn, on_sm90 in (("user_float32", eval_user, 0),
+    for label, fn, on_sm90 in (("user_float32", eval_user, 70),
                                ("bf16", eval_bf16, 70)):
         common.reset_launch_counts()
         logits = fn()
@@ -3107,8 +3422,8 @@ def word_lm_train_phase(mx, common, records, steps=5):
             "ms": time_ms(fn, iters=5, warmup=1),
             **kernel_breakdown(f"word LM eval forward ({label})", fn,
                                ("lstm_fwd_kernel", "lstm_fwd_tc_kernel"))}
-    records["lstm_fwd/simt"]["launches"] = (
-        evals["user_float32"]["lstm_fwd_launches"])
+    records["lstm_fwd/sm90_f32w"]["launches"] = (
+        evals["user_float32"]["sm90_launches"])
     records["lstm_fwd/sm90"]["launches"] = evals["bf16"]["sm90_launches"]
     return {"step_ms": wall / steps * 1e3, "tok_s": tok_s,
             "loss_first": losses[0], "loss_last": losses[-1],
@@ -3141,8 +3456,12 @@ def word_lm_truth_phase(mx, lt, common):
     loss_k, grads_k = _lm_loss_and_grads(net, params, x, y, mx)
     torch.cuda.synchronize()
     launches = common.launch_counts()
-    if launches["lstm_fwd_gates"] != 70 or launches["lstm_bwd"] != 70:
-        raise AssertionError(f"f32 pass launches {launches}")
+    sm90 = common.sm90_launch_counts()
+    # a float32 W: the forward on the tensor cores, the backward SIMT
+    if launches["lstm_fwd_gates"] != 70 or launches["lstm_bwd"] != 70 \
+            or sm90["lstm_fwd_gates"] != 70 or sm90["lstm_bwd"]:
+        raise AssertionError(f"f32 pass launches {launches}, on the "
+                             f"tensor-core routes {sm90}")
     # the twins in the kernels' place: the scan's forward steps (and the
     # cell's, off this path) and its backward steps
     steps = (lt._kernel_steps, lt._step_fwd, lt._step_bwd)

@@ -19,7 +19,8 @@ import torch
 
 __all__ = ["NEG_INF", "pick_block", "pick_row_block", "kernel_library", "check_launch",
            "current_stream_handle", "counted_kernel", "launch_counts",
-           "sm90_launch_counts", "reset_launch_counts", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
+           "sm90_launch_counts", "reset_launch_counts", "sm_count",
+           "ticket_buffer", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
     "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mxt_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "mxt_layer_norm_bwd_onepass": [_P] * 10 + [_I] * 5 + [_P],
     "mxt_softmax_fwd": [_P, _P, _I, _I, _I, _P],
     "mxt_conv_fused_fwd": [_I, _I] + [_P] * 7 + [_L] * 3 + [_P] * 4
                           + [_I] * 5 + [_P],
@@ -68,7 +70,7 @@ _SIGNATURES = {
     "mxt_conv_fused_sm90_conv3_bwd": [_P] * 4 + [_L] * 3 + [_P] * 8
                                      + [_I] * 8 + [_P],
     "mxt_lstm_fwd": [_I, _I, _I] + [_P] * 8 + [_I, _I, _P],
-    "mxt_lstm_fwd_sm90": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P],
+    "mxt_lstm_fwd_sm90": [_I, _I, _I] + [_P] * 8 + [_I] * 4 + [_P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
     "mxt_lstm_bwd_sm90": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,
@@ -168,3 +170,34 @@ def check_launch(code: int, kernel: str) -> None:
 def current_stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SM_COUNTS = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``, queried once per device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _SM_COUNTS.get(index)
+    if n is None:
+        n = torch.cuda.get_device_properties(index).multi_processor_count
+        _SM_COUNTS[index] = n
+    return n
+
+
+_TICKETS = {}
+
+
+def ticket_buffer(owner: str, t: torch.Tensor, stream: int, n: int):
+    """(n,) int32 zeros for the last-block tickets of ``owner``'s kernels,
+    one buffer per owner, device and stream (each launch leaves it zero).
+    A CUDA graph keeps the buffer of the stream it was captured on, so two
+    replays of such graphs must not overlap."""
+    key = (owner, t.device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
+        _TICKETS[key] = buf
+    return buf

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import (check_launch, counted_kernel, current_stream_handle,
-                     kernel_library)
+                     kernel_library, sm_count)
 
 __all__ = ["mm_fused", "mm_fused_bwd", "conv3_fused", "conv3_fused_bwd",
            "dgrad_epilogue", "mm_fused_reference", "mm_fused_bwd_reference",
@@ -257,15 +257,12 @@ def _blocks(m: int) -> int:
     return -(-m // _BM)
 
 
-_SM_COUNT = {}
-
-
 def _wgrad_split(m: int, rows: int, n: int, device):
     """(splits, chunk) of the dW launch's row range: about four blocks per
     SM over the (rows / 128) x (n / 64) output tiles, each split a multiple
     of the 32-row step."""
     tiles = -(-rows // _BM) * -(-n // _BN)
-    splits = max(1, min(-(-m // _BK), -(-4 * _sms(device) // tiles)))
+    splits = max(1, min(-(-m // _BK), -(-4 * sm_count(device) // tiles)))
     chunk = max(_BK, -(-(-(-m // splits)) // _BK) * _BK)
     return max(1, -(-m // chunk)), chunk
 
@@ -412,13 +409,6 @@ def sm90_wgrad_split(m: int, na: int, nb: int, k: int, sms: int,
     return best[1], best[2]
 
 
-def _sms(device) -> int:
-    if device not in _SM_COUNT:
-        _SM_COUNT[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SM_COUNT[device]
-
-
 def _wgrad(name, ks, x, a, b, g, dzn, yout, gc, m, c, n, h, w):
     """dW in the gluon order (N, ks * ks * C), float32."""
     rows = ks * ks * c
@@ -551,7 +541,7 @@ def mm_fused_bwd(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
             _ptr(dz), _ptr(part), _ptr(xh) if a is not None else None, m, k,
             n, sm90_bn(k), stream)
         check_launch(code, name)
-        splits, chunk = sm90_wgrad_split(m, n, 0, k, _sms(x.device))
+        splits, chunk = sm90_wgrad_split(m, n, 0, k, sm_count(x.device))
         ws = torch.empty((splits, n, k), dtype=torch.float32,
                          device=x.device)
         code = lib.mxt_conv_fused_sm90_dual_wgrad(
@@ -618,7 +608,7 @@ def dgrad_epilogue(w_a, w_b, x, dzn_a, yout_a, gcoef_a, dzn_b, yout_b,
             _ptr(w_b), w_b.stride(0), w_b.stride(1), _ptr(g_b), _ptr(dx), m,
             k, na, nb, bn, stream)
         check_launch(code, name)
-        splits, chunk = sm90_wgrad_split(m, na, nb, k, _sms(x.device))
+        splits, chunk = sm90_wgrad_split(m, na, nb, k, sm_count(x.device))
     else:
         code = lib.mxt_conv_fused_dual_dgrad(
             _DTYPE_CODE[x.dtype], _ptr(dzn_a), _ptr(yout_a), _ptr(gc_a),
@@ -724,7 +714,7 @@ def conv3_fused_bwd(w9, x2, a, b, dzn, yout, gcoef, bhw, _route=None):
                                         (a, b, gc))) == "sm90":
         gm = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         xh = torch.empty_like(x2)
-        splits, chunk = sm90_wgrad_split(m, n, 0, c, _sms(x2.device), 9)
+        splits, chunk = sm90_wgrad_split(m, n, 0, c, sm_count(x2.device), 9)
         ws = torch.empty((splits, n, 9 * c), dtype=torch.float32,
                          device=x2.device)
         code = lib.mxt_conv_fused_sm90_conv3_bwd(

@@ -33,6 +33,13 @@ int layer_norm_bwd_launch(int dtype, const void* x, const float* gamma,
                           const float* mu, const float* rstd, const void* dy,
                           void* dx, float* dg, float* db, int n, int d,
                           int rows_per_block, void* stream);
+int layer_norm_bwd_onepass_launch(int dtype, const void* x,
+                                  const float* gamma, const float* mu,
+                                  const float* rstd, const void* dy, void* dx,
+                                  float* dgamma, float* dbeta, float* ws,
+                                  int* tickets, int n, int d,
+                                  int rows_per_block, int blocks,
+                                  void* stream);
 int softmax_fwd_launch(int dtype, const void* x, void* y, int n, int d,
                        void* stream);
 int conv_fused_fwd_launch(int dtype, int ks, const void* x, const float* a,
@@ -108,10 +115,11 @@ int lstm_fwd_launch(int in_dtype, int w_dtype, int state_dtype,
                     const void* xp, const void* h, const void* c,
                     const void* w, const void* b, void* h1, void* c1,
                     float* gates, int N, int H, void* stream);
-int lstm_fwd_sm90_launch(int in_dtype, int state_dtype, const void* xp,
-                         const void* h, const void* c, const void* wp,
-                         const void* b, void* h1, void* c1, float* gates,
-                         int N, int H, int Hk, int Hm, void* stream);
+int lstm_fwd_sm90_launch(int in_dtype, int state_dtype, int w_pieces,
+                         const void* xp, const void* h, const void* c,
+                         const void* wp, const void* b, void* h1, void* c1,
+                         float* gates, int N, int H, int Hk, int Hm,
+                         void* stream);
 int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
                     const void* c, const void* c1, const void* w,
                     const void* dh1, const void* dc1, float* dxp, void* dh,
@@ -236,6 +244,23 @@ int mxt_layer_norm_bwd(const void* x, const void* gamma, const void* mu,
       static_cast<const float*>(mu), static_cast<const float*>(rstd), dy, dx,
       static_cast<float*>(dg), static_cast<float*>(db), n, d, rows_per_block,
       stream);
+}
+
+// The one-pass backward (d <= 1024): dx like x; dgamma/dbeta (d,) float32
+// sums; ws (blocks + groups, 2, d) float32 scratch and tickets (groups +
+// 1,) int32 zeros, groups = ceil(blocks / 16).
+int mxt_layer_norm_bwd_onepass(const void* x, const void* gamma,
+                               const void* mu, const void* rstd,
+                               const void* dy, void* dx, void* dgamma,
+                               void* dbeta, void* ws, void* tickets, int n,
+                               int d, int rows_per_block, int blocks,
+                               int dtype, void* stream) {
+  return layer_norm_bwd_onepass_launch(
+      dtype, x, static_cast<const float*>(gamma),
+      static_cast<const float*>(mu), static_cast<const float*>(rstd), dy, dx,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<float*>(ws), static_cast<int*>(tickets), n, d,
+      rows_per_block, blocks, stream);
 }
 
 // Softmax over the last axis of x (n, d); y like x.
@@ -417,15 +442,16 @@ int mxt_lstm_fwd(int in_dtype, int w_dtype, int state_dtype, const void* xp,
                          c1, static_cast<float*>(gates), N, H, stream);
 }
 
-// Its tensor-core form for a bf16 W (lstm.cu): wp the (4, Hk, Hm) bf16
-// zero-padded copy of W.
-int mxt_lstm_fwd_sm90(int in_dtype, int state_dtype, const void* xp,
-                      const void* h, const void* c, const void* wp,
-                      const void* b, void* h1, void* c1, void* gates, int N,
-                      int H, int Hk, int Hm, void* stream) {
-  return lstm_fwd_sm90_launch(in_dtype, state_dtype, xp, h, c, wp, b, h1, c1,
-                              static_cast<float*>(gates), N, H, Hk, Hm,
-                              stream);
+// Its tensor-core form (lstm.cu): wp W's zero-padded (w_pieces, 4, Hk, Hm)
+// bf16 copy, one piece for a bf16 W, three (hi, mid, lo) for a float32 W.
+int mxt_lstm_fwd_sm90(int in_dtype, int state_dtype, int w_pieces,
+                      const void* xp, const void* h, const void* c,
+                      const void* wp, const void* b, void* h1, void* c1,
+                      void* gates, int N, int H, int Hk, int Hm,
+                      void* stream) {
+  return lstm_fwd_sm90_launch(in_dtype, state_dtype, w_pieces, xp, h, c, wp,
+                              b, h1, c1, static_cast<float*>(gates), N, H,
+                              Hk, Hm, stream);
 }
 
 // Its backward: gates and dxp (N, 4H) float32; w of type w_dtype; c, c1,

@@ -6,25 +6,48 @@
 //   ln_fwd_warp_kernel / ln_fwd_block_kernel  <-  _run_fwd / _fwd_kernel
 //       y = (x - mu) * rstd * gamma + beta in x's type, plus mu and rstd
 //       (n, 1) float32; var = mean((x - mu)^2), two passes as the reference
-//   ln_bwd_kernel  <-  _ln_bwd / _bwd_kernel
+//   ln_bwd_onepass_kernel (d <= 1024)  \  <-  _ln_bwd / _bwd_kernel
+//   ln_bwd_kernel (d > 1024)           /
 //       dx = rstd * (dxn - mean(dxn) - xn * mean(dxn * xn)), dxn = dy * gamma,
-//       in x's type; plus per-block float32 partial sums of dy * xn and dy
-//       per column, which the wrapper sums (the reference sums its (grid, 8,
-//       d) partials outside the kernel the same way).
+//       in x's type; dgamma = sum of dy * xn and dbeta = sum of dy over the
+//       rows, float32 (the reference sums its (grid, 8, d) partials outside
+//       the kernel).
 // All arithmetic is float32.
 //
 // What bounds it on an H100: device-memory bytes. The forward reads x once
 // and writes y (a few flops per element, ~1 flop/byte); the backward reads
-// x and dy and writes dx. The design keeps each row on chip between its
-// passes: for d <= 1024 one warp owns a row held in registers (32 values a
-// lane at most), so x is read from device memory once; wider rows (the
-// reference kernelises any d up to 65,536) take one block per row and
-// re-read the row, which L1/L2 mostly serve. The backward gives each block
-// a run of consecutive rows: one warp per row forms the two row means, then
-// the block's threads walk the columns, write dx and keep the column sums
-// in registers, so the dgamma/dbeta partials cost one row per block rather
-// than an atomic per element. Loads are scalar and coalesced (lane-strided
-// columns); vector loads are later speed work.
+// x and dy and writes dx. For d <= 1024 one warp owns a row held in
+// registers (32 values a lane at most), so x is read from device memory
+// once; wider rows (the reference kernelises any d up to 65,536) take one
+// block per row and re-read the row, which L1/L2 mostly serve.
+//
+// The backward for d <= 1024 (ln_bwd_onepass_kernel) reads x and dy once:
+//   * one warp a row, the row in registers, brought in by 16-byte vector
+//     loads (4 float32 or 8 bf16 values a lane) where rows start on 16
+//     bytes, scalar loads otherwise, the tail masked; the row means, dx and
+//     the lane's share of the column sums all come from the registers;
+//   * a grid of one block an SM for float32 rows and two for bf16 rows
+//     (SM count cached by the caller), each walking a run of rows with its
+//     kBwdWarps warps, each warp loading its next row's x and dy while it
+//     finishes the current one; each warp keeps its column partials of
+//     dy * xn and dy in its own slice of shared memory across its rows
+//     (held in registers they capped a block at 8 warps an SM and read
+//     slower on an H100), and the block sums its warps' partials in warp
+//     order into one (2, d) row of a workspace;
+//   * dgamma and dbeta are finished inside the launch: the last block of
+//     each group of kBwdGroup blocks sums the group's rows in block order,
+//     and the last group to finish sums the group rows in group order. A
+//     block learns that it is last from an atomic ticket that one thread
+//     takes after a block barrier and the last one resets to zero (so the
+//     next launch, or a CUDA-graph replay, finds it zero). Every sum has a
+//     fixed order and no float atomic touches a result: they repeat bit for
+//     bit. Two levels keep the serial tail short: a single last block would
+//     read every block's row, ~1.6 MB at the nd lane, alone.
+// ln_bwd_kernel, for d > 1024 and as the yardstick behind the wrapper's
+// private _route="twopass", is the first design: a block owns a run of
+// rows, one warp per row forms the two row means (a first read of x and
+// dy), then the block's threads walk the columns (a second read), write dx
+// and (blocks, d) column partials, which the wrapper sums.
 #include <stdint.h>
 
 #include "rows.cuh"
@@ -168,6 +191,320 @@ __global__ void ln_bwd_kernel(const T* __restrict__ x,
   }
 }
 
+// ------------------------------------------------- the one-pass backward
+constexpr int kBwdWarps = 8;          // warps of a block, a row each at a time
+constexpr int kBwdGroup = 16;         // blocks whose rows one block sums
+constexpr int kBwdVecBytes = 16;      // a lane's vector load
+constexpr int kBwdTwoBlockValues = 24;  // a lane's values a row, two blocks
+
+// Blocks an SM the grid is sized for (the caller's plan,
+// layer_norm_bwd_blocks_per_sm) and the launch bound asks registers for:
+// two of bf16 rows, whose half-size rows need twice the rows in flight for
+// the same bytes, while a lane holds at most kBwdTwoBlockValues values a
+// row (d <= 768); one otherwise.
+template <typename T, int kV>
+constexpr int bwd_blocks_per_sm() {
+  return sizeof(T) == 2 && kV * kBwdVecBytes / sizeof(T) <= kBwdTwoBlockValues
+             ? 2 : 1;
+}
+
+struct BwdArgs {
+  const void* x; const float* gamma; const float* mu; const float* rstd;
+  const void* dy; void* dx; float* dgamma; float* dbeta;
+  float* ws;          // (blocks + groups, 2, d): block rows, then group rows
+  int* tickets;       // (groups + 1,) int32, zero between launches
+  int n, d, rows_per_block, blocks, vec;
+};
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// 16 bytes of T as float32: 4 float32 or 8 bf16 values
+__device__ __forceinline__ void ld16(const float* p, float* v) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float* v) {
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void st16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st16(__nv_bfloat16* p, const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint32_t>(
+               __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))) |
+           (static_cast<uint32_t>(
+                __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])))
+            << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The last block to take one of `count` tickets at `t` resets it and
+// returns true in every thread; the block's global writes before the call
+// are released to it, and the others' acquired.
+__device__ __forceinline__ bool last_to_finish(int* t, int count) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_acq_rel_gpu();
+    last = atomicAdd(t, 1) == count - 1;
+    if (last) {
+      *t = 0;                            // zero again for the next launch
+      fence_acq_rel_gpu();
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+// out[c] = part[c] + part[2 d + c] + ... over `count` (2, d) rows, in
+// order, for each column c; into dgamma / dbeta when `final`. A thread
+// takes 4 adjacent columns (16-byte loads when d is even, so that every
+// row starts on 16 bytes) and issues the loads of up to kBwdGroup rows
+// before it adds them: the sum is a chain of adds, not of L2 round trips.
+__device__ __forceinline__ void sum_rows(const BwdArgs& a, const float* part,
+                                         int count, float* out, bool final) {
+  const int w = 2 * a.d;
+  const bool vec = (a.d & 1) == 0;
+  for (int c = 4 * threadIdx.x; c < w; c += 4 * blockDim.x) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i0 = 0; i0 < count; i0 += kBwdGroup) {
+      float v[kBwdGroup][4];
+#pragma unroll
+      for (int i = 0; i < kBwdGroup; ++i) {
+        const float* src = part + static_cast<size_t>(i0 + i) * w + c;
+        if (i0 + i >= count) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[i][e] = 0.f;
+        } else if (vec) {
+          const float4 q = __ldcg(reinterpret_cast<const float4*>(src));
+          v[i][0] = q.x; v[i][1] = q.y; v[i][2] = q.z; v[i][3] = q.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[i][e] = c + e < w ? __ldcg(src + e) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdGroup; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i0 + i < count)
+            s[e] = i0 + i == 0 ? v[i][e] : __fadd_rn(s[e], v[i][e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c + e;
+      if (col >= w) break;
+      if (!final) out[col] = s[e];
+      else if (col < a.d) a.dgamma[col] = s[e];
+      else a.dbeta[col - a.d] = s[e];
+    }
+  }
+}
+
+// Block b owns rows [b rows_per_block, ...); warp w takes its rows w,
+// w + kBwdWarps, ... of them. Lane l holds the columns kE (l + 32 j) ..
+// kE (l + 32 j) + kE - 1 of vector j < kV in every row. Dynamic shared
+// memory: each warp's column partials of dy * xn and dy, (kBwdWarps, 2, d)
+// float32 (up to 64 KB; 48 KB at d 768).
+template <typename T, int kV>
+__global__ void __launch_bounds__(32 * kBwdWarps, bwd_blocks_per_sm<T, kV>())
+ln_bwd_onepass_kernel(BwdArgs a) {
+  constexpr int kE = kBwdVecBytes / sizeof(T);
+  constexpr int kC = kV * kE;
+  extern __shared__ __align__(16) float part[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = a.d;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  T* dx = static_cast<T*>(a.dx);
+  const int r0 = blockIdx.x * a.rows_per_block;
+  const int r1 = min(a.n, r0 + a.rows_per_block);
+  const float inv_d = 1.f / static_cast<float>(d);
+  float* pg = part + static_cast<size_t>(warp) * 2 * d;   // dy * xn
+  float* pb = pg + d;                                       // dy
+  for (int c = threadIdx.x; c < kBwdWarps * 2 * d; c += blockDim.x)
+    part[c] = 0.f;
+  __syncthreads();
+
+  // a row's x and dy in this lane's columns (zero past d), mu and rstd
+  auto load_row = [&](int r, float (&xr)[kC], float (&dr)[kC], float& m,
+                      float& rs) {
+    const size_t off = static_cast<size_t>(r) * d;
+    m = a.mu[r];
+    rs = a.rstd[r];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = kE * (lane + 32 * j);
+      if (a.vec) {
+        if (c < d) {
+          ld16(x + off + c, xr + kE * j);
+          ld16(dy + off + c, dr + kE * j);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kE; ++e) xr[kE * j + e] = dr[kE * j + e] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const bool in = c + e < d;
+          xr[kE * j + e] = in ? to_float(x[off + c + e]) : 0.f;
+          dr[kE * j + e] = in ? to_float(dy[off + c + e]) : 0.f;
+        }
+      }
+    }
+  };
+
+  float xr[kC], dr[kC], m = 0.f, rs = 0.f;   // the row's, loaded a row ahead
+  if (r0 + warp < r1) load_row(r0 + warp, xr, dr, m, rs);
+  for (int r = r0 + warp; r < r1; r += kBwdWarps) {
+    const size_t off = static_cast<size_t>(r) * d;
+    const float mr = m, rsr = rs;
+    float xn[kC], dxn[kC];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = kE * (lane + 32 * j);
+      float gv[kE], cg[kE], cb[kE];        // gamma, the column partials
+      if (a.vec && c < d) {
+#pragma unroll
+        for (int e = 0; e < kE; e += 4) {
+          ld16(a.gamma + c + e, gv + e);
+          const float4 q = *reinterpret_cast<const float4*>(pg + c + e);
+          const float4 u = *reinterpret_cast<const float4*>(pb + c + e);
+          cg[e] = q.x; cg[e + 1] = q.y; cg[e + 2] = q.z; cg[e + 3] = q.w;
+          cb[e] = u.x; cb[e + 1] = u.y; cb[e + 2] = u.z; cb[e + 3] = u.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const bool in = c + e < d;
+          gv[e] = in ? a.gamma[c + e] : 0.f;
+          cg[e] = in ? pg[c + e] : 0.f;
+          cb[e] = in ? pb[c + e] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int k = kE * j + e;
+        const bool in = c + e < d;
+        const float xnv = in ? __fmul_rn(__fsub_rn(xr[k], mr), rsr) : 0.f;
+        cg[e] = __fadd_rn(cg[e], __fmul_rn(dr[k], xnv));
+        cb[e] = __fadd_rn(cb[e], dr[k]);
+        xn[k] = xnv;
+        dxn[k] = __fmul_rn(dr[k], gv[e]);
+      }
+      if (a.vec && c < d) {
+#pragma unroll
+        for (int e = 0; e < kE; e += 4) {
+          *reinterpret_cast<float4*>(pg + c + e) =
+              make_float4(cg[e], cg[e + 1], cg[e + 2], cg[e + 3]);
+          *reinterpret_cast<float4*>(pb + c + e) =
+              make_float4(cb[e], cb[e + 1], cb[e + 2], cb[e + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          if (c + e < d) {
+            pg[c + e] = cg[e];
+            pb[c + e] = cb[e];
+          }
+      }
+    }
+    // the next row's loads go out before this row's reductions and stores
+    if (r + kBwdWarps < r1) load_row(r + kBwdWarps, xr, dr, m, rs);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      s1 += dxn[k];
+      s2 = fmaf(dxn[k], xn[k], s2);
+    }
+    const float m1 = rows::warp_sum(s1) * inv_d;
+    const float m2 = rows::warp_sum(s2) * inv_d;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = kE * (lane + 32 * j);
+      float out[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int k = kE * j + e;
+        out[e] = __fmul_rn(rsr, __fsub_rn(__fsub_rn(dxn[k], m1),
+                                          __fmul_rn(xn[k], m2)));
+      }
+      if (a.vec) {
+        if (c < d) st16(dx + off + c, out);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          if (c + e < d) dx[off + c + e] = from_float<T>(out[e]);
+      }
+    }
+  }
+
+  // the block's row of the workspace: its warps' partials in warp order
+  __syncthreads();
+  float* mine = a.ws + static_cast<size_t>(blockIdx.x) * 2 * d;
+  for (int c = threadIdx.x; c < 2 * d; c += blockDim.x) {
+    float v = part[c];
+#pragma unroll
+    for (int w = 1; w < kBwdWarps; ++w)
+      v = __fadd_rn(v, part[static_cast<size_t>(w) * 2 * d + c]);
+    mine[c] = v;
+  }
+
+  // the group's last block sums its rows in block order; the last group's
+  // sums its groups' rows in group order into dgamma and dbeta
+  const int groups = (a.blocks + kBwdGroup - 1) / kBwdGroup;
+  const int group = blockIdx.x / kBwdGroup, g0 = group * kBwdGroup;
+  const int in_group = min(kBwdGroup, a.blocks - g0);
+  if (!last_to_finish(a.tickets + group, in_group)) return;
+  float* gsum = a.ws + (static_cast<size_t>(a.blocks) + group) * 2 * d;
+  sum_rows(a, a.ws + static_cast<size_t>(g0) * 2 * d, in_group, gsum,
+           groups == 1);
+  if (groups == 1 || !last_to_finish(a.tickets + groups, groups)) return;
+  sum_rows(a, a.ws + static_cast<size_t>(a.blocks) * 2 * d, groups, nullptr,
+           true);
+}
+
+template <typename T, int kV>
+int bwd_onepass_launch(const BwdArgs& a, cudaStream_t st) {
+  // the warps' partials; above 48 KB with the opt-in, set once
+  constexpr int kMaxSmem = kBwdWarps * 2 * rows::kWarpRowMaxD * 4;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ln_bwd_onepass_kernel<T, kV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t smem = static_cast<size_t>(kBwdWarps) * 2 * a.d * 4;
+  ln_bwd_onepass_kernel<T, kV><<<a.blocks, 32 * kBwdWarps, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_onepass(const BwdArgs& a, cudaStream_t st) {
+  // vectors a lane: the smallest instantiated count covering the row (at
+  // most 8 float32 or 4 bf16 vectors for d <= 1024)
+  constexpr int kE = kBwdVecBytes / sizeof(T);
+  const int v = (a.d + 32 * kE - 1) / (32 * kE);
+  if (v <= 1) return bwd_onepass_launch<T, 1>(a, st);
+  if (v <= 2) return bwd_onepass_launch<T, 2>(a, st);
+  if (v <= 3) return bwd_onepass_launch<T, 3>(a, st);
+  if (v <= 4) return bwd_onepass_launch<T, 4>(a, st);
+  if constexpr (kE == 4) {
+    if (v <= 6) return bwd_onepass_launch<T, 6>(a, st);
+    return bwd_onepass_launch<T, 8>(a, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int kCols>
 void fwd_warp(const void* x, const float* g, const float* b, void* y,
               float* mu, float* rstd, int n, int d, float eps,
@@ -222,8 +559,40 @@ int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dg/db: (ceil(n / rows_per_block), d) float32 partials. rows_per_block * 16
-// bytes of shared memory must fit the default 48 KB.
+// The one-pass backward, d <= 1024: dgamma/dbeta (d,) float32 sums; ws
+// (blocks + ceil(blocks / kBwdGroup), 2, d) float32 scratch; tickets
+// (ceil(blocks / kBwdGroup) + 1,) int32 zeros (each launch leaves them
+// zero). Block b owns rows [b rows_per_block, ...), so blocks =
+// ceil(n / rows_per_block). Vector loads when x, dy, dx and gamma start
+// on 16 bytes and a row is a multiple of 16 bytes.
+int layer_norm_bwd_onepass_launch(int dtype, const void* x,
+                                  const float* gamma, const float* mu,
+                                  const float* rstd, const void* dy, void* dx,
+                                  float* dgamma, float* dbeta, float* ws,
+                                  int* tickets, int n, int d,
+                                  int rows_per_block, int blocks,
+                                  void* stream) {
+  if (n == 0) return 0;
+  if (d < 1 || d > rows::kWarpRowMaxD || rows_per_block < 1 || blocks < 1 ||
+      (long long)(blocks - 1) * rows_per_block >= n ||
+      (long long)blocks * rows_per_block < n || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int esz = dtype == 0 ? 4 : 2;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % kBwdVecBytes == 0;
+  };
+  const int vec = aligned(x) && aligned(dy) && aligned(dx) &&
+                  aligned(gamma) && (d * esz) % kBwdVecBytes == 0;
+  const BwdArgs a{x, gamma, mu, rstd, dy, dx, dgamma, dbeta, ws, tickets,
+                  n, d, rows_per_block, blocks, vec};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? bwd_onepass<float>(a, st)
+                    : bwd_onepass<__nv_bfloat16>(a, st);
+}
+
+// The two-pass backward: dg/db (ceil(n / rows_per_block), d) float32
+// partials. rows_per_block * 16 bytes of shared memory must fit the default
+// 48 KB.
 int layer_norm_bwd_launch(int dtype, const void* x, const float* gamma,
                           const float* mu, const float* rstd, const void* dy,
                           void* dx, float* dg, float* db, int n, int d,

@@ -1,11 +1,14 @@
 // Fused LSTM cell kernels on Hopper (sm_90a), float32 or bfloat16.
 //
 // Replaces the Pallas TPU kernels of incubator_mxnet_tpu/ops/pallas/lstm.py:
-//   lstm_fwd_tc_kernel<.., false> (W_hh bf16) \  <-  _run_fwd(with_gates=False)
-//   lstm_fwd_kernel<.., false> (W_hh float32) /      h', c'
-//   lstm_fwd_tc_kernel<.., true>              \  <-  _run_fwd(with_gates=True)
-//   lstm_fwd_kernel<.., true>                 /      h', c', gates
-//   lstm_bwd_kernel<..>         <-  _run_bwd                    dxp, dh, dc
+//   lstm_fwd_tc_kernel<.., false, PW>  <-  _run_fwd(with_gates=False)
+//                                           h', c'
+//   lstm_fwd_tc_kernel<.., true, PW>   <-  _run_fwd(with_gates=True)
+//                                           h', c', gates
+//       (PW 1: W_hh bf16; PW 3: W_hh float32 in three bf16 pieces;
+//       lstm_fwd_kernel, the FMA forward, is the yardstick behind the
+//       wrappers' private _route="simt")
+//   lstm_bwd_kernel<..>         <-  _run_bwd, W_hh in float32   dxp, dh, dc
 //   lstm_bwd_dz_kernel<..>   \  <-  _run_bwd, W_hh in bf16      dxp, dc, dz
 //   lstm_bwd_tc_kernel<..>   /                                  dh
 //
@@ -22,18 +25,22 @@
 // activations and the cell update in float32; h' and c' rounded to the
 // carries' own type (bf16 carries stay bf16); the residual and dxp in
 // float32; dh and dc rounded to the cotangents' type. The recurrent
-// products multiply float32 operands as float32 does. With a bf16 W_hh
-// they run on the tensor cores (mma.sync m16n8k16, float32 accumulators;
-// W is bf16 and so exact): a float32 operand (h, or dz) is split exactly
-// into three bf16 pieces, hi + mid + lo (three 8-bit significands cover
-// float32's 24, and bf16 has float32's exponent range), and multiplied
-// piece by piece; a bf16 h is one piece. Each 32-deep stage's products go
-// into a fresh accumulator that one rounded float32 add joins to the
-// block's: the tensor cores' adds lose precision over long chains (at
-// H 650 a single accumulator read as far from the exact product as a split
-// that drops lo). With a float32 W_hh the products are float32 FMAs (no
-// TF32). Elementwise float32 steps use the _rn intrinsics so that no
-// multiply-add is contracted and the order matches the plain PyTorch twin.
+// products multiply float32 operands as float32 does. They run on the
+// tensor cores (mma.sync m16n8k16, float32 accumulators) for a bf16 W_hh
+// both ways and for a float32 W_hh forward: a float32 operand (h, dz or a
+// float32 W) is split exactly into three bf16 pieces, hi + mid + lo (three
+// 8-bit significands cover float32's 24, and bf16 has float32's exponent
+// range), and multiplied piece by piece; a bf16 operand is one piece. With
+// both operands in three pieces a stage runs the six products whose
+// pieces' orders sum to at most two (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi,
+// mid.mid); the three dropped ones lie below float32's rounding. Each
+// 32-deep stage's products go into a fresh accumulator that one rounded
+// float32 add joins to the block's: the tensor cores' adds lose precision
+// over long chains (at H 650 a single accumulator read as far from the
+// exact product as a split that drops lo). The backward with a float32
+// W_hh runs float32 FMAs (no TF32). Elementwise float32 steps use the _rn
+// intrinsics so that no multiply-add is contracted and the order matches
+// the plain PyTorch twin.
 //
 // What bounds it on an H100: at the word LM's shape (N 128, H 650; bf16
 // xp, W and b, float32 carries) a forward step moves 5.4 MB (6.7 MB with
@@ -44,7 +51,7 @@
 // block's chain of dependent stages and how evenly the blocks fill the 132
 // SMs. W does not fit an SM's shared memory as the TPU keeps it in VMEM,
 // so the output is tiled:
-//   * forward with a bf16 W (lstm_fwd_tc_kernel): a block owns 32 batch
+//   * forward (lstm_fwd_tc_kernel, PW 1 for a bf16 W): a block owns 32 batch
 //     rows x 16 hidden columns with all four gates of them (a 32 x 64
 //     product tile) and half of the reduction over m. The two halves'
 //     blocks form a cluster: each puts its float32 partial in shared
@@ -53,7 +60,7 @@
 //     and runs the whole gate epilogue on them, so only h', c' (and the
 //     residual) reach device memory. The lane runs 41 x 4 x 2 = 328
 //     blocks, each a chain of 10-11 stages, in one wave (at most five
-//     blocks of 88-90 registers and 38.5 KB to an SM).
+//     blocks of 88-90 registers and 37.5 KB to an SM with a bf16 W).
 //     The other splits ran slower at the lane on an H100: one block per
 //     tile over all of m (164 blocks of 21 stages), and quarters of m in
 //     clusters of four (656 blocks of 5-6 stages, of whose 164 clusters
@@ -70,9 +77,14 @@
 //     is zero-filled. The kernel runs far from both bounds: its time grows
 //     with the work from a floor of a few us, and what limits it within a
 //     block is not measured (no hardware-counter profile was taken).
-//   * forward with a float32 W (lstm_fwd_kernel): a block owns 32 rows x
-//     16 columns x 4 gates over all of m in float32 FMAs; 4 x 41 = 164
-//     blocks at the lane.
+//   * forward with a float32 W (PW 3): the same kernel on W's (3, 4, Hk,
+//     Hm) copy of hi, mid and lo pieces, which the caller splits once per
+//     sequence; the ring holds the three W pieces' tiles beside h's, 67.5
+//     KB a block (dynamic shared memory), so at most three blocks an SM
+//     and the lane's 328 still one wave; six products a stage. The FMA
+//     forward (lstm_fwd_kernel: 32 rows x 16 columns x 4 gates a block
+//     over all of m in float32 FMAs, 164 blocks at the lane) is kept as
+//     the yardstick.
 //   * backward: dh = dz @ W (K = 4H), a block owning 32 rows x 64 columns
 //     of dh. dz is formed ON LOAD: each reduction step takes 8 hidden
 //     columns j and all four gates of them, computes the four dz of each
@@ -191,8 +203,8 @@ __device__ __forceinline__ void fwd_epilogue(const FwdArgs& p, int n, int j,
   }
 }
 
-// The forward with a float32 W (any W type works; the route sends only a
-// float32 one here): the block's 32 x 16 x 4 products in float32 FMAs over
+// The FMA forward (any W type; the yardstick behind the wrappers' private
+// _route="simt"): the block's 32 x 16 x 4 products in float32 FMAs over
 // all of m, then the gate epilogue on its own tile.
 template <typename Tin, typename Tw, typename Ts, bool kGates>
 __global__ void __launch_bounds__(kFThreads) lstm_fwd_kernel(FwdArgs p) {
@@ -575,21 +587,28 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
 }
 
+// The forward's shared memory: a kFTStages ring of h's P pieces' and W's
+// PW pieces' stage tiles, bf16 (the block's float32 partial reuses it)
+__host__ __device__ constexpr int fwd_tc_smem_bytes(int P, int PW) {
+  return kFTStages * (P * kFTM + PW * 4 * kFTJ) * kFTLd * 2;
+}
+
 // z[n0 .., the four gates of j0 ..] (32 x 4 x 16) = h W_k^T over this
 // block's share of the stages of m; block z = its rank in the cluster of
-// kFTSplit. h is P bf16 pieces (three for a float32 h, one for a bf16 h),
-// each stage's products go into a fresh accumulator, the partials meet in
-// shared memory, and rank r sums its 32 / kFTSplit rows of them in rank
-// order and runs their gate epilogue.
-template <typename Tin, typename Ts, bool kGates>
+// kFTSplit. h is P bf16 pieces (three for a float32 h, one for a bf16 h)
+// and W is PW (three for a float32 W, one for a bf16 W); each stage's
+// products go into a fresh accumulator, the partials meet in shared
+// memory, and rank r sums its 32 / kFTSplit rows of them in rank order and
+// runs their gate epilogue.
+template <typename Tin, typename Ts, bool kGates, int PW>
 __global__ void __cluster_dims__(1, 1, kFTSplit) __launch_bounds__(kFTThreads)
 lstm_fwd_tc_kernel(FwdArgs p) {
   constexpr int P = std::is_same<Ts, float>::value ? 3 : 1;
   constexpr int kA = kFTM * kFTLd;                  // a piece's stage tile
-  constexpr int kB = 4 * kFTJ * kFTLd;              // W's stage tile
-  __shared__ __align__(16) __nv_bfloat16 smem[kFTStages * (P * kA + kB)];
+  constexpr int kB = 4 * kFTJ * kFTLd;              // a W piece's stage tile
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* As = smem;                         // [stage][piece][kA]
-  __nv_bfloat16* Bs = smem + kFTStages * P * kA;    // [stage][kB]
+  __nv_bfloat16* Bs = smem + kFTStages * P * kA;    // [stage][piece][kB]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = blockIdx.z;
   const int j0 = blockIdx.x * kFTJ, n0 = blockIdx.y * kFTM;
@@ -624,19 +643,21 @@ lstm_fwd_tc_kernel(FwdArgs p) {
           make_uint4(pack2(pc[0][q], pc[1][q]), pack2(pc[2][q], pc[3][q]),
                      pack2(pc[4][q], pc[5][q]), pack2(pc[6][q], pc[7][q]));
   };
-  // stage kb's asynchronous copies of W's 64 x 32 tile, 16 bytes each
-  // (row 16 k + jj is gate k's column j0 + jj; columns m >= Hm read 0)
+  // stage kb's asynchronous copies of W's pieces' 64 x 32 tiles, 16 bytes
+  // each (row 16 k + jj is gate k's column j0 + jj; columns m >= Hm read 0)
   auto issue = [&](int kb, int s) {
     const int m0 = kb * kFTK;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = tid + q * kFTThreads;
-      const int row = i >> 2, ch = (i & 3) * 8, m = m0 + ch;
-      cp_async16(Bs + s * kB + row * kFTLd + ch,
-                 w + (static_cast<size_t>(row / kFTJ) * Hk + j0 + row % kFTJ)
-                         * Hm + (m < Hm ? m : 0),
-                 m < Hm ? 16 : 0);
-    }
+    for (int r = 0; r < PW; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = tid + q * kFTThreads;
+        const int row = i >> 2, ch = (i & 3) * 8, m = m0 + ch;
+        cp_async16(Bs + (s * PW + r) * kB + row * kFTLd + ch,
+                   w + ((static_cast<size_t>(r) * 4 + row / kFTJ) * Hk + j0 +
+                        row % kFTJ) * Hm + (m < Hm ? m : 0),
+                   m < Hm ? 16 : 0);
+      }
     cp_async_commit();
   };
 
@@ -673,7 +694,7 @@ lstm_fwd_tc_kernel(FwdArgs p) {
       for (int q = 0; q < 4; ++q) part[t][q] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kFTK / 16; ++ks) {
-      uint32_t a[P][4], b[4][2];
+      uint32_t a[P][4], b[PW][4][2];
 #pragma unroll
       for (int q = 0; q < P; ++q)
         ldsm_x4<false>(a[q], As + (s * P + q) * kA +
@@ -681,21 +702,33 @@ lstm_fwd_tc_kernel(FwdArgs p) {
                                  (lane >> 4) * 8);
       // W rows are columns of the product, m along each: no .trans
 #pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        uint32_t r[4];
-        ldsm_x4<false>(r, Bs + s * kB +
-                              ((2 * wc + g) * kFTJ + (lane & 7) +
-                               ((lane >> 4) << 3)) * kFTLd +
-                              16 * ks + ((lane >> 3) & 1) * 8);
-        b[2 * g][0] = r[0];
-        b[2 * g][1] = r[1];
-        b[2 * g + 1][0] = r[2];
-        b[2 * g + 1][1] = r[3];
-      }
+      for (int pr = 0; pr < PW; ++pr)
 #pragma unroll
-      for (int q = P - 1; q >= 0; --q)       // lo, mid, then hi
+        for (int g = 0; g < 2; ++g) {
+          uint32_t r[4];
+          ldsm_x4<false>(r, Bs + (s * PW + pr) * kB +
+                                ((2 * wc + g) * kFTJ + (lane & 7) +
+                                 ((lane >> 4) << 3)) * kFTLd +
+                                16 * ks + ((lane >> 3) & 1) * 8);
+          b[pr][2 * g][0] = r[0];
+          b[pr][2 * g][1] = r[1];
+          b[pr][2 * g + 1][0] = r[2];
+          b[pr][2 * g + 1][1] = r[3];
+        }
+      // h piece q times W piece r for q + r <= 2, smallest first: with
+      // three pieces each hi.lo, mid.mid, lo.hi, then hi.mid, mid.hi, then
+      // hi.hi (mid.lo, lo.mid and lo.lo, below float32's rounding, are
+      // dropped); with one W piece lo, mid, then hi
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(part[nt], a[q], b[nt]);
+      for (int sum = 2; sum >= 0; --sum)
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const int r = sum - q;
+          if (r >= 0 && r < PW)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_bf16(part[nt], a[q], b[r][nt]);
+        }
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t)
@@ -762,31 +795,50 @@ int fwd_dispatch_w(int w_dtype, int state_dtype, const FwdArgs& a,
              : fwd_dispatch<Tin, float>(state_dtype, a, gates, st);
 }
 
-template <typename Tin, typename Ts, bool kGates>
+template <typename Tin, typename Ts, bool kGates, int PW>
 int fwd_tc_launch(const FwdArgs& a, cudaStream_t st) {
-  // five blocks of 38.5 KB to an SM: ask for all of its shared memory (a
-  // hint, set once)
-  static const cudaError_t carveout = cudaFuncSetAttribute(
-      lstm_fwd_tc_kernel<Tin, Ts, kGates>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (carveout != cudaSuccess) return static_cast<int>(carveout);
+  constexpr int smem =
+      fwd_tc_smem_bytes(std::is_same<Ts, float>::value ? 3 : 1, PW);
+  // all of the SM's shared memory for blocks (a hint: five blocks of 37.5
+  // KB, or three of 67.5 KB with a float32 W's three pieces), and the
+  // opt-in above 48 KB; set once
+  static const cudaError_t attrs = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        lstm_fwd_tc_kernel<Tin, Ts, kGates, PW>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          lstm_fwd_tc_kernel<Tin, Ts, kGates, PW>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          fwd_tc_smem_bytes(std::is_same<Ts, float>::value ? 3 : 1, PW));
+    return e;
+  }();
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
   const dim3 grid((a.H + kFTJ - 1) / kFTJ, (a.N + kFTM - 1) / kFTM, kFTSplit);
-  lstm_fwd_tc_kernel<Tin, Ts, kGates><<<grid, kFTThreads, 0, st>>>(a);
+  lstm_fwd_tc_kernel<Tin, Ts, kGates, PW><<<grid, kFTThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin, typename Ts>
+template <typename Tin, typename Ts, int PW>
 int fwd_tc_dispatch(const FwdArgs& a, bool gates, cudaStream_t st) {
-  return gates ? fwd_tc_launch<Tin, Ts, true>(a, st)
-               : fwd_tc_launch<Tin, Ts, false>(a, st);
+  return gates ? fwd_tc_launch<Tin, Ts, true, PW>(a, st)
+               : fwd_tc_launch<Tin, Ts, false, PW>(a, st);
+}
+
+template <typename Tin, int PW>
+int fwd_tc_dispatch_s(int state_dtype, const FwdArgs& a, bool gates,
+                      cudaStream_t st) {
+  return state_dtype == 1
+             ? fwd_tc_dispatch<Tin, __nv_bfloat16, PW>(a, gates, st)
+             : fwd_tc_dispatch<Tin, float, PW>(a, gates, st);
 }
 
 template <typename Tin>
-int fwd_tc_dispatch_s(int state_dtype, const FwdArgs& a, bool gates,
-                      cudaStream_t st) {
-  return state_dtype == 1 ? fwd_tc_dispatch<Tin, __nv_bfloat16>(a, gates, st)
-                          : fwd_tc_dispatch<Tin, float>(a, gates, st);
+int fwd_tc_dispatch_w(int w_pieces, int state_dtype, const FwdArgs& a,
+                      bool gates, cudaStream_t st) {
+  return w_pieces == 3 ? fwd_tc_dispatch_s<Tin, 3>(state_dtype, a, gates, st)
+                       : fwd_tc_dispatch_s<Tin, 1>(state_dtype, a, gates, st);
 }
 
 template <typename Tw, typename Ts>
@@ -831,22 +883,25 @@ int lstm_fwd_launch(int in_dtype, int w_dtype, int state_dtype,
              : fwd_dispatch_w<float>(w_dtype, state_dtype, a, g, st);
 }
 
-// The tensor-core forward with a bf16 W: wp the (4, Hk, Hm) bf16 copy of W
-// (wp[k, j, m] = W[k H + j, m], zero past H; Hk a multiple of 32 and Hm of
-// 8, both at least H); in_dtype and state_dtype as above.
-int lstm_fwd_sm90_launch(int in_dtype, int state_dtype, const void* xp,
-                         const void* h, const void* c, const void* wp,
-                         const void* b, void* h1, void* c1, float* gates,
-                         int N, int H, int Hk, int Hm, void* stream) {
+// The tensor-core forward: wp W's (w_pieces, 4, Hk, Hm) bf16 copy
+// (wp[r, k, j, m] = piece r of W[k H + j, m], zero past H; Hk a multiple
+// of 32 and Hm of 8, both at least H): one piece for a bf16 W, hi + mid +
+// lo for a float32 W; in_dtype and state_dtype as above.
+int lstm_fwd_sm90_launch(int in_dtype, int state_dtype, int w_pieces,
+                         const void* xp, const void* h, const void* c,
+                         const void* wp, const void* b, void* h1, void* c1,
+                         float* gates, int N, int H, int Hk, int Hm,
+                         void* stream) {
   if (N < 1 || H < 1 || Hk < H || Hk % kTK || Hm < H || Hm % 8 ||
-      (N + kFTM - 1) / kFTM > 65535)
+      (N + kFTM - 1) / kFTM > 65535 || (w_pieces != 1 && w_pieces != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const FwdArgs a{xp, h, c, wp, b, h1, c1, gates, N, H, Hk, Hm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = gates != nullptr;
   return in_dtype == 1
-             ? fwd_tc_dispatch_s<__nv_bfloat16>(state_dtype, a, g, st)
-             : fwd_tc_dispatch_s<float>(state_dtype, a, g, st);
+             ? fwd_tc_dispatch_w<__nv_bfloat16>(w_pieces, state_dtype, a, g,
+                                                st)
+             : fwd_tc_dispatch_w<float>(w_pieces, state_dtype, a, g, st);
 }
 
 // w_dtype is W's; state_dtype is c's, c1's, dh1's, dc1's, dh's and dc's;

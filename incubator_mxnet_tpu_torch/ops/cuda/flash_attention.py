@@ -73,7 +73,7 @@ import torch
 
 from .common import (NEG_INF, check_launch, counted_kernel,
                      current_stream_handle, kernel_library, launch_counts,
-                     pick_block, reset_launch_counts)
+                     pick_block, reset_launch_counts, ticket_buffer)
 
 __all__ = ["mha_reference", "flash_forward_reference",
            "flash_backward_reference", "flash_fwd", "flash_bwd_dq",
@@ -239,23 +239,6 @@ def decode_split_plan(cells: int, page_len: int, n_pages: int, d: int,
     return rows, tps, n_split, smem
 
 
-_TICKETS = {}
-
-
-def _tickets(q, cells: int, stream: int):
-    """The combine's tickets, (cells,) int32 zeros, one buffer per device
-    and stream (each launch leaves it zero again). A CUDA graph keeps the
-    buffer of the stream it was captured on, so two replays of such graphs
-    must not overlap."""
-    key = (q.device.index, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < cells:
-        t = torch.zeros(max(cells, 1024), dtype=torch.int32,
-                        device=q.device)
-        _TICKETS[key] = t
-    return t
-
-
 def _decode_split(kern, name: str, q, k, v, lens, bt, page_len: int,
                   n_pages: int, n_pool: int, scale: float):
     """Launch the split route on checked operands; returns the output."""
@@ -270,7 +253,8 @@ def _decode_split(kern, name: str, q, k, v, lens, bt, page_len: int,
     ws = (torch.empty(cells * n_split * (d + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)
     stream = current_stream_handle(q)
-    tickets = _tickets(q, cells, stream) if n_split > 1 else None
+    tickets = (ticket_buffer("decode", q, stream, cells)
+               if n_split > 1 else None)
     code = kernel_library().mxt_decode_split(
         int(bt is not None), _DTYPE_CODE[q.dtype], q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), lens.data_ptr(),

@@ -5,7 +5,12 @@ Counterpart of ``incubator_mxnet_tpu/ops/pallas/layer_norm.py``:
 
 * ``layer_norm_reference`` / ``layer_norm_backward_reference`` — plain
   twins of the kernels ``layer_norm_fwd`` (y, mu, rstd) and
-  ``layer_norm_bwd`` (dx and float32 column partials of dy * xn and dy);
+  ``layer_norm_bwd`` (dx, dgamma, dbeta);
+* ``layer_norm_bwd_route`` — the backward's route by row width: rows of
+  at most 1024 take the one-pass kernel (x and dy read once, dgamma and
+  dbeta finished inside the launch, counted in ``sm90_launches`` beside
+  ``launches``); wider rows the two-pass kernel, whose column partials the
+  wrapper sums;
 * ``layer_norm`` — the op over any leading shape, differentiable through a
   ``torch.autograd.Function`` that saves (x, gamma, mu, rstd), as the
   reference's custom VJP does; shapes the reference computes inline
@@ -23,14 +28,55 @@ from __future__ import annotations
 import torch
 
 from .common import (check_launch, counted_kernel, current_stream_handle,
-                     kernel_library, pick_row_block)
+                     kernel_library, pick_row_block, sm_count, ticket_buffer)
 
 __all__ = ["layer_norm_reference", "layer_norm_backward_reference",
            "layer_norm_fwd", "layer_norm_bwd", "layer_norm",
-           "layer_norm_viable"]
+           "layer_norm_viable", "layer_norm_bwd_route",
+           "layer_norm_bwd_plan", "layer_norm_bwd_blocks_per_sm"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BWD_MAX_ROWS = 3072        # rows a backward block stats in shared memory
+_BWD_MAX_ROWS = 3072        # rows a two-pass block stats in shared memory
+# the one-pass backward (layer_norm.cu kBwd*, rows.cuh kWarpRowMaxD)
+ONEPASS_MAX_D = 1024        # a row in one warp's registers
+BWD_WARPS = 8               # warps of a block
+BWD_GROUP = 16              # blocks whose partials one block sums
+BWD_VEC_BYTES = 16          # a lane's vector load
+# a row's values a lane holds, at most, for two bf16 blocks an SM
+BWD_TWO_BLOCK_VALUES = 24
+H100_SMS = 132              # the twin's SM count on the CPU
+
+
+def layer_norm_bwd_route(d: int) -> str:
+    """"onepass" for rows of at most 1024 (one warp a row, x and dy read
+    once, dgamma and dbeta summed inside the launch), "twopass" for wider
+    rows (a block's rows read twice, column partials summed after)."""
+    return "onepass" if d <= ONEPASS_MAX_D else "twopass"
+
+
+def layer_norm_bwd_blocks_per_sm(d: int, itemsize: int) -> int:
+    """Blocks an SM the one-pass grid is sized for, the minimum that the
+    kernel's launch bound asks registers for (layer_norm.cu
+    bwd_blocks_per_sm): two for bf16 rows (half the bytes a row, so twice
+    the rows in flight) while a lane holds at most
+    ``BWD_TWO_BLOCK_VALUES`` values of a row (d <= 768), else one."""
+    per_vec = BWD_VEC_BYTES // itemsize
+    values = -(-d // (32 * per_vec)) * per_vec
+    return 2 if itemsize == 2 and values <= BWD_TWO_BLOCK_VALUES else 1
+
+
+def layer_norm_bwd_plan(n: int, d: int, itemsize: int,
+                        sms: int = H100_SMS) -> tuple[int, int, int]:
+    """The one-pass kernel's grid over n rows of d ``itemsize``-byte values
+    on a card of ``sms`` SMs: (rows a block, blocks, groups). Blocks walk
+    runs of consecutive rows; a group of ``BWD_GROUP`` blocks has its
+    partials summed by its last block, the groups' sums by the last
+    group's."""
+    blocks = min(-(-n // BWD_WARPS),
+                 layer_norm_bwd_blocks_per_sm(d, itemsize) * sms)
+    rows = -(-n // blocks)
+    blocks = -(-n // rows)
+    return rows, blocks, -(-blocks // BWD_GROUP)
 
 
 def layer_norm_reference(x2, gamma, beta, eps: float = 1e-5):
@@ -44,17 +90,55 @@ def layer_norm_reference(x2, gamma, beta, eps: float = 1e-5):
     return y.to(x2.dtype), mu, rstd
 
 
+def _sum_in_order(t):
+    """t[0] + t[1] + ... along the first axis, one rounded add at a time."""
+    total = t[0]
+    for i in range(1, t.shape[0]):
+        total = total + t[i]
+    return total
+
+
+def _onepass_column_sums(v, plan):
+    """The one-pass kernel's column sums of v (n, d) float32: each warp's
+    rows in order (block b's rows b R .. b R + R - 1, warp w taking rows
+    w, w + BWD_WARPS, ...), its warps in order, the blocks of each group in
+    order, then the groups in order. Zero rows pad the ragged runs (adding
+    0 changes no sum)."""
+    rows, blocks, groups = plan
+    n, d = v.shape
+    per_warp = -(-rows // BWD_WARPS)
+    flat = v.new_zeros((blocks * rows, d))
+    flat[:n] = v
+    t = v.new_zeros((blocks, per_warp * BWD_WARPS, d))
+    t[:, :rows] = flat.view(blocks, rows, d)
+    warps = _sum_in_order(t.view(blocks, per_warp, BWD_WARPS, d)
+                          .transpose(0, 1))           # (blocks, warps, d)
+    block_rows = _sum_in_order(warps.transpose(0, 1))  # (blocks, d)
+    padded = v.new_zeros((groups * BWD_GROUP, d))
+    padded[:blocks] = block_rows
+    group_rows = _sum_in_order(padded.view(groups, BWD_GROUP, d)
+                               .transpose(0, 1))       # (groups, d)
+    return _sum_in_order(group_rows)
+
+
 def layer_norm_backward_reference(x2, gamma, mu, rstd, dy):
     """Plain twin of :func:`layer_norm_bwd`. Returns (dx in x2's type,
-    column sums of dy * xn and of dy as (1, d) float32 partials)."""
+    dgamma, dbeta (d,) float32). On the one-pass route the column sums
+    are taken in the kernel's order for x2's card (an H100's 132 SMs on
+    the CPU)."""
     xf, dyf = x2.float(), dy.float()
     xn = (xf - mu) * rstd
     dxn = dyf * gamma.float()
     m1 = dxn.mean(dim=1, keepdim=True)
     m2 = (dxn * xn).mean(dim=1, keepdim=True)
     dx = (rstd * (dxn - m1 - xn * m2)).to(x2.dtype)
-    return dx, (dyf * xn).sum(dim=0, keepdim=True), \
-        dyf.sum(dim=0, keepdim=True)
+    n, d = x2.shape
+    if layer_norm_bwd_route(d) == "twopass" or n == 0:
+        return dx, (dyf * xn).sum(dim=0), dyf.sum(dim=0)
+    sms = sm_count(x2.device) if x2.is_cuda else H100_SMS
+    plan = layer_norm_bwd_plan(n, d, x2.element_size(), sms)
+    return (dx, _onepass_column_sums(dyf * xn, plan),
+            _onepass_column_sums(dyf, plan))
 
 
 def _check_rows(name: str, x2, *others):
@@ -109,30 +193,17 @@ def layer_norm_fwd(x2, gamma, beta, eps: float = 1e-5):
 
 
 def _bwd_rows_per_block(n: int, device) -> int:
-    """Rows a backward block owns: about four blocks per SM, so the
+    """Rows a two-pass block owns: about four blocks per SM, so the
     (blocks, d) partials stay a small fraction of x."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return min(_BWD_MAX_ROWS, max(8, -(-n // (4 * sms))))
+    return min(_BWD_MAX_ROWS, max(8, -(-n // (4 * sm_count(device)))))
 
 
-@counted_kernel
-def layer_norm_bwd(x2, gamma, mu, rstd, dy):
-    """CUDA layer-norm backward (replaces the Pallas ``_ln_bwd``). Returns
-    (dx like x2, dgamma and dbeta partials, each (blocks, d) float32; their
-    column sums are dgamma and dbeta)."""
-    _check_rows("layer_norm_bwd", x2, gamma, mu, rstd, dy)
+def _bwd_twopass(x2, g, mu, rstd, dy, dx):
+    """The two-pass kernel, then the sums of its column partials."""
     n, d = x2.shape
-    if dy.shape != x2.shape or dy.dtype != x2.dtype \
-            or not dy.is_contiguous():
-        raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
-                         "does not match x")
-    g = _vec_f32("layer_norm_bwd", gamma, d)
-    mu = _stats_f32("layer_norm_bwd", mu, n)
-    rstd = _stats_f32("layer_norm_bwd", rstd, n)
     rows = _bwd_rows_per_block(n, x2.device)
-    blocks = -(-n // rows)
-    dx = torch.empty_like(x2)
-    dg = torch.empty((blocks, d), dtype=torch.float32, device=x2.device)
+    dg = torch.empty((-(-n // rows), d), dtype=torch.float32,
+                     device=x2.device)
     db = torch.empty_like(dg)
     code = kernel_library().mxt_layer_norm_bwd(
         x2.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
@@ -140,14 +211,60 @@ def layer_norm_bwd(x2, gamma, mu, rstd, dy):
         rows, _DTYPE_CODE[x2.dtype], current_stream_handle(x2))
     check_launch(code, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
-    return dx, dg, db
+    return dx, dg.sum(dim=0), db.sum(dim=0)
+
+
+def _bwd_onepass(x2, g, mu, rstd, dy, dx):
+    """The one-pass kernel: dx, dgamma and dbeta in one launch."""
+    n, d = x2.shape
+    rows, blocks, groups = layer_norm_bwd_plan(n, d, x2.element_size(),
+                                               sm_count(x2.device))
+    dg = torch.empty((2, d), dtype=torch.float32, device=x2.device)
+    ws = torch.empty(((blocks + groups) * 2 * d,), dtype=torch.float32,
+                     device=x2.device)
+    stream = current_stream_handle(x2)
+    tickets = ticket_buffer("layer_norm_bwd", x2, stream, groups + 1)
+    code = kernel_library().mxt_layer_norm_bwd_onepass(
+        x2.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), dg[0].data_ptr(), dg[1].data_ptr(),
+        ws.data_ptr(), tickets.data_ptr(), n, d, rows, blocks,
+        _DTYPE_CODE[x2.dtype], stream)
+    check_launch(code, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    layer_norm_bwd.sm90_launches += 1
+    return dx, dg[0], dg[1]
+
+
+@counted_kernel
+def layer_norm_bwd(x2, gamma, mu, rstd, dy, _route=None):
+    """CUDA layer-norm backward (replaces the Pallas ``_ln_bwd``). Returns
+    (dx like x2, dgamma, dbeta (d,) float32). The route is
+    :func:`layer_norm_bwd_route`'s; ``_route="twopass"`` forces the
+    two-pass kernel at any width."""
+    _check_rows("layer_norm_bwd", x2, gamma, mu, rstd, dy)
+    n, d = x2.shape
+    if dy.shape != x2.shape or dy.dtype != x2.dtype \
+            or not dy.is_contiguous():
+        raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                         "does not match x")
+    if _route not in (None, "twopass"):
+        raise ValueError(f"layer_norm_bwd: _route {_route!r}")
+    g = _vec_f32("layer_norm_bwd", gamma, d)
+    mu = _stats_f32("layer_norm_bwd", mu, n)
+    rstd = _stats_f32("layer_norm_bwd", rstd, n)
+    dx = torch.empty_like(x2)
+    if n == 0 or d == 0:
+        zeros = torch.zeros(d, dtype=torch.float32, device=x2.device)
+        return dx, zeros, zeros.clone()
+    route = _route or layer_norm_bwd_route(d)
+    run = _bwd_onepass if route == "onepass" else _bwd_twopass
+    return run(x2, g, mu, rstd, dy, dx)
 
 
 class _LayerNorm(torch.autograd.Function):
     """The reference's ``_layer_norm`` custom VJP: the forward saves (x,
-    gamma, mu, rstd); the backward sums the column partials and casts them
-    to gamma's type (``_ln_bwd`` :114-115; autograd then casts dbeta to
-    beta's type)."""
+    gamma, mu, rstd); the backward casts dgamma and dbeta to gamma's type
+    (``_ln_bwd`` :114-115; autograd then casts dbeta to beta's type)."""
 
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps):
@@ -161,8 +278,7 @@ class _LayerNorm(torch.autograd.Function):
         x2, gamma, mu, rstd = ctx.saved_tensors
         bwd = layer_norm_bwd if x2.is_cuda else layer_norm_backward_reference
         dx, dg, db = bwd(x2, gamma, mu, rstd, dy.contiguous())
-        return (dx, dg.sum(dim=0).to(gamma.dtype),
-                db.sum(dim=0).to(gamma.dtype), None)
+        return dx, dg.to(gamma.dtype), db.to(gamma.dtype), None
 
 
 def layer_norm_viable(n_rows: int, d: int) -> bool:

@@ -9,18 +9,18 @@ Counterpart of ``incubator_mxnet_tpu/ops/pallas/lstm.py``:
   float32 post-activation gates residual, ``lstm_fwd`` writes none (the
   reference's ``_run_fwd`` with and without ``with_gates``). The two are
   counted apart, so a run shows its training and its inference launches.
-  Their route (:func:`lstm_fwd_route`) is chosen by W's type: a bf16 W
-  takes the tensor-core kernel (a float32 h split exactly into three bf16
-  pieces, so the product stays float32's; counted in ``sm90_launches``
-  beside ``launches``), which reads W only as the zero-padded copy
-  :func:`lstm_tc_weight` makes, passed as ``w_packed``; a float32 W takes
-  the FMA kernel;
+  Both take the tensor-core kernel (:func:`lstm_fwd_route`; counted in
+  ``sm90_launches`` beside ``launches``): a float32 h is split exactly
+  into three bf16 pieces, and so is a float32 W, so the product stays
+  float32's. It reads W only as the zero-padded copy :func:`lstm_tc_weight`
+  makes (a bf16 W's values, or a float32 W's three pieces), passed as
+  ``w_packed``; ``_route="simt"`` forces the FMA kernel, the yardstick;
 * ``lstm_bwd`` / ``lstm_bwd_reference`` — the step's backward: from
   (gates, c, c', W, dh', dc') the four dz, dxp = dz in float32,
   dh = dz @ W and dc = dct f (the reference's ``_run_bwd``). Its route
-  (:func:`lstm_bwd_route`) is chosen the same way: a bf16 W takes the
+  (:func:`lstm_bwd_route`) is chosen by W's type: a bf16 W takes the
   tensor-core kernels (dz split into three bf16 pieces), reading the same
-  copy of W; a float32 W the SIMT kernel;
+  copy of W as the forward; a float32 W the SIMT kernel, reading W;
 * ``lstm_scan`` — the whole sequence as one ``torch.autograd.Function``
   (the reference's scan-level custom VJP ``_lstm_scan_fused``): the forward
   makes W's copy once, checks the sequence's tensors once and launches the
@@ -165,41 +165,64 @@ def _launch(kern, sm90, fn, args):
 
 
 def lstm_fwd_route(w) -> str:
-    """"sm90" when :func:`lstm_fwd` and :func:`lstm_fwd_gates` take the
-    tensor-core kernel (W_hh in bf16, with either carry type and either
-    operand type), else "simt" (a float32 W_hh, the FMA kernel)."""
-    return "sm90" if w.dtype == torch.bfloat16 else "simt"
+    """"sm90": :func:`lstm_fwd` and :func:`lstm_fwd_gates` take the
+    tensor-core kernel with W_hh in bf16 or float32, either carry type and
+    either operand type (the FMA kernel only when ``_route="simt"`` forces
+    it)."""
+    return "sm90"
 
 
 def lstm_bwd_route(w) -> str:
     """"sm90" when :func:`lstm_bwd` takes the tensor-core kernels (W_hh in
-    bf16, with either carry type), else "simt" (a float32 W_hh): the
-    forward's rule, so that one copy of W serves both."""
-    return lstm_fwd_route(w)
+    bf16, with either carry type), else "simt" (a float32 W_hh)."""
+    return "sm90" if w.dtype == torch.bfloat16 else "simt"
 
 
 def lstm_tc_plan(h: int) -> tuple[int, int]:
     """The tensor-core kernels' padded sizes at hidden size ``h``: (hk, hm),
-    W's copy being (4, hk, hm) and the dz pieces' scratch (3, N, 4, hk)."""
+    W's copy being (4, hk, hm) a piece and the dz pieces' scratch (3, N, 4,
+    hk)."""
     return -(-h // TC_TK) * TC_TK, -(-h // 8) * 8
+
+
+def _bf16_pieces(v):
+    """A float32 tensor as its three bf16 pieces hi, mid, lo, stacked:
+    hi + mid + lo == v exactly (each residual is exact in float32, and lo
+    holds what is left)."""
+    hi = v.to(torch.bfloat16)
+    r1 = v - hi.float()
+    mid = r1.to(torch.bfloat16)
+    return torch.stack([hi, mid, (r1 - mid.float()).to(torch.bfloat16)])
 
 
 def lstm_tc_weight(w):
     """W_hh (4H, H) as the tensor-core kernels read it: (4, Hk, Hm) with
-    [k, j, m] = W[k H + j, m] and zeros past H, every row 16-byte aligned
-    (16-byte ``cp.async``). The forward reduces along m, the backward along
-    j. A copy of W, made once per sequence (once a step by the cell)."""
+    [k, j, m] = W[k H + j, m] for a bf16 W, and (3, 4, Hk, Hm) bf16 with
+    W's hi, mid and lo pieces for a float32 W (only the forward reads
+    that); zeros past H, every row 16-byte aligned (16-byte
+    ``cp.async``). The forward reduces along m, the backward along j. A
+    copy of W, made once per sequence (once a step by the cell)."""
     hid = w.shape[1]
+    w4 = w.reshape(4, hid, hid)
+    if w.dtype == torch.float32:
+        wp = w.new_zeros((3, 4, *lstm_tc_plan(hid)), dtype=torch.bfloat16)
+        wp[:, :, :hid, :hid] = _bf16_pieces(w4)
+        return wp
     wp = w.new_zeros((4, *lstm_tc_plan(hid)))
-    wp[:, :hid, :hid] = w.reshape(4, hid, hid)
+    wp[:, :hid, :hid] = w4
     return wp
 
 
 def _tc_weight(w):
-    """W's copy for the kernels when they take the tensor-core routes, else
-    None."""
-    return (lstm_tc_weight(w) if w.is_cuda and lstm_fwd_route(w) == "sm90"
-            else None)
+    """W's copy for the forward kernel on the card, else None (a CPU W:
+    the twins read W itself)."""
+    return lstm_tc_weight(w) if w.is_cuda else None
+
+
+def _bwd_weight(w, wp):
+    """What the backward reads of W's copy: the same copy on its
+    tensor-core route (a bf16 W), none on the SIMT route."""
+    return wp if lstm_bwd_route(w) == "sm90" else None
 
 
 def _fwd_entry(sm90, dt, wdt, st, n, hid, wp, stream):
@@ -207,26 +230,30 @@ def _fwd_entry(sm90, dt, wdt, st, n, hid, wp, stream):
     tensor pointers (xp, h, c, W or its copy, b, h', c', gates)."""
     lib = kernel_library()
     if sm90:
-        hk, hm = wp.shape[1:]
-        return (lib.mxt_lstm_fwd_sm90, (_DTYPE_CODE[dt], _DTYPE_CODE[st]),
+        hk, hm = wp.shape[-2:]
+        pieces = 3 if wp.dim() == 4 else 1
+        return (lib.mxt_lstm_fwd_sm90,
+                (_DTYPE_CODE[dt], _DTYPE_CODE[st], pieces),
                 (n, hid, hk, hm, stream))
     return (lib.mxt_lstm_fwd,
             (_DTYPE_CODE[dt], _DTYPE_CODE[wdt], _DTYPE_CODE[st]),
             (n, hid, stream))
 
 
-def _check_route(name, ref, w, hid, w_packed, route):
-    """Is the call on the tensor-core route (W's type decides, unless
-    ``route`` forces "simt")? Checks ``w_packed`` there."""
+def _check_route(name, ref, w, hid, w_packed, route, rule):
+    """Is the call on the tensor-core route (``rule``, the wrapper's route
+    function, decides by W's type, unless ``route`` forces "simt")?
+    Checks ``w_packed`` there: the copy :func:`lstm_tc_weight` makes of
+    W."""
     if route not in (None, "simt"):
         raise ValueError(f"{name}: _route {route!r}")
-    sm90 = (route or lstm_fwd_route(w)) == "sm90"
+    sm90 = (route or rule(w)) == "sm90"
     if sm90:
         if w_packed is None:
-            raise ValueError(f"{name}: a bf16 W takes the tensor-core "
-                             "route, which reads W's copy: pass "
-                             "w_packed=lstm_tc_weight(w)")
-        _check(name, ref, (w_packed, (4, *lstm_tc_plan(hid)),
+            raise ValueError(f"{name}: the tensor-core route reads W's "
+                             "copy: pass w_packed=lstm_tc_weight(w)")
+        pieces = (3,) if w.dtype == torch.float32 else ()
+        _check(name, ref, (w_packed, (*pieces, 4, *lstm_tc_plan(hid)),
                            torch.bfloat16))
     return sm90
 
@@ -238,7 +265,7 @@ def _launch_fwd(kern, with_gates, xp, h, c, w, b, out, w_packed, route):
     _check(name, h, (xp, (n, 4 * hid), dt), (h, (n, hid), st),
            (c, (n, hid), st), (w, (4 * hid, hid), w.dtype),
            (b, (4 * hid,), dt))
-    sm90 = _check_route(name, h, w, hid, w_packed, route)
+    sm90 = _check_route(name, h, w, hid, w_packed, route, lstm_fwd_route)
     if out is None:
         out = (torch.empty_like(h), torch.empty_like(c),
                torch.empty((n, 4 * hid), dtype=torch.float32,
@@ -294,7 +321,8 @@ def lstm_bwd(gates, c, c1, w, dh1, dc1, out=None, w_packed=None,
            (c, (n, hid), st), (c1, (n, hid), st),
            (w, (4 * hid, hid), w.dtype), (dh1, (n, hid), st),
            (dc1, (n, hid), st))
-    sm90 = _check_route("lstm_bwd", c, w, hid, w_packed, _route)
+    sm90 = _check_route("lstm_bwd", c, w, hid, w_packed, _route,
+                        lstm_bwd_route)
     dxp = out if out is not None else torch.empty(
         (n, 4 * hid), dtype=torch.float32, device=c.device)
     _check("lstm_bwd", c, (dxp, (n, 4 * hid), torch.float32))
@@ -400,7 +428,7 @@ def _kernel_steps(x_proj, h0, c0, w, b, wp, outs, order):
            (c0, (N, H), st), (w, (4 * H, H), w.dtype), (b, (4 * H,), dt),
            (ys, (T, N, H), st), (c1s, (T, N, H), st),
            *([] if gs is None else [(gs, (T, N, 4 * H), torch.float32)]))
-    sm90 = _check_route(name, h0, w, H, wp, None)
+    sm90 = _check_route(name, h0, w, H, wp, None, lstm_fwd_route)
     fn, head, tail = _fwd_entry(sm90, dt, w.dtype, st, N, H, wp,
                                 current_stream_handle(h0))
     xs, ss, gz = (N * 4 * H * x_proj.element_size(),
@@ -439,17 +467,18 @@ def _scan_forward(x_proj, h0, c0, w, b, reverse, with_gates, wp=None):
 class _LSTMScan(torch.autograd.Function):
     """The reference's ``_lstm_scan_fwd`` / ``_lstm_scan_bwd``, given the
     caller's operands: the forward widens xp and b (``_scan_forward``) and
-    makes W's copy once for both loops; the backward multiplies by W_hh as
+    makes W's copy once for both loops (a float32 W's pieces for the
+    forward only: its backward reads W); the backward multiplies by W_hh as
     the caller passed it, so a bf16 W_hh under float32 operands takes the
     tensor-core routes both ways."""
 
     @staticmethod
     def forward(ctx, x_proj, h0, c0, w, b, reverse):
-        wp = _tc_weight(w)                  # once for the 2 T steps
+        wp = _tc_weight(w)                  # once for the T steps
         ys, c1s, gs = _scan_forward(x_proj, h0, c0, w, b, reverse, True, wp)
         ctx.reverse = reverse
         ctx.b_dtype = b.dtype
-        ctx.save_for_backward(ys, c1s, gs, h0, c0, w, wp)
+        ctx.save_for_backward(ys, c1s, gs, h0, c0, w, _bwd_weight(w, wp))
         last = 0 if reverse else ys.shape[0] - 1
         return ys, ys[last].clone(), c1s[last].clone()
 
@@ -514,7 +543,7 @@ class _LSTMCell(torch.autograd.Function):
         h, c = h.contiguous(), c.contiguous()
         wp = _tc_weight(w)                  # once for the step both ways
         h1, c1, gates = _step_fwd(xp, h, c, w, b, True, w_packed=wp)
-        ctx.save_for_backward(gates, c, c1, h, w, wp)
+        ctx.save_for_backward(gates, c, c1, h, w, _bwd_weight(w, wp))
         ctx.b_dtype = b4.dtype
         return h1, c1
 

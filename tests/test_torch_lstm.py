@@ -227,13 +227,15 @@ def test_backward_route_is_chosen_by_the_weight_type():
 
 
 def test_forward_route_is_chosen_by_the_weight_type():
-    """A bf16 W_hh takes the tensor-core forward with either carry type and
-    either x_proj type (the route reads W's type only); a float32 W_hh the
-    FMA kernel."""
+    """Every W_hh type takes the tensor-core forward, with either carry
+    type and either x_proj type: a bf16 W as one piece, a float32 W as
+    three; the backward keeps the SIMT kernel for a float32 W, so its rule
+    no longer follows the forward's."""
     for types in TYPES:
         _, _, _, w, _ = _step_inputs(7, types, 8, 16)
-        want = "sm90" if TYPES[types][1] == "bfloat16" else "simt"
-        assert tl.lstm_fwd_route(w[0]) == want
+        assert tl.lstm_fwd_route(w[0]) == "sm90"
+        assert tl.lstm_bwd_route(w[0]) == (
+            "sm90" if TYPES[types][1] == "bfloat16" else "simt")
     # the word LM's lane, both layers: a bf16 W_hh
     assert tl.lstm_fwd_route(torch.empty((2600, 650), dtype=torch.bfloat16,
                                          device="meta")) == "sm90"
@@ -289,10 +291,12 @@ def test_tensor_core_forward_plan_mirrors_the_kernel_source():
     all four gates (four warps, 16 rows x 2 gates each), a cluster of two
     blocks splitting the stages of m, a three-stage ring of h's three pieces
     and W's 64-row tile in static shared memory (within 48 KB, the float32
-    partial aliased on it), the epilogue's (n, j) dealt to the threads. At
-    the lane (N 128, H 650) it runs 328 blocks, one wave on the H100's 132
-    SMs at five blocks an SM, every block a chain of 10 or 11 of the 21
-    stages; W's copy holds every row a column tile reads."""
+    partial aliased on it), the epilogue's (n, j) dealt to the threads; a
+    float32 W's three pieces in the ring too (67.5 KB of dynamic shared
+    memory, three blocks an SM). At the lane (N 128, H 650) it runs 328
+    blocks, one wave on the H100's 132 SMs at five blocks an SM (three
+    with a float32 W), every block a chain of 10 or 11 of the 21 stages;
+    W's copy holds every row a column tile reads."""
     src, consts = _lstm_cu()
     tm, tj, tk, split, stages, threads = (consts[k] for k in (
         "kFTM", "kFTJ", "kFTK", "kFTSplit", "kFTStages", "kFTThreads"))
@@ -301,18 +305,23 @@ def test_tensor_core_forward_plan_mirrors_the_kernel_source():
     assert "__cluster_dims__(1, 1, kFTSplit)" in src
     assert ("grid((a.H + kFTJ - 1) / kFTJ, (a.N + kFTM - 1) / kFTM, "
             "kFTSplit)" in src)
-    assert "smem[kFTStages * (P * kA + kB)]" in src
+    assert ("return kFTStages * (P * kFTM + PW * 4 * kFTJ) * kFTLd * 2;"
+            in src)
+    assert "extern __shared__ __align__(16) __nv_bfloat16 smem[];" in src
     assert tm % split == 0
     ld = tk + 8
-    for pieces in (3, 1):
+    for pieces in (3, 1):             # h's pieces, a bf16 W: static limit
         smem = stages * (pieces * tm * ld + 4 * tj * ld) * 2
         assert tm * 4 * tj * 4 <= smem <= 48 * 1024
+    # a float32 W's three pieces: 67.5 KB a block, three blocks an SM
+    smem = stages * (3 * tm * ld + 3 * 4 * tj * ld) * 2
+    assert smem == 69120 and 227 * 1024 // smem == 3
     n, h = 128, 650
     hk, hm = tl.lstm_tc_plan(h)
     grid = (-(-h // tj), -(-n // tm), split)
     assert grid == (41, 4, 2)
     blocks = grid[0] * grid[1] * grid[2]
-    assert 2 * 132 < blocks <= 5 * 132
+    assert 2 * 132 < blocks <= 3 * 132
     nk = -(-hm // tk)
     chains = [(r + 1) * nk // split - r * nk // split for r in range(split)]
     assert nk == 21 and sum(chains) == nk and chains == [10, 11]
@@ -406,32 +415,45 @@ def test_split_product_matches_run_bwd_in_float32(N, H):
 FWD_SPLIT_PRODUCT_TOL = 1e-6
 
 
-def _fwd_split_product(h, wp, H, split, n_split, stage):
+def _fwd_split_product(h, wps, H, split, n_split, stage, pairs=None):
     """The tensor-core forward's product h W_k^T for the four gates, in
     lstm_fwd_tc_kernel's order of float32 sums: h padded to W's copy's
     width and split in bf16 pieces; for each ``stage``-deep stage of m, the
-    pieces times W's padded rows in a fresh float32 partial added to its
-    block's sum; the stages dealt to the cluster's ``n_split`` blocks in
-    order and their sums added in rank order. (Within a stage the tensor
-    cores' own order of adds is not emulated.) Returns (N, 4H) float32 in
-    the packed column order."""
+    products of h's pieces and W's pieces ``wps`` (float32 copies of the
+    padded (4, Hk, Hm) pieces; ``pairs`` the (h piece, W piece) products,
+    default every h piece with W's one) in a fresh float32 partial added
+    to its block's sum; the stages dealt to the cluster's ``n_split``
+    blocks in order and their sums added in rank order. (Within a stage
+    the tensor cores' own order of adds is not emulated.) Returns (N, 4H)
+    float32 in the packed column order."""
     N = h.shape[0]
-    hm = wp.shape[2]
+    hk, hm = wps[0].shape[1:]
     hp = torch.zeros((N, hm))
     hp[:, :H] = h
     pieces = [p.float() for p in split(hp)]
+    if pairs is None:
+        pairs = [(q, 0) for q in range(len(pieces))]
     nk = -(-hm // stage)
     out = []
     for k in range(4):
         total = None
         for r in range(n_split):
-            acc = torch.zeros((N, wp.shape[1]))
+            acc = torch.zeros((N, hk))
             for s in range(r * nk // n_split, (r + 1) * nk // n_split):
                 m = slice(s * stage, (s + 1) * stage)
-                acc = acc + sum(p[:, m] @ wp[k][:, m].t() for p in pieces)
+                acc = acc + sum(pieces[q][:, m] @ wps[w][k][:, m].t()
+                                for q, w in pairs)
             total = acc if total is None else total + acc
         out.append(total[:, :H])
     return torch.cat(out, dim=1)
+
+
+def _fwd_gates(xpf, bf, product, H):
+    """The gates residual from z = (xp + product) + b."""
+    z = (xpf + product) + bf
+    return torch.cat([torch.sigmoid(z[:, :H]), torch.sigmoid(z[:, H:2 * H]),
+                      torch.tanh(z[:, 2 * H:3 * H]),
+                      torch.sigmoid(z[:, 3 * H:])], dim=1)
 
 
 @pytest.mark.parametrize("types,N,H", [("bf16_f32carry", 8, 20),
@@ -451,12 +473,8 @@ def test_split_product_matches_run_fwd_in_float32(types, N, H):
     consts = _lstm_cu()[1]
 
     def gates(split):
-        z = (xpf + _fwd_split_product(h[0], wp, H, split, consts["kFTSplit"],
-                                      consts["kFTK"])) + bf
-        return torch.cat([torch.sigmoid(z[:, :H]),
-                          torch.sigmoid(z[:, H:2 * H]),
-                          torch.tanh(z[:, 2 * H:3 * H]),
-                          torch.sigmoid(z[:, 3 * H:])], dim=1)
+        return _fwd_gates(xpf, bf, _fwd_split_product(
+            h[0], [wp], H, split, consts["kFTSplit"], consts["kFTK"]), H)
     xp4, w4, b4 = _jax_layout(N, H, xp[1], w[1], b[1])
     with jax.default_matmul_precision("highest"):
         _, _, jg = jl._run_fwd(xp4, h[1], c[1], w4, b4, True)
@@ -490,3 +508,95 @@ def test_backward_wrapper_refuses_cpu_tensors_on_either_route(route):
         tl.lstm_bwd(g, c, c, w, h, c, w_packed=tl.lstm_tc_weight(w),
                     _route=route)
     assert (tl.lstm_bwd.launches, tl.lstm_bwd.sm90_launches) == before
+
+
+@pytest.mark.parametrize("H", [16, 20, 211])
+def test_float32_weight_copy_is_three_exact_pieces(H):
+    """A float32 W's copy: (3, 4, Hk, Hm) bf16 pieces whose float32 sum
+    hi + mid + lo is W exactly, zeros past H (for magnitudes above about
+    2^-100: below it lo falls among the denormals and loses bits)."""
+    rs = np.random.RandomState(H)
+    w = torch.from_numpy(np.concatenate([
+        rs.randn(2 * H, H) * H ** -0.5, rs.randn(H, H) * 1e-20,
+        rs.randn(H, H) * 1e30]).astype(np.float32))
+    wp = tl.lstm_tc_weight(w)
+    assert wp.shape == (3, 4, *tl.lstm_tc_plan(H))
+    assert wp.dtype == torch.bfloat16
+    hi, mid, lo = (p.float() for p in wp)
+    assert torch.equal(((hi + mid) + lo)[:, :H, :H], w.reshape(4, H, H))
+    assert not wp[:, :, H:].any() and not wp[:, :, :, H:].any()
+    for p, q in zip(wp, _split3(w.reshape(4, H, H))):
+        assert torch.equal(p[:, :H, :H], q)
+
+
+# the six products of three h pieces and three W pieces whose orders sum
+# to at most two, as lstm_fwd_tc_kernel runs them with a float32 W; the
+# control keeps only hi.hi, hi.mid and mid.hi
+SIX_PRODUCTS = [(0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0)]
+THREE_PRODUCTS = [(0, 1), (1, 0), (0, 0)]
+
+
+# the float32-W forms of the tensor-core forward: (xp and b type, carry
+# type); a bf16 h is one bf16 piece, so only the products of its piece
+# (hi.lo, hi.mid, hi.hi) run
+F32W_FORMS = {"f32": ("float32", "float32"),
+              "bf16xp": ("bfloat16", "float32"),
+              "bf16carry": ("float32", "bfloat16"),
+              "bf16xp_bf16carry": ("bfloat16", "bfloat16")}
+
+
+def _f32w_inputs(seed, form, N, H):
+    od, sd = F32W_FORMS[form]
+    rnd = _In(seed)
+    xp = rnd(od, N, 4 * H)
+    h, c = rnd(sd, N, H, scale=0.5), rnd(sd, N, H)
+    w = rnd("float32", 4 * H, H, scale=H ** -0.5)
+    b = rnd(od, 4 * H, scale=0.1)
+    return xp, h, c, w, b
+
+
+@pytest.mark.parametrize("form", list(F32W_FORMS))
+@pytest.mark.parametrize("N,H", [(8, 20), (16, 211)])
+def test_six_product_forward_matches_run_fwd_with_a_float32_weight(N, H,
+                                                                   form):
+    """The tensor-core forward's arithmetic with a float32 W in plain
+    PyTorch (W in three bf16 pieces, h in three with float32 carries and
+    in one with bf16 carries, the products of piece orders summing to at
+    most two (six, or three of a bf16 h) a 32-deep stage into a fresh
+    float32 partial, the cluster's sums in rank order, then z = (xp +
+    product) + b) against the Pallas ``_run_fwd`` with a float32 W, in
+    every float32-W form of xp's and the carries' types: the gates
+    residual within ``FWD_SPLIT_PRODUCT_TOL``; the control without W's lo
+    piece's products (hi.hi, hi.mid, mid.hi) reads above that limit."""
+    xp, h, c, w, b = _f32w_inputs(13, form, N, H)
+    wps = [p.float() for p in tl.lstm_tc_weight(w[0])]
+    consts = _lstm_cu()[1]
+    if h[0].dtype == torch.float32:
+        split, n_h = _split3, 3
+    else:
+        split, n_h = (lambda v: [v.to(torch.bfloat16)]), 1
+
+    def gates(pairs):
+        return _fwd_gates(xp[0].float(), b[0].float(), _fwd_split_product(
+            h[0].float(), wps, H, split, consts["kFTSplit"], consts["kFTK"],
+            [(q, r) for q, r in pairs if q < n_h]), H)
+    xp4, w4, b4 = _jax_layout(N, H, xp[1], w[1], b[1])
+    with jax.default_matmul_precision("highest"):
+        _, _, jg = jl._run_fwd(xp4, h[1], c[1], w4, b4, True)
+    jg = np.asarray(jg, np.float64)
+
+    def err(g):
+        return np.max(np.abs(_gates4(g, N, H).double().numpy() - jg))
+    assert err(gates(SIX_PRODUCTS)) <= FWD_SPLIT_PRODUCT_TOL
+    assert err(gates(THREE_PRODUCTS)) > FWD_SPLIT_PRODUCT_TOL
+
+
+def test_scan_hands_the_backward_the_plain_weight():
+    """With a float32 W the scan's forward reads W's three pieces and its
+    backward W itself (the SIMT route): it saves no copy for the backward;
+    with a bf16 W both read the one copy."""
+    for dt in (torch.float32, torch.bfloat16):
+        w = torch.randn(64, 16).to(dt)
+        wp = tl.lstm_tc_weight(w)
+        assert wp.dim() == (4 if dt == torch.float32 else 3)
+        assert (tl._bwd_weight(w, wp) is None) == (dt == torch.float32)

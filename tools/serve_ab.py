@@ -7,14 +7,13 @@ The serving lane is host-bound and spreads widely from one machine to the
 next, so a change is compared with its parent only inside one call, on one
 card. Each checkout's phase runs in a process of its own from that
 checkout's root (which builds its own kernels), in the order A, B, ...
-and then reversed (..., B, A). Prints one JSON line per run (tok/s, TTFT
-and ITL p50, the decode breakdown) and the card's name and power limit;
-exits 1 if a run fails.
+and then reversed (..., B, A), by ``ab_runner.run_in_turns``. Prints one
+JSON line per run (tok/s, TTFT and ITL p50, the decode breakdown) and the
+card's name and power limit; exits 1 if a run fails.
 """
-import json
-import subprocess
 import sys
-from pathlib import Path
+
+from ab_runner import run_in_turns
 
 CHILD = r'''
 import inspect, json
@@ -33,25 +32,7 @@ print("RESULT " + json.dumps(cs.serving_phase(*args)), flush=True)
 
 
 def main(dirs) -> int:
-    if not dirs:
-        print(__doc__, file=sys.stderr)
-        return 2
-    for d in dirs + dirs[::-1]:
-        run = subprocess.run([sys.executable, "-c", CHILD], cwd=d,
-                             capture_output=True, text=True, timeout=900)
-        lines = [ln for ln in run.stdout.splitlines()
-                 if ln.startswith("RESULT ")]
-        if run.returncode or not lines:
-            print(f"{d}: exit {run.returncode}\n{run.stderr[-4000:]}",
-                  file=sys.stderr)
-            return 1
-        result = json.loads(lines[-1][len("RESULT "):])
-        print(json.dumps({"checkout": str(Path(d)), **result}), flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60)
-    print(card.stdout.strip())
-    return 0
+    return run_in_turns(CHILD, dirs, __doc__, mirror=True)
 
 
 if __name__ == "__main__":

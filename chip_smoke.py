@@ -193,22 +193,28 @@ Phases:
    which must launch the same kernels and give the same loss (a float32
    W_hh: every forward on the tensor-core route, every backward SIMT);
 20. the detection kernels (``multibox_match``, ``nms_keep``) against their
-   twins on the card: the matcher over N 20, 61, 5630 x M 1, 8, 32, 100 x
-   B 1, 32 at thresholds 0.5 and 0.7 (all-padding and one-object rows,
-   zero-area and duplicate anchors, repeated label boxes), plus anchors
-   and label state beyond shared memory; NMS over k 8, 100, 400, 1024,
-   5630 x B 1, 32 with force_suppress on and off (duplicate boxes, padding
-   rows). anchor_gt, anchor_iou and keep exact, loc_t within rtol 1e-6;
-   then times at the lane's shapes (match (32, 5630, 1) and (32, 5630,
-   32), NMS (32, 400) and (32, 5630)) beside the twin's and the bound (no
-   single PyTorch call computes either);
+   twins on the card, on both routes (the cluster kernels, and the first
+   design behind ``_route="simple"``): the matcher over N 20, 61, 5630 x
+   M 1, 8, 32, 100 x B 1, 32 at thresholds 0.5 and 0.7 (all-padding and
+   one-object rows, zero-area and duplicate anchors, repeated label
+   boxes), plus N 20000, label state beyond shared memory (M 17500) and
+   one block an image (B 80); NMS over k 8, 100, 400, 1024, 5630 x B 1,
+   32 with force_suppress on and off (duplicate boxes, padding rows) and
+   the eval point's leading 400 rows of wider rows. anchor_gt, anchor_iou
+   and keep exact, loc_t within rtol 1e-6; the cluster kernels as built
+   (registers, stack, local bytes, REDUX count; none with local bytes);
+   then both routes' device, graph and event ms and host µs in turns at
+   match (32, 5630, 1), (32, 5630, 32), (4, 5630, 1) and NMS (32, 400),
+   (32, 5630), beside the twin's and the bound (no single PyTorch call
+   computes either);
 21. SSD-512 at bench.py's lane: 2 warm-up and 5 timed steps; finite,
-   falling loss; exactly one ``multibox_match`` launch per step and no
-   other kernel of the port (the SSD walks the backbone's children, so
-   the fused ResNet stages are not on this lane); img/s, peak memory and
-   a profiled window of two steps; then the eval point, one ``nms_keep``
-   launch, with the target assignment and the detection each timed beside
-   its twin; then a ``Trainer`` + ``record()`` step at batch 4;
+   falling loss; exactly one ``multibox_match`` launch per step, every one
+   on the cluster route, and no other kernel of the port (the SSD walks
+   the backbone's children, so the fused ResNet stages are not on this
+   lane); img/s, peak memory and a profiled window of two steps; then the
+   eval point, one ``nms_keep`` launch on the cluster route, with the
+   target assignment and the detection each timed beside its twin; then
+   a ``Trainer`` + ``record()`` step at batch 4 (one cluster launch);
 22. at the same width in float32, batch 8, cuDNN deterministic: the
    targets and the detections from the kernels equal the twins' exactly,
    and so do one step's loss and gradients (tolerance 0);
@@ -3572,102 +3578,194 @@ def _nms_case(rs, B, k):
     return tuple(torch.from_numpy(a).cuda() for a in (boxes, ids, valid))
 
 
-def _match_errs(kd, anc, lab, thr):
-    """Kernel against twin on the card: anchor_gt and anchor_iou must be
-    equal, loc_t within rtol 1e-6 (logf is not correctly rounded). Returns
-    loc_t's largest relative and absolute errors."""
-    out = kd.multibox_match(anc, lab, thr, DET_VAR)
+def _match_errs(kd, anc, lab, thr, route=None):
+    """Kernel (on ``route``) against twin on the card: anchor_gt and
+    anchor_iou must be equal, loc_t within rtol 1e-6 (logf is not correctly
+    rounded). Returns loc_t's largest relative and absolute errors."""
+    out = kd.multibox_match(anc, lab, thr, DET_VAR, _route=route)
     ref = kd.multibox_match_reference(anc, lab, thr, DET_VAR)
     torch.cuda.synchronize()
     if not torch.equal(out[0], ref[0]) or not torch.equal(out[1], ref[1]):
         bad = (out[0] != ref[0]).sum().item()
-        raise AssertionError(f"multibox_match {tuple(lab.shape)} N "
-                             f"{anc.shape[0]} thr {thr}: {bad} anchor_gt "
-                             f"and {(out[1] != ref[1]).sum().item()} "
-                             "anchor_iou entries differ from the twin")
+        raise AssertionError(f"multibox_match {route or 'cluster'} "
+                             f"{tuple(lab.shape)} N {anc.shape[0]} thr "
+                             f"{thr}: {bad} anchor_gt and "
+                             f"{(out[1] != ref[1]).sum().item()} anchor_iou "
+                             "entries differ from the twin")
     err = ((out[2] - ref[2]).abs() / ref[2].abs().clamp_min(1e-30))
     err = torch.where(out[2] == ref[2], torch.zeros_like(err), err)
-    return err.max().item(), _max_err(out[2], ref[2])
+    err = err.max().item()
+    if err > 1e-6:
+        raise AssertionError(f"multibox_match {route or 'cluster'} "
+                             f"{tuple(lab.shape)} N {anc.shape[0]} thr "
+                             f"{thr}: loc_t rel err {err}")
+    return err, _max_err(out[2], ref[2])
 
 
-def detection_kernel_checks(kd):
-    """Phase 20: the B9 kernels against their twins on the card. The
-    matcher over N 20, 61 (unaligned), 5630 x M 1, 8, 32, 100 x B 1, 32 at
-    thresholds 0.5 and 0.7, plus anchors beyond shared memory (N 20000) and
-    label state beyond it (M 17500); NMS over k 8, 100, 400, 1024, 5630 x
-    B 1, 32, force_suppress on and off. anchor_gt, anchor_iou and keep
-    exact, loc_t within rtol 1e-6. Then the lane's shapes with times beside
+def _nms_equal(kd, boxes, ids, valid, force, route=None):
+    out = kd.nms_keep(boxes, ids, valid, 0.45, force, _route=route)
+    ref = kd.nms_keep_reference(boxes, ids, valid, 0.45, force)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"nms_keep {route or 'cluster'} "
+                             f"{tuple(ids.shape)} force {force}: "
+                             f"{(out != ref).sum().item()} keep entries "
+                             "differ")
+
+
+def _det_kernel_name(mangled):
+    """``match_cluster_kernel<1>`` (slice kept) or ``nms_cluster_kernel<2>``
+    (the mode) from a mangled name, or None for another kernel of
+    detection.cu."""
+    m = re.search(r"(match_cluster_kernel|nms_cluster_kernel)IL[bi](\d)EE",
+                  mangled)
+    return None if m is None else f"{m.group(1)}<{m.group(2)}>"
+
+
+def det_sass_check(common):
+    """The cluster kernels of detection.cu as built (both matcher and all
+    three NMS instantiations), each with warp reductions (REDUX: the
+    matcher's picks, NMS's propagation) and no local bytes."""
+    kernels = _sass_kernels(common, "detection*.o", _det_kernel_name,
+                            "REDUX")
+    if len(kernels) != 5:
+        raise AssertionError(f"expected 5 cluster kernels, found "
+                             f"{sorted(kernels)}")
+    return kernels
+
+
+def detection_kernel_checks(kd, common):
+    """Phase 20: the B9 kernels against their twins on the card, on both
+    routes (the cluster kernels and the first design, ``_route="simple"``).
+    The matcher over N 20, 61 (unaligned), 5630 x M 1, 8, 32, 100 x B 1, 32
+    at thresholds 0.5 and 0.7, plus N 20000, label state beyond shared
+    memory (M 17500) and a batch of one block an image (B 80); NMS over
+    k 8, 100, 400, 1024, 5630 x B 1, 32,
+    force_suppress on and off, and the eval point's form (the leading 400
+    rows of wider rows, read in place). anchor_gt, anchor_iou and keep
+    exact, loc_t within rtol 1e-6. Then the cluster kernels as built and
+    both routes' times at the timed shapes (``detection_timings``) beside
     the twin's and the bound (no single PyTorch call computes either)."""
     rs = np.random.RandomState(SEED + 20)
     worst, n_match = 0.0, 0
     cases = [(B, N, M) for N in (20, 61, SSD_ANCHORS) for M in (1, 8, 32, 100)
-             for B in (1, 32)] + [(2, 20000, 4), (2, 20, 17500)]
+             for B in (1, 32)] + [(2, 20000, 4), (2, 20, 17500), (80, 61, 8)]
+    sms = common.sm_count("cuda")
+    plans = set()
     for B, N, M in cases:
         anc, lab = _match_case(rs, B, N, M)
+        plans.add(kd.match_plan(B, N, M, sms)[::2])
         for thr in (0.5, 0.7):
-            err, _ = _match_errs(kd, anc, lab, thr)
-            if err > 1e-6:
-                raise AssertionError(f"multibox_match B {B} N {N} M {M} thr "
-                                     f"{thr}: loc_t rel err {err}")
-            worst = max(worst, err)
-            n_match += 1
-    log(f"multibox_match sweep: {n_match} cases, anchor_gt and anchor_iou "
+            for route in DET_ROUTES.values():
+                worst = max(worst, _match_errs(kd, anc, lab, thr, route)[0])
+                n_match += 1
+    log(f"multibox_match sweep: {n_match} cases on both routes (cluster "
+        f"plans (split, mode) {sorted(plans)}), anchor_gt and anchor_iou "
         f"equal to the twin's, loc_t worst rel err {worst:.3g} (1e-6)")
-    n_nms = 0
+    n_nms, plans = 0, set()
     for k in (8, 100, 400, 1024, SSD_ANCHORS):
         for B in (1, 32):
             boxes, ids, valid = _nms_case(rs, B, k)
+            plans.add(kd.nms_plan(B, k, sms)[::2])
             for force in (False, True):
-                out = kd.nms_keep(boxes, ids, valid, 0.45, force)
-                ref = kd.nms_keep_reference(boxes, ids, valid, 0.45, force)
-                torch.cuda.synchronize()
-                if not torch.equal(out, ref):
-                    raise AssertionError(
-                        f"nms_keep B {B} k {k} force {force}: "
-                        f"{(out != ref).sum().item()} keep entries differ")
-                n_nms += 1
-    log(f"nms_keep sweep: {n_nms} cases, keep equal to the twin's")
-    timings, records = {}, {}
-    for B, N, M in ((32, SSD_ANCHORS, 1), (32, SSD_ANCHORS, 32)):
-        anc, lab = _match_case(rs, B, N, M)
-        _, err = _match_errs(kd, anc, lab, 0.5)
-        ms = time_ms(lambda: kd.multibox_match(anc, lab, 0.5, DET_VAR),
-                     iters=20)
-        plain_ms = time_ms(lambda: kd.multibox_match_reference(
-            anc, lab, 0.5, DET_VAR), iters=3, warmup=1)
-        moved = N * 16 + B * M * 20 + B * N * (4 + 4 + 16)
-        flops = B * (M * N * IOU_FLOPS + N * ENCODE_FLOPS)
-        rec = _det_record("multibox_match", err, ms, plain_ms, moved, flops)
-        timings[f"multibox_match B {B} N {N} M {M}"] = rec
-        records.setdefault("multibox_match", rec)
-    for B, k in ((32, 400), (32, SSD_ANCHORS)):
-        boxes, ids, valid = _nms_case(rs, B, k)
-        ms = time_ms(lambda: kd.nms_keep(boxes, ids, valid, 0.45, False),
-                     iters=20)
-        plain_ms = time_ms(lambda: kd.nms_keep_reference(
-            boxes, ids, valid, 0.45, False), iters=2, warmup=1)
-        moved = B * k * (16 + 4 + 1 + 1)
-        flops = B * k * (k - 1) // 2 * IOU_FLOPS
-        rec = _det_record("nms_keep", 0.0, ms, plain_ms, moved, flops)
-        timings[f"nms_keep B {B} k {k}"] = rec
-        records.setdefault("nms_keep", rec)
-        torch.cuda.empty_cache()
-    for name, rec in timings.items():
-        log(f"time {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-            f"ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
-            "library: none")
-    return records, timings
-
-
-def _det_record(name, err, ms, plain_ms, moved, flops):
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    return {"name": name, "route": "cuda", "source": DET_SOURCE,
+                for route in DET_ROUTES.values():
+                    _nms_equal(kd, boxes, ids, valid, force, route)
+                    n_nms += 1
+    boxes, ids, valid = _nms_case(rs, 32, SSD_ANCHORS)
+    _nms_equal(kd, boxes[:, :400], ids[:, :400], valid[:, :400], False)
+    log(f"nms_keep sweep: {n_nms} cases on both routes (cluster plans "
+        f"(split, mode) {sorted(plans)}) and the eval point's strided "
+        "rows, keep equal to the twin's")
+    sass = det_sass_check(common)
+    timings = detection_timings(kd)
+    records = {}
+    for name, label in (("multibox_match", f"multibox_match "
+                         f"{DET_MATCH_TIMED[0]}"),
+                        ("nms_keep", f"nms_keep {DET_NMS_TIMED[0]}")):
+        t = timings[label]
+        new = t["routes"]["new"]
+        err = 0.0
+        if name == "multibox_match":
+            anc, lab = _match_case(rs, *DET_MATCH_TIMED[0])
+            err = _match_errs(kd, anc, lab, 0.5)[1]
+        records[name] = {
+            "name": name, "route": "cuda", "source": DET_SOURCE,
             "replaces": DET_REPLACES[name], "launches": 0,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": err, "ms": new["event_ms"],
+            "device_ms": new["device_ms"], "graph_ms": new["graph_ms"],
+            "host_us": new["host_us"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None}
+    return records, {"sass": sass, **timings}
+
+
+# the timed shapes: the SSD lane's matcher (batch 32, bench.py's one object
+# an image), the same at up to 32 labels an image (real detection data
+# carries tens), the Gluon step's batch 4; NMS at the eval point (top 400)
+# and over every anchor
+DET_MATCH_TIMED = ((32, SSD_ANCHORS, 1), (32, SSD_ANCHORS, 32),
+                   (4, SSD_ANCHORS, 1))
+DET_NMS_TIMED = ((32, 400), (32, SSD_ANCHORS))
+# the routes timed in turns: the cluster matcher and one-launch NMS (the
+# route the ops take) and the first design (private ``_route="simple"``)
+DET_ROUTES = {"new": None, "simple": "simple"}
+
+
+def _det_bytes_flops(name, shape):
+    """Bytes a call must move (inputs read once, outputs written once) and
+    its flops: the matcher's (M, N) IoU and N encodings an image; NMS's
+    k (k - 1) / 2 IoUs an image."""
+    if name == "multibox_match":
+        B, N, M = shape
+        return (N * 16 + B * M * 20 + B * N * (4 + 4 + 16),
+                B * (M * N * IOU_FLOPS + N * ENCODE_FLOPS))
+    B, k = shape
+    return B * k * (16 + 4 + 1 + 1), B * k * (k - 1) // 2 * IOU_FLOPS
+
+
+def detection_timings(kd, routes=DET_ROUTES, rounds: int = 2):
+    """Device, graph and event ms and host µs of each route of both B9
+    kernels at the timed shapes (``DET_MATCH_TIMED``, ``DET_NMS_TIMED``),
+    in turns over ``rounds`` rounds (``_in_turns``), beside the twin's
+    event ms and the bound. ``routes`` maps a label to the wrapper's
+    ``_route`` (None: the default route, passed as no argument).
+    Returns {shape label: {"routes": {label: readings}, "plain_ms",
+    "bound_ms", "bound_by"}}."""
+    rs = np.random.RandomState(SEED + 21)
+
+    def kw(route):
+        return {} if route is None else {"_route": route}
+    cases = [("multibox_match", s) for s in DET_MATCH_TIMED] + \
+        [("nms_keep", s) for s in DET_NMS_TIMED]
+    out = {}
+    for name, shape in cases:
+        if name == "multibox_match":
+            anc, lab = _match_case(rs, *shape)
+            calls = {label: (lambda r=r: kd.multibox_match(
+                anc, lab, 0.5, DET_VAR, **kw(r)))
+                for label, r in routes.items()}
+            plain = time_ms(lambda: kd.multibox_match_reference(
+                anc, lab, 0.5, DET_VAR), iters=3, warmup=1)
+        else:
+            boxes, ids, valid = _nms_case(rs, *shape)
+            calls = {label: (lambda r=r: kd.nms_keep(
+                boxes, ids, valid, 0.45, False, **kw(r)))
+                for label, r in routes.items()}
+            plain = time_ms(lambda: kd.nms_keep_reference(
+                boxes, ids, valid, 0.45, False), iters=2, warmup=1)
+        res = _in_turns(calls, getattr(kd, name), rounds)
+        moved, flops = _det_bytes_flops(name, shape)
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        label = f"{name} {shape}"
+        out[label] = {"routes": res, "plain_ms": plain,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations"}
+        log(f"{label}: {_turns_line(res)}; plain {plain:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.5f} ms")
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------- the SSD-512 lane
@@ -3738,11 +3836,12 @@ def ssd_train_phase(mx, kd, common, records, steps=5):
     512 x 512, bf16 compute on float32 masters, SGD momentum 0.9, lr 0.004,
     bench.py's synthetic batch), one update per call: bench.py's unroll 4
     is a lax.scan over updates. 2 warm-up and 5 timed steps: finite,
-    falling loss, exactly one multibox_match launch per step and no other
-    kernel of the port; a profiled window of two steps; then the eval
-    point (multibox_detection at nms_topk 400 on the step's heads: one
-    nms_keep launch) and the target assignment, each beside its twin; then
-    one Gluon Trainer + record() step at batch 4 (one multibox_match)."""
+    falling loss, exactly one multibox_match launch per step, every one on
+    the cluster route, and no other kernel of the port; a profiled window
+    of two steps; then the eval point (multibox_detection at nms_topk 400
+    on the step's heads: one nms_keep launch, on the cluster route) and
+    the target assignment, each beside its twin; then one Gluon Trainer +
+    record() step at batch 4 (one multibox_match, on the cluster route)."""
     from incubator_mxnet_tpu_torch.ops.detection import (multibox_detection,
                                                          multibox_target)
     from incubator_mxnet_tpu_torch.parallel.dp import _sgd_init, _sgd_update
@@ -3771,21 +3870,26 @@ def ssd_train_phase(mx, kd, common, records, steps=5):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = common.launch_counts()
+    cluster = common.sm90_launch_counts()["multibox_match"]
     losses = [float(v) for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     img_s = SSD_BATCH * steps / wall
     log(f"SSD-512 train: losses {[round(v, 4) for v in losses]}; {steps} "
         f"timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
-        f"{img_s:.1f} img/s; peak {peak_gb:.2f} GB; launches {launches}")
+        f"{img_s:.1f} img/s; peak {peak_gb:.2f} GB; launches {launches}, "
+        f"{cluster} multibox_match on the cluster route")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"SSD loss not finite and falling: {losses}")
     others = {k: v for k, v in launches.items() if k != "multibox_match"}
-    if launches["multibox_match"] != steps or any(others.values()):
-        raise AssertionError(f"{steps} SSD steps launched {launches}: want "
-                             "one multibox_match a step and nothing else")
+    if launches["multibox_match"] != steps or cluster != steps \
+            or any(others.values()):
+        raise AssertionError(f"{steps} SSD steps launched {launches} "
+                             f"({cluster} on the cluster route): want one "
+                             "multibox_match a step, every one on the "
+                             "cluster route, and nothing else")
     records["multibox_match"]["launches"] = launches["multibox_match"]
     breakdown = kernel_breakdown("SSD-512", lambda: step(params, opt),
-                                 ("multibox_match_kernel",))
+                                 ("match_cluster_kernel",))
     # the eval point and the target assignment on the last step's heads
     cls_f, box_f, anchors = heads
     cls_t = cls_f.transpose(1, 2).contiguous()
@@ -3794,11 +3898,14 @@ def ssd_train_phase(mx, kd, common, records, steps=5):
     det = multibox_detection(cls_prob, box_f, anchors, nms_topk=400)
     torch.cuda.synchronize()
     ev = common.launch_counts()
+    ev_cluster = common.sm90_launch_counts()["nms_keep"]
     log(f"SSD-512 detection: {tuple(det.shape)}, "
-        f"{int((det[..., 0] >= 0).sum())} kept; launches {ev}")
-    if ev["nms_keep"] != 1 or sum(ev.values()) != 1 \
+        f"{int((det[..., 0] >= 0).sum())} kept; launches {ev}, "
+        f"{ev_cluster} nms_keep on the cluster route")
+    if ev["nms_keep"] != 1 or ev_cluster != 1 or sum(ev.values()) != 1 \
             or not bool(torch.isfinite(det).all()):
-        raise AssertionError(f"detection: launches {ev}")
+        raise AssertionError(f"detection: launches {ev}, {ev_cluster} on "
+                             "the cluster route")
     records["nms_keep"]["launches"] = ev["nms_keep"]
 
     def target():
@@ -3823,7 +3930,8 @@ def ssd_train_phase(mx, kd, common, records, steps=5):
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": {
-                "multibox_match": 1}, "detection_launches": ev, **phases,
+                "multibox_match": 1}, "cluster_launches": cluster,
+            "detection_launches": ev, **phases,
             "gluon_step": rec, **breakdown}
 
 
@@ -3847,10 +3955,11 @@ def ssd_gluon_step(mx, common, batch=4):
     trainer.step(batch)
     torch.cuda.synchronize()
     rec = common.launch_counts()
+    cluster = common.sm90_launch_counts()["multibox_match"]
     value = float(loss.asscalar())
     log(f"SSD-512 Trainer + record() step at batch {batch}: loss "
-        f"{value:.6f}; launches {rec}")
-    if rec["multibox_match"] != 1 or sum(rec.values()) != 1 \
+        f"{value:.6f}; launches {rec}, {cluster} on the cluster route")
+    if rec["multibox_match"] != 1 or cluster != 1 or sum(rec.values()) != 1 \
             or not np.isfinite(value):
         raise AssertionError(f"SSD record() step: launches {rec}, loss "
                              f"{value}")
@@ -4502,7 +4611,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     word_lm_truth = word_lm_truth_phase(mx, lt, common)
     torch.cuda.empty_cache()
-    det_records, det_timings = detection_kernel_checks(kd)
+    det_records, det_timings = detection_kernel_checks(kd, common)
     records.update(det_records)
     torch.cuda.empty_cache()
     ssd = ssd_train_phase(mx, kd, common, records)

@@ -75,6 +75,10 @@ _SIGNATURES = {
     "mxt_lstm_bwd_sm90": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,
     "mxt_nms_keep": [_P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P],
+    "mxt_multibox_match_cluster": [_P, _P] + [_I] * 5 + [_F] * 5
+                                  + [_P] * 5,
+    "mxt_nms_keep_cluster": [_P, _P, _P, _L, _L, _L] + [_I] * 4
+                            + [_F, _I, _P, _P, _P],
 }
 
 _lib = None

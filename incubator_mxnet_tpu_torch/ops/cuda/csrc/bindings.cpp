@@ -138,6 +138,17 @@ int nms_keep_launch(const float* boxes, const float* ids,
                     const unsigned char* valid, int B, int k, float thr,
                     int force, int mask_in_smem, unsigned long long* mask,
                     unsigned char* keep, void* stream);
+int multibox_match_cluster_launch(const float* anchors, const float* labels,
+                                  int B, int N, int M, int split, int mode,
+                                  float thr, float v0, float v1, float v2,
+                                  float v3, int* scratch, int* agt,
+                                  float* aiou, float* loc, void* stream);
+int nms_keep_cluster_launch(const float* boxes, const float* ids,
+                            const unsigned char* valid, long long sb,
+                            long long si, long long sv, int B, int k,
+                            int split, int mode, float thr, int force,
+                            unsigned long long* gmask, unsigned char* keep,
+                            void* stream);
 
 extern "C" {
 
@@ -505,6 +516,37 @@ int mxt_nms_keep(const void* boxes, const void* ids, const void* valid,
                          force, mask_in_smem,
                          static_cast<unsigned long long*>(mask),
                          static_cast<unsigned char*>(keep), stream);
+}
+
+// The cluster matcher (detection.cu): as mxt_multibox_match, one image a
+// cluster of `split` blocks; mode 2 keeps the IoU slice in shared memory,
+// 1 recomputes it, 0 keeps the label state in scratch (B split, 10 M)
+// int32.
+int mxt_multibox_match_cluster(const void* anchors, const void* labels,
+                               int B, int N, int M, int split, int mode,
+                               float thr, float v0, float v1, float v2,
+                               float v3, void* scratch, void* agt,
+                               void* aiou, void* loc, void* stream) {
+  return multibox_match_cluster_launch(
+      static_cast<const float*>(anchors), static_cast<const float*>(labels),
+      B, N, M, split, mode, thr, v0, v1, v2, v3, static_cast<int*>(scratch),
+      static_cast<int*>(agt), static_cast<float*>(aiou),
+      static_cast<float*>(loc), stream);
+}
+
+// The cluster NMS (detection.cu): boxes, ids and valid of image b at b
+// times the batch strides sb, si, sv (elements); keep (B, k) bytes; gmask
+// (B, k, ceil(k / 64)) words in modes 0 and 1, else null.
+int mxt_nms_keep_cluster(const void* boxes, const void* ids,
+                         const void* valid, long long sb, long long si,
+                         long long sv, int B, int k, int split, int mode,
+                         float thr, int force, void* gmask, void* keep,
+                         void* stream) {
+  return nms_keep_cluster_launch(
+      static_cast<const float*>(boxes), static_cast<const float*>(ids),
+      static_cast<const unsigned char*>(valid), sb, si, sv, B, k, split,
+      mode, thr, force, static_cast<unsigned long long*>(gmask),
+      static_cast<unsigned char*>(keep), stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

@@ -1844,8 +1844,13 @@ CONV_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/conv_fused.cu"
 CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                     "conv_fused_sm90.cu")
 # the JSON line's names of the phase-13/14 kernels, in its order: every
-# bf16 route is the Hopper kernels of conv_fused_sm90.cu
-CONV_RECORDS = tuple(f"{n}/sm90" for n in CONV_KERNELS)
+# bf16 route is the Hopper kernels of conv_fused_sm90.cu, and so is the
+# float32 route of conv3_fused and dgrad_epilogue (three bf16 pieces a
+# float32 operand, six wgmma products a stage: "sm90x3"; phase 16 launches
+# them); the other three float32 forms take the SIMT kernels
+CONV_X3_KERNELS = ("conv3_fused", "dgrad_epilogue")
+CONV_RECORDS = tuple(f"{n}/sm90" for n in CONV_KERNELS) + tuple(
+    f"{n}/sm90x3" for n in CONV_X3_KERNELS)
 CONV_REPLACES = {
     "mm_fused": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:148",
     "mm_fused_bwd": "incubator_mxnet_tpu/ops/pallas/conv_fused.py:344",
@@ -2265,12 +2270,23 @@ def _turns_line(res):
         for label, r in res.items())
 
 
+def _conv_route(name, dt):
+    """The route the plan gives a conv form of the ResNet-50 lane's
+    stages: every bf16 form the Hopper kernels; in float32, conv3_fused and
+    dgrad_epilogue the three-piece kernels, the rest the SIMT ones."""
+    if dt == torch.bfloat16:
+        return "sm90"
+    return "sm90x3" if name in CONV_X3_KERNELS else "simt"
+
+
 def _route_taken(cf, name, call, expect):
-    """Run ``call`` and check that it took ``expect``'s route."""
+    """Run ``call`` and check that it took ``expect``'s route ("sm90x3":
+    the float32 three-piece kernels, counted in ``x3_launches``)."""
     k = getattr(cf, name)
-    before = k.sm90_launches
+    before = (k.sm90_launches, k.x3_launches)
     out = call()
-    took = "sm90" if k.sm90_launches > before else "simt"
+    took = ("sm90x3" if k.x3_launches > before[1]
+            else "sm90" if k.sm90_launches > before[0] else "simt")
     if took != expect:
         raise AssertionError(f"{name} took the {took} route, the plan says "
                              f"{expect}")
@@ -2278,11 +2294,15 @@ def _route_taken(cf, name, call, expect):
 
 
 def _sm90_kernel_name(mangled):
-    """``cf90_fwd_kernel<64,1,1>`` from a mangled name, or None for a
-    kernel that is not one of conv_fused_sm90.cu's."""
-    m = re.search(r"(cf90_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
-    if m is None:
+    """``cf90_fwd_kernel<64,1,1>`` (or ``cf90_dual_dgrad_x3_kernel``, a
+    kernel with no template arguments) from a mangled name, or None for a kernel
+    that is not one of conv_fused_sm90.cu's wgmma kernels (the float32
+    route's piece split, ``cf90_split3_kernel``, has no product)."""
+    m = re.search(r"(cf90_\w+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    if m is None or m.group(1) == "cf90_split3_kernel":
         return None
+    if m.group(2) is None:
+        return m.group(1)
     args = ",".join(re.findall(r"\d+", m.group(2)))
     return f"{m.group(1)}<{args}>"
 
@@ -2357,9 +2377,21 @@ def _sass_kernels(common, pattern, name_of, instr, no_stack=False):
 
 def sm90_sass_check(common):
     """The Hopper kernels of conv_fused_sm90.cu as built, each with HGMMA
-    and no local bytes."""
-    return _sass_kernels(common, "conv_fused_sm90*.o", _sm90_kernel_name,
-                         "HGMMA")
+    and no local bytes, the float32 route's three among them; and its piece
+    split, ``cf90_split3_kernel``, with stores and no local bytes (it picks
+    its operand from the launch's descriptor by static indices)."""
+    kernels = _sass_kernels(common, "conv_fused_sm90*.o", _sm90_kernel_name,
+                            "HGMMA")
+    x3 = {"cf90_conv3_x3_kernel", "cf90_dual_dgrad_x3_kernel",
+          "cf90_dual_wgrad_x3_kernel"}
+    if not x3 <= set(kernels):
+        raise AssertionError(f"the float32 route's kernels are not all in "
+                             f"the build: {sorted(kernels)}")
+    kernels.update(_sass_kernels(
+        common, "conv_fused_sm90*.o",
+        lambda m: "cf90_split3_kernel" if "cf90_split3_kernel" in m else None,
+        "STG"))
+    return kernels
 
 
 def lstm_sass_check(common):
@@ -2375,20 +2407,36 @@ def lstm_sass_check(common):
     return kernels
 
 
+def _x3_repeats(kern, tag):
+    """Two calls of a float32-route kernel (no atomics anywhere) give equal
+    outputs bit for bit."""
+    first = kern()
+    second = kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{tag}: two calls differ")
+
+
 def conv_kernel_checks(cf, common):
     """Phase 13: the five fused-conv kernels against their twins over the
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
-    every conv form of each stage (2, 3, 4) in both types. bf16
-    kernels take the Hopper route (conv_fused_sm90.cu) where the plan says
-    so, and their SIMT kernels (reached through the private
-    ``_route="simt"``) are held to the twins too; float32 always takes the
-    SIMT route. Times in bf16 at every stage and in float32 at stage 3:
-    CUDA events over a loop of wrapper calls, beside the twin's, the
-    library call's and the bound; on the Hopper route, in turns with the
-    SIMT kernel (new, old, new, old), plus torch.profiler's device time of
-    one call, the wrapper's host µs and, for the records, the time of one
-    call replayed from a CUDA graph. Returns the JSON records (bf16, stage
-    3) and a log of every timing."""
+    every conv form of each stage (2, 3, 4) in both types. Each call takes
+    the route the plan gives (``_conv_route``): every bf16 form the Hopper
+    kernels (conv_fused_sm90.cu), float32 conv3_fused and dgrad_epilogue
+    that file's three-piece kernels ("sm90x3"), the other float32 forms
+    the SIMT kernels; every call on a Hopper route is held to the twin
+    again forced onto its SIMT kernel (the private ``_route="simt"``).
+    Times in bf16 at every stage and in float32 at stage 3: CUDA events
+    over a loop of wrapper calls, beside the twin's, the library call's
+    and the bound. On the bf16 route, in turns with the SIMT kernel (new,
+    old, new, old), plus torch.profiler's device time of one call, the
+    wrapper's host µs and, for the records, the time of one call replayed
+    from a CUDA graph; on the float32 three-piece route, device, graph and
+    event ms and host µs of it and of the SIMT kernel in turns
+    (``_in_turns``), the bound from six bf16 products (the FMA bound
+    beside it), and two calls bitwise equal. Returns the JSON records (bf16
+    and the float32 three-piece route, stage 3) and a log of every
+    timing."""
     sass = sm90_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {}
@@ -2410,16 +2458,19 @@ def conv_kernel_checks(cf, common):
                 cf, name, kern, route), ref, dt)
             key = f"{name} {str(dt)[6:]} {route}"
             worst[key] = max(worst.get(key, 0.0), err)
-            if route == "sm90":
+            if route != "simt":
                 err = held(f"{name} {dt} {case} simt", _route_taken(
                     cf, name, old, "simt"), ref, dt)
                 key = f"{name} {str(dt)[6:]} simt"
                 worst[key] = max(worst.get(key, 0.0), err)
+            if route == "sm90x3" and name == "dgrad_epilogue":
+                _x3_repeats(kern, f"{name} {case}")
             n_cases += 1
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
         f"partners, dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images "
-        f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route and "
+        f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route, "
+        f"float32 conv3_fused and dgrad_epilogue on the sm90x3 route, each "
         f"again on the simt one) within tolerance; worst "
         f"{json.dumps(worst)}")
     timings = {"sass": sass, "sweep": worst}
@@ -2430,19 +2481,23 @@ def conv_kernel_checks(cf, common):
             for name, case, kern, old, plain, lib, moved, full, flops \
                     in runs:
                 tag = f"{name} {case} {str(dt)[6:]} stage {stage}"
-                route = "sm90" if dt == torch.bfloat16 else "simt"
+                route = _conv_route(name, dt)
                 ref = plain()
                 err = held(tag, _route_taken(cf, name, kern, route), ref, dt)
-                if route == "sm90":
+                if route != "simt":
                     held(f"{tag} simt", _route_taken(cf, name, old, "simt"),
                          ref, dt)
                 del ref
+                if route == "sm90x3" and name == "dgrad_epilogue":
+                    _x3_repeats(kern, tag)
                 if dt == torch.float32 and stage != 3:
-                    log(f"parity {tag}: err {err:.3g}")
+                    log(f"parity {tag} ({route}): err {err:.3g}")
                     continue
                 rec = {"name": name, "route": "cuda", "source": CONV_SOURCE,
                        "replaces": CONV_REPLACES[name], "launches": 0,
                        "max_abs_err": err}
+                t_bytes = full / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dt] * 1e3
                 if route == "sm90":
                     ms1 = time_ms(kern, iters=10, warmup=2)
                     old1 = time_ms(old, iters=3, warmup=1)
@@ -2456,12 +2511,35 @@ def conv_kernel_checks(cf, common):
                                host_us=host_us(kern))
                     if stage == 3 and case == CONV_RECORD_CASE[name]:
                         rec["graph_ms"] = graph_ms(kern)
+                elif route == "sm90x3":
+                    # the three-piece kernels and the SIMT ones in turns;
+                    # the bound counts the six bf16 products
+                    turns = _in_turns({"sm90x3": kern, "simt": old},
+                                      getattr(cf, name))
+                    new, simt = turns["sm90x3"], turns["simt"]
+                    ms = new["event_ms"]
+                    fma_ops = t_ops
+                    t_ops = 6 * flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+                    rec.update(
+                        name=f"{name}/sm90x3", source=CONV_SM90_SOURCE,
+                        device_ms=new["device_ms"],
+                        device_kernels_ms=new["kernels"],
+                        graph_ms=new["graph_ms"], host_us=new["host_us"],
+                        earlier_ms=simt["event_ms"],
+                        earlier_device_ms=simt["device_ms"],
+                        earlier_graph_ms=simt["graph_ms"],
+                        earlier_host_us=simt["host_us"],
+                        earlier_device_kernels_ms=simt["kernels"],
+                        rounds={k: v for k, v in new.items()
+                                if k.endswith("_rounds")},
+                        earlier_rounds={k: v for k, v in simt.items()
+                                        if k.endswith("_rounds")},
+                        fma_bound_ms=max(t_bytes, fma_ops))
+                    log(f"turns {tag}: {_turns_line(turns)}")
                 else:
                     ms = time_ms(kern, iters=10, warmup=2)
                 plain_ms = time_ms(plain, iters=3, warmup=1)
                 library_ms = time_ms(lib, iters=10, warmup=2)
-                t_bytes = full / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dt] * 1e3
                 rec.update(ms=ms, plain_ms=plain_ms,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops
@@ -2470,15 +2548,16 @@ def conv_kernel_checks(cf, common):
                                moved / HBM_BYTES_PER_S * 1e3, t_ops),
                            library_ms=library_ms)
                 timings[tag] = rec
-                if dt == torch.bfloat16 and stage == 3 \
-                        and case == CONV_RECORD_CASE[name]:
+                if stage == 3 and (route == "sm90x3" or (
+                        dt == torch.bfloat16
+                        and case == CONV_RECORD_CASE[name])):
                     records[rec["name"]] = rec
                 extra = (f"; earlier (simt) {rec['earlier_ms']:.4f} ms, "
                          f"device {_ms(rec['device_ms'])} ms "
                          f"{json.dumps(rec['device_kernels_ms'])}, host "
                          f"{rec['host_us']:.1f} us, graph "
                          f"{rec.get('graph_ms', 'not measured')} ms"
-                         if route == "sm90" else "")
+                         if route != "simt" else "")
                 log(f"time {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"library {library_ms:.4f} ms, bound "
                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; counted "
@@ -2692,10 +2771,13 @@ def _grad_errs(a, b):
             rel2(a[1], b[1]), max(rel2(a[2][k], b[2][k]) for k in keys))
 
 
-def resnet_truth_phase(mx, gluon, vision, common):
+def resnet_truth_phase(mx, gluon, vision, common, records):
     """Phase 16: in float32 at 224 x 224, batch 16: each fused stage (2, 3,
     4) against the same stage on the per-block path, then the whole net's
-    first-step loss fused against per-block (rtol 1e-3).
+    first-step loss fused against per-block (rtol 1e-3). Every float32
+    conv3_fused (one a block) and dgrad_epilogue (one a stage) launch of
+    the fused stages takes the three-piece route ("sm90x3"); their counts
+    over the three stages are the records' launches.
 
     The forward is held to tests/test_fused_resnet.py:402's tolerance
     (rtol = atol = 1e-3). Its gradient tolerances (:406-414: dx within
@@ -2721,6 +2803,7 @@ def resnet_truth_phase(mx, gluon, vision, common):
     feats = list(net.features._children.values())
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     out = {}
+    x3_total = dict.fromkeys(CONV_X3_KERNELS, 0)
     shapes = {5: (16, 56, 56, 256), 6: (16, 28, 28, 512),
               7: (16, 14, 14, 1024)}
     for idx, shape in shapes.items():
@@ -2734,10 +2817,18 @@ def resnet_truth_phase(mx, gluon, vision, common):
         common.reset_launch_counts()
         fused = _stage_grads(blocks, 2, xin, ct, "kernels", mx)
         counts = common.launch_counts()
+        x3 = common.x3_launch_counts()
         if counts["conv3_fused_bwd"] != len(blocks) \
                 or counts["dgrad_epilogue"] != 1:
             raise AssertionError(f"the fused stage did not run its kernels: "
                                  f"{counts}")
+        if not x3["conv3_fused"] == counts["conv3_fused"] == len(blocks) \
+                or x3["dgrad_epilogue"] != 1:
+            raise AssertionError(f"float32 conv3_fused / dgrad_epilogue "
+                                 f"launches off the sm90x3 route: {x3} of "
+                                 f"{counts}")
+        for name in CONV_X3_KERNELS:
+            x3_total[name] += x3[name]
         common.reset_launch_counts()
         twin = _stage_grads(blocks, 2, xin, ct, "twins", mx)
         if any(common.launch_counts()[n] for n in CONV_KERNELS):
@@ -2805,6 +2896,9 @@ def resnet_truth_phase(mx, gluon, vision, common):
     if not np.isfinite(float(loss_f)) or rel > 1e-3:
         raise AssertionError("whole-net loss: fused and per-block disagree")
     out["loss_rel"] = rel
+    out["sm90x3_launches"] = x3_total
+    for name, n in x3_total.items():
+        records[f"{name}/sm90x3"]["launches"] = n
     return out
 
 
@@ -4602,7 +4696,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     perblock = resnet_perblock_phase(mx, gluon, vision, common)
     torch.cuda.empty_cache()
-    resnet_truth = resnet_truth_phase(mx, gluon, vision, common)
+    resnet_truth = resnet_truth_phase(mx, gluon, vision, common, records)
     torch.cuda.empty_cache()
     lstm_records, lstm_timings = lstm_kernel_checks(lt, common)
     records.update(lstm_records)

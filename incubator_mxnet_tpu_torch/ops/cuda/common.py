@@ -19,7 +19,8 @@ import torch
 
 __all__ = ["NEG_INF", "pick_block", "pick_row_block", "kernel_library", "check_launch",
            "current_stream_handle", "counted_kernel", "launch_counts",
-           "sm90_launch_counts", "reset_launch_counts", "sm_count",
+           "sm90_launch_counts", "x3_launch_counts", "reset_launch_counts",
+           "sm_count",
            "ticket_buffer", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -69,6 +70,10 @@ _SIGNATURES = {
                                  + [_P],
     "mxt_conv_fused_sm90_conv3_bwd": [_P] * 4 + [_L] * 3 + [_P] * 8
                                      + [_I] * 8 + [_P],
+    "mxt_conv_fused_sm90_split3": [_I, _P, _P],
+    "mxt_conv_fused_sm90_conv3_x3": [_P] * 6 + [_I] * 5 + [_P],
+    "mxt_conv_fused_sm90_dual_dgrad_x3": [_P] * 11 + [_I] * 4 + [_P],
+    "mxt_conv_fused_sm90_dual_wgrad_x3": [_P] * 4 + [_I] * 6 + [_P],
     "mxt_lstm_fwd": [_I, _I, _I] + [_P] * 8 + [_I, _I, _P],
     "mxt_lstm_fwd_sm90": [_I, _I, _I] + [_P] * 8 + [_I] * 4 + [_P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
@@ -90,9 +95,13 @@ def counted_kernel(fn):
     """Register a kernel wrapper for :func:`launch_counts`. The wrapper
     bumps ``fn.launches`` itself, right after a launch succeeds, and
     nowhere else; a wrapper with a Hopper route (``csrc/*_sm90.cu``) also
-    bumps ``fn.sm90_launches`` when the call took that route."""
+    bumps ``fn.sm90_launches`` when the call took that route, and
+    ``fn.x3_launches`` as well when that route was the float32 one with
+    every operand in three bf16 pieces (``conv3_fused``,
+    ``dgrad_epilogue``)."""
     fn.launches = 0
     fn.sm90_launches = 0
+    fn.x3_launches = 0
     _KERNELS.append(fn)
     return fn
 
@@ -107,10 +116,17 @@ def sm90_launch_counts():
     return {f.__name__: f.sm90_launches for f in _KERNELS}
 
 
+def x3_launch_counts():
+    """{kernel wrapper name: launches on its three-piece float32 route so
+    far}."""
+    return {f.__name__: f.x3_launches for f in _KERNELS}
+
+
 def reset_launch_counts() -> None:
     for f in _KERNELS:
         f.launches = 0
         f.sm90_launches = 0
+        f.x3_launches = 0
 
 
 def pick_block(dim: int, preferred: int) -> int:

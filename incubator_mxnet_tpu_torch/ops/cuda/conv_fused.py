@@ -24,27 +24,33 @@ The rounding points are the reference's: the transform in float32 rounded
 to the input type, float32 accumulation, outputs rounded to the input type,
 sums over the rounded values.
 
-Two routes, chosen by type and shape before the launch (never on failure):
-all five in bf16, with channel counts that are multiples of 8,
+Three routes, chosen by type and shape before the launch (never on
+failure): all five in bf16, with channel counts that are multiples of 8,
 16-byte-aligned operands and a weight with a stride 1 (for
 ``mm_fused_bwd``, ``conv3_fused`` and ``conv3_fused_bwd``, the one of the
 gluon weight's view), take the Hopper kernels of
 ``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted in
-``sm90_launches`` beside ``launches``); everything else, float32 always,
-takes the SIMT kernels of ``csrc/conv_fused.cu`` (no TF32, so float32
-matches the plain twin). :func:`mm_fused_route`,
+``sm90_launches`` beside ``launches``); ``conv3_fused`` and
+``dgrad_epilogue`` in float32, under the same shape rules, take that file's
+float32 kernels, "sm90x3": every float32 operand of a product in three
+exact bf16 pieces, six ``wgmma`` products a stage (no TF32, so float32
+matches the plain twin; counted in ``sm90_launches`` and ``x3_launches``);
+everything else, and the other three forms in float32 always, takes the
+SIMT kernels of ``csrc/conv_fused.cu``. :func:`mm_fused_route`,
 :func:`mm_fused_bwd_route`, :func:`conv3_fused_route`,
 :func:`conv3_fused_bwd_route`, :func:`dgrad_epilogue_route`,
-:func:`sm90_bn`, :func:`sm90_plan` and :func:`sm90_wgrad_split` hold the
-choice and the tile plan in Python. The kernel wrappers take CUDA tensors only
-and raise on anything else; the ``*_reference`` twins are plain PyTorch,
-for the CPU and for holding the kernels to on the card. The reference's
+:func:`sm90_bn`, :func:`sm90_plan`, :func:`sm90_x3_plan` and
+:func:`sm90_wgrad_split` hold the choice and the tile plan in Python. The
+kernel wrappers take CUDA tensors only and raise on anything else; the
+``*_reference`` twins are plain PyTorch, for the CPU and for holding the
+kernels to on the card. The reference's
 dispatch between its Pallas kernels and its XLA twins (the 128-lane rule,
 ``MXTPU_FUSED_IMPL``, ``MXTPU_FUSED_CONV3``, the row-block pickers) is TPU
 scheduling over identical values and has no counterpart here.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -59,7 +65,7 @@ __all__ = ["mm_fused", "mm_fused_bwd", "conv3_fused", "conv3_fused_bwd",
            "dgrad_epilogue_reference", "mm_fused_route",
            "mm_fused_bwd_route", "conv3_fused_route",
            "conv3_fused_bwd_route", "dgrad_epilogue_route",
-           "sm90_bn", "sm90_plan", "sm90_wgrad_split"]
+           "sm90_bn", "sm90_plan", "sm90_x3_plan", "sm90_wgrad_split"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_CODE = {"none": 0, "x": 1, "z": 2}
@@ -71,6 +77,11 @@ SM90_SMEM_LIMIT = 232448
 # mm_fused_bwd's dgrad stage (kBwdStage): four 128 x 64 tiles and 1 KB
 SM90_BWD_STAGE = 4 * SM90_BM * SM90_BK * 2 + 1024
 _SM90_STAGE_BUDGET = 200 * 1024
+# the float32 route's tile (kBN3, kBK3): 128 x 128, 32-deep stages (a
+# 128-byte row of float32), at most four stages
+SM90_X3_BN, SM90_X3_BK, _SM90_X3_MAX_STAGES = 128, 32, 4
+# its row tiles lie on gridDim.y: at most 65535 of them
+SM90_X3_MAX_ROWS = 65535 * SM90_BM
 # the dW split's cost model: a 128-row block's time per reduction row at a
 # tile width of 256 (2 * 128 * 256 flops at one SM's share of 989 TFLOP/s)
 # and the float32 partials' bytes, written and summed, at 3.35 TB/s
@@ -290,9 +301,27 @@ def sm90_plan(bn: int, n_raw: int, min_stage: int = 0) -> dict:
             "smem_bytes": stages * stage + 1024}
 
 
+def sm90_x3_plan(kernel: str) -> dict:
+    """The shared-memory plan of a float32-route block (``Plan3`` in
+    conv_fused_sm90.cu) for ``kernel``: "conv3" (a stage holds x's raw
+    float32 128 x 32 box, W9's three 128 x 32 bf16 pieces and 1 KB of a and
+    b), "dgrad" (dzn's and yout's boxes, W^T's pieces, 1 KB of g0,
+    g1, g2) or "wgrad" (G^T's three pieces and x's, 128 x 32 each); up to
+    four stages in the 200 KB budget; the epilogue's float32 128 x 128
+    staging tile and its column sums reuse them."""
+    raw = SM90_BM * SM90_X3_BK * 4
+    pieces = 3 * SM90_X3_BN * SM90_X3_BK * 2
+    stage = {"conv3": raw + pieces + 1024,
+             "dgrad": 2 * raw + pieces + 1024,
+             "wgrad": 3 * SM90_BM * SM90_X3_BK * 2 + pieces}[kernel]
+    stages = min(_SM90_X3_MAX_STAGES, _SM90_STAGE_BUDGET // stage)
+    return {"bn": SM90_X3_BN, "bk": SM90_X3_BK, "stages": stages,
+            "stage_bytes": stage, "smem_bytes": stages * stage + 1024}
+
+
 def _tma_ok(t) -> bool:
-    """A bf16 operand the TMA can read: 2-D, one stride 1 and the other a
-    multiple of 8 elements (16 bytes), its base 16-byte aligned."""
+    """An operand the TMA can read: 2-D, one stride 1 and the other a
+    multiple of 8 elements (16 bytes in bf16), its base 16-byte aligned."""
     if t is None:
         return True
     if t.dim() != 2 or t.data_ptr() % 16:
@@ -341,9 +370,19 @@ def conv3_fused_route(x2, w9, vecs=()) -> str:
     (9 C, N) matrix with the reduction index tap C + c contiguous, as the
     gluon weight's view gives it (strides (C, 1, a multiple of 8)), a
     16-byte aligned base, the float32 vectors ``vecs`` (a, b) 16-byte
-    aligned), else "simt"."""
+    aligned); "sm90x3" when it takes the float32 three-piece kernel
+    (float32, the same rules for C, N, x2 and ``vecs``, at most
+    :data:`SM90_X3_MAX_ROWS` rows, w9 one
+    (9 C, N) matrix (a tap stride of C channel strides) with a unit stride,
+    whose pieces the split kernel copies out); else "simt"."""
     c, n = w9.shape[1], w9.shape[2]
     s_tap, s_c, s_n = w9.stride()
+    if x2.dtype == torch.float32 and w9.dtype == torch.float32:
+        ok = (1 <= x2.shape[0] <= SM90_X3_MAX_ROWS
+              and all(d % 8 == 0 and d >= 8 for d in (c, n))
+              and s_tap == c * s_c and 1 in (s_c, s_n)
+              and _tma_ok(x2) and all(_bulk_ok(v) for v in vecs))
+        return "sm90x3" if ok else "simt"
     ok = (x2.dtype == torch.bfloat16 and w9.dtype == torch.bfloat16
           and x2.shape[0] >= 1 and all(d % 8 == 0 and d >= 8 for d in (c, n))
           and s_c == 1 and s_tap == c and s_n % 8 == 0
@@ -374,9 +413,20 @@ def dgrad_epilogue_route(x, w_a, w_b, acts=(), vecs=()) -> str:
     """"sm90" when :func:`dgrad_epilogue` takes the Hopper kernels (bf16, K,
     N_a and N_b multiples of 8, both weights with the same stride-1 index,
     the activations ``acts`` readable by the TMA, the (3, N) coefficients
-    ``vecs`` 16-byte aligned, at least one row), else "simt"."""
+    ``vecs`` 16-byte aligned, at least one row); "sm90x3" when it takes the
+    float32 three-piece kernels (float32, the same rules, at most
+    :data:`SM90_X3_MAX_ROWS` rows, each weight with a unit stride of its
+    own: the split kernel copies its pieces out);
+    else "simt"."""
     k, na = w_a.shape
     nb = w_b.shape[1]
+    if x.dtype == w_a.dtype == w_b.dtype == torch.float32:
+        ok = (1 <= x.shape[0] <= SM90_X3_MAX_ROWS
+              and all(d % 8 == 0 and d >= 8 for d in (k, na, nb))
+              and all(_tma_ok(t) for t in (x,) + tuple(acts))
+              and all(_bulk_ok(v) for v in vecs)
+              and 1 in w_a.stride() and 1 in w_b.stride())
+        return "sm90x3" if ok else "simt"
     ok = (x.dtype == torch.bfloat16 and x.shape[0] >= 1
           and all(d % 8 == 0 and d >= 8 for d in (k, na, nb))
           and w_a.dtype == w_b.dtype == torch.bfloat16
@@ -388,16 +438,18 @@ def dgrad_epilogue_route(x, w_a, w_b, acts=(), vecs=()) -> str:
 
 @functools.lru_cache(maxsize=256)
 def sm90_wgrad_split(m: int, na: int, nb: int, k: int, sms: int,
-                     taps: int = 1):
+                     taps: int = 1, x3: bool = False):
     """(splits, chunk) of the Hopper route's dW launch: the row range cut
     into ``splits`` chunks of a multiple of 64 rows, each chunk one block per
     output tile ((ceil(na / 128) + ceil(nb / 128)) x taps x ceil(k / bn)
-    tiles; ``taps`` 9 for the 3x3 wgrad, one tap per column tile). The
-    count minimises the waves of blocks over ``sms`` SMs times a chunk's
-    rows, plus the float32 partials each split adds; ties go to fewer."""
-    bn = sm90_bn(k)
+    tiles; ``taps`` 9 for the 3x3 wgrad, one tap per column tile; with
+    ``x3``, the float32 route's wgrad: bn 128 and six bf16 products a row).
+    The count minimises the waves of blocks over ``sms`` SMs times a
+    chunk's rows, plus the float32 partials each split adds; ties go to
+    fewer."""
+    bn = SM90_X3_BN if x3 else sm90_bn(k)
     tiles = (-(-na // SM90_BM) - (-nb // SM90_BM)) * taps * -(-k // bn)
-    row_s = _SM90_ROW_S * bn / 256
+    row_s = _SM90_ROW_S * bn / 256 * (6 if x3 else 1)
     part_s = (na + nb) * taps * k * 4 * 2 / _HBM_BYTES_S
     best = None
     for s in range(1, min(-(-m // SM90_BK), 64) + 1):
@@ -420,6 +472,27 @@ def _wgrad(name, ks, x, a, b, g, dzn, yout, gc, m, c, n, h, w):
         h, w, current_stream_handle(x))
     check_launch(code, name)
     return ws.sum(0)
+
+
+def _pieces(name, *ops):
+    """For each operand (src, r, o, s_i, s_j) of ``ops`` (1-3), a (3, r, o)
+    bf16 view: the hi, mid and lo pieces of the float32 src[i * s_i + j *
+    s_j], hi + mid + lo exact; one allocation and one launch of
+    ``cf90_split3_kernel`` for all of them (each o a multiple of 8, so every
+    view starts 16-byte aligned)."""
+    src0 = ops[0][0]
+    flat = torch.empty(sum(3 * r * o for _, r, o, _, _ in ops),
+                       dtype=torch.bfloat16, device=src0.device)
+    views, desc, at = [], [], 0
+    for src, r, o, s_i, s_j in ops:
+        views.append(flat[at:at + 3 * r * o].view(3, r, o))
+        desc += [_ptr(src), s_i, s_j, r, o, _ptr(views[-1])]
+        at += 3 * r * o
+    code = kernel_library().mxt_conv_fused_sm90_split3(
+        len(ops), (ctypes.c_longlong * len(desc))(*desc),
+        current_stream_handle(src0))
+    check_launch(code, name)
+    return views
 
 
 def _g_operands(name, g, dzn, yout, gcoef, m, n, dtype):
@@ -572,8 +645,10 @@ def dgrad_epilogue(w_a, w_b, x, dzn_a, yout_a, gcoef_a, dzn_b, yout_b,
     (K, N_b) of x's type with any strides. Returns (dx (M, K), dW_a
     (K, N_a) float32, dW_b (K, N_b) float32); the dW are views of (N, K)
     tensors, the gluon weight order. The route is
-    :func:`dgrad_epilogue_route`'s; ``_route="simt"`` forces the SIMT
-    kernels."""
+    :func:`dgrad_epilogue_route`'s; on the float32 route ("sm90x3") the
+    split kernel first makes the bf16 pieces of w_a^T, w_b^T and x, the
+    dgrad launch also writes G's pieces, and the wgrad launch runs six
+    piece products on them; ``_route="simt"`` forces the SIMT kernels."""
     name = "dgrad_epilogue"
     _check(name, x, w_a, w_b, dzn_a, yout_a, gcoef_a, dzn_b, yout_b, gcoef_b)
     m, k = x.shape
@@ -594,9 +669,36 @@ def dgrad_epilogue(w_a, w_b, x, dzn_a, yout_a, gcoef_a, dzn_b, yout_b,
     dx = torch.empty_like(x)
     lib = kernel_library()
     stream = current_stream_handle(x)
-    sm90 = (_route or dgrad_epilogue_route(
-        x, w_a, w_b, (dzn_a, yout_a, dzn_b, yout_b), (gc_a, gc_b))) == "sm90"
-    if sm90:
+    route = _route or dgrad_epilogue_route(
+        x, w_a, w_b, (dzn_a, yout_a, dzn_b, yout_b), (gc_a, gc_b))
+
+    def partials(splits):
+        return torch.empty((splits, na + nb, k), dtype=torch.float32,
+                           device=x.device)
+    if route == "sm90x3":
+        # pieces (3, N_set, K) of w_set^T and (3, M, K) of x; the dgrad
+        # launch writes G's (3, M, N_set), which the wgrad launch
+        # multiplies with x's
+        wp_a, wp_b, xp = _pieces(
+            name, (w_a, na, k, w_a.stride(1), w_a.stride(0)),
+            (w_b, nb, k, w_b.stride(1), w_b.stride(0)), (x, m, k, k, 1))
+        gp_a = torch.empty((3, m, na), dtype=torch.bfloat16, device=x.device)
+        gp_b = torch.empty((3, m, nb), dtype=torch.bfloat16, device=x.device)
+        code = lib.mxt_conv_fused_sm90_dual_dgrad_x3(
+            _ptr(dzn_a), _ptr(yout_a), _ptr(gc_a), _ptr(wp_a), _ptr(gp_a),
+            _ptr(dzn_b), _ptr(yout_b), _ptr(gc_b), _ptr(wp_b), _ptr(gp_b),
+            _ptr(dx), m, k, na, nb, stream)
+        check_launch(code, name)
+        splits, chunk = sm90_wgrad_split(m, na, nb, k, sm_count(x.device),
+                                         x3=True)
+        ws = partials(splits)
+        code = lib.mxt_conv_fused_sm90_dual_wgrad_x3(
+            _ptr(xp), _ptr(gp_a), _ptr(gp_b), _ptr(ws), splits, chunk, m, k,
+            na, nb, stream)
+        check_launch(code, name)
+        dgrad_epilogue.sm90_launches += 1
+        dgrad_epilogue.x3_launches += 1
+    elif route == "sm90":
         # the dgrad launch also writes the bf16 G of both sets, which the
         # wgrad launch multiplies with x
         bn = sm90_bn(k)
@@ -609,6 +711,12 @@ def dgrad_epilogue(w_a, w_b, x, dzn_a, yout_a, gcoef_a, dzn_b, yout_b,
             k, na, nb, bn, stream)
         check_launch(code, name)
         splits, chunk = sm90_wgrad_split(m, na, nb, k, sm_count(x.device))
+        ws = partials(splits)
+        code = lib.mxt_conv_fused_sm90_dual_wgrad(
+            _ptr(x), _ptr(g_a), _ptr(g_b), _ptr(ws), splits, chunk, m, k, na,
+            nb, bn, stream)
+        check_launch(code, name)
+        dgrad_epilogue.sm90_launches += 1
     else:
         code = lib.mxt_conv_fused_dual_dgrad(
             _DTYPE_CODE[x.dtype], _ptr(dzn_a), _ptr(yout_a), _ptr(gc_a),
@@ -617,15 +725,7 @@ def dgrad_epilogue(w_a, w_b, x, dzn_a, yout_a, gcoef_a, dzn_b, yout_b,
             w_b.stride(1), _ptr(dx), m, k, na, nb, stream)
         check_launch(code, name)
         splits, chunk = _wgrad_split(m, k, na + nb, x.device)
-    ws = torch.empty((splits, na + nb, k), dtype=torch.float32,
-                     device=x.device)
-    if sm90:
-        code = lib.mxt_conv_fused_sm90_dual_wgrad(
-            _ptr(x), _ptr(g_a), _ptr(g_b), _ptr(ws), splits, chunk, m, k, na,
-            nb, bn, stream)
-        check_launch(code, name)
-        dgrad_epilogue.sm90_launches += 1
-    else:
+        ws = partials(splits)
         code = lib.mxt_conv_fused_dual_wgrad(
             _DTYPE_CODE[x.dtype], _ptr(x), _ptr(dzn_a), _ptr(yout_a),
             _ptr(gc_a), _ptr(dzn_b), _ptr(yout_b), _ptr(gc_b), _ptr(ws),
@@ -649,8 +749,9 @@ def conv3_fused(x2, w9, a, b, bhw, stats: bool = True, _route=None):
     """CUDA kernel of the fused 3x3 conv forward (replaces the Pallas
     ``conv3_fused``): x2 (B*H*W, C) contiguous NHWC rows, w9 (9, C, N) of
     the same type with any strides. Returns (y (B*H*W, N)[, stats]). The
-    route is :func:`conv3_fused_route`'s; ``_route="simt"`` forces the SIMT
-    kernel."""
+    route is :func:`conv3_fused_route`'s; on the float32 route ("sm90x3")
+    the split kernel first makes w9's (3, 9 C, N) bf16 pieces;
+    ``_route="simt"`` forces the SIMT kernel."""
     _check("conv3_fused", x2, w9, a, b)
     m, c = x2.shape
     n = w9.shape[2]
@@ -666,7 +767,17 @@ def conv3_fused(x2, w9, a, b, bhw, stats: bool = True, _route=None):
                          device=x2.device) if stats else None)
     lib = kernel_library()
     stream = current_stream_handle(x2)
-    if (_route or conv3_fused_route(x2, w9, (a, b))) == "sm90":
+    route = _route or conv3_fused_route(x2, w9, (a, b))
+    if route == "sm90x3":
+        wp, = _pieces("conv3_fused",
+                      (w9, 9 * c, n, w9.stride(1), w9.stride(2)))
+        code = lib.mxt_conv_fused_sm90_conv3_x3(
+            _ptr(x2), _ptr(a), _ptr(b), _ptr(wp), _ptr(y), _ptr(parts), m, c,
+            n, H, W, stream)
+        check_launch(code, "conv3_fused")
+        conv3_fused.sm90_launches += 1
+        conv3_fused.x3_launches += 1
+    elif route == "sm90":
         code = lib.mxt_conv_fused_sm90_conv3(
             _ptr(x2), _ptr(a), _ptr(b), _ptr(w9), w9.stride(0), w9.stride(1),
             w9.stride(2), _ptr(y), _ptr(parts), m, c, n, H, W,

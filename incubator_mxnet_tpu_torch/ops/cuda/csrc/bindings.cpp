@@ -111,6 +111,21 @@ int conv_fused_sm90_conv3_bwd_launch(
     const float* a, const float* b, void* dz, float* part, void* xhat,
     float* ws, int splits, int chunk, int M, int C, int N, int H, int W,
     int bn, void* stream);
+int conv_fused_sm90_split3_launch(int n, const long long* desc,
+                                  void* stream);
+int conv_fused_sm90_conv3_x3_launch(const float* x, const float* a,
+                                    const float* b, const void* wp, float* y,
+                                    float* stats, int M, int C, int N, int H,
+                                    int W, void* stream);
+int conv_fused_sm90_dual_dgrad_x3_launch(
+    const float* dzn_a, const float* yout_a, const float* gc_a,
+    const void* wp_a, void* gp_a, const float* dzn_b, const float* yout_b,
+    const float* gc_b, const void* wp_b, void* gp_b, float* dx, int M, int C,
+    int Na, int Nb, void* stream);
+int conv_fused_sm90_dual_wgrad_x3_launch(const void* xp, const void* gp_a,
+                                         const void* gp_b, float* ws,
+                                         int splits, int chunk, int M, int C,
+                                         int Na, int Nb, void* stream);
 int lstm_fwd_launch(int in_dtype, int w_dtype, int state_dtype,
                     const void* xp, const void* h, const void* c,
                     const void* w, const void* b, void* h1, void* c1,
@@ -439,6 +454,53 @@ int mxt_conv_fused_sm90_conv3_bwd(const void* dzn, const void* yout,
       static_cast<const float*>(a), static_cast<const float*>(b), dz,
       static_cast<float*>(part), xhat, static_cast<float*>(ws), splits,
       chunk, M, C, N, H, W, bn, stream);
+}
+
+// The float32 route of conv3_fused and dgrad_epilogue (conv_fused_sm90.cu,
+// every operand in three bf16 pieces): the piece planes of n (1-3) strided
+// float32 operands in one launch, desc n records {src, s_i, s_j, R, O,
+// dst}, dst (3, R, O)
+int mxt_conv_fused_sm90_split3(int n, const void* desc, void* stream) {
+  return conv_fused_sm90_split3_launch(
+      n, static_cast<const long long*>(desc), stream);
+}
+
+// y (M, N) float32 and the (blocks, 2, N) stats partials from x and W9's
+// pieces wp (3, 9 C, N)
+int mxt_conv_fused_sm90_conv3_x3(const void* x, const void* a, const void* b,
+                                 const void* wp, void* y, void* stats, int M,
+                                 int C, int N, int H, int W, void* stream) {
+  return conv_fused_sm90_conv3_x3_launch(
+      static_cast<const float*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), wp, static_cast<float*>(y),
+      static_cast<float*>(stats), M, C, N, H, W, stream);
+}
+
+// dx (M, C) float32 from both sets (W_set^T's pieces (3, N_set, C)), G's
+// pieces (3, M, N_set) written for the wgrad
+int mxt_conv_fused_sm90_dual_dgrad_x3(const void* dzn_a, const void* yout_a,
+                                      const void* gc_a, const void* wp_a,
+                                      void* gp_a, const void* dzn_b,
+                                      const void* yout_b, const void* gc_b,
+                                      const void* wp_b, void* gp_b, void* dx,
+                                      int M, int C, int Na, int Nb,
+                                      void* stream) {
+  return conv_fused_sm90_dual_dgrad_x3_launch(
+      static_cast<const float*>(dzn_a), static_cast<const float*>(yout_a),
+      static_cast<const float*>(gc_a), wp_a, gp_a,
+      static_cast<const float*>(dzn_b), static_cast<const float*>(yout_b),
+      static_cast<const float*>(gc_b), wp_b, gp_b, static_cast<float*>(dx),
+      M, C, Na, Nb, stream);
+}
+
+// the (splits, Na + Nb, C) dW partials from x's and G's pieces
+int mxt_conv_fused_sm90_dual_wgrad_x3(const void* xp, const void* gp_a,
+                                      const void* gp_b, void* ws, int splits,
+                                      int chunk, int M, int C, int Na, int Nb,
+                                      void* stream) {
+  return conv_fused_sm90_dual_wgrad_x3_launch(
+      xp, gp_a, gp_b, static_cast<float*>(ws), splits, chunk, M, C, Na, Nb,
+      stream);
 }
 
 // One LSTM step (lstm.cu), the FMA kernel: xp (N, 4H) and b (4H,) of type

@@ -1,5 +1,7 @@
-// The bf16 route of the fused 1x1 and 3x3 conv kernels on Hopper
-// (sm_90a): TMA-fed wgmma with the load transform applied on chip.
+// The Hopper routes of the fused 1x1 and 3x3 conv kernels (sm_90a):
+// TMA-fed wgmma with the load transform applied on chip. All five forms in
+// bf16; conv3_fused and dgrad_epilogue also in float32, every operand in
+// three bf16 pieces (the float32 route, below the bf16 kernels).
 //
 // Replaces the Pallas TPU kernels of
 // incubator_mxnet_tpu/ops/pallas/conv_fused.py:
@@ -15,14 +17,20 @@
 //   cf90_conv3_dgrad_kernel \ <- conv3_fused_bwd (:742) dz = mask(conv3^T
 //   cf90_conv3_wgrad_kernel /                           G), partials, x^;
 //                                                       dW9 = shift(x^)^T G
+//   cf90_conv3_x3_kernel       <- conv3_fused (:634), float32
+//   cf90_dual_dgrad_x3_kernel \ <- dgrad_epilogue (:505), float32
+//   cf90_dual_wgrad_x3_kernel /
+//   (cf90_split3_kernel makes their operands' bf16 pieces)
 // with the reference's rounding points, as conv_fused.cu keeps them: the
 // load transform (x^ = x, relu(a x + b) or relu(a x + b + asc sc + bsc);
 // G = (dzn g0 - g1) - yout g2) in float32 with both roundings of each step,
 // rounded to bf16 before the product; float32 accumulation on the tensor
 // cores; outputs rounded once; the stats summed over the ROUNDED y.
-// float32 stays on conv_fused.cu's SIMT kernels (no TF32 here); the
-// wrapper (ops/cuda/conv_fused.py) chooses the route by type and shape
-// before the launch.
+// In float32, conv3_fused and dgrad_epilogue take the three-piece kernels
+// (no TF32 here: six bf16 products hold float32's accuracy); the other three
+// forms stay on conv_fused.cu's SIMT kernels. The wrapper
+// (ops/cuda/conv_fused.py) chooses the route by type and shape before the
+// launch.
 //
 // What bounds them on an H100: at ResNet-50's shapes (M 6272..100352 rows,
 // K and N 256..2048) the products, 2 M K N flops, outweigh the bytes, so
@@ -71,6 +79,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "sm90_gemm.cuh"
@@ -1204,6 +1213,632 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
+// ------------------------------------------ the float32 route (three pieces)
+// conv3_fused and dgrad_epilogue in float32 on the same machinery: every
+// float32 operand of a product is split exactly into three bf16 pieces,
+// hi + mid + lo == v (each residual exact in float32, lo holding what is
+// left), and each 32-deep stage runs the six piece products float32 needs
+// on wgmma, smallest first (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi;
+// the three dropped ones are of order 2^-24 relative), into a fresh
+// float32 partial that is then added to the running float32 accumulator
+// (the tensor cores' own sums then only span one stage). The stage is 32
+// deep because a 128-byte swizzled row holds 32 floats: the raw float32 A
+// operand (x for conv3_fused, dzn and yout for the dual dgrad) comes in as
+// one TMA box {32, 128} a map, the consumers transform it in float32 with
+// the reference's roundings (affine, bn_g), mask the halo and the
+// reduction tail after the transform, split it in registers and hand the
+// three fragments to wgmma; B is three bf16 piece planes that
+// cf90_split3_kernel makes once a call, stored MN-major (the output index
+// contiguous), 64-wide boxes of 32 reduction rows, 4 KB apart. A block
+// tile is 128 x 128 (the running accumulator and the partial take 128
+// registers a thread). The dual dgrad writes its G's pieces back by TMA,
+// and the dual wgrad is then six plain piece products from shared memory
+// against x's pieces.
+constexpr int kBK3 = 32;                  // reduction depth of a stage
+constexpr int kBN3 = 128;                 // output columns of a block tile
+constexpr int kBlk3 = kBK3 * 128;         // 64 MN values x 32 rows, bf16
+constexpr int kWgRaw3 = 64 * 128;         // a warpgroup's rows of a raw box
+constexpr int kRaw3 = kBM * 128;          // one raw float32 A operand
+constexpr int kPieceA3 = kBM * kBK3 * 2;  // one A piece (the wgrad's G^T)
+constexpr int kPieceB3 = kBN3 * kBK3 * 2; // one B piece of a stage
+constexpr int kB3 = 3 * kPieceB3;         // B's three pieces
+constexpr int kMaxStages3 = 4;
+
+// Shared-memory plan of a float32-route block (mirrored by
+// conv_fused.py:sm90_x3_plan): a stage holds A_BYTES of A (raw float32
+// boxes, or the wgrad's A pieces), B's three pieces and COEF bytes of
+// per-channel coefficients; up to kMaxStages3 stages in the budget; the
+// epilogue's float32 staging tile and its column sums reuse the ring.
+template <int A_BYTES, int COEF>
+struct Plan3 {
+  static constexpr int kCoef = A_BYTES + kB3;        // offset in a stage
+  static constexpr int kStage = kCoef + COEF;
+  static constexpr int kStages = kStageBudget / kStage < kMaxStages3
+                                     ? kStageBudget / kStage
+                                     : kMaxStages3;
+  static constexpr int kSmem = kStages * kStage + 1024;  // + alignment
+  static_assert(kStages >= 3, "fewer than three stages");
+  static_assert(kBM * kBN3 * 4 + 2 * 2 * kConsumers * 4 <= kStages * kStage,
+                "the epilogue's staging does not fit the ring");
+};
+using PlanConv3X3 = Plan3<kRaw3, 1024>;       // x; a, b
+using PlanDgradX3 = Plan3<2 * kRaw3, 1024>;   // dzn, yout; g0, g1, g2
+using PlanWgradX3 = Plan3<3 * kPieceA3, 0>;   // G^T's three pieces
+
+// the six piece products of a stage, smallest first: product pr is A's
+// piece prod_a(pr) times B's piece prod_b(pr) (0 hi, 1 mid, 2 lo)
+__device__ constexpr int prod_a(int pr) {
+  return pr == 0 ? 2 : pr < 2 ? 0 : pr < 4 ? 1 : 0;
+}
+__device__ constexpr int prod_b(int pr) {
+  return pr == 1 ? 2 : pr == 2 || pr == 4 ? 1 : 0;
+}
+
+// v0, v1 -> three bf16x2 words hi, mid, lo with hi + mid + lo == v exactly
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16(v0, v1);
+  const float r0 = __fsub_rn(v0, lo_f(hi)), r1 = __fsub_rn(v1, hi_f(hi));
+  mid = pack_bf16(r0, r1);
+  lo = pack_bf16(__fsub_rn(r0, lo_f(mid)), __fsub_rn(r1, hi_f(mid)));
+}
+
+// a descriptor of an MN-major piece at k16 step ks (64-wide blocks of the
+// MN index 4 KB apart: 32 rows of 128 bytes)
+__device__ __forceinline__ uint64_t desc_mn3(const unsigned char* p, int ks) {
+  return desc_sw128(p + ks * 2048, kBlk3, 1024);
+}
+
+// p = the stage's six piece products, A's pieces in registers (a[ks][piece])
+// and B's three MN-major pieces from the stage at b, kPieceB3 apart; the
+// first product overwrites p. Issued and committed as one group.
+__device__ __forceinline__ void issue6_rs(float (&p)[kBN3 / 2],
+                                          const uint32_t (&a)[2][3][4],
+                                          const unsigned char* b) {
+  wgmma_fence();
+  fence_regs(p);
+#pragma unroll
+  for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      wgmma_rs<1>(p, a[ks][prod_a(pr)],
+                  desc_mn3(b + prod_b(pr) * kPieceB3, ks), (pr | ks) != 0);
+  wgmma_commit();
+  fence_regs(p);
+}
+
+// the same with A's three MN-major pieces from the stage at a (this
+// warpgroup's 64-row box of each piece; pieces kPieceA3 apart)
+__device__ __forceinline__ void issue6_ss(float (&p)[kBN3 / 2],
+                                          const unsigned char* a,
+                                          const unsigned char* b) {
+  wgmma_fence();
+  fence_regs(p);
+#pragma unroll
+  for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      wgmma_ss<1, 1>(p, desc_mn3(a + prod_a(pr) * kPieceA3, ks),
+                     desc_mn3(b + prod_b(pr) * kPieceB3, ks), (pr | ks) != 0);
+  wgmma_commit();
+  fence_regs(p);
+}
+
+template <int R>
+__device__ __forceinline__ void add_partial(float (&acc)[R],
+                                            const float (&p)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = __fadd_rn(acc[i], p[i]);
+}
+
+// A consumer warpgroup's main loop with A's pieces in registers: build(kb,
+// stage, frag) waits for stage kb and forms its fragments; stage kb's six
+// products run into the partial while stage kb + 1's fragments are formed,
+// then the partial is added to acc in stage order.
+template <int STAGE, int S, int BOFS, typename Build>
+__device__ __forceinline__ void mainloop3_rs(float (&acc)[kBN3 / 2], int nk,
+                                             unsigned char* smem,
+                                             Ring<S>& ring, int lane,
+                                             Build build) {
+  float part[kBN3 / 2];
+  uint32_t f0[2][3][4], f1[2][3][4];
+  if (nk > 0) build(0, smem, f0);
+  for (int kb = 0; kb < nk; kb += 2) {
+    issue6_rs(part, f0, smem + (kb % S) * STAGE + BOFS);
+    if (kb + 1 < nk) build(kb + 1, smem + ((kb + 1) % S) * STAGE, f1);
+    wgmma_wait<0>();
+    fence_regs(part);
+    add_partial(acc, part);
+    ring.release(kb, lane);
+    if (kb + 1 >= nk) break;
+    issue6_rs(part, f1, smem + ((kb + 1) % S) * STAGE + BOFS);
+    if (kb + 2 < nk) build(kb + 2, smem + ((kb + 2) % S) * STAGE, f0);
+    wgmma_wait<0>();
+    fence_regs(part);
+    add_partial(acc, part);
+    ring.release(kb + 1, lane);
+  }
+}
+
+// The epilogue of the float32 route: both consumer warpgroups'
+// accumulators into a swizzled float32 staging tile of four blocks of 128
+// rows x 128 bytes over the ring's memory; then 16-byte stores of rows
+// m < M, columns n < N. With stats, one row pair of column sums (sum y, sum
+// y^2 over the stored values of the valid rows) per block, in a fixed
+// order.
+__device__ __forceinline__ void store_tile_f32(const float (&acc)[kBN3 / 2],
+                                               unsigned char* smem,
+                                               float* out, float* stats,
+                                               int m0, int n0, int M,
+                                               int N) {
+  constexpr int BN = kBN3;
+  const int ct = threadIdx.x, wg = ct >> 7, w = (ct >> 5) & 3;
+  const int lane = ct & 31, g = lane >> 2, t = lane & 3;
+  named_sync(1, kConsumers);                // every stage is consumed
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * w + g + 8 * h;
+      *reinterpret_cast<float2*>(smem + (c >> 5) * (kBM * 128) +
+                                 swz(r, (c & 31) >> 2) + (c & 3) * 4) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  named_sync(1, kConsumers);
+  const int rows = min(kBM, M - m0);
+  if (stats) {
+    // a column pair and 32 rows per thread, then the four ranges in order
+    constexpr int kParts = 2 * kConsumers / BN;
+    constexpr int kRows = kBM / kParts;
+    float* red = reinterpret_cast<float*>(smem + kBM * BN * 4);
+    const int col = 2 * (ct % (BN / 2)), part = ct / (BN / 2);
+    const unsigned char* blk = smem + (col >> 5) * (kBM * 128);
+    const int chunk = (col & 31) >> 2, within = (col & 3) * 4;
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    const int r1 = min(rows, (part + 1) * kRows);
+#pragma unroll 4
+    for (int r = part * kRows; r < r1; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(blk + swz(r, chunk) +
+                                                        within);
+      s1[0] += v.x;
+      s1[1] += v.y;
+      s2[0] = fmaf(v.x, v.x, s2[0]);
+      s2[1] = fmaf(v.y, v.y, s2[1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      red[(part * 2) * BN + col + e] = s1[e];
+      red[(part * 2 + 1) * BN + col + e] = s2[e];
+    }
+    named_sync(1, kConsumers);
+    if (ct < BN && n0 + ct < N) {
+      float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < kParts; ++q) {
+        t1 += red[(q * 2) * BN + ct];
+        t2 += red[(q * 2 + 1) * BN + ct];
+      }
+      const size_t row = static_cast<size_t>(m0 / kBM) * 2;
+      stats[row * N + n0 + ct] = t1;
+      stats[(row + 1) * N + n0 + ct] = t2;
+    }
+  }
+  constexpr int kVecs = BN / 4;               // 16-byte vectors in a row
+  for (int v = ct; v < kBM * kVecs; v += kConsumers) {
+    const int r = v / kVecs, c4 = v % kVecs;
+    const int n = n0 + 4 * c4;
+    if (r < rows && n < N) {
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          smem + (c4 >> 3) * (kBM * 128) + swz(r, c4 & 7));
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + r) * N + n) =
+          val;
+    }
+  }
+}
+
+// One operand of cf90_split3_kernel: dst (3, R, O) bf16, the pieces of
+// src[i s_i + j s_j]; its 32 x 32 tiles are the blocks [tile0, tile0 +
+// ceil(R / 32) ceil(O / 32)) of the launch.
+struct Split3Op {
+  const float* src;
+  long long s_i, s_j;
+  bf16* dst;
+  int R, O;
+  long long tile0;
+};
+constexpr int kSplitOps = 3;
+struct Split3Args {
+  Split3Op op[kSplitOps];
+  int n;
+};
+
+// dst[p][i][j] = piece p of src[i s_i + j s_j] for i < R, j < O, of each
+// operand, through a 32 x 32 tile in shared memory so that both the reads
+// (along the unit stride, j's when s_j is 1, else i's) and the writes
+// (along j) are coalesced. One launch makes every plane a call needs (B's,
+// and x's for the dual wgrad); the tiles lie on a 1-D grid, so R is not
+// bound by gridDim.y.
+__global__ void __launch_bounds__(256)
+cf90_split3_kernel(const __grid_constant__ Split3Args p) {
+  __shared__ float tile[32][33];
+  Split3Op q = p.op[0];
+#pragma unroll
+  for (int o = 1; o < kSplitOps; ++o)   // static indices: no local copy
+    if (o < p.n && blockIdx.x >= p.op[o].tile0) q = p.op[o];
+  const long long t = blockIdx.x - q.tile0;
+  const int tj = (q.O + 31) / 32;
+  const int i0 = static_cast<int>(t / tj) * 32;
+  const int j0 = static_cast<int>(t % tj) * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (q.s_j == 1) {
+    for (int k = ty; k < 32; k += 8) {
+      const int i = i0 + k, j = j0 + tx;
+      tile[k][tx] = i < q.R && j < q.O
+                        ? q.src[static_cast<long long>(i) * q.s_i + j]
+                        : 0.f;
+    }
+  } else {
+    for (int k = ty; k < 32; k += 8) {
+      const int i = i0 + tx, j = j0 + k;
+      tile[tx][k] = i < q.R && j < q.O
+                        ? q.src[i * q.s_i + static_cast<long long>(j) * q.s_j]
+                        : 0.f;
+    }
+  }
+  __syncthreads();
+  const size_t plane = static_cast<size_t>(q.R) * q.O;
+  for (int k = ty; k < 32; k += 8) {
+    const int i = i0 + k, j = j0 + tx;
+    if (i < q.R && j < q.O) {
+      const float v = tile[k][tx];
+      const bf16 hi = __float2bfloat16_rn(v);
+      const float r1 = __fsub_rn(v, __bfloat162float(hi));
+      const bf16 mid = __float2bfloat16_rn(r1);
+      const size_t at = static_cast<size_t>(i) * q.O + j;
+      q.dst[at] = hi;
+      q.dst[plane + at] = mid;
+      q.dst[2 * plane + at] =
+          __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+    }
+  }
+}
+
+struct Conv3X3Args {
+  const float* a; const float* b;
+  float* y; float* stats;
+  int M, C, N, H, W;
+};
+
+// conv3_fused in float32: y (M x N) = conv3x3_s1_p1(relu(a x + b)) over
+// 128 x 128 tiles of y, the reduction over (tap, 32-channel slice) stages,
+// index tap C + c. Tap (r, s)'s A box is the tile's 128 rows of x shifted by
+// (r - 1) W + (s - 1) flat rows (rows outside [0, M) read 0), transformed in
+// float32, then each row whose tapped pixel lies outside its own image and
+// the channels c >= C zeroed, then split. B is W9's pieces (3, 9 C, N),
+// which cf90_split3_kernel makes once a call. The epilogue stores y in
+// float32 and sums the stats over it.
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_conv3_x3_kernel(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw,
+                     const Conv3X3Args p) {
+  using P = PlanConv3X3;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int nc = (p.C + kBK3 - 1) / kBK3, nk = 9 * nc;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN3;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&tx);
+      tma_prefetch(&tw);
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, tap = kb / nc, c0 = (kb - tap * nc) * kBK3;
+        const uint32_t cb = 4 * min(kBK3, p.C - c0);
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], kRaw3 + kB3 + 2 * cb);
+        tma_load_2d(st, &tx, &full[s], c0,
+                    m0 + (tap / 3 - 1) * p.W + (tap % 3 - 1));
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int e = 0; e < kBN3 / 64; ++e)
+            tma_load_3d(st + kRaw3 + j * kPieceB3 + e * kBlk3, &tw,
+                        &full[s], n0 + 64 * e, tap * p.C + c0, j);
+        bulk_load(st + P::kCoef, p.a + c0, cb, &full[s]);
+        bulk_load(st + P::kCoef + 128, p.b + c0, cb, &full[s]);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // bit tap of inside[h]: this thread's row h (fragment rows g and
+    // g + 8) taps a pixel of its own image there
+    uint32_t inside[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 64 * wg + 16 * w + g + 8 * h;
+      const int hh = (m / p.W) % p.H, ww = m % p.W;
+      inside[h] = 0;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ih = hh + tap / 3 - 1, iw = ww + tap % 3 - 1;
+        if (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W)
+          inside[h] |= 1u << tap;
+      }
+    }
+    float acc[kBN3 / 2];
+#pragma unroll
+    for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    // stage kb's fragments: x -> relu(a x + b) in float32, the halo rows and
+    // the channels c >= C zeroed, then three pieces
+    auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[2][3][4]) {
+      ring.wait_full(kb);
+      const int tap = kb / nc;
+      const int cl = p.C - (kb - tap * nc) * kBK3;  // channels left
+      const bool in0 = (inside[0] >> tap) & 1, in1 = (inside[1] >> tap) & 1;
+      const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {             // q & 1: row + 8
+          const int r = 64 * wg + 16 * w + g + 8 * (q & 1);
+          const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
+          const float2 v = *reinterpret_cast<const float2*>(
+              st + swz(r, kl >> 2) + (kl & 3) * 4);
+          const float2 ca = *reinterpret_cast<const float2*>(cf + kl);
+          const float2 cb = *reinterpret_cast<const float2*>(cf + 32 + kl);
+          float v0 = fmaxf(affine(v.x, ca.x, cb.x), 0.f);
+          float v1 = fmaxf(affine(v.y, ca.y, cb.y), 0.f);
+          if (!((q & 1) ? in1 : in0) || kl >= cl) v0 = v1 = 0.f;
+          split3(v0, v1, fa[ks][0][q], fa[ks][1][q], fa[ks][2][q]);
+        }
+    };
+    mainloop3_rs<P::kStage, S, kRaw3>(acc, nk, smem, ring, lane, build);
+    store_tile_f32(acc, smem, p.y, p.stats, m0, n0, p.M, p.N);
+  }
+}
+
+struct DgradX3Args {
+  const float* gc_a; const float* gc_b;  // (3, N) float32 each
+  float* dx;
+  int M, C, Na, Nb;
+};
+
+// dgrad_epilogue's dgrad in float32: dx (M x C) = G_a W_a^T + G_b W_b^T over
+// 128 x 128 tiles of dx, both sets meeting in the one float32 accumulator:
+// set a's 32-deep stages, then set b's (a set's tail columns n >= N_set
+// masked to 0 after the transform). G = (dzn g0 - g1) - yout g2 in float32,
+// then three pieces; B is W_set^T's pieces (3, N_set, C). Column tile kb mod
+// (column tiles) writes stage kb's G pieces over the warpgroup's raw rows
+// and stores them by TMA into tg_set (3, M, N_set) (rows >= M and columns
+// >= N_set are not written) for the wgrad launch that follows.
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_dual_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn_a,
+                          const __grid_constant__ CUtensorMap tyout_a,
+                          const __grid_constant__ CUtensorMap tw_a,
+                          const __grid_constant__ CUtensorMap tg_a,
+                          const __grid_constant__ CUtensorMap tdzn_b,
+                          const __grid_constant__ CUtensorMap tyout_b,
+                          const __grid_constant__ CUtensorMap tw_b,
+                          const __grid_constant__ CUtensorMap tg_b,
+                          const DgradX3Args p) {
+  using P = PlanDgradX3;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int sa = (p.Na + kBK3 - 1) / kBK3;
+  const int nk = sa + (p.Nb + kBK3 - 1) / kBK3;
+  const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN3;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S;
+        const bool set_a = kb < sa;
+        const int r0 = (set_a ? kb : kb - sa) * kBK3;
+        const int nset = set_a ? p.Na : p.Nb;
+        const float* gc = set_a ? p.gc_a : p.gc_b;
+        const uint32_t cb = 4 * min(kBK3, nset - r0);
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], 2 * kRaw3 + kB3 + 3 * cb);
+        tma_load_2d(st, set_a ? &tdzn_a : &tdzn_b, &full[s], r0, m0);
+        tma_load_2d(st + kRaw3, set_a ? &tyout_a : &tyout_b, &full[s], r0,
+                    m0);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int e = 0; e < kBN3 / 64; ++e)
+            tma_load_3d(st + 2 * kRaw3 + j * kPieceB3 + e * kBlk3,
+                        set_a ? &tw_a : &tw_b, &full[s], c0 + 64 * e, r0, j);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          bulk_load(st + P::kCoef + 128 * i, gc + i * nset + r0, cb,
+                    &full[s]);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[kBN3 / 2];
+#pragma unroll
+    for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[2][3][4]) {
+      ring.wait_full(kb);
+      const bool set_a = kb < sa;
+      const int r0 = (set_a ? kb : kb - sa) * kBK3;
+      const int nl = (set_a ? p.Na : p.Nb) - r0;
+      const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {             // q & 1: row + 8
+          const int r = 64 * wg + 16 * w + g + 8 * (q & 1);
+          const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
+          const uint32_t off = swz(r, kl >> 2) + (kl & 3) * 4;
+          const float2 dz = *reinterpret_cast<const float2*>(st + off);
+          const float2 yo = *reinterpret_cast<const float2*>(st + kRaw3 +
+                                                             off);
+          const float2 g0 = *reinterpret_cast<const float2*>(cf + kl);
+          const float2 g1 = *reinterpret_cast<const float2*>(cf + 32 + kl);
+          const float2 g2 = *reinterpret_cast<const float2*>(cf + 64 + kl);
+          float v0 = bn_g(dz.x, yo.x, g0.x, g1.x, g2.x);
+          float v1 = bn_g(dz.y, yo.y, g0.y, g1.y, g2.y);
+          if (kl >= nl) v0 = v1 = 0.f;
+          split3(v0, v1, fa[ks][0][q], fa[ks][1][q], fa[ks][2][q]);
+        }
+      if (kb % gridDim.x == blockIdx.x) {
+        // the pieces as three plain 64 x 32 bf16 tiles over this
+        // warpgroup's raw rows (its dzn rows hold pieces 0 and 1, its yout
+        // rows piece 2), once every thread has read them; release() waits
+        // for the stores to have read them before the stage is refilled
+        unsigned char* pb[3] = {st + wg * kWgRaw3,
+                                st + wg * kWgRaw3 + kWgRaw3 / 2,
+                                st + kRaw3 + wg * kWgRaw3};
+        named_sync(2 + wg, 128);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              *reinterpret_cast<uint32_t*>(
+                  pb[j] + (16 * w + g + 8 * (q & 1)) * 64 +
+                  (16 * ks + 2 * t + 8 * (q >> 1)) * 2) = fa[ks][j][q];
+        fence_async_smem();
+        named_sync(2 + wg, 128);
+        if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            tma_store_3d(set_a ? &tg_a : &tg_b, pb[j], r0, m0 + 64 * wg, j);
+        }
+      }
+    };
+    mainloop3_rs<P::kStage, S, 2 * kRaw3>(acc, nk, smem, ring, lane, build);
+    store_tile_f32(acc, smem, p.dx, nullptr, m0, c0, p.M, p.C);
+  }
+}
+
+// ws[split, n, c] = sum over this split's rows m of G[m, n] x[m, c] in
+// float32 from the pieces of both: the six piece products a 32-row stage,
+// A = G^T's pieces and B = x's (3, M, C) pieces, both MN-major straight
+// from the stage (rows >= M read 0), into a fresh partial added to the
+// running sum in stage order; two partials alternate so that one stage's
+// products run while the previous one's partial is added. Output row tiles
+// as the bf16 dual wgrad's (set a's, then set b's).
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_dual_wgrad_x3_kernel(const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tg_a,
+                          const __grid_constant__ CUtensorMap tg_b,
+                          const WgradArgs p) {
+  using P = PlanWgradX3;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int ta = (p.Na + kBM - 1) / kBM;
+  const bool set_a = static_cast<int>(blockIdx.x) < ta;
+  const int nset = set_a ? p.Na : p.Nb;
+  const int n0 = (set_a ? blockIdx.x : blockIdx.x - ta) * kBM;
+  const int c0 = blockIdx.y * kBN3;
+  const int mb = blockIdx.z * p.chunk;
+  const int nk = (min(p.M, mb + p.chunk) - mb + kBK3 - 1) / kBK3;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      const CUtensorMap* tg = set_a ? &tg_a : &tg_b;
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, r0 = mb + kb * kBK3;
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], 3 * kPieceA3 + kB3);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          tma_load_3d(st + j * kPieceA3, tg, &full[s], n0, r0, j);
+          tma_load_3d(st + j * kPieceA3 + kBlk3, tg, &full[s], n0 + 64, r0,
+                      j);
+#pragma unroll
+          for (int e = 0; e < kBN3 / 64; ++e)
+            tma_load_3d(st + 3 * kPieceA3 + j * kPieceB3 + e * kBlk3,
+                        &tx, &full[s], c0 + 64 * e, r0, j);
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[kBN3 / 2], p0[kBN3 / 2], p1[kBN3 / 2];
+#pragma unroll
+    for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    const int a_ofs = wg * kBlk3, b_ofs = 3 * kPieceA3;
+    for (int kb = 0; kb < nk; kb += 2) {
+      ring.wait_full(kb);
+      const unsigned char* st = smem + (kb % S) * P::kStage;
+      issue6_ss(p0, st + a_ofs, st + b_ofs);
+      if (kb > 0) {                             // stage kb - 1's partial
+        wgmma_wait<1>();
+        fence_regs(p1);
+        add_partial(acc, p1);
+        ring.release(kb - 1, lane);
+      }
+      if (kb + 1 >= nk) {
+        wgmma_wait<0>();
+        fence_regs(p0);
+        add_partial(acc, p0);
+        ring.release(kb, lane);
+        break;
+      }
+      ring.wait_full(kb + 1);
+      st = smem + ((kb + 1) % S) * P::kStage;
+      issue6_ss(p1, st + a_ofs, st + b_ofs);
+      wgmma_wait<1>();
+      fence_regs(p0);
+      add_partial(acc, p0);
+      ring.release(kb, lane);
+    }
+    if (nk > 0 && nk % 2 == 0) {
+      wgmma_wait<0>();
+      fence_regs(p1);
+      add_partial(acc, p1);
+      ring.release(nk - 1, lane);
+    }
+    // float32 partials straight from the fragments: rows n < N_set of the
+    // set's block of ws, columns c < C
+    float* ws = p.ws + static_cast<size_t>(blockIdx.z) * (p.Na + p.Nb) * p.C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * wg + 16 * w + g + 8 * h;
+      if (n >= nset) continue;
+      float* row = ws + static_cast<size_t>((set_a ? 0 : p.Na) + n) * p.C;
+#pragma unroll
+      for (int j = 0; j < kBN3 / 8; ++j) {
+        const int c = c0 + 8 * j + 2 * t;
+        if (c < p.C)
+          *reinterpret_cast<float2*>(row + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 // --------------------------------------------------------------- host side
 using EncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -1241,6 +1876,48 @@ bool make_map(CUtensorMap* map, const void* ptr, long long inner,
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
              const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A float32 2-D map over `outer` rows of `inner` contiguous values, `stride`
+// values apart, read in 128B-swizzled boxes of {32, box_outer} (one 128-byte
+// row of 32 floats); out-of-range elements read as 0.
+bool make_map_f32(CUtensorMap* map, const void* ptr, long long inner,
+                  long long outer, long long stride, int box_outer) {
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over three contiguous bf16 piece planes (3, rows, inner): boxes
+// of {64, box_rows, 1}, 128B-swizzled (swizzle), or plain {32, box_rows, 1}
+// (the dual dgrad's stores of G's pieces). Elements outside a plane's rows
+// and columns read as 0 and are not written.
+bool make_map_pieces(CUtensorMap* map, const void* ptr, long long inner,
+                     long long rows, int box_rows, bool swizzle) {
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows), 3};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner * rows) * 2};
+  const cuuint32_t box[3] = {swizzle ? 64u : 32u,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1547,4 +2224,119 @@ int conv_fused_sm90_conv3_bwd_launch(
   if (bn == 64) return conv3_bwd_bn<64>(m, p, q, splits, st);
   if (bn == 128) return conv3_bwd_bn<128>(m, p, q, splits, st);
   return conv3_bwd_bn<256>(m, p, q, splits, st);
+}
+
+// The float32 route's piece planes, n (1-3) operands in one launch: desc
+// holds n records {src, s_i, s_j, R, O, dst}, and operand k's dst (3, R, O)
+// bf16 receives dst[p][i][j] = piece p (hi, mid, lo) of src[i * s_i + j *
+// s_j], hi + mid + lo exact. Returns a cudaError_t as int.
+int conv_fused_sm90_split3_launch(int n, const long long* desc,
+                                  void* stream) {
+  if (n < 1 || n > kSplitOps || !desc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Split3Args p{};
+  p.n = n;
+  long long tiles = 0;
+  for (int k = 0; k < n; ++k) {
+    const long long* d = desc + 6 * k;
+    Split3Op& q = p.op[k];
+    q.src = reinterpret_cast<const float*>(d[0]);
+    q.s_i = d[1];
+    q.s_j = d[2];
+    q.dst = reinterpret_cast<bf16*>(d[5]);
+    if (!q.src || !q.dst || d[3] < 1 || d[4] < 1 || d[3] > INT_MAX ||
+        d[4] > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    q.R = static_cast<int>(d[3]);
+    q.O = static_cast<int>(d[4]);
+    q.tile0 = tiles;
+    tiles += ((d[3] + 31) / 32) * ((d[4] + 31) / 32);
+  }
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cf90_split3_kernel<<<static_cast<unsigned>(tiles), dim3(32, 8), 0,
+                       static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 3x3 forward: x (M, C) float32 NHWC rows of M / (H W) images,
+// wp (3, 9 C, N) bf16 the pieces of W9 with the reduction index tap C + c;
+// y (M, N) float32, stats (ceil(M / 128), 2, N) float32 partials or null;
+// C and N multiples of 8, every pointer 16-byte aligned.
+int conv_fused_sm90_conv3_x3_launch(const float* x, const float* a,
+                                    const float* b, const void* wp, float* y,
+                                    float* stats, int M, int C, int N, int H,
+                                    int W, void* stream) {
+  if (M < 0 || C < 8 || N < 8 || C % 8 || N % 8 || H < 1 || W < 1 ||
+      M % (H * W) || (M + kBM - 1) / kBM > 65535 || !x || !a || !b || !wp ||
+      !y)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  CUtensorMap tx, tw;
+  if (!make_map_f32(&tx, x, C, M, C, kBM) ||
+      !make_map_pieces(&tw, wp, N, 9LL * C, kBK3, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Conv3X3Args p{a, b, y, stats, M, C, N, H, W};
+  const dim3 grid((N + kBN3 - 1) / kBN3, (M + kBM - 1) / kBM);
+  return launch<cf90_conv3_x3_kernel>(PlanConv3X3::kSmem, grid,
+                                      static_cast<cudaStream_t>(stream), tx,
+                                      tw, p);
+}
+
+// The float32 dual dgrad: dx (M, C) float32 = G_a W_a^T + G_b W_b^T with
+// G_set = (dzn g0 - g1) - yout g2 from dzn, yout (M, N_set) float32 and gc
+// (3, N_set); wp_set (3, N_set, C) bf16 the pieces of W_set^T; gp_set
+// (3, M, N_set) bf16 receives G_set's pieces for the wgrad. C, Na and Nb
+// multiples of 8, every pointer 16-byte aligned.
+int conv_fused_sm90_dual_dgrad_x3_launch(
+    const float* dzn_a, const float* yout_a, const float* gc_a,
+    const void* wp_a, void* gp_a, const float* dzn_b, const float* yout_b,
+    const float* gc_b, const void* wp_b, void* gp_b, float* dx, int M, int C,
+    int Na, int Nb, void* stream) {
+  if (M < 0 || C < 8 || Na < 8 || Nb < 8 || C % 8 || Na % 8 || Nb % 8 ||
+      (M + kBM - 1) / kBM > 65535 || !dzn_a || !yout_a || !gc_a || !wp_a || !gp_a || !dzn_b || !yout_b ||
+      !gc_b || !wp_b || !gp_b || !dx)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  CUtensorMap m[8];
+  if (!make_map_f32(&m[0], dzn_a, Na, M, Na, kBM) ||
+      !make_map_f32(&m[1], yout_a, Na, M, Na, kBM) ||
+      !make_map_pieces(&m[2], wp_a, C, Na, kBK3, true) ||
+      !make_map_pieces(&m[3], gp_a, Na, M, 64, false) ||
+      !make_map_f32(&m[4], dzn_b, Nb, M, Nb, kBM) ||
+      !make_map_f32(&m[5], yout_b, Nb, M, Nb, kBM) ||
+      !make_map_pieces(&m[6], wp_b, C, Nb, kBK3, true) ||
+      !make_map_pieces(&m[7], gp_b, Nb, M, 64, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DgradX3Args p{gc_a, gc_b, dx, M, C, Na, Nb};
+  const dim3 grid((C + kBN3 - 1) / kBN3, (M + kBM - 1) / kBM);
+  return launch<cf90_dual_dgrad_x3_kernel>(
+      PlanDgradX3::kSmem, grid, static_cast<cudaStream_t>(stream), m[0], m[1],
+      m[2], m[3], m[4], m[5], m[6], m[7], p);
+}
+
+// The float32 dual wgrad: ws (splits, Na + Nb, C) float32 partials of
+// [dW_a; dW_b] in the gluon order from xp (3, M, C), the pieces of x, and
+// the dgrad's gp_a (3, M, Na) and gp_b (3, M, Nb); split s covers rows
+// [s * chunk, (s + 1) * chunk), chunk a multiple of 64.
+int conv_fused_sm90_dual_wgrad_x3_launch(const void* xp, const void* gp_a,
+                                         const void* gp_b, float* ws,
+                                         int splits, int chunk, int M, int C,
+                                         int Na, int Nb, void* stream) {
+  if (M < 1 || C < 8 || Na < 8 || Nb < 8 || C % 8 || Na % 8 || Nb % 8 ||
+      !xp || !gp_a || !gp_b || !ws || splits < 1 || splits > 65535 ||
+      chunk < kBK || chunk % kBK ||
+      static_cast<long long>(splits - 1) * chunk >= M ||
+      static_cast<long long>(splits) * chunk < M)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[3];
+  if (!make_map_pieces(&m[0], xp, C, M, kBK3, true) ||
+      !make_map_pieces(&m[1], gp_a, Na, M, kBK3, true) ||
+      !make_map_pieces(&m[2], gp_b, Nb, M, kBK3, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WgradArgs p{ws, chunk, M, C, Na, Nb};
+  const dim3 grid((Na + kBM - 1) / kBM + (Nb + kBM - 1) / kBM,
+                  (C + kBN3 - 1) / kBN3, splits);
+  return launch<cf90_dual_wgrad_x3_kernel>(
+      PlanWgradX3::kSmem, grid, static_cast<cudaStream_t>(stream), m[0], m[1],
+      m[2], p);
 }

@@ -6,10 +6,14 @@ The kernels themselves build and run only on the card (``chip_smoke.py``
 phase 13 holds them against their twins there). What the CPU can check is
 the Python that decides, before every launch, which route a call takes and
 how the launch is tiled: every ResNet-50 stage-2/3/4 shape of the lane at
-batch 128 takes the Hopper route in bf16 and never in float32; every shape
-of the card's sweep takes the route the plan says; each tile plan fits the
-shared memory of a block; the dW row splits cover the rows exactly once in
-a fixed order; and the wrappers still refuse CPU tensors. Shapes at the
+batch 128 takes the Hopper route in bf16; in float32, ``conv3_fused`` and
+``dgrad_epilogue`` take the three-piece route ("sm90x3",
+``cf90_conv3_x3_kernel`` and the ``*_x3`` dual dgrad and wgrad) at every
+stage-2/3/4 shape at batch 16 and 128, and the other three forms the SIMT
+kernels; every shape of the card's sweep takes the route the plan says;
+each tile plan fits the shared memory of a block; the dW row splits cover
+the rows exactly once in a fixed order; and the wrappers still refuse CPU
+tensors. Shapes at the
 lane's sizes are meta tensors: they carry shapes, strides and a 16-byte
 aligned (zero) address, and no data."""
 import re
@@ -70,8 +74,11 @@ def test_resnet_lane_shapes_take_the_sm90_route_in_bf16(stage):
 
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_never_takes_the_sm90_route(stage):
+    """float32 never takes the bf16 Hopper route: the 1x1 forwards take the
+    SIMT kernel, the dual dgrad the three-piece route."""
     routes = _lane_forms(stage, F32)
-    assert routes == {case: "simt" for case in routes}
+    assert routes == {case: "sm90x3" if case == "dual dgrad" else "simt"
+                      for case in routes}
 
 
 @pytest.mark.parametrize("mkn", chip_smoke.CONV_MM_SWEEP)
@@ -97,7 +104,7 @@ def test_sweep_shapes_take_the_planned_dual_route(shape, dt):
            torch.empty((3, nb), device="meta"))
     got = tcf.dgrad_epilogue_route(_act(m, k, dt), _w1x1(k, na, dt),
                                    _w1x1(k, nb, dt), acts, gcs)
-    assert got == ("sm90" if dt == BF16 else "simt")
+    assert got == ("sm90" if dt == BF16 else "sm90x3")
 
 
 def test_shapes_the_tma_cannot_read_take_the_simt_route():
@@ -271,8 +278,11 @@ def test_lane_backward_and_3x3_forms_take_the_sm90_route_in_bf16(stage):
 
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_backward_and_3x3_forms_never_take_the_sm90_route(stage):
+    """float32 never takes the bf16 Hopper route: the 1x1 backwards take
+    the SIMT kernels, the 3x3 forward the three-piece route."""
     routes = _bwd_conv3_lane_forms(stage, F32)
-    assert routes == {case: "simt" for case in routes}
+    assert routes == {case: "sm90x3" if case == "3x3" else "simt"
+                      for case in routes}
 
 
 @pytest.mark.parametrize("mkn", chip_smoke.CONV_MM_SWEEP)
@@ -299,15 +309,17 @@ def test_sweep_shapes_take_the_planned_bwd_route(mkn, dt):
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_sweep_shapes_take_the_planned_conv3_route(bhwcn, dt):
     """The card's 3x3 sweep with the gluon weight view (a K-major B), the
-    one layout the Hopper kernel is built for; a contiguous (9, C, N)
-    weight takes the SIMT kernel."""
+    one layout the bf16 Hopper kernel is built for; a contiguous (9, C, N)
+    weight takes the SIMT kernel in bf16 and the three-piece kernel in
+    float32 (the split kernel copies either layout's pieces out)."""
     B, hw, c, n = bhwcn
     x2 = _act(B * hw * hw, c, dt)
-    want = "sm90" if dt == BF16 else "simt"
+    want = "sm90" if dt == BF16 else "sm90x3"
     vecs = (_vec(c), _vec(c))
     assert tcf.conv3_fused_route(x2, _w3x3(c, n, dt), vecs) == want
     assert tcf.conv3_fused_route(
-        x2, torch.empty((9, c, n), dtype=dt, device="meta"), vecs) == "simt"
+        x2, torch.empty((9, c, n), dtype=dt, device="meta"), vecs) == (
+        "simt" if dt == BF16 else "sm90x3")
 
 
 def test_bwd_and_conv3_shapes_the_tma_cannot_read_take_the_simt_route():
@@ -346,7 +358,8 @@ def test_bwd_and_conv3_shapes_the_tma_cannot_read_take_the_simt_route():
     assert tcf.conv3_fused_route(x2, wide) == "simt"
     assert tcf.conv3_fused_route(x2, _w3x3(16, 32, BF16), (a[:16], a[:16])) \
         == "simt"
-    assert tcf.conv3_fused_route(x2.float(), _w3x3(16, 32, F32)) == "simt"
+    # float32 takes the three-piece kernel, under the same shape rules
+    assert tcf.conv3_fused_route(x2.float(), _w3x3(16, 32, F32)) == "sm90x3"
 
 
 # the raw A operands a stage of each Hopper kernel holds: its Plan<BN, n>
@@ -515,3 +528,154 @@ def test_conv3_bwd_wrapper_refuses_cpu_tensors_on_either_route(route):
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(w9, x, a, b, g, g, gc, (2, 7, 7), _route=route)
     assert (fn.launches, fn.sm90_launches) == before
+
+
+# ---------------------------------- the float32 route (three bf16 pieces)
+def _x3_lane_routes(stage, batch):
+    """{form: route} of every float32 conv form of one ResNet-50 stage's
+    fused blocks at ``batch``: conv3_fused and the dual dgrad, which take
+    the three-piece route, and the other three forms."""
+    _, mid, c4, hw, cin = chip_smoke.RESNET_STAGES[stage]
+    M = batch * hw * hw
+    xs, x, y2 = _act(M, cin, F32), _act(M, c4, F32), _act(M, mid, F32)
+    wc1, wd = _w1x1(cin, mid, F32), _w1x1(cin, c4, F32)
+    acts = (_act(M, mid, F32), _act(M, mid, F32), _act(M, c4, F32),
+            _act(M, c4, F32))
+    gcs = (torch.empty((3, mid), device="meta"),
+           torch.empty((3, c4), device="meta"))
+    return {
+        "3x3": tcf.conv3_fused_route(_act(M, mid, F32), _w3x3(mid, mid, F32),
+                                     (_vec(mid), _vec(mid))),
+        "dual dgrad": tcf.dgrad_epilogue_route(xs, wc1, wd, acts, gcs),
+        "entry": tcf.mm_fused_route(x, _w1x1(c4, mid, F32), _act(M, c4, F32),
+                                    (_vec(c4),) * 4),
+        "expand bwd": tcf.mm_fused_bwd_route(
+            y2, _w1x1(mid, c4, F32), (_act(M, c4, F32),) * 2 + (y2,),
+            (_vec(mid), _vec(mid), gcs[1])),
+        "3x3 bwd": _conv3_bwd_route(M, mid, mid, F32),
+    }
+
+
+@pytest.mark.parametrize("batch", [16, 128])
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_float32_conv3_and_dual_dgrad_take_the_x3_route(stage, batch):
+    """At every stage-2/3/4 shape at batch 16 (the float32 truth phase's)
+    and 128 (the lane's), float32 conv3_fused and dgrad_epilogue take the
+    three-piece kernels; mm_fused, mm_fused_bwd and conv3_fused_bwd stay on
+    the SIMT ones."""
+    routes = _x3_lane_routes(stage, batch)
+    assert routes == {"3x3": "sm90x3", "dual dgrad": "sm90x3",
+                      "entry": "simt", "expand bwd": "simt",
+                      "3x3 bwd": "simt"}
+
+
+def test_float32_shapes_the_x3_route_cannot_take_take_simt():
+    """C, N or K not a multiple of 8, no rows, a misaligned activation or
+    vector, a weight with no unit stride, 3x3 taps that are not one
+    (9 C, N) matrix, mixed types."""
+    x2, w9 = _act(98, 16, F32), _w3x3(16, 32, F32)
+    assert tcf.conv3_fused_route(x2, w9) == "sm90x3"
+    assert tcf.conv3_fused_route(_act(98, 12, F32), _w3x3(12, 32, F32)) \
+        == "simt"
+    assert tcf.conv3_fused_route(x2, _w3x3(16, 36, F32)) == "simt"
+    assert tcf.conv3_fused_route(_act(0, 16, F32), w9) == "simt"
+    base = torch.empty((99 * 16,), dtype=F32)
+    assert tcf.conv3_fused_route(base[1:1 + 98 * 16].reshape(98, 16), w9) \
+        == "simt"
+    a = torch.empty((17,), dtype=F32)[1:]
+    assert tcf.conv3_fused_route(x2, w9, (a, a)) == "simt"
+    taps = torch.empty((3, 3, 32, 16), dtype=F32).permute(
+        0, 1, 3, 2).reshape(9, 16, 32)
+    assert tcf.conv3_fused_route(x2, taps) == "simt"
+    wide = torch.empty((9, 16, 64), dtype=F32)[:, :, ::2]
+    assert tcf.conv3_fused_route(x2, wide) == "simt"
+    assert tcf.conv3_fused_route(x2, w9.to(BF16)) == "simt"
+    x, w = _act(256, 64, F32), _w1x1(64, 32, F32)
+    acts = (_act(256, 32, F32),) * 4
+    assert tcf.dgrad_epilogue_route(x, w, w, acts) == "sm90x3"
+    # the two weights need not share a layout: each is split on its own
+    assert tcf.dgrad_epilogue_route(
+        x, w, torch.empty((64, 32), dtype=F32), acts) == "sm90x3"
+    assert tcf.dgrad_epilogue_route(_act(256, 60, F32), _w1x1(60, 32, F32),
+                                    _w1x1(60, 32, F32), acts) == "simt"
+    assert tcf.dgrad_epilogue_route(x, _w1x1(64, 36, F32), w, acts) == "simt"
+    assert tcf.dgrad_epilogue_route(_act(0, 64, F32), w, w, acts) == "simt"
+    odd = torch.empty((257 * 32,), dtype=F32)[1:1 + 256 * 32].reshape(256, 32)
+    assert tcf.dgrad_epilogue_route(x, w, w, (odd,) + acts[1:]) == "simt"
+    strided = torch.empty((64, 64), dtype=F32)[:, ::2]
+    assert tcf.dgrad_epilogue_route(x, strided, w, acts) == "simt"
+    assert tcf.dgrad_epilogue_route(x, w, w, acts, (a, a)) == "simt"
+
+
+@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue"])
+@pytest.mark.parametrize("route", [None, "simt"])
+def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
+    x = torch.randn(98, 16)
+    w9 = _w3x3(16, 32, F32, "cpu").normal_()
+    w = _w1x1(16, 32, F32, "cpu").normal_()
+    g, gc = torch.randn(98, 32), torch.randn(3, 32)
+    a, b = torch.ones(16), torch.zeros(16)
+    call = {"conv3_fused": lambda: tcf.conv3_fused(x, w9, a, b, (2, 7, 7),
+                                                   _route=route),
+            "dgrad_epilogue": lambda: tcf.dgrad_epilogue(
+                w, w, x, g, g, gc, g, g, gc, _route=route)}[kernel]
+    assert tcf.conv3_fused_route(x, w9, (a, b)) == "sm90x3"
+    assert tcf.dgrad_epilogue_route(x, w, w, (g,) * 4, (gc, gc)) == "sm90x3"
+    fn = getattr(tcf, kernel)
+    before = (fn.launches, fn.sm90_launches, fn.x3_launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
+    assert (fn.launches, fn.sm90_launches, fn.x3_launches) == before
+
+
+def test_reset_clears_the_x3_counts():
+    tcf.conv3_fused.x3_launches += 2
+    assert common.x3_launch_counts()["conv3_fused"] >= 2
+    common.reset_launch_counts()
+    assert set(common.x3_launch_counts().values()) == {0}
+
+
+def test_the_library_exports_the_x3_entry_points():
+    """Each float32-route entry point is in bindings.cpp with as many
+    parameters as its ctypes signature."""
+    bindings = SRC.with_name("bindings.cpp").read_text()
+    for fn in ("mxt_conv_fused_sm90_split3", "mxt_conv_fused_sm90_conv3_x3",
+               "mxt_conv_fused_sm90_dual_dgrad_x3",
+               "mxt_conv_fused_sm90_dual_wgrad_x3"):
+        params = re.search(rf"int {fn}\(([^)]*)\)", bindings).group(1)
+        assert len(params.split(",")) == len(common._SIGNATURES[fn])
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_x3_wgrad_split_covers_the_rows_and_fills_the_card(stage):
+    """The float32 route's dual wgrad (128 x 128 tiles, six products a
+    row): its split covers the rows once and, at the lane's shapes, puts
+    at least 120 blocks on the 132 SMs."""
+    M, mid, c4, _, cin = chip_smoke.RESNET_STAGES[stage]
+    splits, chunk = tcf.sm90_wgrad_split(M, mid, c4, cin, 132, x3=True)
+    tiles = (-(-mid // 128) - (-c4 // 128)) * -(-cin // tcf.SM90_X3_BN)
+    assert chunk % tcf.SM90_BK == 0 and (splits - 1) * chunk < M \
+        <= splits * chunk
+    assert tiles * splits >= 120
+    if stage == 3:
+        assert (tiles, splits, chunk) == (40, 3, 8384)
+
+
+@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue"])
+def test_float32_rows_past_the_x3_grid_take_simt(kernel):
+    """The three-piece kernels put their 128-row tiles on gridDim.y, so at
+    most 65535 of them: one more row takes the SIMT kernels, decided
+    before the launch."""
+    limit = tcf.SM90_X3_MAX_ROWS
+    assert limit == 65535 * 128
+    c, n = 64, 64
+    if kernel == "conv3_fused":
+        def route(m):
+            return tcf.conv3_fused_route(_act(m, c, F32), _w3x3(c, n, F32))
+    else:
+        def route(m):
+            return tcf.dgrad_epilogue_route(
+                _act(m, c, F32), _w1x1(c, n, F32), _w1x1(c, n, F32),
+                (_act(m, n, F32),) * 4)
+    assert route(limit) == "sm90x3"
+    assert route(limit + 1) == "simt"

@@ -70,11 +70,15 @@ Phases:
    kernels against the same step with the plain attention (atol 1e-3);
 6. the training kernels (flash forward, dq, dk/dv): the float32 route's
    kernels as built (registers, stack, local bytes and HMMA count of each,
-   none without HMMA or with local bytes); against their plain twins, in
-   float32 (atol 1e-4 forward, 1e-3 gradients; on the split-bf16
-   ``mma.sync`` route and on the FMA route) and bf16 (2e-2, 5e-2), in the
-   packed and head-major layouts: first a sweep of small shapes (head dims
-   32/64/128, a tail tile, sq != sk, causal and not); then the product
+   none without HMMA or with local bytes) and the bf16 forward's Hopper
+   kernel at d 32/64/128 (``flash_fwd_wgmma_kernel``: HGMMA, no local
+   bytes); against their plain twins, in float32 (atol 1e-4 forward, 1e-3
+   gradients; on the split-bf16 ``mma.sync`` route and on the FMA route)
+   and bf16 (2e-2, 5e-2; the forward on its ``wgmma`` route and on the
+   WMMA kernel, ``_route="wmma"``), in the packed and head-major layouts:
+   first a sweep of small shapes (head dims 32/64/128, a tail tile,
+   sq != sk, causal and not; bf16 also T 512 and sq 1 / sk 7); then the
+   product
    check, each float32 kernel against the float64 function on both routes
    (B 2, H 12, T 512, d 64, packed, causal), the split route no worse than
    the FMA route; then at B 32, H 12, T 512, d 64, causal, with their
@@ -82,14 +86,18 @@ Phases:
    rounds, and each kernel's time replayed from a CUDA graph), SDPA's
    float32 kernels, and the bounds as in phase 3 (float32: six bf16
    products on the tensor cores, the FMA bound beside it; and the backward
-   pair's minimal bound);
-7. training: 2 warm-up steps, then 5 timed steps with the launch counters
-   reset before them; the loss must be finite and fall, and each training
-   kernel must be launched 12 times per step, every launch of the float32
-   timed steps on the split route; then a torch.profiler breakdown of two
-   more steps, with busy and wall time from the same profiled window;
+   pair's minimal bound); the bf16 forward's record: its ``wgmma`` kernel,
+   the WMMA kernel and SDPA in turns (device, graph, event ms, host µs);
+7. training: 2 warm-up steps (the first in bf16: its 12 flash forward
+   launches all on the ``wgmma`` route), then 5 timed steps with the
+   launch counters reset before them; the loss must be finite and fall,
+   and each training kernel must be launched 12 times per step, every
+   launch of the float32 timed steps on the split route; then a
+   torch.profiler breakdown of two more steps, with busy and wall time
+   from the same profiled window;
 8. the head-major route: a 2-layer step at d_model 576, 9 heads (packed
-   rows not a multiple of 128) must launch the same kernels;
+   rows not a multiple of 128) must launch the same kernels, every bf16
+   forward launch on the ``wgmma`` route;
 9. one full-width float32 loss-and-gradient pass with the kernels against
    the same pass with plain attention (loss rtol 1e-4, every gradient
    leaf within 1e-3 of its largest entry);
@@ -132,8 +140,10 @@ Phases:
    a middle block's entry-form conv1, 3x3 and expand conv3, forward and
    backward, with times beside the twin's, the library product's
    (``torch.matmul``, channels-last ``F.conv2d`` and its autograd) and the
-   bound; all five in bf16 on their Hopper route, each also forced onto
-   its SIMT kernel and timed beside it in the same call;
+   bound; all five in bf16 on their Hopper route, float32 conv3_fused,
+   dgrad_epilogue and mm_fused_bwd on the three-piece route (every 1x1
+   form of mm_fused_bwd at stages 2-4, two calls bitwise equal), each also
+   forced onto its SIMT kernel and timed beside it in the same call;
 14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
    and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
    falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
@@ -147,8 +157,9 @@ Phases:
    path (forward, dx and every non-bias parameter gradient; see
    ``resnet_truth_phase``), beside two control readings: the same fused
    stage on the plain twins, and the kernels' stage against the twins';
-   then the whole net's first-step loss, fused against per-block (rtol
-   1e-3);
+   every float32 conv3_fused, dgrad_epilogue and mm_fused_bwd launch (13,
+   3 and 23 over the stages) on the three-piece route; then the whole
+   net's first-step loss, fused against per-block (rtol 1e-3);
 17. the LSTM kernels (``lstm_fwd_gates``, ``lstm_fwd``, ``lstm_bwd``)
    against their twins, forward within 1e-4 in float32 and 2e-2 with bf16
    (over max(1, the largest entry)), backward within 1e-3 / 2e-2 of the
@@ -816,6 +827,11 @@ def f32_step_phase(tt, fa):
 
 # ------------------------------------------------------ training kernels
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the JSON line's records of phase 6: the float32 kernels (the timed
+# steps' type), then the bf16 forward's Hopper kernel
+TRAIN_RECORDS = TRAIN_KERNELS + ("flash_fwd/wgmma",)
+FLASH_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+                     "flash_attention_sm90.cu")
 # (forward atol, gradient atol) per input type
 TRAIN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 5e-2)}
 
@@ -829,18 +845,21 @@ def train_kernel_sweep(fa, g):
     on the shapes the main path does not reach at full width: head dims
     32, 64 and 128; T 200 (a tail tile of 8 rows), sq 96 / sk 160 and
     sq 160 / sk 96 (key tiles no query row reaches under the top-left
-    causal mask); causal and not; both layouts and both types; B 2, H 4;
-    float32 on its split-bf16 route and on the FMA route. Tolerances as at
-    the training shapes. Returns the worst error per kernel, type and
-    route."""
+    causal mask), and in bf16 also T 512 and sq 1 / sk 7; causal and not;
+    both layouts and both types; B 2, H 4; float32 on its split-bf16 route
+    and on the FMA route, the bf16 forward on its Hopper route (checked by
+    its ``sm90_launches``) and on the WMMA kernel. Tolerances as at the
+    training shapes. Returns the worst error per kernel, type and route."""
     B, H = 2, 4
     worst = {}
     n_cases = 0
     for dt in (torch.float32, torch.bfloat16):
         atol_f, atol_b = TRAIN_TOL[dt]
-        routes = (None, "fma") if dt == torch.float32 else (None,)
+        routes = (None, "fma") if dt == torch.float32 else (None, "wmma")
+        shapes = ((200, 200), (96, 160), (160, 96)) + (
+            ((512, 512), (1, 7)) if dt == torch.bfloat16 else ())
         for d in (32, 64, 128):
-            for sq, sk in ((200, 200), (96, 160), (160, 96)):
+            for sq, sk in shapes:
                 def rnd(t):
                     return torch.randn((B, H, t, d), generator=g,
                                        device="cuda").to(dt)
@@ -864,18 +883,28 @@ def train_kernel_sweep(fa, g):
                             q, k, v, do, ref_lse, delta, **kw)
                         for route in routes:
                             rkw = dict(kw, _route=route)
+                            before = fa.flash_fwd.sm90_launches
                             out, lse = fa.flash_fwd(q, k, v, **rkw)
-                            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse,
-                                                 delta, **rkw)
-                            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse,
-                                                      delta, **rkw)
+                            if fa.flash_fwd.sm90_launches - before != (
+                                    route is None):
+                                raise AssertionError(
+                                    f"flash_fwd {dt} route {route}: not on "
+                                    f"the route asked for")
                             errs = {"flash_fwd": max(_max_err(out, ref_out),
-                                                     _max_err(lse, ref_lse)),
-                                    "flash_bwd_dq": _max_err(dq, rq),
-                                    "flash_bwd_dkv": max(_max_err(dk, rk),
-                                                         _max_err(dv, rv))}
-                            finite = all(torch.isfinite(t).all() for t in
-                                         (out, lse, dq, dk, dv))
+                                                     _max_err(lse, ref_lse))}
+                            outs = [out, lse]
+                            if route != "wmma":        # forward-only route
+                                dq = fa.flash_bwd_dq(q, k, v, do, ref_lse,
+                                                     delta, **rkw)
+                                dk, dv = fa.flash_bwd_dkv(q, k, v, do,
+                                                          ref_lse, delta,
+                                                          **rkw)
+                                errs["flash_bwd_dq"] = _max_err(dq, rq)
+                                errs["flash_bwd_dkv"] = max(_max_err(dk, rk),
+                                                            _max_err(dv, rv))
+                                outs += [dq, dk, dv]
+                            finite = all(torch.isfinite(t.float()).all()
+                                         for t in outs)
                             for name, err in errs.items():
                                 atol = (atol_f if name == "flash_fwd"
                                         else atol_b)
@@ -886,13 +915,14 @@ def train_kernel_sweep(fa, g):
                                         f"{lay}: max |kernel - plain| "
                                         f"{err} > {atol}")
                                 key = (f"{name} {str(dt)[6:]}"
-                                       f"{' fma' if route else ''}")
+                                       f"{' ' + route if route else ''}")
                                 worst[key] = max(worst.get(key, 0.0), err)
                             n_cases += 1
     log(f"shape sweep: {n_cases} cases (d 32/64/128; T 200, sq 96 sk 160, "
-        f"sq 160 sk 96; causal and not; both layouts and types; float32 "
-        f"on both routes) within tolerance; worst max_abs_err "
-        f"{json.dumps(worst)}")
+        f"sq 160 sk 96, bf16 also T 512 and sq 1 sk 7; causal and not; both "
+        f"layouts and types; float32 on both routes, the bf16 forward on "
+        f"the wgmma and the WMMA kernel) within tolerance; worst "
+        f"max_abs_err {json.dumps(worst)}")
     return worst
 
 
@@ -903,15 +933,29 @@ def _flash_mma_kernel_name(mangled):
     return None if m is None else f"{m.group(1)}<{m.group(2)}>"
 
 
+def _flash_wgmma_kernel_name(mangled):
+    """``flash_fwd_wgmma_kernel<64>`` (the head dim) from a mangled name, or
+    None for another kernel."""
+    m = re.search(r"(flash_fwd_wgmma_kernel)ILi(\d+)EE", mangled)
+    return None if m is None else f"{m.group(1)}<{m.group(2)}>"
+
+
 def flash_sass_check(common):
     """flash_attention.cu's float32-route kernels as built (forward, dq and
     dk/dv at d 32, 64 and 128), each with HMMA (``mma.sync``) and no local
-    bytes."""
-    kernels = _sass_kernels(common, "flash_attention*.o",
+    bytes; and flash_attention_sm90.cu's bf16 forward at d 32, 64 and 128,
+    each with HGMMA (``wgmma``) and no local bytes."""
+    kernels = _sass_kernels(common, "flash_attention.*o",
                             _flash_mma_kernel_name, "HMMA")
     if len(kernels) != 9:
         raise AssertionError(f"expected 9 float32-route flash kernels, "
                              f"found {sorted(kernels)}")
+    wgmma = _sass_kernels(common, "flash_attention_sm90*.o",
+                          _flash_wgmma_kernel_name, "HGMMA")
+    if len(wgmma) != 3:
+        raise AssertionError(f"expected 3 bf16 wgmma flash kernels, found "
+                             f"{sorted(wgmma)}")
+    kernels.update(wgmma)
     return kernels
 
 
@@ -1169,7 +1213,52 @@ def train_kernel_checks(fa, common):
                 f"{readings[('sdpa_bwd', None)]})")
             timings[f"sdpa {str(dt)[6:]}"] = {"fwd_ms": sdpa_fwd_ms,
                                               "bwd_ms": sdpa_bwd_ms}
+            if dt == torch.bfloat16:
+                records["flash_fwd/wgmma"] = bf16_forward_record(
+                    fa, q, k, v, hm, kw, errs["flash_fwd"],
+                    plain["flash_fwd"], work["flash_fwd"])
     return records, timings
+
+
+def bf16_forward_record(fa, q, k, v, hm, kw, err, plain_ms, work):
+    """Phase 6: the bf16 forward's JSON record at the lane (packed, causal):
+    its Hopper kernel, the old WMMA kernel (``_route="wmma"``) and SDPA on
+    the same values (head-major, its own layout) in turns (``_in_turns``:
+    device, graph and event ms and host µs, two rounds), beside the twin's
+    ms and the bound (q, k, v, out once and lse, or the causal products at
+    the bf16 peak)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    turns = _in_turns(
+        {"wgmma": lambda: fa.flash_fwd(q, k, v, **kw),
+         "wmma": lambda: fa.flash_fwd(q, k, v, _route="wmma", **kw),
+         "sdpa": lambda: sdpa(*hm[:3], is_causal=True)},
+        {"wgmma": fa.flash_fwd, "wmma": fa.flash_fwd, "sdpa": None})
+    log(f"turns flash_fwd bf16 packed: {_turns_line(turns)}")
+    new, old, lib = turns["wgmma"], turns["wmma"], turns["sdpa"]
+    moved, flops = work
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    rec = {"name": "flash_fwd/wgmma", "route": "cuda",
+           "source": FLASH_SM90_SOURCE,
+           "replaces": "incubator_mxnet_tpu/ops/pallas/flash_attention.py:699",
+           "launches": 0, "max_abs_err": err, "ms": new["event_ms"],
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib["event_ms"], "kernel_route": "wgmma",
+           "device_ms": new["device_ms"], "graph_ms": new["graph_ms"],
+           "host_us": new["host_us"],
+           "earlier_ms": old["event_ms"], "earlier_device_ms": old[
+               "device_ms"], "earlier_graph_ms": old["graph_ms"],
+           "earlier_host_us": old["host_us"],
+           "library_device_ms": lib["device_ms"],
+           "library_graph_ms": lib["graph_ms"],
+           "library_host_us": lib["host_us"],
+           "library_kernels_ms": lib["kernels"],
+           "rounds": {label: {key: val for key, val in r.items()
+                              if key.endswith("_rounds")}
+                      for label, r in turns.items()}}
+    log(f"record flash_fwd/wgmma: {json.dumps(rec)}")
+    return rec
 
 
 # --------------------------------------------------------------- training
@@ -1194,9 +1283,11 @@ def train_phase(tt, fa, records, steps=5):
                                                        device="cuda")
     tokens, labels = _batch(np.random.RandomState(0), cfg, B, T)
     losses = []
-    for _ in range(2):
-        params, opt, loss = step(params, opt, tokens, labels)
-        losses.append(loss)
+    fa.reset_launch_counts()
+    bf16_fwd = _bf16_forward_steps(fa, params, lambda p, o: step(
+        p, o, tokens, labels), opt, 2, cfg.n_layers, "train", losses)
+    params, opt = bf16_fwd.pop("state")
+    records["flash_fwd/wgmma"]["launches"] = bf16_fwd["launches"]
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1222,7 +1313,9 @@ def train_phase(tt, fa, records, steps=5):
                                  f"in {steps} steps, not "
                                  f"{cfg.n_layers * steps}")
         # the timed steps run float32 attention: all on the split route
-        want = launches[name] if timed_dtype == "float32" else 0
+        # (the forward takes a Hopper kernel in either type)
+        want = (launches[name] if timed_dtype == "float32"
+                or name == "flash_fwd" else 0)
         if split[name] != want:
             raise AssertionError(f"{name}: {split[name]} of "
                                  f"{launches[name]} launches on the split "
@@ -1235,7 +1328,40 @@ def train_phase(tt, fa, records, steps=5):
         [f"{n}_" for n in TRAIN_KERNELS])
     return {"step_ms": step_ms, "tok_s": B * T * steps / wall,
             "timed_dtype": timed_dtype, "loss_first": losses[0],
-            "loss_last": losses[-1], **breakdown}
+            "loss_last": losses[-1], "bf16_forward": bf16_fwd, **breakdown}
+
+
+def _bf16_forward_steps(fa, params, step, opt, steps, n_layers, label,
+                        losses):
+    """``steps`` LM steps, each checked for its flash forward launches:
+    ``n_layers`` a step, and in a step whose parameters are bf16 (before
+    Adam's float32 lr_t promotes them) every one on the Hopper kernel
+    (``sm90_launches``; bf16's only Hopper forward is the wgmma kernel).
+    Returns {"launches": the bf16 steps' forward launches, "steps": how
+    many steps ran in bf16, "state": (params, opt)}; at least one must."""
+    got = {"launches": 0, "steps": 0}
+    for _ in range(steps):
+        bf16 = params["layers"][0]["wq"].dtype == torch.bfloat16
+        before = (fa.flash_fwd.launches, fa.flash_fwd.sm90_launches)
+        params, opt, loss = step(params, opt)
+        losses.append(loss)
+        n = fa.flash_fwd.launches - before[0]
+        sm90 = fa.flash_fwd.sm90_launches - before[1]
+        if n != n_layers:
+            raise AssertionError(f"{label}: {n} flash_fwd launches in a "
+                                 f"step, not {n_layers}")
+        if bf16:
+            if sm90 != n:
+                raise AssertionError(f"{label}: {sm90} of {n} bf16 flash "
+                                     "forward launches on the wgmma route")
+            got["launches"] += n
+            got["steps"] += 1
+    if not got["steps"]:
+        raise AssertionError(f"{label}: no step ran in bf16")
+    log(f"{label}: {got['launches']} bf16 flash_fwd launches in "
+        f"{got['steps']} bf16 step(s), all on the wgmma route")
+    got["state"] = (params, opt)
+    return got
 
 
 def kernel_breakdown(label, step, kernel_names, steps: int = 2):
@@ -1295,9 +1421,9 @@ def headmajor_phase(tt, fa, steps=2):
     tokens, labels = _batch(np.random.RandomState(1), cfg, B)
     fa.reset_launch_counts()
     losses = []
-    for _ in range(steps):
-        params, opt, loss = step(params, opt, tokens, labels)
-        losses.append(float(loss))
+    _bf16_forward_steps(fa, params, lambda p, o: step(p, o, tokens, labels),
+                        opt, steps, cfg.n_layers, "head-major step", losses)
+    losses = [float(x) for x in losses]
     launches = fa.launch_counts()
     log(f"head-major step (d_model 576, 9 heads): losses {losses}; "
         f"launches {launches}")
@@ -1845,10 +1971,10 @@ CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                     "conv_fused_sm90.cu")
 # the JSON line's names of the phase-13/14 kernels, in its order: every
 # bf16 route is the Hopper kernels of conv_fused_sm90.cu, and so is the
-# float32 route of conv3_fused and dgrad_epilogue (three bf16 pieces a
-# float32 operand, six wgmma products a stage: "sm90x3"; phase 16 launches
-# them); the other three float32 forms take the SIMT kernels
-CONV_X3_KERNELS = ("conv3_fused", "dgrad_epilogue")
+# float32 route of conv3_fused, dgrad_epilogue and mm_fused_bwd (three bf16
+# pieces a float32 operand, six wgmma products a stage: "sm90x3"; phase 16
+# launches them); the other two float32 forms take the SIMT kernels
+CONV_X3_KERNELS = ("conv3_fused", "dgrad_epilogue", "mm_fused_bwd")
 CONV_RECORDS = tuple(f"{n}/sm90" for n in CONV_KERNELS) + tuple(
     f"{n}/sm90x3" for n in CONV_X3_KERNELS)
 CONV_REPLACES = {
@@ -2153,7 +2279,9 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
     call is its mean duration over the records the window kept, times its
     launches a call, which the wrapper's own launch counter gives over the
     window (each kernel of a wrapper launch runs once; a kernel recorded
-    more often than that is taken at its recorded count). A window can
+    more often than that is taken at its recorded count; with ``wrapper``
+    None, a library call, each kernel is taken at its recorded count,
+    once a call at least). A window can
     lose records (on an H100 it kept 4 of 5 of the fused-conv kernels', 2
     of 5 of the LSTM forward's, window after window), so neither its total
     over ``calls`` nor its count says how often a kernel ran. A window in
@@ -2163,19 +2291,21 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
     fn()
     torch.cuda.synchronize()
 
+    name = "the library call" if wrapper is None else wrapper.__name__
+
     def window():
-        before = wrapper.launches
+        before = 0 if wrapper is None else wrapper.launches
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        return (wrapper.launches - before) / calls
+        return 1 if wrapper is None else (wrapper.launches - before) / calls
     dev, per_call = _device_events(window, tries)
     if dev is None:
-        log(f"device_ms: {wrapper.__name__}'s device time not measured")
+        log(f"device_ms: {name}'s device time not measured")
         return None, {}
     if per_call < 1 or per_call != int(per_call):
-        raise AssertionError(f"device_ms: {wrapper.__name__} launched "
-                             f"{per_call} times a call")
+        raise AssertionError(f"device_ms: {name} launched {per_call} times "
+                             "a call")
     per, lost = {}, {}
     for e in dev:
         key = e.key.replace("void (anonymous namespace)::", "")[:40]
@@ -2185,9 +2315,9 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
         if e.count < runs * calls:
             lost[key] = f"{e.count} of {round(runs * calls)}"
     if lost:
-        log(f"device_ms: the window kept {lost} records of "
-            f"{wrapper.__name__}'s {calls} calls; each kernel's mean "
-            f"duration stands for its lost ones")
+        log(f"device_ms: the window kept {lost} records of {name}'s "
+            f"{calls} calls; each kernel's mean duration stands for its lost "
+            "ones")
     return sum(per.values()), per
 
 
@@ -2234,7 +2364,8 @@ def host_us(fn, calls: int = 20) -> float:
 
 def _in_turns(calls, wrapper, rounds: int = 2):
     """Device ms (:func:`device_ms`), graph ms, event ms and host µs of
-    each ``calls[label]()``, a call of the kernel wrapper ``wrapper``,
+    each ``calls[label]()``, a call of the kernel wrapper ``wrapper`` (or
+    of ``wrapper[label]``, None for a library call, when it is a dict),
     taken in turns over ``rounds`` rounds (the order reversed every other
     round) and averaged. Returns {label: {key: mean, key + "_rounds":
     readings, "kernels": the last device split}}."""
@@ -2245,7 +2376,8 @@ def _in_turns(calls, wrapper, rounds: int = 2):
     for i in range(rounds):
         for label in (labels if i % 2 == 0 else labels[::-1]):
             fn = calls[label]
-            dev, kernels[label] = device_ms(fn, wrapper)
+            dev, kernels[label] = device_ms(
+                fn, wrapper[label] if isinstance(wrapper, dict) else wrapper)
             got = reads[label]
             got["device_ms"].append(dev)
             got["graph_ms"].append(graph_ms(fn))
@@ -2272,8 +2404,9 @@ def _turns_line(res):
 
 def _conv_route(name, dt):
     """The route the plan gives a conv form of the ResNet-50 lane's
-    stages: every bf16 form the Hopper kernels; in float32, conv3_fused and
-    dgrad_epilogue the three-piece kernels, the rest the SIMT ones."""
+    stages: every bf16 form the Hopper kernels; in float32, conv3_fused,
+    dgrad_epilogue and mm_fused_bwd the three-piece kernels, the rest the
+    SIMT ones."""
     if dt == torch.bfloat16:
         return "sm90"
     return "sm90x3" if name in CONV_X3_KERNELS else "simt"
@@ -2377,13 +2510,13 @@ def _sass_kernels(common, pattern, name_of, instr, no_stack=False):
 
 def sm90_sass_check(common):
     """The Hopper kernels of conv_fused_sm90.cu as built, each with HGMMA
-    and no local bytes, the float32 route's three among them; and its piece
+    and no local bytes, the float32 route's four among them; and its piece
     split, ``cf90_split3_kernel``, with stores and no local bytes (it picks
     its operand from the launch's descriptor by static indices)."""
     kernels = _sass_kernels(common, "conv_fused_sm90*.o", _sm90_kernel_name,
                             "HGMMA")
     x3 = {"cf90_conv3_x3_kernel", "cf90_dual_dgrad_x3_kernel",
-          "cf90_dual_wgrad_x3_kernel"}
+          "cf90_dual_wgrad_x3_kernel", "cf90_bwd_dgrad_x3_kernel"}
     if not x3 <= set(kernels):
         raise AssertionError(f"the float32 route's kernels are not all in "
                              f"the build: {sorted(kernels)}")
@@ -2422,9 +2555,10 @@ def conv_kernel_checks(cf, common):
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
     every conv form of each stage (2, 3, 4) in both types. Each call takes
     the route the plan gives (``_conv_route``): every bf16 form the Hopper
-    kernels (conv_fused_sm90.cu), float32 conv3_fused and dgrad_epilogue
-    that file's three-piece kernels ("sm90x3"), the other float32 forms
-    the SIMT kernels; every call on a Hopper route is held to the twin
+    kernels (conv_fused_sm90.cu), float32 conv3_fused, dgrad_epilogue and
+    mm_fused_bwd that file's three-piece kernels ("sm90x3"), the other
+    float32 forms the SIMT kernels; every call on a Hopper route is held to
+    the twin
     again forced onto its SIMT kernel (the private ``_route="simt"``).
     Times in bf16 at every stage and in float32 at stage 3: CUDA events
     over a loop of wrapper calls, beside the twin's, the library call's
@@ -2435,8 +2569,8 @@ def conv_kernel_checks(cf, common):
     event ms and host µs of it and of the SIMT kernel in turns
     (``_in_turns``), the bound from six bf16 products (the FMA bound
     beside it), and two calls bitwise equal. Returns the JSON records (bf16
-    and the float32 three-piece route, stage 3) and a log of every
-    timing."""
+    and the float32 three-piece route, stage 3, each kernel's
+    ``CONV_RECORD_CASE``) and a log of every timing."""
     sass = sm90_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {}
@@ -2463,15 +2597,16 @@ def conv_kernel_checks(cf, common):
                     cf, name, old, "simt"), ref, dt)
                 key = f"{name} {str(dt)[6:]} simt"
                 worst[key] = max(worst.get(key, 0.0), err)
-            if route == "sm90x3" and name == "dgrad_epilogue":
+            if route == "sm90x3" and name in ("dgrad_epilogue",
+                                               "mm_fused_bwd"):
                 _x3_repeats(kern, f"{name} {case}")
             n_cases += 1
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
         f"partners, dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images "
         f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route, "
-        f"float32 conv3_fused and dgrad_epilogue on the sm90x3 route, each "
-        f"again on the simt one) within tolerance; worst "
+        f"float32 conv3_fused, dgrad_epilogue and mm_fused_bwd on the "
+        f"sm90x3 route, each again on the simt one) within tolerance; worst "
         f"{json.dumps(worst)}")
     timings = {"sass": sass, "sweep": worst}
     records = {}
@@ -2488,7 +2623,8 @@ def conv_kernel_checks(cf, common):
                     held(f"{tag} simt", _route_taken(cf, name, old, "simt"),
                          ref, dt)
                 del ref
-                if route == "sm90x3" and name == "dgrad_epilogue":
+                if route == "sm90x3" and name in ("dgrad_epilogue",
+                                                   "mm_fused_bwd"):
                     _x3_repeats(kern, tag)
                 if dt == torch.float32 and stage != 3:
                     log(f"parity {tag} ({route}): err {err:.3g}")
@@ -2548,9 +2684,9 @@ def conv_kernel_checks(cf, common):
                                moved / HBM_BYTES_PER_S * 1e3, t_ops),
                            library_ms=library_ms)
                 timings[tag] = rec
-                if stage == 3 and (route == "sm90x3" or (
-                        dt == torch.bfloat16
-                        and case == CONV_RECORD_CASE[name])):
+                if stage == 3 and (route == "sm90x3"
+                                   or dt == torch.bfloat16) \
+                        and case == CONV_RECORD_CASE[name]:
                     records[rec["name"]] = rec
                 extra = (f"; earlier (simt) {rec['earlier_ms']:.4f} ms, "
                          f"device {_ms(rec['device_ms'])} ms "
@@ -2775,9 +2911,10 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
     """Phase 16: in float32 at 224 x 224, batch 16: each fused stage (2, 3,
     4) against the same stage on the per-block path, then the whole net's
     first-step loss fused against per-block (rtol 1e-3). Every float32
-    conv3_fused (one a block) and dgrad_epilogue (one a stage) launch of
-    the fused stages takes the three-piece route ("sm90x3"); their counts
-    over the three stages are the records' launches.
+    conv3_fused (one a block), dgrad_epilogue (one a stage) and
+    mm_fused_bwd (two a block but block 0's one) launch of the fused
+    stages takes the three-piece route ("sm90x3"); their counts over the
+    three stages (13, 3, 23) are the records' launches.
 
     The forward is held to tests/test_fused_resnet.py:402's tolerance
     (rtol = atol = 1e-3). Its gradient tolerances (:406-414: dx within
@@ -2823,10 +2960,12 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
             raise AssertionError(f"the fused stage did not run its kernels: "
                                  f"{counts}")
         if not x3["conv3_fused"] == counts["conv3_fused"] == len(blocks) \
-                or x3["dgrad_epilogue"] != 1:
-            raise AssertionError(f"float32 conv3_fused / dgrad_epilogue "
-                                 f"launches off the sm90x3 route: {x3} of "
-                                 f"{counts}")
+                or x3["dgrad_epilogue"] != 1 \
+                or not x3["mm_fused_bwd"] == counts["mm_fused_bwd"] \
+                == 2 * len(blocks) - 1:
+            raise AssertionError(f"float32 conv3_fused / dgrad_epilogue / "
+                                 f"mm_fused_bwd launches off the sm90x3 "
+                                 f"route: {x3} of {counts}")
         for name in CONV_X3_KERNELS:
             x3_total[name] += x3[name]
         common.reset_launch_counts()
@@ -4738,7 +4877,7 @@ def main() -> int:
     log(f"MNIST MLP with the rtc custom softmax {json.dumps(mlp)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
-        "flash_decode_step", "flash_decode_step_paged") + TRAIN_KERNELS
+        "flash_decode_step", "flash_decode_step_paged") + TRAIN_RECORDS
         + ROW_KERNELS + CONV_RECORDS + LSTM_RECORDS + DET_KERNELS
         + RTC_KERNELS]}))
     print(card)

@@ -27,7 +27,8 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
-           CSRC / "layer_norm.cu", CSRC / "softmax.cu", CSRC / "conv_fused.cu",
+           CSRC / "flash_attention_sm90.cu", CSRC / "layer_norm.cu",
+           CSRC / "softmax.cu", CSRC / "conv_fused.cu",
            CSRC / "conv_fused_sm90.cu", CSRC / "lstm.cu",
            CSRC / "detection.cu", CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -45,6 +46,7 @@ _SIGNATURES = {
                                     _I, _I, _I, _F, _P],
     "mxt_decode_split": [_I, _I] + [_P] * 8 + [_I] * 9 + [_F, _P],
     "mxt_flash_fwd": [_P, _P, _P, _P, _P] + [_I] * 9 + [_F, _P],
+    "mxt_flash_fwd_sm90": [_P] * 5 + [_I] * 7 + [_F, _P],
     "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _P],
     "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
     "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
@@ -73,6 +75,8 @@ _SIGNATURES = {
     "mxt_conv_fused_sm90_split3": [_I, _P, _P],
     "mxt_conv_fused_sm90_conv3_x3": [_P] * 6 + [_I] * 5 + [_P],
     "mxt_conv_fused_sm90_dual_dgrad_x3": [_P] * 11 + [_I] * 4 + [_P],
+    "mxt_conv_fused_sm90_bwd_dgrad_x3": [_P] * 12 + [_I] * 2 + [_P] * 3
+                                        + [_I] * 3 + [_P],
     "mxt_conv_fused_sm90_dual_wgrad_x3": [_P] * 4 + [_I] * 6 + [_P],
     "mxt_lstm_fwd": [_I, _I, _I] + [_P] * 8 + [_I, _I, _P],
     "mxt_lstm_fwd_sm90": [_I, _I, _I] + [_P] * 8 + [_I] * 4 + [_P],
@@ -98,7 +102,7 @@ def counted_kernel(fn):
     bumps ``fn.sm90_launches`` when the call took that route, and
     ``fn.x3_launches`` as well when that route was the float32 one with
     every operand in three bf16 pieces (``conv3_fused``,
-    ``dgrad_epilogue``)."""
+    ``dgrad_epilogue``, ``mm_fused_bwd``)."""
     fn.launches = 0
     fn.sm90_launches = 0
     fn.x3_launches = 0

@@ -30,13 +30,14 @@ failure): all five in bf16, with channel counts that are multiples of 8,
 ``mm_fused_bwd``, ``conv3_fused`` and ``conv3_fused_bwd``, the one of the
 gluon weight's view), take the Hopper kernels of
 ``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted in
-``sm90_launches`` beside ``launches``); ``conv3_fused`` and
-``dgrad_epilogue`` in float32, under the same shape rules, take that file's
-float32 kernels, "sm90x3": every float32 operand of a product in three
-exact bf16 pieces, six ``wgmma`` products a stage (no TF32, so float32
-matches the plain twin; counted in ``sm90_launches`` and ``x3_launches``);
-everything else, and the other three forms in float32 always, takes the
-SIMT kernels of ``csrc/conv_fused.cu``. :func:`mm_fused_route`,
+``sm90_launches`` beside ``launches``); ``conv3_fused``,
+``dgrad_epilogue`` and ``mm_fused_bwd`` in float32, under the same shape
+rules (a weight with any unit stride), take that file's float32 kernels,
+"sm90x3": every float32 operand of a product in three exact bf16 pieces,
+six ``wgmma`` products a stage (no TF32, so float32 matches the plain
+twin; counted in ``sm90_launches`` and ``x3_launches``); everything else,
+and the other two forms in float32 always, takes the SIMT kernels of
+``csrc/conv_fused.cu``. :func:`mm_fused_route`,
 :func:`mm_fused_bwd_route`, :func:`conv3_fused_route`,
 :func:`conv3_fused_bwd_route`, :func:`dgrad_epilogue_route`,
 :func:`sm90_bn`, :func:`sm90_plan`, :func:`sm90_x3_plan` and
@@ -306,13 +307,16 @@ def sm90_x3_plan(kernel: str) -> dict:
     conv_fused_sm90.cu) for ``kernel``: "conv3" (a stage holds x's raw
     float32 128 x 32 box, W9's three 128 x 32 bf16 pieces and 1 KB of a and
     b), "dgrad" (dzn's and yout's boxes, W^T's pieces, 1 KB of g0,
-    g1, g2) or "wgrad" (G^T's three pieces and x's, 128 x 32 each); up to
-    four stages in the 200 KB budget; the epilogue's float32 128 x 128
-    staging tile and its column sums reuse them."""
+    g1, g2), "bwd" (mm_fused_bwd's dgrad: as "dgrad", and at least an
+    epilogue chunk of four 128 x 32 float32 boxes (x, dsc, two partners)
+    and 1 KB of a and b) or "wgrad" (G^T's three pieces and x's, 128 x 32
+    each); up to four stages in the 200 KB budget; the epilogue's float32
+    128 x 128 staging tile and its column sums reuse them."""
     raw = SM90_BM * SM90_X3_BK * 4
     pieces = 3 * SM90_X3_BN * SM90_X3_BK * 2
     stage = {"conv3": raw + pieces + 1024,
              "dgrad": 2 * raw + pieces + 1024,
+             "bwd": max(2 * raw + pieces + 1024, 4 * raw + 1024),
              "wgrad": 3 * SM90_BM * SM90_X3_BK * 2 + pieces}[kernel]
     stages = min(_SM90_X3_MAX_STAGES, _SM90_STAGE_BUDGET // stage)
     return {"bn": SM90_X3_BN, "bk": SM90_X3_BK, "stages": stages,
@@ -352,10 +356,19 @@ def mm_fused_bwd_route(x, w, acts=(), vecs=()) -> str:
     and N multiples of 8, at least one row, w (K, N) with K contiguous as
     the gluon weight's view gives it, x, w and the activations ``acts`` (g
     or dzn and yout, dsc, the partners) readable by the TMA and by 16-byte
-    row loads, the float32 vectors ``vecs`` (a, b, gcoef) 16-byte aligned),
-    else "simt". Every form takes it: G direct or formed on load, each
-    mask, 0-2 partners, dsc."""
+    row loads, the float32 vectors ``vecs`` (a, b, gcoef) 16-byte aligned);
+    "sm90x3" when it takes the float32 three-piece kernels (float32, the
+    same rules for K, N, x, ``acts`` and ``vecs``, at most
+    :data:`SM90_X3_MAX_ROWS` rows, w with any unit stride: the split kernel
+    copies its pieces out); else "simt". Every form takes them: G direct or
+    formed on load, each mask, 0-2 partners, dsc."""
     k, n = w.shape
+    if x.dtype == w.dtype == torch.float32:
+        ok = (1 <= x.shape[0] <= SM90_X3_MAX_ROWS
+              and all(d % 8 == 0 and d >= 8 for d in (k, n))
+              and all(_tma_ok(t) for t in (x,) + tuple(acts))
+              and all(_bulk_ok(v) for v in vecs) and 1 in w.stride())
+        return "sm90x3" if ok else "simt"
     ok = (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
           and x.shape[0] >= 1 and all(d % 8 == 0 and d >= 8 for d in (k, n))
           and w.stride(0) == 1
@@ -567,8 +580,11 @@ def mm_fused_bwd(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
     dW is a view of a (N, K) tensor, the gluon weight order. The route is
     :func:`mm_fused_bwd_route`'s; on the Hopper route the dgrad launch
     also writes the bf16 G (when formed on load) and x^ = relu(a x + b)
-    (when a is passed), the wgrad's operands. ``_route="simt"`` forces the
-    SIMT kernels."""
+    (when a is passed), the wgrad's operands; on the float32 route
+    ("sm90x3") the split kernel first makes the bf16 pieces of w^T (and of
+    x when a is not passed), the dgrad launch writes G's pieces (and x^'s
+    when a is passed), and the wgrad launch runs six piece products on
+    them. ``_route="simt"`` forces the SIMT kernels."""
     _check("mm_fused_bwd", x, w, g, dzn, yout, a, b, dsc, *partners)
     m, k = x.shape
     n = w.shape[1]
@@ -600,8 +616,37 @@ def mm_fused_bwd(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
     stream = current_stream_handle(x)
     p0 = _ptr(ps[0]) if n_p > 0 else None
     p1 = _ptr(ps[1]) if n_p > 1 else None
-    if (_route or mm_fused_bwd_route(x, w, (g, dzn, yout, dsc, *ps),
-                                     (a, b, gc))) == "sm90":
+    route = _route or mm_fused_bwd_route(x, w, (g, dzn, yout, dsc, *ps),
+                                         (a, b, gc))
+    if route == "sm90x3":
+        # pieces (3, N, K) of w^T, and (3, M, K) of x when x^ is x; the
+        # dgrad launch writes G's (3, M, N), and x^'s when a is passed
+        ops = [(w, n, k, w.stride(1), w.stride(0))]
+        if a is None:
+            ops.append((x, m, k, k, 1))
+        pieces = _pieces(name, *ops)
+        wp = pieces[0]
+        xp = pieces[1] if a is None else torch.empty(
+            (3, m, k), dtype=torch.bfloat16, device=x.device)
+        gp = torch.empty((3, m, n), dtype=torch.bfloat16, device=x.device)
+        code = lib.mxt_conv_fused_sm90_bwd_dgrad_x3(
+            _ptr(g), _ptr(dzn), _ptr(yout), _ptr(gc), _ptr(wp), _ptr(gp),
+            _ptr(x), _ptr(a), _ptr(b), _ptr(dsc), p0, p1, n_p,
+            _MASK_CODE[out_mask], _ptr(dz), _ptr(part),
+            _ptr(xp) if a is not None else None, m, k, n, stream)
+        check_launch(code, name)
+        splits, chunk = sm90_wgrad_split(m, n, 0, k, sm_count(x.device),
+                                         x3=True)
+        ws = torch.empty((splits, n, k), dtype=torch.float32,
+                         device=x.device)
+        code = lib.mxt_conv_fused_sm90_dual_wgrad_x3(
+            _ptr(xp), _ptr(gp), None, _ptr(ws), splits, chunk, m, k, n, 0,
+            stream)
+        check_launch(code, name)
+        mm_fused_bwd.sm90_launches += 1
+        mm_fused_bwd.x3_launches += 1
+        dw = ws.sum(0)
+    elif route == "sm90":
         # the dgrad launch writes the wgrad's operands: G (unless g is
         # passed) and x^ (when a is passed; else x^ is x)
         gm = g if g is not None else torch.empty((m, n), dtype=x.dtype,

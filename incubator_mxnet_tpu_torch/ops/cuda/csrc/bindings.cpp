@@ -26,6 +26,11 @@ int flash_attention_launch(int kind, int layout, int dtype, int fma,
                            float* lse_out, int B, int H, int sq, int sk,
                            int d, int causal, float scale, void* stream);
 
+int flash_fwd_sm90_launch(int layout, const void* q, const void* k,
+                          const void* v, void* out, float* lse, int B, int H,
+                          int sq, int sk, int d, int causal, float scale,
+                          void* stream);
+
 int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
                           const float* beta, void* y, float* mu, float* rstd,
                           int n, int d, float eps, void* stream);
@@ -122,6 +127,12 @@ int conv_fused_sm90_dual_dgrad_x3_launch(
     const void* wp_a, void* gp_a, const float* dzn_b, const float* yout_b,
     const float* gc_b, const void* wp_b, void* gp_b, float* dx, int M, int C,
     int Na, int Nb, void* stream);
+int conv_fused_sm90_bwd_dgrad_x3_launch(
+    const float* g, const float* dzn, const float* yout, const float* gc,
+    const void* wp, void* gp, const float* x, const float* a,
+    const float* b, const float* dsc, const float* p0, const float* p1,
+    int n_partners, int mask, float* dz, float* part, void* xhp, int M,
+    int K, int N, void* stream);
 int conv_fused_sm90_dual_wgrad_x3_launch(const void* xp, const void* gp_a,
                                          const void* gp_b, float* ws,
                                          int splits, int chunk, int M, int C,
@@ -222,6 +233,17 @@ int mxt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                                 nullptr, nullptr, out, nullptr,
                                 static_cast<float*>(lse), B, H, sq, sk, d,
                                 causal, scale, stream);
+}
+
+// The bf16 forward's Hopper route (flash_attention_sm90.cu): TMA-fed
+// wgmma, same layouts and outputs as mxt_flash_fwd.
+int mxt_flash_fwd_sm90(const void* q, const void* k, const void* v,
+                       void* out, void* lse, int B, int H, int sq, int sk,
+                       int d, int layout, int causal, float scale,
+                       void* stream) {
+  return flash_fwd_sm90_launch(layout, q, k, v, out,
+                               static_cast<float*>(lse), B, H, sq, sk, d,
+                               causal, scale, stream);
 }
 
 int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -493,7 +515,31 @@ int mxt_conv_fused_sm90_dual_dgrad_x3(const void* dzn_a, const void* yout_a,
       M, C, Na, Nb, stream);
 }
 
-// the (splits, Na + Nb, C) dW partials from x's and G's pieces
+// The float32 route of mm_fused_bwd's dgrad: dz (M, K) float32, the
+// (blocks, 1 + n_partners, K) partials, G's pieces gp (3, M, N) and, when
+// a is passed, x^'s pieces xhp (3, M, K) for the wgrad (the single-set
+// call below, Nb = 0); wp (3, N, K) the pieces of W^T
+int mxt_conv_fused_sm90_bwd_dgrad_x3(const void* g, const void* dzn,
+                                     const void* yout, const void* gc,
+                                     const void* wp, void* gp, const void* x,
+                                     const void* a, const void* b,
+                                     const void* dsc, const void* p0,
+                                     const void* p1, int n_partners,
+                                     int mask, void* dz, void* part,
+                                     void* xhp, int M, int K, int N,
+                                     void* stream) {
+  return conv_fused_sm90_bwd_dgrad_x3_launch(
+      static_cast<const float*>(g), static_cast<const float*>(dzn),
+      static_cast<const float*>(yout), static_cast<const float*>(gc), wp, gp,
+      static_cast<const float*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(dsc),
+      static_cast<const float*>(p0), static_cast<const float*>(p1),
+      n_partners, mask, static_cast<float*>(dz), static_cast<float*>(part),
+      xhp, M, K, N, stream);
+}
+
+// the (splits, Na + Nb, C) dW partials from x's and G's pieces (Nb = 0 and
+// gp_b null: one set)
 int mxt_conv_fused_sm90_dual_wgrad_x3(const void* xp, const void* gp_a,
                                       const void* gp_b, void* ws, int splits,
                                       int chunk, int M, int C, int Na, int Nb,

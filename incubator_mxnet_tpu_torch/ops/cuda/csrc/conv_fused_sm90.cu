@@ -20,15 +20,17 @@
 //   cf90_conv3_x3_kernel       <- conv3_fused (:634), float32
 //   cf90_dual_dgrad_x3_kernel \ <- dgrad_epilogue (:505), float32
 //   cf90_dual_wgrad_x3_kernel /
+//   cf90_bwd_dgrad_x3_kernel  \ <- mm_fused_bwd (:344), float32
+//   cf90_dual_wgrad_x3_kernel /    (single set)
 //   (cf90_split3_kernel makes their operands' bf16 pieces)
 // with the reference's rounding points, as conv_fused.cu keeps them: the
 // load transform (x^ = x, relu(a x + b) or relu(a x + b + asc sc + bsc);
 // G = (dzn g0 - g1) - yout g2) in float32 with both roundings of each step,
 // rounded to bf16 before the product; float32 accumulation on the tensor
 // cores; outputs rounded once; the stats summed over the ROUNDED y.
-// In float32, conv3_fused and dgrad_epilogue take the three-piece kernels
-// (no TF32 here: six bf16 products hold float32's accuracy); the other three
-// forms stay on conv_fused.cu's SIMT kernels. The wrapper
+// In float32, conv3_fused, dgrad_epilogue and mm_fused_bwd take the
+// three-piece kernels (no TF32 here: six bf16 products hold float32's
+// accuracy); the other two forms stay on conv_fused.cu's SIMT kernels. The wrapper
 // (ops/cuda/conv_fused.py) chooses the route by type and shape before the
 // launch.
 //
@@ -1214,7 +1216,8 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 }
 
 // ------------------------------------------ the float32 route (three pieces)
-// conv3_fused and dgrad_epilogue in float32 on the same machinery: every
+// conv3_fused, dgrad_epilogue and mm_fused_bwd in float32 on the same
+// machinery: every
 // float32 operand of a product is split exactly into three bf16 pieces,
 // hi + mid + lo == v (each residual exact in float32, lo holding what is
 // left), and each 32-deep stage runs the six piece products float32 needs
@@ -1223,7 +1226,7 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 // float32 partial that is then added to the running float32 accumulator
 // (the tensor cores' own sums then only span one stage). The stage is 32
 // deep because a 128-byte swizzled row holds 32 floats: the raw float32 A
-// operand (x for conv3_fused, dzn and yout for the dual dgrad) comes in as
+// operand (x for conv3_fused, dzn and yout (or g) for the dgrads) comes in as
 // one TMA box {32, 128} a map, the consumers transform it in float32 with
 // the reference's roundings (affine, bn_g), mask the halo and the
 // reduction tail after the transform, split it in registers and hand the
@@ -1231,9 +1234,10 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 // cf90_split3_kernel makes once a call, stored MN-major (the output index
 // contiguous), 64-wide boxes of 32 reduction rows, 4 KB apart. A block
 // tile is 128 x 128 (the running accumulator and the partial take 128
-// registers a thread). The dual dgrad writes its G's pieces back by TMA,
-// and the dual wgrad is then six plain piece products from shared memory
-// against x's pieces.
+// registers a thread). The dgrads write G's pieces back by TMA (the 1x1
+// backward's also x^'s), and the dual wgrad, with one set or two, is then
+// six plain piece products from shared memory against x's (or x^'s)
+// pieces.
 constexpr int kBK3 = 32;                  // reduction depth of a stage
 constexpr int kBN3 = 128;                 // output columns of a block tile
 constexpr int kBlk3 = kBK3 * 128;         // 64 MN values x 32 rows, bf16
@@ -1249,10 +1253,11 @@ constexpr int kMaxStages3 = 4;
 // boxes, or the wgrad's A pieces), B's three pieces and COEF bytes of
 // per-channel coefficients; up to kMaxStages3 stages in the budget; the
 // epilogue's float32 staging tile and its column sums reuse the ring.
-template <int A_BYTES, int COEF>
+template <int A_BYTES, int COEF, int MIN_STAGE = 0>
 struct Plan3 {
   static constexpr int kCoef = A_BYTES + kB3;        // offset in a stage
-  static constexpr int kStage = kCoef + COEF;
+  static constexpr int kStage = kCoef + COEF > MIN_STAGE ? kCoef + COEF
+                                                         : MIN_STAGE;
   static constexpr int kStages = kStageBudget / kStage < kMaxStages3
                                      ? kStageBudget / kStage
                                      : kMaxStages3;
@@ -1264,6 +1269,9 @@ struct Plan3 {
 using PlanConv3X3 = Plan3<kRaw3, 1024>;       // x; a, b
 using PlanDgradX3 = Plan3<2 * kRaw3, 1024>;   // dzn, yout; g0, g1, g2
 using PlanWgradX3 = Plan3<3 * kPieceA3, 0>;   // G^T's three pieces
+// mm_fused_bwd's dgrad: dzn and yout (or g); g0, g1, g2; an epilogue chunk
+// of four 128 x 32 float32 boxes and 1 KB of a and b
+using PlanBwdX3 = Plan3<2 * kRaw3, 1024, 4 * kRaw3 + 1024>;
 
 // the six piece products of a stage, smallest first: product pr is A's
 // piece prod_a(pr) times B's piece prod_b(pr) (0 hi, 1 mid, 2 lo)
@@ -1322,6 +1330,39 @@ __device__ __forceinline__ void issue6_ss(float (&p)[kBN3 / 2],
                      desc_mn3(b + prod_b(pr) * kPieceB3, ks), (pr | ks) != 0);
   wgmma_commit();
   fence_regs(p);
+}
+
+// A dgrad's stage of G, this thread's fragments fa (fa[ks][piece][q]), as
+// three plain 64 x 32 bf16 tiles over its warpgroup's raw rows of the
+// stage at st (the first box's rows hold pieces 0 and 1, the second box's
+// piece 2, loaded or not), once every thread of the warpgroup has read
+// them; then stored by TMA into tg (3, M, N) at (r0, m0 + 64 wg). The
+// ring's release() waits for the stores to have read them before the
+// stage is refilled.
+__device__ __forceinline__ void store_g_pieces(unsigned char* st,
+                                               const uint32_t (&fa)[2][3][4],
+                                               const CUtensorMap* tg, int r0,
+                                               int m0) {
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  unsigned char* pb[3] = {st + wg * kWgRaw3, st + wg * kWgRaw3 + kWgRaw3 / 2,
+                          st + kRaw3 + wg * kWgRaw3};
+  named_sync(2 + wg, 128);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<uint32_t*>(
+            pb[j] + (16 * w + g + 8 * (q & 1)) * 64 +
+            (16 * ks + 2 * t + 8 * (q >> 1)) * 2) = fa[ks][j][q];
+  fence_async_smem();
+  named_sync(2 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tma_store_3d(tg, pb[j], r0, m0 + 64 * wg, j);
+  }
 }
 
 template <int R>
@@ -1701,32 +1742,8 @@ cf90_dual_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn_a,
           if (kl >= nl) v0 = v1 = 0.f;
           split3(v0, v1, fa[ks][0][q], fa[ks][1][q], fa[ks][2][q]);
         }
-      if (kb % gridDim.x == blockIdx.x) {
-        // the pieces as three plain 64 x 32 bf16 tiles over this
-        // warpgroup's raw rows (its dzn rows hold pieces 0 and 1, its yout
-        // rows piece 2), once every thread has read them; release() waits
-        // for the stores to have read them before the stage is refilled
-        unsigned char* pb[3] = {st + wg * kWgRaw3,
-                                st + wg * kWgRaw3 + kWgRaw3 / 2,
-                                st + kRaw3 + wg * kWgRaw3};
-        named_sync(2 + wg, 128);
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-#pragma unroll
-          for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              *reinterpret_cast<uint32_t*>(
-                  pb[j] + (16 * w + g + 8 * (q & 1)) * 64 +
-                  (16 * ks + 2 * t + 8 * (q >> 1)) * 2) = fa[ks][j][q];
-        fence_async_smem();
-        named_sync(2 + wg, 128);
-        if ((threadIdx.x & 127) == 0) {
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            tma_store_3d(set_a ? &tg_a : &tg_b, pb[j], r0, m0 + 64 * wg, j);
-        }
-      }
+      if (kb % gridDim.x == blockIdx.x)
+        store_g_pieces(st, fa, set_a ? &tg_a : &tg_b, r0, m0);
     };
     mainloop3_rs<P::kStage, S, 2 * kRaw3>(acc, nk, smem, ring, lane, build);
     store_tile_f32(acc, smem, p.dx, nullptr, m0, c0, p.M, p.C);
@@ -1839,34 +1856,260 @@ cf90_dual_wgrad_x3_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// --------------------------------------------------------------- host side
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
+struct BwdX3Args {
+  const float* gc;                       // (3, N) float32; null: G is g
+  const float* a; const float* b;        // a null: x^ = x
+  int n_partners, mask;                  // mask: 0 none, 1 on x, 2 on z
+  bool need_x, p0x, dsc, xhat;           // p0x: x is partner 0
+  float* part;
+  int M, K, N;
+};
 
-// libcuda's cuTensorMapEncodeTiled, found once through the runtime's entry
-// point query (this library is not linked against libcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
+// mm_fused_bwd's dgrad in float32: dz (M x K) = mask(G W^T (+ dsc)) over
+// 128 x 128 tiles of dz, the single-set form of cf90_dual_dgrad_x3_kernel.
+// G is g as it is (a TMA box, columns n >= N read 0) or (dzn g0 - g1) -
+// yout g2 in float32 (the tail columns masked after the transform), split
+// in registers; B is W^T's pieces (3, N, K). Column tile kb mod (column
+// tiles) stores stage kb's G pieces into tgp (3, M, N) for the wgrad.
+// The epilogue is cf90_bwd_dgrad_kernel's in float32, chunk by 32-column
+// chunk through the ring (x, dsc, the partners: one 128 x 32 box each, a
+// and b): dsc added, the mask applied, dz stored by TMA, then the sums of
+// dz and dz p_j down the columns (a column pair and 8 rows a thread, the
+// 16 row ranges in order: one row of partials per 128-row block); then,
+// when a is passed, x^ = relu(a x + b) from the same x box, split into its
+// three pieces over the partners' boxes (which the sums have read) and
+// stored by TMA into txh (3, M, K) for the wgrad, so x^ is never stored in
+// float32 and split again.
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
+                         const __grid_constant__ CUtensorMap tyout,
+                         const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap tgp,
+                         const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tdsc,
+                         const __grid_constant__ CUtensorMap tp0,
+                         const __grid_constant__ CUtensorMap tp1,
+                         const __grid_constant__ CUtensorMap tdz,
+                         const __grid_constant__ CUtensorMap txh,
+                         const BwdX3Args p) {
+  using P = PlanBwdX3;
+  constexpr int S = P::kStages;
+  constexpr int kCf = 4 * kRaw3;                     // a, b of a chunk
+  constexpr int kXhPiece = kBM * kBK3 * 2;           // one x^ piece, plain
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ float red[2][16][3][32];                // chunk parity
+  const int ns = (p.N + kBK3 - 1) / kBK3;
+  const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN3;
+  const int nch = min(kBN3, p.K - c0 + kBK3 - 1) / kBK3;  // chunks in K
+  const bool direct = p.gc == nullptr;
+  const int p0_slab = (p.p0x ? 0 : 2) * kRaw3;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&tdzn);
+      tma_prefetch(&tw);
+      for (int kb = 0; kb < ns; ++kb) {
+        const int s = kb % S, r0 = kb * kBK3;
+        const uint32_t cb = direct ? 0 : 4 * min(kBK3, p.N - r0);
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], (direct ? 1 : 2) * kRaw3 + kB3 + 3 * cb);
+        tma_load_2d(st, &tdzn, &full[s], r0, m0);
+        if (!direct) tma_load_2d(st + kRaw3, &tyout, &full[s], r0, m0);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int e = 0; e < kBN3 / 64; ++e)
+            tma_load_3d(st + 2 * kRaw3 + j * kPieceB3 + e * kBlk3, &tw,
+                        &full[s], c0 + 64 * e, r0, j);
+        if (!direct) {
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            bulk_load(st + P::kCoef + 128 * i, p.gc + i * p.N + r0, cb,
+                      &full[s]);
+        }
+      }
+      const bool l0 = p.n_partners > 0 && !p.p0x, l1 = p.n_partners > 1;
+      const uint32_t slabs = p.need_x + p.dsc + l0 + l1;
+      for (int e = 0; e < nch; ++e) {
+        const int kb = ns + e, s = kb % S, col = c0 + kBK3 * e;
+        const uint32_t cb = p.a ? 4 * min(kBK3, p.K - col) : 0;
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], slabs * kRaw3 + 2 * cb);
+        if (p.need_x) tma_load_2d(st, &tx, &full[s], col, m0);
+        if (p.dsc) tma_load_2d(st + kRaw3, &tdsc, &full[s], col, m0);
+        if (l0) tma_load_2d(st + 2 * kRaw3, &tp0, &full[s], col, m0);
+        if (l1) tma_load_2d(st + 3 * kRaw3, &tp1, &full[s], col, m0);
+        if (cb) {
+          bulk_load(st + kCf, p.a + col, cb, &full[s]);
+          bulk_load(st + kCf + 128, p.b + col, cb, &full[s]);
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int ct = threadIdx.x, w = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[kBN3 / 2];
+#pragma unroll
+    for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[2][3][4]) {
+      ring.wait_full(kb);
+      const int r0 = kb * kBK3, nl = p.N - r0;
+      const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {             // q & 1: row + 8
+          const int r = 64 * wg + 16 * w + g + 8 * (q & 1);
+          const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
+          const uint32_t off = swz(r, kl >> 2) + (kl & 3) * 4;
+          const float2 v = *reinterpret_cast<const float2*>(st + off);
+          float v0 = v.x, v1 = v.y;
+          if (!direct) {
+            const float2 yo = *reinterpret_cast<const float2*>(st + kRaw3 +
+                                                               off);
+            const float2 g0 = *reinterpret_cast<const float2*>(cf + kl);
+            const float2 g1 = *reinterpret_cast<const float2*>(cf + 32 + kl);
+            const float2 g2 = *reinterpret_cast<const float2*>(cf + 64 + kl);
+            v0 = bn_g(v.x, yo.x, g0.x, g1.x, g2.x);
+            v1 = bn_g(v.y, yo.y, g0.y, g1.y, g2.y);
+            if (kl >= nl) v0 = v1 = 0.f;
+          }
+          split3(v0, v1, fa[ks][0][q], fa[ks][1][q], fa[ks][2][q]);
+        }
+      if (kb % gridDim.x == blockIdx.x)
+        store_g_pieces(st, fa, &tgp, r0, m0);
+    };
+    mainloop3_rs<P::kStage, S, 2 * kRaw3>(acc, ns, smem, ring, lane, build);
+    // the epilogue, chunk by chunk, not unrolled: chunk e's accumulators
+    // are moved down to acc[0, 16) for it
+    const int rows = min(kBM, p.M - m0);
+    const int nq = 1 + p.n_partners;
+    const int pc = 2 * (ct & 15), pr = ct >> 4;
+#pragma unroll 1
+    for (int e = 0; e < nch; ++e) {
+      const int kb = ns + e, col = c0 + kBK3 * e;
+      ring.wait_full(kb);
+      unsigned char* st = smem + (kb % S) * P::kStage;
+      const float* cf = reinterpret_cast<const float*>(st + kCf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 ca = p.a ? *reinterpret_cast<const float2*>(cf + c)
+                              : make_float2(0.f, 0.f);
+        const float2 cb = p.a ? *reinterpret_cast<const float2*>(cf + 32 + c)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t off = swz(64 * wg + 16 * w + g + 8 * h, c >> 2) +
+                               (c & 3) * 4;
+          float v0 = acc[4 * j + 2 * h];
+          float v1 = acc[4 * j + 2 * h + 1];
+          if (p.dsc) {
+            const float2 d = *reinterpret_cast<const float2*>(st + kRaw3 +
+                                                              off);
+            v0 = __fadd_rn(v0, d.x);
+            v1 = __fadd_rn(v1, d.y);
+          }
+          if (p.need_x) {
+            const float2 xr = *reinterpret_cast<const float2*>(st + off);
+            const float z0 = affine(xr.x, ca.x, cb.x);
+            const float z1 = affine(xr.y, ca.y, cb.y);
+            if ((p.mask == 1 && !(xr.x > 0.f)) || (p.mask == 2 && !(z0 > 0.f)))
+              v0 = 0.f;
+            if ((p.mask == 1 && !(xr.y > 0.f)) || (p.mask == 2 && !(z1 > 0.f)))
+              v1 = 0.f;
+          }
+          *reinterpret_cast<float2*>(st + kRaw3 + off) = make_float2(v0, v1);
+        }
+      }
+      fence_async_smem();
+      named_sync(1, kConsumers);
+      if (ct == 0) tma_store_2d(&tdz, st + kRaw3, col, m0);
+      float sum[3][2] = {};
+      for (int r = 8 * pr; r < min(rows, 8 * pr + 8); ++r) {
+        const uint32_t off = swz(r, pc >> 2) + (pc & 3) * 4;
+        const float2 d = *reinterpret_cast<const float2*>(st + kRaw3 + off);
+        sum[0][0] += d.x;
+        sum[0][1] += d.y;
+        if (p.n_partners > 0) {
+          const float2 q0 =
+              *reinterpret_cast<const float2*>(st + p0_slab + off);
+          sum[1][0] = fmaf(d.x, q0.x, sum[1][0]);
+          sum[1][1] = fmaf(d.y, q0.y, sum[1][1]);
+        }
+        if (p.n_partners > 1) {
+          const float2 q1 =
+              *reinterpret_cast<const float2*>(st + 3 * kRaw3 + off);
+          sum[2][0] = fmaf(d.x, q1.x, sum[2][0]);
+          sum[2][1] = fmaf(d.y, q1.y, sum[2][1]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        red[e & 1][pr][q][pc] = sum[q][0];
+        red[e & 1][pr][q][pc + 1] = sum[q][1];
+      }
+      named_sync(1, kConsumers);
+      if (ct < kBK3 && col + ct < p.K) {
+        for (int q = 0; q < nq; ++q) {
+          float v = 0.f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) v += red[e & 1][i][q][ct];
+          p.part[(static_cast<size_t>(blockIdx.y) * nq + q) * p.K + col +
+                 ct] = v;
+        }
+      }
+      if (p.xhat) {
+        unsigned char* xp = st + 2 * kRaw3;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 ca = *reinterpret_cast<const float2*>(cf + c);
+          const float2 cb = *reinterpret_cast<const float2*>(cf + 32 + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 64 * wg + 16 * w + g + 8 * h;
+            const float2 xr = *reinterpret_cast<const float2*>(
+                st + swz(r, c >> 2) + (c & 3) * 4);
+            uint32_t pw[3];
+            split3(fmaxf(affine(xr.x, ca.x, cb.x), 0.f),
+                   fmaxf(affine(xr.y, ca.y, cb.y), 0.f), pw[0], pw[1], pw[2]);
+#pragma unroll
+            for (int q = 0; q < 3; ++q)
+              *reinterpret_cast<uint32_t*>(xp + q * kXhPiece + r * 64 +
+                                           c * 2) = pw[q];
+          }
+        }
+        fence_async_smem();
+        named_sync(1, kConsumers);
+        if (ct == 0) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            tma_store_3d(&txh, xp + q * kXhPiece, col, m0, q);
+        }
+      }
+      ring.release(kb, lane);
+#pragma unroll
+      for (int i = 0; i < kBN3 / 2 - 16; ++i) acc[i] = acc[i + 16];
+    }
+  }
 }
 
+// --------------------------------------------------------------- host side
 // A bf16 2-D map over `outer` rows of `inner` contiguous values, `stride`
 // values apart, read in 128B-swizzled boxes of {64, box_outer}; out-of-range
 // elements read as 0. Returns false if the encoder refuses it.
 bool make_map(CUtensorMap* map, const void* ptr, long long inner,
               long long outer, long long stride, int box_outer) {
-  EncodeTiled enc = encoder();
+  EncodeTiled enc = tensor_map_encoder();
   if (!enc) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer)};
@@ -1885,7 +2128,7 @@ bool make_map(CUtensorMap* map, const void* ptr, long long inner,
 // row of 32 floats); out-of-range elements read as 0.
 bool make_map_f32(CUtensorMap* map, const void* ptr, long long inner,
                   long long outer, long long stride, int box_outer) {
-  EncodeTiled enc = encoder();
+  EncodeTiled enc = tensor_map_encoder();
   if (!enc) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer)};
@@ -1905,7 +2148,7 @@ bool make_map_f32(CUtensorMap* map, const void* ptr, long long inner,
 // and columns read as 0 and are not written.
 bool make_map_pieces(CUtensorMap* map, const void* ptr, long long inner,
                      long long rows, int box_rows, bool swizzle) {
-  EncodeTiled enc = encoder();
+  EncodeTiled enc = tensor_map_encoder();
   if (!enc) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(rows), 3};
@@ -2314,24 +2557,72 @@ int conv_fused_sm90_dual_dgrad_x3_launch(
       m[2], m[3], m[4], m[5], m[6], m[7], p);
 }
 
+// The float32 1x1 backward's dgrad: dz (M, K) float32 = mask(G W^T
+// (+ dsc)) with G = g (M, N) float32 when g is passed, else (dzn g0 - g1)
+// - yout g2 from dzn, yout (M, N) and gc (3, N); wp (3, N, K) bf16 the
+// pieces of W^T; gp (3, M, N) bf16 receives G's pieces for the wgrad;
+// mask 0 none, 1 on x > 0, 2 on a x + b > 0; part (ceil(M / 128),
+// 1 + n_partners, K) float32 partials of sum dz and sum dz p_j; xhp
+// (3, M, K) bf16 receives the pieces of relu(a x + b) when a is passed
+// (null otherwise). K and N multiples of 8, every pointer 16-byte aligned.
+int conv_fused_sm90_bwd_dgrad_x3_launch(
+    const float* g, const float* dzn, const float* yout, const float* gc,
+    const void* wp, void* gp, const float* x, const float* a,
+    const float* b, const float* dsc, const float* p0, const float* p1,
+    int n_partners, int mask, float* dz, float* part, void* xhp, int M,
+    int K, int N, void* stream) {
+  const bool direct = g != nullptr;
+  if (M < 0 || K < 8 || N < 8 || K % 8 || N % 8 ||
+      (M + kBM - 1) / kBM > 65535 || n_partners < 0 || n_partners > 2 ||
+      mask < 0 || mask > 2 || (mask == 2 && !a) || (a && !b) ||
+      (xhp != nullptr) != (a != nullptr) ||
+      (!direct && (!dzn || !yout || !gc)) || (n_partners > 0 && !p0) ||
+      (n_partners > 1 && !p1) || !wp || !gp || !x || !dz || !part)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const bool p0x = n_partners > 0 && p0 == x;
+  const bool need_x = mask != 0 || a != nullptr || p0x;
+  // G's boxes, W^T's pieces, G's pieces out, then the epilogue's 128-row
+  // boxes: x, dsc, the partners, dz, and x^'s pieces out (each made if used)
+  CUtensorMap m[10] = {};
+  if (!make_map_f32(&m[0], direct ? g : dzn, N, M, N, kBM) ||
+      (!direct && !make_map_f32(&m[1], yout, N, M, N, kBM)) ||
+      !make_map_pieces(&m[2], wp, K, N, kBK3, true) ||
+      !make_map_pieces(&m[3], gp, N, M, 64, false) ||
+      (need_x && !make_map_f32(&m[4], x, K, M, K, kBM)) ||
+      (dsc && !make_map_f32(&m[5], dsc, K, M, K, kBM)) ||
+      (n_partners > 0 && !p0x && !make_map_f32(&m[6], p0, K, M, K, kBM)) ||
+      (n_partners > 1 && !make_map_f32(&m[7], p1, K, M, K, kBM)) ||
+      !make_map_f32(&m[8], dz, K, M, K, kBM) ||
+      (xhp && !make_map_pieces(&m[9], xhp, K, M, kBM, false)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdX3Args p{direct ? nullptr : gc, a, b, n_partners, mask, need_x,
+                    p0x, dsc != nullptr, xhp != nullptr, part, M, K, N};
+  const dim3 grid((K + kBN3 - 1) / kBN3, (M + kBM - 1) / kBM);
+  return launch<cf90_bwd_dgrad_x3_kernel>(
+      PlanBwdX3::kSmem, grid, static_cast<cudaStream_t>(stream), m[0], m[1],
+      m[2], m[3], m[4], m[5], m[6], m[7], m[8], m[9], p);
+}
+
 // The float32 dual wgrad: ws (splits, Na + Nb, C) float32 partials of
-// [dW_a; dW_b] in the gluon order from xp (3, M, C), the pieces of x, and
-// the dgrad's gp_a (3, M, Na) and gp_b (3, M, Nb); split s covers rows
-// [s * chunk, (s + 1) * chunk), chunk a multiple of 64.
+// [dW_a; dW_b] in the gluon order from xp (3, M, C), the pieces of x (or
+// x^), and the dgrad's gp_a (3, M, Na) and gp_b (3, M, Nb); split s covers
+// rows [s * chunk, (s + 1) * chunk), chunk a multiple of 64. Nb = 0 with
+// gp_b null: the single-set wgrad of mm_fused_bwd, ws (splits, Na, C).
 int conv_fused_sm90_dual_wgrad_x3_launch(const void* xp, const void* gp_a,
                                          const void* gp_b, float* ws,
                                          int splits, int chunk, int M, int C,
                                          int Na, int Nb, void* stream) {
-  if (M < 1 || C < 8 || Na < 8 || Nb < 8 || C % 8 || Na % 8 || Nb % 8 ||
-      !xp || !gp_a || !gp_b || !ws || splits < 1 || splits > 65535 ||
-      chunk < kBK || chunk % kBK ||
+  if (M < 1 || C < 8 || Na < 8 || (Nb != 0 && Nb < 8) || C % 8 || Na % 8 ||
+      Nb % 8 || (Nb == 0) != (gp_b == nullptr) || !xp || !gp_a || !ws ||
+      splits < 1 || splits > 65535 || chunk < kBK || chunk % kBK ||
       static_cast<long long>(splits - 1) * chunk >= M ||
       static_cast<long long>(splits) * chunk < M)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap m[3];
+  CUtensorMap m[3] = {};                       // m[2]: read if Nb > 0
   if (!make_map_pieces(&m[0], xp, C, M, kBK3, true) ||
       !make_map_pieces(&m[1], gp_a, Na, M, kBK3, true) ||
-      !make_map_pieces(&m[2], gp_b, Nb, M, kBK3, true))
+      (Nb > 0 && !make_map_pieces(&m[2], gp_b, Nb, M, kBK3, true)))
     return static_cast<int>(cudaErrorInvalidValue);
   const WgradArgs p{ws, chunk, M, C, Na, Nb};
   const dim3 grid((Na + kBM - 1) / kBM + (Nb + kBM - 1) / kBM,

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of a warp-specialised GEMM core: shared
 // memory addresses, mbarriers, TMA tile loads and stores, bulk copies,
 // wgmma descriptors and the wgmma instructions, ldmatrix fragments,
-// register reallocation and named barriers. Plain device functions around
-// inline PTX, no PyTorch header, no CUTLASS: the fused conv kernels of
-// conv_fused_sm90.cu build their pipelines from these.
+// register reallocation and named barriers, and on the host the tensor-map
+// encoder. Plain functions around inline PTX, no PyTorch header, no
+// CUTLASS: the fused conv kernels of conv_fused_sm90.cu and the bf16 flash
+// forward of flash_attention_sm90.cu build their pipelines from these.
 //
 // Tiles are 128-byte rows (64 bf16 values) that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte-aligned shared memory: the
@@ -146,14 +147,22 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
 }
 
 // ------------------------------------------------------- wgmma plumbing
-// descriptor of a 128B-swizzled tile at p (offsets in bytes)
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+// descriptor of a swizzled tile at p (offsets in bytes); mode 1 for the
+// 128B swizzle (128-byte rows), 2 for the 64B one (64-byte rows: SBO 512
+// between 8-row groups, a K-major k16 step at +32 bytes, an MN-major one at
+// +1024)
+__device__ __forceinline__ uint64_t desc_swz(const void* p, uint32_t lbo,
+                                             uint32_t sbo, uint32_t mode) {
   uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
+  d |= static_cast<uint64_t>(mode) << 62;
   return d;
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_swz(p, lbo, sbo, 1);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -230,10 +239,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // shared memory). Accumulator register 4 j + {0, 1} holds (row 16 w +
 // lane / 4, columns 8 j + 2 (lane % 4) and + 1), 4 j + {2, 3} the same
 // columns 8 rows further down.
-// D (64 x 64, float32) += A (64 x 16, shared memory) B (16 x 64)
+// D (64 x 32, float32) += A (64 x 16, registers) B (16 x 32)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// D (64 x 64, float32) += A (64 x 16, shared memory) B (16 x 64); with
+// scale_d 0, D = A B (D's old value is not read)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
+                                         uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -249,7 +278,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, float32) += A (64 x 16, registers) B (16 x 64)
@@ -454,6 +483,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// ------------------------------------------------------ host: tensor maps
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's entry
+// point query (the library is not linked against libcuda); null if absent
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
 }
 
 }  // namespace sm90

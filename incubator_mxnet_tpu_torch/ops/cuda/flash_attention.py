@@ -18,11 +18,15 @@ Training (forward with its log-sum-exp, and the two-pass backward):
 The kernels' route is chosen by type (:func:`flash_train_route`): float32
 takes the split-bf16 ``mma.sync`` kernels (every float32 operand of a
 product as three exact bf16 pieces, the six piece products float32 needs
-per 16-deep stage, a fresh float32 partial each stage), bf16 the WMMA
-kernels. ``_route="fma"`` (private; the model never passes it) forces
-float32 onto the old FMA kernels, which ``chip_smoke.py`` keeps as the
-yardstick; the new route's launches are also counted in
-``fn.sm90_launches``.
+per 16-deep stage, a fresh float32 partial each stage); the bf16 forward
+takes the Hopper kernel of ``csrc/flash_attention_sm90.cu`` ("wgmma": K
+and V streamed by TMA through a ring of stages, S = Q.K^T and O += P.V on
+``wgmma``, the softmax in registers; :func:`flash_wgmma_plan`), the bf16
+backward the WMMA kernels. ``_route="fma"`` (private; the model never
+passes it) forces float32 onto the old FMA kernels, and ``_route="wmma"``
+the bf16 forward onto the old WMMA kernel, which ``chip_smoke.py`` keeps
+as the yardsticks; the "mma" and "wgmma" routes' launches are also counted
+in ``fn.sm90_launches``.
 
 Every training function takes both layouts: given ``n_heads`` its tensors
 are packed (B, T, H*d) with lse/delta (B, T, H); without, head-major
@@ -79,7 +83,7 @@ __all__ = ["mha_reference", "flash_forward_reference",
            "flash_backward_reference", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_attention_packed", "flash_attention",
            "flash_attention_with_lse", "flash_attention_packed_viable",
-           "flash_kernel_viable", "flash_train_route",
+           "flash_kernel_viable", "flash_train_route", "flash_wgmma_plan",
            "decode_attention_reference", "flash_decode_step",
            "decode_attention", "decode_split_plan",
            "paged_decode_attention_reference", "flash_decode_step_paged",
@@ -532,13 +536,42 @@ def _check_rows(name: str, dout, lse, delta, q, layout, B, H, sq):
                              f"got {tuple(t.shape)} {t.dtype}")
 
 
-def flash_train_route(dtype) -> str:
-    """The training kernels' route for q/k/v of ``dtype``: "mma" for
-    float32 (the split-bf16 ``mma.sync`` kernels), "wmma" for bf16."""
+def flash_train_route(dtype, kernel: str = "flash_fwd") -> str:
+    """The route of the training kernel ``kernel`` for q/k/v of ``dtype``:
+    "mma" for float32 (the split-bf16 ``mma.sync`` kernels); for bf16,
+    "wgmma" for the forward (the Hopper kernel) and "wmma" for the
+    backward kernels."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention: dtype {dtype} not supported "
                         "(float32 or bfloat16)")
-    return "mma" if dtype == torch.float32 else "wmma"
+    if dtype == torch.float32:
+        return "mma"
+    return "wgmma" if kernel == "flash_fwd" else "wmma"
+
+
+# The bf16 forward's plan: flash_attention_sm90.cu's kFRows, kFKeys,
+# kFStages and kFThreads, and its shared memory (FlashPlan)
+_WGMMA_ROWS, _WGMMA_KEYS, _WGMMA_STAGES = 128, 64, 3
+_WGMMA_THREADS = 256
+
+
+def flash_wgmma_plan(d: int) -> dict:
+    """The Hopper bf16 forward's block at head dim ``d``: 128 query rows,
+    two warpgroups of 64 (one thread also issues the loads), K and V tiles
+    of 64 keys in a ring of three stages, every tile as column blocks of
+    128-byte swizzled rows (64-byte ones at d 32); shared memory the Q
+    tile, the ring and 1 KB of alignment; two blocks an SM at d 32 and 64,
+    one at d 128 (registers)."""
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_wgmma_plan: head dim {d} not supported "
+                         f"{_FLASH_HEAD_DIMS}")
+    q_bytes = _WGMMA_ROWS * d * 2
+    kv_bytes = _WGMMA_KEYS * d * 2
+    return {"rows": _WGMMA_ROWS, "keys": _WGMMA_KEYS,
+            "stages": _WGMMA_STAGES, "threads": _WGMMA_THREADS,
+            "row_bytes": 128 if d >= 64 else 64,
+            "smem_bytes": q_bytes + _WGMMA_STAGES * 2 * kv_bytes + 1024,
+            "blocks": 2 if d <= 64 else 1}
 
 
 def _fma_code(name: str, q, route) -> int:
@@ -551,9 +584,21 @@ def _fma_code(name: str, q, route) -> int:
     return 1
 
 
-def _count(kern, q, fma: int) -> None:
+def _fwd_route(q, route) -> str:
+    """The forward's route: its type's (:func:`flash_train_route`), or
+    "fma" (float32) / "wmma" (bf16) when ``route`` forces the old kernel."""
+    if route is None:
+        return flash_train_route(q.dtype)
+    if (route, q.dtype) not in (("fma", torch.float32),
+                                ("wmma", torch.bfloat16)):
+        raise ValueError(f"flash_fwd: _route {route!r} (only \"fma\", for "
+                         "float32, or \"wmma\", for bf16)")
+    return route
+
+
+def _count(kern, route: str) -> None:
     kern.launches += 1
-    if not fma and flash_train_route(q.dtype) == "mma":
+    if route in ("mma", "wgmma"):
         kern.sm90_launches += 1
 
 
@@ -563,20 +608,30 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
     """CUDA flash-attention forward (replaces the Pallas ``_fwd_packed``,
     ``_fwd_resident`` and ``_fwd_streamed``). Packed (B, T, H*d) with
     ``n_heads`` or head-major (B, H, T, d); head dim 32, 64 or 128.
-    Returns (out like q, lse float32 (B, T, H) packed / (B, H, T))."""
+    Returns (out like q, lse float32 (B, T, H) packed / (B, H, T)). The
+    route is :func:`flash_train_route`'s; ``_route="fma"`` (float32) and
+    ``_route="wmma"`` (bf16) force the old kernels."""
     layout, B, H, sq, sk, d = _flash_geometry("flash_fwd", q, k, v, n_heads)
-    fma = _fma_code("flash_fwd", q, _route)
+    route = _fwd_route(q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     lse = torch.empty((B, sq, H) if layout == 0 else (B, H, sq),
                       dtype=torch.float32, device=q.device)
-    code = kernel_library().mxt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, sq, sk, d, layout, int(causal),
-        _DTYPE_CODE[q.dtype], fma, float(scale), current_stream_handle(q))
+    lib = kernel_library()
+    if route == "wgmma":
+        code = lib.mxt_flash_fwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, H, sq, sk, d, layout, int(causal),
+            float(scale), current_stream_handle(q))
+    else:
+        code = lib.mxt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, H, sq, sk, d, layout, int(causal),
+            _DTYPE_CODE[q.dtype], int(route == "fma"), float(scale),
+            current_stream_handle(q))
     check_launch(code, "flash_fwd")
-    _count(flash_fwd, q, fma)
+    _count(flash_fwd, route)
     return out, lse
 
 
@@ -601,7 +656,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
         layout, int(causal), _DTYPE_CODE[q.dtype], fma, float(scale),
         current_stream_handle(q))
     check_launch(code, "flash_bwd_dq")
-    _count(flash_bwd_dq, q, fma)
+    _count(flash_bwd_dq,
+           "fma" if fma else flash_train_route(q.dtype, "flash_bwd_dq"))
     return dq
 
 
@@ -628,7 +684,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
         sq, sk, d, layout, int(causal), _DTYPE_CODE[q.dtype], fma,
         float(scale), current_stream_handle(q))
     check_launch(code, "flash_bwd_dkv")
-    _count(flash_bwd_dkv, q, fma)
+    _count(flash_bwd_dkv,
+           "fma" if fma else flash_train_route(q.dtype, "flash_bwd_dkv"))
     return dk, dv
 
 

@@ -1,7 +1,8 @@
-"""The arithmetic of the port's float32 route of ``conv3_fused`` and
-``dgrad_epilogue`` (``ops/cuda/csrc/conv_fused_sm90.cu``:
+"""The arithmetic of the port's float32 route of ``conv3_fused``,
+``dgrad_epilogue`` and ``mm_fused_bwd`` (``ops/cuda/csrc/conv_fused_sm90.cu``:
 ``cf90_conv3_x3_kernel``, ``cf90_dual_dgrad_x3_kernel``,
-``cf90_dual_wgrad_x3_kernel`` and ``cf90_split3_kernel``), on the CPU.
+``cf90_bwd_dgrad_x3_kernel``, ``cf90_dual_wgrad_x3_kernel`` and
+``cf90_split3_kernel``), on the CPU.
 
 The kernels need the card, so these tests hold a plain-PyTorch emulation
 of what they compute against the JAX package's Pallas kernels (interpret
@@ -23,7 +24,12 @@ against float64:
   over the stored y per 128-row block in four 32-row ranges, in order;
 * the dual dgrad over set a's stages then set b's into one accumulator,
   and the wgrad on G's and x's pieces, one float32 partial per row split
-  (``sm90_wgrad_split(..., x3=True)``), the partials summed in order.
+  (``sm90_wgrad_split(..., x3=True)``), the partials summed in order;
+* the 1x1 backward's dgrad over G's 32-column stages (G direct or formed
+  on load), dsc added and the mask (none, x > 0, a x + b > 0) applied
+  after the product, its partials sum dz and sum dz p_j in the kernel's
+  order (16 ranges of 8 rows a 128-row block, then the blocks), and its
+  wgrad on G's and x^'s pieces, the dual wgrad's with one set.
 
 The stage plan and the product order are read from the source. Inputs
 come from numpy with a seed. The tolerance is ``CONV_TOL[float32]``: 1e-4
@@ -451,6 +457,210 @@ def test_three_piece_product_on_every_load_form(form):
                 .numpy()) <= TOL
 
 
+# ------------------------------------------------- mm_fused_bwd (float32)
+def _bwd_partials_in_kernel_order(dz, partners):
+    """(1 + P, K) sums of dz and dz p_j as ``cf90_bwd_dgrad_x3_kernel`` and
+    the wrapper form them: per 128-row block, 16 ranges of 8 rows each
+    summed row by row (dz p_j by a fused multiply-add), the ranges added in
+    order, then the blocks' rows summed (``part.sum(0)``)."""
+    M, K = dz.shape
+    blocks = []
+    for m0 in range(0, M, 128):
+        rows = []
+        for pq in (None,) + tuple(partners):
+            tot = torch.zeros(K)
+            for rr in range(16):
+                acc = torch.zeros(K)
+                for r in range(m0 + 8 * rr, min(M, m0 + 8 * rr + 8)):
+                    acc = (acc + dz[r] if pq is None else
+                           (dz[r].double() * pq[r].double()
+                            + acc.double()).float())
+                tot = tot + acc
+            rows.append(tot)
+        blocks.append(torch.stack(rows))
+    return torch.stack(blocks).sum(0)
+
+
+def mm_fused_bwd_x3(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None,
+                    b=None, dsc=None, partners=(), out_mask="none", sms=132,
+                    order=ORDER):
+    """``cf90_bwd_dgrad_x3_kernel`` then the single-set
+    ``cf90_dual_wgrad_x3_kernel`` emulated: G as it is or formed in
+    float32; dz over G's 32-column stages against W^T, six products each;
+    dsc, then the mask; the partials in the kernel's order; dW^T per row
+    split (32-row stages of G's and x^'s pieces), the split partials
+    summed in order."""
+    G = g if g is not None else _g(dzn, yout, gcoef)
+    M, K = x.shape
+    N = w.shape[1]
+    wt = w.t()
+    dz = torch.zeros(M, K)
+    for n0 in range(0, N, DEPTH):
+        dz = dz + _stage(G[:, n0:n0 + DEPTH], wt[n0:n0 + DEPTH], order)
+    if dsc is not None:
+        dz = dz + dsc
+    if out_mask == "x":
+        dz = torch.where(x > 0.0, dz, 0.0)
+    elif out_mask == "z":
+        dz = torch.where(x * a + b > 0.0, dz, 0.0)
+    xh = torch.clamp(x * a + b, min=0.0) if a is not None else x
+    splits, chunk = tcf.sm90_wgrad_split(M, N, 0, K, sms, x3=True)
+    dw = None
+    for sp in range(splits):
+        rows = slice(sp * chunk, min(M, (sp + 1) * chunk))
+        part = _mm_x3(G[rows].t().contiguous(), xh[rows], order)
+        dw = part if dw is None else dw + part
+    return dz, dw.t(), _bwd_partials_in_kernel_order(dz, partners)
+
+
+# the forms of the card's sweep (chip_smoke._conv_cases), the lane's
+# expand form among them; (M, K, N): a K tail in a 128-wide column tile, an
+# N tail in a 32-deep stage, several 128-row blocks and a short last one
+# (M a multiple of the Pallas kernel's 16-row block)
+MMB_FORMS = {
+    "direct mask z 1 partner": dict(g=True, ab=True, mask="z", partners=1),
+    "bn mask x dsc 2 partners": dict(dsc=True, mask="x", partners=2),
+    "bn no mask": dict(mask="none"),
+    "direct bnrelu x no mask": dict(g=True, ab=True, mask="none"),
+    "expand bn bnrelu mask z partner x": dict(ab=True, mask="z",
+                                              partner_x=True),
+}
+MMB_SHAPES = [(64, 16, 24), (160, 40, 72), (304, 136, 56)]
+
+
+def _mmb_inputs(form, shape, seed):
+    """Numpy operands and the keyword arguments of one form."""
+    spec = MMB_FORMS[form]
+    M, K, N = shape
+    rs = np.random.RandomState(seed)
+    x, w = _rand(rs, M, K), _rand(rs, K, N) * np.float32(0.3)
+    kw = {"out_mask": spec["mask"]}
+    if spec.get("g"):
+        kw["g"] = _rand(rs, M, N)
+    else:
+        kw.update(dzn=_rand(rs, M, N), yout=_rand(rs, M, N),
+                  gcoef=_rand(rs, 3, N) * np.float32(0.5))
+    if spec.get("ab"):
+        kw.update(a=_rand(rs, K, positive=True), b=_rand(rs, K))
+    if spec.get("dsc"):
+        kw["dsc"] = _rand(rs, M, K)
+    parts = ("x",) if spec.get("partner_x") else tuple(
+        _rand(rs, M, K) for _ in range(spec.get("partners", 0)))
+    return x, w, kw, parts
+
+
+def _torch_kw(x, kw, parts):
+    tk = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+          for k, v in kw.items()}
+    tx = torch.from_numpy(x)
+    tk["partners"] = tuple(tx if isinstance(p, str) else torch.from_numpy(p)
+                           for p in parts)
+    return tx, tk
+
+
+def _mmb_f64(w, x, g=None, dzn=None, yout=None, gcoef=None, a=None, b=None,
+             dsc=None, partners=(), out_mask="none"):
+    """dz, dW and the partials in float64 from float32 G and x^ (the
+    reference's rounding points)."""
+    G = (g if g is not None else _g(dzn, yout, gcoef)).double()
+    dz = G @ w.double().t()
+    if dsc is not None:
+        dz = dz + dsc.double()
+    zero = torch.zeros((), dtype=torch.float64)
+    if out_mask == "x":
+        dz = torch.where(x > 0.0, dz, zero)
+    elif out_mask == "z":
+        dz = torch.where(x * a + b > 0.0, dz, zero)
+    xh = (torch.clamp(x * a + b, min=0.0) if a is not None else x).double()
+    rows = [dz.sum(0)] + [(dz * p.double()).sum(0) for p in partners]
+    return dz, xh.t() @ G, torch.stack(rows)
+
+
+@pytest.mark.parametrize("shape", MMB_SHAPES)
+@pytest.mark.parametrize("form", sorted(MMB_FORMS))
+def test_mm_fused_bwd_emulation_matches_pallas_twin_and_float64(form, shape):
+    """Every form: G direct or on load; mask none, x or z; with and without
+    dsc; 0-2 partners (x its own partner in the lane's expand form)."""
+    x, w, kw, parts = _mmb_inputs(form, shape, 40 + sum(shape))
+    tx, tk = _torch_kw(x, kw, parts)
+    tw = torch.from_numpy(w)
+    emu = mm_fused_bwd_x3(tw, tx, **tk)
+    twin = tcf.mm_fused_bwd_reference(tw, tx, **tk)
+    refs64 = _mmb_f64(tw, tx, **tk)
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    jkw["partners"] = tuple(jnp.asarray(x if isinstance(p, str) else p)
+                            for p in parts)
+    with jax.default_matmul_precision("highest"):
+        jout = jcf.mm_fused_bwd(jnp.asarray(w), jnp.asarray(x), block_m=16,
+                                **jkw)
+    for e, tw_, j, r64 in zip(emu, twin, jout, refs64):
+        assert _err(_np(e), _np(tw_)) <= TOL
+        assert _err(_np(e), _np(j)) <= TOL
+        assert _err(_np(e), r64.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("form", ["bn mask x dsc 2 partners",
+                                  "expand bn bnrelu mask z partner x"])
+def test_mm_fused_bwd_six_products_hold_float32_and_one_does_not(form):
+    """The six piece products read within the tolerance of float64; hi.hi
+    alone (one bf16 product) reads above it: the control."""
+    x, w, kw, parts = _mmb_inputs(form, (160, 136, 72), 7)
+    tx, tk = _torch_kw(x, kw, parts)
+    tw = torch.from_numpy(w)
+    refs64 = _mmb_f64(tw, tx, **tk)
+    six = mm_fused_bwd_x3(tw, tx, **tk)
+    one = mm_fused_bwd_x3(tw, tx, order=((0, 0),), **tk)
+    assert max(_err(_np(e), r.numpy()) for e, r in zip(six, refs64)) <= TOL
+    assert max(_err(_np(e), r.numpy()) for e, r in zip(one, refs64)) > TOL
+
+
+@pytest.mark.parametrize("shape", MMB_SHAPES)
+def test_mm_fused_bwd_one_set_wgrad_splits_agree(shape):
+    """The single-set wgrad's row split (N_b 0): chunks of a multiple of 64
+    rows covering M once; cut finer (sms 2) or not at all (sms 1), dW
+    agrees within the tolerance."""
+    M, K, N = shape
+    for sms in (1, 2, 132):
+        splits, chunk = tcf.sm90_wgrad_split(M, N, 0, K, sms, x3=True)
+        assert chunk % 64 == 0 and (splits - 1) * chunk < M <= splits * chunk
+    x, w, kw, parts = _mmb_inputs("expand bn bnrelu mask z partner x",
+                                  shape, 3)
+    tx, tk = _torch_kw(x, kw, parts)
+    tw = torch.from_numpy(w)
+    one = mm_fused_bwd_x3(tw, tx, sms=1, **tk)[1]
+    two = mm_fused_bwd_x3(tw, tx, sms=2, **tk)[1]
+    assert _err(_np(one), _np(two)) <= TOL
+
+
+def test_mm_fused_bwd_plan_and_epilogue_are_the_sources():
+    """PlanBwdX3: dzn's and yout's boxes, W^T's pieces and 1 KB of g0, g1,
+    g2 a stage, at least an epilogue chunk (four 128 x 32 float32 boxes
+    and 1 KB of a and b); three stages; the epilogue's 32-column chunks,
+    16 row ranges of 8 and x^'s pieces over the partners' boxes, as the
+    emulation above sums and writes them; the wgrad takes one set."""
+    assert ("using PlanBwdX3 = Plan3<2 * kRaw3, 1024, 4 * kRaw3 + 1024>;"
+            in SRC)
+    plan = tcf.sm90_x3_plan("bwd")
+    raw, pieces = 128 * DEPTH * 4, 3 * 128 * DEPTH * 2
+    assert plan["stage_bytes"] == max(2 * raw + pieces + 1024,
+                                      4 * raw + 1024) == 66560
+    assert plan["stages"] == 3 and plan["smem_bytes"] == 3 * 66560 + 1024
+    # the static column sums ride beside the ring within a block's 227 KB
+    assert "__shared__ float red[2][16][3][32];" in SRC
+    assert plan["smem_bytes"] + 2 * 16 * 3 * 32 * 4 + 2 * 3 * 8 \
+        <= tcf.SM90_SMEM_LIMIT
+    for line in (
+            "const int pc = 2 * (ct & 15), pr = ct >> 4;",
+            "for (int r = 8 * pr; r < min(rows, 8 * pr + 8); ++r) {",
+            "for (int i = 0; i < 16; ++i) v += red[e & 1][i][q][ct];",
+            "unsigned char* xp = st + 2 * kRaw3;",
+            "(Nb == 0) != (gp_b == nullptr)"):
+        assert line in SRC, line
+    # 24 KB of x^'s pieces fit the two partner boxes they are written over
+    assert 3 * 128 * DEPTH * 2 <= 2 * raw
+
+
 # ------------------------------------------------ the plan and the order
 def _consts():
     return {k: v for k, v in re.findall(r"constexpr int (k\w+) = ([^;]+);",
@@ -483,7 +693,8 @@ def test_stage_plan_is_the_sources_and_fits_a_block():
     assert int(c["kBK3"].split()[0]) == tcf.SM90_X3_BK == DEPTH
     assert int(c["kBN3"].split()[0]) == tcf.SM90_X3_BN
     assert int(c["kMaxStages3"]) == tcf._SM90_X3_MAX_STAGES
-    assert "static constexpr int kStage = kCoef + COEF;" in SRC
+    assert ("static constexpr int kStage = kCoef + COEF > MIN_STAGE ? "
+            "kCoef + COEF") in SRC
     assert "using PlanConv3X3 = Plan3<kRaw3, 1024>;" in SRC
     assert "using PlanDgradX3 = Plan3<2 * kRaw3, 1024>;" in SRC
     assert "using PlanWgradX3 = Plan3<3 * kPieceA3, 0>;" in SRC
@@ -491,6 +702,8 @@ def test_stage_plan_is_the_sources_and_fits_a_block():
     pieces = 3 * 128 * DEPTH * 2               # kB3
     for kernel, stage in (("conv3", raw + pieces + 1024),
                           ("dgrad", 2 * raw + pieces + 1024),
+                          ("bwd", max(2 * raw + pieces + 1024,
+                                      4 * raw + 1024)),
                           ("wgrad", 3 * 128 * DEPTH * 2 + pieces)):
         plan = tcf.sm90_x3_plan(kernel)
         stages = min(4, 200 * 1024 // stage)

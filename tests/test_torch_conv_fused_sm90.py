@@ -6,10 +6,11 @@ The kernels themselves build and run only on the card (``chip_smoke.py``
 phase 13 holds them against their twins there). What the CPU can check is
 the Python that decides, before every launch, which route a call takes and
 how the launch is tiled: every ResNet-50 stage-2/3/4 shape of the lane at
-batch 128 takes the Hopper route in bf16; in float32, ``conv3_fused`` and
-``dgrad_epilogue`` take the three-piece route ("sm90x3",
-``cf90_conv3_x3_kernel`` and the ``*_x3`` dual dgrad and wgrad) at every
-stage-2/3/4 shape at batch 16 and 128, and the other three forms the SIMT
+batch 128 takes the Hopper route in bf16; in float32, ``conv3_fused``,
+``dgrad_epilogue`` and ``mm_fused_bwd`` take the three-piece route
+("sm90x3": ``cf90_conv3_x3_kernel``, the ``*_x3`` dual dgrad and wgrad,
+and ``cf90_bwd_dgrad_x3_kernel`` with the wgrad's one set) at every
+stage-2/3/4 shape at batch 16 and 128, and the other two forms the SIMT
 kernels; every shape of the card's sweep takes the route the plan says;
 each tile plan fits the shared memory of a block; the dW row splits cover
 the rows exactly once in a fixed order; and the wrappers still refuse CPU
@@ -278,21 +279,21 @@ def test_lane_backward_and_3x3_forms_take_the_sm90_route_in_bf16(stage):
 
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_backward_and_3x3_forms_never_take_the_sm90_route(stage):
-    """float32 never takes the bf16 Hopper route: the 1x1 backwards take
-    the SIMT kernels, the 3x3 forward the three-piece route."""
+    """float32 never takes the bf16 Hopper route: the 1x1 backwards and
+    the 3x3 forward take the three-piece route."""
     routes = _bwd_conv3_lane_forms(stage, F32)
-    assert routes == {case: "sm90x3" if case == "3x3" else "simt"
-                      for case in routes}
+    assert routes == {case: "sm90x3" for case in routes}
 
 
 @pytest.mark.parametrize("mkn", chip_smoke.CONV_MM_SWEEP)
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_sweep_shapes_take_the_planned_bwd_route(mkn, dt):
     """Every form of the card's mm_fused_bwd sweep: G direct or on load,
-    masks, dsc, partners, the expand form."""
+    masks, dsc, partners, the expand form; bf16 on the Hopper kernels,
+    float32 on the three-piece ones."""
     m, k, n = mkn
     x, w = _act(m, k, dt), _w1x1(k, n, dt)
-    want = "sm90" if dt == BF16 else "simt"
+    want = "sm90" if dt == BF16 else "sm90x3"
     g, dsc = _act(m, n, dt), _act(m, k, dt)
     gc = torch.empty((3, n), device="meta")
     assert tcf.mm_fused_bwd_route(x, w, (g, None, None, None, x),
@@ -533,8 +534,9 @@ def test_conv3_bwd_wrapper_refuses_cpu_tensors_on_either_route(route):
 # ---------------------------------- the float32 route (three bf16 pieces)
 def _x3_lane_routes(stage, batch):
     """{form: route} of every float32 conv form of one ResNet-50 stage's
-    fused blocks at ``batch``: conv3_fused and the dual dgrad, which take
-    the three-piece route, and the other three forms."""
+    fused blocks at ``batch``: conv3_fused, the dual dgrad and the 1x1
+    backwards (expand and entry), which take the three-piece route, and
+    the other two forms."""
     _, mid, c4, hw, cin = chip_smoke.RESNET_STAGES[stage]
     M = batch * hw * hw
     xs, x, y2 = _act(M, cin, F32), _act(M, c4, F32), _act(M, mid, F32)
@@ -552,6 +554,9 @@ def _x3_lane_routes(stage, batch):
         "expand bwd": tcf.mm_fused_bwd_route(
             y2, _w1x1(mid, c4, F32), (_act(M, c4, F32),) * 2 + (y2,),
             (_vec(mid), _vec(mid), gcs[1])),
+        "entry bwd": tcf.mm_fused_bwd_route(
+            x, _w1x1(c4, mid, F32), acts[:2] + (_act(M, c4, F32),) * 2,
+            (gcs[0],)),
         "3x3 bwd": _conv3_bwd_route(M, mid, mid, F32),
     }
 
@@ -560,13 +565,13 @@ def _x3_lane_routes(stage, batch):
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_conv3_and_dual_dgrad_take_the_x3_route(stage, batch):
     """At every stage-2/3/4 shape at batch 16 (the float32 truth phase's)
-    and 128 (the lane's), float32 conv3_fused and dgrad_epilogue take the
-    three-piece kernels; mm_fused, mm_fused_bwd and conv3_fused_bwd stay on
-    the SIMT ones."""
+    and 128 (the lane's), float32 conv3_fused, dgrad_epilogue and
+    mm_fused_bwd take the three-piece kernels; mm_fused and
+    conv3_fused_bwd stay on the SIMT ones."""
     routes = _x3_lane_routes(stage, batch)
     assert routes == {"3x3": "sm90x3", "dual dgrad": "sm90x3",
-                      "entry": "simt", "expand bwd": "simt",
-                      "3x3 bwd": "simt"}
+                      "entry": "simt", "expand bwd": "sm90x3",
+                      "entry bwd": "sm90x3", "3x3 bwd": "simt"}
 
 
 def test_float32_shapes_the_x3_route_cannot_take_take_simt():
@@ -605,9 +610,22 @@ def test_float32_shapes_the_x3_route_cannot_take_take_simt():
     strided = torch.empty((64, 64), dtype=F32)[:, ::2]
     assert tcf.dgrad_epilogue_route(x, strided, w, acts) == "simt"
     assert tcf.dgrad_epilogue_route(x, w, w, acts, (a, a)) == "simt"
+    # mm_fused_bwd: either weight layout is split; the same shape rules
+    assert tcf.mm_fused_bwd_route(x, w, acts) == "sm90x3"
+    assert tcf.mm_fused_bwd_route(
+        x, torch.empty((64, 32), dtype=F32), acts) == "sm90x3"
+    assert tcf.mm_fused_bwd_route(_act(256, 60, F32),
+                                  _w1x1(60, 32, F32)) == "simt"
+    assert tcf.mm_fused_bwd_route(x, _w1x1(64, 36, F32)) == "simt"
+    assert tcf.mm_fused_bwd_route(_act(0, 64, F32), w) == "simt"
+    assert tcf.mm_fused_bwd_route(x, w, (odd,)) == "simt"
+    assert tcf.mm_fused_bwd_route(x, strided) == "simt"
+    assert tcf.mm_fused_bwd_route(x, w, (), (a, a, None)) == "simt"
+    assert tcf.mm_fused_bwd_route(x, w.to(BF16)) == "simt"
 
 
-@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue"])
+@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue",
+                                    "mm_fused_bwd"])
 @pytest.mark.parametrize("route", [None, "simt"])
 def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
     x = torch.randn(98, 16)
@@ -618,9 +636,13 @@ def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
     call = {"conv3_fused": lambda: tcf.conv3_fused(x, w9, a, b, (2, 7, 7),
                                                    _route=route),
             "dgrad_epilogue": lambda: tcf.dgrad_epilogue(
-                w, w, x, g, g, gc, g, g, gc, _route=route)}[kernel]
+                w, w, x, g, g, gc, g, g, gc, _route=route),
+            "mm_fused_bwd": lambda: tcf.mm_fused_bwd(
+                w, x, dzn=g, yout=g, gcoef=gc, a=a, b=b, out_mask="z",
+                partners=(x,), _route=route)}[kernel]
     assert tcf.conv3_fused_route(x, w9, (a, b)) == "sm90x3"
     assert tcf.dgrad_epilogue_route(x, w, w, (g,) * 4, (gc, gc)) == "sm90x3"
+    assert tcf.mm_fused_bwd_route(x, w, (g, g, x), (a, b, gc)) == "sm90x3"
     fn = getattr(tcf, kernel)
     before = (fn.launches, fn.sm90_launches, fn.x3_launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -641,6 +663,7 @@ def test_the_library_exports_the_x3_entry_points():
     bindings = SRC.with_name("bindings.cpp").read_text()
     for fn in ("mxt_conv_fused_sm90_split3", "mxt_conv_fused_sm90_conv3_x3",
                "mxt_conv_fused_sm90_dual_dgrad_x3",
+               "mxt_conv_fused_sm90_bwd_dgrad_x3",
                "mxt_conv_fused_sm90_dual_wgrad_x3"):
         params = re.search(rf"int {fn}\(([^)]*)\)", bindings).group(1)
         assert len(params.split(",")) == len(common._SIGNATURES[fn])
@@ -661,7 +684,8 @@ def test_x3_wgrad_split_covers_the_rows_and_fills_the_card(stage):
         assert (tiles, splits, chunk) == (40, 3, 8384)
 
 
-@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue"])
+@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue",
+                                    "mm_fused_bwd"])
 def test_float32_rows_past_the_x3_grid_take_simt(kernel):
     """The three-piece kernels put their 128-row tiles on gridDim.y, so at
     most 65535 of them: one more row takes the SIMT kernels, decided
@@ -672,6 +696,10 @@ def test_float32_rows_past_the_x3_grid_take_simt(kernel):
     if kernel == "conv3_fused":
         def route(m):
             return tcf.conv3_fused_route(_act(m, c, F32), _w3x3(c, n, F32))
+    elif kernel == "mm_fused_bwd":
+        def route(m):
+            return tcf.mm_fused_bwd_route(
+                _act(m, c, F32), _w1x1(c, n, F32), (_act(m, n, F32),) * 2)
     else:
         def route(m):
             return tcf.dgrad_epilogue_route(

@@ -419,8 +419,12 @@ def test_tile_walks_cover_every_pair_once(sq, sk, d, causal):
 
 # ----------------------------------------------------------- the routes
 def test_route_is_chosen_by_type_and_fma_only_for_float32():
+    """float32 takes the split route; bf16 the Hopper forward and the WMMA
+    backward kernels; only float32 may be forced onto the FMA kernels."""
     assert tfa.flash_train_route(torch.float32) == "mma"
-    assert tfa.flash_train_route(torch.bfloat16) == "wmma"
+    assert tfa.flash_train_route(torch.float32, "flash_bwd_dkv") == "mma"
+    assert tfa.flash_train_route(torch.bfloat16) == "wgmma"
+    assert tfa.flash_train_route(torch.bfloat16, "flash_bwd_dq") == "wmma"
     with pytest.raises(TypeError):
         tfa.flash_train_route(torch.float16)
     f32 = torch.zeros(1)

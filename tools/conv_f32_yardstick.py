@@ -12,7 +12,9 @@ block's entry conv1, 3x3 and expand conv3) is called on the route that
 checkout's wrapper picks, and read four ways: torch.profiler's device ms
 of one call (``device_ms``, every kernel the call launches), one call
 replayed from a CUDA graph (``graph_ms``), CUDA events over a loop of
-calls, and the wrapper's host µs. Beside them: the library call's ms
+calls, and the wrapper's host µs; a form whose route is not the SIMT
+kernels' is read the same four ways forced onto them (``_route="simt"``)
+under "simt". Beside them: the library call's ms
 (``torch.matmul`` / ``F.conv2d``, TF32 off for both) and the names of the
 kernels it launches, and three bounds: the bytes (every input read once,
 every output written once) at 3.35 TB/s, the flops at float32's 67
@@ -52,7 +54,15 @@ def lib_kernels(fn):
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-for name, case, kern, _old, _plain, lib, _moved, full, flops in \
+def readings(fn, wrapper):
+    dev, split = cs.device_ms(fn, wrapper)
+    return {"device_ms": dev, "kernels_ms": split,
+            "graph_ms": cs.graph_ms(fn),
+            "event_ms": cs.time_ms(fn, iters=10, warmup=2),
+            "host_us": cs.host_us(fn)}
+
+
+for name, case, kern, old, _plain, lib, _moved, full, flops in \
         cs._stage_runs(cf, g, 3, torch.float32):
     fn = getattr(cf, name)
     before = {k: getattr(fn, k, 0) for k in ("sm90_launches",
@@ -62,13 +72,10 @@ for name, case, kern, _old, _plain, lib, _moved, full, flops in \
     route = ("sm90x3" if getattr(fn, "x3_launches", 0) > before["x3_launches"]
              else "sm90" if fn.sm90_launches > before["sm90_launches"]
              else "simt")
-    dev, split = cs.device_ms(kern, fn)
     t_bytes = full / cs.HBM_BYTES_PER_S * 1e3
     out[f"{name} {case}"] = {
-        "route": route, "device_ms": dev, "kernels_ms": split,
-        "graph_ms": cs.graph_ms(kern),
-        "event_ms": cs.time_ms(kern, iters=10, warmup=2),
-        "host_us": cs.host_us(kern),
+        "route": route, **readings(kern, fn),
+        "simt": readings(old, fn) if route != "simt" else None,
         "library_ms": cs.time_ms(lib, iters=10, warmup=2),
         "library_kernels": lib_kernels(lib),
         "bytes_bound_ms": t_bytes,

@@ -70,15 +70,16 @@ Phases:
    kernels against the same step with the plain attention (atol 1e-3);
 6. the training kernels (flash forward, dq, dk/dv): the float32 route's
    kernels as built (registers, stack, local bytes and HMMA count of each,
-   none without HMMA or with local bytes) and the bf16 forward's Hopper
-   kernel at d 32/64/128 (``flash_fwd_wgmma_kernel``: HGMMA, no local
-   bytes); against their plain twins, in float32 (atol 1e-4 forward, 1e-3
+   none without HMMA or with local bytes) and the bf16 Hopper kernels at
+   d 32/64/128 (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+   ``flash_bwd_dkv_wgmma_kernel``: HGMMA, no local bytes or stack);
+   against their plain twins, in float32 (atol 1e-4 forward, 1e-3
    gradients; on the split-bf16 ``mma.sync`` route and on the FMA route)
-   and bf16 (2e-2, 5e-2; the forward on its ``wgmma`` route and on the
-   WMMA kernel, ``_route="wmma"``), in the packed and head-major layouts:
-   first a sweep of small shapes (head dims 32/64/128, a tail tile,
-   sq != sk, causal and not; bf16 also T 512 and sq 1 / sk 7); then the
-   product
+   and bf16 (2e-2, 5e-2; forward and backward on their ``wgmma`` route and
+   on the WMMA kernels, ``_route="wmma"``; the ``wgmma`` backward's two
+   calls bitwise equal), in the packed and head-major layouts: first a
+   sweep of small shapes (head dims 32/64/128, a tail tile, sq != sk,
+   causal and not; bf16 also T 512 and sq 1 / sk 7); then the product
    check, each float32 kernel against the float64 function on both routes
    (B 2, H 12, T 512, d 64, packed, causal), the split route no worse than
    the FMA route; then at B 32, H 12, T 512, d 64, causal, with their
@@ -86,10 +87,13 @@ Phases:
    rounds, and each kernel's time replayed from a CUDA graph), SDPA's
    float32 kernels, and the bounds as in phase 3 (float32: six bf16
    products on the tensor cores, the FMA bound beside it; and the backward
-   pair's minimal bound); the bf16 forward's record: its ``wgmma`` kernel,
-   the WMMA kernel and SDPA in turns (device, graph, event ms, host µs);
-7. training: 2 warm-up steps (the first in bf16: its 12 flash forward
-   launches all on the ``wgmma`` route), then 5 timed steps with the
+   pair's minimal bound); the bf16 records: the forward's ``wgmma``
+   kernel, the WMMA kernel and SDPA, then the backward pair on ``wgmma``,
+   the WMMA pair and SDPA's backward, each in turns (device, graph, event
+   ms, host µs);
+7. training: 2 warm-up steps (the first in bf16: its 12 flash forward, 12
+   dq and 12 dk/dv launches all on the ``wgmma`` route), then 5 timed
+   steps with the
    launch counters reset before them; the loss must be finite and fall,
    and each training kernel must be launched 12 times per step, every
    launch of the float32 timed steps on the split route; then a
@@ -97,7 +101,7 @@ Phases:
    from the same profiled window;
 8. the head-major route: a 2-layer step at d_model 576, 9 heads (packed
    rows not a multiple of 128) must launch the same kernels, every bf16
-   forward launch on the ``wgmma`` route;
+   flash launch on the ``wgmma`` route;
 9. one full-width float32 loss-and-gradient pass with the kernels against
    the same pass with plain attention (loss rtol 1e-4, every gradient
    leaf within 1e-3 of its largest entry);
@@ -140,10 +144,11 @@ Phases:
    a middle block's entry-form conv1, 3x3 and expand conv3, forward and
    backward, with times beside the twin's, the library product's
    (``torch.matmul``, channels-last ``F.conv2d`` and its autograd) and the
-   bound; all five in bf16 on their Hopper route, float32 conv3_fused,
-   dgrad_epilogue and mm_fused_bwd on the three-piece route (every 1x1
-   form of mm_fused_bwd at stages 2-4, two calls bitwise equal), each also
-   forced onto its SIMT kernel and timed beside it in the same call;
+   bound; all five in bf16 on their Hopper route, float32 mm_fused,
+   conv3_fused, dgrad_epilogue and mm_fused_bwd on the three-piece route
+   (every 1x1 form of mm_fused and mm_fused_bwd at stages 2-4, two calls
+   bitwise equal), each also forced onto its SIMT kernel and timed beside
+   it in the same call;
 14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
    and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
    falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
@@ -157,8 +162,9 @@ Phases:
    path (forward, dx and every non-bias parameter gradient; see
    ``resnet_truth_phase``), beside two control readings: the same fused
    stage on the plain twins, and the kernels' stage against the twins';
-   every float32 conv3_fused, dgrad_epilogue and mm_fused_bwd launch (13,
-   3 and 23 over the stages) on the three-piece route; then the whole
+   every float32 mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd
+   launch (29, 13, 3 and 23 over the stages) on the three-piece route;
+   then the whole
    net's first-step loss, fused against per-block (rtol 1e-3);
 17. the LSTM kernels (``lstm_fwd_gates``, ``lstm_fwd``, ``lstm_bwd``)
    against their twins, forward within 1e-4 in float32 and 2e-2 with bf16
@@ -828,8 +834,9 @@ def f32_step_phase(tt, fa):
 # ------------------------------------------------------ training kernels
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the JSON line's records of phase 6: the float32 kernels (the timed
-# steps' type), then the bf16 forward's Hopper kernel
-TRAIN_RECORDS = TRAIN_KERNELS + ("flash_fwd/wgmma",)
+# steps' type), then the bf16 Hopper kernels: the forward, the backward
+# pair (dq, then dk/dv)
+TRAIN_RECORDS = TRAIN_KERNELS + ("flash_fwd/wgmma", "flash_bwd_pair/wgmma")
 FLASH_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                      "flash_attention_sm90.cu")
 # (forward atol, gradient atol) per input type
@@ -847,9 +854,10 @@ def train_kernel_sweep(fa, g):
     sq 160 / sk 96 (key tiles no query row reaches under the top-left
     causal mask), and in bf16 also T 512 and sq 1 / sk 7; causal and not;
     both layouts and both types; B 2, H 4; float32 on its split-bf16 route
-    and on the FMA route, the bf16 forward on its Hopper route (checked by
-    its ``sm90_launches``) and on the WMMA kernel. Tolerances as at the
-    training shapes. Returns the worst error per kernel, type and route."""
+    and on the FMA route, bf16 on its Hopper route (every kernel checked
+    by its ``sm90_launches``; the backward's two calls bitwise equal) and
+    on the WMMA kernels. Tolerances as at the training shapes. Returns the
+    worst error per kernel, type and route."""
     B, H = 2, 4
     worst = {}
     n_cases = 0
@@ -883,26 +891,35 @@ def train_kernel_sweep(fa, g):
                             q, k, v, do, ref_lse, delta, **kw)
                         for route in routes:
                             rkw = dict(kw, _route=route)
-                            before = fa.flash_fwd.sm90_launches
+                            before = [getattr(fa, n).sm90_launches
+                                      for n in TRAIN_KERNELS]
                             out, lse = fa.flash_fwd(q, k, v, **rkw)
-                            if fa.flash_fwd.sm90_launches - before != (
-                                    route is None):
-                                raise AssertionError(
-                                    f"flash_fwd {dt} route {route}: not on "
-                                    f"the route asked for")
-                            errs = {"flash_fwd": max(_max_err(out, ref_out),
-                                                     _max_err(lse, ref_lse))}
-                            outs = [out, lse]
-                            if route != "wmma":        # forward-only route
-                                dq = fa.flash_bwd_dq(q, k, v, do, ref_lse,
-                                                     delta, **rkw)
-                                dk, dv = fa.flash_bwd_dkv(q, k, v, do,
+                            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse,
+                                                 delta, **rkw)
+                            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse,
+                                                      delta, **rkw)
+                            for n, b0 in zip(TRAIN_KERNELS, before):
+                                if getattr(fa, n).sm90_launches - b0 != (
+                                        route is None):
+                                    raise AssertionError(
+                                        f"{n} {dt} route {route}: not on "
+                                        f"the route asked for")
+                            if dt == torch.bfloat16 and route is None:
+                                _bitwise_repeats(
+                                    lambda rkw=rkw: (
+                                        fa.flash_bwd_dq(q, k, v, do, ref_lse,
+                                                        delta, **rkw),
+                                        *fa.flash_bwd_dkv(q, k, v, do,
                                                           ref_lse, delta,
-                                                          **rkw)
-                                errs["flash_bwd_dq"] = _max_err(dq, rq)
-                                errs["flash_bwd_dkv"] = max(_max_err(dk, rk),
-                                                            _max_err(dv, rv))
-                                outs += [dq, dk, dv]
+                                                          **rkw)),
+                                    f"bf16 backward d {d} sq {sq} sk {sk} "
+                                    f"causal {causal} {lay}")
+                            errs = {"flash_fwd": max(_max_err(out, ref_out),
+                                                     _max_err(lse, ref_lse)),
+                                    "flash_bwd_dq": _max_err(dq, rq),
+                                    "flash_bwd_dkv": max(_max_err(dk, rk),
+                                                         _max_err(dv, rv))}
+                            outs = [out, lse, dq, dk, dv]
                             finite = all(torch.isfinite(t.float()).all()
                                          for t in outs)
                             for name, err in errs.items():
@@ -920,10 +937,11 @@ def train_kernel_sweep(fa, g):
                             n_cases += 1
     log(f"shape sweep: {n_cases} cases (d 32/64/128; T 200, sq 96 sk 160, "
         f"sq 160 sk 96, bf16 also T 512 and sq 1 sk 7; causal and not; both "
-        f"layouts and types; float32 on both routes, the bf16 forward on "
-        f"the wgmma and the WMMA kernel) within tolerance; worst "
-        f"max_abs_err {json.dumps(worst)}")
+        f"layouts and types; float32 on both routes, bf16 on the wgmma and "
+        f"the WMMA kernels, the wgmma backward's two calls bitwise equal) "
+        f"within tolerance; worst max_abs_err {json.dumps(worst)}")
     return worst
+
 
 
 def _flash_mma_kernel_name(mangled):
@@ -934,26 +952,28 @@ def _flash_mma_kernel_name(mangled):
 
 
 def _flash_wgmma_kernel_name(mangled):
-    """``flash_fwd_wgmma_kernel<64>`` (the head dim) from a mangled name, or
-    None for another kernel."""
-    m = re.search(r"(flash_fwd_wgmma_kernel)ILi(\d+)EE", mangled)
+    """``flash_bwd_dq_wgmma_kernel<64>`` (the head dim) from a mangled name,
+    or None for another kernel."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)EE",
+                  mangled)
     return None if m is None else f"{m.group(1)}<{m.group(2)}>"
 
 
 def flash_sass_check(common):
     """flash_attention.cu's float32-route kernels as built (forward, dq and
     dk/dv at d 32, 64 and 128), each with HMMA (``mma.sync``) and no local
-    bytes; and flash_attention_sm90.cu's bf16 forward at d 32, 64 and 128,
-    each with HGMMA (``wgmma``) and no local bytes."""
+    bytes; and flash_attention_sm90.cu's bf16 forward, dq and dk/dv at d
+    32, 64 and 128, each with HGMMA (``wgmma``), no local bytes and no
+    stack (no spills)."""
     kernels = _sass_kernels(common, "flash_attention.*o",
                             _flash_mma_kernel_name, "HMMA")
     if len(kernels) != 9:
         raise AssertionError(f"expected 9 float32-route flash kernels, "
                              f"found {sorted(kernels)}")
     wgmma = _sass_kernels(common, "flash_attention_sm90*.o",
-                          _flash_wgmma_kernel_name, "HGMMA")
-    if len(wgmma) != 3:
-        raise AssertionError(f"expected 3 bf16 wgmma flash kernels, found "
+                          _flash_wgmma_kernel_name, "HGMMA", no_stack=True)
+    if len(wgmma) != 9:
+        raise AssertionError(f"expected 9 bf16 wgmma flash kernels, found "
                              f"{sorted(wgmma)}")
     kernels.update(wgmma)
     return kernels
@@ -1217,6 +1237,11 @@ def train_kernel_checks(fa, common):
                 records["flash_fwd/wgmma"] = bf16_forward_record(
                     fa, q, k, v, hm, kw, errs["flash_fwd"],
                     plain["flash_fwd"], work["flash_fwd"])
+                records["flash_bwd_pair/wgmma"] = bf16_backward_record(
+                    fa, (q, k, v, do, lse, delta), hm, kw,
+                    max(errs["flash_bwd_dq"], errs["flash_bwd_dkv"]),
+                    plain["flash_bwd_dq"],
+                    (7 * x_bytes + 2 * row_bytes, 10 * d * pairs))
     return records, timings
 
 
@@ -1234,21 +1259,58 @@ def bf16_forward_record(fa, q, k, v, hm, kw, err, plain_ms, work):
          "sdpa": lambda: sdpa(*hm[:3], is_causal=True)},
         {"wgmma": fa.flash_fwd, "wmma": fa.flash_fwd, "sdpa": None})
     log(f"turns flash_fwd bf16 packed: {_turns_line(turns)}")
+    return _wgmma_record("flash_fwd/wgmma", ":699", turns, err, plain_ms,
+                         work)
+
+
+def bf16_backward_record(fa, args, hm, kw, err, plain_ms, work):
+    """Phase 6: the bf16 backward pair's JSON record at the lane (packed,
+    causal): dq then dk/dv on the Hopper kernels, on the old WMMA kernels
+    (``_route="wmma"``), and SDPA's backward on the same values
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention``,
+    head-major, its output kept from one forward) in turns (``_in_turns``:
+    device, graph and event ms and host µs, two rounds), beside the twin's
+    ms and the bound (q, k, v, dout, lse and delta read once and dq, dk and
+    dv written once, or 10 d flops a causal pair at the bf16 peak)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in hm[:3])
+    o = sdpa(qr, kr, vr, is_causal=True)
+
+    def pair(route=None):
+        return (fa.flash_bwd_dq(*args, _route=route, **kw),
+                *fa.flash_bwd_dkv(*args, _route=route, **kw))
+    turns = _in_turns(
+        {"wgmma": pair, "wmma": lambda: pair("wmma"),
+         "sdpa": lambda: torch.autograd.grad(o, (qr, kr, vr), hm[3],
+                                             retain_graph=True)},
+        {"wgmma": fa.flash_bwd_dq, "wmma": fa.flash_bwd_dq, "sdpa": None})
+    log(f"turns flash_bwd_pair bf16 packed: {_turns_line(turns)}")
+    return _wgmma_record("flash_bwd_pair/wgmma", ":911", turns, err,
+                         plain_ms, work)
+
+
+def _wgmma_record(name, line, turns, err, plain_ms, work):
+    """The JSON record of a bf16 Hopper flash kernel from its turns
+    (``_in_turns``: "wgmma", the WMMA kernel "wmma" as ``earlier_*``, SDPA
+    as ``library_*``), ``line`` its Pallas kernel's line, ``work`` (bytes,
+    flops) its bound."""
     new, old, lib = turns["wgmma"], turns["wmma"], turns["sdpa"]
     moved, flops = work
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    rec = {"name": "flash_fwd/wgmma", "route": "cuda",
-           "source": FLASH_SM90_SOURCE,
-           "replaces": "incubator_mxnet_tpu/ops/pallas/flash_attention.py:699",
+    rec = {"name": name, "route": "cuda", "source": FLASH_SM90_SOURCE,
+           "replaces": "incubator_mxnet_tpu/ops/pallas/flash_attention.py"
+                       + line,
            "launches": 0, "max_abs_err": err, "ms": new["event_ms"],
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": lib["event_ms"], "kernel_route": "wgmma",
-           "device_ms": new["device_ms"], "graph_ms": new["graph_ms"],
+           "device_ms": new["device_ms"],
+           "device_kernels_ms": new["kernels"], "graph_ms": new["graph_ms"],
            "host_us": new["host_us"],
            "earlier_ms": old["event_ms"], "earlier_device_ms": old[
-               "device_ms"], "earlier_graph_ms": old["graph_ms"],
+               "device_ms"], "earlier_device_kernels_ms": old["kernels"],
+           "earlier_graph_ms": old["graph_ms"],
            "earlier_host_us": old["host_us"],
            "library_device_ms": lib["device_ms"],
            "library_graph_ms": lib["graph_ms"],
@@ -1257,7 +1319,7 @@ def bf16_forward_record(fa, q, k, v, hm, kw, err, plain_ms, work):
            "rounds": {label: {key: val for key, val in r.items()
                               if key.endswith("_rounds")}
                       for label, r in turns.items()}}
-    log(f"record flash_fwd/wgmma: {json.dumps(rec)}")
+    log(f"record {name}: {json.dumps(rec)}")
     return rec
 
 
@@ -1284,10 +1346,13 @@ def train_phase(tt, fa, records, steps=5):
     tokens, labels = _batch(np.random.RandomState(0), cfg, B, T)
     losses = []
     fa.reset_launch_counts()
-    bf16_fwd = _bf16_forward_steps(fa, params, lambda p, o: step(
+    bf16_steps = _bf16_flash_steps(fa, params, lambda p, o: step(
         p, o, tokens, labels), opt, 2, cfg.n_layers, "train", losses)
-    params, opt = bf16_fwd.pop("state")
-    records["flash_fwd/wgmma"]["launches"] = bf16_fwd["launches"]
+    params, opt = bf16_steps.pop("state")
+    got = bf16_steps["launches"]
+    records["flash_fwd/wgmma"]["launches"] = got["flash_fwd"]
+    records["flash_bwd_pair/wgmma"]["launches"] = (got["flash_bwd_dq"]
+                                                   + got["flash_bwd_dkv"])
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1313,13 +1378,11 @@ def train_phase(tt, fa, records, steps=5):
                                  f"in {steps} steps, not "
                                  f"{cfg.n_layers * steps}")
         # the timed steps run float32 attention: all on the split route
-        # (the forward takes a Hopper kernel in either type)
-        want = (launches[name] if timed_dtype == "float32"
-                or name == "flash_fwd" else 0)
-        if split[name] != want:
+        # (bf16 would take the wgmma kernels, counted there too)
+        if split[name] != launches[name]:
             raise AssertionError(f"{name}: {split[name]} of "
-                                 f"{launches[name]} launches on the split "
-                                 f"route, not {want}")
+                                 f"{launches[name]} launches on the "
+                                 f"{timed_dtype} route")
         records[name]["launches"] = launches[name]
     step_ms = wall / steps * 1e3
     # both routes' kernels: flash_fwd_kernel, flash_fwd_mma_kernel, ...
@@ -1328,37 +1391,41 @@ def train_phase(tt, fa, records, steps=5):
         [f"{n}_" for n in TRAIN_KERNELS])
     return {"step_ms": step_ms, "tok_s": B * T * steps / wall,
             "timed_dtype": timed_dtype, "loss_first": losses[0],
-            "loss_last": losses[-1], "bf16_forward": bf16_fwd, **breakdown}
+            "loss_last": losses[-1], "bf16_flash": bf16_steps,
+            **breakdown}
 
 
-def _bf16_forward_steps(fa, params, step, opt, steps, n_layers, label,
-                        losses):
-    """``steps`` LM steps, each checked for its flash forward launches:
-    ``n_layers`` a step, and in a step whose parameters are bf16 (before
-    Adam's float32 lr_t promotes them) every one on the Hopper kernel
-    (``sm90_launches``; bf16's only Hopper forward is the wgmma kernel).
-    Returns {"launches": the bf16 steps' forward launches, "steps": how
-    many steps ran in bf16, "state": (params, opt)}; at least one must."""
-    got = {"launches": 0, "steps": 0}
+def _bf16_flash_steps(fa, params, step, opt, steps, n_layers, label,
+                      losses):
+    """``steps`` LM steps, each checked for its flash launches: ``n_layers``
+    a step of each training kernel (forward, dq, dk/dv), and in a step
+    whose parameters are bf16 (before Adam's float32 lr_t promotes them)
+    every one on the Hopper kernels (``sm90_launches``; bf16's only Hopper
+    route is the wgmma kernels). Returns {"launches": {kernel: the bf16
+    steps' launches}, "steps": how many steps ran in bf16, "state":
+    (params, opt)}; at least one must."""
+    got = {"launches": dict.fromkeys(TRAIN_KERNELS, 0), "steps": 0}
     for _ in range(steps):
         bf16 = params["layers"][0]["wq"].dtype == torch.bfloat16
-        before = (fa.flash_fwd.launches, fa.flash_fwd.sm90_launches)
+        before = {n: (getattr(fa, n).launches, getattr(fa, n).sm90_launches)
+                  for n in TRAIN_KERNELS}
         params, opt, loss = step(params, opt)
         losses.append(loss)
-        n = fa.flash_fwd.launches - before[0]
-        sm90 = fa.flash_fwd.sm90_launches - before[1]
-        if n != n_layers:
-            raise AssertionError(f"{label}: {n} flash_fwd launches in a "
-                                 f"step, not {n_layers}")
-        if bf16:
-            if sm90 != n:
-                raise AssertionError(f"{label}: {sm90} of {n} bf16 flash "
-                                     "forward launches on the wgmma route")
-            got["launches"] += n
-            got["steps"] += 1
+        for name in TRAIN_KERNELS:
+            n = getattr(fa, name).launches - before[name][0]
+            sm90 = getattr(fa, name).sm90_launches - before[name][1]
+            if n != n_layers:
+                raise AssertionError(f"{label}: {n} {name} launches in a "
+                                     f"step, not {n_layers}")
+            if bf16 and sm90 != n:
+                raise AssertionError(f"{label}: {sm90} of {n} bf16 {name} "
+                                     "launches on the wgmma route")
+            if bf16:
+                got["launches"][name] += n
+        got["steps"] += bf16
     if not got["steps"]:
         raise AssertionError(f"{label}: no step ran in bf16")
-    log(f"{label}: {got['launches']} bf16 flash_fwd launches in "
+    log(f"{label}: bf16 flash launches {json.dumps(got['launches'])} in "
         f"{got['steps']} bf16 step(s), all on the wgmma route")
     got["state"] = (params, opt)
     return got
@@ -1421,8 +1488,8 @@ def headmajor_phase(tt, fa, steps=2):
     tokens, labels = _batch(np.random.RandomState(1), cfg, B)
     fa.reset_launch_counts()
     losses = []
-    _bf16_forward_steps(fa, params, lambda p, o: step(p, o, tokens, labels),
-                        opt, steps, cfg.n_layers, "head-major step", losses)
+    _bf16_flash_steps(fa, params, lambda p, o: step(p, o, tokens, labels),
+                      opt, steps, cfg.n_layers, "head-major step", losses)
     losses = [float(x) for x in losses]
     launches = fa.launch_counts()
     log(f"head-major step (d_model 576, 9 heads): losses {losses}; "
@@ -1971,10 +2038,12 @@ CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                     "conv_fused_sm90.cu")
 # the JSON line's names of the phase-13/14 kernels, in its order: every
 # bf16 route is the Hopper kernels of conv_fused_sm90.cu, and so is the
-# float32 route of conv3_fused, dgrad_epilogue and mm_fused_bwd (three bf16
-# pieces a float32 operand, six wgmma products a stage: "sm90x3"; phase 16
-# launches them); the other two float32 forms take the SIMT kernels
-CONV_X3_KERNELS = ("conv3_fused", "dgrad_epilogue", "mm_fused_bwd")
+# float32 route of mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd
+# (three bf16 pieces a float32 operand, six wgmma products a stage:
+# "sm90x3"; phase 16 launches them); float32 conv3_fused_bwd takes the SIMT
+# kernels
+CONV_X3_KERNELS = ("mm_fused", "conv3_fused", "dgrad_epilogue",
+                   "mm_fused_bwd")
 CONV_RECORDS = tuple(f"{n}/sm90" for n in CONV_KERNELS) + tuple(
     f"{n}/sm90x3" for n in CONV_X3_KERNELS)
 CONV_REPLACES = {
@@ -2341,7 +2410,7 @@ def graph_ms(fn, replays: int = 20):
         with torch.cuda.graph(graph):
             for _ in range(replays):
                 fn()
-    except RuntimeError as err:
+    except Exception as err:            # noqa: BLE001 (an autograd call)
         log(f"graph_ms: the call could not be captured: {err}")
         torch.cuda.synchronize()
         return None
@@ -2404,9 +2473,9 @@ def _turns_line(res):
 
 def _conv_route(name, dt):
     """The route the plan gives a conv form of the ResNet-50 lane's
-    stages: every bf16 form the Hopper kernels; in float32, conv3_fused,
-    dgrad_epilogue and mm_fused_bwd the three-piece kernels, the rest the
-    SIMT ones."""
+    stages: every bf16 form the Hopper kernels; in float32, mm_fused,
+    conv3_fused, dgrad_epilogue and mm_fused_bwd the three-piece kernels,
+    conv3_fused_bwd the SIMT ones."""
     if dt == torch.bfloat16:
         return "sm90"
     return "sm90x3" if name in CONV_X3_KERNELS else "simt"
@@ -2510,12 +2579,14 @@ def _sass_kernels(common, pattern, name_of, instr, no_stack=False):
 
 def sm90_sass_check(common):
     """The Hopper kernels of conv_fused_sm90.cu as built, each with HGMMA
-    and no local bytes, the float32 route's four among them; and its piece
-    split, ``cf90_split3_kernel``, with stores and no local bytes (it picks
-    its operand from the launch's descriptor by static indices)."""
+    and no local bytes, the float32 route's six among them (the forward in
+    its plain/bnrelu and entry forms); and its piece split,
+    ``cf90_split3_kernel``, with stores and no local bytes (it picks its
+    operand from the launch's descriptor by static indices)."""
     kernels = _sass_kernels(common, "conv_fused_sm90*.o", _sm90_kernel_name,
                             "HGMMA")
-    x3 = {"cf90_conv3_x3_kernel", "cf90_dual_dgrad_x3_kernel",
+    x3 = {"cf90_fwd_x3_kernel<0>", "cf90_fwd_x3_kernel<1>",
+          "cf90_conv3_x3_kernel", "cf90_dual_dgrad_x3_kernel",
           "cf90_dual_wgrad_x3_kernel", "cf90_bwd_dgrad_x3_kernel"}
     if not x3 <= set(kernels):
         raise AssertionError(f"the float32 route's kernels are not all in "
@@ -2540,9 +2611,13 @@ def lstm_sass_check(common):
     return kernels
 
 
-def _x3_repeats(kern, tag):
-    """Two calls of a float32-route kernel (no atomics anywhere) give equal
-    outputs bit for bit."""
+# the float32-route kernels whose calls are held to two equal calls
+_X3_REPEATED = ("mm_fused", "dgrad_epilogue", "mm_fused_bwd")
+
+
+def _bitwise_repeats(kern, tag):
+    """Two calls of a kernel with no atomics anywhere (the float32 route's,
+    the bf16 flash backward) give equal outputs bit for bit."""
     first = kern()
     second = kern()
     torch.cuda.synchronize()
@@ -2555,11 +2630,11 @@ def conv_kernel_checks(cf, common):
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
     every conv form of each stage (2, 3, 4) in both types. Each call takes
     the route the plan gives (``_conv_route``): every bf16 form the Hopper
-    kernels (conv_fused_sm90.cu), float32 conv3_fused, dgrad_epilogue and
-    mm_fused_bwd that file's three-piece kernels ("sm90x3"), the other
-    float32 forms the SIMT kernels; every call on a Hopper route is held to
-    the twin
-    again forced onto its SIMT kernel (the private ``_route="simt"``).
+    kernels (conv_fused_sm90.cu), float32 mm_fused, conv3_fused,
+    dgrad_epilogue and mm_fused_bwd that file's three-piece kernels
+    ("sm90x3"), float32 conv3_fused_bwd the SIMT kernels; every call on a
+    Hopper route is held to the twin again forced onto its SIMT kernel
+    (the private ``_route="simt"``).
     Times in bf16 at every stage and in float32 at stage 3: CUDA events
     over a loop of wrapper calls, beside the twin's, the library call's
     and the bound. On the bf16 route, in turns with the SIMT kernel (new,
@@ -2597,16 +2672,16 @@ def conv_kernel_checks(cf, common):
                     cf, name, old, "simt"), ref, dt)
                 key = f"{name} {str(dt)[6:]} simt"
                 worst[key] = max(worst.get(key, 0.0), err)
-            if route == "sm90x3" and name in ("dgrad_epilogue",
-                                               "mm_fused_bwd"):
-                _x3_repeats(kern, f"{name} {case}")
+            if route == "sm90x3" and name in _X3_REPEATED:
+                _bitwise_repeats(kern, f"{name} {case}")
             n_cases += 1
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
         f"partners, dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images "
         f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route, "
-        f"float32 conv3_fused, dgrad_epilogue and mm_fused_bwd on the "
-        f"sm90x3 route, each again on the simt one) within tolerance; worst "
+        f"float32 mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd "
+        f"on the sm90x3 route, each again on the simt one) within "
+        f"tolerance; worst "
         f"{json.dumps(worst)}")
     timings = {"sass": sass, "sweep": worst}
     records = {}
@@ -2623,9 +2698,8 @@ def conv_kernel_checks(cf, common):
                     held(f"{tag} simt", _route_taken(cf, name, old, "simt"),
                          ref, dt)
                 del ref
-                if route == "sm90x3" and name in ("dgrad_epilogue",
-                                                   "mm_fused_bwd"):
-                    _x3_repeats(kern, tag)
+                if route == "sm90x3" and name in _X3_REPEATED:
+                    _bitwise_repeats(kern, tag)
                 if dt == torch.float32 and stage != 3:
                     log(f"parity {tag} ({route}): err {err:.3g}")
                     continue
@@ -2911,10 +2985,11 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
     """Phase 16: in float32 at 224 x 224, batch 16: each fused stage (2, 3,
     4) against the same stage on the per-block path, then the whole net's
     first-step loss fused against per-block (rtol 1e-3). Every float32
-    conv3_fused (one a block), dgrad_epilogue (one a stage) and
-    mm_fused_bwd (two a block but block 0's one) launch of the fused
-    stages takes the three-piece route ("sm90x3"); their counts over the
-    three stages (13, 3, 23) are the records' launches.
+    mm_fused (two a block and block 0's projection), conv3_fused (one a
+    block), dgrad_epilogue (one a stage) and mm_fused_bwd (two a block but
+    block 0's one) launch of the fused stages takes the three-piece route
+    ("sm90x3"); their counts over the three stages (29, 13, 3, 23) are the
+    records' launches.
 
     The forward is held to tests/test_fused_resnet.py:402's tolerance
     (rtol = atol = 1e-3). Its gradient tolerances (:406-414: dx within
@@ -2959,13 +3034,14 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
                 or counts["dgrad_epilogue"] != 1:
             raise AssertionError(f"the fused stage did not run its kernels: "
                                  f"{counts}")
-        if not x3["conv3_fused"] == counts["conv3_fused"] == len(blocks) \
-                or x3["dgrad_epilogue"] != 1 \
+        if not x3["mm_fused"] == counts["mm_fused"] == 2 * len(blocks) + 1 \
+                or not x3["conv3_fused"] == counts["conv3_fused"] \
+                == len(blocks) or x3["dgrad_epilogue"] != 1 \
                 or not x3["mm_fused_bwd"] == counts["mm_fused_bwd"] \
                 == 2 * len(blocks) - 1:
-            raise AssertionError(f"float32 conv3_fused / dgrad_epilogue / "
-                                 f"mm_fused_bwd launches off the sm90x3 "
-                                 f"route: {x3} of {counts}")
+            raise AssertionError(f"float32 mm_fused / conv3_fused / "
+                                 f"dgrad_epilogue / mm_fused_bwd launches "
+                                 f"off the sm90x3 route: {x3} of {counts}")
         for name in CONV_X3_KERNELS:
             x3_total[name] += x3[name]
         common.reset_launch_counts()

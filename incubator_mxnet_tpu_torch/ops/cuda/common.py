@@ -49,6 +49,8 @@ _SIGNATURES = {
     "mxt_flash_fwd_sm90": [_P] * 5 + [_I] * 7 + [_F, _P],
     "mxt_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _P],
     "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "mxt_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "mxt_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 7 + [_F, _P],
     "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mxt_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "mxt_layer_norm_bwd_onepass": [_P] * 10 + [_I] * 5 + [_P],
@@ -73,6 +75,7 @@ _SIGNATURES = {
     "mxt_conv_fused_sm90_conv3_bwd": [_P] * 4 + [_L] * 3 + [_P] * 8
                                      + [_I] * 8 + [_P],
     "mxt_conv_fused_sm90_split3": [_I, _P, _P],
+    "mxt_conv_fused_sm90_fwd_x3": [_P] * 11 + [_I] * 3 + [_P],
     "mxt_conv_fused_sm90_conv3_x3": [_P] * 6 + [_I] * 5 + [_P],
     "mxt_conv_fused_sm90_dual_dgrad_x3": [_P] * 11 + [_I] * 4 + [_P],
     "mxt_conv_fused_sm90_bwd_dgrad_x3": [_P] * 12 + [_I] * 2 + [_P] * 3
@@ -101,7 +104,7 @@ def counted_kernel(fn):
     nowhere else; a wrapper with a Hopper route (``csrc/*_sm90.cu``) also
     bumps ``fn.sm90_launches`` when the call took that route, and
     ``fn.x3_launches`` as well when that route was the float32 one with
-    every operand in three bf16 pieces (``conv3_fused``,
+    every operand in three bf16 pieces (``mm_fused``, ``conv3_fused``,
     ``dgrad_epilogue``, ``mm_fused_bwd``)."""
     fn.launches = 0
     fn.sm90_launches = 0

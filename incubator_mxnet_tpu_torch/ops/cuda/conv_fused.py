@@ -30,13 +30,13 @@ failure): all five in bf16, with channel counts that are multiples of 8,
 ``mm_fused_bwd``, ``conv3_fused`` and ``conv3_fused_bwd``, the one of the
 gluon weight's view), take the Hopper kernels of
 ``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted in
-``sm90_launches`` beside ``launches``); ``conv3_fused``,
+``sm90_launches`` beside ``launches``); ``mm_fused``, ``conv3_fused``,
 ``dgrad_epilogue`` and ``mm_fused_bwd`` in float32, under the same shape
 rules (a weight with any unit stride), take that file's float32 kernels,
 "sm90x3": every float32 operand of a product in three exact bf16 pieces,
 six ``wgmma`` products a stage (no TF32, so float32 matches the plain
 twin; counted in ``sm90_launches`` and ``x3_launches``); everything else,
-and the other two forms in float32 always, takes the SIMT kernels of
+and ``conv3_fused_bwd`` in float32 always, takes the SIMT kernels of
 ``csrc/conv_fused.cu``. :func:`mm_fused_route`,
 :func:`mm_fused_bwd_route`, :func:`conv3_fused_route`,
 :func:`conv3_fused_bwd_route`, :func:`dgrad_epilogue_route`,
@@ -302,11 +302,12 @@ def sm90_plan(bn: int, n_raw: int, min_stage: int = 0) -> dict:
             "smem_bytes": stages * stage + 1024}
 
 
-def sm90_x3_plan(kernel: str) -> dict:
+def sm90_x3_plan(kernel: str, entry: bool = False) -> dict:
     """The shared-memory plan of a float32-route block (``Plan3`` in
-    conv_fused_sm90.cu) for ``kernel``: "conv3" (a stage holds x's raw
-    float32 128 x 32 box, W9's three 128 x 32 bf16 pieces and 1 KB of a and
-    b), "dgrad" (dzn's and yout's boxes, W^T's pieces, 1 KB of g0,
+    conv_fused_sm90.cu) for ``kernel``: "fwd" (``mm_fused``: a stage holds
+    x's raw float32 128 x 32 box, and sc's too with ``entry``, W's three
+    128 x 32 bf16 pieces and 1 KB of a, b, asc and bsc), "conv3" (x's raw
+    box, W9's three pieces and 1 KB of a and b), "dgrad" (dzn's and yout's boxes, W^T's pieces, 1 KB of g0,
     g1, g2), "bwd" (mm_fused_bwd's dgrad: as "dgrad", and at least an
     epilogue chunk of four 128 x 32 float32 boxes (x, dsc, two partners)
     and 1 KB of a and b) or "wgrad" (G^T's three pieces and x's, 128 x 32
@@ -314,7 +315,8 @@ def sm90_x3_plan(kernel: str) -> dict:
     128 x 128 staging tile and its column sums reuse them."""
     raw = SM90_BM * SM90_X3_BK * 4
     pieces = 3 * SM90_X3_BN * SM90_X3_BK * 2
-    stage = {"conv3": raw + pieces + 1024,
+    stage = {"fwd": (2 if entry else 1) * raw + pieces + 1024,
+             "conv3": raw + pieces + 1024,
              "dgrad": 2 * raw + pieces + 1024,
              "bwd": max(2 * raw + pieces + 1024, 4 * raw + 1024),
              "wgrad": 3 * SM90_BM * SM90_X3_BK * 2 + pieces}[kernel]
@@ -342,8 +344,18 @@ def _bulk_ok(v) -> bool:
 def mm_fused_route(x, w, sc=None, vecs=()) -> str:
     """"sm90" when :func:`mm_fused` takes the Hopper kernel (bf16, K and N
     multiples of 8, operands the TMA can read, the float32 vectors ``vecs``
-    (a, b, asc, bsc) 16-byte aligned), else "simt"."""
+    (a, b, asc, bsc) 16-byte aligned); "sm90x3" when it takes the float32
+    three-piece kernel (float32, the same rules for K, N, x, sc and
+    ``vecs``, at least one row and at most :data:`SM90_X3_MAX_ROWS`, w
+    with any unit stride: the split kernel copies its pieces out); else
+    "simt"."""
     k, n = w.shape
+    if x.dtype == w.dtype == torch.float32:
+        ok = (1 <= x.shape[0] <= SM90_X3_MAX_ROWS
+              and all(d % 8 == 0 and d >= 8 for d in (k, n))
+              and all(_tma_ok(t) for t in (x, sc))
+              and all(_bulk_ok(v) for v in vecs) and 1 in w.stride())
+        return "sm90x3" if ok else "simt"
     ok = (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
           and k % 8 == 0 and n % 8 == 0 and k >= 8 and n >= 8
           and all(_tma_ok(t) for t in (x, w, sc))
@@ -524,8 +536,10 @@ def mm_fused(x, w, a=None, b=None, sc=None, asc=None, bsc=None, bias=None,
     """CUDA kernel of the fused 1x1 conv forward (replaces the Pallas
     ``mm_fused``): x (M, K) contiguous float32 or bfloat16, w (K, N) of the
     same type with any strides. Returns (y[, stats (2, N)][, xhat]). The
-    route is :func:`mm_fused_route`'s; ``_route="simt"`` forces the SIMT
-    kernel (to time it beside the Hopper one; the lane never passes it)."""
+    route is :func:`mm_fused_route`'s; on the float32 route ("sm90x3") the
+    split kernel first makes w's (3, K, N) bf16 pieces; ``_route="simt"``
+    forces the SIMT kernel (to time it beside the Hopper one; the lane
+    never passes it)."""
     _check("mm_fused", x, w, a, b, sc, asc, bsc, bias)
     m, k = x.shape
     n = w.shape[1]
@@ -547,7 +561,17 @@ def mm_fused(x, w, a=None, b=None, sc=None, asc=None, bsc=None, bias=None,
     xhat = torch.empty_like(x) if emit_xhat else None
     lib = kernel_library()
     stream = current_stream_handle(x)
-    if (_route or mm_fused_route(x, w, sc, (a, b, asc, bsc))) == "sm90":
+    route = _route or mm_fused_route(x, w, sc, (a, b, asc, bsc))
+    if route == "sm90x3":
+        wp, = _pieces("mm_fused", (w, k, n, w.stride(0), w.stride(1)))
+        code = lib.mxt_conv_fused_sm90_fwd_x3(
+            _ptr(x), _ptr(a), _ptr(b), _ptr(sc), _ptr(asc), _ptr(bsc),
+            _ptr(wp), _ptr(bias), _ptr(y), _ptr(parts), _ptr(xhat), m, k, n,
+            stream)
+        check_launch(code, "mm_fused")
+        mm_fused.sm90_launches += 1
+        mm_fused.x3_launches += 1
+    elif route == "sm90":
         code = lib.mxt_conv_fused_sm90_fwd(
             _ptr(x), _ptr(a), _ptr(b), _ptr(sc), _ptr(asc), _ptr(bsc),
             _ptr(w), w.stride(0), w.stride(1), _ptr(bias), _ptr(y),

@@ -31,6 +31,12 @@ int flash_fwd_sm90_launch(int layout, const void* q, const void* k,
                           int sq, int sk, int d, int causal, float scale,
                           void* stream);
 
+int flash_bwd_sm90_launch(int dkv, int layout, const void* q, const void* k,
+                          const void* v, const void* dout, const float* lse,
+                          const float* delta, void* o0, void* o1, int B,
+                          int H, int sq, int sk, int d, int causal,
+                          float scale, void* stream);
+
 int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
                           const float* beta, void* y, float* mu, float* rstd,
                           int n, int d, float eps, void* stream);
@@ -118,6 +124,12 @@ int conv_fused_sm90_conv3_bwd_launch(
     int bn, void* stream);
 int conv_fused_sm90_split3_launch(int n, const long long* desc,
                                   void* stream);
+int conv_fused_sm90_fwd_x3_launch(const float* x, const float* a,
+                                  const float* b, const float* sc,
+                                  const float* asc, const float* bsc,
+                                  const void* wp, const float* bias,
+                                  float* y, float* stats, float* xhat,
+                                  int M, int K, int N, void* stream);
 int conv_fused_sm90_conv3_x3_launch(const float* x, const float* a,
                                     const float* b, const void* wp, float* y,
                                     float* stats, int M, int C, int N, int H,
@@ -268,6 +280,30 @@ int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 static_cast<const float*>(delta), dk, dv,
                                 nullptr, B, H, sq, sk, d, causal, scale,
                                 stream);
+}
+
+// The bf16 backward's Hopper route (flash_attention_sm90.cu): TMA-fed
+// wgmma, same layouts and outputs as mxt_flash_bwd_dq / mxt_flash_bwd_dkv.
+int mxt_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int B, int H, int sq,
+                          int sk, int d, int layout, int causal, float scale,
+                          void* stream) {
+  return flash_bwd_sm90_launch(0, layout, q, k, v, dout,
+                               static_cast<const float*>(lse),
+                               static_cast<const float*>(delta), dq, nullptr,
+                               B, H, sq, sk, d, causal, scale, stream);
+}
+
+int mxt_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int B,
+                           int H, int sq, int sk, int d, int layout,
+                           int causal, float scale, void* stream) {
+  return flash_bwd_sm90_launch(1, layout, q, k, v, dout,
+                               static_cast<const float*>(lse),
+                               static_cast<const float*>(delta), dk, dv, B,
+                               H, sq, sk, d, causal, scale, stream);
 }
 
 // Layer norm over the last axis of x (n, d); gamma/beta (d,) float32;
@@ -478,13 +514,30 @@ int mxt_conv_fused_sm90_conv3_bwd(const void* dzn, const void* yout,
       chunk, M, C, N, H, W, bn, stream);
 }
 
-// The float32 route of conv3_fused and dgrad_epilogue (conv_fused_sm90.cu,
-// every operand in three bf16 pieces): the piece planes of n (1-3) strided
+// The float32 route of the fused convs (conv_fused_sm90.cu, every
+// operand in three bf16 pieces): the piece planes of n (1-3) strided
 // float32 operands in one launch, desc n records {src, s_i, s_j, R, O,
 // dst}, dst (3, R, O)
 int mxt_conv_fused_sm90_split3(int n, const void* desc, void* stream) {
   return conv_fused_sm90_split3_launch(
       n, static_cast<const long long*>(desc), stream);
+}
+
+// y (M, N) float32 (+ bias), the (blocks, 2, N) stats partials and x^
+// (M, K) (each if passed) from x, sc and W's pieces wp (3, K, N)
+int mxt_conv_fused_sm90_fwd_x3(const void* x, const void* a, const void* b,
+                               const void* sc, const void* asc,
+                               const void* bsc, const void* wp,
+                               const void* bias, void* y, void* stats,
+                               void* xhat, int M, int K, int N,
+                               void* stream) {
+  return conv_fused_sm90_fwd_x3_launch(
+      static_cast<const float*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(sc),
+      static_cast<const float*>(asc), static_cast<const float*>(bsc), wp,
+      static_cast<const float*>(bias), static_cast<float*>(y),
+      static_cast<float*>(stats), static_cast<float*>(xhat), M, K, N,
+      stream);
 }
 
 // y (M, N) float32 and the (blocks, 2, N) stats partials from x and W9's

@@ -1,7 +1,7 @@
 // The Hopper routes of the fused 1x1 and 3x3 conv kernels (sm_90a):
 // TMA-fed wgmma with the load transform applied on chip. All five forms in
-// bf16; conv3_fused and dgrad_epilogue also in float32, every operand in
-// three bf16 pieces (the float32 route, below the bf16 kernels).
+// bf16; all but conv3_fused_bwd also in float32, every operand in three
+// bf16 pieces (the float32 route, below the bf16 kernels).
 //
 // Replaces the Pallas TPU kernels of
 // incubator_mxnet_tpu/ops/pallas/conv_fused.py:
@@ -17,6 +17,7 @@
 //   cf90_conv3_dgrad_kernel \ <- conv3_fused_bwd (:742) dz = mask(conv3^T
 //   cf90_conv3_wgrad_kernel /                           G), partials, x^;
 //                                                       dW9 = shift(x^)^T G
+//   cf90_fwd_x3_kernel         <- mm_fused (:148), float32
 //   cf90_conv3_x3_kernel       <- conv3_fused (:634), float32
 //   cf90_dual_dgrad_x3_kernel \ <- dgrad_epilogue (:505), float32
 //   cf90_dual_wgrad_x3_kernel /
@@ -28,9 +29,9 @@
 // G = (dzn g0 - g1) - yout g2) in float32 with both roundings of each step,
 // rounded to bf16 before the product; float32 accumulation on the tensor
 // cores; outputs rounded once; the stats summed over the ROUNDED y.
-// In float32, conv3_fused, dgrad_epilogue and mm_fused_bwd take the
-// three-piece kernels (no TF32 here: six bf16 products hold float32's
-// accuracy); the other two forms stay on conv_fused.cu's SIMT kernels. The wrapper
+// In float32, mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd take
+// the three-piece kernels (no TF32 here: six bf16 products hold float32's
+// accuracy); conv3_fused_bwd stays on conv_fused.cu's SIMT kernels. The wrapper
 // (ops/cuda/conv_fused.py) chooses the route by type and shape before the
 // launch.
 //
@@ -1216,9 +1217,9 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 }
 
 // ------------------------------------------ the float32 route (three pieces)
-// conv3_fused, dgrad_epilogue and mm_fused_bwd in float32 on the same
-// machinery: every
-// float32 operand of a product is split exactly into three bf16 pieces,
+// mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd in float32 on the
+// same machinery: every float32 operand of a product is split exactly into
+// three bf16 pieces,
 // hi + mid + lo == v (each residual exact in float32, lo holding what is
 // left), and each 32-deep stage runs the six piece products float32 needs
 // on wgmma, smallest first (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi;
@@ -1226,16 +1227,18 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 // float32 partial that is then added to the running float32 accumulator
 // (the tensor cores' own sums then only span one stage). The stage is 32
 // deep because a 128-byte swizzled row holds 32 floats: the raw float32 A
-// operand (x for conv3_fused, dzn and yout (or g) for the dgrads) comes in as
-// one TMA box {32, 128} a map, the consumers transform it in float32 with
+// operand (x and sc for the forwards, dzn and yout (or g) for the dgrads)
+// comes in as one TMA box {32, 128} a map, the consumers transform it in
+// float32 with
 // the reference's roundings (affine, bn_g), mask the halo and the
 // reduction tail after the transform, split it in registers and hand the
 // three fragments to wgmma; B is three bf16 piece planes that
 // cf90_split3_kernel makes once a call, stored MN-major (the output index
 // contiguous), 64-wide boxes of 32 reduction rows, 4 KB apart. A block
 // tile is 128 x 128 (the running accumulator and the partial take 128
-// registers a thread). The dgrads write G's pieces back by TMA (the 1x1
-// backward's also x^'s), and the dual wgrad, with one set or two, is then
+// registers a thread). The 1x1 forward writes x^ back by TMA where it is
+// asked for; the dgrads write G's pieces back (the 1x1 backward's also
+// x^'s), and the dual wgrad, with one set or two, is then
 // six plain piece products from shared memory against x's (or x^'s)
 // pieces.
 constexpr int kBK3 = 32;                  // reduction depth of a stage
@@ -1267,6 +1270,9 @@ struct Plan3 {
                 "the epilogue's staging does not fit the ring");
 };
 using PlanConv3X3 = Plan3<kRaw3, 1024>;       // x; a, b
+// mm_fused: x (and sc in the entry form); a, b (asc, bsc)
+template <bool ENTRY>
+using PlanFwdX3 = Plan3<(ENTRY ? 2 : 1) * kRaw3, 1024>;
 using PlanDgradX3 = Plan3<2 * kRaw3, 1024>;   // dzn, yout; g0, g1, g2
 using PlanWgradX3 = Plan3<3 * kPieceA3, 0>;   // G^T's three pieces
 // mm_fused_bwd's dgrad: dzn and yout (or g); g0, g1, g2; an epilogue chunk
@@ -1402,13 +1408,14 @@ __device__ __forceinline__ void mainloop3_rs(float (&acc)[kBN3 / 2], int nk,
 }
 
 // The epilogue of the float32 route: both consumer warpgroups'
-// accumulators into a swizzled float32 staging tile of four blocks of 128
-// rows x 128 bytes over the ring's memory; then 16-byte stores of rows
-// m < M, columns n < N. With stats, one row pair of column sums (sum y, sum
-// y^2 over the stored values of the valid rows) per block, in a fixed
-// order.
+// accumulators, plus the bias in float32 where one is passed, into a
+// swizzled float32 staging tile of four blocks of 128 rows x 128 bytes
+// over the ring's memory; then 16-byte stores of rows m < M, columns
+// n < N. With stats, one row pair of column sums (sum y, sum y^2 over the
+// stored values of the valid rows) per block, in a fixed order.
 __device__ __forceinline__ void store_tile_f32(const float (&acc)[kBN3 / 2],
                                                unsigned char* smem,
+                                               const float* bias,
                                                float* out, float* stats,
                                                int m0, int n0, int M,
                                                int N) {
@@ -1419,12 +1426,22 @@ __device__ __forceinline__ void store_tile_f32(const float (&acc)[kBN3 / 2],
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = 8 * j + 2 * t;
+    float b0 = 0.f, b1 = 0.f;
+    if (bias && n0 + c < N) {
+      b0 = bias[n0 + c];
+      b1 = bias[n0 + c + 1];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = 64 * wg + 16 * w + g + 8 * h;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (bias) {
+        v0 = __fadd_rn(v0, b0);
+        v1 = __fadd_rn(v1, b1);
+      }
       *reinterpret_cast<float2*>(smem + (c >> 5) * (kBM * 128) +
                                  swz(r, (c & 31) >> 2) + (c & 3) * 4) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          make_float2(v0, v1);
     }
   }
   named_sync(1, kConsumers);
@@ -1644,7 +1661,136 @@ cf90_conv3_x3_kernel(const __grid_constant__ CUtensorMap tx,
         }
     };
     mainloop3_rs<P::kStage, S, kRaw3>(acc, nk, smem, ring, lane, build);
-    store_tile_f32(acc, smem, p.y, p.stats, m0, n0, p.M, p.N);
+    store_tile_f32(acc, smem, nullptr, p.y, p.stats, m0, n0, p.M, p.N);
+  }
+}
+
+struct FwdX3Args {
+  const float* a; const float* b;        // null: the plain form
+  const float* asc; const float* bsc;    // the entry form's shortcut
+  const float* bias;                     // null: none
+  float* y; float* stats;                // stats: null when not asked
+  int emit;                              // 1: write x^ through txh
+  int M, K, N;
+};
+
+// mm_fused in float32: y (M x N) = x^ (M x K) @ W (K x N) (+ bias) over
+// 128 x 128 tiles of y, 32-deep stages. x's raw box (and sc's in the entry
+// form, ENTRY) comes in by TMA; the consumers form x^ = x, relu(a x + b) or
+// relu(a x + b + asc sc + bsc) in float32 with cf90_fwd_kernel's
+// operations, zero the columns k >= K after the transform (relu(b) need
+// not be 0), and split it in registers; B is W's pieces (3, K, N), which
+// cf90_split3_kernel makes once a call. With emit, column tile kb mod
+// (column tiles) writes stage kb's x^ over the warpgroup's rows of the raw
+// x box (the same swizzled layout) and stores it by TMA (rows >= M and
+// columns >= K are not written); the ring's release() waits for the store
+// to have read it. The epilogue adds the bias in float32, stores y and
+// sums the stats over the stored values of the rows < M.
+template <bool ENTRY>
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_fwd_x3_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tsc,
+                   const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap txh,
+                   const FwdX3Args p) {
+  using P = PlanFwdX3<ENTRY>;
+  constexpr int S = P::kStages;
+  constexpr int kBOfs = (ENTRY ? 2 : 1) * kRaw3;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int nk = (p.K + kBK3 - 1) / kBK3;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN3;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&tx);
+      tma_prefetch(&tw);
+      // the stage's slices of a, b (asc, bsc): 32 floats or the tail
+      const int nvec = p.a ? (ENTRY ? 4 : 2) : 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, k0 = kb * kBK3;
+        const uint32_t cb = 4 * min(kBK3, p.K - k0);
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], kBOfs + kB3 + nvec * cb);
+        tma_load_2d(st, &tx, &full[s], k0, m0);
+        if (ENTRY) tma_load_2d(st + kRaw3, &tsc, &full[s], k0, m0);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int e = 0; e < kBN3 / 64; ++e)
+            tma_load_3d(st + kBOfs + j * kPieceB3 + e * kBlk3, &tw,
+                        &full[s], n0 + 64 * e, k0, j);
+        if (nvec) {
+          bulk_load(st + P::kCoef, p.a + k0, cb, &full[s]);
+          bulk_load(st + P::kCoef + 128, p.b + k0, cb, &full[s]);
+          if (ENTRY) {
+            bulk_load(st + P::kCoef + 256, p.asc + k0, cb, &full[s]);
+            bulk_load(st + P::kCoef + 384, p.bsc + k0, cb, &full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[kBN3 / 2];
+#pragma unroll
+    for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    // stage kb's fragments: x (and sc) -> x^ in float32, the columns
+    // k >= K zeroed, x^ written back where emitted, then three pieces
+    auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[2][3][4]) {
+      ring.wait_full(kb);
+      const int k0 = kb * kBK3, kleft = p.K - k0;
+      const bool out = p.emit && kb % gridDim.x == blockIdx.x;
+      const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {             // q & 1: row + 8
+          const int r = 64 * wg + 16 * w + g + 8 * (q & 1);
+          const int kl = 16 * ks + 2 * t + 8 * (q >> 1);
+          const uint32_t off = swz(r, kl >> 2) + (kl & 3) * 4;
+          const float2 v = *reinterpret_cast<const float2*>(st + off);
+          float v0 = v.x, v1 = v.y;
+          if (p.a) {
+            const float2 ca = *reinterpret_cast<const float2*>(cf + kl);
+            const float2 cb = *reinterpret_cast<const float2*>(cf + 32 + kl);
+            v0 = affine(v0, ca.x, cb.x);
+            v1 = affine(v1, ca.y, cb.y);
+            if (ENTRY) {
+              const float2 s2 = *reinterpret_cast<const float2*>(
+                  st + kRaw3 + off);
+              const float2 cs = *reinterpret_cast<const float2*>(cf + 64 +
+                                                                 kl);
+              const float2 cd = *reinterpret_cast<const float2*>(cf + 96 +
+                                                                 kl);
+              v0 = __fadd_rn(__fadd_rn(v0, __fmul_rn(s2.x, cs.x)), cd.x);
+              v1 = __fadd_rn(__fadd_rn(v1, __fmul_rn(s2.y, cs.y)), cd.y);
+            }
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          if (kl >= kleft) v0 = v1 = 0.f;
+          if (out)
+            *reinterpret_cast<float2*>(st + off) = make_float2(v0, v1);
+          split3(v0, v1, fa[ks][0][q], fa[ks][1][q], fa[ks][2][q]);
+        }
+      if (out) {
+        // every thread wrote back exactly the elements it read
+        fence_async_smem();
+        named_sync(2 + wg, 128);
+        if ((threadIdx.x & 127) == 0)
+          tma_store_2d(&txh, st + wg * kWgRaw3, k0, m0 + 64 * wg);
+      }
+    };
+    mainloop3_rs<P::kStage, S, kBOfs>(acc, nk, smem, ring, lane, build);
+    store_tile_f32(acc, smem, p.bias, p.y, p.stats, m0, n0, p.M, p.N);
   }
 }
 
@@ -1746,7 +1892,7 @@ cf90_dual_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn_a,
         store_g_pieces(st, fa, set_a ? &tg_a : &tg_b, r0, m0);
     };
     mainloop3_rs<P::kStage, S, 2 * kRaw3>(acc, nk, smem, ring, lane, build);
-    store_tile_f32(acc, smem, p.dx, nullptr, m0, c0, p.M, p.C);
+    store_tile_f32(acc, smem, nullptr, p.dx, nullptr, m0, c0, p.M, p.C);
   }
 }
 
@@ -2523,6 +2669,40 @@ int conv_fused_sm90_conv3_x3_launch(const float* x, const float* a,
   return launch<cf90_conv3_x3_kernel>(PlanConv3X3::kSmem, grid,
                                       static_cast<cudaStream_t>(stream), tx,
                                       tw, p);
+}
+
+// The float32 1x1 forward: y (M, N) float32 = x^ W (+ bias) with x^ = x,
+// relu(a x + b) (a, b passed) or relu(a x + b + asc sc + bsc) (sc, asc and
+// bsc passed too) from x (M, K) float32; wp (3, K, N) bf16 the pieces of
+// W; stats (ceil(M / 128), 2, N) float32 partials or null; xhat (M, K)
+// float32 receives x^ when passed. K and N multiples of 8, every pointer
+// 16-byte aligned.
+int conv_fused_sm90_fwd_x3_launch(const float* x, const float* a,
+                                  const float* b, const float* sc,
+                                  const float* asc, const float* bsc,
+                                  const void* wp, const float* bias,
+                                  float* y, float* stats, float* xhat,
+                                  int M, int K, int N, void* stream) {
+  if (M < 0 || K < 8 || N < 8 || K % 8 || N % 8 ||
+      (M + kBM - 1) / kBM > 65535 || (a != nullptr) != (b != nullptr) ||
+      (sc && (!a || !asc || !bsc)) || !x || !wp || !y)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  CUtensorMap tx, ts = {}, tw, txh = {};       // ts, txh: read if passed
+  if (!make_map_f32(&tx, x, K, M, K, kBM) ||
+      (sc && !make_map_f32(&ts, sc, K, M, K, kBM)) ||
+      !make_map_pieces(&tw, wp, N, K, kBK3, true) ||
+      (xhat && !make_map_f32(&txh, xhat, K, M, K, 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdX3Args p{a, b, sc ? asc : nullptr, sc ? bsc : nullptr, bias, y,
+                    stats, xhat != nullptr, M, K, N};
+  const dim3 grid((N + kBN3 - 1) / kBN3, (M + kBM - 1) / kBM);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return sc ? launch<cf90_fwd_x3_kernel<true>>(PlanFwdX3<true>::kSmem, grid,
+                                               st, tx, ts, tw, txh, p)
+            : launch<cf90_fwd_x3_kernel<false>>(PlanFwdX3<false>::kSmem,
+                                                grid, st, tx, ts, tw, txh,
+                                                p);
 }
 
 // The float32 dual dgrad: dx (M, C) float32 = G_a W_a^T + G_b W_b^T with

@@ -4,7 +4,7 @@
 // register reallocation and named barriers, and on the host the tensor-map
 // encoder. Plain functions around inline PTX, no PyTorch header, no
 // CUTLASS: the fused conv kernels of conv_fused_sm90.cu and the bf16 flash
-// forward of flash_attention_sm90.cu build their pipelines from these.
+// kernels of flash_attention_sm90.cu build their pipelines from these.
 //
 // Tiles are 128-byte rows (64 bf16 values) that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte-aligned shared memory: the
@@ -256,6 +256,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// D (64 x 16, float32) += A (64 x 16, shared memory) B (16 x 16); with
+// scale_d 0, D = A B (D's old value is not read)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 32, float32) += A (64 x 16, shared memory) B (16 x 32); with
+// scale_d 0, D = A B (D's old value is not read)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, float32) += A (64 x 16, shared memory) B (16 x 64); with

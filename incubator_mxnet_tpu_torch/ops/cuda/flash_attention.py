@@ -18,15 +18,17 @@ Training (forward with its log-sum-exp, and the two-pass backward):
 The kernels' route is chosen by type (:func:`flash_train_route`): float32
 takes the split-bf16 ``mma.sync`` kernels (every float32 operand of a
 product as three exact bf16 pieces, the six piece products float32 needs
-per 16-deep stage, a fresh float32 partial each stage); the bf16 forward
-takes the Hopper kernel of ``csrc/flash_attention_sm90.cu`` ("wgmma": K
-and V streamed by TMA through a ring of stages, S = Q.K^T and O += P.V on
-``wgmma``, the softmax in registers; :func:`flash_wgmma_plan`), the bf16
-backward the WMMA kernels. ``_route="fma"`` (private; the model never
-passes it) forces float32 onto the old FMA kernels, and ``_route="wmma"``
-the bf16 forward onto the old WMMA kernel, which ``chip_smoke.py`` keeps
-as the yardsticks; the "mma" and "wgmma" routes' launches are also counted
-in ``fn.sm90_launches``.
+per 16-deep stage, a fresh float32 partial each stage); bf16 takes the
+Hopper kernels of ``csrc/flash_attention_sm90.cu`` ("wgmma"): the forward
+streams K and V by TMA through a ring of stages, S = Q.K^T and O += P.V on
+``wgmma``, the softmax in registers (:func:`flash_wgmma_plan`); dq streams
+K and V past 128 query rows, dk/dv streams Q and dO past 128 keys, S and
+dP on ``wgmma`` from shared memory and dS (and P) as register operands of
+the gradient products (:func:`flash_wgmma_bwd_plan`). ``_route="fma"``
+(private; the model never passes it) forces float32 onto the old FMA
+kernels, and ``_route="wmma"`` bf16 onto the old WMMA kernels, which
+``chip_smoke.py`` keeps as the yardsticks; the "mma" and "wgmma" routes'
+launches are also counted in ``fn.sm90_launches``.
 
 Every training function takes both layouts: given ``n_heads`` its tensors
 are packed (B, T, H*d) with lse/delta (B, T, H); without, head-major
@@ -84,6 +86,7 @@ __all__ = ["mha_reference", "flash_forward_reference",
            "flash_bwd_dkv", "flash_attention_packed", "flash_attention",
            "flash_attention_with_lse", "flash_attention_packed_viable",
            "flash_kernel_viable", "flash_train_route", "flash_wgmma_plan",
+           "flash_wgmma_bwd_plan",
            "decode_attention_reference", "flash_decode_step",
            "decode_attention", "decode_split_plan",
            "paged_decode_attention_reference", "flash_decode_step_paged",
@@ -537,16 +540,17 @@ def _check_rows(name: str, dout, lse, delta, q, layout, B, H, sq):
 
 
 def flash_train_route(dtype, kernel: str = "flash_fwd") -> str:
-    """The route of the training kernel ``kernel`` for q/k/v of ``dtype``:
-    "mma" for float32 (the split-bf16 ``mma.sync`` kernels); for bf16,
-    "wgmma" for the forward (the Hopper kernel) and "wmma" for the
-    backward kernels."""
+    """The route of the training kernel ``kernel`` ("flash_fwd",
+    "flash_bwd_dq" or "flash_bwd_dkv") for q/k/v of ``dtype``: "mma" for
+    float32 (the split-bf16 ``mma.sync`` kernels), "wgmma" for bf16 (the
+    Hopper kernels of ``csrc/flash_attention_sm90.cu``, forward and
+    backward alike)."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention: dtype {dtype} not supported "
                         "(float32 or bfloat16)")
-    if dtype == torch.float32:
-        return "mma"
-    return "wgmma" if kernel == "flash_fwd" else "wmma"
+    if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        raise ValueError(f"flash attention: no training kernel {kernel!r}")
+    return "mma" if dtype == torch.float32 else "wgmma"
 
 
 # The bf16 forward's plan: flash_attention_sm90.cu's kFRows, kFKeys,
@@ -574,24 +578,44 @@ def flash_wgmma_plan(d: int) -> dict:
             "blocks": 2 if d <= 64 else 1}
 
 
-def _fma_code(name: str, q, route) -> int:
-    """1 when ``route`` forces the float32 FMA kernels, else 0."""
-    if route is None:
-        return 0
-    if route != "fma" or q.dtype != torch.float32:
-        raise ValueError(f"{name}: _route {route!r} (only \"fma\", for "
-                         "float32)")
-    return 1
+# The bf16 backward's plan: flash_attention_sm90.cu's FlashBwdPlan
+# (kBStages, kDqBlocks, kDqCols, kDkvBlocks, kDkvCols) and its shared
+# memory
+_WGMMA_BWD_STAGES = 3
 
 
-def _fwd_route(q, route) -> str:
-    """The forward's route: its type's (:func:`flash_train_route`), or
-    "fma" (float32) / "wmma" (bf16) when ``route`` forces the old kernel."""
+def flash_wgmma_bwd_plan(d: int) -> dict:
+    """The Hopper bf16 backward's blocks at head dim ``d``: dq, 128 query
+    rows (two warpgroups of 64; Q and dO loaded once) against K and V
+    tiles of 64 keys; dk/dv, 128 keys (K and V loaded once) against Q and
+    dO tiles of 64 queries; both streams in a ring of three stages, tiles
+    as the forward's (:func:`flash_wgmma_plan`); shared memory the block's
+    own two 128-row tiles, the ring and 1 KB of alignment. Registers set
+    the blocks an SM (two up to d 64, one at d 128) and the columns of one
+    S (and dP) product, a part of the 64-wide tile where the whole one
+    would not fit two blocks: ``dq_cols`` keys (32 at d 64), ``dkv_cols``
+    queries (32 at d 32, 16 at d 64)."""
+    fwd = flash_wgmma_plan(d)
+    return {"rows": _WGMMA_ROWS, "keys": _WGMMA_KEYS,
+            "queries": _WGMMA_KEYS, "stages": _WGMMA_BWD_STAGES,
+            "threads": _WGMMA_THREADS, "row_bytes": fwd["row_bytes"],
+            "smem_bytes": (2 * _WGMMA_ROWS * d * 2 + _WGMMA_BWD_STAGES * 2
+                           * _WGMMA_KEYS * d * 2 + 1024),
+            "dq_blocks": 2 if d <= 64 else 1,
+            "dq_cols": 32 if d == 64 else 64,
+            "dkv_blocks": 2 if d <= 64 else 1,
+            "dkv_cols": {32: 32, 64: 16}.get(d, 64)}
+
+
+def _route_of(name: str, q, route) -> str:
+    """A training kernel's route: its type's (:func:`flash_train_route`),
+    or "fma" (float32) / "wmma" (bf16) when ``route`` forces the old
+    kernel."""
     if route is None:
-        return flash_train_route(q.dtype)
+        return flash_train_route(q.dtype, name)
     if (route, q.dtype) not in (("fma", torch.float32),
                                 ("wmma", torch.bfloat16)):
-        raise ValueError(f"flash_fwd: _route {route!r} (only \"fma\", for "
+        raise ValueError(f"{name}: _route {route!r} (only \"fma\", for "
                          "float32, or \"wmma\", for bf16)")
     return route
 
@@ -612,7 +636,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
     route is :func:`flash_train_route`'s; ``_route="fma"`` (float32) and
     ``_route="wmma"`` (bf16) force the old kernels."""
     layout, B, H, sq, sk, d = _flash_geometry("flash_fwd", q, k, v, n_heads)
-    route = _fwd_route(q, _route)
+    route = _route_of("flash_fwd", q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
@@ -642,22 +666,28 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
                  _route: Optional[str] = None):
     """CUDA dq of flash attention from the forward's lse and delta
     (replaces the Pallas ``_dq_pass_*`` and the dq half of
-    ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`."""
+    ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`; the route is
+    :func:`flash_train_route`'s, ``_route`` as in :func:`flash_fwd`."""
     layout, B, H, sq, sk, d = _flash_geometry("flash_bwd_dq", q, k, v,
                                               n_heads, dout, lse, delta)
     _check_rows("flash_bwd_dq", dout, lse, delta, q, layout, B, H, sq)
-    fma = _fma_code("flash_bwd_dq", q, _route)
+    route = _route_of("flash_bwd_dq", q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dq = torch.empty_like(q)
-    code = kernel_library().mxt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, sq, sk, d,
-        layout, int(causal), _DTYPE_CODE[q.dtype], fma, float(scale),
-        current_stream_handle(q))
+    lib = kernel_library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, sq, sk, d,
+            layout, int(causal))
+    if route == "wgmma":
+        code = lib.mxt_flash_bwd_dq_sm90(*args, float(scale),
+                                         current_stream_handle(q))
+    else:
+        code = lib.mxt_flash_bwd_dq(*args, _DTYPE_CODE[q.dtype],
+                                    int(route == "fma"), float(scale),
+                                    current_stream_handle(q))
     check_launch(code, "flash_bwd_dq")
-    _count(flash_bwd_dq,
-           "fma" if fma else flash_train_route(q.dtype, "flash_bwd_dq"))
+    _count(flash_bwd_dq, route)
     return dq
 
 
@@ -668,24 +698,30 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                   _route: Optional[str] = None):
     """CUDA dk and dv of flash attention from the forward's lse and delta
     (replaces the Pallas ``_dkv_pass_*`` and the dk/dv half of
-    ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`. Returns
-    (dk, dv)."""
+    ``_bwd_fused_packed``). Layouts as :func:`flash_fwd`; the route is
+    :func:`flash_train_route`'s, ``_route`` as in :func:`flash_fwd`.
+    Returns (dk, dv)."""
     layout, B, H, sq, sk, d = _flash_geometry("flash_bwd_dkv", q, k, v,
                                               n_heads, dout, lse, delta)
     _check_rows("flash_bwd_dkv", dout, lse, delta, q, layout, B, H, sq)
-    fma = _fma_code("flash_bwd_dkv", q, _route)
+    route = _route_of("flash_bwd_dkv", q, _route)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    code = kernel_library().mxt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
-        sq, sk, d, layout, int(causal), _DTYPE_CODE[q.dtype], fma,
-        float(scale), current_stream_handle(q))
+    lib = kernel_library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+            H, sq, sk, d, layout, int(causal))
+    if route == "wgmma":
+        code = lib.mxt_flash_bwd_dkv_sm90(*args, float(scale),
+                                          current_stream_handle(q))
+    else:
+        code = lib.mxt_flash_bwd_dkv(*args, _DTYPE_CODE[q.dtype],
+                                     int(route == "fma"), float(scale),
+                                     current_stream_handle(q))
     check_launch(code, "flash_bwd_dkv")
-    _count(flash_bwd_dkv,
-           "fma" if fma else flash_train_route(q.dtype, "flash_bwd_dkv"))
+    _count(flash_bwd_dkv, route)
     return dk, dv
 
 

@@ -1,5 +1,6 @@
-"""The arithmetic of the port's float32 route of ``conv3_fused``,
-``dgrad_epilogue`` and ``mm_fused_bwd`` (``ops/cuda/csrc/conv_fused_sm90.cu``:
+"""The arithmetic of the port's float32 route of ``mm_fused``,
+``conv3_fused``, ``dgrad_epilogue`` and ``mm_fused_bwd``
+(``ops/cuda/csrc/conv_fused_sm90.cu``: ``cf90_fwd_x3_kernel``,
 ``cf90_conv3_x3_kernel``, ``cf90_dual_dgrad_x3_kernel``,
 ``cf90_bwd_dgrad_x3_kernel``, ``cf90_dual_wgrad_x3_kernel`` and
 ``cf90_split3_kernel``), on the CPU.
@@ -13,13 +14,15 @@ the Pallas grid, the JAX function's own dispatch takes its XLA twin) and
 against float64:
 
 * the load transform in float32 with both roundings of each step
-  (relu(a x + b); G = (dzn g0 - g1) - yout g2), the halo and the
-  reduction tail masked after it;
+  (relu(a x + b), relu(a x + b + asc sc + bsc); G = (dzn g0 - g1) -
+  yout g2), the halo and the reduction tail masked after it;
 * every float32 operand of a product split into three bf16 pieces,
   hi + mid + lo == x exactly;
 * each 32-deep stage runs the six piece products (lo.hi, hi.lo, mid.mid,
   mid.hi, hi.mid, hi.hi, in that order) into a fresh float32 partial,
   which is then added to the running sum in stage order;
+* the 1x1 forward's bias added in float32 before the store, x^ emitted
+  in float32;
 * the 3x3 as nine tap-shifted stages a 32-channel slice; its stats summed
   over the stored y per 128-row block in four 32-row ranges, in order;
 * the dual dgrad over set a's stages then set b's into one accumulator,
@@ -455,6 +458,167 @@ def test_three_piece_product_on_every_load_form(form):
     assert _err(_np(y), _np(jy)) <= TOL
     assert _err(_np(y), (xh.double() @ torch.from_numpy(w).double())
                 .numpy()) <= TOL
+
+
+# ---------------------------------------------------- mm_fused (float32)
+def mm_fused_x3(x, w, a=None, b=None, sc=None, asc=None, bsc=None,
+                bias=None, stats=True, emit_xhat=False, order=ORDER):
+    """``cf90_fwd_x3_kernel`` emulated: x^ in float32 with
+    ``cf90_fwd_kernel``'s operations (a x, + b, then the shortcut's asc sc
+    added and bsc, each step rounded, then relu), the columns k >= K zero;
+    32-deep stages of six products into a fresh partial each, added in
+    stage order; the bias added in float32 before the store; the stats
+    summed over the stored y in the kernel's order; x^ as emitted."""
+    if a is None:
+        xh = x
+    else:
+        z = x * a + b
+        if sc is not None:
+            z = z + sc * asc + bsc
+        xh = torch.clamp(z, min=0.0)
+    y = _mm_x3(xh, w, order)
+    if bias is not None:
+        y = y + bias
+    out = [y]
+    if stats:
+        out.append(_stats_in_kernel_order(y))
+    if emit_xhat:
+        out.append(xh)
+    return tuple(out)
+
+
+# (M, K, N): K 16, 40 and 72 leave a tail in a 32-deep stage (x^'s
+# columns past K are zero though relu(b) is not), N 136 a partial column
+# tile; M a multiple of the Pallas row block, 304 and 208 not of 128
+MM_CASES = [(64, 16, 24), (304, 40, 72), (208, 72, 136)]
+MM_OPTS = {"bias, stats": dict(bias=True),
+           "x^, stats": dict(emit_xhat=True),
+           "bias, x^, no stats": dict(bias=True, emit_xhat=True,
+                                      stats=False)}
+
+
+def _mm_inputs(form, case, opts, seed):
+    M, K, N = case
+    rs = np.random.RandomState(seed)
+    x, w = _rand(rs, M, K), _rand(rs, K, N)
+    kw = {"bnrelu": dict(a=_rand(rs, K, positive=True), b=_rand(rs, K)),
+          "entry": dict(a=_rand(rs, K, positive=True), b=_rand(rs, K),
+                        sc=_rand(rs, M, K), asc=_rand(rs, K),
+                        bsc=_rand(rs, K)),
+          "plain": {}}[form]
+    if opts.get("bias"):
+        kw["bias"] = _rand(rs, N)
+    flags = {k: v for k, v in opts.items() if k != "bias"}
+    return x, w, kw, flags
+
+
+def _mm_f64(x, w, kw, stats, emit_xhat):
+    """y, stats and x^ in float64 from the float32 x^ (the reference's
+    rounding point)."""
+    xh = mm_fused_x3(x, w, **kw, stats=False, emit_xhat=True)[-1]
+    y = xh.double() @ w.double()
+    if kw.get("bias") is not None:
+        y = y + kw["bias"].double()
+    out = [y]
+    if stats:
+        out.append(torch.stack([y.sum(0), (y * y).sum(0)]))
+    if emit_xhat:
+        out.append(xh.double())
+    return out
+
+
+@pytest.mark.parametrize("opt", list(MM_OPTS))
+@pytest.mark.parametrize("case", MM_CASES)
+@pytest.mark.parametrize("form", ["plain", "bnrelu", "entry"])
+def test_mm_fused_emulation_matches_pallas_twin_and_float64(form, case,
+                                                            opt):
+    opts = {"stats": True, **MM_OPTS[opt]}
+    x, w, kw, flags = _mm_inputs(form, case, opts, 70 + sum(case))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    tk = {k: torch.from_numpy(v) for k, v in kw.items()}
+    emu = mm_fused_x3(tx, tw, **tk, **flags)
+    twin = tcf.mm_fused_reference(tx, tw, **tk, **flags)
+    with jax.default_matmul_precision("highest"):
+        jout = jcf.mm_fused(jnp.asarray(x), jnp.asarray(w), block_m=16,
+                            **{k: jnp.asarray(v) for k, v in kw.items()},
+                            **flags)
+    refs64 = _mm_f64(tx, tw, tk, flags["stats"], flags.get("emit_xhat",
+                                                           False))
+    assert len(emu) == len(twin) == len(jout) == len(refs64)
+    for e, t, j, r64 in zip(emu, twin, jout, refs64):
+        assert _err(_np(e), _np(t)) <= TOL
+        assert _err(_np(e), _np(j)) <= TOL
+        assert _err(_np(e), r64.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("form", ["plain", "entry"])
+def test_mm_fused_six_products_hold_float32_and_one_does_not(form):
+    """Against float64 the six products read no worse than the plain
+    float32 twin (within 1e-6 of the largest entry) and well under the
+    tolerance; the bf16 product alone (hi.hi) reads above it."""
+    x, w, kw, _ = _mm_inputs(form, (208, 72, 136), {}, 90)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    tk = {k: torch.from_numpy(v) for k, v in kw.items()}
+    y64 = _mm_f64(tx, tw, tk, False, False)[0].numpy()
+    six = _err(_np(mm_fused_x3(tx, tw, **tk, stats=False)[0]), y64)
+    twin = _err(_np(tcf.mm_fused_reference(tx, tw, **tk, stats=False)[0]),
+                y64)
+    one = _err(_np(mm_fused_x3(tx, tw, **tk, stats=False,
+                               order=((0, 0),))[0]), y64)
+    assert six <= twin + 1e-6 and six <= TOL / 10
+    assert one > TOL
+
+
+def test_mm_fused_plan_and_transform_are_the_sources():
+    """PlanFwdX3: x's raw box (and sc's in the entry form), W's pieces and
+    1 KB of a, b, asc and bsc a stage, mirrored by
+    ``sm90_x3_plan("fwd", entry)``: four stages, three in the entry form;
+    the transform's operations and the tail mask after it, x^ written
+    back over its raw box, and the bias in the epilogue, as the
+    emulation above forms them."""
+    assert ("using PlanFwdX3 = Plan3<(ENTRY ? 2 : 1) * kRaw3, 1024>;"
+            in SRC)
+    raw, pieces = 128 * DEPTH * 4, 3 * 128 * DEPTH * 2
+    for entry, stages in ((False, 4), (True, 3)):
+        stage = (2 if entry else 1) * raw + pieces + 1024
+        plan = tcf.sm90_x3_plan("fwd", entry=entry)
+        assert plan == {"bn": 128, "bk": DEPTH, "stages": stages,
+                        "stage_bytes": stage,
+                        "smem_bytes": stages * stage + 1024}
+        assert plan["smem_bytes"] <= tcf.SM90_SMEM_LIMIT
+        assert 4 * 32 * 4 <= 1024             # a, b, asc, bsc slices
+    for line in (
+            "v0 = affine(v0, ca.x, cb.x);",
+            "v0 = __fadd_rn(__fadd_rn(v0, __fmul_rn(s2.x, cs.x)), cd.x);",
+            "v0 = fmaxf(v0, 0.f);",
+            "if (kl >= kleft) v0 = v1 = 0.f;",
+            "*reinterpret_cast<float2*>(st + off) = make_float2(v0, v1);",
+            "tma_store_2d(&txh, st + wg * kWgRaw3, k0, m0 + 64 * wg);",
+            "v0 = __fadd_rn(v0, b0);"):
+        assert line in SRC, line
+    # the order: the tail mask after the transform, the write-back after
+    # the mask, the split last
+    body = SRC[SRC.index("cf90_fwd_x3_kernel(const"):]
+    at = [body.index(t) for t in ("fmaxf(v0, 0.f)", "kl >= kleft",
+                                  "make_float2(v0, v1)", "split3(v0, v1")]
+    assert at == sorted(at)
+
+
+def test_mm_fused_weight_pieces_come_from_the_gluon_view(monkeypatch):
+    """The float32 forward's B is W's (3, K, N) pieces, the output index
+    contiguous: from the gluon weight's (K, N) view (strides (1, K)) the
+    split kernel takes its transposing path."""
+    lib = _SplitLibrary()
+    monkeypatch.setattr(tcf, "kernel_library", lambda: lib)
+    monkeypatch.setattr(tcf, "current_stream_handle", lambda t: 0)
+    rs = np.random.RandomState(4)
+    k, n = 40, 24
+    w = torch.from_numpy(_rand(rs, n, k)).t()           # (K, N), K unit
+    assert w.stride() == (1, k)
+    wp, = tcf._pieces("mm_fused", (w, k, n, w.stride(0), w.stride(1)))
+    assert lib.launches == [1]
+    assert wp.shape == (3, k, n) and wp.data_ptr() % 16 == 0
+    assert torch.equal(wp.float(), torch.stack(_split3(w)))
 
 
 # ------------------------------------------------- mm_fused_bwd (float32)

@@ -6,11 +6,12 @@ The kernels themselves build and run only on the card (``chip_smoke.py``
 phase 13 holds them against their twins there). What the CPU can check is
 the Python that decides, before every launch, which route a call takes and
 how the launch is tiled: every ResNet-50 stage-2/3/4 shape of the lane at
-batch 128 takes the Hopper route in bf16; in float32, ``conv3_fused``,
-``dgrad_epilogue`` and ``mm_fused_bwd`` take the three-piece route
-("sm90x3": ``cf90_conv3_x3_kernel``, the ``*_x3`` dual dgrad and wgrad,
-and ``cf90_bwd_dgrad_x3_kernel`` with the wgrad's one set) at every
-stage-2/3/4 shape at batch 16 and 128, and the other two forms the SIMT
+batch 128 takes the Hopper route in bf16; in float32, ``mm_fused``,
+``conv3_fused``, ``dgrad_epilogue`` and ``mm_fused_bwd`` take the
+three-piece route ("sm90x3": ``cf90_fwd_x3_kernel``,
+``cf90_conv3_x3_kernel``, the ``*_x3`` dual dgrad and wgrad, and
+``cf90_bwd_dgrad_x3_kernel`` with the wgrad's one set) at every
+stage-2/3/4 shape at batch 16 and 128, and ``conv3_fused_bwd`` the SIMT
 kernels; every shape of the card's sweep takes the route the plan says;
 each tile plan fits the shared memory of a block; the dW row splits cover
 the rows exactly once in a fixed order; and the wrappers still refuse CPU
@@ -75,21 +76,20 @@ def test_resnet_lane_shapes_take_the_sm90_route_in_bf16(stage):
 
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_never_takes_the_sm90_route(stage):
-    """float32 never takes the bf16 Hopper route: the 1x1 forwards take the
-    SIMT kernel, the dual dgrad the three-piece route."""
+    """float32 never takes the bf16 Hopper route: the 1x1 forwards and the
+    dual dgrad take the three-piece route."""
     routes = _lane_forms(stage, F32)
-    assert routes == {case: "sm90x3" if case == "dual dgrad" else "simt"
-                      for case in routes}
+    assert routes == {case: "sm90x3" for case in routes}
 
 
 @pytest.mark.parametrize("mkn", chip_smoke.CONV_MM_SWEEP)
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_sweep_shapes_take_the_planned_mm_route(mkn, dt):
     """The card's sweep shapes: K and N are multiples of 8, so bf16 takes
-    the Hopper route in every form and float32 the SIMT one."""
+    the Hopper route in every form and float32 the three-piece one."""
     m, k, n = mkn
     x, w = _act(m, k, dt), _w1x1(k, n, dt)
-    want = "sm90" if dt == BF16 else "simt"
+    want = "sm90" if dt == BF16 else "sm90x3"
     assert tcf.mm_fused_route(x, w) == want
     assert tcf.mm_fused_route(x, w, _act(m, k, dt),
                               (_vec(k),) * 4) == want
@@ -565,12 +565,12 @@ def _x3_lane_routes(stage, batch):
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_conv3_and_dual_dgrad_take_the_x3_route(stage, batch):
     """At every stage-2/3/4 shape at batch 16 (the float32 truth phase's)
-    and 128 (the lane's), float32 conv3_fused, dgrad_epilogue and
-    mm_fused_bwd take the three-piece kernels; mm_fused and
-    conv3_fused_bwd stay on the SIMT ones."""
+    and 128 (the lane's), float32 mm_fused, conv3_fused, dgrad_epilogue
+    and mm_fused_bwd take the three-piece kernels; conv3_fused_bwd stays
+    on the SIMT ones."""
     routes = _x3_lane_routes(stage, batch)
     assert routes == {"3x3": "sm90x3", "dual dgrad": "sm90x3",
-                      "entry": "simt", "expand bwd": "sm90x3",
+                      "entry": "sm90x3", "expand bwd": "sm90x3",
                       "entry bwd": "sm90x3", "3x3 bwd": "simt"}
 
 
@@ -622,10 +622,27 @@ def test_float32_shapes_the_x3_route_cannot_take_take_simt():
     assert tcf.mm_fused_bwd_route(x, strided) == "simt"
     assert tcf.mm_fused_bwd_route(x, w, (), (a, a, None)) == "simt"
     assert tcf.mm_fused_bwd_route(x, w.to(BF16)) == "simt"
+    # mm_fused: either weight layout is split; x and sc as the TMA reads
+    # them, the coefficient vectors 16-byte aligned
+    sc = _act(256, 64, F32)
+    assert tcf.mm_fused_route(x, w) == "sm90x3"
+    assert tcf.mm_fused_route(x, torch.empty((64, 32), dtype=F32), sc,
+                              (_vec(64),) * 4) == "sm90x3"
+    assert tcf.mm_fused_route(_act(256, 60, F32),
+                              _w1x1(60, 32, F32)) == "simt"
+    assert tcf.mm_fused_route(x, _w1x1(64, 36, F32)) == "simt"
+    assert tcf.mm_fused_route(_act(0, 64, F32), w) == "simt"
+    odd_k = torch.empty((257 * 64,), dtype=F32)[1:1 + 256 * 64].reshape(
+        256, 64)
+    assert tcf.mm_fused_route(odd_k, w) == "simt"
+    assert tcf.mm_fused_route(x, w, odd_k) == "simt"
+    assert tcf.mm_fused_route(x, strided) == "simt"
+    assert tcf.mm_fused_route(x, w, sc, (a, a, None, None)) == "simt"
+    assert tcf.mm_fused_route(x, w.to(BF16)) == "simt"
 
 
-@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue",
-                                    "mm_fused_bwd"])
+@pytest.mark.parametrize("kernel", ["mm_fused", "conv3_fused",
+                                    "dgrad_epilogue", "mm_fused_bwd"])
 @pytest.mark.parametrize("route", [None, "simt"])
 def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
     x = torch.randn(98, 16)
@@ -633,13 +650,17 @@ def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
     w = _w1x1(16, 32, F32, "cpu").normal_()
     g, gc = torch.randn(98, 32), torch.randn(3, 32)
     a, b = torch.ones(16), torch.zeros(16)
-    call = {"conv3_fused": lambda: tcf.conv3_fused(x, w9, a, b, (2, 7, 7),
+    call = {"mm_fused": lambda: tcf.mm_fused(
+                x, w, a=a, b=b, sc=x, asc=a, bsc=b, emit_xhat=True,
+                _route=route),
+            "conv3_fused": lambda: tcf.conv3_fused(x, w9, a, b, (2, 7, 7),
                                                    _route=route),
             "dgrad_epilogue": lambda: tcf.dgrad_epilogue(
                 w, w, x, g, g, gc, g, g, gc, _route=route),
             "mm_fused_bwd": lambda: tcf.mm_fused_bwd(
                 w, x, dzn=g, yout=g, gcoef=gc, a=a, b=b, out_mask="z",
                 partners=(x,), _route=route)}[kernel]
+    assert tcf.mm_fused_route(x, w, x, (a, b, a, b)) == "sm90x3"
     assert tcf.conv3_fused_route(x, w9, (a, b)) == "sm90x3"
     assert tcf.dgrad_epilogue_route(x, w, w, (g,) * 4, (gc, gc)) == "sm90x3"
     assert tcf.mm_fused_bwd_route(x, w, (g, g, x), (a, b, gc)) == "sm90x3"
@@ -661,7 +682,8 @@ def test_the_library_exports_the_x3_entry_points():
     """Each float32-route entry point is in bindings.cpp with as many
     parameters as its ctypes signature."""
     bindings = SRC.with_name("bindings.cpp").read_text()
-    for fn in ("mxt_conv_fused_sm90_split3", "mxt_conv_fused_sm90_conv3_x3",
+    for fn in ("mxt_conv_fused_sm90_split3", "mxt_conv_fused_sm90_fwd_x3",
+               "mxt_conv_fused_sm90_conv3_x3",
                "mxt_conv_fused_sm90_dual_dgrad_x3",
                "mxt_conv_fused_sm90_bwd_dgrad_x3",
                "mxt_conv_fused_sm90_dual_wgrad_x3"):
@@ -684,8 +706,8 @@ def test_x3_wgrad_split_covers_the_rows_and_fills_the_card(stage):
         assert (tiles, splits, chunk) == (40, 3, 8384)
 
 
-@pytest.mark.parametrize("kernel", ["conv3_fused", "dgrad_epilogue",
-                                    "mm_fused_bwd"])
+@pytest.mark.parametrize("kernel", ["mm_fused", "conv3_fused",
+                                    "dgrad_epilogue", "mm_fused_bwd"])
 def test_float32_rows_past_the_x3_grid_take_simt(kernel):
     """The three-piece kernels put their 128-row tiles on gridDim.y, so at
     most 65535 of them: one more row takes the SIMT kernels, decided
@@ -693,7 +715,11 @@ def test_float32_rows_past_the_x3_grid_take_simt(kernel):
     limit = tcf.SM90_X3_MAX_ROWS
     assert limit == 65535 * 128
     c, n = 64, 64
-    if kernel == "conv3_fused":
+    if kernel == "mm_fused":
+        def route(m):
+            return tcf.mm_fused_route(_act(m, c, F32), _w1x1(c, n, F32),
+                                      _act(m, c, F32))
+    elif kernel == "conv3_fused":
         def route(m):
             return tcf.conv3_fused_route(_act(m, c, F32), _w3x3(c, n, F32))
     elif kernel == "mm_fused_bwd":

@@ -419,20 +419,21 @@ def test_tile_walks_cover_every_pair_once(sq, sk, d, causal):
 
 # ----------------------------------------------------------- the routes
 def test_route_is_chosen_by_type_and_fma_only_for_float32():
-    """float32 takes the split route; bf16 the Hopper forward and the WMMA
-    backward kernels; only float32 may be forced onto the FMA kernels."""
+    """float32 takes the split route; bf16 the Hopper kernels, forward and
+    backward; only float32 may be forced onto the FMA kernels."""
     assert tfa.flash_train_route(torch.float32) == "mma"
     assert tfa.flash_train_route(torch.float32, "flash_bwd_dkv") == "mma"
     assert tfa.flash_train_route(torch.bfloat16) == "wgmma"
-    assert tfa.flash_train_route(torch.bfloat16, "flash_bwd_dq") == "wmma"
+    assert tfa.flash_train_route(torch.bfloat16, "flash_bwd_dq") == "wgmma"
     with pytest.raises(TypeError):
         tfa.flash_train_route(torch.float16)
     f32 = torch.zeros(1)
-    assert tfa._fma_code("flash_fwd", f32, None) == 0
-    assert tfa._fma_code("flash_fwd", f32, "fma") == 1
-    for bad, t in (("fma", f32.bfloat16()), ("simt", f32), ("mma", f32)):
-        with pytest.raises(ValueError, match="_route"):
-            tfa._fma_code("flash_fwd", t, bad)
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfa._route_of(kernel, f32, None) == "mma"
+        assert tfa._route_of(kernel, f32, "fma") == "fma"
+        for bad, t in (("fma", f32.bfloat16()), ("simt", f32), ("mma", f32)):
+            with pytest.raises(ValueError, match="_route"):
+                tfa._route_of(kernel, t, bad)
 
 
 @pytest.mark.parametrize("route", [None, "fma"])

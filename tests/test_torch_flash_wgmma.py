@@ -312,22 +312,26 @@ def test_the_library_exports_the_wgmma_entry_point():
 
 # ------------------------------------------------------------- the route
 def test_route_is_wgmma_for_the_bf16_forward_only():
+    """Every bf16 training kernel, the forward and (since the backward's
+    Hopper kernels) dq and dk/dv, takes "wgmma"; "wmma" forces bf16 onto
+    the old kernels and "fma" float32, through one route check."""
     assert tfa.flash_train_route(torch.bfloat16) == "wgmma"
     assert tfa.flash_train_route(torch.bfloat16, "flash_fwd") == "wgmma"
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert tfa.flash_train_route(torch.bfloat16, kernel) == "wmma"
+        assert tfa.flash_train_route(torch.bfloat16, kernel) == "wgmma"
     assert tfa.flash_train_route(torch.float32) == "mma"
+    with pytest.raises(ValueError, match="no training kernel"):
+        tfa.flash_train_route(torch.bfloat16, "flash_bwd")
     bf, f32 = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
-    assert tfa._fwd_route(bf, None) == "wgmma"
-    assert tfa._fwd_route(bf, "wmma") == "wmma"
-    assert tfa._fwd_route(f32, None) == "mma"
-    assert tfa._fwd_route(f32, "fma") == "fma"
-    for t, bad in ((f32, "wmma"), (bf, "fma"), (bf, "wgmma"), (bf, "mma"),
-                   (f32, "simt")):
-        with pytest.raises(ValueError, match="_route"):
-            tfa._fwd_route(t, bad)
-    with pytest.raises(ValueError, match="_route"):
-        tfa._fma_code("flash_bwd_dq", bf, "wmma")
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfa._route_of(kernel, bf, None) == "wgmma"
+        assert tfa._route_of(kernel, bf, "wmma") == "wmma"
+        assert tfa._route_of(kernel, f32, None) == "mma"
+        assert tfa._route_of(kernel, f32, "fma") == "fma"
+        for t, bad in ((f32, "wmma"), (bf, "fma"), (bf, "wgmma"),
+                       (bf, "mma"), (f32, "simt")):
+            with pytest.raises(ValueError, match="_route"):
+                tfa._route_of(kernel, t, bad)
 
 
 @pytest.mark.parametrize("route", [None, "wmma"])

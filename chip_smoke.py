@@ -144,11 +144,11 @@ Phases:
    a middle block's entry-form conv1, 3x3 and expand conv3, forward and
    backward, with times beside the twin's, the library product's
    (``torch.matmul``, channels-last ``F.conv2d`` and its autograd) and the
-   bound; all five in bf16 on their Hopper route, float32 mm_fused,
-   conv3_fused, dgrad_epilogue and mm_fused_bwd on the three-piece route
-   (every 1x1 form of mm_fused and mm_fused_bwd at stages 2-4, two calls
-   bitwise equal), each also forced onto its SIMT kernel and timed beside
-   it in the same call;
+   bound; all five in bf16 on their Hopper route and in float32 on the
+   three-piece route (every 1x1 form of mm_fused and mm_fused_bwd and the
+   3x3 backward at stages 2-4, two calls bitwise equal), each also forced
+   onto its SIMT kernel and timed beside it in the same call (the float32
+   3x3 backward at stages 2-4, the other float32 forms at stage 3);
 14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
    and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
    falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
@@ -162,8 +162,9 @@ Phases:
    path (forward, dx and every non-bias parameter gradient; see
    ``resnet_truth_phase``), beside two control readings: the same fused
    stage on the plain twins, and the kernels' stage against the twins';
-   every float32 mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd
-   launch (29, 13, 3 and 23 over the stages) on the three-piece route;
+   every float32 mm_fused, conv3_fused, dgrad_epilogue, mm_fused_bwd and
+   conv3_fused_bwd launch (29, 13, 3, 23 and 13 over the stages) on the
+   three-piece route;
    then the whole
    net's first-step loss, fused against per-block (rtol 1e-3);
 17. the LSTM kernels (``lstm_fwd_gates``, ``lstm_fwd``, ``lstm_bwd``)
@@ -175,26 +176,30 @@ Phases:
    runs; bf16 throughout, c carried in bf16; float32), every forward on
    its tensor-core route (a float32 W in three bf16 pieces, six products
    a stage) and again on the FMA kernel, the backward on its tensor-core
-   route with a bf16 W and again on the SIMT kernel, on the SIMT kernel
-   with a float32 W, the whole ``lstm_scan`` forward + backward in both
+   route (a float32 W in three pieces too) and again on the SIMT kernel,
+   the whole ``lstm_scan`` forward + backward in both
    directions against the CPU twins; the forward's gates residual against
    a float64 twin within 1e-6 (absolute) beside the FMA kernel's reading
    and, with float32 carries, a control's (a two-piece split of h with a
    bf16 W, three products with a float32 W), which must read above the
    limit at the lane, where the float32-W route must also read no worse
-   than the FMA kernel; with a bf16 W and float32 carries, the
-   tensor-core backward's dh against the float64
-   product of its own dxp (dz) and W within 1e-6 of the largest entry,
-   beside the SIMT kernel's reading and a two-piece split's (the control
-   again); the tensor-core kernels as built (registers, stack and local
-   bytes, HMMA count; every float32-W forward among them); then at the lane (N 128, H 650) with times beside the twin's,
-   the FMA / SIMT kernel's in the same call (in turns), device ms and host
-   µs, cuDNN's whole-sequence LSTM per step (the median of three tries) and
-   the bound (with a float32 W six bf16 products, the FMA bound beside
-   it), the lane's backward error (at most 1e-3 with float32
-   carries), and one scan forward (event and host time) and forward +
-   backward over T 35; then the all-float32 forward's device, graph and
-   event ms and host µs beside the FMA kernel's, in turns;
+   than the FMA kernel; with float32 carries, the tensor-core backward's
+   dh against the float64 product of its own dxp (dz) and W within 1e-6
+   of the largest entry, beside the SIMT kernel's reading and a control's
+   (a two-piece split of dz with a bf16 W, which must read above the
+   limit at the lane; W's hi piece alone with a float32 W, which must
+   read above it everywhere); the tensor-core kernels as built
+   (registers, stack and local bytes, HMMA count; every float32-W forward
+   and backward among them); then at the lane (N 128, H 650) with times
+   beside the twin's, the FMA / SIMT kernel's in the same call (in
+   turns), device ms and host µs, cuDNN's whole-sequence LSTM per step
+   (the median of three tries) and the bound (with a float32 W six bf16
+   products, the FMA bound beside it), the lane's backward error (at most
+   1e-3 with float32 carries), and one scan forward (event and host time)
+   and forward + backward over T 35; the all-float32 backward's device,
+   graph and event ms and host µs beside the SIMT kernel's, in turns
+   (:func:`_in_turns`); then the all-float32 forward's the same way beside
+   the FMA kernel's;
 18. the word LM at bench.py's lane: 2 warm-up and 5 timed steps; finite,
    falling loss; per step exactly 70 ``lstm_fwd_gates`` and 70
    ``lstm_bwd`` launches, every one on the tensor-core route; tok/s, peak
@@ -208,7 +213,8 @@ Phases:
    gradient leaf within 1e-3 of its largest entry; the twins' pass
    launches no kernel), then one ``Trainer`` + ``autograd.record()`` step,
    which must launch the same kernels and give the same loss (a float32
-   W_hh: every forward on the tensor-core route, every backward SIMT);
+   W_hh: every forward and every backward on the tensor-core route, W in
+   three pieces);
 20. the detection kernels (``multibox_match``, ``nms_keep``) against their
    twins on the card, on both routes (the cluster kernels, and the first
    design behind ``_route="simple"``): the matcher over N 20, 61, 5630 x
@@ -2037,13 +2043,11 @@ CONV_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/conv_fused.cu"
 CONV_SM90_SOURCE = ("incubator_mxnet_tpu_torch/ops/cuda/csrc/"
                     "conv_fused_sm90.cu")
 # the JSON line's names of the phase-13/14 kernels, in its order: every
-# bf16 route is the Hopper kernels of conv_fused_sm90.cu, and so is the
-# float32 route of mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd
-# (three bf16 pieces a float32 operand, six wgmma products a stage:
-# "sm90x3"; phase 16 launches them); float32 conv3_fused_bwd takes the SIMT
-# kernels
+# bf16 route is the Hopper kernels of conv_fused_sm90.cu, and so is every
+# float32 route (three bf16 pieces a float32 operand, six wgmma products a
+# stage: "sm90x3"; phase 16 launches them)
 CONV_X3_KERNELS = ("mm_fused", "conv3_fused", "dgrad_epilogue",
-                   "mm_fused_bwd")
+                   "mm_fused_bwd", "conv3_fused_bwd")
 CONV_RECORDS = tuple(f"{n}/sm90" for n in CONV_KERNELS) + tuple(
     f"{n}/sm90x3" for n in CONV_X3_KERNELS)
 CONV_REPLACES = {
@@ -2473,9 +2477,8 @@ def _turns_line(res):
 
 def _conv_route(name, dt):
     """The route the plan gives a conv form of the ResNet-50 lane's
-    stages: every bf16 form the Hopper kernels; in float32, mm_fused,
-    conv3_fused, dgrad_epilogue and mm_fused_bwd the three-piece kernels,
-    conv3_fused_bwd the SIMT ones."""
+    stages: every bf16 form the Hopper kernels, every float32 form the
+    three-piece kernels."""
     if dt == torch.bfloat16:
         return "sm90"
     return "sm90x3" if name in CONV_X3_KERNELS else "simt"
@@ -2515,7 +2518,7 @@ _LSTM_TARGS = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "0",
 
 
 def _lstm_tc_kernel_name(mangled):
-    """``lstm_bwd_tc_kernel<float>`` (the carries' type) or
+    """``lstm_bwd_tc_kernel<float,3>`` (the carries' type, W's pieces) or
     ``lstm_fwd_tc_kernel<bf16,float,1,3>`` (xp's and the carries' types, the
     residual, W's pieces) from a mangled name (a substitution repeating the
     bf16 type), or None for another kernel of lstm.cu."""
@@ -2579,15 +2582,17 @@ def _sass_kernels(common, pattern, name_of, instr, no_stack=False):
 
 def sm90_sass_check(common):
     """The Hopper kernels of conv_fused_sm90.cu as built, each with HGMMA
-    and no local bytes, the float32 route's six among them (the forward in
-    its plain/bnrelu and entry forms); and its piece split,
+    and no local bytes, the float32 route's eight among them (the forward
+    in its plain/bnrelu and entry forms, the 3x3 backward's dgrad and
+    wgrad); and its piece split,
     ``cf90_split3_kernel``, with stores and no local bytes (it picks its
     operand from the launch's descriptor by static indices)."""
     kernels = _sass_kernels(common, "conv_fused_sm90*.o", _sm90_kernel_name,
                             "HGMMA")
     x3 = {"cf90_fwd_x3_kernel<0>", "cf90_fwd_x3_kernel<1>",
           "cf90_conv3_x3_kernel", "cf90_dual_dgrad_x3_kernel",
-          "cf90_dual_wgrad_x3_kernel", "cf90_bwd_dgrad_x3_kernel"}
+          "cf90_dual_wgrad_x3_kernel", "cf90_bwd_dgrad_x3_kernel",
+          "cf90_conv3_dgrad_x3_kernel", "cf90_conv3_wgrad_x3_kernel"}
     if not x3 <= set(kernels):
         raise AssertionError(f"the float32 route's kernels are not all in "
                              f"the build: {sorted(kernels)}")
@@ -2599,20 +2604,22 @@ def sm90_sass_check(common):
 
 
 def lstm_sass_check(common):
-    """lstm.cu's tensor-core forward (every instantiation, a float32 W's
-    three pieces included) and backward as built, each with HMMA
+    """lstm.cu's tensor-core forward and backward (every instantiation, a
+    float32 W's three pieces included) as built, each with HMMA
     (``mma.sync``), no local bytes and no stack."""
     kernels = _sass_kernels(common, "lstm*.o", _lstm_tc_kernel_name, "HMMA",
                             no_stack=True)
-    if sum(k.startswith("lstm_fwd_tc_kernel") and k.endswith(",3>")
-           for k in kernels) != 8:
-        raise AssertionError(f"not every float32-W forward in the build: "
-                             f"{sorted(kernels)}")
+    for kind, n in (("fwd", 8), ("bwd", 2)):
+        if sum(k.startswith(f"lstm_{kind}_tc_kernel") and k.endswith(",3>")
+               for k in kernels) != n:
+            raise AssertionError(f"not every float32-W {kind} kernel in the "
+                                 f"build: {sorted(kernels)}")
     return kernels
 
 
 # the float32-route kernels whose calls are held to two equal calls
-_X3_REPEATED = ("mm_fused", "dgrad_epilogue", "mm_fused_bwd")
+_X3_REPEATED = ("mm_fused", "dgrad_epilogue", "mm_fused_bwd",
+                "conv3_fused_bwd")
 
 
 def _bitwise_repeats(kern, tag):
@@ -2630,12 +2637,11 @@ def conv_kernel_checks(cf, common):
     option sweep in float32 and bf16, then at the ResNet-50 lane's shapes,
     every conv form of each stage (2, 3, 4) in both types. Each call takes
     the route the plan gives (``_conv_route``): every bf16 form the Hopper
-    kernels (conv_fused_sm90.cu), float32 mm_fused, conv3_fused,
-    dgrad_epilogue and mm_fused_bwd that file's three-piece kernels
-    ("sm90x3"), float32 conv3_fused_bwd the SIMT kernels; every call on a
-    Hopper route is held to the twin again forced onto its SIMT kernel
-    (the private ``_route="simt"``).
-    Times in bf16 at every stage and in float32 at stage 3: CUDA events
+    kernels (conv_fused_sm90.cu), every float32 form that file's
+    three-piece kernels ("sm90x3"); every call is held to the twin again
+    forced onto its SIMT kernel (the private ``_route="simt"``).
+    Times in bf16 at every stage and in float32 at stage 3 (the 3x3
+    backward at stages 2-4): CUDA events
     over a loop of wrapper calls, beside the twin's, the library call's
     and the bound. On the bf16 route, in turns with the SIMT kernel (new,
     old, new, old), plus torch.profiler's device time of one call, the
@@ -2678,9 +2684,9 @@ def conv_kernel_checks(cf, common):
     log(f"fused-conv sweep: {n_cases} cases (every load form, stats, "
         f"x^ output, bias, G direct and from BN, masks none/x/z, 0-2 "
         f"partners, dsc, the expand form, 3x3 at 7/9/14/28 with 1-3 images "
-        f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route, "
-        f"float32 mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd "
-        f"on the sm90x3 route, each again on the simt one) within "
+        f"and C 16-72, dual dgrad; all five in bf16 on the sm90 route and "
+        f"in float32 on the sm90x3 route, each again on the simt one) "
+        f"within "
         f"tolerance; worst "
         f"{json.dumps(worst)}")
     timings = {"sass": sass, "sweep": worst}
@@ -2700,7 +2706,8 @@ def conv_kernel_checks(cf, common):
                 del ref
                 if route == "sm90x3" and name in _X3_REPEATED:
                     _bitwise_repeats(kern, tag)
-                if dt == torch.float32 and stage != 3:
+                if dt == torch.float32 and stage != 3 \
+                        and name != "conv3_fused_bwd":
                     log(f"parity {tag} ({route}): err {err:.3g}")
                     continue
                 rec = {"name": name, "route": "cuda", "source": CONV_SOURCE,
@@ -2986,10 +2993,10 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
     4) against the same stage on the per-block path, then the whole net's
     first-step loss fused against per-block (rtol 1e-3). Every float32
     mm_fused (two a block and block 0's projection), conv3_fused (one a
-    block), dgrad_epilogue (one a stage) and mm_fused_bwd (two a block but
-    block 0's one) launch of the fused stages takes the three-piece route
-    ("sm90x3"); their counts over the three stages (29, 13, 3, 23) are the
-    records' launches.
+    block), dgrad_epilogue (one a stage), mm_fused_bwd (two a block but
+    block 0's one) and conv3_fused_bwd (one a block) launch of the fused
+    stages takes the three-piece route ("sm90x3"); their counts over the
+    three stages (29, 13, 3, 23, 13) are the records' launches.
 
     The forward is held to tests/test_fused_resnet.py:402's tolerance
     (rtol = atol = 1e-3). Its gradient tolerances (:406-414: dx within
@@ -3038,10 +3045,12 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
                 or not x3["conv3_fused"] == counts["conv3_fused"] \
                 == len(blocks) or x3["dgrad_epilogue"] != 1 \
                 or not x3["mm_fused_bwd"] == counts["mm_fused_bwd"] \
-                == 2 * len(blocks) - 1:
+                == 2 * len(blocks) - 1 \
+                or x3["conv3_fused_bwd"] != counts["conv3_fused_bwd"]:
             raise AssertionError(f"float32 mm_fused / conv3_fused / "
-                                 f"dgrad_epilogue / mm_fused_bwd launches "
-                                 f"off the sm90x3 route: {x3} of {counts}")
+                                 f"dgrad_epilogue / mm_fused_bwd / "
+                                 f"conv3_fused_bwd launches off the sm90x3 "
+                                 f"route: {x3} of {counts}")
         for name in CONV_X3_KERNELS:
             x3_total[name] += x3[name]
         common.reset_launch_counts()
@@ -3121,9 +3130,10 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
 LSTM_KERNELS = ("lstm_fwd_gates", "lstm_fwd", "lstm_bwd")
 # the JSON line's names: with a bf16 W (the lane's) each takes its
 # tensor-core kernel; a user's eval forward on the net's own float32
-# parameters takes the tensor-core forward with W in three pieces
+# parameters takes the tensor-core forward with W in three pieces, and the
+# float32 truth pass (phase 19) the tensor-core backward so
 LSTM_RECORDS = ("lstm_fwd_gates/sm90", "lstm_fwd/sm90", "lstm_bwd/sm90",
-                "lstm_fwd/sm90_f32w")
+                "lstm_fwd/sm90_f32w", "lstm_bwd/sm90_f32w")
 LSTM_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/lstm.cu"
 _LSTM_PY = "incubator_mxnet_tpu/ops/pallas/lstm.py"
 LSTM_REPLACES = {"lstm_fwd_gates": f"{_LSTM_PY}:151",
@@ -3151,10 +3161,12 @@ LM_T, LM_N, LM_H, LM_VOCAB = 35, 128, 650, 33278      # bench.py:500-520
 # split-bf16 product must keep
 LSTM_LANE_BWD_TOL = 1e-3
 # dh against the float64 product of the kernel's own dz (its dxp output)
-# and W, over dh's largest entry, with float32 carries: the tensor-core
-# route read 0.5e-7-2.9e-7 over this phase's sweep on an H100, a two-piece
-# split 2.2e-6-4.3e-6, and the SIMT kernel's sequential float32 sums
-# 1.2e-7-2.5e-6 (growing with H)
+# and W, over dh's largest entry, with float32 carries: with a bf16 W the
+# tensor-core route read 0.5e-7-2.9e-7 over this phase's sweep on an H100,
+# a two-piece split 2.2e-6-4.3e-6, and the SIMT kernel's sequential float32
+# sums 1.2e-7-2.5e-6 (growing with H); with a float32 W the six-product
+# route must stay within it too, and W's hi piece alone (three products)
+# must read above it
 LSTM_PRODUCT_TOL = 1e-6
 # the forward's gates residual against a float64 twin on the same inputs,
 # absolute: with a bf16 W the tensor-core route read 0.8e-7-4.7e-7 over
@@ -3180,12 +3192,16 @@ def _lstm_operands(g, od, wd, sd, N, H):
 def _product_err(dxp, w, dh, pieces=None):
     """dh against the float64 product of dz (``dxp``) and W, over its
     largest entry; with ``pieces`` 2, the reading of a dh that a two-piece
-    split (hi + mid, lo dropped) would give, in exact arithmetic."""
+    split of dz (hi + mid, lo dropped) would give, and with ``pieces``
+    "w_hi" that of W's hi piece alone times dz's three (three products),
+    in exact arithmetic."""
     exact = dxp.double() @ w.double()
     if pieces == 2:
         hi = dxp.to(torch.bfloat16)
         mid = (dxp - hi.float()).to(torch.bfloat16)
         dh = ((hi.double() + mid.double()) @ w.double()).float()
+    elif pieces == "w_hi":
+        dh = (dxp.double() @ w.to(torch.bfloat16).double()).float()
     return ((dh.double() - exact).abs().max() / exact.abs().max()).item()
 
 
@@ -3231,14 +3247,15 @@ def _fwd_product_err(xp, h, w, b, gates=None, pieces=None):
 def _lstm_errs(lt, ops):
     """The kernels against their twins on the same operands: each wrapper
     on the route its rule gives (checked taken), the forward also forced
-    onto the FMA kernel and, on the tensor-core backward (a bf16 W), the
-    backward onto the SIMT kernel. Returns {"fwd", "fwd_simt", "bwd",
-    "bwd_simt": errors (None where not run), "fwd_product", "bwd_product":
-    readings or None}: the forward's gates residual against the float64
-    twin (tensor-core route, FMA kernel and, with float32 carries, the
-    control: a two-piece split of h with a bf16 W, three products with a
-    float32 W), and with a bf16 W and float32 carries the backward's dh
-    against the float64 product of its own dz (:func:`_product_err`)."""
+    onto the FMA kernel and the backward onto the SIMT kernel. Returns
+    {"fwd", "fwd_simt", "bwd", "bwd_simt": errors, "fwd_product",
+    "bwd_product": readings or None}: the forward's gates residual against
+    the float64 twin (tensor-core route, FMA kernel and, with float32
+    carries, the control: a two-piece split of h with a bf16 W, three
+    products with a float32 W), and with float32 carries the backward's dh
+    against the float64 product of its own dz (:func:`_product_err`; the
+    control: a two-piece split of dz with a bf16 W, W's hi piece alone
+    with a float32 W)."""
     xp, h, c, w, b, dh1, dc1 = ops
     route = lt.lstm_fwd_route(w)
     bwd_route = lt.lstm_bwd_route(w)
@@ -3251,12 +3268,10 @@ def _lstm_errs(lt, ops):
     fs = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt")
     rb = lt.lstm_bwd_reference(ref[2], c, ref[1], w, dh1, dc1)
     kb = _route_taken(lt, "lstm_bwd", lambda: lt.lstm_bwd(
-        ref[2], c, ref[1], w, dh1, dc1, w_packed=lt._bwd_weight(w, wp)),
-        bwd_route)
-    ks = (lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1, _route="simt")
-          if bwd_route == "sm90" else None)
+        ref[2], c, ref[1], w, dh1, dc1, w_packed=wp), bwd_route)
+    ks = lt.lstm_bwd(ref[2], c, ref[1], w, dh1, dc1, _route="simt")
     torch.cuda.synchronize()
-    outs = [t for t in kg + k0 + kb + fs + (ks or ()) if t is not None]
+    outs = [t for t in kg + k0 + kb + fs + ks if t is not None]
     if not all(torch.isfinite(t).all() for t in outs):
         raise AssertionError("an LSTM kernel gave a non-finite value")
 
@@ -3272,18 +3287,19 @@ def _lstm_errs(lt, ops):
     elif f32:
         fwd_product["two_piece"] = _fwd_product_err(xp, h, w, b, pieces=2)
     bwd_product = None
-    if f32 and ks is not None:
+    if f32:
+        control = (("w_hi", "w_hi") if w.dtype == torch.float32
+                   else ("two_piece", 2))
         bwd_product = {
             "tensor_core": _product_err(kb[0], w, kb[1]),
             "simt": _product_err(ks[0], w, ks[1]),
-            "two_piece": _product_err(kb[0], w, kb[1], pieces=2),
+            control[0]: _product_err(kb[0], w, kb[1], pieces=control[1]),
             "tensor_core_vs_simt": (_max_err(kb[1], ks[1]) / max(
                 ks[1].abs().max().item(), 1e-30))}
     return {"fwd": _scaled_err(kg + k0[:2], ref + ref[:2]),
             "fwd_simt": _scaled_err(fs, ref),
-            "bwd": bwd_err(kb), "bwd_simt": None if ks is None else
-            bwd_err(ks), "fwd_product": fwd_product,
-            "bwd_product": bwd_product}
+            "bwd": bwd_err(kb), "bwd_simt": bwd_err(ks),
+            "fwd_product": fwd_product, "bwd_product": bwd_product}
 
 
 def _lstm_scan_errs(lt, g, od, wd, sd, T, N, H, reverse):
@@ -3309,17 +3325,17 @@ def _lstm_bytes_flops(od, wd, sd, N, H, kernel, route="sm90"):
     """What the kernel must move (inputs read once, outputs written once)
     and its product's flops, with the type the product runs in. On the
     tensor-core routes a float32 operand is three bf16 pieces: the
-    backward's dz always (a bf16 W), the forward's h with float32 carries
-    and its W when float32, where a stage runs the six products of two
-    three-piece operands (three of one; one of two bf16 operands). On the
-    FMA / SIMT route (``route`` "simt") the product is float32's."""
+    backward's dz always, the forward's h with float32 carries, and W
+    when float32, where a stage runs the six products of two three-piece
+    operands (three of one; one of two bf16 operands). On the FMA / SIMT
+    route (``route`` "simt") the product is float32's."""
     eo, ew, es = (torch.empty((), dtype=t).element_size()
                   for t in (od, wd, sd))
     flops = 2 * N * H * 4 * H
     if kernel == "lstm_bwd":
         moved = (N * 4 * H * 4 + 4 * N * H * es + 4 * H * H * ew
                  + N * 4 * H * 4 + 2 * N * H * es)
-        pieces = 3
+        pieces = 6 if wd == torch.float32 else 3
     else:
         gates = N * 4 * H * 4 if kernel == "lstm_fwd_gates" else 0
         moved = (N * 4 * H * eo + 2 * N * H * es + 4 * H * H * ew
@@ -3366,20 +3382,21 @@ def lstm_kernel_checks(lt, common):
     ``LSTM_F32W_MIXED_TYPES``; with and without the residual; bf16
     carries round c to bf16; every forward on its tensor-core route, W in
     three pieces when float32, and again on the FMA kernel; the backward on
-    its tensor-core route with a bf16 W and again on the SIMT kernel, on
-    the SIMT kernel with a float32 W), the product checks (the forward's
-    gates and the backward's dh
-    against float64), the whole scan forward + backward in both directions
-    against the CPU twins, the tensor-core kernels as built, then the
-    lane's shape (N 128, H 650) with times beside the twin's, the bound,
-    cuDNN's whole-sequence LSTM per step as the library yardstick, and for
-    the tensor-core routes the FMA / SIMT kernel's time in the same call
-    (in turns), the device time, the time of one call replayed from a CUDA
-    graph and the host µs, and the all-float32 forward's device, graph,
-    event and host times beside the FMA kernel's in turns
-    (:func:`lstm_f32_fwd_timings`). Returns the JSON records (the lane's
-    layer-1 form, and the all-float32 form's ``lstm_fwd``, a user's eval)
-    and a log of every timing."""
+    its tensor-core route, W in three pieces when float32, and again on the
+    SIMT kernel), the product checks (the forward's gates and the
+    backward's dh against float64), the whole scan forward + backward in
+    both directions against the CPU twins, the tensor-core kernels as
+    built, then the lane's shape (N 128, H 650) with times beside the
+    twin's, the bound, cuDNN's whole-sequence LSTM per step as the library
+    yardstick, and for the tensor-core routes the FMA / SIMT kernel's time
+    in the same call (in turns), the device time, the time of one call
+    replayed from a CUDA graph and the host µs (the all-float32 backward's
+    four readings beside the SIMT kernel's by :func:`_in_turns`), and the
+    all-float32 forward's device, graph, event and host times beside the
+    FMA kernel's in turns (:func:`lstm_f32_fwd_timings`). Returns the JSON
+    records (the lane's layer-1 form, and the all-float32 form's
+    ``lstm_fwd``, a user's eval, and ``lstm_bwd``, phase 19's) and a log
+    of every timing."""
     sass = lstm_sass_check(common)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst, n_cases = {}, 0
@@ -3392,6 +3409,7 @@ def lstm_kernel_checks(lt, common):
 
     def check_products(where, e, lane=False, f32w=False):
         fp, bp = e["fwd_product"], e["bwd_product"]
+        bctl = None if bp is None else bp.get("two_piece", bp.get("w_hi"))
         control = fp.get("two_piece", fp.get("three_product"))
         if fp["tensor_core"] > LSTM_FWD_PRODUCT_TOL or (
                 lane and control is not None
@@ -3401,7 +3419,7 @@ def lstm_kernel_checks(lt, common):
                                  f"{json.dumps(fp)} (limit "
                                  f"{LSTM_FWD_PRODUCT_TOL})")
         if bp is not None and (bp["tensor_core"] > LSTM_PRODUCT_TOL or (
-                lane and bp["two_piece"] <= LSTM_PRODUCT_TOL)):
+                (lane or f32w) and bctl <= LSTM_PRODUCT_TOL)):
             raise AssertionError(f"lstm_bwd's tensor-core product {where}: "
                                  f"{json.dumps(bp)} (limit "
                                  f"{LSTM_PRODUCT_TOL})")
@@ -3434,11 +3452,11 @@ def lstm_kernel_checks(lt, common):
             worst[key + " scan"] = max(worst.get(key + " scan", 0.0), fwd,
                                        bwd)
     log(f"LSTM kernel sweep: {n_cases} shapes x 3 kernels (and the FMA "
-        f"forward, and the SIMT backward with a bf16 W) and the scan in "
-        f"both directions within tolerance; worst {json.dumps(worst)}")
+        f"forward and the SIMT backward) and the scan in both directions "
+        f"within tolerance; worst {json.dumps(worst)}")
     log(f"LSTM products, (least, most) over the sweep: the forward's gates "
         f"residual against float64, absolute (tensor-core route at most "
-        f"{LSTM_FWD_PRODUCT_TOL}); with a bf16 W and float32 carries the "
+        f"{LSTM_FWD_PRODUCT_TOL}); with float32 carries the "
         f"backward's dh against the float64 product of its dz, over the "
         f"largest entry (tensor-core route at most {LSTM_PRODUCT_TOL}): "
         f"{json.dumps(products)}")
@@ -3461,7 +3479,7 @@ def lstm_kernel_checks(lt, common):
                 f"{json.dumps(e['fwd_product'])} (tensor-core at most "
                 f"{LSTM_FWD_PRODUCT_TOL}, the control above it); backward "
                 f"dh {json.dumps(e['bwd_product'])} (tensor-core at most "
-                f"{LSTM_PRODUCT_TOL}, two-piece above it)")
+                f"{LSTM_PRODUCT_TOL}, the control above it)")
             if e["bwd"] > LSTM_LANE_BWD_TOL:
                 raise AssertionError(f"lstm_bwd at the lane: {json.dumps(e)}")
             check_products(f"at the lane {tag}", e, lane=True,
@@ -3470,7 +3488,6 @@ def lstm_kernel_checks(lt, common):
         # the tensor-core routes read W's padded copy, which the scan makes
         # once a sequence (its time is logged apart)
         wp = lt.lstm_tc_weight(w)
-        wpb = lt._bwd_weight(w, wp)
         runs = {
             "lstm_fwd_gates": (
                 lambda: lt.lstm_fwd_gates(xp, h, c, w, b, w_packed=wp),
@@ -3481,7 +3498,7 @@ def lstm_kernel_checks(lt, common):
                 lambda: lt.lstm_fwd(xp, h, c, w, b, _route="simt"),
                 lambda: lt.lstm_fwd_reference(xp, h, c, w, b, False)),
             "lstm_bwd": (
-                lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, w_packed=wpb),
+                lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, w_packed=wp),
                 lambda: lt.lstm_bwd(gates, c, c, w, dh1, dc1, _route="simt"),
                 lambda: lt.lstm_bwd_reference(gates, c, c, w, dh1, dc1))}
         lib = _cudnn_lstm_per_step(od, T, N, H)
@@ -3504,7 +3521,32 @@ def lstm_kernel_checks(lt, common):
                                                     "simt")
                 rec["fma_bound_ms"] = max(
                     t_bytes, fma_flops / PEAK_FLOPS[torch.float32] * 1e3)
-            if tc:
+            if tc and wd == torch.float32 and name == "lstm_bwd":
+                # the float32-W backward and the SIMT kernel in turns,
+                # device, graph, event and host readings of both
+                turns = _in_turns({"sm90": kern, "simt": old}, lt.lstm_bwd)
+                new, simt = turns["sm90"], turns["simt"]
+                ms = new["event_ms"]
+                log(f"turns lstm_bwd {tag} N {N} H {H}: "
+                    f"{_turns_line(turns)}")
+                rec.update(name="lstm_bwd/sm90_f32w",
+                           earlier_ms=simt["event_ms"],
+                           earlier_device_ms=simt["device_ms"],
+                           earlier_graph_ms=simt["graph_ms"],
+                           earlier_host_us=simt["host_us"],
+                           earlier_device_kernels_ms=simt["kernels"],
+                           earlier_max_abs_err=e["bwd_simt"],
+                           product_err=e["bwd_product"],
+                           device_ms=new["device_ms"],
+                           device_kernels_ms=new["kernels"],
+                           host_us=new["host_us"], graph_ms=new["graph_ms"],
+                           rounds={k: v for k, v in new.items()
+                                   if k.endswith("_rounds")},
+                           earlier_rounds={k: v for k, v in simt.items()
+                                           if k.endswith("_rounds")},
+                           weight_copy_ms=time_ms(
+                               lambda: lt.lstm_tc_weight(w), iters=20))
+            elif tc:
                 # the tensor-core kernel and the FMA / SIMT one in turns
                 ms1, old1 = time_ms(kern, iters=50), time_ms(old, iters=50)
                 ms2, old2 = time_ms(kern, iters=50), time_ms(old, iters=50)
@@ -3529,7 +3571,8 @@ def lstm_kernel_checks(lt, common):
             timings[f"{name} {tag}"] = rec
             if (od, wd, sd) == LSTM_TYPES[0]:
                 records[rec["name"]] = rec
-            elif (od, wd, sd) == LSTM_TYPES[3] and name == "lstm_fwd":
+            elif (od, wd, sd) == LSTM_TYPES[3] and name in ("lstm_fwd",
+                                                            "lstm_bwd"):
                 records[rec["name"]] = rec
             extra = (f"; FMA/SIMT {rec['earlier_ms']:.4f} ms, device "
                      f"{_ms(rec['device_ms'])} ms "
@@ -3759,24 +3802,27 @@ def _lm_loss_and_grads(net, params, x, y, mx):
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def word_lm_truth_phase(mx, lt, common):
+def word_lm_truth_phase(mx, lt, common, records):
     """Phase 19: at the lane's width in float32 (dropout 0), one
     loss-and-gradient pass with the kernels against the same pass on the
     twins (loss rtol 1e-4, every gradient leaf within 1e-3 of its largest
-    entry); then one Trainer + autograd.record() step, the reference's
-    imperative route, which must launch the same kernels and give the same
-    loss."""
+    entry), its 70 ``lstm_fwd_gates`` and 70 ``lstm_bwd`` launches all on
+    the tensor-core routes with W in three pieces (the float32-W
+    backward's record takes its launches from here); then one Trainer +
+    autograd.record() step, the reference's imperative route, which must
+    launch the same kernels and give the same loss."""
     net, _, params, _, _, x, y = _word_lm(mx, SEED + 8, 0.0)
     common.reset_launch_counts()
     loss_k, grads_k = _lm_loss_and_grads(net, params, x, y, mx)
     torch.cuda.synchronize()
     launches = common.launch_counts()
     sm90 = common.sm90_launch_counts()
-    # a float32 W: the forward on the tensor cores, the backward SIMT
+    # a float32 W: the forward and the backward on the tensor cores
     if launches["lstm_fwd_gates"] != 70 or launches["lstm_bwd"] != 70 \
-            or sm90["lstm_fwd_gates"] != 70 or sm90["lstm_bwd"]:
+            or sm90["lstm_fwd_gates"] != 70 or sm90["lstm_bwd"] != 70:
         raise AssertionError(f"f32 pass launches {launches}, on the "
                              f"tensor-core routes {sm90}")
+    records["lstm_bwd/sm90_f32w"]["launches"] = sm90["lstm_bwd"]
     # the twins in the kernels' place: the scan's forward steps (and the
     # cell's, off this path) and its backward steps
     steps = (lt._kernel_steps, lt._step_fwd, lt._step_bwd)
@@ -4918,7 +4964,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     word_lm = word_lm_train_phase(mx, common, records)
     torch.cuda.empty_cache()
-    word_lm_truth = word_lm_truth_phase(mx, lt, common)
+    word_lm_truth = word_lm_truth_phase(mx, lt, common, records)
     torch.cuda.empty_cache()
     det_records, det_timings = detection_kernel_checks(kd, common)
     records.update(det_records)

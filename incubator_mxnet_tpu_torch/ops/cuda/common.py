@@ -81,10 +81,11 @@ _SIGNATURES = {
     "mxt_conv_fused_sm90_bwd_dgrad_x3": [_P] * 12 + [_I] * 2 + [_P] * 3
                                         + [_I] * 3 + [_P],
     "mxt_conv_fused_sm90_dual_wgrad_x3": [_P] * 4 + [_I] * 6 + [_P],
+    "mxt_conv_fused_sm90_conv3_bwd_x3": [_P] * 12 + [_I] * 7 + [_P],
     "mxt_lstm_fwd": [_I, _I, _I] + [_P] * 8 + [_I, _I, _P],
     "mxt_lstm_fwd_sm90": [_I, _I, _I] + [_P] * 8 + [_I] * 4 + [_P],
     "mxt_lstm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _P],
-    "mxt_lstm_bwd_sm90": [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "mxt_lstm_bwd_sm90": [_I, _I] + [_P] * 10 + [_I] * 4 + [_P],
     "mxt_multibox_match": [_P, _P, _I, _I, _I] + [_F] * 5 + [_I] + [_P] * 5,
     "mxt_nms_keep": [_P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P],
     "mxt_multibox_match_cluster": [_P, _P] + [_I] * 5 + [_F] * 5
@@ -105,7 +106,7 @@ def counted_kernel(fn):
     bumps ``fn.sm90_launches`` when the call took that route, and
     ``fn.x3_launches`` as well when that route was the float32 one with
     every operand in three bf16 pieces (``mm_fused``, ``conv3_fused``,
-    ``dgrad_epilogue``, ``mm_fused_bwd``)."""
+    ``dgrad_epilogue``, ``mm_fused_bwd``, ``conv3_fused_bwd``)."""
     fn.launches = 0
     fn.sm90_launches = 0
     fn.x3_launches = 0

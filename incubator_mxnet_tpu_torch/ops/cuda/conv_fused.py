@@ -30,15 +30,13 @@ failure): all five in bf16, with channel counts that are multiples of 8,
 ``mm_fused_bwd``, ``conv3_fused`` and ``conv3_fused_bwd``, the one of the
 gluon weight's view), take the Hopper kernels of
 ``csrc/conv_fused_sm90.cu`` (TMA-fed ``wgmma``; counted in
-``sm90_launches`` beside ``launches``); ``mm_fused``, ``conv3_fused``,
-``dgrad_epilogue`` and ``mm_fused_bwd`` in float32, under the same shape
-rules (a weight with any unit stride), take that file's float32 kernels,
-"sm90x3": every float32 operand of a product in three exact bf16 pieces,
-six ``wgmma`` products a stage (no TF32, so float32 matches the plain
-twin; counted in ``sm90_launches`` and ``x3_launches``); everything else,
-and ``conv3_fused_bwd`` in float32 always, takes the SIMT kernels of
-``csrc/conv_fused.cu``. :func:`mm_fused_route`,
-:func:`mm_fused_bwd_route`, :func:`conv3_fused_route`,
+``sm90_launches`` beside ``launches``); all five in float32, under the
+same shape rules (a weight with any unit stride), take that file's float32
+kernels, "sm90x3": every float32 operand of a product in three exact bf16
+pieces, six ``wgmma`` products a stage (no TF32, so float32 matches the
+plain twin; counted in ``sm90_launches`` and ``x3_launches``); everything
+else takes the SIMT kernels of ``csrc/conv_fused.cu``.
+:func:`mm_fused_route`, :func:`mm_fused_bwd_route`, :func:`conv3_fused_route`,
 :func:`conv3_fused_bwd_route`, :func:`dgrad_epilogue_route`,
 :func:`sm90_bn`, :func:`sm90_plan`, :func:`sm90_x3_plan` and
 :func:`sm90_wgrad_split` hold the choice and the tile plan in Python. The
@@ -307,19 +305,24 @@ def sm90_x3_plan(kernel: str, entry: bool = False) -> dict:
     conv_fused_sm90.cu) for ``kernel``: "fwd" (``mm_fused``: a stage holds
     x's raw float32 128 x 32 box, and sc's too with ``entry``, W's three
     128 x 32 bf16 pieces and 1 KB of a, b, asc and bsc), "conv3" (x's raw
-    box, W9's three pieces and 1 KB of a and b), "dgrad" (dzn's and yout's boxes, W^T's pieces, 1 KB of g0,
-    g1, g2), "bwd" (mm_fused_bwd's dgrad: as "dgrad", and at least an
-    epilogue chunk of four 128 x 32 float32 boxes (x, dsc, two partners)
-    and 1 KB of a and b) or "wgrad" (G^T's three pieces and x's, 128 x 32
-    each); up to four stages in the 200 KB budget; the epilogue's float32
-    128 x 128 staging tile and its column sums reuse them."""
+    box, W9's three pieces and 1 KB of a and b), "dgrad" (dzn's and yout's
+    boxes, W^T's pieces, 1 KB of g0, g1, g2), "bwd" (mm_fused_bwd's dgrad:
+    as "dgrad", and at least an epilogue chunk of four 128 x 32 float32
+    boxes (x, dsc, two partners) and 1 KB of a and b), "conv3_dgrad"
+    (conv3_fused_bwd's dgrad: "bwd"'s stage, over nine tap-shifted boxes
+    of dzn and yout and W9^T's pieces), "wgrad" (G^T's three pieces and
+    x's, 128 x 32 each) or "conv3_wgrad" (the same, x^'s box shifted by
+    the tap); up to four stages in the 200 KB budget; the epilogue's
+    float32 128 x 128 staging tile and its column sums reuse them."""
     raw = SM90_BM * SM90_X3_BK * 4
     pieces = 3 * SM90_X3_BN * SM90_X3_BK * 2
+    bwd = max(2 * raw + pieces + 1024, 4 * raw + 1024)
+    wgrad = 3 * SM90_BM * SM90_X3_BK * 2 + pieces
     stage = {"fwd": (2 if entry else 1) * raw + pieces + 1024,
              "conv3": raw + pieces + 1024,
              "dgrad": 2 * raw + pieces + 1024,
-             "bwd": max(2 * raw + pieces + 1024, 4 * raw + 1024),
-             "wgrad": 3 * SM90_BM * SM90_X3_BK * 2 + pieces}[kernel]
+             "bwd": bwd, "conv3_dgrad": bwd,
+             "wgrad": wgrad, "conv3_wgrad": wgrad}[kernel]
     stages = min(_SM90_X3_MAX_STAGES, _SM90_STAGE_BUDGET // stage)
     return {"bn": SM90_X3_BN, "bk": SM90_X3_BK, "stages": stages,
             "stage_bytes": stage, "smem_bytes": stages * stage + 1024}
@@ -422,9 +425,20 @@ def conv3_fused_bwd_route(x2, w9, acts=(), vecs=()) -> str:
     ``acts`` (dzn, yout) readable by the TMA, w9 the gluon weight's view
     (strides (C, 1, a multiple of 8): an MN-major B of W[tap]^T) with a
     16-byte aligned base, the float32 vectors ``vecs`` (a, b, gcoef)
-    16-byte aligned), else "simt"."""
+    16-byte aligned); "sm90x3" when it takes the float32 three-piece
+    kernels (float32, the same rules for C, N, x2, ``acts`` and ``vecs``,
+    at most :data:`SM90_X3_MAX_ROWS` rows, w9 one (9 C, N) matrix (a tap
+    stride of C channel strides) with a unit stride, whose transpose's
+    pieces the split kernel copies out); else "simt"."""
     c, n = w9.shape[1], w9.shape[2]
     s_tap, s_c, s_n = w9.stride()
+    if x2.dtype == torch.float32 and w9.dtype == torch.float32:
+        ok = (1 <= x2.shape[0] <= SM90_X3_MAX_ROWS
+              and all(d % 8 == 0 and d >= 8 for d in (c, n))
+              and s_tap == c * s_c and 1 in (s_c, s_n)
+              and all(_tma_ok(t) for t in (x2,) + tuple(acts))
+              and all(_bulk_ok(v) for v in vecs))
+        return "sm90x3" if ok else "simt"
     ok = (x2.dtype == torch.bfloat16 and w9.dtype == torch.bfloat16
           and x2.shape[0] >= 1 and all(d % 8 == 0 and d >= 8 for d in (c, n))
           and s_c == 1 and s_tap == c and s_n % 8 == 0
@@ -870,7 +884,10 @@ def conv3_fused_bwd(w9, x2, a, b, dzn, yout, gcoef, bhw, _route=None):
     Returns (dz (B*H*W, C), dW9 (9, C, N) float32 — a view of a (N, 3, 3,
     C) tensor, the gluon order — and partials (2, C) float32). The route is
     :func:`conv3_fused_bwd_route`'s; on the Hopper route the dgrad launch
-    also writes the bf16 G and x^ = relu(a x + b), the wgrad's operands.
+    also writes the bf16 G and x^ = relu(a x + b), the wgrad's operands;
+    on the float32 route ("sm90x3") the split kernel first makes the
+    (3, N, 9 C) bf16 pieces of W9^T, the dgrad launch writes G's pieces and
+    x^'s, and the wgrad launch runs six piece products on them.
     ``_route="simt"`` forces the SIMT kernels."""
     _check("conv3_fused_bwd", x2, w9, a, b, dzn, yout)
     m, c = x2.shape
@@ -890,8 +907,26 @@ def conv3_fused_bwd(w9, x2, a, b, dzn, yout, gcoef, bhw, _route=None):
                        device=x2.device)
     lib = kernel_library()
     stream = current_stream_handle(x2)
-    if (_route or conv3_fused_bwd_route(x2, w9, (dzn, yout),
-                                        (a, b, gc))) == "sm90":
+    route = _route or conv3_fused_bwd_route(x2, w9, (dzn, yout), (a, b, gc))
+    if route == "sm90x3":
+        # pieces (3, N, 9 C) of W9^T ([n, tap C + c] = w9[tap, c, n]); the
+        # dgrad launch writes G's (3, M, N) and x^'s (3, M, C)
+        wp, = _pieces(name, (w9, n, 9 * c, w9.stride(2), w9.stride(1)))
+        gp = torch.empty((3, m, n), dtype=torch.bfloat16, device=x2.device)
+        xp = torch.empty((3, m, c), dtype=torch.bfloat16, device=x2.device)
+        splits, chunk = sm90_wgrad_split(m, n, 0, c, sm_count(x2.device), 9,
+                                         x3=True)
+        ws = torch.empty((splits, n, 9 * c), dtype=torch.float32,
+                         device=x2.device)
+        code = lib.mxt_conv_fused_sm90_conv3_bwd_x3(
+            _ptr(dzn), _ptr(yout), _ptr(gc), _ptr(wp), _ptr(gp), _ptr(x2),
+            _ptr(a), _ptr(b), _ptr(dz), _ptr(part), _ptr(xp), _ptr(ws),
+            splits, chunk, m, c, n, H, W, stream)
+        check_launch(code, name)
+        conv3_fused_bwd.sm90_launches += 1
+        conv3_fused_bwd.x3_launches += 1
+        dw = ws.sum(0)
+    elif route == "sm90":
         gm = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         xh = torch.empty_like(x2)
         splits, chunk = sm90_wgrad_split(m, n, 0, c, sm_count(x2.device), 9)

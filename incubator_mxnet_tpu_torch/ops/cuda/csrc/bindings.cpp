@@ -149,6 +149,11 @@ int conv_fused_sm90_dual_wgrad_x3_launch(const void* xp, const void* gp_a,
                                          const void* gp_b, float* ws,
                                          int splits, int chunk, int M, int C,
                                          int Na, int Nb, void* stream);
+int conv_fused_sm90_conv3_bwd_x3_launch(
+    const float* dzn, const float* yout, const float* gc, const void* wp,
+    void* gp, const float* x, const float* a, const float* b, float* dz,
+    float* part, void* xhp, float* ws, int splits, int chunk, int M, int C,
+    int N, int H, int W, void* stream);
 int lstm_fwd_launch(int in_dtype, int w_dtype, int state_dtype,
                     const void* xp, const void* h, const void* c,
                     const void* w, const void* b, void* h1, void* c1,
@@ -162,11 +167,11 @@ int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
                     const void* c, const void* c1, const void* w,
                     const void* dh1, const void* dc1, float* dxp, void* dh,
                     void* dc, int N, int H, void* stream);
-int lstm_bwd_sm90_launch(int state_dtype, const float* gates, const void* c,
-                         const void* c1, const void* wp, const void* dh1,
-                         const void* dc1, float* dxp, void* dh, void* dc,
-                         void* dzs, int N, int H, int Hk, int Hm,
-                         void* stream);
+int lstm_bwd_sm90_launch(int state_dtype, int w_pieces, const float* gates,
+                         const void* c, const void* c1, const void* wp,
+                         const void* dh1, const void* dc1, float* dxp,
+                         void* dh, void* dc, void* dzs, int N, int H, int Hk,
+                         int Hm, void* stream);
 int multibox_match_launch(const float* anchors, const float* labels, int B,
                           int N, int M, float thr, float v0, float v1,
                           float v2, float v3, int anchors_in_smem,
@@ -602,6 +607,25 @@ int mxt_conv_fused_sm90_dual_wgrad_x3(const void* xp, const void* gp_a,
       stream);
 }
 
+// The float32 route of conv3_fused_bwd: the dgrad (dz (M, C) float32, the
+// (blocks, 2, C) partials, G's pieces to gp (3, M, N) and x^'s to xhp
+// (3, M, C)) from wp (3, N, 9 C), the pieces of W9^T; then the wgrad's
+// (splits, N, 9 C) dW partials in ws
+int mxt_conv_fused_sm90_conv3_bwd_x3(const void* dzn, const void* yout,
+                                     const void* gc, const void* wp,
+                                     void* gp, const void* x, const void* a,
+                                     const void* b, void* dz, void* part,
+                                     void* xhp, void* ws, int splits,
+                                     int chunk, int M, int C, int N, int H,
+                                     int W, void* stream) {
+  return conv_fused_sm90_conv3_bwd_x3_launch(
+      static_cast<const float*>(dzn), static_cast<const float*>(yout),
+      static_cast<const float*>(gc), wp, gp, static_cast<const float*>(x),
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(dz), static_cast<float*>(part), xhp,
+      static_cast<float*>(ws), splits, chunk, M, C, N, H, W, stream);
+}
+
 // One LSTM step (lstm.cu), the FMA kernel: xp (N, 4H) and b (4H,) of type
 // in_dtype, w (4H, H) of type w_dtype; h, c, h1, c1 (N, H) of type
 // state_dtype; gates (N, 4H) float32, or null for the variant without the
@@ -638,16 +662,18 @@ int mxt_lstm_bwd(int w_dtype, int state_dtype, const void* gates,
                          stream);
 }
 
-// Its tensor-core form for a bf16 W (lstm.cu): wp the (4, Hk, Hm) bf16
-// zero-padded copy of W, dzs a (3, N, 4, Hk) bf16 scratch for dz's pieces.
-int mxt_lstm_bwd_sm90(int state_dtype, const void* gates, const void* c,
-                      const void* c1, const void* wp, const void* dh1,
-                      const void* dc1, void* dxp, void* dh, void* dc,
-                      void* dzs, int N, int H, int Hk, int Hm,
+// Its tensor-core form (lstm.cu): wp W's zero-padded (w_pieces, 4, Hk, Hm)
+// bf16 copy, one piece for a bf16 W, three (hi, mid, lo) for a float32 W;
+// dzs a (3, N, 4, Hk) bf16 scratch for dz's pieces.
+int mxt_lstm_bwd_sm90(int state_dtype, int w_pieces, const void* gates,
+                      const void* c, const void* c1, const void* wp,
+                      const void* dh1, const void* dc1, void* dxp, void* dh,
+                      void* dc, void* dzs, int N, int H, int Hk, int Hm,
                       void* stream) {
-  return lstm_bwd_sm90_launch(state_dtype, static_cast<const float*>(gates),
-                              c, c1, wp, dh1, dc1, static_cast<float*>(dxp),
-                              dh, dc, dzs, N, H, Hk, Hm, stream);
+  return lstm_bwd_sm90_launch(state_dtype, w_pieces,
+                              static_cast<const float*>(gates), c, c1, wp,
+                              dh1, dc1, static_cast<float*>(dxp), dh, dc,
+                              dzs, N, H, Hk, Hm, stream);
 }
 
 // The SSD matcher (detection.cu): anchors (N, 4) and labels (B, M, 5)

@@ -1,7 +1,7 @@
 // The Hopper routes of the fused 1x1 and 3x3 conv kernels (sm_90a):
 // TMA-fed wgmma with the load transform applied on chip. All five forms in
-// bf16; all but conv3_fused_bwd also in float32, every operand in three
-// bf16 pieces (the float32 route, below the bf16 kernels).
+// bf16 and in float32, every float32 operand in three bf16 pieces (the
+// float32 route, below the bf16 kernels).
 //
 // Replaces the Pallas TPU kernels of
 // incubator_mxnet_tpu/ops/pallas/conv_fused.py:
@@ -23,17 +23,18 @@
 //   cf90_dual_wgrad_x3_kernel /
 //   cf90_bwd_dgrad_x3_kernel  \ <- mm_fused_bwd (:344), float32
 //   cf90_dual_wgrad_x3_kernel /    (single set)
+//   cf90_conv3_dgrad_x3_kernel \ <- conv3_fused_bwd (:742), float32
+//   cf90_conv3_wgrad_x3_kernel /
 //   (cf90_split3_kernel makes their operands' bf16 pieces)
 // with the reference's rounding points, as conv_fused.cu keeps them: the
 // load transform (x^ = x, relu(a x + b) or relu(a x + b + asc sc + bsc);
 // G = (dzn g0 - g1) - yout g2) in float32 with both roundings of each step,
 // rounded to bf16 before the product; float32 accumulation on the tensor
 // cores; outputs rounded once; the stats summed over the ROUNDED y.
-// In float32, mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd take
-// the three-piece kernels (no TF32 here: six bf16 products hold float32's
-// accuracy); conv3_fused_bwd stays on conv_fused.cu's SIMT kernels. The wrapper
-// (ops/cuda/conv_fused.py) chooses the route by type and shape before the
-// launch.
+// In float32 all five take the three-piece kernels (no TF32 here: six bf16
+// products hold float32's accuracy). The wrapper (ops/cuda/conv_fused.py)
+// chooses the route by type and shape before the launch; conv_fused.cu's
+// SIMT kernels take the shapes these cannot.
 //
 // What bounds them on an H100: at ResNet-50's shapes (M 6272..100352 rows,
 // K and N 256..2048) the products, 2 M K N flops, outweigh the bytes, so
@@ -1217,9 +1218,8 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 }
 
 // ------------------------------------------ the float32 route (three pieces)
-// mm_fused, conv3_fused, dgrad_epilogue and mm_fused_bwd in float32 on the
-// same machinery: every float32 operand of a product is split exactly into
-// three bf16 pieces,
+// The five forms in float32 on the same machinery: every float32 operand
+// of a product is split exactly into three bf16 pieces,
 // hi + mid + lo == v (each residual exact in float32, lo holding what is
 // left), and each 32-deep stage runs the six piece products float32 needs
 // on wgmma, smallest first (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi;
@@ -1237,10 +1237,11 @@ cf90_conv3_kernel(const __grid_constant__ CUtensorMap tx,
 // contiguous), 64-wide boxes of 32 reduction rows, 4 KB apart. A block
 // tile is 128 x 128 (the running accumulator and the partial take 128
 // registers a thread). The 1x1 forward writes x^ back by TMA where it is
-// asked for; the dgrads write G's pieces back (the 1x1 backward's also
-// x^'s), and the dual wgrad, with one set or two, is then
+// asked for; the dgrads write G's pieces back (the backwards' also x^'s),
+// and the wgrads, the dual one with one set or two and the 3x3's, are then
 // six plain piece products from shared memory against x's (or x^'s)
-// pieces.
+// pieces, the 3x3's with x^'s box shifted by the tap and the halo rows
+// zeroed in G's pieces.
 constexpr int kBK3 = 32;                  // reduction depth of a stage
 constexpr int kBN3 = 128;                 // output columns of a block tile
 constexpr int kBlk3 = kBK3 * 128;         // 64 MN values x 32 rows, bf16
@@ -1278,6 +1279,13 @@ using PlanWgradX3 = Plan3<3 * kPieceA3, 0>;   // G^T's three pieces
 // mm_fused_bwd's dgrad: dzn and yout (or g); g0, g1, g2; an epilogue chunk
 // of four 128 x 32 float32 boxes and 1 KB of a and b
 using PlanBwdX3 = Plan3<2 * kRaw3, 1024, 4 * kRaw3 + 1024>;
+// conv3_fused_bwd's dgrad: the same stage over nine taps (dzn's and yout's
+// shifted boxes, W9^T's pieces, g0, g1, g2) and the same epilogue chunk
+// (x, dz, x^'s pieces over the partner boxes; a and b)
+using PlanConv3DgradX3 = Plan3<2 * kRaw3, 1024, 4 * kRaw3 + 1024>;
+// its wgrad: G^T's three pieces (the halo rows zeroed in place) beside
+// x^'s shifted pieces
+using PlanConv3WgradX3 = Plan3<3 * kPieceA3, 0>;
 
 // the six piece products of a stage, smallest first: product pr is A's
 // piece prod_a(pr) times B's piece prod_b(pr) (0 hi, 1 mid, 2 lo)
@@ -1404,6 +1412,48 @@ __device__ __forceinline__ void mainloop3_rs(float (&acc)[kBN3 / 2], int nk,
     fence_regs(part);
     add_partial(acc, part);
     ring.release(kb + 1, lane);
+  }
+}
+
+// The same with A's and B's pieces straight from the stage (this
+// warpgroup's A at a_ofs, B at b_ofs): stage(kb) waits for stage kb, makes
+// it ready for the products and returns it; its six products run into one
+// of two alternating partials while the other stage's partial is added to
+// acc, so the adds stay in stage order.
+template <int S, typename Stage>
+__device__ __forceinline__ void mainloop3_ss(float (&acc)[kBN3 / 2], int nk,
+                                             int a_ofs, int b_ofs,
+                                             Ring<S>& ring, int lane,
+                                             Stage stage) {
+  float p0[kBN3 / 2], p1[kBN3 / 2];
+  for (int kb = 0; kb < nk; kb += 2) {
+    const unsigned char* st = stage(kb);
+    issue6_ss(p0, st + a_ofs, st + b_ofs);
+    if (kb > 0) {                               // stage kb - 1's partial
+      wgmma_wait<1>();
+      fence_regs(p1);
+      add_partial(acc, p1);
+      ring.release(kb - 1, lane);
+    }
+    if (kb + 1 >= nk) {
+      wgmma_wait<0>();
+      fence_regs(p0);
+      add_partial(acc, p0);
+      ring.release(kb, lane);
+      break;
+    }
+    st = stage(kb + 1);
+    issue6_ss(p1, st + a_ofs, st + b_ofs);
+    wgmma_wait<1>();
+    fence_regs(p0);
+    add_partial(acc, p0);
+    ring.release(kb, lane);
+  }
+  if (nk > 0 && nk % 2 == 0) {
+    wgmma_wait<0>();
+    fence_regs(p1);
+    add_partial(acc, p1);
+    ring.release(nk - 1, lane);
   }
 }
 
@@ -1948,41 +1998,14 @@ cf90_dual_wgrad_x3_kernel(const __grid_constant__ CUtensorMap tx,
     reg_alloc<232>();
     const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    float acc[kBN3 / 2], p0[kBN3 / 2], p1[kBN3 / 2];
+    float acc[kBN3 / 2];
 #pragma unroll
     for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
-    const int a_ofs = wg * kBlk3, b_ofs = 3 * kPieceA3;
-    for (int kb = 0; kb < nk; kb += 2) {
-      ring.wait_full(kb);
-      const unsigned char* st = smem + (kb % S) * P::kStage;
-      issue6_ss(p0, st + a_ofs, st + b_ofs);
-      if (kb > 0) {                             // stage kb - 1's partial
-        wgmma_wait<1>();
-        fence_regs(p1);
-        add_partial(acc, p1);
-        ring.release(kb - 1, lane);
-      }
-      if (kb + 1 >= nk) {
-        wgmma_wait<0>();
-        fence_regs(p0);
-        add_partial(acc, p0);
-        ring.release(kb, lane);
-        break;
-      }
-      ring.wait_full(kb + 1);
-      st = smem + ((kb + 1) % S) * P::kStage;
-      issue6_ss(p1, st + a_ofs, st + b_ofs);
-      wgmma_wait<1>();
-      fence_regs(p0);
-      add_partial(acc, p0);
-      ring.release(kb, lane);
-    }
-    if (nk > 0 && nk % 2 == 0) {
-      wgmma_wait<0>();
-      fence_regs(p1);
-      add_partial(acc, p1);
-      ring.release(nk - 1, lane);
-    }
+    mainloop3_ss(acc, nk, wg * kBlk3, 3 * kPieceA3, ring, lane,
+                 [&](int kb) {
+                   ring.wait_full(kb);
+                   return smem + (kb % S) * P::kStage;
+                 });
     // float32 partials straight from the fragments: rows n < N_set of the
     // set's block of ws, columns c < C
     float* ws = p.ws + static_cast<size_t>(blockIdx.z) * (p.Na + p.Nb) * p.C;
@@ -2009,14 +2032,31 @@ struct BwdX3Args {
   bool need_x, p0x, dsc, xhat;           // p0x: x is partner 0
   float* part;
   int M, K, N;
+  int H, W;                              // the 3x3's images (TAPS 9)
 };
 
-// mm_fused_bwd's dgrad in float32: dz (M x K) = mask(G W^T (+ dsc)) over
-// 128 x 128 tiles of dz, the single-set form of cf90_dual_dgrad_x3_kernel.
-// G is g as it is (a TMA box, columns n >= N read 0) or (dzn g0 - g1) -
-// yout g2 in float32 (the tail columns masked after the transform), split
-// in registers; B is W^T's pieces (3, N, K). Column tile kb mod (column
-// tiles) stores stage kb's G pieces into tgp (3, M, N) for the wgrad.
+// The float32 dgrad tile of the backward's two forms, with the kernel's
+// plan P: cf90_bwd_dgrad_x3_kernel (TAPS 1) and cf90_conv3_dgrad_x3_kernel
+// (TAPS 9), as bwd_dgrad_tile is the bf16 kernels'.
+//
+// TAPS 1, mm_fused_bwd's dgrad in float32: dz (M x K) = mask(G W^T (+ dsc))
+// over 128 x 128 tiles of dz, the single-set form of
+// cf90_dual_dgrad_x3_kernel. G is g as it is (a TMA box, columns n >= N
+// read 0) or (dzn g0 - g1) - yout g2 in float32 (the tail columns masked
+// after the transform), split in registers; B is W^T's pieces (3, N, K).
+// Column tile kb mod (column tiles) stores stage kb's G pieces into tgp
+// (3, M, N) for the wgrad.
+//
+// TAPS 9, conv3_fused_bwd's dgrad in float32: the 3x3 stride-1 pad-1
+// transpose over (tap, 32-column slice of G) stages. Tap (r, s) reads rows
+// m + (1 - r) W + (1 - s) of dzn and yout (the forward's shift mirrored),
+// forms G on them and then zeroes every row whose tapped pixel lies
+// outside its own image (the transform of a zero row is -g1, and a flat
+// shift also crosses image rows, so the [0, M) bounds of the box are not
+// enough); B is W9^T's pieces (3, N, 9 C) at column tap C + c0 (a tile
+// that runs past C reads the next tap's columns there, which are never
+// stored). The centre tap reads G unshifted and stores its pieces.
+//
 // The epilogue is cf90_bwd_dgrad_kernel's in float32, chunk by 32-column
 // chunk through the ring (x, dsc, the partners: one 128 x 32 box each, a
 // and b): dsc added, the mask applied, dz stored by TMA, then the sums of
@@ -2025,20 +2065,16 @@ struct BwdX3Args {
 // when a is passed, x^ = relu(a x + b) from the same x box, split into its
 // three pieces over the partners' boxes (which the sums have read) and
 // stored by TMA into txh (3, M, K) for the wgrad, so x^ is never stored in
-// float32 and split again.
-__global__ void __launch_bounds__(kThreads, 1)
-cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
-                         const __grid_constant__ CUtensorMap tyout,
-                         const __grid_constant__ CUtensorMap tw,
-                         const __grid_constant__ CUtensorMap tgp,
-                         const __grid_constant__ CUtensorMap tx,
-                         const __grid_constant__ CUtensorMap tdsc,
-                         const __grid_constant__ CUtensorMap tp0,
-                         const __grid_constant__ CUtensorMap tp1,
-                         const __grid_constant__ CUtensorMap tdz,
-                         const __grid_constant__ CUtensorMap txh,
-                         const BwdX3Args p) {
-  using P = PlanBwdX3;
+// float32 and split again. The 3x3's epilogue has dsc none, the mask on
+// z = a x + b, x its own partner and x^ written.
+template <int TAPS, typename P>
+__device__ __forceinline__ void
+bwd_dgrad_x3_tile(const CUtensorMap& tdzn, const CUtensorMap& tyout,
+                  const CUtensorMap& tw, const CUtensorMap& tgp,
+                  const CUtensorMap& tx, const CUtensorMap& tdsc,
+                  const CUtensorMap& tp0, const CUtensorMap& tp1,
+                  const CUtensorMap& tdz, const CUtensorMap& txh,
+                  const BwdX3Args& p) {
   constexpr int S = P::kStages;
   constexpr int kCf = 4 * kRaw3;                     // a, b of a chunk
   constexpr int kXhPiece = kBM * kBK3 * 2;           // one x^ piece, plain
@@ -2046,7 +2082,7 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
   unsigned char* smem = align1024(dyn);
   __shared__ __align__(8) uint64_t full[S], empty[S];
   __shared__ float red[2][16][3][32];                // chunk parity
-  const int ns = (p.N + kBK3 - 1) / kBK3;
+  const int ns = (p.N + kBK3 - 1) / kBK3, nk = TAPS * ns;
   const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN3;
   const int nch = min(kBN3, p.K - c0 + kBK3 - 1) / kBK3;  // chunks in K
   const bool direct = p.gc == nullptr;
@@ -2059,20 +2095,23 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
     if (threadIdx.x == kConsumers) {
       tma_prefetch(&tdzn);
       tma_prefetch(&tw);
-      for (int kb = 0; kb < ns; ++kb) {
-        const int s = kb % S, r0 = kb * kBK3;
+      for (int kb = 0; kb < nk; ++kb) {
+        const int tap = TAPS == 1 ? 0 : kb / ns;
+        const int s = kb % S, r0 = (kb - tap * ns) * kBK3;
+        const int shift = TAPS == 1 ? 0 : (1 - tap / 3) * p.W + 1 - tap % 3;
         const uint32_t cb = direct ? 0 : 4 * min(kBK3, p.N - r0);
         ring.wait_slot(kb);
         unsigned char* st = smem + s * P::kStage;
         mbar_expect_tx(&full[s], (direct ? 1 : 2) * kRaw3 + kB3 + 3 * cb);
-        tma_load_2d(st, &tdzn, &full[s], r0, m0);
-        if (!direct) tma_load_2d(st + kRaw3, &tyout, &full[s], r0, m0);
+        tma_load_2d(st, &tdzn, &full[s], r0, m0 + shift);
+        if (!direct)
+          tma_load_2d(st + kRaw3, &tyout, &full[s], r0, m0 + shift);
 #pragma unroll
         for (int j = 0; j < 3; ++j)
 #pragma unroll
           for (int e = 0; e < kBN3 / 64; ++e)
             tma_load_3d(st + 2 * kRaw3 + j * kPieceB3 + e * kBlk3, &tw,
-                        &full[s], c0 + 64 * e, r0, j);
+                        &full[s], tap * p.K + c0 + 64 * e, r0, j);
         if (!direct) {
 #pragma unroll
           for (int i = 0; i < 3; ++i)
@@ -2083,7 +2122,7 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
       const bool l0 = p.n_partners > 0 && !p.p0x, l1 = p.n_partners > 1;
       const uint32_t slabs = p.need_x + p.dsc + l0 + l1;
       for (int e = 0; e < nch; ++e) {
-        const int kb = ns + e, s = kb % S, col = c0 + kBK3 * e;
+        const int kb = nk + e, s = kb % S, col = c0 + kBK3 * e;
         const uint32_t cb = p.a ? 4 * min(kBK3, p.K - col) : 0;
         ring.wait_slot(kb);
         unsigned char* st = smem + s * P::kStage;
@@ -2102,12 +2141,35 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
     reg_alloc<232>();
     const int ct = threadIdx.x, w = (ct >> 5) & 3, lane = ct & 31;
     const int g = lane >> 2, t = lane & 3;
+    // TAPS 9: bit tap of inside[h] is set when this thread's fragment row
+    // h (rows g and g + 8) taps a pixel of its own image there
+    uint32_t inside[2] = {1u, 1u};
+    if constexpr (TAPS == 9) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * wg + 16 * w + g + 8 * h;
+        const int hh = (m / p.W) % p.H, ww = m % p.W;
+        inside[h] = 0;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int ih = hh + 1 - tap / 3, iw = ww + 1 - tap % 3;
+          if (ih >= 0 && ih < p.H && iw >= 0 && iw < p.W)
+            inside[h] |= 1u << tap;
+        }
+      }
+    }
     float acc[kBN3 / 2];
 #pragma unroll
     for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    // stage kb's fragments: g as it is, or G = (dzn g0 - g1) - yout g2 in
+    // float32 with the columns n >= N (and, TAPS 9, the rows outside their
+    // image) zeroed after the transform, then three pieces; the centre
+    // tap's G pieces stored by column tile (slice mod column tiles)
     auto build = [&](int kb, unsigned char* st, uint32_t (&fa)[2][3][4]) {
       ring.wait_full(kb);
-      const int r0 = kb * kBK3, nl = p.N - r0;
+      const int tap = TAPS == 1 ? 0 : kb / ns, sl = kb - tap * ns;
+      const int r0 = sl * kBK3, nl = p.N - r0;
+      const bool in0 = (inside[0] >> tap) & 1, in1 = (inside[1] >> tap) & 1;
       const float* cf = reinterpret_cast<const float*>(st + P::kCoef);
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
@@ -2126,14 +2188,14 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
             const float2 g2 = *reinterpret_cast<const float2*>(cf + 64 + kl);
             v0 = bn_g(v.x, yo.x, g0.x, g1.x, g2.x);
             v1 = bn_g(v.y, yo.y, g0.y, g1.y, g2.y);
-            if (kl >= nl) v0 = v1 = 0.f;
+            if (kl >= nl || !((q & 1) ? in1 : in0)) v0 = v1 = 0.f;
           }
           split3(v0, v1, fa[ks][0][q], fa[ks][1][q], fa[ks][2][q]);
         }
-      if (kb % gridDim.x == blockIdx.x)
+      if (tap == TAPS / 2 && sl % gridDim.x == blockIdx.x)
         store_g_pieces(st, fa, &tgp, r0, m0);
     };
-    mainloop3_rs<P::kStage, S, 2 * kRaw3>(acc, ns, smem, ring, lane, build);
+    mainloop3_rs<P::kStage, S, 2 * kRaw3>(acc, nk, smem, ring, lane, build);
     // the epilogue, chunk by chunk, not unrolled: chunk e's accumulators
     // are moved down to acc[0, 16) for it
     const int rows = min(kBM, p.M - m0);
@@ -2141,7 +2203,7 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
     const int pc = 2 * (ct & 15), pr = ct >> 4;
 #pragma unroll 1
     for (int e = 0; e < nch; ++e) {
-      const int kb = ns + e, col = c0 + kBK3 * e;
+      const int kb = nk + e, col = c0 + kBK3 * e;
       ring.wait_full(kb);
       unsigned char* st = smem + (kb % S) * P::kStage;
       const float* cf = reinterpret_cast<const float*>(st + kCf);
@@ -2245,6 +2307,140 @@ cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
       ring.release(kb, lane);
 #pragma unroll
       for (int i = 0; i < kBN3 / 2 - 16; ++i) acc[i] = acc[i + 16];
+    }
+  }
+}
+
+// mm_fused_bwd's dgrad in float32: bwd_dgrad_x3_tile's TAPS 1 form
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_bwd_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
+                         const __grid_constant__ CUtensorMap tyout,
+                         const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap tgp,
+                         const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tdsc,
+                         const __grid_constant__ CUtensorMap tp0,
+                         const __grid_constant__ CUtensorMap tp1,
+                         const __grid_constant__ CUtensorMap tdz,
+                         const __grid_constant__ CUtensorMap txh,
+                         const BwdX3Args p) {
+  bwd_dgrad_x3_tile<1, PlanBwdX3>(tdzn, tyout, tw, tgp, tx, tdsc, tp0, tp1,
+                                  tdz, txh, p);
+}
+
+// conv3_fused_bwd's dgrad in float32: the TAPS 9 form. dz (M x C) =
+// mask_z(sum over the taps of shift(G) W[tap]^T), the partials sum dz and
+// sum dz x, x^'s pieces and the unshifted G's for
+// cf90_conv3_wgrad_x3_kernel. x is the epilogue's only operand (its own
+// partner), so the dsc and partner maps are never read.
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_conv3_dgrad_x3_kernel(const __grid_constant__ CUtensorMap tdzn,
+                           const __grid_constant__ CUtensorMap tyout,
+                           const __grid_constant__ CUtensorMap tw,
+                           const __grid_constant__ CUtensorMap tgp,
+                           const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tdz,
+                           const __grid_constant__ CUtensorMap txh,
+                           const BwdX3Args p) {
+  bwd_dgrad_x3_tile<9, PlanConv3DgradX3>(tdzn, tyout, tw, tgp, tx, tx, tx,
+                                         tx, tdz, txh, p);
+}
+
+// ws[split, n, tap C + c] = sum over this split's rows m of G[m, n]
+// x^[m + (r - 1) W + (s - 1), c] in float32, over the rows m whose tapped
+// pixel (the forward's tap (r, s)) lies in m's own image: the product of
+// cf90_conv3_wgrad_kernel done as cf90_dual_wgrad_x3_kernel does it. One
+// tap per output column tile (tile (n0, tap, c0); columns c >= C are not
+// stored). A is G^T's three pieces, B x^'s three pieces in a box shifted
+// by the tap (rows outside [0, M) read 0), both MN-major from the stage;
+// each consumer warpgroup zeroes, in all three of its own A pieces, the
+// 128-byte rows m whose tapped pixel leaves the image (a flat shift also
+// crosses image rows) while the previous stage's products run, then
+// issues the six piece products into a fresh partial; two partials
+// alternate, each added to the running sum in stage order.
+__global__ void __launch_bounds__(kThreads, 1)
+cf90_conv3_wgrad_x3_kernel(const __grid_constant__ CUtensorMap txh,
+                           const __grid_constant__ CUtensorMap tg,
+                           const Conv3WgradArgs p) {
+  using P = PlanConv3WgradX3;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char dyn[];
+  unsigned char* smem = align1024(dyn);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const int ctiles = (p.C + kBN3 - 1) / kBN3;
+  const int tap = blockIdx.y / ctiles;
+  const int n0 = blockIdx.x * kBM, c0 = (blockIdx.y - tap * ctiles) * kBN3;
+  const int dr = tap / 3 - 1, ds = tap % 3 - 1;
+  const int mb = blockIdx.z * p.chunk;
+  const int nk = (min(p.M, mb + p.chunk) - mb + kBK3 - 1) / kBK3;
+  Ring<S> ring{full, empty};
+  ring.init();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S, r0 = mb + kb * kBK3;
+        ring.wait_slot(kb);
+        unsigned char* st = smem + s * P::kStage;
+        mbar_expect_tx(&full[s], 3 * kPieceA3 + kB3);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          tma_load_3d(st + j * kPieceA3, &tg, &full[s], n0, r0, j);
+          tma_load_3d(st + j * kPieceA3 + kBlk3, &tg, &full[s], n0 + 64, r0,
+                      j);
+#pragma unroll
+          for (int e = 0; e < kBN3 / 64; ++e)
+            tma_load_3d(st + 3 * kPieceA3 + j * kPieceB3 + e * kBlk3,
+                        &txh, &full[s], c0 + 64 * e, r0 + dr * p.W + ds, j);
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // the halo: thread (row, quarter) of the warpgroup zeroes 32 bytes of
+    // reduction row `row` in each of its three A pieces
+    const int row = threadIdx.x & 31, quarter = (threadIdx.x & 127) >> 5;
+    float acc[kBN3 / 2];
+#pragma unroll
+    for (int i = 0; i < kBN3 / 2; ++i) acc[i] = 0.f;
+    const int a_ofs = wg * kBlk3;
+    // stage kb, in, with this warpgroup's halo rows zeroed
+    mainloop3_ss(acc, nk, a_ofs, 3 * kPieceA3, ring, lane, [&](int kb) {
+      ring.wait_full(kb);
+      unsigned char* st = smem + (kb % S) * P::kStage;
+      const int m = mb + kb * kBK3 + row;
+      const int ih = (m / p.W) % p.H + dr, iw = m % p.W + ds;
+      if (m < p.M && (ih < 0 || ih >= p.H || iw < 0 || iw >= p.W)) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          uint4* z = reinterpret_cast<uint4*>(st + j * kPieceA3 + a_ofs +
+                                              row * 128 + quarter * 32);
+          z[0] = make_uint4(0u, 0u, 0u, 0u);
+          z[1] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+      return st;
+    });
+    // float32 partials straight from the fragments: rows n < N of the
+    // split's block of ws, this tap's columns c < C
+    float* ws = p.ws + static_cast<size_t>(blockIdx.z) * p.N * 9 * p.C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * wg + 16 * w + g + 8 * h;
+      if (n >= p.N) continue;
+      float* out = ws + static_cast<size_t>(n) * 9 * p.C + tap * p.C;
+#pragma unroll
+      for (int j = 0; j < kBN3 / 8; ++j) {
+        const int c = c0 + 8 * j + 2 * t;
+        if (c < p.C)
+          *reinterpret_cast<float2*>(out + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
@@ -2782,6 +2978,57 @@ int conv_fused_sm90_bwd_dgrad_x3_launch(
   return launch<cf90_bwd_dgrad_x3_kernel>(
       PlanBwdX3::kSmem, grid, static_cast<cudaStream_t>(stream), m[0], m[1],
       m[2], m[3], m[4], m[5], m[6], m[7], m[8], m[9], p);
+}
+
+// The float32 3x3 backward, two launches: the dgrad, dz (M, C) float32 =
+// the 3x3 transpose of G masked on a x + b > 0, part (ceil(M / 128), 2, C)
+// float32 partials of sum dz and sum dz x, with G = (dzn g0 - g1) - yout g2
+// from dzn, yout (M, N) float32 and gc (3, N); wp (3, N, 9 C) bf16 the
+// pieces of W9^T ([n, tap C + c] = w9[tap, c, n]); G's pieces written to
+// gp (3, M, N) and x^'s to xhp (3, M, C); then the wgrad from gp and xhp,
+// ws (splits, N, 9 C) float32 dW partials in the gluon order, split s
+// covering rows [s chunk, (s + 1) chunk), chunk a multiple of 64. x (M, C)
+// NHWC rows of M / (H W) images; C and N multiples of 8; every pointer
+// 16-byte aligned.
+int conv_fused_sm90_conv3_bwd_x3_launch(
+    const float* dzn, const float* yout, const float* gc, const void* wp,
+    void* gp, const float* x, const float* a, const float* b, float* dz,
+    float* part, void* xhp, float* ws, int splits, int chunk, int M, int C,
+    int N, int H, int W, void* stream) {
+  if (M < 1 || C < 8 || N < 8 || C % 8 || N % 8 || H < 1 || W < 1 ||
+      M % (H * W) || (M + kBM - 1) / kBM > 65535 || !dzn || !yout || !gc ||
+      !wp || !gp || !x || !a || !b || !dz || !part || !xhp || !ws ||
+      splits < 1 || splits > 65535 || chunk < kBK || chunk % kBK ||
+      static_cast<long long>(splits - 1) * chunk >= M ||
+      static_cast<long long>(splits) * chunk < M)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the dgrad's G boxes, W9^T's pieces, G's pieces out, x, dz and x^'s
+  // pieces out (128-row boxes for the epilogue's chunks); the wgrad's x^
+  // and G pieces in 32-row boxes
+  CUtensorMap m[9];
+  if (!make_map_f32(&m[0], dzn, N, M, N, kBM) ||
+      !make_map_f32(&m[1], yout, N, M, N, kBM) ||
+      !make_map_pieces(&m[2], wp, 9LL * C, N, kBK3, true) ||
+      !make_map_pieces(&m[3], gp, N, M, 64, false) ||
+      !make_map_f32(&m[4], x, C, M, C, kBM) ||
+      !make_map_f32(&m[5], dz, C, M, C, kBM) ||
+      !make_map_pieces(&m[6], xhp, C, M, kBM, false) ||
+      !make_map_pieces(&m[7], xhp, C, M, kBK3, true) ||
+      !make_map_pieces(&m[8], gp, N, M, kBK3, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdX3Args p{gc, a, b, 1, 2, true, true, false, true, part, M, C, N};
+  p.H = H;
+  p.W = W;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((C + kBN3 - 1) / kBN3, (M + kBM - 1) / kBM);
+  const int e = launch<cf90_conv3_dgrad_x3_kernel>(
+      PlanConv3DgradX3::kSmem, grid, st, m[0], m[1], m[2], m[3], m[4], m[5],
+      m[6], p);
+  if (e != 0) return e;
+  const Conv3WgradArgs q{ws, chunk, M, C, N, H, W};
+  const dim3 wgrid((N + kBM - 1) / kBM, 9 * ((C + kBN3 - 1) / kBN3), splits);
+  return launch<cf90_conv3_wgrad_x3_kernel>(PlanConv3WgradX3::kSmem, wgrid,
+                                            st, m[7], m[8], q);
 }
 
 // The float32 dual wgrad: ws (splits, Na + Nb, C) float32 partials of

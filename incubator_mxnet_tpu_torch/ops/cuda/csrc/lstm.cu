@@ -8,9 +8,11 @@
 //       (PW 1: W_hh bf16; PW 3: W_hh float32 in three bf16 pieces;
 //       lstm_fwd_kernel, the FMA forward, is the yardstick behind the
 //       wrappers' private _route="simt")
-//   lstm_bwd_kernel<..>         <-  _run_bwd, W_hh in float32   dxp, dh, dc
-//   lstm_bwd_dz_kernel<..>   \  <-  _run_bwd, W_hh in bf16      dxp, dc, dz
-//   lstm_bwd_tc_kernel<..>   /                                  dh
+//   lstm_bwd_dz_kernel<..>      \  <-  _run_bwd              dxp, dc, dz
+//   lstm_bwd_tc_kernel<.., PW>  /                             dh
+//       (PW 1: W_hh bf16; PW 3: W_hh float32 in three bf16 pieces;
+//       lstm_bwd_kernel, the SIMT backward, is the yardstick behind the
+//       wrapper's private _route="simt")
 //
 // One time step. Three types: the operands' (xp, b), W_hh's, and the
 // carries' (h, c and their cotangents). Layouts are the packed reference
@@ -26,9 +28,9 @@
 // carries' own type (bf16 carries stay bf16); the residual and dxp in
 // float32; dh and dc rounded to the cotangents' type. The recurrent
 // products multiply float32 operands as float32 does. They run on the
-// tensor cores (mma.sync m16n8k16, float32 accumulators) for a bf16 W_hh
-// both ways and for a float32 W_hh forward: a float32 operand (h, dz or a
-// float32 W) is split exactly into three bf16 pieces, hi + mid + lo (three
+// tensor cores (mma.sync m16n8k16, float32 accumulators) both ways for
+// either W_hh type: a float32 operand (h, dz or a float32 W) is split
+// exactly into three bf16 pieces, hi + mid + lo (three
 // 8-bit significands cover float32's 24, and bf16 has float32's exponent
 // range), and multiplied piece by piece; a bf16 operand is one piece. With
 // both operands in three pieces a stage runs the six products whose
@@ -37,8 +39,9 @@
 // 32-deep stage's products go into a fresh accumulator that one rounded
 // float32 add joins to the block's: the tensor cores' adds lose precision
 // over long chains (at H 650 a single accumulator read as far from the
-// exact product as a split that drops lo). The backward with a float32
-// W_hh runs float32 FMAs (no TF32). Elementwise float32 steps use the _rn
+// exact product as a split that drops lo). No TF32 anywhere; the SIMT
+// backward (float32 FMAs) is kept as the yardstick. Elementwise float32
+// steps use the _rn
 // intrinsics so that no multiply-add is contracted and the order matches
 // the plain PyTorch twin.
 //
@@ -85,14 +88,15 @@
 //     forward (lstm_fwd_kernel: 32 rows x 16 columns x 4 gates a block
 //     over all of m in float32 FMAs, 164 blocks at the lane) is kept as
 //     the yardstick.
-//   * backward: dh = dz @ W (K = 4H), a block owning 32 rows x 64 columns
-//     of dh. dz is formed ON LOAD: each reduction step takes 8 hidden
-//     columns j and all four gates of them, computes the four dz of each
-//     (n, j) from (gates, c, c', dh', dc') as it writes the A tile to
-//     shared memory, and the blocks of the first column tile also write dxp
-//     and dc. dz is float32, and so is the product (FMAs, as the reference
-//     computes it with float32 operands). No atomics: results repeat.
-//   * backward with a bf16 W_hh (the word LM's form), two launches: the
+//   * the SIMT backward (lstm_bwd_kernel, the yardstick): dh = dz @ W
+//     (K = 4H), a block owning 32 rows x 64 columns of dh. dz is formed ON
+//     LOAD: each reduction step takes 8 hidden columns j and all four gates
+//     of them, computes the four dz of each (n, j) from (gates, c, c', dh',
+//     dc') as it writes the A tile to shared memory, and the blocks of the
+//     first column tile also write dxp and dc. dz is float32, and so is the
+//     product (FMAs, as the reference computes it with float32 operands).
+//     No atomics: results repeat.
+//   * backward (the word LM's form has a bf16 W_hh), two launches: the
 //     dz launch forms the four dz of each (n, j) ONCE, writes dxp and dc
 //     and splits each float32 dz into its three pieces in a (3, N, 4, Hk)
 //     scratch, zero past H; the product launch runs dh = hi W + mid W +
@@ -102,6 +106,12 @@
 //     sum their float32 partials through distributed shared memory in a
 //     fixed order (no atomics: results repeat). Operands come in by
 //     16-byte cp.async into a three-stage ring from W's padded copy.
+//   * backward with a float32 W_hh (PW 3): the same two launches on W's
+//     (3, 4, Hk, Hm) copy of hi, mid and lo pieces, the one the forward
+//     reads; the ring holds W's three pieces' tiles beside dz's, 63 KB a
+//     block (dynamic shared memory), and a stage runs the six products of
+//     piece orders summing to at most two. The SIMT kernel re-formed dz in
+//     every column block and ran the product on FMAs.
 // H need not be a multiple of anything: K is zero-filled and the tile
 // edges are masked. wgmma, TMA and a persistent whole-sequence kernel that
 // keeps W resident across steps are later work.
@@ -448,26 +458,35 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The backward's shared memory: a kTStages ring of dz's three pieces' and
+// W's PW pieces' stage tiles, bf16 (the block's float32 partial reuses it)
+__host__ __device__ constexpr int bwd_tc_smem_bytes(int PW) {
+  return kTStages * (3 * kTM * kTLdA + PW * kTK * kTLdB) * 2;
+}
+
 // dh[n0 .., m0 ..] (32 x 64) = sum over the gates k and j < Hk of dz_k[n, j]
 // W[k H + j, m]. Block z = gate k = its rank in the cluster of four; each
 // block's product runs over its gate's Hk, its float32 partial goes to its
 // shared memory, and block k sums rows 8 k .. 8 k + 7 of the four partials
-// in gate order, rounds them to T and writes them.
-template <typename T>
+// in gate order, rounds them to T and writes them. W is PW bf16 pieces
+// (one for a bf16 W, three for a float32 W).
+template <typename T, int PW>
 __global__ void __cluster_dims__(1, 1, 4) __launch_bounds__(kTThreads)
 lstm_bwd_tc_kernel(BwdArgs p) {
-  __shared__ __align__(16) __nv_bfloat16 As[kTStages][3][kTM * kTLdA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kTStages][kTK * kTLdB];
+  constexpr int kA = kTM * kTLdA;                   // a dz piece's stage tile
+  constexpr int kB = kTK * kTLdB;                   // a W piece's stage tile
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
+  __nv_bfloat16* As = smem;                         // [stage][piece][kA]
+  __nv_bfloat16* Bs = smem + kTStages * 3 * kA;     // [stage][piece][kB]
   cg::cluster_group cluster = cg::this_cluster();
   const int gate = blockIdx.z;
   const int m0 = blockIdx.x * kTN, n0 = blockIdx.y * kTM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wr = warp >> 1, wc = warp & 1;          // 16 rows x 32 columns
   const int N = p.N, Hk = p.Hk, Hm = p.Hm, nk = Hk / kTK;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w) +
-                           static_cast<size_t>(gate) * Hk * Hm;
-  // stage kb: the three pieces' 32 x 32 tiles (rows n >= N read 0) and
-  // W's 32 x 64 tile (columns m >= Hm read 0), 16 bytes a copy
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
+  // stage kb: the three dz pieces' 32 x 32 tiles (rows n >= N read 0) and
+  // W's pieces' 32 x 64 tiles (columns m >= Hm read 0), 16 bytes a copy
   auto load = [&](int kb, int s) {
     const int j0 = kb * kTK;
 #pragma unroll
@@ -475,19 +494,22 @@ lstm_bwd_tc_kernel(BwdArgs p) {
       const int i = tid + q * kTThreads;
       const int piece = i >> 7, r = (i >> 2) & (kTM - 1), ch = i & 3;
       const int n = n0 + r;
-      cp_async16(&As[s][piece][r * kTLdA + ch * 8],
+      cp_async16(As + (s * 3 + piece) * kA + r * kTLdA + ch * 8,
                  p.dzs + ((static_cast<size_t>(piece) * N + (n < N ? n : 0))
                           * 4 + gate) * Hk + j0 + ch * 8,
                  n < N ? 16 : 0);
     }
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = tid + q * kTThreads;
-      const int r = i >> 3, m = m0 + (i & 7) * 8;
-      cp_async16(&Bs[s][r * kTLdB + (i & 7) * 8],
-                 w + static_cast<size_t>(j0 + r) * Hm + (m < Hm ? m : 0),
-                 m < Hm ? 16 : 0);
-    }
+    for (int pr = 0; pr < PW; ++pr)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = tid + q * kTThreads;
+        const int r = i >> 3, m = m0 + (i & 7) * 8;
+        cp_async16(Bs + (s * PW + pr) * kB + r * kTLdB + (i & 7) * 8,
+                   w + ((static_cast<size_t>(pr) * 4 + gate) * Hk + j0 + r)
+                           * Hm + (m < Hm ? m : 0),
+                   m < Hm ? 16 : 0);
+      }
     cp_async_commit();
   };
   float acc[4][4];
@@ -507,9 +529,9 @@ lstm_bwd_tc_kernel(BwdArgs p) {
     if (nx < nk) load(nx, nx % kTStages);
     else cp_async_commit();
     const int s = kb % kTStages;
-    // the stage's six products go into a fresh accumulator, added to acc
-    // with one rounded float32 add: the tensor cores' own adds then chain
-    // only six deep, and acc sums Hk / kTK stage partials as float32 does
+    // the stage's products go into a fresh accumulator, added to acc with
+    // one rounded float32 add: the tensor cores' own adds then chain only
+    // a stage deep, and acc sums Hk / kTK stage partials as float32 does
     float part[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -517,25 +539,38 @@ lstm_bwd_tc_kernel(BwdArgs p) {
       for (int q = 0; q < 4; ++q) part[i][q] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kTK / 16; ++ks) {
-      uint32_t a[3][4], b[4][2];
+      uint32_t a[3][4], b[PW][4][2];
 #pragma unroll
       for (int q = 0; q < 3; ++q)
-        ldsm_x4<false>(a[q], &As[s][q][(16 * wr + (lane & 15)) * kTLdA +
-                                       16 * ks + (lane >> 4) * 8]);
+        ldsm_x4<false>(a[q], As + (s * 3 + q) * kA +
+                                 (16 * wr + (lane & 15)) * kTLdA + 16 * ks +
+                                 (lane >> 4) * 8);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t r[4];
-        ldsm_x4<true>(r, &Bs[s][(16 * ks + (lane & 15)) * kTLdB + 32 * wc +
-                                16 * h + (lane >> 4) * 8]);
-        b[2 * h][0] = r[0];
-        b[2 * h][1] = r[1];
-        b[2 * h + 1][0] = r[2];
-        b[2 * h + 1][1] = r[3];
-      }
+      for (int pr = 0; pr < PW; ++pr)
 #pragma unroll
-      for (int q = 2; q >= 0; --q)             // lo, mid, then hi
+        for (int h = 0; h < 2; ++h) {
+          uint32_t r[4];
+          ldsm_x4<true>(r, Bs + (s * PW + pr) * kB +
+                               (16 * ks + (lane & 15)) * kTLdB + 32 * wc +
+                               16 * h + (lane >> 4) * 8);
+          b[pr][2 * h][0] = r[0];
+          b[pr][2 * h][1] = r[1];
+          b[pr][2 * h + 1][0] = r[2];
+          b[pr][2 * h + 1][1] = r[3];
+        }
+      // dz piece q times W piece r for q + r <= 2, smallest first: with
+      // three W pieces lo.hi, mid.mid, hi.lo, then mid.hi, hi.mid, then
+      // hi.hi (mid.lo, lo.mid and lo.lo, below float32's rounding, are
+      // dropped); with one W piece lo, mid, then hi
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(part[nt], a[q], b[nt]);
+      for (int sum = 2; sum >= 0; --sum)
+#pragma unroll
+        for (int q = 2; q >= 0; --q) {
+          const int r = sum - q;
+          if (r >= 0 && r < PW)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_bf16(part[nt], a[q], b[r][nt]);
+        }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -544,7 +579,7 @@ lstm_bwd_tc_kernel(BwdArgs p) {
   }
   cp_async_wait<0>();
   __syncthreads();
-  float* red = reinterpret_cast<float*>(&As[0][0][0]);   // 32 x 64 float32
+  float* red = reinterpret_cast<float*>(smem);            // 32 x 64 float32
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
@@ -854,16 +889,28 @@ int bwd_dispatch(int state_dtype, const BwdArgs& a, cudaStream_t st) {
                           : bwd_launch<Tw, float>(a, st);
 }
 
-template <typename Ts>
+template <typename Ts, int PW>
 int bwd_tc_launch(const BwdArgs& a, cudaStream_t st) {
+  constexpr int smem = bwd_tc_smem_bytes(PW);
+  // the opt-in above 48 KB (three W pieces: 63 KB a block); set once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lstm_bwd_tc_kernel<Ts, PW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long elems = static_cast<long long>(a.N) * a.Hk;
   lstm_bwd_dz_kernel<Ts><<<static_cast<unsigned>(
       (elems + kDzThreads - 1) / kDzThreads), kDzThreads, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.H + kTN - 1) / kTN, (a.N + kTM - 1) / kTM, 4);
-  lstm_bwd_tc_kernel<Ts><<<grid, kTThreads, 0, st>>>(a);
+  lstm_bwd_tc_kernel<Ts, PW><<<grid, kTThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int PW>
+int bwd_tc_dispatch(int state_dtype, const BwdArgs& a, cudaStream_t st) {
+  return state_dtype == 1 ? bwd_tc_launch<__nv_bfloat16, PW>(a, st)
+                          : bwd_tc_launch<float, PW>(a, st);
 }
 
 }  // namespace
@@ -916,21 +963,22 @@ int lstm_bwd_launch(int w_dtype, int state_dtype, const float* gates,
                       : bwd_dispatch<float>(state_dtype, a, st);
 }
 
-// The tensor-core backward with a bf16 W: wp the (4, Hk, Hm) bf16 copy of W
-// (wp[k, j, m] = W[k H + j, m], zero past H; Hk a multiple of 32 and Hm of
-// 8, both at least H); dzs a (3, N, 4, Hk) bf16 scratch; state_dtype is
+// The tensor-core backward: wp W's (w_pieces, 4, Hk, Hm) bf16 copy
+// (wp[r, k, j, m] = piece r of W[k H + j, m], zero past H; Hk a multiple
+// of 32 and Hm of 8, both at least H): one piece for a bf16 W, hi + mid +
+// lo for a float32 W; dzs a (3, N, 4, Hk) bf16 scratch; state_dtype is
 // c's, c1's, dh1's, dc1's, dh's and dc's; gates and dxp (N, 4H) float32.
-int lstm_bwd_sm90_launch(int state_dtype, const float* gates, const void* c,
-                         const void* c1, const void* wp, const void* dh1,
-                         const void* dc1, float* dxp, void* dh, void* dc,
-                         void* dzs, int N, int H, int Hk, int Hm,
-                         void* stream) {
+int lstm_bwd_sm90_launch(int state_dtype, int w_pieces, const float* gates,
+                         const void* c, const void* c1, const void* wp,
+                         const void* dh1, const void* dc1, float* dxp,
+                         void* dh, void* dc, void* dzs, int N, int H, int Hk,
+                         int Hm, void* stream) {
   if (N < 1 || H < 1 || Hk < H || Hk % kTK || Hm < H || Hm % 8 ||
-      (N + kTM - 1) / kTM > 65535)
+      (N + kTM - 1) / kTM > 65535 || (w_pieces != 1 && w_pieces != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{gates, c, c1, wp, dh1, dc1, dxp, dh, dc, N, H,
                   static_cast<__nv_bfloat16*>(dzs), Hk, Hm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return state_dtype == 1 ? bwd_tc_launch<__nv_bfloat16>(a, st)
-                          : bwd_tc_launch<float>(a, st);
+  return w_pieces == 3 ? bwd_tc_dispatch<3>(state_dtype, a, st)
+                       : bwd_tc_dispatch<1>(state_dtype, a, st);
 }

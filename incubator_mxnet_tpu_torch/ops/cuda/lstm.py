@@ -17,10 +17,11 @@ Counterpart of ``incubator_mxnet_tpu/ops/pallas/lstm.py``:
   ``w_packed``; ``_route="simt"`` forces the FMA kernel, the yardstick;
 * ``lstm_bwd`` / ``lstm_bwd_reference`` — the step's backward: from
   (gates, c, c', W, dh', dc') the four dz, dxp = dz in float32,
-  dh = dz @ W and dc = dct f (the reference's ``_run_bwd``). Its route
-  (:func:`lstm_bwd_route`) is chosen by W's type: a bf16 W takes the
-  tensor-core kernels (dz split into three bf16 pieces), reading the same
-  copy of W as the forward; a float32 W the SIMT kernel, reading W;
+  dh = dz @ W and dc = dct f (the reference's ``_run_bwd``). It takes the
+  tensor-core kernels (:func:`lstm_bwd_route`) with W_hh in bf16 or
+  float32: dz split into three bf16 pieces, times the same copy of W the
+  forward reads (a float32 W's three pieces: six products a stage);
+  ``_route="simt"`` forces the SIMT kernel, the yardstick;
 * ``lstm_scan`` — the whole sequence as one ``torch.autograd.Function``
   (the reference's scan-level custom VJP ``_lstm_scan_fused``): the forward
   makes W's copy once, checks the sequence's tensors once and launches the
@@ -173,9 +174,10 @@ def lstm_fwd_route(w) -> str:
 
 
 def lstm_bwd_route(w) -> str:
-    """"sm90" when :func:`lstm_bwd` takes the tensor-core kernels (W_hh in
-    bf16, with either carry type), else "simt" (a float32 W_hh)."""
-    return "sm90" if w.dtype == torch.bfloat16 else "simt"
+    """"sm90": :func:`lstm_bwd` takes the tensor-core kernels with W_hh in
+    bf16 (one piece) or float32 (three pieces) and either carry type (the
+    SIMT kernel only when ``_route="simt"`` forces it)."""
+    return "sm90"
 
 
 def lstm_tc_plan(h: int) -> tuple[int, int]:
@@ -198,10 +200,10 @@ def _bf16_pieces(v):
 def lstm_tc_weight(w):
     """W_hh (4H, H) as the tensor-core kernels read it: (4, Hk, Hm) with
     [k, j, m] = W[k H + j, m] for a bf16 W, and (3, 4, Hk, Hm) bf16 with
-    W's hi, mid and lo pieces for a float32 W (only the forward reads
-    that); zeros past H, every row 16-byte aligned (16-byte
-    ``cp.async``). The forward reduces along m, the backward along j. A
-    copy of W, made once per sequence (once a step by the cell)."""
+    W's hi, mid and lo pieces for a float32 W; zeros past H, every row
+    16-byte aligned (16-byte ``cp.async``). The forward reduces along m,
+    the backward along j. A copy of W, made once per sequence (once a step
+    by the cell) and read both ways."""
     hid = w.shape[1]
     w4 = w.reshape(4, hid, hid)
     if w.dtype == torch.float32:
@@ -214,15 +216,9 @@ def lstm_tc_weight(w):
 
 
 def _tc_weight(w):
-    """W's copy for the forward kernel on the card, else None (a CPU W:
-    the twins read W itself)."""
+    """W's copy for the kernels on the card, both ways, else None (a CPU
+    W: the twins read W itself)."""
     return lstm_tc_weight(w) if w.is_cuda else None
-
-
-def _bwd_weight(w, wp):
-    """What the backward reads of W's copy: the same copy on its
-    tensor-core route (a bf16 W), none on the SIMT route."""
-    return wp if lstm_bwd_route(w) == "sm90" else None
 
 
 def _fwd_entry(sm90, dt, wdt, st, n, hid, wp, stream):
@@ -314,6 +310,7 @@ def lstm_bwd(gates, c, c1, w, dh1, dc1, out=None, w_packed=None,
     write into. The route is :func:`lstm_bwd_route`'s; the tensor-core
     route needs ``w_packed``, W's copy from :func:`lstm_tc_weight`, which
     a caller makes once for all the steps it runs with one W.
+    With a float32 W, ``w_packed`` is its (3, 4, Hk, Hm) three-piece copy.
     ``_route="simt"`` forces the SIMT kernel. Returns (dxp, dh, dc)."""
     n, hid = c.shape
     st = c.dtype
@@ -329,11 +326,12 @@ def lstm_bwd(gates, c, c1, w, dh1, dc1, out=None, w_packed=None,
     dh, dc = torch.empty_like(dh1), torch.empty_like(dc1)
     lib = kernel_library()
     if sm90:
-        hk, hm = w_packed.shape[1:]
+        hk, hm = w_packed.shape[-2:]
         dzs = torch.empty((3, n, 4, hk), dtype=torch.bfloat16,
                           device=c.device)
         fn, args = lib.mxt_lstm_bwd_sm90, (
-            _DTYPE_CODE[st], gates.data_ptr(), c.data_ptr(), c1.data_ptr(),
+            _DTYPE_CODE[st], 3 if w_packed.dim() == 4 else 1,
+            gates.data_ptr(), c.data_ptr(), c1.data_ptr(),
             w_packed.data_ptr(), dh1.data_ptr(), dc1.data_ptr(),
             dxp.data_ptr(), dh.data_ptr(), dc.data_ptr(), dzs.data_ptr(), n,
             hid, hk, hm, current_stream_handle(c))
@@ -467,10 +465,9 @@ def _scan_forward(x_proj, h0, c0, w, b, reverse, with_gates, wp=None):
 class _LSTMScan(torch.autograd.Function):
     """The reference's ``_lstm_scan_fwd`` / ``_lstm_scan_bwd``, given the
     caller's operands: the forward widens xp and b (``_scan_forward``) and
-    makes W's copy once for both loops (a float32 W's pieces for the
-    forward only: its backward reads W); the backward multiplies by W_hh as
-    the caller passed it, so a bf16 W_hh under float32 operands takes the
-    tensor-core routes both ways."""
+    makes W's copy once for both loops (a float32 W's three pieces, or a
+    bf16 W's one); the backward multiplies by W_hh as the caller passed
+    it, so a bf16 W_hh under float32 operands stays in bf16."""
 
     @staticmethod
     def forward(ctx, x_proj, h0, c0, w, b, reverse):
@@ -478,7 +475,7 @@ class _LSTMScan(torch.autograd.Function):
         ys, c1s, gs = _scan_forward(x_proj, h0, c0, w, b, reverse, True, wp)
         ctx.reverse = reverse
         ctx.b_dtype = b.dtype
-        ctx.save_for_backward(ys, c1s, gs, h0, c0, w, _bwd_weight(w, wp))
+        ctx.save_for_backward(ys, c1s, gs, h0, c0, w, wp)
         last = 0 if reverse else ys.shape[0] - 1
         return ys, ys[last].clone(), c1s[last].clone()
 
@@ -543,7 +540,7 @@ class _LSTMCell(torch.autograd.Function):
         h, c = h.contiguous(), c.contiguous()
         wp = _tc_weight(w)                  # once for the step both ways
         h1, c1, gates = _step_fwd(xp, h, c, w, b, True, w_packed=wp)
-        ctx.save_for_backward(gates, c, c1, h, w, _bwd_weight(w, wp))
+        ctx.save_for_backward(gates, c, c1, h, w, wp)
         ctx.b_dtype = b4.dtype
         return h1, c1
 

@@ -1,9 +1,11 @@
 """The arithmetic of the port's float32 route of ``mm_fused``,
-``conv3_fused``, ``dgrad_epilogue`` and ``mm_fused_bwd``
-(``ops/cuda/csrc/conv_fused_sm90.cu``: ``cf90_fwd_x3_kernel``,
-``cf90_conv3_x3_kernel``, ``cf90_dual_dgrad_x3_kernel``,
-``cf90_bwd_dgrad_x3_kernel``, ``cf90_dual_wgrad_x3_kernel`` and
-``cf90_split3_kernel``), on the CPU.
+``conv3_fused``, ``dgrad_epilogue``, ``mm_fused_bwd`` and
+``conv3_fused_bwd`` (``ops/cuda/csrc/conv_fused_sm90.cu``:
+``cf90_fwd_x3_kernel``, ``cf90_conv3_x3_kernel``,
+``cf90_dual_dgrad_x3_kernel``, ``cf90_bwd_dgrad_x3_kernel``,
+``cf90_dual_wgrad_x3_kernel``, ``cf90_conv3_dgrad_x3_kernel``,
+``cf90_conv3_wgrad_x3_kernel`` and ``cf90_split3_kernel``), on the
+CPU.
 
 The kernels need the card, so these tests hold a plain-PyTorch emulation
 of what they compute against the JAX package's Pallas kernels (interpret
@@ -32,7 +34,14 @@ against float64:
   on load), dsc added and the mask (none, x > 0, a x + b > 0) applied
   after the product, its partials sum dz and sum dz p_j in the kernel's
   order (16 ranges of 8 rows a 128-row block, then the blocks), and its
-  wgrad on G's and x^'s pieces, the dual wgrad's with one set.
+  wgrad on G's and x^'s pieces, the dual wgrad's with one set;
+* the 3x3 backward's dgrad (``cf90_conv3_dgrad_x3_kernel``) over nine
+  mirrored tap-shifted stages of 32 G columns, G formed on load and the
+  halo masked after it, the mask on z = a x + b and its partials (x its
+  own partner) in the kernel's order, and its wgrad
+  (``cf90_conv3_wgrad_x3_kernel``) on G's and the tap-shifted x^'s pieces,
+  one float32 partial per row split (``sm90_wgrad_split(..., 9,
+  x3=True)``), the partials summed in order.
 
 The stage plan and the product order are read from the source. Inputs
 come from numpy with a seed. The tolerance is ``CONV_TOL[float32]``: 1e-4
@@ -823,6 +832,251 @@ def test_mm_fused_bwd_plan_and_epilogue_are_the_sources():
         assert line in SRC, line
     # 24 KB of x^'s pieces fit the two partner boxes they are written over
     assert 3 * 128 * DEPTH * 2 <= 2 * raw
+
+
+# --------------------------------------------- conv3_fused_bwd (float32)
+def _tap_inside(M, bhw, dr, ds):
+    """Rows m whose pixel shifted by (dr, ds) lies in m's own image."""
+    _, H, W = bhw
+    m = torch.arange(M)
+    hh, ww = (m // W) % H + dr, m % W + ds
+    return (hh >= 0) & (hh < H) & (ww >= 0) & (ww < W)
+
+
+def _shifted(t, M, bhw, dr, ds):
+    """t's rows m + dr W + ds where the shifted pixel is in m's image, 0
+    elsewhere (the halo)."""
+    inside = _tap_inside(M, bhw, dr, ds)
+    m = torch.arange(M)[inside]
+    out = torch.zeros_like(t)
+    out[inside] = t[m + dr * bhw[2] + ds]
+    return out
+
+
+def conv3_bwd_x3(w9, x2, a, b, dzn, yout, gcoef, bhw, sms=132,
+                 order=ORDER):
+    """``cf90_conv3_dgrad_x3_kernel`` then ``cf90_conv3_wgrad_x3_kernel``
+    emulated. dgrad: stage (tap (r, s), 32-column slice of G), tap-major:
+    G formed in float32 on the rows m + (1 - r) W + (1 - s), the rows whose
+    tapped pixel leaves their image zeroed AFTER the transform (the
+    transform of a zero row is -g1), against W9[tap]^T's rows (the pieces
+    of the (N, 9 C) transpose), six products into a fresh partial; then the
+    mask on z = a x + b and the partials sum dz, sum dz x in the kernel's
+    order. wgrad: per row split (``sm90_wgrad_split(..., 9, x3=True)``)
+    and tap, 32-row stages of G (its halo rows zeroed) against x^ shifted
+    by (r - 1, s - 1), the split partials summed in order."""
+    M, C = x2.shape
+    N = w9.shape[2]
+    G = _g(dzn, yout, gcoef)
+    dz = torch.zeros(M, C)
+    for tap in range(9):
+        r, s = divmod(tap, 3)
+        rows = _shifted(G, M, bhw, 1 - r, 1 - s)
+        wt = w9[tap].t()
+        for n0 in range(0, N, DEPTH):
+            dz = dz + _stage(rows[:, n0:n0 + DEPTH], wt[n0:n0 + DEPTH], order)
+    z = x2 * a + b
+    dz = torch.where(z > 0.0, dz, 0.0)
+    xh = torch.clamp(z, min=0.0)
+    splits, chunk = tcf.sm90_wgrad_split(M, N, 0, C, sms, 9, x3=True)
+    dw = None
+    for sp in range(splits):
+        rows = slice(sp * chunk, min(M, (sp + 1) * chunk))
+        taps = []
+        for tap in range(9):
+            r, s = divmod(tap, 3)
+            inside = _tap_inside(M, bhw, r - 1, s - 1)
+            ga = torch.where(inside[:, None], G, 0.0)
+            xs = _shifted(xh, M, bhw, r - 1, s - 1)
+            taps.append(_mm_x3(ga[rows].t().contiguous(), xs[rows], order))
+        part = torch.cat(taps, 1)                    # (N, 9 C), tap C + c
+        dw = part if dw is None else dw + part
+    dw9 = dw.reshape(N, 9, C).permute(1, 2, 0)
+    return dz, dw9, _bwd_partials_in_kernel_order(dz, (x2,))
+
+
+# (B, H, C, N) of the card's 3x3 sweep: 7, 9 and 14 with 1-3 images (a
+# 128-row block spans several images), C 24, 40 and 72 past a 32- or
+# 128-wide tile, N 40, 72 and 136 tails in a 32-deep stage; the Pallas
+# kernel runs where nb H W tiles its grid, the XLA twin elsewhere
+C3B_CASES = [(1, 7, 16, 32), (3, 7, 24, 40), (2, 9, 72, 16),
+             (2, 14, 40, 136), (3, 9, 8, 8), (1, 14, 136, 72)]
+
+
+def _conv3_bwd_inputs(case, seed):
+    B, H, C, N = case
+    rs = np.random.RandomState(seed)
+    M = B * H * H
+    x2 = _rand(rs, M, C)
+    w9 = _rand(rs, 9, C, N) * np.float32(0.2)
+    a, b = _rand(rs, C, positive=True), _rand(rs, C)
+    dzn, yout = _rand(rs, M, N), _rand(rs, M, N)
+    gc = _rand(rs, 3, N) * np.float32(0.5)
+    return (B, H, H), [w9, x2, a, b, dzn, yout, gc]
+
+
+def _conv3_bwd_f64(w9, x2, a, b, dzn, yout, gcoef, bhw):
+    """dz, dW9 and the partials in float64 from the float32 G and x^ (the
+    reference's rounding points)."""
+    B, H, W = bhw
+    C, N = w9.shape[1], w9.shape[2]
+    G = _g(dzn, yout, gcoef).double()
+    z = x2 * a + b
+    xh = torch.clamp(z, min=0.0).double()
+    g4 = G.reshape(B, H, W, N).permute(0, 3, 1, 2)
+    x4 = xh.reshape(B, H, W, C).permute(0, 3, 1, 2)
+    w4 = w9.double().reshape(3, 3, C, N).permute(3, 2, 0, 1)
+    dxh = torch.nn.grad.conv2d_input(x4.shape, w4, g4, padding=1).permute(
+        0, 2, 3, 1).reshape(-1, C)
+    dw4 = torch.nn.grad.conv2d_weight(x4, w4.shape, g4, padding=1)
+    dz = torch.where(z > 0.0, dxh, torch.zeros((), dtype=torch.float64))
+    p = torch.stack([dz.sum(0), (dz * x2.double()).sum(0)])
+    return dz, dw4.permute(2, 3, 1, 0).reshape(9, C, N), p
+
+
+@pytest.mark.parametrize("sms", [2, 132])
+@pytest.mark.parametrize("case", C3B_CASES)
+def test_conv3_bwd_emulation_matches_pallas_twin_and_float64(case, sms):
+    """dz, dW9 and the partials of the emulated kernels against the port's
+    twin, the JAX ``conv3_fused_bwd`` (Pallas in interpret mode where it
+    tiles) and float64; ``sms`` 2 cuts the wgrad's rows into several
+    splits, 132 into as few as the card's would."""
+    bhw, arrs = _conv3_bwd_inputs(case, 60 + sum(case))
+    t = [torch.from_numpy(v) for v in arrs]
+    emu = conv3_bwd_x3(*t, bhw, sms=sms)
+    twin = tcf.conv3_fused_bwd_reference(*t, bhw)
+    nb = 2 if bhw[1] == 14 and bhw[0] % 2 == 0 else None
+    with jax.default_matmul_precision("highest"):
+        jout = jcf.conv3_fused_bwd(*(jnp.asarray(v) for v in arrs), bhw,
+                                   block_b=nb)
+    refs64 = _conv3_bwd_f64(*t, bhw)
+    for e, tw, j, r64 in zip(emu, twin, jout, refs64):
+        assert _err(_np(e), _np(tw)) <= TOL
+        assert _err(_np(e), _np(j)) <= TOL
+        assert _err(_np(e), r64.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("case", C3B_CASES[:4])
+def test_conv3_bwd_six_products_hold_float32_and_one_does_not(case):
+    """The six piece products read within the tolerance of float64 in dz,
+    dW9 and the partials; hi.hi alone (one bf16 product a stage) reads
+    above it: the control."""
+    bhw, arrs = _conv3_bwd_inputs(case, 80 + sum(case))
+    t = [torch.from_numpy(v) for v in arrs]
+    refs64 = _conv3_bwd_f64(*t, bhw)
+    six = conv3_bwd_x3(*t, bhw)
+    one = conv3_bwd_x3(*t, bhw, order=((0, 0),))
+    assert max(_err(_np(e), r.numpy()) for e, r in zip(six, refs64)) <= TOL
+    assert max(_err(_np(e), r.numpy()) for e, r in zip(one, refs64)) > TOL
+
+
+def test_conv3_bwd_halo_is_masked_after_g_is_formed():
+    """g1 large on every column: a zero row of dzn and yout transforms to
+    -g1, so a halo row masked before the transform (a zero read by the
+    box) instead of after it reads far off in dz and dW9."""
+    bhw, arrs = _conv3_bwd_inputs((2, 7, 16, 24), 5)
+    arrs[6][1] = np.float32(3.0)
+    t = [torch.from_numpy(v) for v in arrs]
+    emu = conv3_bwd_x3(*t, bhw)
+    refs64 = _conv3_bwd_f64(*t, bhw)
+    for e, r in zip(emu, refs64):
+        assert _err(_np(e), r.numpy()) <= TOL
+    # the transform taken through the padding (G of a zero row, -g1)
+    B, H, W = bhw
+    M, C = t[1].shape
+    N = t[0].shape[2]
+    dzn4 = torch.nn.functional.pad(
+        t[4].reshape(B, H, W, N).permute(0, 3, 1, 2), (1, 1, 1, 1))
+    yout4 = torch.nn.functional.pad(
+        t[5].reshape(B, H, W, N).permute(0, 3, 1, 2), (1, 1, 1, 1))
+    gc = t[6][:, :, None, None]
+    gpad = (dzn4 * gc[0] - gc[1]) - yout4 * gc[2]
+    w4 = t[0].reshape(3, 3, C, N).permute(3, 2, 0, 1)
+    wrong = torch.nn.functional.conv_transpose2d(gpad, w4, padding=2)
+    wrong = wrong.permute(0, 2, 3, 1).reshape(-1, C)
+    wrong = torch.where(t[1] * t[2] + t[3] > 0.0, wrong, 0.0)
+    assert _err(_np(wrong), _np(emu[0])) > 1e-2
+
+
+@pytest.mark.parametrize("case", C3B_CASES[:3])
+def test_conv3_wgrad_split_partials_cover_the_rows_once(case):
+    """The 3x3 wgrad's row split (nine taps, one a column tile): chunks of
+    a multiple of 64 rows covering M once; cut finer (sms 2) or not at all
+    (sms 1), dW9 agrees within the tolerance."""
+    B, H, C, N = case
+    M = B * H * H
+    for sms in (1, 2, 132):
+        splits, chunk = tcf.sm90_wgrad_split(M, N, 0, C, sms, 9, x3=True)
+        assert chunk % 64 == 0 and (splits - 1) * chunk < M <= splits * chunk
+    bhw, arrs = _conv3_bwd_inputs(case, 11)
+    t = [torch.from_numpy(v) for v in arrs]
+    one = conv3_bwd_x3(*t, bhw, sms=1)[1]
+    two = conv3_bwd_x3(*t, bhw, sms=2)[1]
+    assert _err(_np(one), _np(two)) <= TOL
+
+
+def test_conv3_bwd_plans_and_taps_are_the_sources():
+    """PlanConv3DgradX3 is PlanBwdX3's stage (dzn's and yout's shifted
+    boxes, W9^T's pieces, g0, g1, g2) and epilogue chunk; PlanConv3WgradX3
+    the wgrad's G^T pieces beside x^'s; ``sm90_x3_plan("conv3_dgrad")`` and
+    ``("conv3_wgrad")`` mirror them, and both fit a block beside the static
+    column sums. The tap shifts, the halo mask after G's transform, the
+    centre tap's G pieces and the wgrad's shifted x^ box are the
+    emulation's; the wrapper splits W9^T as one (N, 9 C) matrix."""
+    assert ("using PlanConv3DgradX3 = Plan3<2 * kRaw3, 1024, 4 * kRaw3 + "
+            "1024>;" in SRC)
+    assert "using PlanConv3WgradX3 = Plan3<3 * kPieceA3, 0>;" in SRC
+    raw, pieces = 128 * DEPTH * 4, 3 * 128 * DEPTH * 2
+    dgrad = tcf.sm90_x3_plan("conv3_dgrad")
+    wgrad = tcf.sm90_x3_plan("conv3_wgrad")
+    assert dgrad == tcf.sm90_x3_plan("bwd")
+    assert dgrad["stage_bytes"] == max(2 * raw + pieces + 1024,
+                                       4 * raw + 1024)
+    assert dgrad["stages"] == 3 and wgrad["stages"] == 4
+    assert wgrad["stage_bytes"] == 3 * 128 * DEPTH * 2 + pieces
+    assert dgrad["smem_bytes"] + 2 * 16 * 3 * 32 * 4 + 2 * 3 * 8 \
+        <= tcf.SM90_SMEM_LIMIT
+    assert wgrad["smem_bytes"] + 2 * 4 * 8 <= tcf.SM90_SMEM_LIMIT
+    for line in (
+            "const int shift = TAPS == 1 ? 0 : (1 - tap / 3) * p.W + "
+            "1 - tap % 3;",
+            "if (kl >= nl || !((q & 1) ? in1 : in0)) v0 = v1 = 0.f;",
+            "if (tap == TAPS / 2 && sl % gridDim.x == blockIdx.x)",
+            "&full[s], tap * p.K + c0 + 64 * e, r0, j);",
+            "&txh, &full[s], c0 + 64 * e, r0 + dr * p.W + ds, j);",
+            "bwd_dgrad_x3_tile<9, PlanConv3DgradX3>(",
+            "launch<cf90_conv3_wgrad_x3_kernel>(PlanConv3WgradX3::kSmem"):
+        assert line in SRC, line
+    # the halo after the transform: bn_g first, then the mask, then split
+    body = SRC[SRC.index("bwd_dgrad_x3_tile(const CUtensorMap"):]
+    at = [body.index(t) for t in ("v0 = bn_g(v.x", "!((q & 1) ? in1 : in0)",
+                                  "split3(v0, v1")]
+    assert at == sorted(at)
+    wrapper = Path(tcf.__file__).read_text()
+    assert "(w9, n, 9 * c, w9.stride(2), w9.stride(1))" in wrapper
+
+
+@pytest.mark.parametrize("layout", ["gluon", "contiguous"])
+def test_conv3_bwd_weight_pieces_are_w9_transposed(monkeypatch, layout):
+    """The float32 3x3 dgrad's B is W9^T's (3, N, 9 C) pieces, [n, tap C +
+    c] = w9[tap, c, n], from the gluon view (strides (C, 1, 9 C)) and from
+    a contiguous (9, C, N) weight alike."""
+    lib = _SplitLibrary()
+    monkeypatch.setattr(tcf, "kernel_library", lambda: lib)
+    monkeypatch.setattr(tcf, "current_stream_handle", lambda t: 0)
+    rs = np.random.RandomState(6)
+    c, n = 16, 24
+    if layout == "gluon":
+        w9 = torch.from_numpy(_rand(rs, n, 3, 3, c)).permute(
+            1, 2, 3, 0).reshape(9, c, n)
+        assert w9.stride() == (c, 1, 9 * c)
+    else:
+        w9 = torch.from_numpy(_rand(rs, 9, c, n))
+    wp, = tcf._pieces("conv3_fused_bwd",
+                      (w9, n, 9 * c, w9.stride(2), w9.stride(1)))
+    want = w9.permute(2, 0, 1).reshape(n, 9 * c)
+    assert wp.shape == (3, n, 9 * c) and wp.data_ptr() % 16 == 0
+    assert torch.equal(wp.float(), torch.stack(_split3(want)))
 
 
 # ------------------------------------------------ the plan and the order

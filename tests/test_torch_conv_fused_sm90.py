@@ -6,13 +6,13 @@ The kernels themselves build and run only on the card (``chip_smoke.py``
 phase 13 holds them against their twins there). What the CPU can check is
 the Python that decides, before every launch, which route a call takes and
 how the launch is tiled: every ResNet-50 stage-2/3/4 shape of the lane at
-batch 128 takes the Hopper route in bf16; in float32, ``mm_fused``,
-``conv3_fused``, ``dgrad_epilogue`` and ``mm_fused_bwd`` take the
+batch 128 takes the Hopper route in bf16; in float32 all five take the
 three-piece route ("sm90x3": ``cf90_fwd_x3_kernel``,
-``cf90_conv3_x3_kernel``, the ``*_x3`` dual dgrad and wgrad, and
-``cf90_bwd_dgrad_x3_kernel`` with the wgrad's one set) at every
-stage-2/3/4 shape at batch 16 and 128, and ``conv3_fused_bwd`` the SIMT
-kernels; every shape of the card's sweep takes the route the plan says;
+``cf90_conv3_x3_kernel``, the ``*_x3`` dual dgrad and wgrad,
+``cf90_bwd_dgrad_x3_kernel`` with the wgrad's one set, and
+``cf90_conv3_dgrad_x3_kernel`` with ``cf90_conv3_wgrad_x3_kernel``) at
+every stage-2/3/4 shape at batch 16 and 128; every shape of the card's
+sweep takes the route the plan says;
 each tile plan fits the shared memory of a block; the dW row splits cover
 the rows exactly once in a fixed order; and the wrappers still refuse CPU
 tensors. Shapes at the
@@ -437,10 +437,11 @@ def _conv3_bwd_route(M, c, n, dt, w9=None, x2=None, acts=None, vecs=None):
 def test_lane_conv3_bwd_takes_the_sm90_route_in_bf16_only(stage, dt):
     """Every one of the lane's 13 conv3_fused_bwd launches (a middle or
     first block's 3x3 at stages 2-4, batch 128, the gluon weight's view,
-    G on load) takes the Hopper kernels in bf16 and never in float32."""
+    G on load) takes the bf16 Hopper kernels in bf16 only, and in float32
+    the three-piece kernels."""
     M, mid, _, _, _ = chip_smoke.RESNET_STAGES[stage]
     assert _conv3_bwd_route(M, mid, mid, dt) == (
-        "sm90" if dt == BF16 else "simt")
+        "sm90" if dt == BF16 else "sm90x3")
 
 
 @pytest.mark.parametrize("bhwcn", [(1, 7, 16, 32), (3, 7, 32, 48),
@@ -449,15 +450,18 @@ def test_lane_conv3_bwd_takes_the_sm90_route_in_bf16_only(stage, dt):
                                    (2, 9, 72, 64), (3, 14, 72, 136)])
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_sweep_shapes_take_the_planned_conv3_bwd_route(bhwcn, dt):
-    """The card's 3x3 sweep (phase 13) with the gluon weight view; a
-    contiguous (9, C, N) weight takes the SIMT kernels."""
+    """The card's 3x3 sweep (phase 13) with the gluon weight view: bf16 on
+    the Hopper kernels, float32 on the three-piece ones; a contiguous
+    (9, C, N) weight takes the SIMT kernels in bf16 and the three-piece
+    ones in float32 (the split kernel copies either layout's pieces
+    out)."""
     B, hw, c, n = bhwcn
     M = B * hw * hw
     assert _conv3_bwd_route(M, c, n, dt) == (
-        "sm90" if dt == BF16 else "simt")
+        "sm90" if dt == BF16 else "sm90x3")
     assert _conv3_bwd_route(
         M, c, n, dt, w9=torch.empty((9, c, n), dtype=dt, device="meta")) \
-        == "simt"
+        == ("simt" if dt == BF16 else "sm90x3")
 
 
 def test_conv3_bwd_shapes_the_tma_cannot_read_take_the_simt_route():
@@ -565,13 +569,13 @@ def _x3_lane_routes(stage, batch):
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_float32_conv3_and_dual_dgrad_take_the_x3_route(stage, batch):
     """At every stage-2/3/4 shape at batch 16 (the float32 truth phase's)
-    and 128 (the lane's), float32 mm_fused, conv3_fused, dgrad_epilogue
-    and mm_fused_bwd take the three-piece kernels; conv3_fused_bwd stays
-    on the SIMT ones."""
+    and 128 (the lane's), every float32 form takes the three-piece
+    kernels: mm_fused, conv3_fused, dgrad_epilogue, mm_fused_bwd and
+    conv3_fused_bwd."""
     routes = _x3_lane_routes(stage, batch)
     assert routes == {"3x3": "sm90x3", "dual dgrad": "sm90x3",
                       "entry": "sm90x3", "expand bwd": "sm90x3",
-                      "entry bwd": "sm90x3", "3x3 bwd": "simt"}
+                      "entry bwd": "sm90x3", "3x3 bwd": "sm90x3"}
 
 
 def test_float32_shapes_the_x3_route_cannot_take_take_simt():
@@ -639,10 +643,30 @@ def test_float32_shapes_the_x3_route_cannot_take_take_simt():
     assert tcf.mm_fused_route(x, strided) == "simt"
     assert tcf.mm_fused_route(x, w, sc, (a, a, None, None)) == "simt"
     assert tcf.mm_fused_route(x, w.to(BF16)) == "simt"
+    # conv3_fused_bwd: either weight layout is split; x2, dzn and yout as
+    # the TMA reads them, a, b and gcoef 16-byte aligned, one (9 C, N)
+    # matrix of taps
+    assert _conv3_bwd_route(98, 16, 32, F32) == "sm90x3"
+    assert _conv3_bwd_route(98, 16, 32, F32, w9=torch.empty(
+        (9, 16, 32), dtype=F32)) == "sm90x3"
+    assert _conv3_bwd_route(98, 12, 32, F32) == "simt"
+    assert _conv3_bwd_route(98, 16, 36, F32) == "simt"
+    assert _conv3_bwd_route(0, 16, 32, F32) == "simt"
+    odd_n = torch.empty((99 * 32,), dtype=F32)[1:1 + 98 * 32].reshape(98, 32)
+    assert _conv3_bwd_route(98, 16, 32, F32, acts=(odd_n, odd_n)) == "simt"
+    assert _conv3_bwd_route(98, 16, 32, F32,
+                            x2=base[1:1 + 98 * 16].reshape(98, 16)) == "simt"
+    gc = torch.empty((3, 32), device="meta")
+    assert _conv3_bwd_route(98, 16, 32, F32, vecs=(a, a, gc)) == "simt"
+    assert _conv3_bwd_route(98, 16, 32, F32, w9=taps) == "simt"
+    assert _conv3_bwd_route(98, 16, 32, F32, w9=wide) == "simt"
+    assert _conv3_bwd_route(98, 16, 32, F32, w9=w9.to(BF16)) == "simt"
+    assert _conv3_bwd_route(98, 16, 32, F32, x2=x2.to(BF16)) == "simt"
 
 
 @pytest.mark.parametrize("kernel", ["mm_fused", "conv3_fused",
-                                    "dgrad_epilogue", "mm_fused_bwd"])
+                                    "dgrad_epilogue", "mm_fused_bwd",
+                                    "conv3_fused_bwd"])
 @pytest.mark.parametrize("route", [None, "simt"])
 def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
     x = torch.randn(98, 16)
@@ -659,11 +683,14 @@ def test_float32_wrappers_refuse_cpu_tensors_on_either_route(kernel, route):
                 w, w, x, g, g, gc, g, g, gc, _route=route),
             "mm_fused_bwd": lambda: tcf.mm_fused_bwd(
                 w, x, dzn=g, yout=g, gcoef=gc, a=a, b=b, out_mask="z",
-                partners=(x,), _route=route)}[kernel]
+                partners=(x,), _route=route),
+            "conv3_fused_bwd": lambda: tcf.conv3_fused_bwd(
+                w9, x, a, b, g, g, gc, (2, 7, 7), _route=route)}[kernel]
     assert tcf.mm_fused_route(x, w, x, (a, b, a, b)) == "sm90x3"
     assert tcf.conv3_fused_route(x, w9, (a, b)) == "sm90x3"
     assert tcf.dgrad_epilogue_route(x, w, w, (g,) * 4, (gc, gc)) == "sm90x3"
     assert tcf.mm_fused_bwd_route(x, w, (g, g, x), (a, b, gc)) == "sm90x3"
+    assert tcf.conv3_fused_bwd_route(x, w9, (g, g), (a, b, gc)) == "sm90x3"
     fn = getattr(tcf, kernel)
     before = (fn.launches, fn.sm90_launches, fn.x3_launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -686,7 +713,8 @@ def test_the_library_exports_the_x3_entry_points():
                "mxt_conv_fused_sm90_conv3_x3",
                "mxt_conv_fused_sm90_dual_dgrad_x3",
                "mxt_conv_fused_sm90_bwd_dgrad_x3",
-               "mxt_conv_fused_sm90_dual_wgrad_x3"):
+               "mxt_conv_fused_sm90_dual_wgrad_x3",
+               "mxt_conv_fused_sm90_conv3_bwd_x3"):
         params = re.search(rf"int {fn}\(([^)]*)\)", bindings).group(1)
         assert len(params.split(",")) == len(common._SIGNATURES[fn])
 
@@ -707,7 +735,8 @@ def test_x3_wgrad_split_covers_the_rows_and_fills_the_card(stage):
 
 
 @pytest.mark.parametrize("kernel", ["mm_fused", "conv3_fused",
-                                    "dgrad_epilogue", "mm_fused_bwd"])
+                                    "dgrad_epilogue", "mm_fused_bwd",
+                                    "conv3_fused_bwd"])
 def test_float32_rows_past_the_x3_grid_take_simt(kernel):
     """The three-piece kernels put their 128-row tiles on gridDim.y, so at
     most 65535 of them: one more row takes the SIMT kernels, decided
@@ -722,6 +751,9 @@ def test_float32_rows_past_the_x3_grid_take_simt(kernel):
     elif kernel == "conv3_fused":
         def route(m):
             return tcf.conv3_fused_route(_act(m, c, F32), _w3x3(c, n, F32))
+    elif kernel == "conv3_fused_bwd":
+        def route(m):
+            return _conv3_bwd_route(m, c, n, F32)
     elif kernel == "mm_fused_bwd":
         def route(m):
             return tcf.mm_fused_bwd_route(
@@ -733,3 +765,18 @@ def test_float32_rows_past_the_x3_grid_take_simt(kernel):
                 (_act(m, n, F32),) * 4)
     assert route(limit) == "sm90x3"
     assert route(limit + 1) == "simt"
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_x3_conv3_wgrad_split_covers_the_rows_and_fills_the_card(stage):
+    """The float32 3x3 wgrad (128 x 128 tiles, one tap a column tile, six
+    products a row): its split covers the rows once and, at the lane's
+    shapes, puts at least 120 blocks on the 132 SMs."""
+    M, mid, _, _, _ = chip_smoke.RESNET_STAGES[stage]
+    splits, chunk = tcf.sm90_wgrad_split(M, mid, 0, mid, 132, 9, x3=True)
+    tiles = -(-mid // 128) * 9 * -(-mid // tcf.SM90_X3_BN)
+    assert chunk % tcf.SM90_BK == 0 and (splits - 1) * chunk < M \
+        <= splits * chunk
+    assert tiles * splits >= 120
+    if stage == 3:
+        assert (tiles, splits, chunk) == (36, 11, 2304)

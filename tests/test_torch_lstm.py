@@ -215,12 +215,14 @@ def test_kernel_wrappers_take_cuda_tensors_only():
 
 # ------------------------------------- the tensor-core backward (bf16 W)
 def test_backward_route_is_chosen_by_the_weight_type():
-    """A bf16 W_hh takes the tensor-core kernels with either carry type (the
-    route reads W's type only); a float32 W_hh the SIMT kernel."""
+    """Every W_hh type takes the tensor-core kernels with either carry type:
+    a bf16 W_hh as one piece, a float32 W_hh as three (the SIMT kernel only
+    behind ``_route="simt"``)."""
     for types in ("bf16", "bf16_f32carry", "f32"):
         _, _, _, w, _ = _step_inputs(7, types, 8, 16)
-        want = "sm90" if TYPES[types][1] == "bfloat16" else "simt"
-        assert tl.lstm_bwd_route(w[0]) == want
+        assert tl.lstm_bwd_route(w[0]) == "sm90"
+    assert tl.lstm_bwd_route(torch.empty((2600, 650), dtype=torch.float32,
+                                         device="meta")) == "sm90"
     # the word LM's lane: bf16 operands, float32 carries
     assert tl.lstm_bwd_route(torch.empty((2600, 650), dtype=torch.bfloat16,
                                          device="meta")) == "sm90"
@@ -229,13 +231,11 @@ def test_backward_route_is_chosen_by_the_weight_type():
 def test_forward_route_is_chosen_by_the_weight_type():
     """Every W_hh type takes the tensor-core forward, with either carry
     type and either x_proj type: a bf16 W as one piece, a float32 W as
-    three; the backward keeps the SIMT kernel for a float32 W, so its rule
-    no longer follows the forward's."""
+    three; the backward's rule is the forward's."""
     for types in TYPES:
         _, _, _, w, _ = _step_inputs(7, types, 8, 16)
         assert tl.lstm_fwd_route(w[0]) == "sm90"
-        assert tl.lstm_bwd_route(w[0]) == (
-            "sm90" if TYPES[types][1] == "bfloat16" else "simt")
+        assert tl.lstm_bwd_route(w[0]) == tl.lstm_fwd_route(w[0])
     # the word LM's lane, both layers: a bf16 W_hh
     assert tl.lstm_fwd_route(torch.empty((2600, 650), dtype=torch.bfloat16,
                                          device="meta")) == "sm90"
@@ -248,8 +248,8 @@ def test_tensor_core_plan_mirrors_the_kernel_source():
     """lstm.cu's reduction stage is the one ``lstm_tc_plan`` pads to; the
     product's launch, read from the source (32 x 64 of dh and one gate a
     block, the four gates a cluster, a three-stage ring of the three dz
-    pieces' and W's tiles in static shared memory), fits a block's 48 KB
-    and fills the card at the lane (at least 128 blocks)."""
+    pieces' and a bf16 W's tiles), fits a block's 48 KB and fills the card
+    at the lane (at least 128 blocks)."""
     from pathlib import Path
     import re
     src = (Path(tl.__file__).resolve().parent / "csrc" / "lstm.cu"
@@ -260,8 +260,9 @@ def test_tensor_core_plan_mirrors_the_kernel_source():
     assert tk == tl.TC_TK
     assert consts["kTLdA"] == "kTK + 8" and consts["kTLdB"] == "kTN + 8"
     assert "__cluster_dims__(1, 1, 4)" in src
-    assert ("As[kTStages][3][kTM * kTLdA]" in src
-            and "Bs[kTStages][kTK * kTLdB]" in src)
+    assert ("constexpr int kA = kTM * kTLdA;" in src
+            and "constexpr int kB = kTK * kTLdB;" in src
+            and "__nv_bfloat16* Bs = smem + kTStages * 3 * kA;" in src)
     assert ("grid((a.H + kTN - 1) / kTN, (a.N + kTM - 1) / kTM, 4)"
             in src)
     smem = stages * (3 * tm * (tk + 8) + tk * (tn + 8)) * 2
@@ -591,12 +592,145 @@ def test_six_product_forward_matches_run_fwd_with_a_float32_weight(N, H,
     assert err(gates(THREE_PRODUCTS)) > FWD_SPLIT_PRODUCT_TOL
 
 
-def test_scan_hands_the_backward_the_plain_weight():
-    """With a float32 W the scan's forward reads W's three pieces and its
-    backward W itself (the SIMT route): it saves no copy for the backward;
-    with a bf16 W both read the one copy."""
-    for dt in (torch.float32, torch.bfloat16):
-        w = torch.randn(64, 16).to(dt)
-        wp = tl.lstm_tc_weight(w)
-        assert wp.dim() == (4 if dt == torch.float32 else 3)
-        assert (tl._bwd_weight(w, wp) is None) == (dt == torch.float32)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_scan_hands_the_backward_the_plain_weight(monkeypatch, dt):
+    """The scan and the cell make W's copy once, and their backward steps
+    read that same copy: with a float32 W its (3, 4, Hk, Hm) three pieces,
+    with a bf16 W its one (4, Hk, Hm) piece; W itself stays the product's
+    operand for dW. (On the CPU the twins ignore the copy; here it is made
+    on the CPU too, and each backward step's ``w_packed`` is recorded.)"""
+    made, seen = [], []
+
+    def tc_weight(w):
+        made.append(tl.lstm_tc_weight(w))
+        return made[-1]
+    step_bwd = tl._step_bwd
+
+    def recording(*args, out=None, w_packed=None):
+        seen.append(w_packed)
+        return step_bwd(*args, out=out, w_packed=w_packed)
+    monkeypatch.setattr(tl, "_tc_weight", tc_weight)
+    monkeypatch.setattr(tl, "_step_bwd", recording)
+    N, H, T = 8, 16, 3
+    rnd = _In(21)
+    w = rnd("float32", 4 * H, H, scale=0.25)[0].to(dt).requires_grad_(True)
+    xs = rnd("float32", T, N, 4 * H)[0].to(dt).requires_grad_(True)
+    h0, c0 = rnd("float32", N, H)[0], rnd("float32", N, H)[0]
+    b = rnd("float32", 4 * H)[0].to(dt)
+    ys, _, _ = tl.lstm_scan(xs, h0, c0, w, b)
+    ys.float().sum().backward()
+    w4 = w.detach().reshape(4, H, H).transpose(1, 2).contiguous()
+    h1, c1 = tl.lstm_cell(xs[0].detach().reshape(N, 4, H).permute(1, 0, 2),
+                          h0.requires_grad_(True), c0, w4,
+                          b.reshape(4, 1, H))
+    (h1.float().sum() + c1.float().sum()).backward()
+    assert len(made) == 2 and len(seen) == T + 1
+    shape = ((3,) if dt == torch.float32 else ()) + (4, *tl.lstm_tc_plan(H))
+    for wp in made:
+        assert wp.shape == shape and wp.dtype == torch.bfloat16
+    assert all(s is made[0] for s in seen[:T]) and seen[T] is made[1]
+    assert w.grad is not None and w.grad.dtype == dt
+
+
+def test_tensor_core_backward_shared_memory_mirrors_the_source():
+    """The backward's ring in dynamic shared memory, as lstm.cu sizes it
+    (``bwd_tc_smem_bytes``): three stages of dz's three pieces' 32 x 32
+    tiles and W's PW pieces' 32 x 64 tiles, 36 KB with a bf16 W and 63 KB
+    with a float32 W's three pieces, above the 48 KB static limit, so the
+    launch sets the opt-in; the float32 partial (32 x 64) reuses the ring;
+    at 63 KB three blocks fit an SM, so the lane's 176 blocks stay one wave
+    on 132 SMs."""
+    import re
+    src = _lstm_cu()[0]
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kT(?:M|N|K|Stages)) = (\d+);", src)}
+    tm, tn, tk, stages = (consts[k] for k in ("kTM", "kTN", "kTK",
+                                              "kTStages"))
+    assert ("return kTStages * (3 * kTM * kTLdA + PW * kTK * kTLdB) * 2;"
+            in src)
+    assert "constexpr int smem = bwd_tc_smem_bytes(PW);" in src
+    assert ("lstm_bwd_tc_kernel<Ts, PW>, cudaFuncAttributeMaxDynamicShared"
+            "MemorySize," in src)
+    assert "lstm_bwd_tc_kernel<Ts, PW><<<grid, kTThreads, smem, st>>>(a);" \
+        in src
+    assert "return w_pieces == 3 ? bwd_tc_dispatch<3>(state_dtype, a, st)" \
+        in src
+
+    def smem(pw):
+        return stages * (3 * tm * (tk + 8) + pw * tk * (tn + 8)) * 2
+    assert smem(1) == 36864 <= 48 * 1024 < smem(3) == 64512
+    assert tm * tn * 4 <= smem(1)
+    assert 227 * 1024 // smem(3) == 3
+    grid = (-(-650 // tn), -(-128 // tm), 4)
+    assert grid[0] * grid[1] * grid[2] == 176 <= 3 * 132
+
+
+# W's hi piece alone against dz's three pieces: the control of the
+# float32-W backward's product (W rounded to bf16)
+W_HI_PRODUCTS = [(0, 0), (1, 0), (2, 0)]
+
+
+def _bwd_split_product(dz, wps, H, pairs, stage):
+    """The tensor-core backward's product dh = sum_k dz_k W_k in
+    lstm_bwd_tc_kernel's order of float32 sums: dz padded to W's copy's
+    Hk and split in three bf16 pieces; for each gate and each ``stage``-deep
+    stage of j, the products ``pairs`` ((dz piece, W piece)) in a fresh
+    float32 partial added to the gate block's sum; the four gates' sums
+    added in gate order. (Within a stage the tensor cores' own order of
+    adds is not emulated.)"""
+    N = dz.shape[0]
+    hk = wps[0].shape[1]
+    dzp = torch.zeros((N, 4, hk))
+    dzp[:, :, :H] = dz.reshape(N, 4, H)
+    pieces = [p.float() for p in _split3(dzp)]
+    dh = None
+    for k in range(4):
+        acc = torch.zeros((N, wps[0].shape[2]))
+        for j0 in range(0, hk, stage):
+            j = slice(j0, j0 + stage)
+            acc = acc + sum(pieces[q][:, k, j] @ wps[r][k][j]
+                            for q, r in pairs)
+        dh = acc if dh is None else dh + acc
+    return dh[:, :H]
+
+
+@pytest.mark.parametrize("form", list(F32W_FORMS))
+@pytest.mark.parametrize("N,H", [(8, 20), (16, 211)])
+def test_six_product_backward_matches_run_bwd_with_a_float32_weight(N, H,
+                                                                    form):
+    """The tensor-core backward's arithmetic with a float32 W in plain
+    PyTorch (dz from the twin in three bf16 pieces, W's copy in three, the
+    six products of piece orders summing to at most two a 32-deep stage
+    into a fresh float32 partial, the gates' sums in order) against the
+    Pallas ``_run_bwd`` with a float32 W, in every float32-W form: dh
+    before its rounding to the carries' type (the Pallas kernel is handed
+    bf16 carries' values in float32, which it widens to anyway) within
+    ``SPLIT_PRODUCT_TOL`` of its largest entry; the control with W's hi
+    piece only (three products) reads above that limit."""
+    xp, h, c, w, b = _f32w_inputs(14, form, N, H)
+    sd = F32W_FORMS[form][1]
+    _, c1, g = tl.lstm_fwd_reference(xp[0], h[0], c[0], w[0], b[0])
+    rnd = _In(15)
+    dh1, dc1 = rnd(sd, N, H), rnd(sd, N, H)
+    dz, _, _ = tl.lstm_bwd_reference(g, c[0], c1, w[0], dh1[0], dc1[0])
+    wps = [p.float() for p in tl.lstm_tc_weight(w[0])]
+    import re
+    stage = int(re.search(r"constexpr int kTK = (\d+);", _lstm_cu()[0])
+                .group(1))
+    _, w4, _ = _jax_layout(N, H, xp[1], w[1], b[1])
+    g4 = jnp.asarray(_gates4(g, N, H).numpy())
+
+    def f32(t):
+        return jnp.asarray(t.float().numpy())
+    with jax.default_matmul_precision("highest"):
+        _, jdh, _ = jl._run_bwd(g4, f32(c[0]), f32(c1), w4, f32(dh1[0]),
+                                f32(dc1[0]))
+    jdh = np.asarray(jdh, np.float64)
+    assert jdh.dtype == np.float64 and np.isfinite(jdh).all()
+
+    def err(pairs):
+        dh = _bwd_split_product(dz, wps, H, pairs, stage)
+        return np.max(np.abs(dh.double().numpy() - jdh)) / np.max(
+            np.abs(jdh))
+    assert err(SIX_PRODUCTS) <= SPLIT_PRODUCT_TOL
+    assert err(W_HI_PRODUCTS) > SPLIT_PRODUCT_TOL

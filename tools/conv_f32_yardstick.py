@@ -21,7 +21,10 @@ every output written once) at 3.35 TB/s, the flops at float32's 67
 TFLOP/s (the FMA bound) and six bf16 products at 989 TFLOP/s (the bound of
 a float32 product on the tensor cores with both operands in three
 pieces). Then ``lstm_bwd`` with a float32 W_hh and float32 carries at the
-word LM's N 128, H 650, beside cuDNN's backward per step.
+word LM's N 128, H 650 on the route that checkout's wrapper picks (with W's
+copy where that route reads one) and, when that is not the SIMT kernel,
+again forced onto it, the same four readings each, beside cuDNN's
+backward per step.
 
 Prints one line per checkout, {form: reading} under "checkout", then the
 card's name and power limit; exits 1 if a run fails.
@@ -91,20 +94,29 @@ xp, h, c, w, b, dh1, dc1 = cs._lstm_operands(g, f32, f32, f32, N, H)
 gates = lt.lstm_fwd_gates(xp, h, c, w, b, _route="simt")[2]
 
 
+route = lt.lstm_bwd_route(w)
+wp = lt.lstm_tc_weight(w) if route == "sm90" else None
+
+
 def bwd():
-    return lt.lstm_bwd(gates, c, c, w, dh1, dc1)
+    return lt.lstm_bwd(gates, c, c, w, dh1, dc1, w_packed=wp)
 
 
-before = lt.lstm_bwd.sm90_launches
-bwd()
-torch.cuda.synchronize()
+def bwd_simt():
+    return lt.lstm_bwd(gates, c, c, w, dh1, dc1, _route="simt")
+
+
+def lstm_readings(fn):
+    dev, split = cs.device_ms(fn, lt.lstm_bwd)
+    return {"device_ms": dev, "kernels_ms": split, "graph_ms": cs.graph_ms(fn),
+            "event_ms": cs.time_ms(fn, iters=50), "host_us": cs.host_us(fn)}
+
+
 moved, flops, prod = cs._lstm_bytes_flops(f32, f32, f32, N, H, "lstm_bwd",
-                                          "simt")
-dev, split = cs.device_ms(bwd, lt.lstm_bwd)
+                                          route)
 out["lstm_bwd f32 W, f32 carries"] = {
-    "route": "sm90" if lt.lstm_bwd.sm90_launches > before else "simt",
-    "device_ms": dev, "kernels_ms": split, "graph_ms": cs.graph_ms(bwd),
-    "event_ms": cs.time_ms(bwd, iters=50), "host_us": cs.host_us(bwd),
+    "route": route, **lstm_readings(bwd),
+    "simt": lstm_readings(bwd_simt) if route != "simt" else None,
     "cudnn_bwd_per_step_ms": cs._cudnn_lstm_per_step(f32, T, N, H)[
         "lstm_bwd"],
     "bound_ms": max(moved / cs.HBM_BYTES_PER_S * 1e3,

@@ -59,13 +59,19 @@ Phases:
    call must move at 3.35 TB/s, or its flops at the peak rate of the input
    type, whichever is larger);
 4. serving: ~16 prompts of 8..200 tokens on the paged engine (some share a
-   64-token prefix, one is sampled), then a short pass on the contiguous
-   engine; every request must finish with its token budget, every page must
-   come back, and each kernel must have been launched by the run (launch
-   counters are reset right before each run and read right after), every
-   decode launch on the split route; then a
-   torch.profiler breakdown of decode steps (busy and wall time from one
-   profiled window; device idle share, the attention kernels' time);
+   64-token prefix, one is sampled), its steps captured as CUDA graphs at
+   load (``len(buckets) + 1``, counted in ``mxtpu_serve_compiles_total``
+   and ``mxtpu_serve_gen_traces_total``, which traffic must not move) and
+   the eager yardstick (``_GenerativeModel(_capture=False)``) in turns,
+   two rounds each, their token streams equal; then a short pass on the
+   contiguous engine, captured and eager, streams equal; every request
+   must finish with its token budget, every page must come back, and the
+   decode kernel must have launched 12 times a decode step (counted
+   through graph replays; launch counters are reset right before each
+   run and read right after), every launch on the split route; then a
+   torch.profiler breakdown of decode steps of each paged engine (busy
+   and wall time from one profiled window; device idle share, the
+   attention kernels' time);
 5. one full-width float32 decode step (paged and contiguous) with the
    kernels against the same step with the plain attention (atol 1e-3);
 6. the training kernels (flash forward, dq, dk/dv): the float32 route's
@@ -112,9 +118,15 @@ Phases:
    kernel too, and the two-pass route above; scalar loads at d 66 and
    100; 4096 rows at d 768 and 1000, several groups of blocks), the
    inline route (rows not a multiple of 8: nothing launched), the
-   one-pass backward as built (registers, stack, local bytes, 16-byte
-   loads), its dx, dgamma and dbeta bitwise equal over two calls and a
-   CUDA-graph replay; then the LN backward at (16384, 768), both types:
+   vector forward (up to d 1024, and the first design forced,
+   ``_route="warp"``, beside it) and the one-pass backward as built
+   (registers, stack, local bytes, 16-byte loads), the forward's y, mu
+   and rstd and the backward's dx, dgamma and dbeta bitwise equal over
+   two calls and a CUDA-graph replay; then the LN forward at (16384,
+   768), both types: the vector kernel, the first design and
+   ``F.layer_norm`` in turns (device, graph, event ms, host µs), x
+   rotated through copies beyond the 50 MB L2; the LN backward at
+   (16384, 768), both types:
    the one-pass and two-pass kernels' device, graph and event ms and host
    µs in turns, x and dy rotated through copies beyond the 50 MB L2; then
    at the slice's shapes (LN (16384, 768); softmax (196608, 512), the
@@ -123,8 +135,8 @@ Phases:
 11. the nd loop at bench.py's width (d 768, 12 heads, d_ff 3072, 12
    layers, vocab 32768, T 512, batch 32, float32): 2 warm-up and 5 timed
    steps; the loss must be finite and fall, and each step must launch the
-   LN kernels 25 times each (every backward on the one-pass route) and
-   the softmax kernel 12 times; then a profiled window of two steps
+   LN kernels 25 times each (every forward on the vector route, every
+   backward on the one-pass route) and the softmax kernel 12 times; then a profiled window of two steps
    (busy, idle, the row kernels' share), and one profiled layer-norm
    backward at the lane's (16384, 768): the one-pass kernel alone, no
    column-sum launch after it;
@@ -267,6 +279,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -559,9 +572,16 @@ def _consume(fut, stamps):
         stamps.append(time.perf_counter())
 
 
-def open_engine(serving, params, cfg, gen_kw, warm_prompt):
+def open_engine(serving, params, cfg, gen_kw, warm_prompt, capture=True):
     """A fresh engine with the model loaded and warmed by one short
-    request (first-call set-up stays out of the measured run)."""
+    request (first-call set-up stays out of the measured run): its steps
+    captured as CUDA graphs at load, or, with ``capture`` False, the eager
+    yardstick (``_GenerativeModel(_capture=False)``, the private argument
+    no user passes)."""
+    model_cls = serving._GenerativeModel
+    if not capture:
+        serving._GenerativeModel = functools.partial(model_cls,
+                                                     _capture=False)
     eng = serving.InferenceEngine(device="cuda")
     try:
         ep = eng.load_model("lm", generate={"params": params, "cfg": cfg,
@@ -572,6 +592,20 @@ def open_engine(serving, params, cfg, gen_kw, warm_prompt):
     except BaseException:
         eng.close()
         raise
+    finally:
+        serving._GenerativeModel = model_cls
+
+
+def _count_decode_steps(model):
+    """Counts the model's decode steps from here on (the token loop looks
+    ``model.decode`` up at every step): a one-element list."""
+    steps, real = [0], model.decode
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return real(*a, **kw)
+    model.decode = counted
+    return steps
 
 
 def drive(ep, prompts, max_new, sampled=()):
@@ -617,7 +651,84 @@ def wait_pages_free(ep, timeout=30.0):
             f"{ep.pool.reserved} reserved after all requests finished")
 
 
+def serve_run(serving, fa, common, params, cfg, prompts, max_new, warm,
+              gen_kw, capture, breakdown=False):
+    """One engine (captured steps, or the eager yardstick) over
+    ``prompts``, request 5 sampled: its streams, tok/s, TTFT and ITL p50,
+    prefix hits, decode steps and decode-kernel launches (each on the
+    split route, 12 a decode step, counted through graph replays), and,
+    with ``breakdown``, :func:`decode_breakdown` of its model. Checks
+    that a captured engine's load counted ``len(buckets) + 1`` compiles
+    and traces (an eager one none) and that traffic moved neither."""
+    counter = serving._telemetry.counter
+    compiles = counter("mxtpu_serve_compiles_total")
+    traces = counter("mxtpu_serve_gen_traces_total")
+    c0, t0 = compiles.value(model="lm"), traces.value(model="lm")
+    eng, ep = open_engine(serving, params, cfg, gen_kw, warm, capture)
+    label = ("captured" if capture else "eager") + (
+        " contiguous" if ep.model.paged is False else "")
+    kernel = ("flash_decode_step_paged" if ep.model.paged
+              else "flash_decode_step")
+    try:
+        c1, t1 = compiles.value(model="lm"), traces.value(model="lm")
+        want = len(ep.buckets) + 1 if capture else 0
+        if (c1 - c0, t1 - t0) != (want, want):
+            raise AssertionError(f"serve {label}: load counted {c1 - c0} "
+                                 f"compiles and {t1 - t0} traces, not "
+                                 f"{want}")
+        hits0 = eng.stats()["lm"].get("prefix_hits", 0)
+        steps = _count_decode_steps(ep.model)
+        fa.reset_launch_counts()
+        futs, stamps, outs, wall = drive(ep, prompts, max_new, sampled={5})
+        launches = fa.launch_counts()[kernel]
+        split = common.sm90_launch_counts()[kernel]
+        n_steps = steps[0]
+        if ep.pool is not None:
+            wait_pages_free(ep)
+        hits = eng.stats()["lm"].get("prefix_hits", 0) - hits0
+        if (compiles.value(model="lm"), traces.value(model="lm")) != (c1,
+                                                                     t1):
+            raise AssertionError(f"serve {label}: traffic moved the "
+                                 "compile or trace counter")
+        bd = decode_breakdown(ep.model) if breakdown else {}
+    finally:
+        eng.close()
+    for o in outs:
+        if not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError("token id out of vocabulary")
+    per_step = cfg.n_layers
+    if launches != per_step * n_steps or split != launches:
+        raise AssertionError(
+            f"serve {label}: {launches} {kernel} launches ({split} on the "
+            f"split route) in {n_steps} decode steps, not "
+            f"{per_step} a step, all split")
+    ttft = [s[0] - f.t_submit for f, s in zip(futs, stamps)]
+    itl = [b - a for s in stamps for a, b in zip(s, s[1:])]
+    n_tok = sum(len(o) for o in outs)
+    res = {"tok_s": n_tok / wall, "ttft_p50_ms": np.median(ttft) * 1e3,
+           "itl_p50_ms": np.median(itl) * 1e3, "prefix_hits": hits,
+           "decode_steps": n_steps, "launches": launches,
+           "compiles_at_load": c1 - c0, **bd}
+    log(f"serve {label}: {len(prompts)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s = {res['tok_s']:.1f} tok/s; TTFT p50 "
+        f"{res['ttft_p50_ms']:.2f} ms, ITL p50 {res['itl_p50_ms']:.2f} ms; "
+        f"prefix hits {hits}; {n_steps} decode steps, {launches} {kernel} "
+        f"launches (all split); compiles at load {c1 - c0}"
+        + (f"; step wall {bd['step_wall_ms']:.3f} ms, busy "
+           f"{_ms(bd['device_busy_ms'])} ms, idle "
+           f"{_ms(bd['device_idle_share'])}" if bd else ""))
+    return outs, res
+
+
 def serving_phase(serving, tt, fa, common, records):
+    """Phase 4: the full-width LM served by the paged engine (the default)
+    with its steps captured as CUDA graphs and by the eager yardstick, in
+    turns, two rounds each (captured, eager, eager, captured) on the same
+    16 prompts: every engine's streams equal (request 5 sampled), the
+    captured engine's load counting ``len(buckets) + 1`` compiles, the
+    decode kernel 12 launches a decode step on the split route, the
+    decode breakdown of both; then the contiguous engine's short pass,
+    captured and eager, streams equal."""
     cfg = tt.TransformerConfig(vocab_size=32768, d_model=768, n_heads=12,
                                d_ff=3072, n_layers=12, max_len=512,
                                dtype=torch.bfloat16)
@@ -638,63 +749,53 @@ def serving_phase(serving, tt, fa, common, records):
     max_new = 48
     warm = rng.randint(0, cfg.vocab_size, 16).astype(np.int32)
 
-    # paged engine: the default
-    eng, ep = open_engine(serving, params, cfg, {}, warm)
-    try:
-        hits0 = eng.stats()["lm"]["prefix_hits"]
-        fa.reset_launch_counts()
-        futs, stamps, outs, wall = drive(ep, prompts, max_new, sampled={5})
-        paged_launches = fa.launch_counts()
-        paged_split = common.sm90_launch_counts()
-        wait_pages_free(ep)
-        st = eng.stats()["lm"]
-        breakdown = decode_breakdown(ep.model)
-    finally:
-        eng.close()
-    for o in outs:
-        if not all(0 <= t < cfg.vocab_size for t in o):
-            raise AssertionError("token id out of vocabulary")
-    if st["prefix_hits"] - hits0 < 1:
-        raise AssertionError("the shared prefix never hit the prefix cache")
-    ttft = [s[0] - f.t_submit for f, s in zip(futs, stamps)]
-    itl = [b - a for s in stamps for a, b in zip(s, s[1:])]
-    n_tok = sum(len(o) for o in outs)
-    log(f"serve paged: {len(prompts)} requests, {n_tok} tokens in "
-        f"{wall:.3f} s = {n_tok / wall:.1f} tok/s; TTFT p50 "
-        f"{np.median(ttft) * 1e3:.2f} ms, ITL p50 "
-        f"{np.median(itl) * 1e3:.2f} ms; prefix hits "
-        f"{st['prefix_hits'] - hits0}; launches {paged_launches}")
-    if paged_launches["flash_decode_step_paged"] < 1:
-        raise AssertionError("paged serving never launched its kernel")
+    runs = {"captured": [], "eager": []}
+    streams = {}
+    for i, capture in enumerate((True, False, False, True)):
+        label = "captured" if capture else "eager"
+        outs, res = serve_run(serving, fa, common, params, cfg, prompts,
+                              max_new, warm, {}, capture,
+                              breakdown=i >= 2)
+        runs[label].append(res)
+        streams.setdefault(label, outs)
+        if outs != streams["captured"]:
+            raise AssertionError(f"serve {label} round {i}: token streams "
+                                 "differ from the captured engine's")
+        if res["prefix_hits"] < 1:
+            raise AssertionError("the shared prefix never hit the prefix "
+                                 "cache")
 
-    # contiguous engine: a short pass
+    # contiguous engine: a short pass, captured and eager
     short = prompts[1:5]
-    eng, ep = open_engine(serving, params, cfg, {"paged": 0}, warm)
-    try:
-        fa.reset_launch_counts()
-        _, _, outs_c, wall_c = drive(ep, short, 16)
-        contig_launches = fa.launch_counts()
-        contig_split = common.sm90_launch_counts()
-    finally:
-        eng.close()
-    log(f"serve contiguous: {len(short)} requests, "
-        f"{sum(map(len, outs_c))} tokens in {wall_c:.3f} s; launches "
-        f"{contig_launches}")
-    if contig_launches["flash_decode_step"] < 1:
-        raise AssertionError("contiguous serving never launched its kernel")
-    for name, launches, split in (
-            ("flash_decode_step_paged", paged_launches, paged_split),
-            ("flash_decode_step", contig_launches, contig_split)):
-        if split[name] != launches[name]:
-            raise AssertionError(f"{name}: {launches[name] - split[name]} "
-                                 "of the serving run's launches took the "
-                                 "old route")
+    contig = {}
+    for capture in (True, False):
+        outs, res = serve_run(serving, fa, common, params, cfg, short, 16,
+                              warm, {"paged": 0}, capture)
+        contig["captured" if capture else "eager"] = (outs, res)
+    if contig["captured"][0] != contig["eager"][0]:
+        raise AssertionError("serve contiguous: captured and eager streams "
+                             "differ")
     records["flash_decode_step_paged"]["launches"] = \
-        paged_launches["flash_decode_step_paged"]
+        runs["captured"][0]["launches"]
     records["flash_decode_step"]["launches"] = \
-        contig_launches["flash_decode_step"]
-    return {"tok_s": n_tok / wall, "ttft_p50_ms": np.median(ttft) * 1e3,
-            "itl_p50_ms": np.median(itl) * 1e3, **breakdown}
+        contig["captured"][1]["launches"]
+
+    def mean(label, key):
+        vals = [r[key] for r in runs[label] if r.get(key) is not None]
+        return sum(vals) / len(vals) if vals else None
+    keys = ("tok_s", "ttft_p50_ms", "itl_p50_ms")
+    out = {k: mean("captured", k) for k in keys}
+    out.update({f"eager_{k}": mean("eager", k) for k in keys})
+    for label, prefix in (("captured", ""), ("eager", "eager_")):
+        out.update({prefix + k: v for k, v in runs[label][-1].items()
+                    if k not in keys})
+    out["rounds"] = runs
+    log(f"serve paged, captured vs eager in turns (means of two rounds): "
+        f"tok/s {out['tok_s']:.1f} vs {out['eager_tok_s']:.1f}; TTFT p50 "
+        f"{out['ttft_p50_ms']:.2f} vs {out['eager_ttft_p50_ms']:.2f} ms; "
+        f"ITL p50 {out['itl_p50_ms']:.2f} vs {out['eager_itl_p50_ms']:.2f}"
+        f" ms; streams equal (request 5 sampled), contiguous too")
+    return out
 
 
 def _device_events(window, tries: int = 3):
@@ -1591,9 +1692,12 @@ def _ln_bwd_routes(ln, d):
 
 def row_kernel_errors(ln, sm, n, d, dt, g):
     """Every row kernel against its twin on one (n, d) input: {kernel:
-    error}, the LN backward's dgamma and dbeta relative to their largest
-    entry, on each of its routes (the route taken checked: the one-pass
-    kernel counts in ``sm90_launches``); with ``"column_sums_equal"``,
+    error}, the LN forward on its own route and the first design forced
+    (``_route="warp"``; the route taken checked: the vector kernel counts
+    in ``sm90_launches``), the LN backward's dgamma and dbeta relative to
+    their largest entry, on each of its routes (the route taken checked:
+    the one-pass kernel counts in ``sm90_launches``); with
+    ``"column_sums_equal"``,
     whether the one-pass kernel's dgamma and dbeta equal the twin's bit
     for bit (the twin sums in the kernel's order), None on the two-pass
     route."""
@@ -1601,8 +1705,21 @@ def row_kernel_errors(ln, sm, n, d, dt, g):
     gam = torch.randn((d,), generator=g, device="cuda")
     bet = torch.randn((d,), generator=g, device="cuda")
     dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
-    y, mu, rstd = ln.layer_norm_fwd(x, gam, bet)
     ry, rmu, rrstd = ln.layer_norm_reference(x, gam, bet)
+    fwd_err = 0.0
+    for route in (None, "warp"):
+        before = ln.layer_norm_fwd.sm90_launches
+        y, mu, rstd = ln.layer_norm_fwd(x, gam, bet, _route=route)
+        vec = ln.layer_norm_fwd.sm90_launches > before
+        if vec != (route is None and d <= ln.ONEPASS_MAX_D):
+            raise AssertionError(f"layer_norm_fwd d {d} _route {route}: "
+                                 f"vector kernel launched: {vec}")
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (y, mu, rstd)):
+            raise AssertionError(f"layer_norm_fwd {dt} n {n} d {d} "
+                                 f"_route {route}: non-finite output")
+        fwd_err = max(fwd_err, _row_err(y, ry), _max_err(mu, rmu),
+                      _rel_err(rstd, rrstd))
     rdx, rdg, rdb = ln.layer_norm_backward_reference(x, gam, rmu, rrstd, dy)
     bwd_err, equal = 0.0, None
     for route in _ln_bwd_routes(ln, d):
@@ -1624,12 +1741,10 @@ def row_kernel_errors(ln, sm, n, d, dt, g):
     p = sm.softmax_fwd(x)
     rp = sm.softmax_reference(x)
     torch.cuda.synchronize()
-    outs = (y, mu, rstd, p)
-    if not all(torch.isfinite(t).all() for t in outs):
-        raise AssertionError(f"row kernels {dt} n {n} d {d}: non-finite "
+    if not torch.isfinite(p).all():
+        raise AssertionError(f"softmax_fwd {dt} n {n} d {d}: non-finite "
                              "output")
-    return {"layer_norm_fwd": max(_row_err(y, ry), _max_err(mu, rmu),
-                                  _rel_err(rstd, rrstd)),
+    return {"layer_norm_fwd": fwd_err,
             "layer_norm_bwd": bwd_err,
             "softmax_fwd": _row_err(p, rp),
             "column_sums_equal": equal}
@@ -1671,15 +1786,55 @@ def ln_bwd_repeats(ln, n=16384, d=768):
 
 
 def ln_sass_check(common):
-    """layer_norm.cu's one-pass backward as built: each instantiation with
-    16-byte vector loads (LDG.E.128) and no local (spill) bytes."""
+    """layer_norm.cu's vector forward and one-pass backward as built: each
+    instantiation with 16-byte vector loads (LDG.E.128) and no local
+    (spill) bytes, both kernels present."""
     def name_of(mangled):
-        m = re.search(r"ln_bwd_onepass_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                      mangled)
+        m = re.search(r"(ln_fwd_vec_kernel|ln_bwd_onepass_kernel)"
+                      r"I(f|13__nv_bfloat16)Li(\d+)E", mangled)
         return (None if m is None else
-                f"ln_bwd_onepass_kernel<{_LSTM_TARGS[m.group(1)]},"
-                f"{m.group(2)}>")
-    return _sass_kernels(common, "layer_norm*.o", name_of, "LDG.E.128")
+                f"{m.group(1)}<{_LSTM_TARGS[m.group(2)]},{m.group(3)}>")
+    kernels = _sass_kernels(common, "layer_norm*.o", name_of, "LDG.E.128")
+    for name in ("ln_fwd_vec_kernel", "ln_bwd_onepass_kernel"):
+        if not any(k.startswith(name + "<") for k in kernels):
+            raise AssertionError(f"{name} is not in the build: "
+                                 f"{sorted(kernels)}")
+    return kernels
+
+
+def ln_fwd_repeats(ln, n=16384, d=768):
+    """The vector LN forward's y, mu and rstd from two calls and from a
+    CUDA-graph replay of a third, in float32 and bf16: bit for bit the
+    same."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        gam = torch.randn((d,), generator=g, device="cuda")
+        bet = torch.randn((d,), generator=g, device="cuda")
+        before = ln.layer_norm_fwd.sm90_launches
+        first = ln.layer_norm_fwd(x, gam, bet)
+        second = ln.layer_norm_fwd(x, gam, bet)
+        if ln.layer_norm_fwd.sm90_launches - before != 2:
+            raise AssertionError("layer_norm_fwd left the vector route")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ln.layer_norm_fwd(x, gam, bet)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = ln.layer_norm_fwd(x, gam, bet)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, outs in (("second call", second),
+                           ("graph replay", replayed)):
+            if not all(torch.equal(a, b) for a, b in zip(first, outs)):
+                raise AssertionError(f"layer_norm_fwd {dt}: the {name}'s "
+                                     "y, mu or rstd differ")
+        del graph
+    log(f"layer_norm_fwd ({n}, {d}) float32 and bf16: two calls and a "
+        f"CUDA-graph replay bitwise equal (y, mu, rstd)")
 
 
 LN_LANE = (16384, 768)         # the nd lane's rows: B 32 x T 512, d_model
@@ -1723,19 +1878,60 @@ def ln_bwd_timings(ln, routes, rounds: int = 2, shape=LN_LANE,
     return out
 
 
+def ln_fwd_timings(ln, rounds: int = 2, shape=LN_LANE):
+    """The LN forward at ``shape`` (the nd lane's (16384, 768)) in float32
+    and bf16: the vector kernel (its own route), the first design
+    (``_route="warp"``) and ``F.layer_norm`` (gamma and beta in x's type),
+    device, graph and event ms and host µs in turns (:func:`_in_turns`), x
+    rotated through copies beyond the 50 MB L2, beside the byte bound (x
+    and y once, gamma, beta, mu and rstd). Returns {dtype: {"bound_ms",
+    "mb", "vec"|"warp"|"library": record}}."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    F = torch.nn.functional
+    n, d = shape
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+        gam = torch.randn((d,), generator=g, device="cuda")
+        bet = torch.randn((d,), generator=g, device="cuda")
+        gl, bl = gam.to(dt), bet.to(dt)
+        rot = _Rotation(x, x)
+
+        def call(route):
+            return lambda: rot(lambda xx, _: ln.layer_norm_fwd(
+                xx, gam, bet, _route=route))
+        res = _in_turns(
+            {"vec": call(None), "warp": call("warp"),
+             "library": lambda: rot(lambda xx, _: F.layer_norm(
+                 xx, (d,), gl, bl, 1e-5))},
+            {"vec": ln.layer_norm_fwd, "warp": ln.layer_norm_fwd,
+             "library": None}, rounds)
+        moved = 2 * n * d * x.element_size() + 2 * d * 4 + 2 * n * 4
+        rec = {"mb": moved / 1e6, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               **res}
+        out[str(dt)[6:]] = rec
+        log(f"time layer_norm_fwd {str(dt)[6:]} ({n}, {d}) "
+            f"({moved / 1e6:.1f} MB, bound {rec['bound_ms']:.4f} ms): "
+            f"{_turns_line(res)}")
+        del rot, x
+    return out
+
+
 def row_kernel_checks(ln, sm, common):
     """Phase 10: the layer-norm and softmax kernels against their twins,
-    first over a sweep of widths (d 64 .. 32768, the LN backward on both
-    of its routes up to 1024 columns, scalar loads at d 66 and 100, 4096
-    rows at d 768, 1000 and 1024 for a many-block grid) and on
-    the inline route (rows not a multiple of 8: no launch, the plain
-    formula), the one-pass LN backward as built, its bitwise repeats; then
-    at the slice's shapes (LN (16384, 768), softmax (196608, 512): B 32,
-    H 12, T 512 attention scores) with times beside the twin, the library
-    call and the byte bound, the LN backward's one-pass and two-pass
-    kernels timed in turns (:func:`ln_bwd_timings`), there and in bf16 at
-    d 1024 (one block an SM). Returns the JSON
-    records (float32) and a log."""
+    first over a sweep of widths (d 64 .. 32768, the LN forward and
+    backward on both of their routes up to 1024 columns, scalar loads at
+    d 66 and 100, 4096 rows at d 768, 1000 and 1024 for a many-block
+    grid) and on the inline route (rows not a multiple of 8: no launch,
+    the plain formula), the vector LN forward and the one-pass LN backward
+    as built, their bitwise repeats; then at the slice's shapes (LN
+    (16384, 768), softmax (196608, 512): B 32, H 12, T 512 attention
+    scores) with times beside the twin, the library call and the byte
+    bound, the LN forward's vector kernel, first design and library call
+    timed in turns (:func:`ln_fwd_timings`), the LN backward's one-pass
+    and two-pass kernels (:func:`ln_bwd_timings`), there and in bf16 at
+    d 1024 (one block an SM). Returns the JSON records (float32) and a
+    log."""
     timings = {"ln_sass": ln_sass_check(common)}
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst, equal = {}, {}
@@ -1780,6 +1976,9 @@ def row_kernel_checks(ln, sm, common):
         f"twin's: {json.dumps(equal)}")
     timings["sweep"] = worst
     timings["sweep_column_sums_equal"] = equal
+    ln_fwd_repeats(ln)
+    fwd_times = ln_fwd_timings(ln)
+    timings["layer_norm_fwd turns"] = fwd_times
     ln_bwd_repeats(ln)
     ln_times = ln_bwd_timings(ln, {"onepass": None, "twopass": "twopass"})
     timings["layer_norm_bwd turns"] = ln_times
@@ -1851,6 +2050,19 @@ def row_kernel_checks(ln, sm, common):
                    "bound_by": ("bytes" if t_bytes >= t_ops
                                 else "operations"),
                    "library_ms": library_ms}
+            if name == "layer_norm_fwd":
+                new_, old_ = (fwd_times[str(dt)[6:]][k]
+                              for k in ("vec", "warp"))
+                rec.update(device_ms=new_["device_ms"],
+                           graph_ms=new_["graph_ms"],
+                           event_ms_rotated=new_["event_ms"],
+                           host_us=new_["host_us"],
+                           earlier_device_ms=old_["device_ms"],
+                           earlier_graph_ms=old_["graph_ms"],
+                           earlier_event_ms_rotated=old_["event_ms"],
+                           earlier_host_us=old_["host_us"],
+                           library_device_ms=fwd_times[str(dt)[6:]][
+                               "library"]["device_ms"])
             if name == "layer_norm_bwd":
                 one = ln_times[str(dt)[6:]]["onepass"]
                 two = ln_times[str(dt)[6:]]["twopass"]
@@ -1944,16 +2156,23 @@ def nd_train_phase(tt, nd_lm, mx, common, records, steps=5):
         raise AssertionError(f"layer_norm_bwd took the one-pass route "
                              f"{onepass} of {launches['layer_norm_bwd']} "
                              "times in the nd steps")
+    vec = common.sm90_launch_counts()["layer_norm_fwd"]
+    if vec != launches["layer_norm_fwd"]:
+        raise AssertionError(f"layer_norm_fwd took the vector route {vec} "
+                             f"of {launches['layer_norm_fwd']} times in "
+                             "the nd steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     breakdown = kernel_breakdown(
         "nd", lambda: step(99),
-        ("ln_fwd_warp_kernel", "ln_fwd_block_kernel", "ln_bwd_kernel",
+        ("ln_fwd_vec_kernel", "ln_fwd_warp_kernel", "ln_fwd_block_kernel",
+         "ln_bwd_kernel",
          "ln_bwd_onepass_kernel", "softmax_warp_kernel",
          "softmax_block_kernel"))
     return {"step_ms": wall / steps * 1e3, "tok_s": B * T * steps / wall,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb,
             "layer_norm_bwd_onepass_per_step": onepass // steps,
+            "layer_norm_fwd_vec_per_step": vec // steps,
             "layer_norm_backward_kernels": ln_backward_kernels(
                 B * T, cfg.d_model),
             **breakdown}

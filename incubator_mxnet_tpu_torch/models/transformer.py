@@ -510,16 +510,28 @@ def init_kv_cache(cfg: TransformerConfig, slots: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def _index1(v, dev):
+    """A (1,) int64 index on ``dev`` from a Python int or an integer
+    tensor of one element (a view when it already is one there)."""
+    return torch.as_tensor(v, dtype=torch.int64, device=dev).reshape(1)
+
+
 def transformer_prefill(params, tokens, cfg: TransformerConfig, cache,
-                        slot: int, length: int):
+                        slot, length):
     """Prompt pass for ONE request: tokens (1, T) (padded to its bucket;
     real extent ``length``) writes K/V for positions [0, T) into cache slot
     ``slot`` (in place) and returns (cache, logits (vocab,)) — the
     next-token logits at position ``length - 1``. Padded tail positions
     sit beyond the slot's valid length until a decode step overwrites
-    them, so they are never attended to."""
+    them, so they are never attended to. ``slot`` and ``length`` are
+    Python ints or one-element integer tensors on the tokens' device (the
+    reference's traced ``i32`` scalars): the write is a tensor-indexed
+    copy and the logits row an ``index_select``, so a CUDA graph captured
+    on tensors serves any slot and length."""
     B, T = tokens.shape
     H, D = cfg.n_heads, cfg.head_dim
+    dev = tokens.device
+    slot_i = _index1(slot, dev)
     x = params["embed"][tokens] + params["pos_embed"][:T][None]
     for i, lp in enumerate(params["layers"]):
         h = _layernorm(x, lp["ln1_g"], lp["ln1_b"])
@@ -527,13 +539,16 @@ def transformer_prefill(params, tokens, cfg: TransformerConfig, cache,
         k = (h @ lp["wk"]).reshape(B, T, H, D)
         v = (h @ lp["wv"]).reshape(B, T, H, D)
         kd = cache["k"].dtype
-        cache["k"][i, slot, :, :T] = k[0].transpose(0, 1).to(kd)
-        cache["v"][i, slot, :, :T] = v[0].transpose(0, 1).to(kd)
+        cache["k"][i, :, :, :T].index_copy_(
+            0, slot_i, k[0].transpose(0, 1).to(kd)[None])
+        cache["v"][i, :, :, :T].index_copy_(
+            0, slot_i, v[0].transpose(0, 1).to(kd)[None])
         attn = attention_reference(q, k, v, causal=True)
         x = x + attn.reshape(B, T, cfg.d_model) @ lp["wo"]
         x = _mlp(x, lp)
     x = _layernorm(x, params["final_ln_g"], params["final_ln_b"])
-    logits = x[0, length - 1] @ params["embed"].T
+    last = x[0].index_select(0, _index1(length, dev) - 1)[0]
+    logits = last @ params["embed"].T
     return cache, logits
 
 
@@ -590,7 +605,7 @@ def init_paged_kv_cache(cfg: TransformerConfig, n_pages: int,
 
 
 def transformer_prefill_paged(params, tokens, cfg: TransformerConfig,
-                              cache, pages, start: int, n_valid: int):
+                              cache, pages, start, n_valid):
     """ONE chunk of one request's prompt pass over the paged pool: tokens
     (1, T) (the chunk, padded to its bucket; real extent ``n_valid``),
     ``pages`` (max_pages,) — the request's block-table row (unallocated
@@ -600,7 +615,10 @@ def transformer_prefill_paged(params, tokens, cfg: TransformerConfig,
     (vocab,)) at chunk row ``n_valid - 1``. A whole prompt is
     ``start=0, n_valid=n``; chunked prefill calls this per chunk with
     advancing ``start`` (each chunk attends over the same fixed gathered
-    span, masked by absolute position)."""
+    span, masked by absolute position). ``start`` and ``n_valid`` are
+    Python ints or one-element integer tensors on the tokens' device (the
+    reference's traced ``i32`` scalars), so a CUDA graph captured on
+    tensors serves any chunk of its bucket."""
     B, T = tokens.shape
     H, D = cfg.n_heads, cfg.head_dim
     dev = tokens.device
@@ -613,8 +631,11 @@ def transformer_prefill_paged(params, tokens, cfg: TransformerConfig,
             f"block-table extent {L} ({n_pages_row} pages x page_len "
             f"{page_len}) exceeds cfg.max_len {cfg.max_len} "
             "(positional embedding extent)")
-    abs_pos = start + torch.arange(T, device=dev)
-    valid = torch.arange(T, device=dev) < n_valid
+    rows = torch.arange(T, device=dev)
+    abs_pos = torch.as_tensor(start, dtype=torch.int64,
+                              device=dev).reshape(()) + rows
+    valid = rows < torch.as_tensor(n_valid, dtype=torch.int64,
+                                   device=dev).reshape(())
     # positional rows are gathered per row by CLIPPED absolute position: a
     # padded tail chunk can run past max_len, and clipping only ever
     # distorts padded rows, whose K/V lands in the trash page
@@ -649,7 +670,8 @@ def transformer_prefill_paged(params, tokens, cfg: TransformerConfig,
         x = x + attn.reshape(B, T, cfg.d_model) @ lp["wo"]
         x = _mlp(x, lp)
     x = _layernorm(x, params["final_ln_g"], params["final_ln_b"])
-    logits = x[0, n_valid - 1] @ params["embed"].T
+    last = x[0].index_select(0, _index1(n_valid, dev) - 1)[0]
+    logits = last @ params["embed"].T
     return cache, logits
 
 

@@ -20,7 +20,8 @@ import torch
 __all__ = ["NEG_INF", "pick_block", "pick_row_block", "kernel_library", "check_launch",
            "current_stream_handle", "counted_kernel", "launch_counts",
            "sm90_launch_counts", "x3_launch_counts", "reset_launch_counts",
-           "sm_count",
+           "launch_count_snapshot", "launch_count_delta",
+           "add_launch_counts", "sm_count",
            "ticket_buffer", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -52,6 +53,7 @@ _SIGNATURES = {
     "mxt_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 7 + [_F, _P],
     "mxt_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 7 + [_F, _P],
     "mxt_layer_norm_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "mxt_layer_norm_fwd_vec": [_P] * 6 + [_I] * 5 + [_F, _P],
     "mxt_layer_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "mxt_layer_norm_bwd_onepass": [_P] * 10 + [_I] * 5 + [_P],
     "mxt_softmax_fwd": [_P, _P, _I, _I, _I, _P],
@@ -135,6 +137,40 @@ def reset_launch_counts() -> None:
         f.launches = 0
         f.sm90_launches = 0
         f.x3_launches = 0
+
+
+_COUNTS = ("launches", "sm90_launches", "x3_launches")
+
+
+def launch_count_snapshot():
+    """{kernel wrapper name: (launches, sm90_launches, x3_launches)}."""
+    return {f.__name__: tuple(getattr(f, c) for c in _COUNTS)
+            for f in _KERNELS}
+
+
+def launch_count_delta(before):
+    """The counts each wrapper gained since ``before`` (a
+    :func:`launch_count_snapshot`): {name: (launches, sm90, x3)} for the
+    wrappers that gained any."""
+    now = launch_count_snapshot()
+    out = {}
+    for name, counts in now.items():
+        gained = tuple(a - b for a, b in zip(counts, before[name]))
+        if any(gained):
+            out[name] = gained
+    return out
+
+
+def add_launch_counts(delta, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`launch_count_delta`) to the
+    wrappers' counts: a CUDA graph's replay launches what its capture
+    recorded, though no wrapper runs (``times=-1`` takes back what a
+    capture counted without launching)."""
+    for f in _KERNELS:
+        gained = delta.get(f.__name__)
+        if gained:
+            for c, g in zip(_COUNTS, gained):
+                setattr(f, c, getattr(f, c) + times * g)
 
 
 def pick_block(dim: int, preferred: int) -> int:

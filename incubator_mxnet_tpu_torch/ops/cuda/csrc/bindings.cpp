@@ -40,6 +40,10 @@ int flash_bwd_sm90_launch(int dkv, int layout, const void* q, const void* k,
 int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
                           const float* beta, void* y, float* mu, float* rstd,
                           int n, int d, float eps, void* stream);
+int layer_norm_fwd_vec_launch(int dtype, const void* x, const float* gamma,
+                              const float* beta, void* y, float* mu,
+                              float* rstd, int n, int d, float eps,
+                              int rows_per_block, int blocks, void* stream);
 int layer_norm_bwd_launch(int dtype, const void* x, const float* gamma,
                           const float* mu, const float* rstd, const void* dy,
                           void* dx, float* dg, float* db, int n, int d,
@@ -320,6 +324,18 @@ int mxt_layer_norm_fwd(const void* x, const void* gamma, const void* beta,
                                static_cast<const float*>(beta), y,
                                static_cast<float*>(mu),
                                static_cast<float*>(rstd), n, d, eps, stream);
+}
+
+// The vector forward (d <= 1024): y like x; mu/rstd (n,) float32; block b
+// owns rows [b rows_per_block, ...).
+int mxt_layer_norm_fwd_vec(const void* x, const void* gamma,
+                           const void* beta, void* y, void* mu, void* rstd,
+                           int n, int d, int rows_per_block, int blocks,
+                           int dtype, float eps, void* stream) {
+  return layer_norm_fwd_vec_launch(
+      dtype, x, static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), y, static_cast<float*>(mu),
+      static_cast<float*>(rstd), n, d, eps, rows_per_block, blocks, stream);
 }
 
 // dx like x; dg/db (ceil(n / rows_per_block), d) float32 column partials

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of
 // incubator_mxnet_tpu/ops/pallas/layer_norm.py:
-//   ln_fwd_warp_kernel / ln_fwd_block_kernel  <-  _run_fwd / _fwd_kernel
+//   ln_fwd_vec_kernel (d <= 1024)      \  <-  _run_fwd / _fwd_kernel
+//   ln_fwd_block_kernel (d > 1024)     /
 //       y = (x - mu) * rstd * gamma + beta in x's type, plus mu and rstd
 //       (n, 1) float32; var = mean((x - mu)^2), two passes as the reference
 //   ln_bwd_onepass_kernel (d <= 1024)  \  <-  _ln_bwd / _bwd_kernel
@@ -20,6 +21,23 @@
 // registers (32 values a lane at most), so x is read from device memory
 // once; wider rows (the reference kernelises any d up to 65,536) take one
 // block per row and re-read the row, which L1/L2 mostly serve.
+//
+// The forward for d <= 1024 (ln_fwd_vec_kernel) is bound by bytes only if
+// it keeps enough loads in flight with few instructions:
+//   * one warp a row, the row in registers, brought in by 16-byte loads and
+//     written by 16-byte stores (4 float32 or 8 bf16 values a lane) where
+//     x, y, gamma and beta start on 16 bytes and a row is a multiple of 16
+//     bytes, masked scalar accesses otherwise;
+//   * gamma and beta read once a warp into registers, as float32, for all
+//     of its rows;
+//   * a persistent grid (blocks an SM from the values a lane holds, SM
+//     count cached by the caller), each block walking a run of rows with
+//     its kFwdWarps warps, each warp issuing its next row's loads before
+//     the current row's sums and stores.
+// ln_fwd_warp_kernel, the first design (a warp a row, one element a lane a
+// load, gamma and beta read from device memory for every element, a warp
+// leaving after its row), stays behind the wrapper's private
+// _route="warp" as the yardstick.
 //
 // The backward for d <= 1024 (ln_bwd_onepass_kernel) reads x and dy once:
 //   * one warp a row, the row in registers, brought in by 16-byte vector
@@ -505,6 +523,197 @@ int bwd_onepass(const BwdArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------------- the vector forward
+constexpr int kFwdWarps = 8;          // warps of a block, a row each at a time
+
+// Blocks an SM the grid is sized for (the caller's plan,
+// layer_norm_fwd_blocks_per_sm) and the launch bound asks registers for,
+// by the values a lane holds of a row: four up to 8, two up to
+// kBwdTwoBlockValues (24: bf16 rows up to 768, float32 up to 768), one
+// above. A lane keeps the row as float32, the next row's loads as raw
+// 16-byte words, and gamma and beta as float32.
+template <typename T, int kV>
+constexpr int fwd_blocks_per_sm() {
+  constexpr int kC = kV * kBwdVecBytes / static_cast<int>(sizeof(T));
+  return kC <= 8 ? 4 : kC <= kBwdTwoBlockValues ? 2 : 1;
+}
+
+struct FwdArgs {
+  const void* x; const float* gamma; const float* beta;
+  void* y; float* mu; float* rstd;
+  int n, d, rows_per_block, vec;
+  float eps;
+};
+
+// 16 bytes of a row from column c (kE values, zero past d) as raw words:
+// one vector load where rows start on 16 bytes (a chunk is then wholly
+// inside the row or wholly past it), else kE masked scalar loads
+__device__ __forceinline__ uint4 ld_chunk(const float* p, int c, int d,
+                                          bool vec) {
+  if (vec)
+    return c < d ? __ldg(reinterpret_cast<const uint4*>(p + c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    w[e] = c + e < d ? __float_as_uint(__ldg(p + c + e)) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 ld_chunk(const __nv_bfloat16* p, int c,
+                                          int d, bool vec) {
+  if (vec)
+    return c < d ? __ldg(reinterpret_cast<const uint4*>(p + c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < d)
+      w[e >> 1] |= static_cast<uint32_t>(__bfloat16_as_ushort(p[c + e]))
+                   << (16 * (e & 1));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// raw words to float32: 4 float32 or 8 bf16 values
+__device__ __forceinline__ void unpack(const uint4& q, float* v, float) {
+  v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack(const uint4& q, float* v,
+                                       __nv_bfloat16) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Block b owns rows [b rows_per_block, ...); warp w takes its rows w,
+// w + kFwdWarps, ... of them. Lane l holds the columns kE (l + 32 j) ..
+// kE (l + 32 j) + kE - 1 of chunk j < kV in every row, and gamma and beta
+// at those columns in registers for all of the warp's rows. The next
+// row's loads are issued before the current row's sums and stores; the
+// arithmetic is the first design's: the sum, the mean, the sum of squared
+// deviations from the registers, rstd, then y.
+template <typename T, int kV>
+__global__ void __launch_bounds__(32 * kFwdWarps, fwd_blocks_per_sm<T, kV>())
+ln_fwd_vec_kernel(FwdArgs a) {
+  constexpr int kE = kBwdVecBytes / sizeof(T);
+  constexpr int kC = kV * kE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = a.d;
+  const bool vec = a.vec;
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
+  const int r0 = blockIdx.x * a.rows_per_block;
+  const int r1 = min(a.n, r0 + a.rows_per_block);
+  int r = r0 + warp;
+  if (r >= r1) return;                    // the whole warp leaves together
+
+  auto load_row = [&](int row, uint4 (&dst)[kV]) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      dst[j] = ld_chunk(xr, kE * (lane + 32 * j), d, vec);
+  };
+  uint4 raw[kV];                          // a row's loads, a row ahead
+  load_row(r, raw);
+
+  float gv[kC], bv[kC];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const int c = kE * (lane + 32 * j);
+    if (vec) {
+#pragma unroll
+      for (int e = 0; e < kE; e += 4) {
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f), u = q;
+        if (c < d) {
+          q = __ldg(reinterpret_cast<const float4*>(a.gamma + c + e));
+          u = __ldg(reinterpret_cast<const float4*>(a.beta + c + e));
+        }
+        gv[kE * j + e] = q.x; gv[kE * j + e + 1] = q.y;
+        gv[kE * j + e + 2] = q.z; gv[kE * j + e + 3] = q.w;
+        bv[kE * j + e] = u.x; bv[kE * j + e + 1] = u.y;
+        bv[kE * j + e + 2] = u.z; bv[kE * j + e + 3] = u.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const bool in = c + e < d;
+        gv[kE * j + e] = in ? __ldg(a.gamma + c + e) : 0.f;
+        bv[kE * j + e] = in ? __ldg(a.beta + c + e) : 0.f;
+      }
+    }
+  }
+
+  for (; r < r1; r += kFwdWarps) {
+    float v[kC];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) unpack(raw[j], v + kE * j, T());
+    if (r + kFwdWarps < r1) load_row(r + kFwdWarps, raw);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kC; ++k) s += v[k];
+    const float m = rows::warp_sum(s) / static_cast<float>(d);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int k = kE * j + e;
+        v[k] = kE * (lane + 32 * j) + e < d ? v[k] - m : 0.f;
+        q += v[k] * v[k];
+      }
+    const float rs =
+        rsqrtf(rows::warp_sum(q) / static_cast<float>(d) + a.eps);
+    T* yr = y + static_cast<size_t>(r) * d;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = kE * (lane + 32 * j);
+      float out[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int k = kE * j + e;
+        out[e] = v[k] * rs * gv[k] + bv[k];
+      }
+      if (vec) {
+        if (c < d) st16(yr + c, out);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          if (c + e < d) yr[c + e] = from_float<T>(out[e]);
+      }
+    }
+    if (lane == 0) {
+      a.mu[r] = m;
+      a.rstd[r] = rs;
+    }
+  }
+}
+
+template <typename T, int kV>
+int fwd_vec_launch(const FwdArgs& a, int blocks, cudaStream_t st) {
+  ln_fwd_vec_kernel<T, kV><<<blocks, 32 * kFwdWarps, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_vec(const FwdArgs& a, int blocks, cudaStream_t st) {
+  // chunks a lane: the smallest instantiated count covering the row (at
+  // most 8 float32 or 4 bf16 chunks for d <= 1024)
+  constexpr int kE = kBwdVecBytes / sizeof(T);
+  const int v = (a.d + 32 * kE - 1) / (32 * kE);
+  if (v <= 1) return fwd_vec_launch<T, 1>(a, blocks, st);
+  if (v <= 2) return fwd_vec_launch<T, 2>(a, blocks, st);
+  if (v <= 3) return fwd_vec_launch<T, 3>(a, blocks, st);
+  if (v <= 4) return fwd_vec_launch<T, 4>(a, blocks, st);
+  if constexpr (kE == 4) {
+    if (v <= 6) return fwd_vec_launch<T, 6>(a, blocks, st);
+    return fwd_vec_launch<T, 8>(a, blocks, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int kCols>
 void fwd_warp(const void* x, const float* g, const float* b, void* y,
               float* mu, float* rstd, int n, int d, float eps,
@@ -557,6 +766,32 @@ int layer_norm_fwd_launch(int dtype, const void* x, const float* gamma,
   if (dtype == 1)
     return fwd<__nv_bfloat16>(x, gamma, beta, y, mu, rstd, n, d, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The vector forward, d <= 1024: block b owns rows [b rows_per_block,
+// ...), so blocks = ceil(n / rows_per_block). 16-byte loads and stores
+// when x, y, gamma and beta start on 16 bytes and a row is a multiple of
+// 16 bytes.
+int layer_norm_fwd_vec_launch(int dtype, const void* x, const float* gamma,
+                              const float* beta, void* y, float* mu,
+                              float* rstd, int n, int d, float eps,
+                              int rows_per_block, int blocks, void* stream) {
+  if (n == 0) return 0;
+  if (d < 1 || d > rows::kWarpRowMaxD || rows_per_block < 1 || blocks < 1 ||
+      (long long)(blocks - 1) * rows_per_block >= n ||
+      (long long)blocks * rows_per_block < n || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int esz = dtype == 0 ? 4 : 2;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % kBwdVecBytes == 0;
+  };
+  const int vec = aligned(x) && aligned(y) && aligned(gamma) &&
+                  aligned(beta) && (d * esz) % kBwdVecBytes == 0;
+  const FwdArgs a{x, gamma, beta, y, mu, rstd, n, d, rows_per_block, vec,
+                  eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? fwd_vec<float>(a, blocks, st)
+                    : fwd_vec<__nv_bfloat16>(a, blocks, st);
 }
 
 // The one-pass backward, d <= 1024: dgamma/dbeta (d,) float32 sums; ws

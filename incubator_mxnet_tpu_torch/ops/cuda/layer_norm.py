@@ -6,6 +6,10 @@ Counterpart of ``incubator_mxnet_tpu/ops/pallas/layer_norm.py``:
 * ``layer_norm_reference`` / ``layer_norm_backward_reference`` — plain
   twins of the kernels ``layer_norm_fwd`` (y, mu, rstd) and
   ``layer_norm_bwd`` (dx, dgamma, dbeta);
+* ``layer_norm_fwd_route`` — the forward's route by row width: rows of at
+  most 1024 take the vector kernel (16-byte loads and stores, gamma and
+  beta in registers, a persistent grid, counted in ``sm90_launches``
+  beside ``launches``); wider rows the block kernel;
 * ``layer_norm_bwd_route`` — the backward's route by row width: rows of
   at most 1024 take the one-pass kernel (x and dy read once, dgamma and
   dbeta finished inside the launch, counted in ``sm90_launches`` beside
@@ -32,8 +36,10 @@ from .common import (check_launch, counted_kernel, current_stream_handle,
 
 __all__ = ["layer_norm_reference", "layer_norm_backward_reference",
            "layer_norm_fwd", "layer_norm_bwd", "layer_norm",
-           "layer_norm_viable", "layer_norm_bwd_route",
-           "layer_norm_bwd_plan", "layer_norm_bwd_blocks_per_sm"]
+           "layer_norm_viable", "layer_norm_fwd_route",
+           "layer_norm_fwd_plan", "layer_norm_fwd_blocks_per_sm",
+           "layer_norm_bwd_route", "layer_norm_bwd_plan",
+           "layer_norm_bwd_blocks_per_sm"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_MAX_ROWS = 3072        # rows a two-pass block stats in shared memory
@@ -45,6 +51,37 @@ BWD_VEC_BYTES = 16          # a lane's vector load
 # a row's values a lane holds, at most, for two bf16 blocks an SM
 BWD_TWO_BLOCK_VALUES = 24
 H100_SMS = 132              # the twin's SM count on the CPU
+# the vector forward (layer_norm.cu kFwdWarps, fwd_blocks_per_sm)
+FWD_WARPS = 8               # warps of a block
+
+
+def layer_norm_fwd_route(d: int) -> str:
+    """"vec" for rows of at most 1024 (a warp a row in registers, 16-byte
+    loads and stores, a persistent grid), "block" for wider rows (a block
+    a row)."""
+    return "vec" if d <= ONEPASS_MAX_D else "block"
+
+
+def layer_norm_fwd_blocks_per_sm(d: int, itemsize: int) -> int:
+    """Blocks an SM the vector forward's grid is sized for, the minimum
+    that its launch bound asks registers for (layer_norm.cu
+    fwd_blocks_per_sm), by the values a lane holds of a row (whole 16-byte
+    chunks): four up to 8, two up to ``BWD_TWO_BLOCK_VALUES``, else one."""
+    per_vec = BWD_VEC_BYTES // itemsize
+    values = -(-d // (32 * per_vec)) * per_vec
+    return 4 if values <= 8 else 2 if values <= BWD_TWO_BLOCK_VALUES else 1
+
+
+def layer_norm_fwd_plan(n: int, d: int, itemsize: int,
+                        sms: int = H100_SMS) -> tuple[int, int]:
+    """The vector forward's grid over n rows of d ``itemsize``-byte values
+    on a card of ``sms`` SMs: (rows a block, blocks). Block b walks rows
+    [b R, b R + R) with ``FWD_WARPS`` warps, warp w taking rows w,
+    w + FWD_WARPS, ...."""
+    blocks = min(-(-n // FWD_WARPS),
+                 layer_norm_fwd_blocks_per_sm(d, itemsize) * sms)
+    rows = -(-n // blocks)
+    return rows, -(-n // rows)
 
 
 def layer_norm_bwd_route(d: int) -> str:
@@ -172,10 +209,15 @@ def _stats_f32(name: str, t, n: int):
 
 
 @counted_kernel
-def layer_norm_fwd(x2, gamma, beta, eps: float = 1e-5):
+def layer_norm_fwd(x2, gamma, beta, eps: float = 1e-5, _route=None):
     """CUDA layer-norm forward (replaces the Pallas ``_run_fwd``): x2 (n, d)
     float32 or bfloat16, gamma/beta (d,) of any float type. Returns (y like
-    x2, mu (n, 1) float32, rstd (n, 1) float32)."""
+    x2, mu (n, 1) float32, rstd (n, 1) float32). The route is
+    :func:`layer_norm_fwd_route`'s; ``_route="warp"`` forces the first
+    design (a warp a row, scalar accesses; the block kernel above 1024
+    columns)."""
+    if _route not in (None, "warp"):
+        raise ValueError(f"layer_norm_fwd: _route {_route!r}")
     _check_rows("layer_norm_fwd", x2, gamma, beta)
     n, d = x2.shape
     g = _vec_f32("layer_norm_fwd", gamma, d)
@@ -183,12 +225,22 @@ def layer_norm_fwd(x2, gamma, beta, eps: float = 1e-5):
     y = torch.empty_like(x2)
     mu = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
     rstd = torch.empty_like(mu)
-    code = kernel_library().mxt_layer_norm_fwd(
-        x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-        mu.data_ptr(), rstd.data_ptr(), n, d, _DTYPE_CODE[x2.dtype],
-        float(eps), current_stream_handle(x2))
+    vec = _route is None and d > 0 and layer_norm_fwd_route(d) == "vec"
+    if vec:
+        rows, blocks = layer_norm_fwd_plan(max(n, 1), d, x2.element_size(),
+                                           sm_count(x2.device))
+        code = kernel_library().mxt_layer_norm_fwd_vec(
+            x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), n, d, rows, blocks,
+            _DTYPE_CODE[x2.dtype], float(eps), current_stream_handle(x2))
+    else:
+        code = kernel_library().mxt_layer_norm_fwd(
+            x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), n, d, _DTYPE_CODE[x2.dtype],
+            float(eps), current_stream_handle(x2))
     check_launch(code, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
+    layer_norm_fwd.sm90_launches += vec
     return y, mu, rstd
 
 

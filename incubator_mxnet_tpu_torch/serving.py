@@ -20,12 +20,20 @@ trash page, ``MXTPU_SERVE_GEN_PAGED=1``) is the default; ``paged=0`` keeps
 the dense slotted cache. Decode-step attention runs through the port's
 CUDA kernels on the card.
 
+The reference's ``len(buckets) + 1`` AOT executables are CUDA graphs
+here: at load, on the card, ``_GenerativeModel`` captures one prefill
+graph a prompt bucket and one decode-step graph over static input
+buffers, all from one memory pool; a call copies its inputs in (one copy
+for the integers, one for the floats), replays, and reads the tokens
+back with one ``.cpu()``, the step's one synchronisation. Each capture
+counts in ``mxtpu_serve_compiles_total``; ``mxtpu_serve_gen_traces_total``
+is bumped inside the step bodies while they are captured, so load moves
+both and traffic neither. A capture that fails raises at ``load_model``.
+
 Differences from the JAX engine:
 
-* execution is eager — there are no per-bucket AOT executables, so
-  ``mxtpu_serve_compiles_total`` and ``mxtpu_serve_gen_traces_total`` are
-  not emitted (capturing the prefill buckets and the decode step as CUDA
-  graphs is later work);
+* on the CPU there is no graph: the same step bodies run eagerly on the
+  same static buffers at every call, and both counters stay at 0;
 * the KV cache is updated in place, so a failed call leaves the other
   slots' K/V intact and ``_GenerativeModel.recover`` never has to rebuild;
 * sampling draws counter-based Gumbel noise hashed from (seed, position,
@@ -52,6 +60,7 @@ import torch
 from . import chaos
 from . import telemetry as _telemetry
 from .context import resolve_device
+from .ops.cuda import common as _kcommon
 
 __all__ = ["ServeError", "QueueFullError", "EngineClosedError",
            "RequestAborted", "SwapError", "DeadlineError",
@@ -463,6 +472,68 @@ def sample_tokens(logits, temps, topks, topps, seeds, positions):
     return torch.where(temps > 0, drawn, greedy)
 
 
+# -------------------------------------------------------------------- steps
+class _StepInputs:
+    """A step's static inputs: named int64 and float32 fields, each kind
+    packed into one device buffer that the step's body reads. ``h`` holds
+    numpy views of a host buffer beside it (pinned, on the card; the
+    device buffer itself, on the CPU) that a call writes, and
+    :meth:`load` moves them with one copy a kind."""
+
+    def __init__(self, device, ints, floats):
+        self.t, self.h, self._pairs = {}, {}, []
+        for dtype, fields in ((torch.int64, ints), (torch.float32, floats)):
+            n = sum(int(_np.prod(shape)) for shape in fields.values())
+            dev = torch.zeros(n, dtype=dtype, device=device)
+            host = (torch.zeros(n, dtype=dtype, pin_memory=True)
+                    if dev.is_cuda else dev)
+            view = host.numpy()
+            off = 0
+            for name, shape in fields.items():
+                k = int(_np.prod(shape))
+                self.t[name] = dev[off:off + k].view(shape)
+                self.h[name] = view[off:off + k].reshape(shape)
+                off += k
+            self._pairs.append((dev, host))
+
+    def load(self) -> None:
+        for dev, host in self._pairs:
+            if dev is not host:
+                dev.copy_(host, non_blocking=True)
+
+
+class _StepGraph:
+    """One serving step: ``body()`` reads its :class:`_StepInputs` and
+    returns the step's token tensor. Once captured (:meth:`capture`), a
+    call replays the CUDA graph and returns the static output; before,
+    or never captured (the CPU, the eager yardstick), a call runs the
+    body. A replay runs no kernel wrapper, so the launch counts the
+    wrappers gained during capture, which launched nothing, are taken
+    back then and added again on every replay."""
+
+    def __init__(self, body, inputs: _StepInputs):
+        self.body, self.inputs = body, inputs
+        self.graph, self.out, self.counts = None, None, {}
+
+    def capture(self, graph, capturing) -> None:
+        """Run the body inside ``capturing`` (``torch.cuda.graph`` on
+        ``graph``) and keep the graph and its output."""
+        before = _kcommon.launch_count_snapshot()
+        with capturing:
+            self.out = self.body()
+        self.counts = _kcommon.launch_count_delta(before)
+        _kcommon.add_launch_counts(self.counts, -1)
+        self.graph = graph
+
+    def __call__(self):
+        self.inputs.load()
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        _kcommon.add_launch_counts(self.counts)
+        return self.out
+
+
 # -------------------------------------------------------------------- model
 class _GenerativeModel:
     """KV-cache generation over the port's transformer — PAGED by default
@@ -473,13 +544,17 @@ class _GenerativeModel:
     page_len, head_dim)`` (the +1 is the trash page) and the prefill /
     decode calls take the request's block-table row(s). Prompts (and
     prefill chunks) are padded to their bucket, so each call runs at one
-    of ``len(buckets)`` prefill shapes or the one decode shape — the
-    shapes a later CUDA-graph capture will pin.
+    of ``len(buckets)`` prefill shapes or the one decode shape, each a
+    step on static inputs (:class:`_StepGraph`), captured as a CUDA graph
+    on the card (``_capture=False`` keeps them eager there: the yardstick
+    of the captured engine, never a public knob).
 
     Decoding is greedy (argmax) by default; per-request ``temperature`` /
     ``top_k`` / ``top_p`` / ``seed`` ride as per-slot tensors through the
-    same calls (see :func:`sample_tokens`). Greedy and sampled streams
-    alike are a function of the request alone, at any batch occupancy."""
+    same calls, and every step samples in its body (see
+    :func:`sample_tokens`; greedy rows take the exact argmax). Greedy and
+    sampled streams alike are a function of the request alone, at any
+    batch occupancy."""
 
     kind = "generate"
 
@@ -487,7 +562,8 @@ class _GenerativeModel:
                  block: int, buckets: Sequence[int], eos_id: Optional[int],
                  max_new_tokens: int, name: str = "", paged: bool = False,
                  page_len: Optional[int] = None,
-                 n_pages: Optional[int] = None, device=None):
+                 n_pages: Optional[int] = None, device=None,
+                 _capture: bool = True):
         from .models.transformer import init_kv_cache, init_paged_kv_cache
         self.device = resolve_device(device)
         self._name = name
@@ -538,6 +614,7 @@ class _GenerativeModel:
                                         device=self.device)
         self.model_bytes = int(sum(t.nbytes for t in _leaves(self._params)))
         self.cache_bytes = int(sum(t.nbytes for t in self._cache.values()))
+        self._build_steps(_capture)
 
     def bucket_for(self, n: int) -> Optional[int]:
         for b in self.buckets:
@@ -545,22 +622,140 @@ class _GenerativeModel:
                 return b
         return None
 
-    def _tensor(self, a, dtype=torch.int64):
-        return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+    # ------------------------------------------------------------ steps
+    def _trace(self) -> None:
+        """Bumped inside every step body: only a capture counts, so only
+        load moves the counter and traffic never does."""
+        if self._capturing:
+            self._m_traces.inc(1, model=self._name)
 
-    def _sample(self, logits, temps, topks, topps, seeds, positions):
-        if not _np.any(_np.asarray(temps) > 0):     # all greedy
-            return logits.argmax(dim=1)
-        return sample_tokens(
-            logits, self._tensor(temps, torch.float32),
-            self._tensor(topks), self._tensor(topps, torch.float32),
-            self._tensor(seeds), self._tensor(positions))
+    def _prefill_step(self, bucket: int) -> "_StepGraph":
+        """The prefill step of one prompt bucket on its static inputs.
+        Paged: the chunk's tokens (1, bucket), the block-table row, start,
+        n_valid and the sampler's position n_total; contiguous: the
+        tokens, slot and length (the sampler's position). The inputs hold
+        a harmless call until the first request (the trash page, or slot
+        0 of a cache no request holds yet)."""
+        from .models.transformer import (transformer_prefill,
+                                         transformer_prefill_paged)
+        ints = {"tokens": (1, bucket), "topk": (1,), "seed": (1,),
+                "pos": (1,)}
+        if self.paged:
+            ints.update(pages=(self.max_pages,), start=(), n_valid=())
+        else:
+            ints.update(slot=(), length=())
+        inp = _StepInputs(self.device, ints, {"temp": (1,), "topp": (1,)})
+        t = inp.t
+        if self.paged:
+            inp.h["pages"][...] = self.trash_page
+            inp.h["n_valid"][...] = 1
+        else:
+            inp.h["length"][...] = 1
 
-    def _padded(self, tokens: _np.ndarray):
-        bucket = self.bucket_for(len(tokens))
-        xb = _np.zeros((1, bucket), _np.int64)
-        xb[0, :len(tokens)] = tokens
-        return self._tensor(xb)
+        def body():
+            self._trace()
+            if self.paged:
+                _, logits = transformer_prefill_paged(
+                    self._params, t["tokens"], self.cfg, self._cache,
+                    t["pages"], t["start"], t["n_valid"])
+            else:
+                _, logits = transformer_prefill(
+                    self._params, t["tokens"], self.cfg, self._cache,
+                    t["slot"], t["length"])
+            return sample_tokens(logits[None], t["temp"], t["topk"],
+                                 t["topp"], t["seed"], t["pos"])
+        return _StepGraph(body, inp)
+
+    def _decode_step(self) -> "_StepGraph":
+        """The fixed-shape decode step over the slot batch on its static
+        inputs: tokens, positions, the sampler's rows and (paged) the
+        (slots, max_pages) block tables, all-trash until the first step."""
+        from .models.transformer import (transformer_decode_step,
+                                         transformer_decode_step_paged)
+        S = self.slots
+        ints = {"tokens": (S,), "positions": (S,), "topks": (S,),
+                "seeds": (S,)}
+        if self.paged:
+            ints["bts"] = (S, self.max_pages)
+        inp = _StepInputs(self.device, ints, {"temps": (S,), "topps": (S,)})
+        t = inp.t
+        if self.paged:
+            inp.h["bts"][...] = self.trash_page
+
+        def body():
+            self._trace()
+            if self.paged:
+                _, logits = transformer_decode_step_paged(
+                    self._params, t["tokens"], t["positions"], self._cache,
+                    t["bts"].to(torch.int32), self.cfg)
+            else:
+                _, logits = transformer_decode_step(
+                    self._params, t["tokens"], t["positions"], self._cache,
+                    self.cfg, block_k=self.block)
+            return sample_tokens(logits, t["temps"], t["topks"], t["topps"],
+                                 t["seeds"], t["positions"])
+        return _StepGraph(body, inp)
+
+    def _build_steps(self, capture: bool) -> None:
+        """One step a prompt bucket and one decode step, ``len(buckets) +
+        1``. On the card (unless ``capture`` is False, the eager
+        yardstick) each is warmed on a capture stream of its own, then
+        captured as a CUDA graph, all graphs drawing on one memory pool
+        (the token loop replays them one at a time on one stream); each
+        capture counts one compile. A capture that fails raises: the
+        engine never falls back to eager steps."""
+        self._capturing = False
+        self._m_traces = _telemetry.counter(
+            "mxtpu_serve_gen_traces_total",
+            "Prefill/decode python traces per generate model (bumped "
+            "inside the traced bodies: load-time only, never by traffic).")
+        compiles = _telemetry.counter(
+            "mxtpu_serve_compiles_total",
+            "AOT executables compiled per model (one per padding bucket "
+            "at load; serving traffic never adds more).")
+        self._prefills = {b: self._prefill_step(b) for b in self.buckets}
+        self._decode = self._decode_step()
+        steps = list(self._prefills.values()) + [self._decode]
+        for step in steps:
+            step.inputs.load()
+        if not capture or self.device.type != "cuda":
+            return
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        pool = torch.cuda.graph_pool_handle()
+        with torch.inference_mode():
+            with torch.cuda.stream(stream):
+                for step in steps:
+                    step.body()
+            stream.synchronize()
+            for step in steps:
+                graph = torch.cuda.CUDAGraph()
+                self._capturing = True
+                try:
+                    step.capture(graph, torch.cuda.graph(
+                        graph, pool=pool, stream=stream,
+                        capture_error_mode="thread_local"))
+                finally:
+                    self._capturing = False
+                compiles.inc(1, model=self._name)
+        torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _sampling(h, temperature, top_k, top_p, seed, position) -> None:
+        h["temp"][...] = temperature
+        h["topk"][...] = top_k
+        h["topp"][...] = top_p
+        h["seed"][...] = seed
+        h["pos"][...] = position
+
+    def _prefill_inputs(self, tokens: _np.ndarray):
+        """The bucket's step for ``tokens``, its host views holding them
+        padded with zeros."""
+        step = self._prefills[self.bucket_for(len(tokens))]
+        h = step.inputs.h
+        h["tokens"][...] = 0
+        h["tokens"][0, :len(tokens)] = tokens
+        return step, h
 
     @torch.inference_mode()
     def prefill(self, prompt: _np.ndarray, slot: int,
@@ -569,12 +764,12 @@ class _GenerativeModel:
         """Contiguous mode: pad the prompt to its bucket, write the slot's
         K/V, return the first generated token (host int). Synchronous:
         admission happens between decode iterations."""
-        from .models.transformer import transformer_prefill
         n = len(prompt)
-        _, logits = transformer_prefill(self._params, self._padded(prompt),
-                                        self.cfg, self._cache, slot, n)
-        return int(self._sample(logits[None], [temperature], [top_k],
-                                [top_p], [seed], [n])[0])
+        step, h = self._prefill_inputs(prompt)
+        h["slot"][...] = slot
+        h["length"][...] = n
+        self._sampling(h, temperature, top_k, top_p, seed, n)
+        return int(step().cpu()[0])
 
     @torch.inference_mode()
     def prefill_chunk(self, chunk: _np.ndarray, pages: Sequence[int],
@@ -588,14 +783,13 @@ class _GenerativeModel:
         the sampled token (meaningful only for the FINAL chunk, where
         ``start + len(chunk) == n_total``). A one-shot prefill is a
         single chunk with ``start=0``."""
-        from .models.transformer import transformer_prefill_paged
-        pg = _np.full((self.max_pages,), self.trash_page, _np.int64)
-        pg[:len(pages)] = pages
-        _, logits = transformer_prefill_paged(
-            self._params, self._padded(chunk), self.cfg, self._cache,
-            self._tensor(pg), start, len(chunk))
-        return int(self._sample(logits[None], [temperature], [top_k],
-                                [top_p], [seed], [n_total])[0])
+        step, h = self._prefill_inputs(chunk)
+        h["pages"][...] = self.trash_page
+        h["pages"][:len(pages)] = pages
+        h["start"][...] = start
+        h["n_valid"][...] = len(chunk)
+        self._sampling(h, temperature, top_k, top_p, seed, n_total)
+        return int(step().cpu()[0])
 
     @torch.inference_mode()
     def decode(self, tokens: _np.ndarray, positions: _np.ndarray,
@@ -606,20 +800,16 @@ class _GenerativeModel:
         the (slots,) next-token ids. Paged mode additionally takes the
         (slots, max_pages) int32 block tables (dead/prefilling rows must
         be all-trash)."""
-        from .models.transformer import (transformer_decode_step,
-                                         transformer_decode_step_paged)
-        tok_t = self._tensor(tokens)
-        pos_t = self._tensor(positions)
+        h = self._decode.inputs.h
+        h["tokens"][...] = tokens
+        h["positions"][...] = positions
+        h["temps"][...] = temps
+        h["topks"][...] = topks
+        h["topps"][...] = topps
+        h["seeds"][...] = seeds
         if self.paged:
-            _, logits = transformer_decode_step_paged(
-                self._params, tok_t, pos_t, self._cache,
-                self._tensor(block_tables, torch.int32), self.cfg)
-        else:
-            _, logits = transformer_decode_step(
-                self._params, tok_t, pos_t, self._cache, self.cfg,
-                block_k=self.block)
-        toks = self._sample(logits, temps, topks, topps, seeds, positions)
-        return toks.cpu().numpy()
+            h["bts"][...] = block_tables
+        return self._decode().cpu().numpy()
 
     def recover(self) -> bool:
         """After a FAILED prefill/decode call: whether the live slots'

@@ -70,8 +70,9 @@ Phases:
    through graph replays; launch counters are reset right before each
    run and read right after), every launch on the split route; then a
    torch.profiler breakdown of decode steps of each paged engine (busy
-   and wall time from one profiled window; device idle share, the
-   attention kernels' time);
+   time from a profiled window, the idle share over the unprofiled
+   steps' wall, the profiled window's beside it; the attention kernels'
+   time);
 5. one full-width float32 decode step (paged and contiguous) with the
    kernels against the same step with the plain attention (atol 1e-3);
 6. the training kernels (flash forward, dq, dk/dv): the float32 route's
@@ -162,14 +163,25 @@ Phases:
    onto its SIMT kernel and timed beside it in the same call (the float32
    3x3 backward at stages 2-4, the other float32 forms at stage 3);
 14. ResNet-50 v1 training at bench.py's lane with ``MXTPU_FUSED_RESNET=1``
-   and ``MXTPU_BN_IMPL=plain``: 2 warm-up and 5 timed steps; finite,
+   and ``MXTPU_BN_IMPL=plain`` through ``make_train_step``'s captured
+   step (one CUDA graph, replayed): 2 warm-up and 5 timed steps; finite,
    falling loss; per step 29 ``mm_fused``, 13 ``conv3_fused``, 23
    ``mm_fused_bwd``, 13 ``conv3_fused_bwd`` and 3 ``dgrad_epilogue``
-   launches, all on the Hopper route; img/s, peak memory, and a profiled
-   window of two steps;
+   launches, counted through the replays, all on the Hopper route; the
+   eager yardstick (``_capture=False``) and the captured step in turns,
+   three runs of 5 steps each, the same launches in every run; img/s and
+   peak memory of each; one step of each from the same state (loss and
+   parameter updates); a profiled window of two steps of each (busy, the
+   idle share over the unprofiled wall, top ops, the records kept); then
+   the rematerialisation policies "nothing" and "dots" against none, a
+   fresh captured step each: the first call's peak memory (lower under
+   "nothing") and a replay from the same state;
 15. the same step on the per-block path (``MXTPU_FUSED_RESNET=0``: PyTorch
    convolutions and batch norm), run as phase 14 runs it: its img/s, no
-   fused-conv launch, and a profiled window of two steps;
+   fused-conv launch, and a profiled window of two steps; then
+   ``resnet50_v1``'s inference forward at batch 32, eager and after
+   ``hybridize()`` (one captured graph, replayed): outputs within 1e-5
+   of the largest entry, one cache entry, both times;
 16. float32 at 224 x 224, batch 16: each fused stage against the per-block
    path (forward, dx and every non-bias parameter gradient; see
    ``resnet_truth_phase``), beside two control readings: the same fused
@@ -212,10 +224,19 @@ Phases:
    graph and event ms and host µs beside the SIMT kernel's, in turns
    (:func:`_in_turns`); then the all-float32 forward's the same way beside
    the FMA kernel's;
-18. the word LM at bench.py's lane: 2 warm-up and 5 timed steps; finite,
-   falling loss; per step exactly 70 ``lstm_fwd_gates`` and 70
-   ``lstm_bwd`` launches, every one on the tensor-core route; tok/s, peak
-   memory and a profiled window of two steps; then two eval forwards,
+18. the word LM at bench.py's lane through the captured step (its
+   dropout drawn from the generator each graph registers): 2 warm-up and
+   5 timed steps; finite, falling loss; per step exactly 70
+   ``lstm_fwd_gates`` and 70 ``lstm_bwd`` launches, counted through the
+   replays, every one on the tensor-core route; tok/s and peak memory;
+   the eager yardstick and the captured step in turns (three runs each);
+   two replays after the same seed equal, a third without it not; with
+   dropout 0 a replay and an eager step from the same state; a profiled
+   window of two steps; then, after phase 16's spread is known, every
+   pair of steps from the same state of phases 14 and 18 (captured and
+   eager, remat and none) held to it (loss within rtol 1e-3, each
+   parameter update within the spread of phase 16's per-block
+   gradients); then two eval forwards,
    each 70 ``lstm_fwd`` launches and no other: the user's ``net(x)`` on
    the net's own float32 parameters (the tensor-core route, W in three
    bf16 pieces) and the trained
@@ -252,7 +273,10 @@ Phases:
    a ``Trainer`` + ``record()`` step at batch 4 (one cluster launch);
 22. at the same width in float32, batch 8, cuDNN deterministic: the
    targets and the detections from the kernels equal the twins' exactly,
-   and so do one step's loss and gradients (tolerance 0);
+   and so do one step's loss and gradients (tolerance 0); then
+   ``net.detect`` eager and hybridized (the forward captured, its anchors
+   included): heads within 1e-5, detections equal where the heads are
+   bitwise, one entry, one ``nms_keep`` launch, both times;
 23. the rtc user kernels (this file's ``AXPY_SRC`` and ``SOFTMAX_SRC``,
    MXNet's custom_softmax_rtc.py pair) compiled with NVRTC to ``sm_90a``
    CUBINs, each module's compile time; the axpy at n 2^26 through
@@ -798,22 +822,35 @@ def serving_phase(serving, tt, fa, common, records):
     return out
 
 
-def _device_events(window, tries: int = 3):
+# the CPU side's records of a kernel launch, and of a CUDA graph's replay
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+_GRAPH_CALLS = ("cudaGraphLaunch",)
+
+
+def _device_events(window, tries: int = 3, calls=None):
     """Run ``window()`` under torch.profiler until the tracer delivers
     device events, up to ``tries`` windows (on the card a window has come
     back without any, and once three in a row). Returns (the window's
     CUDA kernel events, or None if no window had any; ``window()``'s value
-    from the last window)."""
+    from the last window). ``calls``, a dict, receives the window's counts
+    of kernel launch calls and graph replays on the CPU side."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             value = window()
-        dev = [e for e in prof.key_averages()
+        events = prof.key_averages()
+        dev = [e for e in events
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation and e.count
                and e.self_device_time_total > 0]
+        if calls is not None:
+            calls["launch"] = sum(e.count for e in events
+                                  if e.key in _LAUNCH_CALLS)
+            calls["graph"] = sum(e.count for e in events
+                                 if e.key in _GRAPH_CALLS)
         if dev:
             return dev, value
         log(f"the profiler delivered no device event (window {attempt + 1}"
@@ -824,10 +861,12 @@ def _device_events(window, tries: int = 3):
 def decode_breakdown(model, steps: int = 10):
     """Device time torch.profiler records for ``steps`` full-width decode
     steps (8 live slots, lengths 50..200, greedy) against the wall time of
-    the same steps, both taken in one profiled window: the device's busy
-    and idle shares, and the attention kernel's time (None, not measured,
-    if the profiler delivers no device event). The wall time of as many
-    unprofiled steps is kept beside it (``step_wall_ms``)."""
+    the same steps: the device's busy time and idle share, and the
+    attention kernel's time (None, not measured, if the profiler delivers
+    no device event). The wall time of as many
+    unprofiled steps is the wall the idle share is read over
+    (``device_idle_share``); the profiled window's share stands beside it
+    (``profiled_window_idle_share``)."""
     S = model.slots
     bts = np.full((S, model.max_pages), model.trash_page, np.int32)
     for s in range(S):
@@ -858,7 +897,9 @@ def decode_breakdown(model, steps: int = 10):
     if dev is None:
         out = {"step_wall_ms": wall_ms, "profiled_step_wall_ms":
                prof_wall_ms, "device_busy_ms": None,
-               "device_idle_share": None, "attention_kernel_ms": None}
+               "device_idle_share": None,
+               "profiled_window_idle_share": None,
+               "attention_kernel_ms": None}
         log(f"decode step breakdown: device time not measured "
             f"{json.dumps(out)}")
         return out
@@ -871,11 +912,12 @@ def decode_breakdown(model, steps: int = 10):
                              f"profiled step's wall time {prof_wall_ms} ms")
     out = {"step_wall_ms": wall_ms, "profiled_step_wall_ms": prof_wall_ms,
            "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / prof_wall_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "profiled_window_idle_share": 1 - busy_ms / prof_wall_ms,
            "attention_kernel_ms": attn_ms}
-    log(f"decode step breakdown: {json.dumps(out)} (busy over the "
-        f"unprofiled steps' wall, the former reading: idle "
-        f"{1 - busy_ms / wall_ms:.4f})")
+    log(f"decode step breakdown: {json.dumps(out)} (device_idle_share: "
+        f"busy over the unprofiled steps' wall; the profiled window, which "
+        f"the profiler stretches, beside it)")
     return out
 
 
@@ -1538,28 +1580,49 @@ def _bf16_flash_steps(fa, params, step, opt, steps, n_layers, label,
     return got
 
 
-def kernel_breakdown(label, step, kernel_names, steps: int = 2):
+def kernel_breakdown(label, step, kernel_names, steps: int = 2,
+                     counted=None):
     """Device time torch.profiler records for ``steps`` calls of ``step``
-    against the wall time of the same calls, both taken in one profiled
-    window: busy and idle shares, the time and share of busy of the kernels
-    whose names contain one of ``kernel_names``, and the top device ops
-    (all per step; None, not measured, if the profiler delivers no device
-    event)."""
+    against the wall time of ``steps`` unprofiled calls, taken just before:
+    busy time and the idle share over that unprofiled wall
+    (``device_idle_share``; the profiled window's own share, which the
+    profiler stretches, beside it as ``profiled_window_idle_share``), the
+    time and share of busy of the kernels whose names contain one of
+    ``kernel_names``, and the top device ops (all per step; None, not
+    measured, if the profiler delivers no device event). A window can lose
+    records, so it logs the share it kept: of the kernel records against
+    the CPU side's launch calls where no graph was replayed, and, for
+    ``counted`` ({kernel name: its wrapper, whose launch counter also
+    moves at a graph's replay}), of those kernels' records against their
+    wrappers' launches in the window."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    unprof_ms = (time.perf_counter() - t0) / steps * 1e3
+    counted = counted or {}
+    launched = {}
 
     def window():
+        before = {k: w.launches for k, w in counted.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+        launched.update({k: w.launches - before[k]
+                         for k, w in counted.items()})
         return (time.perf_counter() - t0) / steps * 1e3
-    dev, wall_ms = _device_events(window)
+    calls = {}
+    dev, wall_ms = _device_events(window, calls=calls)
     if dev is None:
         out = dict.fromkeys(("device_busy_ms", "device_idle_share",
-                             "kernels_ms", "kernels_share_of_busy",
-                             "kernel_ms", "top_device_ops"))
+                             "profiled_window_idle_share", "kernels_ms",
+                             "kernels_share_of_busy", "kernel_ms",
+                             "top_device_ops", "records_kept"))
         out["profiled_step_wall_ms"] = wall_ms
+        out["step_wall_ms"] = unprof_ms
         log(f"{label} step breakdown: device time not measured "
             f"{json.dumps(out)}")
         return out
@@ -1569,16 +1632,30 @@ def kernel_breakdown(label, step, kernel_names, steps: int = 2):
     if busy_ms > wall_ms:
         raise AssertionError(f"device busy {busy_ms} ms exceeds the "
                              f"profiled step's wall time {wall_ms} ms")
+    kernel_records = sum(e.count for e in dev
+                         if not e.key.startswith(("Memcpy", "Memset")))
+    kept = {"kernels_vs_launch_calls":
+            (kernel_records / calls["launch"]
+             if calls.get("launch") and not calls.get("graph") else None),
+            "counted_kernels": None}
+    if launched and sum(launched.values()):
+        kept["counted_kernels"] = sum(
+            e.count for e in dev for k in counted
+            if k in e.key) / sum(launched.values())
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
     kern_ms = sum(per.values())
-    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / wall_ms,
+    out = {"step_wall_ms": unprof_ms, "profiled_step_wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / unprof_ms,
+           "profiled_window_idle_share": 1 - busy_ms / wall_ms,
            "kernels_ms": kern_ms, "kernels_share_of_busy": kern_ms / busy_ms,
            "kernel_ms": {k: v for k, v in per.items() if v},
+           "records_kept": kept,
            "top_device_ops": [[e.key[:60],
                                e.self_device_time_total / steps / 1e3]
                               for e in top]}
-    log(f"{label} step breakdown: {json.dumps(out)}")
+    log(f"{label} step breakdown: {json.dumps(out)} (device_idle_share "
+        f"over the unprofiled wall; records kept {json.dumps(kept)})")
     return out
 
 
@@ -2563,7 +2640,8 @@ def _stage_runs(cf, g, stage, dt):
     return runs
 
 
-def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
+def device_ms(fn, wrapper, calls: int = 5, tries: int = 3,
+              with_graph: bool = False):
     """Device time of one ``fn()``, a call of the kernel wrapper
     ``wrapper``, from torch.profiler: every kernel the call launches (the
     partial sums' reduction included), over ``calls`` calls after a
@@ -2576,10 +2654,14 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
     once a call at least). A window can
     lose records (on an H100 it kept 4 of 5 of the fused-conv kernels', 2
     of 5 of the LSTM forward's, window after window), so neither its total
-    over ``calls`` nor its count says how often a kernel ran. A window in
-    which the tracer delivered no device event is profiled again, up to
-    ``tries`` windows in all; after that the time is not measured: (None,
-    {})."""
+    over ``calls`` nor its count says how often a kernel ran; and a window
+    has read half the time of the same call replayed from a CUDA graph.
+    So a window is profiled again, up to ``tries`` windows in all, when
+    the tracer delivered no device event or when its sum reads under half
+    of :func:`graph_ms` of the same call (taken after the first window
+    that delivered events, for a kernel wrapper's call or ``with_graph``);
+    after that the time is not measured: (None, {}). ``with_graph`` adds
+    the graph time to the result."""
     fn()
     torch.cuda.synchronize()
 
@@ -2591,26 +2673,43 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3):
             fn()
         torch.cuda.synchronize()
         return 1 if wrapper is None else (wrapper.launches - before) / calls
-    dev, per_call = _device_events(window, tries)
-    if dev is None:
+    graph, timed = None, False
+    result = None, {}
+    for attempt in range(tries):
+        dev, per_call = _device_events(window, 1)
+        if dev is None:
+            continue
+        if per_call < 1 or per_call != int(per_call):
+            raise AssertionError(f"device_ms: {name} launched {per_call} "
+                                 "times a call")
+        per, lost = {}, {}
+        for e in dev:
+            key = e.key.replace("void (anonymous namespace)::", "")[:40]
+            runs = max(per_call, e.count / calls)
+            per[key] = per.get(key, 0.0) + (
+                e.self_device_time_total / e.count * runs / 1e3)
+            if e.count < runs * calls:
+                lost[key] = f"{e.count} of {round(runs * calls)}"
+        if lost:
+            log(f"device_ms: the window kept {lost} records of {name}'s "
+                f"{calls} calls; each kernel's mean duration stands for its "
+                "lost ones")
+        total = sum(per.values())
+        if not timed and (wrapper is not None or with_graph):
+            graph, timed = graph_ms(fn), True
+        if graph is not None and total < graph / 2:
+            log(f"device_ms: {name}'s window {attempt + 1} of {tries} read "
+                f"{total:.4f} ms, under half the graph time {graph:.4f} ms")
+            continue
+        result = total, per
+        break
+    else:
         log(f"device_ms: {name}'s device time not measured")
-        return None, {}
-    if per_call < 1 or per_call != int(per_call):
-        raise AssertionError(f"device_ms: {name} launched {per_call} times "
-                             "a call")
-    per, lost = {}, {}
-    for e in dev:
-        key = e.key.replace("void (anonymous namespace)::", "")[:40]
-        runs = max(per_call, e.count / calls)
-        per[key] = per.get(key, 0.0) + (
-            e.self_device_time_total / e.count * runs / 1e3)
-        if e.count < runs * calls:
-            lost[key] = f"{e.count} of {round(runs * calls)}"
-    if lost:
-        log(f"device_ms: the window kept {lost} records of {name}'s "
-            f"{calls} calls; each kernel's mean duration stands for its lost "
-            "ones")
-    return sum(per.values()), per
+    if with_graph:
+        if not timed:
+            graph = graph_ms(fn)
+        return (*result, graph)
+    return result
 
 
 def _ms(x):
@@ -2621,8 +2720,15 @@ def graph_ms(fn, replays: int = 20):
     """Time of one ``fn()`` with no host work between the kernels: ``fn``
     captured ``replays`` times into one CUDA graph, the graph replayed
     between CUDA events. A cross-check of :func:`device_ms` that does not
-    go through the profiler. None if the call cannot be captured."""
-    side = torch.cuda.Stream()
+    go through the profiler. None if the call cannot be captured. The
+    call is warmed and captured on the port's capture stream (one a
+    device: what cuBLAS and the wrappers make once a stream is made
+    once), and only this thread is held to the capture's rules, so an
+    autograd call, whose backward runs on the engine's thread, can be
+    captured too (a failed capture keeps its memory pool for the rest of
+    the process)."""
+    from incubator_mxnet_tpu_torch.cuda_graph import capture_stream
+    side = capture_stream(torch.cuda.current_device())
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -2630,7 +2736,8 @@ def graph_ms(fn, replays: int = 20):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
             for _ in range(replays):
                 fn()
     except Exception as err:            # noqa: BLE001 (an autograd call)
@@ -2668,11 +2775,12 @@ def _in_turns(calls, wrapper, rounds: int = 2):
     for i in range(rounds):
         for label in (labels if i % 2 == 0 else labels[::-1]):
             fn = calls[label]
-            dev, kernels[label] = device_ms(
-                fn, wrapper[label] if isinstance(wrapper, dict) else wrapper)
+            dev, kernels[label], graph = device_ms(
+                fn, wrapper[label] if isinstance(wrapper, dict) else wrapper,
+                with_graph=True)
             got = reads[label]
             got["device_ms"].append(dev)
-            got["graph_ms"].append(graph_ms(fn))
+            got["graph_ms"].append(graph)
             got["event_ms"].append(time_ms(fn))
             got["host_us"].append(host_us(fn))
     out = {}
@@ -3007,10 +3115,11 @@ def conv_kernel_checks(cf, common):
 RESNET_BATCH = 128
 
 
-def _resnet_setup(mx, gluon, vision, seed, batch, dtype=None):
+def _resnet_setup(mx, gluon, vision, seed, batch, dtype=None, **kw):
     """ResNet-50 v1, NHWC, on the card, default init, deferred shapes
     resolved by one forward; a batch from the seed; the functional SGD
-    step of bench.py's lane (lr 0.01, momentum 0.9)."""
+    step of bench.py's lane (lr 0.01, momentum 0.9; ``kw`` to
+    ``make_train_step``)."""
     from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
     rs = np.random.RandomState(seed)
     x_np = rs.rand(batch, 3, 224, 224).astype(np.float32)
@@ -3022,73 +3131,244 @@ def _resnet_setup(mx, gluon, vision, seed, batch, dtype=None):
         net(mx.nd.array(x_np[:1]))
     step, params, aux, opt = make_train_step(
         net, gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
-        learning_rate=0.01, momentum=0.9, compute_dtype=dtype)
+        learning_rate=0.01, momentum=0.9, compute_dtype=dtype, **kw)
     return (net, step, params, aux, opt, torch.from_numpy(x_np).cuda(),
             torch.from_numpy(y_np).cuda())
+
+
+# --------------------------------------------- captured and eager steps
+def _clone(tree):
+    from incubator_mxnet_tpu_torch.parallel.dp import _clone
+    return _clone(tree)
+
+
+def _timed_steps(step, state, x, y, steps):
+    """``steps`` calls of a ``make_train_step`` step from ``state``
+    (params, aux, opt_state; each call's outputs passed to the next), host
+    clock between synchronisations: (ms a step, the last state, the
+    losses)."""
+    p, a, s = state
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        p, a, s, loss = step(p, a, s, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, (p, a, s), losses
+
+
+def _one_step_from(step, state, x, y):
+    """One call of ``step`` from a copy of ``state``: (the loss, {name:
+    the parameter's update, new minus old})."""
+    p, a, s = (_clone(t) for t in state)
+    new, _, _, loss = step(p, a, s, x, y)
+    torch.cuda.synchronize()
+    return loss.clone(), {n: new[n] - state[0][n] for n in state[0]}
+
+
+def _update_err(got, want):
+    """The largest difference of two updates over the largest entry of
+    ``want``, the worst leaf."""
+    return max(float((got[n] - want[n]).abs().max())
+               / max(float(want[n].abs().max()), 1e-30) for n in want)
+
+
+def _agreement(label, a, b):
+    """Two steps from the same state, (loss, update) each: the loss's
+    relative difference, the updates' worst leaf and whether both are
+    equal bit for bit."""
+    (la, ua), (lb, ub) = a, b
+    out = {"loss_a": float(la), "loss_b": float(lb),
+           "loss_rel": abs(float(la) - float(lb)) / abs(float(lb)),
+           "update_err": _update_err(ua, ub),
+           "bitwise": bool(torch.equal(la, lb)) and all(
+               torch.equal(ua[n], ub[n]) for n in ub)}
+    log(f"{label}: {json.dumps(out)}")
+    return out
+
+
+def _turns(kinds, x, y, steps, repeats, check):
+    """Time ``steps`` steps of each of ``kinds`` ({label: [step,
+    state]}) in turns, ``repeats`` times each, the order reversed every
+    other round (a b b a a b ...); ``check(label)`` after each run, with
+    the launch counts reset before it. Returns {label: [ms a step]}."""
+    from incubator_mxnet_tpu_torch.ops.cuda import common
+    reads = {label: [] for label in kinds}
+    labels = list(kinds)
+    for i in range(repeats):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            common.reset_launch_counts()
+            step, state = kinds[label]
+            ms, kinds[label][1], _ = _timed_steps(step, state, x, y, steps)
+            check(label)
+            reads[label].append(ms)
+    return reads
+
+
+# the fused-conv kernels of a bf16 step and their wrappers (each kernel
+# runs once a wrapper launch): the records a profiled window must keep
+def _conv_counted(cf):
+    return {"cf90_fwd_kernel": cf.mm_fused,
+            "cf90_conv3_kernel": cf.conv3_fused,
+            "cf90_bwd_dgrad_kernel": cf.mm_fused_bwd,
+            "cf90_conv3_dgrad_kernel": cf.conv3_fused_bwd,
+            "cf90_dual_dgrad_kernel": cf.dgrad_epilogue}
+
+
+RESNET_REPEATS = 3
+RESNET_KERNEL_NAMES = (
+    "cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel",
+    "cf90_fwd_kernel", "cf90_dual_dgrad_kernel", "cf90_dual_wgrad_kernel",
+    "cf90_bwd_dgrad_kernel", "cf90_conv3_kernel", "cf90_conv3_dgrad_kernel",
+    "cf90_conv3_wgrad_kernel")
 
 
 def resnet_train_phase(mx, gluon, vision, common, records, steps=5):
     """Phase 14: ResNet-50 v1 training at bench.py's lane (NHWC, batch 128,
     224 x 224, bf16 compute on float32 masters, SGD momentum 0.9, lr 0.01,
-    MXTPU_FUSED_RESNET=1, MXTPU_BN_IMPL=plain): 2 warm-up and 5 timed
-    steps; finite falling loss, the fused kernels' launches per step, then
-    a profiled window of two steps."""
+    MXTPU_FUSED_RESNET=1, MXTPU_BN_IMPL=plain) through the captured step
+    (``make_train_step``: the first call a real step, eager on the capture
+    stream, then the capture; later calls replay it): 2 warm-up and 5
+    timed steps, the fused kernels' launches a step counted through the
+    replays, finite falling loss; then the eager yardstick
+    (``_capture=False``) from the same net, and both timed in turns, three
+    runs of 5 steps each; one step of each from the same state (loss and
+    parameter updates, held after phase 16 to its spread); peak memory of
+    each; a profiled window of two steps of each (busy, the idle share
+    over the unprofiled wall, top ops, the records kept); then the
+    rematerialisation policies "nothing" and "dots" against none: a fresh
+    captured step each, its first call's peak memory (under "nothing"
+    below none's) and a replay from the same state as the others."""
+    import gc
     import os
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
     os.environ["MXTPU_FUSED_RESNET"] = "1"
     os.environ["MXTPU_BN_IMPL"] = "plain"
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _, step, params, aux, opt, x, y = _resnet_setup(
+    log(f"resnet50 phase start: {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+        f"reserved")
+    net, step, params, aux, opt, x, y = _resnet_setup(
         mx, gluon, vision, SEED + 5, RESNET_BATCH, torch.bfloat16)
-    losses = []
-    for _ in range(2):
-        params, aux, opt, loss = step(params, aux, opt, x, y)
-        losses.append(loss)
-    torch.cuda.synchronize()
+
+    def build(**kw):
+        return make_train_step(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+            learning_rate=0.01, momentum=0.9, compute_dtype=torch.bfloat16,
+            **kw)
+    first_ms, state, losses = _timed_steps(step, (params, aux, opt), x, y, 1)
+    _, state, more = _timed_steps(step, state, x, y, 1)
+    losses += more
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
     common.reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        params, aux, opt, loss = step(params, aux, opt, x, y)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ms, state, more = _timed_steps(step, state, x, y, steps)
+    losses += more
     launches = common.launch_counts()
     sm90 = common.sm90_launch_counts()
     losses = [float(v) for v in losses]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    img_s = RESNET_BATCH * steps / wall
-    log(f"resnet50 fused train: losses {[round(v, 4) for v in losses]}; "
-        f"{steps} timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} "
-        f"ms/step, {img_s:.1f} img/s; peak {peak_gb:.2f} GB; launches "
-        f"{launches}; on the sm90 route {sm90}")
+    log(f"resnet50 fused train, captured: first call (eager on the capture "
+        f"stream, then the capture) {first_ms:.1f} ms; losses "
+        f"{[round(v, 4) for v in losses]}; {steps} timed steps "
+        f"{ms:.2f} ms/step; peak {peak_gb:.2f} GB allocated, "
+        f"{reserved_gb:.2f} GB reserved; launches {launches}; on the sm90 "
+        f"route {sm90}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"resnet loss not finite and falling: {losses}")
     # stages 2-4 hold 4 + 6 + 3 blocks: a 1x1 conv1, a 3x3 and a 1x1 conv3
     # each, plus block 0's projection; block 0's conv1 and projection
     # dgrads are one dual dgrad. Every bf16 launch of the five takes the
-    # Hopper route.
+    # Hopper route, and a replay counts what its capture launched.
     per_step = {"mm_fused": 29, "conv3_fused": 13, "mm_fused_bwd": 23,
                 "conv3_fused_bwd": 13, "dgrad_epilogue": 3}
-    for name, n in per_step.items():
-        if launches[name] != n * steps:
-            raise AssertionError(f"{name} launched {launches[name]} times in "
-                                 f"{steps} resnet steps, not {n * steps}")
-        if sm90[name] != n * steps:
-            raise AssertionError(
-                f"{name} took the sm90 route {sm90[name]} times in "
-                f"{steps} resnet steps, not {n * steps}")
+
+    def check(label, got=None, got90=None):
+        got = got or common.launch_counts()
+        got90 = got90 or common.sm90_launch_counts()
+        for name, n in per_step.items():
+            if got[name] != n * steps or got90[name] != n * steps:
+                raise AssertionError(
+                    f"{label}: {name} launched {got[name]} times ("
+                    f"{got90[name]} on the sm90 route) in {steps} resnet "
+                    f"steps, not {n * steps}")
+    check("captured", launches, sm90)
+    for name in per_step:
         records[f"{name}/sm90"]["launches"] = sm90[name]
+    # the eager yardstick, from the same net; its cached blocks are its own
+    estep, *estate = build(_capture=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, estate, _ = _timed_steps(estep, tuple(estate), x, y, 2)
+    eager_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kinds = {"captured": [step, state], "eager": [estep, estate]}
+    reads = _turns(kinds, x, y, steps, RESNET_REPEATS, check)
+    cap_ms = sum(reads["captured"]) / len(reads["captured"])
+    eager_ms = sum(reads["eager"]) / len(reads["eager"])
+    log(f"resnet50 fused train in turns ({steps} steps a run): captured "
+        f"{reads['captured']} ms/step, eager {reads['eager']}; means "
+        f"{cap_ms:.2f} and {eager_ms:.2f} ms ({RESNET_BATCH * 1e3 / cap_ms:.1f}"
+        f" and {RESNET_BATCH * 1e3 / eager_ms:.1f} img/s); peak "
+        f"{peak_gb:.2f} GB captured, {eager_peak_gb:.2f} GB eager")
+    snap = tuple(_clone(t) for t in kinds["captured"][1])
+    agree = _agreement("resnet50 captured vs eager step, same state",
+                       _one_step_from(step, snap, x, y),
+                       _one_step_from(estep, snap, x, y))
+    counted = _conv_counted(cf)
     breakdown = kernel_breakdown(
-        "resnet fused", lambda: step(params, aux, opt, x, y),
-        ("cf_fwd_kernel", "cf_dgrad_kernel", "cf_wgrad_kernel",
-         "cf90_fwd_kernel", "cf90_dual_dgrad_kernel",
-         "cf90_dual_wgrad_kernel", "cf90_bwd_dgrad_kernel",
-         "cf90_conv3_kernel", "cf90_conv3_dgrad_kernel",
-         "cf90_conv3_wgrad_kernel"))
-    return {"step_ms": wall / steps * 1e3, "img_s": img_s,
+        "resnet fused (captured)",
+        lambda: step(*kinds["captured"][1], x, y), RESNET_KERNEL_NAMES,
+        counted=counted)
+    eager_breakdown = kernel_breakdown(
+        "resnet fused (eager yardstick)",
+        lambda: estep(*kinds["eager"][1], x, y), RESNET_KERNEL_NAMES,
+        counted=counted)
+    del step, estep, state, estate, kinds, params, aux, opt
+    # the rematerialisation policies, each a fresh captured step whose
+    # first call runs from the same state
+    remat = {}
+    for policy in (None, "nothing", "dots"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rstep, *_ = build(remat=policy)
+        first = _one_step_from(rstep, snap, x, y)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.memory_reserved() / 1e9
+        replay = _one_step_from(rstep, snap, x, y)
+        remat[str(policy)] = {"peak_memory_gb": peak, "loss": float(first[0]),
+                              "replay": replay}
+        del rstep
+        log(f"resnet50 remat={policy}: first call's peak {peak:.2f} GB "
+            f"({reserved:.2f} GB reserved), loss {float(first[0]):.6f}, "
+            f"replay loss {float(replay[0]):.6f}")
+    for policy in ("nothing", "dots"):
+        remat[policy]["vs_none"] = _agreement(
+            f"resnet50 remat={policy} vs none, replays from the same state",
+            remat[policy].pop("replay"), remat["None"]["replay"])
+    remat["None"].pop("replay")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not remat["nothing"]["peak_memory_gb"] < remat["None"]["peak_memory_gb"]:
+        raise AssertionError(f"remat='nothing' did not lower the peak: "
+                             f"{remat}")
+    return {"step_ms": cap_ms, "img_s": RESNET_BATCH * 1e3 / cap_ms,
+            "step_ms_runs": reads["captured"],
+            "eager_step_ms": eager_ms,
+            "eager_img_s": RESNET_BATCH * 1e3 / eager_ms,
+            "eager_step_ms_runs": reads["eager"],
+            "first_call_ms": first_ms,
             "loss_first": losses[0], "loss_last": losses[-1],
-            "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+            "peak_memory_gb": peak_gb, "reserved_memory_gb": reserved_gb,
+            "eager_peak_memory_gb": eager_peak_gb,
+            "launches_per_step": per_step,
             "sm90_launches_per_step": per_step,
-            **breakdown}
+            "captured_vs_eager": agree, "remat": remat,
+            "eager_breakdown": eager_breakdown, **breakdown}
 
 
 def resnet_perblock_phase(mx, gluon, vision, common, steps=5):
@@ -3130,6 +3410,53 @@ def resnet_perblock_phase(mx, gluon, vision, common, steps=5):
     return {"step_ms": wall / steps * 1e3, "img_s": img_s,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, **breakdown}
+
+
+HYBRID_BATCH = 32
+
+
+def resnet_hybrid_forward(mx, vision, common):
+    """Phase 15, last: ``resnet50_v1`` (NHWC, batch 32, 224 x 224, float32,
+    inference) called as a user would, first not hybridized, then after
+    ``hybridize()``: its first call runs the forward eagerly on the capture
+    stream and captures it, later calls replay the graph. The replay's
+    output against the eager one (within 1e-5 of the largest entry, and
+    whether equal bit for bit), one cache entry, and both forwards' times
+    (CUDA events over 10 calls, and the host clock)."""
+    rs = np.random.RandomState(SEED + 9)
+    x_np = rs.rand(HYBRID_BATCH, 3, 224, 224).astype(np.float32)
+    mx.random.seed(SEED + 9)
+    with mx.gpu(0):
+        net = vision.resnet50_v1(layout="NHWC")
+        net.initialize()
+        x = mx.nd.array(x_np)
+        eager = net(x)._data.clone()
+        eager_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+        eager_host = host_us(lambda: net(x), calls=10) / 1e3
+        net.hybridize()
+        common.reset_launch_counts()
+        t0 = time.perf_counter()
+        net(x)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        out = net(x)._data
+        torch.cuda.synchronize()
+        hyb_ms = time_ms(lambda: net(x), iters=10, warmup=2)
+        hyb_host = host_us(lambda: net(x), calls=10) / 1e3
+    err = float((out - eager).abs().max()) / float(eager.abs().max())
+    res = {"eager_ms": eager_ms, "eager_host_ms": eager_host,
+           "captured_ms": hyb_ms, "captured_host_ms": hyb_host,
+           "first_call_ms": first_ms, "max_err": err,
+           "bitwise": bool(torch.equal(out, eager)),
+           "entries": len(net._static.entries),
+           "launches": {k: v for k, v in common.launch_counts().items()
+                        if v}}
+    log(f"resnet50 hybridized inference forward, batch {HYBRID_BATCH}: "
+        f"{json.dumps(res)}")
+    if res["entries"] != 1 or err > 1e-5 or tuple(out.shape) != (
+            HYBRID_BATCH, 1000) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"hybridized forward: {res}")
+    return res
 
 
 def _stage_grads(blocks, stride, xin, ct, path, mx):
@@ -3235,9 +3562,10 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
     against the twins' (what the kernels alone add); the latter's forward
     is held to rtol = atol = 1e-3 too."""
     import os
+    from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
     os.environ["MXTPU_FUSED_RESNET"] = "1"
     net, step, params, aux, opt, x, y = _resnet_setup(
-        mx, gluon, vision, SEED + 6, 16)
+        mx, gluon, vision, SEED + 6, 16, donate=False)
     feats = list(net.features._children.values())
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     out = {}
@@ -3331,8 +3659,13 @@ def resnet_truth_phase(mx, gluon, vision, common, records):
                                     "dx_err": kt_dx_err,
                                     "param_err": kt_p_err}}
     _, _, _, loss_f = step(params, aux, opt, x, y)
+    # the step traced the fused path when it was built; the per-block
+    # path is another step, from the same state
     os.environ["MXTPU_FUSED_RESNET"] = "0"
-    _, _, _, loss_p = step(params, aux, opt, x, y)
+    step_p, *_ = make_train_step(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        learning_rate=0.01, momentum=0.9, donate=False)
+    _, _, _, loss_p = step_p(params, aux, opt, x, y)
     rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
     log(f"f32 resnet50 first-step loss: fused {float(loss_f):.6f} per-block "
         f"{float(loss_p):.6f} (rel {rel:.3g}, rtol 1e-3)")
@@ -3878,10 +4211,11 @@ def _scan_time(lt, g, od, wd, sd, T, N, H):
 
 
 # ------------------------------------------------------ the word-LM lane
-def _word_lm(mx, seed, dropout, dtype=None):
+def _word_lm(mx, seed, dropout, dtype=None, **kw):
     """bench.py's lane (bench.py:500-520): RNNModel lstm, vocab 33278,
     embed = hidden 650, 2 layers, Xavier, on the card; a (T 35, batch 128)
-    token batch from the seed; the functional SGD step at lr 1.0."""
+    token batch from the seed; the functional SGD step at lr 1.0 (``kw``
+    to ``make_train_step``)."""
     from incubator_mxnet_tpu_torch.models.word_lm import RNNModel
     from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
     rs = np.random.RandomState(seed)
@@ -3895,71 +4229,129 @@ def _word_lm(mx, seed, dropout, dtype=None):
         net(mx.nd.array(x_np))
     step, params, aux, opt = make_train_step(
         net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
-        learning_rate=1.0, compute_dtype=dtype)
+        learning_rate=1.0, compute_dtype=dtype, **kw)
     return (net, step, params, aux, opt, torch.from_numpy(x_np).cuda(),
             torch.from_numpy(y_np).cuda())
+
+
+def _lm_yardstick(mx, net, dtype):
+    from incubator_mxnet_tpu_torch.parallel.dp import make_train_step
+    return make_train_step(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        learning_rate=1.0, compute_dtype=dtype, _capture=False)
 
 
 def word_lm_train_phase(mx, common, records, steps=5):
     """Phase 18: the word LM at bench.py's lane (2 x 650 LSTM, vocab 33278,
     bptt 35, batch 128, dropout 0.5, bf16 compute on float32 masters, SGD
-    lr 1.0), one update per call: bench.py's unroll 8 is the reference's
-    lax.scan over updates, which the port runs as a Python loop that
-    changes nothing per step. 2 warm-up and 5 timed steps; finite, falling
-    loss; exactly 70 ``lstm_fwd_gates`` and 70 ``lstm_bwd`` launches per
-    step (2 layers x 35 steps), all on the tensor-core routes (bf16 W_hh in
-    both layers), and no ``lstm_fwd``; then a profiled window of two steps;
-    then two eval forwards (no autograd, no grad, dropout off), each 70
-    ``lstm_fwd`` launches and nothing else of B8, all on the tensor-core
-    route: a user's ``net(x)`` on the net's own float32 parameters (a
-    float32 W_hh in three bf16 pieces), and the trained parameters cast to
-    bf16; each timed, with its B8 forward's device time."""
+    lr 1.0), one update per call, through the captured step (the dropout
+    masks drawn from the device's generator, which each graph registers):
+    2 warm-up and 5 timed steps; finite, falling loss; exactly 70
+    ``lstm_fwd_gates`` and 70 ``lstm_bwd`` launches per step (2 layers x
+    35 steps), counted through the replays, all on the tensor-core routes
+    (bf16 W_hh in both layers), and no ``lstm_fwd``; the eager yardstick
+    (``_capture=False``) and the captured step timed in turns, three runs
+    of 5 steps each; two replays from the same state after the same seed
+    give the same loss, a third without the re-seed another; with dropout
+    0, one replay and one eager step from the same state (loss and
+    parameter updates, held after phase 16 to its spread); then a profiled
+    window of two steps; then two eval forwards (no autograd, no grad,
+    dropout off), each 70 ``lstm_fwd`` launches and nothing else of B8,
+    all on the tensor-core route: a user's ``net(x)`` on the net's own
+    float32 parameters (a float32 W_hh in three bf16 pieces), and the
+    trained parameters cast to bf16; each timed, with its B8 forward's
+    device time."""
+    import gc
+    from incubator_mxnet_tpu_torch.ops.cuda import lstm as lt
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     net, step, params, aux, opt, x, y = _word_lm(mx, SEED + 7, 0.5,
                                                  torch.bfloat16)
-    losses = []
-    for _ in range(2):
-        params, aux, opt, loss = step(params, aux, opt, x, y)
-        losses.append(loss)
-    torch.cuda.synchronize()
+    first_ms, state, losses = _timed_steps(step, (params, aux, opt), x, y, 1)
+    _, state, more = _timed_steps(step, state, x, y, 1)
+    losses += more
     common.reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        params, aux, opt, loss = step(params, aux, opt, x, y)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, state, more = _timed_steps(step, state, x, y, steps)
+    losses += more
     launches = common.launch_counts()
     sm90 = common.sm90_launch_counts()
     losses = [float(v) for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    tok_s = LM_T * LM_N * steps / wall
-    log(f"word LM train: losses {[round(v, 4) for v in losses]}; {steps} "
-        f"timed steps in {wall:.3f} s = {wall / steps * 1e3:.1f} ms/step, "
-        f"{tok_s:.0f} tok/s; peak {peak_gb:.2f} GB; launches {launches}; "
+    log(f"word LM train, captured: first call {first_ms:.1f} ms; losses "
+        f"{[round(v, 4) for v in losses]}; {steps} timed steps "
+        f"{wall:.2f} ms/step; peak {peak_gb:.2f} GB; launches {launches}; "
         f"on the tensor-core routes: lstm_fwd_gates "
         f"{sm90['lstm_fwd_gates']}, lstm_bwd {sm90['lstm_bwd']}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"word LM loss not finite and falling: "
                              f"{losses}")
     per_step = {"lstm_fwd_gates": 70, "lstm_bwd": 70, "lstm_fwd": 0}
-    for name, n in per_step.items():
-        if launches[name] != n * steps:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {steps} word-LM steps, not "
-                                 f"{n * steps}")
-    # bf16 W_hh: every forward and backward step on the tensor-core route
-    for name in ("lstm_fwd_gates", "lstm_bwd"):
-        if sm90[name] != 70 * steps:
-            raise AssertionError(f"{name} took the tensor-core route "
-                                 f"{sm90[name]} times in {steps} word-LM "
-                                 f"steps, not {70 * steps}")
+
+    def check(label, got=None, got90=None):
+        got = got or common.launch_counts()
+        got90 = got90 or common.sm90_launch_counts()
+        for name, n in per_step.items():
+            if got[name] != n * steps:
+                raise AssertionError(f"{label}: {name} launched {got[name]} "
+                                     f"times in {steps} word-LM steps, not "
+                                     f"{n * steps}")
+        # bf16 W_hh: every forward and backward step on the tensor cores
+        for name in ("lstm_fwd_gates", "lstm_bwd"):
+            if got90[name] != 70 * steps:
+                raise AssertionError(f"{label}: {name} took the tensor-core "
+                                     f"route {got90[name]} times in {steps} "
+                                     f"word-LM steps, not {70 * steps}")
+    check("captured", launches, sm90)
     records["lstm_fwd_gates/sm90"]["launches"] = sm90["lstm_fwd_gates"]
     records["lstm_bwd/sm90"]["launches"] = sm90["lstm_bwd"]
+    estep, *estate = _lm_yardstick(mx, net, torch.bfloat16)
+    _, estate, _ = _timed_steps(estep, tuple(estate), x, y, 2)
+    kinds = {"captured": [step, state], "eager": [estep, estate]}
+    reads = _turns(kinds, x, y, steps, RESNET_REPEATS, check)
+    cap_ms = sum(reads["captured"]) / len(reads["captured"])
+    eager_ms = sum(reads["eager"]) / len(reads["eager"])
+    tok_s = LM_T * LM_N * 1e3 / cap_ms
+    log(f"word LM train in turns ({steps} steps a run): captured "
+        f"{reads['captured']} ms/step, eager {reads['eager']}; means "
+        f"{cap_ms:.2f} and {eager_ms:.2f} ms ({tok_s:.0f} and "
+        f"{LM_T * LM_N * 1e3 / eager_ms:.0f} tok/s)")
+    # the registered generator: a re-seed reaches the replays
+    snap = tuple(_clone(t) for t in kinds["captured"][1])
+    seeded = []
+    for reseed in (True, True, False):
+        if reseed:
+            mx.random.seed(SEED + 70)
+        seeded.append(_one_step_from(step, snap, x, y)[0])
+    log(f"word LM replays from one state: seed, replay {float(seeded[0])}; "
+        f"seed, replay {float(seeded[1])}; replay {float(seeded[2])}")
+    if not torch.equal(seeded[0], seeded[1]) \
+            or torch.equal(seeded[1], seeded[2]):
+        raise AssertionError(f"word LM dropout draws under replay: "
+                             f"{[float(v) for v in seeded]}")
     breakdown = kernel_breakdown(
-        "word LM", lambda: step(params, aux, opt, x, y),
+        "word LM (captured)", lambda: step(*kinds["captured"][1], x, y),
         ("lstm_fwd_kernel", "lstm_fwd_tc_kernel", "lstm_bwd_kernel",
-         "lstm_bwd_dz_kernel", "lstm_bwd_tc_kernel"))
+         "lstm_bwd_dz_kernel", "lstm_bwd_tc_kernel"),
+        counted={"lstm_fwd_tc_kernel": lt.lstm_fwd_gates,
+                 "lstm_bwd_tc_kernel": lt.lstm_bwd,
+                 "lstm_bwd_dz_kernel": lt.lstm_bwd})
+    params = kinds["captured"][1][0]
+    aux = kinds["captured"][1][1]
+    del estep, estate, kinds
+    # dropout 0: a replay against an eager step from the same state (the
+    # first call runs eagerly, then captures)
+    znet, zstep, zp, za, zo, _, _ = _word_lm(mx, SEED + 7, 0.0,
+                                             torch.bfloat16)
+    zeager, *_ = _lm_yardstick(mx, znet, torch.bfloat16)
+    zsnap = tuple(_clone(t) for t in (zp, za, zo))
+    _one_step_from(zstep, zsnap, x, y)
+    zero = _agreement("word LM dropout 0: captured replay vs eager step, "
+                      "same state", _one_step_from(zstep, zsnap, x, y),
+                      _one_step_from(zeager, zsnap, x, y))
+    del znet, zstep, zeager, zsnap, zp, za, zo
+    gc.collect()
+    torch.cuda.empty_cache()
     # the eval forwards: recording off, no gradient, dropout off. A user's
     # net(x) runs the net's own float32 parameters, so its float32 W_hh
     # goes to the tensor-core kernel in three pieces; the trained
@@ -4002,12 +4394,43 @@ def word_lm_train_phase(mx, common, records, steps=5):
     records["lstm_fwd/sm90_f32w"]["launches"] = (
         evals["user_float32"]["sm90_launches"])
     records["lstm_fwd/sm90"]["launches"] = evals["bf16"]["sm90_launches"]
-    return {"step_ms": wall / steps * 1e3, "tok_s": tok_s,
+    return {"step_ms": cap_ms, "tok_s": tok_s,
+            "step_ms_runs": reads["captured"], "eager_step_ms": eager_ms,
+            "eager_tok_s": LM_T * LM_N * 1e3 / eager_ms,
+            "eager_step_ms_runs": reads["eager"], "first_call_ms": first_ms,
             "loss_first": losses[0], "loss_last": losses[-1],
             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
             "sm90_launches_per_step": {"lstm_fwd_gates": 70,
                                        "lstm_bwd": 70},
+            "reseeded_replays_loss": [float(v) for v in seeded],
+            "dropout0_captured_vs_eager": zero,
             "eval_forward": evals, **breakdown}
+
+
+def agreement_check(resnet, resnet_truth, word_lm):
+    """Captured against eager steps, and remat against none, from the same
+    state (phases 14 and 18): each loss within phase 16's whole-net loss
+    tolerance (rtol 1e-3) and each parameter update within the spread
+    phase 16 measured on the per-block path's own gradients (the largest
+    over its stages; it is 0 when every kernel is deterministic, and the
+    readings are then equal bit for bit)."""
+    spread = max(v["param_spread"] for k, v in resnet_truth.items()
+                 if k.startswith("stage"))
+    pairs = {"resnet captured vs eager": resnet["captured_vs_eager"],
+             "resnet remat=nothing vs none":
+             resnet["remat"]["nothing"]["vs_none"],
+             "resnet remat=dots vs none": resnet["remat"]["dots"]["vs_none"],
+             "word LM dropout 0 captured vs eager":
+             word_lm["dropout0_captured_vs_eager"]}
+    log(f"agreement against phase 16's parameter-gradient spread "
+        f"{spread:.3g}: " + "; ".join(
+            f"{k}: loss {v['loss_rel']:.3g}, update {v['update_err']:.3g}"
+            f"{' (bitwise)' if v['bitwise'] else ''}"
+            for k, v in pairs.items()))
+    for k, v in pairs.items():
+        if v["loss_rel"] > 1e-3 or v["update_err"] > spread:
+            raise AssertionError(f"{k}: {v} (spread {spread})")
+    return {"param_spread": spread, **pairs}
 
 
 def _lm_loss_and_grads(net, params, x, y, mx):
@@ -4592,12 +5015,59 @@ def ssd_truth_phase(mx, kd, common, batch=8):
         if not all(same_targets) or not same_det or loss_err > 0 \
                 or grad_err > 0:
             raise AssertionError("SSD kernels vs twins differ")
+        hybrid = ssd_hybrid_detect(mx, common, x)
         return {"targets_equal": same_targets, "detections_equal": same_det,
                 "loss": lk.item(), "loss_abs_diff": loss_err,
                 "grad_max_abs_diff": grad_err, "positives":
-                int((tk[2] > 0).sum()), "detections_kept": kept}
+                int((tk[2] > 0).sum()), "detections_kept": kept,
+                "hybrid_detect": hybrid}
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+def ssd_hybrid_detect(mx, common, x):
+    """Phase 22, last: SSD-512 inference as a user calls it,
+    ``net.detect(x)`` (float32, batch 8), first not hybridized, then after
+    ``hybridize()``: the forward (backbone, heads, ``MultiBoxPrior``'s
+    anchors) runs eagerly on the capture stream and is captured at its
+    first call and replayed after, the decode and NMS eager behind it. The
+    replayed heads against the eager ones (within 1e-5 of the largest
+    entry, and whether equal bit for bit), the detections equal where the
+    heads are equal bit for bit, one cache entry, one ``nms_keep`` launch
+    a detect, and both detects' times (CUDA events over 5 calls)."""
+    net, _, _ = _ssd_net(mx, x)
+    xn = mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0))
+    eager_heads = [t._data.clone() for t in net(xn)]
+    eager_det = net.detect(xn)._data.clone()
+    eager_ms = time_ms(lambda: net.detect(xn), iters=5, warmup=1)
+    net.hybridize()
+    t0 = time.perf_counter()
+    net.detect(xn)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    common.reset_launch_counts()
+    det = net.detect(xn)._data.clone()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in common.launch_counts().items() if v}
+    heads = [t._data.clone() for t in net(xn)]
+    hyb_ms = time_ms(lambda: net.detect(xn), iters=5, warmup=1)
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(heads, eager_heads)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(heads, eager_heads))
+    res = {"eager_ms": eager_ms, "captured_ms": hyb_ms,
+           "first_call_ms": first_ms, "heads_max_err": max(errs),
+           "heads_bitwise": bitwise,
+           "detections_equal": bool(torch.equal(det, eager_det)),
+           "detections_kept": int((det[..., 0] >= 0).sum()),
+           "entries": len(net._static.entries), "launches": launches}
+    log(f"SSD-512 hybridized detect, batch {x.shape[0]}: {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    if res["entries"] != 1 or max(errs) > 1e-5 \
+            or launches.get("nms_keep") != 1 \
+            or (bitwise and not res["detections_equal"]) \
+            or not bool(torch.isfinite(det).all()):
+        raise AssertionError(f"hybridized SSD detect: {res}")
+    return res
 
 
 # ------------------------------------------- the rtc user kernels (B10)
@@ -5118,6 +5588,13 @@ def mlp_phase(mx, common, records):
             **breakdown}
 
 
+def _memory_held() -> None:
+    """What the caching allocator holds after a phase and
+    ``empty_cache()``: memory that the next phases cannot use."""
+    log(f"memory held: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5156,42 +5633,64 @@ def main() -> int:
     train_records, timings = train_kernel_checks(fa, common)
     records.update(train_records)
     torch.cuda.empty_cache()
+    _memory_held()
     train = train_phase(tt, fa, records)
     torch.cuda.empty_cache()
+    _memory_held()
     headmajor_phase(tt, fa)
     torch.cuda.empty_cache()
+    _memory_held()
     f32_train = f32_train_step_phase(tt, fa)
     torch.cuda.empty_cache()
+    _memory_held()
     row_records, row_timings = row_kernel_checks(ln, sm, common)
     records.update(row_records)
     torch.cuda.empty_cache()
+    _memory_held()
     nd_train = nd_train_phase(tt, nd_lm, mx, common, records)
     torch.cuda.empty_cache()
+    _memory_held()
     nd_truth = nd_truth_phase(tt, nd_lm, mx)
     torch.cuda.empty_cache()
+    _memory_held()
     conv_records, conv_timings = conv_kernel_checks(cf, common)
     records.update(conv_records)
     torch.cuda.empty_cache()
+    _memory_held()
     resnet = resnet_train_phase(mx, gluon, vision, common, records)
     torch.cuda.empty_cache()
+    _memory_held()
     perblock = resnet_perblock_phase(mx, gluon, vision, common)
     torch.cuda.empty_cache()
+    _memory_held()
+    perblock["hybridized_forward"] = resnet_hybrid_forward(mx, vision,
+                                                           common)
+    torch.cuda.empty_cache()
+    _memory_held()
     resnet_truth = resnet_truth_phase(mx, gluon, vision, common, records)
     torch.cuda.empty_cache()
+    _memory_held()
     lstm_records, lstm_timings = lstm_kernel_checks(lt, common)
     records.update(lstm_records)
     torch.cuda.empty_cache()
+    _memory_held()
     word_lm = word_lm_train_phase(mx, common, records)
     torch.cuda.empty_cache()
+    _memory_held()
+    agreement = agreement_check(resnet, resnet_truth, word_lm)
     word_lm_truth = word_lm_truth_phase(mx, lt, common, records)
     torch.cuda.empty_cache()
+    _memory_held()
     det_records, det_timings = detection_kernel_checks(kd, common)
     records.update(det_records)
     torch.cuda.empty_cache()
+    _memory_held()
     ssd = ssd_train_phase(mx, kd, common, records)
     torch.cuda.empty_cache()
+    _memory_held()
     ssd_truth = ssd_truth_phase(mx, kd, common)
     torch.cuda.empty_cache()
+    _memory_held()
     rtc_records, rtc_timings = rtc_kernel_checks(mx)
     records.update(rtc_records)
     mlp = mlp_phase(mx, common, records)
@@ -5210,6 +5709,8 @@ def main() -> int:
     log(f"resnet50 f32 truth {json.dumps(resnet_truth)}")
     log(f"LSTM kernel timings {json.dumps(lstm_timings)}")
     log(f"word LM training {json.dumps(word_lm)}")
+    log(f"captured against eager, remat against none "
+        f"{json.dumps(agreement)}")
     log(f"word LM f32 truth {json.dumps(word_lm_truth)}")
     log(f"detection kernel timings {json.dumps(det_timings)}")
     log(f"SSD-512 training {json.dumps(ssd)}")

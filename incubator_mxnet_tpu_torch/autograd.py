@@ -63,6 +63,18 @@ _MARKED_LOCK = threading.Lock()
 _IN_TRACE = threading.local()
 
 
+@contextlib.contextmanager
+def _functional_trace():
+    """Run a block as a function of its parameters: hybridized blocks
+    inside stay eager and ``nd`` ops keep the caller's grad mode."""
+    prev = getattr(_IN_TRACE, "active", False)
+    _IN_TRACE.active = True
+    try:
+        yield
+    finally:
+        _IN_TRACE.active = prev
+
+
 def _op_grad_mode():
     """The grad mode an ``nd`` op runs in: enabled while recording; the
     caller's inside a functional trace; disabled otherwise."""

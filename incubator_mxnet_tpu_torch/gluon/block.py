@@ -7,11 +7,36 @@ and ``save_parameters`` / ``load_parameters`` use the npz format both
 packages' ``nd.save`` / ``nd.load`` share, keyed by structural name, so a
 file either package writes loads into the other's net.
 
-``hybridize()`` is accepted and the forward stays eager: PyTorch runs eagerly
-and the reference's jit trace has no counterpart the port needs yet (a CUDA
-graph capture is ROADMAP.md A3). The aux-state semantics match the
-reference's compiled call: BatchNorm writes its running statistics in a
-training forward, and nowhere else. ``export``, ``SymbolBlock`` and the
+``hybridize()`` compiles the forward as the reference's jit does (its
+``_jit_cache``): an active block called with NDArray inputs, all on one
+device, while autograd is not recording runs one entry per (input tree,
+shapes and types, training) key over static inputs and static copies of
+its parameters. A copy is refreshed at a call only when its parameter's
+tensor changed, by identity or by version, since ``Trainer.step``,
+``set_data`` and ``load_parameters`` rebind a parameter's tensor. On the
+card each entry is a CUDA graph (``cuda_graph``): the first call of a key
+runs the forward eagerly on the capture stream, the capture follows, and
+later calls replay it (the first capture on a device empties the
+allocator's cache once: ``cuda_graph.capture_stream``); a training
+forward's aux writes (BatchNorm running statistics) go into the static
+copies inside the graph and onto the parameters after it, and its draws
+come from the entry's own generator, which takes the device generator's
+state before the call and hands it back after. On the CPU the same
+forward runs eagerly on the same buffers. Outputs are new arrays at every
+call. A forward that syncs with the host cannot be captured: on the card
+its first hybridized call raises. Those are the forwards that reach
+``ROIAlign``, ``ROIPooling`` or ``PSROIPooling`` (each reads a box's batch
+index on the host), ``contrib.boolean_mask`` (its shape depends on the
+data), ``histogram`` without a ``range``, the predicate of
+``contrib.cond`` / ``while_loop``, ``nd.array`` of host data, or an
+``nd.Custom`` operator whose code reads its arrays on the host; leave
+such a block, or the block around it, not hybridized. Every other op of
+the port builds its constants on the device. A recording call stays
+eager, on the tape; with ``hybridize(remat=...)`` its forward runs under
+that rematerialisation policy (``remat.REMAT_POLICIES``), BatchNorm
+as its plain composition, as in the reference. BatchNorm writes its
+running statistics in a training forward, and nowhere else. ``export``,
+``SymbolBlock`` and the
 StableHLO re-import are the symbolic slice (ROADMAP.md A11) and raise.
 """
 from __future__ import annotations
@@ -19,14 +44,23 @@ from __future__ import annotations
 import itertools
 import re
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Optional
 
 import numpy as _np
+import torch
 
-from ..ndarray.ndarray import NDArray
+from .. import autograd
+from .. import cuda_graph as _graphs
+from .. import random as _random
+from .. import remat as _remat
+from ..autograd import _IN_TRACE, _functional_trace
+from ..ndarray.ndarray import NDArray, _wrap
+from ..ops.nn import bn_impl_override
 from .parameter import (DeferredInitializationError, Parameter,
-                        ParameterDict, _strip_checkpoint_prefixes)
+                        ParameterDict, _strip_checkpoint_prefixes,
+                        _substitution_map, parameter_substitution)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
@@ -295,25 +329,31 @@ def _indent(s, num_spaces):
 
 class HybridBlock(Block):
     """A block whose forward is ``hybrid_forward(F, x, **params)`` with F
-    the ``nd`` namespace (ref: gluon/block.py:671)."""
+    the ``nd`` namespace (ref: gluon/block.py:671); hybridized, its forward
+    is compiled (the module docstring)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix, params)
         self._active = False
         self._flags: Dict[str, object] = {}
+        self._remat = None
+        self._static: Optional[_StaticForward] = None
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   remat=None, **kwargs):
-        """(ref: block.py:504/832) Accepted; the forward stays eager (see
-        the module docstring). ``remat`` is a TPU memory policy with no
-        counterpart yet and raises when set."""
-        if remat not in (None, False):
-            raise NotImplementedError(
-                "hybridize(remat=...): rematerialisation policies are not "
-                "ported (ROADMAP.md A3)")
+        """(ref: block.py:504/832) ``static_alloc`` / ``static_shape`` are
+        accepted: a compiled forward always runs on static buffers of fixed
+        shapes. ``remat`` is the rematerialisation policy of gradients
+        taken through this block (None, a name of
+        ``remat.REMAT_POLICIES`` or a policy callable; an unknown
+        name raises ``ValueError`` at the next call). Which forwards
+        cannot be captured, and what the first capture on a device does
+        to the allocator's cache: the module docstring."""
         self._active = active
         self._flags.update(dict(static_alloc=static_alloc,
                                 static_shape=static_shape, **kwargs))
+        self._remat = remat
+        self._static = None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
 
@@ -324,14 +364,30 @@ class HybridBlock(Block):
     def __call__(self, *args):
         for hook in self._forward_pre_hooks.values():
             hook(self, args)
-        try:
-            out = self.forward(*args)
-        except DeferredInitializationError:
-            self._finish_deferred(*args)
-            out = self.forward(*args)
+        out = self._call_impl(*args)
         for hook in self._forward_hooks.values():
             hook(self, args, out)
         return out
+
+    def _call_impl(self, *args):
+        if self._active and not getattr(_IN_TRACE, "active", False):
+            policy = _remat.resolve(self._remat)
+            if autograd.is_recording():
+                if policy is not None:
+                    return self._remat_forward(policy, *args)
+            else:
+                leaves = []
+                tree = _flatten(list(args), leaves)
+                if leaves and _static_ok(tree, leaves):
+                    return self._call_static(tree, leaves, args)
+        return self._eager(*args)
+
+    def _eager(self, *args):
+        try:
+            return self.forward(*args)
+        except DeferredInitializationError:
+            self._finish_deferred(*args)
+            return self.forward(*args)
 
     def _finish_deferred(self, *args):
         """Infer shapes for THIS block's own params from the inputs, then
@@ -341,6 +397,83 @@ class HybridBlock(Block):
         for param in self._reg_params.values():
             if param._deferred_init:
                 param._finish_deferred_init()
+
+    def _resolve_deferred(self, args):
+        """One eager inference forward that materialises every deferred
+        parameter before the compiled forward reads them (the reference's
+        ``_resolve_deferred_eager``)."""
+        params = list(self.collect_params().values())
+        if all(p._data is not None for p in params):
+            return
+        with torch.no_grad(), _functional_trace(), autograd.pause():
+            self._eager(*args)
+
+    def _call_static(self, tree, leaves, args):
+        """The compiled forward (the module docstring)."""
+        self._resolve_deferred(args)
+        device = leaves[0]._data.device
+        state = self._static
+        if state is None or not state.refresh():
+            params = list(self.collect_params().values())
+            if any(p.data()._data.device != device for p in params):
+                return self._eager(*args)
+            state = self._static = _StaticForward(self, params)
+        training = autograd.is_training()
+        key = (repr(tree), tuple((l.shape, l._data.dtype) for l in leaves),
+               training)
+        entry = state.entries.get(key)
+        fresh = entry is None
+        if fresh:
+            entry = _ForwardEntry(state, tree, leaves, training, device)
+        with torch.no_grad():
+            torch._foreach_copy_(entry.inputs, [l._data for l in leaves])
+        gen = _random.generator(device)
+        entry.gen.set_state(gen.get_state())
+        if fresh and device.type == "cuda":
+            outs = _graphs.first_call(entry.step, device, (entry.gen,),
+                                      f"hybridized {self.name}")
+        else:
+            outs = entry.step()
+        gen.set_state(entry.gen.get_state())
+        state.entries[key] = entry
+        state.write_aux(entry.written)
+        return _unflatten(entry.out_tree,
+                          iter([_wrap(o.clone()) for o in outs]))
+
+    def _remat_forward(self, policy, *args):
+        """A recording call under the rematerialisation ``policy``
+        (``remat``: its forward checkpointed, cut into segments where it
+        runs a sequential container). The aux parameters read the values
+        of this call in the forward and in its recompute, and only the
+        forward's writes land on them."""
+        self._resolve_deferred(args)
+        training = autograd.is_training()
+        aux = [p for p in list(self.collect_params().values())
+               if p.grad_req == "null"]
+        before = [p.data()._data for p in aux]
+        writes = []
+
+        def run(*a):
+            wrappers = [NDArray(t, _direct=True) for t in before]
+            mapping = dict(_substitution_map() or {})
+            mapping.update({id(p): w for p, w in zip(aux, wrappers)})
+            with autograd.record(train_mode=training), \
+                    bn_impl_override("plain"), \
+                    parameter_substitution(mapping):
+                out = self.forward(*a)
+            if not writes:
+                writes.append({i: w._data for i, w in enumerate(wrappers)
+                               if w._data is not before[i]})
+            return out
+        if _remat.has_segments(self):
+            with _remat.segments(policy):
+                out = run(*args)
+        else:
+            out = _remat.checkpointed(policy, run, *args)
+        with autograd.pause():
+            for i, new in writes[0].items():
+                aux[i].data()._set_data(new)
+        return out
 
     def forward(self, x, *args):
         """Eager forward: ``hybrid_forward`` with F = nd and this block's
@@ -355,6 +488,130 @@ class HybridBlock(Block):
         raise NotImplementedError(
             "HybridBlock.export: deployment artifacts are the symbolic slice "
             "(ROADMAP.md A11)")
+
+
+class _Leaf:
+    """Where an array sits in a flattened argument or output tree."""
+
+    def __repr__(self):
+        return "*"
+
+
+_LEAF = _Leaf()
+
+
+def _flatten(tree, leaves):
+    """``tree`` (nested lists and tuples) with each NDArray moved into
+    ``leaves`` and :data:`_LEAF` in its place."""
+    if isinstance(tree, NDArray):
+        leaves.append(tree)
+        return _LEAF
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_flatten(t, leaves) for t in tree)
+    return tree
+
+
+def _unflatten(tree, leaves):
+    if tree is _LEAF:
+        return next(leaves)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(t, leaves) for t in tree)
+    return tree
+
+
+def _static_ok(tree, leaves) -> bool:
+    """Arrays on one device, and no other argument but None: a python
+    value would be baked into the compiled forward (the reference runs
+    such calls eagerly too)."""
+    def plain(t):
+        if isinstance(t, (list, tuple)):
+            return all(plain(v) for v in t)
+        return t is _LEAF or t is None
+    device = leaves[0]._data.device
+    return plain(tree) and all(l._data.device == device for l in leaves)
+
+
+class _StaticForward:
+    """A hybridized block's compiled forward: static copies of its
+    parameters, the tensor each was last refreshed from (a weak reference
+    and its version), and one :class:`_ForwardEntry` a key."""
+
+    def __init__(self, block, params):
+        self.block, self.params = block, params
+        with torch.no_grad():
+            self.static = [p.data()._data.detach().clone() for p in params]
+        self.seen = [self._mark(p) for p in params]
+        self.entries: Dict[object, _ForwardEntry] = {}
+
+    @staticmethod
+    def _mark(p):
+        t = p.data()._data
+        return weakref.ref(t), t._version
+
+    def refresh(self) -> bool:
+        """Copy in the parameters whose tensor changed since the last call;
+        False (nothing copied) if one changed shape, type or device."""
+        pairs = []
+        for i, p in enumerate(self.params):
+            if p._data is None:
+                return False
+            t = p.data()._data
+            ref, version = self.seen[i]
+            if ref() is t and t._version == version:
+                continue
+            s = self.static[i]
+            if t.shape != s.shape or t.dtype != s.dtype \
+                    or t.device != s.device:
+                return False
+            pairs.append((i, t))
+        if pairs:
+            with torch.no_grad():
+                torch._foreach_copy_([self.static[i] for i, _ in pairs],
+                                     [t for _, t in pairs])
+            for i, _ in pairs:
+                self.seen[i] = self._mark(self.params[i])
+        return True
+
+    def write_aux(self, written) -> None:
+        """After a training forward: the parameters it wrote (BatchNorm's
+        running statistics) take copies of their static values."""
+        with autograd.pause():
+            for i in written:
+                self.params[i].data()._set_data(self.static[i].clone())
+                self.seen[i] = self._mark(self.params[i])
+
+
+class _ForwardEntry:
+    """One key of a compiled forward: its static inputs, its generator
+    (which takes the device generator's state at each call) and the step
+    that runs the block's forward over them and the static parameters."""
+
+    def __init__(self, state: _StaticForward, tree, leaves, training,
+                 device):
+        self.inputs = [torch.empty(l.shape, dtype=l._data.dtype,
+                                   device=device) for l in leaves]
+        self.out_tree, self.written = None, []
+        self.gen = gen = torch.Generator(device=device)
+        block, params, static = state.block, state.params, state.static
+
+        def body():
+            wrappers = [NDArray(t, _direct=True) for t in static]
+            ins = _unflatten(tree, iter([NDArray(t, _direct=True)
+                                         for t in self.inputs]))
+            with torch.no_grad(), _functional_trace(), \
+                    _random.use_generator(gen), \
+                    parameter_substitution(
+                        {id(p): w for p, w in zip(params, wrappers)}), \
+                    autograd.pause(train_mode=training):
+                out = block.forward(*ins)
+                outs = []
+                self.out_tree = _flatten(out, outs)
+                self.written = [i for i, w in enumerate(wrappers)
+                                if w._data is not static[i]]
+                for i in self.written:
+                    static[i].copy_(wrappers[i]._data)
+            return [o._data for o in outs]
+        self.step = _graphs.CapturedStep(body)
 
 
 class _NDProxy:

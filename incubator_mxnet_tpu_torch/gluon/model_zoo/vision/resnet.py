@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 
+from .... import remat as _remat
 from ....context import cpu
 from ...block import HybridBlock
 from ... import nn
@@ -266,13 +267,16 @@ class ResNetV1(HybridBlock):
                     and xv.shape[1] % stride == 0
                     and xv.shape[2] % stride == 0):
                 params = _fr.stage_params_from_blocks(blocks)
-                with _ag._op_grad_mode():
-                    x_out, stats = _fr.fused_stage(stride, xv, params)
+
+                def stage(v, stride=stride, params=params):
+                    with _ag._op_grad_mode():
+                        return _fr.fused_stage(stride, v, params)
+                x_out, stats = _remat.segment(stage, xv)
                 # the moving-stat update of nn.BatchNorm's training forward
                 _fr.write_moving_stats(blocks, stats)
                 x = NDArray(x_out, _direct=True)
             else:
-                x = child(x)
+                x = _remat.segment(child, x)
         return x
 
     def forward(self, x):

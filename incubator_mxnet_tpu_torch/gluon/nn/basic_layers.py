@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as _np
 
 from ... import initializer as _init
+from ... import remat as _remat
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
@@ -32,7 +33,7 @@ class Sequential(Block):
 
     def forward(self, x, *args):
         for block in self._children.values():
-            x = block(x)
+            x = _remat.segment(block, x)
         return x
 
     def __len__(self):
@@ -66,7 +67,7 @@ class HybridSequential(HybridBlock):
 
     def forward(self, x, *args):
         for block in self._children.values():
-            x = block(x)
+            x = _remat.segment(block, x)
         return x
 
     def __len__(self):
@@ -147,8 +148,9 @@ class Dropout(HybridBlock):
 class BatchNorm(HybridBlock):
     """(ref: basic_layers.py:BatchNorm; op src/operator/nn/batch_norm.cc).
 
-    Moving stats are grad_req='null' aux params; under hybridize they are
-    threaded through the jit as extra outputs (see block.py)."""
+    Moving stats are grad_req='null' aux params; a hybridized training
+    forward writes them into its static copies and onto the parameters
+    after the call (see block.py)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",

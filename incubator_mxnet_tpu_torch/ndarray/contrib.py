@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from ..ops import detection as _det
+from ..ops import device_vector
 from .ndarray import NDArray, _as_nd, invoke, stack
 from .ops import Embedding
 from .optimizer_ops import group_adagrad_update  # noqa: F401
@@ -226,8 +227,8 @@ def div_sqrt_dim(data):
     float32 (ref: src/operator/contrib/transformer.cc:34)."""
     def f(x):
         dt = torch.promote_types(x.dtype, torch.float32)
-        root = torch.sqrt(torch.tensor(float(x.shape[-1]), dtype=dt,
-                                       device=x.device))
+        root = torch.sqrt(torch.full((), float(x.shape[-1]), dtype=dt,
+                                     device=x.device))
         return x.to(dt) / root
     return invoke(f, [data], "div_sqrt_dim")
 
@@ -419,7 +420,8 @@ def Proposal(cls_prob, bbox_pred, im_info, feature_stride=16,
                 w_a = size * (1.0 / r) ** 0.5
                 h_a = size * r ** 0.5
                 anchors.append([-w_a / 2, -h_a / 2, w_a / 2, h_a / 2])
-        base = torch.tensor(anchors, dtype=torch.float32, device=dev)
+        base = device_vector([v for a in anchors for v in a], torch.float32,
+                             dev).reshape(-1, 4)
         shift_x = (torch.arange(W, device=dev) + 0.5) * feature_stride
         shift_y = (torch.arange(H, device=dev) + 0.5) * feature_stride
         sx, sy = torch.meshgrid(shift_x, shift_y, indexing="xy")
@@ -451,9 +453,8 @@ def Proposal(cls_prob, bbox_pred, im_info, feature_stride=16,
             order = torch.sort(scs, descending=True, stable=True).indices
             top_i = order[:n_pre]
             top_sc, top_boxes = scs[top_i], boxes[top_i]
-            plus1 = top_boxes + torch.tensor([0.0, 0.0, 1.0, 1.0],
-                                             dtype=top_boxes.dtype,
-                                             device=dev)
+            plus1 = top_boxes + device_vector([0.0, 0.0, 1.0, 1.0],
+                                              top_boxes.dtype, dev)
             ids = _det._nms_loop(plus1, torch.zeros_like(top_sc), top_sc,
                                  top_sc > 0, threshold, True, -1)
             survive = ids >= 0
@@ -544,7 +545,7 @@ def bipartite_matching(data, threshold, is_ascend=False, topk=-1):
     def f(x):
         B, N, M = x.shape
         rounds = min(N, M) if topk < 0 else min(topk, min(N, M))
-        big = torch.tensor(1e30, dtype=x.dtype, device=x.device)
+        big = torch.full((), 1e30, dtype=x.dtype, device=x.device)
         sgn = 1.0 if not is_ascend else -1.0
         scores = x * sgn
         rmatch = -torch.ones((B, N), dtype=x.dtype, device=x.device)

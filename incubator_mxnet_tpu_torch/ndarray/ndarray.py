@@ -259,6 +259,12 @@ class NDArray:
         cur = self._data.detach()
         if isinstance(value, NDArray):
             value = value._data.detach()
+        if isinstance(value, (bool, float)) or (
+                isinstance(value, int) and abs(value) < 2 ** 31):
+            # a fill on the device, not a copy from host memory (which a
+            # captured forward cannot run)
+            dt = canonical_dtype(torch.as_tensor(value).dtype)
+            value = torch.full((), value, dtype=dt, device=cur.device)
         value = torch.as_tensor(_host_value(value), device=cur.device)
         if key is None or (isinstance(key, _builtins.slice)
                            and key == _builtins.slice(None)):

@@ -19,6 +19,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from ..ops import device_vector
 from ..ops import nn as _nn
 from .ndarray import (NDArray, invoke, _as_nd, _cmp, _pad, _promote,
                       array, zeros, ones, full, empty, arange, eye, linspace,
@@ -782,7 +783,7 @@ def ravel_multi_index(data, shape=None, **kw):
         strides = [1]
         for s in reversed(shape[1:]):
             strides.insert(0, strides[0] * s)
-        st = torch.tensor(strides, dtype=x.dtype, device=x.device)
+        st = device_vector(strides, x.dtype, x.device)
         return torch.sum(x * st[:, None], dim=0)
 
     return invoke(f, [_as_nd(data)], "ravel_multi_index")

@@ -1,7 +1,17 @@
 """Operators of the PyTorch port."""
 import torch
 
-__all__ = ["matmul_promoted"]
+__all__ = ["device_vector", "matmul_promoted"]
+
+
+def device_vector(values, dtype, device):
+    """``torch.tensor(values, dtype=dtype, device=device)`` for a flat list
+    of Python numbers, made by fills on the device: no copy from host
+    memory, so a CUDA graph capture may run it (``cuda_graph``)."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i:i + 1].fill_(v)
+    return out
 
 
 def matmul_promoted(a, b):

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import device_vector
 from .common import (check_launch, counted_kernel, current_stream_handle,
                      kernel_library, sm_count)
 
@@ -75,8 +76,7 @@ def encode_loc(anchor, gt, variances):
     """(gcx - acx) / aw / v0, (gcy - acy) / ah / v1, log(gw / aw) / v2,
     log(gh / ah) / v3, with the reference's eps guards (ref:
     multibox_target.cc AssignLocTargets)."""
-    var = torch.tensor([float(v) for v in variances], dtype=gt.dtype,
-                       device=gt.device)
+    var = device_vector([float(v) for v in variances], gt.dtype, gt.device)
     aw = anchor[..., 2] - anchor[..., 0]
     ah = anchor[..., 3] - anchor[..., 1]
     ax = (anchor[..., 0] + anchor[..., 2]) / 2

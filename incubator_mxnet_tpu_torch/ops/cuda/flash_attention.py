@@ -134,7 +134,7 @@ def _walk_pages(qs, read_kv, lengths, block_k: int, nb: int):
 
 def _scaled_query(q, scale: float):
     # the reference multiplies by the scale cast to the query's type
-    return (q * torch.tensor(scale, dtype=q.dtype, device=q.device))
+    return (q * torch.full((), scale, dtype=q.dtype, device=q.device))
 
 
 def decode_attention_reference(q, k, v, lengths,

@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from . import device_vector
 from .cuda import detection as _k
 from .cuda.detection import encode_loc as _encode_loc  # noqa: F401
 from .cuda.detection import match_anchors as _match_anchors  # noqa: F401
@@ -37,8 +38,8 @@ def multibox_prior(feat_h: int, feat_w: int, sizes=(1.0,), ratios=(1.0,),
     every size with the first ratio, then every other ratio with the first
     size; widths carry the h/w aspect correction."""
     f32 = dict(dtype=torch.float32, device=device)
-    sizes = torch.tensor([float(s) for s in sizes], **f32)
-    ratios = torch.tensor([float(r) for r in ratios], **f32)
+    sizes = device_vector([float(s) for s in sizes], **f32)
+    ratios = device_vector([float(r) for r in ratios], **f32)
     step_y = steps[0] if steps[0] > 0 else 1.0 / feat_h
     step_x = steps[1] if steps[1] > 0 else 1.0 / feat_w
     cy = (torch.arange(feat_h, **f32) + offsets[0]) * step_y

@@ -14,14 +14,36 @@ Counterpart of ``incubator_mxnet_tpu/parallel/dp.py`` with ``mesh=None``:
   float32 masters, ``compute_dtype`` (e.g. bfloat16) for the forward and
   backward, the loss and the masters in float32, and the forward's
   BatchNorm running-stat writes returned as the new aux values.
-  ``unroll_steps`` > 1 runs that many updates per call in a Python loop
-  (x and y carry a leading axis) and returns their mean loss; the
-  reference's ``lax.scan`` amortises TPU dispatch and has no counterpart
-  here.
 
-A mesh, ``param_spec`` and the multi-card trainer are ROADMAP.md A10;
-rematerialisation (``remat`` / ``MXTPU_REMAT``) is A3; the exported train
-step (``export_train_step``) is A11. They raise.
+The reference jits that step and donates its state. Here the step owns
+static buffers for the parameters, aux values, optimizer state, ``lr`` (a
+0-d float32 tensor, so a new rate changes no program) and, for each
+(x, y shapes and types) key, x, y and a generator: the reference retraces
+on a new shape, the port makes a new entry. ``key`` is a value, as the
+reference's traced key is: a call copies the state of the generator it
+names (the device's when None) into the entry's generator, draws from
+that, and copies the advanced state back, so any number of generators
+share one entry. A call copies each argument that is not already its
+static tensor in, runs the update on the static buffers, and writes the
+new values back into them. On the card each key's
+step is captured as a CUDA graph (``cuda_graph``): its first call is a
+real step run eagerly on the capture stream, the capture that follows
+executes nothing, and later calls replay (the first capture on a device
+empties the allocator's cache once: ``cuda_graph.capture_stream``).
+``unroll_steps`` > 1 puts that many updates into one graph (the
+reference's ``lax.scan``; x and y carry a leading axis and the mean loss
+is returned). On the CPU the same body runs eagerly on the same buffers
+at every call; the device of the parameters decides, never whether a
+card is present.
+
+``remat`` (or ``MXTPU_REMAT`` when the caller passes None) names one of
+:data:`REMAT_POLICIES` or passes a policy callable; the forward then runs
+under ``torch.utils.checkpoint`` with that policy, cut into segments
+(``remat``), and BatchNorm runs its plain composition, as in the
+reference.
+
+A mesh, ``param_spec`` and the multi-card trainer are ROADMAP.md A10; the
+exported train step (``export_train_step``) is A11. They raise.
 """
 from __future__ import annotations
 
@@ -32,24 +54,18 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from .. import autograd
+from .. import cuda_graph as _graphs
 from .. import random as _random
-from ..autograd import _IN_TRACE
+from .. import remat as _remat
+from ..autograd import _functional_trace
 from ..gluon.block import Block
 from ..gluon.parameter import parameter_substitution
 from ..ndarray.ndarray import NDArray, _wrap
+from ..ops.nn import bn_impl_override
+from ..remat import REMAT_POLICIES, resolve as _resolve_remat_policy
 
 __all__ = ["functional_call", "DataParallelTrainer", "make_train_step",
-           "export_train_step"]
-
-
-@contextlib.contextmanager
-def _functional_trace():
-    prev = getattr(_IN_TRACE, "active", False)
-    _IN_TRACE.active = True
-    try:
-        yield
-    finally:
-        _IN_TRACE.active = prev
+           "export_train_step", "REMAT_POLICIES"]
 
 
 def _no_mesh(what: str, mesh=None, param_spec=None) -> None:
@@ -160,24 +176,38 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
                     data_axes: Tuple[str, ...] = ("data",),
                     param_spec=None, donate: bool = True,
                     compute_dtype=None, unroll_steps: int = 1,
-                    remat=None):
+                    remat=None, _capture: bool = True):
     """Build (step_fn, params, aux_params, opt_state) on the net's device.
 
     ``step(params, aux_params, opt_state, x, y, key=None, lr=None) ->
-    (params, aux_params, opt_state, loss)``; ``lr`` None means
-    ``learning_rate``. Parameters, optimizer state and the loss are float32
-    whatever ``compute_dtype`` (a torch dtype, e.g. ``torch.bfloat16``) the
-    forward and backward run in; the returned aux values carry the
-    forward's BatchNorm running-stat updates in their own type. ``donate``
-    is accepted for the reference's signature: the step returns new
-    tensors and never writes its inputs."""
+    (params, aux_params, opt_state, loss)``; ``key`` is a
+    ``torch.Generator`` of the step's device for the forward's draws
+    (None: the device's, see ``random.step_generator``), taken as a value
+    and advanced as an eager step advances it; ``lr`` None means
+    ``learning_rate``.
+    Parameters, optimizer state and the loss are float32 whatever
+    ``compute_dtype`` (a torch dtype, e.g. ``torch.bfloat16``) the forward
+    and backward run in; the returned aux values carry the forward's
+    BatchNorm running-stat updates in their own type.
+
+    The step works on static buffers it owns (the module docstring). With
+    ``donate`` (the default, as in the reference) it returns those buffers
+    themselves, and so does this function: passing back what the last call
+    returned copies nothing, and the next call overwrites it. With
+    ``donate=False`` both return detached copies and the caller's tensors
+    stay as they were. The loss is a new tensor at every call. ``remat``
+    names a rematerialisation policy (:data:`REMAT_POLICIES`; a callable is
+    taken as it is; ``MXTPU_REMAT`` when None; an unknown name raises
+    ``ValueError``; the ``remat`` module says how the forward is cut).
+    ``_capture=False`` keeps the body eager on the card: the yardstick the
+    captured step is measured against, not a knob. The first captured step
+    on a device empties the allocator's cache once
+    (``cuda_graph.capture_stream``)."""
     _no_mesh("make_train_step", mesh, param_spec)
     if remat is None and os.environ.get("MXTPU_REMAT"):
         remat = os.environ["MXTPU_REMAT"]
-    if remat not in (None, False):
-        raise NotImplementedError(
-            "make_train_step(remat=...): rematerialisation policies are "
-            "ROADMAP.md A3, not ported")
+    policy = _resolve_remat_policy(remat)
+    segmented = policy is not None and _remat.has_segments(net)
     all_params = net.collect_params()
     trainable = {n: p for n, p in all_params.items() if p.grad_req != "null"}
     aux = {n: p for n, p in all_params.items() if p.grad_req == "null"}
@@ -205,15 +235,28 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
             return v.to(compute_dtype)
         return v
 
+    def loss_of(leaves, aux_params, x, y, key):
+        merged = {n: _to_compute(v) for n, v in leaves.items()}
+        merged.update({n: _to_compute(v) for n, v in aux_params.items()})
+        # under remat, training BN runs as a plain composition so the
+        # policy sees its statistics (as the reference does, dp.py:275)
+        with (bn_impl_override("plain") if policy is not None
+              else contextlib.nullcontext()):
+            return _forward_loss(net, loss_fn, merged, _to_compute(x), y,
+                                 key, capture_updates=list(aux_params))
+
     def one_step(params, aux_params, opt_state, x, y, key, lr):
         names = list(params)
         leaves = {n: params[n].detach().requires_grad_(True) for n in names}
         with torch.enable_grad():
-            merged = {n: _to_compute(v) for n, v in leaves.items()}
-            merged.update({n: _to_compute(v) for n, v in aux_params.items()})
-            loss, new_aux = _forward_loss(
-                net, loss_fn, merged, _to_compute(x), y, key,
-                capture_updates=list(aux_params))
+            if policy is None:
+                loss, new_aux = loss_of(leaves, aux_params, x, y, key)
+            elif segmented:
+                with _remat.segments(policy):
+                    loss, new_aux = loss_of(leaves, aux_params, x, y, key)
+            else:
+                loss, new_aux = _remat.checkpointed(
+                    policy, loss_of, leaves, aux_params, x, y, key)
             grads = torch.autograd.grad(loss, [leaves[n] for n in names],
                                         allow_unused=True)
         grads = {n: (g if g is not None else torch.zeros_like(params[n]))
@@ -225,23 +268,139 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
                         for n, v in new_aux.items()})
         return new_params, aux_out, new_state, loss.detach()
 
-    def step(params, aux_params, opt_state, x, y, key=None, lr=None):
-        lr = learning_rate if lr is None else float(lr)
-        if unroll_steps == 1:
-            return one_step(params, aux_params, opt_state, x, y, key, lr)
-        losses = []
-        for i in range(unroll_steps):
-            params, aux_params, opt_state, loss = one_step(
-                params, aux_params, opt_state, x[i], y[i], key, lr)
-            losses.append(loss)
-        return params, aux_params, opt_state, torch.stack(losses).mean()
+    step = _TrainStep(one_step, params0, aux0, opt_state0, learning_rate,
+                      max(1, int(unroll_steps)), donate, _capture)
+    if donate:
+        return step, step.params, step.aux, step.opt_state
+    return (step, _clone(step.params), _clone(step.aux),
+            _clone(step.opt_state))
 
-    return step, params0, aux0, opt_state0
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _pairs(dst, src, out, what):
+    """(static tensor, value) pairs of two trees of dicts, by key, where
+    the value is not the static tensor itself."""
+    if isinstance(dst, (dict, tuple)):
+        if type(src) is not type(dst) or len(src) != len(dst) \
+                or (isinstance(dst, dict) and src.keys() != dst.keys()):
+            raise ValueError(f"the step's {what} do not have the keys it was "
+                             "built with")
+        for k in (dst if isinstance(dst, dict) else range(len(dst))):
+            _pairs(dst[k], src[k], out, what)
+    elif src is not dst:
+        out.append((dst, src))
+    return out
+
+
+def _copy_pairs(pairs) -> None:
+    if pairs:
+        with torch.no_grad():
+            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+
+class _StepEntry:
+    """One key of a :class:`_TrainStep`: the static x and y, the
+    generator the forward draws from (its own, which takes the caller's
+    state at each call), and the step over them."""
+
+    def __init__(self, x, y, device):
+        self.x = torch.empty(x.shape, dtype=x.dtype, device=device)
+        self.y = torch.empty(y.shape, dtype=y.dtype, device=device)
+        self.gen = torch.Generator(device=device)
+        self.step = None
+
+
+class _TrainStep:
+    """The step :func:`make_train_step` returns (its docstring): static
+    parameter, aux, optimizer-state and ``lr`` buffers, and one
+    :class:`_StepEntry` a key, captured on the card."""
+
+    def __init__(self, one_step, params, aux, opt_state, learning_rate,
+                 unroll: int, donate: bool, capture: bool):
+        self.params, self.aux, self.opt_state = params, aux, opt_state
+        leaf = next(iter({**params, **aux}.values()), None)
+        self.device = leaf.device if leaf is not None else torch.device("cpu")
+        self._one_step = one_step
+        self._unroll = unroll
+        self._donate = donate
+        self._capture = capture and self.device.type == "cuda"
+        self._learning_rate = float(learning_rate)
+        self._lr_value = self._learning_rate
+        self._lr = torch.full((), self._lr_value, dtype=torch.float32,
+                              device=self.device)
+        self._entries: Dict[Any, _StepEntry] = {}
+
+    def _cache_size(self) -> int:
+        """The number of keys built (the reference's jitted function has
+        the same private count)."""
+        return len(self._entries)
+
+    def _body(self, entry: _StepEntry):
+        def body():
+            losses = []
+            for i in range(self._unroll):
+                x, y = ((entry.x, entry.y) if self._unroll == 1
+                        else (entry.x[i], entry.y[i]))
+                *new, loss = self._one_step(self.params, self.aux,
+                                            self.opt_state, x, y, entry.gen,
+                                            self._lr)
+                _copy_pairs(_pairs((self.params, self.aux, self.opt_state),
+                                   tuple(new), [], "outputs"))
+                losses.append(loss)
+            return losses[0] if self._unroll == 1 \
+                else torch.stack(losses).mean()
+        return body
+
+    def _set_lr(self, lr) -> None:
+        if torch.is_tensor(lr):
+            self._lr.copy_(lr)
+            self._lr_value = None
+        elif float(lr) != self._lr_value:
+            self._lr.fill_(float(lr))
+            self._lr_value = float(lr)
+
+    def __call__(self, params, aux_params, opt_state, x, y, key=None,
+                 lr=None):
+        x = x._data if isinstance(x, NDArray) else x
+        y = y._data if isinstance(y, NDArray) else y
+        gen = _random.step_generator(key, self.device)
+        k = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+        pairs = _pairs((self.params, self.aux, self.opt_state),
+                       (params, aux_params, opt_state), [], "arguments")
+        entry = self._entries.get(k)
+        fresh = entry is None
+        if fresh:
+            entry = _StepEntry(x, y, self.device)
+            entry.step = _graphs.CapturedStep(self._body(entry))
+        pairs += _pairs(entry.x, x, [], "x") + _pairs(entry.y, y, [], "y")
+        _copy_pairs(pairs)
+        self._set_lr(self._learning_rate if lr is None else lr)
+        entry.gen.set_state(gen.get_state())
+        if fresh and self._capture:
+            loss = _graphs.first_call(entry.step, self.device, (entry.gen,),
+                                      "make_train_step")
+        else:
+            loss = entry.step()
+            if entry.step.graph is not None:
+                loss = loss.clone()
+        gen.set_state(entry.gen.get_state())
+        self._entries[k] = entry
+        if self._donate:
+            return self.params, self.aux, self.opt_state, loss
+        return (_clone(self.params), _clone(self.aux),
+                _clone(self.opt_state), loss)
 
 
 class DataParallelTrainer:
     """The functional step behind a stateful API (ref analog: Gluon Trainer
-    with kvstore 'device'), on one card."""
+    with kvstore 'device'), on one card: the captured step of
+    :func:`make_train_step`, whose learning rate is a tensor, so
+    :meth:`set_learning_rate` captures nothing new."""
 
     def __init__(self, net: Block, loss_fn, optimizer="sgd",
                  optimizer_params=None, mesh=None, param_spec=None,
@@ -278,13 +437,14 @@ class DataParallelTrainer:
         return _wrap(loss)
 
     def sync_to_net(self):
-        """Write the step's parameters and aux values back into the net."""
+        """Write copies of the step's parameters and aux values into the
+        net (the step goes on updating its own buffers)."""
         with autograd.pause():
             for n, p in self._net.collect_params().items():
                 if n in self._params:
-                    p.data()._set_data(self._params[n])
+                    p.data()._set_data(self._params[n].clone())
                 elif n in self._aux:
-                    p.data()._set_data(self._aux[n])
+                    p.data()._set_data(self._aux[n].clone())
 
 
 def export_train_step(net: Block, loss_fn: Callable, prefix: str,

@@ -11,6 +11,15 @@ seed gives other numbers here, so samples are held to their distributions
 for the reference's ``next_key``. ``use_generator(g)`` makes ``g`` the
 generator of its device inside a scope, the stand-in for the key the
 reference threads through a functional call (``parallel.dp``).
+
+Draws inside a CUDA graph (a captured training step or hybridized forward,
+``cuda_graph``) come from a generator of the graph's own, registered with
+it. Before each call the step copies into it the state of the generator
+the caller names (``step_generator``: a step's ``key``, else the
+device's), and after the call copies the advanced state back. So a replay
+advances the caller's generator as the eager call would, ``seed()`` or
+``set_state()`` after the capture reach the replays, and a generator is a
+value, as the reference's key is: any number of them share one graph.
 """
 from __future__ import annotations
 
@@ -21,7 +30,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["seed", "generator", "use_generator", "get_state", "set_state",
+__all__ = ["seed", "generator", "use_generator", "step_generator",
+           "get_state", "set_state",
            "uniform", "normal", "randn", "randint", "gamma", "exponential", "poisson",
            "negative_binomial", "generalized_negative_binomial",
            "multinomial", "shuffle", "bernoulli", "sample_uniform",
@@ -76,6 +86,21 @@ def use_generator(g: torch.Generator):
         yield g
     finally:
         _override.map = prev
+
+
+def step_generator(key, device) -> torch.Generator:
+    """The generator a step on ``device`` draws from: ``key`` when it is
+    one (the reference's explicit key), else the device's
+    (:func:`generator`, a ``use_generator`` scope included)."""
+    if key is None:
+        return generator(device)
+    if not isinstance(key, torch.Generator):
+        raise TypeError(f"a step's key is a torch.Generator or None, not "
+                        f"{type(key).__name__}")
+    if key.device.type != torch.device(device).type:
+        raise ValueError(f"a step on {device} takes a generator of its "
+                         f"device, not one on {key.device}")
+    return key
 
 
 def seed(seed_state: int, ctx=None) -> None:

@@ -60,7 +60,7 @@ import torch
 from . import chaos
 from . import telemetry as _telemetry
 from .context import resolve_device
-from .ops.cuda import common as _kcommon
+from .cuda_graph import CapturedStep, capture as _capture_graph
 
 __all__ = ["ServeError", "QueueFullError", "EngineClosedError",
            "RequestAborted", "SwapError", "DeadlineError",
@@ -502,36 +502,19 @@ class _StepInputs:
                 dev.copy_(host, non_blocking=True)
 
 
-class _StepGraph:
+class _StepGraph(CapturedStep):
     """One serving step: ``body()`` reads its :class:`_StepInputs` and
-    returns the step's token tensor. Once captured (:meth:`capture`), a
-    call replays the CUDA graph and returns the static output; before,
-    or never captured (the CPU, the eager yardstick), a call runs the
-    body. A replay runs no kernel wrapper, so the launch counts the
-    wrappers gained during capture, which launched nothing, are taken
-    back then and added again on every replay."""
+    returns the step's token tensor; a call loads the inputs, then runs
+    the body or, once captured, replays its graph
+    (:class:`cuda_graph.CapturedStep`)."""
 
     def __init__(self, body, inputs: _StepInputs):
-        self.body, self.inputs = body, inputs
-        self.graph, self.out, self.counts = None, None, {}
-
-    def capture(self, graph, capturing) -> None:
-        """Run the body inside ``capturing`` (``torch.cuda.graph`` on
-        ``graph``) and keep the graph and its output."""
-        before = _kcommon.launch_count_snapshot()
-        with capturing:
-            self.out = self.body()
-        self.counts = _kcommon.launch_count_delta(before)
-        _kcommon.add_launch_counts(self.counts, -1)
-        self.graph = graph
+        super().__init__(body)
+        self.inputs = inputs
 
     def __call__(self):
         self.inputs.load()
-        if self.graph is None:
-            return self.body()
-        self.graph.replay()
-        _kcommon.add_launch_counts(self.counts)
-        return self.out
+        return super().__call__()
 
 
 # -------------------------------------------------------------------- model
@@ -729,12 +712,9 @@ class _GenerativeModel:
                     step.body()
             stream.synchronize()
             for step in steps:
-                graph = torch.cuda.CUDAGraph()
                 self._capturing = True
                 try:
-                    step.capture(graph, torch.cuda.graph(
-                        graph, pool=pool, stream=stream,
-                        capture_error_mode="thread_local"))
+                    _capture_graph(step, stream, pool)
                 finally:
                     self._capturing = False
                 compiles.inc(1, model=self._name)

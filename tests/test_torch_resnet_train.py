@@ -315,11 +315,11 @@ def test_dispatch_rules_follow_the_reference(monkeypatch):
 def test_not_ported_pieces_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         tdp.make_train_step(None, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="unknown remat policy"):
         with tmx.name.NameManager():
             net = tmx.gluon.nn.Dense(2, in_units=2)
         net.initialize()
-        tdp.make_train_step(net, None, remat="dots")
+        tdp.make_train_step(net, None, remat="bogus")
     with pytest.raises(NotImplementedError, match="A11"):
         tdp.export_train_step(None, None, "x", None, None)
     with pytest.raises(NotImplementedError, match="A6"):

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's seven main paths on the card and holds every CUDA kernel
+Drives the port's eight main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -34,7 +34,12 @@ of them against its plain PyTorch version:
   operator (``operator.CustomOp``, ``nd.Custom``) that trains
   ``examples/train_mnist.py``'s MLP (784-128-64-10, batch 64, SGD lr 0.1,
   momentum 0.9) under ``autograd`` through ``gluon.Trainer``, and
-  ``test_utils.check_consistency`` of that op.
+  ``test_utils.check_consistency`` of that op;
+* batch serving through ``InferenceEngine.load_model(net=...)``: one engine
+  serving ``resnet50_v1(layout="NHWC")`` (float32, buckets 1..32) and
+  SSD-512's ``detect`` (float32, buckets 1..8), one captured CUDA graph a
+  padding bucket, under closed-loop clients, a hot swap, the
+  self-healing ladder and the hung-request watchdog.
 
 Phases:
 
@@ -296,6 +301,14 @@ Phases:
    weights after 20 steps within rtol 1e-4), a profiled window of two
    steps, and ``check_consistency`` of the op across cpu and gpu(0).
 
+24. batch serving (:func:`batch_serving_phase`): the engine above with
+   its two endpoints, each bucket one CUDA graph captured at load.
+
+After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
+caching allocator's cache and logs allocated and reserved bytes; where
+reserved exceeds allocated by more than 2 GB it names the pools and the
+segments that hold the difference.
+
 Any failure raises, so the exit code is not 0. The last three lines of
 standard output are the kernels' JSON record, the card line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -304,12 +317,14 @@ prints no result.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import re
 import subprocess
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -2726,27 +2741,36 @@ def graph_ms(fn, replays: int = 20):
     once), and only this thread is held to the capture's rules, so an
     autograd call, whose backward runs on the engine's thread, can be
     captured too (a failed capture keeps its memory pool for the rest of
-    the process)."""
-    from incubator_mxnet_tpu_torch.cuda_graph import capture_stream
+    the process). A call whose capture failed is not tried again: None
+    (its graph and memory pool are dropped, ``cuda_graph.capture``)."""
+    from incubator_mxnet_tpu_torch.cuda_graph import (CapturedStep, capture,
+                                                      capture_stream)
+    if fn in _UNCAPTURABLE:
+        return None
     side = capture_stream(torch.cuda.current_device())
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+
+    def body():
+        for _ in range(replays):
+            fn()
+    step = CapturedStep(body)
     try:
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            for _ in range(replays):
-                fn()
+        capture(step, side)
     except Exception as err:            # noqa: BLE001 (an autograd call)
         log(f"graph_ms: the call could not be captured: {err}")
-        torch.cuda.synchronize()
+        _UNCAPTURABLE.add(fn)
         return None
-    ms = time_ms(graph.replay, iters=5, warmup=1) / replays
-    del graph
+    ms = time_ms(step.graph.replay, iters=5, warmup=1) / replays
+    step.graph.reset()
     return ms
+
+
+#: calls whose capture failed in :func:`graph_ms`
+_UNCAPTURABLE = weakref.WeakSet()
 
 
 def host_us(fn, calls: int = 20) -> float:
@@ -5588,11 +5612,616 @@ def mlp_phase(mx, common, records):
             **breakdown}
 
 
-def _memory_held() -> None:
-    """What the caching allocator holds after a phase and
-    ``empty_cache()``: memory that the next phases cannot use."""
-    log(f"memory held: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+# ------------------------------------------------ batch serving (A3 1c)
+SERVE_RESNET_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_SSD_BUCKETS = (1, 2, 4, 8)
+SERVE_CLIENTS, SERVE_REQUESTS = 64, 10
+SERVE_MAX_WAIT_MS = 2.0
+
+
+def _serve_images(seed, n, shape):
+    return list(np.random.RandomState(seed).rand(n, *shape)
+                .astype(np.float32))
+
+
+def _closed_loop(ep, xs, clients, per_client, stop=None, timeout=120.0):
+    """``clients`` threads, each sending ``per_client`` requests one after
+    another (client c's k-th is ``xs[(c + k * clients) % len(xs)]``), or,
+    with ``stop`` (a ``threading.Event``), until it is set. Returns the
+    wall seconds and, per request, (client, k, input index, output or the
+    error, latency s, submit and return ``perf_counter`` stamps)."""
+    out = []
+    lock = threading.Lock()
+
+    def client(c):
+        k = 0
+        while (k < per_client) if stop is None else not stop.is_set():
+            i = (c + k * clients) % len(xs)
+            t0 = time.perf_counter()
+            try:
+                y = ep.predict(xs[i], timeout=timeout)
+                lat = time.perf_counter() - t0
+            except Exception as err:       # noqa: BLE001 (counted, raised)
+                y, lat = err, None
+            with lock:
+                out.append((c, k, i, y, lat, t0, time.perf_counter()))
+            k += 1
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"chip-smoke-client-{c}")
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, out
+
+
+def _loop_stats(wall, recs, label):
+    errs = [r[3] for r in recs if isinstance(r[3], Exception)]
+    if errs:
+        raise AssertionError(f"{label}: {len(errs)} of {len(recs)} requests "
+                             f"dropped, first {errs[0]!r}")
+    lats = np.array([r[4] for r in recs]) * 1e3
+    return {"requests": len(recs), "dropped": 0, "wall_s": wall,
+            "img_per_s": len(recs) / wall,
+            "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99))}
+
+
+def _eager_rows(mx, net, xs, batch):
+    """``net``'s eager inference forward (not served) over ``xs`` in
+    batches of ``batch``: one (rows, ...) array an output."""
+    outs = []
+    with mx.autograd.pause(train_mode=False), torch.no_grad():
+        for s in range(0, len(xs), batch):
+            y = net(mx.nd.array(np.stack(xs[s:s + batch]), ctx=mx.gpu(0)))
+            ys = y if isinstance(y, (list, tuple)) else [y]
+            outs.append([t._data.float().cpu().numpy() for t in ys])
+    return [np.concatenate([o[j] for o in outs]) for j in range(len(outs[0]))]
+
+
+def _served(model, rows, b):
+    """``rows`` served as one batch of bucket ``b`` through the model's own
+    pack, dispatch and fetch: the real rows of each output."""
+    return model.fetch(model.dispatch(model.pack(rows, b), b))
+
+
+def _bucket_checks(mx, net, model, xs, label, seed):
+    """Each bucket's replay against the net's eager forward of the same
+    padded batch: equal bit for bit, for a full batch and for one of
+    ``n = b // 2`` real rows padded with zeros. Padding rows leave real
+    rows alone: those ``n`` rows padded with random rows give the same
+    outputs bit for bit. Then the graph's replay and the eager forward
+    timed in turns (graph, eager, eager, graph; CUDA events over 10 calls)
+    with no traffic on the engine."""
+    out = {}
+    noise = _serve_images(seed, max(model.buckets), model.item_shape)
+    zero = np.zeros(model.item_shape, np.float32)
+    for b in model.buckets:
+        rows = xs[:b]
+        served = _served(model, rows, b)
+        eager = _eager_rows(mx, net, rows, b)
+        bitwise = all(np.array_equal(s, e) for s, e in zip(served, eager))
+        err = max(float(np.abs(s - e).max()) for s, e in zip(served, eager))
+        pad = {}
+        if b > 1:
+            n = b // 2
+            zeros = _served(model, rows[:n], b)
+            randoms = _served(model, rows[:n] + noise[:b - n], b)
+            eager_zeros = _eager_rows(mx, net, rows[:n] + [zero] * (b - n),
+                                      b)
+            pad = {"real_rows": n,
+                   "zero_vs_random_padding_bitwise": all(
+                       np.array_equal(z, r[:n])
+                       for z, r in zip(zeros, randoms)),
+                   "padded_vs_eager_bitwise": all(
+                       np.array_equal(z, e[:n])
+                       for z, e in zip(zeros, eager_zeros))}
+        entry = model._entries[b]
+        xb = mx.nd.array(np.stack(rows), ctx=mx.gpu(0))
+
+        graph = entry.step.graph.replay
+
+        def eager_fwd():
+            with mx.autograd.pause(train_mode=False), torch.no_grad():
+                net(xb)
+        reads = {"graph_ms": [], "eager_ms": []}
+        with model._lock:
+            for fn, key in ((graph, "graph_ms"), (eager_fwd, "eager_ms"),
+                            (eager_fwd, "eager_ms"), (graph, "graph_ms")):
+                reads[key].append(time_ms(fn, iters=10, warmup=2))
+        out[b] = {"bitwise": bitwise, "max_abs_err": err, **pad,
+                  "graph_ms": sum(reads["graph_ms"]) / 2,
+                  "eager_ms": sum(reads["eager_ms"]) / 2,
+                  "graph_ms_rounds": reads["graph_ms"],
+                  "eager_ms_rounds": reads["eager_ms"]}
+        if not bitwise or not all(pad.values()):
+            raise AssertionError(f"{label}: bucket {b}'s replay differs "
+                                 f"from its eager forward or its padding "
+                                 f"reaches real rows {out[b]}")
+    log(f"{label}: bucket replays against eager forwards "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _match_detections(a, b, tol):
+    """Detections (rows of (class, score, x1, y1, x2, y2), class -1 for
+    none) of one image from two runs, matched across: a detection of
+    ``a`` matches one of ``b`` of its class within ``tol`` of its score
+    and box. One that does not is a near tie when ``b`` has a detection
+    of its class within ``tol`` of its score (a reordering, or NMS
+    keeping the other of two boxes of near-equal score)."""
+    va, vb = a[a[:, 0] >= 0], b[b[:, 0] >= 0]
+    matched = ties = 0
+    unexplained = []
+    for d in va:
+        same = vb[vb[:, 0] == d[0]]
+        if same.size and float(np.abs(same[:, 1:] - d[1:]).max(1).min()) \
+                <= tol:
+            matched += 1
+        elif same.size and float(np.abs(same[:, 1] - d[1]).min()) <= tol:
+            ties += 1
+        else:
+            unexplained.append(float(d[1]))
+    return {"a": len(va), "b": len(vb), "matched": matched,
+            "near_ties": ties, "unexplained": len(unexplained),
+            "unexplained_top_score": max(unexplained, default=None)}
+
+
+def _ssd_across_buckets(mx, ssd, eps, xd):
+    """The SSD's served detections at bucket 4 (four real rows) against
+    the one-row eager ``detect`` of each image: the heads (class logits
+    and box offsets) of the two batch sizes, and the detections matched
+    across (``_match_detections``)."""
+    served = _served(eps.model, xd[:4], 4)[0]
+    with mx.autograd.pause(train_mode=False), torch.no_grad():
+        four = [t._data.float() for t in
+                ssd(mx.nd.array(np.stack(xd[:4]), ctx=mx.gpu(0)))[:2]]
+        ones, dets = [], []
+        for x in xd[:4]:
+            xb = mx.nd.array(x[None], ctx=mx.gpu(0))
+            ones.append([t._data.float() for t in ssd(xb)[:2]])
+            dets.append(ssd.detect(xb)._data.float().cpu().numpy()[0])
+    heads = {}
+    for j, name in enumerate(("cls", "box")):
+        one = torch.cat([o[j] for o in ones])
+        heads[name + "_max_abs"] = float((four[j] - one).abs().max())
+        heads[name + "_rel"] = heads[name + "_max_abs"] / float(
+            one.abs().max())
+    tol = 1e-4
+    rows = [_match_detections(served[i], dets[i], tol) for i in range(4)]
+    back = [_match_detections(dets[i], served[i], tol) for i in range(4)]
+    res = {"heads_bucket4_vs_one_row": heads, "tol": tol,
+           "max_abs": float(np.abs(served - np.stack(dets)).max()),
+           "served_vs_one_row": {k: sum(r[k] for r in rows)
+                                 for k in ("a", "b", "matched", "near_ties",
+                                           "unexplained")},
+           "one_row_vs_served": {k: sum(r[k] for r in back)
+                                 for k in ("matched", "near_ties",
+                                           "unexplained")},
+           "unexplained_top_score": max(
+               [r["unexplained_top_score"] for r in rows + back
+                if r["unexplained_top_score"] is not None], default=None)}
+    log(f"batch serving: SSD detections at bucket 4 against one-row "
+        f"detect {json.dumps(res)}")
+    if max(heads["cls_rel"], heads["box_rel"]) > 1e-4 \
+            or res["served_vs_one_row"]["unexplained"] \
+            or res["one_row_vs_served"]["unexplained"] \
+            or not np.isfinite(served).all():
+        raise AssertionError(f"SSD across buckets {res}")
+    return res
+
+
+def _dispatch_host_ms(model, rows, b, reps=20):
+    """Host ms of each stage of serving ``rows`` in bucket ``b`` through
+    the model's own calls: ``pack``, ``dispatch`` (copy in, replay and
+    copy out, enqueued on the model's stream), the wait for the batch's
+    copy-out event, ``fetch`` (the real rows out of the pinned slot) and
+    the demux's slicing into one row a request; the mean over ``reps``
+    batches."""
+    keys = ("pack", "dispatch", "wait", "fetch", "demux")
+    acc = dict.fromkeys(keys, 0.0)
+    for _ in range(reps):
+        t = [time.perf_counter()]
+        batch = model.pack(rows, b)
+        t.append(time.perf_counter())
+        model.dispatch(batch, b)
+        t.append(time.perf_counter())
+        batch.slot.event.synchronize()
+        t.append(time.perf_counter())
+        host = model.fetch(batch)
+        t.append(time.perf_counter())
+        [[h[i] for h in host] for i in range(len(rows))]
+        t.append(time.perf_counter())
+        for k, a, z in zip(keys, t, t[1:]):
+            acc[k] += (z - a) * 1e3 / reps
+    return acc
+
+
+def _loaded_idle_share(ep, xs, wall_s, n_req):
+    """The device's busy time over a loaded window (the closed loop, from
+    a profiled run of it), against the unprofiled run's wall."""
+    def window():
+        return _closed_loop(ep, xs, SERVE_CLIENTS, SERVE_REQUESTS)[0]
+    dev, prof_wall = _device_events(window)
+    if dev is None:
+        return {"device_busy_ms": None, "device_idle_share": None}
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    return {"device_busy_ms": busy, "wall_ms": wall_s * 1e3,
+            "profiled_wall_ms": prof_wall * 1e3,
+            "device_idle_share": 1 - busy / (wall_s * 1e3),
+            "profiled_window_idle_share": 1 - busy / (prof_wall * 1e3),
+            "busy_ms_per_request": busy / n_req}
+
+
+def _watchdog_check(serving, chaos, telemetry):
+    """``timeout_ms`` with ``serve.slow_model``: the batch fails with
+    ``StepHungError``, the flight recorder is dumped, and the engine serves
+    the next request."""
+    import os
+    import shutil
+    import tempfile
+    from incubator_mxnet_tpu_torch.guard import StepHungError
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-flight-")
+    dump = os.path.join(tmp, "flight.jsonl")
+    old = os.environ.get("MXTPU_TELEMETRY_DUMP")
+    os.environ["MXTPU_TELEMETRY_DUMP"] = dump
+    eng = serving.InferenceEngine(max_batch=4, max_wait_ms=1.0,
+                                  timeout_ms=50.0, device="cuda")
+    eng.SLOW_CHAOS_S = 0.5
+    try:
+        ep = eng.load_model("slow", fn=lambda x: x * 2.0, item_shape=(4,))
+        chaos.arm("serve.slow_model", prob=1.0, seed=5, times=1)
+        t0 = time.perf_counter()
+        try:
+            ep.predict(np.ones(4, np.float32), timeout=60.0)
+            tripped = False
+        except StepHungError:
+            tripped = True
+        trip_ms = (time.perf_counter() - t0) * 1e3
+        dumped = os.path.exists(dump) and os.path.getsize(dump) > 0
+        reason = (json.loads(open(dump).readline())["reason"] if dumped
+                  else None)
+        after = ep.predict(np.ones(4, np.float32), timeout=60.0)
+        res = {"tripped": tripped, "trip_ms": trip_ms, "dumped": dumped,
+               "dump_reason": reason, "hung": eng.stats()["slow"]["hung"],
+               "served_after": bool(np.array_equal(after, np.full(4, 2.0)))}
+    finally:
+        chaos.reset()
+        eng.close()
+        if old is None:
+            os.environ.pop("MXTPU_TELEMETRY_DUMP", None)
+        else:
+            os.environ["MXTPU_TELEMETRY_DUMP"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"batch serving: the hung-request watchdog {json.dumps(res)}")
+    if not (res["tripped"] and res["dumped"] and res["served_after"]
+            and str(res["dump_reason"]).startswith("guard:hang")):
+        raise AssertionError(f"serving watchdog: {res}")
+    return res
+
+
+def batch_serving_phase(mx, gluon, vision, common, records):
+    """Phase 24: one engine, two batch endpoints at full width —
+    ``resnet50_v1(layout="NHWC")`` float32 (its input NCHW, one transpose
+    at entry), item (3, 224, 224), buckets 1..32; and SSD-512's ``detect``
+    (``ssd_512_resnet50_v1(classes=20)``, float32) wrapped in a
+    ``HybridBlock`` here, item (3, 512, 512), buckets 1..8 — each bucket
+    one captured graph. Checks (any failure raises): ``len(buckets)``
+    compiles a model at load and none from traffic; each bucket's replay
+    equal to the net's eager forward of the same padded batch bit for bit,
+    full and half full, and real rows equal bit for bit under zero and
+    random padding (then the replay and the eager forward timed in turns);
+    ResNet's served rows against a one-row eager forward (within 1e-3 of
+    the largest output), the SSD's heads at batch 4 against batch 1
+    (within 1e-4) and each of its served detections matched by one of
+    one-row ``detect`` within 1e-4 or a near tie of score, both ways; one
+    ``nms_keep`` (cluster route) a served SSD
+    batch and one ``softmax_fwd`` a batch whose rows (bucket x anchors)
+    the reference's rule gives its kernel (``softmax_viable``: buckets 4
+    and 8), counted through replays; a closed loop of 64 clients x 10
+    requests (zero dropped; p50, p99, img/s) against one client's 640, the
+    device's idle share over it and the host's ms around a dispatch; a hot
+    swap to new weights under the loop (zero dropped, every answer
+    v1's or v2's, v1's before the swap, v2's after, ``len(buckets)``
+    compiles, reserved bytes before the swap and after the release); the
+    ladder under ``serve.dispatch_fail`` (retry, rebuild with
+    ``len(buckets)`` more compiles, degrade, probe, restore); the
+    watchdog with its flight dump."""
+    from incubator_mxnet_tpu_torch import chaos, serving, telemetry
+    from incubator_mxnet_tpu_torch.models.ssd import ssd_512_resnet50_v1
+    from incubator_mxnet_tpu_torch.ops.cuda import softmax as ksm
+    res = {}
+    compiles = telemetry.counter("mxtpu_serve_compiles_total")
+
+    class SSDDetect(gluon.HybridBlock):
+        """The served SSD: ``detect`` (forward, softmax, decode, NMS)."""
+
+        def __init__(self, ssd):
+            super().__init__()
+            with self.name_scope():
+                self.ssd = ssd
+
+        def forward(self, x):
+            return self.ssd.detect(x)
+
+    def make_resnet(seed):
+        mx.random.seed(seed)
+        with mx.gpu(0):
+            net = vision.resnet50_v1(layout="NHWC")
+            net.initialize()
+            net(mx.nd.zeros((1, 3, 224, 224)))
+        return net
+
+    eng = serving.InferenceEngine(max_batch=32,
+                                  max_wait_ms=SERVE_MAX_WAIT_MS,
+                                  device="cuda")
+    try:
+        net1 = make_resnet(SEED + 21)
+        c0 = compiles.value(model="resnet50")
+        t0 = time.perf_counter()
+        ep = eng.load_model("resnet50", net=net1, item_shape=(3, 224, 224),
+                            buckets=SERVE_RESNET_BUCKETS, max_batch=32,
+                            weight=1, degrade_after=3, probe_every=0.05)
+        load_r = (time.perf_counter() - t0) * 1e3
+        mx.random.seed(SEED)
+        with mx.gpu(0):
+            ssd = ssd_512_resnet50_v1(classes=SSD_CLASSES, layout="NCHW")
+            ssd.initialize()
+            ssd(mx.nd.zeros((1, 3, SSD_SIZE, SSD_SIZE)))
+        det = SSDDetect(ssd)
+        s0 = compiles.value(model="ssd")
+        t0 = time.perf_counter()
+        eps = eng.load_model("ssd", net=det, item_shape=(3, SSD_SIZE,
+                                                         SSD_SIZE),
+                             buckets=SERVE_SSD_BUCKETS, max_batch=8)
+        load_s = (time.perf_counter() - t0) * 1e3
+        load_compiles = {"resnet50": compiles.value(model="resnet50") - c0,
+                         "ssd": compiles.value(model="ssd") - s0}
+        res["load"] = {"ms": {"resnet50": load_r, "ssd": load_s},
+                       "compiles": load_compiles}
+        log(f"batch serving: loaded {json.dumps(res['load'])}")
+        if load_compiles != {"resnet50": len(SERVE_RESNET_BUCKETS),
+                             "ssd": len(SERVE_SSD_BUCKETS)}:
+            raise AssertionError(f"batch serving compiles {load_compiles}")
+
+        xs = _serve_images(SEED + 22, 64, (3, 224, 224))
+        xd = _serve_images(SEED + 23, 8, (3, SSD_SIZE, SSD_SIZE))
+        res["resnet_buckets"] = _bucket_checks(mx, net1, ep.model, xs,
+                                               "resnet50", SEED + 25)
+        res["ssd_buckets"] = _bucket_checks(mx, det, eps.model, xd, "ssd",
+                                            SEED + 26)
+
+        # served rows against a one-row eager forward
+        ones = _eager_rows(mx, net1, xs[:8], 1)[0]
+        futs = [ep.submit(x) for x in xs[:8]]
+        served = np.stack([f.result(60.0) for f in futs])
+        res["rows_vs_one_row"] = {
+            "resnet50_max_abs": float(np.abs(served - ones).max()),
+            "resnet50_rel": float(np.abs(served - ones).max()
+                                  / np.abs(ones).max()),
+            "resnet50_bitwise": bool(np.array_equal(served, ones))}
+        log(f"batch serving: served rows against one-row eager forwards "
+            f"{json.dumps(res['rows_vs_one_row'])}")
+        if not np.isfinite(served).all() \
+                or res["rows_vs_one_row"]["resnet50_rel"] > 1e-3:
+            raise AssertionError(f"served rows {res['rows_vs_one_row']}")
+        res["ssd_vs_one_row"] = _ssd_across_buckets(mx, ssd, eps, xd)
+
+        # SSD: one nms_keep (cluster route) a served batch, and one
+        # softmax_fwd where the reference runs its kernel: rows (bucket x
+        # anchors) a multiple of 8 (softmax_viable), buckets 4 and 8 here;
+        # buckets 1 and 2 take torch.softmax as the reference takes
+        # jax.nn.softmax
+        anchors = eps.model._out_specs[0][0][0]
+        n0 = len(eng.dispatch_log)
+        common.reset_launch_counts()
+        wall, recs = _closed_loop(eps, xd, 8, 4)
+        launches = {k: v for k, v in common.launch_counts().items() if v}
+        sm90 = common.sm90_launch_counts()
+        served = [b for m, _, b in list(eng.dispatch_log)[n0:] if m == "ssd"]
+        viable = {b: ksm.softmax_viable(b * anchors, SSD_CLASSES + 1)
+                  for b in SERVE_SSD_BUCKETS}
+        want = {"softmax_fwd": sum(viable[b] for b in served),
+                "nms_keep": len(served)}
+        res["ssd_loop"] = {**_loop_stats(wall, recs, "ssd loop"),
+                           "batches": len(served),
+                           "batches_by_bucket": {str(b): served.count(b)
+                                                 for b in viable},
+                           "softmax_kernel_buckets": [b for b in viable
+                                                      if viable[b]],
+                           "launches": launches,
+                           "nms_keep_cluster": sm90["nms_keep"]}
+        log(f"batch serving: SSD detect, 8 clients x 4 "
+            f"{json.dumps(res['ssd_loop'])}")
+        if launches != {k: v for k, v in want.items() if v} \
+                or sm90["nms_keep"] != len(served):
+            raise AssertionError(f"served SSD launches {res['ssd_loop']}, "
+                                 f"want {want}")
+        for name in ("softmax_fwd", "nms_keep"):
+            records[name]["launches"] += want[name]
+            records[name]["served_launches"] = want[name]
+
+        # the closed loop against one client
+        r0 = compiles.value(model="resnet50")
+        n0 = len(eng.dispatch_log)
+        wall, recs = _closed_loop(ep, xs, SERVE_CLIENTS, SERVE_REQUESTS)
+        loaded = _loop_stats(wall, recs, "loaded")
+        loaded_buckets = [b for m, _, b in list(eng.dispatch_log)[n0:]
+                          if m == "resnet50"]
+        wall1, recs1 = _closed_loop(ep, xs, 1,
+                                    SERVE_CLIENTS * SERVE_REQUESTS)
+        serial = _loop_stats(wall1, recs1, "serial")
+        res["resnet_loop"] = {
+            "loaded": loaded, "serial": serial,
+            "loaded_over_serial": loaded["img_per_s"] / serial["img_per_s"],
+            "loaded_batches_by_bucket": {
+                str(b): loaded_buckets.count(b)
+                for b in SERVE_RESNET_BUCKETS},
+            "idle": _loaded_idle_share(ep, xs, wall,
+                                       SERVE_CLIENTS * SERVE_REQUESTS),
+            "dispatch_host_ms": {str(b): _dispatch_host_ms(ep.model,
+                                                           xs[:b], b)
+                                 for b in (1, 32)}}
+        log(f"batch serving: resnet50, {SERVE_CLIENTS} clients x "
+            f"{SERVE_REQUESTS} against one client "
+            f"{json.dumps(res['resnet_loop'])}")
+        if compiles.value(model="resnet50") != r0:
+            raise AssertionError("batch serving: traffic compiled")
+
+        # hot swap under the loop
+        net2 = make_resnet(SEED + 24)
+        ref1 = _eager_rows(mx, net1, xs, 64)[0]
+        ref2 = _eager_rows(mx, net2, xs, 64)[0]
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved()
+        stamps = {}
+
+        stop = threading.Event()
+
+        def swap():
+            try:
+                time.sleep(0.3)
+                stamps["start"] = time.perf_counter()
+                eng.load_model("resnet50", net=net2,
+                               item_shape=(3, 224, 224),
+                               buckets=SERVE_RESNET_BUCKETS, max_batch=32)
+                stamps["end"] = time.perf_counter()
+                time.sleep(0.3)
+            finally:
+                stop.set()
+        sw = threading.Thread(target=swap)
+        c1 = compiles.value(model="resnet50")
+        sw.start()
+        wall, recs = _closed_loop(ep, xs, SERVE_CLIENTS, 0, stop=stop)
+        sw.join()
+        if "end" not in stamps:
+            raise AssertionError("hot swap: load_model did not return")
+        torch.cuda.empty_cache()
+        reserved_after = torch.cuda.memory_reserved()
+        versions = []
+        for c, k, i, y, lat, t_sub, t_ret in recs:
+            e1 = float(np.abs(y - ref1[i]).max())
+            e2 = float(np.abs(y - ref2[i]).max())
+            v = 1 if e1 < e2 else 2
+            versions.append((v, min(e1, e2), t_sub, t_ret))
+        tol = 1e-3 * max(np.abs(ref1).max(), np.abs(ref2).max())
+        early = [v for v, _, _, t_ret in versions if t_ret < stamps["start"]]
+        late = [v for v, _, t_sub, _ in versions if t_sub > stamps["end"]]
+        res["hot_swap"] = {
+            **_loop_stats(wall, recs, "swap loop"),
+            "swap_ms": (stamps["end"] - stamps["start"]) * 1e3,
+            "compiles": compiles.value(model="resnet50") - c1,
+            "answers_v1": sum(1 for v in versions if v[0] == 1),
+            "answers_v2": sum(1 for v in versions if v[0] == 2),
+            "v1_before_swap": early.count(1), "of_before": len(early),
+            "v2_after_swap": late.count(2), "of_after": len(late),
+            "max_err_to_own_version": max(v[1] for v in versions),
+            "reserved_before_gb": reserved_before / 1e9,
+            "reserved_after_release_gb": reserved_after / 1e9,
+            "version": ep.version}
+        log(f"batch serving: hot swap under {SERVE_CLIENTS} clients "
+            f"{json.dumps(res['hot_swap'])}")
+        hs = res["hot_swap"]
+        if hs["compiles"] != len(SERVE_RESNET_BUCKETS) \
+                or hs["answers_v1"] == 0 or hs["answers_v2"] == 0 \
+                or hs["v1_before_swap"] != hs["of_before"] \
+                or hs["v2_after_swap"] != hs["of_after"] \
+                or hs["max_err_to_own_version"] > tol or ep.version != 2:
+            raise AssertionError(f"hot swap {hs}")
+        del net1, ref1
+
+        # the self-healing ladder
+        c2 = compiles.value(model="resnet50")
+        chaos.arm("serve.dispatch_fail", prob=1.0, seed=2, times=3)
+        fails = 0
+        for _ in range(3):
+            try:
+                ep.predict(xs[0], timeout=60.0)
+            except serving.ServeError:
+                fails += 1
+        rebuilt = compiles.value(model="resnet50") - c2
+        try:
+            ep.submit(xs[0])
+            degraded_reject = False
+        except serving.ModelDegradedError:
+            degraded_reject = True
+        state_degraded = eng.ready()[1]["resnet50"]
+        t0 = time.perf_counter()
+        while not eng.ready()[0] and time.perf_counter() - t0 < 30.0:
+            time.sleep(0.01)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        after = ep.predict(xs[0], timeout=60.0)
+        chaos.reset()
+        res["ladder"] = {"failures": fails, "rebuild_compiles": rebuilt,
+                         "degraded_reject": degraded_reject,
+                         "state_when_degraded": state_degraded,
+                         "restore_ms": restore_ms,
+                         "restored": eng.ready()[0],
+                         "served_after_max_err": float(
+                             np.abs(after - ref2[0]).max())}
+        log(f"batch serving: the ladder under serve.dispatch_fail "
+            f"{json.dumps(res['ladder'])}")
+        ld = res["ladder"]
+        if ld["failures"] != 3 or ld["rebuild_compiles"] != len(
+                SERVE_RESNET_BUCKETS) or not ld["degraded_reject"] \
+                or ld["state_when_degraded"] != "degraded" \
+                or not ld["restored"] or ld["served_after_max_err"] > tol:
+            raise AssertionError(f"serving ladder {ld}")
+    finally:
+        chaos.reset()
+        eng.close()
+    res["watchdog"] = _watchdog_check(serving, chaos, telemetry)
+    return res
+
+
+#: reserved minus allocated after a phase that ``_memory_held`` explains
+MEMORY_SLACK_BYTES = 2e9
+
+
+def _memory_held(phase: str) -> dict:
+    """What the caching allocator holds after ``phase``, once Python's
+    garbage is collected, cuBLAS's workspaces are dropped (each (thread,
+    stream) pair's, made again at its next GEMM; no graph outlives its
+    phase) and the cache is emptied: allocated and reserved bytes. Where
+    reserved exceeds allocated by more than ``MEMORY_SLACK_BYTES``, the
+    log names what holds it: reserved bytes by memory pool (the default
+    pool, or a CUDA graph's private pool) and the segments a live block
+    pins (their count and bytes, the largest, their streams)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    alloc = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    rec = {"phase": phase, "allocated_gb": alloc / 1e9,
+           "reserved_gb": reserved / 1e9}
+    if reserved - alloc > MEMORY_SLACK_BYTES:
+        by_pool, pinned = {}, []
+        for seg in torch.cuda.memory_snapshot():
+            pool = str(tuple(seg.get("segment_pool_id", (0, 0))))
+            by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+            live = [b["size"] for b in seg["blocks"]
+                    if b["state"] == "active_allocated"]
+            if live:
+                pinned.append((seg["total_size"], sum(live), max(live),
+                               seg.get("stream"), pool))
+        pinned.sort(key=lambda p: -p[0])
+        rec["held_by"] = {
+            "reserved_gb_by_pool": {k: v / 1e9 for k, v in by_pool.items()},
+            "pinned_segments": len(pinned),
+            "pinned_segments_gb": sum(p[0] for p in pinned) / 1e9,
+            "live_gb_in_them": sum(p[1] for p in pinned) / 1e9,
+            "largest": [{"segment_mb": p[0] / 2 ** 20,
+                         "live_mb": p[1] / 2 ** 20,
+                         "largest_live_mb": p[2] / 2 ** 20,
+                         "stream": p[3], "pool": p[4]}
+                        for p in pinned[:5]]}
+    log(f"memory held after {phase}: {json.dumps(rec)}")
+    return rec
 
 
 def main() -> int:
@@ -5627,73 +6256,67 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"({common.BUILD_DIR})")
 
+    held, t_phase = [], [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        held.append({**_memory_held(name), "seconds": now - t_phase[0]})
+        t_phase[0] = now
+
     records, decode_timing = kernel_checks(fa, common)
+    phase_done("phase 3, the decode kernels")
     serve = serving_phase(serving, tt, fa, common, records)
+    phase_done("phase 4, serving")
     f32_step_phase(tt, fa)
+    phase_done("phase 5, the float32 decode step")
     train_records, timings = train_kernel_checks(fa, common)
     records.update(train_records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 6, the training kernels")
     train = train_phase(tt, fa, records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 7, LM training")
     headmajor_phase(tt, fa)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 8, the head-major route")
     f32_train = f32_train_step_phase(tt, fa)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 9, the float32 gradient pass")
     row_records, row_timings = row_kernel_checks(ln, sm, common)
     records.update(row_records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 10, the row kernels")
     nd_train = nd_train_phase(tt, nd_lm, mx, common, records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 11, the nd loop")
     nd_truth = nd_truth_phase(tt, nd_lm, mx)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 12, the nd truth")
     conv_records, conv_timings = conv_kernel_checks(cf, common)
     records.update(conv_records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 13, the fused-conv kernels")
     resnet = resnet_train_phase(mx, gluon, vision, common, records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 14, ResNet-50 fused")
     perblock = resnet_perblock_phase(mx, gluon, vision, common)
-    torch.cuda.empty_cache()
-    _memory_held()
     perblock["hybridized_forward"] = resnet_hybrid_forward(mx, vision,
                                                            common)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 15, ResNet-50 per block and hybridized")
     resnet_truth = resnet_truth_phase(mx, gluon, vision, common, records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 16, the ResNet truth")
     lstm_records, lstm_timings = lstm_kernel_checks(lt, common)
     records.update(lstm_records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 17, the LSTM kernels")
     word_lm = word_lm_train_phase(mx, common, records)
-    torch.cuda.empty_cache()
-    _memory_held()
     agreement = agreement_check(resnet, resnet_truth, word_lm)
+    phase_done("phase 18, the word LM")
     word_lm_truth = word_lm_truth_phase(mx, lt, common, records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 19, the word LM truth")
     det_records, det_timings = detection_kernel_checks(kd, common)
     records.update(det_records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 20, the detection kernels")
     ssd = ssd_train_phase(mx, kd, common, records)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 21, SSD-512")
     ssd_truth = ssd_truth_phase(mx, kd, common)
-    torch.cuda.empty_cache()
-    _memory_held()
+    phase_done("phase 22, the SSD truth and hybridized detect")
     rtc_records, rtc_timings = rtc_kernel_checks(mx)
     records.update(rtc_records)
     mlp = mlp_phase(mx, common, records)
+    phase_done("phase 23, rtc and the MLP")
+    batch_serve = batch_serving_phase(mx, gluon, vision, common, records)
+    phase_done("phase 24, batch serving")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -5717,6 +6340,14 @@ def main() -> int:
     log(f"SSD-512 f32 truth {json.dumps(ssd_truth)}")
     log(f"rtc kernel timings {json.dumps(rtc_timings)}")
     log(f"MNIST MLP with the rtc custom softmax {json.dumps(mlp)}")
+    log(f"batch serving {json.dumps(batch_serve)}")
+    over = [h["phase"] for h in held
+            if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
+    table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),
+              round(h["reserved_gb"], 3)] for h in held]
+    log(f"each phase's seconds, then GB allocated and reserved after it: "
+        f"{json.dumps(table)}; reserved over allocated by more than "
+        f"{MEMORY_SLACK_BYTES / 1e9:.0f} GB after: {over}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_RECORDS

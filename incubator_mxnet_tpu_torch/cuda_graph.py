@@ -9,10 +9,13 @@ for every such step:
 * the body is warmed on the capture stream before its capture, so what the
   wrappers make once a stream (``ops.cuda.common.ticket_buffer``) is that
   stream's and lies outside the graph's pool;
-* a replay runs no kernel wrapper, so the launch counts the wrappers gained
-  while the body was captured (which launched nothing) are taken back, and
-  every replay adds them again (``ops.cuda.common.add_launch_counts``);
-* a capture that fails raises; no step falls back to its eager body.
+* a replay runs no kernel wrapper, so the launch counts the wrappers make
+  while the body is captured (which launches nothing) go to the capture's
+  own record (``ops.cuda.common.recording_launches``), and every replay
+  adds that record to the shared counts
+  (``ops.cuda.common.add_launch_counts``);
+* a capture that fails raises, and frees what it held
+  (:func:`capture`); no step falls back to its eager body.
 
 A graph that draws random numbers registers the generators it draws from
 (``CUDAGraph.register_generator_state``): each replay then advances them,
@@ -25,6 +28,8 @@ its constants on the device (``torch.full``, ``fill_``).
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .ops.cuda import common as _kcommon
@@ -33,6 +38,7 @@ __all__ = ["CapturedStep", "capture", "capture_stream", "first_call",
            "run_on"]
 
 _STREAMS = {}
+_CAPTURE_LOCK = threading.Lock()
 
 
 class CapturedStep:
@@ -51,11 +57,11 @@ class CapturedStep:
         registered with the graph first."""
         for g in generators:
             graph.register_generator_state(g)
-        before = _kcommon.launch_count_snapshot()
-        with capturing:
-            self.out = self.body()
-        self.counts = _kcommon.launch_count_delta(before)
-        _kcommon.add_launch_counts(self.counts, -1)
+        with _kcommon.recording_launches(
+                getattr(capturing, "capture_stream", None)) as counts:
+            with capturing:
+                self.out = self.body()
+        self.counts = counts
         self.graph = graph
 
     def __call__(self):
@@ -68,11 +74,37 @@ class CapturedStep:
 
 def capture(step: CapturedStep, stream, pool=None, generators=()) -> None:
     """Capture ``step`` as a CUDA graph on ``stream`` (a private memory
-    pool unless ``pool`` is given); raises if the capture fails."""
+    pool unless ``pool`` is given); raises if the capture fails.
+
+    A failed capture leaves its pool registered with the caching
+    allocator as a capture under way, which keeps ``empty_cache()`` from
+    freeing any segment for the rest of the process, and the graph's
+    destructor drops no reference to it: so on failure the pool's
+    allocation is ended and its reference released here, and the
+    allocator frees its memory at the next ``empty_cache()``."""
     graph = torch.cuda.CUDAGraph()
-    step.capture(graph, torch.cuda.graph(graph, pool=pool, stream=stream,
-                                         capture_error_mode="thread_local"),
-                 generators)
+    if pool is None:
+        pool = torch.cuda.graph_pool_handle()
+    with _CAPTURE_LOCK:     # one capture under way at a time
+        try:
+            step.capture(graph, torch.cuda.graph(
+                graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"), generators)
+        except BaseException:
+            _abandon_pool(stream.device, pool)
+            raise
+
+
+def _abandon_pool(device, pool) -> None:
+    """End a failed capture's allocation to ``pool`` (if the capture's
+    end did not) and drop the capture's reference to it."""
+    index = torch.device(device).index
+    for release in (torch._C._cuda_endAllocateToPool,
+                    torch._C._cuda_releasePool):
+        try:
+            release(index, pool)
+        except RuntimeError:
+            pass            # the capture ended (or never began) it
 
 
 def capture_stream(device):
@@ -102,15 +134,17 @@ def capture_stream(device):
     return stream
 
 
-def first_call(step: CapturedStep, device, generators=(), what="step"):
+def first_call(step: CapturedStep, device, generators=(), what="step",
+               pool=None):
     """The first call of a key on the card: ``step``'s body eagerly on the
     capture stream (a real call, whose output is returned), then its
-    capture, which executes nothing. A capture that fails raises, naming
-    ``what``; the caller keeps no entry for it."""
+    capture, which executes nothing, into ``pool`` (a private one unless
+    given). A capture that fails raises, naming ``what``; the caller keeps
+    no entry for it."""
     stream = capture_stream(device)
     out = run_on(stream, step)
     try:
-        capture(step, stream, generators=generators)
+        capture(step, stream, pool, generators)
     except Exception as err:
         raise RuntimeError(
             f"{what}: the CUDA graph capture failed ({err}); a body that "

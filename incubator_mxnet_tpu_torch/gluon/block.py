@@ -533,13 +533,15 @@ def _static_ok(tree, leaves) -> bool:
 
 class _StaticForward:
     """A hybridized block's compiled forward: static copies of its
-    parameters, the tensor each was last refreshed from (a weak reference
-    and its version), and one :class:`_ForwardEntry` a key."""
+    parameters (on ``device`` when given, else each on its parameter's),
+    the tensor each was last refreshed from (a weak reference and its
+    version), and one :class:`_ForwardEntry` a key."""
 
-    def __init__(self, block, params):
+    def __init__(self, block, params, device=None):
         self.block, self.params = block, params
         with torch.no_grad():
-            self.static = [p.data()._data.detach().clone() for p in params]
+            self.static = [p.data()._data.detach().to(device, copy=True)
+                           for p in params]
         self.seen = [self._mark(p) for p in params]
         self.entries: Dict[object, _ForwardEntry] = {}
 

@@ -4,10 +4,13 @@ Counterpart of ``incubator_mxnet_tpu/gluon/trainer.py`` (ref:
 python/mxnet/gluon/trainer.py:27 — step:258, allreduce_grads, update,
 save/load_states) for one card: the kvstore is None, ``"local"`` or
 ``"device"``, and on one process each of them leaves the gradients as they
-are, so ``step`` is rescale + one optimizer update per parameter. The
-distributed stores (``dist_*``, ``update_on_kvstore``, gradient
-compression) are ROADMAP.md A10 and the training guard (``guard.py``) is
-A5; both raise.
+are, so ``step`` is rescale + one optimizer update per parameter. With
+``guard=`` (a ``guard.GuardPolicy`` or ``guard.TrainingGuard``) a step
+whose gradients trip the guard's NaN sentinel is dropped before any state
+is touched, as in the reference's per-parameter path; its fused path
+(``optimizer/fused.py``, with the guard's device census) is ROADMAP.md A5.
+The distributed stores (``dist_*``, ``update_on_kvstore``, gradient
+compression) are ROADMAP.md A10 and raise.
 """
 from __future__ import annotations
 
@@ -40,10 +43,6 @@ class Trainer:
                 f"{update_on_kvstore!r}, compression_params=...): "
                 "distributed and on-store updates are ROADMAP.md A10 (one "
                 "card: kvstore None, 'local' or 'device')")
-        if guard is not None:
-            raise NotImplementedError(
-                "Trainer(guard=...): the training guard (guard.py) is "
-                "ROADMAP.md A5, not ported yet")
         self._params: List[Parameter] = []
         self._param2idx: Dict[str, int] = {}
         for i, param in enumerate(params):
@@ -58,6 +57,17 @@ class Trainer:
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore = None
         self._update_on_kvstore = False
+        # opt-in step-level guardrails (guard.py): the sentinel checks each
+        # step's gradients and may skip, rescale or roll back
+        self._guard = None
+        if guard is not None:
+            from ..guard import GuardPolicy, TrainingGuard
+            if not isinstance(guard, (GuardPolicy, TrainingGuard)):
+                raise TypeError(f"Trainer(guard=...) takes a GuardPolicy or "
+                                f"a TrainingGuard, got {type(guard)}")
+            self._guard = guard if isinstance(guard, TrainingGuard) \
+                else TrainingGuard(guard)
+            self._guard.bind(trainer=self)
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -82,13 +92,19 @@ class Trainer:
 
     @property
     def guard(self):
-        return None
+        """The bound ``guard.TrainingGuard`` (None when unguarded)."""
+        return self._guard
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale by 1 / batch_size, reduce, update (ref: trainer.py:258)."""
+        """Rescale by 1 / batch_size, reduce, update (ref: trainer.py:258).
+        With a ``guard`` bound, a step whose gradients trip the NaN
+        sentinel is dropped (skipped, rescaled or rolled back by the
+        ladder) before any state is touched."""
+        if self._guard is not None and not self._guard.grads_ok(self):
+            return
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)

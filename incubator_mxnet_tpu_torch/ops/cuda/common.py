@@ -11,7 +11,9 @@ nothing and needs no CUDA toolkit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
 from pathlib import Path
 
@@ -20,8 +22,7 @@ import torch
 __all__ = ["NEG_INF", "pick_block", "pick_row_block", "kernel_library", "check_launch",
            "current_stream_handle", "counted_kernel", "launch_counts",
            "sm90_launch_counts", "x3_launch_counts", "reset_launch_counts",
-           "launch_count_snapshot", "launch_count_delta",
-           "add_launch_counts", "sm_count",
+           "recording_launches", "add_launch_counts", "sm_count",
            "ticket_buffer", "BUILD_DIR", "CUDA_FLAGS", "SOURCES"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -101,6 +102,68 @@ _lib_lock = threading.Lock()
 _KERNELS = []      # every kernel wrapper, in registration order
 
 
+_COUNTS = ("launches", "sm90_launches", "x3_launches")
+
+# while a graph is captured, the counts its body makes go to the capture's
+# record (recording_launches) and not to the shared counts: on the
+# capturing thread, and on the stream under capture (the autograd engine
+# runs a captured backward's wrappers on a thread of its own)
+_CAPTURING = threading.local()
+_STREAM_RECORDS = {}
+
+
+def _capture_record():
+    rec = getattr(_CAPTURING, "record", None)
+    if rec is None and _STREAM_RECORDS \
+            and torch.cuda.is_current_stream_capturing():
+        rec = _STREAM_RECORDS.get(torch.cuda.current_stream().cuda_stream)
+    return rec
+
+
+class _Count:
+    """One of a counted kernel's counts (``_COUNTS``): the shared count,
+    or, while a graph is captured, the capture's own (see
+    :func:`recording_launches`)."""
+
+    def __set_name__(self, owner, name):
+        self.i = _COUNTS.index(name)
+
+    def __get__(self, kern, owner=None):
+        if kern is None:
+            return self
+        rec = _capture_record()
+        if rec is not None:
+            return rec.get(kern.__name__, (0, 0, 0))[self.i]
+        return kern._counts[self.i]
+
+    def __set__(self, kern, value):
+        rec = _capture_record()
+        if rec is None:
+            kern._counts[self.i] = value
+            return
+        counts = list(rec.get(kern.__name__, (0, 0, 0)))
+        counts[self.i] = value
+        rec[kern.__name__] = tuple(counts)
+
+
+class _CountedKernel:
+    """A kernel wrapper with its launch counts (``counted_kernel``)."""
+
+    launches = _Count()
+    sm90_launches = _Count()
+    x3_launches = _Count()
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._counts = [0, 0, 0]
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    def __repr__(self):
+        return f"<counted kernel {self.__name__}>"
+
+
 def counted_kernel(fn):
     """Register a kernel wrapper for :func:`launch_counts`. The wrapper
     bumps ``fn.launches`` itself, right after a launch succeeds, and
@@ -108,69 +171,73 @@ def counted_kernel(fn):
     bumps ``fn.sm90_launches`` when the call took that route, and
     ``fn.x3_launches`` as well when that route was the float32 one with
     every operand in three bf16 pieces (``mm_fused``, ``conv3_fused``,
-    ``dgrad_epilogue``, ``mm_fused_bwd``, ``conv3_fused_bwd``)."""
-    fn.launches = 0
-    fn.sm90_launches = 0
-    fn.x3_launches = 0
-    _KERNELS.append(fn)
-    return fn
+    ``dgrad_epilogue``, ``mm_fused_bwd``, ``conv3_fused_bwd``). Counts
+    made while a graph is captured are the capture's
+    (:func:`recording_launches`)."""
+    kern = _CountedKernel(fn)
+    _KERNELS.append(kern)
+    return kern
 
 
 def launch_counts():
     """{kernel wrapper name: launches so far}, for every kernel."""
-    return {f.__name__: f.launches for f in _KERNELS}
+    return {f.__name__: f._counts[0] for f in _KERNELS}
 
 
 def sm90_launch_counts():
     """{kernel wrapper name: launches on its Hopper route so far}."""
-    return {f.__name__: f.sm90_launches for f in _KERNELS}
+    return {f.__name__: f._counts[1] for f in _KERNELS}
 
 
 def x3_launch_counts():
     """{kernel wrapper name: launches on its three-piece float32 route so
     far}."""
-    return {f.__name__: f.x3_launches for f in _KERNELS}
+    return {f.__name__: f._counts[2] for f in _KERNELS}
 
 
 def reset_launch_counts() -> None:
     for f in _KERNELS:
-        f.launches = 0
-        f.sm90_launches = 0
-        f.x3_launches = 0
+        f._counts[:] = [0, 0, 0]
 
 
-_COUNTS = ("launches", "sm90_launches", "x3_launches")
+@contextlib.contextmanager
+def recording_launches(stream=None):
+    """Within: the counts that kernel wrappers make on this thread, and on
+    ``stream`` while it is capturing, go into the yielded dict ({name:
+    (launches, sm90_launches, x3_launches)}) and leave the shared counts
+    alone. A graph's capture launches nothing, so its wrappers' counts are
+    recorded so, and every replay adds them (:func:`add_launch_counts`);
+    counts made meanwhile on other threads and streams (an eager call, a
+    replay) stay shared."""
+    rec = {}
+    outer = getattr(_CAPTURING, "record", None)
+    key = stream.cuda_stream if stream is not None else None
+    _CAPTURING.record = rec
+    if key is not None:
+        _STREAM_RECORDS[key] = rec
+    try:
+        yield rec
+    finally:
+        _CAPTURING.record = outer
+        if key is not None:
+            _STREAM_RECORDS.pop(key, None)
+        for name in [n for n, c in rec.items() if not any(c)]:
+            del rec[name]
 
 
-def launch_count_snapshot():
-    """{kernel wrapper name: (launches, sm90_launches, x3_launches)}."""
-    return {f.__name__: tuple(getattr(f, c) for c in _COUNTS)
-            for f in _KERNELS}
-
-
-def launch_count_delta(before):
-    """The counts each wrapper gained since ``before`` (a
-    :func:`launch_count_snapshot`): {name: (launches, sm90, x3)} for the
-    wrappers that gained any."""
-    now = launch_count_snapshot()
-    out = {}
-    for name, counts in now.items():
-        gained = tuple(a - b for a, b in zip(counts, before[name]))
-        if any(gained):
-            out[name] = gained
-    return out
+_ADD_LOCK = threading.Lock()
 
 
 def add_launch_counts(delta, times: int = 1) -> None:
-    """Add ``times`` x ``delta`` (a :func:`launch_count_delta`) to the
-    wrappers' counts: a CUDA graph's replay launches what its capture
-    recorded, though no wrapper runs (``times=-1`` takes back what a
-    capture counted without launching)."""
-    for f in _KERNELS:
-        gained = delta.get(f.__name__)
-        if gained:
-            for c, g in zip(_COUNTS, gained):
-                setattr(f, c, getattr(f, c) + times * g)
+    """Add ``times`` x ``delta`` (a :func:`recording_launches` record) to
+    the wrappers' shared counts: a CUDA graph's replay launches what its
+    capture recorded, though no wrapper runs."""
+    with _ADD_LOCK:
+        for f in _KERNELS:
+            gained = delta.get(f.__name__)
+            if gained:
+                for i, g in enumerate(gained):
+                    f._counts[i] += times * g
 
 
 def pick_block(dim: int, preferred: int) -> int:

@@ -1,47 +1,76 @@
-"""Generative LM serving in PyTorch: iteration-level continuous batching
-over a KV cache on one device.
+"""Serving runtime in PyTorch: a continuous-batching inference engine over
+captured forward steps, and iteration-level generative LM serving over a
+KV cache, on one device.
 
-Counterpart of the generative half of ``incubator_mxnet_tpu/serving.py``,
-with the same public surface, environment variables, validation messages,
-telemetry series and per-request tracing:
+Counterpart of ``incubator_mxnet_tpu/serving.py``, with the same public
+surface, environment variables, validation messages, chaos points,
+telemetry series and per-request tracing. One ``InferenceEngine`` serves
+both kinds of endpoint::
+
+    client -> Endpoint.submit(item) -> per-model bounded queue (typed
+           fast reject when full; deadlines, tenant quotas, priorities)
+           scheduler thread: smooth weighted round-robin over the models
+             with a flush-ready queue; packs one model's waiting requests
+             into the smallest padding bucket (fill threshold or
+             max_wait_ms), pads, dispatches the bucket's forward
+                 |  bounded in-flight queue (MXTPU_SERVE_INFLIGHT)
+           demux thread: waits for the batch's outputs on the host (under
+             the hung-request watchdog, guard.py), slices each row back to
+             its request, resolves the ResponseFuture
 
     client -> GenerativeEndpoint.submit(prompt) -> bounded prompt queue
-           token-loop thread (one per generate model), every turn:
-             admit waiting prompts into free KV slots (and, paged, pages:
-             worst-case reservation, prefix-cache splice), run one prefill
-             chunk per filling slot, run ONE fixed-shape decode step over
-             every decode-ready slot, stream each emitted token to its
-             GenerationFuture, retire EOS / max-token / aborted slots.
+           token-loop thread (one per generate model), every turn: admit
+             waiting prompts into free KV slots (and, paged, pages), run
+             one prefill chunk per filling slot, run ONE fixed-shape
+             decode step over every decode-ready slot, stream each emitted
+             token to its GenerationFuture, retire finished slots.
 
-``InferenceEngine.load_model(name, generate={...})`` builds a
-``_GenerativeModel`` over ``models.transformer`` and a
-``GenerativeEndpoint``. The paged engine (block-table page pool with a
-trash page, ``MXTPU_SERVE_GEN_PAGED=1``) is the default; ``paged=0`` keeps
-the dense slotted cache. Decode-step attention runs through the port's
-CUDA kernels on the card.
+``load_model(name, net=...)`` serves any ``HybridBlock``: one discovery
+forward resolves deferred initialisation, the parameters are copied as
+static buffers onto the engine's device, and each padding bucket, largest
+first, becomes one CUDA graph (``cuda_graph.CapturedStep``) of the block's
+inference forward over a static ``(bucket, *item_shape)`` input, all the
+buckets' graphs drawing on one memory pool (``_AOTBlockModel``). Each
+capture counts one in ``mxtpu_serve_compiles_total``, at load and at a
+ladder ``rebuild()``, never from traffic. ``fn=`` serves any ``np batch ->
+np outputs`` callable. ``load_model(name, generate={...})`` builds a
+``_GenerativeModel`` over ``models.transformer`` (paged by default): its
+``len(buckets) + 1`` steps (a prefill a prompt bucket, one decode step) are
+CUDA graphs too, on static input buffers, replayed by the token loop.
 
-The reference's ``len(buckets) + 1`` AOT executables are CUDA graphs
-here: at load, on the card, ``_GenerativeModel`` captures one prefill
-graph a prompt bucket and one decode-step graph over static input
-buffers, all from one memory pool; a call copies its inputs in (one copy
-for the integers, one for the floats), replays, and reads the tokens
-back with one ``.cpu()``, the step's one synchronisation. Each capture
-counts in ``mxtpu_serve_compiles_total``; ``mxtpu_serve_gen_traces_total``
-is bumped inside the step bodies while they are captured, so load moves
-both and traffic neither. A capture that fails raises at ``load_model``.
+Resilience as in the reference: a versioned hot swap (``load_model`` on a
+loaded name: stage, canary, atomic flip, v1's in-flight batches drain
+through v1's graphs, then ``release()``), deadline-aware shedding and
+tenant quotas, and the self-healing ladder (retry -> rebuild ->
+degraded -> probe -> restore). Chaos points ``serve.slow_model``,
+``serve.queue_full``, ``serve.client_abort``, ``serve.dispatch_fail`` and
+``serve.swap_fail``.
 
 Differences from the JAX engine:
 
-* on the CPU there is no graph: the same step bodies run eagerly on the
-  same static buffers at every call, and both counters stay at 0;
-* the KV cache is updated in place, so a failed call leaves the other
-  slots' K/V intact and ``_GenerativeModel.recover`` never has to rebuild;
-* sampling draws counter-based Gumbel noise hashed from (seed, position,
-  token id) — a pure function of the request, occupancy-invariant, and the
-  same on CPU and GPU — so sampled streams differ from ``jax.random``'s;
-  greedy streams are what is compared with the JAX engine;
-* only generate endpoints exist: ``load_model(net=/fn=/mlir=)`` raises
-  ``NotImplementedError`` until the batch engine is ported.
+* the reference's AOT executable a bucket is a CUDA graph a bucket; on the
+  CPU there is no graph: the same bodies run eagerly on the same static
+  buffers at every call, and ``mxtpu_serve_compiles_total`` (and, for
+  generate models, ``mxtpu_serve_gen_traces_total``) stays at 0;
+* a bucket graph's outputs are static and ``inflight`` batches can be in
+  flight at once, so each dispatch copies its outputs out on the model's
+  serving stream into a pinned host slot of its own (one a batch in
+  flight), with an event that the demux thread waits on; the padded
+  input is packed into that slot's pinned staging rows, which are not
+  refilled before the slot's event has passed;
+* ``donate`` is accepted and moot: inputs land in static buffers;
+* a served net's random draws come from its bucket entry's generator,
+  seeded at each dispatch from the model's call counter (the reference
+  folds that counter into ``PRNGKey(0)``), so its streams differ from
+  ``jax.random``'s;
+* ``mlir=`` (an exported artifact) is ROADMAP.md A11 and ``quantize=``
+  (int8) is A9: both raise ``NotImplementedError``;
+* a generate model's KV cache is updated in place, so a failed call
+  leaves the other slots' K/V intact and ``_GenerativeModel.recover``
+  never has to rebuild; sampling draws counter-based Gumbel noise hashed
+  from (seed, position, token id) — occupancy-invariant and the same on
+  CPU and GPU — so sampled streams differ from ``jax.random``'s; greedy
+  streams are what is compared with the JAX engine.
 """
 from __future__ import annotations
 
@@ -52,20 +81,22 @@ import queue as _queue_mod
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as _np
 import torch
 
 from . import chaos
 from . import telemetry as _telemetry
-from .context import resolve_device
-from .cuda_graph import CapturedStep, capture as _capture_graph
+from .context import Context, resolve_device
+from .cuda_graph import CapturedStep, capture as _capture_graph, first_call
+from .guard import GuardPolicy, StepHungError, TrainingGuard
 
 __all__ = ["ServeError", "QueueFullError", "EngineClosedError",
            "RequestAborted", "SwapError", "DeadlineError",
-           "ModelDegradedError", "PagesExhaustedError", "GenerationFuture",
-           "GenerativeEndpoint", "InferenceEngine", "default_gen_buckets",
+           "ModelDegradedError", "PagesExhaustedError", "ResponseFuture",
+           "GenerationFuture", "Endpoint", "GenerativeEndpoint",
+           "InferenceEngine", "default_buckets", "default_gen_buckets",
            "sample_tokens"]
 
 
@@ -125,7 +156,110 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name, "")
+    try:
+        return float(v) if v else default
+    except ValueError:
+        return default
+
+
+def default_buckets(max_batch: int) -> Tuple[int, ...]:
+    """Padding buckets for a fill threshold: powers of two up to
+    ``max_batch`` (plus ``max_batch`` itself), or the ``MXTPU_SERVE_BUCKETS``
+    comma list. A request batch of n rows is padded to the smallest
+    bucket >= n, so at most one graph per power of two is resident."""
+    spec = os.environ.get("MXTPU_SERVE_BUCKETS", "")
+    if spec:
+        out = sorted({int(b) for b in spec.split(",") if b.strip()})
+        if not out or out[0] < 1:
+            raise ValueError(f"bad MXTPU_SERVE_BUCKETS {spec!r}")
+        return tuple(out)
+    out, b = [], 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return tuple(sorted(set(out)))
+
+
+#: shed-horizon inflation over the fastest observed service time: a
+#: request is shed once queue wait + this multiple of the endpoint's
+#: best-ever dispatch->delivery time overruns its deadline. >1 absorbs
+#: scheduling/demux jitter so ACCEPTED requests land inside the SLO while
+#: staying far under typical service — a request with real headroom is
+#: never shed.
+_SVC_SHED_FACTOR = 2.0
+
+
 # ------------------------------------------------------------------ futures
+class ResponseFuture:
+    """One request's response slot. ``result(timeout)`` blocks; ``cancel()``
+    marks the client gone (the demux then drops the row instead of
+    delivering it — the ``serve.client_abort`` path)."""
+
+    __slots__ = ("_ev", "_result", "_exc", "_cancelled", "t_submit",
+                 "t_done", "trace")
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self._result = None
+        self._exc: Optional[BaseException] = None
+        self._cancelled = False
+        self.t_submit = time.perf_counter()
+        self.t_done: Optional[float] = None   # stamped at resolution
+        self.trace = None   # telemetry.Trace: this request's waterfall
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self.trace.trace_id if self.trace is not None else None
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def cancel(self) -> None:
+        self._cancelled = True
+
+    def cancelled(self) -> bool:
+        return self._cancelled
+
+    def _set_result(self, value) -> None:
+        self._result = value
+        self.t_done = time.perf_counter()
+        self._ev.set()
+
+    def _set_exception(self, exc: BaseException) -> None:
+        self._exc = exc
+        self.t_done = time.perf_counter()
+        self._ev.set()
+
+    def result(self, timeout: Optional[float] = None):
+        if not self._ev.wait(timeout):
+            raise TimeoutError("serving response not ready")
+        if self._cancelled:
+            raise RequestAborted("request was cancelled by the client")
+        if self._exc is not None:
+            raise self._exc
+        return self._result
+
+
+class _Request:
+    __slots__ = ("data", "future", "t_enq", "deadline", "tenant",
+                 "priority", "trace")
+
+    def __init__(self, data: _np.ndarray, future: ResponseFuture,
+                 deadline: Optional[float] = None,
+                 tenant: Optional[str] = None, priority: int = 0,
+                 trace=None):
+        self.data = data
+        self.future = future
+        self.t_enq = time.perf_counter()
+        self.deadline = deadline    # absolute perf_counter() instant
+        self.tenant = tenant
+        self.priority = priority
+        self.trace = trace          # telemetry.Trace (also on the future)
+
+
 class GenerationFuture:
     """One generation request's streaming response. Tokens arrive one at
     a time as the decode loop emits them:
@@ -812,7 +946,386 @@ def _params_to(params, device):
     return out
 
 
+# ------------------------------------------------------------ batch models
+class _Slot:
+    """One in-flight batch's pinned host buffers (plain host tensors on the
+    CPU), sized for the largest bucket: the padded input rows, each
+    output's rows, and the event recorded after the batch's copy-out."""
+
+    def __init__(self, device, item_shape, in_dtype, out_specs, rows):
+        pin = device.type == "cuda"
+        self.x = torch.zeros((rows,) + tuple(item_shape), dtype=in_dtype,
+                             pin_memory=pin)
+        self.xn = self.x.numpy()
+        self.outs = [torch.empty((rows,) + tuple(shape), dtype=dt,
+                                 pin_memory=pin) for shape, dt in out_specs]
+        self.event = torch.cuda.Event() if pin else None
+
+
+class _Batch:
+    """A packed batch of one ``_AOTBlockModel``: its slot, bucket and real
+    row count. ``close()`` hands the slot back once the batch's copy-out
+    has passed (idempotent)."""
+
+    __slots__ = ("_free", "slot", "bucket", "n")
+
+    def __init__(self, free, slot: _Slot, bucket: int, n: int):
+        self._free, self.slot, self.bucket, self.n = free, slot, bucket, n
+
+    @property
+    def x(self) -> _np.ndarray:
+        """The padded input rows (a view of the slot's staging buffer)."""
+        return self.slot.xn[:self.bucket]
+
+    def close(self) -> None:
+        slot, self.slot = self.slot, None
+        if slot is None:
+            return
+        if slot.event is not None:
+            slot.event.synchronize()
+        self._free.put(slot)
+
+
+def _torch_dtype(dtype: _np.dtype) -> torch.dtype:
+    return torch.from_numpy(_np.zeros(0, dtype)).dtype
+
+
+class _AOTBlockModel:
+    """A ``HybridBlock`` served as one captured graph a padding bucket.
+
+    At load: one discovery forward (inference mode) resolves deferred
+    initialisation; the parameters are copied as static buffers onto
+    ``device`` (``gluon.block._StaticForward``); each bucket, largest
+    first, is one ``gluon.block._ForwardEntry`` — the block's inference
+    forward over a static ``(bucket, *item_shape)`` input and the static
+    parameters — which on the card runs eagerly once on the capture stream
+    and is then captured (``cuda_graph.first_call``), all the buckets'
+    graphs in one memory pool, each capture one count of
+    ``mxtpu_serve_compiles_total``. A capture that fails raises, naming
+    the block: a forward that syncs with the host cannot be served on the
+    card. On the CPU the same bodies run eagerly at every dispatch and
+    nothing is counted.
+
+    ``pack`` writes the padded batch into a free slot's staging rows (it
+    waits for one while all are in flight); ``dispatch`` copies them into
+    the bucket's static input on the model's serving stream, replays the
+    graph, copies the outputs into the slot and records the slot's event,
+    all under the model's lock (a graph's static buffers are shared by
+    every call of its bucket); ``fetch`` waits on that event, copies the
+    real rows out and frees the slot. Every output must lead with the
+    batch axis. Random draws come from the bucket entry's generator,
+    seeded from the model's dispatch counter before each replay."""
+
+    kind = "aot"
+
+    def __init__(self, net, item_shape: Tuple[int, ...], dtype,
+                 buckets: Sequence[int], name: str = "", device=None,
+                 slots: int = 4):
+        from .gluon.block import _StaticForward
+        from . import ndarray as _nd
+        if not hasattr(net, "_resolve_deferred"):
+            raise TypeError(f"net= takes a HybridBlock, got {type(net)}")
+        self.device = resolve_device(device)
+        self._name = name
+        self._net = net
+        self.item_shape = tuple(int(d) for d in item_shape)
+        self.dtype = _np.dtype(dtype)
+        self._tdtype = _torch_dtype(self.dtype)
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"bad buckets {buckets!r}")
+        params = list(net.collect_params().values())
+        deferred = [p for p in params if p._data is None]
+        if deferred:
+            ctx = next((p._deferred_init[1] for p in deferred
+                        if p._deferred_init), None)
+            net._resolve_deferred((_nd.zeros(
+                (self.buckets[0],) + self.item_shape, ctx=ctx,
+                dtype=self.dtype.name),))
+        self._state = _StaticForward(net, params, device=self.device)
+        self.model_bytes = int(sum(t.nbytes for t in self._state.static))
+        # arrays a forward makes without a context land on the model's
+        # device
+        self._ctx = Context.from_torch(self.device)
+        self._lock = threading.Lock()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._rng_calls = 0
+        self._compiles = _telemetry.counter(
+            "mxtpu_serve_compiles_total",
+            "AOT executables compiled per model (one per padding bucket "
+            "at load; serving traffic never adds more).")
+        self._out_specs = None
+        self._entries = self._build()
+        self._free: "_queue_mod.Queue" = _queue_mod.Queue()
+        for _ in range(max(1, int(slots))):
+            self._free.put(_Slot(self.device, self.item_shape,
+                                 self._tdtype, self._out_specs,
+                                 self.buckets[-1]))
+
+    def _build(self) -> Dict[int, Any]:
+        """One forward entry a bucket, largest first; on the card each is
+        warmed and captured into the model's one graph pool. A build that
+        fails frees the graphs it made and raises."""
+        cuda = self.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        entries: Dict[int, Any] = {}
+        try:
+            self._build_into(entries, cuda, pool)
+        except BaseException:
+            self._reset_graphs(entries)
+            raise
+        return entries
+
+    def _build_into(self, entries: Dict[int, Any], cuda: bool,
+                    pool) -> None:
+        from .gluon.block import _LEAF, _ForwardEntry
+        from .ndarray.ndarray import NDArray
+        for b in sorted(self.buckets, reverse=True):
+            x = NDArray(torch.zeros((b,) + self.item_shape,
+                                    dtype=self._tdtype, device=self.device),
+                        _direct=True)
+            entry = _ForwardEntry(self._state, [_LEAF], [x], False,
+                                  self.device)
+            entry.inputs[0].zero_()
+            entry.gen.manual_seed(0)
+            with self._ctx:
+                if cuda:
+                    outs = first_call(
+                        entry.step, self.device, (entry.gen,),
+                        f"serving model {self._name!r} (block "
+                        f"{getattr(self._net, 'name', type(self._net))}, "
+                        f"bucket {b})", pool)
+                    self._compiles.inc(1, model=self._name)
+                else:
+                    outs = entry.step()
+            entries[b] = entry
+            self._check_outputs(b, outs)
+
+    def _check_outputs(self, bucket: int, outs) -> None:
+        specs = [(tuple(o.shape[1:]), o.dtype) for o in outs]
+        if any(o.dim() == 0 or o.shape[0] != bucket for o in outs):
+            raise ValueError(
+                f"serving model {self._name!r}: every output must lead "
+                f"with the batch axis; bucket {bucket} gave shapes "
+                f"{[tuple(o.shape) for o in outs]}")
+        if self._out_specs is None:
+            self._out_specs = specs
+        elif specs != self._out_specs:
+            raise ValueError(
+                f"serving model {self._name!r}: bucket {bucket}'s output "
+                f"rows {specs} differ from bucket {self.buckets[-1]}'s "
+                f"{self._out_specs}")
+
+    @staticmethod
+    def _reset_graphs(entries: Dict[int, Any]) -> None:
+        for entry in entries.values():
+            if entry.step.graph is not None:
+                entry.step.graph.reset()
+
+    def rebuild(self) -> None:
+        """Self-healing ladder rung: once the serving stream's work has
+        finished, capture every bucket again from the static parameters
+        (``len(buckets)`` more compiles on the card), then put the new
+        graphs in place of the old and free those. A build that fails
+        raises and leaves the old graphs serving."""
+        with self._lock:
+            if self._stream is not None:
+                self._stream.synchronize()
+            entries = self._build()
+            old, self._entries = self._entries, entries
+            self._reset_graphs(old)
+
+    def release(self) -> None:
+        """Free this version's graphs, pool and static parameters after a
+        hot swap drained it."""
+        with self._lock:
+            if self._stream is not None:
+                self._stream.synchronize()
+            old, self._entries = self._entries, {}
+            self._reset_graphs(old)
+            self._state = None
+
+    def pack(self, rows: Sequence[_np.ndarray], bucket: int) -> _Batch:
+        """``rows`` (each of ``item_shape``) padded with zeros to
+        ``bucket`` rows in a free slot's staging buffer."""
+        slot = self._free.get()
+        batch = _Batch(self._free, slot, bucket, len(rows))
+        try:
+            x = batch.x
+            if rows:
+                _np.stack(rows, out=x[:len(rows)])
+            x[len(rows):] = 0
+        except BaseException:
+            batch.close()
+            raise
+        return batch
+
+    def dispatch(self, batch: _Batch, bucket: int) -> _Batch:
+        slot = batch.slot
+        try:
+            with self._lock, self._ctx, (
+                    torch.cuda.stream(self._stream)
+                    if self._stream is not None
+                    else contextlib.nullcontext()):
+                entry = self._entries.get(bucket)
+                if entry is None:
+                    raise ServeError(
+                        f"serving model {self._name!r} has no graph for "
+                        f"bucket {bucket} (buckets {self.buckets}"
+                        f"{', released' if self._state is None else ''})")
+                self._rng_calls += 1
+                entry.gen.manual_seed(self._rng_calls)
+                entry.inputs[0].copy_(slot.x[:bucket], non_blocking=True)
+                outs = entry.step()
+                for h, o in zip(slot.outs, outs):
+                    h[:bucket].copy_(o, non_blocking=True)
+                if slot.event is not None:
+                    slot.event.record(self._stream)
+        except BaseException:
+            if self._stream is not None:
+                self._stream.synchronize()  # no copy still reads the slot
+            batch.close()
+            raise
+        return batch
+
+    def fetch(self, batch: _Batch) -> List[_np.ndarray]:
+        """The batch's outputs on the host: its real rows (all ``bucket``
+        rows of a padding-only batch), copied out of the slot, which goes
+        back to the free list."""
+        try:
+            slot = batch.slot
+            if slot.event is not None:
+                slot.event.synchronize()
+            k = batch.n or batch.bucket
+            return [(h[:k].float() if h.dtype == torch.bfloat16
+                     else h[:k]).numpy().copy() for h in slot.outs]
+        finally:
+            batch.close()
+
+
+class _CallableModel:
+    """Any ``np batch -> np outputs`` callable (tests, custom runtimes).
+    Runs synchronously in the scheduler thread."""
+
+    kind = "fn"
+
+    def __init__(self, fn: Callable, item_shape: Tuple[int, ...], dtype,
+                 buckets: Sequence[int]):
+        self._fn = fn
+        self.item_shape = tuple(item_shape)
+        self.dtype = _np.dtype(dtype)
+        self.buckets = tuple(sorted(buckets))
+
+    def pack(self, rows: Sequence[_np.ndarray], bucket: int) -> _np.ndarray:
+        xb = _np.zeros((bucket,) + self.item_shape, self.dtype)
+        for i, r in enumerate(rows):
+            xb[i] = r
+        return xb
+
+    def dispatch(self, np_batch: _np.ndarray, bucket: int):
+        out = self._fn(np_batch)
+        return out if isinstance(out, (list, tuple)) else [out]
+
+    def fetch(self, outs) -> List[_np.ndarray]:
+        return [_np.asarray(o) for o in outs]
+
+    def rebuild(self) -> None:
+        """Ladder hook: delegate to the callable's own ``rebuild()``
+        when it has one (test doubles observe the ladder through it);
+        otherwise a no-op — there is nothing compiled to rebuild."""
+        rb = getattr(self._fn, "rebuild", None)
+        if rb is not None:
+            rb()
+
+
+def _zeros_batch(model) -> List[_np.ndarray]:
+    """The host outputs of an all-padding batch of ``model``'s smallest
+    bucket (the canary's and the probe's batch)."""
+    b = model.buckets[0]
+    return model.fetch(model.dispatch(model.pack([], b), b))
+
+
 # ---------------------------------------------------------------- endpoints
+class Endpoint:
+    """One loaded batch model: bounded request queue + padding buckets + a
+    scheduling weight. Created by ``InferenceEngine.load_model``."""
+
+    def __init__(self, engine: "InferenceEngine", name: str, model,
+                 weight: float, queue_limit: int, max_batch: int,
+                 max_wait_ms: float, deadline_ms: Optional[float] = None,
+                 tenant_quota: Optional[int] = None,
+                 degrade_after: Optional[int] = None,
+                 probe_every: Optional[float] = None):
+        self.engine = engine
+        self.name = name
+        self.model = model
+        self.weight = float(weight)
+        self.queue_limit = int(queue_limit)
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self.buckets = model.buckets
+        self._queue: deque = deque()
+        self._wrr = 0.0
+        # fill threshold: a full batch never exceeds the largest bucket
+        self.fill = min(self.max_batch, self.buckets[-1])
+        #: monotonically increasing across hot swaps; v1 at load
+        self.version = 1
+        #: default SLO per request, ms (0 = no deadline)
+        self.deadline_ms = float(
+            deadline_ms if deadline_ms is not None
+            else _env_float("MXTPU_SERVE_DEADLINE_MS", 0.0))
+        #: max queued requests per tenant (0 = no quota)
+        self.tenant_quota = int(
+            tenant_quota if tenant_quota is not None
+            else _env_int("MXTPU_SERVE_QUOTA", 0))
+        #: consecutive dispatch failures before the ladder marks the
+        #: model degraded (the rung below it rebuilds the graphs)
+        self.degrade_after = max(1, int(
+            degrade_after if degrade_after is not None
+            else _env_int("MXTPU_SERVE_DEGRADE_AFTER", 3)))
+        #: seconds between probe batches while degraded
+        self.probe_every_s = float(
+            probe_every if probe_every is not None
+            else _env_float("MXTPU_SERVE_PROBE_EVERY", 0.5))
+        self.state = "ready"        # "ready" | "degraded"
+        self.fail_streak = 0        # consecutive dispatch failures
+        self._next_probe = 0.0      # perf_counter() of the next probe
+        self._degrade_err = ""      # repr of the failure that degraded
+        #: fastest observed dispatch->demux seconds — a service-time
+        #: lower bound folded into the shed decision (0 = no data yet)
+        self._svc_min = 0.0
+
+    # engine-lock-free views (GIL-atomic reads; exact enough for stats)
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def submit(self, data, deadline_ms: Optional[float] = None,
+               tenant: Optional[str] = None, priority: int = 0,
+               trace=None) -> ResponseFuture:
+        """Enqueue one request (an array of ``item_shape``). Returns a
+        ``ResponseFuture``; raises ``QueueFullError`` on backpressure
+        (``reason == "quota"`` when ``tenant`` is over its queue quota),
+        ``ModelDegradedError`` while the self-healing ladder has the model
+        down, and ``EngineClosedError`` after shutdown began (deadline
+        sheds happen in the scheduler, through the future).
+        ``deadline_ms`` overrides the endpoint default; higher
+        ``priority`` dispatches first."""
+        return self.engine._submit(self, data, deadline_ms=deadline_ms,
+                                   tenant=tenant, priority=priority,
+                                   trace=trace)
+
+    def predict(self, data, timeout: Optional[float] = None, **kw):
+        """Blocking convenience: ``submit(...).result(timeout)``."""
+        return self.submit(data, **kw).result(timeout)
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+
 class GenerativeEndpoint:
     """One loaded generate model: bounded prompt queue + KV slot pool +
     a dedicated token-loop thread. Created by
@@ -875,21 +1388,76 @@ class GenerativeEndpoint:
 
 # ------------------------------------------------------------------- engine
 class InferenceEngine:
-    """Continuous-batching generation server over one device (``device``:
-    default ``"cuda"``; raises when no card is present unless ``"cpu"`` is
-    asked for). ``queue_limit`` (else ``MXTPU_SERVE_QUEUE``, else 256)
-    bounds each model's prompt queue. Each generate model runs its own
-    token-loop thread, started by ``load_model``."""
+    """Continuous-batching scheduler over one device (``device``: default
+    ``"cuda"``; raises when no card is present unless ``"cpu"`` is asked
+    for). See the module docstring for the architecture; knobs
+    (constructor arg, else env, else default):
 
-    def __init__(self, queue_limit: Optional[int] = None, device=None):
+    ==============  ========================  =======
+    argument        env var                   default
+    ==============  ========================  =======
+    max_batch       MXTPU_SERVE_MAX_BATCH     8
+    max_wait_ms     MXTPU_SERVE_MAX_WAIT_MS   5.0
+    queue_limit     MXTPU_SERVE_QUEUE         256
+    inflight        MXTPU_SERVE_INFLIGHT      2
+    timeout_ms      MXTPU_SERVE_TIMEOUT_MS    0 (watchdog off)
+    ==============  ========================  =======
+
+    Batch models are served by the scheduler and demux threads
+    (``start``); each generate model runs its own token-loop thread,
+    started by ``load_model``.
+    """
+
+    #: demux-side sleep per fired ``serve.slow_model`` chaos eval — small
+    #: increments so the watchdog's async StepHungError lands promptly
+    SLOW_CHAOS_S = 0.05
+
+    def __init__(self, max_batch: Optional[int] = None,
+                 max_wait_ms: Optional[float] = None,
+                 queue_limit: Optional[int] = None,
+                 inflight: Optional[int] = None,
+                 timeout_ms: Optional[float] = None,
+                 start: bool = True, device=None):
         self.device = resolve_device(device)
+        self.max_batch = int(max_batch if max_batch is not None
+                             else _env_int("MXTPU_SERVE_MAX_BATCH", 8))
+        self.max_wait_ms = float(
+            max_wait_ms if max_wait_ms is not None
+            else _env_float("MXTPU_SERVE_MAX_WAIT_MS", 5.0))
         self.queue_limit = int(queue_limit if queue_limit is not None
                                else _env_int("MXTPU_SERVE_QUEUE", 256))
+        self.inflight = max(1, int(
+            inflight if inflight is not None
+            else _env_int("MXTPU_SERVE_INFLIGHT", 2)))
+        timeout_ms = (timeout_ms if timeout_ms is not None
+                      else _env_float("MXTPU_SERVE_TIMEOUT_MS", 0.0))
+        self._timeout_s = float(timeout_ms) / 1e3
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
         self._cond = threading.Condition()
-        self._endpoints: "Dict[str, GenerativeEndpoint]" = {}
+        self._endpoints: "Dict[str, Any]" = {}
         self._running = True        # accepting submits
-        self._draining = False      # live generations finish on close
+        self._draining = False      # flush thresholds waived
         self._closed = False
+        self._started = False
+        self._inflight: "_queue_mod.Queue" = _queue_mod.Queue(
+            maxsize=self.inflight)
+        self._sched_t: Optional[threading.Thread] = None
+        self._demux_t: Optional[threading.Thread] = None
+        self._batch_seq = 0
+        #: in-flight batch census per dispatching model OBJECT id — a hot
+        #: swap waits on it to drain v1 before freeing v1's buffers
+        self._inflight_by_model: Dict[int, int] = {}
+        #: scheduler-ordered (model, n_requests, bucket) log — bounded;
+        #: the fairness tests and ``stats()`` read it
+        self.dispatch_log: deque = deque(maxlen=4096)
+        # hung-request watchdog: the guard's phase machinery, aimed at the
+        # demux fetch; a trip dumps thread stacks + the flight recorder
+        self._guard: Optional[TrainingGuard] = None
+        if self._timeout_s > 0:
+            self._guard = TrainingGuard(
+                GuardPolicy(step_timeout=self._timeout_s))
+            self._guard.ensure_logger()
         self._m_req = _telemetry.counter(
             "mxtpu_serve_requests_total",
             "Serving requests by model and outcome.")
@@ -898,6 +1466,17 @@ class InferenceEngine:
             "End-to-end request latency (submit -> response).")
         self._m_depth = _telemetry.gauge(
             "mxtpu_serve_queue_depth", "Waiting requests per model queue.")
+        self._m_fill = _telemetry.gauge(
+            "mxtpu_serve_bucket_fill",
+            "Occupancy of the last dispatched bucket (rows/bucket).")
+        self._m_batches = _telemetry.counter(
+            "mxtpu_serve_batches_total",
+            "Dispatched batches by model and padding bucket.")
+        self._m_pad = _telemetry.counter(
+            "mxtpu_serve_padded_rows_total",
+            "Padding rows dispatched (bucket size minus real requests).")
+        self._m_inflight = _telemetry.gauge(
+            "mxtpu_serve_inflight", "Batches dispatched but not demuxed.")
         self._m_shed = _telemetry.counter(
             "mxtpu_serve_shed_total",
             "Requests shed before compute, by model and reason "
@@ -907,6 +1486,18 @@ class InferenceEngine:
             "mxtpu_serve_swaps_total",
             "Hot model swaps by model and outcome (ok / stage_failed / "
             "canary_failed / unsupported / lost_race).")
+        self._m_state = _telemetry.gauge(
+            "mxtpu_serve_model_state",
+            "Self-healing ladder state per model: 0 ready, 1 "
+            "rebuilding, 2 degraded (readiness flips at 2 -> /readyz).")
+        self._m_compiles = _telemetry.counter(
+            "mxtpu_serve_compiles_total",
+            "AOT executables compiled per model (one per padding bucket "
+            "at load; serving traffic never adds more).")
+        self._m_model_bytes = _telemetry.gauge(
+            "mxtpu_serve_model_bytes",
+            "Resident parameter bytes per loaded model (int8-"
+            "quantized models are ~4x smaller).")
         # generative decode serving (token loop per generate endpoint)
         self._gen_threads: List[threading.Thread] = []
         self._m_kv_slots = _telemetry.gauge(
@@ -944,6 +1535,8 @@ class InferenceEngine:
             "mxtpu_serve_itl_seconds",
             "Generative inter-token latency between consecutive emitted "
             "tokens.")
+        if start:
+            self.start()
 
     # ------------------------------------------------------ request tracing
     def _trace_finish(self, model: str, tr, status: str,
@@ -987,10 +1580,29 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- loading
     def load_model(self, name: str, net=None, fn=None, mlir: str = None,
-                   generate=None, weight: float = 1.0,
-                   queue_limit: Optional[int] = None,
-                   **kw) -> GenerativeEndpoint:
-        """Load a generation endpoint: ``generate`` is a dict with
+                   params: str = None, item_shape: Sequence[int] = None,
+                   dtype="float32", buckets: Sequence[int] = None,
+                   weight: float = 1.0, queue_limit: Optional[int] = None,
+                   max_batch: Optional[int] = None,
+                   max_wait_ms: Optional[float] = None,
+                   donate: Optional[bool] = None, ctx=None,
+                   quantize=None, generate=None,
+                   deadline_ms: Optional[float] = None,
+                   tenant_quota: Optional[int] = None,
+                   degrade_after: Optional[int] = None,
+                   probe_every: Optional[float] = None):
+        """Load a model and return its ``Endpoint``. Exactly one of ``net``
+        (a ``HybridBlock``: one captured graph a padding bucket, see
+        ``_AOTBlockModel``) or ``fn`` (an ``np batch -> np outputs``
+        callable) must be given; ``item_shape`` is ONE request's shape (no
+        batch dim). ``buckets`` default to ``default_buckets(max_batch)``.
+        ``donate`` is accepted and moot (inputs land in static buffers).
+        ``ctx``, if given, must name the engine's device: a model lives on
+        its engine's device. ``mlir=`` (an ``export()`` artifact) is
+        ROADMAP.md A11 and ``quantize=`` (int8) A9: both raise
+        ``NotImplementedError``.
+
+        ``generate`` loads a generation endpoint instead: a dict with
         ``params`` (transformer parameters in the port's layout, e.g. from
         ``models.transformer.params_from_jax``) and ``cfg``
         (``models.transformer.TransformerConfig``), plus optional
@@ -1000,29 +1612,196 @@ class InferenceEngine:
         overriding the ``MXTPU_SERVE_GEN_*`` env family. Returns a
         ``GenerativeEndpoint`` whose ``submit(prompt)`` streams tokens
         through a ``GenerationFuture``. Parameters are moved to the
-        engine's device. Generate endpoints do not hot-swap: loading an
-        already-loaded name raises ``SwapError``.
+        engine's device.
 
-        ``net=`` / ``fn=`` / ``mlir=`` (the batch engine) are not ported
-        yet and raise ``NotImplementedError``."""
-        if generate is None or any(x is not None for x in (net, fn, mlir)):
-            if generate is not None:
+        **Hot swap** — ``load_model`` with the name of an already-loaded
+        batch model stages the new version (every bucket captured) and
+        canaries it against the live one (``MXTPU_SERVE_SWAP_CANARY=0``
+        skips the canary), then flips the route atomically under the
+        engine lock; the old version's in-flight batches drain through
+        its own graphs, and it is released. A failed stage or canary
+        raises ``SwapError`` with the old version still serving,
+        untouched. The endpoint object, its queue and its scheduling
+        config survive the swap; ``Endpoint.version`` increments.
+        Generate endpoints do not hot-swap — unload first
+        (``SwapError``)."""
+        if generate is not None:
+            if any(x is not None for x in (net, fn, mlir)):
                 raise ValueError(
                     "generate= is exclusive with net=/fn=/mlir=")
+            if self._endpoints.get(name) is not None:
+                self._m_swaps.inc(1, model=name, outcome="unsupported")
+                raise SwapError(
+                    f"model {name!r} is already loaded and generate "
+                    "endpoints do not hot-swap (live KV state) — "
+                    "unload() first")
+            return self._load_generate(name, generate, weight=weight,
+                                       queue_limit=queue_limit)
+        if sum(x is not None for x in (net, fn, mlir)) != 1:
+            raise ValueError("pass exactly one of net=, fn=, mlir=")
+        if quantize is not None and quantize is not False and net is None:
+            raise ValueError("quantize= applies to net= models only")
+        if mlir is not None:
             raise NotImplementedError(
-                "batch serving (load_model net=/fn=/mlir=) is not ported "
-                "to the PyTorch package yet — see ROADMAP.md, 'batch "
-                "serving'")
-        if kw:
-            raise TypeError(f"unsupported load_model arguments {sorted(kw)}")
-        if self._endpoints.get(name) is not None:
+                "load_model(mlir=...): serving an export() artifact needs "
+                "the symbolic slice's export and _StableHLOBlock "
+                "(ROADMAP.md A11), not ported yet")
+        if quantize is not None and quantize is not False:
+            raise NotImplementedError(
+                "load_model(quantize=...): int8 serving is ROADMAP.md A9, "
+                "not ported yet")
+        if ctx is not None and resolve_device(
+                getattr(ctx, "torch_device", ctx)) != self.device:
+            raise ValueError(
+                f"load_model(ctx={ctx!r}): a model is served on its "
+                f"engine's device, {self.device}")
+        mb = int(max_batch if max_batch is not None else self.max_batch)
+        if buckets is None:
+            buckets = default_buckets(mb)
+
+        def build():
+            """Stage the model: for net= this captures every bucket.
+            Deferred so a hot swap can stage v2 while v1 keeps serving
+            and roll back on failure."""
+            if item_shape is None:
+                raise ValueError(
+                    f"{'net' if net is not None else 'fn'}= needs "
+                    "item_shape=")
+            if net is not None:
+                # a slot for each batch the in-flight queue holds, the one
+                # being demuxed, the one dispatched and waiting for room,
+                # and a canary's
+                return _AOTBlockModel(net, tuple(item_shape), dtype,
+                                      buckets, name=name,
+                                      device=self.device,
+                                      slots=self.inflight + 3)
+            return _CallableModel(fn, tuple(item_shape), dtype, buckets)
+
+        existing = self._endpoints.get(name)
+        if existing is not None:
+            return self._swap_model(name, existing, build)
+        model = build()
+        ep = Endpoint(self, name, model, weight,
+                      queue_limit if queue_limit is not None
+                      else self.queue_limit, mb,
+                      max_wait_ms if max_wait_ms is not None
+                      else self.max_wait_ms, deadline_ms=deadline_ms,
+                      tenant_quota=tenant_quota,
+                      degrade_after=degrade_after,
+                      probe_every=probe_every)
+        with self._cond:
+            if self._closed or not self._running:
+                raise EngineClosedError("engine is shut down")
+            if name in self._endpoints:
+                raise ValueError(f"model {name!r} already loaded")
+            self._endpoints[name] = ep
+        self._m_state.set(0, model=name)
+        if getattr(model, "model_bytes", None) is not None:
+            self._m_model_bytes.set(model.model_bytes, model=name)
+        return ep
+
+    # ------------------------------------------------------------ hot swap
+    def _canary(self, name: str, old_model, new_model) -> None:
+        """Stage gate: run an all-zeros batch of each version's smallest
+        bucket through the staged version and the live one, and require
+        structural parity — same output count, per-row shapes and dtypes,
+        and finite staged outputs. Values are NOT compared (the weights
+        changed; that is the point of the swap). Raises on any
+        mismatch."""
+        chaos.maybe_fail("serve.swap_fail", ServeError)
+        new_h = _zeros_batch(new_model)
+        old_h = _zeros_batch(old_model)
+        if len(new_h) != len(old_h):
+            raise ServeError(
+                f"canary: staged version returns {len(new_h)} outputs, "
+                f"live returns {len(old_h)}")
+        for i, (nh, oh) in enumerate(zip(new_h, old_h)):
+            if nh.shape[1:] != oh.shape[1:] or nh.dtype != oh.dtype:
+                raise ServeError(
+                    f"canary: output {i} row shape/dtype changed: "
+                    f"{nh.shape[1:]}/{nh.dtype} vs live "
+                    f"{oh.shape[1:]}/{oh.dtype}")
+            if _np.issubdtype(nh.dtype, _np.floating) and \
+                    not _np.all(_np.isfinite(nh)):
+                raise ServeError(
+                    f"canary: staged version output {i} is non-finite "
+                    "on the probe batch")
+
+    def _swap_model(self, name: str, old_ep, build) -> "Endpoint":
+        """Zero-downtime versioned swap: stage -> canary -> atomic route
+        flip -> drain v1's in-flight batches -> release v1. Any failure
+        before the flip raises ``SwapError`` with v1 untouched and still
+        serving. Called from ``load_model`` (the caller's thread — the
+        scheduler keeps dispatching v1 throughout the stage)."""
+        if isinstance(old_ep, GenerativeEndpoint):
             self._m_swaps.inc(1, model=name, outcome="unsupported")
             raise SwapError(
-                f"model {name!r} is already loaded and generate "
-                "endpoints do not hot-swap (live KV state) — "
-                "unload() first")
-        return self._load_generate(name, generate, weight=weight,
-                                   queue_limit=queue_limit)
+                f"model {name!r} is a generate endpoint and does not "
+                "hot-swap (live KV state) — unload() first")
+        v_old, v_new = old_ep.version, old_ep.version + 1
+        with _telemetry.span("swap", model=name, version=v_new):
+            old_model = old_ep.model
+            try:
+                new_model = build()
+            except BaseException as e:
+                self._m_swaps.inc(1, model=name, outcome="stage_failed")
+                raise SwapError(
+                    f"swap {name!r} v{v_old}->v{v_new}: stage failed "
+                    f"({e}); v{v_old} untouched and still serving") from e
+            if tuple(new_model.item_shape) != tuple(old_model.item_shape) \
+                    or new_model.dtype != old_model.dtype:
+                self._m_swaps.inc(1, model=name, outcome="stage_failed")
+                raise SwapError(
+                    f"swap {name!r} v{v_old}->v{v_new}: request contract "
+                    f"changed (item shape {new_model.item_shape}/"
+                    f"{new_model.dtype} vs {old_model.item_shape}/"
+                    f"{old_model.dtype}) — queued requests could not "
+                    f"carry over; v{v_old} untouched and still serving")
+            if _env_int("MXTPU_SERVE_SWAP_CANARY", 1):
+                try:
+                    with _telemetry.span("canary", model=name,
+                                         version=v_new):
+                        self._canary(name, old_model, new_model)
+                except BaseException as e:
+                    self._m_swaps.inc(1, model=name,
+                                      outcome="canary_failed")
+                    raise SwapError(
+                        f"swap {name!r} v{v_old}->v{v_new}: canary "
+                        f"failed ({e}); v{v_old} untouched and still "
+                        "serving") from e
+            # atomic flip: same Endpoint object — queued requests carry
+            # over; batches already dispatched drain to old_model (the
+            # demux fetches from the model captured at dispatch)
+            with self._cond:
+                if self._endpoints.get(name) is not old_ep:
+                    self._m_swaps.inc(1, model=name, outcome="lost_race")
+                    raise SwapError(
+                        f"swap {name!r}: endpoint was unloaded while "
+                        "the new version was staging")
+                old_ep.model = new_model
+                old_ep.buckets = new_model.buckets
+                old_ep.fill = min(old_ep.max_batch, new_model.buckets[-1])
+                old_ep.version = v_new
+                # fresh graphs: the failure ladder restarts
+                old_ep.fail_streak = 0
+                old_ep.state = "ready"
+                self._cond.notify_all()
+            self._m_state.set(0, model=name)
+            # drain: wait until no in-flight batch still references v1
+            deadline = time.perf_counter() + 30.0
+            with self._cond:
+                while self._inflight_by_model.get(id(old_model), 0) > 0:
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        break
+                    self._cond.wait(left)
+            release = getattr(old_model, "release", None)
+            if release is not None:
+                release()
+            self._m_swaps.inc(1, model=name, outcome="ok")
+            if getattr(new_model, "model_bytes", None) is not None:
+                self._m_model_bytes.set(new_model.model_bytes, model=name)
+        return old_ep
 
     def _load_generate(self, name: str, spec, weight: float = 1.0,
                        queue_limit: Optional[int] = None
@@ -1095,11 +1874,7 @@ class InferenceEngine:
             if name in self._endpoints:
                 raise ValueError(f"model {name!r} already loaded")
             self._endpoints[name] = ep
-        _telemetry.gauge(
-            "mxtpu_serve_model_bytes",
-            "Resident parameter bytes per loaded model (int8-"
-            "quantized models are ~4x smaller).").set(
-                model.model_bytes, model=name)
+        self._m_model_bytes.set(model.model_bytes, model=name)
         t = threading.Thread(target=self._gen_loop, args=(ep,),
                              name=f"mxtpu-serve-gen-{name}", daemon=True)
         self._gen_threads.append(t)
@@ -1632,27 +2407,45 @@ class InferenceEngine:
             slots[slot_i] = None
 
     def unload(self, name: str) -> None:
-        """Remove an endpoint; its token loop fails the waiting prompts
-        and live generations with ``EngineClosedError``."""
+        """Remove an endpoint; its waiting requests fail with
+        ``EngineClosedError``."""
         with self._cond:
-            self._endpoints.pop(name, None)
-            self._cond.notify_all()
+            ep = self._endpoints.pop(name, None)
+            if isinstance(ep, GenerativeEndpoint):
+                # its token loop fails the wait queue + live slots itself
+                self._cond.notify_all()
+                return
+            pending = list(ep._queue) if ep else []
+            if ep:
+                ep._queue.clear()
+        for r in pending:
+            self._finish(ep, r, error=EngineClosedError(
+                f"model {name!r} unloaded"), outcome="cancelled")
 
-    def endpoint(self, name: str) -> GenerativeEndpoint:
+    def endpoint(self, name: str):
         return self._endpoints[name]
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> None:
-        """A no-op kept for the reference's interface: each generate
-        endpoint's token loop starts at ``load_model``, and there is no
-        shared scheduler thread until the batch engine is ported."""
+        """Start the scheduler + demux threads (idempotent). Constructed
+        with ``start=False``, an engine queues submits without serving —
+        the deterministic-ordering test hook."""
+        with self._cond:
+            if self._started or self._closed:
+                return
+            self._started = True
+        self._sched_t = threading.Thread(
+            target=self._sched_loop, name="mxtpu-serve-sched", daemon=True)
+        self._demux_t = threading.Thread(
+            target=self._demux_loop, name="mxtpu-serve-demux", daemon=True)
+        self._sched_t.start()
+        self._demux_t.start()
 
     def close(self, drain: bool = True, timeout: float = 60.0) -> None:
-        """Graceful shutdown: stop accepting, then (with ``drain``) let
-        live generations finish under the ``MXTPU_SERVE_GEN_DRAIN_TOKENS``
-        cap while queued prompts fail with ``EngineClosedError``; with
-        ``drain=False`` live generations fail too. Joins every token-loop
-        thread. Idempotent."""
+        """Graceful shutdown: stop accepting, then (with ``drain``) flush
+        every queue — deadline/fill thresholds waived — before joining
+        both threads and the watchdog. ``drain=False`` fails waiting
+        requests with ``EngineClosedError`` instead. Idempotent."""
         with self._cond:
             if self._closed:
                 return
@@ -1660,8 +2453,41 @@ class InferenceEngine:
             self._running = False
             self._draining = bool(drain)
             self._cond.notify_all()
+        sched_stuck = False
+        if self._sched_t is not None:
+            self._sched_t.join(timeout=timeout)
+            sched_stuck = self._sched_t.is_alive()
+        # token loops drain themselves: live generations finish under the
+        # MXTPU_SERVE_GEN_DRAIN_TOKENS cap, queued prompts fail cleanly
         for t in self._gen_threads:
             t.join(timeout=timeout)
+        # scheduler is parked: release anything it never dispatched
+        with self._cond:
+            leftovers = [(ep, r) for ep in self._endpoints.values()
+                         for r in ep._queue
+                         if not isinstance(ep, GenerativeEndpoint)]
+            for ep in self._endpoints.values():
+                if not isinstance(ep, GenerativeEndpoint):
+                    ep._queue.clear()
+        for ep, r in leftovers:
+            self._finish(ep, r, error=EngineClosedError(
+                "engine closed before the request was served"),
+                outcome="cancelled")
+        if sched_stuck:
+            # a dispatch is blocked inside the scheduler (a sync model fn
+            # or a wedged device): the sentinel could overtake its batch
+            # and orphan those futures — leave the (daemon) demux running
+            # to drain whatever eventually lands instead
+            import logging
+            logging.getLogger(__name__).warning(
+                "serving: scheduler did not exit within %gs; demux left "
+                "running to drain in-flight batches", timeout)
+            return
+        self._inflight.put(None)        # demux sentinel (after scheduler)
+        if self._demux_t is not None:
+            self._demux_t.join(timeout=timeout)
+        if self._guard is not None:
+            self._guard.close()
 
     def __enter__(self) -> "InferenceEngine":
         return self
@@ -1669,56 +2495,569 @@ class InferenceEngine:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    # --------------------------------------------------------------- submit
+    def _submit(self, ep: Endpoint, data,
+                deadline_ms: Optional[float] = None,
+                tenant: Optional[str] = None,
+                priority: int = 0, trace=None) -> ResponseFuture:
+        tr = trace if trace is not None else _telemetry.Trace(
+            "predict", model=ep.name)
+        try:
+            return self._submit_locked_path(ep, data, deadline_ms, tenant,
+                                            priority, tr)
+        except BaseException as e:
+            # a rejected request still gets a trace id (the HTTP layer
+            # returns it on the error response) and its trace is always
+            # retained — rejections are never sampled out
+            if getattr(e, "trace_id", None) is None:
+                try:
+                    e.trace_id = tr.trace_id
+                except Exception:
+                    pass
+            status = ("shed" if isinstance(e, DeadlineError)
+                      else "degraded" if isinstance(e, ModelDegradedError)
+                      else "rejected")
+            self._trace_finish(ep.name, tr, status, error=e)
+            raise
+
+    def _submit_locked_path(self, ep: Endpoint, data,
+                            deadline_ms: Optional[float],
+                            tenant: Optional[str], priority: int,
+                            tr) -> ResponseFuture:
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        arr = data.asnumpy() if hasattr(data, "asnumpy") else data
+        arr = _np.ascontiguousarray(_np.asarray(arr, dtype=ep.model.dtype))
+        if arr.shape != ep.model.item_shape:
+            raise ValueError(
+                f"model {ep.name!r} expects one request of shape "
+                f"{ep.model.item_shape}, got {arr.shape} (batching is the "
+                "engine's job — submit single items)")
+        dl_ms = float(deadline_ms if deadline_ms is not None
+                      else ep.deadline_ms)
+        with tr.span("enqueue"), \
+                _telemetry.span("enqueue", model=ep.name):
+            # chaos check outside the engine lock (it takes its own lock
+            # and mirrors into telemetry)
+            forced_full = chaos.should_fail("serve.queue_full")
+            with self._cond, tr.span("admission", tenant=tenant or ""):
+                if self._closed or not self._running:
+                    raise EngineClosedError("engine is shut down")
+                if self._endpoints.get(ep.name) is not ep:
+                    raise EngineClosedError(
+                        f"model {ep.name!r} was unloaded")
+                if ep.state == "degraded":
+                    # ladder fast-fail: never queue into a black hole
+                    self._m_req.inc(1, model=ep.name, outcome="degraded")
+                    raise ModelDegradedError(
+                        f"model {ep.name!r} v{ep.version} is degraded "
+                        f"after {ep.degrade_after} consecutive dispatch "
+                        f"failures (last: {ep._degrade_err}); probing "
+                        f"every {ep.probe_every_s:g}s — retry after "
+                        "recovery (watch /readyz)")
+                if ep.tenant_quota > 0 and tenant is not None:
+                    held = sum(1 for r in ep._queue if r.tenant == tenant)
+                    if held >= ep.tenant_quota:
+                        self._m_req.inc(1, model=ep.name,
+                                        outcome="rejected")
+                        self._m_shed.inc(1, model=ep.name, reason="quota")
+                        err = QueueFullError(
+                            f"model {ep.name!r}: tenant {tenant!r} is at "
+                            f"its queue quota ({held}/{ep.tenant_quota}) "
+                            "— its flood must not starve other tenants; "
+                            "retry with backoff")
+                        err.reason = "quota"
+                        raise err
+                if forced_full or len(ep._queue) >= ep.queue_limit:
+                    self._m_req.inc(1, model=ep.name, outcome="rejected")
+                    raise QueueFullError(
+                        f"model {ep.name!r}: queue full "
+                        f"({len(ep._queue)}/{ep.queue_limit}) — retry with "
+                        "backoff" + (" [chaos]" if forced_full else ""))
+                fut = ResponseFuture()
+                fut.trace = tr
+                req = _Request(
+                    arr, fut,
+                    deadline=(fut.t_submit + dl_ms / 1e3
+                              if dl_ms > 0 else None),
+                    tenant=tenant, priority=int(priority), trace=tr)
+                ep._queue.append(req)
+                self._m_depth.set(len(ep._queue), model=ep.name)
+                self._cond.notify_all()
+        return fut
+
+    # ------------------------------------------------------------ scheduler
+    def _ready_locked(self, now: float) -> List[Endpoint]:
+        """Endpoints whose flush condition is met: fill threshold reached,
+        head request past its deadline, or the engine is draining.
+        Degraded endpoints never dispatch (their probe path does)."""
+        out = []
+        for ep in self._endpoints.values():
+            if isinstance(ep, GenerativeEndpoint):
+                continue                # its own token loop schedules it
+            if ep.state != "ready":
+                continue
+            n = len(ep._queue)
+            if not n:
+                continue
+            if (self._draining or n >= ep.fill
+                    or (now - ep._queue[0].t_enq) >= ep.max_wait_s):
+                out.append(ep)
+        return out
+
+    def _nearest_deadline_locked(self, now: float) -> Optional[float]:
+        """Seconds until the scheduler next has work: a queue's flush
+        deadline, a request's shed deadline, or a degraded model's next
+        probe — whichever lands first."""
+        best = None
+        for ep in self._endpoints.values():
+            if isinstance(ep, GenerativeEndpoint):
+                continue
+            if ep.state == "degraded":
+                d = ep._next_probe - now
+                best = d if best is None else min(best, d)
+                continue
+            if ep._queue:
+                d = ep.max_wait_s - (now - ep._queue[0].t_enq)
+                best = d if best is None else min(best, d)
+                for r in ep._queue:
+                    if r.deadline is not None:
+                        best = min(best, r.deadline - now
+                                   - _SVC_SHED_FACTOR * ep._svc_min)
+        return best
+
+    def _shed_expired_locked(self, now: float) -> List[Tuple[Endpoint,
+                                                             _Request]]:
+        """Deadline-aware admission control: pull every queued request
+        that already cannot make its deadline — queue wait plus the
+        fastest service this endpoint has EVER achieved (``_svc_min``)
+        inflated by ``_SVC_SHED_FACTOR`` for scheduling slack overruns
+        it — so compute is never spent on a guaranteed SLO miss. A
+        request with real headroom is never shed; with no service
+        observation yet the horizon degenerates to the bare deadline."""
+        out: List[Tuple[Endpoint, _Request]] = []
+        for ep in self._endpoints.values():
+            if isinstance(ep, GenerativeEndpoint) or not ep._queue:
+                continue
+            horizon = now + _SVC_SHED_FACTOR * ep._svc_min
+            if not any(r.deadline is not None and horizon >= r.deadline
+                       for r in ep._queue):
+                continue
+            keep: deque = deque()
+            for r in ep._queue:
+                if r.deadline is not None and horizon >= r.deadline:
+                    out.append((ep, r))
+                else:
+                    keep.append(r)
+            ep._queue = keep
+            self._m_depth.set(len(keep), model=ep.name)
+        return out
+
+    def _take_locked(self, ep: Endpoint) -> List[_Request]:
+        """Pop up to one bucket's worth of requests, highest priority
+        first (FIFO within a priority class — the sort is stable)."""
+        n = min(len(ep._queue), ep.fill)
+        if any(r.priority for r in ep._queue):
+            picked = sorted(ep._queue, key=lambda r: -r.priority)[:n]
+            taken = {id(r) for r in picked}
+            ep._queue = deque(r for r in ep._queue
+                              if id(r) not in taken)
+        else:
+            picked = [ep._queue.popleft() for _ in range(n)]
+        self._m_depth.set(len(ep._queue), model=ep.name)
+        return picked
+
+    def _due_probe_locked(self, now: float) -> Optional[Endpoint]:
+        """A degraded endpoint whose probe interval elapsed (claims the
+        next slot so concurrent wake-ups don't double-probe)."""
+        for ep in self._endpoints.values():
+            if isinstance(ep, GenerativeEndpoint):
+                continue
+            if ep.state == "degraded" and now >= ep._next_probe:
+                ep._next_probe = now + ep.probe_every_s
+                return ep
+        return None
+
+    def _pick_wrr(self, ready: List[Endpoint]) -> Endpoint:
+        """Smooth weighted round-robin (nginx-style): proportional share
+        with maximal interleaving — a weight-3 tenant gets 3 of every 4
+        batches but never 3-in-a-row starvation bursts beyond its share."""
+        total = sum(ep.weight for ep in ready) or 1.0
+        for ep in ready:
+            ep._wrr += ep.weight
+        chosen = max(ready, key=lambda ep: ep._wrr)
+        chosen._wrr -= total
+        return chosen
+
+    def _sched_loop(self) -> None:
+        while True:
+            take: Optional[Tuple[Endpoint, List[_Request]]] = None
+            shed: List[Tuple[Endpoint, _Request]] = []
+            probe: Optional[Endpoint] = None
+            with self._cond:
+                while True:
+                    now = time.perf_counter()
+                    shed = self._shed_expired_locked(now)
+                    if shed:
+                        break
+                    ready = self._ready_locked(now)
+                    if ready:
+                        ep = self._pick_wrr(ready)
+                        take = (ep, self._take_locked(ep))
+                        break
+                    if not self._running:
+                        # generative queues are the token loops' to
+                        # drain — counting them here would park this
+                        # thread in cond.wait with nobody to notify it
+                        if not any(e._queue
+                                   for e in self._endpoints.values()
+                                   if not isinstance(
+                                       e, GenerativeEndpoint)):
+                            return      # drained (or told not to drain)
+                        if not self._draining:
+                            return      # close(drain=False): leftovers
+                                        # are failed by close()
+                    probe = self._due_probe_locked(now)
+                    if probe is not None:
+                        break
+                    wait = self._nearest_deadline_locked(now)
+                    self._cond.wait(wait if wait is None or wait > 0
+                                    else 0.001)
+            for ep, r in shed:
+                waited_ms = (time.perf_counter() - r.t_enq) * 1e3
+                self._m_shed.inc(1, model=ep.name, reason="deadline")
+                if r.trace is not None:
+                    r.trace.observe("queue_wait", waited_ms / 1e3)
+                    r.trace.observe("shed", 0.0, reason="deadline")
+                self._finish(ep, r, error=DeadlineError(
+                    f"model {ep.name!r}: shed before compute — queued "
+                    f"{waited_ms:.1f}ms, past the request deadline; the "
+                    "SLO miss was already guaranteed"), outcome="shed")
+            if shed:
+                continue
+            if probe is not None:
+                self._probe(probe)
+                continue
+            self._dispatch(*take)
+
+    def _hold(self, ep: Endpoint):
+        """The endpoint's live model, counted in flight (under the lock
+        a hot swap flips the route under, so its drain waits for this
+        batch before it releases the old version)."""
+        with self._cond:
+            model = ep.model
+            self._inflight_by_model[id(model)] = \
+                self._inflight_by_model.get(id(model), 0) + 1
+        return model
+
+    def _unhold(self, model) -> None:
+        with self._cond:
+            mid = id(model)
+            left = self._inflight_by_model.get(mid, 1) - 1
+            if left <= 0:
+                self._inflight_by_model.pop(mid, None)
+            else:
+                self._inflight_by_model[mid] = left
+            self._cond.notify_all()
+
+    def _dispatch(self, ep: Endpoint, reqs: List[_Request]) -> None:
+        model = self._hold(ep)  # the demux fetches from the version that
+        n = len(reqs)           # dispatched, even mid-swap
+        bucket = next((b for b in model.buckets if b >= n),
+                      model.buckets[-1])
+        now = time.perf_counter()
+        _telemetry.observe_span("batch_wait", now - reqs[0].t_enq,
+                                model=ep.name, n=n, bucket=bucket)
+        for r in reqs:          # per-request waterfall: time spent queued
+            if r.trace is not None:
+                r.trace.observe("queue_wait", now - r.t_enq)
+        self._batch_seq += 1
+        try:
+            chaos.maybe_fail("serve.dispatch_fail", ServeError)
+            with _telemetry.span("pad", model=ep.name, n=n, bucket=bucket):
+                xb = model.pack([r.data for r in reqs], bucket)
+            t_pad = time.perf_counter()
+            with _telemetry.span("forward", model=ep.name, bucket=bucket):
+                outs = model.dispatch(xb, bucket)
+            t_fwd = time.perf_counter()
+        except BaseException as e:      # compile/shape/model failure:
+            self._unhold(model)         # fail the batch, keep serving
+            for r in reqs:
+                if r.trace is not None:
+                    r.trace.observe("dispatch",
+                                    time.perf_counter() - now,
+                                    bucket=bucket, failed=True,
+                                    version=ep.version)
+                self._finish(ep, r, error=e, outcome="error")
+            self._note_failure(ep, model, e)
+            return
+        for r in reqs:          # batch phases stamped per request, with
+            if r.trace is not None:     # the version that dispatched
+                r.trace.observe("pad", t_pad - now, bucket=bucket,
+                                fill=round(n / float(bucket), 4))
+                r.trace.observe("dispatch", t_fwd - t_pad, bucket=bucket,
+                                version=ep.version)
+        self._m_batches.inc(1, model=ep.name, bucket=str(bucket))
+        self._m_pad.inc(bucket - n, model=ep.name)
+        self._m_fill.set(n / float(bucket), model=ep.name)
+        self._m_inflight.inc(1)
+        self.dispatch_log.append((ep.name, n, bucket))
+        self._inflight.put((ep, model, reqs, outs, self._batch_seq, now,
+                            t_fwd))
+
+    # --------------------------------------------------- self-healing ladder
+    def _note_ok(self, ep: Endpoint, model) -> None:
+        if ep.fail_streak:
+            with self._cond:
+                if self._endpoints.get(ep.name) is ep \
+                        and ep.model is model:
+                    ep.fail_streak = 0
+
+    def _note_failure(self, ep: Endpoint, model, error) -> None:
+        """One dispatch/demux failure walks the per-model ladder one
+        rung (mirroring the guard's skip -> rescale -> rollback shape):
+        retry (streak < rebuild rung) -> rebuild the executables from
+        held params -> degraded at ``degrade_after``, probing back."""
+        rebuild = degrade = False
+        with self._cond:
+            if self._endpoints.get(ep.name) is not ep \
+                    or ep.model is not model or ep.state != "ready":
+                return      # stale version/endpoint: not this model's rung
+            ep.fail_streak += 1
+            streak = ep.fail_streak
+            if streak >= ep.degrade_after:
+                degrade = True
+            elif streak == ep.degrade_after - 1 \
+                    and hasattr(model, "rebuild"):
+                rebuild = True
+        if rebuild:
+            self._m_state.set(1, model=ep.name)
+            try:
+                with _telemetry.span("rebuild", model=ep.name,
+                                     streak=streak):
+                    model.rebuild()
+                self._m_state.set(0, model=ep.name)
+            except BaseException as e:
+                error, degrade = e, True
+        if degrade:
+            self._degrade(ep, error)
+
+    def _degrade(self, ep: Endpoint, error) -> None:
+        with self._cond:
+            if ep.state == "degraded" \
+                    or self._endpoints.get(ep.name) is not ep:
+                return
+            ep.state = "degraded"
+            ep._degrade_err = repr(error)
+            ep._next_probe = time.perf_counter() + ep.probe_every_s
+            pending = list(ep._queue)
+            ep._queue.clear()
+            self._m_depth.set(0, model=ep.name)
+            self._cond.notify_all()
+        self._m_state.set(2, model=ep.name)
+        for r in pending:
+            self._finish(ep, r, error=ModelDegradedError(
+                f"model {ep.name!r} v{ep.version} went degraded while "
+                f"this request was queued (cause: {ep._degrade_err})"),
+                outcome="degraded")
+
+    def _probe(self, ep: Endpoint) -> None:
+        """One probe batch (all zeros, smallest bucket) against a
+        degraded model; success flips it back to ready and resets the
+        ladder. Runs in the scheduler thread between dispatches."""
+        model = self._hold(ep)
+        ok = False
+        try:
+            chaos.maybe_fail("serve.dispatch_fail", ServeError)
+            with _telemetry.span("probe", model=ep.name,
+                                 bucket=model.buckets[0]):
+                _zeros_batch(model)
+            ok = True
+        except BaseException:
+            pass        # stay degraded; next probe in probe_every_s
+        finally:
+            self._unhold(model)
+        if not ok:
+            return
+        with self._cond:
+            if self._endpoints.get(ep.name) is not ep \
+                    or ep.model is not model or ep.state != "degraded":
+                return
+            ep.state = "ready"
+            ep.fail_streak = 0
+            ep._degrade_err = ""
+            self._cond.notify_all()
+        self._m_state.set(0, model=ep.name)
+
+    # ---------------------------------------------------------------- demux
+    def _watch(self, batch_id: int):
+        if self._guard is None:
+            return contextlib.nullcontext()
+        return self._guard.watch("serve.forward", step=batch_id)
+
+    def _slow_model_chaos(self) -> None:
+        """``serve.slow_model``: the model's device compute crawls. Sleeps
+        in 2 ms slices so the hung-request watchdog's async interrupt
+        lands promptly (a single long C-level sleep would defer it)."""
+        if not chaos.should_fail("serve.slow_model"):
+            return
+        deadline = time.perf_counter() + self.SLOW_CHAOS_S
+        while time.perf_counter() < deadline:
+            time.sleep(0.002)
+
+    def _demux_loop(self) -> None:
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            ep, model, reqs, outs, batch_id, t_disp, t_fwd = item
+            try:
+                with self._watch(batch_id):
+                    self._slow_model_chaos()
+                    with _telemetry.span("demux", model=ep.name,
+                                         n=len(reqs)):
+                        # fetch from the model captured at dispatch: a
+                        # swap mid-flight must not cross versions
+                        host = model.fetch(outs)
+                        t_host = time.perf_counter()
+                        for i, r in enumerate(reqs):
+                            tr = r.trace
+                            if tr is not None:
+                                # device compute: forward return ->
+                                # host buffers ready (covers the
+                                # in-flight queue wait, which overlaps
+                                # the device)
+                                tr.observe("device", t_host - t_fwd,
+                                           version=ep.version)
+                            t_dm = time.perf_counter()
+                            res = [h[i] for h in host]
+                            if tr is not None:
+                                tr.observe(
+                                    "demux",
+                                    time.perf_counter() - t_dm,
+                                    n=len(reqs))
+                            self._finish(
+                                ep, r,
+                                value=res[0] if len(res) == 1 else res)
+                svc = time.perf_counter() - t_disp
+                if not ep._svc_min or svc < ep._svc_min:
+                    ep._svc_min = svc
+                self._note_ok(ep, model)
+            except StepHungError as e:
+                # watchdog fired: stacks + flight recorder are already
+                # dumped (guard._emit action='raise'); fail ONLY this
+                # batch and keep serving
+                for r in reqs:
+                    self._finish(ep, r, error=e, outcome="hung")
+                self._note_failure(ep, model, e)
+            except BaseException as e:
+                for r in reqs:
+                    self._finish(ep, r, error=e, outcome="error")
+                self._note_failure(ep, model, e)
+            finally:
+                # a batch failed before its fetch still hands its slot back
+                close = getattr(outs, "close", None)
+                if close is not None:
+                    close()
+                self._m_inflight.dec(1)
+                self._unhold(model)
+
+    def _finish(self, ep: Endpoint, r: _Request, value=None, error=None,
+                outcome: str = "ok") -> None:
+        if r.future.done():
+            return
+        if error is not None and r.trace is not None:
+            try:                        # error responses name their trace
+                error.trace_id = r.trace.trace_id
+            except Exception:
+                pass
+        aborted = r.future.cancelled()
+        if not aborted and outcome == "ok" and \
+                chaos.should_fail("serve.client_abort"):
+            r.future.cancel()
+            aborted = True
+        if aborted:
+            outcome = "aborted"
+            r.future._set_exception(
+                RequestAborted("client went away before the response"))
+        elif error is not None:
+            r.future._set_exception(error)
+        else:
+            r.future._set_result(value)
+        self._m_req.inc(1, model=ep.name, outcome=outcome)
+        tr = r.trace
+        self._m_lat.observe(
+            time.perf_counter() - r.future.t_submit,
+            exemplar=({"trace_id": tr.trace_id} if tr is not None
+                      else None),
+            model=ep.name, outcome=outcome)
+        self._trace_finish(ep.name, tr, outcome, error=error)
+
     # ---------------------------------------------------------------- stats
     def ready(self) -> Tuple[bool, Dict[str, str]]:
         """Per-model readiness for ``/readyz``: ``(all_ready, {model:
-        state})``. A closed engine is not ready."""
+        state})``. ``/healthz`` stays process-liveness; THIS flips when
+        the self-healing ladder marks a model degraded (and flips back
+        on a successful probe batch). A closed engine is not ready."""
         with self._cond:
-            states = {name: "ready" for name in self._endpoints}
+            states = {name: getattr(e, "state", "ready")
+                      for name, e in self._endpoints.items()}
             closed = self._closed
-        return (not closed, states)
+        return (not closed
+                and all(s == "ready" for s in states.values()), states)
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
         """Per-model serving counters (from the shared telemetry
-        registry) + queue/slot/page state."""
+        registry) + queue/bucket state."""
         out: Dict[str, Dict[str, Any]] = {}
         with self._cond:    # snapshot: load_model/unload mutate the dict
             endpoints = list(self._endpoints.items())
         for name, ep in endpoints:
             out[name] = {
-                "kind": "generate",
                 "pending": ep.pending(),
                 "weight": ep.weight,
                 "buckets": list(ep.buckets),
-                "model_bytes": ep.model.model_bytes,
-                "state": "ready",
-                "version": 1,
-                "shed": self._m_shed.value(model=name, reason="deadline"),
+                "fill": getattr(ep, "fill", None),
+                "model_bytes": getattr(ep.model, "model_bytes", None),
+                "state": getattr(ep, "state", "ready"),
+                "version": getattr(ep, "version", 1),
+                "compiles": _telemetry.counter(
+                    "mxtpu_serve_compiles_total").value(model=name),
+                "shed": (self._m_shed.value(model=name, reason="deadline")
+                         + self._m_shed.value(model=name, reason="quota")),
                 "served": self._m_req.value(model=name, outcome="ok"),
                 "rejected": self._m_req.value(model=name,
                                               outcome="rejected"),
                 "errors": self._m_req.value(model=name, outcome="error"),
+                "hung": self._m_req.value(model=name, outcome="hung"),
                 "aborted": self._m_req.value(model=name, outcome="aborted"),
-                "slots": ep.model.slots,
-                "slots_in_use": ep.slots_in_use,
-                "cache_len": ep.model.cache_len,
-                "cache_bytes": ep.model.cache_bytes,
-                "gen_tokens": self._m_gen_tokens.value(model=name),
+                "batches": sum(1 for m, _, _ in self.dispatch_log
+                               if m == name),
             }
             # operator "start here" pointer: the slowest retained
             # request trace and its per-phase breakdown
             slow = _telemetry.trace_store().slowest(name)
             if slow is not None:
                 out[name]["slowest_trace"] = slow
-            if ep.pool is not None:
+            if isinstance(ep, GenerativeEndpoint):
                 out[name].update({
-                    "paged": True,
-                    "page_len": ep.model.page_len,
-                    "pages": ep.pool.n_pages,
-                    "pages_in_use": ep.pool.in_use(),
-                    "pages_cached": len(ep.pool.cached),
-                    "prefix_hits": self._m_prefix_hits.value(model=name),
-                    "prefix_tokens_reused":
-                        self._m_prefix_tokens.value(model=name),
+                    "kind": "generate",
+                    "slots": ep.model.slots,
+                    "slots_in_use": ep.slots_in_use,
+                    "cache_len": ep.model.cache_len,
+                    "cache_bytes": ep.model.cache_bytes,
+                    "gen_tokens": self._m_gen_tokens.value(model=name),
                 })
+                if ep.pool is not None:
+                    out[name].update({
+                        "paged": True,
+                        "page_len": ep.model.page_len,
+                        "pages": ep.pool.n_pages,
+                        "pages_in_use": ep.pool.in_use(),
+                        "pages_cached": len(ep.pool.cached),
+                        "prefix_hits": self._m_prefix_hits.value(
+                            model=name),
+                        "prefix_tokens_reused":
+                            self._m_prefix_tokens.value(model=name),
+                    })
         return out

@@ -390,10 +390,12 @@ def test_trainer_state_round_trip_and_local_stores(tmp_path):
         for a, b in zip(v, tr2._updaters[0].states[k]):
             np.testing.assert_array_equal(_np(a), _np(b))
     assert tr2.optimizer.param_dict[0] is tr._params[0]
-    for bad in (dict(kvstore="dist_sync"), dict(update_on_kvstore=True),
-                dict(guard="skip")):
+    for bad in (dict(kvstore="dist_sync"), dict(update_on_kvstore=True)):
         with pytest.raises(NotImplementedError):
             tmx.gluon.Trainer(net.collect_params(), "sgd", **bad)
+    # guard= takes a GuardPolicy or a TrainingGuard (tests/test_torch_guard.py)
+    with pytest.raises(TypeError, match="GuardPolicy"):
+        tmx.gluon.Trainer(net.collect_params(), "sgd", guard="skip")
 
 
 def test_lr_mult_applies_as_in_mxnet():

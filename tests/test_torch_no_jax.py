@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
                  "models.word_lm", "metric", "ops.detection",
                  "ops.cuda.detection", "ndarray.contrib", "models.ssd",
                  "gluon.model_zoo.vision.vgg", "rtc", "operator",
-                 "test_utils", "registry", "ops.cuda.nvrtc", "cuda_graph"):
+                 "test_utils", "registry", "ops.cuda.nvrtc", "cuda_graph",
+                 "guard", "callback"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

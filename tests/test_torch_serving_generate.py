@@ -430,7 +430,8 @@ def test_drain_and_decode_failure(lm, monkeypatch, threads_clean):
 
 def test_device_rules_and_unported_sources(lm):
     """The engine defaults to the CUDA card and raises when there is none
-    (no silent CPU run); batch model sources are not ported yet."""
+    (no silent CPU run); of the model sources, an export artifact
+    (``mlir=``, ROADMAP.md A11) is not ported yet."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
@@ -439,8 +440,8 @@ def test_device_rules_and_unported_sources(lm):
         tt.init_kv_cache(lm[3], 1, 16)
     eng = serving.InferenceEngine(device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.load_model("m", fn=lambda x: x)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+            eng.load_model("m", mlir="m.mlir")
         eng.load_model("genlm", generate=_spec(lm[2], lm[3], slots=1))
         with pytest.raises(serving.SwapError):
             eng.load_model("genlm", generate=_spec(lm[2], lm[3], slots=1))

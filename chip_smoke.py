@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight main paths on the card and holds every CUDA kernel
+Drives the port's nine main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -39,7 +39,12 @@ of them against its plain PyTorch version:
   serving ``resnet50_v1(layout="NHWC")`` (float32, buckets 1..32) and
   SSD-512's ``detect`` (float32, buckets 1..8), one captured CUDA graph a
   padding bucket, under closed-loop clients, a hot swap, the
-  self-healing ladder and the hung-request watchdog.
+  self-healing ladder and the hung-request watchdog;
+* int8 inference and the HTTP front end: ``resnet50_v1(layout="NCHW")``
+  and the reference's serve-bench MLP served through
+  ``load_model(quantize=...)`` (BN folded, naive calibration), their int8
+  products on the ``qconv_s8`` / ``qgemm_s8`` kernels, beside float32
+  twins, and ``tools/serve.py``'s HTTP routes over the same engine.
 
 Phases:
 
@@ -303,6 +308,17 @@ Phases:
 
 24. batch serving (:func:`batch_serving_phase`): the engine above with
    its two endpoints, each bucket one CUDA graph captured at load.
+25. int8 serving and HTTP (:func:`int8_serving_phase`): the int8
+   kernels against their twins bit for bit in both epilogues at every
+   conv shape of the converted ResNet-50 at bucket 32, tails and GEMMs,
+   timed beside their bounds, the twins and ``torch._int_mm``; the int8
+   ResNet-50 and MLP served (``len(buckets)`` captures, replays equal to
+   eager, one ``qconv_s8`` a quantized conv and one ``qgemm_s8`` a
+   quantized dense a served batch, a row alone equal to its row in a full
+   bucket, the quant-smoke gates, 64 clients x 10 beside the float32
+   ResNet-50); then the HTTP front end on ``127.0.0.1:0`` over the same
+   engine (``:predict`` npy and JSON, ``/readyz``, ``/metrics``,
+   ``:reload``, a ``:generate`` stream, a 429 shed).
 
 After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
 caching allocator's cache and logs allocated and reserved bytes; where
@@ -6176,6 +6192,615 @@ def batch_serving_phase(mx, gluon, vision, common, records):
     return res
 
 
+# ------------------------------------------- int8 serving and HTTP (phase 25)
+QUANT_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/quantized.cu"
+QUANT_REPLACES = {
+    "qconv_s8": "incubator_mxnet_tpu/ops/quantization.py:170",
+    "qgemm_s8": "incubator_mxnet_tpu/ops/quantization.py:155"}
+QUANT_KERNELS = ("qconv_s8", "qgemm_s8")
+QUANT_BUCKETS = (1, 2, 4, 8, 16, 32)
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor cores
+# the reference's quant-smoke gates (tools/quant_smoke.py:45-48)
+QUANT_MLP_MAX_REL, QUANT_MLP_MIN_TOP1, QUANT_BYTES_RATIO = 0.15, 0.90, 0.35
+# the reference's serve-bench MLP (tools/serve_bench.py:50-53)
+QMLP_ITEM, QMLP_HIDDEN, QMLP_LAYERS, QMLP_CLASSES = 256, 256, 24, 64
+# shapes off ResNet-50's path: C 3, odd H/W, K not a multiple of 32,
+# stride 2 with pad, dilation 2, groups 2 (x shape, w shape, stride, pad,
+# dilation, groups)
+QCONV_TAILS = (((3, 3, 31, 29), (16, 3, 3, 3), (2, 2), (1, 1), (1, 1), 1),
+               ((2, 5, 17, 15), (24, 5, 5, 3), (1, 2), (2, 1), (1, 1), 1),
+               ((2, 40, 23, 21), (48, 40, 3, 3), (1, 1), (2, 2), (2, 2), 1),
+               ((4, 64, 14, 14), (96, 32, 3, 3), (2, 2), (1, 1), (1, 1), 2),
+               ((1, 3, 224, 224), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1))
+QGEMM_TAILS = ((7, 147, 33), (1, 2048, 1000), (17, 100, 65))
+
+
+def _qconv_bytes_ops(xs, ws, ys, int8_out, bias):
+    """Bytes a conv must move (x and w read once, y written once, the
+    bias) and its int8 operations (a multiply and an add a MAC)."""
+    n, c, h, w = xs
+    o, cg, kh, kw = ws
+    _, _, ho, wo = ys
+    moved = (n * c * h * w + o * cg * kh * kw
+             + n * o * ho * wo * (1 if int8_out else 4)
+             + (4 * o if bias else 0))
+    return moved, 2 * n * ho * wo * o * cg * kh * kw
+
+
+def _bound(moved, ops):
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _recorded_convs(mx, qop, net, x):
+    """Every int8 product of one eager forward of ``net`` over ``x``, in
+    order, as ``ops.quantization`` hands it to the kernels: (kind,
+    operands, epilogue)."""
+    calls = []
+    conv, gemm = qop._conv, qop._gemm
+
+    def rec_conv(xq, wq, stride, pad, dilate, groups, epi=None):
+        calls.append(("conv", (xq.contiguous(), wq.contiguous(),
+                               tuple(stride), tuple(pad), tuple(dilate),
+                               int(groups)), epi))
+        return conv(xq, wq, stride, pad, dilate, groups, epi)
+
+    def rec_gemm(xq, wq, epi=None):
+        calls.append(("gemm", (xq.reshape(-1, xq.shape[-1]).contiguous(),
+                               wq.contiguous()), epi))
+        return gemm(xq, wq, epi)
+    qop._conv, qop._gemm = rec_conv, rec_gemm
+    try:
+        with mx.autograd.pause(train_mode=False), torch.no_grad():
+            net(x)
+    finally:
+        qop._conv, qop._gemm = conv, gemm
+    torch.cuda.synchronize()
+    return calls
+
+
+def _qconv_seq_device_ms(seq, per_epi, calls: int = 3):
+    """Device ms of one ``seq()`` (a run of ``qconv_s8`` calls) from
+    torch.profiler: each ``qmma_kernel<gemm, epi>``'s mean duration times
+    its launches a call (``per_epi``: {epilogue: launches}), since a
+    window may keep only some records and one wrapper launches either of
+    two kernels. (None, {}) when no window delivers a device event."""
+    def window():
+        for _ in range(calls):
+            seq()
+        torch.cuda.synchronize()
+    seq()
+    torch.cuda.synchronize()
+    dev, _ = _device_events(window)
+    if dev is None:
+        return None, {}
+    per = {}
+    for e in dev:
+        m = re.search(r"qmma_kernel<(\d), (\d)>", e.key)
+        if m:
+            per[m.group(0)] = (e.self_device_time_total / e.count
+                               * per_epi[int(m.group(2))] / 1e3)
+    return sum(per.values()), per
+
+
+def _rand_case(g, xs, ws, o, with_bias):
+    x = torch.randint(-127, 128, xs, generator=g, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, ws, generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = (torch.randint(-40000, 40000, (o,), generator=g, device="cuda",
+                       dtype=torch.int32) if with_bias else None)
+    return x, w, b
+
+
+def int8_kernel_checks(mx, qk, net, x32):
+    """Phase 25's kernel part: ``qconv_s8`` and ``qgemm_s8`` against their
+    twins bit for bit, in both epilogues, at every distinct conv shape of
+    the converted ResNet-50's forward at bucket 32 (read off the forward
+    itself), at the off-path tails (``QCONV_TAILS``), at the head's GEMM,
+    the MLP's GEMMs and ``QGEMM_TAILS``; each conv shape's event ms beside
+    its bound; then the whole forward's 53 conv launches (its own
+    operands and epilogues) as one timed call, and the head's GEMM, each
+    by ``_in_turns`` (device, graph, event ms, host µs) beside the twins'
+    ms, the bound and, for the GEMM, ``torch._int_mm``'s. Returns the two
+    kernel records and the readings."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 25)
+    from incubator_mxnet_tpu_torch.ops import quantization as qop
+    calls = _recorded_convs(mx, qop, net, x32)
+    convs = [c for c in calls if c[0] == "conv"]
+    head = [c for c in calls if c[0] == "gemm"]
+    shapes = {}
+    for _, (x, w, st, pd, dl, gr), epi in convs:
+        shapes.setdefault((tuple(x.shape), tuple(w.shape), st, pd, dl, gr),
+                          0)
+        shapes[(tuple(x.shape), tuple(w.shape), st, pd, dl, gr)] += 1
+    cases = [(k, n) for k, n in shapes.items()] + \
+        [(t, 0) for t in QCONV_TAILS]
+    worst, n_cmp, per_shape = 0, 0, []
+    for (xs, ws, st, pd, dl, gr), count in cases:
+        x, w, b = _rand_case(g, xs, ws, ws[0], True)
+        for epi in (None, qk.Requant(b, True, 3.1e-5, 141.1, False),
+                    qk.Requant(None, False, 2.7e-6, 97.3, False)):
+            got = qk.qconv_s8(x, w, st, pd, dl, gr, epi)
+            want = qk.qconv_s8_reference(x, w, st, pd, dl, gr, epi)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+            worst, n_cmp = max(worst, err), n_cmp + 1
+            if err:
+                raise AssertionError(f"qconv_s8 {xs} x {ws} stride {st} pad "
+                                     f"{pd} dilate {dl} groups {gr} "
+                                     f"epilogue {epi is not None}: off its "
+                                     f"twin by {err}")
+        if count:
+            epi = qk.Requant(b, True, 3.1e-5, 141.1, False)
+            ms = time_ms(lambda: qk.qconv_s8(x, w, st, pd, dl, gr, epi),
+                         iters=10, warmup=2)
+            ys = qk.qconv_s8(x, w, st, pd, dl, gr, epi).shape
+            bnd, by = _bound(*_qconv_bytes_ops(xs, ws, tuple(ys), True, True))
+            per_shape.append({"x": xs, "w": ws, "stride": st, "pad": pd,
+                              "in_net": count, "event_ms": ms,
+                              "bound_ms": bnd, "bound_by": by})
+    gemms = [(tuple(h[1][0].shape), tuple(h[1][1].shape)) for h in head] + \
+        [((32, QMLP_ITEM), (QMLP_HIDDEN, QMLP_ITEM)),
+         ((32, QMLP_HIDDEN), (QMLP_CLASSES, QMLP_HIDDEN))] + \
+        [((n, k), (o, k)) for n, k, o in QGEMM_TAILS]
+    for xs, ws in gemms:
+        x, w, b = _rand_case(g, xs, ws, ws[0], True)
+        for epi in (None, qk.Requant(b, True, 3.1e-5, 141.1, False)):
+            got = qk.qgemm_s8(x, w, epi)
+            want = qk.qgemm_s8_reference(x, w, epi)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+            worst, n_cmp = max(worst, err), n_cmp + 1
+            if err:
+                raise AssertionError(f"qgemm_s8 {xs} x {ws} epilogue "
+                                     f"{epi is not None}: off by {err}")
+    log(f"int8 kernels: {n_cmp} comparisons with the twins "
+        f"({len(shapes)} distinct conv shapes of the converted ResNet-50 "
+        f"at bucket 32, {len(QCONV_TAILS)} tails, {len(gemms)} GEMMs), "
+        f"every one bit for bit; per conv shape {json.dumps(per_shape)}")
+
+    # the forward's 53 convs as one call, its own operands and epilogues
+    def seq():
+        for _, args, epi in convs:
+            qk.qconv_s8(*args, epi)
+
+    def seq_twin():
+        for _, args, epi in convs:
+            qk.qconv_s8_reference(*args, epi)
+    moved = ops = 0
+    for _, (x, w, st, pd, dl, gr), epi in convs:
+        ys = qk.conv_out_hw(x.shape[2], x.shape[3], w.shape[2:], st, pd, dl)
+        m, o = _qconv_bytes_ops(tuple(x.shape), tuple(w.shape),
+                                (x.shape[0], w.shape[0]) + ys,
+                                epi is not None,
+                                epi is not None and epi.bias is not None)
+        moved, ops = moved + m, ops + o
+    conv_bound, conv_by = _bound(moved, ops)
+    per_epi = {0: sum(e is None for _, _, e in convs),
+               1: sum(e is not None for _, _, e in convs)}
+    dev, split = _qconv_seq_device_ms(seq, per_epi)
+    turns = {"device_ms": dev, "kernels": split, "graph_ms": graph_ms(seq),
+             "event_ms": time_ms(seq, iters=10, warmup=2),
+             "host_us": host_us(seq, calls=5)}
+    plain = time_ms(seq_twin, iters=2, warmup=1)
+    records = {"qconv_s8": {
+        "name": "qconv_s8", "route": "cuda", "source": QUANT_SOURCE,
+        "replaces": QUANT_REPLACES["qconv_s8"], "launches": 0,
+        "max_abs_err": float(worst), "ms": turns["event_ms"],
+        "device_ms": turns["device_ms"], "graph_ms": turns["graph_ms"],
+        "host_us": turns["host_us"], "plain_ms": plain,
+        "bound_ms": conv_bound, "bound_by": conv_by, "library_ms": None,
+        "shape": f"ResNet-50's {len(convs)} convs at bucket 32, one call",
+        "tera_ops_per_s": ops / turns["event_ms"] / 1e9}}
+    log(f"qconv_s8, the forward's {len(convs)} convs at bucket 32: "
+        f"device {_ms(turns['device_ms'])} graph {_ms(turns['graph_ms'])} "
+        f"event {turns['event_ms']:.4f} ms, host {turns['host_us']:.1f} us; "
+        f"twin {plain:.4f} ms; bound {conv_bound:.4f} ms ({conv_by}); "
+        f"{ops / 1e9:.1f} G int8 ops")
+
+    # the head's GEMM (raw int32, the float-boundary layer)
+    (xh, wh), epi_h = head[0][1], head[0][2]
+    gemm_calls = {"qgemm_s8": lambda: qk.qgemm_s8(xh, wh, epi_h)}
+    turns = _in_turns(gemm_calls, qk.qgemm_s8, rounds=2)["qgemm_s8"]
+    plain = time_ms(lambda: qk.qgemm_s8_reference(xh, wh, epi_h), iters=10,
+                    warmup=2)
+    try:
+        wt = wh.t()
+        ref = torch._int_mm(xh, wt)
+        if not torch.equal(ref, qk.qgemm_s8(xh, wh)):
+            raise AssertionError("torch._int_mm disagrees with qgemm_s8")
+        library = time_ms(lambda: torch._int_mm(xh, wt), iters=20)
+    except RuntimeError as err:         # a shape the call refuses
+        log(f"torch._int_mm refuses {tuple(xh.shape)} x {tuple(wt.shape)}: "
+            f"{err}")
+        library = None
+    n, k = xh.shape
+    o = wh.shape[0]
+    bnd, by = _bound(n * k + o * k + 4 * n * o, 2 * n * k * o)
+    records["qgemm_s8"] = {
+        "name": "qgemm_s8", "route": "cuda", "source": QUANT_SOURCE,
+        "replaces": QUANT_REPLACES["qgemm_s8"], "launches": 0,
+        "max_abs_err": float(worst), "ms": turns["event_ms"],
+        "device_ms": turns["device_ms"], "graph_ms": turns["graph_ms"],
+        "host_us": turns["host_us"], "plain_ms": plain, "bound_ms": bnd,
+        "bound_by": by, "library_ms": library,
+        "shape": f"{tuple(xh.shape)} x {tuple(wh.shape)}, int32 out"}
+    log(f"qgemm_s8 at the head {tuple(xh.shape)} x {tuple(wh.shape)}: "
+        f"{_turns_line({'kernel': turns})}; twin {plain:.4f} ms; "
+        f"torch._int_mm {_ms(library)} ms; bound {bnd:.5f} ms ({by})")
+    return records, {"per_shape": per_shape, "comparisons": n_cmp}
+
+
+def _quant_counts(net):
+    """(QuantizedConv2D, QuantizedDense) layers of a converted net, chain
+    stages included."""
+    from incubator_mxnet_tpu_torch.contrib.quantization import (
+        QuantizedConv2D, QuantizedDense)
+    n_conv = n_dense = 0
+    stack = [net]
+    while stack:
+        b = stack.pop()
+        n_conv += isinstance(b, QuantizedConv2D)
+        n_dense += isinstance(b, QuantizedDense)
+        stack.extend(b._children.values())
+    return n_conv, n_dense
+
+
+def _qmlp(mx, seed):
+    """The reference's serve-bench MLP (24 x Dense(256) ReLU + Dense(64))
+    on the card, seeded."""
+    from incubator_mxnet_tpu_torch.gluon import nn
+    mx.random.seed(seed)
+    with mx.gpu(0):
+        net = nn.HybridSequential()
+        for _ in range(QMLP_LAYERS):
+            net.add(nn.Dense(QMLP_HIDDEN, activation="relu"))
+        net.add(nn.Dense(QMLP_CLASSES))
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, QMLP_ITEM)))
+    return net
+
+
+def _calib_batches(mx, seed, shape):
+    rs = np.random.RandomState(seed)
+    with mx.gpu(0):
+        return [mx.nd.array(rs.rand(8, *shape).astype(np.float32))
+                for _ in range(2)]
+
+
+def _accuracy(a, b):
+    return {"max_rel_err": float(np.abs(a - b).max()
+                                 / (np.abs(b).max() + 1e-9)),
+            "top1_agreement": float((a.argmax(1) == b.argmax(1)).mean())}
+
+
+def _http(port, path, body=None, ctype="application/json", headers=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body,
+        headers={"Content-Type": ctype, **(headers or {})},
+        method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def _http_checks(serving, eng, ep, xs, mlp_reload):
+    """The port's HTTP front end on ``127.0.0.1:0`` in a thread over
+    ``eng``: npy and JSON :predict equal ``ep.predict`` bit for bit,
+    /readyz and /metrics, a :reload hot swap (``len(buckets)`` captures),
+    a :generate stream of 16 tokens equal to the engine's own greedy
+    stream, and a shed request's 429 with Retry-After."""
+    import io
+    import urllib.error
+    from http.server import ThreadingHTTPServer
+    from incubator_mxnet_tpu_torch import telemetry
+    from incubator_mxnet_tpu_torch.tools import serve as tserve
+    params, cfg = tserve._build_demo_lm("cuda")
+    gep = eng.load_model("genlm", generate={"params": params, "cfg": cfg,
+                                            "max_len": 64, "slots": 2})
+    eng.load_model("tiny", fn=lambda b: (time.sleep(0.3), b)[1],
+                   item_shape=(1,), queue_limit=1, max_batch=1)
+    compiles = telemetry.counter("mxtpu_serve_compiles_total")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), tserve.make_handler(
+        eng, reloaders={"mlp_int8": mlp_reload}))
+    thr = threading.Thread(target=httpd.serve_forever,
+                           name="chip-smoke-http", daemon=True)
+    thr.start()
+    port = httpd.server_address[1]
+    res = {}
+    try:
+        x = xs[0]
+        want = ep.predict(x, timeout=60.0)
+        buf = io.BytesIO()
+        np.save(buf, x)
+        t0 = time.perf_counter()
+        st, hdr, raw = _http(port, f"/v1/models/{ep.name}:predict",
+                             buf.getvalue(), "application/x-npy")
+        npy_ms = (time.perf_counter() - t0) * 1e3
+        got = np.load(io.BytesIO(raw), allow_pickle=False)
+        t0 = time.perf_counter()
+        st2, _, raw2 = _http(port, f"/v1/models/{ep.name}:predict",
+                             json.dumps({"data": x.tolist()}).encode())
+        json_ms = (time.perf_counter() - t0) * 1e3
+        got2 = np.asarray(json.loads(raw2)["outputs"][0], np.float32)
+        res["predict"] = {"npy_bitwise": bool(np.array_equal(got, want)),
+                          "json_bitwise": bool(np.array_equal(got2, want)),
+                          "npy_ms": npy_ms, "json_ms": json_ms,
+                          "trace_id": hdr.get("x-mxtpu-trace-id")}
+        st3, _, body = _http(port, "/readyz")
+        _, _, metrics = _http(port, "/metrics")
+        res["readyz"] = st3
+        res["metrics_has_model_bytes"] = \
+            b"mxtpu_serve_model_bytes" in metrics
+        c0 = compiles.value(model="mlp_int8")
+        st4, _, body = _http(port, "/v1/models/mlp_int8:reload", b"{}")
+        res["reload"] = {"status": st4, **json.loads(body),
+                         "compiles": compiles.value(model="mlp_int8") - c0}
+        prompt = [5, 17, 3, 42, 8]
+        greedy = list(gep.submit(np.asarray(prompt, np.int32),
+                                 max_new_tokens=16).result(120.0))
+        _, _, raw = _http(port, "/v1/models/genlm:generate", json.dumps(
+            {"tokens": prompt, "max_new_tokens": 16,
+             "stream": True}).encode())
+        lines = [json.loads(ln) for ln in raw.decode().splitlines()
+                 if ln.strip()]
+        res["generate"] = {"tokens": len(lines) - 1,
+                           "equal_engine": [ln["token"] for ln in lines[:-1]]
+                           == greedy and len(greedy) == 16,
+                           "done": bool(lines[-1].get("done"))}
+        tiny = eng._endpoints["tiny"]
+        held = [tiny.submit(np.zeros((1,), np.float32))]
+        time.sleep(0.05)
+        held.append(tiny.submit(np.zeros((1,), np.float32)))
+        try:
+            _http(port, "/v1/models/tiny:predict",
+                  json.dumps({"data": [0.0]}).encode())
+            res["shed"] = {"status": 200}
+        except urllib.error.HTTPError as err:
+            res["shed"] = {"status": err.code,
+                           "retry_after": err.headers.get("Retry-After"),
+                           "reason": json.loads(err.read()).get("reason")}
+        for f in held:
+            f.result(60.0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thr.join(timeout=10.0)
+    log(f"int8 serving: HTTP {json.dumps(res)}")
+    p = res["predict"]
+    if not (p["npy_bitwise"] and p["json_bitwise"]) or res["readyz"] != 200 \
+            or not res["metrics_has_model_bytes"] \
+            or res["reload"]["status"] != 200 \
+            or res["reload"]["compiles"] != len(QUANT_BUCKETS) \
+            or not res["generate"]["equal_engine"] \
+            or not res["generate"]["done"] \
+            or res["shed"]["status"] != 429 \
+            or not res["shed"].get("retry_after"):
+        raise AssertionError(f"HTTP front end {res}")
+    return res
+
+
+def int8_serving_phase(mx, gluon, vision, common, records):
+    """Phase 25: int8 inference and the HTTP front end on the card.
+    ``resnet50_v1(layout="NCHW")`` float32, seeded, its BN statistics
+    moved by seeded training-mode forwards, served with
+    ``load_model(quantize={"calib_data": two seeded batches of 8,
+    "calib_mode": "naive", "fold_bn": True})``, item (3, 224, 224),
+    buckets 1..32, beside its float32 twin; the reference's serve-bench
+    MLP (24 x Dense(256)) calibrated the same way, beside its float32
+    twin. Checks (any failure raises): the kernels against their twins bit
+    for bit (:func:`int8_kernel_checks`); ``len(buckets)`` captures a
+    model at load and none from traffic; every bucket's replay equal to
+    the converted net's eager forward bit for bit, full and half full, and
+    padding rows leave real rows alone (``_bucket_checks``); one
+    ``qconv_s8`` launch a quantized conv and one ``qgemm_s8`` a quantized
+    dense in each served batch, through replays, both counts read off the
+    converted net; the MLP's row served alone equal to the same row in a
+    full bucket bit for bit (the ResNet's logged); the quant-smoke gates
+    (MLP relative logit error <= 0.15, top-1 agreement >= 0.90; int8
+    bytes <= 0.35x the float32 endpoint's for both models; the ResNet's
+    error and agreement logged); 64 closed-loop clients x 10 on the int8
+    and the float32 ResNet with none dropped; then the HTTP front end
+    (:func:`_http_checks`)."""
+    from incubator_mxnet_tpu_torch import serving, telemetry
+    from incubator_mxnet_tpu_torch.ops.cuda import quantized as qk
+    from incubator_mxnet_tpu_torch.test_utils import copy_params
+    res = {}
+    compiles = telemetry.counter("mxtpu_serve_compiles_total")
+    bytes_g = telemetry.gauge("mxtpu_serve_model_bytes")
+    shape = (3, 224, 224)
+
+    def resnet(seed):
+        mx.random.seed(seed)
+        with mx.gpu(0):
+            net = vision.resnet50_v1(layout="NCHW")
+            net.initialize()
+            net(mx.nd.zeros((1,) + shape))
+        return net
+
+    net_f = resnet(SEED + 31)
+    rs = np.random.RandomState(SEED + 32)
+    with mx.gpu(0), mx.autograd.record(train_mode=True):
+        for _ in range(2):                  # non-trivial BN statistics
+            net_f(mx.nd.array(rs.rand(8, *shape).astype(np.float32)))
+    net_q = resnet(SEED + 33)
+    copy_params(net_f, net_q)
+    xs = _serve_images(SEED + 34, 64, shape)
+    ref_f = _eager_rows(mx, net_f, xs, 32)[0]
+
+    eng = serving.InferenceEngine(max_batch=32,
+                                  max_wait_ms=SERVE_MAX_WAIT_MS,
+                                  device="cuda")
+    try:
+        t0 = time.perf_counter()
+        c0 = compiles.value(model="resnet50_int8")
+        ep = eng.load_model(
+            "resnet50_int8", net=net_q, item_shape=shape,
+            buckets=QUANT_BUCKETS, max_batch=32,
+            quantize={"calib_data": _calib_batches(mx, SEED + 35, shape),
+                      "calib_mode": "naive", "fold_bn": True})
+        load_q = (time.perf_counter() - t0) * 1e3
+        c_q = compiles.value(model="resnet50_int8") - c0
+        c0 = compiles.value(model="resnet50_f32")
+        epf = eng.load_model("resnet50_f32", net=net_f, item_shape=shape,
+                             buckets=QUANT_BUCKETS, max_batch=32)
+        c_f = compiles.value(model="resnet50_f32") - c0
+        n_conv, n_dense = _quant_counts(net_q)
+        res["resnet_load"] = {"int8_ms": load_q, "compiles_int8": c_q,
+                              "compiles_f32": c_f, "quantized_convs": n_conv,
+                              "quantized_dense": n_dense,
+                              "bytes_int8": bytes_g.value(
+                                  model="resnet50_int8"),
+                              "bytes_f32": bytes_g.value(
+                                  model="resnet50_f32")}
+        log(f"int8 serving: ResNet-50 loaded {json.dumps(res['resnet_load'])}")
+        if c_q != len(QUANT_BUCKETS) or c_f != len(QUANT_BUCKETS) \
+                or n_dense != 1 or n_conv != 53:
+            raise AssertionError(f"int8 ResNet-50 load {res['resnet_load']}")
+
+        with mx.gpu(0):
+            x32 = mx.nd.array(np.stack(xs[:32]))
+        k_records, k_read = int8_kernel_checks(mx, qk, net_q, x32)
+        records.update(k_records)
+        res["kernels"] = k_read
+
+        res["resnet_buckets"] = _bucket_checks(mx, net_q, ep.model, xs,
+                                               "resnet50 int8", SEED + 36)
+        common.reset_launch_counts()
+        _served(ep.model, xs[:32], 32)
+        one = {k: v for k, v in common.launch_counts().items() if v}
+        if one != {"qconv_s8": n_conv, "qgemm_s8": n_dense}:
+            raise AssertionError(f"one bucket-32 replay launched {one}, "
+                                 f"want {n_conv} qconv_s8 and {n_dense} "
+                                 "qgemm_s8")
+        solo = ep.predict(xs[0], timeout=60.0)
+        full = _served(ep.model, xs[:32], 32)[0]
+        res["resnet_solo_vs_full"] = {
+            "bitwise": bool(np.array_equal(solo, full[0])),
+            "max_abs_diff": float(np.abs(solo - full[0]).max())}
+        served = np.stack([ep.predict(x, timeout=60.0) for x in xs])
+        res["resnet_accuracy"] = _accuracy(served, ref_f)
+        res["resnet_bytes_ratio"] = (res["resnet_load"]["bytes_int8"]
+                                     / res["resnet_load"]["bytes_f32"])
+        log(f"int8 serving: ResNet-50 one replay {json.dumps(one)}; row "
+            f"alone vs in bucket 32 {json.dumps(res['resnet_solo_vs_full'])}"
+            f"; against float32 {json.dumps(res['resnet_accuracy'])}; "
+            f"bytes ratio {res['resnet_bytes_ratio']:.4f}")
+        if res["resnet_bytes_ratio"] > QUANT_BYTES_RATIO \
+                or not np.isfinite(served).all():
+            raise AssertionError(f"int8 ResNet-50 {res}")
+
+        # the main path: 64 closed-loop clients on the int8 endpoint, the
+        # kernels' counts from 0 just before, read just after
+        r0 = compiles.value(model="resnet50_int8")
+        n0 = len(eng.dispatch_log)
+        common.reset_launch_counts()
+        wall, recs = _closed_loop(ep, xs, SERVE_CLIENTS, SERVE_REQUESTS)
+        launches = {k: v for k, v in common.launch_counts().items() if v}
+        batches = [b for m, _, b in list(eng.dispatch_log)[n0:]
+                   if m == "resnet50_int8"]
+        loop_q = _loop_stats(wall, recs, "int8 loop")
+        wall, recs = _closed_loop(epf, xs, SERVE_CLIENTS, SERVE_REQUESTS)
+        loop_f = _loop_stats(wall, recs, "float32 loop")
+        res["resnet_loop"] = {
+            "int8": {**loop_q, "batches": len(batches),
+                     "batches_by_bucket": {str(b): batches.count(b)
+                                           for b in QUANT_BUCKETS},
+                     "launches": launches},
+            "float32": loop_f,
+            "int8_over_float32": loop_q["img_per_s"] / loop_f["img_per_s"]}
+        log(f"int8 serving: ResNet-50, {SERVE_CLIENTS} clients x "
+            f"{SERVE_REQUESTS}, int8 then float32 "
+            f"{json.dumps(res['resnet_loop'])}")
+        if launches != {"qconv_s8": n_conv * len(batches),
+                        "qgemm_s8": n_dense * len(batches)} \
+                or compiles.value(model="resnet50_int8") != r0:
+            raise AssertionError(f"int8 loop launches {launches} over "
+                                 f"{len(batches)} batches, or it compiled")
+        res["bucket_graph_ms"] = {
+            label: {str(b): time_ms(m._entries[b].step.graph.replay,
+                                    iters=10, warmup=2)
+                    for b in QUANT_BUCKETS}
+            for label, m in (("int8", ep.model), ("float32", epf.model))}
+        log(f"int8 serving: each bucket's graph replay, int8 and float32 "
+            f"{json.dumps(res['bucket_graph_ms'])}")
+        for name in QUANT_KERNELS:
+            records[name]["launches"] = launches[name]
+            records[name]["launches_per_batch"] = launches[name] // len(
+                batches)
+        eng.unload("resnet50_f32")
+
+        # the reference's quant-smoke MLP
+        mlp_f = _qmlp(mx, SEED + 37)
+        mlp_q = _qmlp(mx, SEED + 38)
+        copy_params(mlp_f, mlp_q)
+        mlp_src = _qmlp(mx, SEED + 39)
+        copy_params(mlp_f, mlp_src)
+        # calibrated as the reference's gate does (tools/quant_smoke.py:
+        # gate_mlp_accuracy: naive, one batch of 64 seeded requests)
+        with mx.gpu(0):
+            mcal = [mx.nd.array(np.stack(_serve_images(SEED + 40, 64,
+                                                       (QMLP_ITEM,))))]
+        spec = {"calib_data": mcal, "calib_mode": "naive"}
+        c0 = compiles.value(model="mlp_int8")
+        epm = eng.load_model("mlp_int8", net=mlp_q, item_shape=(QMLP_ITEM,),
+                             buckets=QUANT_BUCKETS, max_batch=32,
+                             quantize=spec)
+        epmf = eng.load_model("mlp_f32", net=mlp_f,
+                              item_shape=(QMLP_ITEM,),
+                              buckets=QUANT_BUCKETS, max_batch=32)
+        c_m = compiles.value(model="mlp_int8") - c0
+        ms = _serve_images(SEED + 41, 64, (QMLP_ITEM,))
+        res["mlp_buckets"] = _bucket_checks(mx, mlp_q, epm.model, ms,
+                                            "mlp int8", SEED + 42)
+        m_int8 = np.stack([epm.predict(x, timeout=60.0) for x in ms])
+        m_f32 = np.stack([epmf.predict(x, timeout=60.0) for x in ms])
+        solo = epm.predict(ms[0], timeout=60.0)
+        full = _served(epm.model, ms[:32], 32)[0]
+        # a reading: the same MLP calibrated like the ResNet (two seeded
+        # batches of 8)
+        from incubator_mxnet_tpu_torch.contrib.quantization import (
+            quantize_net)
+        mlp_16 = _qmlp(mx, SEED + 44)
+        copy_params(mlp_f, mlp_16)
+        quantize_net(mlp_16, calib_data=_calib_batches(
+            mx, SEED + 45, (QMLP_ITEM,)), calib_mode="naive")
+        m_16 = _eager_rows(mx, mlp_16, ms, 32)[0]
+        res["mlp"] = {**_accuracy(m_int8, m_f32), "compiles": c_m,
+                      "calibrated_on_two_batches_of_8": _accuracy(m_16,
+                                                                  m_f32),
+                      "compiles_after_traffic":
+                          compiles.value(model="mlp_int8") - c0,
+                      "bytes_ratio": bytes_g.value(model="mlp_int8")
+                      / bytes_g.value(model="mlp_f32"),
+                      "solo_vs_full_bitwise": bool(np.array_equal(
+                          solo, full[0]))}
+        log(f"int8 serving: the quant-smoke MLP {json.dumps(res['mlp'])}")
+        m = res["mlp"]
+        if m["max_rel_err"] > QUANT_MLP_MAX_REL \
+                or m["top1_agreement"] < QUANT_MLP_MIN_TOP1 \
+                or m["bytes_ratio"] > QUANT_BYTES_RATIO \
+                or not m["solo_vs_full_bitwise"] \
+                or m["compiles"] != len(QUANT_BUCKETS) \
+                or m["compiles_after_traffic"] != len(QUANT_BUCKETS):
+            raise AssertionError(f"quant-smoke gates {m}")
+        eng.unload("mlp_f32")
+
+        def mlp_reload():
+            net = _qmlp(mx, SEED + 43)
+            copy_params(mlp_src, net)
+            return {"net": net, "item_shape": (QMLP_ITEM,),
+                    "buckets": QUANT_BUCKETS, "max_batch": 32,
+                    "quantize": {"calib_data": mcal, "calib_mode": "naive"}}
+        res["http"] = _http_checks(serving, eng, ep, xs, mlp_reload)
+    finally:
+        eng.close()
+    return res
+
+
 #: reserved minus allocated after a phase that ``_memory_held`` explains
 MEMORY_SLACK_BYTES = 2e9
 
@@ -6317,6 +6942,8 @@ def main() -> int:
     phase_done("phase 23, rtc and the MLP")
     batch_serve = batch_serving_phase(mx, gluon, vision, common, records)
     phase_done("phase 24, batch serving")
+    int8_serve = int8_serving_phase(mx, gluon, vision, common, records)
+    phase_done("phase 25, int8 serving and HTTP")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -6341,6 +6968,7 @@ def main() -> int:
     log(f"rtc kernel timings {json.dumps(rtc_timings)}")
     log(f"MNIST MLP with the rtc custom softmax {json.dumps(mlp)}")
     log(f"batch serving {json.dumps(batch_serve)}")
+    log(f"int8 serving and HTTP {json.dumps(int8_serve)}")
     over = [h["phase"] for h in held
             if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
     table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),
@@ -6352,7 +6980,7 @@ def main() -> int:
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_RECORDS
         + ROW_KERNELS + CONV_RECORDS + LSTM_RECORDS + DET_KERNELS
-        + RTC_KERNELS]}))
+        + RTC_KERNELS + QUANT_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: runtime-compiled CUDA kernels (``rtc``: NVRTC
+The port covers so far: int8 inference (``contrib.quantization``,
+``ops.quantization``, ``nd.contrib.quantize*``, ``load_model(quantize=)``)
+on its int8 tensor-core kernels, and the HTTP front end
+``tools.serve`` (slice 23); runtime-compiled CUDA kernels (``rtc``: NVRTC
 and the driver API), custom operators (``operator``, ``nd.Custom``),
 ``test_utils`` and ``registry`` (slice 7); SSD detection (``models.ssd``,
 ``nd.contrib``) with its matcher and NMS kernels (slice 6); the fused
@@ -54,6 +57,7 @@ from . import operator
 from .operator import CustomOp, CustomOpProp, register as register_op
 from . import test_utils
 from . import registry
+from . import contrib
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
@@ -61,4 +65,5 @@ __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "context", "ndarray", "nd", "autograd", "random", "engine",
            "initializer", "init", "name", "lr_scheduler", "metric",
            "optimizer", "gluon", "rtc", "operator", "CustomOp",
-           "CustomOpProp", "register_op", "test_utils", "registry"]
+           "CustomOpProp", "register_op", "test_utils", "registry",
+           "contrib"]

@@ -1,8 +1,10 @@
 """Vision model zoo (ref: python/mxnet/gluon/model_zoo/vision/__init__.py).
 
-The port has the ResNet and VGG families; the other families of the
-reference (AlexNet, DenseNet, SqueezeNet, Inception, MobileNet, the int8
-nets) are ROADMAP.md A6 and ``get_model`` raises for them."""
+The port has the ResNet and VGG families and ``quantize_vision_net``
+(the int8 conversion); the other families of the reference (AlexNet,
+DenseNet, SqueezeNet, Inception, MobileNet) are ROADMAP.md A6 and
+``get_model`` raises for them."""
+from .quantized import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
 from .vgg import *  # noqa: F401,F403
 from . import resnet as _resnet

@@ -10,8 +10,10 @@ ops go through ``ops/detection.py``, whose target matcher and NMS are the
 B9 kernels on the card. Every op runs through :func:`invoke`, so it is
 differentiable under ``autograd.record()`` where the reference's is, and
 the target and detection ops, which take no gradient, return detached
-results. The quantization ops are ROADMAP.md A9 and raise; CSR storage is
-A4, so ``edge_id`` raises and ``getnnz`` counts a dense array's non-zeros.
+results. The quantization ops are ``ops/quantization.py``'s (the int8
+products on the ``qconv_s8`` / ``qgemm_s8`` kernels on the card), taking
+NDArrays and returning them; CSR storage is A4, so ``edge_id`` raises and
+``getnnz`` counts a dense array's non-zeros.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 
 from ..ops import detection as _det
 from ..ops import device_vector
-from .ndarray import NDArray, _as_nd, invoke, stack
+from ..ops import quantization as _quant
+from .ndarray import NDArray, _as_nd, _wrap, invoke, stack
 from .ops import Embedding
 from .optimizer_ops import group_adagrad_update  # noqa: F401
 
@@ -495,27 +498,31 @@ def krprod(*matrices):
     return invoke(f, list(matrices), "krprod")
 
 
-def _quantization_not_ported(name):
+def _on_nd(fn):
+    """``ops.quantization``'s ``fn`` over NDArrays: its tensor results
+    (codes, and ranges computed from the data) come back as NDArrays."""
     def op(*args, **kwargs):
-        raise NotImplementedError(
-            f"nd.contrib.{name}: int8 quantization is ROADMAP.md A9, not "
-            "ported yet")
-    op.__name__ = name
+        out = fn(*args, **kwargs)
+        if isinstance(out, torch.Tensor):
+            return _wrap(out)
+        return tuple(_wrap(o) if isinstance(o, torch.Tensor) else o
+                     for o in out)
+    op.__name__ = fn.__name__
+    op.__doc__ = fn.__doc__
     return op
 
 
 # the reference exposes its quantization surface here (ref:
 # src/operator/quantization/*.cc as mx.nd.contrib.quantize etc.)
-quantize = _quantization_not_ported("quantize")
-quantize_v2 = _quantization_not_ported("quantize_v2")
-dequantize = _quantization_not_ported("dequantize")
-requantize = _quantization_not_ported("requantize")
-quantized_concat = _quantization_not_ported("quantized_concat")
-quantized_conv = _quantization_not_ported("quantized_conv")
-quantized_flatten = _quantization_not_ported("quantized_flatten")
-quantized_fully_connected = _quantization_not_ported(
-    "quantized_fully_connected")
-quantized_pooling = _quantization_not_ported("quantized_pooling")
+quantize = _on_nd(_quant.quantize)
+quantize_v2 = _on_nd(_quant.quantize_v2)
+dequantize = _on_nd(_quant.dequantize)
+requantize = _on_nd(_quant.requantize)
+quantized_concat = _on_nd(_quant.quantized_concat)
+quantized_conv = _on_nd(_quant.quantized_conv)
+quantized_flatten = _on_nd(_quant.quantized_flatten)
+quantized_fully_connected = _on_nd(_quant.quantized_fully_connected)
+quantized_pooling = _on_nd(_quant.quantized_pooling)
 
 
 def getnnz(data, axis=None):

@@ -32,7 +32,8 @@ SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
            CSRC / "flash_attention_sm90.cu", CSRC / "layer_norm.cu",
            CSRC / "softmax.cu", CSRC / "conv_fused.cu",
            CSRC / "conv_fused_sm90.cu", CSRC / "lstm.cu",
-           CSRC / "detection.cu", CSRC / "bindings.cpp")
+           CSRC / "detection.cu", CSRC / "quantized.cu",
+           CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -95,6 +96,7 @@ _SIGNATURES = {
                                   + [_P] * 5,
     "mxt_nms_keep_cluster": [_P, _P, _P, _L, _L, _L] + [_I] * 4
                             + [_F, _I, _P, _P, _P],
+    "mxt_qmma_s8": [_I, _I] + [_P] * 4 + [_I] * 16 + [_I, _F, _F, _I, _P],
 }
 
 _lib = None

@@ -197,6 +197,12 @@ int nms_keep_cluster_launch(const float* boxes, const float* ids,
                             unsigned long long* gmask, unsigned char* keep,
                             void* stream);
 
+int qmma_s8_launch(int gemm, int epi, const void* x, const void* w, void* y,
+                   const void* bias, int N, int C, int H, int W, int O,
+                   int kh, int kw, int sh, int sw, int ph, int pw, int dh,
+                   int dw, int groups, int Ho, int Wo, int relu, float step,
+                   float s127, int zero, void* stream);
+
 extern "C" {
 
 // q (S, H, d); k/v (S, H, n_blocks * block_k, d); lengths (S,) int32.
@@ -750,6 +756,20 @@ int mxt_nms_keep_cluster(const void* boxes, const void* ids,
       static_cast<const unsigned char*>(valid), sb, si, sv, B, k, split,
       mode, thr, force, static_cast<unsigned long long*>(gmask),
       static_cast<unsigned char*>(keep), stream);
+}
+
+// The int8 products (quantized.cu): gemm 0 a convolution of x (N, C, H,
+// W) by w (O, C / groups, kh, kw), gemm 1 x (N, C) times w (O, C)^T; epi 0
+// writes the int32 accumulator, epi 1 the requantized int8 codes (int32
+// bias, optional ReLU, float32 step and 127 / cal, zero for a zero range).
+int mxt_qmma_s8(int gemm, int epi, const void* x, const void* w, void* y,
+                const void* bias, int N, int C, int H, int W, int O, int kh,
+                int kw, int sh, int sw, int ph, int pw, int dh, int dw,
+                int groups, int Ho, int Wo, int relu, float step, float s127,
+                int zero, void* stream) {
+  return qmma_s8_launch(gemm, epi, x, w, y, bias, N, C, H, W, O, kh, kw, sh,
+                        sw, ph, pw, dh, dw, groups, Ho, Wo, relu, step, s127,
+                        zero, stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

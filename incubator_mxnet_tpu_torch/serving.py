@@ -63,8 +63,11 @@ Differences from the JAX engine:
   seeded at each dispatch from the model's call counter (the reference
   folds that counter into ``PRNGKey(0)``), so its streams differ from
   ``jax.random``'s;
-* ``mlir=`` (an exported artifact) is ROADMAP.md A11 and ``quantize=``
-  (int8) is A9: both raise ``NotImplementedError``;
+* ``mlir=`` (an exported artifact) is ROADMAP.md A11 and raises
+  ``NotImplementedError``; ``quantize=`` converts a ``net=`` model to int8
+  (``contrib.quantization``) before its buckets are captured, its int8
+  products on the ``qconv_s8`` / ``qgemm_s8`` kernels, and
+  ``mxtpu_serve_model_bytes`` counts the int8 buffers;
 * a generate model's KV cache is updated in place, so a failed call
   leaves the other slots' K/V intact and ``_GenerativeModel.recover``
   never has to rebuild; sampling draws counter-based Gumbel noise hashed
@@ -990,6 +993,26 @@ def _torch_dtype(dtype: _np.dtype) -> torch.dtype:
     return torch.from_numpy(_np.zeros(0, dtype)).dtype
 
 
+def _quantize_for_serving(net, quantize):
+    """``load_model(quantize=...)``: ``net`` converted to int8 in place
+    (the reference's forms: ``True`` for dynamic ranges, a dict of
+    ``contrib.quantization.quantize_net`` arguments that may hold
+    ``fold_bn``, or a bare calibration iterable). With neither calibration
+    data nor thresholds, the ranges are dynamic (``calib_mode='none'``)."""
+    from .contrib import quantization as _cq
+    if quantize is True:
+        spec = {}
+    elif isinstance(quantize, dict):
+        spec = dict(quantize)
+    else:
+        spec = {"calib_data": quantize}
+    if spec.pop("fold_bn", False):
+        _cq.fold_batchnorm(net)
+    if spec.get("calib_data") is None and spec.get("thresholds") is None:
+        spec.setdefault("calib_mode", "none")
+    return _cq.quantize_net(net, **spec)
+
+
 class _AOTBlockModel:
     """A ``HybridBlock`` served as one captured graph a padding bucket.
 
@@ -1598,8 +1621,12 @@ class InferenceEngine:
         batch dim). ``buckets`` default to ``default_buckets(max_batch)``.
         ``donate`` is accepted and moot (inputs land in static buffers).
         ``ctx``, if given, must name the engine's device: a model lives on
-        its engine's device. ``mlir=`` (an ``export()`` artifact) is
-        ROADMAP.md A11 and ``quantize=`` (int8) A9: both raise
+        its engine's device. ``quantize`` (``net=`` only) converts the net
+        to int8 in place before its buckets are captured: ``True``
+        (dynamic ranges, no calibration), a dict of ``quantize_net``
+        arguments that may hold ``fold_bn`` (fold BatchNorm first), or a
+        bare calibration iterable (see ``_quantize_for_serving``).
+        ``mlir=`` (an ``export()`` artifact) is ROADMAP.md A11 and raises
         ``NotImplementedError``.
 
         ``generate`` loads a generation endpoint instead: a dict with
@@ -1646,10 +1673,6 @@ class InferenceEngine:
                 "load_model(mlir=...): serving an export() artifact needs "
                 "the symbolic slice's export and _StableHLOBlock "
                 "(ROADMAP.md A11), not ported yet")
-        if quantize is not None and quantize is not False:
-            raise NotImplementedError(
-                "load_model(quantize=...): int8 serving is ROADMAP.md A9, "
-                "not ported yet")
         if ctx is not None and resolve_device(
                 getattr(ctx, "torch_device", ctx)) != self.device:
             raise ValueError(
@@ -1668,10 +1691,13 @@ class InferenceEngine:
                     f"{'net' if net is not None else 'fn'}= needs "
                     "item_shape=")
             if net is not None:
+                nn = net
+                if quantize is not None and quantize is not False:
+                    nn = _quantize_for_serving(net, quantize)
                 # a slot for each batch the in-flight queue holds, the one
                 # being demuxed, the one dispatched and waiting for room,
                 # and a canary's
-                return _AOTBlockModel(net, tuple(item_shape), dtype,
+                return _AOTBlockModel(nn, tuple(item_shape), dtype,
                                       buckets, name=name,
                                       device=self.device,
                                       slots=self.inflight + 3)

@@ -548,6 +548,10 @@ class Trace:
             self._deferred = False
             if self._outcome is not None:
                 status, error = self._outcome
+                # a retained trace outlives its request: keep no exception,
+                # whose traceback would hold the raising frames (and the
+                # engine and models they reference)
+                self._outcome = (status, None)
         return self.finish(status=status, error=error)
 
     def _claim_retirement(self) -> bool:

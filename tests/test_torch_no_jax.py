@@ -53,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
                  "ops.cuda.detection", "ndarray.contrib", "models.ssd",
                  "gluon.model_zoo.vision.vgg", "rtc", "operator",
                  "test_utils", "registry", "ops.cuda.nvrtc", "cuda_graph",
-                 "guard", "callback"):
+                 "guard", "callback", "contrib", "contrib.quantization",
+                 "ops.quantization", "ops.cuda.quantized", "tools",
+                 "tools.serve", "gluon.model_zoo.vision.quantized"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -65,6 +67,9 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "rows.cuh" in files
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "lstm.cu" in files
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "detection.cu" in files
+    assert PKG_DIR / "ops" / "cuda" / "csrc" / "quantized.cu" in files
+    assert PKG_DIR / "contrib" / "quantization.py" in files
+    assert PKG_DIR / "tools" / "serve.py" in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

@@ -11,7 +11,7 @@ and 1e-4 (ResNet), the JAX side under
 Ported from ``tests/test_serving.py``: bucket padding, the deadline flush,
 backpressure, weighted fairness, unload, the chaos points, the watchdog and
 its flight dump, drain, telemetry. ``test_mlir_endpoint_and_batch_contract``
-becomes the check that ``mlir=`` (A11) and ``quantize=`` (A9) raise;
+becomes the check that ``mlir=`` (A11) raises;
 ``test_launch_merge_handles_serving_rank`` waits for the HTTP front end
 (ROADMAP.md). The reference's pack/pad bit identity across buckets rests on
 a property of XLA's CPU backend; the port's contract is: a bucket's output
@@ -410,16 +410,22 @@ def test_close_without_drain_fails_pending(engine_threads_clean):
 
 
 def test_unported_sources_and_load_errors(engine_threads_clean):
-    """``mlir=`` (an export artifact, A11) and ``quantize=`` (int8, A9)
-    raise naming their items; a model source needs its item shape, a
-    HybridBlock and the engine's device, and every output must lead with
-    the batch axis."""
+    """``mlir=`` (an export artifact, A11) raises naming its item, and
+    ``quantize=True`` converts a ``net=`` model to int8; a model source
+    needs its item shape, a HybridBlock and the engine's device, and every
+    output must lead with the batch axis."""
     net = _mlp()
     with _engine() as eng:
         with pytest.raises(NotImplementedError, match="A11"):
             eng.load_model("art", mlir="m.mlir", params="m.params")
-        with pytest.raises(NotImplementedError, match="A9"):
-            eng.load_model("q", net=net, item_shape=(16,), quantize=True)
+        # int8 (A9) is ported: quantize=True converts the net at load
+        qnet = _mlp(seed=1)
+        qep = eng.load_model("q", net=qnet, item_shape=(16,),
+                             quantize=True)
+        assert type(list(qnet._children.values())[0]).__name__ == \
+            "QuantizedDense"
+        eng.unload("q")
+        assert qep.buckets
         with pytest.raises(ValueError, match="net= models only"):
             eng.load_model("q", fn=lambda x: x, item_shape=(1,),
                            quantize=True)

@@ -309,16 +309,25 @@ Phases:
 24. batch serving (:func:`batch_serving_phase`): the engine above with
    its two endpoints, each bucket one CUDA graph captured at load.
 25. int8 serving and HTTP (:func:`int8_serving_phase`): the int8
-   kernels against their twins bit for bit in both epilogues at every
-   conv shape of the converted ResNet-50 at bucket 32, tails and GEMMs,
-   timed beside their bounds, the twins and ``torch._int_mm``; the int8
-   ResNet-50 and MLP served (``len(buckets)`` captures, replays equal to
-   eager, one ``qconv_s8`` a quantized conv and one ``qgemm_s8`` a
-   quantized dense a served batch, a row alone equal to its row in a full
-   bucket, the quant-smoke gates, 64 clients x 10 beside the float32
-   ResNet-50); then the HTTP front end on ``127.0.0.1:0`` over the same
-   engine (``:predict`` npy and JSON, ``/readyz``, ``/metrics``,
-   ``:reload``, a ``:generate`` stream, a 429 shed).
+   kernels as built (``quant_sass_check``: IGMMA in every Hopper-route
+   instantiation, IMMA in the first design's, no local bytes); both
+   routes (the TMA + s8 ``wgmma`` route the plan gives, the first design
+   behind ``_route="simple"``) against the twins bit for bit in every
+   epilogue, x channels-last and NCHW, at every conv shape of the
+   converted ResNet-50 at bucket 32, the tails and the GEMMs; each conv
+   shape's event and graph ms on both routes; the forward's 53 convs as
+   one call at buckets 32 and 1, and the head's GEMM at both, each route
+   in turns (device, graph, event ms, host µs) beside the bounds, the
+   twins and ``torch._int_mm`` (the GEMM, and the 1x1 stride-1 convs on
+   their channels-last codes); the int8 ResNet-50 and MLP served
+   (``len(buckets)`` captures, replays equal to eager, one ``qconv_s8`` a
+   quantized conv and one ``qgemm_s8`` a quantized dense a served batch,
+   every conv on the Hopper route but the stem (C 3), a row alone equal
+   to its row in a full bucket, the quant-smoke gates, 64 clients x 10
+   beside the float32 ResNet-50); then the HTTP front end on
+   ``127.0.0.1:0`` over the same engine (``:predict`` npy and JSON,
+   ``/readyz``, ``/metrics``, ``:reload``, a ``:generate`` stream, a 429
+   shed).
 
 After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
 caching allocator's cache and logs allocated and reserved bytes; where
@@ -334,6 +343,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import itertools
 import json
 import re
 import subprocess
@@ -6212,7 +6222,24 @@ QCONV_TAILS = (((3, 3, 31, 29), (16, 3, 3, 3), (2, 2), (1, 1), (1, 1), 1),
                ((2, 40, 23, 21), (48, 40, 3, 3), (1, 1), (2, 2), (2, 2), 1),
                ((4, 64, 14, 14), (96, 32, 3, 3), (2, 2), (1, 1), (1, 1), 2),
                ((1, 3, 224, 224), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1))
-QGEMM_TAILS = ((7, 147, 33), (1, 2048, 1000), (17, 100, 65))
+# shapes on the Hopper route off ResNet-50's path: C and O not multiples of
+# the tile, odd H and W, pad 2 with dilation 2, a stride-2 1x1 on odd H, a
+# 5x5 with no pad, tiny images; and an output 130 wide (first design)
+QCONV_TMA_TAILS = (((3, 48, 9, 11), (40, 48, 3, 3), (1, 1), (1, 1), (1, 1),
+                    1),
+                   ((2, 32, 13, 7), (24, 32, 3, 3), (1, 1), (2, 2), (2, 2),
+                    1),
+                   ((1, 160, 15, 9), (200, 160, 1, 1), (2, 2), (0, 0),
+                    (1, 1), 1),
+                   ((5, 16, 3, 3), (16, 16, 3, 3), (1, 1), (1, 1), (1, 1),
+                    1),
+                   ((2, 64, 6, 130), (64, 64, 1, 1), (1, 1), (0, 0), (1, 1),
+                    1),
+                   ((1, 256, 5, 5), (100, 256, 5, 5), (1, 1), (0, 0),
+                    (1, 1), 1))
+QGEMM_TAILS = ((7, 147, 33), (1, 2048, 1000), (17, 100, 65),
+               (200, 512, 130))
+QROUTES = {"new": None, "simple": "simple"}
 
 
 def _qconv_bytes_ops(xs, ws, ys, int8_out, bias):
@@ -6235,15 +6262,15 @@ def _bound(moved, ops):
 
 def _recorded_convs(mx, qop, net, x):
     """Every int8 product of one eager forward of ``net`` over ``x``, in
-    order, as ``ops.quantization`` hands it to the kernels: (kind,
-    operands, epilogue)."""
+    order, as ``ops.quantization`` hands it to the kernels (the conv's
+    codes and weight in the layout they come in): (kind, operands,
+    epilogue)."""
     calls = []
     conv, gemm = qop._conv, qop._gemm
 
     def rec_conv(xq, wq, stride, pad, dilate, groups, epi=None):
-        calls.append(("conv", (xq.contiguous(), wq.contiguous(),
-                               tuple(stride), tuple(pad), tuple(dilate),
-                               int(groups)), epi))
+        calls.append(("conv", (xq, wq, tuple(stride), tuple(pad),
+                               tuple(dilate), int(groups)), epi))
         return conv(xq, wq, stride, pad, dilate, groups, epi)
 
     def rec_gemm(xq, wq, epi=None):
@@ -6260,12 +6287,43 @@ def _recorded_convs(mx, qop, net, x):
     return calls
 
 
-def _qconv_seq_device_ms(seq, per_epi, calls: int = 3):
-    """Device ms of one ``seq()`` (a run of ``qconv_s8`` calls) from
-    torch.profiler: each ``qmma_kernel<gemm, epi>``'s mean duration times
-    its launches a call (``per_epi``: {epilogue: launches}), since a
-    window may keep only some records and one wrapper launches either of
-    two kernels. (None, {}) when no window delivers a device event."""
+def _qkernel_label(key):
+    """A profiler key's int8 kernel: ``qtma<BN,epi,T>``, ``qmma<gemm,epi>``,
+    "memset" (a split launch's tickets zeroed), or "other" (any copy)."""
+    m = re.search(r"qtma_kernel<(\d+), (\d), (true|false)>", key)
+    if m:
+        return f"qtma<{m.group(1)},{m.group(2)},{int(m.group(3) == 'true')}>"
+    m = re.search(r"qmma_kernel<(\d), (\d)>", key)
+    if m:
+        return f"qmma<{m.group(1)},{m.group(2)}>"
+    return "memset" if "memset" in key.lower() else "other"
+
+
+def _qexpected(qk, convs, route):
+    """{kernel label: launches} of one call of ``convs`` on ``route``
+    (None: the plan's), a split launch's ticket memset under "memset";
+    nothing under "other", which counts only what a window records."""
+    out = {}
+    for _, (x, w, st, pd, dl, gr), epi in convs:
+        plan = qk.qconv_plan(tuple(x.shape), tuple(w.shape), st, pd, dl, gr,
+                             qk.sm_count(x.device))
+        if plan.route == "tma" and route is None:
+            label = f"qtma<{plan.bn},{int(epi is not None)},0>"
+            if plan.splits > 1:
+                out["memset"] = out.get("memset", 0) + 1
+        else:
+            label = f"qmma<0,{int(epi is not None)}>"
+        out[label] = out.get(label, 0) + 1
+    return out
+
+
+def _qseq_device_ms(seq, expected, calls: int = 3):
+    """Device ms of one ``seq()`` (a run of int8 product calls) from
+    torch.profiler, counting every kernel the run launches: each kernel's
+    mean duration times its launches a call, the larger of ``expected``
+    ({label: launches a call}, :func:`_qexpected`) and what the window
+    recorded (a window may keep only some records). (None, {}) when no
+    window delivers a device event."""
     def window():
         for _ in range(calls):
             seq()
@@ -6277,11 +6335,73 @@ def _qconv_seq_device_ms(seq, per_epi, calls: int = 3):
         return None, {}
     per = {}
     for e in dev:
-        m = re.search(r"qmma_kernel<(\d), (\d)>", e.key)
-        if m:
-            per[m.group(0)] = (e.self_device_time_total / e.count
-                               * per_epi[int(m.group(2))] / 1e3)
+        label = _qkernel_label(e.key)
+        runs = max(expected.get(label, 0), e.count / calls)
+        per[label] = per.get(label, 0.0) + (
+            e.self_device_time_total / e.count * runs / 1e3)
+    missing = sorted(set(expected) - set(per))
+    if missing:
+        log(f"int8 device ms: no record of {missing} in the window")
     return sum(per.values()), per
+
+
+def _qconcurrent_replays(qk, calls, reps: int = 30):
+    """Two CUDA graphs of ``calls`` (a forward's int8 products, each graph
+    on operands of its own: the recorded ones, and the same with x's codes
+    negated), warmed and captured as serving captures a bucket
+    (``cuda_graph.first_call``: the one capture stream, a pool a graph),
+    then replayed ``reps`` times at once on two streams, as two int8
+    models, or both versions of a hot swap, replay. Every output of every
+    replay must equal its twin bit for bit (raises otherwise). Returns
+    the split-K launches a graph and the outputs compared."""
+    from incubator_mxnet_tpu_torch.cuda_graph import CapturedStep, first_call
+
+    def run(kind, args, epi, twin=False):
+        if kind == "conv":
+            f = qk.qconv_s8_reference if twin else qk.qconv_s8
+        else:
+            f = qk.qgemm_s8_reference if twin else qk.qgemm_s8
+        return f(*args, epi)
+
+    sets = [[(k, a, e) for k, a, e in calls],
+            [(k, (-a[0],) + tuple(a[1:]), e) for k, a, e in calls]]
+    wants = [[run(*c, twin=True) for c in cs] for cs in sets]
+    steps = [CapturedStep(lambda cs=cs: [run(*c) for c in cs])
+             for cs in sets]
+    for step in steps:
+        first_call(step, torch.device("cuda"), what="int8 concurrent replays")
+    streams = [torch.cuda.Stream() for _ in steps]
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    here = torch.cuda.current_stream()
+    for _ in range(reps):
+        for step, st in zip(steps, streams):
+            st.wait_stream(here)
+            with torch.cuda.stream(st):
+                step.graph.replay()
+        for st in streams:
+            here.wait_stream(st)
+        for step, want in zip(steps, wants):
+            for got, w in zip(step.out, want):
+                bad += (got != w).sum()
+    wrong = int(bad)
+    for step in steps:
+        step.graph.reset()
+    splits = 0
+    for kind, args, _ in calls:
+        if kind == "conv":
+            x, w, st, pd, dl, gr = args
+            plan = qk.qconv_plan(tuple(x.shape), tuple(w.shape), st, pd, dl,
+                                 gr, qk.sm_count(x.device))
+        else:
+            x, w = args
+            plan = qk.qgemm_plan(x.shape[0], x.shape[1], w.shape[0],
+                                 qk.sm_count(x.device))
+        splits += plan.route == "tma" and plan.splits > 1
+    if wrong:
+        raise AssertionError(f"two int8 graphs replayed at once on two "
+                             f"streams: {wrong} values off their twins")
+    return {"split_launches_a_graph": splits, "reps": reps,
+            "outputs_compared": 2 * reps * len(calls)}
 
 
 def _rand_case(g, xs, ws, o, with_bias):
@@ -6294,144 +6414,358 @@ def _rand_case(g, xs, ws, o, with_bias):
     return x, w, b
 
 
-def int8_kernel_checks(mx, qk, net, x32):
-    """Phase 25's kernel part: ``qconv_s8`` and ``qgemm_s8`` against their
-    twins bit for bit, in both epilogues, at every distinct conv shape of
-    the converted ResNet-50's forward at bucket 32 (read off the forward
-    itself), at the off-path tails (``QCONV_TAILS``), at the head's GEMM,
-    the MLP's GEMMs and ``QGEMM_TAILS``; each conv shape's event ms beside
-    its bound; then the whole forward's 53 conv launches (its own
-    operands and epilogues) as one timed call, and the head's GEMM, each
-    by ``_in_turns`` (device, graph, event ms, host µs) beside the twins'
-    ms, the bound and, for the GEMM, ``torch._int_mm``'s. Returns the two
-    kernel records and the readings."""
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED + 25)
-    from incubator_mxnet_tpu_torch.ops import quantization as qop
-    calls = _recorded_convs(mx, qop, net, x32)
-    convs = [c for c in calls if c[0] == "conv"]
-    head = [c for c in calls if c[0] == "gemm"]
-    shapes = {}
-    for _, (x, w, st, pd, dl, gr), epi in convs:
-        shapes.setdefault((tuple(x.shape), tuple(w.shape), st, pd, dl, gr),
-                          0)
-        shapes[(tuple(x.shape), tuple(w.shape), st, pd, dl, gr)] += 1
-    cases = [(k, n) for k, n in shapes.items()] + \
-        [(t, 0) for t in QCONV_TAILS]
-    worst, n_cmp, per_shape = 0, 0, []
-    for (xs, ws, st, pd, dl, gr), count in cases:
+def _qparity(qk, g, cases, gemms):
+    """Both routes against the twins bit for bit at every conv case (x
+    channels-last and NCHW) in the three epilogues and every GEMM in both;
+    raises on any difference. Returns the count of comparisons."""
+    n_cmp, cl = 0, torch.channels_last
+    for xs, ws, st, pd, dl, gr in cases:
         x, w, b = _rand_case(g, xs, ws, ws[0], True)
+        layouts = ((x.contiguous(memory_format=cl),
+                    w.contiguous(memory_format=cl)), (x, w))
         for epi in (None, qk.Requant(b, True, 3.1e-5, 141.1, False),
                     qk.Requant(None, False, 2.7e-6, 97.3, False)):
-            got = qk.qconv_s8(x, w, st, pd, dl, gr, epi)
             want = qk.qconv_s8_reference(x, w, st, pd, dl, gr, epi)
-            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
-                      .max())
-            worst, n_cmp = max(worst, err), n_cmp + 1
-            if err:
-                raise AssertionError(f"qconv_s8 {xs} x {ws} stride {st} pad "
-                                     f"{pd} dilate {dl} groups {gr} "
-                                     f"epilogue {epi is not None}: off its "
-                                     f"twin by {err}")
-        if count:
-            epi = qk.Requant(b, True, 3.1e-5, 141.1, False)
-            ms = time_ms(lambda: qk.qconv_s8(x, w, st, pd, dl, gr, epi),
-                         iters=10, warmup=2)
-            ys = qk.qconv_s8(x, w, st, pd, dl, gr, epi).shape
-            bnd, by = _bound(*_qconv_bytes_ops(xs, ws, tuple(ys), True, True))
-            per_shape.append({"x": xs, "w": ws, "stride": st, "pad": pd,
-                              "in_net": count, "event_ms": ms,
-                              "bound_ms": bnd, "bound_by": by})
-    gemms = [(tuple(h[1][0].shape), tuple(h[1][1].shape)) for h in head] + \
-        [((32, QMLP_ITEM), (QMLP_HIDDEN, QMLP_ITEM)),
-         ((32, QMLP_HIDDEN), (QMLP_CLASSES, QMLP_HIDDEN))] + \
-        [((n, k), (o, k)) for n, k, o in QGEMM_TAILS]
+            for (xl, wl), (label, route) in itertools.product(
+                    layouts, QROUTES.items()):
+                got = qk.qconv_s8(xl, wl, st, pd, dl, gr, epi, _route=route)
+                n_cmp += 1
+                if not torch.equal(got, want):
+                    err = int((got.to(torch.int64) - want.to(torch.int64))
+                              .abs().max())
+                    raise AssertionError(
+                        f"qconv_s8 ({label}) {xs} x {ws} stride {st} pad "
+                        f"{pd} dilate {dl} groups {gr} epilogue "
+                        f"{epi is not None} channels-last "
+                        f"{xl.is_contiguous(memory_format=cl)}: off its "
+                        f"twin by {err}")
     for xs, ws in gemms:
         x, w, b = _rand_case(g, xs, ws, ws[0], True)
         for epi in (None, qk.Requant(b, True, 3.1e-5, 141.1, False)):
-            got = qk.qgemm_s8(x, w, epi)
             want = qk.qgemm_s8_reference(x, w, epi)
-            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
-                      .max())
-            worst, n_cmp = max(worst, err), n_cmp + 1
-            if err:
-                raise AssertionError(f"qgemm_s8 {xs} x {ws} epilogue "
-                                     f"{epi is not None}: off by {err}")
-    log(f"int8 kernels: {n_cmp} comparisons with the twins "
-        f"({len(shapes)} distinct conv shapes of the converted ResNet-50 "
-        f"at bucket 32, {len(QCONV_TAILS)} tails, {len(gemms)} GEMMs), "
-        f"every one bit for bit; per conv shape {json.dumps(per_shape)}")
+            for label, route in QROUTES.items():
+                got = qk.qgemm_s8(x, w, epi, _route=route)
+                n_cmp += 1
+                if not torch.equal(got, want):
+                    err = int((got.to(torch.int64) - want.to(torch.int64))
+                              .abs().max())
+                    raise AssertionError(f"qgemm_s8 ({label}) {xs} x {ws} "
+                                         f"epilogue {epi is not None}: off "
+                                         f"by {err}")
+    return n_cmp
 
-    # the forward's 53 convs as one call, its own operands and epilogues
-    def seq():
-        for _, args, epi in convs:
-            qk.qconv_s8(*args, epi)
 
-    def seq_twin():
-        for _, args, epi in convs:
-            qk.qconv_s8_reference(*args, epi)
-    moved = ops = 0
+def _qseq_turns(qk, convs, rounds: int = 2):
+    """The run of ``convs`` (their own operands and epilogues) as one call
+    on each route, in turns: device ms (:func:`_qseq_device_ms`, every
+    kernel of the run), graph ms, event ms and host µs, each averaged over
+    ``rounds`` (the order reversed every other round)."""
+    def seq(route):
+        def run():
+            for _, args, epi in convs:
+                qk.qconv_s8(*args, epi, _route=route)
+        return run
+    runs = {label: seq(route) for label, route in QROUTES.items()}
+    expected = {label: _qexpected(qk, convs, route)
+                for label, route in QROUTES.items()}
+    reads = {label: {k: [] for k in ("device_ms", "graph_ms", "event_ms",
+                                     "host_us")} for label in runs}
+    split = {}
+    for i in range(rounds):
+        for label in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            dev, split[label] = _qseq_device_ms(runs[label], expected[label])
+            got = reads[label]
+            got["device_ms"].append(dev)
+            got["graph_ms"].append(graph_ms(runs[label]))
+            got["event_ms"].append(time_ms(runs[label], iters=10, warmup=2))
+            got["host_us"].append(host_us(runs[label], calls=5))
+    out = {}
+    for label, got in reads.items():
+        rec = {"kernels": split[label], "launches": expected[label]}
+        for k, vals in got.items():
+            seen = [v for v in vals if v is not None]
+            rec[k] = sum(seen) / len(seen) if seen else None
+            rec[k + "_rounds"] = vals
+        out[label] = rec
+    return out, runs
+
+
+def _int_mm_convs(convs):
+    """The 1x1 stride-1 convs among ``convs`` whose channels-last codes
+    ``torch._int_mm`` takes as they lie (rows > 16, C and O multiples of
+    8): (x as (N H W, C) rows, w as (C, O), the call)."""
+    out = []
+    for call in convs:
+        x, w, st, pd, _, gr = call[1]
+        n, c, h, wd = x.shape
+        if tuple(w.shape[2:]) == (1, 1) and st == (1, 1) and pd == (0, 0) \
+                and gr == 1 and x.is_contiguous(
+                    memory_format=torch.channels_last) \
+                and n * h * wd > 16 and c % 8 == 0 and w.shape[0] % 8 == 0:
+            out.append((x.permute(0, 2, 3, 1).reshape(-1, c),
+                        w.reshape(w.shape[0], c).t(), call))
+    return out
+
+
+def quant_sass_check(common):
+    """quantized.cu's kernels as built: the Hopper route's (every
+    instantiation of ``qtma_kernel``) each with int8 wgmma (IGMMA) and the
+    first design's with int8 mma.sync (IMMA); registers, stack and local
+    bytes of each, none with local (spill) bytes."""
+    def name_of(want):
+        def name(mangled):
+            m = re.search(r"qtma_kernelILi(\d+)ELi(\d)ELb([01])E", mangled)
+            if m and want == "qtma":
+                return f"qtma_kernel<{m.group(1)},{m.group(2)},{m.group(3)}>"
+            m = re.search(r"qmma_kernelILi(\d)ELi(\d)E", mangled)
+            if m and want == "qmma":
+                return f"qmma_kernel<{m.group(1)},{m.group(2)}>"
+            return None
+        return name
+    kernels = _sass_kernels(common, "quantized*.o", name_of("qtma"), "IGMMA")
+    if len(kernels) != 12:
+        raise AssertionError(f"want 12 qtma_kernel instantiations (tile "
+                             f"32/64/128 x 2 epilogues x swapped or not), "
+                             f"got {sorted(kernels)}")
+    kernels.update(_sass_kernels(common, "quantized*.o", name_of("qmma"),
+                                 "IMMA"))
+    return kernels
+
+
+def int8_kernel_checks(mx, qk, common, net, x32, x1):
+    """Phase 25's kernel part: ``qconv_s8`` and ``qgemm_s8`` on both
+    routes (the Hopper route the plan gives, and the first design behind
+    ``_route="simple"``) against their twins bit for bit, in every
+    epilogue, x channels-last and NCHW, at every distinct conv shape of
+    the converted ResNet-50's forward at bucket 32 (read off the forward
+    itself), at the off-path tails (``QCONV_TAILS``, ``QCONV_TMA_TAILS``),
+    at the head's GEMM, the MLP's GEMMs and ``QGEMM_TAILS``; two graphs
+    of the forward's products at buckets 1 and 32 replayed at once on two
+    streams (:func:`_qconcurrent_replays`); each conv
+    shape's event and graph ms on both routes beside its bound; then the
+    forward's 53 conv launches (its own operands and epilogues) as one
+    call at buckets 32 and 1, and the head's GEMM at both, each route in
+    turns (device, graph, event ms, host µs) beside the bound, the twins'
+    ms and ``torch._int_mm`` (the GEMM, and the run's 1x1 stride-1 convs
+    on their channels-last codes). Returns the two kernel records and the
+    readings."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 25)
+    from incubator_mxnet_tpu_torch.ops import quantization as qop
+    copies0 = qk.layout_copies()
+    calls = _recorded_convs(mx, qop, net, x32)
+    calls1 = _recorded_convs(mx, qop, net, x1)
+    copies = {k: v - copies0[k] for k, v in qk.layout_copies().items()}
+    if any(copies.values()):
+        raise AssertionError(f"the int8 forward made layout copies {copies}")
+    convs = [c for c in calls if c[0] == "conv"]
+    convs1 = [c for c in calls1 if c[0] == "conv"]
+    head = [c for c in calls if c[0] == "gemm"]
+    head1 = [c for c in calls1 if c[0] == "gemm"]
+    shapes = {}
     for _, (x, w, st, pd, dl, gr), epi in convs:
-        ys = qk.conv_out_hw(x.shape[2], x.shape[3], w.shape[2:], st, pd, dl)
-        m, o = _qconv_bytes_ops(tuple(x.shape), tuple(w.shape),
-                                (x.shape[0], w.shape[0]) + ys,
-                                epi is not None,
-                                epi is not None and epi.bias is not None)
-        moved, ops = moved + m, ops + o
-    conv_bound, conv_by = _bound(moved, ops)
-    per_epi = {0: sum(e is None for _, _, e in convs),
-               1: sum(e is not None for _, _, e in convs)}
-    dev, split = _qconv_seq_device_ms(seq, per_epi)
-    turns = {"device_ms": dev, "kernels": split, "graph_ms": graph_ms(seq),
-             "event_ms": time_ms(seq, iters=10, warmup=2),
-             "host_us": host_us(seq, calls=5)}
-    plain = time_ms(seq_twin, iters=2, warmup=1)
+        key = (tuple(x.shape), tuple(w.shape), st, pd, dl, gr)
+        shapes[key] = shapes.get(key, 0) + 1
+    cases = list(shapes) + list(QCONV_TAILS) + list(QCONV_TMA_TAILS)
+    gemms = [(tuple(h[1][0].shape), tuple(h[1][1].shape))
+             for h in head + head1] + \
+        [((32, QMLP_ITEM), (QMLP_HIDDEN, QMLP_ITEM)),
+         ((32, QMLP_HIDDEN), (QMLP_CLASSES, QMLP_HIDDEN))] + \
+        [((n, k), (o, k)) for n, k, o in QGEMM_TAILS]
+    sass = quant_sass_check(common)
+    n_cmp, worst = _qparity(qk, g, cases, gemms), 0     # or it raised
+    routes = {str(k): qk.qconv_plan(*k, qk.sm_count("cuda")).route
+              for k in cases}
+    simple_convs = []
+    for _, (x, w, st, pd, dl, gr), _ in convs:
+        plan = qk.qconv_plan(tuple(x.shape), tuple(w.shape), st, pd, dl, gr,
+                             qk.sm_count("cuda"))
+        if plan.route != "tma":
+            simple_convs.append((tuple(x.shape), tuple(w.shape), plan.why))
+    log(f"int8 kernels: {n_cmp} comparisons with the twins, both routes "
+        f"({len(shapes)} distinct conv shapes of the converted ResNet-50 "
+        f"at bucket 32, {len(QCONV_TAILS) + len(QCONV_TMA_TAILS)} tails, "
+        f"{len(gemms)} GEMMs), every one bit for bit; the plan's routes "
+        f"{json.dumps(routes)}")
+    concurrent = {b: _qconcurrent_replays(qk, cs)
+                  for b, cs in ((1, calls1), (32, calls))}
+    log(f"int8 kernels: two graphs of the forward's products replayed at "
+        f"once on two streams, every output equal to its twin bit for bit: "
+        f"{json.dumps(concurrent)}")
+
+    per_shape = []
+    for (xs, ws, st, pd, dl, gr), count in shapes.items():
+        x, w, b = _rand_case(g, xs, ws, ws[0], True)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = w.contiguous(memory_format=torch.channels_last)
+        epi = qk.Requant(b, True, 3.1e-5, 141.1, False)
+        plan = qk.qconv_plan(xs, ws, st, pd, dl, gr, qk.sm_count("cuda"))
+        ys = qk.conv_out_hw(xs[2], xs[3], ws[2:], st, pd, dl)
+        bnd, by = _bound(*_qconv_bytes_ops(xs, ws, (xs[0], ws[0]) + ys, True,
+                                           True))
+        rec = {"x": xs, "w": ws, "stride": st, "pad": pd, "in_net": count,
+               "route": plan.route, "splits": plan.splits, "bound_ms": bnd,
+               "bound_by": by}
+        for label, route in QROUTES.items():
+            def one(route=route):
+                return qk.qconv_s8(x, w, st, pd, dl, gr, epi, _route=route)
+            rec[f"{label}_event_ms"] = time_ms(one, iters=10, warmup=2)
+            rec[f"{label}_graph_ms"] = graph_ms(one)
+        per_shape.append(rec)
+    # a caller's NCHW codes: the wrapper's counted channels-last copy, timed
+    # at the largest input of the forward
+    xs, ws = (32, 256, 56, 56), (64, 256, 1, 1)
+    x, w, _ = _rand_case(g, xs, ws, ws[0], False)
+    w = w.contiguous(memory_format=torch.channels_last)
+    xcl = x.contiguous(memory_format=torch.channels_last)
+    before = qk.layout_copies()["x"]
+    nchw_copy = {"x": xs, "w": ws,
+                 "channels_last_graph_ms": graph_ms(lambda: qk.qconv_s8(
+                     xcl, w)),
+                 "nchw_graph_ms": graph_ms(lambda: qk.qconv_s8(x, w)),
+                 "copy_graph_ms": graph_ms(lambda: x.contiguous(
+                     memory_format=torch.channels_last))}
+    if qk.layout_copies()["x"] == before:
+        raise AssertionError("an NCHW x made no counted layout copy")
+    log(f"int8: qconv_s8 given NCHW codes (a counted channels-last copy) "
+        f"{json.dumps(nchw_copy)}")
+    slower = [(r["x"], r["w"], r["stride"]) for r in per_shape
+              if r["new_graph_ms"] is not None and r["simple_graph_ms"]
+              is not None and r["new_graph_ms"] > r["simple_graph_ms"]]
+    log(f"int8 conv shapes at bucket 32, each route's event and graph ms "
+        f"(requantize epilogue) {json.dumps(per_shape)}; the new route "
+        f"slower (graph) at {slower}")
+
+    seqs, bounds = {}, {}
+    for bucket, cv in ((32, convs), (1, convs1)):
+        moved = ops = 0
+        for _, (x, w, st, pd, dl, gr), epi in cv:
+            ys = qk.conv_out_hw(x.shape[2], x.shape[3], w.shape[2:], st, pd,
+                                dl)
+            m, o = _qconv_bytes_ops(tuple(x.shape), tuple(w.shape),
+                                    (x.shape[0], w.shape[0]) + ys,
+                                    epi is not None,
+                                    epi is not None and epi.bias is not None)
+            moved, ops = moved + m, ops + o
+        bounds[bucket] = (*_bound(moved, ops), ops)
+        seqs[bucket], runs = _qseq_turns(qk, cv)
+        log(f"qconv_s8, the forward's {len(cv)} convs at bucket {bucket} in "
+            f"turns: {_turns_line(seqs[bucket])}; bound "
+            f"{bounds[bucket][0]:.4f} ms ({bounds[bucket][1]}); "
+            f"{ops / 1e9:.2f} G int8 ops; kernels "
+            f"{json.dumps({k: v['kernels'] for k, v in seqs[bucket].items()})}")
+        if bucket == 32:
+            def seq_twin():
+                for _, args, epi in cv:
+                    qk.qconv_s8_reference(*args, epi)
+            plain = time_ms(seq_twin, iters=2, warmup=1)
+            pairs = _int_mm_convs(cv)
+            sub = [c for _, _, c in pairs]
+
+            def int_mm_run():
+                for a, b, _ in pairs:
+                    torch._int_mm(a, b)
+
+            def sub_run():
+                for _, args, epi in sub:
+                    qk.qconv_s8(*args, epi)
+            for a, b, (_, args, _) in pairs:
+                if not torch.equal(torch._int_mm(a, b),
+                                   qk.qconv_s8(*args).permute(0, 2, 3, 1)
+                                   .reshape(a.shape[0], -1)):
+                    raise AssertionError("torch._int_mm disagrees with "
+                                         "qconv_s8 on a 1x1 conv")
+            library = {"convs": len(pairs), "int_mm_graph_ms":
+                       graph_ms(int_mm_run), "int_mm_event_ms":
+                       time_ms(int_mm_run, iters=10, warmup=2),
+                       "new_graph_ms": graph_ms(sub_run)}
+            log(f"the {len(pairs)} 1x1 stride-1 convs at bucket 32: "
+                f"torch._int_mm (int32 out) {json.dumps(library)}; the twin "
+                f"run {plain:.4f} ms")
+    new32, new1 = seqs[32]["new"], seqs[1]["new"]
     records = {"qconv_s8": {
         "name": "qconv_s8", "route": "cuda", "source": QUANT_SOURCE,
         "replaces": QUANT_REPLACES["qconv_s8"], "launches": 0,
-        "max_abs_err": float(worst), "ms": turns["event_ms"],
-        "device_ms": turns["device_ms"], "graph_ms": turns["graph_ms"],
-        "host_us": turns["host_us"], "plain_ms": plain,
-        "bound_ms": conv_bound, "bound_by": conv_by, "library_ms": None,
+        "max_abs_err": float(worst), "ms": new32["event_ms"],
+        "device_ms": new32["device_ms"], "graph_ms": new32["graph_ms"],
+        "host_us": new32["host_us"], "plain_ms": plain,
+        "bound_ms": bounds[32][0], "bound_by": bounds[32][1],
+        "library_ms": library["int_mm_graph_ms"],
+        "library_subset_ms": library["new_graph_ms"],
+        "library_of": f"library_ms and library_subset_ms are graph ms on "
+                      f"the {library['convs']} 1x1 stride-1 convs only "
+                      f"(channels-last codes, int32 out): torch._int_mm, "
+                      f"and this route on the same convs; ms, graph_ms "
+                      f"and device_ms are of all {len(convs)} convs",
+        "simple": {k: seqs[32]["simple"][k] for k in (
+            "device_ms", "graph_ms", "event_ms", "host_us")},
+        "bucket_1": {"device_ms": new1["device_ms"],
+                     "graph_ms": new1["graph_ms"],
+                     "event_ms": new1["event_ms"],
+                     "host_us": new1["host_us"],
+                     "bound_ms": bounds[1][0], "bound_by": bounds[1][1],
+                     "simple": {k: seqs[1]["simple"][k] for k in (
+                         "device_ms", "graph_ms", "event_ms", "host_us")}},
         "shape": f"ResNet-50's {len(convs)} convs at bucket 32, one call",
-        "tera_ops_per_s": ops / turns["event_ms"] / 1e9}}
-    log(f"qconv_s8, the forward's {len(convs)} convs at bucket 32: "
-        f"device {_ms(turns['device_ms'])} graph {_ms(turns['graph_ms'])} "
-        f"event {turns['event_ms']:.4f} ms, host {turns['host_us']:.1f} us; "
-        f"twin {plain:.4f} ms; bound {conv_bound:.4f} ms ({conv_by}); "
-        f"{ops / 1e9:.1f} G int8 ops")
+        "tera_ops_per_s": bounds[32][2] / new32["event_ms"] / 1e9}}
 
-    # the head's GEMM (raw int32, the float-boundary layer)
-    (xh, wh), epi_h = head[0][1], head[0][2]
-    gemm_calls = {"qgemm_s8": lambda: qk.qgemm_s8(xh, wh, epi_h)}
-    turns = _in_turns(gemm_calls, qk.qgemm_s8, rounds=2)["qgemm_s8"]
-    plain = time_ms(lambda: qk.qgemm_s8_reference(xh, wh, epi_h), iters=10,
-                    warmup=2)
-    try:
-        wt = wh.t()
-        ref = torch._int_mm(xh, wt)
-        if not torch.equal(ref, qk.qgemm_s8(xh, wh)):
-            raise AssertionError("torch._int_mm disagrees with qgemm_s8")
-        library = time_ms(lambda: torch._int_mm(xh, wt), iters=20)
-    except RuntimeError as err:         # a shape the call refuses
-        log(f"torch._int_mm refuses {tuple(xh.shape)} x {tuple(wt.shape)}: "
-            f"{err}")
+    # the head's GEMM (raw int32, the float-boundary layer), buckets 32, 1
+    gemm_read = {}
+    for bucket, hd in ((32, head), (1, head1)):
+        (xh, wh), epi_h = hd[0][1], hd[0][2]
+        turns = _in_turns({label: (lambda r=route: qk.qgemm_s8(
+            xh, wh, epi_h, _route=r)) for label, route in QROUTES.items()},
+            qk.qgemm_s8)
         library = None
-    n, k = xh.shape
-    o = wh.shape[0]
-    bnd, by = _bound(n * k + o * k + 4 * n * o, 2 * n * k * o)
+        if bucket == 32:
+            wt = wh.t()
+            if not torch.equal(torch._int_mm(xh, wt), qk.qgemm_s8(xh, wh)):
+                raise AssertionError("torch._int_mm disagrees with qgemm_s8")
+            library = time_ms(lambda: torch._int_mm(xh, wt), iters=20)
+            plain = time_ms(lambda: qk.qgemm_s8_reference(xh, wh, epi_h),
+                            iters=10, warmup=2)
+        n, k = xh.shape
+        o = wh.shape[0]
+        bnd, by = _bound(n * k + o * k + 4 * n * o, 2 * n * k * o)
+        gemm_read[bucket] = {"turns": turns, "bound_ms": bnd,
+                             "bound_by": by, "int_mm_ms": library}
+        log(f"qgemm_s8 at the head {tuple(xh.shape)} x {tuple(wh.shape)} in "
+            f"turns: {_turns_line(turns)}; torch._int_mm {_ms(library)} ms; "
+            f"bound {bnd:.5f} ms ({by}); kernels "
+            f"{json.dumps({k: v['kernels'] for k, v in turns.items()})}")
+    t32, t1 = gemm_read[32]["turns"], gemm_read[1]["turns"]
+    xh, wh = head[0][1]
     records["qgemm_s8"] = {
         "name": "qgemm_s8", "route": "cuda", "source": QUANT_SOURCE,
         "replaces": QUANT_REPLACES["qgemm_s8"], "launches": 0,
-        "max_abs_err": float(worst), "ms": turns["event_ms"],
-        "device_ms": turns["device_ms"], "graph_ms": turns["graph_ms"],
-        "host_us": turns["host_us"], "plain_ms": plain, "bound_ms": bnd,
-        "bound_by": by, "library_ms": library,
+        "max_abs_err": float(worst), "ms": t32["new"]["event_ms"],
+        "device_ms": t32["new"]["device_ms"],
+        "graph_ms": t32["new"]["graph_ms"], "host_us": t32["new"]["host_us"],
+        "plain_ms": plain, "bound_ms": gemm_read[32]["bound_ms"],
+        "bound_by": gemm_read[32]["bound_by"],
+        "library_ms": gemm_read[32]["int_mm_ms"],
+        "simple": {k: t32["simple"][k] for k in (
+            "device_ms", "graph_ms", "event_ms", "host_us")},
+        "bucket_1": {**{k: t1["new"][k] for k in (
+            "device_ms", "graph_ms", "event_ms", "host_us")},
+            "bound_ms": gemm_read[1]["bound_ms"],
+            "simple": {k: t1["simple"][k] for k in (
+                "device_ms", "graph_ms", "event_ms", "host_us")}},
         "shape": f"{tuple(xh.shape)} x {tuple(wh.shape)}, int32 out"}
-    log(f"qgemm_s8 at the head {tuple(xh.shape)} x {tuple(wh.shape)}: "
-        f"{_turns_line({'kernel': turns})}; twin {plain:.4f} ms; "
-        f"torch._int_mm {_ms(library)} ms; bound {bnd:.5f} ms ({by})")
-    return records, {"per_shape": per_shape, "comparisons": n_cmp}
+    slow = [f"53 convs at bucket {b}" for b in (32, 1)
+            if (seqs[b]["new"]["graph_ms"] or 0) >=
+            (seqs[b]["simple"]["graph_ms"] or float("inf"))] + \
+        [f"head GEMM at bucket {b}" for b in (32, 1)
+         if (gemm_read[b]["turns"]["new"]["graph_ms"] or 0) >=
+         (gemm_read[b]["turns"]["simple"]["graph_ms"] or float("inf"))]
+    if slow:
+        log(f"int8: the new route is not faster than the first design "
+            f"(graph ms) at {slow}")
+    return records, {"per_shape": per_shape, "comparisons": n_cmp,
+                     "nchw_copy": nchw_copy,
+                     "seq": seqs, "gemm": gemm_read, "slower": slow,
+                     "routes": routes, "simple_convs": simple_convs,
+                     "concurrent": concurrent, "sass": sass}
 
 
 def _quant_counts(net):
@@ -6591,15 +6925,18 @@ def int8_serving_phase(mx, gluon, vision, common, records):
     "calib_mode": "naive", "fold_bn": True})``, item (3, 224, 224),
     buckets 1..32, beside its float32 twin; the reference's serve-bench
     MLP (24 x Dense(256)) calibrated the same way, beside its float32
-    twin. Checks (any failure raises): the kernels against their twins bit
-    for bit (:func:`int8_kernel_checks`); ``len(buckets)`` captures a
-    model at load and none from traffic; every bucket's replay equal to
-    the converted net's eager forward bit for bit, full and half full, and
-    padding rows leave real rows alone (``_bucket_checks``); one
-    ``qconv_s8`` launch a quantized conv and one ``qgemm_s8`` a quantized
-    dense in each served batch, through replays, both counts read off the
-    converted net; the MLP's row served alone equal to the same row in a
-    full bucket bit for bit (the ResNet's logged); the quant-smoke gates
+    twin. Checks (any failure raises): the kernels on both routes against
+    their twins bit for bit, the int8 forward with no layout copy, and
+    their SASS (:func:`int8_kernel_checks`, :func:`quant_sass_check`);
+    ``len(buckets)`` captures a model at load and none from traffic;
+    every bucket's replay equal to the converted net's eager forward bit
+    for bit, full and half full, and padding rows leave real rows alone
+    (``_bucket_checks``); one ``qconv_s8`` launch a quantized conv and one
+    ``qgemm_s8`` a quantized dense in each served batch, through replays,
+    both counts read off the converted net, every one on the Hopper route
+    but the convs whose shape the plan names (the stem's C 3), logged; the
+    MLP's row served alone equal to the same row in a full bucket bit for
+    bit (the ResNet's logged); the quant-smoke gates
     (MLP relative logit error <= 0.15, top-1 agreement >= 0.90; int8
     bytes <= 0.35x the float32 endpoint's for both models; the ResNet's
     error and agreement logged); 64 closed-loop clients x 10 on the int8
@@ -6663,7 +7000,9 @@ def int8_serving_phase(mx, gluon, vision, common, records):
 
         with mx.gpu(0):
             x32 = mx.nd.array(np.stack(xs[:32]))
-        k_records, k_read = int8_kernel_checks(mx, qk, net_q, x32)
+            x1 = mx.nd.array(np.stack(xs[:1]))
+        k_records, k_read = int8_kernel_checks(mx, qk, common, net_q, x32,
+                                               x1)
         records.update(k_records)
         res["kernels"] = k_read
 
@@ -6676,6 +7015,16 @@ def int8_serving_phase(mx, gluon, vision, common, records):
             raise AssertionError(f"one bucket-32 replay launched {one}, "
                                  f"want {n_conv} qconv_s8 and {n_dense} "
                                  "qgemm_s8")
+        # every conv on the Hopper route but the shapes its plan names
+        # (C / groups not a multiple of 16: the stem's C 3)
+        simple = k_read["simple_convs"]
+        on90 = {k: v for k, v in common.sm90_launch_counts().items() if v}
+        if on90 != {"qconv_s8": n_conv - len(simple), "qgemm_s8": n_dense} \
+                or any("C 3 " not in why for _, _, why in simple):
+            raise AssertionError(f"one bucket-32 replay's Hopper launches "
+                                 f"{on90}; first design {simple}")
+        log(f"int8 serving: one bucket-32 replay, {on90} on the Hopper "
+            f"route; on the first design only {simple}")
         solo = ep.predict(xs[0], timeout=60.0)
         full = _served(ep.model, xs[:32], 32)[0]
         res["resnet_solo_vs_full"] = {

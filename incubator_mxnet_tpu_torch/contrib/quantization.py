@@ -45,7 +45,8 @@ import torch
 from ..gluon.block import Block, HybridBlock
 from ..gluon import nn as _nn
 from ..gluon.nn.conv_layers import _Pooling as _PoolingBase
-from ..ndarray.ndarray import NDArray, array as _nd_array, invoke
+from ..ndarray.ndarray import (NDArray, array as _nd_array, from_torch,
+                                invoke)
 from ..ops import quantization as qop
 
 __all__ = ["quantize_net", "QuantizedDense", "QuantizedConv2D",
@@ -232,12 +233,18 @@ def _int32_bias(bias: torch.Tensor, in_th: float, w_range: float):
 
 def _register_quantized(block, source, wq):
     """``block``'s int8 ``qweight`` and float32 ``qbias`` parameters
-    (``grad_req='null'``) on the device of ``source``'s weight."""
+    (``grad_req='null'``) on the device of ``source``'s weight. A conv's
+    (O, C, kh, kw) weight is laid out channels-last, (O, kh, kw, C) in
+    memory: the K-major, tap-by-tap operand of the conv kernel's Hopper
+    route, made once here (same shape and bytes)."""
     ctx = source.weight.data().context
     with block.name_scope():
         block.qweight = block.params.get(
             "qweight", shape=wq.shape, dtype="int8", differentiable=False)
-    block.qweight._load_init(_nd_array(wq, ctx=ctx))
+    w = _nd_array(wq, ctx=ctx)
+    if wq.ndim == 4:
+        w = from_torch(w._data.contiguous(memory_format=torch.channels_last))
+    block.qweight._load_init(w)
     if getattr(source, "bias", None) is not None:
         b = source.bias.data().asnumpy()
         with block.name_scope():

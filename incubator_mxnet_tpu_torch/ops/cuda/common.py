@@ -97,6 +97,7 @@ _SIGNATURES = {
     "mxt_nms_keep_cluster": [_P, _P, _P, _L, _L, _L] + [_I] * 4
                             + [_F, _I, _P, _P, _P],
     "mxt_qmma_s8": [_I, _I] + [_P] * 4 + [_I] * 16 + [_I, _F, _F, _I, _P],
+    "mxt_qtma_s8": [_I, _I] + [_P] * 6 + [_I, _F, _F, _I, _P],
 }
 
 _lib = None

@@ -202,6 +202,9 @@ int qmma_s8_launch(int gemm, int epi, const void* x, const void* w, void* y,
                    int kh, int kw, int sh, int sw, int ph, int pw, int dh,
                    int dw, int groups, int Ho, int Wo, int relu, float step,
                    float s127, int zero, void* stream);
+int qtma_s8_launch(int swap, int epi, const void* x, const void* w, void* y,
+                   const void* bias, void* ws, const int* g, int relu,
+                   float step, float s127, int zero, void* stream);
 
 extern "C" {
 
@@ -758,10 +761,12 @@ int mxt_nms_keep_cluster(const void* boxes, const void* ids,
       static_cast<unsigned char*>(keep), stream);
 }
 
-// The int8 products (quantized.cu): gemm 0 a convolution of x (N, C, H,
-// W) by w (O, C / groups, kh, kw), gemm 1 x (N, C) times w (O, C)^T; epi 0
-// writes the int32 accumulator, epi 1 the requantized int8 codes (int32
-// bias, optional ReLU, float32 step and 127 / cal, zero for a zero range).
+// The int8 products (quantized.cu). The first design: gemm 0 a
+// convolution of channels-last x (N, C, H, W) by channels-last w (O, C /
+// groups, kh, kw) into channels-last y; gemm 1 x (N, C) times w (O, C)^T.
+// epi 0 writes the int32 accumulator, epi 1 the requantized int8 codes
+// (int32 bias, optional ReLU, float32 step and 127 / cal, zero for a zero
+// range).
 int mxt_qmma_s8(int gemm, int epi, const void* x, const void* w, void* y,
                 const void* bias, int N, int C, int H, int W, int O, int kh,
                 int kw, int sh, int sw, int ph, int pw, int dh, int dw,
@@ -770,6 +775,18 @@ int mxt_qmma_s8(int gemm, int epi, const void* x, const void* w, void* y,
   return qmma_s8_launch(gemm, epi, x, w, y, bias, N, C, H, W, O, kh, kw, sh,
                         sw, ph, pw, dh, dw, groups, Ho, Wo, relu, step, s127,
                         zero, stream);
+}
+
+// The Hopper route (TMA + s8 wgmma, split K): g holds 20 int geometry
+// values (quantized.cu: qtma_s8_launch); swap 1 is the fully connected
+// product with its operands swapped; ws the split partials followed by
+// the launch's last-split tickets (zeroed on the stream first).
+int mxt_qtma_s8(int swap, int epi, const void* x, const void* w, void* y,
+                const void* bias, void* ws, const void* g, int relu,
+                float step, float s127, int zero, void* stream) {
+  return qtma_s8_launch(swap, epi, x, w, y, bias, ws,
+                        static_cast<const int*>(g), relu, step, s127, zero,
+                        stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

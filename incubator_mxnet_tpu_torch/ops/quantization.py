@@ -18,6 +18,11 @@ PyTorch. ``quantized_conv_requantize`` and
 the reference's chain member (product, int32 bias, ReLU, requantize to a
 calibrated range): the kernels' epilogue (b).
 
+4-D codes are carried in ``torch.channels_last`` memory: ``quantize``
+makes them so, the conv kernel reads and writes them so, and every op
+after it is elementwise or pooling, which keep the layout. Shapes stay
+the reference's (N, C, H, W).
+
 Ranges are Python (or numpy) floats — calibrated thresholds — or 0-d
 tensors (``quantize_v2`` and ``requantize`` without a range compute them
 from the data). Range arithmetic is float32 throughout, as the
@@ -152,8 +157,10 @@ def quantize(data, min_range, max_range, out_type: str = "int8"):
     r = _floor(raw)
     scale = _const(INT8_RANGE, r) / r
     q = torch.clamp(torch.round(_mul(x, scale)), -INT8_RANGE, INT8_RANGE)
-    q = _where_pos(raw, q)
-    return q.to(torch.int8), _out(-r), _out(r)
+    q = _where_pos(raw, q).to(torch.int8)
+    if q.dim() == 4:         # the layout the conv kernels read and write
+        q = q.contiguous(memory_format=torch.channels_last)
+    return q, _out(-r), _out(r)
 
 
 def quantize_v2(data, min_calib_range: Optional[float] = None,
@@ -257,9 +264,11 @@ def _gemm(xq: torch.Tensor, wq: torch.Tensor, epi=None) -> torch.Tensor:
 
 
 def _conv(xq, wq, stride, pad, dilate, groups, epi=None):
+    """xq by wq as they are laid out: the kernel (which reads
+    channels-last codes on its Hopper route) or, on the CPU, its twin."""
     args = (tuple(stride), tuple(pad), tuple(dilate), int(groups), epi)
     if xq.is_cuda:
-        return _qk.qconv_s8(xq.contiguous(), wq.contiguous(), *args)
+        return _qk.qconv_s8(xq, wq, *args)
     return _qk.qconv_s8_reference(xq, wq, *args)
 
 

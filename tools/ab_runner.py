@@ -1,7 +1,8 @@
 """The checkout-in-turns runner of the A/B tools (``serve_ab.py``,
-``ln_bwd_ab.py``): one child script run from several checkouts of the
-port, each in a process of its own from that checkout's root (so it builds
-and imports that checkout's kernels and code), on one card, in one call.
+``ln_bwd_ab.py``, ``int8_ab.py``): one child script run from several
+checkouts of the port, each in a process of its own from that checkout's
+root (so it builds and imports that checkout's kernels and code), on one
+card, in one call.
 
 A child prints its result as one ``RESULT <json object>`` line.
 """

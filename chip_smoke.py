@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's nine main paths on the card and holds every CUDA kernel
+Drives the port's ten main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -44,7 +44,15 @@ of them against its plain PyTorch version:
   and the reference's serve-bench MLP served through
   ``load_model(quantize=...)`` (BN folded, naive calibration), their int8
   products on the ``qconv_s8`` / ``qgemm_s8`` kernels, beside float32
-  twins, and ``tools/serve.py``'s HTTP routes over the same engine.
+  twins, and ``tools/serve.py``'s HTTP routes over the same engine;
+* the image input path feeding the ResNet-50 step: bench.py's record file
+  (1,024 random 256 x 256 JPEGs) read by ``io.ImageRecordIter`` on the
+  native pipeline that ``_native`` builds from ``native/`` (without that
+  library, raw-pixel records through a ``gluon.data.DataLoader`` of
+  process workers), copied ahead by ``io.DevicePrefetcher``, cropped and
+  mirrored on the card by ``image.random_crop_flip``, into phase 14's
+  captured step; and the Gluon route (``ImageRecordDataset``, the vision
+  transforms, ``DataLoader`` process workers) into the same step.
 
 Phases:
 
@@ -328,6 +336,18 @@ Phases:
    ``127.0.0.1:0`` over the same engine (``:predict`` npy and JSON,
    ``/readyz``, ``/metrics``, ``:reload``, a ``:generate`` stream, a 429
    shed).
+26. the record input path (:func:`input_path_phase`): the native build
+   (or why it failed), bench.py's record file, the host batches against
+   ``image.imdecode`` bit for bit, then the lane (the host source,
+   ``DevicePrefetcher(depth=2)``, ``random_crop_flip``, the captured
+   ResNet-50 step at batch 128, bf16): 2 warm-up and 20 timed steps,
+   img/s beside phase 14's, the consumer's input wait and the card's busy
+   share, the source's img/s alone, a batch's copy ms, 29/13/23/13/3
+   fused-conv launches a step on the sm90 route; the first 8 prefetched
+   batches against a fresh host source bit for bit, a step on a
+   prefetched batch against one on the uploaded host batch bit for bit,
+   ``random_crop_flip`` captured against eager; then the Gluon route at
+   batch 32 (process workers that must report no CUDA).
 
 After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
 caching allocator's cache and logs allocated and reserved bytes; where
@@ -7150,6 +7170,511 @@ def int8_serving_phase(mx, gluon, vision, common, records):
     return res
 
 
+# ----------------------------------------------- the record input path
+INPUT_RECORDS = 1024           # bench.py's _ensure_rec_file
+INPUT_SIZE = 256
+INPUT_CROP = (224, 224)
+INPUT_WARM, INPUT_TIMED = 2, 20
+INPUT_TRUTH_BATCHES = 8
+INPUT_EPOCHS = 5               # the lane's source covers this many epochs
+INPUT_RATE_BATCHES = 16        # host batches timed for the decode alone
+GLUON_INPUT_BATCH = 32
+GLUON_INPUT_STEPS = 5
+GLUON_INPUT_WORKERS = 4
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+#: the fused-conv launches a ResNet-50 step makes (phase 14's counts)
+RESNET_CONV_PER_STEP = {"mm_fused": 29, "conv3_fused": 13,
+                        "mm_fused_bwd": 23, "conv3_fused_bwd": 13,
+                        "dgrad_epilogue": 3}
+
+
+class _RawImage:
+    """A raw-pixel record (``recordio.pack`` of an HWC uint8 image's bytes)
+    as (the image, its float32 label); picklable by its module's name, so
+    the DataLoader's process workers can take it."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def __call__(self, record):
+        from incubator_mxnet_tpu_torch import recordio
+        header, payload = recordio.unpack(record)
+        return (np.frombuffer(payload, np.uint8).reshape(self.shape),
+                np.float32(header.label))
+
+
+def _raw_transform():
+    import chip_smoke     # by its module name, which the workers import
+    return chip_smoke._RawImage((INPUT_SIZE, INPUT_SIZE, 3))
+
+
+def _write_input_records(recordio, path, raw):
+    """bench.py's record file (``_ensure_rec_file``): INPUT_RECORDS random
+    INPUT_SIZE x INPUT_SIZE RGB images and their labels from
+    ``RandomState(0)``, JPEG at quality 90 through ``recordio.pack_img``,
+    or raw pixels through ``recordio.pack``; written with an index file,
+    which ``RecordFileDataset`` and ``ImageRecordDataset`` read. Returns
+    (seconds, bytes)."""
+    import os
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(0)
+    rec = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(INPUT_RECORDS):
+        img = rs.randint(0, 255, (INPUT_SIZE, INPUT_SIZE, 3), dtype=np.uint8)
+        header = recordio.IRHeader(0, float(rs.randint(0, 1000)), i, 0)
+        rec.write_idx(i, recordio.pack(header, img.tobytes()) if raw
+                      else recordio.pack_img(header, img, quality=90))
+    rec.close()
+    return time.perf_counter() - t0, os.path.getsize(path)
+
+
+def _xy(batch):
+    """(data, label) tensors of a DataBatch or of a DataLoader's [x, y]."""
+    if hasattr(batch, "data"):
+        return batch.data[0]._data, batch.label[0]._data
+    return batch[0]._data, batch[1]._data
+
+
+def _lane_x(image, x_u8, gen):
+    """The device half of the lane: a random 224 x 224 crop and mirror of
+    the uint8 NHWC batch drawn from ``gen``, then float32 / 255 in phase
+    14's layout (NCHW, contiguous)."""
+    crop = image.random_crop_flip(x_u8, INPUT_CROP, gen)
+    return (crop.permute(0, 3, 1, 2).float() / 255.0).contiguous()
+
+
+def _input_source(mx, gluon, io, route, path, workers, seed, epochs):
+    """The lane's host source, ``epochs`` epochs of RESNET_BATCH batches:
+    ``ImageRecordIter`` on the native route over the JPEG records (shuffled
+    by ``seed``, reset after each epoch), or, without the native library,
+    a ``DataLoader`` over the raw-pixel records, its order ``epochs``
+    permutations from ``seed`` in one pass (so its ``workers`` processes
+    start once). ``workers=0`` reads in this process. Returns (an iterator
+    of batches, the object to close)."""
+    if route == "native":
+        it = io.ImageRecordIter(
+            path_imgrec=path, data_shape=(3, INPUT_SIZE, INPUT_SIZE),
+            batch_size=RESNET_BATCH, shuffle=True, dtype="uint8",
+            preprocess_threads=max(workers, 1), seed=seed)
+        if it.route != "native":
+            raise AssertionError(f"ImageRecordIter took the {it.route!r} "
+                                 "route with the native library built")
+
+        def batches():
+            for _ in range(epochs):
+                yield from it
+                it.reset()
+        return batches(), it
+    rs = np.random.RandomState(seed)
+    order = np.concatenate([rs.permutation(INPUT_RECORDS)
+                            for _ in range(epochs)]).tolist()
+    loader = gluon.data.DataLoader(
+        gluon.data.RecordFileDataset(path).transform(_raw_transform()),
+        batch_size=RESNET_BATCH, sampler=order, last_batch="discard",
+        num_workers=workers, thread_pool=False)
+    return iter(loader), None
+
+
+def _host_batches(mx, source, n):
+    """The first ``n`` (x, y) batches of a host source, as numpy."""
+    out = []
+    with mx.cpu():
+        for batch in itertools.islice(source, n):
+            x, y = _xy(batch)
+            out.append((x.numpy(), y.numpy()))
+    return out
+
+
+def _decode_rate(mx, source, skip, n):
+    """(seconds to the first batch, images a second) of a host source
+    alone (no step, no copy): the rate over ``n`` batches after the
+    first ``skip``, one a worker, whose time holds the workers'
+    start."""
+    with mx.cpu():
+        t0 = time.perf_counter()
+        next(source)
+        first = time.perf_counter() - t0
+        for _ in itertools.islice(source, skip - 1):
+            pass
+        t0 = time.perf_counter()
+        for _ in itertools.islice(source, n):
+            pass
+        return first, n * RESNET_BATCH / (time.perf_counter() - t0)
+
+
+def _h2d_ms(x_host, copies=10):
+    """Event ms of one pinned host batch's copy to the card, and GB/s."""
+    pinned = x_host.pin_memory()
+    dev = torch.empty(pinned.shape, dtype=pinned.dtype, device="cuda")
+    dev.copy_(pinned, non_blocking=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(copies):
+        dev.copy_(pinned, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / copies
+    return ms, pinned.numel() * pinned.element_size() / ms / 1e6
+
+
+def _check_conv_counts(common, label, steps):
+    got, got90 = common.launch_counts(), common.sm90_launch_counts()
+    for name, n in RESNET_CONV_PER_STEP.items():
+        if got[name] != n * steps or got90[name] != n * steps:
+            raise AssertionError(
+                f"{label}: {name} launched {got[name]} times ({got90[name]} "
+                f"on the sm90 route) in {steps} steps, not {n * steps}")
+    return {name: got[name] / steps for name in RESNET_CONV_PER_STEP}
+
+
+def _crop_capture_check(image, cuda_graph, x_u8):
+    """``random_crop_flip`` captured in a CUDA graph with its generator
+    registered: a replay equals an eager call from the same generator
+    state, bit for bit, and a second replay draws anew."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 261)
+    static = x_u8.clone()
+    cs = cuda_graph.CapturedStep(
+        lambda: image.random_crop_flip(static, INPUT_CROP, g))
+    cuda_graph.first_call(cs, static.device, (g,), "random_crop_flip")
+    state = g.get_state()
+    replay = cs().clone()
+    again = cs().clone()
+    g.set_state(state)
+    eager = image.random_crop_flip(static, INPUT_CROP, g)
+    torch.cuda.synchronize()
+    if not torch.equal(replay, eager) or torch.equal(replay, again):
+        raise AssertionError("random_crop_flip: a graph replay differs from "
+                             "the eager call, or two replays drew the same")
+    return True
+
+
+def input_path_phase(mx, gluon, vision, common, synthetic_img_s):
+    """Phase 26: the record input path feeding the captured ResNet-50 step.
+
+    a. the port's ``_native`` builds ``native/``'s sources into
+       ``build/native_torch/`` (seconds, path, or why it could not), and
+       the reference's ``native/build/libmxtpu.so`` is not mapped;
+    b. bench.py's record file in a temporary directory: 1,024 random
+       256 x 256 RGB JPEGs at quality 90 through ``recordio.pack_img``,
+       labels from ``RandomState(0)``; without the native library also the
+       same images as raw pixels through ``recordio.pack``;
+    c. host truth: the first two batches of ``ImageRecordIter(data_shape=
+       (3, 256, 256), batch_size=128, shuffle=False, dtype="uint8")`` equal
+       ``image.imdecode`` of the same records one by one, bit for bit (the
+       native route, or without it the process route, asserted);
+    d. the lane, bench.py's ``_recordio_loop`` with ``BENCH_DEVICE_AUG=1``:
+       the host source (``ImageRecordIter(shuffle=True, dtype="uint8",
+       preprocess_threads=os.cpu_count())`` on the native route; without
+       the native library a ``DataLoader`` of ``os.cpu_count()`` process
+       workers over the raw-pixel records) -> ``io.DevicePrefetcher(depth=
+       2)`` -> ``image.random_crop_flip(x, (224, 224), generator)`` ->
+       float32 / 255, NCHW -> phase 14's captured step (a fresh net, batch
+       128, bf16 on float32 masters, SGD momentum 0.9): 2 warm-up steps
+       (on the raw branch one a worker, whose first batch holds its
+       start) and 20 timed ones; img/s, the share of the wall the consumer waited for
+       input, the share the card spent in the crop and the step (CUDA
+       events), the source's img/s alone (after one batch a worker, whose
+       time holds the workers' start), a batch's pinned
+       host-to-device ms, 29/13/23/13/3 fused-conv launches a step (through
+       the replays, all on the sm90 route), finite losses, beside phase
+       14's synthetic img/s;
+    e. input truth: the first 8 batches the prefetcher handed out equal,
+       bit for bit, the host batches of a fresh source with the same seed;
+       one step from a copy of the state on a delivered batch equals one
+       step on the same host batch uploaded with ``torch.from_numpy(...)
+       .cuda()``, crop drawn from the same generator state (loss and every
+       parameter update bit for bit); ``random_crop_flip`` captured in a
+       CUDA graph equals its eager call;
+    f. the Gluon route: ``ImageRecordDataset`` over the JPEG records with
+       ``transform_first(Compose([RandomResizedCrop(224),
+       RandomFlipLeftRight(), ToTensor(), Normalize(...)]))`` ->
+       ``DataLoader(batch_size=32, shuffle=True, num_workers=4)`` on
+       process workers -> ``DevicePrefetcher`` -> the same captured step at
+       batch 32: a step a worker first (the first timed alone), then 5
+       timed steps, img/s, finite losses, and every worker's report that
+       it did not initialise CUDA."""
+    import os
+    import shutil
+    import tempfile
+    from incubator_mxnet_tpu_torch import (_native, cuda_graph, image, io,
+                                           recordio)
+    os.environ["MXTPU_FUSED_RESNET"] = "1"
+    os.environ["MXTPU_BN_IMPL"] = "plain"
+    out = {}
+    # a. the build
+    native = _native.available()
+    with open("/proc/self/maps") as f:
+        ref_mapped = "native/build/libmxtpu.so" in f.read()
+    if ref_mapped:
+        raise AssertionError("native/build/libmxtpu.so is mapped: the port "
+                             "loaded the reference's library")
+    out["native"] = {"available": native,
+                     "build_seconds": _native.build_seconds(),
+                     "library": _native.LIB_PATH,
+                     "error": _native.load_error()}
+    log(f"input path: native library {json.dumps(out['native'])}; the "
+        f"reference's native/build/libmxtpu.so mapped: {ref_mapped}")
+    route = "native" if native else "raw"
+    if not native:
+        log("input path: the native library is unavailable here (the error "
+            "above); the lane takes the raw-pixel branch: a DataLoader of "
+            "process workers over raw-pixel records, DevicePrefetcher, "
+            "random_crop_flip and the step; the JPEG records are decoded by "
+            "PIL on ImageRecordIter's process route")
+    workers = os.cpu_count() or 1
+    shm = shutil.disk_usage("/dev/shm")
+    log(f"input path: {workers} CPUs; /dev/shm {shm.total / 1e9:.2f} GB, "
+        f"{shm.free / 1e9:.2f} GB free")
+    tmp = tempfile.mkdtemp(prefix="mxtpu_input_")
+    try:
+        # b. the records
+        jpeg = os.path.join(tmp, "imagenet.rec")
+        secs, size = _write_input_records(recordio, jpeg, raw=False)
+        out["records"] = {"jpeg_seconds": secs, "jpeg_bytes": size}
+        lane_path = jpeg
+        if not native:
+            lane_path = os.path.join(tmp, "imagenet_raw.rec")
+            secs, size = _write_input_records(recordio, lane_path, raw=True)
+            out["records"].update(raw_seconds=secs, raw_bytes=size)
+        log(f"input path: records {json.dumps(out['records'])}")
+        # c. host truth
+        truth_it = io.ImageRecordIter(
+            path_imgrec=jpeg, data_shape=(3, INPUT_SIZE, INPUT_SIZE),
+            batch_size=RESNET_BATCH, shuffle=False, dtype="uint8",
+            preprocess_threads=workers,
+            preprocess_procs=0 if native else workers)
+        expect = "native" if native else "procs"
+        if truth_it.route != expect:
+            raise AssertionError(f"ImageRecordIter took {truth_it.route!r}, "
+                                 f"not {expect!r}")
+        got = _host_batches(mx, truth_it, 2)
+        truth_it.close()
+        reader = recordio.MXIndexedRecordIO(jpeg[:-4] + ".idx", jpeg, "r")
+        with mx.cpu():
+            for b, (x, y) in enumerate(got):
+                for j in range(RESNET_BATCH):
+                    header, payload = recordio.unpack(
+                        reader.read_idx(b * RESNET_BATCH + j))
+                    if not np.array_equal(
+                            x[j], image.imdecode(payload).asnumpy()) \
+                            or y[j] != np.float32(header.label):
+                        raise AssertionError(
+                            f"ImageRecordIter ({expect}) batch {b} row {j} "
+                            "differs from image.imdecode of its record")
+        reader.close()
+        out["host_truth"] = {"route": expect, "batches": 2,
+                             "bitwise": True}
+        log(f"input path: host truth {json.dumps(out['host_truth'])}")
+        # the source alone: decode img/s, and a batch's copy to the card
+        rate_epochs = -(-(workers + INPUT_RATE_BATCHES) * RESNET_BATCH
+                        // INPUT_RECORDS)
+        src, closer = _input_source(mx, gluon, io, route, lane_path, workers,
+                                    SEED, rate_epochs)
+        out["first_batch_s"], out["decode_img_s"] = _decode_rate(
+            mx, src, workers, INPUT_RATE_BATCHES)
+        if closer is not None:
+            closer.close()
+        del src
+        if not native:
+            procs_it = io.ImageRecordIter(
+                path_imgrec=jpeg, data_shape=(3, INPUT_SIZE, INPUT_SIZE),
+                batch_size=RESNET_BATCH, shuffle=True, dtype="uint8",
+                preprocess_procs=workers)
+
+            def procs_epochs():
+                while True:
+                    yield from procs_it
+                    procs_it.reset()
+            _, out["jpeg_procs_decode_img_s"] = _decode_rate(
+                mx, procs_epochs(), workers, INPUT_RATE_BATCHES)
+            procs_it.close()
+        h2d_ms, h2d_gb_s = _h2d_ms(torch.from_numpy(got[0][0]))
+        out["h2d_ms_per_batch"], out["h2d_gb_s"] = h2d_ms, h2d_gb_s
+        log(f"input path: the {route} source alone "
+            f"{out['decode_img_s']:.1f} img/s ({workers} workers; its "
+            f"first batch after {out['first_batch_s']:.2f} s)"
+            + (f", JPEG on the process route (PIL) "
+               f"{out['jpeg_procs_decode_img_s']:.1f} img/s"
+               if not native else "")
+            + f"; a batch's pinned copy to the card {h2d_ms:.3f} ms "
+            f"({h2d_gb_s:.1f} GB/s)")
+        del got
+        # d. the lane
+        gc.collect()
+        torch.cuda.empty_cache()
+        net, step, params, aux, opt, _x, _y = _resnet_setup(
+            mx, gluon, vision, SEED + 26, RESNET_BATCH, torch.bfloat16)
+        del _x, _y
+        state = (params, aux, opt)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 26)
+        src, closer = _input_source(mx, gluon, io, route, lane_path, workers,
+                                    SEED + 1, INPUT_EPOCHS)
+        pf = io.DevicePrefetcher(src, depth=2)
+        if pf.device.type != "cuda":
+            raise AssertionError(f"DevicePrefetcher on {pf.device}")
+        kept, losses, waits, marks = [], [], [0.0], []
+
+        def fetch():
+            t0 = time.perf_counter()
+            x_u8, y = _xy(next(pf))
+            waits[0] += time.perf_counter() - t0
+            if len(kept) < INPUT_TRUTH_BATCHES:
+                kept.append((x_u8.clone(), y.clone()))
+            return x_u8, y
+
+        def run(steps):
+            nonlocal state
+            for _ in range(steps):
+                x_u8, y = fetch()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()        # after the stream's wait on the copy
+                *state, loss = step(*state, _lane_x(image, x_u8, gen),
+                                    y.to(torch.int32))
+                ev[1].record()
+                marks.append(ev)
+                losses.append(loss)
+        # on the raw branch a warm-up step a worker: each worker's first
+        # batch carries its start (an import of torch and the port)
+        warm = INPUT_WARM if native else max(INPUT_WARM, workers)
+        t0 = time.perf_counter()
+        run(warm)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        common.reset_launch_counts()
+        waits[0] = 0.0
+        del marks[:]
+        t0 = time.perf_counter()
+        run(INPUT_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = sum(a.elapsed_time(b) for a, b in marks) / 1e3
+        per_step = _check_conv_counts(common, "input path lane", INPUT_TIMED)
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"input path: losses not finite {losses}")
+        lane = {"route": route, "img_s": INPUT_TIMED * RESNET_BATCH / wall,
+                "step_ms": wall / INPUT_TIMED * 1e3,
+                "input_wait_share": waits[0] / wall,
+                "device_busy_share": busy / wall,
+                "synthetic_img_s_phase14": synthetic_img_s,
+                "warmup_steps": warm, "warmup_s": warm_s,
+                "launches_per_step": per_step, "losses": losses}
+        log(f"input path lane ({route}): {warm} warm-up steps in "
+            f"{warm_s:.2f} s (the first call's capture and the source's "
+            f"start), then {INPUT_TIMED} steps in "
+            f"{wall:.3f} s, {lane['img_s']:.1f} img/s against phase 14's "
+            f"synthetic {synthetic_img_s}; the consumer waited for input "
+            f"{lane['input_wait_share']:.4f} of the wall (the host runs "
+            f"ahead of the card, so it waits there whichever side is "
+            f"slower); the crop and step busy on the card "
+            f"{lane['device_busy_share']:.4f} of it; fused-conv "
+            f"launches a step {per_step} (all on sm90); losses "
+            f"{[round(v, 4) for v in losses]}")
+        pf.close()
+        if closer is not None:
+            closer.close()
+        del src, pf
+        out["lane"] = lane
+        # e. input truth
+        src, closer = _input_source(mx, gluon, io, route, lane_path, 0,
+                                    SEED + 1, INPUT_EPOCHS)
+        host = _host_batches(mx, src, INPUT_TRUTH_BATCHES)
+        if closer is not None:
+            closer.close()
+        for i, ((xd, yd), (xh, yh)) in enumerate(zip(kept, host)):
+            if not (np.array_equal(xd.cpu().numpy(), xh)
+                    and np.array_equal(yd.cpu().numpy(), yh)):
+                raise AssertionError(f"input path: prefetched batch {i} "
+                                     "differs from the host batch")
+        del kept
+        src, closer = _input_source(mx, gluon, io, route, lane_path, workers,
+                                    SEED + 1, 1)
+        pf = io.DevicePrefetcher(src, depth=2)
+        x_dev, y_dev = _xy(next(pf))
+        snap = tuple(_clone(t) for t in state)
+        g_state = gen.get_state()
+        gen.set_state(g_state)
+        a = _one_step_from(step, snap, _lane_x(image, x_dev, gen),
+                           y_dev.to(torch.int32))
+        gen.set_state(g_state)
+        b = _one_step_from(step, snap, _lane_x(
+            image, torch.from_numpy(host[0][0]).cuda(), gen),
+            torch.from_numpy(host[0][1]).cuda().to(torch.int32))
+        agree = _agreement("input path: a step on a prefetched batch "
+                           "against one on the uploaded host batch", a, b)
+        pf.close()
+        if closer is not None:
+            closer.close()
+        del src, pf
+        if not agree["bitwise"]:
+            raise AssertionError(f"input path: steps differ {agree}")
+        captured_crop = _crop_capture_check(image, cuda_graph, x_dev)
+        out["input_truth"] = {"prefetched_batches_bitwise":
+                              INPUT_TRUTH_BATCHES,
+                              "step_on_prefetched_vs_uploaded": agree,
+                              "random_crop_flip_captured": captured_crop}
+        del x_dev, y_dev, host, snap
+        # f. the Gluon route
+        tf = gluon.data.vision.transforms
+        ds = gluon.data.vision.ImageRecordDataset(jpeg).transform_first(
+            tf.Compose([tf.RandomResizedCrop(INPUT_CROP[0]),
+                        tf.RandomFlipLeftRight(), tf.ToTensor(),
+                        tf.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+        loader = gluon.data.DataLoader(
+            ds, batch_size=GLUON_INPUT_BATCH, shuffle=True,
+            num_workers=GLUON_INPUT_WORKERS, thread_pool=False,
+            last_batch="discard")
+        pf = io.DevicePrefetcher(loader, depth=2)
+        g_losses = []
+
+        def gluon_steps(n):
+            nonlocal state
+            for _ in range(n):
+                x, y = _xy(next(pf))
+                *state, loss = step(*state, x, y.to(torch.int32))
+                g_losses.append(loss)
+        t0 = time.perf_counter()
+        gluon_steps(1)
+        torch.cuda.synchronize()
+        g_first = time.perf_counter() - t0
+        gluon_steps(GLUON_INPUT_WORKERS - 1)   # each worker's first batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gluon_steps(GLUON_INPUT_STEPS)
+        torch.cuda.synchronize()
+        g_wall = time.perf_counter() - t0
+        pf.close()
+        del pf
+        deadline = time.monotonic() + 60
+        while (len(loader.worker_reports) < GLUON_INPUT_WORKERS
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        reports = list(loader.worker_reports)
+        g_losses = [float(v) for v in g_losses]
+        if len(reports) != GLUON_INPUT_WORKERS or any(
+                r["cuda_initialized"] for r in reports):
+            raise AssertionError(f"DataLoader workers' reports: {reports}")
+        if not all(np.isfinite(g_losses)):
+            raise AssertionError(f"gluon route: losses not finite "
+                                 f"{g_losses}")
+        out["gluon"] = {"img_s": GLUON_INPUT_STEPS * GLUON_INPUT_BATCH
+                        / g_wall, "first_step_s": g_first,
+                        "losses": g_losses, "worker_reports": reports}
+        log(f"input path, the Gluon route: the first step (the workers' "
+            f"start, the capture) {g_first:.2f} s, then "
+            f"{GLUON_INPUT_WORKERS - 1} more; {GLUON_INPUT_STEPS} steps at "
+            f"batch {GLUON_INPUT_BATCH} in {g_wall:.3f} s "
+            f"({out['gluon']['img_s']:.1f} img/s), losses "
+            f"{[round(v, 4) for v in g_losses]}; workers {reports}")
+        del step, state, net, params, aux, opt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 #: reserved minus allocated after a phase that ``_memory_held`` explains
 MEMORY_SLACK_BYTES = 2e9
 
@@ -7293,6 +7818,8 @@ def main() -> int:
     phase_done("phase 24, batch serving")
     int8_serve = int8_serving_phase(mx, gluon, vision, common, records)
     phase_done("phase 25, int8 serving and HTTP")
+    input_path = input_path_phase(mx, gluon, vision, common, resnet["img_s"])
+    phase_done("phase 26, the record input path")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -7318,6 +7845,7 @@ def main() -> int:
     log(f"MNIST MLP with the rtc custom softmax {json.dumps(mlp)}")
     log(f"batch serving {json.dumps(batch_serve)}")
     log(f"int8 serving and HTTP {json.dumps(int8_serve)}")
+    log(f"the record input path {json.dumps(input_path)}")
     over = [h["phase"] for h in held
             if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
     table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),

@@ -11,7 +11,9 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: int8 inference (``contrib.quantization``,
+The port covers so far: the image input path (``io``, ``recordio``,
+``image``, ``nd.image``, ``gluon.data``; the native RecordIO pipeline of
+``native/`` built by ``_native``) (slice 25); int8 inference (``contrib.quantization``,
 ``ops.quantization``, ``nd.contrib.quantize*``, ``load_model(quantize=)``)
 on its int8 tensor-core kernels, and the HTTP front end
 ``tools.serve`` (slice 23); runtime-compiled CUDA kernels (``rtc``: NVRTC
@@ -58,6 +60,9 @@ from .operator import CustomOp, CustomOpProp, register as register_op
 from . import test_utils
 from . import registry
 from . import contrib
+from . import io
+from . import recordio
+from . import image
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
@@ -66,4 +71,4 @@ __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "initializer", "init", "name", "lr_scheduler", "metric",
            "optimizer", "gluon", "rtc", "operator", "CustomOp",
            "CustomOpProp", "register_op", "test_utils", "registry",
-           "contrib"]
+           "contrib", "io", "recordio", "image"]

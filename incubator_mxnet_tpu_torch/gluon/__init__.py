@@ -1,7 +1,7 @@
 """Gluon: the imperative/hybrid model API (ref: python/mxnet/gluon/).
 
-Counterpart of ``incubator_mxnet_tpu/gluon/``. Not ported yet: ``data``
-(ROADMAP.md A6) and ``contrib``."""
+Counterpart of ``incubator_mxnet_tpu/gluon/``. Not ported yet:
+``contrib`` (``gluon.contrib.data`` is ROADMAP.md A6)."""
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .parameter import (Parameter, Constant, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
@@ -11,3 +11,4 @@ from . import rnn  # noqa: F401
 from . import loss  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
+from . import data  # noqa: F401

@@ -55,7 +55,13 @@ def test_importing_the_port_loads_no_jax():
                  "test_utils", "registry", "ops.cuda.nvrtc", "cuda_graph",
                  "guard", "callback", "contrib", "contrib.quantization",
                  "ops.quantization", "ops.cuda.quantized", "tools",
-                 "tools.serve", "gluon.model_zoo.vision.quantized"):
+                 "tools.serve", "gluon.model_zoo.vision.quantized",
+                 "_native", "recordio", "io", "_recdecode", "image",
+                 "image.image", "image.device", "ndarray.image",
+                 "gluon.data", "gluon.data.dataset", "gluon.data.sampler",
+                 "gluon.data.dataloader", "_dataloader_worker",
+                 "gluon.data.vision", "gluon.data.vision.datasets",
+                 "gluon.data.vision.transforms"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -70,6 +76,8 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "quantized.cu" in files
     assert PKG_DIR / "contrib" / "quantization.py" in files
     assert PKG_DIR / "tools" / "serve.py" in files
+    assert PKG_DIR / "io.py" in files
+    assert PKG_DIR / "gluon" / "data" / "dataloader.py" in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's ten main paths on the card and holds every CUDA kernel
+Drives the port's eleven main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -53,6 +53,12 @@ of them against its plain PyTorch version:
   mirrored on the card by ``image.random_crop_flip``, into phase 14's
   captured step; and the Gluon route (``ImageRecordDataset``, the vision
   transforms, ``DataLoader`` process workers) into the same step.
+* the rest of vision and input: ``image.ImageDetIter`` and its
+  augmenters feeding the SSD-512 step; ``input_service.InputService``
+  (supervised workers, exactly-once replay, the quarantine file) feeding
+  the ResNet-50 step; AlexNet, DenseNet, SqueezeNet, Inception V3 and the
+  MobileNets served as bucket graphs; and the word LM fed by
+  ``WikiText2`` through ``rnn.BucketSentenceIter``, one graph a bucket.
 
 Phases:
 
@@ -348,6 +354,35 @@ Phases:
    prefetched batch against one on the uploaded host batch bit for bit,
    ``random_crop_flip`` captured against eager; then the Gluon route at
    batch 32 (process workers that must report no CUDA).
+27. the detection input path (:func:`detection_input_phase`): 512
+   VOC-like JPEG records, ``ImageDetIter`` with ``CreateDetAugmenter``
+   (random crop, pad, mirror, ImageNet mean and std),
+   ``DevicePrefetcher``, phase 21's SSD-512 step: img/s beside phase
+   21's, the iterator's img/s alone, the input-wait and busy shares, one
+   cluster-route ``multibox_match`` a step and nothing else, label boxes
+   in [0, 1] and -1 padding, the first 4 batches on the card against a
+   fresh iterator's bit for bit, one cluster-route ``nms_keep`` at the
+   eval point, the fed step's time split;
+28. the input service (:func:`input_service_phase`): ``InputService``
+   (8 workers) over phase 26's raw records into phase 14's captured step:
+   img/s beside phases 26 and 14, ``starvation_share()``, 29/13/23/13/3
+   sm90 launches a step, the first epoch's batches against the inline
+   service's (sha256), no worker initialising CUDA; a scripted
+   ``io.worker_kill``: the same stream and one restart; a corrupt record:
+   its exact uri and offset quarantined, the skip counter moved by 1; no
+   ``mxtpu*`` segment left in ``/dev/shm``;
+29. the zoo families served (:func:`zoo_serving_phase`): AlexNet,
+   DenseNet-121, SqueezeNet 1.1, Inception V3 (299), MobileNet 1.0 and
+   MobileNet v2 1.0 at full width, float32, buckets (1, 8, 32): 3
+   captures at load and none from traffic, each bucket's replay against
+   eager bit for bit, padding never reaching real rows, each bucket's
+   graph and eager ms in turns, 64 closed-loop clients for MobileNet v2
+   and Inception;
+30. the bucketed word LM (:func:`bucketed_lm_phase`): phase 18's model
+   fed by ``WikiText2``'s synthetic corpus through ``encode_sentences``
+   and ``BucketSentenceIter(buckets=[10, 20, 35])``: 3 captures, 4 T
+   tensor-core LSTM launches a step at each bucket, tok/s a bucket, and
+   a captured T 35 step against the eager one bit for bit (dropout 0).
 
 After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
 caching allocator's cache and logs allocated and reserved bytes; where
@@ -889,19 +924,35 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 _GRAPH_CALLS = ("cudaGraphLaunch",)
 
 
-def _device_events(window, tries: int = 3, calls=None):
+def _device_events(window, tries: int = 3, calls=None, widened: int = 0):
     """Run ``window()`` under torch.profiler until the tracer delivers
     device events, up to ``tries`` windows (on the card a window has come
-    back without any, and once three in a row). Returns (the window's
-    CUDA kernel events, or None if no window had any; ``window()``'s value
-    from the last window). ``calls``, a dict, receives the window's counts
-    of kernel launch calls and graph replays on the CPU side."""
-    from torch.profiler import ProfilerActivity, profile
+    back without any, and once three in a row). Each profiled window runs
+    behind warm-up windows of its own (the profiler's schedule: CUPTI's
+    tracer starts with the warm-up, whose records are dropped), one on the
+    first try and one more on each retry, so a retry widens the traced
+    span (``widened`` more warm-up windows from the start: a caller's own
+    retry); the active window ends with a synchronize, so every kernel it
+    launched has completed before the profiler stops and flushes CUPTI's
+    buffers. Returns (the active window's CUDA kernel events, or None if
+    no window had any; ``window()``'s value from the last active window).
+    ``calls``, a dict, receives the active window's counts of kernel
+    launch calls and graph replays on the CPU side."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     from torch.autograd import DeviceType
     for attempt in range(tries):
+        warm = widened + attempt + 1
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warm, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(warm):
+                window()
+                torch.cuda.synchronize()
+                prof.step()
             value = window()
+            torch.cuda.synchronize()
+            prof.step()
         events = prof.key_averages()
         dev = [e for e in events
                if e.device_type == DeviceType.CUDA
@@ -915,7 +966,7 @@ def _device_events(window, tries: int = 3, calls=None):
         if dev:
             return dev, value
         log(f"the profiler delivered no device event (window {attempt + 1}"
-            f" of {tries})")
+            f" of {tries}, behind {warm} warm-up windows)")
     return None, value
 
 
@@ -960,7 +1011,7 @@ def decode_breakdown(model, steps: int = 10):
                prof_wall_ms, "device_busy_ms": None,
                "device_idle_share": None,
                "profiled_window_idle_share": None,
-               "attention_kernel_ms": None}
+               "attention_kernel_ms": None, "top_device_ops": None}
         log(f"decode step breakdown: device time not measured "
             f"{json.dumps(out)}")
         return out
@@ -971,11 +1022,15 @@ def decode_breakdown(model, steps: int = 10):
     if busy_ms > prof_wall_ms:
         raise AssertionError(f"device busy {busy_ms} ms exceeds the "
                              f"profiled step's wall time {prof_wall_ms} ms")
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
     out = {"step_wall_ms": wall_ms, "profiled_step_wall_ms": prof_wall_ms,
            "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / wall_ms,
            "profiled_window_idle_share": 1 - busy_ms / prof_wall_ms,
-           "attention_kernel_ms": attn_ms}
+           "attention_kernel_ms": attn_ms,
+           "top_device_ops": [[e.key[:60],
+                               e.self_device_time_total / steps / 1e3]
+                              for e in top]}
     log(f"decode step breakdown: {json.dumps(out)} (device_idle_share: "
         f"busy over the unprofiled steps' wall; the profiled window, which "
         f"the profiler stretches, beside it)")
@@ -1524,6 +1579,7 @@ def _wgmma_record(name, line, turns, err, plain_ms, work):
            "earlier_host_us": old["host_us"],
            "library_device_ms": lib["device_ms"],
            "library_graph_ms": lib["graph_ms"],
+           "library_graph_ms_source": lib["graph_ms_source"],
            "library_host_us": lib["host_us"],
            "library_kernels_ms": lib["kernels"],
            "rounds": {label: {key: val for key, val in r.items()
@@ -2720,24 +2776,30 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3,
     So a window is profiled again, up to ``tries`` windows in all, when
     the tracer delivered no device event or when its sum reads under half
     of :func:`graph_ms` of the same call (taken after the first window
-    that delivered events, for a kernel wrapper's call or ``with_graph``);
-    after that the time is not measured: (None, {}). ``with_graph`` adds
+    that delivered events, for a kernel wrapper's call or ``with_graph``),
+    each retry widened (``calls`` more calls in it, one more warm-up
+    window before it); after that the time is not measured: (None, {}). ``with_graph`` adds
     the graph time to the result."""
     fn()
     torch.cuda.synchronize()
 
     name = "the library call" if wrapper is None else wrapper.__name__
 
+    span = [calls]
+
     def window():
         before = 0 if wrapper is None else wrapper.launches
-        for _ in range(calls):
+        for _ in range(span[0]):
             fn()
         torch.cuda.synchronize()
-        return 1 if wrapper is None else (wrapper.launches - before) / calls
+        return 1 if wrapper is None else (wrapper.launches - before) / span[0]
     graph, timed = None, False
     result = None, {}
     for attempt in range(tries):
-        dev, per_call = _device_events(window, 1)
+        # each retry widens the window: more warm-up windows before it,
+        # and more calls in it
+        span[0] = calls * (attempt + 1)
+        dev, per_call = _device_events(window, 1, widened=attempt)
         if dev is None:
             continue
         if per_call < 1 or per_call != int(per_call):
@@ -2746,15 +2808,15 @@ def device_ms(fn, wrapper, calls: int = 5, tries: int = 3,
         per, lost = {}, {}
         for e in dev:
             key = e.key.replace("void (anonymous namespace)::", "")[:40]
-            runs = max(per_call, e.count / calls)
+            runs = max(per_call, e.count / span[0])
             per[key] = per.get(key, 0.0) + (
                 e.self_device_time_total / e.count * runs / 1e3)
-            if e.count < runs * calls:
-                lost[key] = f"{e.count} of {round(runs * calls)}"
+            if e.count < runs * span[0]:
+                lost[key] = f"{e.count} of {round(runs * span[0])}"
         if lost:
             log(f"device_ms: the window kept {lost} records of {name}'s "
-                f"{calls} calls; each kernel's mean duration stands for its "
-                "lost ones")
+                f"{span[0]} calls; each kernel's mean duration stands for "
+                "its lost ones")
         total = sum(per.values())
         if not timed and (wrapper is not None or with_graph):
             graph, timed = graph_ms(fn), True
@@ -2836,11 +2898,14 @@ def _in_turns(calls, wrapper, rounds: int = 2):
     each ``calls[label]()``, a call of the kernel wrapper ``wrapper`` (or
     of ``wrapper[label]``, None for a library call, when it is a dict),
     taken in turns over ``rounds`` rounds (the order reversed every other
-    round) and averaged. Returns {label: {key: mean, key + "_rounds":
-    readings, "kernels": the last device split}}."""
+    round) and averaged. A call that cannot be captured into a graph
+    (:func:`graph_ms` None) has its graph cell read with CUDA events
+    instead, and ``graph_ms_source`` "event_ms" says so ("graph"
+    otherwise). Returns {label: {key: mean, key + "_rounds": readings,
+    "kernels": the last device split, "graph_ms_source": ...}}."""
     keys = ("device_ms", "graph_ms", "event_ms", "host_us")
     reads = {label: {k: [] for k in keys} for label in calls}
-    kernels = {}
+    kernels, sources = {}, {}
     labels = list(calls)
     for i in range(rounds):
         for label in (labels if i % 2 == 0 else labels[::-1]):
@@ -2850,12 +2915,19 @@ def _in_turns(calls, wrapper, rounds: int = 2):
                 with_graph=True)
             got = reads[label]
             got["device_ms"].append(dev)
+            event = time_ms(fn)
+            if graph is None:
+                # a call that cannot be captured (SDPA's backward: cuDNN)
+                # is timed with CUDA events in its graph cell, and marked
+                graph = event
+                sources[label] = "event_ms"
             got["graph_ms"].append(graph)
-            got["event_ms"].append(time_ms(fn))
+            got["event_ms"].append(event)
             got["host_us"].append(host_us(fn))
     out = {}
     for label, got in reads.items():
-        rec = {"kernels": kernels[label]}
+        rec = {"kernels": kernels[label],
+               "graph_ms_source": sources.get(label, "graph")}
         for k, vals in got.items():
             seen = [v for v in vals if v is not None]
             rec[k] = sum(seen) / len(seen) if seen else None
@@ -2867,7 +2939,8 @@ def _in_turns(calls, wrapper, rounds: int = 2):
 def _turns_line(res):
     """One log line's worth of :func:`_in_turns`' means."""
     return "; ".join(
-        f"{label} device {_ms(r['device_ms'])} graph {_ms(r['graph_ms'])} "
+        f"{label} device {_ms(r['device_ms'])} graph {_ms(r['graph_ms'])}"
+        f"{' (CUDA events)' if r.get('graph_ms_source') == 'event_ms' else ''} "
         f"event {r['event_ms']:.4f} ms host {r['host_us']:.1f} us"
         for label, r in res.items())
 
@@ -7675,6 +7748,650 @@ def input_path_phase(mx, gluon, vision, common, synthetic_img_s):
     return out
 
 
+# ----------------------------------------- the detection input path
+DET_INPUT_RECORDS = 512
+#: VOC's common image sizes, (height, width)
+DET_INPUT_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333))
+DET_INPUT_MAX_OBJS = 8
+DET_INPUT_WARM, DET_INPUT_TIMED = 3, 12
+DET_INPUT_TRUTH = 4
+
+
+def _write_det_records(recordio, path, seed):
+    """VOC-like records: DET_INPUT_RECORDS random RGB images of VOC's
+    sizes, JPEG at quality 90 through ``recordio.pack_img``, each with
+    1-8 boxes over the 20 classes, labels in the reference's ``[2, 5,
+    cls, x1, y1, x2, y2, ...]`` header form. Returns (seconds, bytes)."""
+    import os
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    rec = recordio.MXRecordIO(path, "w")
+    for i in range(DET_INPUT_RECORDS):
+        h, w = DET_INPUT_SIZES[i % len(DET_INPUT_SIZES)]
+        img = rs.randint(0, 255, (h, w, 3), dtype=np.uint8)
+        k = rs.randint(1, DET_INPUT_MAX_OBJS + 1)
+        x1, y1 = rs.uniform(0, 0.7, k), rs.uniform(0, 0.7, k)
+        boxes = np.stack([rs.randint(0, SSD_CLASSES, k), x1, y1,
+                          x1 + rs.uniform(0.1, 0.3, k),
+                          y1 + rs.uniform(0.1, 0.3, k)], 1)
+        label = np.concatenate([[2, 5], boxes.reshape(-1)]).astype(
+            np.float32)
+        rec.write(recordio.pack_img(recordio.IRHeader(0, label, i, 0), img,
+                                    quality=90))
+    rec.close()
+    return time.perf_counter() - t0, os.path.getsize(path)
+
+
+def _det_iter(image, path, seed):
+    """``ImageDetIter`` at SSD-512's lane over the records: batch 32,
+    (3, 512, 512), shuffled from ``seed``, with ``CreateDetAugmenter(
+    rand_crop=0.5, rand_pad=0.5, rand_mirror=True, mean=True, std=True)``
+    drawing from ``RandomState(seed)``."""
+    augs = image.CreateDetAugmenter(
+        data_shape=(3, SSD_SIZE, SSD_SIZE), rand_crop=0.5, rand_pad=0.5,
+        rand_mirror=True, mean=True, std=True,
+        rng=np.random.RandomState(seed))
+    return image.ImageDetIter(SSD_BATCH, (3, SSD_SIZE, SSD_SIZE),
+                              path_imgrec=path, max_objs=DET_INPUT_MAX_OBJS,
+                              shuffle=True, seed=seed, aug_list=augs)
+
+
+def _epochs(it):
+    """A ``DataIter``'s batches, epoch after epoch (reset between)."""
+    while True:
+        yield from it
+        it.reset()
+
+
+def _det_labels_ok(y):
+    """Every real label row's box inside [0, 1], every padding row -1."""
+    real = y[..., 0] >= 0
+    boxes = y[..., 1:][real]
+    return bool(real.any()) and bool(((boxes >= 0) & (boxes <= 1)).all()) \
+        and bool((y[~real] == -1).all())
+
+
+def detection_input_phase(mx, common, records, synthetic_img_s):
+    """Phase 27: the detection input path feeding phase 21's SSD-512 step
+    (``ssd_512_resnet50_v1(classes=20, layout="NCHW")``, batch 32,
+    512 x 512, bf16 on float32 masters, SGD momentum 0.9, lr 0.004).
+
+    512 VOC-like records (:func:`_write_det_records`) -> ``ImageDetIter``
+    with ``CreateDetAugmenter`` (:func:`_det_iter`: one thread builds the
+    batches with numpy and PyTorch on the host, a sample at a time) ->
+    ``io.DevicePrefetcher(depth=2)`` -> the step: 3 warm-up and 12 timed
+    steps (the prefetcher fills its two batches during the warm-up, so
+    the timed run reads them and then the iterator's own rate), img/s
+    beside phase 21's synthetic img/s, the share of the wall
+    the consumer waited for input and the share the card spent in the
+    step (CUDA events), the iterator's img/s alone; each step launches
+    one ``multibox_match``, on the cluster route, and nothing else of the
+    port; finite losses; every label box inside [0, 1] and every padding
+    row -1; the first 4 batches on the card equal a fresh iterator's host
+    batches (same seeds) bit for bit; the eval point on a fed batch's
+    heads launches one ``nms_keep``, on the cluster route; then the fed
+    step's device time split (:func:`kernel_breakdown`)."""
+    import os
+    import shutil
+    import tempfile
+    from incubator_mxnet_tpu_torch import image, io, recordio
+    from incubator_mxnet_tpu_torch.ops.detection import multibox_detection
+    from incubator_mxnet_tpu_torch.parallel.dp import _sgd_init, _sgd_update
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="mxtpu_det_input_")
+    try:
+        path = os.path.join(tmp, "voc.rec")
+        secs, size = _write_det_records(recordio, path, SEED + 27)
+        out["records"] = {"count": DET_INPUT_RECORDS, "seconds": secs,
+                          "bytes": size}
+        # host truth, and the iterator's rate alone
+        t0 = time.perf_counter()
+        truth_it = _det_iter(image, path, SEED + 27)
+        load_s = time.perf_counter() - t0
+        with mx.cpu():
+            t0 = time.perf_counter()
+            host = [truth_it.next() for _ in range(DET_INPUT_TRUTH)]
+            iter_s = time.perf_counter() - t0
+            host = [(b.data[0]._data.numpy(), b.label[0]._data.numpy())
+                    for b in host]
+        del truth_it
+        out["iterator"] = {"decode_records_s": load_s,
+                           "img_s": DET_INPUT_TRUTH * SSD_BATCH / iter_s}
+        log(f"detection input: records {json.dumps(out['records'])}; "
+            f"ImageDetIter read them in {load_s:.2f} s and builds "
+            f"{out['iterator']['img_s']:.1f} img/s alone (one thread)")
+        for i, (xh, yh) in enumerate(host):
+            if xh.shape != (SSD_BATCH, 3, SSD_SIZE, SSD_SIZE) \
+                    or yh.shape != (SSD_BATCH, DET_INPUT_MAX_OBJS, 5) \
+                    or not _det_labels_ok(yh) or not np.isfinite(xh).all():
+                raise AssertionError(f"detection input: host batch {i} "
+                                     f"{xh.shape} {yh.shape} malformed")
+        # the lane
+        gc.collect()
+        torch.cuda.empty_cache()
+        net, params, aux = _ssd_net(mx, torch.zeros(
+            (1, 3, SSD_SIZE, SSD_SIZE), device="cuda"))
+        opt = _sgd_init(params, 0.9)
+
+        def step(params, opt, x, y):
+            loss, grads, heads, _ = _ssd_loss_and_grads(
+                net, params, aux, x, y, torch.bfloat16)
+            with torch.no_grad():
+                params, opt = _sgd_update(params, grads, opt, SSD_LR, 0.0,
+                                          0.9)
+            return params, opt, loss, heads
+
+        pf = io.DevicePrefetcher(_epochs(_det_iter(image, path, SEED + 27)),
+                                 depth=2)
+        kept, losses, waits, marks = [], [], [0.0], []
+        last = {}
+
+        def run(n):
+            nonlocal params, opt
+            for _ in range(n):
+                t0 = time.perf_counter()
+                batch = next(pf)
+                waits[0] += time.perf_counter() - t0
+                x, y = batch.data[0]._data, batch.label[0]._data
+                if len(kept) < DET_INPUT_TRUTH:
+                    kept.append((x.clone(), y.clone()))
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                params, opt, loss, heads = step(params, opt, x, y)
+                ev[1].record()
+                marks.append(ev)
+                losses.append(loss)
+                last.update(x=x, y=y, heads=heads)
+        t0 = time.perf_counter()
+        run(DET_INPUT_WARM)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        common.reset_launch_counts()
+        waits[0] = 0.0
+        del marks[:]
+        t0 = time.perf_counter()
+        run(DET_INPUT_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = common.launch_counts()
+        cluster = common.sm90_launch_counts()["multibox_match"]
+        busy = sum(a.elapsed_time(b) for a, b in marks) / 1e3
+        pf.close()
+        del pf
+        losses = [float(v) for v in losses]
+        others = {k: v for k, v in launches.items()
+                  if k != "multibox_match" and v}
+        if launches["multibox_match"] != DET_INPUT_TIMED \
+                or cluster != DET_INPUT_TIMED or others:
+            raise AssertionError(f"detection input: {DET_INPUT_TIMED} fed "
+                                 f"steps launched {launches} ({cluster} "
+                                 "on the cluster route)")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"detection input: losses {losses}")
+        records["multibox_match"].setdefault("launches_by_phase", {})[
+            "27"] = launches["multibox_match"]
+        for i, ((xd, yd), (xh, yh)) in enumerate(zip(kept, host)):
+            if not (np.array_equal(xd.cpu().numpy(), xh)
+                    and np.array_equal(yd.cpu().numpy(), yh)):
+                raise AssertionError(f"detection input: batch {i} on the "
+                                     "card differs from the host batch")
+        lane = {"img_s": DET_INPUT_TIMED * SSD_BATCH / wall,
+                "step_ms": wall / DET_INPUT_TIMED * 1e3,
+                "synthetic_img_s_phase21": synthetic_img_s,
+                "input_wait_share": waits[0] / wall,
+                "device_busy_share": busy / wall,
+                "warmup_s": warm_s, "losses": losses,
+                "launches_per_step": {"multibox_match": 1},
+                "cluster_launches": cluster,
+                "batches_on_card_bitwise": len(kept)}
+        log(f"detection input lane: {DET_INPUT_TIMED} record-fed SSD-512 "
+            f"steps in {wall:.3f} s, {lane['img_s']:.1f} img/s against "
+            f"phase 21's synthetic {synthetic_img_s}; the consumer waited "
+            f"{lane['input_wait_share']:.4f} of the wall for input, the "
+            f"card was busy in the step {lane['device_busy_share']:.4f} of "
+            f"it; launches {launches} ({cluster} on the cluster route); "
+            f"losses {[round(v, 4) for v in losses]}")
+        # the eval point on a fed batch's heads
+        cls_f, box_f, anchors = last["heads"]
+        cls_prob = torch.softmax(cls_f.transpose(1, 2).contiguous(), dim=1)
+        common.reset_launch_counts()
+        det = multibox_detection(cls_prob, box_f, anchors, nms_topk=400)
+        torch.cuda.synchronize()
+        ev = {k: v for k, v in common.launch_counts().items() if v}
+        ev_cluster = common.sm90_launch_counts()["nms_keep"]
+        if ev != {"nms_keep": 1} or ev_cluster != 1 \
+                or not bool(torch.isfinite(det).all()):
+            raise AssertionError(f"detection input eval point: launches "
+                                 f"{ev}, {ev_cluster} on the cluster route")
+        records["nms_keep"].setdefault("launches_by_phase", {})["27"] = 1
+        lane["eval_launches"] = ev
+        # the fed step's device time split
+        x, y = last["x"], last["y"]
+        lane["breakdown"] = kernel_breakdown(
+            "SSD-512 record-fed", lambda: step(params, opt, x, y),
+            ("match_cluster_kernel",))
+        out["lane"] = lane
+        del net, params, aux, opt, last, kept
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------- the input service
+INPUT_SERVICE_WORKERS = 8
+INPUT_SERVICE_KILL_PROB = 0.05
+
+
+def _kill_seed(prob, workers, fire_by=1, horizon=4, incarnations=3):
+    """A chaos seed under which ``io.worker_kill`` fires at slot 0's first
+    incarnation within its first ``fire_by`` batches and at no other
+    (slot, incarnation) within ``horizon``: exactly one scripted kill
+    (chaos._Point's stream, ``Random(seed ^ crc32("io.worker_kill|" +
+    salt))``, with the salt ``io:<slot>:<respawns>`` the service gives each
+    worker incarnation)."""
+    import random
+    import zlib
+
+    def fires(seed, salt, n):
+        rng = random.Random(
+            seed ^ zlib.crc32(f"io.worker_kill|{salt}".encode()))
+        return any(rng.random() < prob for _ in range(n))
+    for seed in range(200000):
+        if fires(seed, "io:0:0", fire_by) and not any(
+                fires(seed, f"io:{s}:{inc}", horizon)
+                for s in range(workers) for inc in range(incarnations)
+                if (s, inc) != (0, 0)):
+            return seed
+    raise AssertionError("no chaos seed scripts exactly one worker kill")
+
+
+def _batch_hash(batch):
+    """sha256 of a delivered batch's data and label bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in list(batch.data) + list(batch.label or []):
+        h.update(a._data.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def input_service_phase(mx, gluon, vision, common, records, synthetic_img_s,
+                        loader_img_s):
+    """Phase 28: ``input_service.InputService`` feeding phase 14's captured
+    ResNet-50 step.
+
+    Phase 26's raw-pixel records (1,024 random 256 x 256 images,
+    ``recordio.pack``) as a ``RecordFileDataset`` with phase 26's decode
+    (``_RawImage``), ``InputService(num_workers=8, batch_size=128,
+    shuffle=True)`` -> ``io.DevicePrefetcher(depth=2)`` ->
+    ``random_crop_flip`` -> the step at batch 128, bf16: 8 warm-up steps
+    (the workers' start) and 20 timed ones; img/s beside phase 26's
+    DataLoader lane and phase 14's synthetic lane, ``starvation_share()``,
+    the consumer's input wait and the card's busy share; 29/13/23/13/3
+    fused-conv launches a step, all on sm90; the first epoch's delivered
+    batches equal (sha256) the inline service's (``num_workers=0``); every
+    worker reports it did not initialise CUDA. Then with ``io.worker_kill``
+    armed once through ``MXTPU_CHAOS`` (:func:`_kill_seed`), one epoch's
+    batches hash as the inline ones, ``stats()["restarts"]`` is 1 and
+    ``mxtpu_io_worker_restarts_total{reason="exit"}`` moves by 1. Then
+    one record's magic is flipped: an epoch completes, the quarantine file
+    holds that record's exact uri and offset, and
+    ``mxtpu_io_records_skipped_total{reason="invalid magic"}`` moves by 1.
+    After every ``close()``, no ``mxtpu*`` segment this phase made is
+    left in ``/dev/shm``."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    from incubator_mxnet_tpu_torch import image, io, recordio, telemetry
+    from incubator_mxnet_tpu_torch.input_service import (InputService,
+                                                         RecordFileDataset)
+    os.environ["MXTPU_FUSED_RESNET"] = "1"
+    os.environ["MXTPU_BN_IMPL"] = "plain"
+    out = {}
+    shm0 = set(glob.glob("/dev/shm/mxtpu*"))
+    tmp = tempfile.mkdtemp(prefix="mxtpu_input_service_")
+    try:
+        path = os.path.join(tmp, "imagenet_raw.rec")
+        secs, size = _write_input_records(recordio, path, raw=True)
+        ds = RecordFileDataset(path, transform=_raw_transform())
+
+        def service(**kw):
+            return InputService(ds, RESNET_BATCH, shuffle=True,
+                                seed=SEED + 28, **kw)
+        with mx.cpu(), service(num_workers=0) as svc:
+            truth = [_batch_hash(b) for b in svc]
+        out["records"] = {"seconds": secs, "bytes": size,
+                          "steps_an_epoch": len(truth)}
+        # the lane
+        gc.collect()
+        torch.cuda.empty_cache()
+        net, step, params, aux, opt, _x, _y = _resnet_setup(
+            mx, gluon, vision, SEED + 28, RESNET_BATCH, torch.bfloat16)
+        del _x, _y
+        state = (params, aux, opt)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 28)
+        svc = service(num_workers=INPUT_SERVICE_WORKERS)
+
+        def epochs():
+            for e in range(INPUT_EPOCHS):
+                svc.set_epoch(e)
+                svc.reset()
+                yield from svc
+        pf = io.DevicePrefetcher(epochs(), depth=2)
+        delivered, losses, waits, marks = [], [], [0.0], []
+
+        def run(n):
+            nonlocal state
+            for _ in range(n):
+                t0 = time.perf_counter()
+                batch = next(pf)
+                waits[0] += time.perf_counter() - t0
+                if len(delivered) < len(truth):
+                    delivered.append(_batch_hash(batch))
+                x_u8, y = _xy(batch)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                *state, loss = step(*state, _lane_x(image, x_u8, gen),
+                                    y.to(torch.int32))
+                ev[1].record()
+                marks.append(ev)
+                losses.append(loss)
+        t0 = time.perf_counter()
+        run(INPUT_SERVICE_WORKERS)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        common.reset_launch_counts()
+        waits[0] = 0.0
+        del marks[:]
+        t0 = time.perf_counter()
+        run(INPUT_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = sum(a.elapsed_time(b) for a, b in marks) / 1e3
+        per_step = _check_conv_counts(common, "input service lane",
+                                      INPUT_TIMED)
+        for name, n in common.sm90_launch_counts().items():
+            if name in RESNET_CONV_PER_STEP:
+                records[f"{name}/sm90"].setdefault("launches_by_phase", {})[
+                    "28"] = n
+        starvation = svc.starvation_share()
+        stats = svc.stats()
+        pf.close()
+        svc.close()
+        reports = list(svc.worker_reports)
+        del pf
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"input service: losses {losses}")
+        if delivered != truth:
+            raise AssertionError("input service: the first epoch's "
+                                 "delivered batches differ from the inline "
+                                 "service's")
+        if len(reports) != INPUT_SERVICE_WORKERS or any(
+                r["cuda_initialized"] for r in reports):
+            raise AssertionError(f"input service workers' reports {reports}")
+        lane = {"img_s": INPUT_TIMED * RESNET_BATCH / wall,
+                "step_ms": wall / INPUT_TIMED * 1e3,
+                "dataloader_img_s_phase26": loader_img_s,
+                "synthetic_img_s_phase14": synthetic_img_s,
+                "starvation_share": starvation,
+                "input_wait_share": waits[0] / wall,
+                "device_busy_share": busy / wall, "warmup_s": warm_s,
+                "launches_per_step": per_step, "stats": stats,
+                "first_epoch_bitwise": True, "losses": losses,
+                "worker_reports": reports}
+        log(f"input service lane: {INPUT_SERVICE_WORKERS} warm-up steps in "
+            f"{warm_s:.2f} s (the workers' start, the capture), then "
+            f"{INPUT_TIMED} steps in {wall:.3f} s, {lane['img_s']:.1f} img/s "
+            f"against phase 26's DataLoader lane {loader_img_s} and phase "
+            f"14's synthetic {synthetic_img_s}; starvation_share "
+            f"{starvation:.4f}, input wait {lane['input_wait_share']:.4f}, "
+            f"card busy {lane['device_busy_share']:.4f}; fused-conv "
+            f"launches a step {per_step} (all on sm90); stats {stats}")
+        del step, state, net, params, aux, opt
+        out["lane"] = lane
+        # a scripted worker kill
+        seed = _kill_seed(INPUT_SERVICE_KILL_PROB, INPUT_SERVICE_WORKERS)
+        restarts = telemetry.counter("mxtpu_io_worker_restarts_total")
+        r0 = restarts.value(reason="exit", pool="input_service")
+        os.environ["MXTPU_CHAOS"] = \
+            f"io.worker_kill:{INPUT_SERVICE_KILL_PROB}:{seed}"
+        try:
+            svc = service(num_workers=INPUT_SERVICE_WORKERS, max_restarts=4)
+            with mx.cpu():
+                killed = [_batch_hash(b) for b in svc]
+            kstats = svc.stats()
+            svc.close()
+        finally:
+            os.environ.pop("MXTPU_CHAOS", None)
+        moved = restarts.value(reason="exit", pool="input_service") - r0
+        out["worker_kill"] = {"chaos_seed": seed, "stats": kstats,
+                              "restart_counter_moved": moved,
+                              "stream_bitwise": killed == truth}
+        log(f"input service under a scripted io.worker_kill: "
+            f"{json.dumps(out['worker_kill'])}")
+        if killed != truth or kstats["restarts"] != 1 or moved != 1:
+            raise AssertionError(f"input service worker kill: "
+                                 f"{out['worker_kill']}")
+        # a corrupt record
+        uri, offset = ds.describe(5)
+        with open(path, "r+b") as f:
+            f.seek(offset)
+            f.write(b"\xde\xad\xbe\xef")
+        qfile = os.path.join(tmp, "quarantine.jsonl")
+        skipped = telemetry.counter("mxtpu_io_records_skipped_total")
+        s0 = skipped.value(reason="invalid magic")
+        with mx.cpu(), InputService(ds, RESNET_BATCH, num_workers=0,
+                                    quarantine=qfile) as svc:
+            n = sum(1 for _ in svc)
+        with open(qfile) as f:
+            lines = [json.loads(line) for line in f]
+        out["quarantine"] = {"steps": n, "entries": lines,
+                             "counter_moved": skipped.value(
+                                 reason="invalid magic") - s0}
+        log(f"input service with record 5 corrupted: "
+            f"{json.dumps(out['quarantine'])}")
+        if n != len(truth) or len(lines) != 1 or lines[0]["uri"] != uri \
+                or lines[0]["offset"] != offset \
+                or out["quarantine"]["counter_moved"] != 1:
+            raise AssertionError(f"input service quarantine "
+                                 f"{out['quarantine']} (want {uri} @ "
+                                 f"{offset})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = sorted(set(glob.glob("/dev/shm/mxtpu*")) - shm0)
+    out["shm_segments_left"] = left
+    if left:
+        raise AssertionError(f"input service left shared memory {left}")
+    return out
+
+
+# ------------------------------------------------ the zoo families served
+#: (get_model name, input side): full width, 1000 classes
+ZOO_SERVED = (("alexnet", 224), ("densenet121", 224), ("squeezenet1.1", 224),
+              ("inceptionv3", 299), ("mobilenet1.0", 224),
+              ("mobilenetv2_1.0", 224))
+ZOO_BUCKETS = (1, 8, 32)
+ZOO_LOOPED = ("mobilenetv2_1.0", "inceptionv3")
+
+
+def zoo_serving_phase(mx, vision):
+    """Phase 29: the five other ``model_zoo.vision`` families served.
+
+    Each of ``alexnet``, ``densenet121``, ``squeezenet1.1``,
+    ``inceptionv3`` (299 x 299), ``mobilenet1.0`` and ``mobilenetv2_1.0``
+    at full width (1000 classes, default init from a seed), float32,
+    through ``InferenceEngine.load_model(name, net=..., item_shape=...,
+    buckets=(1, 8, 32))``: ``mxtpu_serve_compiles_total`` moves by
+    ``len(buckets)`` at load and not under traffic; each bucket's replay
+    equals the net's eager inference forward bit for bit, full and half
+    full, and real rows are bit-stable under zero and random padding
+    (:func:`_bucket_checks`, which also times each bucket's replay and
+    eager forward in turns); 64 closed-loop clients x 10 requests
+    (img/s, p50, p99) for ``mobilenetv2_1.0`` and ``inceptionv3``, 8
+    requests for the others."""
+    from incubator_mxnet_tpu_torch import serving, telemetry
+    compiles = telemetry.counter("mxtpu_serve_compiles_total")
+    res = {}
+    eng = serving.InferenceEngine(max_batch=32,
+                                  max_wait_ms=SERVE_MAX_WAIT_MS,
+                                  device="cuda")
+    try:
+        for i, (name, side) in enumerate(ZOO_SERVED):
+            shape = (3, side, side)
+            mx.random.seed(SEED + 290 + i)
+            with mx.gpu(0):
+                net = vision.get_model(name)
+                net.initialize()
+                net(mx.nd.zeros((1,) + shape))
+            c0 = compiles.value(model=name)
+            t0 = time.perf_counter()
+            ep = eng.load_model(name, net=net, item_shape=shape,
+                                buckets=ZOO_BUCKETS, max_batch=32)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            at_load = compiles.value(model=name) - c0
+            xs = _serve_images(SEED + 291 + i, 64, shape)
+            rec = {"load_ms": load_ms, "compiles_at_load": at_load,
+                   "buckets": _bucket_checks(mx, net, ep.model, xs, name,
+                                             SEED + 292 + i)}
+            clients, per = (64, 10) if name in ZOO_LOOPED else (8, 1)
+            wall, recs = _closed_loop(ep, xs, clients, per)
+            rec["loop"] = {"clients": clients,
+                           **_loop_stats(wall, recs, f"{name} loop")}
+            rec["compiles_after_traffic"] = compiles.value(model=name) - c0
+            if at_load != len(ZOO_BUCKETS) \
+                    or rec["compiles_after_traffic"] != len(ZOO_BUCKETS):
+                raise AssertionError(f"{name}: compiles {at_load} at load, "
+                                     f"{rec['compiles_after_traffic']} after "
+                                     f"traffic, want {len(ZOO_BUCKETS)}")
+            log(f"zoo serving {name}: loaded in {load_ms:.0f} ms with "
+                f"{at_load} captures; loop {json.dumps(rec['loop'])}")
+            res[name] = rec
+            eng.unload(name)
+            del net, ep
+            gc.collect()
+    finally:
+        eng.close()
+    return res
+
+
+# --------------------------------------------- the bucketed word LM
+LM_BUCKETS = (10, 20, 35)
+LM_BUCKET_STEPS = 5
+
+
+def bucketed_lm_phase(mx, common, records):
+    """Phase 30: phase 18's word LM (``RNNModel("lstm", 33278, 650, 2
+    layers)``, dropout 0.5, bf16 on float32 masters, SGD lr 1.0) fed by
+    ``WikiText2``'s synthetic corpus (no local file) through
+    ``rnn.encode_sentences`` (its lines as sentences, the dataset's
+    vocabulary, padding 0) and ``rnn.BucketSentenceIter(buckets=[10, 20,
+    35], batch_size=128, layout="TN")`` (the (T, N) batches the word LM
+    takes), trained through ``make_train_step``, which captures one CUDA
+    graph a bucket key: one epoch; exactly 3 captures
+    (``step._cache_size()``); then a step at each bucket launches 2 T
+    ``lstm_fwd_gates`` and 2 T ``lstm_bwd`` (4 T, forward and backward
+    of 2 layers), all on the tensor-core route; finite losses; tok/s at
+    each bucket (5 replays of one batch); and with dropout 0, one
+    captured step at T 35 from a state equals the eager step
+    (``_capture=False``, phase 18's yardstick) from the same state, bit
+    for bit."""
+    import random
+    import tempfile
+    from incubator_mxnet_tpu_torch import rnn
+    from incubator_mxnet_tpu_torch.gluon.contrib.data import WikiText2
+    from incubator_mxnet_tpu_torch.gluon.contrib.data import text as wt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as root, mx.cpu():
+        vocab = WikiText2(root=root, segment="train").vocabulary
+    sentences = [line.split() for line in
+                 wt._synthetic_corpus("train").splitlines()]
+    coded, _ = rnn.encode_sentences(sentences, vocab=dict(
+        vocab.token_to_idx), invalid_label=0)
+    random.seed(SEED + 30)
+    np.random.seed(SEED + 30)
+    with mx.gpu(0):
+        it = rnn.BucketSentenceIter(coded, LM_N, buckets=list(LM_BUCKETS),
+                                    invalid_label=0, dtype="int32",
+                                    layout="TN")
+    if tuple(it.buckets) != LM_BUCKETS:
+        raise AssertionError(f"BucketSentenceIter buckets {it.buckets}")
+    net, step, params, aux, opt, _x, _y = _word_lm(mx, SEED + 30, 0.5,
+                                                   torch.bfloat16)
+    del _x, _y
+    state = (params, aux, opt)
+    losses, by_key = [], {}
+    t0 = time.perf_counter()
+    for batch in it:
+        x, y = batch.data[0]._data, batch.label[0]._data
+        *state, loss = step(*state, x, y)
+        losses.append(loss)
+        by_key.setdefault(batch.bucket_key, (x, y))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    captures = step._cache_size()
+    out["epoch"] = {"steps": len(losses), "seconds": epoch_s,
+                    "captures": captures,
+                    "batches_by_bucket": {
+                        str(b): sum(1 for i, _ in it.idx
+                                    if it.buckets[i] == b)
+                        for b in LM_BUCKETS}}
+    log(f"bucketed word LM: one epoch {json.dumps(out['epoch'])}; losses "
+        f"{[round(v, 4) for v in losses[:3]]} ... "
+        f"{[round(v, 4) for v in losses[-3:]]}")
+    if captures != len(LM_BUCKETS) or not all(np.isfinite(losses)):
+        raise AssertionError(f"bucketed word LM: {captures} captures, "
+                             f"losses finite {all(np.isfinite(losses))}")
+    out["buckets"] = {}
+    for T in LM_BUCKETS:
+        x, y = by_key[T]
+        common.reset_launch_counts()
+        *state, loss = step(*state, x, y)
+        torch.cuda.synchronize()
+        got, got90 = common.launch_counts(), common.sm90_launch_counts()
+        want = {"lstm_fwd_gates": 2 * T, "lstm_bwd": 2 * T}
+        if any(got[k] != n or got90[k] != n for k, n in want.items()) \
+                or got["lstm_fwd"]:
+            raise AssertionError(f"bucketed word LM at T {T}: launches "
+                                 f"{got}, tensor-core {got90}, want {want}")
+        for k in want:
+            records[f"{k}/sm90"].setdefault("launches_by_phase", {})[
+                f"30/T{T}"] = got90[k]
+        ms, state, more = _timed_steps(step, tuple(state), x, y,
+                                       LM_BUCKET_STEPS)
+        if not all(np.isfinite([float(v) for v in more])):
+            raise AssertionError(f"bucketed word LM at T {T}: losses")
+        out["buckets"][T] = {"step_ms": ms,
+                             "tok_s": T * LM_N * 1e3 / ms,
+                             "lstm_launches_per_step": 4 * T}
+    log(f"bucketed word LM, each bucket's step: "
+        f"{json.dumps(out['buckets'])} (4 T LSTM launches a step, all on "
+        f"the tensor-core route)")
+    if step._cache_size() != len(LM_BUCKETS):
+        raise AssertionError("bucketed word LM: traffic captured again")
+    del step, state, net, params, aux, opt
+    # dropout 0: a captured T 35 step against the eager one, same state
+    znet, zstep, zp, za, zo, _, _ = _word_lm(mx, SEED + 30, 0.0,
+                                             torch.bfloat16)
+    zeager, *_ = _lm_yardstick(mx, znet, torch.bfloat16)
+    zsnap = tuple(_clone(t) for t in (zp, za, zo))
+    x, y = by_key[35]
+    _one_step_from(zstep, zsnap, x, y)
+    out["t35_captured_vs_eager"] = _agreement(
+        "bucketed word LM dropout 0: a captured T 35 step vs the eager "
+        "step, same state", _one_step_from(zstep, zsnap, x, y),
+        _one_step_from(zeager, zsnap, x, y))
+    if not out["t35_captured_vs_eager"]["bitwise"]:
+        raise AssertionError(f"bucketed word LM: captured and eager steps "
+                             f"differ {out['t35_captured_vs_eager']}")
+    del znet, zstep, zeager, zsnap, zp, za, zo
+    return out
+
+
 #: reserved minus allocated after a phase that ``_memory_held`` explains
 MEMORY_SLACK_BYTES = 2e9
 
@@ -7820,6 +8537,16 @@ def main() -> int:
     phase_done("phase 25, int8 serving and HTTP")
     input_path = input_path_phase(mx, gluon, vision, common, resnet["img_s"])
     phase_done("phase 26, the record input path")
+    det_input = detection_input_phase(mx, common, records, ssd["img_s"])
+    phase_done("phase 27, the detection input path")
+    input_service = input_service_phase(mx, gluon, vision, common, records,
+                                        resnet["img_s"],
+                                        input_path["lane"]["img_s"])
+    phase_done("phase 28, the input service")
+    zoo_serve = zoo_serving_phase(mx, vision)
+    phase_done("phase 29, the zoo families served")
+    bucketed_lm = bucketed_lm_phase(mx, common, records)
+    phase_done("phase 30, the bucketed word LM")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -7846,6 +8573,10 @@ def main() -> int:
     log(f"batch serving {json.dumps(batch_serve)}")
     log(f"int8 serving and HTTP {json.dumps(int8_serve)}")
     log(f"the record input path {json.dumps(input_path)}")
+    log(f"the detection input path {json.dumps(det_input)}")
+    log(f"the input service {json.dumps(input_service)}")
+    log(f"the zoo families served {json.dumps(zoo_serve)}")
+    log(f"the bucketed word LM {json.dumps(bucketed_lm)}")
     over = [h["phase"] for h in held
             if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
     table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),

@@ -11,7 +11,12 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: the image input path (``io``, ``recordio``,
+The port covers so far: the rest of vision and input (``image``'s
+detection iterator and augmenters, ``input_service`` with ``elastic``'s
+``GroupView`` and ``shard_batch``, the AlexNet, DenseNet, SqueezeNet,
+Inception V3 and MobileNet zoo families, ``contrib.text``,
+``gluon.contrib.data`` and ``rnn``'s ``BucketSentenceIter``) (slice 26);
+the image input path (``io``, ``recordio``,
 ``image``, ``nd.image``, ``gluon.data``; the native RecordIO pipeline of
 ``native/`` built by ``_native``) (slice 25); int8 inference (``contrib.quantization``,
 ``ops.quantization``, ``nd.contrib.quantize*``, ``load_model(quantize=)``)
@@ -63,6 +68,9 @@ from . import contrib
 from . import io
 from . import recordio
 from . import image
+from . import rnn
+from . import elastic
+from . import input_service
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
@@ -71,4 +79,5 @@ __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "initializer", "init", "name", "lr_scheduler", "metric",
            "optimizer", "gluon", "rtc", "operator", "CustomOp",
            "CustomOpProp", "register_op", "test_utils", "registry",
-           "contrib", "io", "recordio", "image"]
+           "contrib", "io", "recordio", "image", "rnn", "elastic",
+           "input_service"]

@@ -7,9 +7,11 @@ argv[1] is the path of a pickle of (dataset, batchify_fn); stdin lines
 ``seq:idx,idx,...``; stdout lines ``seq:shm_name:json_meta``, where the
 meta describes the (nested) array structure; at stdin's end one line
 ``#exit:{"pid", "cuda_initialized", "cuda_visible_devices"}``, then the
-worker exits. The parent runs it with ``CUDA_VISIBLE_DEVICES=""``, and it
-builds every batch under ``cpu()``, so it never touches the card; its
-torch ops run on one thread, since its siblings share the cores.
+worker exits; with ``MXTPU_IO_ANNOUNCE=1`` (the input service's workers)
+it first writes ``#ready`` once it has loaded the pickle. The parent runs
+it with ``CUDA_VISIBLE_DEVICES=""``, and it builds every batch under
+``cpu()``, so it never touches the card; its torch ops run on one
+thread, since its siblings share the cores.
 Subprocesses rather than ``multiprocessing``: fork would copy the
 parent's CUDA context, and spawn re-imports the parent's ``__main__``.
 
@@ -152,6 +154,12 @@ def _serve():
     with open(sys.argv[1], "rb") as f:
         dataset, batchify_fn = pickle.load(f)
     out = sys.stdout
+    if _os.environ.get("MXTPU_IO_ANNOUNCE") == "1":
+        # the input service's heartbeat arms only after this line, so the
+        # cold start (importing torch and the package) is never taken for
+        # a decode hang
+        out.write("#ready\n")
+        out.flush()
     try:
         for line in sys.stdin:
             line = line.strip()

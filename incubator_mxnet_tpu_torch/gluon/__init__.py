@@ -1,7 +1,7 @@
 """Gluon: the imperative/hybrid model API (ref: python/mxnet/gluon/).
 
-Counterpart of ``incubator_mxnet_tpu/gluon/``. Not ported yet:
-``contrib`` (``gluon.contrib.data`` is ROADMAP.md A6)."""
+Counterpart of ``incubator_mxnet_tpu/gluon/``. Of ``contrib`` the port
+has ``contrib.data``."""
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .parameter import (Parameter, Constant, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
@@ -12,3 +12,4 @@ from . import loss  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import data  # noqa: F401
+from . import contrib  # noqa: F401

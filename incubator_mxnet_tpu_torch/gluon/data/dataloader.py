@@ -293,8 +293,8 @@ class DataLoader:
                 if meta.get("skipped"):
                     # worker-quarantined corrupt records (backfilled in
                     # the batch): count + name them centrally
-                    from ...io import _record_skips
-                    _record_skips(meta["skipped"], pool="dataloader")
+                    from ...input_service import record_skips
+                    record_skips(meta["skipped"], pool="dataloader")
                 yield _from_shm(name, meta)
                 next_yield += 1
         finally:

@@ -45,22 +45,6 @@ _LOG = logging.getLogger(__name__)
 
 STALL_COUNTER = "mxtpu_pipeline_stall_ms"
 DEPTH_GAUGE = "mxtpu_pipeline_depth"
-SKIPPED_COUNTER = "mxtpu_io_records_skipped_total"
-
-
-def _record_skips(skipped, pool: str) -> int:
-    """Count a batch's quarantined records in
-    ``mxtpu_io_records_skipped_total{reason}``. (The reference's
-    ``input_service.record_skips`` also appends them to a quarantine
-    file; the input service is not ported yet, ROADMAP.md A6.)"""
-    from . import telemetry as _telemetry
-    c = _telemetry.counter(
-        SKIPPED_COUNTER,
-        "Corrupt/undecodable records quarantined (skipped) by reason.")
-    for _uri, _offset, why in skipped:
-        c.inc(1, reason=str(why).split(":", 1)[0].strip()[:40] or "unknown",
-              pool=pool)
-    return len(skipped)
 
 
 def _join_prefetch_threads(threads, wake, deadline: float = 5.0) -> None:
@@ -674,6 +658,16 @@ class DevicePrefetcher(DataIter):
             raise RuntimeError("DevicePrefetcher is closed")
         self._retire()
 
+    def elastic_rebuild(self, view):
+        """Adopt a new ``elastic.GroupView``: quiesce, then hand the view
+        to the source's own ``elastic_rebuild`` (``InputService``
+        re-points its per-rank slicing); the next ``next()`` restarts the
+        producer."""
+        self.quiesce()
+        rb = getattr(self._source, "elastic_rebuild", None)
+        if rb is not None:
+            rb(view)
+
     def set_epoch(self, epoch: int):
         """Forward an epoch to a source that orders by it."""
         se = getattr(self._source, "set_epoch", None)
@@ -1080,9 +1074,10 @@ class ImageRecordIter(DataIter):
                 fields = line.split(":")
                 nskip = int(fields[2]) if len(fields) > 2 else 0
                 if nskip:
-                    _record_skips([[self._rec_path, -1,
-                                    "decode: worker-quarantined record"]]
-                                  * nskip, pool="imgrec")
+                    from .input_service import record_skips
+                    record_skips([[self._rec_path, -1,
+                                   "decode: worker-quarantined record"]]
+                                 * nskip, pool="imgrec")
                 self._result_q.put((int(fields[0]), int(fields[1])))
         self._result_q.put(("__worker_dead__", pr.pid))
 

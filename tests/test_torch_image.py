@@ -284,8 +284,12 @@ def test_random_crop_flip_takes_the_crops_it_draws():
 
 
 def test_detection_input_names_its_roadmap_item():
-    for name in ("ImageDetIter", "CreateDetAugmenter", "detection"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            getattr(timg, name)
+    """The detection input (ROADMAP.md A6) is ported: its names resolve
+    to ``image.detection``'s, as in the reference."""
+    from incubator_mxnet_tpu_torch.image import detection as tdet
+    for name in ("ImageDetIter", "CreateDetAugmenter"):
+        assert getattr(timg, name) is getattr(tdet, name)
+        assert hasattr(jimg, name)
+    assert timg.detection is tdet
     with pytest.raises(AttributeError):
         timg.no_such_thing

@@ -61,7 +61,16 @@ def test_importing_the_port_loads_no_jax():
                  "gluon.data", "gluon.data.dataset", "gluon.data.sampler",
                  "gluon.data.dataloader", "_dataloader_worker",
                  "gluon.data.vision", "gluon.data.vision.datasets",
-                 "gluon.data.vision.transforms"):
+                 "gluon.data.vision.transforms", "image.detection",
+                 "elastic", "input_service",
+                 "gluon.model_zoo.vision.alexnet",
+                 "gluon.model_zoo.vision.densenet",
+                 "gluon.model_zoo.vision.squeezenet",
+                 "gluon.model_zoo.vision.inception",
+                 "gluon.model_zoo.vision.mobilenet", "contrib.text",
+                 "gluon.contrib", "gluon.contrib.data",
+                 "gluon.contrib.data.sampler", "gluon.contrib.data.text",
+                 "rnn", "rnn.io"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -78,6 +87,11 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert PKG_DIR / "tools" / "serve.py" in files
     assert PKG_DIR / "io.py" in files
     assert PKG_DIR / "gluon" / "data" / "dataloader.py" in files
+    for rel in (("image", "detection.py"), ("input_service.py",),
+                ("elastic.py",), ("contrib", "text.py"),
+                ("gluon", "contrib", "data", "text.py"), ("rnn", "io.py"),
+                ("gluon", "model_zoo", "vision", "inception.py")):
+        assert PKG_DIR.joinpath(*rel) in files, rel
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

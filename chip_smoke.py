@@ -396,6 +396,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
@@ -5099,7 +5100,9 @@ def ssd_gluon_step(mx, common, batch=4):
     value = float(loss.asscalar())
     log(f"SSD-512 Trainer + record() step at batch {batch}: loss "
         f"{value:.6f}; launches {rec}, {cluster} on the cluster route")
-    if rec["multibox_match"] != 1 or cluster != 1 or sum(rec.values()) != 1 \
+    # the Trainer's step is the fused one: one multi_tensor_update
+    if rec["multibox_match"] != 1 or cluster != 1 \
+            or rec["multi_tensor_update"] != 1 or sum(rec.values()) != 2 \
             or not np.isfinite(value):
         raise AssertionError(f"SSD record() step: launches {rec}, loss "
                              f"{value}")
@@ -5670,13 +5673,17 @@ def mlp_phase(mx, common, records):
         f"{MLP_STEPS - 1} steps; launches {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"MLP loss not finite and falling: {losses}")
-    others = {k: v for k, v in launches.items() if k != "rtc_launch"}
+    # the Trainer's step is the fused one: one multi_tensor_update a step
+    others = {k: v for k, v in launches.items()
+              if k not in ("rtc_launch", "multi_tensor_update")}
     if any(c != (1, 1) for c in per_step) or len(per_step) != MLP_STEPS \
-            or launches["rtc_launch"] != 2 * MLP_STEPS or any(
-                others.values()):
+            or launches["rtc_launch"] != 2 * MLP_STEPS \
+            or launches["multi_tensor_update"] != MLP_STEPS \
+            or any(others.values()):
         raise AssertionError(f"MLP launches per step {per_step}, counts "
                              f"{launches}: want one forward and one backward "
-                             "rtc launch a step and nothing else")
+                             "rtc launch and one multi_tensor_update a step "
+                             "and nothing else")
     for name in RTC_KERNELS:
         records[name]["launches"] = MLP_STEPS
     t_losses, t_grads = mlp_train(mx, twin, "twin_softmax", batches, ctx)
@@ -5725,7 +5732,8 @@ def mlp_phase(mx, common, records):
     return {"step_ms": step_ms, "first_step_ms": first_ms,
             "loss_first": losses[0],
             "loss_last": losses[-1], "launches_per_step": {
-                "rtc_softmax_fwd": 1, "rtc_softmax_bwd": 1},
+                "rtc_softmax_fwd": 1, "rtc_softmax_bwd": 1,
+                "multi_tensor_update": 1},
             "first_loss_rel_err": loss_err, "first_grad_rel_err": grad_err,
             "weights_rel_err": w_err, "consistency_max_abs": cons,
             **breakdown}
@@ -8396,6 +8404,728 @@ def bucketed_lm_phase(mx, common, records):
 MEMORY_SLACK_BYTES = 2e9
 
 
+# ------------------------------------------------ the fused trainer step
+MT_KERNELS = ("multi_tensor_update", "multi_tensor_all_finite",
+              "row_sparse_update")
+MT_SOURCE = "incubator_mxnet_tpu_torch/ops/cuda/csrc/multi_tensor.cu"
+_FUSED_PY = "incubator_mxnet_tpu/optimizer/fused.py"
+# no Pallas kernel stands behind them: the reference's fused step is one
+# XLA program (_tree_step, _census, row_slice_step)
+MT_REPLACES = {"multi_tensor_update": f"{_FUSED_PY}:149",
+               "multi_tensor_all_finite": f"{_FUSED_PY}:184",
+               "row_sparse_update": f"{_FUSED_PY}:54"}
+# bench.py's bench_trainer_step lane: three optimizer settings over
+# ResNet-50's parameter shapes, each with the bytes a parameter the
+# update must move (inputs read once, outputs written once): SGD with
+# momentum reads w, g, mom and writes w, mom; Adam reads w, g, m, v and
+# writes w, m, v; float16 weights with float32 masters read the master,
+# the float16 g and mom and write the master, mom and the float16 weight
+MT_LANE = {"sgd_mom f32": ("sgd", {"learning_rate": 1e-4, "momentum": 0.9},
+                           torch.float32, 20),
+           "adam f32": ("adam", {"learning_rate": 1e-3}, torch.float32, 28),
+           "sgd_mom f16 master": ("sgd", {"learning_rate": 1e-4,
+                                          "momentum": 0.9,
+                                          "multi_precision": True},
+                                  torch.float16, 20)}
+MT_STEPS, MT_EQ_STEPS, MT_BULK = 30, 10, 40
+EMB_ROWS, EMB_DIM, EMB_BATCH = 33278, 650, (35, 128)   # phase 18's
+
+
+def resnet50_param_shapes():
+    """bench.py's ``_resnet50_param_shapes``: ResNet-50's parameter tree
+    (161 tensors, 25,557,032 values): the stem conv and BN, 16 bottleneck
+    blocks (3 convs and 3 BN pairs, a projection on each stage's first
+    block) and the fc head."""
+    shapes = [(7, 7, 3, 64), (64,), (64,)]
+    for cin, mid, cout, blocks in ((64, 64, 256, 3), (256, 128, 512, 4),
+                                   (512, 256, 1024, 6), (1024, 512, 2048, 3)):
+        for b in range(blocks):
+            icin = cin if b == 0 else cout
+            shapes += [(1, 1, icin, mid), (mid,), (mid,),
+                       (3, 3, mid, mid), (mid,), (mid,),
+                       (1, 1, mid, cout), (cout,), (cout,)]
+            if b == 0:
+                shapes += [(1, 1, icin, cout), (cout,), (cout,)]
+    return shapes + [(2048, 1000), (1000,)]
+
+
+def _bits(t):
+    """A tensor's bits, for equality to the last bit (NaN included)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _same_bits(a, b):
+    return len(a) == len(b) and all(
+        torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def _max_abs_err(a, b):
+    """The largest |x - y| over two lists of tensors (float32)."""
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               if x.numel() else 0.0 for x, y in zip(a, b))
+
+
+def _updater_tensors(upd, ws):
+    """Every weight and optimizer-state tensor an Updater holds."""
+    from incubator_mxnet_tpu_torch.optimizer.optimizer import _state_tensors
+    from incubator_mxnet_tpu_torch.ops.cuda.multi_tensor import _leaves
+    out = [w._data for w in ws]
+    for i in sorted(upd.states):
+        out += [t for t in _leaves(_state_tensors(upd.states[i]))
+                if t is not None]
+    return out
+
+
+def _kernel_ms(fn, substr, calls: int = 5):
+    """From torch.profiler over ``calls`` calls of ``fn`` (no CUDA graph:
+    the fused step copies its table from pinned host memory at every
+    call): the mean device ms of one launch of the kernels whose names
+    hold ``substr`` (launched once a call; a window can lose records, so
+    the mean over the records kept), and the device ms of every kernel of
+    a call (their sum over the window by ``calls``). (None, None) when the
+    tracer delivers nothing."""
+    def window():
+        for _ in range(calls):
+            fn()
+    dev, _ = _device_events(window)
+    if dev is None:
+        return None, None
+    mine = [e for e in dev if substr in e.key]
+    kept = sum(e.count for e in mine)
+    if kept < calls:
+        log(f"_kernel_ms: the window kept {kept} records of {calls} "
+            f"launches of {substr!r}")
+    mean = (sum(e.self_device_time_total for e in mine) / kept / 1e3
+            if kept else None)
+    total = sum(e.self_device_time_total for e in dev)
+    return mean, total / calls / 1e3
+
+
+def _mt_kernel_name(mangled):
+    m = re.search(r"(multi_tensor_update_kernel|multi_tensor_all_finite_"
+                  r"kernel|row_sparse_update_kernel)(?:ILi(\d)E(\w*?)EEv)?",
+                  mangled)
+    if not m:
+        return mangled[:40]
+    kind = f"<{m.group(2)}{', ' + m.group(3) if m.group(3) else ''}>" \
+        if m.group(2) else ""
+    return m.group(1) + kind
+
+
+def mt_sass_check(common):
+    """The fused step's kernels as built (15: 5 update rules, the census,
+    3 row rules x 3 types): registers, no local (spill) bytes and no stack
+    (``_sass_kernels``, every kernel loading with LDG), and no FFMA in the
+    SGD and NAG kernels: the update keeps PyTorch's separate multiply and
+    add, so the compiler must not contract them."""
+    kernels = _sass_kernels(common, "multi_tensor*.o", _mt_kernel_name,
+                            "LDG", no_stack=True)
+    from torch.utils.cpp_extension import CUDA_HOME
+    obj = sorted(common.BUILD_DIR.glob("multi_tensor*.o"))[0]
+    sass = subprocess.run([f"{CUDA_HOME or '/usr/local/cuda'}/bin/cuobjdump",
+                           "-sass", str(obj)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    ffma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _mt_kernel_name(m.group(1))
+            ffma[name] = 0
+        elif name and re.search(r"\bFFMA\b", line):
+            ffma[name] += 1
+    # the correctly rounded division and square root (Adam, AdamW) are
+    # FFMA sequences of their own; the SGD and NAG rules have neither,
+    # so an FFMA there would be a contracted multiply and add
+    contracted = {k: v for k, v in ffma.items()
+                  if re.search(r"<[012]", k) and v}
+    if len(kernels) != 15 or contracted:
+        raise AssertionError(f"multi_tensor kernels {sorted(kernels)} (15 "
+                             f"wanted), FFMA in the SGD/NAG kernels "
+                             f"{contracted} (none wanted)")
+    log(f"multi_tensor FFMA counts (division and square root only): "
+        f"{json.dumps(ffma)}")
+    return {"kernels": len(kernels),
+            "registers": sorted({k["reg"] for k in kernels.values()}),
+            "local_bytes": sorted({k["local"] for k in kernels.values()}),
+            "ffma": ffma}
+
+
+def _lane_tensors(mx, dt, device="cuda"):
+    """bench.py's lane on the card: weights Uniform(-1, 1) and gradients
+    Uniform(-1, 1) * 1e-3 from RandomState(0), in ``dt``."""
+    shapes = resnet50_param_shapes()
+    rs = np.random.RandomState(0)
+    w0 = [torch.from_numpy(rs.uniform(-1, 1, s).astype(np.float32)).to(
+        device, dt) for s in shapes]
+    gs = [mx.nd.from_torch(torch.from_numpy(
+        (rs.uniform(-1, 1, s) * 1e-3).astype(np.float32)).to(device, dt))
+        for s in shapes]
+    return w0, gs
+
+
+def trainer_lane(mx, common, label, nan_check=False):
+    """One setting of bench.py's ``bench_trainer_step`` lane (161
+    tensors): fused, chunked (``set_bulk_size(40)``) and per-parameter
+    Updaters stepped 10 times from the same weights and held equal bit
+    for bit; the launches of a step (1 update; 1 census + 1 update with
+    ``census=True``; 5 updates at bulk 40); steps/s of the fused and the
+    per-parameter paths in turns (30 timed steps after a warm-up, 2
+    rounds); the kernel's device ms (profiler) beside its bound, the
+    per-tensor twin and ``torch._fused_sgd_`` / ``torch._fused_adam_``;
+    with ``nan_check``, a NaN in the last gradient under the census
+    (and the sync debug mode at "error": nothing in the step may sync the
+    host) leaves every weight and state bit-identical, and a guard reads
+    the census at its next step."""
+    from incubator_mxnet_tpu_torch import engine
+    from incubator_mxnet_tpu_torch.optimizer import optimizer as O
+    from incubator_mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    name, kw, dt, per_param_bytes = MT_LANE[label]
+    w0, gs = _lane_tensors(mx, dt)
+    idx = list(range(len(w0)))
+    n_params = sum(w.numel() for w in w0)
+    if len(w0) != 161 or n_params != 25557032:
+        raise AssertionError(f"ResNet-50 lane: {len(w0)} tensors, "
+                             f"{n_params} values")
+    paths = ("fused", "chunked", "per_param")
+    ws = {p: [mx.nd.from_torch(w.clone()) for w in w0] for p in paths}
+    upd = {p: O.get_updater(O.create(name, **kw)) for p in paths}
+    bulk = {"fused": None, "chunked": MT_BULK, "per_param": 0}
+
+    def step(p, census=False):
+        with engine.bulk(bulk[p]) if bulk[p] is not None \
+                else contextlib.nullcontext():
+            return upd[p].update_batch(idx, gs, ws[p], census=census)
+    common.reset_launch_counts()
+    for _ in range(MT_EQ_STEPS):
+        for p in paths:
+            step(p)
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    got = {p: _updater_tensors(upd[p], ws[p]) for p in paths}
+    equal = {p: _same_bits(got["fused"], got[p]) for p in paths[1:]}
+    max_abs_err = _max_abs_err(got["fused"], got["per_param"])
+    want = {"multi_tensor_update": MT_EQ_STEPS * (1 + -(-161 // MT_BULK))}
+    if not all(equal.values()) or {k: v for k, v in launches.items()
+                                   if v} != want:
+        raise AssertionError(f"{label}: fused equal to {equal} (worst "
+                             f"{max_abs_err}); launches {launches}, want "
+                             f"{want}")
+    per_step = {}
+    for tag, fn in (("whole", lambda: step("fused")),
+                    ("census", lambda: step("fused", census=True)),
+                    (f"bulk {MT_BULK}", lambda: step("chunked"))):
+        common.reset_launch_counts()
+        ok = fn()
+        per_step[tag] = {k: v for k, v in common.launch_counts().items()
+                         if v}
+        if tag == "census":
+            twin = mt.all_finite_reference([g._data for g in gs])
+            census_err = abs(int(ok._data) - int(twin))
+            if census_err:
+                raise AssertionError(f"{label}: the census kernel read "
+                                     f"{ok.asnumpy()}, its twin {twin}")
+    expect = {"whole": {"multi_tensor_update": 1},
+              "census": {"multi_tensor_all_finite": 1,
+                         "multi_tensor_update": 1},
+              f"bulk {MT_BULK}": {"multi_tensor_update": 5}}
+    if per_step != expect:
+        raise AssertionError(f"{label}: launches a step {per_step}, want "
+                             f"{expect}")
+    # steps/s in turns: fused, per-parameter, per-parameter, fused
+    rate = {"fused": [], "per_param": []}
+    for order in (("fused", "per_param"), ("per_param", "fused")):
+        for p in order:
+            step(p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MT_STEPS):
+                step(p)
+            torch.cuda.synchronize()
+            rate[p].append(MT_STEPS / (time.perf_counter() - t0))
+    kernel_ms, fused_dev_ms = _kernel_ms(lambda: step("fused"),
+                                         "multi_tensor_update")
+    _, per_param_dev_ms = _kernel_ms(lambda: step("per_param"), "", 2)
+    step_host_us = host_us(lambda: step("fused"))
+    census_ms, _ = _kernel_ms(lambda: step("fused", census=True),
+                              "all_finite")
+    # the per-tensor twin (the fused step's plain version) on the card
+    opt = upd["fused"].optimizer
+    sts = [O._state_tensors(upd["fused"].states[i]) for i in idx]
+    masters = [s[0] if dt == torch.float16 else None for s in sts]
+    subs = [s[1] if dt == torch.float16 else s for s in sts]
+    hs = [opt.fused_hypers(i) for i in idx]
+    plain_ms = time_ms(lambda: mt.multi_tensor_update_reference(
+        opt.tensor_step, [w._data for w in ws["fused"]],
+        [g._data for g in gs], subs, hs, masters), iters=3, warmup=1)
+    census_plain_ms = time_ms(lambda: mt.all_finite_reference(
+        [g._data for g in gs]), iters=3, warmup=1)
+    library_ms, census_lib_ms = _library_step(name, kw, w0, gs)
+    moved = n_params * per_param_bytes
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    census_bound = n_params * gs[0]._data.element_size() / HBM_BYTES_PER_S \
+        * 1e3
+    out = {"tensors": len(w0), "params": n_params,
+           "fused_steps_per_s": sum(rate["fused"]) / 2,
+           "per_param_steps_per_s": sum(rate["per_param"]) / 2,
+           "steps_per_s_rounds": rate, "launches_per_step": per_step,
+           "equal_after_steps": MT_EQ_STEPS,
+           "kernel_device_ms": kernel_ms, "fused_step_device_ms":
+           fused_dev_ms, "per_param_step_device_ms": per_param_dev_ms,
+           "fused_step_host_us": step_host_us, "plain_ms": plain_ms,
+           "bytes": moved, "bound_ms": bound_ms, "library_ms": library_ms,
+           "census_device_ms": census_ms, "census_plain_ms":
+           census_plain_ms, "census_bound_ms": census_bound,
+           "census_library_ms": census_lib_ms,
+           "max_abs_err": max_abs_err, "census_max_abs_err": census_err}
+    if nan_check:
+        out["nan_step"] = _nan_step(mx, upd["fused"], ws["fused"], gs, idx)
+    log(f"trainer lane {label}: {json.dumps(out)}")
+    return out
+
+
+def _nan_step(mx, upd, ws, gs, idx):
+    """A NaN planted in the last gradient: with the census, the step
+    leaves every weight and state bit-identical, syncs nothing (the sync
+    debug mode at "error" raises on a synchronising call), and a guard
+    given the census trips at its next step."""
+    from incubator_mxnet_tpu_torch.guard import GuardPolicy, TrainingGuard
+    poisoned = [g.copy() for g in gs]
+    poisoned[-1]._data.view(-1)[7] = float("nan")
+    before = [t.clone() for t in _updater_tensors(upd, ws)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ok = upd.update_batch(idx, poisoned, ws, census=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    intact = _same_bits(before, _updater_tensors(upd, ws))
+    guard = TrainingGuard(GuardPolicy(skip_limit=5))
+    guard.note_device_census(ok)
+    proceed = guard.fused_grads_ok(None)
+    tripped = [(e.kind, e.detail) for e in guard.events]
+    if bool(ok.asnumpy()) or not intact or not proceed \
+            or tripped != [("nan", "fused census (device)")]:
+        raise AssertionError(f"NaN step: census {ok.asnumpy()}, state "
+                             f"intact {intact}, guard {tripped}")
+    return {"census": False, "state_intact": True, "host_syncs": 0,
+            "guard_events": tripped}
+
+
+def _library_step(name, kw, w0, gs):
+    """Event ms of the one PyTorch call that does comparable work on the
+    same tensors (``torch._fused_sgd_`` / ``torch._fused_adam_``: their
+    rules differ from MXNet's, a yardstick of time, not of values), and of
+    ``torch._amp_foreach_non_finite_check_and_unscale_`` for the census.
+    None where the call is refused (logged)."""
+    params = [w.clone() for w in w0]
+    grads = [g._data for g in gs]
+    lib = None
+    try:
+        if name == "sgd":
+            bufs = [torch.zeros_like(p) for p in params]
+            lib = time_ms(lambda: torch._fused_sgd_(
+                params, grads, bufs, weight_decay=0.0, momentum=0.9,
+                lr=kw["learning_rate"], dampening=0.0, nesterov=False,
+                maximize=False, is_first_step=False), iters=10, warmup=2)
+        else:
+            m = [torch.zeros_like(p) for p in params]
+            v = [torch.zeros_like(p) for p in params]
+            steps = [torch.ones((), device=p.device) for p in params]
+            lib = time_ms(lambda: torch._fused_adam_(
+                params, grads, m, v, [], steps, lr=kw["learning_rate"],
+                beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                amsgrad=False, maximize=False), iters=10, warmup=2)
+    except (RuntimeError, TypeError) as err:
+        log(f"library step for {name}: refused ({err})")
+    found = torch.zeros(1, device="cuda")
+    inv = torch.ones(1, device="cuda")
+    copies = [g.clone() for g in grads]
+    census = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+        copies, found, inv), iters=10, warmup=2)
+    del params, copies
+    return lib, census
+
+
+#: dtype_matrix's rules: (optimizer, options, kernel rule); Adam's and
+#: AdamW's epsilon 1e-3, a value float16 holds (their default 1e-8 rounds
+#: to 0 there, and a zero second moment then makes 0 / 0)
+MT_RULES = (("sgd", {"wd": 1e-4}, "sgd"),
+            ("sgd", {"momentum": 0.9, "clip_gradient": 0.5}, "sgd_mom"),
+            ("nag", {"momentum": 0.9}, "nag"),
+            ("adam", {"wd": 1e-4, "epsilon": 1e-3}, "adam"),
+            ("adamw", {"wd": 0.01, "epsilon": 1e-3}, "adamw"))
+MT_STORAGE = {"f32": (torch.float32, False), "f16": (torch.float16, False),
+              "bf16": (torch.bfloat16, False),
+              "f16 master": (torch.float16, True)}
+
+
+def dtype_matrix(mx, common, steps=10):
+    """Every rule of ``multi_tensor_update`` in every storage it takes
+    (float32, float16, bfloat16, float16 with float32 masters): fused and
+    per-parameter Updaters stepped ``steps`` times over four tensors (one
+    straddling two 16,384-element chunks) from the same weights and
+    gradients Uniform(-1, 1), learning rate 1e-3: every weight and state
+    finite and equal bit for bit, one launch a fused step."""
+    from incubator_mxnet_tpu_torch.optimizer import optimizer as O
+    shapes = [(2 * 16384 + 5,), (7, 3), (130, 129), (64,)]
+    rs = np.random.RandomState(SEED + 33)
+    w_np = [rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    g_np = [[rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+            for _ in range(steps)]
+    res, worst = {}, 0.0
+    for name, kw, kind in MT_RULES:
+        for tag, (dt, mp) in MT_STORAGE.items():
+            ws, upd = {}, {}
+            for p in ("fused", "per_param"):
+                ws[p] = [mx.nd.from_torch(torch.from_numpy(w).to(
+                    "cuda", dt)) for w in w_np]
+                upd[p] = O.get_updater(O.create(
+                    name, learning_rate=1e-3, multi_precision=mp, **kw))
+            common.reset_launch_counts()
+            for gs_np in g_np:
+                gs = [mx.nd.from_torch(torch.from_numpy(g).to("cuda", dt))
+                      for g in gs_np]
+                upd["fused"].update_batch(list(range(len(shapes))), gs,
+                                          ws["fused"])
+                for i, g in enumerate(gs):
+                    upd["per_param"](i, g, ws["per_param"][i])
+            torch.cuda.synchronize()
+            launches = common.launch_counts()["multi_tensor_update"]
+            got = {p: _updater_tensors(upd[p], ws[p]) for p in ws}
+            err = _max_abs_err(got["fused"], got["per_param"])
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in got["fused"] + got["per_param"])
+            same = _same_bits(got["fused"], got["per_param"])
+            res[f"{kind} {tag}"] = {"equal": same, "finite": finite,
+                                    "max_abs_err": err,
+                                    "launches": launches}
+            worst = max(worst, err)
+            if not (same and finite) or launches != steps:
+                raise AssertionError(f"{kind} {tag}: fused equal {same} "
+                                     f"(worst {err}), finite {finite}, "
+                                     f"{launches} launches for {steps} "
+                                     "steps")
+    log(f"multi_tensor rules x storage, {steps} steps: {json.dumps(res)}")
+    return {"cases": res, "max_abs_err": worst}
+
+
+def hybrid_eval_after_step(mx, gluon, common, batch=32):
+    """The usual Gluon loop on the card: a hybridized MLP (2048 -> 1024
+    -> 1000) evaluated outside ``record()`` (its forward one captured
+    graph over static copies of the parameters), a fused ``Trainer.step``
+    (SGD with momentum: one ``multi_tensor_update``, in place), and an
+    evaluation again, three times. The kernel bumps the version of what
+    it writes, so the compiled forward copies the stepped weights in: its
+    static copies equal the live parameters bit for bit after each
+    evaluation, and its output is within 1e-5 of the largest entry of
+    the eager forward's (and whether equal bit for bit) and moved from
+    the output before the step."""
+    rs = np.random.RandomState(SEED + 34)
+    mx.random.seed(SEED + 34)
+    with mx.gpu(0):
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(1024, in_units=2048, activation="relu"),
+                gluon.nn.Dense(1000, in_units=1024))
+        net.initialize(mx.init.Xavier())
+        x = mx.nd.array(rs.rand(batch, 2048).astype(np.float32))
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.05, "momentum": 0.9})
+    params = list(net.collect_params().values())
+    rounds = []
+    for _ in range(3):
+        before = net(x)._data.clone()
+        with mx.autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        common.reset_launch_counts()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        launches = common.launch_counts()["multi_tensor_update"]
+        got = net(x)._data.clone()
+        static_fresh = _same_bits(net._static.static,
+                                  [p.data()._data for p in params])
+        net.hybridize(False)
+        eager = net(x)._data.clone()
+        net.hybridize()
+        scale = float(eager.abs().max())
+        err = float((got - eager).abs().max()) / scale
+        moved = float((got - before).abs().max()) / scale
+        rounds.append({"launches": launches, "static_fresh": static_fresh,
+                       "max_err": err, "bitwise": bool(torch.equal(
+                           got, eager)), "moved": moved})
+        if launches != 1 or not static_fresh or not err <= 1e-5 \
+                or not moved > 1e-3 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"hybridized eval after a fused step: "
+                                 f"{rounds}")
+    log(f"hybridized eval after fused steps: {json.dumps(rounds)}")
+    return rounds
+
+
+def resnet_trainer_loop(mx, gluon, vision, common, batch=32):
+    """The default Gluon loop at full width: ``resnet50_v1`` (NHWC
+    parameters, NCHW input), batch 32, 224², float32, SGD momentum 0.9
+    under a ``FactorScheduler``, a bound ``TrainingGuard``:
+    ``autograd.record()``, ``loss.backward()``, ``Trainer.step``. One
+    fused dispatch (one census and one ``multi_tensor_update`` launch) a
+    step and no new plan across the schedule; the step ms of the fused and
+    per-parameter paths in turns (no guard); the update's share of the
+    step's device time; one step of each path applied to the same
+    gradients from the same state, equal bit for bit."""
+    import copy
+    import os
+    from incubator_mxnet_tpu_torch import lr_scheduler as lrs
+    from incubator_mxnet_tpu_torch.guard import GuardPolicy, TrainingGuard
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    from incubator_mxnet_tpu_torch.test_utils import assert_no_retrace
+    rs = np.random.RandomState(SEED + 31)
+    mx.random.seed(SEED + 31)
+    with mx.gpu(0):
+        net = vision.resnet50_v1(layout="NHWC")
+        net.initialize(mx.init.Xavier())
+        x = mx.nd.array(rs.rand(batch, 3, 224, 224).astype(np.float32))
+        y = mx.nd.array(rs.randint(0, 1000, (batch,)).astype(np.float32))
+        net(x[:1])
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "lr_scheduler": lrs.FactorScheduler(
+                                 step=1, factor=0.95)})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def forward_backward():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        return loss
+
+    def step():
+        loss = forward_backward()
+        trainer.step(batch)
+        return loss
+    step()
+    step()
+    torch.cuda.synchronize()
+    per_path = {}
+
+    def timed(path, steps=3):
+        os.environ["MXTPU_FUSED_STEP"] = "1" if path == "fused" else "0"
+        try:
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+        finally:
+            os.environ.pop("MXTPU_FUSED_STEP", None)
+    for order in (("fused", "per_param"), ("per_param", "fused")):
+        for p in order:
+            per_path.setdefault(p, []).append(timed(p))
+    # the main path's counted run: the loop, fused, with a guard bound (its
+    # census a step on the card)
+    trainer._guard = TrainingGuard(GuardPolicy()).bind(trainer=trainer)
+    step()                  # the census's plan, built once
+    torch.cuda.synchronize()
+    stats0 = fused.stats()
+    common.reset_launch_counts()
+    with assert_no_retrace():
+        for _ in range(3):
+            loss = step()
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    stats1 = fused.stats()
+    dispatches = stats1["fused_step_dispatches"] - \
+        stats0["fused_step_dispatches"]
+    if dispatches != 3 or launches["multi_tensor_update"] != 3 \
+            or launches["multi_tensor_all_finite"] != 3 \
+            or not np.isfinite(float(loss.mean().asscalar())):
+        raise AssertionError(f"ResNet-50 Trainer: {dispatches} fused "
+                             f"dispatches, launches {launches} over 3 steps")
+    breakdown = kernel_breakdown("ResNet-50 Trainer (fused step)", step,
+                                 ("multi_tensor_update",
+                                  "multi_tensor_all_finite"), steps=2)
+    trainer._guard = None
+    # one step of each path on the same gradients from the same state
+    forward_backward()
+    opt = trainer.optimizer
+    params = list(net.collect_params().values())
+    snap_w = [p._data._data.clone() for p in params]
+    upd = trainer._updaters[0]
+    state_t = _updater_tensors(upd, [])
+    snap_s = [t.clone() for t in state_t]
+    snap_opt = (dict(opt._index_update_count), opt.num_update,
+                copy.deepcopy(opt.lr_scheduler))
+    trainer.step(batch)
+    fused_after = [p._data._data.clone() for p in params]
+    with torch.no_grad():
+        for p, s in zip(params, snap_w):
+            p._data._data.copy_(s)
+        for t, s in zip(state_t, snap_s):
+            t.copy_(s)
+    opt._index_update_count, opt.num_update, opt.lr_scheduler = snap_opt
+    os.environ["MXTPU_FUSED_STEP"] = "0"
+    try:
+        trainer.step(batch)
+    finally:
+        os.environ.pop("MXTPU_FUSED_STEP", None)
+    per_after = [p._data._data for p in params]
+    if not _same_bits(fused_after, per_after):
+        worst = max(float((a - b).abs().max())
+                    for a, b in zip(fused_after, per_after))
+        raise AssertionError(f"ResNet-50 Trainer: fused and per-parameter "
+                             f"steps differ (worst {worst})")
+    out = {"batch": batch, "step_ms": {p: sum(v) / len(v)
+                                       for p, v in per_path.items()},
+           "step_ms_rounds": per_path, "fused_dispatches_per_step": 1,
+           "launches_per_step": {"multi_tensor_update": 1,
+                                 "multi_tensor_all_finite": 1},
+           "plans_built_across_schedule": 0,
+           "fused_equals_per_param": True, "loss": float(
+               loss.mean().asscalar()),
+           "update_share_of_device": (
+               breakdown["kernels_ms"] / breakdown["device_busy_ms"]
+               if breakdown.get("device_busy_ms") else None),
+           "breakdown": breakdown}
+    log(f"ResNet-50 Trainer loop: {json.dumps(out)}")
+    return out, launches
+
+
+def row_sparse_path(mx, gluon, common):
+    """``Embedding(33278, 650, sparse_grad=True)`` at phase 18's vocabulary
+    and width, token ids (35, 128): its row-sparse gradient
+    (``row_sparse_grad``, at most 4,480 active rows) through
+    ``Updater.update_batch`` with Adam (``lazy_update``) and SGD at
+    momentum 0. The main path's run: both steps, counted from zero, one
+    ``row_sparse_update`` each. Then each against the twin bit for bit,
+    rows not in the batch untouched; the kernel's device ms against the
+    dense ``multi_tensor_update`` of the same table, the twin and, for
+    SGD, ``index_add_``. Returns (results, the run's launches)."""
+    from incubator_mxnet_tpu_torch.optimizer import optimizer as O
+    from incubator_mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    rs = np.random.RandomState(SEED + 32)
+    mx.random.seed(SEED + 32)
+    with mx.gpu(0):
+        emb = gluon.nn.Embedding(EMB_ROWS, EMB_DIM, sparse_grad=True)
+        emb.initialize(mx.init.Uniform(0.1))
+        ids = mx.nd.array(rs.randint(0, EMB_ROWS, EMB_BATCH).astype(
+            np.float32))
+        with mx.autograd.record():
+            out = emb(ids)
+            loss = (out * out).sum()
+        loss.backward()
+    g = emb.weight.row_sparse_grad()
+    active = g.indices
+    if g.nnz > EMB_BATCH[0] * EMB_BATCH[1] or not torch.equal(
+            active.cpu(), torch.unique(ids._data.long()).cpu()):
+        raise AssertionError(f"row_sparse_grad: {g.nnz} rows")
+    w0 = emb.weight.data()._data.clone()
+    idle = torch.ones(EMB_ROWS, dtype=torch.bool, device="cuda")
+    idle[active] = False
+    settings = (("adam", {"learning_rate": 1e-3}),
+                ("sgd", {"learning_rate": 0.1}))
+    steps = {}
+    common.reset_launch_counts()
+    for name, kw in settings:
+        upd = O.get_updater(O.create(name, **kw))
+        w = mx.nd.from_torch(w0.clone())
+        upd.update_batch([0], [g], [w])
+        steps[name] = (upd, w)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in common.launch_counts().items() if v}
+    if launches != {"row_sparse_update": len(settings)}:
+        raise AssertionError(f"row-sparse steps: launches {launches}, one "
+                             f"row_sparse_update a step wanted")
+    res = {"active_rows": g.nnz, "launches": launches}
+    for name, kw in settings:
+        upd, w = steps[name]
+        twin_opt = O.create(name, **kw)
+        tw = w0.clone()
+        st = twin_opt.create_state(0, mx.nd.from_torch(tw))
+        twin_opt._update_count(0)
+        mt.row_sparse_update_reference(
+            twin_opt.tensor_step, tw, O._state_tensors(st), g.indices,
+            g.data, twin_opt.fused_hypers(0))
+        err = _max_abs_err([w._data], [tw])
+        same = torch.equal(_bits(w._data), _bits(tw))
+        untouched = torch.equal(_bits(w._data[idle]), _bits(w0[idle]))
+        if not same or not untouched:
+            raise AssertionError(f"row-sparse {name}: equal to the twin "
+                                 f"{same} (worst {err}), idle rows "
+                                 f"untouched {untouched}")
+        kernel_ms, _ = _kernel_ms(lambda: upd.update_batch([0], [g], [w]),
+                                  "row_sparse")
+        plain_ms = time_ms(lambda: mt.row_sparse_update_reference(
+            twin_opt.tensor_step, tw, O._state_tensors(st), g.indices,
+            g.data, twin_opt.fused_hypers(0)), iters=5, warmup=1)
+        dense = mx.nd.from_torch(g.todense()._data)
+        dupd = O.get_updater(O.create(name, **kw))
+        dw = mx.nd.from_torch(w0.clone())
+        dense_ms, _ = _kernel_ms(lambda: dupd.update_batch([0], [dense],
+                                                          [dw]),
+                                 "multi_tensor_update")
+        per_row = {"adam": 28, "sgd": 12}[name] * EMB_DIM + 8
+        bound = g.nnz * per_row / HBM_BYTES_PER_S * 1e3
+        lib = None
+        if name == "sgd":
+            lw = w0.clone()
+            lib = time_ms(lambda: lw.index_add_(0, g.indices, g.data,
+                                                alpha=-0.1), iters=10)
+        res[name] = {"kernel_device_ms": kernel_ms, "plain_ms": plain_ms,
+                     "dense_update_device_ms": dense_ms,
+                     "bound_ms": bound, "library_ms": lib,
+                     "max_abs_err": err, "equal_to_twin": True,
+                     "idle_rows_untouched": True}
+    log(f"row-sparse path: {json.dumps(res)}")
+    return res, launches
+
+
+def fused_step_phase(mx, gluon, vision, common, records):
+    """Phase 31: the fused trainer step (``optimizer/fused.py`` on
+    ``multi_tensor.cu``). The kernels as built (``mt_sass_check``);
+    bench.py's ``bench_trainer_step`` lane in three settings
+    (``trainer_lane``); every rule in every storage type against the
+    per-parameter path (``dtype_matrix``); a hybridized net evaluated
+    after a fused ``Trainer.step`` (``hybrid_eval_after_step``); the main
+    path, counted from zero: the default
+    Gluon loop on ResNet-50 (``resnet_trainer_loop``) then the
+    row-sparse Embedding step (``row_sparse_path``), which must launch
+    each of the three kernels; the kernels' JSON records."""
+    sass = mt_sass_check(common)
+    lane = {label: trainer_lane(mx, common, label,
+                                nan_check=label == "sgd_mom f32")
+            for label in MT_LANE}
+    dtypes = dtype_matrix(mx, common)
+    hybrid = hybrid_eval_after_step(mx, gluon, common)
+    loop, loop_launches = resnet_trainer_loop(mx, gluon, vision, common)
+    rows, row_launches = row_sparse_path(mx, gluon, common)
+    main = {k: loop_launches[k] + row_launches.get(k, 0)
+            for k in MT_KERNELS}
+    if not all(main.values()):
+        raise AssertionError(f"phase 31's main path left a kernel "
+                             f"unlaunched: {main}")
+    sgd, adam = lane["sgd_mom f32"], rows["adam"]
+    for name, ms, plain, bound, lib, err in (
+            ("multi_tensor_update", sgd["kernel_device_ms"],
+             sgd["plain_ms"], sgd["bound_ms"], sgd["library_ms"],
+             max(sgd["max_abs_err"], dtypes["max_abs_err"])),
+            ("multi_tensor_all_finite", sgd["census_device_ms"],
+             sgd["census_plain_ms"], sgd["census_bound_ms"],
+             sgd["census_library_ms"], sgd["census_max_abs_err"]),
+            ("row_sparse_update", adam["kernel_device_ms"],
+             adam["plain_ms"], adam["bound_ms"], adam["library_ms"],
+             max(adam["max_abs_err"], rows["sgd"]["max_abs_err"]))):
+        records[name] = {
+            "name": name, "route": "cuda", "source": MT_SOURCE,
+            "replaces": MT_REPLACES[name], "launches": main[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+    return {"sass": sass, "lane": lane, "dtypes": dtypes,
+            "hybrid_eval": hybrid, "resnet_trainer": loop,
+            "row_sparse": rows, "main_path_launches": main}
+
+
 def _memory_held(phase: str) -> dict:
     """What the caching allocator holds after ``phase``, once Python's
     garbage is collected, cuBLAS's workspaces are dropped (each (thread,
@@ -8547,6 +9277,8 @@ def main() -> int:
     phase_done("phase 29, the zoo families served")
     bucketed_lm = bucketed_lm_phase(mx, common, records)
     phase_done("phase 30, the bucketed word LM")
+    fused_step = fused_step_phase(mx, gluon, vision, common, records)
+    phase_done("phase 31, the fused trainer step")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -8577,6 +9309,7 @@ def main() -> int:
     log(f"the input service {json.dumps(input_service)}")
     log(f"the zoo families served {json.dumps(zoo_serve)}")
     log(f"the bucketed word LM {json.dumps(bucketed_lm)}")
+    log(f"the fused trainer step {json.dumps(fused_step)}")
     over = [h["phase"] for h in held
             if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
     table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),
@@ -8588,7 +9321,7 @@ def main() -> int:
     print(json.dumps({"kernels": [records[n] for n in (
         "flash_decode_step", "flash_decode_step_paged") + TRAIN_RECORDS
         + ROW_KERNELS + CONV_RECORDS + LSTM_RECORDS + DET_KERNELS
-        + RTC_KERNELS + QUANT_KERNELS]}))
+        + RTC_KERNELS + QUANT_KERNELS + MT_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

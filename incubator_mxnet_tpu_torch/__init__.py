@@ -11,7 +11,10 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: the rest of vision and input (``image``'s
+The port covers so far: sparse storage (``nd.sparse``), ``nd.linalg``, the
+fused trainer step (``optimizer.fused``) on its multi-tensor kernels, and
+the small ``contrib`` and ``gluon.contrib`` modules, ``util``, ``log``,
+``misc`` and ``libinfo`` (slice 27); the rest of vision and input (``image``'s
 detection iterator and augmenters, ``input_service`` with ``elastic``'s
 ``GroupView`` and ``shard_batch``, the AlexNet, DenseNet, SqueezeNet,
 Inception V3 and MobileNet zoo families, ``contrib.text``,
@@ -71,6 +74,11 @@ from . import image
 from . import rnn
 from . import elastic
 from . import input_service
+from . import util
+from . import libinfo
+from .libinfo import __version__
+from . import log
+from . import misc
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
@@ -80,4 +88,4 @@ __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "optimizer", "gluon", "rtc", "operator", "CustomOp",
            "CustomOpProp", "register_op", "test_utils", "registry",
            "contrib", "io", "recordio", "image", "rnn", "elastic",
-           "input_service"]
+           "input_service", "util", "libinfo", "log", "misc"]

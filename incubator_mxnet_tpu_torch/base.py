@@ -27,14 +27,18 @@ class EnvRegistry:
     def __init__(self, prefix: str = "MXTPU_") -> None:
         self._prefix = prefix
         self._declared: Dict[str, tuple] = {}
+        self._aliases: Dict[str, tuple] = {}
         self._lock = threading.Lock()
 
     def declare(self, name: str, default: Any, typ: Optional[Type] = None,
-                doc: str = "") -> None:
+                doc: str = "", aliases: tuple = ()) -> None:
+        """``aliases``: other names of the same setting, read in turn
+        where ``name`` is not set."""
         if typ is None:
             typ = type(default)
         with self._lock:
             self._declared[name] = (default, typ, doc)
+            self._aliases[name] = tuple(aliases)
 
     def get(self, name: str, default: Any = None) -> Any:
         if name in self._declared:
@@ -43,9 +47,13 @@ class EnvRegistry:
                 default = ddefault
         else:
             typ = type(default) if default is not None else str
-        raw = os.environ.get(self._prefix + name)
-        if raw is None:
-            raw = os.environ.get(name)     # the bare name, as tests set it
+        raw = None
+        for key in (name,) + self._aliases.get(name, ()):
+            raw = os.environ.get(self._prefix + key)
+            if raw is None:
+                raw = os.environ.get(key)  # the bare name, as tests set it
+            if raw is not None:
+                break
         if raw is None:
             return default
         if typ is bool:
@@ -65,6 +73,11 @@ env.declare("ENGINE_TYPE", "async", str,
             "'async' (PyTorch's asynchronous CUDA stream) or 'naive' "
             "(synchronize the device after every op).")
 env.declare("DEFAULT_DTYPE", "float32", str, "Default dtype for new arrays.")
+env.declare("FUSED_STEP", True, bool,
+            "The fused whole-step trainer update (optimizer/fused.py); 0 "
+            "takes the per-parameter path. Also read as "
+            "MXTPU_EXEC_BULK_EXEC_TRAIN (ref: MXNET_EXEC_BULK_EXEC_TRAIN).",
+            aliases=("EXEC_BULK_EXEC_TRAIN",))
 
 
 class Registry:

@@ -5,7 +5,7 @@ Counterpart of ``GuardEventLogger`` in ``incubator_mxnet_tpu/callback.py``
 reference module's other callbacks (``Speedometer``, ``ProgressBar``,
 ``do_checkpoint``, ``module_checkpoint``, ``log_train_metric``,
 ``LogValidationMetricsCallback``) belong to ``module/`` and ``model.py``,
-ROADMAP.md A4/A5 and A11, and are not ported yet.
+ROADMAP.md A11, and are not ported yet.
 """
 from __future__ import annotations
 

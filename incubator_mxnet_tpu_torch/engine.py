@@ -4,10 +4,9 @@ Counterpart of ``incubator_mxnet_tpu/engine.py``. PyTorch already queues
 every CUDA op on a stream in order, so the "engine" is a control API:
 waiting (``waitall``/``wait_for_all``), a deterministic serial mode
 (``naive_engine``: the device is synchronized after every ``nd`` op), and
-the bulk-size knob. ``set_bulk_size`` and ``bulk`` keep the reference's
-value and scope so scripts that set them run unchanged; no code of the
-port reads the value yet (the fused trainer update that reads it in the
-reference is ``ROADMAP.md`` A5).
+the bulk-size knob. ``set_bulk_size(N)`` and ``bulk(N)`` chunk the fused
+trainer step (``optimizer/fused.py``) into ceil(T/N) launches over T
+tensors; 0 turns the fused step off; unset is one launch a step.
 """
 from __future__ import annotations
 

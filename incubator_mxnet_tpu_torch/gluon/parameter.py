@@ -196,6 +196,9 @@ class Parameter:
         return [self.row_sparse_data(row_id)]
 
     def set_data(self, data) -> None:
+        """Copy ``data`` into the parameter (MXNet's ``arr[:] = data``): it
+        never shares the caller's tensor, which the fused trainer step
+        would otherwise update in place."""
         self.shape = tuple(data.shape)
         if self._data is None:
             assert self._deferred_init, \
@@ -205,8 +208,11 @@ class Parameter:
             self._init_impl(data.copy() if isinstance(data, NDArray)
                             else nd_array(data, ctx), ctx)
             return
-        self._data._set_data(data._data if isinstance(data, NDArray)
-                             else nd_array(data, self._data.context)._data)
+        cur = self._data._data
+        self._data._set_data(
+            data._data.to(device=cur.device, dtype=cur.dtype, copy=True)
+            if isinstance(data, NDArray)
+            else nd_array(data, self._data.context)._data)
 
     def grad(self, ctx=None) -> NDArray:
         self._check_initialized()
@@ -220,9 +226,12 @@ class Parameter:
         return [self.grad()]
 
     def row_sparse_grad(self):
-        raise NotImplementedError(
-            "row_sparse_grad: row-sparse storage is ROADMAP.md A4 "
-            "(ndarray/sparse.py, not ported yet)")
+        """The gradient as a ``RowSparseNDArray`` (ref: parameter.py
+        grad_stype='row_sparse'): the backward fills the dense buffer with
+        untouched rows exactly zero, so the cast recovers the active rows;
+        ``grad()`` stays the dense buffer."""
+        from ..ndarray import sparse as _sp
+        return _sp.cast_storage(self.grad(), "row_sparse")
 
     def zero_grad(self) -> None:
         if self._grad is not None:

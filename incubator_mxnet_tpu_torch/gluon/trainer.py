@@ -4,19 +4,24 @@ Counterpart of ``incubator_mxnet_tpu/gluon/trainer.py`` (ref:
 python/mxnet/gluon/trainer.py:27 — step:258, allreduce_grads, update,
 save/load_states) for one card: the kvstore is None, ``"local"`` or
 ``"device"``, and on one process each of them leaves the gradients as they
-are, so ``step`` is rescale + one optimizer update per parameter. With
-``guard=`` (a ``guard.GuardPolicy`` or ``guard.TrainingGuard``) a step
-whose gradients trip the guard's NaN sentinel is dropped before any state
-is touched, as in the reference's per-parameter path; its fused path
-(``optimizer/fused.py``, with the guard's device census) is ROADMAP.md A5.
-The distributed stores (``dist_*``, ``update_on_kvstore``, gradient
-compression) are ROADMAP.md A10 and raise.
+are. Dense gradients take the FUSED step by default (the reference's
+``step``, trainer.py:140-215): one ``multi_tensor_update`` launch a step
+over every parameter (``optimizer/fused.py``), in a ``fused_dispatch``
+telemetry span, and with ``guard=`` an all-finite census on the device
+that the guard reads one step later instead of a host sync a step.
+``MXTPU_FUSED_STEP=0`` or ``engine.set_bulk_size(0)`` restore the
+per-parameter path, which row-sparse parameters always take; there a
+guarded step whose gradients trip the NaN sentinel is dropped before any
+state is touched. The distributed stores (``dist_*``,
+``update_on_kvstore``, gradient compression) are ROADMAP.md A10 and
+raise.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from .. import optimizer as _optimizer
+from .. import telemetry as _telemetry
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -54,6 +59,10 @@ class Trainer:
             self._params.append(param)
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        self._contains_sparse_weight = any(p._stype != "default"
+                                           for p in self._params)
+        self._contains_sparse_grad = any(p._grad_stype != "default"
+                                         for p in self._params)
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore = None
         self._update_on_kvstore = False
@@ -100,14 +109,62 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by 1 / batch_size, reduce, update (ref: trainer.py:258).
-        With a ``guard`` bound, a step whose gradients trip the NaN
-        sentinel is dropped (skipped, rescaled or rolled back by the
-        ladder) before any state is touched."""
+
+        Dense gradients take the fused step (one launch over every
+        parameter, ``optimizer/fused.py``); with a ``guard`` bound, its
+        device census skips a non-finite step on the device and trips the
+        ladder when the guard reads it, at the next step. On the
+        per-parameter path a step whose gradients trip the NaN sentinel
+        is dropped (skipped, rescaled or rolled back by the ladder) before
+        any state is touched."""
+        if self._fused_step_eligible():
+            guard = self._guard
+            if guard is not None and not guard.fused_grads_ok(self):
+                return
+            self._optimizer.rescale_grad = self._scale / batch_size
+            # the fused step is a telemetry span of its own, with plan
+            # builds and in-place bytes attributed (gauge reads: no device
+            # sync)
+            compiles = _telemetry.gauge("fused_step_compiles")
+            donated = _telemetry.gauge("fused_step_donated_bytes")
+            c0, d0 = compiles.value(), donated.value()
+            with _telemetry.span("fused_dispatch") as sp:
+                ok = self._fused_apply(census=guard is not None)
+                sp.set(retrace=compiles.value() > c0,
+                       donated_bytes=donated.value() - d0)
+            if guard is not None and ok is not None:
+                guard.note_device_census(ok)
+            return
         if self._guard is not None and not self._guard.grads_ok(self):
             return
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+
+    def _fused_step_eligible(self) -> bool:
+        """The fused step takes the dense local-update case: weights
+        updated here (not on a kvstore) and no row-sparse weight or
+        gradient (ref: trainer.py _fused_step_eligible)."""
+        from ..optimizer.fused import fused_enabled
+        if not fused_enabled() or not self._optimizer.supports_fused():
+            return False
+        if self._update_on_kvstore:
+            return False
+        return not (self._contains_sparse_weight
+                    or self._contains_sparse_grad)
+
+    def _fused_apply(self, census=False):
+        """One fused optimizer step over every updatable parameter.
+        Returns the device-side all-finite census when ``census`` is on."""
+        indices, weights, grads = [], [], []
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null" or param._data is None:
+                continue
+            indices.append(i)
+            weights.append(param._data)
+            grads.append(param._grad)
+        return self._updaters[0].update_batch(indices, grads, weights,
+                                              census=census)
 
     def allreduce_grads(self):
         """(ref: trainer.py allreduce_grads) One card: nothing to reduce."""

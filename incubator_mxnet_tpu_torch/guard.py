@@ -38,10 +38,9 @@ Differences from the reference:
   ``restore(net=, trainer=, module=, step=)`` (the reference's
   ``fault.CheckpointManager``; ``fault.py`` is ROADMAP.md A10), or through
   ``restore_fn``;
-* the fused trainer path's device census (``fused_grads_ok``,
-  ``note_device_census``) waits for ``optimizer/fused.py`` (ROADMAP.md
-  A4/A5) and raises; ``gluon.Trainer(guard=)`` checks the gradients on the
-  per-parameter step (``grads_ok``);
+* the fused trainer step's census is a one-byte flag that
+  ``multi_tensor_all_finite`` leaves on the card (``optimizer/fused.py``);
+  ``flush_census`` reads it with one ``.cpu()`` a queued step;
 * ``flush_losses`` reads the queued losses with one ``.cpu()`` where the
   reference calls ``jax.device_get``, and bumps ``host_syncs`` only (the
   reference's ``profiler`` counter: ``profiler.py`` is ROADMAP.md A11).
@@ -331,13 +330,6 @@ class _Watchdog:
                            tid)
 
 
-def _fused_step_unported(name: str):
-    raise NotImplementedError(
-        f"TrainingGuard.{name}: the fused trainer step (optimizer/fused.py) "
-        "is ROADMAP.md A5, not ported yet; gluon.Trainer(guard=) checks the "
-        "gradients of the per-parameter step (grads_ok)")
-
-
 # ------------------------------------------------------------ the guard
 class TrainingGuard:
     """Stateful guard enforcing the degradation ladder for one train run.
@@ -380,6 +372,7 @@ class TrainingGuard:
         self._tstep = 0          # trainer-level step counter (grads_ok)
         self._noted: List[int] = []   # checkpoint steps observed this run
         self._pending_losses: List = []   # (step, device loss-scalar) queue
+        self._pending_census: List = []   # (step, device all-finite flag)
         self.host_syncs = 0      # blocking device->host loss fetches
         # (step, action) of the LAST loss processed by flush_losses: lets a
         # flush-boundary caller drop the current step's not-yet-applied
@@ -516,17 +509,51 @@ class TrainingGuard:
         return self.check_tensors(self._tstep, pairs) == OK
 
     # ------------------------------------------------- fused device census
-    # The reference's fused trainer path resolves a device-side finiteness
-    # census a step (``fused_grads_ok``, ``note_device_census``,
-    # ``flush_census``); its fused step is optimizer/fused.py, not ported.
     def fused_grads_ok(self, trainer) -> bool:
-        _fused_step_unported("fused_grads_ok")
+        """Pre-step hook for the fused trainer step. Resolves the PREVIOUS
+        step's device-side finiteness census (its value is long computed,
+        so the read does not stall the stream: the guard's NaN sentinel
+        is asynchronous instead of a host sync a step) and fires the
+        ``guard.nan`` chaos point exactly like the per-parameter hook.
+        Real non-finite gradients are caught by the census: the update was
+        already skipped ON DEVICE, so a SKIP/RESCALE trip here only
+        advances the ladder. A ROLLBACK trip restored an older checkpoint:
+        the caller's gradients were computed against the pre-rollback
+        weights, so this step is dropped too."""
+        self._tstep += 1
+        if not self.flush_census():
+            return False
+        every = max(1, self.policy.check_every)
+        if self._tstep % every:
+            return True
+        if chaos.should_fail("guard.nan"):
+            return self._trip(self._tstep, "nan", float("nan"),
+                              "chaos:guard.nan") == OK
+        return True
 
     def note_device_census(self, ok) -> None:
-        _fused_step_unported("note_device_census")
+        """Queue a fused step's all-finite flag (an NDArray still on the
+        device). Resolved by the next ``fused_grads_ok`` or an explicit
+        ``flush_census()``."""
+        self._pending_census.append((self._tstep, ok))
 
     def flush_census(self) -> bool:
-        _fused_step_unported("flush_census")
+        """Resolve queued device censuses: a failed census trips the
+        ladder. The poisoned update was already skipped on the device, so
+        on a SKIP/RESCALE trip the parameters and optimizer state are
+        intact and training may proceed (returns True). A ROLLBACK trip
+        restored an older checkpoint: returns False so the caller drops
+        any update computed against the pre-rollback weights."""
+        proceed = True
+        pending, self._pending_census = self._pending_census, []
+        for step, ok in pending:
+            val = ok.asnumpy() if hasattr(ok, "asnumpy") else ok
+            if bool(val):
+                self._mark_clean()
+            elif self._trip(step, "nan", float("nan"),
+                            "fused census (device)") == ROLLBACK:
+                proceed = False
+        return proceed
 
     # --------------------------------------------------- deferred loss queue
     def note_loss(self, step: int, loss) -> None:

@@ -35,6 +35,7 @@ import numpy as _np
 import torch
 
 from .context import cpu, current_context, resolve_device
+from .ndarray import sparse as _sp
 from .ndarray.ndarray import NDArray, _wrap, array as nd_array, concat
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
@@ -706,7 +707,7 @@ def _init_data(data, allow_empty, default_name):
     assert data is not None or allow_empty
     if data is None:
         data = []
-    if isinstance(data, (_np.ndarray, NDArray)):
+    if isinstance(data, (_np.ndarray, NDArray, _sp.BaseSparseNDArray)):
         data = [data]
     if isinstance(data, list):
         if not allow_empty:
@@ -720,7 +721,7 @@ def _init_data(data, allow_empty, default_name):
         raise TypeError("Input must be NDArray, numpy.ndarray, a list of "
                         "them or dict with them as values")
     for k, v in data.items():
-        if not isinstance(v, NDArray):
+        if not isinstance(v, (NDArray, _sp.BaseSparseNDArray)):
             try:
                 data[k] = nd_array(v)
             except Exception:
@@ -731,7 +732,8 @@ def _init_data(data, allow_empty, default_name):
 class NDArrayIter(DataIter):
     """Iterate over in-memory arrays (ref: io.py:489 NDArrayIter): shuffle
     (numpy's global generator), and a last batch padded, discarded or
-    rolled over. Sparse storage is ROADMAP.md A4."""
+    rolled over. CSR data is sliced a batch at a time, in order, with the
+    last partial batch discarded (as in the reference)."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
@@ -740,6 +742,12 @@ class NDArrayIter(DataIter):
         self.data = _init_data(data, allow_empty=False, default_name=data_name)
         self.label = _init_data(label, allow_empty=True,
                                 default_name=label_name)
+        if any(isinstance(v, _sp.BaseSparseNDArray)
+               for _, v in self.data + self.label) \
+                and last_batch_handle != "discard":
+            raise NotImplementedError(
+                "`NDArrayIter` only supports ``CSRNDArray`` with "
+                "`last_batch_handle` set to `discard`.")
         self.idx = _np.arange(self.data[0][1].shape[0])
         self.shuffle = shuffle
         self.last_batch_handle = last_batch_handle
@@ -803,7 +811,9 @@ class NDArrayIter(DataIter):
 
     def _getdata(self, data_source, start, end):
         sel = self.idx[start:end]
-        return [x.take(nd_array(sel, ctx=x.context, dtype="int32"), axis=0)
+        return [x.slice((start,), (end,)) if isinstance(x, _sp.CSRNDArray)
+                else x.take(nd_array(sel, ctx=x.context, dtype="int32"),
+                            axis=0)
                 if self.shuffle else x[start:end] for _, x in data_source]
 
     def getdata(self):
@@ -875,13 +885,44 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM iterator (ref: src/io/iter_libsvm.cc): it yields CSR
-    batches, and sparse storage is ROADMAP.md A4, not ported yet."""
+    """LibSVM sparse-format iterator (ref: src/io/iter_libsvm.cc): each
+    line ``label idx:value ...``; yields CSR data batches of
+    ``data_shape`` features and dense labels, the last partial batch
+    discarded."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LibSVMIter yields CSR batches: sparse storage is ROADMAP.md "
-            "A4 (ndarray/sparse.py), not ported yet")
+    def __init__(self, data_libsvm, data_shape, label_shape=(1,),
+                 batch_size=128, **kwargs):
+        super().__init__(batch_size)
+        n_features = data_shape[0] if isinstance(data_shape, (tuple, list)) \
+            else data_shape
+        rows, cols, vals, labels = [], [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.strip().split()
+                if not parts:
+                    continue
+                for tok in parts[1:]:
+                    j, v = tok.split(":")
+                    rows.append(len(labels))
+                    cols.append(int(j))
+                    vals.append(float(v))
+                labels.append(float(parts[0]))
+        dense = _np.zeros((len(labels), n_features), _np.float32)
+        dense[rows, cols] = vals
+        csr = _sp.csr_matrix(nd_array(dense))
+        self._inner = NDArrayIter(csr, _np.asarray(labels, _np.float32),
+                                  batch_size, last_batch_handle="discard")
+        self.provide_data = self._inner.provide_data
+        self.provide_label = self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,8 @@
 optimizer update ops.
 
 Counterpart of ``incubator_mxnet_tpu/ndarray/``, with ``contrib`` (control
-flow, the detection and vision ops) and ``image``. Not ported yet
-(``ROADMAP.md`` A4): ``sparse`` (row-sparse and CSR storage) and
-``linalg``."""
+flow, the detection and vision ops), ``image``, ``sparse`` (row-sparse and
+CSR storage) and ``linalg`` (batched dense linear algebra)."""
 from .ndarray import *  # noqa: F401,F403
 from .ndarray import NDArray, _wrap, _as_nd  # noqa: F401
 from .ops import *  # noqa: F401,F403
@@ -13,6 +12,8 @@ from .. import random  # mx.nd.random.* mirrors mx.random.*
 from .optimizer_ops import *  # noqa: F401,F403
 from . import contrib  # noqa: F401
 from . import image  # noqa: F401
+from . import linalg  # noqa: F401
+from . import sparse  # noqa: F401
 
 
 def __getattr__(name):

@@ -12,8 +12,8 @@ differentiable under ``autograd.record()`` where the reference's is, and
 the target and detection ops, which take no gradient, return detached
 results. The quantization ops are ``ops/quantization.py``'s (the int8
 products on the ``qconv_s8`` / ``qgemm_s8`` kernels on the card), taking
-NDArrays and returning them; CSR storage is A4, so ``edge_id`` raises and
-``getnnz`` counts a dense array's non-zeros.
+NDArrays and returning them; ``edge_id`` and ``getnnz`` take CSR arrays
+(``ndarray/sparse.py``).
 """
 from __future__ import annotations
 
@@ -526,9 +526,13 @@ quantized_pooling = _on_nd(_quant.quantized_pooling)
 
 
 def getnnz(data, axis=None):
-    """Number of stored values (ref: src/operator/contrib/nnz.cc): the port
-    has no CSR storage (ROADMAP.md A4), so it counts a dense array's
-    non-zeros, all of them (axis None), per column (0) or per row (1)."""
+    """Number of stored values (ref: src/operator/contrib/nnz.cc), of a CSR
+    array or a dense one's non-zeros: all of them (axis None), per column
+    (0) or per row (1)."""
+    from .sparse import CSRNDArray
+    if isinstance(data, CSRNDArray):
+        data = data.todense()
+
     def f(x):
         nz = (x != 0).to(torch.int32)
         return (nz.sum() if axis is None else nz.sum(dim=axis)).to(
@@ -538,10 +542,16 @@ def getnnz(data, axis=None):
 
 def edge_id(data, u, v):
     """Edge-id lookup in a CSR adjacency (ref: src/operator/contrib/
-    dgl_graph.cc): needs CSR storage, which is ROADMAP.md A4."""
-    raise NotImplementedError(
-        "nd.contrib.edge_id: it takes a CSR adjacency, and CSR storage is "
-        "ROADMAP.md A4, not ported yet")
+    dgl_graph.cc _contrib_edge_id): for each (u_i, v_i) the stored value
+    at (u_i, v_i), or -1 where there is none."""
+    from .sparse import CSRNDArray
+    if not isinstance(data, CSRNDArray):
+        raise TypeError("edge_id expects a CSR adjacency")
+
+    def f(dense, uu, vv):
+        vals = dense[uu.long(), vv.long()]
+        return torch.where(vals != 0, vals, -torch.ones_like(vals))
+    return invoke(f, [data.todense(), _as_nd(u), _as_nd(v)], "edge_id")
 
 
 def bipartite_matching(data, threshold, is_ascend=False, topk=-1):
@@ -581,8 +591,9 @@ def SparseEmbedding(data, weight, input_dim=None, output_dim=None,
                     dtype="float32", **kw):
     """Embedding lookup whose gradient the reference keeps row-sparse (ref:
     src/operator/tensor/indexing_op.cc _contrib_SparseEmbedding). The
-    lookup is the dense ``Embedding``'s; the gradient is dense, since
-    row-sparse storage is ROADMAP.md A4."""
+    lookup is the dense ``Embedding``'s and so is the gradient buffer;
+    ``sparse.cast_storage(grad, "row_sparse")`` (what
+    ``Parameter.row_sparse_grad`` does) recovers its active rows."""
     return Embedding(data, weight, input_dim=input_dim,
                      output_dim=output_dim, dtype=dtype, sparse_grad=True,
                      **kw)

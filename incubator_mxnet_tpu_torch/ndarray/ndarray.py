@@ -538,11 +538,12 @@ class NDArray:
         return invoke(torch.ones_like, [self], "ones_like")
 
     def tostype(self, stype: str):
+        """This array in storage ``stype``: "default", "csr" or
+        "row_sparse" (``ndarray/sparse.py``)."""
         if stype == "default":
             return self
-        raise NotImplementedError(
-            f"tostype({stype!r}): sparse storage is ROADMAP.md A4 "
-            "(ndarray/sparse.py, not ported yet)")
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
 
 def _ADD(a, b): return a + b
@@ -748,9 +749,16 @@ def _as_shape(shape):
 
 def array(source_array, ctx: Optional[Context] = None,
           dtype=None) -> NDArray:
-    """An array from an NDArray, tensor, numpy array, nested list or
-    scalar (float64 -> float32, Python ints -> int32)."""
-    return _wrap(_tensor_from(source_array, dtype, ctx))
+    """A new array from an NDArray, tensor, numpy array, nested list or
+    scalar (float64 -> float32, Python ints -> int32); it never shares
+    the source's memory."""
+    t = _tensor_from(source_array, dtype, ctx)
+    src = source_array._data if isinstance(source_array, NDArray) \
+        else source_array
+    if isinstance(src, torch.Tensor) and t.numel() \
+            and t.data_ptr() == src.data_ptr():
+        t = t.clone()
+    return _wrap(t)
 
 
 def from_torch(t: torch.Tensor) -> NDArray:

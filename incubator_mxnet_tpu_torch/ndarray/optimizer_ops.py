@@ -47,14 +47,105 @@ def _apply(fn, inputs, outs):
     return outs[0]
 
 
+# ---------------------------------------------------------------------------
+# the update rules on tensors: (w, g, state, hypers) -> (w', state'), no
+# NDArray and no rebinding. The ops below and the optimizers' tensor_step
+# (optimizer/optimizer.py) both call them, so an nd update op, a
+# per-parameter update and the fused step's per-tensor route run the same
+# float operations in the same order.
+# ---------------------------------------------------------------------------
+def sgd_step(w, g, lr, wd, rescale_grad, clip_gradient):
+    return w - lr * _prep(g, rescale_grad, clip_gradient, wd, w)
+
+
+def sgd_mom_step(w, g, m, lr, momentum, wd, rescale_grad, clip_gradient):
+    m2 = momentum * m - lr * _prep(g, rescale_grad, clip_gradient, wd, w)
+    return w + m2, m2
+
+
+def nag_mom_step(w, g, m, lr, momentum, wd, rescale_grad, clip_gradient):
+    gw = _prep(g, rescale_grad, clip_gradient, wd, w)
+    m2 = momentum * m + gw
+    return w - lr * (gw + momentum * m2), m2
+
+
+def adam_step(w, g, state, lr, beta1, beta2, epsilon, wd, rescale_grad,
+              clip_gradient):
+    m, v = state
+    gw = _prep(g, rescale_grad, clip_gradient, wd, w)
+    m2 = beta1 * m + (1 - beta1) * gw
+    v2 = beta2 * v + (1 - beta2) * gw * gw
+    return w - lr * m2 / (torch.sqrt(v2) + epsilon), (m2, v2)
+
+
+def ftml_step(w, g, state, lr, beta1, beta2, epsilon, t, wd, rescale_grad,
+              clip_grad):
+    d_, v_, z_ = state
+    gw = _prep(g, rescale_grad, clip_grad, wd, w)
+    v2 = beta2 * v_ + (1 - beta2) * gw * gw
+    d2 = (1 - beta1 ** t) / lr * (
+        torch.sqrt(v2 / (1 - beta2 ** t)) + epsilon)
+    sigma = d2 - beta1 * d_
+    z2 = beta1 * z_ + (1 - beta1) * gw - sigma * w
+    return -z2 / d2, (d2, v2, z2)
+
+
+def rmsprop_step(w, g, n, lr, gamma1, epsilon, wd, rescale_grad,
+                 clip_gradient, clip_weights):
+    gw = _prep(g, rescale_grad, clip_gradient, wd, w)
+    n2 = gamma1 * n + (1 - gamma1) * gw * gw
+    w2 = w - lr * gw / torch.sqrt(n2 + epsilon)
+    if clip_weights is not None and clip_weights > 0:
+        w2 = torch.clamp(w2, -clip_weights, clip_weights)
+    return w2, n2
+
+
+def rmspropalex_step(w, g, state, lr, gamma1, gamma2, epsilon, wd,
+                     rescale_grad, clip_gradient, clip_weights):
+    n, gm, delta = state
+    gw = _prep(g, rescale_grad, clip_gradient, wd, w)
+    n2 = gamma1 * n + (1 - gamma1) * gw * gw
+    g2 = gamma1 * gm + (1 - gamma1) * gw
+    d2 = gamma2 * delta - lr * gw / torch.sqrt(n2 - g2 * g2 + epsilon)
+    w2 = w + d2
+    if clip_weights is not None and clip_weights > 0:
+        w2 = torch.clamp(w2, -clip_weights, clip_weights)
+    return w2, (n2, g2, d2)
+
+
+def ftrl_step(w, g, state, lr, lamda1, beta, wd, rescale_grad,
+              clip_gradient):
+    z, n = state
+    gw = _clip(g * rescale_grad, clip_gradient)
+    n2 = n + gw * gw
+    sigma = (torch.sqrt(n2) - torch.sqrt(n)) / lr
+    z2 = z + gw - sigma * w
+    w2 = torch.where(
+        torch.abs(z2) <= lamda1, torch.zeros_like(w),
+        -(z2 - torch.sign(z2) * lamda1)
+        / ((beta + torch.sqrt(n2)) / lr + wd))
+    return w2, (z2, n2)
+
+
+def signum_step(w, g, m, lr, momentum, wd, rescale_grad, clip_gradient,
+                wd_lh):
+    gw = _clip(g * rescale_grad, clip_gradient)
+    m2 = momentum * m - (1 - momentum) * (gw + wd * w)
+    return (1 - lr * wd_lh) * w + lr * torch.sign(m2), m2
+
+
+def adagrad_step(w, g, h, lr, epsilon, wd, rescale_grad, clip_gradient):
+    gw = _prep(g, rescale_grad, clip_gradient, wd, w)
+    h2 = h + gw * gw
+    return w - lr * gw / (torch.sqrt(h2) + epsilon), h2
+
+
 def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0,
                clip_gradient=-1.0, lazy_update=True, out=None, **kw):
     """w -= lr * (rescale * clip(grad) + wd * w)."""
     out = weight if out is None else out
-
-    def f(w, g):
-        return w - lr * _prep(g, rescale_grad, clip_gradient, wd, w)
-    return _apply(f, [weight, grad], [out])
+    return _apply(lambda w, g: sgd_step(w, g, lr, wd, rescale_grad,
+                                        clip_gradient), [weight, grad], [out])
 
 
 def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
@@ -62,11 +153,9 @@ def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
                    out=None, **kw):
     """mom = momentum * mom - lr * grad_w; w += mom."""
     out = weight if out is None else out
-
-    def f(w, g, m):
-        m2 = momentum * m - lr * _prep(g, rescale_grad, clip_gradient, wd, w)
-        return w + m2, m2
-    return _apply(f, [weight, grad, mom], [out, _as_nd(mom)])
+    return _apply(lambda w, g, m: sgd_mom_step(
+        w, g, m, lr, momentum, wd, rescale_grad, clip_gradient),
+        [weight, grad, mom], [out, _as_nd(mom)])
 
 
 def mp_sgd_update(weight, grad, weight32, lr, wd=0.0, rescale_grad=1.0,
@@ -100,12 +189,9 @@ def nag_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0, out=None, **kw):
     """Nesterov momentum."""
     out = weight if out is None else out
-
-    def f(w, g, m):
-        gw = _prep(g, rescale_grad, clip_gradient, wd, w)
-        m2 = momentum * m + gw
-        return w - lr * (gw + momentum * m2), m2
-    return _apply(f, [weight, grad, mom], [out, _as_nd(mom)])
+    return _apply(lambda w, g, m: nag_mom_step(
+        w, g, m, lr, momentum, wd, rescale_grad, clip_gradient),
+        [weight, grad, mom], [out, _as_nd(mom)])
 
 
 def mp_nag_mom_update(weight, grad, mom, weight32, lr, momentum=0.0, wd=0.0,
@@ -128,13 +214,9 @@ def ftml_update(weight, grad, d, v, z, lr, beta1=0.6, beta2=0.999,
     out = weight if out is None else out
 
     def f(w, g, d_, v_, z_):
-        gw = _prep(g, rescale_grad, clip_grad, wd, w)
-        v2 = beta2 * v_ + (1 - beta2) * gw * gw
-        d2 = (1 - beta1 ** t) / lr * (
-            torch.sqrt(v2 / (1 - beta2 ** t)) + epsilon)
-        sigma = d2 - beta1 * d_
-        z2 = beta1 * z_ + (1 - beta1) * gw - sigma * w
-        return -z2 / d2, d2, v2, z2
+        nw, (d2, v2, z2) = ftml_step(w, g, (d_, v_, z_), lr, beta1, beta2,
+                                     epsilon, t, wd, rescale_grad, clip_grad)
+        return nw, d2, v2, z2
     return _apply(f, [weight, grad, d, v, z],
                   [out, _as_nd(d), _as_nd(v), _as_nd(z)])
 
@@ -146,10 +228,9 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
     out = weight if out is None else out
 
     def f(w, g, m, v):
-        gw = _prep(g, rescale_grad, clip_gradient, wd, w)
-        m2 = beta1 * m + (1 - beta1) * gw
-        v2 = beta2 * v + (1 - beta2) * gw * gw
-        return w - lr * m2 / (torch.sqrt(v2) + epsilon), m2, v2
+        nw, (m2, v2) = adam_step(w, g, (m, v), lr, beta1, beta2, epsilon,
+                                 wd, rescale_grad, clip_gradient)
+        return nw, m2, v2
     return _apply(f, [weight, grad, mean, var],
                   [out, _as_nd(mean), _as_nd(var)])
 
@@ -159,15 +240,9 @@ def rmsprop_update(weight, grad, n, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
                    out=None, **kw):
     """RMSProp, non-centered."""
     out = weight if out is None else out
-
-    def f(w, g, n_):
-        gw = _prep(g, rescale_grad, clip_gradient, wd, w)
-        n2 = gamma1 * n_ + (1 - gamma1) * gw * gw
-        w2 = w - lr * gw / torch.sqrt(n2 + epsilon)
-        if clip_weights is not None and clip_weights > 0:
-            w2 = torch.clamp(w2, -clip_weights, clip_weights)
-        return w2, n2
-    return _apply(f, [weight, grad, n], [out, _as_nd(n)])
+    return _apply(lambda w, g, n_: rmsprop_step(
+        w, g, n_, lr, gamma1, epsilon, wd, rescale_grad, clip_gradient,
+        clip_weights), [weight, grad, n], [out, _as_nd(n)])
 
 
 def rmspropalex_update(weight, grad, n, g, delta, lr, gamma1=0.95,
@@ -178,13 +253,9 @@ def rmspropalex_update(weight, grad, n, g, delta, lr, gamma1=0.95,
     out = weight if out is None else out
 
     def f(w, gr, n_, g_, delta_):
-        gw = _prep(gr, rescale_grad, clip_gradient, wd, w)
-        n2 = gamma1 * n_ + (1 - gamma1) * gw * gw
-        g2 = gamma1 * g_ + (1 - gamma1) * gw
-        d2 = gamma2 * delta_ - lr * gw / torch.sqrt(n2 - g2 * g2 + epsilon)
-        w2 = w + d2
-        if clip_weights is not None and clip_weights > 0:
-            w2 = torch.clamp(w2, -clip_weights, clip_weights)
+        w2, (n2, g2, d2) = rmspropalex_step(
+            w, gr, (n_, g_, delta_), lr, gamma1, gamma2, epsilon, wd,
+            rescale_grad, clip_gradient, clip_weights)
         return w2, n2, g2, d2
     return _apply(f, [weight, grad, n, g, delta],
                   [out, _as_nd(n), _as_nd(g), _as_nd(delta)])
@@ -196,14 +267,8 @@ def ftrl_update(weight, grad, z, n, lr, lamda1=0.01, beta=1.0, wd=0.0,
     out = weight if out is None else out
 
     def f(w, g, z_, n_):
-        gw = _clip(g * rescale_grad, clip_gradient)
-        n2 = n_ + gw * gw
-        sigma = (torch.sqrt(n2) - torch.sqrt(n_)) / lr
-        z2 = z_ + gw - sigma * w
-        w2 = torch.where(
-            torch.abs(z2) <= lamda1, torch.zeros_like(w),
-            -(z2 - torch.sign(z2) * lamda1)
-            / ((beta + torch.sqrt(n2)) / lr + wd))
+        w2, (z2, n2) = ftrl_step(w, g, (z_, n_), lr, lamda1, beta, wd,
+                                 rescale_grad, clip_gradient)
         return w2, z2, n2
     return _apply(f, [weight, grad, z, n], [out, _as_nd(z), _as_nd(n)])
 
@@ -224,24 +289,18 @@ def signum_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
                   out=None, **kw):
     """Signum: the sign of the momentum."""
     out = weight if out is None else out
-
-    def f(w, g, m):
-        gw = _clip(g * rescale_grad, clip_gradient)
-        m2 = momentum * m - (1 - momentum) * (gw + wd * w)
-        return (1 - lr * wd_lh) * w + lr * torch.sign(m2), m2
-    return _apply(f, [weight, grad, mom], [out, _as_nd(mom)])
+    return _apply(lambda w, g, m: signum_step(
+        w, g, m, lr, momentum, wd, rescale_grad, clip_gradient, wd_lh),
+        [weight, grad, mom], [out, _as_nd(mom)])
 
 
 def adagrad_update(weight, grad, history, lr, epsilon=1e-7, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0, out=None, **kw):
     """AdaGrad (dense form)."""
     out = weight if out is None else out
-
-    def f(w, g, h):
-        gw = _prep(g, rescale_grad, clip_gradient, wd, w)
-        h2 = h + gw * gw
-        return w - lr * gw / (torch.sqrt(h2) + epsilon), h2
-    return _apply(f, [weight, grad, history], [out, _as_nd(history)])
+    return _apply(lambda w, g, h: adagrad_step(
+        w, g, h, lr, epsilon, wd, rescale_grad, clip_gradient),
+        [weight, grad, history], [out, _as_nd(history)])
 
 
 def group_adagrad_update(weight, grad, history, lr, rescale_grad=1.0,

@@ -33,7 +33,7 @@ SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
            CSRC / "softmax.cu", CSRC / "conv_fused.cu",
            CSRC / "conv_fused_sm90.cu", CSRC / "lstm.cu",
            CSRC / "detection.cu", CSRC / "quantized.cu",
-           CSRC / "bindings.cpp")
+           CSRC / "multi_tensor.cu", CSRC / "bindings.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -98,6 +98,9 @@ _SIGNATURES = {
                             + [_F, _I, _P, _P, _P],
     "mxt_qmma_s8": [_I, _I] + [_P] * 4 + [_I] * 16 + [_I, _F, _F, _I, _P],
     "mxt_qtma_s8": [_I, _I] + [_P] * 6 + [_I, _F, _F, _I, _P],
+    "mxt_multi_tensor_update": [_I, _P, _I, _I, _P, _P],
+    "mxt_multi_tensor_all_finite": [_P, _I, _I, _P, _P, _P, _P],
+    "mxt_row_sparse_update": [_I, _P, _P, _I, _L, _I, _P, _P],
 }
 
 _lib = None

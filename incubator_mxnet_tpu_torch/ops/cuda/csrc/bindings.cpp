@@ -206,6 +206,15 @@ int qtma_s8_launch(int swap, int epi, const void* x, const void* w, void* y,
                    const void* bias, void* ws, const int* g, int relu,
                    float step, float s127, int zero, void* stream);
 
+int multi_tensor_update_launch(int kind, const void* table, int n_entries,
+                               int n_blocks, const void* flag, void* stream);
+int multi_tensor_all_finite_launch(const void* table, int n_entries,
+                                   int n_blocks, void* partial, void* ticket,
+                                   void* flag, void* stream);
+int row_sparse_update_launch(int kind, const void* entry, const void* ids,
+                             int n_ids, long long rows, int width,
+                             const void* flag, void* stream);
+
 extern "C" {
 
 // q (S, H, d); k/v (S, H, n_blocks * block_k, d); lengths (S,) int32.
@@ -787,6 +796,32 @@ int mxt_qtma_s8(int swap, int epi, const void* x, const void* w, void* y,
   return qtma_s8_launch(swap, epi, x, w, y, bias, ws,
                         static_cast<const int*>(g), relu, step, s127, zero,
                         stream);
+}
+
+// The fused trainer step (multi_tensor.cu). table: n_entries 104-byte
+// entries on the device (ops/cuda/multi_tensor.py ENTRY_DTYPE), n_blocks
+// the blocks they span; flag a one-byte census (1 = all finite) or null.
+int mxt_multi_tensor_update(int kind, const void* table, int n_entries,
+                            int n_blocks, const void* flag, void* stream) {
+  return multi_tensor_update_launch(kind, table, n_entries, n_blocks, flag,
+                                    stream);
+}
+
+// partial: n_blocks int32 scratch; ticket: one int32 zero (left zero).
+int mxt_multi_tensor_all_finite(const void* table, int n_entries,
+                                int n_blocks, void* partial, void* ticket,
+                                void* flag, void* stream) {
+  return multi_tensor_all_finite_launch(table, n_entries, n_blocks, partial,
+                                        ticket, flag, stream);
+}
+
+// entry: one entry in host memory (w, the states and g = the gradient's
+// rows); ids (n_ids,) int64 device row ids into the (rows, width) weight.
+int mxt_row_sparse_update(int kind, const void* entry, const void* ids,
+                          int n_ids, long long rows, int width,
+                          const void* flag, void* stream) {
+  return row_sparse_update_launch(kind, entry, ids, n_ids, rows, width, flag,
+                                  stream);
 }
 
 const char* mxt_cuda_error_string(int code) {

@@ -6,16 +6,26 @@ with momentum and multi-precision, NAG, Signum, SGLD, Adam, AdamW, AdaGrad,
 RMSProp, AdaDelta, Ftrl, Adamax, Nadam, FTML, DCASGD, LBSGD, LAMB, Test;
 ``Updater`` / ``get_updater``).
 
-Each update goes through the port's ``nd`` update ops
-(``ndarray/optimizer_ops.py``) where one computes the reference's rule:
-SGD, NAG, Signum with momentum, Adam (bias correction folded into the
-learning rate, as the reference's fused op takes it), AdaGrad, RMSProp
-(plain and centered), Ftrl and FTML. The others keep the reference's pure
-``tensor_step(w, g, state, h)`` rule, in PyTorch, applied under
-``torch.no_grad``. Weights and states are rebound, never written in place.
-The reference's fused whole-step executor (``optimizer/fused.py``, one
-donated XLA program per step) is not ported (ROADMAP.md A5): every update
-is per parameter.
+Every rule is one pure per-tensor function ``tensor_step(w, g, state,
+h) -> (w', state')`` on tensors, as in the reference. Where an ``nd``
+update op computes the reference's rule (SGD, NAG, Signum with momentum,
+Adam with its bias correction folded into the learning rate, AdaGrad,
+RMSProp plain and centered, Ftrl, FTML), ``tensor_step`` calls the same
+tensor function as the op (``ndarray/optimizer_ops.py``). ``h`` carries
+only host scalars (``fused_hypers``), so a learning-rate schedule, the
+guard's rescale ladder or ``set_learning_rate`` change data, never a
+plan. Two paths share that math:
+
+* the per-parameter ``update()``: ``tensor_step`` under ``torch.no_grad``,
+  the weight and the state arrays rebound to the results;
+* the fused whole step (``optimizer/fused.py``), which ``Updater.
+  update_batch`` takes by default: one ``multi_tensor_update`` launch a
+  step for SGD, NAG, Adam and AdamW, in place.
+
+Row-sparse gradients (``ndarray/sparse.py``) take the reference's lazy
+row update where it applies (SGD at momentum 0 per parameter; SGD at
+momentum 0, Adam and AdamW on the fused path) and are densified
+elsewhere.
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ from typing import Any, Dict
 import numpy as _np
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import registry_get
 from ..ndarray import optimizer_ops as _ops
+from ..ndarray import sparse as _sp
 from ..ndarray.ndarray import NDArray, array as nd_array, zeros as nd_zeros
 
 __all__ = ["Optimizer", "SGD", "NAG", "Signum", "SGLD", "Adam", "AdaGrad",
@@ -77,9 +89,26 @@ def _state_rebind(state, new):
         _state_rebind(s, n)
 
 
+def _sparse_to_dense_grad(grad):
+    """A row-sparse gradient as its dense tensor; every such densify is
+    counted (``mxtpu_embed_dense_densify_total``, as in the reference)."""
+    if isinstance(grad, _sp.BaseSparseNDArray):
+        _telemetry.counter(
+            "mxtpu_embed_dense_densify_total",
+            "Sparse gradients densified to full tensor shape (the "
+            "row-sparse fast paths exist to keep this at 0).").inc()
+        return grad.todense()
+    return grad
+
+
 class Optimizer:
     """Base optimizer (ref: optimizer.py:41 Optimizer): per-index update
-    counts, lr/wd multipliers, gradient rescale and clipping."""
+    counts, lr/wd multipliers, gradient rescale and clipping; concrete
+    classes give ``create_state`` and ``tensor_step``."""
+
+    # SGLD opts out (its noise is drawn a tensor at a time); everything
+    # else fuses
+    fused_eligible = True
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -171,8 +200,17 @@ class Optimizer:
 
     def tensor_step(self, w, g, state, h):
         """The pure update rule ``(w, g, state, h) -> (w', state')`` on
-        tensors, for optimizers that no nd update op computes."""
+        tensors: ``state`` is the tensor mirror of ``create_state``'s tree
+        (None where the optimizer keeps none), ``h`` the dict of
+        ``fused_hypers``. It has no host-side effects: the per-parameter
+        path and the fused step both call it."""
         raise NotImplementedError
+
+    def supports_fused(self) -> bool:
+        """True when the rule is a pure ``tensor_step`` the fused step can
+        run (ref: optimizer.py supports_fused)."""
+        return (self.fused_eligible
+                and type(self).tensor_step is not Optimizer.tensor_step)
 
     def _step(self, weight: NDArray, grad: NDArray, state, h) -> None:
         """Apply one update, rebinding ``weight`` and the state arrays."""
@@ -182,15 +220,18 @@ class Optimizer:
         weight._set_data(new_w)
         _state_rebind(state, new_state)
 
-    def update(self, index, weight: NDArray, grad: NDArray, state) -> None:
+    def update(self, index, weight: NDArray, grad, state) -> None:
         self._update_count(index)
-        self._step(weight, grad, state, self.fused_hypers(index))
+        self._step(weight, _sparse_to_dense_grad(grad), state,
+                   self.fused_hypers(index))
 
     def update_multi_precision(self, index, weight: NDArray, grad,
                                state) -> None:
         if self.multi_precision and weight.dtype == _np.float16:
             master, sub = state
-            self.update(index, master, grad.astype("float32"), sub)
+            g32 = grad.astype("float32") if isinstance(grad, NDArray) \
+                else grad
+            self.update(index, master, g32, sub)
             weight._set_data(master._data.to(torch.float16))
         else:
             self.update(index, weight, grad, state)
@@ -205,8 +246,8 @@ def _zeros_like(weight):
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum and weight decay (ref: optimizer.py:452), through
-    ``nd.sgd_update`` / ``nd.sgd_mom_update``."""
+    """SGD with momentum and weight decay (ref: optimizer.py:452), the rule
+    of ``nd.sgd_update`` / ``nd.sgd_mom_update``."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -222,24 +263,41 @@ class SGD(Optimizer):
         return h
 
     def tensor_step(self, w, g, state, h):
-        g = _rescale_clip(g, h) + h["wd"] * w
         if state is None:
-            return w - h["lr"] * g, None
-        mom = h["mom"] * state - h["lr"] * g
-        return w + mom, mom
+            return _ops.sgd_step(w, g, h["lr"], h["wd"], h["rescale"],
+                                 _clip_arg(h)), None
+        return _ops.sgd_mom_step(w, g, state, h["lr"], h["mom"], h["wd"],
+                                 h["rescale"], _clip_arg(h))
 
-    def _step(self, weight, grad, state, h):
-        kw = dict(lr=h["lr"], wd=h["wd"], rescale_grad=h["rescale"],
-                  clip_gradient=_clip_arg(h))
-        if state is None:
-            _ops.sgd_update(weight, grad, **kw)
-        else:
-            _ops.sgd_mom_update(weight, grad, state, momentum=h["mom"], **kw)
+    def multi_tensor_kind(self) -> str:
+        """The rule ``multi_tensor_update`` runs for this optimizer."""
+        return "sgd_mom" if self.momentum != 0.0 else "sgd"
+
+    def multi_tensor_hypers(self, h):
+        """``h`` as the kernel takes it: (lr, wd, rescale, clip,
+        constants), each the scalar ``tensor_step`` hands PyTorch."""
+        return (h["lr"], h["wd"], h["rescale"], _clip_arg(h),
+                (h["mom"],) if self.momentum != 0.0 else ())
+
+    def update(self, index, weight, grad, state):
+        if isinstance(grad, _sp.RowSparseNDArray) and self.lazy_update \
+                and self.momentum == 0.0 and grad.nnz:
+            # the reference's lazy row update (sparse sgd_update): only the
+            # active rows change, the weight rebound to the result
+            self._update_count(index)
+            h = self.fused_hypers(index)
+            w, rows = weight._data, grad.indices
+            with torch.no_grad():
+                new = _ops.sgd_step(w[rows], grad.data, h["lr"], h["wd"],
+                                    h["rescale"], _clip_arg(h))
+                weight._set_data(w.index_copy(0, rows, new))
+            return
+        super().update(index, weight, grad, state)
 
 
 @register
 class NAG(SGD):
-    """Nesterov accelerated SGD (ref: optimizer.py:NAG), through
+    """Nesterov accelerated SGD (ref: optimizer.py:NAG), the rule of
     ``nd.nag_mom_update``."""
 
     def __init__(self, momentum=0.0, **kwargs):
@@ -248,17 +306,11 @@ class NAG(SGD):
     def tensor_step(self, w, g, state, h):
         if state is None:
             return SGD.tensor_step(self, w, g, state, h)
-        g = _rescale_clip(g, h) + h["wd"] * w
-        mom = h["mom"] * state + g
-        return w - h["lr"] * (g + h["mom"] * mom), mom
+        return _ops.nag_mom_step(w, g, state, h["lr"], h["mom"], h["wd"],
+                                 h["rescale"], _clip_arg(h))
 
-    def _step(self, weight, grad, state, h):
-        if state is None:
-            return SGD._step(self, weight, grad, state, h)
-        _ops.nag_mom_update(weight, grad, state, lr=h["lr"],
-                            momentum=h["mom"], wd=h["wd"],
-                            rescale_grad=h["rescale"],
-                            clip_gradient=_clip_arg(h))
+    def multi_tensor_kind(self) -> str:
+        return "nag" if self.momentum != 0.0 else "sgd"
 
 
 @register
@@ -282,24 +334,24 @@ class Signum(Optimizer):
         return h
 
     def tensor_step(self, w, g, state, h):
+        if state is not None:
+            return _ops.signum_step(w, g, state, h["lr"], h["mom"], h["wd"],
+                                    h["rescale"], _clip_arg(h), h["wd_lh"])
         # the reference's momentum-free rule: the sign of g + wd w, with
         # the decoupled wd_lh decay (no nd op computes it)
         g = _rescale_clip(g, h)
         return ((1 - h["lr"] * h["wd_lh"]) * w
                 - h["lr"] * torch.sign(g + h["wd"] * w), None)
 
-    def _step(self, weight, grad, state, h):
-        if state is None:
-            return Optimizer._step(self, weight, grad, state, h)
-        _ops.signum_update(weight, grad, state, lr=h["lr"], momentum=h["mom"],
-                           wd=h["wd"], rescale_grad=h["rescale"],
-                           clip_gradient=_clip_arg(h), wd_lh=h["wd_lh"])
-
 
 @register
 class SGLD(Optimizer):
     """Stochastic gradient Langevin dynamics (ref: optimizer.py:SGLD); the
-    noise comes from the weight's device generator."""
+    noise comes from the weight's device generator. Not fused: its noise
+    is drawn a tensor at a time, which the pure ``tensor_step`` contract
+    excludes (ref: optimizer.py:411)."""
+
+    fused_eligible = False
 
     def update(self, index, weight, grad, state):
         from .. import random as _random
@@ -307,7 +359,7 @@ class SGLD(Optimizer):
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight._data
         with torch.no_grad():
-            g = grad._data * self.rescale_grad
+            g = _sparse_to_dense_grad(grad)._data * self.rescale_grad
             if self.clip_gradient is not None:
                 g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
             noise = torch.randn(w.shape, generator=_random.generator(
@@ -316,10 +368,17 @@ class SGLD(Optimizer):
         weight._set_data(new)
 
 
+def _adam_lr_t(h) -> float:
+    """Adam's learning rate with the bias correction folded in, as the
+    reference's fused op takes it."""
+    t = h["t"]
+    return h["lr"] * math.sqrt(1.0 - h["beta2"] ** t) / (1.0 - h["beta1"] ** t)
+
+
 @register
 class Adam(Optimizer):
-    """Adam (ref: optimizer.py:1022), through ``nd.adam_update`` with the
-    bias correction folded into the learning rate."""
+    """Adam (ref: optimizer.py:1022), the rule of ``nd.adam_update`` with
+    the bias correction folded into the learning rate."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -336,15 +395,27 @@ class Adam(Optimizer):
                  beta1=self.beta1, beta2=self.beta2, eps=self.epsilon)
         return h
 
-    def _step(self, weight, grad, state, h):
-        t = h["t"]
-        lr_t = h["lr"] * math.sqrt(1.0 - h["beta2"] ** t) \
-            / (1.0 - h["beta1"] ** t)
-        _ops.adam_update(weight, grad, state[0], state[1], lr=lr_t,
-                         beta1=h["beta1"], beta2=h["beta2"],
-                         epsilon=h["eps"], wd=h["wd"],
-                         rescale_grad=h["rescale"],
-                         clip_gradient=_clip_arg(h))
+    def tensor_step(self, w, g, state, h):
+        return _ops.adam_step(w, g, state, _adam_lr_t(h), h["beta1"],
+                              h["beta2"], h["eps"], h["wd"], h["rescale"],
+                              _clip_arg(h))
+
+    def multi_tensor_kind(self) -> str:
+        return "adam"
+
+    def multi_tensor_hypers(self, h):
+        b1, b2 = h["beta1"], h["beta2"]
+        return (_adam_lr_t(h), h["wd"], h["rescale"], _clip_arg(h),
+                (b1, 1 - b1, b2, 1 - b2, h["eps"]))
+
+
+def _adamw_corrections(h):
+    """AdamW's bias corrections as factors, 1 / (1 - beta^t), computed on
+    the host (a tensor divided by a host scalar is a product by its
+    reciprocal on the card, a division on the CPU; a product is the same
+    on both)."""
+    return (1.0 / (1 - h["beta1"] ** h["t"]),
+            1.0 / (1 - h["beta2"] ** h["t"]))
 
 
 @register
@@ -355,20 +426,27 @@ class AdamW(Adam):
         m, v = state
         g = _rescale_clip(g, h)
         b1, b2 = h["beta1"], h["beta2"]
+        c1, c2 = _adamw_corrections(h)
         new_m = b1 * m + (1 - b1) * g
         new_v = b2 * v + (1 - b2) * torch.square(g)
-        mhat = new_m / (1 - b1 ** h["t"])
-        vhat = new_v / (1 - b2 ** h["t"])
+        mhat = new_m * c1
+        vhat = new_v * c2
         new_w = w - h["lr"] * (mhat / (torch.sqrt(vhat) + h["eps"])
                                + h["wd"] * w)
         return new_w, (new_m, new_v)
 
-    _step = Optimizer._step
+    def multi_tensor_kind(self) -> str:
+        return "adamw"
+
+    def multi_tensor_hypers(self, h):
+        b1, b2 = h["beta1"], h["beta2"]
+        return (h["lr"], h["wd"], h["rescale"], _clip_arg(h),
+                (b1, 1 - b1, b2, 1 - b2, h["eps"], *_adamw_corrections(h)))
 
 
 @register
 class AdaGrad(Optimizer):
-    """(ref: optimizer.py:AdaGrad), through ``nd.adagrad_update``."""
+    """(ref: optimizer.py:AdaGrad), the rule of ``nd.adagrad_update``."""
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -382,17 +460,15 @@ class AdaGrad(Optimizer):
         h["eps"] = self.float_stable_eps
         return h
 
-    def _step(self, weight, grad, state, h):
-        _ops.adagrad_update(weight, grad, state, lr=h["lr"],
-                            epsilon=h["eps"], wd=h["wd"],
-                            rescale_grad=h["rescale"],
-                            clip_gradient=_clip_arg(h))
+    def tensor_step(self, w, g, state, h):
+        return _ops.adagrad_step(w, g, state, h["lr"], h["eps"], h["wd"],
+                                 h["rescale"], _clip_arg(h))
 
 
 @register
 class RMSProp(Optimizer):
-    """(ref: optimizer.py:RMSProp), through ``nd.rmsprop_update`` or, when
-    centered, ``nd.rmspropalex_update``."""
+    """(ref: optimizer.py:RMSProp), the rule of ``nd.rmsprop_update`` or,
+    when centered, ``nd.rmspropalex_update``."""
 
     def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
                  epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
@@ -415,16 +491,14 @@ class RMSProp(Optimizer):
                                if self.clip_weights else 0.0))
         return h
 
-    def _step(self, weight, grad, state, h):
-        kw = dict(lr=h["lr"], gamma1=h["gamma1"], epsilon=h["eps"],
-                  wd=h["wd"], rescale_grad=h["rescale"],
-                  clip_gradient=_clip_arg(h), clip_weights=h["clip_weights"])
+    def tensor_step(self, w, g, state, h):
         if self.centered:
-            n, g, delta = state
-            _ops.rmspropalex_update(weight, grad, n, g, delta,
-                                    gamma2=h["gamma2"], **kw)
-        else:
-            _ops.rmsprop_update(weight, grad, state, **kw)
+            return _ops.rmspropalex_step(
+                w, g, state, h["lr"], h["gamma1"], h["gamma2"], h["eps"],
+                h["wd"], h["rescale"], _clip_arg(h), h["clip_weights"])
+        return _ops.rmsprop_step(w, g, state, h["lr"], h["gamma1"], h["eps"],
+                                 h["wd"], h["rescale"], _clip_arg(h),
+                                 h["clip_weights"])
 
 
 @register
@@ -456,7 +530,7 @@ class AdaDelta(Optimizer):
 
 @register
 class Ftrl(Optimizer):
-    """(ref: optimizer.py:Ftrl), through ``nd.ftrl_update``."""
+    """(ref: optimizer.py:Ftrl), the rule of ``nd.ftrl_update``."""
 
     def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -470,11 +544,9 @@ class Ftrl(Optimizer):
         h.update(lamda1=self.lamda1, beta=self.beta)
         return h
 
-    def _step(self, weight, grad, state, h):
-        _ops.ftrl_update(weight, grad, state[0], state[1], lr=h["lr"],
-                         lamda1=h["lamda1"], beta=h["beta"], wd=h["wd"],
-                         rescale_grad=h["rescale"],
-                         clip_gradient=_clip_arg(h))
+    def tensor_step(self, w, g, state, h):
+        return _ops.ftrl_step(w, g, state, h["lr"], h["lamda1"], h["beta"],
+                              h["wd"], h["rescale"], _clip_arg(h))
 
 
 @register
@@ -549,7 +621,7 @@ class Nadam(Optimizer):
 
 @register
 class FTML(Optimizer):
-    """(ref: optimizer.py:FTML), through ``nd.ftml_update``."""
+    """(ref: optimizer.py:FTML), the rule of ``nd.ftml_update``."""
 
     def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -565,12 +637,10 @@ class FTML(Optimizer):
                  beta1=self.beta1, beta2=self.beta2, eps=self.epsilon)
         return h
 
-    def _step(self, weight, grad, state, h):
-        d, v, z = state
-        _ops.ftml_update(weight, grad, d, v, z, lr=h["lr"], beta1=h["beta1"],
-                         beta2=h["beta2"], epsilon=h["eps"], t=h["t"],
-                         wd=h["wd"], rescale_grad=h["rescale"],
-                         clip_grad=_clip_arg(h))
+    def tensor_step(self, w, g, state, h):
+        return _ops.ftml_step(w, g, state, h["lr"], h["beta1"], h["beta2"],
+                              h["eps"], h["t"], h["wd"], h["rescale"],
+                              _clip_arg(h))
 
 
 @register
@@ -634,7 +704,9 @@ class LBSGD(SGD):
             return w + new_m, new_m
         return w - lr_t * g, None
 
-    _step = Optimizer._step
+    def update(self, index, weight, grad, state):
+        # past SGD's lazy row-sparse branch: LARS needs the whole tensor
+        Optimizer.update(self, index, weight, grad, state)
 
 
 @register
@@ -691,7 +763,9 @@ _REG.register(Adam, "adam")
 
 class Updater:
     """Applies an optimizer by key, creating state lazily (ref:
-    optimizer.py get_updater / Updater)."""
+    optimizer.py get_updater / Updater). ``update_batch`` is the whole-step
+    entry the trainer routes through: the fused step (fused.py) where it
+    applies, the per-key loop otherwise."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -707,10 +781,26 @@ class Updater:
                                               self.states[index])
 
     def update_batch(self, indices, grads, weights, census=False):
-        """One step over many tensors, one update each (the reference's
-        fused whole-step path is ROADMAP.md A5). Returns None."""
+        """Apply one optimizer step to many tensors at once (ref:
+        optimizer.py:849). Returns the device-side all-finite census (a 0-d
+        bool NDArray) when ``census`` is asked for and the fused step ran,
+        else None. Falls back to the per-key loop when fusion is off or the
+        optimizer draws host-side randomness (SGLD)."""
+        from .fused import FusedStepExecutor, fused_enabled
+        for index, weight in zip(indices, weights):
+            if index not in self.states:
+                self.states[index] = \
+                    self.optimizer.create_state_multi_precision(index, weight)
+                self.states_synced[index] = True
+        if fused_enabled() and self.optimizer.supports_fused():
+            fe = self.__dict__.get("_fused_exec")
+            if fe is None or fe.optimizer is not self.optimizer:
+                fe = self._fused_exec = FusedStepExecutor(self.optimizer)
+            return fe.step(indices, weights, grads,
+                           [self.states[i] for i in indices], census=census)
         for index, grad, weight in zip(indices, grads, weights):
-            self(index, grad, weight)
+            self.optimizer.update_multi_precision(index, weight, grad,
+                                                  self.states[index])
         return None
 
     def get_states(self, dump_optimizer=False):
@@ -732,6 +822,7 @@ class Updater:
             states = obj
         self.states = {k: _states_from_numpy(v) for k, v in states.items()}
         self.states_synced = {k: False for k in self.states}
+        self.__dict__.pop("_fused_exec", None)
 
 
 def _states_to_numpy(state):

@@ -5,12 +5,11 @@ python/mxnet/test_utils.py): dtype-aware ``assert_almost_equal``,
 ``check_numeric_gradient`` (finite differences against autograd),
 ``check_consistency`` (the same computation on every context and type),
 ``default_context``, random shapes and arrays, ``copy_params`` and the
-``quant_chain_net`` fixture. Arrays are made on the current context, so a
-CPU test runs these inside ``with mx.cpu():``. Not ported yet:
-``rand_sparse_ndarray`` (sparse storage, ``ROADMAP.md`` A4),
-``simple_forward`` (the symbolic API, A11) and ``assert_no_retrace``
-(``optimizer/fused.py``'s step counters, A4; graph capture is A3): each
-raises, naming its item.
+``quant_chain_net`` fixture, ``rand_sparse_ndarray`` and
+``assert_no_retrace`` (the fused step's plan builds and captured CUDA
+graphs). Arrays are made on the current context, so a CPU test runs these
+inside ``with mx.cpu():``. Not ported yet: ``simple_forward`` (the
+symbolic API, ROADMAP.md A11), which raises, naming its item.
 """
 from __future__ import annotations
 
@@ -135,13 +134,43 @@ def assert_almost_equal(a, b, rtol=None, atol=None, names=("a", "b"),
 
 
 class assert_no_retrace:
-    """The reference's zero-retrace gate watches the fused optimizer step's
-    trace counters; the port has neither that step nor traces yet."""
+    """Context manager asserting that nothing is rebuilt inside the block
+    (ref: test_utils.py assert_no_retrace): the fused step's plan builds
+    (``fused_step_compiles`` and ``per_param_compiles`` of
+    ``optimizer.fused.stats()``) and, for each ``cuda_graph.CapturedStep``
+    passed, its graph (a capture made inside the block is a rebuild).
+    Stepping a learning-rate scheduler, ``set_learning_rate`` and the
+    guard's rescale ladder change launch data only::
 
-    def __init__(self, *jitted):
-        raise NotImplementedError(
-            "assert_no_retrace: the fused optimizer step it watches "
-            "(optimizer/fused.py) is ROADMAP.md A4, graph capture A3")
+        with assert_no_retrace():
+            for _ in range(10):
+                trainer.step(batch)
+
+    Raises AssertionError naming what moved."""
+
+    def __init__(self, *captured):
+        self._captured = captured
+
+    def __enter__(self):
+        from .optimizer import fused
+        self._before = fused.stats()
+        self._graphs = [step.graph for step in self._captured]
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is not None:
+            return False
+        from .optimizer import fused
+        after = fused.stats()
+        for key in ("fused_step_compiles", "per_param_compiles"):
+            assert after[key] == self._before[key], (
+                f"retrace detected: {key} went {self._before[key]} -> "
+                f"{after[key]} inside an assert_no_retrace block")
+        for step, graph in zip(self._captured, self._graphs):
+            assert step.graph is graph, (
+                f"retrace detected: {step} was captured again inside an "
+                "assert_no_retrace block")
+        return False
 
 
 def rand_shape_2d(dim0=10, dim1=10):
@@ -160,7 +189,8 @@ def rand_shape_nd(num_dim, dim=10):
 def rand_ndarray(shape, stype="default", density=None, dtype=None,
                  ctx=None, **kwargs):
     """Uniform(-1, 1) values from numpy's global generator (ref:
-    test_utils.py rand_ndarray); only the default storage."""
+    test_utils.py rand_ndarray); a sparse ``stype`` through
+    :func:`rand_sparse_ndarray`."""
     if stype != "default":
         return rand_sparse_ndarray(shape, stype, density=density,
                                    dtype=dtype)[0]
@@ -169,8 +199,18 @@ def rand_ndarray(shape, stype="default", density=None, dtype=None,
 
 
 def rand_sparse_ndarray(shape, stype, density=None, dtype=None, **kwargs):
-    raise NotImplementedError(
-        f"rand_sparse_ndarray({stype!r}): sparse storage is ROADMAP.md A4")
+    """A random CSR or row-sparse array and its components (ref:
+    test_utils.py rand_sparse_ndarray): Uniform(-1, 1) values kept with
+    probability ``density`` (0.3), from numpy's global generator. Returns
+    (array, (data, indices)) for row_sparse, (array, (data, indices,
+    indptr)) for csr."""
+    from .ndarray import sparse as _sp
+    density = 0.3 if density is None else density
+    arr = _np.random.uniform(-1, 1, size=shape).astype(dtype or _np.float32)
+    mask = _np.random.rand(*shape) < density
+    sp = _sp.cast_storage(nd_array(arr * mask), stype)
+    return sp, (sp.data, sp.indices) if stype == "row_sparse" else \
+        (sp.data, sp.indices, sp.indptr)
 
 
 def numeric_grad(f: Callable, inputs: List[_np.ndarray], eps=1e-4):

@@ -236,5 +236,7 @@ def test_unported_pieces_name_their_roadmap_item():
     # int8 quantization (A9) is ported now: the op returns NDArray codes
     q, mn, mx_ = tmx.nd.contrib.quantize(x, x.min(), x.max())
     assert q.dtype == np.int8 and q.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="A4"):
+    # CSR storage is ported: edge_id takes a CSR adjacency and refuses a
+    # dense one
+    with pytest.raises(TypeError, match="CSR"):
         tmx.nd.contrib.edge_id(x, x, x)

@@ -2,9 +2,10 @@
 CPU: the policy, the NaN/Inf sentinel, the loss-spike detector, the
 skip -> rescale -> rollback ladder with its LR backoff, the hung-step
 watchdog, the chaos points, ``check_tensors`` and ``gluon.Trainer(guard=)``
-skipping a NaN update on the per-parameter step; the same scripted losses
-through the JAX package's guard give the same ladder. Ported from
-``tests/test_guard.py``; its cases that need ``fault.py`` (A10),
+skipping a NaN update on the per-parameter step and, through its device
+census, on the fused step (the cases of ``tests/test_fused_step.py``);
+the same scripted losses through the JAX package's guard give the same
+ladder. Ported from ``tests/test_guard.py``; its cases that need ``fault.py`` (A10),
 ``module/`` or ``monitor.py`` (A11) wait for those items (ROADMAP.md).
 The rollback rung restores through a checkpoint-manager double that keeps
 weights in memory (``latest()`` / ``restore()``, the interface the guard
@@ -279,12 +280,20 @@ def test_deferred_losses_flush_in_one_copy():
 
 
 def test_fused_census_waits_for_the_fused_step():
-    g = TrainingGuard(GuardPolicy())
-    for call in (lambda: g.fused_grads_ok(None),
-                 lambda: g.note_device_census(torch.tensor(True)),
-                 g.flush_census):
-        with pytest.raises(NotImplementedError, match="A5"):
-            call()
+    """A queued census resolves at the next fused step's hook (or an
+    explicit flush): a passing one marks the step clean, a failing one
+    trips the ladder with the census's detail."""
+    g = TrainingGuard(GuardPolicy(skip_limit=5))
+    g.note_device_census(torch.tensor(True))
+    assert g.fused_grads_ok(None) and g.events == []
+    g.note_device_census(torch.tensor(False))
+    assert g.events == []                        # not read yet
+    assert g.fused_grads_ok(None)                # SKIP: proceed
+    assert [(e.kind, e.action, e.detail) for e in g.events] == [
+        ("nan", SKIP, "fused census (device)")]
+    g.note_device_census(nd.array(np.zeros((), np.float32)))
+    assert g.flush_census() and len(g.events) == 2
+    assert g.flush_census()                      # the queue is empty
 
 
 # ------------------------------------------------------------- integrations
@@ -299,10 +308,12 @@ def test_trainer_guard_skips_nan_update():
     assert not np.allclose(net.weight.data().asnumpy(), w)
 
 
-def test_trainer_guard_checks_real_gradients(caplog):
-    """A NaN in a gradient (no chaos) is caught on the per-parameter step;
+def test_trainer_guard_checks_real_gradients(caplog, monkeypatch):
+    """A NaN in a gradient (no chaos) is caught on the per-parameter step
+    (``MXTPU_FUSED_STEP=0``; the fused step's census is the test below);
     a bound guard object is kept as given, and its logger records the
     trip."""
+    monkeypatch.setenv("MXTPU_FUSED_STEP", "0")
     g = TrainingGuard(GuardPolicy(skip_limit=5))
     g.ensure_logger()
     net = gluon.nn.Dense(4, in_units=3)
@@ -320,6 +331,117 @@ def test_trainer_guard_checks_real_gradients(caplog):
     np.testing.assert_array_equal(net.weight.data().asnumpy(), w)
     assert g.events[-1].kind == "nan" and "grad:" in g.events[-1].detail
     assert any("GUARD" in r.getMessage() for r in caplog.records)
+
+
+# ------------------------------------- the fused step's census (ported
+# from tests/test_fused_step.py)
+def _dense_trainer(**kw):
+    net = gluon.nn.Dense(4, in_units=3)
+    net.initialize(tmx.init.Xavier())
+    return net, gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1}, **kw)
+
+
+def _one_step(net, tr, batch=2):
+    with tmx.autograd.record():
+        loss = net(nd.ones((batch, 3))).sum()
+    loss.backward()
+    tr.step(batch)
+
+
+def _poisoned_step(net, tr):
+    with tmx.autograd.record():
+        loss = net(nd.ones((2, 3))).sum()
+    loss.backward()
+    gw = net.weight.grad()
+    gw._set_data(nd.array(np.full(gw.shape, np.nan, np.float32))._data)
+    tr.step(2)
+
+
+def test_census_rollback_drops_inflight_step(monkeypatch):
+    """A failed census that trips all the way to ROLLBACK drops the
+    in-flight step: its gradients were computed against the pre-rollback
+    weights."""
+    from incubator_mxnet_tpu_torch import guard as guard_mod
+    net, tr = _dense_trainer(guard=GuardPolicy(skip_limit=5))
+    _one_step(net, tr)
+    monkeypatch.setattr(guard_mod.TrainingGuard, "_trip",
+                        lambda self, *a, **k: ROLLBACK)
+    tr.guard.note_device_census(nd.array(np.zeros((), np.float32)))
+    w = net.weight.data().asnumpy().copy()
+    _one_step(net, tr)
+    np.testing.assert_array_equal(net.weight.data().asnumpy(), w)
+
+
+def test_fused_chaos_nan_parity():
+    """The guard.nan chaos point skips the fused step synchronously, as it
+    does the per-parameter one."""
+    from incubator_mxnet_tpu_torch.optimizer import fused
+    net, tr = _dense_trainer(guard=GuardPolicy(skip_limit=5))
+    _one_step(net, tr)
+    w = net.weight.data().asnumpy().copy()
+    before = fused.stats()["fused_step_dispatches"]
+    chaos.arm("guard.nan", prob=1.0, times=1)
+    _one_step(net, tr)
+    np.testing.assert_allclose(net.weight.data().asnumpy(), w)
+    assert tr.guard.events[-1].kind == "nan"
+    assert fused.stats()["fused_step_dispatches"] == before
+    _one_step(net, tr)
+    assert not np.allclose(net.weight.data().asnumpy(), w)
+
+
+def test_fused_census_skips_nan_update_on_device():
+    """A real non-finite gradient: the census skips the whole update on
+    the device (weights and bias intact, no host read in the step), and
+    the ladder trips when the census is read."""
+    net, tr = _dense_trainer(guard=GuardPolicy(skip_limit=5))
+    _one_step(net, tr)
+    w = net.weight.data().asnumpy().copy()
+    b = net.bias.data().asnumpy().copy()
+    n_events = len(tr.guard.events)
+    _poisoned_step(net, tr)
+    np.testing.assert_array_equal(net.weight.data().asnumpy(), w)
+    np.testing.assert_array_equal(net.bias.data().asnumpy(), b)
+    tr.guard.flush_census()
+    assert len(tr.guard.events) == n_events + 1
+    assert tr.guard.events[-1].kind == "nan"
+    assert "fused census" in tr.guard.events[-1].detail
+    _one_step(net, tr)
+    assert not np.allclose(net.weight.data().asnumpy(), w)
+
+
+def test_fused_census_resolves_at_next_step():
+    net, tr = _dense_trainer(guard=GuardPolicy(skip_limit=5))
+    _one_step(net, tr)
+    n_events = len(tr.guard.events)
+    _poisoned_step(net, tr)
+    assert len(tr.guard.events) == n_events      # not read yet
+    _one_step(net, tr)
+    assert len(tr.guard.events) == n_events + 1
+    assert tr.guard.events[-1].kind == "nan"
+
+
+def test_guard_ladder_counts_match_legacy():
+    """The same injected-NaN schedule on the fused and the per-parameter
+    step gives the same ladder events."""
+    def run(fused_on):
+        mp = pytest.MonkeyPatch()
+        try:
+            if not fused_on:
+                mp.setenv("MXTPU_FUSED_STEP", "0")
+            net, tr = _dense_trainer(
+                guard=GuardPolicy(skip_limit=2, rescale_limit=1))
+            _one_step(net, tr)
+            chaos.arm("guard.nan", prob=1.0, times=2)
+            for _ in range(4):
+                _one_step(net, tr)
+            return [(e.kind, e.action) for e in tr.guard.events]
+        finally:
+            mp.undo()
+            chaos.reset()
+    legacy, fused_events = run(False), run(True)
+    assert fused_events == legacy
+    assert [k for k, _ in fused_events] == ["nan", "nan"]
 
 
 # --------------------------------------------------------------- watchdog

@@ -154,9 +154,16 @@ def test_prefetching_iter_source_error_is_attributed():
             next(it)
 
 
-def test_libsvm_iter_names_the_sparse_slice():
-    with pytest.raises(NotImplementedError, match="A4"):
-        tio.LibSVMIter("x.libsvm", (10,))
+def test_libsvm_iter_names_the_sparse_slice(tmp_path):
+    """The sparse slice is ported: LibSVMIter yields CSR batches
+    (tests/test_torch_sparse.py holds it against the reference); a file
+    that is not there raises."""
+    with pytest.raises(FileNotFoundError):
+        tio.LibSVMIter(str(tmp_path / "x.libsvm"), (10,))
+    path = tmp_path / "y.libsvm"
+    path.write_text("1 3:2.5\n0 0:1.0\n")
+    batch = next(iter(tio.LibSVMIter(str(path), (10,), batch_size=2)))
+    assert batch.data[0].stype == "csr" and batch.data[0].shape == (2, 10)
 
 
 # ----------------------------------------------------------- ImageRecordIter

@@ -487,8 +487,12 @@ def test_unported_ops_name_their_roadmap_item():
     for mx in (jmx, tmx):
         with pytest.raises(KeyError, match="sqr"):
             mx.nd.Custom(mx.nd.array(X), op_type="sqr")
-    with pytest.raises(NotImplementedError, match="A4"):
-        x.tostype("csr")
+    # sparse storage is ported (tests/test_torch_sparse.py): tostype
+    # converts in both packages
+    for mx, arr in ((jmx, jmx.nd.array(X)), (tmx, x)):
+        csr = arr.tostype("csr")
+        assert csr.stype == "csr"
+        np.testing.assert_array_equal(csr.asnumpy(), X)
 
 
 def test_unknown_keyword_raises_in_both():

@@ -70,7 +70,13 @@ def test_importing_the_port_loads_no_jax():
                  "gluon.model_zoo.vision.mobilenet", "contrib.text",
                  "gluon.contrib", "gluon.contrib.data",
                  "gluon.contrib.data.sampler", "gluon.contrib.data.text",
-                 "rnn", "rnn.io"):
+                 "rnn", "rnn.io", "util", "log", "misc", "libinfo",
+                 "ndarray.sparse", "ndarray.linalg", "optimizer.fused",
+                 "ops.cuda.multi_tensor", "gluon.contrib.nn",
+                 "gluon.contrib.nn.basic_layers", "gluon.contrib.rnn",
+                 "gluon.contrib.rnn.rnn_cell",
+                 "gluon.contrib.rnn.conv_rnn_cell", "contrib.autograd",
+                 "contrib.io", "contrib.ndarray", "contrib.tensorboard"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -83,6 +89,7 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "lstm.cu" in files
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "detection.cu" in files
     assert PKG_DIR / "ops" / "cuda" / "csrc" / "quantized.cu" in files
+    assert PKG_DIR / "ops" / "cuda" / "csrc" / "multi_tensor.cu" in files
     assert PKG_DIR / "contrib" / "quantization.py" in files
     assert PKG_DIR / "tools" / "serve.py" in files
     assert PKG_DIR / "io.py" in files

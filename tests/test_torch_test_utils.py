@@ -230,15 +230,30 @@ def test_default_context_and_dtype():
     ("simple_forward", (None,), "A11"),
     ("assert_no_retrace", (), "A4")])
 def test_unported_helpers_raise_naming_their_item(name, args, item):
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(tmx.test_utils, name)(*args)
+    """``simple_forward`` (the symbolic API) raises naming A11; the helpers
+    that waited for A4 (sparse storage, the fused step's plan counters)
+    are ported and work."""
+    fn = getattr(tmx.test_utils, name)
+    if item != "A4":
+        with pytest.raises(NotImplementedError, match=item):
+            fn(*args)
+        return
+    out = fn(*args)
+    if name == "rand_sparse_ndarray":
+        assert out[0].stype == "csr" and out[0].shape == (3, 3)
+        assert len(out[1]) == 3
+    else:
+        with out:
+            tmx.nd.ones((2,)) + 1
 
 
 def test_rand_ndarray_of_sparse_storage_raises():
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmx.test_utils.rand_ndarray((3, 3), stype="row_sparse")
-    with pytest.raises(NotImplementedError, match="A3"):
-        tmx.test_utils.assert_no_retrace()
+    """Sparse storage is ported: a sparse ``stype`` gives a sparse array
+    (the name is kept from when it raised)."""
+    arr = tmx.test_utils.rand_ndarray((3, 3), stype="row_sparse")
+    assert arr.stype == "row_sparse" and arr.shape == (3, 3)
+    with tmx.test_utils.assert_no_retrace():
+        pass
 
 
 # ---------------------------------------------------------- gluon helpers

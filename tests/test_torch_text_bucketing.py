@@ -227,9 +227,7 @@ def test_unported_names_raise_and_name_their_queue():
         trnn.LSTMCell
     with pytest.raises(NotImplementedError, match="A11"):
         trnn.save_rnn_checkpoint
-    with pytest.raises(NotImplementedError, match="A item 2"):
-        tmx.gluon.contrib.nn
-    with pytest.raises(NotImplementedError, match="A item 2"):
-        tmx.gluon.contrib.rnn
+    # gluon.contrib.nn and .rnn are ported (tests/test_torch_contrib_extras.py)
+    assert tmx.gluon.contrib.nn.Identity and tmx.gluon.contrib.rnn.LSTMPCell
     assert tmx.gluon.contrib.data.WikiText2 is tcdata.WikiText2
     assert tmx.contrib.text is ttext

@@ -4,6 +4,7 @@ of the paths they drive than the whole script):
     python3 tools/chip_phases.py 27 28 29 30     # the fed lanes (~3 min)
     python3 tools/chip_phases.py 17 20           # the LSTM and detection
                                                  # kernels' checks
+    python3 tools/chip_phases.py 31              # the fused trainer step
 
 It builds the kernels, runs each named phase in turn with its inputs
 from the phases it would follow left out (their img/s logged as None)
@@ -36,7 +37,9 @@ def main(names) -> int:
         "28": lambda: cs.input_service_phase(mx, gluon, vision, common,
                                              records, None, None),
         "29": lambda: cs.zoo_serving_phase(mx, vision),
-        "30": lambda: cs.bucketed_lm_phase(mx, common, records)}
+        "30": lambda: cs.bucketed_lm_phase(mx, common, records),
+        "31": lambda: cs.fused_step_phase(mx, gluon, vision, common,
+                                          records)}
     unknown = [n for n in names if n not in phases]
     if not names or unknown:
         print(__doc__ + f"\nphases: {sorted(phases)}", file=sys.stderr)

@@ -383,6 +383,17 @@ Phases:
    and ``BucketSentenceIter(buckets=[10, 20, 35])``: 3 captures, 4 T
    tensor-core LSTM launches a step at each bucket, tok/s a bucket, and
    a captured T 35 step against the eager one bit for bit (dropout 0).
+32. the mesh (``tools/chip_mesh.py``, :func:`mesh_phase`): the five
+   paths of the reference's multi-device dry run as a gloo world of 8
+   rank processes on the card (NCCL refuses two ranks on one card; the
+   collectives stage through pinned host memory): the full-width LM over
+   (data 2, tensor 2, seq 2) on ring attention over the flash kernels,
+   3 steps, step 1 against the single-device step, each rank's flash
+   launches 12 * (seq rank + 1) a step; Ulysses, FSDP + expert-parallel
+   MoE, ResNet-50 over (data 4, fsdp 2) and gpipe at the dry run's
+   sizes; and a 1-rank NCCL world running the LM at depth 2 on the
+   trivial mesh. The flash rows of the kernels line carry the mesh
+   launches (``mesh_launches``).
 
 After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
 caching allocator's cache and logs allocated and reserved bytes; where
@@ -9279,6 +9290,9 @@ def main() -> int:
     phase_done("phase 30, the bucketed word LM")
     fused_step = fused_step_phase(mx, gluon, vision, common, records)
     phase_done("phase 31, the fused trainer step")
+    from tools import chip_mesh
+    mesh = chip_mesh.mesh_phase(log, records)
+    phase_done("phase 32, the mesh")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -9310,6 +9324,7 @@ def main() -> int:
     log(f"the zoo families served {json.dumps(zoo_serve)}")
     log(f"the bucketed word LM {json.dumps(bucketed_lm)}")
     log(f"the fused trainer step {json.dumps(fused_step)}")
+    log(f"the mesh {json.dumps(mesh)}")
     over = [h["phase"] for h in held
             if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
     table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),

@@ -12,10 +12,15 @@ it by name (the CPU tests do): ``device="cpu"``, ``ctx=mx.cpu()`` or
 with-scoped current device plus explicit placement. ``gpu(i)`` and
 ``tpu(i)`` both name CUDA card ``i`` (the reference keeps ``gpu`` as the
 alias of its accelerator); unlike the reference, an accelerator context
-never stands for the CPU when no accelerator is present.
+never stands for the CPU when no accelerator is present. Under a world
+of processes (``LOCAL_RANK`` set, as ``tools/launch.py`` and
+``torch.distributed`` launchers set it), ``gpu(i)`` is this process's
+``i``-th device (:func:`local_devices`), as the reference's contexts name
+the process's local devices.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional, Union
 
@@ -23,7 +28,7 @@ import torch
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "Context", "cpu", "gpu", "tpu", "device", "current_context",
-           "num_gpus", "num_tpus"]
+           "num_gpus", "num_tpus", "local_devices"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -85,15 +90,25 @@ class Context:
         """The ``torch.device``; raises ``NoCudaDeviceError`` for a GPU
         context when no card is present."""
         if self.device_type == "gpu":
-            return resolve_device(f"cuda:{self.device_id}")
+            devs = local_devices()
+            if self.device_id >= len(devs):
+                raise ValueError(
+                    f"gpu({self.device_id}): this process has "
+                    f"{len(devs)} local device(s) {[str(d) for d in devs]}")
+            return devs[self.device_id]
         return torch.device("cpu")
 
     @classmethod
     def from_torch(cls, dev: torch.device) -> "Context":
         """The context of a tensor's device: ``gpu(i)`` or ``cpu(0)``."""
         if dev.type == "cuda":
-            return cls("gpu", dev.index if dev.index is not None
-                       else torch.cuda.current_device())
+            index = (dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+            if "LOCAL_RANK" in os.environ and torch.cuda.is_available():
+                devs = local_devices()
+                if torch.device("cuda", index) in devs:
+                    return cls("gpu", devs.index(torch.device("cuda", index)))
+            return cls("gpu", index)
         return cls("cpu", 0)
 
     def __eq__(self, other) -> bool:
@@ -149,6 +164,22 @@ def device(device_type: str = "cpu", device_id: int = 0) -> Context:
 
 def current_context() -> Context:
     return Context.default_ctx()
+
+
+def local_devices():
+    """This process's CUDA devices: every card, or, under a world of
+    processes (``LOCAL_RANK`` set), the one card ``LOCAL_RANK`` modulo the
+    card count (so ranks beyond the cards share them). Raises
+    ``NoCudaDeviceError`` when no card is present."""
+    if not torch.cuda.is_available():
+        raise NoCudaDeviceError(
+            "a CUDA device was requested but torch.cuda.is_available() is "
+            "False — pass device='cpu' to run on the CPU")
+    n = torch.cuda.device_count()
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", int(local) % n)]
 
 
 def num_gpus() -> int:

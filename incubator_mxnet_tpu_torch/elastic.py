@@ -6,7 +6,7 @@ Counterpart of the first part of ``incubator_mxnet_tpu/elastic.py``:
 view's ranks), which ``input_service.InputService`` slices its deliveries
 by. The membership authorities, the quiesce/reshard controller and its
 policy (``ElasticPolicy``, ``SimulatedMembership``, ``PSMembership``,
-``ElasticController``) are ROADMAP.md A10 (distributed), not ported yet;
+``ElasticController``) are ROADMAP.md A10b (distributed), not ported yet;
 their names raise.
 """
 from __future__ import annotations
@@ -54,5 +54,5 @@ def __getattr__(name):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"elastic.{name}: elastic membership and resharding are "
-            "ROADMAP.md A10 (distributed), not ported yet")
+            "ROADMAP.md A10b (distributed), not ported yet")
     raise AttributeError(f"module 'elastic' has no attribute {name!r}")

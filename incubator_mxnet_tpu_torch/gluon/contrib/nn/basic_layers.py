@@ -5,9 +5,9 @@ Counterpart of ``incubator_mxnet_tpu/gluon/contrib/nn/basic_layers.py``
 HybridConcurrent, Identity, SparseEmbedding, SyncBatchNorm backed by
 src/operator/contrib/sync_batch_norm-inl.h, PixelShuffle2D).
 ``SparseEmbedding``'s gradient is row-sparse (``Parameter.
-row_sparse_grad``). On one device ``SyncBatchNorm`` is a BatchNorm with the
-reference's statistics (E[x^2] - E[x]^2); its reduction across devices
-waits for the multi-card slice (ROADMAP.md A10).
+row_sparse_grad``). ``SyncBatchNorm`` is a BatchNorm with the reference's
+statistics (E[x^2] - E[x]^2), averaged over the current mesh's
+``axis_name`` ranks when there is one.
 """
 from __future__ import annotations
 
@@ -79,11 +79,14 @@ class SparseEmbedding(Block):
 
 class SyncBatchNorm(BatchNorm):
     """Synchronized BatchNorm (ref: basic_layers.py SyncBatchNorm; kernel
-    src/operator/contrib/sync_batch_norm-inl.h) over channel axis 1. On
-    one device the batch statistics are this device's: mean and E[x^2] -
-    mean^2, the moving statistics updated as the reference updates them.
-    ``num_devices`` and ``axis_name`` are kept for the reference's
-    signature; the cross-device mean is ROADMAP.md A10."""
+    src/operator/contrib/sync_batch_norm-inl.h) over channel axis 1: the
+    batch statistics are mean and E[x^2] - mean^2, each averaged over the
+    ranks of the current mesh's ``axis_name`` axis (``collectives.pmean``,
+    so the gradients are those of the whole batch), or this rank's own
+    with no mesh or no such axis, as the reference degrades outside
+    ``shard_map``; the moving statistics are updated as the reference
+    updates them. ``num_devices`` is kept for the reference's
+    signature."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
@@ -105,17 +108,22 @@ class SyncBatchNorm(BatchNorm):
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         from .... import autograd as _ag
         from ....ndarray.ndarray import invoke
+        from ....parallel import collectives as C
+        from ....parallel.mesh import get_mesh
         training = _ag.is_training() and not self._use_global_stats
         eps, mom, ax = self._epsilon, self._momentum, self._axis
+        mesh = get_mesh()
+        if mesh is not None and mesh.shape.get(self._axis_name, 1) == 1:
+            mesh = None
 
         def f(xv, g, b, mm, mv):
             red = tuple(i for i in range(xv.dim()) if i != ax)
             shape = [1] * xv.dim()
             shape[ax] = xv.shape[ax]
             if training:
-                mean = torch.mean(xv, dim=red)
-                var = torch.mean(torch.square(xv), dim=red) \
-                    - torch.square(mean)
+                mean, meansq = C.synced_moments(xv, red, self._axis_name,
+                                                mesh)
+                var = meansq - torch.square(mean)
                 nm = mm * mom + mean * (1 - mom)
                 nv = mv * mom + var * (1 - mom)
             else:

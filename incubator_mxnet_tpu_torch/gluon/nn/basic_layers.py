@@ -307,11 +307,11 @@ class Embedding(HybridBlock):
 
 class ShardedEmbedding(HybridBlock):
     """Embedding whose table is row-sharded across a mesh axis: the
-    multi-card slice (ROADMAP.md A10), not ported."""
+    multi-card slice (ROADMAP.md A10b), not ported."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "ShardedEmbedding: mesh-sharded tables are ROADMAP.md A10 (not "
+            "ShardedEmbedding: mesh-sharded tables are ROADMAP.md A10b (not "
             "ported)")
 
 

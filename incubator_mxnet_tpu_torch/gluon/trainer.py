@@ -13,7 +13,7 @@ that the guard reads one step later instead of a host sync a step.
 per-parameter path, which row-sparse parameters always take; there a
 guarded step whose gradients trip the NaN sentinel is dropped before any
 state is touched. The distributed stores (``dist_*``,
-``update_on_kvstore``, gradient compression) are ROADMAP.md A10 and
+``update_on_kvstore``, gradient compression) are ROADMAP.md A10b and
 raise.
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ class Trainer:
             raise NotImplementedError(
                 f"Trainer(kvstore={kvstore!r}, update_on_kvstore="
                 f"{update_on_kvstore!r}, compression_params=...): "
-                "distributed and on-store updates are ROADMAP.md A10 (one "
+                "distributed and on-store updates are ROADMAP.md A10b (one "
                 "card: kvstore None, 'local' or 'device')")
         self._params: List[Parameter] = []
         self._param2idx: Dict[str, int] = {}
@@ -197,7 +197,7 @@ class Trainer:
     def snapshot_states(self):
         raise NotImplementedError(
             "Trainer.snapshot_states: async checkpointing (fault.py) is "
-            "ROADMAP.md A10")
+            "ROADMAP.md A10b")
 
     def load_states(self, fname):
         """(ref: trainer.py load_states)"""

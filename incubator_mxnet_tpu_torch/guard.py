@@ -36,7 +36,7 @@ Differences from the reference:
 
 * the rollback rung restores through any manager with ``latest()`` and
   ``restore(net=, trainer=, module=, step=)`` (the reference's
-  ``fault.CheckpointManager``; ``fault.py`` is ROADMAP.md A10), or through
+  ``fault.CheckpointManager``; ``fault.py`` is ROADMAP.md A10b), or through
   ``restore_fn``;
 * the fused trainer step's census is a one-byte flag that
   ``multi_tensor_all_finite`` leaves on the card (``optimizer/fused.py``);
@@ -340,7 +340,7 @@ class TrainingGuard:
     ``watch("data"|"forward"|"step"|"ckpt")``. ``gluon.Trainer``
     accepts ``guard=GuardPolicy(...)`` (or a guard) and checks each step's
     gradients itself (the reference's ``fault.auto_resume_fit`` and
-    ``module.BaseModule.fit`` are ROADMAP.md A10 and A11).
+    ``module.BaseModule.fit`` are ROADMAP.md A10b and A11).
     """
 
     def __init__(self, policy: Optional[GuardPolicy] = None,

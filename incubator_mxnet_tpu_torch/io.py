@@ -365,10 +365,20 @@ class PrefetchingIter(DataIter):
 # the device prefetcher
 # ---------------------------------------------------------------------------
 
-def _no_mesh(what: str):
-    raise NotImplementedError(
-        f"{what}: sharding a batch over a mesh's data axis is the "
-        "distributed slice (ROADMAP.md A10), not ported yet")
+def _mesh_block(t, device, sharded):
+    """(this rank's block of the batch leaf ``t`` along dim 0 under the
+    current mesh's data sharding, the mesh's device), or None: with an
+    explicit ``device``, ``sharded=False``, no mesh, a data axis of one,
+    or a batch that does not split evenly (the reference's rule, which
+    then replicates)."""
+    if device is not None or sharded is False:
+        return None
+    from .parallel.mesh import _block, data_sharding, get_mesh
+    spec = data_sharding(t.shape[0] if t.dim() else None)
+    if spec is None:
+        return None
+    mesh = get_mesh()
+    return _block(t, spec, mesh), mesh.device
 
 
 def _leaf_tensor(a):
@@ -389,14 +399,18 @@ def device_transfer(a, device=None, sharded=None):
     current context's): NDArrays and numpy arrays come back as NDArrays,
     tensors as tensors, anything else as it is. A copy from the host is
     synchronous here; ``DevicePrefetcher`` does the asynchronous one.
-    ``sharded=True`` raises (ROADMAP.md A10)."""
-    if sharded:
-        _no_mesh("device_transfer(sharded=True)")
+    With no ``device`` and a current mesh (unless ``sharded=False``) the
+    leaf comes back as this rank's block of the batch over the mesh's data
+    axis, on the mesh's device (:func:`_mesh_block`)."""
     t, kind = _leaf_tensor(a)
     if t is None:
         return a
-    dev = (current_context().torch_device if device is None
-           else resolve_device(device))
+    blk = _mesh_block(t, device, sharded)
+    if blk is not None:
+        t, dev = blk
+    else:
+        dev = (current_context().torch_device if device is None
+               else resolve_device(device))
     out = t.to(dev)
     return _wrap(out) if kind == "nd" else out
 
@@ -489,7 +503,9 @@ class DevicePrefetcher(DataIter):
     ``mxtpu_pipeline_stall_ms`` (counter, ms the consumer waited for a
     batch), ``mxtpu_pipeline_depth`` (gauge, batches queued when the
     consumer fetched) and a ``prefetch_wait`` span for every wait.
-    ``sharded=True`` raises (ROADMAP.md A10)."""
+    With no ``device`` and a current mesh (unless ``sharded=False``) each
+    leaf is cut to this rank's block over the mesh's data axis on the host
+    and copied to the mesh's device (``device_transfer``'s rule)."""
 
     #: producer-side sleep per fired ``pipeline.stall`` chaos eval
     STALL_CHAOS_S = 0.05
@@ -497,8 +513,12 @@ class DevicePrefetcher(DataIter):
     def __init__(self, source, depth: Optional[int] = None, sharded=None,
                  device=None):
         super().__init__(getattr(source, "batch_size", 0))
-        if sharded:
-            _no_mesh("DevicePrefetcher(sharded=True)")
+        from .parallel.mesh import get_mesh
+        mesh = get_mesh() if device is None and sharded is not False \
+            else None
+        self._sharded = mesh is not None
+        if mesh is not None:
+            device = mesh.device
         if depth is None:
             depth = int(os.environ.get("MXTPU_PREFETCH_DEPTH", "2"))
         if depth < 1:
@@ -542,14 +562,16 @@ class DevicePrefetcher(DataIter):
         """(the batch on the device, the copy's event or None, its tensors
         on the device)."""
         if self._stream is None:
-            return _map_leaves(batch, lambda a: device_transfer(
-                a, self.device)), None, ()
+            return _map_leaves(batch, lambda a: self._transfer(a)), None, ()
         moved = []
 
         def move(a):
             t, kind = _leaf_tensor(a)
             if t is None:
                 return a
+            blk = _mesh_block(t, None, None) if self._sharded else None
+            if blk is not None:
+                t = blk[0]
             if t.device != self.device:
                 if t.device.type == "cpu" and not t.is_pinned():
                     t = t.pin_memory()
@@ -561,6 +583,16 @@ class DevicePrefetcher(DataIter):
             event = torch.cuda.Event()
             event.record(self._stream)
         return out, event, tuple(moved)
+
+    def _transfer(self, a):
+        if not self._sharded:
+            return device_transfer(a, self.device)
+        t, kind = _leaf_tensor(a)
+        blk = _mesh_block(t, None, None) if t is not None else None
+        if blk is None:
+            return device_transfer(a, self.device)
+        out = blk[0].to(self.device)
+        return _wrap(out) if kind == "nd" else out
 
     # ------------------------------------------------------------- consumer
     def next(self):

@@ -18,10 +18,22 @@ even in a bf16 model, so the activations after it meet bf16 weights; such
 a product is taken in the promotion of both types, as ``jnp.matmul``
 takes it.
 
+On a mesh (``parallel.mesh.Mesh``) training is a per-rank program: the
+parameters are this rank's shards under :func:`param_specs`
+(:func:`shard_params` cuts them from whole ones, :func:`gather_params`
+joins them), the tokens its (data, seq) block, and every collective is
+explicit: a vocab-parallel embedding and tied head over ``tensor``,
+Megatron q/k/v/o and MLP over ``tensor``, ZeRO all-gathers of the
+attention weights over ``fsdp`` (their backward a reduce-scatter), ring
+attention on the flash kernels or Ulysses over ``seq``, and the
+expert-parallel MoE over ``expert`` on the reference's token chunks. The
+collectives carry the transposes of JAX's ``shard_map(check_vma=False)``,
+so the loss, the same on every rank, is seeded with 1 / world size and a
+gradient is summed over the axes its parameter is replicated on.
+
 Differences from the JAX functions: the cache functions update the cache
 dict's tensors IN PLACE (and return the same dict), which saves a
-cache-sized copy per call; a ``mesh`` is not supported yet (the
-distributed slice, ``ROADMAP.md`` A10).
+cache-sized copy per call.
 """
 from __future__ import annotations
 
@@ -39,11 +51,17 @@ from ..ops.cuda.flash_attention import (decode_attention, flash_attention,
                                         flash_attention_packed,
                                         flash_attention_packed_viable,
                                         paged_decode_attention)
-from ..parallel.moe import moe_layer_dense
-from ..parallel.ring_attention import attention_reference
+from ..parallel import collectives as C
+from ..parallel.mesh import P, _block, _gather_blocks, _need_mesh
+from ..parallel.moe import moe_layer_dense, moe_layer_local
+from ..parallel.ring_attention import (attention_reference,
+                                       make_ring_flash_attention,
+                                       ring_attention)
+from ..parallel.ulysses import ulysses_attention
 
 __all__ = ["TransformerConfig", "init_transformer_params", "params_from_jax",
-           "opt_state_from_jax", "transformer_forward", "headmajor_proj",
+           "opt_state_from_jax", "param_specs", "shard_params",
+           "gather_params", "transformer_forward", "headmajor_proj",
            "headmajor_out", "tied_head_xent", "transformer_loss_and_grads",
            "make_transformer_train_step", "init_kv_cache",
            "transformer_prefill", "transformer_decode_step",
@@ -61,10 +79,8 @@ class TransformerConfig:
     """Hyperparameters, as in the JAX package, with a torch dtype.
     ``n_experts`` > 0 puts an MoE FFN in every other layer (training
     only: the serving functions take dense models). ``use_ring_attention``
-    and ``sequence_parallel_mode`` choose the attention across a mesh; no
-    function of the port reads them yet (a mesh raises, ``ROADMAP.md``
-    A10), and they are kept, with the reference's checks, so that a JAX
-    configuration carries across unchanged."""
+    and ``sequence_parallel_mode`` choose the attention across a mesh's
+    ``seq`` axis (ring or Ulysses)."""
     vocab_size: int = 32000
     d_model: int = 512
     n_heads: int = 8
@@ -210,6 +226,56 @@ def opt_state_from_jax(np_opt, cfg: TransformerConfig,
             "t": _tensor_from_numpy(np_opt["t"], dev, None)}
 
 
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The reference's spec tree for the parameters: the embedding split
+    on the vocab over ``tensor``, q/k/v on (``fsdp``, ``tensor``) and o on
+    (``tensor``, ``fsdp``), the MLP Megatron-style over ``tensor``, the
+    experts over ``expert``, the rest replicated."""
+    spec: Dict[str, Any] = {"embed": P("tensor", None), "pos_embed": P(),
+                            "final_ln_g": P(), "final_ln_b": P()}
+    layers = []
+    for i in range(cfg.n_layers):
+        lp = {"ln1_g": P(), "ln1_b": P(), "wq": P("fsdp", "tensor"),
+              "wk": P("fsdp", "tensor"), "wv": P("fsdp", "tensor"),
+              "wo": P("tensor", "fsdp"), "ln2_g": P(), "ln2_b": P()}
+        if _is_moe_layer(cfg, i):
+            lp.update(moe_gate=P(), moe_w1=P("expert", None, None),
+                      moe_b1=P("expert", None),
+                      moe_w2=P("expert", None, None),
+                      moe_b2=P("expert", None))
+        else:
+            lp.update(w1=P(None, "tensor"), b1=P("tensor"),
+                      w2=P("tensor", None), b2=P())
+        layers.append(lp)
+    spec["layers"] = layers
+    return spec
+
+
+def _mesh_spec(spec, mesh):
+    """``spec`` with the axes the mesh lacks taken out."""
+    return P(*(None if e is None else (
+        tuple(a for a in ((e,) if isinstance(e, str) else e)
+              if a in mesh.shape) or None) for e in spec))
+
+
+def shard_params(params, specs, mesh) -> Dict[str, Any]:
+    """This rank's shards of whole parameters (a tree as
+    :func:`init_transformer_params` / :func:`params_from_jax` make it,
+    e.g. from the same numpy arrays on every rank) under ``specs``
+    (:func:`param_specs`), on the mesh's device."""
+    mesh = _need_mesh(mesh)
+    return _tree_map(lambda t, s: _block(t, _mesh_spec(s, mesh), mesh).to(
+        mesh.device).contiguous(), params, specs)
+
+
+def gather_params(params, specs, mesh) -> Dict[str, Any]:
+    """Whole parameters on every rank from each rank's shards (the
+    inverse of :func:`shard_params`)."""
+    mesh = _need_mesh(mesh)
+    return _tree_map(lambda t, s: _gather_blocks(
+        t.detach().contiguous(), _mesh_spec(s, mesh), mesh), params, specs)
+
+
 def _layernorm(x, g, b, eps: float = 1e-5):
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
@@ -223,13 +289,6 @@ def _mlp(x, lp):
 
 
 # ------------------------------------------------------------------ training
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not supported yet: the distributed training "
-            "path is ROADMAP.md A10; pass mesh=None")
-
-
 def headmajor_proj(h, w, H: int):
     """(B, T, M) @ (M, H*D) -> (B, H, T, D): QKV projection, head-major."""
     B, T, M = h.shape
@@ -245,6 +304,163 @@ def headmajor_out(attn, w):
     return _mm(a2, w).reshape(B, T, w.shape[1])
 
 
+def _size(mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1)
+
+
+def _index(mesh, axis: str) -> int:
+    return mesh.coords[axis] if axis in mesh.shape else 0
+
+
+def _psum_over(x, axes, mesh):
+    """psum over those of ``axes`` the mesh has at size > 1."""
+    axes = tuple(a for a in axes if _size(mesh, a) > 1)
+    return C.psum(x, axes, mesh) if axes else x
+
+
+def _fsdp_gather(w, dim: int, mesh):
+    """A weight split over ``fsdp`` on ``dim``, whole (ZeRO-3: the
+    backward reduce-scatters its gradient)."""
+    return C.all_gather(w, "fsdp", dim, mesh=mesh) \
+        if _size(mesh, "fsdp") > 1 else w
+
+
+def _mesh_attention(q, k, v, cfg: TransformerConfig, mesh):
+    """This rank's (B, T_local, H_local, D) attention: ring (on the flash
+    kernels where the block tiles) or Ulysses over ``seq``; on one seq
+    rank, the flash kernels (or plain attention) on the local heads."""
+    from ..ops.cuda.flash_attention import (flash_attention_packed,
+                                            flash_kernel_viable)
+    B, T, h, D = q.shape
+    tiles = cfg.use_flash_attention and flash_kernel_viable(T, T, D)
+    if _size(mesh, "seq") > 1:
+        if cfg.sequence_parallel_mode == "ulysses":
+            return ulysses_attention(q, k, v, "seq", cfg.causal, mesh=mesh)
+        if tiles:
+            return make_ring_flash_attention("seq", cfg.causal,
+                                             mesh=mesh)(q, k, v)
+        return ring_attention(q, k, v, "seq", cfg.causal, mesh=mesh)
+    if tiles:
+        return flash_attention_packed(
+            q.reshape(B, T, h * D), k.reshape(B, T, h * D),
+            v.reshape(B, T, h * D), h, causal=cfg.causal).view(B, T, h, D)
+    return attention_reference(q, k, v, causal=cfg.causal)
+
+
+def _mesh_moe(h, lp, cfg: TransformerConfig, mesh):
+    """The expert-parallel FFN on the reference's token chunks: the
+    global (B * T) tokens split in ``expert``-many contiguous chunks, each
+    routed by the ranks of that expert index. Returns (this rank's block
+    of y, aux)."""
+    B, T, d = h.shape
+    g = h
+    if _size(mesh, "seq") > 1:
+        g = C.all_gather(g, "seq", 1, mesh=mesh)
+    if _size(mesh, "data") > 1:
+        g = C.all_gather(g, "data", 0, mesh=mesh)
+    flat = g.reshape(-1, d)
+    args = (lp["moe_gate"], lp["moe_w1"], lp["moe_b1"], lp["moe_w2"],
+            lp["moe_b2"])
+    if "expert" in mesh.shape:
+        ne = _size(mesh, "expert")
+        n = flat.shape[0] // ne
+        y, aux = moe_layer_local(
+            flat.narrow(0, _index(mesh, "expert") * n, n), *args,
+            n_experts=cfg.n_experts, axis_name="expert",
+            capacity_factor=cfg.capacity_factor, mesh=mesh)
+        if ne > 1:
+            y = C.all_gather(y, "expert", 0, mesh=mesh)
+    else:
+        y, aux = moe_layer_dense(flat, *args,
+                                 capacity_factor=cfg.capacity_factor)
+    y = y.reshape(g.shape[0], g.shape[1], d)
+    y = y.narrow(0, _index(mesh, "data") * B, B)
+    return y.narrow(1, _index(mesh, "seq") * T, T), aux
+
+
+def _mesh_forward(params, tokens, cfg: TransformerConfig, mesh,
+                  return_hidden: bool = False):
+    """The per-rank forward: ``params`` this rank's shards, ``tokens`` its
+    (B_local, T_local) block. Returns (this rank's logits block, its
+    vocab split over ``tensor``, or the final hidden states; aux)."""
+    B, T = tokens.shape
+    nt = _size(mesh, "tensor")
+    if cfg.n_heads % nt:
+        raise ValueError(f"n_heads {cfg.n_heads} does not split over the "
+                         f"tensor axis ({nt})")
+    if _size(mesh, "seq") > 1 and not cfg.use_ring_attention:
+        raise ValueError("a mesh with a seq axis needs use_ring_attention "
+                         "(ring or Ulysses attention over the sequence)")
+    h_loc, D = cfg.n_heads // nt, cfg.head_dim
+    emb = params["embed"]
+    vl = emb.shape[0]
+    ids = tokens - _index(mesh, "tensor") * vl
+    inside = ((ids >= 0) & (ids < vl))[..., None].to(emb.dtype)
+    t0 = _index(mesh, "seq") * T
+    x = (_psum_over(emb[ids.clamp(0, vl - 1)] * inside, ("tensor",), mesh)
+         + params["pos_embed"][t0:t0 + T][None])
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params["layers"]:
+        h = _layernorm(x, lp["ln1_g"], lp["ln1_b"])
+        q, k, v = (_mm(h, _fsdp_gather(lp[n], 0, mesh)).reshape(
+            B, T, h_loc, D) for n in ("wq", "wk", "wv"))
+        attn = _mesh_attention(q, k, v, cfg, mesh).reshape(B, T, h_loc * D)
+        x = x + _psum_over(_mm(attn, _fsdp_gather(lp["wo"], 1, mesh)),
+                           ("tensor",), mesh)
+        h = _layernorm(x, lp["ln2_g"], lp["ln2_b"])
+        if "moe_w1" in lp:
+            y, aux = _mesh_moe(h, lp, cfg, mesh)
+            x = x + y
+            aux_total = aux_total + aux.float()
+        else:
+            mid = F.gelu(_mm(h, lp["w1"]) + lp["b1"], approximate="tanh")
+            x = x + (_psum_over(_mm(mid, lp["w2"]), ("tensor",), mesh)
+                     + lp["b2"])
+    x = _layernorm(x, params["final_ln_g"], params["final_ln_b"])
+    if return_hidden:
+        return x, aux_total
+    return _mm(x, emb.T), aux_total
+
+
+def _mesh_xent(logits, labels, mesh):
+    """Mean token cross-entropy over the global tokens from this rank's
+    vocab-split logits block, the same on every rank."""
+    vl = logits.shape[-1]
+    lf = logits.float()
+    m = lf.amax(dim=-1)
+    if _size(mesh, "tensor") > 1:
+        m = C.pmax(m, "tensor", mesh)
+    m = m.detach()
+    lse = m + torch.log(_psum_over(torch.exp(lf - m[..., None]).sum(dim=-1),
+                                   ("tensor",), mesh))
+    ids = labels - _index(mesh, "tensor") * vl
+    inside = (ids >= 0) & (ids < vl)
+    gold = logits.gather(-1, ids.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = _psum_over(gold * inside.to(gold.dtype), ("tensor",), mesh)
+    n = labels.numel() * _size(mesh, "data") * _size(mesh, "seq")
+    local = (lse.to(logits.dtype) - gold).float().sum() / n
+    return _psum_over(local, ("data", "seq"), mesh)
+
+
+def _mesh_loss_and_grads(params, tokens, labels, cfg: TransformerConfig,
+                         mesh, aux_weight: float):
+    p = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        logits, aux = _mesh_forward(p, tokens.long(), cfg, mesh)
+        loss = _mesh_xent(logits, labels.long(), mesh) + aux_weight * aux
+        leaves = _tree_leaves(p)
+        # the loss is replicated on every rank: each seeds its share
+        grads = torch.autograd.grad(
+            loss, leaves, grad_outputs=torch.full_like(loss, 1 / mesh.size),
+            allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    specs = _tree_leaves(param_specs(cfg))
+    grads = C.sum_replicas(grads, specs, mesh)
+    it = iter(grads)
+    return loss.detach(), _tree_map(lambda _: next(it), p)
+
+
 def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None,
                         return_hidden: bool = False):
     """tokens (B, T) -> (logits (B, T, vocab), aux_loss float32); with
@@ -254,8 +470,13 @@ def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None,
     Attention: the packed flash route where
     ``flash_attention_packed_viable(T, d_model, n_heads, B)`` holds, the
     head-major flash route otherwise, and :func:`attention_reference` with
-    ``cfg.use_flash_attention=False``."""
-    _no_mesh(mesh)
+    ``cfg.use_flash_attention=False``. With a ``mesh`` the call is this
+    rank's part of the per-rank program: ``params`` its shards,
+    ``tokens`` its (data, seq) block, and the logits its block with the
+    vocab split over ``tensor``."""
+    if mesh is not None:
+        return _mesh_forward(params, tokens, cfg, _need_mesh(mesh),
+                             return_hidden)
     B, T = tokens.shape
     H = cfg.n_heads
     x = params["embed"][tokens] + params["pos_embed"][:T][None]
@@ -397,12 +618,18 @@ def tied_head_xent(h2, emb, labels1, nc: int):
 
 def transformer_loss_and_grads(params, tokens, labels, cfg: TransformerConfig,
                                aux_weight: float = 1e-2,
-                               fused_head: bool = False):
+                               fused_head: bool = False, mesh=None):
     """The train step's objective, mean cross-entropy of the tied head plus
     ``aux_weight`` times the MoE balancing loss, and its gradient tree.
     ``fused_head`` scans the vocab (:func:`tied_head_xent`) instead of
     forming the logits. Returns (loss, grads) with grads in the layout of
-    ``params``."""
+    ``params``. With a ``mesh``: this rank's shards and (data, seq) block
+    of tokens and labels; the loss is the global one and each gradient
+    is that of this rank's shard (the head's logits are formed, as the
+    reference forms them on a mesh)."""
+    if mesh is not None:
+        return _mesh_loss_and_grads(params, tokens, labels, cfg,
+                                    _need_mesh(mesh), aux_weight)
     p = _tree_map(lambda t: t.detach().requires_grad_(True), params)
     tokens = tokens.long()
     labels = labels.long()
@@ -443,7 +670,7 @@ def make_transformer_train_step(cfg: TransformerConfig, mesh=None,
                                 learning_rate: float = 1e-3,
                                 aux_weight: float = 1e-2, seed: int = 0,
                                 device=None):
-    """Build (step, params, opt_state) for training on one device.
+    """Build (step, params, opt_state) for training on one device or a mesh.
 
     ``step(params, opt_state, tokens, labels) -> (params, opt_state,
     loss)``, with Adam (b1 0.9, b2 0.999, eps 1e-8) written out as in the
@@ -456,11 +683,24 @@ def make_transformer_train_step(cfg: TransformerConfig, mesh=None,
     the JAX initialiser's). The head is the explicit-logits one unless
     ``MXTPU_FUSED_HEAD=1``, or unless the logits would exceed 8 GB in
     float32 and ``MXTPU_FUSED_HEAD`` is not ``0`` (read when the step is
-    built)."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    built).
+
+    With a ``mesh`` (``parallel.mesh.Mesh``; every rank builds the step)
+    the parameters and Adam's state are this rank's shards under
+    :func:`param_specs` on the mesh's device (``device`` is ignored),
+    cut from the same whole parameters on every rank; ``step`` takes the
+    global tokens and labels, works on this rank's (data, seq) block,
+    and returns the global loss (the head's logits are formed, as on the
+    reference's mesh)."""
+    if mesh is not None:
+        mesh = _need_mesh(mesh)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_transformer_params(gen, cfg, device=dev)
+    if mesh is not None:
+        params = shard_params(params, param_specs(cfg), mesh)
     opt_state = {"m": _tree_map(torch.zeros_like, params),
                  "v": _tree_map(torch.zeros_like, params),
                  "t": torch.zeros((), dtype=torch.float32, device=dev)}
@@ -471,11 +711,19 @@ def make_transformer_train_step(cfg: TransformerConfig, mesh=None,
         return n_tokens * V * 4 > 8 * 1024 ** 3
 
     def step(params, opt_state, tokens, labels):
-        fused = force == "1" or (
-            force != "0" and big_logits(tokens.shape[0] * tokens.shape[1]))
-        loss, grads = transformer_loss_and_grads(
-            params, tokens, labels, cfg, aux_weight=aux_weight,
-            fused_head=fused)
+        if mesh is not None:
+            batch = P("data" if "data" in mesh.shape else None,
+                      "seq" if "seq" in mesh.shape else None)
+            loss, grads = _mesh_loss_and_grads(
+                params, _block(tokens, batch, mesh).to(dev),
+                _block(labels, batch, mesh).to(dev), cfg, mesh, aux_weight)
+        else:
+            fused = force == "1" or (
+                force != "0"
+                and big_logits(tokens.shape[0] * tokens.shape[1]))
+            loss, grads = transformer_loss_and_grads(
+                params, tokens, labels, cfg, aux_weight=aux_weight,
+                fused_head=fused)
         b1, b2, eps = 0.9, 0.999, 1e-8
         with torch.no_grad():
             t = opt_state["t"] + 1

@@ -177,7 +177,8 @@ def counted_kernel(fn):
     bumps ``fn.sm90_launches`` when the call took that route, and
     ``fn.x3_launches`` as well when that route was the float32 one with
     every operand in three bf16 pieces (``mm_fused``, ``conv3_fused``,
-    ``dgrad_epilogue``, ``mm_fused_bwd``, ``conv3_fused_bwd``). Counts
+    ``dgrad_epilogue``, ``mm_fused_bwd``, ``conv3_fused_bwd``, and the
+    float32 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``). Counts
     made while a graph is captured are the capture's
     (:func:`recording_launches`)."""
     kern = _CountedKernel(fn)

@@ -28,7 +28,8 @@ the gradient products (:func:`flash_wgmma_bwd_plan`). ``_route="fma"``
 (private; the model never passes it) forces float32 onto the old FMA
 kernels, and ``_route="wmma"`` bf16 onto the old WMMA kernels, which
 ``chip_smoke.py`` keeps as the yardsticks; the "mma" and "wgmma" routes'
-launches are also counted in ``fn.sm90_launches``.
+launches are also counted in ``fn.sm90_launches``, and the "mma" route's
+(float32 in three bf16 pieces) in ``fn.x3_launches`` as well.
 
 Every training function takes both layouts: given ``n_heads`` its tensors
 are packed (B, T, H*d) with lse/delta (B, T, H); without, head-major
@@ -624,6 +625,8 @@ def _count(kern, route: str) -> None:
     kern.launches += 1
     if route in ("mma", "wgmma"):
         kern.sm90_launches += 1
+    if route == "mma":
+        kern.x3_launches += 1
 
 
 @counted_kernel

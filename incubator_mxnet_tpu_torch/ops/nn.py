@@ -220,13 +220,14 @@ def _bn_train_fused_make(axis: int, eps: float):
 
 _BN_FUSED_CACHE = {}
 
-# override of the training-BN implementation ("plain"/"fused"), as the
-# reference's remat train step sets it
+# override of the training-BN implementation ("plain"/"fused", as the
+# reference's remat train step sets it, or a function of (x, reduced dims)
+# returning the batch's (mean, mean square), as a mesh step sets it)
 _BN_IMPL_OVERRIDE = None
 
 
 @contextlib.contextmanager
-def bn_impl_override(impl: str):
+def bn_impl_override(impl):
     global _BN_IMPL_OVERRIDE
     prev = _BN_IMPL_OVERRIDE
     _BN_IMPL_OVERRIDE = impl
@@ -236,10 +237,33 @@ def bn_impl_override(impl: str):
         _BN_IMPL_OVERRIDE = prev
 
 
+def _bn_train_moments(x, gamma, beta, axis, eps, moments):
+    """The fused forward's formula (E[x^2] - E[x]^2, clamped) on the
+    statistics ``moments(x float32, reduced dims)`` returns (mean, mean
+    square), as a differentiable composition. Returns (y, mean, var)."""
+    ax = axis % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != ax)
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    mean, meansq = moments(x.float(), red)
+    var = torch.clamp(meansq - torch.square(mean), min=0.0)
+    inv = torch.rsqrt(var + eps)
+    g32 = gamma.float()
+    a = (g32 * inv).reshape(shape)
+    b = (beta.float() - mean * g32 * inv).reshape(shape)
+    y = (x * a.to(x.dtype) + b.to(x.dtype)).to(x.dtype)
+    return y, mean.detach(), var.detach()
+
+
 def _bn_train_fused(x, gamma, beta, axis, eps):
     """Training BN: the fused Function by default; under
     ``bn_impl_override("plain")`` or ``MXTPU_BN_IMPL=plain`` the same
-    forward as a plain differentiable composition."""
+    forward as a plain differentiable composition; under
+    ``bn_impl_override(moments)`` a plain composition on the statistics
+    that ``moments`` returns (a mesh step's synchronised BatchNorm)."""
+    if callable(_BN_IMPL_OVERRIDE):
+        return _bn_train_moments(x, gamma, beta, axis, eps,
+                                 _BN_IMPL_OVERRIDE)
     key = (axis, float(eps))
     if key not in _BN_FUSED_CACHE:
         _BN_FUSED_CACHE[key] = _bn_train_fused_make(axis, eps)

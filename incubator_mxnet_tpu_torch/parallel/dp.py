@@ -42,14 +42,28 @@ under ``torch.utils.checkpoint`` with that policy, cut into segments
 (``remat``), and BatchNorm runs its plain composition, as in the
 reference.
 
-A mesh, ``param_spec`` and the multi-card trainer are ROADMAP.md A10; the
-exported train step (``export_train_step``) is A11. They raise.
+On a mesh (``mesh=``, or the current mesh when None, as in the
+reference) the step is a per-rank program over static buffers of this
+rank's shards: parameters and optimizer state cut by ``param_spec``
+(default replicated, pure data parallelism; ``P("fsdp")`` ZeRO-3),
+gathered whole for the forward (their backward a reduce-scatter), the
+global x and y cut to this rank's block over ``data_axes``, BatchNorm's
+batch statistics taken over the whole split batch
+(``collectives.synced_moments`` through ``ops.nn.bn_impl_override``), the
+loss averaged over ``data_axes`` and
+the gradients summed over the axes each parameter is replicated on. A
+mesh step is not captured as a CUDA graph (gloo collectives cannot be
+captured); asking for it raises.
+
+The exported train step (``export_train_step``) is ROADMAP.md A11 and
+raises.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -63,16 +77,11 @@ from ..gluon.parameter import parameter_substitution
 from ..ndarray.ndarray import NDArray, _wrap
 from ..ops.nn import bn_impl_override
 from ..remat import REMAT_POLICIES, resolve as _resolve_remat_policy
+from . import collectives as C
+from .mesh import P, _as_axes, _block, _gather_blocks, _need_mesh, get_mesh
 
 __all__ = ["functional_call", "DataParallelTrainer", "make_train_step",
            "export_train_step", "REMAT_POLICIES"]
-
-
-def _no_mesh(what: str, mesh=None, param_spec=None) -> None:
-    if mesh is not None or param_spec is not None:
-        raise NotImplementedError(
-            f"{what}: a device mesh / param_spec is the multi-card slice "
-            "(ROADMAP.md A10); pass mesh=None")
 
 
 def functional_call(net: Block, param_values: Dict[str, Any], *inputs,
@@ -176,7 +185,7 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
                     data_axes: Tuple[str, ...] = ("data",),
                     param_spec=None, donate: bool = True,
                     compute_dtype=None, unroll_steps: int = 1,
-                    remat=None, _capture: bool = True):
+                    remat=None, _capture: Optional[bool] = None):
     """Build (step_fn, params, aux_params, opt_state) on the net's device.
 
     ``step(params, aux_params, opt_state, x, y, key=None, lr=None) ->
@@ -202,8 +211,22 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
     ``_capture=False`` keeps the body eager on the card: the yardstick the
     captured step is measured against, not a knob. The first captured step
     on a device empties the allocator's cache once
-    (``cuda_graph.capture_stream``)."""
-    _no_mesh("make_train_step", mesh, param_spec)
+    (``cuda_graph.capture_stream``). On a mesh (the module's note) the
+    returned parameters and state are this rank's shards, x and y stay
+    global, and the loss is the global one."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is not None:
+        mesh = _need_mesh(mesh)
+        if _capture:
+            raise ValueError(
+                "make_train_step: a mesh step is not captured as a CUDA "
+                "graph (gloo collectives cannot be captured; capturing an "
+                "NCCL mesh step is later work): leave _capture unset")
+        pspec = param_spec if param_spec is not None else P()
+        axes = _as_axes(data_axes)
+    elif param_spec is not None:
+        raise ValueError("make_train_step: param_spec needs a mesh")
+    capture = mesh is None if _capture is None else _capture
     if remat is None and os.environ.get("MXTPU_REMAT"):
         remat = os.environ["MXTPU_REMAT"]
     policy = _resolve_remat_policy(remat)
@@ -214,6 +237,10 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
     params0 = {n: p.data()._data.detach().clone()
                for n, p in trainable.items()}
     aux0 = {n: p.data()._data.detach().clone() for n, p in aux.items()}
+    if mesh is not None:
+        params0 = {n: _block(v, pspec, mesh).to(mesh.device).contiguous()
+                   for n, v in params0.items()}
+        aux0 = {n: v.to(mesh.device) for n, v in aux0.items()}
 
     if optimizer == "sgd":
         opt_state0 = _sgd_init(params0, momentum)
@@ -235,32 +262,57 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
             return v.to(compute_dtype)
         return v
 
+    # on a mesh, training BN takes the statistics of the whole split batch;
+    # under remat it runs as a plain composition so the policy sees its
+    # statistics (as the reference does, dp.py:275). Both are plain
+    # compositions, so a remat policy sees the synced statistics too.
+    bn_impl = None
+    if mesh is not None and axes:
+        bn_impl = functools.partial(C.synced_moments, axis_name=axes,
+                                    mesh=mesh)
+    elif policy is not None:
+        bn_impl = "plain"
+
     def loss_of(leaves, aux_params, x, y, key):
         merged = {n: _to_compute(v) for n, v in leaves.items()}
         merged.update({n: _to_compute(v) for n, v in aux_params.items()})
-        # under remat, training BN runs as a plain composition so the
-        # policy sees its statistics (as the reference does, dp.py:275)
-        with (bn_impl_override("plain") if policy is not None
+        with (bn_impl_override(bn_impl) if bn_impl is not None
               else contextlib.nullcontext()):
             return _forward_loss(net, loss_fn, merged, _to_compute(x), y,
                                  key, capture_updates=list(aux_params))
 
+    def forward_loss(leaves, aux_params, x, y, key):
+        if policy is None:
+            return loss_of(leaves, aux_params, x, y, key)
+        if segmented:
+            with _remat.segments(policy):
+                return loss_of(leaves, aux_params, x, y, key)
+        return _remat.checkpointed(policy, loss_of, leaves, aux_params, x,
+                                   y, key)
+
     def one_step(params, aux_params, opt_state, x, y, key, lr):
         names = list(params)
         leaves = {n: params[n].detach().requires_grad_(True) for n in names}
+        seed = None
         with torch.enable_grad():
-            if policy is None:
-                loss, new_aux = loss_of(leaves, aux_params, x, y, key)
-            elif segmented:
-                with _remat.segments(policy):
-                    loss, new_aux = loss_of(leaves, aux_params, x, y, key)
+            if mesh is None:
+                loss, new_aux = forward_loss(leaves, aux_params, x, y, key)
             else:
-                loss, new_aux = _remat.checkpointed(
-                    policy, loss_of, leaves, aux_params, x, y, key)
+                whole = dict(zip(names, C.all_gather_spec(
+                    [leaves[n] for n in names], pspec, mesh)))
+                loss, new_aux = forward_loss(
+                    whole, aux_params, _block(x, P(axes), mesh),
+                    _block(y, P(axes), mesh), key)
+                loss = C.pmean(loss, axes, mesh)
+                # the loss is replicated on every rank: each seeds a share
+                seed = torch.full_like(loss, 1 / mesh.size)
             grads = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                        allow_unused=True)
-        grads = {n: (g if g is not None else torch.zeros_like(params[n]))
-                 for n, g in zip(names, grads)}
+                                        grad_outputs=seed, allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(params[n])
+                 for n, g in zip(names, grads)]
+        if mesh is not None:
+            grads = C.sum_replicas(grads, [pspec] * len(names), mesh)
+        grads = dict(zip(names, grads))
         with torch.no_grad():
             new_params, new_state = opt_update(params, grads, opt_state, lr)
         aux_out = dict(aux_params)
@@ -269,7 +321,7 @@ def make_train_step(net: Block, loss_fn: Callable, optimizer: str = "sgd",
         return new_params, aux_out, new_state, loss.detach()
 
     step = _TrainStep(one_step, params0, aux0, opt_state0, learning_rate,
-                      max(1, int(unroll_steps)), donate, _capture)
+                      max(1, int(unroll_steps)), donate, capture)
     if donate:
         return step, step.params, step.aux, step.opt_state
     return (step, _clone(step.params), _clone(step.aux),
@@ -398,14 +450,17 @@ class _TrainStep:
 
 class DataParallelTrainer:
     """The functional step behind a stateful API (ref analog: Gluon Trainer
-    with kvstore 'device'), on one card: the captured step of
+    with kvstore 'device'): on one card the captured step of
     :func:`make_train_step`, whose learning rate is a tensor, so
-    :meth:`set_learning_rate` captures nothing new."""
+    :meth:`set_learning_rate` captures nothing new; on ``mesh`` (or the
+    current mesh) its per-rank step, every rank calling :meth:`step` with
+    the global batch."""
 
     def __init__(self, net: Block, loss_fn, optimizer="sgd",
                  optimizer_params=None, mesh=None, param_spec=None,
                  unroll_steps: int = 1):
-        _no_mesh("DataParallelTrainer", mesh, param_spec)
+        self._mesh = mesh if mesh is not None else get_mesh()
+        self._spec = param_spec if param_spec is not None else P()
         optimizer_params = optimizer_params or {}
         self._net = net
         self._lr = float(optimizer_params.get("learning_rate", 0.01))
@@ -415,6 +470,7 @@ class DataParallelTrainer:
                 net, loss_fn, optimizer, learning_rate=self._lr,
                 momentum=float(optimizer_params.get("momentum", 0.0)),
                 wd=float(optimizer_params.get("wd", 0.0)),
+                mesh=self._mesh, param_spec=param_spec,
                 unroll_steps=self._unroll)
         self._loss = None
 
@@ -437,11 +493,16 @@ class DataParallelTrainer:
         return _wrap(loss)
 
     def sync_to_net(self):
-        """Write copies of the step's parameters and aux values into the
-        net (the step goes on updating its own buffers)."""
+        """Write copies of the step's parameters (whole, gathered from the
+        ranks on a mesh) and aux values into the net (the step goes on
+        updating its own buffers)."""
         with autograd.pause():
             for n, p in self._net.collect_params().items():
-                if n in self._params:
+                if n in self._params and self._mesh is not None:
+                    p.data()._set_data(_gather_blocks(
+                        self._params[n], self._spec, self._mesh).to(
+                            p.data()._data.device))
+                elif n in self._params:
                     p.data()._set_data(self._params[n].clone())
                 elif n in self._aux:
                     p.data()._set_data(self._aux[n].clone())

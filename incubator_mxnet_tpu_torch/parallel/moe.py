@@ -1,10 +1,13 @@
-"""Mixture-of-Experts FFN on one device.
+"""Mixture-of-Experts FFN, on one device and expert-parallel.
 
-Counterpart of ``top1_gating`` and ``moe_layer_dense`` of the JAX
-package's ``parallel/moe.py``: Switch-style top-1 routing with a per-expert
-capacity, dense dispatch/combine tensors and the load-balancing auxiliary
-loss. The expert-parallel ``moe_layer_sharded`` waits for the distributed
-slice (``ROADMAP.md`` A10).
+Counterpart of the JAX package's ``parallel/moe.py``: Switch-style top-1
+routing with a per-expert capacity, dense dispatch/combine tensors and
+the load-balancing auxiliary loss (``top1_gating``, ``moe_layer_dense``),
+and ``moe_layer_sharded``: tokens and experts split over the ``expert``
+mesh axis, each rank routing its tokens to all experts, a tiled
+all-to-all carrying every expert's rows to the rank that holds it and
+back, and the aux loss averaged over the axis (:func:`moe_layer_local`
+is that per-rank body).
 
 Types follow the reference: the dispatch one-hots are float32, so the
 expert inputs, the expert FFN and the combined output are computed in the
@@ -16,8 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import matmul_promoted
+from . import collectives as C
+from .mesh import P, _need_mesh, shard_map
 
-__all__ = ["top1_gating", "moe_layer_dense"]
+__all__ = ["top1_gating", "moe_layer_dense", "moe_layer_local",
+           "moe_layer_sharded"]
 
 
 def _one_hot(idx, n: int):
@@ -64,3 +70,47 @@ def moe_layer_dense(x, gate_w, expert_w1, expert_b1, expert_w2, expert_b2,
           + expert_b2.to(dt)[:, None, :])
     y = torch.einsum("ecd,tec->td", ye, combine.to(dt))
     return y, aux
+
+
+def moe_layer_local(x, gate_w, expert_w1, expert_b1, expert_w2, expert_b2,
+                    n_experts: int, axis_name: str = "expert",
+                    capacity_factor: float = 1.25, mesh=None):
+    """Expert-parallel body: x (local tokens, d) and this rank's
+    ``n_experts / axis size`` experts; the capacity is that of the local
+    tokens over all ``n_experts``. Returns (y (local tokens, d), aux
+    averaged over the axis)."""
+    mesh = _need_mesh(mesh)
+    n_tokens, _ = x.shape
+    capacity = max(1, int(capacity_factor * n_tokens / n_experts))
+    combine, disp, aux = top1_gating(matmul_promoted(x, gate_w), capacity)
+    dt = torch.promote_types(x.dtype, disp.dtype)
+    # every expert's rows from the local tokens: (E, capacity, d)
+    xe = torch.einsum("td,tec->ecd", x.to(dt), disp.to(dt))
+    # (E, cap, d) -> (E_local, n_shards * cap, d): this rank's experts'
+    # rows from every rank
+    xe = C.all_to_all(xe, axis_name, 0, 1, mesh)
+    h = torch.relu(torch.einsum("ecd,edh->ech", xe, expert_w1.to(dt))
+                   + expert_b1.to(dt)[:, None, :])
+    ye = (torch.einsum("ech,ehd->ecd", h, expert_w2.to(dt))
+          + expert_b2.to(dt)[:, None, :])
+    ye = C.all_to_all(ye, axis_name, 1, 0, mesh)      # and back
+    y = torch.einsum("ecd,tec->td", ye, combine.to(dt))
+    return y, C.pmean(aux, axis_name, mesh)
+
+
+def moe_layer_sharded(x, gate_w, expert_w1, expert_b1, expert_w2, expert_b2,
+                      mesh=None, axis_name: str = "expert",
+                      capacity_factor: float = 1.25):
+    """Expert-parallel MoE on global tensors: the tokens of ``x`` and the
+    experts split over ``axis_name`` (``mesh.shard_map``); returns the
+    global (y, aux) on every rank."""
+    mesh = _need_mesh(mesh)
+    n_exp = expert_w1.shape[0]
+    t, e = P(axis_name), P(axis_name)
+
+    def body(xl, gw, w1, b1, w2, b2):
+        return moe_layer_local(xl, gw, w1, b1, w2, b2, n_exp, axis_name,
+                               capacity_factor, mesh)
+
+    return shard_map(body, mesh, (t, P(), e, e, e, e), (t, P()))(
+        x, gate_w, expert_w1, expert_b1, expert_w2, expert_b2)

@@ -76,7 +76,11 @@ def test_importing_the_port_loads_no_jax():
                  "gluon.contrib.nn.basic_layers", "gluon.contrib.rnn",
                  "gluon.contrib.rnn.rnn_cell",
                  "gluon.contrib.rnn.conv_rnn_cell", "contrib.autograd",
-                 "contrib.io", "contrib.ndarray", "contrib.tensorboard"):
+                 "contrib.io", "contrib.ndarray", "contrib.tensorboard",
+                 "parallel.mesh", "parallel.collectives",
+                 "parallel.ring_attention", "parallel.ulysses",
+                 "parallel.tp", "parallel.pipeline", "parallel.world",
+                 "tools.launch"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -97,7 +101,11 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     for rel in (("image", "detection.py"), ("input_service.py",),
                 ("elastic.py",), ("contrib", "text.py"),
                 ("gluon", "contrib", "data", "text.py"), ("rnn", "io.py"),
-                ("gluon", "model_zoo", "vision", "inception.py")):
+                ("gluon", "model_zoo", "vision", "inception.py"),
+                ("parallel", "mesh.py"), ("parallel", "collectives.py"),
+                ("parallel", "ulysses.py"), ("parallel", "tp.py"),
+                ("parallel", "pipeline.py"), ("parallel", "world.py"),
+                ("tools", "launch.py")):
         assert PKG_DIR.joinpath(*rel) in files, rel
     for f in files:
         text = f.read_text()

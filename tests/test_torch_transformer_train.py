@@ -292,8 +292,10 @@ def test_step_matches_leaves_by_key_not_position():
 
 
 def test_mesh_is_refused():
+    # a mesh is the port's parallel.mesh.Mesh (tests/test_torch_mesh_train.py
+    # runs the mesh step); anything else is refused
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tt.make_transformer_train_step(tcfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="ulysses"):
         tt.TransformerConfig(use_ring_attention=False,

@@ -5,6 +5,8 @@ of the paths they drive than the whole script):
     python3 tools/chip_phases.py 17 20           # the LSTM and detection
                                                  # kernels' checks
     python3 tools/chip_phases.py 31              # the fused trainer step
+    python3 tools/chip_phases.py 32              # the mesh (8 gloo ranks
+                                                 # on the card, 1 NCCL)
 
 It builds the kernels, runs each named phase in turn with its inputs
 from the phases it would follow left out (their img/s logged as None)
@@ -20,6 +22,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
+from tools import chip_mesh  # noqa: E402
 
 
 def main(names) -> int:
@@ -39,7 +42,8 @@ def main(names) -> int:
         "29": lambda: cs.zoo_serving_phase(mx, vision),
         "30": lambda: cs.bucketed_lm_phase(mx, common, records),
         "31": lambda: cs.fused_step_phase(mx, gluon, vision, common,
-                                          records)}
+                                          records),
+        "32": lambda: chip_mesh.mesh_phase(cs.log, records)}
     unknown = [n for n in names if n not in phases]
     if not names or unknown:
         print(__doc__ + f"\nphases: {sorted(phases)}", file=sys.stderr)

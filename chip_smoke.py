@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eleven main paths on the card and holds every CUDA kernel
+Drives the port's main paths on the card and holds every CUDA kernel
 of them against its plain PyTorch version:
 
 * generative LM serving through ``InferenceEngine.load_model(generate=...)``
@@ -59,6 +59,14 @@ of them against its plain PyTorch version:
   the ResNet-50 step; AlexNet, DenseNet, SqueezeNet, Inception V3 and the
   MobileNets served as bucket graphs; and the word LM fed by
   ``WikiText2`` through ``rnn.BucketSentenceIter``, one graph a bucket.
+* the sparse recommender path: ``parallel.embedding
+  .make_sharded_train_step`` training DLRM at ``bench.py``'s 100M-row lane
+  (one card, then 8 gloo ranks on the card) and the sharded FM at
+  ``BASELINE.json``'s config #5, every table update one
+  ``row_sparse_update`` launch and every tower update one
+  ``multi_tensor_update``; the table checkpointed through
+  ``fault.CheckpointManager`` and restored; ``Trainer(kvstore="dist_sync")``
+  and a ``dist_async`` round across the ranks.
 
 Phases:
 
@@ -394,6 +402,23 @@ Phases:
    sizes; and a 1-rank NCCL world running the LM at depth 2 on the
    trivial mesh. The flash rows of the kernels line carry the mesh
    launches (``mesh_launches``).
+33. the sparse recommender path (``tools/chip_embed.py``,
+   :func:`embed_phase`): DLRM at 100M rows (dim 8, 26 ids, batch 4,096,
+   SGD) on the card, 1 warm-up and 5 timed steps counted from zero (one
+   ``row_sparse_update`` and one ``multi_tensor_update`` (the tower) a
+   step on the kernel routes, no densify, one sort a step; step ms,
+   samples/s, dedup ratio, a profiled window), the
+   kernel against its twin bit for bit on a step's own rows with its times
+   and bound, the step at 1M rows on the card against the CPU; the sharded
+   FM (1M features, factor 16, 39 active, batch 8,192, Adam): two row
+   launches and one tower launch a step, the kernel against its twin;
+   then 8 gloo ranks on the card (3 steps of the 100M-row DLRM against
+   one card's, one launch of each kernel a rank a step, the collectives'
+   share), the table checkpointed by every rank and restored on the card
+   bit for bit, a ``dist_sync`` Trainer step and a ``dist_async`` round.
+   The ``row_sparse_update`` and ``multi_tensor_update`` records of the
+   kernels line carry this path's launches (``launches_by_phase``), the
+   row kernel's its times at DLRM's and FM's shapes beside phase 31's.
 
 After every phase, ``_memory_held`` drops cuBLAS's workspaces, empties the
 caching allocator's cache and logs allocated and reserved bytes; where
@@ -8488,21 +8513,29 @@ def _updater_tensors(upd, ws):
     return out
 
 
-def _kernel_ms(fn, substr, calls: int = 5):
+def _kernel_ms(fn, substr, calls: int = 5, rounds: int = 4):
     """From torch.profiler over ``calls`` calls of ``fn`` (no CUDA graph:
     the fused step copies its table from pinned host memory at every
     call): the mean device ms of one launch of the kernels whose names
     hold ``substr`` (launched once a call; a window can lose records, so
     the mean over the records kept), and the device ms of every kernel of
-    a call (their sum over the window by ``calls``). (None, None) when the
-    tracer delivers nothing."""
+    a call (their sum over the window by ``calls``). A window whose
+    records hold no such kernel is profiled again behind more warm-up
+    windows, up to ``rounds`` times ``_device_events``' tries; after that
+    it raises: the time is measured or the phase fails."""
     def window():
         for _ in range(calls):
             fn()
-    dev, _ = _device_events(window)
-    if dev is None:
-        return None, None
-    mine = [e for e in dev if substr in e.key]
+    for attempt in range(rounds):
+        dev, _ = _device_events(window, widened=3 * attempt)
+        mine = [e for e in dev or () if substr in e.key]
+        if mine:
+            break
+        log(f"_kernel_ms: no record of {substr!r} (round {attempt + 1} of "
+            f"{rounds})")
+    else:
+        raise AssertionError(f"_kernel_ms: the profiler kept no record of "
+                             f"{substr!r} in {rounds} rounds of windows")
     kept = sum(e.count for e in mine)
     if kept < calls:
         log(f"_kernel_ms: the window kept {kept} records of {calls} "
@@ -9293,6 +9326,9 @@ def main() -> int:
     from tools import chip_mesh
     mesh = chip_mesh.mesh_phase(log, records)
     phase_done("phase 32, the mesh")
+    from tools import chip_embed
+    embed = chip_embed.embed_phase(log, records)
+    phase_done("phase 33, the sparse recommender path")
 
     log(f"decode kernel timings {json.dumps(decode_timing)}")
     log(f"serving {json.dumps(serve)}")
@@ -9325,6 +9361,7 @@ def main() -> int:
     log(f"the bucketed word LM {json.dumps(bucketed_lm)}")
     log(f"the fused trainer step {json.dumps(fused_step)}")
     log(f"the mesh {json.dumps(mesh)}")
+    log(f"the sparse recommender path {json.dumps(embed)}")
     over = [h["phase"] for h in held
             if h["reserved_gb"] - h["allocated_gb"] > MEMORY_SLACK_BYTES / 1e9]
     table = [[h["phase"], round(h["seconds"], 1), round(h["allocated_gb"], 3),

@@ -11,7 +11,12 @@ Typical use, as with the reference::
         y = nd.softmax(x * 2)
     y.backward()
 
-The port covers so far: sparse storage (``nd.sparse``), ``nd.linalg``, the
+The port covers so far: the parameter-server half of the distributed
+slice (``parallel.embedding``'s sharded tables on the row-sparse update
+kernel, ``gluon.nn.ShardedEmbedding``, ``models.sparse_recommenders``,
+``kvstore`` with the async parameter server, ``Trainer``'s distributed
+stores and ``fault``) (slice 29); sparse storage (``nd.sparse``),
+``nd.linalg``, the
 fused trainer step (``optimizer.fused``) on its multi-tensor kernels, and
 the small ``contrib`` and ``gluon.contrib`` modules, ``util``, ``log``,
 ``misc`` and ``libinfo`` (slice 27); the rest of vision and input (``image``'s
@@ -79,6 +84,9 @@ from . import libinfo
 from .libinfo import __version__
 from . import log
 from . import misc
+from . import kvstore
+from . import fault
+from . import kvstore_server
 
 __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "MXTPUError", "Context", "cpu", "gpu", "tpu", "device",
@@ -88,4 +96,5 @@ __all__ = ["DEFAULT_DEVICE", "NoCudaDeviceError", "resolve_device",
            "optimizer", "gluon", "rtc", "operator", "CustomOp",
            "CustomOpProp", "register_op", "test_utils", "registry",
            "contrib", "io", "recordio", "image", "rnn", "elastic",
-           "input_service", "util", "libinfo", "log", "misc"]
+           "input_service", "util", "libinfo", "log", "misc", "kvstore",
+           "fault"]

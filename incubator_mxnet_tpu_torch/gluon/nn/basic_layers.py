@@ -4,8 +4,8 @@ Counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py`` (ref:
 python/mxnet/gluon/nn/basic_layers.py — Sequential, HybridSequential, Dense,
 Dropout, BatchNorm, InstanceNorm, LayerNorm, Embedding, Flatten, Lambda,
 HybridLambda; activations.py — Activation, LeakyReLU, PReLU, ELU, SELU,
-Swish, GELU), over the port's ``nd`` ops. ``ShardedEmbedding`` (a table
-row-sharded over a mesh) is the multi-card slice and raises.
+Swish, GELU), over the port's ``nd`` ops, and ``ShardedEmbedding`` (a
+table row-sharded over a mesh, ``parallel/embedding.py``).
 """
 from __future__ import annotations
 
@@ -306,13 +306,76 @@ class Embedding(HybridBlock):
 
 
 class ShardedEmbedding(HybridBlock):
-    """Embedding whose table is row-sharded across a mesh axis: the
-    multi-card slice (ROADMAP.md A10b), not ported."""
+    """Embedding whose table is row-sharded over a mesh axis
+    (``parallel/embedding.py``, ref: kvstore.h:209 PullRowSparse and the
+    sparse updaters).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedEmbedding: mesh-sharded tables are ROADMAP.md A10b (not "
-            "ported)")
+    The parameter has ``grad_req='null'`` on purpose: a 100M-row table
+    never gets a dense gradient buffer. Training goes through
+    ``parallel.embedding.make_sharded_train_step`` (dedup gather, the
+    all-to-alls on a mesh, lazy row updates); under that step's
+    ``rows_override`` the forward returns the rows it gathered. Alone, the
+    forward is the dedup gather (ids outside the table give zero rows):
+    local, or, for a table born sharded over several ranks, the mesh's
+    (every rank of the axis calls it with its own ids).
+    """
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, mesh_axis=None, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim = int(input_dim)
+        self._output_dim = int(output_dim)
+        self._mesh_axis = mesh_axis
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, grad_req="null",
+                differentiable=False)
+        self.weight._embed_shard = {"input_dim": self._input_dim,
+                                    "axis": mesh_axis}
+
+    def initialize_table(self, mesh=None, key=0, scale=None, device=None):
+        """Make the table born sharded: this rank's rows only, on its
+        device (``parallel.embedding.init_table``), never the whole table
+        in one place. Returns the parameter."""
+        from ...parallel import embedding as _embed
+        from ...ndarray.ndarray import _wrap, to_torch_dtype
+        mesh, axis, n_shards, idx = _embed._layout(mesh, self._mesh_axis)
+        arr = _embed.init_table(self._input_dim, self._output_dim,
+                                mesh=mesh, axis=axis, key=key,
+                                dtype=to_torch_dtype(self.weight.dtype),
+                                scale=scale, device=device)
+        self.weight._shape = tuple(arr.shape)
+        self.weight._init_impl(_wrap(arr), None)
+        self.weight._embed_shard["shards"] = (n_shards, idx)
+        return self.weight
+
+    def forward(self, x):
+        from ...parallel import embedding as _embed
+        from ...ndarray.ndarray import invoke
+        rows = _embed.override_rows_for(self.weight.name)
+        dim = self._output_dim
+        if rows is not None:
+            # the sharded step gathered the rows outside the
+            # differentiated loss: the forward consumes them
+            return invoke(lambda i: rows.reshape(tuple(i.shape) + (dim,)),
+                          [x], "ShardedEmbedding")
+        dedup = _embed.dedup_enabled()
+        born = self.weight._embed_shard.get("shards")
+        if born is not None and born[0] > 1:
+            # this rank holds its rows only: the gather is the mesh's (a
+            # collective every rank of the axis calls with its own ids)
+            mesh, axis, n, _ = _embed._layout(None, self._mesh_axis)
+            return invoke(lambda i, w: _embed._shard_gather(
+                w, i, axis, n, dedup, mesh)[0], [x, self.weight.data()],
+                "ShardedEmbedding")
+        return invoke(lambda i, w: _embed.dedup_take(w, i, dedup)[0],
+                      [x, self.weight.data()], "ShardedEmbedding")
+
+    def __repr__(self):
+        return (f"ShardedEmbedding({self._input_dim} -> "
+                f"{self._output_dim}, axis={self._mesh_axis or 'auto'})")
 
 
 class Flatten(HybridBlock):

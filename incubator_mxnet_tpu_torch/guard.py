@@ -35,9 +35,8 @@ Every trip emits a structured ``GuardEvent`` through registered listeners
 Differences from the reference:
 
 * the rollback rung restores through any manager with ``latest()`` and
-  ``restore(net=, trainer=, module=, step=)`` (the reference's
-  ``fault.CheckpointManager``; ``fault.py`` is ROADMAP.md A10b), or through
-  ``restore_fn``;
+  ``restore(net=, trainer=, module=, step=)`` (``fault.CheckpointManager``),
+  or through ``restore_fn``;
 * the fused trainer step's census is a one-byte flag that
   ``multi_tensor_all_finite`` leaves on the card (``optimizer/fused.py``);
   ``flush_census`` reads it with one ``.cpu()`` a queued step;
@@ -339,8 +338,8 @@ class TrainingGuard:
     optionally gradients/params via ``check_tensors``); wrap phases in
     ``watch("data"|"forward"|"step"|"ckpt")``. ``gluon.Trainer``
     accepts ``guard=GuardPolicy(...)`` (or a guard) and checks each step's
-    gradients itself (the reference's ``fault.auto_resume_fit`` and
-    ``module.BaseModule.fit`` are ROADMAP.md A10b and A11).
+    gradients itself, and so does ``fault.auto_resume_fit`` (the
+    reference's ``module.BaseModule.fit`` is ROADMAP.md A11).
     """
 
     def __init__(self, policy: Optional[GuardPolicy] = None,

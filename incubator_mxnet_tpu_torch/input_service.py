@@ -45,7 +45,7 @@ Chaos points (scriptable via ``MXTPU_CHAOS``, see chaos.py):
 Elastic: ``elastic_rebuild(view)`` re-points the per-rank slicing at a
 new ``GroupView`` without touching workers or the window: decoded global
 batches survive a remesh. (The controller that drives it,
-``fault.auto_resume_fit(elastic=...)``, is ROADMAP.md A10b.)
+``fault.auto_resume_fit(elastic=...)``, is ROADMAP.md A10c.)
 
 ``num_workers=0`` decodes inline (no subprocesses): same sharding,
 windowing, quarantine and chaos semantics.

@@ -6,8 +6,11 @@ from .transformer import (TransformerConfig, init_transformer_params,
 from .ssd import (SSD, SSDMultiBoxLoss, ssd_300_vgg16_atrous,
                   ssd_512_resnet50_v1, ssd_toy)
 from .word_lm import RNNModel
+from .sparse_recommenders import (DLRM, FactorizationMachine,
+                                  ShardedFactorizationMachine, WideDeep)
 
-__all__ = ["RNNModel", "SSD", "SSDMultiBoxLoss", "TransformerConfig",
+__all__ = ["DLRM", "FactorizationMachine", "RNNModel", "SSD",
+           "ShardedFactorizationMachine", "WideDeep", "SSDMultiBoxLoss", "TransformerConfig",
            "init_transformer_params", "make_transformer_train_step",
            "opt_state_from_jax",
            "params_from_jax", "ssd_300_vgg16_atrous", "ssd_512_resnet50_v1",

@@ -43,6 +43,7 @@ __all__ = ["psum", "pmean", "pmax", "pmin", "all_gather", "reduce_scatter",
            "ppermute", "all_to_all", "axis_index", "axis_size",
            "barrier_sum", "raw_all_reduce", "raw_all_gather",
            "raw_reduce_scatter", "raw_ppermute", "raw_all_to_all",
+           "world_all_reduce",
            "all_gather_spec", "sum_replicas", "synced_moments", "timing",
            "COMM_SECONDS"]
 
@@ -80,11 +81,12 @@ def _timed():
         COMM_SECONDS[1] += 1
 
 
-def _stage(x, mesh: Mesh):
-    """The tensor a collective runs on: a pinned host copy on a staged
-    mesh, else ``x`` itself (contiguous)."""
+def _stage(x, staged: bool):
+    """The tensor a collective runs on: a pinned host copy of a CUDA ``x``
+    when the collective is ``staged`` (gloo), else ``x`` itself
+    (contiguous)."""
     x = x.contiguous()
-    if mesh.staged and x.is_cuda:
+    if staged and x.is_cuda:
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         h.copy_(x)
         return h
@@ -107,10 +109,26 @@ def raw_all_reduce(x, axis_name, op: str = "sum",
     if group is None:
         return x
     with _timed():
-        h = _stage(x, mesh)
+        h = _stage(x, mesh.staged)
         if h is x:
             h = x.clone()
         dist.all_reduce(h, op=_OPS[op], group=group)
+        return _unstage(h, x)
+
+
+def world_all_reduce(x, op: str = "sum"):
+    """``x`` reduced over every rank of the process's world (no mesh: the
+    stores' reduction), on ``x``'s device; ``x`` is left as it is. A gloo
+    world stages a CUDA ``x`` as a staged mesh does; an NCCL world reduces
+    a CPU ``x`` through a copy on the card."""
+    with _timed():
+        if dist.get_backend() == "nccl" and not x.is_cuda:
+            h = x.cuda()
+        else:
+            h = _stage(x, dist.get_backend() == "gloo")
+            if h is x:
+                h = x.clone()
+        dist.all_reduce(h, op=_OPS[op])
         return _unstage(h, x)
 
 
@@ -121,7 +139,7 @@ def raw_all_gather(x, axis_name, axis: int = 0, mesh: Optional[Mesh] = None,
     if group is None:
         return x if tiled else x.unsqueeze(axis)
     with _timed():
-        h = _stage(x, mesh)
+        h = _stage(x, mesh.staged)
         parts = [torch.empty_like(h) for _ in ranks]
         dist.all_gather(parts, h, group=group)
         out = (torch.cat(parts, dim=axis) if tiled
@@ -160,7 +178,7 @@ def raw_ppermute(x, axis_name, perm: Sequence[Tuple[int, int]],
     if group is None:
         return x.clone() if srcs else torch.zeros_like(x)
     with _timed():
-        h = _stage(x, mesh)
+        h = _stage(x, mesh.staged)
         recv = torch.zeros_like(h)
         ops = []
         if dsts and dsts[0] == me:
@@ -193,7 +211,7 @@ def raw_all_to_all(x, axis_name, split_axis: int, concat_axis: int,
                          f"does not split over {n}")
     with _timed():
         blocks = torch.stack(x.chunk(n, dim=split_axis), dim=0)
-        h = _stage(blocks, mesh)
+        h = _stage(blocks, mesh.staged)
         out = torch.empty_like(h)
         dist.all_to_all_single(out, h, group=group)
         out = _unstage(out, x)

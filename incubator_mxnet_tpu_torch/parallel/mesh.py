@@ -350,7 +350,7 @@ def remesh(devices, like: Optional[Mesh] = None) -> Mesh:
     keeps its size and ``data`` absorbs the new count; with no template a
     one-axis ``('data',)`` mesh. Every rank of the world calls it and
     must be in ``devices`` (a world that loses ranks is the elastic
-    controller's, ROADMAP.md A10b); it installs and returns the new
+    controller's, ROADMAP.md A10c); it installs and returns the new
     mesh."""
     like = like if like is not None else get_mesh()
     arr = np.asarray(list(devices))

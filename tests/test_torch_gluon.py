@@ -390,9 +390,29 @@ def test_trainer_state_round_trip_and_local_stores(tmp_path):
         for a, b in zip(v, tr2._updaters[0].states[k]):
             np.testing.assert_array_equal(_np(a), _np(b))
     assert tr2.optimizer.param_dict[0] is tr._params[0]
-    for bad in (dict(kvstore="dist_sync"), dict(update_on_kvstore=True)):
-        with pytest.raises(NotImplementedError):
-            tmx.gluon.Trainer(net.collect_params(), "sgd", **bad)
+    # the distributed store and the update on the store (one process here;
+    # tests/test_torch_kvstore.py runs them across ranks): a step of each
+    # equals the local step
+    want = None
+    for kw in (dict(kvstore="device"), dict(kvstore="dist_sync"),
+               dict(update_on_kvstore=True)):
+        with tmx.name.NameManager():
+            n2 = _mlp(tmx)
+        n2.initialize(tmx.init.Xavier())
+        params_from_jax(n2, {k: _np(p.data()) for k, p in
+                             net._collect_params_with_prefix().items()})
+        t3 = tmx.gluon.Trainer(n2.collect_params(), "sgd",
+                               {"learning_rate": 0.1}, **kw)
+        with tmx.autograd.record():
+            loss = (n2(tmx.nd.array(x)) ** 2).mean()
+        loss.backward()
+        t3.step(1)
+        assert t3._update_on_kvstore == (kw.get("kvstore") != "device")
+        got = [_np(p.data()) for p in n2.collect_params().values()]
+        if want is None:
+            want = got
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, **TOL)
     # guard= takes a GuardPolicy or a TrainingGuard (tests/test_torch_guard.py)
     with pytest.raises(TypeError, match="GuardPolicy"):
         tmx.gluon.Trainer(net.collect_params(), "sgd", guard="skip")
@@ -479,8 +499,18 @@ def test_split_and_load_and_clip_global_norm():
 def test_symbolic_and_sharded_pieces_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         tmx.gluon.SymbolBlock(None, None)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tmx.gluon.nn.ShardedEmbedding(10, 4)
+    # the sharded table (parallel/embedding.py) is ported: a dedup lookup
+    # of a table with no gradient buffer, ids past it zero rows
+    with tmx.name.NameManager():
+        se = tmx.gluon.nn.ShardedEmbedding(10, 4)
+    se.initialize()
+    ids = np.array([[1, 3, 3, -1], [9, 10, 0, 1]], np.float32)
+    out = se(tmx.nd.array(ids)).asnumpy()
+    w = _np(se.weight.data())
+    ok = (ids >= 0) & (ids < 10)
+    np.testing.assert_array_equal(out[ok], w[ids[ok].astype(int)])
+    np.testing.assert_array_equal(out[~ok], 0.0)
+    assert se.weight.grad_req == "null"
     with tmx.name.NameManager():
         net = tmx.gluon.nn.Dense(2, in_units=2)
     with pytest.raises(NotImplementedError, match="A11"):

@@ -80,7 +80,9 @@ def test_importing_the_port_loads_no_jax():
                  "parallel.mesh", "parallel.collectives",
                  "parallel.ring_attention", "parallel.ulysses",
                  "parallel.tp", "parallel.pipeline", "parallel.world",
-                 "tools.launch"):
+                 "tools.launch", "parallel.embedding",
+                 "models.sparse_recommenders", "kvstore", "_ps",
+                 "kvstore_server", "fault"):
         assert f"incubator_mxnet_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -105,7 +107,9 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
                 ("parallel", "mesh.py"), ("parallel", "collectives.py"),
                 ("parallel", "ulysses.py"), ("parallel", "tp.py"),
                 ("parallel", "pipeline.py"), ("parallel", "world.py"),
-                ("tools", "launch.py")):
+                ("tools", "launch.py"), ("parallel", "embedding.py"),
+                ("models", "sparse_recommenders.py"), ("kvstore.py",),
+                ("_ps.py",), ("kvstore_server.py",), ("fault.py",)):
         assert PKG_DIR.joinpath(*rel) in files, rel
     for f in files:
         text = f.read_text()

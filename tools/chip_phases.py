@@ -7,6 +7,9 @@ of the paths they drive than the whole script):
     python3 tools/chip_phases.py 31              # the fused trainer step
     python3 tools/chip_phases.py 32              # the mesh (8 gloo ranks
                                                  # on the card, 1 NCCL)
+    python3 tools/chip_phases.py 33              # the sparse recommender
+                                                 # path (DLRM at 100M rows,
+                                                 # the FM, 8 gloo ranks)
 
 It builds the kernels, runs each named phase in turn with its inputs
 from the phases it would follow left out (their img/s logged as None)
@@ -22,7 +25,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
-from tools import chip_mesh  # noqa: E402
+from tools import chip_embed, chip_mesh  # noqa: E402
 
 
 def main(names) -> int:
@@ -43,7 +46,8 @@ def main(names) -> int:
         "30": lambda: cs.bucketed_lm_phase(mx, common, records),
         "31": lambda: cs.fused_step_phase(mx, gluon, vision, common,
                                           records),
-        "32": lambda: chip_mesh.mesh_phase(cs.log, records)}
+        "32": lambda: chip_mesh.mesh_phase(cs.log, records),
+        "33": lambda: chip_embed.embed_phase(cs.log, records)}
     unknown = [n for n in names if n not in phases]
     if not names or unknown:
         print(__doc__ + f"\nphases: {sorted(phases)}", file=sys.stderr)
